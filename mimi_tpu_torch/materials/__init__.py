@@ -1,0 +1,210 @@
+"""Material models as torch functions of the deformation gradient plus
+per-quadrature-point state.
+
+Counterpart of mimi_tpu/materials/__init__.py for the structure-of-arrays
+(SoA) hot path: F arrives as (dim, dim, *batch), state leaves as
+(dim, dim, *batch) or (*batch) tensors (fem/soa.py).  Each model exposes
+`cauchy_soa`, `pk1_soa` (stress, no state change) and `accumulate_soa`
+(the converged-step state update).  Tangents are forward-mode derivatives
+(torch.func.jvp) of these functions; the radial-return scalar solve runs
+on detached tensors and re-injects its exact sensitivity through one
+implicit-function-theorem correction.
+
+Ported so far: `J2` (small-strain J2 with nonlinear isotropic hardening).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .hardening import Hardening
+from .scalar_solve import make_scalar_solver
+from ..fem import soa
+
+_K_TOL = 1.0e-10
+
+
+class Material:
+    """Base: parameter store + elastic-constant conversions."""
+
+    # sigma symmetric and a function of F only through sym(F): the step
+    # may then store the 37-plane Cauchy-decomposition tangent
+    # (ops/sweeps.py cauchy_plane_layout)
+    tangent_cauchy_decomp = False
+    has_state = False
+
+    def __init__(self):
+        self.density = -1.0
+        self.viscosity = -1.0
+        self.lambda_ = -1.0
+        self.mu = -1.0
+        self.young = -1.0
+        self.poisson = -1.0
+        self.K = -1.0
+        self.G = -1.0
+
+    def name(self):
+        return type(self).__name__
+
+    def set_young_poisson(self, young, poisson):
+        self.young = young
+        self.poisson = poisson
+        self.lambda_ = young * poisson / ((1 + poisson) * (1 - 2 * poisson))
+        self.mu = young / (2.0 * (1.0 + poisson))
+        self.G = self.mu
+        self.K = young / (3.0 * (1.0 - 2.0 * poisson))
+
+    def set_lame(self, lam, mu):
+        self.young = mu * (3 * lam + 2 * mu) / (lam + mu)
+        self.poisson = lam / (2 * (lam + mu))
+        self.lambda_ = lam
+        self.mu = mu
+        self.G = mu
+        self.K = lam + 2 * mu / 3
+
+    def setup(self, dim):
+        self.dim = dim
+
+    def init_state(self, shape_prefix, dtype=torch.float64, device="cpu"):
+        return None
+
+    def pk1_soa(self, F, state, dt):
+        raise NotImplementedError(f"{self.name()} has no SoA fast path")
+
+    def accumulate_soa(self, F, state, dt):
+        return state
+
+
+def _pk1_from_cauchy_soa(sigma, F):
+    """P = det(F) sigma F^{-T}."""
+    return soa.det(F) * soa.matmul_nt(sigma, soa.inv(F))
+
+
+class _J2ThermoBase(Material):
+    """Shared parameters and radial-return machinery of the J2 family."""
+
+    has_state = True
+
+    def __init__(self):
+        super().__init__()
+        self.hardening: Hardening | None = None
+        self.heat_fraction = 0.9
+        self.specific_heat = -1.0
+        self.initial_temperature = 20.0
+        self.melting_temperature = -1.0
+
+    def setup(self, dim):
+        super().setup(dim)
+        if self.hardening is None:
+            raise RuntimeError(f"hardening missing for {self.name()}")
+        self.hardening.initialize_temperature(
+            self.initial_temperature, self.melting_temperature
+        )
+        self.hardening.validate()
+        self._tolerance = self.hardening.sigma_y_value() * _K_TOL
+        hard = self.hardening
+
+        # residual(delta_eqps; q, eqps_old, thermo, dt, slope), slope = 3G,
+        # and its derivative in delta
+        def residual_grad(delta, q, eqps_old, thermo, dt, slope):
+            rate = delta / dt
+            flow = hard.evaluate(eqps_old + delta)
+            rc = hard.rate_contribution(rate)
+            d_flow = hard.evaluate_grad(eqps_old + delta)
+            d_rc = hard.rate_contribution_grad(rate)
+            r = q - slope * delta - flow * (rc * thermo)
+            return r, -slope - (d_flow * (rc * thermo) + flow * ((d_rc / dt) * thermo))
+
+        self._residual_grad = residual_grad
+        self._solver = make_scalar_solver(residual_grad, _K_TOL, 100)
+
+    def _solve_delta_eqps(self, q, eqps_old, thermo, dt, slope):
+        """Masked radial-return solve: active where residual(0) > tol.
+
+        The bracketed Newton-bisection runs on detached inputs; the exact
+        sensitivity comes back through one implicit-function-theorem
+        correction delta = d* - r(d*, theta)/r'(d*), whose value equals d*
+        (r ~ 0 there) and whose forward derivative is the IFT derivative.
+        """
+        hard = self.hardening
+        thermo = torch.as_tensor(thermo, dtype=q.dtype, device=q.device)
+        r0, _ = self._residual_grad(
+            torch.zeros_like(q), q, eqps_old, thermo, dt, slope
+        )
+        active = r0 > self._tolerance
+        eval0 = hard.evaluate(eqps_old)
+        ub_raw = (q - eval0 * thermo) / slope
+        # benign substitute problem on elastic lanes (result discarded):
+        # residual(0) == 0 there, so they converge on the first check
+        q_safe = torch.where(active, q, eval0 * thermo)
+        ub = torch.where(active, ub_raw, 1.0)
+        theta_ng = (
+            q_safe.detach(), eqps_old.detach(), thermo.detach(), dt, slope
+        )
+        d_star = self._solver(0.0, 0.0, ub.detach(), self._tolerance, theta_ng)
+        # differentiable re-injection (theta with its tangents)
+        fval, _ = self._residual_grad(d_star, q_safe, eqps_old, thermo, dt, slope)
+        _, fprime = self._residual_grad(d_star, *theta_ng)
+        delta = d_star - fval / fprime
+        return torch.where(active, delta, 0.0), active
+
+
+class J2(_J2ThermoBase):
+    """Small-strain J2, nonlinear isotropic hardening (the reference's
+    materials.hpp J2)."""
+
+    tangent_cauchy_decomp = True  # sigma = sigma(sym F), symmetric
+
+    def init_state(self, shape_prefix, dtype=torch.float64, device="cpu"):
+        d = self.dim
+        return {
+            "plastic_strain": torch.zeros(
+                (*shape_prefix, d, d), dtype=dtype, device=device
+            ),
+            "eqps": torch.zeros(shape_prefix, dtype=dtype, device=device),
+            "temperature": torch.full(
+                shape_prefix, float(self.initial_temperature),
+                dtype=dtype, device=device,
+            ),
+        }
+
+    def _trial_soa(self, F, state):
+        eps = soa.add_diag(soa.sym(F) - state["plastic_strain"], -1.0)
+        p = self.K * soa.trace(eps)
+        s = soa.dev(eps, 2.0 * self.G)
+        q = math.sqrt(1.5) * soa.fro_norm(s)
+        return p, s, q
+
+    def _return_map(self, F, state, dt):
+        p, s, q = self._trial_soa(F, state)
+        thermo = self.hardening.thermo_contribution(state["temperature"])
+        delta, active = self._solve_delta_eqps(
+            q, state["eqps"], thermo, dt, 3.0 * self.G
+        )
+        N_p = (1.5 / torch.where(q > 0.0, q, 1.0)) * s
+        return p, s, q, delta, active, N_p
+
+    def cauchy_soa(self, F, state, dt):
+        p, s, q, delta, active, N_p = self._return_map(F, state, dt)
+        return soa.add_diag(s - 2.0 * self.G * delta * N_p, p)
+
+    def pk1_soa(self, F, state, dt):
+        return _pk1_from_cauchy_soa(self.cauchy_soa(F, state, dt), F)
+
+    def accumulate_soa(self, F, state, dt):
+        p, s, q, delta, active, N_p = self._return_map(F, state, dt)
+        new = dict(state)
+        new["eqps"] = state["eqps"] + delta
+        new["plastic_strain"] = state["plastic_strain"] + delta * N_p
+        if self.hardening.is_temperature_dependent():
+            new["temperature"] = state["temperature"] + torch.where(
+                active,
+                self.heat_fraction
+                * q
+                * delta
+                / (self.density * self.specific_heat),
+                0.0,
+            )
+        return new

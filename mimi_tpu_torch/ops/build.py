@@ -1,0 +1,88 @@
+"""Build and load the CUDA sweep kernels (ops/csrc/sweeps_sf.cu).
+
+nvcc compiles the sources into a shared library with a plain C interface
+(no PyTorch headers, so a build takes seconds), keyed by a hash of the
+sources and flags, into ops/_build/.  The library is loaded with ctypes;
+every pointer and the stream are passed as c_void_p.  Nothing here runs
+at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+SOURCES = [os.path.join(_HERE, "csrc", "sweeps_sf.cu")]
+FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+BUILD_DIR = os.path.join(_HERE, "_build")
+
+_LIB = None
+# seconds and compiler output of the last build in this process
+BUILD_INFO = {"seconds": None, "cached": None, "log": ""}
+
+
+def nvcc():
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in (
+        os.path.join(home, "bin", "nvcc") if home else None,
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+
+
+def _tag():
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for src in SOURCES:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def build():
+    """Compile (unless this exact build exists) and return the .so path."""
+    so = os.path.join(BUILD_DIR, f"libmimi_sweeps_{_tag()}.so")
+    t0 = time.perf_counter()
+    if os.path.exists(so):
+        BUILD_INFO.update(seconds=time.perf_counter() - t0, cached=True, log="")
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    proc = subprocess.run(
+        [nvcc(), *FLAGS, "-o", tmp, *SOURCES], capture_output=True, text=True
+    )
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    os.replace(tmp, so)
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, cached=False, log=log)
+    return so
+
+
+def load():
+    """The loaded kernel library with its ctypes signatures."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    from .sweeps import _J2Params
+
+    lib = ctypes.CDLL(build())
+    vp, ll = ctypes.c_void_p, ctypes.c_longlong
+    lib.mimi_residual_sf.argtypes = [vp] * 14 + [_J2Params, ll, vp]
+    lib.mimi_assemble_sf.argtypes = [vp] * 15 + [_J2Params, ll, vp]
+    lib.mimi_matvec_sf.argtypes = [vp] * 11 + [ctypes.c_float] * 2 + [ll, vp]
+    for fn in (lib.mimi_residual_sf, lib.mimi_assemble_sf, lib.mimi_matvec_sf):
+        fn.restype = ctypes.c_int
+    _LIB = lib
+    return lib

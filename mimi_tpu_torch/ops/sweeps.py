@@ -1,0 +1,474 @@
+"""The step's three quadrature sweeps on sum-factorized tables: residual,
+residual + Cauchy-decomposition tangent (assemble), and the GMRES matvec.
+
+Counterpart of mimi_tpu/ops/sweeps.py (`make_residual_sweep`,
+`make_assemble_sweep` and `make_matvec_sweep_sf` in their sum-factorized,
+c_storage="cauchy" branches).  Each sweep has
+  - a plain torch version (`*_plain`), dtype-generic, written as staged
+    sum-factorization einsums on whole (n_q, n_el) planes;
+  - a wrapper (`residual_sf`, `assemble_sf`, `matvec_sf`) that runs the
+    plain version for CPU tensors and launches the hand-written CUDA
+    kernel of ops/csrc/sweeps_sf.cu for CUDA tensors (float32 only), and
+    counts those launches in `LAUNCHES`.
+
+Layouts (batch-last, elements fastest; shared with the JAX package):
+element dof values (dim, nd, n_el) with n = a0 + P a1 + P^2 a2; per-axis
+1D tables B0, D0, B1, D1, B2, D2 of shape (n_g, p+1, n_el); the per-qp
+Jacobian inverse jinv[a, f] = d xi_a / d X_f of shape (3, 3, n_q, n_el)
+with q = q0 + G q1 + G^2 q2; quadrature weights times det J, wq
+(n_q, n_el); material state leaves (3, 3, n_q, n_el) / (n_q, n_el).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+from torch.func import jvp
+
+from ..fem import soa
+
+# kernel launches since the last reset, per kernel (CUDA tensors only)
+LAUNCHES = {"matvec_sf": 0, "assemble_sf": 0, "residual_sf": 0}
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def tri_index_map(d2: int):
+    """Upper-triangle plane index for symmetric tangent storage:
+    (a, b) with a <= b -> flat index into d2*(d2+1)//2 planes."""
+    idx = {}
+    k = 0
+    for a in range(d2):
+        for b in range(a, d2):
+            idx[(a, b)] = k
+            k += 1
+    return idx, k
+
+
+def sym_basis(dim: int):
+    """Symmetric-tensor basis index pairs, row-major upper triangle:
+    dim 3 -> [(0,0),(0,1),(0,2),(1,1),(1,2),(2,2)]."""
+    return [(i, j) for i in range(dim) for j in range(i, dim)]
+
+
+def cauchy_plane_layout(dim: int):
+    """Plane layout of the Cauchy-decomposition tangent block:
+    [0:n_tri)            D-hat = d sigma / d eps, upper triangle over the
+                         sym_basis x sym_basis Voigt matrix
+    [n_tri:n_tri+n_sym)  sigma entries in sym_basis order
+    [+dim*dim)           F^{-1} row-major
+    [last]               J = det F
+    Total: dim 3 -> 21 + 6 + 9 + 1 = 37 planes."""
+    n_sym = dim * (dim + 1) // 2
+    tri, n_tri = tri_index_map(n_sym)
+    return {
+        "sym": sym_basis(dim),
+        "tri": tri,
+        "n_tri": n_tri,
+        "off_sig": n_tri,
+        "off_fi": n_tri + n_sym,
+        "off_j": n_tri + n_sym + dim * dim,
+        "n_plane": n_tri + n_sym + dim * dim + 1,
+    }
+
+
+def build_sf_tables(patch, x_ref, conn, n_q_axis, dtype=np.float64,
+                    return_det=False):
+    """Host-side factors of the sum-factorized sweeps on one polynomial
+    3D patch: per-axis per-element 1D basis tables and the per-qp inverse
+    geometric Jacobian.
+
+    Returns (tables, jinv): tables = [B0, D0, B1, D1, B2, D2] each
+    (n_g, p+1, n_el); jinv (3, 3, n_q, n_el); with return_det=True also
+    detJ (n_el, n_q), all computed in float64 and cast to `dtype`.
+    Raises ValueError for rational patches (the quotient is not
+    separable)."""
+    w = np.asarray(patch.weights).ravel()
+    if not np.allclose(w, 1.0):
+        raise ValueError("sum factorization needs unit weights")
+    from ..fem.space import _dim_tables
+
+    if len(patch.degrees) != 3:
+        raise ValueError("sum factorization is 3D-only")
+    tabs = [
+        _dim_tables(patch.knot_vectors[ax], patch.degrees[ax], n_q_axis)
+        for ax in range(3)
+    ]
+    spans = [t[0].shape[0] for t in tabs]
+    n_el = int(np.prod(spans))
+    if n_el != conn.shape[0]:
+        raise ValueError("connectivity does not match the span grid")
+    # element e = e0 + S0 e1 + S0 S1 e2 (axis 0 fastest)
+    e = np.arange(n_el)
+    eids = (e % spans[0], (e // spans[0]) % spans[1], e // (spans[0] * spans[1]))
+    tables = []
+    for ax in range(3):
+        tables.append(np.ascontiguousarray(tabs[ax][3][eids[ax]].transpose(1, 2, 0)))
+        tables.append(np.ascontiguousarray(tabs[ax][4][eids[ax]].transpose(1, 2, 0)))
+    # geometric Jacobian J[e, q, k, c] = dX_c / dxi_k by the same staged
+    # sum factorization as the sweeps (no (n_el, n_q, nd, 3) table)
+    xs = np.asarray(x_ref)[np.asarray(conn)].transpose(2, 1, 0)  # (3, nd, E)
+    pg = sf_param_grad(
+        torch.from_numpy(np.ascontiguousarray(xs, np.float64)),
+        [torch.from_numpy(t) for t in tables],
+    )
+    J = pg.permute(3, 2, 1, 0)
+    # jinv[a, f, q, e] = d xi_a / d X_f = inv(J)[e, q, f, a]
+    jinv = torch.linalg.inv(J).permute(3, 2, 1, 0).contiguous().numpy()
+    out = ([np.asarray(t, dtype) for t in tables], np.asarray(jinv, dtype))
+    if return_det:
+        out = out + (np.asarray(torch.linalg.det(J).numpy(), dtype),)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# plain torch versions (sum factorization as staged einsums)
+# ---------------------------------------------------------------------------
+
+
+def _grid_el(w_el, p1):
+    """(C, nd, E) -> (C, a2, a1, a0, E)."""
+    return w_el.reshape(w_el.shape[0], p1, p1, p1, w_el.shape[-1])
+
+
+def sf_param_grad(w_el, tabs):
+    """Parametric gradient d w_c / d xi_k (C, 3, n_q, E) of the element
+    fields w_el (C, nd, E) by staged sums over the 1D factors."""
+    B0, D0, B1, D1, B2, D2 = tabs
+    W = _grid_el(w_el, B0.shape[1])
+    sB = torch.einsum("zke,ckjie->czjie", B2, W)
+    sD = torch.einsum("zke,ckjie->czjie", D2, W)
+    tBB = torch.einsum("yje,czjie->czyie", B1, sB)
+    C, E = w_el.shape[0], w_el.shape[-1]
+
+    def last(T, t):
+        return torch.einsum("xie,czyie->czyxe", T, t).reshape(C, -1, E)
+
+    return torch.stack(
+        [
+            last(D0, tBB),
+            last(B0, torch.einsum("yje,czjie->czyie", D1, sB)),
+            last(B0, torch.einsum("yje,czjie->czyie", B1, sD)),
+        ],
+        1,
+    )
+
+
+def sf_grad(w_el, tabs, jinv):
+    """Physical gradient dF[g, f] (3, 3, n_q, E) of the element fields
+    w_el (3, nd, E)."""
+    return torch.einsum("gaqe,afqe->gfqe", sf_param_grad(w_el, tabs), jinv)
+
+
+def sf_value(w_el, tabs):
+    """Values (C, n_q, E) of the element fields w_el (C, nd, E)."""
+    B0, _, B1, _, B2, _ = tabs
+    p1 = B0.shape[1]
+    t = torch.einsum("zke,ckjie->czjie", B2, _grid_el(w_el, p1))
+    t = torch.einsum("yje,czjie->czyie", B1, t)
+    t = torch.einsum("xie,czyie->czyxe", B0, t)
+    return t.reshape(w_el.shape[0], -1, w_el.shape[-1])
+
+
+def sf_scatter(X, vecm, tabs, jinv, wq):
+    """Transpose of the interpolation, integrated with weights wq:
+    out[c, n] = sum_q wq (dN[n, f] X[c, f] + N[n] vecm[c]), with dN the
+    physical basis gradient; X (C, 3, n_q, E) or None, vecm (C, n_q, E)
+    or None.  Returns (C, nd, E)."""
+    B0, D0, B1, D1, B2, D2 = tabs
+    g, p1 = B0.shape[0], B0.shape[1]
+    E = wq.shape[-1]
+    src = X if X is not None else vecm
+    C = src.shape[0]
+
+    def grid_q(t):
+        return t.reshape(C, g, g, g, E)  # (c, q2, q1, q0, e)
+
+    def first(T, t):  # contract q0 -> a0
+        return torch.einsum("xie,czyxe->czyie", T, grid_q(t))
+
+    def second(T, t):  # contract q1 -> a1
+        return torch.einsum("yje,czyie->czjie", T, t)
+
+    def third(T, t):  # contract q2 -> a2
+        return torch.einsum("zke,czjie->ckjie", T, t)
+
+    out = None
+    if X is not None:
+        Z = torch.einsum("afqe,cfqe->caqe", jinv, wq * X)
+        out = third(B2, second(B1, first(D0, Z[:, 0])))
+        out = out + third(B2, second(D1, first(B0, Z[:, 1])))
+        out = out + third(D2, second(B1, first(B0, Z[:, 2])))
+    if vecm is not None:
+        m = third(B2, second(B1, first(B0, wq * vecm)))
+        out = m if out is None else out + m
+    return out.reshape(C, p1**3, E)
+
+
+def tangent_apply_cauchy(Cb, dF, fac0):
+    """dP = fac0 (tr(F^-1 dF) P + J (D-hat : sym dF) F^-T - P dF^T F^-T)
+    from the 37-plane Cauchy-decomposition block Cb (cauchy_plane_layout),
+    P = J sigma F^-T rebuilt from the stored sigma, F^-1 and J."""
+    dim = 3
+    lay = cauchy_plane_layout(dim)
+    SYM, tri6 = lay["sym"], lay["tri"]
+
+    def M_at(a, m):
+        return Cb[tri6[(min(a, m), max(a, m))]]
+
+    sig = {}
+    for k, (i, j) in enumerate(SYM):
+        sig[(i, j)] = sig[(j, i)] = Cb[lay["off_sig"] + k]
+    fi = [[Cb[lay["off_fi"] + r * dim + c] for c in range(dim)] for r in range(dim)]
+    Jd = Cb[lay["off_j"]]
+    # contraction coefficients against the stored D-hat: dF_ii or
+    # (dF_ij + dF_ji), un-halved
+    cm = [dF[i, i] if i == j else dF[i, j] + dF[j, i] for (i, j) in SYM]
+    dsig = {}
+    for a, (i, j) in enumerate(SYM):
+        acc = M_at(a, 0) * cm[0]
+        for m in range(1, len(SYM)):
+            acc = acc + M_at(a, m) * cm[m]
+        dsig[(i, j)] = dsig[(j, i)] = acc
+    P = [
+        [Jd * sum(sig[(c, e)] * fi[dd][e] for e in range(dim)) for dd in range(dim)]
+        for c in range(dim)
+    ]
+    trF = sum(fi[c][e] * dF[e, c] for c in range(dim) for e in range(dim))
+    A = [
+        [sum(dF[e, a] * fi[b][e] for e in range(dim)) for b in range(dim)]
+        for a in range(dim)
+    ]
+    return soa.stack2(
+        [
+            [
+                fac0
+                * (
+                    trF * P[c][dd]
+                    + Jd * sum(dsig[(c, e)] * fi[dd][e] for e in range(dim))
+                    - sum(P[c][e] * A[e][dd] for e in range(dim))
+                )
+                for dd in range(dim)
+            ]
+            for c in range(dim)
+        ]
+    )
+
+
+def residual_sf_plain(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho):
+    """y[c, n] = sum_q wq (dN[n, d] P(F)[c, d] + N[n] rho a_q[c]),
+    F = I + grad u."""
+    P = mat.pk1_soa(soa.add_diag(sf_grad(u_el, tabs, jinv), 1.0), state, dt)
+    return sf_scatter(P, rho * sf_value(a_el, tabs), tabs, jinv, wq)
+
+
+def assemble_sf_plain(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho):
+    """Residual plus the 37-plane Cauchy-decomposition tangent block.
+
+    D-hat comes from forward-mode derivatives of `mat.cauchy_soa` along
+    the 6 one-hot symmetric seeds S_m = e_ij + e_ji (e_ii on the
+    diagonal), scaled by 1/2 on off-diagonal basis columns and stored
+    symmetric (pairs accumulated half plus half)."""
+    F = soa.add_diag(sf_grad(u_el, tabs, jinv), 1.0)
+    lay = cauchy_plane_layout(3)
+    SYM, tri6 = lay["sym"], lay["tri"]
+    planes = [None] * lay["n_plane"]
+    sig = None
+    for m, (i, j) in enumerate(SYM):
+        seed = torch.zeros_like(F)
+        seed[i, j] = 1.0
+        seed[j, i] = 1.0
+        sig, col = jvp(lambda Ft: mat.cauchy_soa(Ft, state, dt), (F,), (seed,))
+        wm = 1.0 if i == j else 0.5
+        for a, (ii, jj) in enumerate(SYM):
+            x = col[ii, jj] * wm
+            if a == m:
+                planes[tri6[(a, m)]] = x
+            elif a > m:
+                planes[tri6[(m, a)]] = 0.5 * x
+            else:
+                planes[tri6[(a, m)]] = planes[tri6[(a, m)]] + 0.5 * x
+    fi = soa.inv(F)
+    jd = soa.det(F)
+    for a, (ii, jj) in enumerate(SYM):
+        planes[lay["off_sig"] + a] = sig[ii, jj]
+    for r in range(3):
+        for c in range(3):
+            planes[lay["off_fi"] + r * 3 + c] = fi[r, c]
+    planes[lay["off_j"]] = jd
+    P = jd * soa.matmul_nt(sig, fi)
+    y = sf_scatter(P, rho * sf_value(a_el, tabs), tabs, jinv, wq)
+    return y, torch.stack(planes, 0)
+
+
+def matvec_sf_plain(w_el, tabs, jinv, wq, Cb, rho, fac0):
+    """y[c, n] = sum_q wq (dN[n, d] dP[c, d] + N[n] rho w_q[c]),
+    dP = fac0 (dP/dF : grad w) from the Cauchy-decomposition block."""
+    dP = tangent_apply_cauchy(Cb, sf_grad(w_el, tabs, jinv), fac0)
+    return sf_scatter(dP, rho * sf_value(w_el, tabs), tabs, jinv, wq)
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+
+
+class _J2Params(ctypes.Structure):
+    """Mirror of struct J2Params in csrc/sweeps_sf.cu."""
+
+    _fields_ = [
+        (name, ctypes.c_float)
+        for name in (
+            "K", "G", "A", "B", "n", "C", "eps0_dot", "t_ref", "t_melt",
+            "m", "thermo_const", "tol", "xtol", "dt", "rho",
+        )
+    ] + [
+        ("rate_dep", ctypes.c_int),
+        ("thermo_mode", ctypes.c_int),
+        ("max_iter", ctypes.c_int),
+    ]
+
+
+def _j2_params(mat, dt, rho):
+    """Kernel parameters of a set-up J2 material with a Johnson-Cook
+    family hardening law."""
+    from ..materials import J2, _K_TOL
+    from ..materials import hardening as H
+
+    if type(mat) is not J2:
+        raise NotImplementedError(
+            f"the CUDA sweeps implement J2 only, not {mat.name()} "
+            "(ROADMAP Queue 1 item 2)"
+        )
+    h = mat.hardening
+    if not isinstance(h, H.JohnsonCookHardening):
+        raise NotImplementedError(
+            f"the CUDA sweeps implement Johnson-Cook hardening only, not "
+            f"{h.name()} (ROADMAP Queue 1 item 2)"
+        )
+    rate = isinstance(h, H.JohnsonCookRateDependentHardening)
+    if isinstance(h, H.JohnsonCookViscoConstantTemperatureHardening):
+        thermo_mode, thermo_const = 2, float(h._temperature_contribution)
+    elif isinstance(h, H.JohnsonCookTemperatureAndRateDependentHardening):
+        thermo_mode, thermo_const = 1, 1.0
+    else:
+        thermo_mode, thermo_const = 0, 1.0
+    return _J2Params(
+        K=mat.K, G=mat.G, A=h.A, B=h.B, n=h.n,
+        C=getattr(h, "C", 0.0), eps0_dot=getattr(h, "eps0_dot", 1.0),
+        t_ref=getattr(h, "reference_temperature", 0.0),
+        t_melt=getattr(h, "melting_temperature", 1.0),
+        m=getattr(h, "m", 1.0), thermo_const=thermo_const,
+        tol=mat._tolerance, xtol=_K_TOL, dt=dt, rho=rho,
+        rate_dep=int(rate), thermo_mode=thermo_mode, max_iter=100,
+    )
+
+
+def _check(name, t, shape, device):
+    if t.device != device or t.dtype != torch.float32:
+        raise ValueError(f"{name}: float32 on {device} required, got {t.dtype} on {t.device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(shape)} required, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: contiguous tensor required")
+
+
+def _check_common(el_fields, tabs, jinv, wq):
+    """Validate the shared sum-factorized operands; returns (device,
+    n_el).  The kernels are compiled for p = 2 and 4 Gauss points per
+    axis (27 dofs, 64 quadrature points per element)."""
+    device = el_fields[0][1].device
+    if device.type != "cuda":
+        raise ValueError(f"CUDA sweep called on a {device} tensor")
+    n_el = el_fields[0][1].shape[-1]
+    for name, t in el_fields:
+        _check(name, t, (3, 27, n_el), device)
+    for k, t in enumerate(tabs):
+        _check(f"tabs[{k}]", t, (4, 3, n_el), device)
+    _check("jinv", jinv, (3, 3, 64, n_el), device)
+    _check("wq", wq, (64, n_el), device)
+    return device, n_el
+
+
+def _check_state(state, device, n_el):
+    _check("plastic_strain", state["plastic_strain"], (3, 3, 64, n_el), device)
+    _check("eqps", state["eqps"], (64, n_el), device)
+    _check("temperature", state["temperature"], (64, n_el), device)
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _launch(fn, name, *args):
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    LAUNCHES[name] += 1
+    err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def residual_sf(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho):
+    """Residual sweep: plain torch on CPU tensors, the CUDA kernel
+    `mimi_residual_sf` on CUDA tensors."""
+    if u_el.device.type == "cpu":
+        return residual_sf_plain(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho)
+    from .build import load
+
+    device, n_el = _check_common([("u_el", u_el), ("a_el", a_el)], tabs, jinv, wq)
+    _check_state(state, device, n_el)
+    prm = _j2_params(mat, dt, rho)
+    out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
+    _launch(
+        load().mimi_residual_sf, "residual_sf",
+        _ptr(u_el), _ptr(a_el), *[_ptr(t) for t in tabs], _ptr(jinv), _ptr(wq),
+        _ptr(state["plastic_strain"]), _ptr(state["eqps"]),
+        _ptr(state["temperature"]), _ptr(out), prm, ctypes.c_longlong(n_el),
+    )
+    return out
+
+
+def assemble_sf(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho):
+    """Assemble sweep: (residual, 37-plane tangent block); plain torch on
+    CPU tensors, the CUDA kernel `mimi_assemble_sf` on CUDA tensors."""
+    if u_el.device.type == "cpu":
+        return assemble_sf_plain(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho)
+    from .build import load
+
+    device, n_el = _check_common([("u_el", u_el), ("a_el", a_el)], tabs, jinv, wq)
+    _check_state(state, device, n_el)
+    prm = _j2_params(mat, dt, rho)
+    out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
+    cb = torch.empty((37, 64, n_el), dtype=torch.float32, device=device)
+    _launch(
+        load().mimi_assemble_sf, "assemble_sf",
+        _ptr(u_el), _ptr(a_el), *[_ptr(t) for t in tabs], _ptr(jinv), _ptr(wq),
+        _ptr(state["plastic_strain"]), _ptr(state["eqps"]),
+        _ptr(state["temperature"]), _ptr(out), _ptr(cb), prm,
+        ctypes.c_longlong(n_el),
+    )
+    return out, cb
+
+
+def matvec_sf(w_el, tabs, jinv, wq, Cb, rho, fac0):
+    """GMRES matvec sweep: plain torch on CPU tensors, the CUDA kernel
+    `mimi_matvec_sf` on CUDA tensors."""
+    if w_el.device.type == "cpu":
+        return matvec_sf_plain(w_el, tabs, jinv, wq, Cb, rho, fac0)
+    from .build import load
+
+    device, n_el = _check_common([("w_el", w_el)], tabs, jinv, wq)
+    _check("C", Cb, (37, 64, n_el), device)
+    out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
+    _launch(
+        load().mimi_matvec_sf, "matvec_sf",
+        _ptr(w_el), *[_ptr(t) for t in tabs], _ptr(jinv), _ptr(wq), _ptr(Cb),
+        _ptr(out), ctypes.c_float(rho), ctypes.c_float(fac0),
+        ctypes.c_longlong(n_el),
+    )
+    return out

@@ -1,0 +1,152 @@
+"""Tensor-product fast-diagonalization (FDM) preconditioner.
+
+Counterpart of mimi_tpu/solvers/fdm.py for one patch.  The Newton tangent
+J = M + fac1 S + fac0 K is preconditioned by the exact inverse of its
+separable surrogate per displacement component c,
+
+    J_c_hat = rho M1 (x) M2 (x) M3 + sum_d coef_cd ... K_d (x) M ...,
+
+with 1D B-spline mass/stiffness matrices per parametric axis and
+coef_cd = fac0 alpha_cd + fac1 mu_v (alpha_cd = lambda + 2 mu on the
+diagonal, mu off it).  The generalized eigenbases K_d V_d = M_d V_d L_d
+(built once on the host with scipy) diagonalize it, so the inverse applies
+as three small dense 1D transforms per side (torch einsums on the device).
+Face Dirichlet sets restrict the 1D matrices; the eigenbasis is embedded
+with zero rows at constrained indices.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import scipy.linalg
+import torch
+
+
+def _assemble_1d(kv, p, n_gauss, length):
+    """1D B-spline mass/stiffness on knot vector kv with physical-length
+    scaling: x = a + (L/U) u, so M_phys = (L/U) M_par, K_phys =
+    (U/L) K_par."""
+    from ..fem.space import _dim_tables
+    from ..nurbs import knots as kn
+
+    starts, uq, wq, B, D = _dim_tables(kv, p, n_gauss)
+    n = kn.n_ctrl(kv, p)
+    M = np.zeros((n, n))
+    K = np.zeros((n, n))
+    for s in range(len(starts)):
+        idx = starts[s] + np.arange(p + 1)
+        ix = np.ix_(idx, idx)
+        for g in range(uq.shape[1]):
+            M[ix] += wq[s, g] * np.outer(B[s, g], B[s, g])
+            K[ix] += wq[s, g] * np.outer(D[s, g], D[s, g])
+    U = float(kv[-1] - kv[0])
+    scale = length / U if U > 0 else 1.0
+    return M * scale, K / scale
+
+
+def build_fdm_data(fes, dir_pairs, material):
+    """Per-(component, axis) embedded eigenbases.
+
+    dir_pairs: [(bid, component), ...] face Dirichlet sets.  Returns a
+    numpy dict, or None when the decomposition does not apply (no elastic
+    constants, or a Dirichlet set that is not a patch face)."""
+    lam_e = float(material.lambda_)
+    mu_e = float(material.mu)
+    if lam_e <= 0 and mu_e <= 0:
+        return None
+    patch = fes.patch
+    d = fes.para_dim
+    nc = list(fes.n_ctrl)
+    # physical length per axis from the control-point bounding box
+    ext = fes.x_ref.max(axis=0) - fes.x_ref.min(axis=0)
+    side_of_bid = {attr - 1: (axis, end) for attr, axis, end, _ in fes.sides}
+    constrained = {(c, ax): set() for c in range(fes.dim) for ax in range(d)}
+    for bid, comp in dir_pairs:
+        if bid not in side_of_bid:
+            return None
+        axis, end = side_of_bid[bid]
+        constrained[(comp, axis)].add(0 if end == 0 else nc[axis] - 1)
+
+    mats = [
+        _assemble_1d(
+            patch.knot_vectors[ax], patch.degrees[ax],
+            patch.degrees[ax] + 2, float(ext[ax]),
+        )
+        for ax in range(d)
+    ]
+    alpha = np.full((fes.dim, d), mu_e)
+    for c in range(min(fes.dim, d)):
+        alpha[c, c] = lam_e + 2.0 * mu_e
+
+    Ve = [[None] * d for _ in range(fes.dim)]
+    lam = [[None] * d for _ in range(fes.dim)]
+    for c in range(fes.dim):
+        for ax in range(d):
+            M, K = mats[ax]
+            free = np.array(
+                [i for i in range(nc[ax]) if i not in constrained[(c, ax)]]
+            )
+            w, V = scipy.linalg.eigh(
+                K[np.ix_(free, free)], M[np.ix_(free, free)]
+            )
+            emb = np.zeros((nc[ax], len(free)))
+            emb[free, :] = V  # V^T M V = I
+            Ve[c][ax] = emb
+            lam[c][ax] = w
+    return {
+        "Ve": Ve,
+        "lam": lam,
+        "alpha": alpha,
+        "nc": nc,
+        "dim": fes.dim,
+        "rho": float(material.density),
+        "mu_v": max(float(material.viscosity), 0.0),
+    }
+
+
+def make_fdm_apply(fdm, fac0, fac1, dtype, device):
+    """v_flat -> J_hat^{-1} v_flat (3D patches), tables on `device`."""
+    dim = fdm["dim"]
+    nc = fdm["nc"]
+    if len(nc) != 3:
+        raise NotImplementedError(
+            "2D FDM apply is not ported yet (ROADMAP Queue 1 item 6)"
+        )
+    rho = fdm["rho"]
+    mu_v = fdm["mu_v"]
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    Ve = [[dev(fdm["Ve"][c][ax]) for ax in range(3)] for c in range(dim)]
+    D = []
+    for c in range(dim):
+        coef = [
+            fac0 * float(fdm["alpha"][c, ax]) + fac1 * mu_v for ax in range(3)
+        ]
+        l0, l1, l2 = (np.asarray(fdm["lam"][c][ax]) for ax in range(3))
+        Dc = (
+            rho
+            + coef[0] * l0[None, None, :]
+            + coef[1] * l1[None, :, None]
+            + coef[2] * l2[:, None, None]
+        )
+        D.append(dev(1.0 / Dc))
+    n_dof = int(np.prod(nc))
+
+    def apply(v_flat):
+        v = v_flat.reshape(n_dof, dim)
+        outs = []
+        for c in range(dim):
+            g = v[:, c].reshape(nc[2], nc[1], nc[0])
+            t = torch.einsum("abi,ik->abk", g, Ve[c][0])
+            t = torch.einsum("aji,jk->aki", t, Ve[c][1])
+            t = torch.einsum("jbi,jk->kbi", t, Ve[c][2])
+            t = t * D[c]
+            t = torch.einsum("kbi,jk->jbi", t, Ve[c][2])
+            t = torch.einsum("aki,jk->aji", t, Ve[c][1])
+            t = torch.einsum("abk,ik->abi", t, Ve[c][0])
+            outs.append(t.reshape(-1))
+        return torch.stack(outs, -1).reshape(-1)
+
+    return apply
