@@ -3,10 +3,17 @@
 
 Builds the CUDA sweep kernels from the sources in this checkout, holds
 each against its plain torch version, checks one implicit step of the
-kernel path against the plain path, then drives the main path: the
-48^3-element J2 Johnson-Cook body-force problem (cube-nurbs.mesh at p=2,
-375,000 unknowns), generalized-alpha steps with 4 line-search Newton
-iterations and FDM-preconditioned GMRES(40) at lin_rel_tol 1e-3, float32.
+kernel path against the plain path, then drives the two paths at 48^3
+elements (cube-nurbs.mesh at p=2, 375,000 unknowns, float32):
+  - the J2 Johnson-Cook body-force problem, generalized-alpha steps with
+    4 line-search Newton iterations and FDM-preconditioned GMRES(40) at
+    lin_rel_tol 1e-3 (phases 3-8);
+  - the contact press: the top face pressed by a rigid bilinear Bezier
+    tool moved down 0.01 per step (mortar penalty contact, kappa 5e7),
+    J2 Johnson-Cook with viscosity 100, 12 Newton iterations at rel_tol
+    1e-3, GMRES(30, at most 80) at lin_rel_tol 1e-2, the consistent
+    contact tangent and a bfloat16 tangent block, which runs the viscous
+    and bfloat16 variants of the kernels (phases 9-12).
 
     python3 chip_smoke.py
 
@@ -36,6 +43,18 @@ KERNELS = [  # (counter name, TPU kernel it replaces)
     ("assemble_sf", "mimi_tpu/ops/sweeps.py:472"),
     ("residual_sf", "mimi_tpu/ops/sweeps.py:338"),
 ]
+# the contact press (bench.py:361-504 of the reference package)
+CONTACT_STEP_KW = dict(dt=0.01, newton_iters=12, solver="cg", cg_iters=80,
+                       precond="fdm", lin_rel_tol=1e-2, rel_tol=1e-3,
+                       contact_tangent="consistent", matvec_dtype="bf16")
+CONTACT_TIMED_STEPS = 5
+PUSH = [0.0, 0.0, -0.01]  # tool motion per step
+VARIANTS = [  # (counter name, TPU kernel it replaces); the contact path's
+    ("residual_sf[visc]", "mimi_tpu/ops/sweeps.py:338"),
+    ("assemble_sf[visc,bf16]", "mimi_tpu/ops/sweeps.py:472"),
+    ("matvec_sf[visc,bf16]", "mimi_tpu/ops/sweeps.py:922"),
+]
+SOURCE = "mimi_tpu_torch/ops/csrc/sweeps_sf.cu"
 
 
 def fail(msg):
@@ -71,6 +90,29 @@ def build(mt, spans, device):
         MESH, 1, 0, jc_material(mt), [(1, 0), (1, 1), (1, 2)], {1: -3.0},
         rho_inf=0.5, dtype=default_dtype(device), device=device,
         refine_spans=spans,
+    )
+
+
+def build_contact(mt, spans, device):
+    """The contact press: clamped bottom face, top face (bid 1) against a
+    rigid bilinear Bezier tool at z = 1.02 (kappa 5e7), J2 Johnson-Cook
+    (A 700, B 1400), E 1e6, nu 0.3, density 1e3, viscosity 100."""
+    from mimi_tpu_torch.config import default_dtype
+
+    mat = jc_material(mt, A=700.0)
+    mat.hardening.B = 1400.0
+    mat.density = 1e3
+    mat.viscosity = 100.0
+    mat.set_young_poisson(1e6, 0.3)
+    scene = mt.NearestDistanceToSplines()
+    scene.add_spline(mt.Bezier([1, 1], [[-0.5, -0.5, 1.02], [-0.5, 1.5, 1.02],
+                                        [1.5, -0.5, 1.02], [1.5, 1.5, 1.02]]))
+    scene.plant_kd_tree(max(spans, 8), 1)
+    scene.coefficient = 5e7
+    return mt.build_problem(
+        MESH, 1, 0, mat, [(0, 0), (0, 1), (0, 2)], {}, rho_inf=0.5,
+        dtype=default_dtype(device), device=device, refine_spans=spans,
+        contact=[(1, scene)],
     )
 
 
@@ -140,6 +182,316 @@ def compare_sweeps(torch, sweeps, prob, u_el, a_el, w_el, state, label):
     if not err <= 1e-4 * scale:
         fail(f"matvec kernel disagrees with plain ({err} > 1e-4 * {scale})")
     return errs, C_p
+
+
+def group_rel(diff, ref):
+    """max over the plane groups of the Cauchy block (D-hat, sigma, F^-1,
+    J) of max|diff| / max|ref| in the group."""
+    return max(float(diff[a:b].max() / ref[a:b].abs().max().clamp_min(1e-30))
+               for a, b in ((0, 21), (21, 27), (27, 36), (36, 37)))
+
+
+def compare_variants(torch, sweeps, prob, f, dt, mu_v, label):
+    """The contact path's kernel variants against their plain versions on
+    the same inputs (`f`: u_el, a_el, v_el, w_el, state): the viscous
+    residual, the viscous assemble with a bfloat16 tangent block, and the
+    viscous matvec on the plain bfloat16 block.  Returns ({variant:
+    max_abs_err}, the plain block); fails past the stated bars."""
+    mat = prob.material
+    tabs, jinv, wq = prob.sf["tables"], prob.sf["jinv"], prob.wdet_t
+    rho = float(mat.density)
+    fac0 = prob.facs["fac3"] * dt * dt
+    fac1_mu_v = prob.facs["fac4"] * dt * mu_v
+    args = (f["u_el"], f["a_el"], f["state"], tabs, jinv, wq, mat, dt, rho)
+    visc = dict(v_el=f["v_el"], mu_v=mu_v)
+    errs = {}
+    y_k = sweeps.residual_sf(*args, **visc)
+    torch.cuda.synchronize()
+    y_p = sweeps.residual_sf_plain(*args, **visc)
+    err, scale = float((y_k - y_p).abs().max()), float(y_p.abs().max())
+    errs["residual_sf[visc]"] = err
+    say(f"[{label}] residual[visc]: max|err| {err:.3e} scale {scale:.3e}")
+    # float32, summation order (as the inviscid residual)
+    if not err <= 1e-5 * scale:
+        fail(f"viscous residual kernel disagrees ({err} > 1e-5 * {scale})")
+    ya_k, C_k = sweeps.assemble_sf(*args, **visc, c_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    ya_p, C_p = sweeps.assemble_sf_plain(*args, **visc, c_dtype=torch.bfloat16)
+    err, scale = float((ya_k - ya_p).abs().max()), float(ya_p.abs().max())
+    if C_k.dtype != torch.bfloat16:
+        fail(f"bfloat16 assemble wrote {C_k.dtype}")
+    diff = (C_k.float() - C_p.float()).abs()
+    rel = group_rel(diff, C_p.float())
+    share = float((C_k != C_p).float().mean())
+    errs["assemble_sf[visc,bf16]"] = max(err, float(diff.max()))
+    say(f"[{label}] assemble[visc,bf16]: residual max|err| {err:.3e} scale {scale:.3e}; "
+        f"bf16 planes worst err vs group max {rel:.3e} (bar 2^-7 = {2.0**-7:.3e}, one "
+        f"bf16 rounding step), share of entries that differ {share:.3e}")
+    if not err <= 1e-4 * scale:
+        fail(f"viscous assemble kernel residual disagrees ({err} > 1e-4 * {scale})")
+    # the float32 planes agree to ~1e-5 of their group's max (phase 3), so
+    # a rounded pair can differ by at most one bfloat16 step
+    if not rel <= 2.0**-7:
+        fail(f"bfloat16 tangent planes disagree (err {rel} of group max)")
+    mv_k = sweeps.matvec_sf(f["w_el"], tabs, jinv, wq, C_p, rho, fac0, fac1_mu_v)
+    torch.cuda.synchronize()
+    mv_p = sweeps.matvec_sf_plain(f["w_el"], tabs, jinv, wq, C_p, rho, fac0, fac1_mu_v)
+    err, scale = float((mv_k - mv_p).abs().max()), float(mv_p.abs().max())
+    errs["matvec_sf[visc,bf16]"] = err
+    say(f"[{label}] matvec[visc,bf16] on one bf16 block: max|err| {err:.3e} scale {scale:.3e}")
+    if not err <= 1e-4 * scale:
+        fail(f"viscous bfloat16 matvec kernel disagrees ({err} > 1e-4 * {scale})")
+    return errs, C_p
+
+
+def contact_phases(torch, mt, sweeps, soa, sh, device, gen):
+    """Phases 9-12: the kernel variants at 16^3, one engaged contact step
+    cuda vs torch at 16^3, the contact path at 48^3 and its profile.
+    Returns the variants' rows of the kernels line."""
+    NDS = mt.NearestDistanceToSplines
+
+    # ---- 9. variant kernels vs plain at 16^3 --------------------------------
+    prob = build(mt, CHECK_SPANS, device)
+    dt_ = prob.dtype
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(device, dt_)  # noqa: E731
+    E, h = prob.n_el, 1.0 / CHECK_SPANS
+    f = {"u_el": 0.06 * h * rnd(3, 27, E), "a_el": rnd(3, 27, E), "v_el": rnd(3, 27, E),
+         "w_el": rnd(3, 27, E)}
+    state = {k: v.clone() for k, v in prob.state0.items()}
+    state["eqps"] = 0.01 * torch.rand(64, E, generator=gen).to(device, dt_)
+    state["temperature"] = 20.0 + 100.0 * torch.rand(64, E, generator=gen).to(device, dt_)
+    f["state"] = state
+    dF = sweeps.sf_grad(f["u_el"], prob.sf["tables"], prob.sf["jinv"])
+    *_, active, _ = prob.material._return_map(soa.add_diag(dF, 1.0), state, STEP_KW["dt"])
+    frac = float(active.float().mean())
+    say(f"[9. 16^3 random] plastic fraction {frac:.3f}; v_el of a_el's scale, mu_v 10 "
+        "(viscous and elastic-plastic flux of one size)")
+    if frac < 0.25:
+        fail(f"plastic fraction {frac} < 0.25: the check would not exercise the return map")
+    compare_variants(torch, sweeps, prob, f, STEP_KW["dt"], 10.0, "9. 16^3 random")
+    del prob, f, state, dF, active
+
+    # ---- 10. one engaged contact step at 16^3: cuda vs torch -----------------
+    prob = build_contact(mt, CHECK_SPANS, device)
+    carry0 = mt.initial_carry(prob)
+    # tool from z = 1.02 to touching (1.00), then the step's own push
+    sd = NDS.translate_scene_data(prob.contact[0]["scene"], [0.0, 0.0, -0.02])
+    sd = NDS.translate_scene_data(sd, PUSH)
+    steps = {impl: mt.make_step(prob, residual_impl=impl, **CONTACT_STEP_KW)
+             for impl in ("cuda", "torch")}
+    out = {impl: steps[impl](carry0, contact_scenes=[sd]) for impl in steps}
+    err = float((out["cuda"]["u"] - out["torch"]["u"]).abs().max())
+    scale = float(out["torch"]["u"].abs().max())
+    nc, nt = out["cuda"]["newton"], out["torch"]["newton"]
+    cc, ct = out["cuda"]["contact"][0], out["torch"]["contact"][0]
+    say(f"[10. 16^3 contact step] cuda vs torch, both bf16 tangent, tool at z 0.99: "
+        f"max|du| {err:.3e} max|u| {scale:.3e} (ratio {err / scale:.2e}); newton "
+        f"{nc['iters']}/{nt['iters']} gmres {nc['lin_iters']}/{nt['lin_iters']} converged "
+        f"{nc['converged']}/{nt['converged']} (|r| {nc['norm']:.3e}/{nt['norm']:.3e} of "
+        f"|r0| {nt['norm0']:.3e}); penetrating {int(cc['n_penetrating'])}/"
+        f"{int(ct['n_penetrating'])}, pass the float32 angle gate {int(cc['n_engaged'])}/"
+        f"{int(ct['n_engaged'])}")
+    if int(ct["n_penetrating"]) == 0:
+        fail("the 16^3 contact step is not engaged")
+    # Which penetrating points pass the reference's angle gate
+    # (arccos(ratio) > 1e-5, below float32's arccos resolution of 3.45e-4
+    # rad) turns on rounding of the foot point, so two engines whose
+    # iterates differ by rounding settle on different contact sets and
+    # their converged steps differ far above the reference's 1e-4 bar; no
+    # Newton tolerance closes that gap (the gated contact residual has a
+    # float32 floor near rel_tol).  The engines are held against each other
+    # on the first Newton system of the next step instead, assembled from
+    # one carry, where both see the same contact set: the residual at the
+    # assemble bar, J w within one bfloat16 step of its scale (each engine
+    # rounds its own tangent block).
+    sd2 = NDS.translate_scene_data(sd, PUSH)
+    w = torch.randn(prob.n_dof * prob.dim, generator=gen).to(device, prob.dtype)
+    ns = {impl: steps[impl].newton_system(out["torch"], contact_scenes=[sd2])
+          for impl in steps}
+    r_err = float((ns["cuda"]["r"] - ns["torch"]["r"]).abs().max())
+    r_scale = float(ns["torch"]["r"].abs().max())
+    jw = {impl: ns[impl]["J_apply"](w) for impl in steps}
+    jw_err = float((jw["cuda"] - jw["torch"]).abs().max())
+    jw_scale = float(jw["torch"].abs().max())
+    say(f"[10. 16^3 contact Newton system] cuda vs torch from the torch step's carry, "
+        f"tool at z 0.98: residual max|err| {r_err:.3e} scale {r_scale:.3e}; J w max|err| "
+        f"{jw_err:.3e} scale {jw_scale:.3e}")
+    if not r_err <= 1e-4 * r_scale:
+        fail(f"contact Newton residual parity {r_err} > 1e-4 * {r_scale}")
+    if not jw_err <= 2.0**-7 * jw_scale:
+        fail(f"contact J w parity {jw_err} > 2^-7 * {jw_scale}")
+    del prob, carry0, out, steps, ns, jw, w
+    torch.cuda.empty_cache()
+
+    # ---- 11. the contact path at 48^3 ---------------------------------------
+    sweeps.reset_launches()
+    t0 = time.perf_counter()
+    prob = build_contact(mt, SPANS, device)
+    torch.cuda.synchronize()
+    cd = prob.contact[0]
+    n_fq = cd["wq"].numel()
+    say(f"[11. 48^3 contact] host build {time.perf_counter() - t0:.2f} s: n_el {prob.n_el}, "
+        f"unknowns {prob.n_dof * prob.dim}, contact faces {cd['conn'].shape[0]}, face "
+        f"quadrature points {n_fq}, mortar dofs {prob.contact_static[0]['n_local']}")
+    query = prob.contact_static[0]["query"]
+    n_proj = [0]
+
+    def counted_query(*a):  # counts closest-point projections per step
+        n_proj[0] += 1
+        return query(*a)
+
+    prob.contact_static[0]["query"] = counted_query
+    t0 = time.perf_counter()
+    carry = mt.initial_carry(prob)
+    torch.cuda.synchronize()
+    say(f"[11. 48^3 contact] initial carry {time.perf_counter() - t0:.2f} s")
+    step = mt.make_step(prob, **CONTACT_STEP_KW)
+    sd = cd["scene"]
+    times, diags, penetrating, all_diags = [], [], [], []
+    for i in range(1 + CONTACT_TIMED_STEPS):
+        sd = NDS.translate_scene_data(sd, PUSH)  # on the device
+        p0 = n_proj[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry = step(carry, contact_scenes=[sd])
+        torch.cuda.synchronize()
+        t_s = time.perf_counter() - t0
+        d, c = carry["newton"], carry["contact"][0]
+        eqps = carry["state"]["eqps"]
+        force = (-c["res_el"].sum((0, 1))).tolist()
+        tool_z = float(sd[0]["cps"][0, 2])
+        say(f"[11. 48^3 contact] step {i} ({'warm' if i == 0 else 'timed'}), tool z "
+            f"{tool_z:.4f}: {t_s:.3f} s; newton {d['iters']} gmres {d['lin_iters']} "
+            f"converged {d['converged']} (|r0| {d['norm0']:.4e} -> |r| {d['norm']:.4e}); "
+            f"projections {n_proj[0] - p0}; proj_unconverged {int(c['proj_unconverged'])} "
+            f"proj_res_max {float(c['proj_res_max']):.3e}; penetrating (true_g < 0) "
+            f"{int(c['n_penetrating'])} of {n_fq}, of those pass the angle gate "
+            f"{int(c['n_engaged'])}; force from the traction residual "
+            f"({force[0]:.4e}, {force[1]:.4e}, {force[2]:.4e}), observable 'force' z "
+            f"{float(c['force'][2]):.4e}; 'area' (the deformed face area, not a contact "
+            f"area) {float(c['area']):.6f}; eqps max {float(eqps.max()):.4e}, plastic "
+            f"points {int((eqps > 0).sum())}; max|u| {float(carry['u'].abs().max()):.4e}")
+        if not d["finite"]:
+            fail(f"non-finite state at contact step {i}")
+        all_diags.append(d)
+        if i > 0:
+            times.append(t_s)
+            diags.append(d)
+            penetrating.append(int(c["n_penetrating"]))
+    launches = dict(sweeps.LAUNCHES)
+    s_step = sum(times) / len(times)
+    say(f"[11. 48^3 contact] {s_step:.4f} s/step over {len(times)} timed steps "
+        f"({', '.join(f'{t:.3f}' for t in times)}); newton iters "
+        f"{[d['iters'] for d in diags]}; gmres iters {[d['lin_iters'] for d in diags]}; "
+        f"launches { {k: n for k, n in launches.items() if n} }")
+    # Newton: converged (rel_tol 1e-3), or down to the float32 floor of the
+    # gated contact residual (|r| <= 2e-2 |r0|: rounding flips points
+    # across the reference's angle gate, each worth ~kappa g w det J), or
+    # a step whose |r0| is itself rounding (the tool exactly touching the
+    # face: below 1e-6 of the run's largest |r0|)
+    r0_max = max(d["norm0"] for d in all_diags)
+    for i, d in enumerate(all_diags):
+        if not (d["converged"] or d["norm"] <= 2e-2 * d["norm0"]
+                or d["norm0"] <= 1e-6 * r0_max):
+            fail(f"contact step {i}: Newton stopped at |r| {d['norm']} of |r0| {d['norm0']}")
+    # the body may rebound from the tool after the impact (density 1e3,
+    # 1 m/s tool speed), so engagement is asked of the timed steps
+    # together, not of the last one
+    if max(penetrating) == 0:
+        fail("no face quadrature point penetrated the tool by the last timed step")
+    for name, _ in VARIANTS:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the contact path")
+
+    # the variants against plain, and their times, at the path's state: the
+    # predictor of the next step, the first assemble's input (after the
+    # accumulate, the yielded points sit on the yield surface, where float32
+    # rounding picks the elastic or the plastic tangent)
+    g, _ = sh._gather_scatter(prob)
+    mu_v, dt = float(prob.material.viscosity), CONTACT_STEP_KW["dt"]
+    fc = prob.facs
+    xa = carry["u"] + (carry["v"] + fc["fac0"] * dt * carry["a"]) * fc["fac1"] * dt
+    va = carry["v"] + fc["fac2"] * dt * carry["a"]
+    f = {"u_el": g(xa), "a_el": g(carry["a"]), "v_el": g(va),
+         "w_el": rnd(3, 27, prob.n_el), "state": carry["state"]}
+    del xa, va
+    errs, Cb = compare_variants(torch, sweeps, prob, f, dt, mu_v, "11. 48^3 contact path")
+    tabs, jinv, wq, mat = prob.sf["tables"], prob.sf["jinv"], prob.wdet_t, prob.material
+    rho = float(mat.density)
+    fac0 = prob.facs["fac3"] * dt * dt
+    fac1_mu_v = prob.facs["fac4"] * dt * mu_v
+    args = (f["u_el"], f["a_el"], f["state"], tabs, jinv, wq, mat, dt, rho)
+    visc = dict(v_el=f["v_el"], mu_v=mu_v)
+    bf16 = torch.bfloat16
+    calls = {
+        "residual_sf[visc]": (lambda: sweeps.residual_sf(*args, **visc),
+                              lambda: sweeps.residual_sf_plain(*args, **visc)),
+        "assemble_sf[visc,bf16]": (
+            lambda: sweeps.assemble_sf(*args, **visc, c_dtype=bf16),
+            lambda: sweeps.assemble_sf_plain(*args, **visc, c_dtype=bf16)),
+        "matvec_sf[visc,bf16]": (
+            lambda: sweeps.matvec_sf(f["w_el"], tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v),
+            lambda: sweeps.matvec_sf_plain(f["w_el"], tabs, jinv, wq, Cb, rho, fac0,
+                                           fac1_mu_v)),
+    }
+    rows = []
+    for name, replaces in VARIANTS:
+        kern, plain = calls[name]
+        ms = cuda_ms(torch, kern, 20)
+        plain_ms = cuda_ms(torch, plain, 3)
+        say(f"[11. 48^3 timing] {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms")
+        rows.append({"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
+                     "launches": launches[name], "max_abs_err": errs[name],
+                     "ms": ms, "plain_ms": plain_ms})
+    del f, Cb, calls
+
+    # ---- 12. where one contact step's time goes (torch.profiler) -----------
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_rows(prof):
+        return [(e.key, e.count, e.self_device_time_total / 1e3)
+                for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+
+    sd = NDS.translate_scene_data(sd, PUSH)
+    p0 = n_proj[0]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        carry = step(carry, contact_scenes=[sd])
+        torch.cuda.synchronize()
+        t_prof = (time.perf_counter() - t0) * 1e3
+    d = carry["newton"]
+    ev = device_rows(prof)
+    busy = sum(t for _, _, t in ev)
+    if busy > 0:
+        say(f"[12. 48^3 contact profile] one step (newton {d['iters']}, gmres "
+            f"{d['lin_iters']}, projections {n_proj[0] - p0}): device busy {busy:.1f} ms of "
+            f"the profiled step's {t_prof:.1f} ms wall; idle share {1.0 - busy / t_prof:.3f} "
+            f"(the profiler slows the host, so this overstates idling); timed mean "
+            f"{s_step * 1e3:.1f} ms/step")
+        for key, n, t in sorted(ev, key=lambda x: -x[2])[:12]:
+            say(f"[12. 48^3 contact profile]   {t:9.3f} ms  x{n:<5d} {key[:90]}")
+    else:
+        say("[12. 48^3 contact profile] device time not visible to torch.profiler: "
+            "not measured")
+    # the closest-point projection alone, at the path's last state
+    cur = carry["u"][cd["conn"]] + cd["x_ref_el"]
+    qpts = torch.einsum("eqn,end->eqd", cd["N"], cur).reshape(-1, prob.dim)
+    query(qpts, sd)
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = query(qpts, sd)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        query(qpts, sd)
+        torch.cuda.synchronize()
+    q_dev = sum(t for _, _, t in device_rows(prof))
+    say(f"[12. 48^3 contact profile] closest-point projection of {qpts.shape[0]} points: "
+        f"wall {sorted(walls)[2]:.3f} ms (median of 5), device busy "
+        f"{q_dev:.3f} ms; unconverged {int((~res['converged']).sum())}")
+    return rows
 
 
 def main():
@@ -248,12 +600,13 @@ def main():
         f"gmres iters {[d['lin_iters'] for d in diags]}")
     say(f"[48^3] eqps max {float(eqps.max()):.4e}, plastic points "
         f"{int((eqps > 0).sum())}; max|u| {float(carry['u'].abs().max()):.4e}; "
-        f"finite {all(d['finite'] for d in diags)}; launches {launches}")
+        f"finite {all(d['finite'] for d in diags)}; launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
     for d in diags:
         say(f"[48^3] newton |r0| {d['norm0']:.4e} -> |r| {d['norm']:.4e} "
             f"(ratio {d['norm'] / d['norm0']:.2e}, converged flag {d['converged']})")
-    for name, n in launches.items():
-        if n <= 0:
+    for name, _ in KERNELS:
+        if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
     if not all(d["finite"] for d in diags):
         fail("non-finite state on the main path")
@@ -290,7 +643,7 @@ def main():
         say(f"[48^3 timing] {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms")
         rows.append({
             "name": name, "route": "cuda",
-            "source": "mimi_tpu_torch/ops/csrc/sweeps_sf.cu", "replaces": replaces,
+            "source": SOURCE, "replaces": replaces,
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": ms, "plain_ms": plain_ms,
         })
@@ -357,6 +710,13 @@ def main():
             say(f"[48^3 profile]   {t:9.3f} ms  x{n:<5d} {key[:90]}")
     else:
         say("[48^3 profile] device time not visible to torch.profiler: not measured")
+
+    del C, ns, J_apply, M_apply, calls, u_el, a_el, w_el, st
+    del prob, carry, step, prof
+    torch.cuda.empty_cache()
+
+    # ---- 9-12. the contact press ---------------------------------------------
+    rows += contact_phases(torch, mt, sweeps, soa, sh, device, gen)
 
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {

@@ -3,7 +3,9 @@
 Counterpart of mimi_tpu/fem/space.py, restricted to what a single-patch
 problem needs: per-axis 1D basis tables (`_dim_tables`), the tensor-product
 connectivity, the dense domain tables (`patch_domain_tables`, native C++
-engine or vectorized numpy) and the `FESpace` queries for boundary dofs.
+engine or vectorized numpy), the boundary (side) tables that contact
+reads (`patch_side_tables`, `FESpace.boundary_tables`) and the `FESpace`
+queries for boundary dofs.
 
 The sum-factorized step (parallel/sharding.py) reads only the 1D tables,
 the connectivity and the per-quadrature-point geometry built from them
@@ -178,6 +180,18 @@ class DomainTables:
     n_q: int = 0
 
 
+@dataclass
+class BoundaryTables:
+    conn: np.ndarray  # (n_bel, n_dof_b)
+    N: np.ndarray  # (n_bel, n_q, n_dof_b)
+    dN_dxi: np.ndarray  # (n_bel, n_q, n_dof_b, dim-1)
+    wq: np.ndarray  # (n_bel, n_q) parametric quad weights
+    detJ_ref: np.ndarray  # (n_bel, n_q) reference-config surface jacobian
+    attr: np.ndarray  # (n_bel,) boundary attribute (1-based, as in file)
+    normal_sign: np.ndarray = None  # (n_bel,) +-1: file-orientation normal
+    # relative to the +tangent-axis parameterization used by the tables
+
+
 def patch_domain_tables(
     patch, weights_grid, x_loc, quadrature_order: int = -1
 ) -> DomainTables:
@@ -200,6 +214,33 @@ def patch_domain_tables(
     return DomainTables(
         conn=conn, N=N, dN_dX=dN_dX, w_detJ=w_detJ, n_q=n_q
     )
+
+
+def patch_side_tables(
+    patch, weights_grid, dof_grid, x_glob, axis, end, quadrature_order=-1
+):
+    """Boundary tables for one side (axis, end) of one patch.
+
+    dof_grid: array shaped like the control grid holding the caller's
+    global scalar dof ids (lexicographic identity for a single patch).
+    Returns (conn_g, N, dN_dxi, wq, detJ_ref)."""
+    p = patch
+    d = p.para_dim
+    nc = p.n_ctrl()
+    tabs = []
+    for k in [k for k in range(d) if k != axis]:
+        order = quadrature_order if quadrature_order >= 0 else 2 * p.degrees[k] + 3
+        tabs.append(_dim_tables(p.knot_vectors[k], p.degrees[k], order // 2 + 1))
+    sel = [slice(None)] * d
+    sel[axis] = 0 if end == 0 else nc[axis] - 1
+    connf, Nf, dNf, wqf = _tensor_basis(tabs, weights_grid[tuple(sel)])
+    conn_g = dof_grid[tuple(sel)].reshape(-1, order="F")[connf]
+    Jf = np.einsum("end,eqnk->eqdk", x_glob[conn_g], dNf)  # (.., dim, d-1)
+    if d == 2:
+        detJ = np.linalg.norm(Jf[..., 0], axis=-1)
+    else:
+        detJ = np.linalg.norm(np.cross(Jf[..., 0], Jf[..., 1]), axis=-1)
+    return conn_g, Nf, dNf, wqf, detJ
 
 
 class FESpace:
@@ -227,6 +268,30 @@ class FESpace:
     def domain_tables(self, quadrature_order: int = -1) -> DomainTables:
         return patch_domain_tables(
             self.patch, self.weights_grid, self.x_ref, quadrature_order
+        )
+
+    def boundary_tables(self, quadrature_order: int = -1) -> BoundaryTables:
+        """All boundary (side) elements, grouped side by side in the order
+        the sides appear in the mesh file; within a side, elements are
+        lexicographic over the tangent span grid."""
+        d = self.para_dim
+        nc = self.n_ctrl
+        dof_grid = np.arange(self.n_dof).reshape(*nc[::-1]).transpose(
+            *range(d - 1, -1, -1)
+        )
+        parts = []
+        for attr, axis, end, n_sign in self.sides:
+            conn_g, Nf, dNf, wqf, detJ = patch_side_tables(
+                self.patch, self.weights_grid, dof_grid, self.x_ref, axis, end,
+                quadrature_order,
+            )
+            n = len(conn_g)
+            parts.append((conn_g, Nf, dNf, wqf, detJ, np.full(n, attr, dtype=np.int64),
+                          np.full(n, n_sign, dtype=np.float64)))
+        cat = [np.concatenate(x) for x in zip(*parts)]
+        return BoundaryTables(
+            conn=cat[0], N=cat[1], dN_dxi=cat[2], wq=cat[3], detJ_ref=cat[4],
+            attr=cat[5], normal_sign=cat[6],
         )
 
     def side_dofs(self, bid: int) -> np.ndarray:

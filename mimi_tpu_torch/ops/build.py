@@ -78,10 +78,10 @@ def load():
     from .sweeps import _J2Params
 
     lib = ctypes.CDLL(build())
-    vp, ll = ctypes.c_void_p, ctypes.c_longlong
-    lib.mimi_residual_sf.argtypes = [vp] * 14 + [_J2Params, ll, vp]
-    lib.mimi_assemble_sf.argtypes = [vp] * 15 + [_J2Params, ll, vp]
-    lib.mimi_matvec_sf.argtypes = [vp] * 11 + [ctypes.c_float] * 2 + [ll, vp]
+    vp, ll, ci, cf = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+    lib.mimi_residual_sf.argtypes = [vp] * 15 + [_J2Params, cf, ll, vp]
+    lib.mimi_assemble_sf.argtypes = [vp] * 16 + [ci, _J2Params, cf, ll, vp]
+    lib.mimi_matvec_sf.argtypes = [vp] * 10 + [ci, vp, cf, cf, ci, cf, ll, vp]
     for fn in (lib.mimi_residual_sf, lib.mimi_assemble_sf, lib.mimi_matvec_sf):
         fn.restype = ctypes.c_int
     _LIB = lib

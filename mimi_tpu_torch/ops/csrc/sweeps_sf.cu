@@ -7,6 +7,19 @@
 //   mimi_matvec_sf    <- make_matvec_sweep_sf ("cauchy")      y = J w
 // The plain torch versions of the same functions are in ops/sweeps.py.
 //
+// Variants (compile-time template parameters, one instantiation each,
+// chosen on the host by the C entry points; no run-time branch in the hot
+// loop):
+//   VISC  the viscous flux of has_visc: residual and assemble add mu_v dV
+//         (dV = grad v at the point, from v_el as dF is formed from u_el;
+//         sweeps.py:404-406, :651-653); the matvec adds fac1 mu_v dF
+//         (_tangent_apply :816-817, :833-834).  The tangent block does not
+//         change.  Costs one more (3,27,E) read in residual and assemble.
+//   CT    storage of the 37-plane tangent block, float or __nv_bfloat16
+//         (c_dtype, sweeps.py:474,595-617).  The assemble rounds each plane
+//         to nearest even (as astype(bfloat16)); the matvec widens on load.
+//         At 48^3 the matvec then streams 0.52 GB of C instead of 1.05 GB.
+//
 // Design: one thread per element, looping over its 64 quadrature points.
 // The batch-last layout (..., n_q, n_el) puts neighbouring elements on
 // neighbouring addresses, so every table, state and tangent read of a warp
@@ -36,6 +49,7 @@
 // the same D-hat storage: tensor components C_ijkl over the symmetric basis,
 // upper triangle, 21 planes.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -174,6 +188,18 @@ __device__ __forceinline__ void scatter(float (&acc)[3][ND], const Basis& s,
         for (int c = 0; c < 3; ++c)
           acc[c][n] += g0 * Z[c][0] + g1 * Z[c][1] + g2 * Z[c][2] + N * mm[c];
       }
+}
+
+// tangent-block storage: float, or bfloat16 rounded to nearest even
+__device__ __forceinline__ void store_c(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_c(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ float load_c(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_c(const __nv_bfloat16* p) {
+  // a bfloat16 is the upper half of a float: widening is exact
+  const unsigned short bits = __ldg(reinterpret_cast<const unsigned short*>(p));
+  return __uint_as_float(((unsigned)bits) << 16);
 }
 
 __device__ __forceinline__ float det3(const float A[3][3]) {
@@ -362,23 +388,24 @@ __device__ __forceinline__ void j2_cauchy(const J2Params& p, const float F[3][3]
   }
 }
 
-template <bool TANGENT>
+template <bool TANGENT, bool VISC, typename CT>
 __global__ void __launch_bounds__(BLOCK)
     residual_kernel(const float* __restrict__ u_el, const float* __restrict__ a_el,
-                    Tables tb, const float* __restrict__ jinv,
-                    const float* __restrict__ wq, const float* __restrict__ ps,
-                    const float* __restrict__ eqps, const float* __restrict__ temp,
-                    float* __restrict__ out, float* __restrict__ cout,
-                    J2Params p, long long E) {
+                    const float* __restrict__ v_el, Tables tb,
+                    const float* __restrict__ jinv, const float* __restrict__ wq,
+                    const float* __restrict__ ps, const float* __restrict__ eqps,
+                    const float* __restrict__ temp, float* __restrict__ out,
+                    CT* __restrict__ cout, J2Params p, float mu_v, long long E) {
   const long long e = (long long)blockIdx.x * BLOCK + threadIdx.x;
   if (e >= E) return;
-  float uw[3][ND], aw[3][ND], acc[3][ND];
+  float uw[3][ND], aw[3][ND], vw[3][ND], acc[3][ND];
 #pragma unroll
   for (int c = 0; c < 3; ++c)
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
       uw[c][n] = __ldg(u_el + (long long)(c * ND + n) * E + e);
       aw[c][n] = __ldg(a_el + (long long)(c * ND + n) * E + e);
+      if (VISC) vw[c][n] = __ldg(v_el + (long long)(c * ND + n) * E + e);
       acc[c][n] = 0.f;
     }
   const long long QE = (long long)NQ * E;
@@ -411,22 +438,30 @@ __global__ void __launch_bounds__(BLOCK)
       for (int d = 0; d < 3; ++d)
         P[c][d] = J * (sig[c][0] * fi[d][0] + sig[c][1] * fi[d][1] +
                        sig[c][2] * fi[d][2]);
+    if (VISC) {
+      float dV[3][3], vdum2[3];
+      interp_grad<false>(vw, s, ji, dV, vdum2);
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+#pragma unroll
+        for (int d = 0; d < 3; ++d) P[c][d] += mu_v * dV[c][d];
+    }
     float av[3];
     interp_value(aw, s, av);
     const float m[3] = {p.rho * av[0], p.rho * av[1], p.rho * av[2]};
     scatter(acc, s, ji, __ldg(wq + qe), P, m);
     if (TANGENT) {
 #pragma unroll
-      for (int k = 0; k < 21; ++k) cout[k * QE + qe] = Mt[k];
+      for (int k = 0; k < 21; ++k) store_c(cout + k * QE + qe, Mt[k]);
       const int SI[6] = {0, 0, 0, 1, 1, 2};
       const int SJ[6] = {0, 1, 2, 1, 2, 2};
 #pragma unroll
-      for (int a = 0; a < 6; ++a) cout[(21 + a) * QE + qe] = sig[SI[a]][SJ[a]];
+      for (int a = 0; a < 6; ++a) store_c(cout + (21 + a) * QE + qe, sig[SI[a]][SJ[a]]);
 #pragma unroll
       for (int r = 0; r < 3; ++r)
 #pragma unroll
-        for (int c = 0; c < 3; ++c) cout[(27 + r * 3 + c) * QE + qe] = fi[r][c];
-      cout[36 * QE + qe] = J;
+        for (int c = 0; c < 3; ++c) store_c(cout + (27 + r * 3 + c) * QE + qe, fi[r][c]);
+      store_c(cout + 36 * QE + qe, J);
     }
   }
 #pragma unroll
@@ -435,11 +470,12 @@ __global__ void __launch_bounds__(BLOCK)
     for (int n = 0; n < ND; ++n) out[(long long)(c * ND + n) * E + e] = acc[c][n];
 }
 
+template <bool VISC, typename CT>
 __global__ void __launch_bounds__(BLOCK)
     matvec_kernel(const float* __restrict__ w_el, Tables tb,
                   const float* __restrict__ jinv, const float* __restrict__ wq,
-                  const float* __restrict__ cb, float* __restrict__ out, float rho,
-                  float fac0, long long E) {
+                  const CT* __restrict__ cb, float* __restrict__ out, float rho,
+                  float fac0, float fac1_mu_v, long long E) {
   const long long e = (long long)blockIdx.x * BLOCK + threadIdx.x;
   if (e >= E) return;
   float ww[3][ND], acc[3][ND];
@@ -464,19 +500,19 @@ __global__ void __launch_bounds__(BLOCK)
     const long long qe = (long long)q * E + e;
     float M[21];
 #pragma unroll
-    for (int k = 0; k < 21; ++k) M[k] = __ldg(cb + k * QE + qe);
+    for (int k = 0; k < 21; ++k) M[k] = load_c(cb + k * QE + qe);
     float sig[3][3], fi[3][3];
 #pragma unroll
     for (int a = 0; a < 6; ++a) {
-      const float x = __ldg(cb + (21 + a) * QE + qe);
+      const float x = load_c(cb + (21 + a) * QE + qe);
       sig[SI[a]][SJ[a]] = x;
       sig[SJ[a]][SI[a]] = x;
     }
 #pragma unroll
     for (int r = 0; r < 3; ++r)
 #pragma unroll
-      for (int c = 0; c < 3; ++c) fi[r][c] = __ldg(cb + (27 + r * 3 + c) * QE + qe);
-    const float J = __ldg(cb + 36 * QE + qe);
+      for (int c = 0; c < 3; ++c) fi[r][c] = load_c(cb + (27 + r * 3 + c) * QE + qe);
+    const float J = load_c(cb + 36 * QE + qe);
     // d sigma = D-hat : (dF_ii, dF_ij + dF_ji), symmetric storage
     float cm[6], ds6[6];
 #pragma unroll
@@ -528,6 +564,12 @@ __global__ void __launch_bounds__(BLOCK)
                                 dsig[c][2] * fi[d][2]) -
                            (P[c][0] * A[0][d] + P[c][1] * A[1][d] +
                             P[c][2] * A[2][d]));
+    if (VISC) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+#pragma unroll
+        for (int d = 0; d < 3; ++d) dP[c][d] += fac1_mu_v * dF[c][d];
+    }
     const float m[3] = {rho * v[0], rho * v[1], rho * v[2]};
     scatter(acc, s, ji, __ldg(wq + qe), dP, m);
   }
@@ -539,46 +581,89 @@ __global__ void __launch_bounds__(BLOCK)
 
 inline unsigned grid_for(long long E) { return (unsigned)((E + BLOCK - 1) / BLOCK); }
 
-}  // namespace
-
-extern "C" {
-
-int mimi_residual_sf(const float* u_el, const float* a_el, const float* b0,
-                     const float* d0, const float* b1, const float* d1,
-                     const float* b2, const float* d2, const float* jinv,
-                     const float* wq, const float* ps, const float* eqps,
-                     const float* temp, float* out, J2Params p, long long E,
-                     void* stream) {
-  if (E <= 0) return 0;
-  Tables tb{{b0, d0, b1, d1, b2, d2}};
-  residual_kernel<false><<<grid_for(E), BLOCK, 0, (cudaStream_t)stream>>>(
-      u_el, a_el, tb, jinv, wq, ps, eqps, temp, out, nullptr, p, E);
+template <bool TANGENT, bool VISC, typename CT>
+int launch_residual(const float* u_el, const float* a_el, const float* v_el,
+                    const Tables& tb, const float* jinv, const float* wq,
+                    const float* ps, const float* eqps, const float* temp,
+                    float* out, void* cout, const J2Params& p, float mu_v,
+                    long long E, void* stream) {
+  residual_kernel<TANGENT, VISC, CT><<<grid_for(E), BLOCK, 0, (cudaStream_t)stream>>>(
+      u_el, a_el, v_el, tb, jinv, wq, ps, eqps, temp, out,
+      static_cast<CT*>(cout), p, mu_v, E);
   return (int)cudaGetLastError();
 }
 
-int mimi_assemble_sf(const float* u_el, const float* a_el, const float* b0,
-                     const float* d0, const float* b1, const float* d1,
-                     const float* b2, const float* d2, const float* jinv,
-                     const float* wq, const float* ps, const float* eqps,
-                     const float* temp, float* out, float* cout, J2Params p,
-                     long long E, void* stream) {
+template <bool VISC, typename CT>
+int launch_matvec(const float* w_el, const Tables& tb, const float* jinv,
+                  const float* wq, const void* cb, float* out, float rho,
+                  float fac0, float fac1_mu_v, long long E, void* stream) {
+  matvec_kernel<VISC, CT><<<grid_for(E), BLOCK, 0, (cudaStream_t)stream>>>(
+      w_el, tb, jinv, wq, static_cast<const CT*>(cb), out, rho, fac0, fac1_mu_v, E);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// C entry points.  v_el == nullptr selects the inviscid variant; c_bf16
+// selects the bfloat16 tangent block.
+extern "C" {
+
+int mimi_residual_sf(const float* u_el, const float* a_el, const float* v_el,
+                     const float* b0, const float* d0, const float* b1,
+                     const float* d1, const float* b2, const float* d2,
+                     const float* jinv, const float* wq, const float* ps,
+                     const float* eqps, const float* temp, float* out,
+                     J2Params p, float mu_v, long long E, void* stream) {
   if (E <= 0) return 0;
   Tables tb{{b0, d0, b1, d1, b2, d2}};
-  residual_kernel<true><<<grid_for(E), BLOCK, 0, (cudaStream_t)stream>>>(
-      u_el, a_el, tb, jinv, wq, ps, eqps, temp, out, cout, p, E);
-  return (int)cudaGetLastError();
+  if (v_el)
+    return launch_residual<false, true, float>(u_el, a_el, v_el, tb, jinv, wq, ps,
+                                               eqps, temp, out, nullptr, p, mu_v,
+                                               E, stream);
+  return launch_residual<false, false, float>(u_el, a_el, v_el, tb, jinv, wq, ps,
+                                              eqps, temp, out, nullptr, p, mu_v, E,
+                                              stream);
+}
+
+int mimi_assemble_sf(const float* u_el, const float* a_el, const float* v_el,
+                     const float* b0, const float* d0, const float* b1,
+                     const float* d1, const float* b2, const float* d2,
+                     const float* jinv, const float* wq, const float* ps,
+                     const float* eqps, const float* temp, float* out,
+                     void* cout, int c_bf16, J2Params p, float mu_v, long long E,
+                     void* stream) {
+  if (E <= 0) return 0;
+  Tables tb{{b0, d0, b1, d1, b2, d2}};
+#define MIMI_ASM(VISC, CT)                                                    \
+  return launch_residual<true, VISC, CT>(u_el, a_el, v_el, tb, jinv, wq, ps,  \
+                                         eqps, temp, out, cout, p, mu_v, E,   \
+                                         stream)
+  if (v_el) {
+    if (c_bf16) MIMI_ASM(true, __nv_bfloat16);
+    MIMI_ASM(true, float);
+  }
+  if (c_bf16) MIMI_ASM(false, __nv_bfloat16);
+  MIMI_ASM(false, float);
+#undef MIMI_ASM
 }
 
 int mimi_matvec_sf(const float* w_el, const float* b0, const float* d0,
                    const float* b1, const float* d1, const float* b2,
                    const float* d2, const float* jinv, const float* wq,
-                   const float* cb, float* out, float rho, float fac0,
-                   long long E, void* stream) {
+                   const void* cb, int c_bf16, float* out, float rho, float fac0,
+                   int visc, float fac1_mu_v, long long E, void* stream) {
   if (E <= 0) return 0;
   Tables tb{{b0, d0, b1, d1, b2, d2}};
-  matvec_kernel<<<grid_for(E), BLOCK, 0, (cudaStream_t)stream>>>(
-      w_el, tb, jinv, wq, cb, out, rho, fac0, E);
-  return (int)cudaGetLastError();
+#define MIMI_MV(VISC, CT)                                                 \
+  return launch_matvec<VISC, CT>(w_el, tb, jinv, wq, cb, out, rho, fac0, \
+                                 fac1_mu_v, E, stream)
+  if (visc) {
+    if (c_bf16) MIMI_MV(true, __nv_bfloat16);
+    MIMI_MV(true, float);
+  }
+  if (c_bf16) MIMI_MV(false, __nv_bfloat16);
+  MIMI_MV(false, float);
+#undef MIMI_MV
 }
 
 }  // extern "C"

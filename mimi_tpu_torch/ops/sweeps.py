@@ -3,13 +3,20 @@ residual + Cauchy-decomposition tangent (assemble), and the GMRES matvec.
 
 Counterpart of mimi_tpu/ops/sweeps.py (`make_residual_sweep`,
 `make_assemble_sweep` and `make_matvec_sweep_sf` in their sum-factorized,
-c_storage="cauchy" branches).  Each sweep has
+c_storage="cauchy" branches, with and without the viscous flux, and with
+the tangent block stored in float32 or bfloat16).  Each sweep has
   - a plain torch version (`*_plain`), dtype-generic, written as staged
     sum-factorization einsums on whole (n_q, n_el) planes;
   - a wrapper (`residual_sf`, `assemble_sf`, `matvec_sf`) that runs the
     plain version for CPU tensors and launches the hand-written CUDA
-    kernel of ops/csrc/sweeps_sf.cu for CUDA tensors (float32 only), and
-    counts those launches in `LAUNCHES`.
+    kernel of ops/csrc/sweeps_sf.cu for CUDA tensors (float32 fields,
+    float32 or bfloat16 tangent block), and counts those launches per
+    variant in `LAUNCHES`.
+
+The viscous flux mu_v grad(v) joins P in the residual and the assemble
+(v_el = the element values of va + fac1 aa); the matvec adds
+fac1 mu_v grad(w).  A bfloat16 tangent block is rounded to nearest even
+when it is written and widened to float on every read.
 
 Layouts (batch-last, elements fastest; shared with the JAX package):
 element dof values (dim, nd, n_el) with n = a0 + P a1 + P^2 a2; per-axis
@@ -29,8 +36,22 @@ from torch.func import jvp
 
 from ..fem import soa
 
-# kernel launches since the last reset, per kernel (CUDA tensors only)
-LAUNCHES = {"matvec_sf": 0, "assemble_sf": 0, "residual_sf": 0}
+
+def variant(name, visc=False, bf16=False):
+    """Counter name of one kernel variant: "matvec_sf", "matvec_sf[visc]",
+    "matvec_sf[bf16]", "matvec_sf[visc,bf16]"."""
+    tags = [t for t, on in (("visc", visc), ("bf16", bf16)) if on]
+    return f"{name}[{','.join(tags)}]" if tags else name
+
+
+# kernel launches since the last reset, per kernel variant (CUDA tensors
+# only)
+LAUNCHES = {
+    variant(name, visc, bf16): 0
+    for name in ("matvec_sf", "assemble_sf", "residual_sf")
+    for visc in (False, True)
+    for bf16 in ((False,) if name == "residual_sf" else (False, True))
+}
 
 
 def reset_launches():
@@ -260,15 +281,26 @@ def tangent_apply_cauchy(Cb, dF, fac0):
     )
 
 
-def residual_sf_plain(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho):
-    """y[c, n] = sum_q wq (dN[n, d] P(F)[c, d] + N[n] rho a_q[c]),
-    F = I + grad u."""
+def _visc_flux(P, v_el, mu_v, tabs, jinv):
+    return P if v_el is None else P + mu_v * sf_grad(v_el, tabs, jinv)
+
+
+def residual_sf_plain(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho,
+                      v_el=None, mu_v=0.0):
+    """y[c, n] = sum_q wq (dN[n, d] (P(F) + mu_v dV)[c, d] + N[n] rho
+    a_q[c]), F = I + grad u, dV = grad v (no viscous flux when v_el is
+    None)."""
     P = mat.pk1_soa(soa.add_diag(sf_grad(u_el, tabs, jinv), 1.0), state, dt)
+    P = _visc_flux(P, v_el, mu_v, tabs, jinv)
     return sf_scatter(P, rho * sf_value(a_el, tabs), tabs, jinv, wq)
 
 
-def assemble_sf_plain(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho):
-    """Residual plus the 37-plane Cauchy-decomposition tangent block.
+def assemble_sf_plain(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho,
+                      v_el=None, mu_v=0.0, c_dtype=None):
+    """Residual (with the viscous flux as residual_sf_plain) plus the
+    37-plane Cauchy-decomposition tangent block, stored in `c_dtype`
+    (default: the fields' dtype; bfloat16 rounds the planes to nearest
+    even).  Viscosity enters the matvec, not the block.
 
     D-hat comes from forward-mode derivatives of `mat.cauchy_soa` along
     the 6 one-hot symmetric seeds S_m = e_ij + e_ji (e_ii on the
@@ -301,15 +333,20 @@ def assemble_sf_plain(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho):
         for c in range(3):
             planes[lay["off_fi"] + r * 3 + c] = fi[r, c]
     planes[lay["off_j"]] = jd
-    P = jd * soa.matmul_nt(sig, fi)
+    P = _visc_flux(jd * soa.matmul_nt(sig, fi), v_el, mu_v, tabs, jinv)
     y = sf_scatter(P, rho * sf_value(a_el, tabs), tabs, jinv, wq)
-    return y, torch.stack(planes, 0)
+    Cb = torch.stack(planes, 0)
+    return y, Cb if c_dtype is None else Cb.to(c_dtype)
 
 
-def matvec_sf_plain(w_el, tabs, jinv, wq, Cb, rho, fac0):
+def matvec_sf_plain(w_el, tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v=None):
     """y[c, n] = sum_q wq (dN[n, d] dP[c, d] + N[n] rho w_q[c]),
-    dP = fac0 (dP/dF : grad w) from the Cauchy-decomposition block."""
-    dP = tangent_apply_cauchy(Cb, sf_grad(w_el, tabs, jinv), fac0)
+    dP = fac0 (dP/dF : grad w) (+ fac1 mu_v grad w) from the
+    Cauchy-decomposition block, widened to the fields' dtype."""
+    dW = sf_grad(w_el, tabs, jinv)
+    dP = tangent_apply_cauchy(Cb.to(w_el.dtype), dW, fac0)
+    if fac1_mu_v is not None:
+        dP = dP + fac1_mu_v * dW
     return sf_scatter(dP, rho * sf_value(w_el, tabs), tabs, jinv, wq)
 
 
@@ -369,9 +406,9 @@ def _j2_params(mat, dt, rho):
     )
 
 
-def _check(name, t, shape, device):
-    if t.device != device or t.dtype != torch.float32:
-        raise ValueError(f"{name}: float32 on {device} required, got {t.dtype} on {t.device}")
+def _check(name, t, shape, device, dtype=torch.float32):
+    if t.device != device or t.dtype != dtype:
+        raise ValueError(f"{name}: {dtype} on {device} required, got {t.dtype} on {t.device}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(shape)} required, got {tuple(t.shape)}")
     if not t.is_contiguous():
@@ -382,6 +419,7 @@ def _check_common(el_fields, tabs, jinv, wq):
     """Validate the shared sum-factorized operands; returns (device,
     n_el).  The kernels are compiled for p = 2 and 4 Gauss points per
     axis (27 dofs, 64 quadrature points per element)."""
+    el_fields = [(n, t) for n, t in el_fields if t is not None]
     device = el_fields[0][1].device
     if device.type != "cuda":
         raise ValueError(f"CUDA sweep called on a {device} tensor")
@@ -401,8 +439,15 @@ def _check_state(state, device, n_el):
     _check("temperature", state["temperature"], (64, n_el), device)
 
 
+def _c_flag(c_dtype):
+    """Kernel flag of a tangent-block storage dtype: 0 float32, 1 bf16."""
+    if c_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"tangent block dtype {c_dtype}: float32 or bfloat16 required")
+    return int(c_dtype == torch.bfloat16)
+
+
 def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def _launch(fn, name, *args):
@@ -413,62 +458,76 @@ def _launch(fn, name, *args):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
-def residual_sf(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho):
+def residual_sf(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el=None, mu_v=0.0):
     """Residual sweep: plain torch on CPU tensors, the CUDA kernel
-    `mimi_residual_sf` on CUDA tensors."""
+    `mimi_residual_sf` on CUDA tensors; viscous flux when v_el is given."""
     if u_el.device.type == "cpu":
-        return residual_sf_plain(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho)
+        return residual_sf_plain(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el, mu_v)
     from .build import load
 
-    device, n_el = _check_common([("u_el", u_el), ("a_el", a_el)], tabs, jinv, wq)
+    device, n_el = _check_common(
+        [("u_el", u_el), ("a_el", a_el), ("v_el", v_el)], tabs, jinv, wq
+    )
     _check_state(state, device, n_el)
     prm = _j2_params(mat, dt, rho)
     out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
     _launch(
-        load().mimi_residual_sf, "residual_sf",
-        _ptr(u_el), _ptr(a_el), *[_ptr(t) for t in tabs], _ptr(jinv), _ptr(wq),
-        _ptr(state["plastic_strain"]), _ptr(state["eqps"]),
-        _ptr(state["temperature"]), _ptr(out), prm, ctypes.c_longlong(n_el),
+        load().mimi_residual_sf, variant("residual_sf", v_el is not None),
+        _ptr(u_el), _ptr(a_el), _ptr(v_el), *[_ptr(t) for t in tabs], _ptr(jinv),
+        _ptr(wq), _ptr(state["plastic_strain"]), _ptr(state["eqps"]),
+        _ptr(state["temperature"]), _ptr(out), prm, ctypes.c_float(mu_v),
+        ctypes.c_longlong(n_el),
     )
     return out
 
 
-def assemble_sf(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho):
-    """Assemble sweep: (residual, 37-plane tangent block); plain torch on
-    CPU tensors, the CUDA kernel `mimi_assemble_sf` on CUDA tensors."""
+def assemble_sf(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el=None,
+                mu_v=0.0, c_dtype=torch.float32):
+    """Assemble sweep: (residual, 37-plane tangent block in `c_dtype`);
+    plain torch on CPU tensors, the CUDA kernel `mimi_assemble_sf` on
+    CUDA tensors; viscous flux when v_el is given."""
     if u_el.device.type == "cpu":
-        return assemble_sf_plain(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho)
+        return assemble_sf_plain(
+            u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el, mu_v, c_dtype
+        )
     from .build import load
 
-    device, n_el = _check_common([("u_el", u_el), ("a_el", a_el)], tabs, jinv, wq)
+    device, n_el = _check_common(
+        [("u_el", u_el), ("a_el", a_el), ("v_el", v_el)], tabs, jinv, wq
+    )
     _check_state(state, device, n_el)
+    bf16 = _c_flag(c_dtype)
     prm = _j2_params(mat, dt, rho)
     out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
-    cb = torch.empty((37, 64, n_el), dtype=torch.float32, device=device)
+    cb = torch.empty((37, 64, n_el), dtype=c_dtype, device=device)
     _launch(
-        load().mimi_assemble_sf, "assemble_sf",
-        _ptr(u_el), _ptr(a_el), *[_ptr(t) for t in tabs], _ptr(jinv), _ptr(wq),
-        _ptr(state["plastic_strain"]), _ptr(state["eqps"]),
-        _ptr(state["temperature"]), _ptr(out), _ptr(cb), prm,
-        ctypes.c_longlong(n_el),
+        load().mimi_assemble_sf, variant("assemble_sf", v_el is not None, bf16),
+        _ptr(u_el), _ptr(a_el), _ptr(v_el), *[_ptr(t) for t in tabs], _ptr(jinv),
+        _ptr(wq), _ptr(state["plastic_strain"]), _ptr(state["eqps"]),
+        _ptr(state["temperature"]), _ptr(out), _ptr(cb), ctypes.c_int(bf16), prm,
+        ctypes.c_float(mu_v), ctypes.c_longlong(n_el),
     )
     return out, cb
 
 
-def matvec_sf(w_el, tabs, jinv, wq, Cb, rho, fac0):
+def matvec_sf(w_el, tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v=None):
     """GMRES matvec sweep: plain torch on CPU tensors, the CUDA kernel
-    `mimi_matvec_sf` on CUDA tensors."""
+    `mimi_matvec_sf` on CUDA tensors; reads a float32 or bfloat16 block,
+    viscous term when fac1_mu_v is given."""
     if w_el.device.type == "cpu":
-        return matvec_sf_plain(w_el, tabs, jinv, wq, Cb, rho, fac0)
+        return matvec_sf_plain(w_el, tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v)
     from .build import load
 
     device, n_el = _check_common([("w_el", w_el)], tabs, jinv, wq)
-    _check("C", Cb, (37, 64, n_el), device)
+    bf16 = _c_flag(Cb.dtype)
+    _check("C", Cb, (37, 64, n_el), device, Cb.dtype)
+    visc = fac1_mu_v is not None
     out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
     _launch(
-        load().mimi_matvec_sf, "matvec_sf",
+        load().mimi_matvec_sf, variant("matvec_sf", visc, bf16),
         _ptr(w_el), *[_ptr(t) for t in tabs], _ptr(jinv), _ptr(wq), _ptr(Cb),
-        _ptr(out), ctypes.c_float(rho), ctypes.c_float(fac0),
+        ctypes.c_int(bf16), _ptr(out), ctypes.c_float(rho), ctypes.c_float(fac0),
+        ctypes.c_int(int(visc)), ctypes.c_float(fac1_mu_v if visc else 0.0),
         ctypes.c_longlong(n_el),
     )
     return out

@@ -1,12 +1,17 @@
 """The compiled-core problem and the implicit generalized-alpha step.
 
-Counterpart of mimi_tpu/parallel/sharding.py for one device and the path
-the 3D single-patch J2 benchmark takes: the sum-factorized sweeps with the
-37-plane Cauchy tangent (ops/sweeps.py), structured gather and pad-and-sum
-scatter, FDM-preconditioned GMRES, and the reference's LineSearchNewton
-semantics (goal max(rel*|r0|, abs), non-finite abort, 3-point line search
-with a 1e-12 scale floor, a 5-iteration best-improvement window, best
-iterate returned on non-convergence).
+Counterpart of mimi_tpu/parallel/sharding.py for one device and the two
+paths the 3D single-patch J2 benchmarks take: the body-force step and the
+contact press (mortar penalty contact against a rigid spline tool, with
+viscosity).  Both run the sum-factorized sweeps with the 37-plane Cauchy
+tangent (ops/sweeps.py; the viscous flux and a bfloat16 tangent block
+where asked), structured gather and pad-and-sum scatter,
+FDM-preconditioned GMRES, and the reference's LineSearchNewton semantics
+(goal max(rel*|r0|, abs), non-finite abort, 3-point line search with a
+1e-12 scale floor, a 5-iteration best-improvement window, best iterate
+returned on non-convergence).  Contact adds its residual to every
+residual evaluation and its consistent tangent (closest-point query held
+at the assemble point) to the GMRES matvec (contact/mortar.py).
 
 Options of the reference package that this path does not cover raise
 NotImplementedError naming their ROADMAP item.  Multi-device sharding is
@@ -16,11 +21,12 @@ ROADMAP Queue 1 item 8; everything here runs on one device.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from ..contact.mortar import make_contact_fns
 from ..fem import soa
 from ..fem.space import FESpace, _connectivity, _quad_weights, domain_dim_tables
 from ..nurbs.mesh_io import read_mfem_nurbs_mesh
@@ -48,6 +54,11 @@ class Problem:
     fdm: dict | None  # FDM preconditioner data (host numpy), or None
     grid: dict  # structured dof grid {"spans", "nc", "pp1"}
     sf: dict  # {"tables": [B0, D0, B1, D1, B2, D2], "jinv", "n_g", "pp1"}
+    # mortar contact: per block a dict of element tables, scene data and
+    # penalty (contact/mortar.py), and its static part {"n_local",
+    # "query", "bid"}
+    contact: list = field(default_factory=list)
+    contact_static: list = field(default_factory=list)
 
     @property
     def dtype(self):
@@ -116,19 +127,24 @@ def build_problem(
     constant_velocity=None,
     contact=None,
     periodic=None,
+    contact_quadrature_order: int = -1,
 ) -> Problem:
     """Assemble the step's problem on `device` in `dtype`.
 
     The host build (numpy, float64) makes only what the sum-factorized
     sweeps read: per-axis 1D basis tables, the per-qp Jacobian inverse
     and w det J (ops/sweeps.py build_sf_tables), the body-force right-hand
-    side, the Dirichlet mask and the FDM eigenbases.  The dense N/dN_dX
-    tables of the reference package are not built (fem/space.py still
-    provides them)."""
+    side, the Dirichlet mask and the FDM eigenbases (with a boundary
+    spring per contact face).  The dense N/dN_dX tables of the reference
+    package are not built (fem/space.py still provides them).
+
+    contact: [(bid, scene), ...] mortar penalty contact of boundary `bid`
+    against a NearestDistanceToSplines scene (penalty
+    scene.coefficient), with boundary quadrature of order
+    `contact_quadrature_order` (default 2p+3)."""
     for opt, what, item in (
         (traction, "traction", "Queue 1 item 6"),
         (constant_velocity, "constant velocity", "Queue 1 item 6"),
-        (contact, "contact", "Queue 1 item 5"),
         (periodic, "periodic", "Queue 1 item 6"),
     ):
         if opt:
@@ -193,6 +209,9 @@ def build_problem(
             material.init_state((n_el, n_q), dtype=dtype, device=device)
         )
     dev = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)  # noqa: E731
+    contact_data, contact_static = _contact_blocks(
+        fes, contact or [], contact_quadrature_order, dtype, device
+    )
     return Problem(
         material=material,
         n_dof=fes.n_dof,
@@ -205,7 +224,10 @@ def build_problem(
         free=dev(free),
         facs=gen_alpha_factors(rho_inf),
         state0=state0,
-        fdm=build_fdm_data(fes, dir_pairs, material),
+        fdm=build_fdm_data(
+            fes, dir_pairs, material,
+            contact_springs=[(bid, scene.coefficient) for bid, scene in contact or []],
+        ),
         grid={"spans": spans, "nc": nc, "pp1": [p + 1 for p in patch.degrees]},
         sf={
             "tables": [dev(t) for t in sf_tabs],
@@ -213,7 +235,62 @@ def build_problem(
             "n_g": n_g,
             "pp1": patch.degrees[0] + 1,
         },
+        contact=contact_data,
+        contact_static=contact_static,
     )
+
+
+def _contact_blocks(fes, contact, quadrature_order, dtype, device):
+    """Per contact block the element tables of its marked boundary
+    elements (conn, N, dN, wq, nsign, ldof, x_ref_el), the scene data and
+    the penalty; and the static part (n_local, query, bid)."""
+    data, static = [], []
+    if not contact:
+        return data, static
+    bt = fes.boundary_tables(quadrature_order)
+    for bid, scene in contact:
+        marked = np.nonzero(bt.attr == bid + 1)[0]
+        if marked.size == 0:
+            raise ValueError(f"contact boundary {bid} marks no elements")
+        c_conn = bt.conn[marked]
+        uniq = np.unique(c_conn)
+        lookup = -np.ones(uniq.max() + 1, dtype=np.int64)
+        lookup[uniq] = np.arange(len(uniq))
+
+        def dev(a, dt=dtype):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
+
+        data.append(
+            {
+                "conn": dev(c_conn, torch.int64),
+                "N": dev(bt.N[marked]),
+                "dN": dev(bt.dN_dxi[marked]),
+                "wq": dev(bt.wq[marked]),
+                "nsign": dev(bt.normal_sign[marked]),
+                "ldof": dev(lookup[c_conn], torch.int64),
+                "x_ref_el": dev(fes.x_ref[c_conn]),
+                "scene": scene.scene_data(dtype, device),
+                "penalty": float(scene.coefficient),
+            }
+        )
+        static.append(
+            {"n_local": len(uniq), "query": scene.make_batched_query(), "bid": bid}
+        )
+    return data, static
+
+
+def _contact_fns_for(prob):
+    return [
+        make_contact_fns(prob.dim, cs["n_local"], cs["query"])
+        for cs in prob.contact_static
+    ]
+
+
+def _scatter_conn(res_el, conn, n_dof):
+    """(n_mb, nd, dim) boundary-element values -> (n_dof, dim)."""
+    dim = res_el.shape[-1]
+    out = torch.zeros((n_dof, dim), dtype=res_el.dtype, device=res_el.device)
+    return out.index_add_(0, conn.reshape(-1), res_el.reshape(-1, dim))
 
 
 def _local_offsets(pp1):
@@ -293,11 +370,13 @@ def _select_impl(prob, residual_impl):
 
 def initial_carry(prob: Problem, dt: float = 1.0):
     """Zero fields + the first-step explicit acceleration
-    a0 = M^{-1}(f - E(0)) (consistent mass, diagonal-preconditioned CG).
+    a0 = M^{-1}(f - E(0) - S v0 - contact(0)) (consistent mass,
+    diagonal-preconditioned CG; v0 = 0, so the viscous term vanishes).
     `dt` only reaches rate-dependent terms; nothing yields at the zero
     state, so any positive value is equivalent."""
     z = torch.zeros((prob.n_dof, prob.dim), dtype=prob.dtype, device=prob.device)
     a0 = _explicit_accel(prob, z, prob.state0, dt)
+    zero = lambda *shape: torch.zeros(shape, dtype=prob.dtype, device=prob.device)  # noqa: E731
     return {
         "u": z,
         "v": z,
@@ -311,6 +390,18 @@ def initial_carry(prob: Problem, dt: float = 1.0):
             "converged": True,
             "finite": True,
         },
+        "contact": [
+            {
+                "force": zero(prob.dim),
+                "area": zero(),
+                "pressure": zero(),
+                "nodal_pressure": zero(cs["n_local"]),
+                "res_el": zero(*cd["conn"].shape, prob.dim),
+                "proj_unconverged": 0,
+                "proj_res_max": zero(),
+            }
+            for cd, cs in zip(prob.contact, prob.contact_static)
+        ],
     }
 
 
@@ -326,6 +417,9 @@ def _explicit_accel(prob, u, state, dt):
     E_u = scatter_el(
         res_sweep(u_el, torch.zeros_like(u_el), state, tabs, jinv, wq, mat, dt, rho)
     )
+    for cd, (pp, rp, _) in zip(prob.contact, _contact_fns_for(prob)):
+        pressure, _, _ = pp(u, cd, cd["scene"], cd["penalty"])
+        E_u = E_u + _scatter_conn(rp(u, cd, pressure)[0], cd["conn"], n_dof)
     z = (prob.rhs - E_u) * free
 
     def mass_apply(w_flat):
@@ -354,6 +448,8 @@ def make_step(
     lin_rel_tol: float | None = None,
     lin_abs_tol: float | None = None,
     precond: str = "auto",
+    contact_tangent: str = "frozen",
+    matvec_dtype: str = "f32",
     gmres_restart: int = 30,
     tangent_storage: str = "auto",
     matvec_impl: str = "auto",
@@ -369,23 +465,36 @@ def make_step(
         (same math, sum-factorized tables instead of dense ones).
     Both evaluate the residual with the sum-factorized tables and store
     the 37-plane Cauchy-decomposition tangent; everything around the
-    sweeps (gather/scatter, FDM, GMRES, Newton) is the same torch code.
+    sweeps (gather/scatter, contact, FDM, GMRES, Newton) is the same torch
+    code.  A material with viscosity > 0 adds the viscous flux
+    S (v + fac1 a) to the residual sweeps and fac1 S to the matvec.
+
+    `matvec_dtype` ("f32", "bf16") is the storage of the tangent block the
+    GMRES matvec streams; "bf16" rounds it once in the assemble and
+    widens it on every read, on both engines.  Residuals stay float32.
+
+    `contact_tangent` is the contact linearization of a problem with
+    contact blocks: "consistent" applies the exact derivative of the
+    contact residual with the closest-point query held at the assemble
+    point (the reference's jax.linearize of the full two-pass residual);
+    the reference's default "frozen" (element blocks at frozen pressure)
+    is not ported.
 
     Newton runs up to `newton_iters` iterations; each linear solve is
     FDM-preconditioned GMRES(restart) with at most `cg_iters` iterations
     and tolerances lin_rel_tol/lin_abs_tol (defaults 1e-8/1e-12 in
     float64, 3e-6/1e-12 in float32).
 
-    The returned `step(carry)` has an attribute `newton_system(carry)`
-    that returns the first Newton linear system at the predictor of
-    `carry` as {"J_apply", "M_apply", "r"} (flat vectors), for solver
-    diagnostics.
+    The returned `step(carry, contact_scenes=None)` takes optional fresh
+    per-block scene data (a list matching prob.contact), so a rigid tool
+    can move between steps (NearestDistanceToSplines.
+    translate_scene_data).  Its attribute `newton_system(carry)` returns
+    the first Newton linear system at the predictor of `carry` as
+    {"J_apply", "M_apply", "r"} (flat vectors), for solver diagnostics.
     """
     if solver not in ("cg", "iterative", "gmres"):
         raise _unported(f"solver={solver!r} (dense LU)", "Queue 1 item 6")
     mat = prob.material
-    if float(mat.viscosity) > 0.0:
-        raise _unported("viscosity", "Queue 1 item 6")
     if precond == "auto":
         precond = "fdm"
     if precond in ("bj", "schur"):
@@ -404,6 +513,16 @@ def make_step(
         raise _unported("matvec_impl='dense'", "Queue 2 item 2")
     if matvec_impl not in ("auto", "sf"):
         raise ValueError(f"unknown matvec_impl {matvec_impl!r}")
+    if matvec_dtype not in ("f32", "bf16"):
+        raise ValueError(f"unknown matvec_dtype {matvec_dtype!r}")
+    if contact_tangent not in ("frozen", "consistent"):
+        raise ValueError(f"unknown contact_tangent {contact_tangent!r}")
+    contact_fns = _contact_fns_for(prob)
+    if contact_fns and contact_tangent == "frozen":
+        raise _unported(
+            "contact_tangent='frozen' (frozen-pressure element blocks); use "
+            "'consistent'", "Queue 1 item 5",
+        )
     res_sweep, asm_sweep, mv_sweep = _select_impl(prob, residual_impl)
 
     f = prob.facs
@@ -417,33 +536,69 @@ def make_step(
     if lin_abs_tol is None:
         lin_abs_tol = 1e-12
     rho = float(mat.density)
+    has_visc = float(mat.viscosity) > 0.0
+    mu_v = float(mat.viscosity) if has_visc else 0.0
+    fac1_mu_v = fac1 * mu_v if has_visc else None
+    c_dtype = torch.bfloat16 if matvec_dtype == "bf16" else prob.dtype
     tabs, jinv, wq = prob.sf["tables"], prob.sf["jinv"], prob.wdet_t
     rhs, free = prob.rhs, prob.free
     fdm_apply = make_fdm_apply(prob.fdm, fac0, fac1, prob.dtype, prob.device)
     gather_t, scatter_el = _gather_scatter(prob)
 
-    def residual(aa, xa, state):
-        u_el = gather_t(xa + fac0 * aa)
-        a_el = gather_t(aa * free)
-        y = scatter_el(res_sweep(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho))
+    def el_fields(aa, xa, va):
+        """Element values of u = xa + fac0 aa, a = aa (masked) and, with
+        viscosity, v = va + fac1 aa."""
+        v_el = gather_t(va + fac1 * aa) if has_visc else None
+        return gather_t(xa + fac0 * aa), gather_t(aa * free), v_el
+
+    def contact_residual(u_cur, scenes):
+        out = torch.zeros_like(u_cur)
+        for cd, sd, (pp, rp, _) in zip(prob.contact, scenes, contact_fns):
+            pressure, _, _ = pp(u_cur, cd, sd, cd["penalty"])
+            out = out + _scatter_conn(rp(u_cur, cd, pressure)[0], cd["conn"], n_dof)
+        return out
+
+    def residual(aa, xa, va, state, scenes):
+        u_el, a_el, v_el = el_fields(aa, xa, va)
+        y = scatter_el(
+            res_sweep(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el=v_el, mu_v=mu_v)
+        )
+        if contact_fns:
+            y = y + contact_residual(xa + fac0 * aa, scenes)
         return (y - rhs) * free
 
-    def assemble(aa, xa, state):
-        u_el = gather_t(xa + fac0 * aa)
-        a_el = gather_t(aa * free)
-        res_t, Ck = asm_sweep(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho)
-        return (scatter_el(res_t) - rhs) * free, Ck
+    def assemble(aa, xa, va, state, scenes):
+        """Residual, the tangent block and, per contact block, the
+        derivative of its residual with the query held at xa + fac0 aa."""
+        u_el, a_el, v_el = el_fields(aa, xa, va)
+        res_t, Ck = asm_sweep(
+            u_el, a_el, state, tabs, jinv, wq, mat, dt, rho,
+            v_el=v_el, mu_v=mu_v, c_dtype=c_dtype,
+        )
+        r = scatter_el(res_t)
+        c_jvps = []
+        for cd, sd, (_, _, lin) in zip(prob.contact, scenes, contact_fns):
+            res_el, _, jvp = lin(xa + fac0 * aa, cd, sd, cd["penalty"])
+            r = r + _scatter_conn(res_el, cd["conn"], n_dof)
+            c_jvps.append((cd["conn"], jvp))
+        return (r - rhs) * free, (Ck, c_jvps)
 
-    def operators(Ck):
+    def operators(ctx):
+        Ck, c_jvps = ctx
+
         def J_apply(w_flat):
             w = w_flat.reshape(n_dof, dim) * free
-            y = scatter_el(mv_sweep(gather_t(w), tabs, jinv, wq, Ck, rho, fac0))
+            y = scatter_el(
+                mv_sweep(gather_t(w), tabs, jinv, wq, Ck, rho, fac0, fac1_mu_v=fac1_mu_v)
+            )
+            for conn, jvp in c_jvps:
+                y = y + fac0 * _scatter_conn(jvp(w), conn, n_dof)
             return (y * free + w_flat.reshape(n_dof, dim) * (1 - free)).reshape(-1)
 
         return J_apply, fdm_apply
 
-    def solve(Ck, r):
-        J_apply, M_apply = operators(Ck)
+    def solve(ctx, r):
+        J_apply, M_apply = operators(ctx)
         c, info = gmres(
             J_apply,
             r.reshape(-1),
@@ -456,11 +611,11 @@ def make_step(
         )
         return c.reshape(n_dof, dim), info["iters"]
 
-    def newton(xa, state):
+    def newton(xa, va, state, scenes):
         """LineSearchNewton: goal max(rel*|r0|, abs), 3-point line search
         with a 1e-12 scale-floor abort, 5-iteration best window."""
         aa = torch.zeros_like(xa)
-        r, Ck = assemble(aa, xa, state)
+        r, ctx = assemble(aa, xa, va, state, scenes)
         norm = norm0 = float(torch.linalg.norm(r))
         goal = max(rel_tol * norm0, abs_tol)
         best_aa, best_norm = aa, math.inf
@@ -472,10 +627,10 @@ def make_step(
             and it < max_iter
             and window != 0
         ):
-            step_c, li = solve(Ck, r)
+            step_c, li = solve(ctx, r)
             q1 = norm
-            q3 = float(torch.linalg.norm(residual(aa - step_c, xa, state)))
-            q2 = float(torch.linalg.norm(residual(aa - 0.5 * step_c, xa, state)))
+            q3 = float(torch.linalg.norm(residual(aa - step_c, xa, va, state, scenes)))
+            q2 = float(torch.linalg.norm(residual(aa - 0.5 * step_c, xa, va, state, scenes)))
             denom = q1 - 2.0 * q2 + q3
             eps = (3.0 * q1 - 4.0 * q2 + q3) / (4.0 * denom) if denom != 0 else math.nan
             if denom > 0 and 0 < eps < 1:
@@ -485,7 +640,7 @@ def make_step(
             stop = abs(scale) < 1e-12
             if not stop:
                 aa = aa - scale * step_c
-            r, Ck = assemble(aa, xa, state)
+            r, ctx = assemble(aa, xa, va, state, scenes)
             norm_new = float(torch.linalg.norm(r))
             better = norm_new < best_norm
             if better and not stop:
@@ -512,11 +667,15 @@ def make_step(
         va = v + f["fac2"] * dt * a
         return xa, va
 
-    def step(carry):
+    def default_scenes(contact_scenes):
+        return contact_scenes or [cd["scene"] for cd in prob.contact]
+
+    def step(carry, contact_scenes=None):
         u, v, a, state = carry["u"], carry["v"], carry["a"], carry["state"]
+        scenes = default_scenes(contact_scenes)
         prev_fac = 1.0 - f["fac1_inv"]
         xa, va = predictor(carry)
-        aa, diag = newton(xa, state)
+        aa, diag = newton(xa, va, state, scenes)
         xa = xa + fac0 * aa
         va = va + fac1 * aa
         u_new = u * prev_fac + f["fac1_inv"] * xa
@@ -525,6 +684,12 @@ def make_step(
         if state is not None:
             dF = sweeps.sf_grad(gather_t(u_new), tabs, jinv)
             state = mat.accumulate_soa(soa.add_diag(dF, 1.0), state, dt)
+        # contact observables at the converged alpha level (the reference
+        # records from its last residual assembly there)
+        contact_aux = [
+            lin(xa, cd, sd, cd["penalty"])[1]
+            for cd, sd, (_, _, lin) in zip(prob.contact, scenes, contact_fns)
+        ]
         finite = bool(torch.isfinite(u_new).all()) and bool(torch.isfinite(v_new).all())
         if state is not None:
             finite = finite and all(bool(torch.isfinite(x).all()) for x in state.values())
@@ -534,12 +699,15 @@ def make_step(
             "a": a_new,
             "state": state,
             "newton": dict(diag, finite=finite),
+            "contact": contact_aux,
         }
 
-    def newton_system(carry):
-        xa, _ = predictor(carry)
-        r, Ck = assemble(torch.zeros_like(xa), xa, carry["state"])
-        J_apply, M_apply = operators(Ck)
+    def newton_system(carry, contact_scenes=None):
+        xa, va = predictor(carry)
+        r, ctx = assemble(
+            torch.zeros_like(xa), xa, va, carry["state"], default_scenes(contact_scenes)
+        )
+        J_apply, M_apply = operators(ctx)
         return {"J_apply": J_apply, "M_apply": M_apply, "r": r.reshape(-1)}
 
     step.newton_system = newton_system

@@ -12,7 +12,8 @@ diagonal, mu off it).  The generalized eigenbases K_d V_d = M_d V_d L_d
 (built once on the host with scipy) diagonalize it, so the inverse applies
 as three small dense 1D transforms per side (torch einsums on the device).
 Face Dirichlet sets restrict the 1D matrices; the eigenbasis is embedded
-with zero rows at constrained indices.
+with zero rows at constrained indices.  Penalty contact on a face folds
+into the face-normal component's 1D stiffness as a boundary spring.
 """
 
 from __future__ import annotations
@@ -44,12 +45,19 @@ def _assemble_1d(kv, p, n_gauss, length):
     return M * scale, K / scale
 
 
-def build_fdm_data(fes, dir_pairs, material):
+def build_fdm_data(fes, dir_pairs, material, contact_springs=None):
     """Per-(component, axis) embedded eigenbases.
 
     dir_pairs: [(bid, component), ...] face Dirichlet sets.  Returns a
     numpy dict, or None when the decomposition does not apply (no elastic
-    constants, or a Dirichlet set that is not a patch face)."""
+    constants, or a Dirichlet set or contact face that is not a patch
+    face).
+
+    contact_springs: [(bid, penalty), ...] -- penalty contact on face `bid`
+    adds kappa (M (x) M (x) e_N e_N^T) to the tangent, which is
+    Kronecker-separable: kappa / alpha joins the face-normal component's
+    1D stiffness at the face's end index (clamped B-spline bases are
+    interpolatory at the ends, so the end function is the e_N unit)."""
     lam_e = float(material.lambda_)
     mu_e = float(material.mu)
     if lam_e <= 0 and mu_e <= 0:
@@ -77,12 +85,24 @@ def build_fdm_data(fes, dir_pairs, material):
     alpha = np.full((fes.dim, d), mu_e)
     for c in range(min(fes.dim, d)):
         alpha[c, c] = lam_e + 2.0 * mu_e
+    springs = {}  # (comp, axis) -> [(end_index, kappa / alpha)]
+    for bid, penalty in contact_springs or []:
+        if bid not in side_of_bid:
+            return None
+        axis, end = side_of_bid[bid]
+        springs.setdefault((axis, axis), []).append(
+            (0 if end == 0 else nc[axis] - 1, float(penalty) / alpha[axis, axis])
+        )
 
     Ve = [[None] * d for _ in range(fes.dim)]
     lam = [[None] * d for _ in range(fes.dim)]
     for c in range(fes.dim):
         for ax in range(d):
             M, K = mats[ax]
+            if (c, ax) in springs:
+                K = K.copy()
+                for idx, k_oa in springs[(c, ax)]:
+                    K[idx, idx] += k_oa
             free = np.array(
                 [i for i in range(nc[ax]) if i not in constrained[(c, ax)]]
             )

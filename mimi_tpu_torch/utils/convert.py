@@ -1,8 +1,8 @@
 """Carry problems, materials and step state across from the reference
 package (mimi_tpu) and back, through numpy.
 
-These functions read plain attributes and numpy-convertible fields only;
-they never import jax, so a caller holding objects of the reference
+These functions read plain attributes and numpy-convertible fields only
+and load no JAX module, so a caller holding objects of the reference
 package can run both packages on identical inputs.
 """
 
@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import splines as _splines
+from ..contact.scene import NearestDistanceToSplines
 from ..materials import J2
 from ..materials import hardening as _hardening
 from ..parallel.sharding import Problem
@@ -45,11 +47,59 @@ def material_from_reference(mat):
     return out
 
 
-def problem_from_numpy(ref, material=None, dtype=None, device="cpu"):
+def scene_from_reference(scene):
+    """The port's NearestDistanceToSplines rebuilt from a reference-package
+    scene: its splines' degrees, knot vectors, control points and
+    weights, its planted seed samples and penalty."""
+    out = NearestDistanceToSplines()
+    out.coefficient = float(scene.coefficient)
+    for s in scene.splines:
+        cls = getattr(_splines, type(s).__name__)
+        sp = _splines._SplineBase.__new__(cls)
+        _splines._SplineBase.__init__(
+            sp, s.degrees, s.knot_vectors, np.array(s.cps),
+            None if s.weights is None else np.array(s.weights),
+        )
+        out.add_spline(sp)
+    if scene._samples is not None:
+        out._samples = [np.array(a) for a in scene._samples]
+    return out
+
+
+def _contact_from_reference(ref, scenes, dtype, device):
+    """The port's contact blocks of a reference Problem (no padding); the
+    scene data is the reference's, the queries come from `scenes`."""
+    if len(scenes) != len(ref.contact):
+        raise ValueError(f"{len(ref.contact)} contact blocks need as many scenes")
+    data, static = [], []
+    for cd, cs, scene in zip(ref.contact, ref.contact_static, scenes):
+        port_scene = scene_from_reference(scene)
+        ints = {"conn", "ldof"}
+        blk = {
+            k: torch.tensor(np.asarray(cd[k]), dtype=torch.int64 if k in ints else dtype,
+                            device=device)
+            for k in ("conn", "N", "dN", "wq", "nsign", "ldof", "x_ref_el")
+        }
+        if float(np.asarray(cd["wq"]).min()) == 0.0:
+            raise NotImplementedError("padded contact blocks (ROADMAP Queue 1 item 8)")
+        blk["scene"] = [
+            {k: _tensor(v, dtype, device) for k, v in sd.items()} for sd in cd["scene"]
+        ]
+        blk["penalty"] = float(np.asarray(cd["penalty"]))
+        data.append(blk)
+        static.append(
+            {"n_local": int(cs["n_local"]), "query": port_scene.make_batched_query(),
+             "bid": cs["bid"]}
+        )
+    return data, static
+
+
+def problem_from_numpy(ref, material=None, dtype=None, device="cpu", scenes=None):
     """A port `Problem` from a reference-package `Problem` built for the
     same single polynomial 3D patch (it must carry `sf` tables and a
     structured `grid`, with no element padding).  `dtype` defaults to the
-    reference problem's float type."""
+    reference problem's float type.  A problem with contact blocks needs
+    the reference scenes it was built with (`scenes`, one per block)."""
     if ref.sf is None or ref.grid is None:
         raise NotImplementedError(
             "only single-patch polynomial 3D problems are ported "
@@ -66,6 +116,7 @@ def problem_from_numpy(ref, material=None, dtype=None, device="cpu"):
         if not ref.state_soa:
             raise NotImplementedError("per-quad state layout; SoA expected")
         state0 = {k: _tensor(v, dtype, device) for k, v in ref.state0.items()}
+    contact, contact_static = _contact_from_reference(ref, scenes or [], dtype, device)
     return Problem(
         material=mat,
         n_dof=int(ref.n_dof),
@@ -86,12 +137,21 @@ def problem_from_numpy(ref, material=None, dtype=None, device="cpu"):
             "n_g": int(ref.sf["n_g"]),
             "pp1": int(ref.sf["pp1"]),
         },
+        contact=contact,
+        contact_static=contact_static,
     )
 
 
 def carry_from_numpy(carry, dtype=torch.float64, device="cpu"):
-    """A port step carry from a dict with "u", "v", "a" (n_dof, dim) and
-    "state" (SoA leaves) arrays; "newton" is reset."""
+    """A port step carry from a dict with "u", "v", "a" (n_dof, dim),
+    "state" (SoA leaves) and, with contact, "contact" (per block a dict of
+    observables) arrays; "newton" is reset."""
+
+    def obs(v):
+        a = np.asarray(v)
+        return torch.tensor(a, dtype=dtype if a.dtype.kind == "f" else torch.int64,
+                            device=device)
+
     return {
         "u": _tensor(carry["u"], dtype, device),
         "v": _tensor(carry["v"], dtype, device),
@@ -107,6 +167,9 @@ def carry_from_numpy(carry, dtype=torch.float64, device="cpu"):
             "converged": True,
             "finite": True,
         },
+        "contact": [
+            {k: obs(v) for k, v in blk.items()} for blk in carry.get("contact", [])
+        ],
     }
 
 
@@ -119,4 +182,8 @@ def carry_to_numpy(carry):
         else {k: v.detach().cpu().numpy() for k, v in carry["state"].items()}
     )
     out["newton"] = dict(carry["newton"])
+    out["contact"] = [
+        {k: np.asarray(v.detach().cpu() if torch.is_tensor(v) else v) for k, v in blk.items()}
+        for blk in carry.get("contact", [])
+    ]
     return out

@@ -124,6 +124,26 @@ def test_dense_domain_tables_match(problems):
     _close(tabs.w_detJ, ref.w_detJ)
 
 
+@pytest.mark.parametrize("order", [-1, 3], ids=["default_order", "order3"])
+def test_boundary_tables_match(order):
+    """The side tables contact reads, field by field, against the
+    reference package's FESpace.boundary_tables."""
+    from mimi_tpu.fem.space import FESpace as RefFESpace
+    from mimi_tpu.nurbs.mesh_io import read_mfem_nurbs_mesh as ref_read
+    from mimi_tpu.nurbs.topology import build_patch_from_mesh as ref_patch
+
+    rpatch, rtopo, _ = ref_patch(ref_read(MESH))
+    rpatch.elevate_degrees(1)
+    rpatch.refine_to(4)
+    ref = RefFESpace(rpatch, rtopo).boundary_tables(order)
+    patch, topo = _port_patch()
+    got = FESpace(patch, topo).boundary_tables(order)
+    for k in ("conn", "attr", "normal_sign"):
+        assert np.array_equal(getattr(got, k), getattr(ref, k)), k
+    for k in ("N", "dN_dxi", "wq", "detJ_ref"):
+        _close(getattr(got, k), getattr(ref, k))
+
+
 def test_native_tables_match_numpy():
     """The native C++ engine, built into the port's own build directory,
     agrees with the vectorized numpy tables."""
@@ -175,12 +195,22 @@ def test_import_leaves_jax_out():
     [
         {"traction": {1: {2: 1.0}}},
         {"constant_velocity": {1: {0: 1.0}}},
-        {"contact": [(1, object())]},
+        {"contact": "frozen tangent"},
         {"periodic": {0: 1}},
     ],
     ids=["traction", "constant_velocity", "contact", "periodic"],
 )
 def test_unported_build_options_raise(option):
+    if "contact" in option:
+        # contact is ported; the step refuses the reference's default
+        # frozen-pressure contact tangent, which is not
+        scene = mt.NearestDistanceToSplines()
+        scene.add_spline(mt.Bezier([1, 1], [[0, 0, 1.02], [0, 1, 1.02], [1, 0, 1.02], [1, 1, 1.02]]))
+        scene.plant_kd_tree(8)
+        prob = mt.build_problem(MESH, material=_material(mt), **BUILD, contact=[(2, scene)])
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            mt.make_step(prob, 0.05)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mt.build_problem(MESH, material=_material(mt), **BUILD, **option)
 
@@ -204,8 +234,17 @@ def test_unported_step_options_raise(problems, option):
 
 
 def test_viscosity_raises():
+    """A viscous problem: the CUDA engine raises on CPU tensors; the plain
+    engine takes it, and the viscous flux changes its first Newton
+    residual (the predictor's velocity is not zero)."""
     mat = _material(mt)
     mat.viscosity = 1.0
     prob = mt.build_problem(MESH, material=mat, **BUILD)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.make_step(prob, 0.05)
+    with pytest.raises(ValueError, match="CUDA"):
+        mt.make_step(prob, 0.05, residual_impl="cuda")
+    carry = mt.initial_carry(prob)
+    r_visc = mt.make_step(prob, 0.05).newton_system(carry)["r"]
+    plain = mt.build_problem(MESH, material=_material(mt), **BUILD)
+    r = mt.make_step(plain, 0.05).newton_system(carry)["r"]
+    assert torch.isfinite(r_visc).all()
+    assert float((r_visc - r).abs().max()) > 1e-6 * float(r.abs().max())

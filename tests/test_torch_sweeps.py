@@ -2,8 +2,9 @@
 mimi_tpu_torch/ops/sweeps.py) against the reference package's Pallas
 kernels in interpret mode (float32, 8 elements, the bars of
 tests/test_pallas.py) and against the same math in JAX float64 on dense
-tables (1e-10).  Also checks the closed-form J2 tangent that the CUDA
-assemble kernel implements against the forward-mode planes."""
+tables (1e-10), with and without the viscous flux, and with the tangent
+block stored in bfloat16.  Also checks the closed-form J2 tangent that the
+CUDA assemble kernel implements against the forward-mode planes."""
 
 import os
 
@@ -24,6 +25,7 @@ from mimi_tpu_torch.utils.convert import material_from_reference
 
 MESH = os.path.join(os.path.dirname(__file__), "data", "cube-nurbs.mesh")
 DT, RHO, FAC0 = 0.05, 1.0, 0.01
+MU_V, FAC1 = 100.0, 0.3  # viscosity (the contact press's) and a fac1
 LAY = tsw.cauchy_plane_layout(3)
 # plane groups of the Cauchy block: D-hat, sigma, F^-1, J
 GROUPS = [(0, 21), (21, 27), (27, 36), (36, 37)]
@@ -73,6 +75,7 @@ def case():
         "dN_t": np.transpose(prob.dN_dX, (2, 3, 1, 0)).copy(),
         "N_t": np.transpose(prob.N, (2, 1, 0)).copy(),
     }
+    data["v_el"] = rng.standard_normal((3, 27, E))  # drawn last: the rest is unchanged
     return prob, ref_mat, material_from_reference(ref_mat), data
 
 
@@ -273,3 +276,101 @@ def test_tangent_is_forward_derivative_of_pk1(case):
     _, dP_ref = torch_jvp(lambda Ft: mat.pk1_soa(Ft, state, DT), (F,), (dW,))
     dP = tsw.tangent_apply_cauchy(C, dW, 1.0)
     assert _rel(dP.numpy(), dP_ref.numpy()) < 1e-10
+
+
+@pytest.fixture(scope="module")
+def pallas_visc(case):
+    """The viscous Pallas sweeps in interpret mode, float32: residual,
+    assemble with a bfloat16 tangent block, and the matvec on that
+    block."""
+    prob, ref_mat, mat, data = case
+    u_el, a_el, st, tabs, jinv, wq = _jax_args(data, jnp.float32)
+    v_el = jnp.asarray(data["v_el"], jnp.float32)
+    E = prob.n_el
+    kw = dict(
+        mat=ref_mat, dt=DT, dim=3, nd=27, n_q=64, n_el=E, rho=RHO, mu_v=MU_V,
+        has_visc=True, state=st, block_e=8, interpret=True, sf_mode=True,
+        n_g=4, pp1=3,
+    )
+    y_res = jsw.make_residual_sweep(**kw)(u_el, a_el, v_el, st, *tabs, jinv, wq)
+    y_asm, C = jsw.make_assemble_sweep(**kw, c_storage="cauchy", c_dtype=jnp.bfloat16)(
+        u_el, a_el, v_el, st, *tabs, jinv, wq
+    )
+    mv = jsw.make_matvec_sweep_sf(
+        dim=3, nd=27, n_q=64, n_el=E, rho=RHO, fac0=FAC0, fac1_mu_v=FAC1 * MU_V,
+        has_visc=True, block_e=8, interpret=True, c_storage="cauchy",
+        n_g=4, pp1=3,
+    )
+    y_mv = mv(jnp.asarray(data["w_el"], jnp.float32), *tabs, jinv, wq, C)
+    assert C.dtype == jnp.bfloat16
+    return {
+        "res": np.asarray(y_res), "asm": np.asarray(y_asm), "mv": np.asarray(y_mv),
+        # bfloat16 -> float32 is exact, and so is the way back
+        "C": np.asarray(C).astype(np.float32),
+    }
+
+
+def _visc_args(data):
+    return dict(v_el=torch.tensor(data["v_el"], dtype=torch.float32), mu_v=MU_V)
+
+
+def test_visc_residual_matches_pallas(case, pallas_visc):
+    *_, mat, data = case
+    args = _torch_args(data, torch.float32)
+    y = tsw.residual_sf_plain(*args, mat, DT, RHO, **_visc_args(data))
+    assert _rel(y.numpy(), pallas_visc["res"]) < 1e-4
+    # the viscous flux is a real part of the residual here
+    y0 = tsw.residual_sf_plain(*args, mat, DT, RHO)
+    assert _rel(y0.numpy(), pallas_visc["res"]) > 1e-2
+
+
+def test_visc_bf16_assemble_matches_pallas(case, pallas_visc):
+    """Residual at the f32 bar; the bfloat16 planes within one bfloat16
+    rounding step (2^-7 of each plane group's max).  The Pallas kernel
+    rounds an off-diagonal D-hat plane as two rounded halves, the port
+    rounds the float32 plane once, so a few entries differ by one step."""
+    *_, mat, data = case
+    y, C = tsw.assemble_sf_plain(
+        *_torch_args(data, torch.float32), mat, DT, RHO, **_visc_args(data),
+        c_dtype=torch.bfloat16,
+    )
+    assert C.dtype == torch.bfloat16
+    assert _rel(y.numpy(), pallas_visc["asm"]) < 1e-4
+    assert _group_err(C.float().numpy(), pallas_visc["C"]) <= 2.0**-7
+    # the stored block is the float32 block rounded to nearest even
+    _, C32 = tsw.assemble_sf_plain(
+        *_torch_args(data, torch.float32), mat, DT, RHO, **_visc_args(data)
+    )
+    assert torch.equal(C, C32.to(torch.bfloat16))
+
+
+def test_visc_bf16_matvec_matches_pallas(case, pallas_visc):
+    """Both matvecs read the same bfloat16 block and widen it on load."""
+    *_, mat, data = case
+    _, _, _, tabs, jinv, wq = _torch_args(data, torch.float32)
+    Cb = torch.tensor(pallas_visc["C"]).to(torch.bfloat16)
+    w = torch.tensor(data["w_el"], dtype=torch.float32)
+    y = tsw.matvec_sf_plain(w, tabs, jinv, wq, Cb, RHO, FAC0, FAC1 * MU_V)
+    assert _rel(y.numpy(), pallas_visc["mv"]) < 1e-3
+    y0 = tsw.matvec_sf_plain(w, tabs, jinv, wq, Cb, RHO, FAC0)
+    assert _rel(y0.numpy(), pallas_visc["mv"]) > 1e-2
+
+
+def test_visc_sweeps_match_jax_f64(case, jax_f64):
+    """The viscous flux in float64: residual + mu_v grad(v) integrated
+    against dN, matvec + fac1 mu_v grad(w), on the dense tables."""
+    *_, mat, data = case
+    args = _torch_args(data, torch.float64)
+    dN_t, wq = data["dN_t"], data["wq"]
+    flux = lambda x: np.einsum(  # noqa: E731
+        "qe,ndqe,cdqe->cne", wq, dN_t, np.einsum("ndqe,cne->cdqe", dN_t, x)
+    )
+    v = torch.tensor(data["v_el"])
+    y = tsw.residual_sf_plain(*args, mat, DT, RHO, v_el=v, mu_v=MU_V)
+    assert _rel(y.numpy(), jax_f64["res"] + MU_V * flux(data["v_el"])) < 1e-10
+    ya, C = tsw.assemble_sf_plain(*args, mat, DT, RHO, v_el=v, mu_v=MU_V)
+    assert torch.equal(ya, y)
+    mv = tsw.matvec_sf_plain(
+        torch.tensor(data["w_el"]), args[3], args[4], args[5], C, RHO, FAC0, FAC1 * MU_V
+    )
+    assert _rel(mv.numpy(), jax_f64["mv"] + FAC1 * MU_V * flux(data["w_el"])) < 1e-10
