@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of mimi_tpu_torch on one CUDA GPU.
 
-Builds the CUDA sweep kernels from the sources in this checkout, holds
-each against its plain torch version, checks one implicit step of the
-kernel path against the plain path, then drives the two paths at 48^3
-elements (cube-nurbs.mesh at p=2, 375,000 unknowns, float32):
+Builds the CUDA sweep kernels from the sources in this checkout (one nvcc
+per source, started together, into one library), holds each against its plain torch
+version, checks one implicit step of the kernel path against the plain
+path, then drives three paths, float32.  Two at 48^3 elements
+(cube-nurbs.mesh at p=2, 375,000 unknowns):
   - the J2 Johnson-Cook body-force problem, generalized-alpha steps with
     4 line-search Newton iterations and FDM-preconditioned GMRES(40) at
     lin_rel_tol 1e-3 (phases 3-8);
@@ -14,6 +15,12 @@ elements (cube-nurbs.mesh at p=2, 375,000 unknowns, float32):
     1e-3, GMRES(30, at most 80) at lin_rel_tol 1e-2, the consistent
     contact tangent and a bfloat16 tangent block, which runs the viscous
     and bfloat16 variants of the kernels (phases 9-12).
+And the dense-table path (phases 13-16): the neo-Hookean two-patch
+cantilever of tests/test_multipatch.py (two-patch-cube.mesh, the second
+patch rotated) at p=2 and 2 x 38^3 = 109,744 elements, 379,200 unknowns,
+E 2100, nu 0.3, the x=0 face clamped, body force -5, the body-force
+path's step settings, through the three dense kernels with the 45-plane
+symmetric tangent and the multi-patch additive-Schwarz FDM.
 
     python3 chip_smoke.py
 
@@ -54,7 +61,35 @@ VARIANTS = [  # (counter name, TPU kernel it replaces); the contact path's
     ("assemble_sf[visc,bf16]", "mimi_tpu/ops/sweeps.py:472"),
     ("matvec_sf[visc,bf16]", "mimi_tpu/ops/sweeps.py:922"),
 ]
-SOURCE = "mimi_tpu_torch/ops/csrc/sweeps_sf.cu"
+SOURCE = [
+    "mimi_tpu_torch/ops/csrc/sweeps_sf.cu",
+    "mimi_tpu_torch/ops/csrc/sweeps_dense.cu",
+]
+# the dense-table path: the two-patch neo-Hookean cantilever
+TWO_PATCH = os.path.join(ROOT, "tests", "data", "two-patch-cube.mesh")
+DENSE_SPANS = 38  # per patch and axis: 2 x 38^3 = 109,744 elements
+DENSE_CHECK_SPANS = 8  # 2 x 8^3 = 1,024 elements
+DENSE_KERNELS = [  # (counter name, TPU kernel it replaces)
+    ("residual_dense", "mimi_tpu/ops/sweeps.py:338"),
+    ("assemble_dense[sym]", "mimi_tpu/ops/sweeps.py:472"),
+    ("matvec_dense[sym]", "mimi_tpu/ops/sweeps.py:838"),
+]
+# H100 SXM peaks (NVIDIA data sheet, 700 W): device memory and float32
+# outside the tensor cores
+HBM_BPS = 3.35e12
+F32_FLOPS = 67e12
+# arithmetic per quadrature point of each kernel's loop body, counted from
+# its source (a transcendental as one operation): interpolation, the
+# material, the tangent and the scatter.  The radial return's iterations
+# are not counted: how many a point needs was not measured (the kernels
+# run a fixed cap of 100), so the bound leaves them out and stays a
+# lower bound.
+OPS_PER_POINT = {
+    "residual_sf": 1950, "assemble_sf": 2120, "matvec_sf": 1950,
+    "residual_sf[visc]": 2600, "assemble_sf[visc,bf16]": 2770,
+    "matvec_sf[visc,bf16]": 1970,
+    "residual_dense": 1570, "assemble_dense[sym]": 2080, "matvec_dense[sym]": 1630,
+}
 
 
 def fail(msg):
@@ -84,12 +119,9 @@ def jc_material(mt, A=70.0):
 
 
 def build(mt, spans, device):
-    from mimi_tpu_torch.config import default_dtype
-
     return mt.build_problem(
         MESH, 1, 0, jc_material(mt), [(1, 0), (1, 1), (1, 2)], {1: -3.0},
-        rho_inf=0.5, dtype=default_dtype(device), device=device,
-        refine_spans=spans,
+        rho_inf=0.5, device=device, refine_spans=spans,
     )
 
 
@@ -97,8 +129,6 @@ def build_contact(mt, spans, device):
     """The contact press: clamped bottom face, top face (bid 1) against a
     rigid bilinear Bezier tool at z = 1.02 (kappa 5e7), J2 Johnson-Cook
     (A 700, B 1400), E 1e6, nu 0.3, density 1e3, viscosity 100."""
-    from mimi_tpu_torch.config import default_dtype
-
     mat = jc_material(mt, A=700.0)
     mat.hardening.B = 1400.0
     mat.density = 1e3
@@ -111,9 +141,42 @@ def build_contact(mt, spans, device):
     scene.coefficient = 5e7
     return mt.build_problem(
         MESH, 1, 0, mat, [(0, 0), (0, 1), (0, 2)], {}, rho_inf=0.5,
-        dtype=default_dtype(device), device=device, refine_spans=spans,
+        device=device, refine_spans=spans,
         contact=[(1, scene)],
     )
+
+
+def nbytes(*objs):
+    """Bytes of the tensors in objs, nested in lists, tuples and dicts."""
+    total = 0
+    for o in objs:
+        if isinstance(o, dict):
+            total += nbytes(*o.values())
+        elif isinstance(o, (list, tuple)):
+            total += nbytes(*o)
+        elif o is not None:
+            total += o.numel() * o.element_size()
+    return total
+
+
+def kernel_row(name, source, replaces, launches, err, ms, plain_ms, n_bytes, n_ops):
+    """One entry of the kernels line.  The bound is the larger of the
+    bytes the call must move (inputs read once, outputs written once) over
+    the memory rate and its operations over the float32 rate."""
+    t_bytes, t_ops = n_bytes / HBM_BPS * 1e3, n_ops / F32_FLOPS * 1e3
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            # no single PyTorch call computes a fused quadrature sweep
+            "library_ms": None}
+
+
+def plastic_points(soa, sweeps, prob, u_el, state, dt):
+    """Quadrature points on the plastic branch of the J2 return map at the
+    element displacements u_el."""
+    F = soa.add_diag(sweeps.sf_grad(u_el, prob.sf["tables"], prob.sf["jinv"]), 1.0)
+    return int(prob.material._return_map(F, state, dt)[4].sum())
 
 
 def cuda_ms(torch, fn, reps):
@@ -434,15 +497,27 @@ def contact_phases(torch, mt, sweeps, soa, sh, device, gen):
             lambda: sweeps.matvec_sf_plain(f["w_el"], tabs, jinv, wq, Cb, rho, fac0,
                                            fac1_mu_v)),
     }
+    n_pts = prob.n_el * prob.n_q
+    n_plastic = plastic_points(soa, sweeps, prob, f["u_el"], f["state"], dt)
+    el_out = 3 * 27 * prob.n_el * 4
+    byts = {  # inputs read once, outputs written once
+        "residual_sf[visc]": nbytes(f["u_el"], f["a_el"], f["v_el"], tabs, jinv, wq,
+                                    f["state"]) + el_out,
+        "assemble_sf[visc,bf16]": nbytes(f["u_el"], f["a_el"], f["v_el"], tabs, jinv, wq,
+                                         f["state"], Cb) + el_out,
+        "matvec_sf[visc,bf16]": nbytes(f["w_el"], tabs, jinv, wq, Cb) + el_out,
+    }
     rows = []
     for name, replaces in VARIANTS:
         kern, plain = calls[name]
         ms = cuda_ms(torch, kern, 20)
         plain_ms = cuda_ms(torch, plain, 3)
-        say(f"[11. 48^3 timing] {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms")
-        rows.append({"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-                     "launches": launches[name], "max_abs_err": errs[name],
-                     "ms": ms, "plain_ms": plain_ms})
+        row = kernel_row(name, SOURCE[0], replaces, launches[name], errs[name], ms,
+                         plain_ms, byts[name], n_pts * OPS_PER_POINT[name])
+        say(f"[11. 48^3 timing] {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms; "
+            f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} ({byts[name] / 1e9:.3f} GB, "
+            f"{n_plastic} plastic points); {byts[name] / ms / 1e9:.3f} TB/s")
+        rows.append(row)
     del f, Cb, calls
 
     # ---- 12. where one contact step's time goes (torch.profiler) -----------
@@ -494,6 +569,220 @@ def contact_phases(torch, mt, sweeps, soa, sh, device, gen):
     return rows
 
 
+def dense_build(mt, spans, device):
+    """The two-patch neo-Hookean cantilever at `spans` per patch and axis."""
+    mat = mt.CompressibleOgdenNeoHookean()
+    mat.density = 1.0
+    mat.viscosity = -1.0
+    mat.set_young_poisson(2100.0, 0.3)
+    return mt.build_problem(
+        TWO_PATCH, 1, 0, mat, [(0, 0), (0, 1), (0, 2)], {1: -5.0}, rho_inf=0.5,
+        device=device, refine_spans=spans,
+    )
+
+
+def compare_dense(torch, sweeps, prob, u_el, a_el, w_el, label):
+    """Each dense kernel against its plain version on the same inputs;
+    returns ({kernel: max_abs_err}, the plain tangent planes) and fails
+    past the stated tolerances."""
+    mat, wq = prob.material, prob.wdet_t
+    dN, N = prob.dense["dN_t"], prob.dense["N_t"]
+    args = (u_el, a_el, None, dN, N, wq, mat, STEP_KW["dt"], float(mat.density))
+    fac0 = prob.facs["fac3"] * STEP_KW["dt"] ** 2
+    errs = {}
+    y_k = sweeps.residual_dense(*args)
+    torch.cuda.synchronize()
+    y_p = sweeps.residual_dense_plain(*args)
+    err, scale = float((y_k - y_p).abs().max()), float(y_p.abs().max())
+    errs["residual_dense"] = err
+    say(f"[{label}] residual_dense: max|err| {err:.3e} scale {scale:.3e}")
+    # float32; F and P agree to the bit (no FMA, the plain version's
+    # operation order), the quadrature sums run in another order
+    if not err <= 1e-5 * scale:
+        fail(f"dense residual kernel disagrees with plain ({err} > 1e-5 * {scale})")
+    ya_k, C_k = sweeps.assemble_dense(*args)
+    torch.cuda.synchronize()
+    ya_p, C_p = sweeps.assemble_dense_plain(*args)
+    err, scale = float((ya_k - ya_p).abs().max()), float(ya_p.abs().max())
+    c_err, c_scale = float((C_k - C_p).abs().max()), float(C_p.abs().max())
+    errs["assemble_dense[sym]"] = max(err, c_err)
+    say(f"[{label}] assemble_dense[sym]: residual max|err| {err:.3e} scale {scale:.3e}; "
+        f"45 planes max|err| {c_err:.3e} of max {c_scale:.3e} ({c_err / c_scale:.3e})")
+    if not err <= 1e-4 * scale:
+        fail(f"dense assemble kernel residual disagrees ({err} > 1e-4 * {scale})")
+    # the closed-form tangent against the plain version's forward-mode
+    # planes, float32
+    if not c_err <= 1e-4 * c_scale:
+        fail(f"dense assemble kernel tangent disagrees ({c_err} > 1e-4 * {c_scale})")
+    mv_k = sweeps.matvec_dense(w_el, dN, N, wq, C_p, float(mat.density), fac0)
+    torch.cuda.synchronize()
+    mv_p = sweeps.matvec_dense_plain(w_el, dN, N, wq, C_p, float(mat.density), fac0)
+    err, scale = float((mv_k - mv_p).abs().max()), float(mv_p.abs().max())
+    errs["matvec_dense[sym]"] = err
+    say(f"[{label}] matvec_dense[sym]: max|err| {err:.3e} scale {scale:.3e}")
+    if not err <= 1e-4 * scale:
+        fail(f"dense matvec kernel disagrees with plain ({err} > 1e-4 * {scale})")
+    return errs, C_p
+
+
+def dense_phases(torch, mt, sweeps, sh, device, gen):
+    """Phases 13-16: the dense kernels against plain at 2 x 8^3, one step
+    of the kernel path against the plain path there, the two-patch
+    cantilever at 2 x 38^3, the kernels on its state, their times and one
+    profiled step.  Returns the dense rows of the kernels line."""
+    # ---- 13. dense kernels vs plain at 2 x 8^3, random fields ---------------
+    prob = dense_build(mt, DENSE_CHECK_SPANS, device)
+    E = prob.n_el
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(device, prob.dtype)  # noqa: E731
+    # each element scaled so that its largest |F - I| (Frobenius) is 0.1:
+    # strains up to 10%, where mu (F - F^-T) cancels most in float32
+    u_el = rnd(3, 27, E)
+    strain = lambda u: torch.linalg.vector_norm(  # noqa: E731
+        sweeps.dense_grad(u, prob.dense["dN_t"]), dim=(0, 1))
+    u_el = u_el * (0.1 / strain(u_el).amax(0))
+    a_el, w_el = rnd(3, 27, E), rnd(3, 27, E)
+    label = f"13. 2x{DENSE_CHECK_SPANS}^3 random"
+    eps = strain(u_el)
+    J = sweeps.soa.det(sweeps.soa.add_diag(sweeps.dense_grad(u_el, prob.dense["dN_t"]), 1.0))
+    say(f"[{label}] n_el {E}, unknowns {prob.n_dof * 3}; |F - I| min {float(eps.min()):.4f} "
+        f"median {float(eps.median()):.4f} max {float(eps.max()):.4f}; det F in "
+        f"[{float(J.min()):.4f}, {float(J.max()):.4f}]")
+    compare_dense(torch, sweeps, prob, u_el, a_el, w_el, label)
+
+    # ---- 14. one step at 2 x 8^3: cuda vs torch ------------------------------
+    carry0 = mt.initial_carry(prob)
+    out = {impl: mt.make_step(prob, residual_impl=impl, **STEP_KW)(carry0)
+           for impl in ("cuda", "torch")}
+    err = float((out["cuda"]["u"] - out["torch"]["u"]).abs().max())
+    scale = float(out["torch"]["u"].abs().max())
+    nc, nt = out["cuda"]["newton"], out["torch"]["newton"]
+    say(f"[14. 2x{DENSE_CHECK_SPANS}^3 step] cuda vs torch: max|du| {err:.3e} max|u| "
+        f"{scale:.3e}; newton {nc['iters']}/{nt['iters']} gmres "
+        f"{nc['lin_iters']}/{nt['lin_iters']}")
+    # index_add_ scatters in float32 with atomics: rounding, not bitwise
+    if not err <= 1e-4 * scale:
+        fail(f"dense one-step parity {err} > 1e-4 * {scale}")
+    del prob, carry0, out, u_el, a_el, w_el, J, eps
+    torch.cuda.empty_cache()
+
+    # ---- 15. the two-patch cantilever at 2 x 38^3 ----------------------------
+    sweeps.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    prob = dense_build(mt, DENSE_SPANS, device)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    tab_gb = nbytes(prob.dense, prob.wdet_t) / 1e9
+    say(f"[15. 2x38^3 dense] host build {host_s:.2f} s: n_el {prob.n_el}, n_q {prob.n_q}, "
+        f"unknowns {prob.n_dof * prob.dim}; dense tables {tab_gb:.3f} GB on the device "
+        f"(peak allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB)")
+    t0 = time.perf_counter()
+    carry = mt.initial_carry(prob)
+    torch.cuda.synchronize()
+    say(f"[15. 2x38^3 dense] initial carry {time.perf_counter() - t0:.2f} s")
+    step = mt.make_step(prob, **STEP_KW)
+    t0 = time.perf_counter()
+    carry = step(carry)
+    torch.cuda.synchronize()
+    say(f"[15. 2x38^3 dense] warm step {time.perf_counter() - t0:.3f} s {carry['newton']}")
+    times, diags = [], []
+    for _ in range(TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry = step(carry)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        diags.append(carry["newton"])
+    launches = dict(sweeps.LAUNCHES)
+    s_step = sum(times) / len(times)
+    qp_rate = prob.n_el * prob.n_q * RES_EVALS_PER_STEP / s_step
+    say(f"[15. 2x38^3 dense] {s_step:.4f} s/step over {TIMED_STEPS} steps "
+        f"({', '.join(f'{t:.3f}' for t in times)}); {qp_rate:.4e} qp-evals/s; newton iters "
+        f"{[d['iters'] for d in diags]}; gmres iters {[d['lin_iters'] for d in diags]}; "
+        f"max|u| {float(carry['u'].abs().max()):.4e}; peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    for d in diags:
+        say(f"[15. 2x38^3 dense] newton |r0| {d['norm0']:.4e} -> |r| {d['norm']:.4e} "
+            f"(ratio {d['norm'] / d['norm0']:.2e})")
+    for name, _ in DENSE_KERNELS:  # at least once in each of the 1 + 5 steps
+        if launches[name] < 1 + TIMED_STEPS:
+            fail(f"kernel {name} was launched {launches[name]} times in 6 dense steps")
+    if not all(d["finite"] for d in diags):
+        fail("non-finite state on the dense path")
+    # rel_tol 1e-8 is below float32 resolution: a four-order drop is the goal
+    for d in diags:
+        if not (math.isfinite(d["norm"]) and d["norm"] <= 1e-4 * d["norm0"]):
+            fail(f"dense Newton did not converge: |r| {d['norm']} vs |r0| {d['norm0']}")
+
+    # ---- 13 (path). the kernels on the path's state ---------------------------
+    g, _ = sh._gather_scatter(prob)
+    fc, dt = prob.facs, STEP_KW["dt"]
+    xa = carry["u"] + (carry["v"] + fc["fac0"] * dt * carry["a"]) * fc["fac1"] * dt
+    u_el, a_el = g(xa), g(carry["a"])
+    w_el = torch.randn(3, 27, prob.n_el, generator=gen).to(device, prob.dtype)
+    del xa
+    errs, Cs = compare_dense(torch, sweeps, prob, u_el, a_el, w_el, "13. 2x38^3 path")
+
+    # ---- 16. times, bandwidth and one profiled step ---------------------------
+    mat, wq, rho = prob.material, prob.wdet_t, float(prob.material.density)
+    dN, N = prob.dense["dN_t"], prob.dense["N_t"]
+    fac0 = fc["fac3"] * dt * dt
+    args = (u_el, a_el, None, dN, N, wq, mat, dt, rho)
+    calls = {
+        "residual_dense": (lambda: sweeps.residual_dense(*args),
+                           lambda: sweeps.residual_dense_plain(*args)),
+        "assemble_dense[sym]": (lambda: sweeps.assemble_dense(*args),
+                                lambda: sweeps.assemble_dense_plain(*args)),
+        "matvec_dense[sym]": (
+            lambda: sweeps.matvec_dense(w_el, dN, N, wq, Cs, rho, fac0),
+            lambda: sweeps.matvec_dense_plain(w_el, dN, N, wq, Cs, rho, fac0)),
+    }
+    el_out = 3 * 27 * prob.n_el * 4
+    byts = {  # inputs read once, outputs written once
+        "residual_dense": nbytes(u_el, a_el, dN, N, wq) + el_out,
+        "assemble_dense[sym]": nbytes(u_el, a_el, dN, N, wq, Cs) + el_out,
+        "matvec_dense[sym]": nbytes(w_el, dN, N, wq, Cs) + el_out,
+    }
+    n_pts = prob.n_el * prob.n_q
+    rows = []
+    for name, replaces in DENSE_KERNELS:
+        kern, plain = calls[name]
+        ms = cuda_ms(torch, kern, 20)
+        plain_ms = cuda_ms(torch, plain, 3)
+        row = kernel_row(name, SOURCE[1], replaces, launches[name], errs[name], ms,
+                         plain_ms, byts[name], n_pts * OPS_PER_POINT[name])
+        say(f"[16. 2x38^3 timing] {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms; "
+            f"{byts[name] / 1e9:.3f} GB, bound {row['bound_ms']:.4f} ms by {row['bound_by']}; "
+            f"{byts[name] / ms / 1e9:.3f} TB/s ({byts[name] / ms / 1e9 / (HBM_BPS / 1e12):.2f} "
+            f"of 3.35)")
+        rows.append(row)
+    del calls, args, u_el, a_el, w_el, Cs
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        carry = step(carry)
+        torch.cuda.synchronize()
+        t_prof = (time.perf_counter() - t0) * 1e3
+    ev = [(e.key, e.count, e.self_device_time_total / 1e3)
+          for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    busy = sum(t for _, _, t in ev)
+    d = carry["newton"]
+    if busy > 0:
+        say(f"[16. 2x38^3 profile] one step (newton {d['iters']}, gmres {d['lin_iters']}): "
+            f"device busy {busy:.1f} ms; idle share {1.0 - busy / (s_step * 1e3):.3f} of the "
+            f"timed {s_step * 1e3:.1f} ms/step (profiled step wall {t_prof:.1f} ms)")
+        for key, n, t in sorted(ev, key=lambda x: -x[2])[:12]:
+            say(f"[16. 2x38^3 profile]   {t:9.3f} ms  x{n:<5d} {key[:90]}")
+    else:
+        say("[16. 2x38^3 profile] device time not visible to torch.profiler: not measured")
+    del prob, carry, step, prof
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main():
     import torch
 
@@ -523,9 +812,10 @@ def main():
     t0 = time.perf_counter()
     kbuild.load()
     build_s = time.perf_counter() - t0
-    say(f"kernel build: {build_s:.2f} s (cached={kbuild.BUILD_INFO['cached']})")
+    say(f"kernel build: {build_s:.2f} s (cached={kbuild.BUILD_INFO['cached']}; one nvcc "
+        f"per source started together, then one link)")
     for line in kbuild.BUILD_INFO["log"].splitlines():
-        if "registers" in line or "spill" in line:
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
             say(f"  ptxas: {line.strip()}")
 
     # ---- 3. kernel vs plain at 16^3 -----------------------------------------
@@ -635,18 +925,24 @@ def main():
         "residual_sf": (lambda: sweeps.residual_sf(u_el, a_el, st, tabs, jinv, wq, mat, dt, rho),
                         lambda: sweeps.residual_sf_plain(u_el, a_el, st, tabs, jinv, wq, mat, dt, rho)),
     }
+    n_pts = prob.n_el * prob.n_q
+    el_out = 3 * 27 * prob.n_el * 4
+    byts = {  # inputs read once, outputs written once
+        "matvec_sf": nbytes(w_el, tabs, jinv, wq, C) + el_out,
+        "assemble_sf": nbytes(u_el, a_el, tabs, jinv, wq, st, C) + el_out,
+        "residual_sf": nbytes(u_el, a_el, tabs, jinv, wq, st) + el_out,
+    }
     rows = []
     for name, replaces in KERNELS:
         kern, plain = calls[name]
         ms = cuda_ms(torch, kern, 20)
         plain_ms = cuda_ms(torch, plain, 3)
-        say(f"[48^3 timing] {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms")
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": SOURCE, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": errs[name],
-            "ms": ms, "plain_ms": plain_ms,
-        })
+        row = kernel_row(name, SOURCE[0], replaces, launches[name], errs[name], ms,
+                         plain_ms, byts[name], n_pts * OPS_PER_POINT[name])
+        say(f"[48^3 timing] {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms; "
+            f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} ({byts[name] / 1e9:.3f} GB); "
+            f"{byts[name] / ms / 1e9:.3f} TB/s")
+        rows.append(row)
 
     # ---- 7. cost of the GMRES loop's per-iteration host sync -----------------
     ns = step.newton_system(carry)
@@ -717,6 +1013,9 @@ def main():
 
     # ---- 9-12. the contact press ---------------------------------------------
     rows += contact_phases(torch, mt, sweeps, soa, sh, device, gen)
+
+    # ---- 13-16. the dense-table path ------------------------------------------
+    rows += dense_phases(torch, mt, sweeps, sh, device, gen)
 
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {

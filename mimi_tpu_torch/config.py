@@ -1,9 +1,10 @@
-"""Default dtype and device of the port.
+"""Device and dtype defaults of the port.
 
-Functions that build problems take an explicit `device` and `dtype`;
-these helpers give the usual choice: the first CUDA device in float32 when
-one is present (the CUDA sweep kernels are float32), else the CPU in
-float64 (the precision the parity tests hold the reference package to).
+The port's entry points run on the first CUDA device unless the caller
+passes `device="cpu"`; without a CUDA device they raise instead of falling
+back to the CPU.  The dtype follows the device: float32 on the card (the
+CUDA sweep kernels are float32), float64 on the CPU (the precision the
+parity tests hold the reference package to).
 """
 
 from __future__ import annotations
@@ -11,8 +12,15 @@ from __future__ import annotations
 import torch
 
 
-def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+def resolve_device(device="cuda") -> torch.device:
+    """`device` as a torch.device; raises RuntimeError when it names CUDA
+    and no CUDA device is present."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available: pass device='cpu' to run on the CPU"
+        )
+    return dev
 
 
 def default_dtype(device) -> torch.dtype:

@@ -24,6 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..config import default_dtype, resolve_device
+
 
 class NearestDistanceToSplines:
     """A rigid scene of splines: penalty `coefficient`, the splines, and
@@ -54,10 +56,13 @@ class NearestDistanceToSplines:
                 np.stack([g.reshape(-1, order="F") for g in grid], axis=-1)
             )
 
-    def scene_data(self, dtype=torch.float64, device="cpu"):
+    def scene_data(self, dtype=None, device="cuda"):
         """Per spline: the current control data `cps` (n_cp, dim_h), the
         seed parameters `samples` (S, para_dim) and their images
-        `sample_pts` (S, dim), as tensors on `device`."""
+        `sample_pts` (S, dim), as tensors on `device` (the card unless
+        "cpu" is passed; dtype by default config.default_dtype)."""
+        device = resolve_device(device)
+        dtype = dtype or default_dtype(device)
         out = []
         for i, s in enumerate(self.splines):
             cps = s.eval_cps(dtype, device)

@@ -9,8 +9,8 @@ queries for boundary dofs.
 
 The sum-factorized step (parallel/sharding.py) reads only the 1D tables,
 the connectivity and the per-quadrature-point geometry built from them
-(ops/sweeps.py build_sf_tables); the dense `N`/`dN_dX` tables here serve
-the non-sum-factorized paths and the parity tests.
+(ops/sweeps.py build_sf_tables); the dense-table step reads the dense
+`N`/`dN_dX`/`w_detJ` tables in the batch-last layout of `batch_last`.
 
 Quadrature default order is 2p+3 (the reference's precomputed.cpp).
 """
@@ -243,6 +243,24 @@ def patch_side_tables(
     return conn_g, Nf, dNf, wqf, detJ
 
 
+def batch_last(tables: DomainTables, dtype, device):
+    """The dense tables in the layouts the sweeps read, elements last:
+    dN_t (nd, dim, n_q, n_el), N_t (nd, n_q, n_el), wdet_t (n_q, n_el),
+    cast to `dtype` on the host and moved to `device` before the
+    transpose (the float64 host copies are not kept)."""
+    import torch
+
+    def dev(a, perm):
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+        return t.to(device).permute(*perm).contiguous()
+
+    return (
+        dev(tables.dN_dX, (2, 3, 1, 0)),
+        dev(tables.N, (2, 1, 0)),
+        dev(tables.w_detJ, (1, 0)),
+    )
+
+
 class FESpace:
     """Vector-valued NURBS FE space (byVDIM) over a single patch."""
 
@@ -269,6 +287,11 @@ class FESpace:
         return patch_domain_tables(
             self.patch, self.weights_grid, self.x_ref, quadrature_order
         )
+
+    def iter_domain_tables(self, quadrature_order: int = -1):
+        """The domain tables patch by patch (one patch here; see
+        fem/multipatch.py)."""
+        yield self.domain_tables(quadrature_order)
 
     def boundary_tables(self, quadrature_order: int = -1) -> BoundaryTables:
         """All boundary (side) elements, grouped side by side in the order

@@ -10,7 +10,9 @@ Counterpart of mimi_tpu/materials/__init__.py for the structure-of-arrays
 on detached tensors and re-injects its exact sensitivity through one
 implicit-function-theorem correction.
 
-Ported so far: `J2` (small-strain J2 with nonlinear isotropic hardening).
+Ported so far: `J2` (small-strain J2 with nonlinear isotropic hardening)
+and `CompressibleOgdenNeoHookean` (with its closed-form dP/dF, the tangent
+the CUDA dense assemble writes).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 
 from .hardening import Hardening
 from .scalar_solve import make_scalar_solver
+from ..config import default_dtype, resolve_device
 from ..fem import soa
 
 _K_TOL = 1.0e-10
@@ -33,6 +36,10 @@ class Material:
     # may then store the 37-plane Cauchy-decomposition tangent
     # (ops/sweeps.py cauchy_plane_layout)
     tangent_cauchy_decomp = False
+    # dP/dF has major symmetry (a hyperelastic energy Hessian): the step
+    # may then store the 45-plane symmetric tangent (sweeps.py
+    # tri_index_map(9))
+    tangent_major_symmetric = False
     has_state = False
 
     def __init__(self):
@@ -67,7 +74,9 @@ class Material:
     def setup(self, dim):
         self.dim = dim
 
-    def init_state(self, shape_prefix, dtype=torch.float64, device="cpu"):
+    def init_state(self, shape_prefix, dtype=None, device="cuda"):
+        """Initial state over a `shape_prefix` batch on `device` (the card
+        unless "cpu" is passed), or None for a stateless material."""
         return None
 
     def pk1_soa(self, F, state, dt):
@@ -80,6 +89,44 @@ class Material:
 def _pk1_from_cauchy_soa(sigma, F):
     """P = det(F) sigma F^{-T}."""
     return soa.det(F) * soa.matmul_nt(sigma, soa.inv(F))
+
+
+class CompressibleOgdenNeoHookean(Material):
+    """sigma = mu/J (B - I) + lambda (J - 1) I (the reference's
+    materials.hpp), P = J sigma F^{-T}."""
+
+    tangent_major_symmetric = True  # hyperelastic energy Hessian
+
+    def pk1_soa(self, F, state, dt):
+        # sigma first, then J sigma F^-T, as the reference package writes
+        # it (the CUDA kernels repeat these operations in this order)
+        J = soa.det(F)
+        B = soa.matmul_nt(F, F)
+        mu_over_J = self.mu / J
+        sigma = soa.add_diag(mu_over_J * B, -mu_over_J + self.lambda_ * (J - 1.0))
+        return _pk1_from_cauchy_soa(sigma, F)
+
+    def tangent_soa(self, F):
+        """Closed-form dP/dF as C[c, d, g, f] = dP_cd / dF_gf over the
+        batch of F: with P = mu F + (lambda J (J - 1) - mu) F^-T,
+          dP = mu dF + lambda (2J - 1) J tr(F^-1 dF) F^-T
+               - (lambda J (J - 1) - mu) F^-T dF^T F^-T,
+        so C_cdgf = mu d_cg d_df + k1 G_cd G_gf - k2 G_cf G_gd with
+        G = F^-T, k1 = lambda (2J - 1) J, k2 = lambda J (J - 1) - mu."""
+        J = soa.det(F)
+        fi = soa.inv(F)
+        k1 = self.lambda_ * (2.0 * J - 1.0) * J
+        k2 = self.lambda_ * J * (J - 1.0) - self.mu
+        rows = []
+        for c in range(3):
+            for d in range(3):
+                for g in range(3):
+                    for f in range(3):
+                        x = k1 * fi[d, c] * fi[f, g] - k2 * fi[f, c] * fi[d, g]
+                        if c == g and d == f:
+                            x = x + self.mu
+                        rows.append(x)
+        return torch.stack(rows, 0).reshape(3, 3, 3, 3, *F.shape[2:])
 
 
 class _J2ThermoBase(Material):
@@ -157,7 +204,9 @@ class J2(_J2ThermoBase):
 
     tangent_cauchy_decomp = True  # sigma = sigma(sym F), symmetric
 
-    def init_state(self, shape_prefix, dtype=torch.float64, device="cpu"):
+    def init_state(self, shape_prefix, dtype=None, device="cuda"):
+        device = resolve_device(device)
+        dtype = dtype or default_dtype(device)
         d = self.dim
         return {
             "plastic_strain": torch.zeros(

@@ -1,8 +1,9 @@
-"""Build and load the CUDA sweep kernels (ops/csrc/sweeps_sf.cu).
+"""Build and load the CUDA sweep kernels (ops/csrc/*.cu).
 
-nvcc compiles the sources into a shared library with a plain C interface
-(no PyTorch headers, so a build takes seconds), keyed by a hash of the
-sources and flags, into ops/_build/.  The library is loaded with ctypes;
+nvcc compiles the sources into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), keyed by a hash
+of the sources and flags, into ops/_build/: one nvcc per source, all
+started together, then one link.  The library is loaded with ctypes;
 every pointer and the stream are passed as c_void_p.  Nothing here runs
 at import time.
 """
@@ -17,10 +18,13 @@ import subprocess
 import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = [os.path.join(_HERE, "csrc", "sweeps_sf.cu")]
+SOURCES = [
+    os.path.join(_HERE, "csrc", "sweeps_sf.cu"),
+    os.path.join(_HERE, "csrc", "sweeps_dense.cu"),
+]
 FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 BUILD_DIR = os.path.join(_HERE, "_build")
@@ -58,14 +62,31 @@ def build():
         BUILD_INFO.update(seconds=time.perf_counter() - t0, cached=True, log="")
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [nvcc(), *FLAGS, "-o", tmp, *SOURCES], capture_output=True, text=True
-    )
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, so)
+    tmp = f"{so}.{os.getpid()}"
+    objs = [f"{tmp}.{i}.o" for i in range(len(SOURCES))]
+    procs = [
+        subprocess.Popen(
+            [nvcc(), *FLAGS, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for src, obj in zip(SOURCES, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    log = "".join(logs)
+    failed = [f"{src}: nvcc failed ({p.returncode})" for src, p in zip(SOURCES, procs) if p.returncode]
+    if not failed:
+        link = subprocess.run(
+            [nvcc(), "-shared", "-o", f"{tmp}.tmp", *objs], capture_output=True, text=True
+        )
+        log += link.stdout + link.stderr
+        if link.returncode:
+            failed.append(f"link failed ({link.returncode})")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError("\n".join(failed) + f":\n{log}")
+    os.replace(f"{tmp}.tmp", so)
     BUILD_INFO.update(seconds=time.perf_counter() - t0, cached=False, log=log)
     return so
 
@@ -75,14 +96,18 @@ def load():
     global _LIB
     if _LIB is not None:
         return _LIB
-    from .sweeps import _J2Params
+    from .sweeps import _J2Params, _NHParams
 
     lib = ctypes.CDLL(build())
     vp, ll, ci, cf = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     lib.mimi_residual_sf.argtypes = [vp] * 15 + [_J2Params, cf, ll, vp]
     lib.mimi_assemble_sf.argtypes = [vp] * 16 + [ci, _J2Params, cf, ll, vp]
     lib.mimi_matvec_sf.argtypes = [vp] * 10 + [ci, vp, cf, cf, ci, cf, ll, vp]
-    for fn in (lib.mimi_residual_sf, lib.mimi_assemble_sf, lib.mimi_matvec_sf):
-        fn.restype = ctypes.c_int
+    lib.mimi_residual_dense.argtypes = [vp] * 6 + [_NHParams, ll, vp]
+    lib.mimi_assemble_dense.argtypes = [vp] * 7 + [_NHParams, ll, vp]
+    lib.mimi_matvec_dense.argtypes = [vp] * 6 + [cf, cf, ll, vp]
+    for kind in ("sf", "dense"):
+        for fn in ("residual", "assemble", "matvec"):
+            getattr(lib, f"mimi_{fn}_{kind}").restype = ctypes.c_int
     _LIB = lib
     return lib

@@ -1,17 +1,23 @@
-"""The step's three quadrature sweeps on sum-factorized tables: residual,
-residual + Cauchy-decomposition tangent (assemble), and the GMRES matvec.
+"""The step's three quadrature sweeps: residual, residual + per-point
+tangent (assemble), and the GMRES matvec, on two kinds of tables.
 
 Counterpart of mimi_tpu/ops/sweeps.py (`make_residual_sweep`,
-`make_assemble_sweep` and `make_matvec_sweep_sf` in their sum-factorized,
-c_storage="cauchy" branches, with and without the viscous flux, and with
-the tangent block stored in float32 or bfloat16).  Each sweep has
-  - a plain torch version (`*_plain`), dtype-generic, written as staged
-    sum-factorization einsums on whole (n_q, n_el) planes;
-  - a wrapper (`residual_sf`, `assemble_sf`, `matvec_sf`) that runs the
-    plain version for CPU tensors and launches the hand-written CUDA
-    kernel of ops/csrc/sweeps_sf.cu for CUDA tensors (float32 fields,
-    float32 or bfloat16 tangent block), and counts those launches per
-    variant in `LAUNCHES`.
+`make_assemble_sweep`, `make_matvec_sweep_sf` and `make_matvec_sweep`):
+  - sum-factorized tables, c_storage="cauchy" (the 37-plane
+    Cauchy-decomposition tangent of the J2 family), with and without the
+    viscous flux, the tangent block in float32 or bfloat16:
+    `residual_sf`, `assemble_sf`, `matvec_sf`, kernels in
+    ops/csrc/sweeps_sf.cu;
+  - dense tables dN (nd, dim, n_q, n_el) and N (nd, n_q, n_el),
+    c_storage="sym" (45 upper-triangle planes of a major-symmetric dP/dF,
+    the hyperelastic materials), inviscid, float32: `residual_dense`,
+    `assemble_dense`, `matvec_dense`, kernels in ops/csrc/sweeps_dense.cu.
+Each sweep has
+  - a plain torch version (`*_plain`), dtype-generic, on whole
+    (n_q, n_el) planes;
+  - a wrapper that runs the plain version for CPU tensors and launches the
+    hand-written CUDA kernel for CUDA tensors, and counts those launches
+    per variant in `LAUNCHES`.
 
 The viscous flux mu_v grad(v) joins P in the residual and the assemble
 (v_el = the element values of va + fac1 aa); the matvec adds
@@ -52,6 +58,7 @@ LAUNCHES = {
     for visc in (False, True)
     for bf16 in ((False,) if name == "residual_sf" else (False, True))
 }
+LAUNCHES.update({"residual_dense": 0, "assemble_dense[sym]": 0, "matvec_dense[sym]": 0})
 
 
 def reset_launches():
@@ -351,6 +358,119 @@ def matvec_sf_plain(w_el, tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v=None):
 
 
 # ---------------------------------------------------------------------------
+# plain torch versions on dense tables (c_storage="sym")
+# ---------------------------------------------------------------------------
+
+
+def dense_grad(w_el, dN_t):
+    """Physical gradient dF[g, f] (C, dim, n_q, E) of the element fields
+    w_el (C, nd, E), summed over n in order as the reference's
+    _grad_interp (the CUDA kernels repeat this order without fused
+    multiply-add, so the deformation gradients agree to the bit)."""
+    nd, dim = dN_t.shape[0], dN_t.shape[1]
+    rows = []
+    for g in range(w_el.shape[0]):
+        row = []
+        for f in range(dim):
+            acc = dN_t[0, f] * w_el[g, 0]
+            for n in range(1, nd):
+                acc = acc + dN_t[n, f] * w_el[g, n]
+            row.append(acc)
+        rows.append(row)
+    return soa.stack2(rows)
+
+
+def dense_value(w_el, N_t):
+    """Values (C, n_q, E) of the element fields w_el (C, nd, E)."""
+    return torch.einsum("cne,nqe->cqe", w_el, N_t)
+
+
+def dense_scatter(X, vecm, dN_t, N_t, wq):
+    """out[c, n] = sum_q wq (dN[n, d] X[c, d] + N[n] vecm[c]); X
+    (C, dim, n_q, E) or None, vecm (C, n_q, E) or None.  Returns
+    (C, nd, E)."""
+    out = None
+    if X is not None:
+        out = torch.einsum("ndqe,cdqe->cne", dN_t, wq * X)
+    if vecm is not None:
+        m = torch.einsum("nqe,cqe->cne", N_t, wq * vecm)
+        out = m if out is None else out + m
+    return out
+
+
+def tangent_apply_sym(Cs, dF, fac0):
+    """dP[c, d] = fac0 sum_k C(3c + d, k) dF_k from the 45 upper-triangle
+    planes Cs of a major-symmetric dP/dF (k in order, as _tangent_apply)."""
+    tri, _ = tri_index_map(9)
+
+    def C_at(a, k):
+        return Cs[tri[(min(a, k), max(a, k))]]
+
+    rows = []
+    for c in range(3):
+        row = []
+        for d in range(3):
+            a = 3 * c + d
+            acc = C_at(a, 0) * dF[0, 0]
+            for k in range(1, 9):
+                acc = acc + C_at(a, k) * dF[k // 3, k % 3]
+            row.append(fac0 * acc)
+        rows.append(row)
+    return soa.stack2(rows)
+
+
+def residual_dense_plain(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho,
+                         v_el=None, mu_v=0.0):
+    """y[c, n] = sum_q wq (dN[n, d] (P(F) + mu_v dV)[c, d] + N[n] rho
+    a_q[c]), F = I + grad u, dV = grad v (none when v_el is None)."""
+    P = mat.pk1_soa(soa.add_diag(dense_grad(u_el, dN_t), 1.0), state, dt)
+    if v_el is not None:
+        P = P + mu_v * dense_grad(v_el, dN_t)
+    return dense_scatter(P, rho * dense_value(a_el, N_t), dN_t, N_t, wq)
+
+
+def assemble_dense_plain(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho,
+                         v_el=None, mu_v=0.0, c_dtype=None):
+    """Residual (as residual_dense_plain) plus the 45-plane symmetric
+    tangent: the columns C[:, b] = dP/dF_b are forward-mode derivatives of
+    `mat.pk1_soa` along the 9 one-hot seeds, and plane (a, b), a < b,
+    stores 0.5 C_ba + 0.5 C_ab (the reference adds the transposed half
+    first).  Stored in `c_dtype` (default: the fields' dtype)."""
+    F = soa.add_diag(dense_grad(u_el, dN_t), 1.0)
+    cols = []
+    for b in range(9):
+        seed = torch.zeros_like(F)
+        seed[b // 3, b % 3] = 1.0
+        P, col = jvp(lambda Ft: mat.pk1_soa(Ft, state, dt), (F,), (seed,))
+        cols.append(col)
+
+    def C(a, b):  # dP_a / dF_b
+        return cols[b][a // 3, a % 3]
+
+    planes = [
+        C(a, a) if a == b else 0.5 * C(b, a) + 0.5 * C(a, b)
+        for a in range(9)
+        for b in range(a, 9)
+    ]
+    if v_el is not None:
+        P = P + mu_v * dense_grad(v_el, dN_t)
+    y = dense_scatter(P, rho * dense_value(a_el, N_t), dN_t, N_t, wq)
+    Cs = torch.stack(planes, 0)
+    return y, Cs if c_dtype is None else Cs.to(c_dtype)
+
+
+def matvec_dense_plain(w_el, dN_t, N_t, wq, Cs, rho, fac0, fac1_mu_v=None):
+    """y[c, n] = sum_q wq (dN[n, d] dP[c, d] + N[n] rho w_q[c]),
+    dP = fac0 (dP/dF : grad w) (+ fac1 mu_v grad w) from the symmetric
+    planes, widened to the fields' dtype."""
+    dW = dense_grad(w_el, dN_t)
+    dP = tangent_apply_sym(Cs.to(w_el.dtype), dW, fac0)
+    if fac1_mu_v is not None:
+        dP = dP + fac1_mu_v * dW
+    return dense_scatter(dP, rho * dense_value(w_el, N_t), dN_t, N_t, wq)
+
+
+# ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
 
@@ -529,5 +649,112 @@ def matvec_sf(w_el, tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v=None):
         ctypes.c_int(bf16), _ptr(out), ctypes.c_float(rho), ctypes.c_float(fac0),
         ctypes.c_int(int(visc)), ctypes.c_float(fac1_mu_v if visc else 0.0),
         ctypes.c_longlong(n_el),
+    )
+    return out
+
+
+class _NHParams(ctypes.Structure):
+    """Mirror of struct NeoHookeanParams in csrc/sweeps_dense.cu."""
+
+    _fields_ = [(name, ctypes.c_float) for name in ("mu", "lam", "rho")]
+
+
+def _nh_params(mat, rho):
+    from ..materials import CompressibleOgdenNeoHookean
+
+    if type(mat) is not CompressibleOgdenNeoHookean:
+        raise NotImplementedError(
+            f"the CUDA dense sweeps implement CompressibleOgdenNeoHookean only, "
+            f"not {mat.name()} (ROADMAP Queue 2 item 1)"
+        )
+    return _NHParams(mu=mat.mu, lam=mat.lambda_, rho=rho)
+
+
+def _check_dense(el_fields, dN_t, N_t, wq):
+    """Validate the dense operands (p = 2 and 64 points per element: 27
+    dofs); returns (device, n_el)."""
+    device = el_fields[0][1].device
+    if device.type != "cuda":
+        raise ValueError(f"CUDA sweep called on a {device} tensor")
+    n_el = el_fields[0][1].shape[-1]
+    for name, t in el_fields:
+        _check(name, t, (3, 27, n_el), device)
+    _check("dN_t", dN_t, (27, 3, 64, n_el), device)
+    _check("N_t", N_t, (27, 64, n_el), device)
+    _check("wq", wq, (64, n_el), device)
+    return device, n_el
+
+
+def _dense_unported(state, v_el=None, fac1_mu_v=None, c_dtype=torch.float32):
+    if state is not None:
+        raise NotImplementedError(
+            "stateful materials on the CUDA dense sweeps (ROADMAP Queue 2 item 1)"
+        )
+    if v_el is not None or fac1_mu_v is not None:
+        raise NotImplementedError("the viscous CUDA dense sweeps (ROADMAP Queue 2 item 1)")
+    if c_dtype != torch.float32:
+        raise NotImplementedError(
+            f"a {c_dtype} tangent block on the CUDA dense sweeps (ROADMAP Queue 2 item 1)"
+        )
+
+
+def residual_dense(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el=None, mu_v=0.0):
+    """Dense residual sweep: plain torch on CPU tensors, the CUDA kernel
+    `mimi_residual_dense` on CUDA tensors (neo-Hookean, inviscid)."""
+    if u_el.device.type == "cpu":
+        return residual_dense_plain(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el, mu_v)
+    from .build import load
+
+    _dense_unported(state, v_el)
+    device, n_el = _check_dense([("u_el", u_el), ("a_el", a_el)], dN_t, N_t, wq)
+    prm = _nh_params(mat, rho)
+    out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
+    _launch(
+        load().mimi_residual_dense, "residual_dense",
+        _ptr(u_el), _ptr(a_el), _ptr(dN_t), _ptr(N_t), _ptr(wq), _ptr(out), prm,
+        ctypes.c_longlong(n_el),
+    )
+    return out
+
+
+def assemble_dense(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el=None,
+                   mu_v=0.0, c_dtype=torch.float32):
+    """Dense assemble sweep: (residual, 45-plane symmetric tangent); plain
+    torch on CPU tensors, the CUDA kernel `mimi_assemble_dense` (closed-form
+    neo-Hookean dP/dF) on CUDA tensors."""
+    if u_el.device.type == "cpu":
+        return assemble_dense_plain(
+            u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el, mu_v, c_dtype
+        )
+    from .build import load
+
+    _dense_unported(state, v_el, c_dtype=c_dtype)
+    device, n_el = _check_dense([("u_el", u_el), ("a_el", a_el)], dN_t, N_t, wq)
+    prm = _nh_params(mat, rho)
+    out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
+    cs = torch.empty((45, 64, n_el), dtype=torch.float32, device=device)
+    _launch(
+        load().mimi_assemble_dense, "assemble_dense[sym]",
+        _ptr(u_el), _ptr(a_el), _ptr(dN_t), _ptr(N_t), _ptr(wq), _ptr(out), _ptr(cs),
+        prm, ctypes.c_longlong(n_el),
+    )
+    return out, cs
+
+
+def matvec_dense(w_el, dN_t, N_t, wq, Cs, rho, fac0, fac1_mu_v=None):
+    """Dense GMRES matvec sweep on the symmetric planes: plain torch on CPU
+    tensors, the CUDA kernel `mimi_matvec_dense` on CUDA tensors."""
+    if w_el.device.type == "cpu":
+        return matvec_dense_plain(w_el, dN_t, N_t, wq, Cs, rho, fac0, fac1_mu_v)
+    from .build import load
+
+    _dense_unported(None, fac1_mu_v=fac1_mu_v)
+    device, n_el = _check_dense([("w_el", w_el)], dN_t, N_t, wq)
+    _check("C", Cs, (45, 64, n_el), device)
+    out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
+    _launch(
+        load().mimi_matvec_dense, "matvec_dense[sym]",
+        _ptr(w_el), _ptr(dN_t), _ptr(N_t), _ptr(wq), _ptr(Cs), _ptr(out),
+        ctypes.c_float(rho), ctypes.c_float(fac0), ctypes.c_longlong(n_el),
     )
     return out

@@ -1,12 +1,18 @@
 """The compiled-core problem and the implicit generalized-alpha step.
 
-Counterpart of mimi_tpu/parallel/sharding.py for one device and the two
-paths the 3D single-patch J2 benchmarks take: the body-force step and the
-contact press (mortar penalty contact against a rigid spline tool, with
-viscosity).  Both run the sum-factorized sweeps with the 37-plane Cauchy
-tangent (ops/sweeps.py; the viscous flux and a bfloat16 tangent block
-where asked), structured gather and pad-and-sum scatter,
-FDM-preconditioned GMRES, and the reference's LineSearchNewton semantics
+Counterpart of mimi_tpu/parallel/sharding.py for one device and three
+paths:
+  - one polynomial 3D patch with simple interior knots (the J2 body-force
+    step and the contact press, mortar penalty contact against a rigid
+    spline tool, with viscosity): the sum-factorized sweeps with the
+    37-plane Cauchy tangent (the viscous flux and a bfloat16 tangent
+    block where asked), structured gather and pad-and-sum scatter;
+  - every other 3D problem, multi-patch meshes and repeated interior knots
+    (the neo-Hookean two-patch cantilever): the dense-table sweeps with
+    the 45-plane symmetric tangent, gather and index_add_ scatter through
+    the connectivity, the patch-wise additive-Schwarz FDM.
+All run FDM-preconditioned GMRES and the reference's LineSearchNewton
+semantics
 (goal max(rel*|r0|, abs), non-finite abort, 3-point line search with a
 1e-12 scale floor, a 5-iteration best-improvement window, best iterate
 returned on non-convergence).  Contact adds its residual to every
@@ -26,9 +32,11 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..config import default_dtype, resolve_device
 from ..contact.mortar import make_contact_fns
 from ..fem import soa
-from ..fem.space import FESpace, _connectivity, _quad_weights, domain_dim_tables
+from ..fem.multipatch import MultiPatchFESpace
+from ..fem.space import FESpace, _connectivity, _quad_weights, batch_last, domain_dim_tables
 from ..nurbs.mesh_io import read_mfem_nurbs_mesh
 from ..nurbs.topology import build_patch_from_mesh
 from ..ops import sweeps
@@ -52,8 +60,15 @@ class Problem:
     facs: dict  # generalized-alpha factors
     state0: dict | None  # SoA material state: (3, 3, n_q, n_el) / (n_q, n_el)
     fdm: dict | None  # FDM preconditioner data (host numpy), or None
-    grid: dict  # structured dof grid {"spans", "nc", "pp1"}
-    sf: dict  # {"tables": [B0, D0, B1, D1, B2, D2], "jinv", "n_g", "pp1"}
+    # structured dof grid {"spans", "nc", "pp1"} (one patch, simple interior
+    # knots), or None: gather and scatter then go through connT
+    grid: dict | None = None
+    connT: torch.Tensor | None = None  # (nd, n_el) conn.T on the device
+    # exactly one of: the sum-factorized tables {"tables": [B0, D0, B1, D1,
+    # B2, D2], "jinv", "n_g", "pp1"}, or the dense tables {"dN_t"
+    # (nd, dim, n_q, n_el), "N_t" (nd, n_q, n_el)}
+    sf: dict | None = None
+    dense: dict | None = None
     # mortar contact: per block a dict of element tables, scene data and
     # penalty (contact/mortar.py), and its static part {"n_local",
     # "query", "bid"}
@@ -119,8 +134,8 @@ def build_problem(
     dirichlet: list,  # [(bid, dim), ...]
     body_force: dict,  # {dim: value}
     rho_inf: float = 0.25,
-    dtype=torch.float64,
-    device="cpu",
+    dtype=None,
+    device="cuda",
     refine_spans=None,
     quadrature_order: int = -1,
     traction=None,
@@ -129,19 +144,26 @@ def build_problem(
     periodic=None,
     contact_quadrature_order: int = -1,
 ) -> Problem:
-    """Assemble the step's problem on `device` in `dtype`.
+    """Assemble the step's problem on `device` (the card unless "cpu" is
+    passed; raises without a CUDA device) in `dtype` (default
+    config.default_dtype: float32 on the card, float64 on the CPU).
 
-    The host build (numpy, float64) makes only what the sum-factorized
-    sweeps read: per-axis 1D basis tables, the per-qp Jacobian inverse
-    and w det J (ops/sweeps.py build_sf_tables), the body-force right-hand
-    side, the Dirichlet mask and the FDM eigenbases (with a boundary
-    spring per contact face).  The dense N/dN_dX tables of the reference
-    package are not built (fem/space.py still provides them).
+    One polynomial 3D patch with simple interior knots and one Gauss count
+    on every axis gets the sum-factorized tables: per-axis 1D basis
+    tables, the per-qp Jacobian inverse and w det J (ops/sweeps.py
+    build_sf_tables).  Every other mesh (several patches, repeated
+    interior knots, rational or 2D patches) gets the dense tables dN, N
+    and w det J in the batch-last layout (fem/space.py batch_last), built
+    patch by patch with the native engine, each patch cast and moved to
+    the device before the next one is built.  Both get the body-force
+    right-hand side, the Dirichlet mask and the FDM eigenbases (with a
+    boundary spring per contact face).
 
     contact: [(bid, scene), ...] mortar penalty contact of boundary `bid`
     against a NearestDistanceToSplines scene (penalty
     scene.coefficient), with boundary quadrature of order
-    `contact_quadrature_order` (default 2p+3)."""
+    `contact_quadrature_order` (default 2p+3); sum-factorized problems
+    only."""
     for opt, what, item in (
         (traction, "traction", "Queue 1 item 6"),
         (constant_velocity, "constant velocity", "Queue 1 item 6"),
@@ -149,58 +171,45 @@ def build_problem(
     ):
         if opt:
             raise _unported(what, item)
+    device = resolve_device(device)
+    dtype = dtype or default_dtype(device)
     mesh = read_mfem_nurbs_mesh(mesh_path) if isinstance(mesh_path, str) else mesh_path
+    patch = None
     if len(mesh.elements) > 1:
-        raise _unported("multi-patch meshes", "Queue 1 item 6")
-    patch, topo, _ = build_patch_from_mesh(mesh)
-    if elevate > 0:
-        patch.elevate_degrees(elevate)
-    for _ in range(subdivide):
-        patch.uniform_refine()
-    if refine_spans is not None:
-        patch.refine_to(refine_spans)
-    fes = FESpace(patch, topo)
-    dim = fes.dim
-    nc, spans = list(patch.n_ctrl()), list(patch.n_spans())
-    # the structured gather/scatter needs simple interior knots
-    # (n_ctrl = n_span + p per axis)
-    if any(nc[k] != spans[k] + patch.degrees[k] for k in range(len(nc))):
-        raise _unported("repeated interior knots (conn-based gather)", "Queue 2 item 2")
-    tabs = domain_dim_tables(patch, quadrature_order)
-    n_g_axis = [t[1].shape[1] for t in tabs]
-    # sum factorization gates on the per-axis quadrature counts
-    if (
-        dim != 3
-        or len(set(patch.degrees)) != 1
-        or len(set(n_g_axis)) != 1
-        or not np.allclose(np.asarray(patch.weights), 1.0)
-    ):
-        raise _unported(
-            "rational, 2D or mixed-degree patches (dense-table sweeps)",
-            "Queue 2 item 2",
+        fes = MultiPatchFESpace(
+            mesh, elevate=elevate, subdivide=subdivide, refine_spans=refine_spans
         )
+    else:
+        patch, topo, _ = build_patch_from_mesh(mesh)
+        if elevate > 0:
+            patch.elevate_degrees(elevate)
+        for _ in range(subdivide):
+            patch.uniform_refine()
+        if refine_spans is not None:
+            patch.refine_to(refine_spans)
+        fes = FESpace(patch, topo)
+    dim = fes.dim
     material.setup(dim)
-    n_g = n_g_axis[0]
-    conn = _connectivity(tabs, nc)
-    n_el, n_q = conn.shape[0], n_g**3
-    sf_tabs, jinv, detJ = sweeps.build_sf_tables(
-        patch, fes.x_ref, conn, n_g, np.float64, return_det=True
-    )
-    w_detJ = _quad_weights(tabs) * detJ  # (n_el, n_q)
+    grid = _structured_grid(patch)
+    dev = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)  # noqa: E731
+    if grid is not None and _sf_gate(patch, quadrature_order):
+        conn, n_q, wdet_t, nodal, sf = _sf_tables(fes, quadrature_order, dev)
+        dense = connT = None
+    else:
+        if contact:
+            raise _unported("contact on dense-table problems", "Queue 1 item 6")
+        conn, n_q, wdet_t, nodal, dense = _dense_tables(fes, quadrature_order, dtype, device)
+        sf = None
+        connT = torch.as_tensor(np.ascontiguousarray(conn.T), dtype=torch.int64, device=device)
+    n_el = conn.shape[0]
 
     dir_pairs = list(dirichlet)
     zero_mask = fes.boundary_dof_mask(_merge_dirichlet(dir_pairs))
     free = (~zero_mask).astype(np.float64)
     rhs = np.zeros((fes.n_dof, dim))
     if body_force:
-        nodal = sf_nodal(
-            torch.from_numpy(np.ascontiguousarray(w_detJ.T)),
-            [torch.from_numpy(t) for t in sf_tabs],
-        ).numpy()
-        acc = np.zeros(fes.n_dof)
-        np.add.at(acc, conn, nodal.T)
         for c, val in body_force.items():
-            rhs[:, c] += acc * val
+            rhs[:, c] += nodal * val
         rhs[zero_mask] = 0.0
 
     state0 = None
@@ -208,7 +217,6 @@ def build_problem(
         state0 = soa.state_to_soa(
             material.init_state((n_el, n_q), dtype=dtype, device=device)
         )
-    dev = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)  # noqa: E731
     contact_data, contact_static = _contact_blocks(
         fes, contact or [], contact_quadrature_order, dtype, device
     )
@@ -219,7 +227,7 @@ def build_problem(
         n_el=n_el,
         n_q=n_q,
         conn=conn,
-        wdet_t=dev(w_detJ.T),
+        wdet_t=wdet_t,
         rhs=dev(rhs),
         free=dev(free),
         facs=gen_alpha_factors(rho_inf),
@@ -228,16 +236,91 @@ def build_problem(
             fes, dir_pairs, material,
             contact_springs=[(bid, scene.coefficient) for bid, scene in contact or []],
         ),
-        grid={"spans": spans, "nc": nc, "pp1": [p + 1 for p in patch.degrees]},
-        sf={
-            "tables": [dev(t) for t in sf_tabs],
-            "jinv": dev(jinv),
-            "n_g": n_g,
-            "pp1": patch.degrees[0] + 1,
-        },
+        grid=grid,
+        connT=connT,
+        sf=sf,
+        dense=dense,
         contact=contact_data,
         contact_static=contact_static,
     )
+
+
+def _structured_grid(patch):
+    """The structured dof grid of one patch whose interior knots are all
+    simple (n_ctrl = n_span + p per axis), or None (several patches, or a
+    repeated knot: the gather then goes through the connectivity)."""
+    if patch is None:
+        return None
+    nc, spans = list(patch.n_ctrl()), list(patch.n_spans())
+    if any(nc[k] != spans[k] + patch.degrees[k] for k in range(len(nc))):
+        return None
+    return {"spans": spans, "nc": nc, "pp1": [p + 1 for p in patch.degrees]}
+
+
+def _sf_gate(patch, quadrature_order):
+    """Sum factorization applies: 3D, one degree and one Gauss count on
+    every axis, unit weights."""
+    n_g_axis = [t[1].shape[1] for t in domain_dim_tables(patch, quadrature_order)]
+    return (
+        patch.para_dim == 3
+        and len(set(patch.degrees)) == 1
+        and len(set(n_g_axis)) == 1
+        and np.allclose(np.asarray(patch.weights), 1.0)
+    )
+
+
+def _sf_tables(fes, quadrature_order, dev):
+    """conn, n_q, wdet_t, the nodal integrals sum_q w det J N (host
+    float64, per dof) and the sum-factorized tables of one patch."""
+    patch = fes.patch
+    tabs = domain_dim_tables(patch, quadrature_order)
+    n_g = tabs[0][1].shape[1]
+    conn = _connectivity(tabs, list(patch.n_ctrl()))
+    sf_tabs, jinv, detJ = sweeps.build_sf_tables(
+        patch, fes.x_ref, conn, n_g, np.float64, return_det=True
+    )
+    w_detJ = _quad_weights(tabs) * detJ  # (n_el, n_q)
+    nodal_el = sf_nodal(
+        torch.from_numpy(np.ascontiguousarray(w_detJ.T)),
+        [torch.from_numpy(t) for t in sf_tabs],
+    ).numpy()
+    nodal = np.bincount(conn.ravel(), weights=nodal_el.T.ravel(), minlength=fes.n_dof)
+    sf = {
+        "tables": [dev(t) for t in sf_tabs],
+        "jinv": dev(jinv),
+        "n_g": n_g,
+        "pp1": patch.degrees[0] + 1,
+    }
+    return conn, n_g**3, dev(w_detJ.T), nodal, sf
+
+
+def _dense_tables(fes, quadrature_order, dtype, device):
+    """conn, n_q, wdet_t, the nodal integrals (as _sf_tables) and the
+    dense tables {"dN_t", "N_t"}, patch by patch: each patch's float64
+    tables are cast, moved and dropped before the next patch is built, so
+    no whole-mesh float64 table exists."""
+    conns, dNs, Ns, ws = [], [], [], []
+    nodal = np.zeros(fes.n_dof)
+    for t in fes.iter_domain_tables(quadrature_order):
+        nodal += np.bincount(
+            t.conn.ravel(), weights=np.einsum("eq,eqn->en", t.w_detJ, t.N).ravel(),
+            minlength=fes.n_dof,
+        )
+        dN_t, N_t, w_t = batch_last(t, dtype, device)
+        conns.append(t.conn)
+        dNs.append(dN_t)
+        Ns.append(N_t)
+        ws.append(w_t)
+        n_q = t.n_q
+        del t, dN_t, N_t, w_t
+
+    def cat(parts):
+        out = parts[0] if len(parts) == 1 else torch.cat(parts, -1)
+        parts.clear()
+        return out
+
+    conn = np.concatenate(conns)
+    return conn, n_q, cat(ws), nodal, {"dN_t": cat(dNs), "N_t": cat(Ns)}
 
 
 def _contact_blocks(fes, contact, quadrature_order, dtype, device):
@@ -336,7 +419,24 @@ def _structured_scatter(res_t, spans, pp1, nc, n_dof):
 
 
 def _gather_scatter(prob):
+    """(gather_t, scatter_el): (n_dof, dim) -> (dim, nd, n_el) element
+    values and back, as slices of the structured dof grid, or through the
+    connectivity (u.T[:, connT], index_add_ on the transposed (C, n_dof)
+    accumulator) when the problem has no grid."""
     g = prob.grid
+    if g is None:
+        connT, n_dof = prob.connT, prob.n_dof
+        idx = connT.reshape(-1)
+
+        def gather_conn(u):
+            return u.T[:, connT]
+
+        def scatter_conn(res_t):
+            C = res_t.shape[0]
+            out = torch.zeros((C, n_dof), dtype=res_t.dtype, device=res_t.device)
+            return out.index_add_(1, idx, res_t.reshape(C, -1)).T
+
+        return gather_conn, scatter_conn
 
     def gather_t(u):
         return _structured_gather(u, prob.dim, g["spans"], g["pp1"], g["nc"])
@@ -347,25 +447,50 @@ def _gather_scatter(prob):
     return gather_t, scatter_el
 
 
+_SWEEPS = {
+    ("sf", "cuda"): (sweeps.residual_sf, sweeps.assemble_sf, sweeps.matvec_sf),
+    ("sf", "torch"): (
+        sweeps.residual_sf_plain, sweeps.assemble_sf_plain, sweeps.matvec_sf_plain,
+    ),
+    ("dense", "cuda"): (
+        sweeps.residual_dense, sweeps.assemble_dense, sweeps.matvec_dense,
+    ),
+    ("dense", "torch"): (
+        sweeps.residual_dense_plain, sweeps.assemble_dense_plain,
+        sweeps.matvec_dense_plain,
+    ),
+}
+
+
+def _tables(prob):
+    """The problem's sweep tables: ("sf", (tables, jinv)) or ("dense",
+    (dN_t, N_t)); every sweep takes them after (u_el, a_el, state) or
+    w_el."""
+    if prob.sf is not None:
+        return "sf", (prob.sf["tables"], prob.sf["jinv"])
+    return "dense", (prob.dense["dN_t"], prob.dense["N_t"])
+
+
 def _select_impl(prob, residual_impl):
-    """"cuda": the hand-written kernels (ops/csrc), the default on CUDA
-    problems; "torch": their plain torch versions, the default on CPU."""
+    """(residual, assemble, matvec) sweeps on the problem's tables:
+    "cuda", the hand-written kernels (ops/csrc), the default on CUDA
+    problems; "torch", their plain torch versions, the default on CPU."""
     if residual_impl is None:
         residual_impl = "cuda" if prob.device.type == "cuda" else "torch"
-    if residual_impl == "cuda":
-        if prob.device.type != "cuda":
-            raise ValueError("residual_impl='cuda' needs a problem on a CUDA device")
-        return sweeps.residual_sf, sweeps.assemble_sf, sweeps.matvec_sf
-    if residual_impl == "torch":
-        return (
-            sweeps.residual_sf_plain,
-            sweeps.assemble_sf_plain,
-            sweeps.matvec_sf_plain,
+    if residual_impl not in ("cuda", "torch"):
+        raise ValueError(
+            f"unknown residual_impl {residual_impl!r}: use 'cuda' (the reference "
+            "package's 'pallas') or 'torch' (its 'soa')"
         )
-    raise ValueError(
-        f"unknown residual_impl {residual_impl!r}: use 'cuda' (the reference "
-        "package's 'pallas') or 'torch' (its 'soa')"
-    )
+    if residual_impl == "cuda" and prob.device.type != "cuda":
+        raise ValueError("residual_impl='cuda' needs a problem on a CUDA device")
+    return _SWEEPS[(_tables(prob)[0], residual_impl)]
+
+
+def _grad(prob, w_el):
+    """Physical gradient (3, 3, n_q, n_el) of element fields (3, nd, n_el)."""
+    kind, (t1, t2) = _tables(prob)
+    return sweeps.sf_grad(w_el, t1, t2) if kind == "sf" else sweeps.dense_grad(w_el, t1)
 
 
 def initial_carry(prob: Problem, dt: float = 1.0):
@@ -409,26 +534,38 @@ def _explicit_accel(prob, u, state, dt):
     res_sweep, _, _ = _select_impl(prob, None)
     gather_t, scatter_el = _gather_scatter(prob)
     mat = prob.material
-    tabs, jinv, wq = prob.sf["tables"], prob.sf["jinv"], prob.wdet_t
+    kind, tables = _tables(prob)
+    wq = prob.wdet_t
     free = prob.free
     n_dof, dim = prob.n_dof, prob.dim
     rho = float(mat.density)
     u_el = gather_t(u)
     E_u = scatter_el(
-        res_sweep(u_el, torch.zeros_like(u_el), state, tabs, jinv, wq, mat, dt, rho)
+        res_sweep(u_el, torch.zeros_like(u_el), state, *tables, wq, mat, dt, rho)
     )
     for cd, (pp, rp, _) in zip(prob.contact, _contact_fns_for(prob)):
         pressure, _, _ = pp(u, cd, cd["scene"], cd["penalty"])
         E_u = E_u + _scatter_conn(rp(u, cd, pressure)[0], cd["conn"], n_dof)
     z = (prob.rhs - E_u) * free
 
+    # consistent mass apply and its diagonal sum_q w N^2, plain torch
+    if kind == "sf":
+        tabs, jinv = tables
+        value = lambda w_el: sweeps.sf_value(w_el, tabs)  # noqa: E731
+        integrate = lambda m: sweeps.sf_scatter(None, m, tabs, jinv, wq)  # noqa: E731
+        nodal_sq = sf_nodal(wq, tabs, square=True)
+    else:
+        dN_t, N_t = tables
+        value = lambda w_el: sweeps.dense_value(w_el, N_t)  # noqa: E731
+        integrate = lambda m: sweeps.dense_scatter(None, m, dN_t, N_t, wq)  # noqa: E731
+        nodal_sq = torch.einsum("qe,nqe->ne", wq, N_t * N_t)
+
     def mass_apply(w_flat):
         w = w_flat.reshape(n_dof, dim) * free
-        v = sweeps.sf_value(gather_t(w), tabs)
-        y = scatter_el(sweeps.sf_scatter(None, rho * v, tabs, jinv, wq))
+        y = scatter_el(integrate(rho * value(gather_t(w))))
         return (y * free + w_flat.reshape(n_dof, dim) * (1 - free)).reshape(-1)
 
-    m_el = rho * sf_nodal(wq, tabs, square=True)  # (nd, n_el)
+    m_el = rho * nodal_sq  # (nd, n_el)
     m_diag = scatter_el(m_el[None])[:, 0]
     diag = m_diag.repeat_interleave(dim)
     diag = torch.where(free.reshape(-1) > 0, diag, torch.ones_like(diag))
@@ -458,16 +595,23 @@ def make_step(
 
     `residual_impl` selects who runs the three quadrature sweeps:
       - "cuda" (default for a problem on a CUDA device): the hand-written
-        CUDA kernels of ops/csrc/sweeps_sf.cu, float32 only; the
-        counterpart of the reference package's "pallas".
+        CUDA kernels of ops/csrc/, float32 only; the counterpart of the
+        reference package's "pallas".
       - "torch" (default on the CPU): their plain torch versions, any
-        dtype; the counterpart of the reference package's "soa" engine
-        (same math, sum-factorized tables instead of dense ones).
-    Both evaluate the residual with the sum-factorized tables and store
-    the 37-plane Cauchy-decomposition tangent; everything around the
-    sweeps (gather/scatter, contact, FDM, GMRES, Newton) is the same torch
-    code.  A material with viscosity > 0 adds the viscous flux
-    S (v + fac1 a) to the residual sweeps and fac1 S to the matvec.
+        dtype; the counterpart of the reference package's "soa" engine.
+    The problem's tables decide the sweeps (the reference's `matvec_impl`
+    "auto"): a problem with sum-factorized tables runs the sf sweeps with
+    the 37-plane Cauchy-decomposition tangent; a dense-table problem the
+    dense sweeps with the 45-plane symmetric tangent ("sym", for
+    materials with a major-symmetric dP/dF).  The tangent storage is the
+    strongest exact compression the material declares (cauchy > sym >
+    full); the other table/storage pairs raise.  `matvec_impl` and
+    `tangent_storage` take "auto" or the name of what the problem decides,
+    as aliases of the reference's options.  Everything around
+    the sweeps (gather/scatter, contact, FDM, GMRES, Newton) is the same
+    torch code.  A material with viscosity > 0 adds the viscous flux
+    S (v + fac1 a) to the residual sweeps and fac1 S to the matvec (the
+    CUDA dense sweeps are inviscid and raise).
 
     `matvec_dtype` ("f32", "bf16") is the storage of the tangent block the
     GMRES matvec streams; "bf16" rounds it once in the assemble and
@@ -503,18 +647,30 @@ def make_step(
         raise ValueError(f"unknown precond {precond!r}")
     if prob.fdm is None:
         raise _unported("problems without an FDM decomposition (block-Jacobi)", "Queue 1 item 6")
-    if tangent_storage in ("full", "sym"):
-        raise _unported(f"tangent_storage={tangent_storage!r}", "Queue 2 item 1")
-    if tangent_storage not in ("auto", "cauchy"):
-        raise ValueError(f"unknown tangent_storage {tangent_storage!r}")
-    if not mat.tangent_cauchy_decomp:
-        raise _unported(f"{mat.name()} (full/sym tangent storage)", "Queue 2 item 1")
-    if matvec_impl == "dense":
-        raise _unported("matvec_impl='dense'", "Queue 2 item 2")
-    if matvec_impl not in ("auto", "sf"):
-        raise ValueError(f"unknown matvec_impl {matvec_impl!r}")
+    kind = _tables(prob)[0]
+    storage = (
+        "cauchy" if mat.tangent_cauchy_decomp
+        else "sym" if mat.tangent_major_symmetric else "full"
+    )
+    # the tables and the material decide both; the reference's explicit
+    # names are accepted as aliases of what they decide
+    for opt, val, known, picked in (
+        ("matvec_impl", matvec_impl, ("sf", "dense"), kind),
+        ("tangent_storage", tangent_storage, ("cauchy", "sym", "full"), storage),
+    ):
+        if val not in ("auto", *known):
+            raise ValueError(f"unknown {opt} {val!r}")
+        if val not in ("auto", picked):
+            raise _unported(f"{opt}={val!r} on a problem that decides {picked!r}", "Queue 2 item 1")
+    if (kind, storage) not in (("sf", "cauchy"), ("dense", "sym")):
+        raise _unported(
+            f"{mat.name()} with tangent_storage={storage!r} on the {kind} sweeps",
+            "Queue 2 item 1",
+        )
     if matvec_dtype not in ("f32", "bf16"):
         raise ValueError(f"unknown matvec_dtype {matvec_dtype!r}")
+    if matvec_dtype == "bf16" and kind == "dense":
+        raise _unported("matvec_dtype='bf16' on the dense sweeps", "Queue 2 item 1")
     if contact_tangent not in ("frozen", "consistent"):
         raise ValueError(f"unknown contact_tangent {contact_tangent!r}")
     contact_fns = _contact_fns_for(prob)
@@ -540,7 +696,7 @@ def make_step(
     mu_v = float(mat.viscosity) if has_visc else 0.0
     fac1_mu_v = fac1 * mu_v if has_visc else None
     c_dtype = torch.bfloat16 if matvec_dtype == "bf16" else prob.dtype
-    tabs, jinv, wq = prob.sf["tables"], prob.sf["jinv"], prob.wdet_t
+    tables, wq = _tables(prob)[1], prob.wdet_t
     rhs, free = prob.rhs, prob.free
     fdm_apply = make_fdm_apply(prob.fdm, fac0, fac1, prob.dtype, prob.device)
     gather_t, scatter_el = _gather_scatter(prob)
@@ -561,7 +717,7 @@ def make_step(
     def residual(aa, xa, va, state, scenes):
         u_el, a_el, v_el = el_fields(aa, xa, va)
         y = scatter_el(
-            res_sweep(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el=v_el, mu_v=mu_v)
+            res_sweep(u_el, a_el, state, *tables, wq, mat, dt, rho, v_el=v_el, mu_v=mu_v)
         )
         if contact_fns:
             y = y + contact_residual(xa + fac0 * aa, scenes)
@@ -572,7 +728,7 @@ def make_step(
         derivative of its residual with the query held at xa + fac0 aa."""
         u_el, a_el, v_el = el_fields(aa, xa, va)
         res_t, Ck = asm_sweep(
-            u_el, a_el, state, tabs, jinv, wq, mat, dt, rho,
+            u_el, a_el, state, *tables, wq, mat, dt, rho,
             v_el=v_el, mu_v=mu_v, c_dtype=c_dtype,
         )
         r = scatter_el(res_t)
@@ -589,7 +745,7 @@ def make_step(
         def J_apply(w_flat):
             w = w_flat.reshape(n_dof, dim) * free
             y = scatter_el(
-                mv_sweep(gather_t(w), tabs, jinv, wq, Ck, rho, fac0, fac1_mu_v=fac1_mu_v)
+                mv_sweep(gather_t(w), *tables, wq, Ck, rho, fac0, fac1_mu_v=fac1_mu_v)
             )
             for conn, jvp in c_jvps:
                 y = y + fac0 * _scatter_conn(jvp(w), conn, n_dof)
@@ -682,7 +838,7 @@ def make_step(
         v_new = v * prev_fac + f["fac1_inv"] * va
         a_new = a * prev_fac + f["fac5_inv"] * aa
         if state is not None:
-            dF = sweeps.sf_grad(gather_t(u_new), tabs, jinv)
+            dF = _grad(prob, gather_t(u_new))
             state = mat.accumulate_soa(soa.add_diag(dF, 1.0), state, dt)
         # contact observables at the converged alpha level (the reference
         # records from its last residual assembly there)

@@ -18,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..config import default_dtype, resolve_device
+
 
 def _basis_planes(kv, p: int, u, n_der: int = 0):
     """Batch-last B-spline basis and derivatives at the (n,) parameter
@@ -110,9 +112,12 @@ class _SplineBase:
         hi = [kv[-p - 1] for kv, p in zip(self.knot_vectors, self.degrees)]
         return np.array(lo), np.array(hi)
 
-    def eval_cps(self, dtype=torch.float64, device="cpu"):
-        """Current (possibly user-mutated) control data as a tensor,
-        homogeneous (x * w, w) if rational."""
+    def eval_cps(self, dtype=None, device="cuda"):
+        """Current (possibly user-mutated) control data as a tensor on
+        `device` (the card unless "cpu" is passed; dtype by default
+        config.default_dtype), homogeneous (x * w, w) if rational."""
+        device = resolve_device(device)
+        dtype = dtype or default_dtype(device)
         cps = self.cps
         if self.weights is not None:
             cps = np.concatenate(

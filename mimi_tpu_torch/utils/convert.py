@@ -12,8 +12,9 @@ import numpy as np
 import torch
 
 from .. import splines as _splines
+from ..config import default_dtype, resolve_device
 from ..contact.scene import NearestDistanceToSplines
-from ..materials import J2
+from ..materials import J2, CompressibleOgdenNeoHookean
 from ..materials import hardening as _hardening
 from ..parallel.sharding import Problem
 
@@ -22,19 +23,27 @@ def _tensor(a, dtype, device):
     return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
 
+_ELASTIC = ("density", "viscosity", "lambda_", "mu", "young", "poisson", "K", "G")
+
+
 def material_from_reference(mat):
     """The port's counterpart of a reference-package material (J2 with any
-    hardening law), with its parameters copied and set up for the same
-    dimension when the reference material was."""
-    if type(mat).__name__ != "J2":
-        raise NotImplementedError(
-            f"{type(mat).__name__} is not ported yet (ROADMAP Queue 1 item 2)"
-        )
+    hardening law, or CompressibleOgdenNeoHookean), with its parameters
+    copied and set up for the same dimension when the reference material
+    was."""
+    name = type(mat).__name__
+    if name == "CompressibleOgdenNeoHookean":
+        out = CompressibleOgdenNeoHookean()
+        for k in _ELASTIC:
+            setattr(out, k, float(getattr(mat, k)))
+        if hasattr(mat, "dim"):
+            out.setup(mat.dim)
+        return out
+    if name != "J2":
+        raise NotImplementedError(f"{name} is not ported yet (ROADMAP Queue 1 item 2)")
     out = J2()
-    for k in (
-        "density", "viscosity", "lambda_", "mu", "young", "poisson", "K", "G",
-        "heat_fraction", "specific_heat", "initial_temperature",
-        "melting_temperature",
+    for k in _ELASTIC + (
+        "heat_fraction", "specific_heat", "initial_temperature", "melting_temperature",
     ):
         setattr(out, k, float(getattr(mat, k)))
     if mat.hardening is not None:
@@ -94,19 +103,23 @@ def _contact_from_reference(ref, scenes, dtype, device):
     return data, static
 
 
-def problem_from_numpy(ref, material=None, dtype=None, device="cpu", scenes=None):
-    """A port `Problem` from a reference-package `Problem` built for the
-    same single polynomial 3D patch (it must carry `sf` tables and a
-    structured `grid`, with no element padding).  `dtype` defaults to the
-    reference problem's float type.  A problem with contact blocks needs
-    the reference scenes it was built with (`scenes`, one per block)."""
-    if ref.sf is None or ref.grid is None:
-        raise NotImplementedError(
-            "only single-patch polynomial 3D problems are ported "
-            "(ROADMAP Queue 2 item 2)"
-        )
-    if ref.n_el != int(np.prod(ref.grid["spans"])):
+def problem_from_numpy(ref, material=None, dtype=None, device="cuda", scenes=None):
+    """A port `Problem` on `device` (the card unless "cpu" is passed) from
+    a reference-package `Problem` with no element padding: one with `sf`
+    tables and a structured `grid` keeps the sum-factorized tables; any
+    other (multi-patch, repeated interior knots) carries the dense tables
+    N, dN_dX and w_detJ in the batch-last layout, its connectivity and its
+    FDM data (the multi-patch additive-Schwarz form included).  `dtype`
+    defaults to the reference problem's float type.  A problem with
+    contact blocks needs the reference scenes it was built with
+    (`scenes`, one per block)."""
+    device = resolve_device(device)
+    if ref.n_el != np.asarray(ref.conn).shape[0] or (
+        ref.grid is not None and ref.n_el != int(np.prod(ref.grid["spans"]))
+    ):
         raise NotImplementedError("padded element batches (ROADMAP Queue 1 item 8)")
+    if ref.sf is None and ref.dim != 3:
+        raise NotImplementedError("2D dense problems (ROADMAP Queue 2 item 1)")
     rhs = np.asarray(ref.rhs)
     if dtype is None:
         dtype = torch.float64 if rhs.dtype == np.float64 else torch.float32
@@ -117,35 +130,52 @@ def problem_from_numpy(ref, material=None, dtype=None, device="cpu", scenes=None
             raise NotImplementedError("per-quad state layout; SoA expected")
         state0 = {k: _tensor(v, dtype, device) for k, v in ref.state0.items()}
     contact, contact_static = _contact_from_reference(ref, scenes or [], dtype, device)
+    conn = np.asarray(ref.conn)
+    tables = dict(grid=None, sf=None, dense=None, connT=None)
+    if ref.sf is not None and ref.grid is not None:
+        tables.update(
+            grid=dict(ref.grid),
+            sf={
+                "tables": [_tensor(t, dtype, device) for t in ref.sf["tables"]],
+                "jinv": _tensor(ref.sf["jinv"], dtype, device),
+                "n_g": int(ref.sf["n_g"]),
+                "pp1": int(ref.sf["pp1"]),
+            },
+        )
+    else:
+        tables.update(
+            connT=torch.tensor(conn.T, dtype=torch.int64, device=device),
+            dense={
+                "dN_t": _tensor(np.transpose(ref.dN_dX, (2, 3, 1, 0)), dtype, device),
+                "N_t": _tensor(np.transpose(ref.N, (2, 1, 0)), dtype, device),
+            },
+        )
     return Problem(
         material=mat,
         n_dof=int(ref.n_dof),
         dim=int(ref.dim),
         n_el=int(ref.n_el),
         n_q=int(ref.n_q),
-        conn=np.asarray(ref.conn),
+        conn=conn,
         wdet_t=_tensor(np.asarray(ref.w_detJ).T, dtype, device),
         rhs=_tensor(rhs, dtype, device),
         free=_tensor(ref.free, dtype, device),
         facs=dict(ref.facs),
         state0=state0,
         fdm=ref.fdm,
-        grid=dict(ref.grid),
-        sf={
-            "tables": [_tensor(t, dtype, device) for t in ref.sf["tables"]],
-            "jinv": _tensor(ref.sf["jinv"], dtype, device),
-            "n_g": int(ref.sf["n_g"]),
-            "pp1": int(ref.sf["pp1"]),
-        },
+        **tables,
         contact=contact,
         contact_static=contact_static,
     )
 
 
-def carry_from_numpy(carry, dtype=torch.float64, device="cpu"):
-    """A port step carry from a dict with "u", "v", "a" (n_dof, dim),
-    "state" (SoA leaves) and, with contact, "contact" (per block a dict of
-    observables) arrays; "newton" is reset."""
+def carry_from_numpy(carry, dtype=None, device="cuda"):
+    """A port step carry on `device` (the card unless "cpu" is passed; dtype
+    by default config.default_dtype) from a dict with "u", "v", "a"
+    (n_dof, dim), "state" (SoA leaves) and, with contact, "contact" (per
+    block a dict of observables) arrays; "newton" is reset."""
+    device = resolve_device(device)
+    dtype = dtype or default_dtype(device)
 
     def obs(v):
         a = np.asarray(v)

@@ -95,7 +95,7 @@ def test_eval_planes_and_derivatives_match_jax_jvp(name):
         [jax.jvp(lambda x, s=s: jax.jvp(f, (x,), (s,))[1], (uj,), (t,))[1] for t in seeds]
         for s in seeds
     ]
-    ut, cps_t = torch.tensor(u), ts.eval_cps().T
+    ut, cps_t = torch.tensor(u), ts.eval_cps(device="cpu").T
     val = ts.make_eval_planes()(ut, cps_t)
     S, d1, d2 = ts.make_eval_planes_ders()(ut, cps_t)
     np.testing.assert_allclose(val.numpy(), np.asarray(f(uj)), rtol=0, atol=1e-12)
@@ -138,7 +138,7 @@ def _scenes(name):
 def test_batched_query_matches_reference(name):
     jsc, tsc, q = _scenes(name)
     ref = jsc.make_batched_query()(jnp.asarray(q), jsc.scene_data())
-    sd = tsc.scene_data()
+    sd = tsc.scene_data(device="cpu")
     np.testing.assert_allclose(
         sd[0]["sample_pts"].numpy(), np.asarray(jsc.scene_data()[0]["sample_pts"]),
         rtol=0, atol=1e-14,
@@ -171,7 +171,7 @@ def test_multi_spline_query_takes_the_nearest():
         scenes.append(sc)
     q = np.random.default_rng(5).uniform([-0.2, -0.2, 0.85], [1.2, 1.2, 1.1], (200, 3))
     ref = scenes[0].make_batched_query()(jnp.asarray(q), scenes[0].scene_data())
-    got = scenes[1].make_batched_query()(torch.tensor(q), scenes[1].scene_data())
+    got = scenes[1].make_batched_query()(torch.tensor(q), scenes[1].scene_data(device="cpu"))
     for k in ("physical", "normal_gap", "distance"):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), rtol=0, atol=1e-10)
 
@@ -184,7 +184,7 @@ def test_translate_scene_data_matches_reference():
         sc_t = scene_from_reference(sc_j)
         delta = [0.1, -0.2, 0.3][: sc_j.splines[0].dim]
         ref = mimi.NearestDistanceToSplines.translate_scene_data(sc_j.scene_data(), jnp.asarray(delta))
-        got = mt.NearestDistanceToSplines.translate_scene_data(sc_t.scene_data(), delta)
+        got = mt.NearestDistanceToSplines.translate_scene_data(sc_t.scene_data(device="cpu"), delta)
         for k in ("cps", "samples", "sample_pts"):
             np.testing.assert_allclose(got[0][k].numpy(), np.asarray(ref[0][k]), rtol=0,
                                        atol=1e-14)
@@ -229,7 +229,7 @@ def press():
     ref = jsh.build_problem(MESH, material=_material(mimi), dtype=jnp.float64,
                             contact=[(1, jscene)], **BUILD)
     port = mt.build_problem(MESH, material=_material(mt), dtype=torch.float64,
-                            contact=[(1, tscene)], **BUILD)
+                            device="cpu", contact=[(1, tscene)], **BUILD)
     return ref, port, jscene
 
 
@@ -372,7 +372,7 @@ def test_three_engaged_plastic_steps_match_reference(press, ref_steps):
     press is engaged from step 1 and plastic by step 2."""
     _, port, _ = press
     step = mt.make_step(port, **STEP)
-    carry = carry_from_numpy(ref_steps[0])
+    carry = carry_from_numpy(ref_steps[0], device="cpu")
     sd = port.contact[0]["scene"]
     for i in range(1, 4):
         sd = mt.NearestDistanceToSplines.translate_scene_data(sd, PUSH)
@@ -412,10 +412,10 @@ def test_step_on_converted_contact_problem_matches_port_build(press, ref_steps):
     """problem_from_numpy(reference contact Problem) drives the same step
     as the port's own build_problem."""
     ref, port, jscene = press
-    conv = problem_from_numpy(ref, scenes=[jscene])
+    conv = problem_from_numpy(ref, scenes=[jscene], device="cpu")
     carries = []
     for prob in (port, conv):
         sd = mt.NearestDistanceToSplines.translate_scene_data(prob.contact[0]["scene"], PUSH)
-        carry = mt.make_step(prob, **STEP)(carry_from_numpy(ref_steps[0]), contact_scenes=[sd])
+        carry = mt.make_step(prob, **STEP)(carry_from_numpy(ref_steps[0], device="cpu"), contact_scenes=[sd])
         carries.append(carry_to_numpy(carry))
     assert _max_rel_err(carries[0], carries[1]) <= 1e-10

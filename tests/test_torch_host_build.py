@@ -52,7 +52,7 @@ def _material(pkg):
 @pytest.fixture(scope="module")
 def problems():
     ref = jsh.build_problem(MESH, material=_material(mimi), dtype=jnp.float64, **BUILD)
-    port = mt.build_problem(MESH, material=_material(mt), dtype=torch.float64, **BUILD)
+    port = mt.build_problem(MESH, material=_material(mt), dtype=torch.float64, device="cpu", **BUILD)
     return ref, port
 
 
@@ -165,7 +165,7 @@ def test_native_tables_match_numpy():
 
 def test_problem_from_numpy_matches_build(problems):
     ref, port = problems
-    conv = problem_from_numpy(ref)
+    conv = problem_from_numpy(ref, device="cpu")
     _close(conv.wdet_t.numpy(), port.wdet_t.numpy())
     _close(conv.rhs.numpy(), port.rhs.numpy())
     for a, b in zip(conv.sf["tables"], port.sf["tables"]):
@@ -207,12 +207,12 @@ def test_unported_build_options_raise(option):
         scene = mt.NearestDistanceToSplines()
         scene.add_spline(mt.Bezier([1, 1], [[0, 0, 1.02], [0, 1, 1.02], [1, 0, 1.02], [1, 1, 1.02]]))
         scene.plant_kd_tree(8)
-        prob = mt.build_problem(MESH, material=_material(mt), **BUILD, contact=[(2, scene)])
+        prob = mt.build_problem(MESH, material=_material(mt), device="cpu", **BUILD, contact=[(2, scene)])
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             mt.make_step(prob, 0.05)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.build_problem(MESH, material=_material(mt), **BUILD, **option)
+        mt.build_problem(MESH, material=_material(mt), device="cpu", **BUILD, **option)
 
 
 @pytest.mark.parametrize(
@@ -239,12 +239,12 @@ def test_viscosity_raises():
     residual (the predictor's velocity is not zero)."""
     mat = _material(mt)
     mat.viscosity = 1.0
-    prob = mt.build_problem(MESH, material=mat, **BUILD)
+    prob = mt.build_problem(MESH, material=mat, device="cpu", **BUILD)
     with pytest.raises(ValueError, match="CUDA"):
         mt.make_step(prob, 0.05, residual_impl="cuda")
     carry = mt.initial_carry(prob)
     r_visc = mt.make_step(prob, 0.05).newton_system(carry)["r"]
-    plain = mt.build_problem(MESH, material=_material(mt), **BUILD)
+    plain = mt.build_problem(MESH, material=_material(mt), device="cpu", **BUILD)
     r = mt.make_step(plain, 0.05).newton_system(carry)["r"]
     assert torch.isfinite(r_visc).all()
     assert float((r_visc - r).abs().max()) > 1e-6 * float(r.abs().max())

@@ -77,7 +77,7 @@ def _max_rel_err(ref, got):
 @pytest.fixture(scope="module")
 def problems():
     ref = jsh.build_problem(MESH, material=_material(mimi), dtype=jnp.float64, **BUILD)
-    port = mt.build_problem(MESH, material=_material(mt), dtype=torch.float64, **BUILD)
+    port = mt.build_problem(MESH, material=_material(mt), dtype=torch.float64, device="cpu", **BUILD)
     return ref, port
 
 
@@ -99,7 +99,7 @@ def test_three_plastic_steps_match_reference(problems, lin_rel_tol):
     lin_rel_tol keeps inexact-Newton slack from hiding a sweep fault."""
     ref, port = problems
     rc = jsh.initial_carry(ref)
-    pc = carry_from_numpy(_ref_np(rc))
+    pc = carry_from_numpy(_ref_np(rc), device="cpu")
     rstep = jsh.make_step(
         ref, solver="cg", residual_impl="soa", precond="fdm",
         lin_rel_tol=lin_rel_tol, **STEP,
@@ -120,7 +120,7 @@ def test_step_on_converted_problem_matches_port_build(problems):
     """problem_from_numpy(reference Problem) drives the same step as the
     port's own build_problem."""
     ref, port = problems
-    conv = problem_from_numpy(ref)
+    conv = problem_from_numpy(ref, device="cpu")
     carry0 = mt.initial_carry(port)
     carries = []
     for prob in (port, conv):
