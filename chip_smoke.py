@@ -4,7 +4,7 @@
 Builds the CUDA sweep kernels from the sources in this checkout (one nvcc
 per source, started together, into one library), holds each against its plain torch
 version, checks one implicit step of the kernel path against the plain
-path, then drives three paths, float32.  Two at 48^3 elements
+path, then drives four paths, float32.  Three at 48^3 elements
 (cube-nurbs.mesh at p=2, 375,000 unknowns):
   - the J2 Johnson-Cook body-force problem, generalized-alpha steps with
     4 line-search Newton iterations and FDM-preconditioned GMRES(40) at
@@ -14,13 +14,22 @@ path, then drives three paths, float32.  Two at 48^3 elements
     J2 Johnson-Cook with viscosity 100, 12 Newton iterations at rel_tol
     1e-3, GMRES(30, at most 80) at lin_rel_tol 1e-2, the consistent
     contact tangent and a bfloat16 tangent block, which runs the viscous
-    and bfloat16 variants of the kernels (phases 9-12).
+    and bfloat16 variants of the kernels (phases 9-12);
+  - the hyperelastic single-patch path (phases 19-22): the neo-Hookean
+    cube, E 2100, nu 0.3, the same face clamped, body force -3, the
+    body-force path's step settings, through the sum-factorized kernels
+    with the 45-plane symmetric tangent; two steps of the same cube with
+    the St. Venant-Kirchhoff material run that material's instantiations.
 And the dense-table path (phases 13-16): the neo-Hookean two-patch
 cantilever of tests/test_multipatch.py (two-patch-cube.mesh, the second
 patch rotated) at p=2 and 2 x 38^3 = 109,744 elements, 379,200 unknowns,
 E 2100, nu 0.3, the x=0 face clamped, body force -5, the body-force
 path's step settings, through the three dense kernels with the 45-plane
-symmetric tangent and the multi-patch additive-Schwarz FDM.
+symmetric tangent and the multi-patch additive-Schwarz FDM.  On its
+tables also (phases 17-18): the fused neo-Hookean residual and matrix-free
+tangent apply (ops/fused_neohookean.py) against their plain versions and
+the dense kernels, driven by a matrix-free solve of the path's Newton
+system; and two St. Venant-Kirchhoff steps.
 
     python3 chip_smoke.py
 
@@ -64,6 +73,7 @@ VARIANTS = [  # (counter name, TPU kernel it replaces); the contact path's
 SOURCE = [
     "mimi_tpu_torch/ops/csrc/sweeps_sf.cu",
     "mimi_tpu_torch/ops/csrc/sweeps_dense.cu",
+    "mimi_tpu_torch/ops/csrc/fused_neohookean.cu",
 ]
 # the dense-table path: the two-patch neo-Hookean cantilever
 TWO_PATCH = os.path.join(ROOT, "tests", "data", "two-patch-cube.mesh")
@@ -74,21 +84,78 @@ DENSE_KERNELS = [  # (counter name, TPU kernel it replaces)
     ("assemble_dense[sym]", "mimi_tpu/ops/sweeps.py:472"),
     ("matvec_dense[sym]", "mimi_tpu/ops/sweeps.py:838"),
 ]
+# per table kind the TPU kernels that a hyperelastic material's (residual,
+# assemble, matvec) instantiations replace; their counter names come from
+# ops/sweeps.py (HYPER_KERNELS, hyper_counters)
+SYM_REPLACES = {
+    "sf": ("mimi_tpu/ops/sweeps.py:338", "mimi_tpu/ops/sweeps.py:472",
+           "mimi_tpu/ops/sweeps.py:922"),
+    "dense": tuple(r for _, r in DENSE_KERNELS),
+}
+STVK_STEPS = 1  # timed steps after the warm one on each St. Venant-Kirchhoff drive
+FUSED_KERNELS = [  # (counter name, TPU kernel it replaces)
+    ("neohookean_tangent_apply", "mimi_tpu/ops/pallas_residual.py:171"),
+    ("neohookean_residual", "mimi_tpu/ops/pallas_residual.py:207"),
+]
 # H100 SXM peaks (NVIDIA data sheet, 700 W): device memory and float32
 # outside the tensor cores
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
-# arithmetic per quadrature point of each kernel's loop body, counted from
-# its source (a transcendental as one operation): interpolation, the
-# material, the tangent and the scatter.  The radial return's iterations
-# are not counted: how many a point needs was not measured (the kernels
-# run a fixed cap of 100), so the bound leaves them out and stays a
-# lower bound.
+# Arithmetic per quadrature point that each FUNCTION needs (a multiply and
+# an add as two operations, a transcendental as one), not what a kernel's
+# loop body happens to do.  The radial return's iterations are not counted:
+# how many a point needs was not measured (the kernels run a fixed cap of
+# 100), so the plastic rows' bounds leave them out and stay lower bounds.
+#
+# Sum-factorized tables (p = 2: 3 nodes and 4 points per axis).  The
+# function is defined on 1D factors, so interpolation and scatter are
+# counted as staged 1D contractions, per element and vector component:
+#   x: B and D on (3,3,3) -> 2 arrays (4,3,3):  2 * 36 * 3 * 2  =  432
+#   y: DB, BD, BB          -> 3 arrays (4,4,3):  3 * 48 * 3 * 2  =  864
+#   z: DBB, BDB, BBD       -> 3 arrays (4,4,4):  3 * 64 * 3 * 2  = 1152
+# = 2448; three components over 64 points: 115 per point for a gradient,
+# + 18 for the values of the same field (BBB, one more z array), 42 for
+# the values of another field (216 + 288 + 384 per component).  The
+# scatter is the transpose and costs the same.  The sf kernels instead
+# form the 27 basis products at every point and contract densely (~1810
+# per point for interpolation and scatter): that is the kernels' overhead
+# and no part of their bound.
+_SF_GRAD, _SF_SAME_VALUE, _SF_OTHER_VALUE = 115, 18, 42
+_JINV = 45  # a 3 x 3 product with jinv (reference -> physical gradient, and back)
+_SCALE = 15  # w det J on the 9 flux and 3 mass entries, rho on the 3 values
+# residual: grad u, values of a, F = I + grad u, the scatter of flux and mass
+_SF_RESIDUAL = (_SF_GRAD + _JINV + 3 + _SF_OTHER_VALUE + _SCALE + _JINV + _SF_GRAD
+                + _SF_SAME_VALUE)
+# matvec: gradient and values of w, the same scatter
+_SF_MATVEC = 2 * (_SF_GRAD + _SF_SAME_VALUE + _JINV) + _SCALE
+_SF_VISCOUS = _SF_GRAD + _JINV + 18  # grad v and P += mu_v grad v
+# the materials, counted from materials.cuh and sweeps_sf.cu: stress,
+# tangent planes, tangent apply
+_J2_STRESS = 230  # elastic predictor, yield test, sigma, det F, F^-1, P = J sigma F^-T
+_J2_TANGENT = 170  # the 21 D-hat planes
+_CAUCHY_APPLY = 330  # D-hat : sym dF, P, tr(F^-1 dF), dF^T F^-T, dP
+_NH_STRESS, _NH_TANGENT = 190, 590
+_STVK_STRESS, _STVK_TANGENT = 115, 870
+_SYM_APPLY = 170  # 45 planes as a symmetric 9 x 9 product, fac0
 OPS_PER_POINT = {
-    "residual_sf": 1950, "assemble_sf": 2120, "matvec_sf": 1950,
-    "residual_sf[visc]": 2600, "assemble_sf[visc,bf16]": 2770,
-    "matvec_sf[visc,bf16]": 1970,
+    "residual_sf": _SF_RESIDUAL + _J2_STRESS,
+    "assemble_sf": _SF_RESIDUAL + _J2_STRESS + _J2_TANGENT,
+    "matvec_sf": _SF_MATVEC + _CAUCHY_APPLY,
+    "residual_sf[visc]": _SF_RESIDUAL + _SF_VISCOUS + _J2_STRESS,
+    "assemble_sf[visc,bf16]": _SF_RESIDUAL + _SF_VISCOUS + _J2_STRESS + _J2_TANGENT,
+    "matvec_sf[visc,bf16]": _SF_MATVEC + _CAUCHY_APPLY + 18,
+    "residual_sf[nh]": _SF_RESIDUAL + _NH_STRESS,
+    "assemble_sf[nh,sym]": _SF_RESIDUAL + _NH_STRESS + _NH_TANGENT,
+    "matvec_sf[sym]": _SF_MATVEC + _SYM_APPLY,
+    "residual_sf[stvk]": _SF_RESIDUAL + _STVK_STRESS,
+    "assemble_sf[stvk,sym]": _SF_RESIDUAL + _STVK_STRESS + _STVK_TANGENT,
+    # Dense tables: the function is defined on dN (27, 3) and N (27) per
+    # point, so the 27-node contractions are its own work (gradient 486,
+    # values 162, scatter 648), then the material as above.
     "residual_dense": 1570, "assemble_dense[sym]": 2080, "matvec_dense[sym]": 1630,
+    "residual_dense[stvk]": 1500, "assemble_dense[stvk,sym]": 2370,
+    # two gradients, F^-1, three 3 x 3 products, the scatter; no N table
+    "neohookean_residual": 1250, "neohookean_tangent_apply": 1780,
 }
 
 
@@ -569,85 +636,398 @@ def contact_phases(torch, mt, sweeps, soa, sh, device, gen):
     return rows
 
 
-def dense_build(mt, spans, device):
-    """The two-patch neo-Hookean cantilever at `spans` per patch and axis."""
-    mat = mt.CompressibleOgdenNeoHookean()
+def hyper_material(mt, name="CompressibleOgdenNeoHookean"):
+    """A hyperelastic material of the port by class name: E 2100, nu 0.3,
+    density 1, no viscosity."""
+    mat = getattr(mt, name)()
     mat.density = 1.0
     mat.viscosity = -1.0
     mat.set_young_poisson(2100.0, 0.3)
+    return mat
+
+
+def dense_build(mt, spans, device, name="CompressibleOgdenNeoHookean"):
+    """The two-patch cantilever at `spans` per patch and axis (neo-Hookean
+    unless another hyperelastic material is named)."""
     return mt.build_problem(
-        TWO_PATCH, 1, 0, mat, [(0, 0), (0, 1), (0, 2)], {1: -5.0}, rho_inf=0.5,
-        device=device, refine_spans=spans,
+        TWO_PATCH, 1, 0, hyper_material(mt, name), [(0, 0), (0, 1), (0, 2)], {1: -5.0},
+        rho_inf=0.5, device=device, refine_spans=spans,
     )
 
 
-def compare_dense(torch, sweeps, prob, u_el, a_el, w_el, label):
-    """Each dense kernel against its plain version on the same inputs;
-    returns ({kernel: max_abs_err}, the plain tangent planes) and fails
-    past the stated tolerances."""
-    mat, wq = prob.material, prob.wdet_t
-    dN, N = prob.dense["dN_t"], prob.dense["N_t"]
-    args = (u_el, a_el, None, dN, N, wq, mat, STEP_KW["dt"], float(mat.density))
+def hyper_build(mt, spans, device, name="CompressibleOgdenNeoHookean"):
+    """The hyperelastic cube (neo-Hookean unless another material is
+    named): one patch at `spans` per axis, boundary 1 clamped, body force
+    -3 in y."""
+    return mt.build_problem(
+        MESH, 1, 0, hyper_material(mt, name), [(1, 0), (1, 1), (1, 2)], {1: -3.0},
+        rho_inf=0.5, device=device, refine_spans=spans,
+    )
+
+
+def sym_sweeps(sweeps, prob):
+    """(kind, tables, kernel wrappers, plain versions) of the problem's
+    three sweeps."""
+    if prob.sf is not None:
+        kind, tables = "sf", (prob.sf["tables"], prob.sf["jinv"])
+    else:
+        kind, tables = "dense", (prob.dense["dN_t"], prob.dense["N_t"])
+    fns = [getattr(sweeps, f"{n}_{kind}") for n in ("residual", "assemble", "matvec")]
+    plain = [getattr(sweeps, f"{n}_{kind}_plain") for n in ("residual", "assemble", "matvec")]
+    return kind, tables, fns, plain
+
+
+def sym_names(sweeps, kind, mat):
+    """Counter names (residual, assemble, matvec) of a hyperelastic
+    material's kernels on `kind` tables."""
+    tag = sweeps.HYPER_KERNELS[mat.name()][1]
+    return [*sweeps.hyper_counters(kind, tag), f"matvec_{kind}[sym]"]
+
+
+def near_identity(torch, grad, u_el, amplitude=0.1):
+    """u_el with each element scaled so that its largest |F - I|
+    (Frobenius) is `amplitude`: strains up to 10%, where mu (F - F^-T)
+    cancels most in float32.  Returns (u_el, |F - I| per point)."""
+    strain = lambda u: torch.linalg.vector_norm(grad(u), dim=(0, 1))  # noqa: E731
+    u_el = u_el * (amplitude / strain(u_el).amax(0))
+    return u_el, strain(u_el)
+
+
+def compare_sym(torch, sweeps, prob, u_el, a_el, w_el, label):
+    """Each kernel of the problem's hyperelastic material with the
+    symmetric storage against its plain version on the same inputs, on the
+    problem's tables; returns ({kernel: max_abs_err}, the plain tangent
+    planes) and fails past the stated tolerances."""
+    mat = prob.material
+    kind, tables, (res, asm, mv), (res_p, asm_p, mv_p) = sym_sweeps(sweeps, prob)
+    n_res, n_asm, n_mv = sym_names(sweeps, kind, mat)
+    wq = prob.wdet_t
+    args = (u_el, a_el, None, *tables, wq, mat, STEP_KW["dt"], float(mat.density))
     fac0 = prob.facs["fac3"] * STEP_KW["dt"] ** 2
     errs = {}
-    y_k = sweeps.residual_dense(*args)
+    y_k = res(*args)
     torch.cuda.synchronize()
-    y_p = sweeps.residual_dense_plain(*args)
+    y_p = res_p(*args)
     err, scale = float((y_k - y_p).abs().max()), float(y_p.abs().max())
-    errs["residual_dense"] = err
-    say(f"[{label}] residual_dense: max|err| {err:.3e} scale {scale:.3e}")
-    # float32; F and P agree to the bit (no FMA, the plain version's
-    # operation order), the quadrature sums run in another order
+    errs[n_res] = err
+    say(f"[{label}] {n_res}: max|err| {err:.3e} scale {scale:.3e} ({err / scale:.3e})")
+    # float32.  Dense tables: F and P agree to the bit (no FMA, the plain
+    # version's operation order), the quadrature sums run in another
+    # order.  Sum-factorized tables: F itself differs by rounding of
+    # grad u (per-point basis products against staged einsums), so some
+    # components of F = I + grad u land on neighbouring float32 grid values
+    # of 1, each worth (lambda + 2 mu) 1.2e-7 in P whatever the strain:
+    # 4e-7 of scale at strains of 1-10%, 5e-6 near equilibrium (strains of
+    # ~1e-3, the 48^3 path's state), both inside the bar
     if not err <= 1e-5 * scale:
-        fail(f"dense residual kernel disagrees with plain ({err} > 1e-5 * {scale})")
-    ya_k, C_k = sweeps.assemble_dense(*args)
+        fail(f"{n_res} disagrees with plain ({err} > 1e-5 * {scale})")
+    ya_k, C_k = asm(*args)
     torch.cuda.synchronize()
-    ya_p, C_p = sweeps.assemble_dense_plain(*args)
+    ya_p, C_p = asm_p(*args)
     err, scale = float((ya_k - ya_p).abs().max()), float(ya_p.abs().max())
     c_err, c_scale = float((C_k - C_p).abs().max()), float(C_p.abs().max())
-    errs["assemble_dense[sym]"] = max(err, c_err)
-    say(f"[{label}] assemble_dense[sym]: residual max|err| {err:.3e} scale {scale:.3e}; "
+    errs[n_asm] = max(err, c_err)
+    say(f"[{label}] {n_asm}: residual max|err| {err:.3e} scale {scale:.3e}; "
         f"45 planes max|err| {c_err:.3e} of max {c_scale:.3e} ({c_err / c_scale:.3e})")
     if not err <= 1e-4 * scale:
-        fail(f"dense assemble kernel residual disagrees ({err} > 1e-4 * {scale})")
+        fail(f"{n_asm} residual disagrees ({err} > 1e-4 * {scale})")
     # the closed-form tangent against the plain version's forward-mode
     # planes, float32
     if not c_err <= 1e-4 * c_scale:
-        fail(f"dense assemble kernel tangent disagrees ({c_err} > 1e-4 * {c_scale})")
-    mv_k = sweeps.matvec_dense(w_el, dN, N, wq, C_p, float(mat.density), fac0)
+        fail(f"{n_asm} tangent disagrees ({c_err} > 1e-4 * {c_scale})")
+    mv_k = mv(w_el, *tables, wq, C_p, float(mat.density), fac0, storage="sym")
     torch.cuda.synchronize()
-    mv_p = sweeps.matvec_dense_plain(w_el, dN, N, wq, C_p, float(mat.density), fac0)
-    err, scale = float((mv_k - mv_p).abs().max()), float(mv_p.abs().max())
-    errs["matvec_dense[sym]"] = err
-    say(f"[{label}] matvec_dense[sym]: max|err| {err:.3e} scale {scale:.3e}")
+    mv_pl = mv_p(w_el, *tables, wq, C_p, float(mat.density), fac0, storage="sym")
+    err, scale = float((mv_k - mv_pl).abs().max()), float(mv_pl.abs().max())
+    errs[n_mv] = err
+    say(f"[{label}] {n_mv}: max|err| {err:.3e} scale {scale:.3e}")
     if not err <= 1e-4 * scale:
-        fail(f"dense matvec kernel disagrees with plain ({err} > 1e-4 * {scale})")
+        fail(f"{n_mv} disagrees with plain ({err} > 1e-4 * {scale})")
     return errs, C_p
 
 
-def dense_phases(torch, mt, sweeps, sh, device, gen):
-    """Phases 13-16: the dense kernels against plain at 2 x 8^3, one step
+def time_sym(torch, sweeps, prob, u_el, a_el, w_el, Cs, names, launches, errs, label):
+    """Rows of the kernels line for the hyperelastic kernels in `names`
+    (a subset of the three of the problem's material) at the problem's
+    size: CUDA-event times of kernel and plain version, bytes and bound."""
+    mat = prob.material
+    kind, tables, fns, plain = sym_sweeps(sweeps, prob)
+    wq, rho, dt = prob.wdet_t, float(mat.density), STEP_KW["dt"]
+    fac0 = prob.facs["fac3"] * dt * dt
+    args = (u_el, a_el, None, *tables, wq, mat, dt, rho)
+    mv_args = (w_el, *tables, wq, Cs, rho, fac0)
+    el_out = 3 * 27 * prob.n_el * 4
+    byts = [  # inputs read once, outputs written once
+        nbytes(u_el, a_el, tables, wq) + el_out,
+        nbytes(u_el, a_el, tables, wq, Cs) + el_out,
+        nbytes(w_el, tables, wq, Cs) + el_out,
+    ]
+    n_pts = prob.n_el * prob.n_q
+    rows = []
+    for i, (name, replaces) in enumerate(zip(sym_names(sweeps, kind, mat), SYM_REPLACES[kind])):
+        if name not in names:
+            continue
+        a, kw = (mv_args, {"storage": "sym"}) if i == 2 else (args, {})
+        ms = cuda_ms(torch, lambda: fns[i](*a, **kw), 20)
+        plain_ms = cuda_ms(torch, lambda: plain[i](*a, **kw), 3)
+        row = kernel_row(name, SOURCE[0 if kind == "sf" else 1], replaces, launches[name],
+                         errs[name], ms, plain_ms, byts[i], n_pts * OPS_PER_POINT[name])
+        say(f"[{label}] {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms; "
+            f"{byts[i] / 1e9:.3f} GB, bound {row['bound_ms']:.4f} ms by {row['bound_by']}; "
+            f"{byts[i] / ms / 1e9:.3f} TB/s ({byts[i] / ms / 1e9 / (HBM_BPS / 1e12):.2f} "
+            f"of 3.35)")
+        rows.append(row)
+    return rows
+
+
+def drive(torch, mt, sweeps, prob, label, timed, kernels):
+    """The default engine's path on `prob`: the initial carry, one warm
+    and `timed` timed steps.  Fails unless every kernel in `kernels` was
+    launched in each step, the state stayed finite and each timed step's
+    Newton residual fell four orders (rel_tol 1e-8 is below float32
+    resolution).  Returns (carry, step, s/step, launches)."""
+    t0 = time.perf_counter()
+    carry = mt.initial_carry(prob)
+    torch.cuda.synchronize()
+    say(f"[{label}] initial carry {time.perf_counter() - t0:.2f} s")
+    step = mt.make_step(prob, **STEP_KW)
+    t0 = time.perf_counter()
+    carry = step(carry)
+    torch.cuda.synchronize()
+    say(f"[{label}] warm step {time.perf_counter() - t0:.3f} s {carry['newton']}")
+    times, diags = [], []
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry = step(carry)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        diags.append(carry["newton"])
+    launches = dict(sweeps.LAUNCHES)
+    s_step = sum(times) / len(times)
+    qp_rate = prob.n_el * prob.n_q * RES_EVALS_PER_STEP / s_step
+    say(f"[{label}] {s_step:.4f} s/step over {timed} steps "
+        f"({', '.join(f'{t:.3f}' for t in times)}); {qp_rate:.4e} qp-evals/s; newton iters "
+        f"{[d['iters'] for d in diags]}; gmres iters {[d['lin_iters'] for d in diags]}; "
+        f"max|u| {float(carry['u'].abs().max()):.4e}; peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    for d in diags:
+        say(f"[{label}] newton |r0| {d['norm0']:.4e} -> |r| {d['norm']:.4e} "
+            f"(ratio {d['norm'] / d['norm0']:.2e})")
+    for name in kernels:  # at least once in each of the 1 + timed steps
+        if launches[name] < 1 + timed:
+            fail(f"kernel {name} was launched {launches[name]} times in {1 + timed} steps "
+                 f"of {label}")
+    if not all(d["finite"] for d in diags):
+        fail(f"non-finite state on {label}")
+    for d in diags:
+        if not (math.isfinite(d["norm"]) and d["norm"] <= 1e-4 * d["norm0"]):
+            fail(f"{label}: Newton did not converge: |r| {d['norm']} vs |r0| {d['norm0']}")
+    return carry, step, s_step, launches
+
+
+def predictor_fields(torch, sh, prob, carry, gen):
+    """Element inputs of the sweeps at the path's state: u at the next
+    step's predictor, a the carry's, w random."""
+    g, _ = sh._gather_scatter(prob)
+    fc, dt = prob.facs, STEP_KW["dt"]
+    xa = carry["u"] + (carry["v"] + fc["fac0"] * dt * carry["a"]) * fc["fac1"] * dt
+    w_el = torch.randn(3, 27, prob.n_el, generator=gen).to(prob.device, prob.dtype)
+    return g(xa), g(carry["a"]), w_el
+
+
+def profile_step(torch, step, carry, s_step, label):
+    """One profiled step: device busy time, idle share of the timed
+    s/step, device time by kernel name.  Returns the new carry."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        carry = step(carry)
+        torch.cuda.synchronize()
+        t_prof = (time.perf_counter() - t0) * 1e3
+    ev = [(e.key, e.count, e.self_device_time_total / 1e3)
+          for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    busy = sum(t for _, _, t in ev)
+    d = carry["newton"]
+    if busy > 0:
+        say(f"[{label}] one step (newton {d['iters']}, gmres {d['lin_iters']}): "
+            f"device busy {busy:.1f} ms; idle share {1.0 - busy / (s_step * 1e3):.3f} of the "
+            f"timed {s_step * 1e3:.1f} ms/step (profiled step wall {t_prof:.1f} ms)")
+        for key, n, t in sorted(ev, key=lambda x: -x[2])[:12]:
+            say(f"[{label}]   {t:9.3f} ms  x{n:<5d} {key[:90]}")
+    else:
+        say(f"[{label}] device time not visible to torch.profiler: not measured")
+    return carry
+
+
+def stvk_rows(torch, mt, sweeps, build, spans, device, u_el, a_el, w_el, label):
+    """The St. Venant-Kirchhoff instantiations: the problem of `build` at
+    `spans` with that material, its kernels against their plain versions at
+    the given inputs, driven for 1 + STVK_STEPS steps from rest, and timed.
+    Returns their rows of the kernels line."""
+    t0 = time.perf_counter()
+    sprob = build(mt, spans, device, "StVenantKirchhoff")
+    torch.cuda.synchronize()
+    say(f"[{label}] host build {time.perf_counter() - t0:.2f} s")
+    kind = sym_sweeps(sweeps, sprob)[0]
+    names = sym_names(sweeps, kind, sprob.material)[:2]
+    # St. Venant-Kirchhoff has no F^-1 and no 1/J: its stress loses less
+    # to cancellation than the neo-Hookean, and the same bars hold
+    errs, Cs = compare_sym(torch, sweeps, sprob, u_el, a_el, w_el, label)
+    sweeps.reset_launches()
+    _, _, _, launches = drive(torch, mt, sweeps, sprob, f"{label} drive", STVK_STEPS,
+                              names + [f"matvec_{kind}[sym]"])
+    return time_sym(torch, sweeps, sprob, u_el, a_el, w_el, Cs, names, launches, errs,
+                    f"{label} timing")
+
+
+def fused_phase(torch, sweeps, fused, sh, prob, step, carry, u_el, w_el, Cs, gen, label):
+    """Phase 17: the fused neo-Hookean residual and matrix-free tangent
+    apply on the dense path's tables, against their plain versions and
+    against residual_dense (a_el = 0) / matvec_dense (rho = 0, fac0 = 1) on
+    the tangent assembled at the same state; then the path's first Newton
+    system solved matrix-free through them, against the stored-tangent
+    solve; then their times.  Returns their rows of the kernels line."""
+    from mimi_tpu_torch.solvers.linear import gmres
+
+    mat, wq = prob.material, prob.wdet_t
+    dN, N = prob.dense["dN_t"], prob.dense["N_t"]
+    lam, mu, rho, dt = mat.lambda_, mat.mu, float(mat.density), STEP_KW["dt"]
+    errs = {}
+    r_k = fused.neohookean_residual(u_el, dN, wq, lam, mu)
+    torch.cuda.synchronize()
+    r_p = fused.neohookean_residual_plain(u_el, dN, wq, lam, mu)
+    r_d = sweeps.residual_dense(u_el, torch.zeros_like(u_el), None, dN, N, wq, mat, dt, rho)
+    err, scale = float((r_k - r_p).abs().max()), float(r_p.abs().max())
+    err_d = float((r_k - r_d).abs().max())
+    errs["neohookean_residual"] = err
+    say(f"[{label}] neohookean_residual: vs plain max|err| {err:.3e}, vs residual_dense "
+        f"(a_el = 0) {err_d:.3e}, scale {scale:.3e}")
+    # the dense residual's bar: F and P to the bit, the sums in another order
+    if not max(err, err_d) <= 1e-5 * scale:
+        fail(f"neohookean_residual disagrees ({err}, {err_d} > 1e-5 * {scale})")
+    y_k = fused.neohookean_tangent_apply(u_el, w_el, dN, wq, lam, mu)
+    torch.cuda.synchronize()
+    y_p = fused.neohookean_tangent_apply_plain(u_el, w_el, dN, wq, lam, mu)
+    y_d = sweeps.matvec_dense(w_el, dN, N, wq, Cs, 0.0, 1.0)
+    err, scale = float((y_k - y_p).abs().max()), float(y_p.abs().max())
+    err_d = float((y_k - y_d).abs().max())
+    errs["neohookean_tangent_apply"] = err
+    say(f"[{label}] neohookean_tangent_apply: vs plain max|err| {err:.3e}, vs matvec_dense "
+        f"(rho = 0, fac0 = 1) on the assembled planes {err_d:.3e}, scale {scale:.3e}")
+    # the dense matvec's bar (float32, the directional formula against the
+    # stored planes)
+    if not max(err, err_d) <= 1e-4 * scale:
+        fail(f"neohookean_tangent_apply disagrees ({err}, {err_d} > 1e-4 * {scale})")
+
+    # the Newton system at the predictor of `carry`, once from the stored
+    # tangent (the step's own) and once matrix-free: r from the fused
+    # residual (the predictor has aa = 0, so no inertia term), J w =
+    # fac0 K(u) w + M w with K from the fused tangent apply and the mass
+    # term in plain torch; the same FDM-GMRES on both
+    sweeps.reset_launches()
+    ns = step.newton_system(carry)
+    gather_t, scatter_el = sh._gather_scatter(prob)
+    free, n_dof, dim = prob.free, prob.n_dof, prob.dim
+    fc = prob.facs
+    fac0 = fc["fac3"] * dt * dt
+    xa = carry["u"] + (carry["v"] + fc["fac0"] * dt * carry["a"]) * fc["fac1"] * dt
+    x_el = gather_t(xa)
+    r_mf = ((scatter_el(fused.neohookean_residual(x_el, dN, wq, lam, mu)) - prob.rhs)
+            * free).reshape(-1)
+
+    def J_mf(w_flat):
+        w = w_flat.reshape(n_dof, dim) * free
+        w_e = gather_t(w).contiguous()
+        y_e = fac0 * fused.neohookean_tangent_apply(x_el, w_e, dN, wq, lam, mu)
+        y_e = y_e + sweeps.dense_scatter(None, rho * sweeps.dense_value(w_e, N), dN, N, wq)
+        return (scatter_el(y_e) * free + w_flat.reshape(n_dof, dim) * (1 - free)).reshape(-1)
+
+    kw = dict(M_apply=ns["M_apply"], rel_tol=STEP_KW["lin_rel_tol"], abs_tol=1e-12,
+              restart=30, max_iter=STEP_KW["cg_iters"], return_info=True)
+    c_st, i_st = gmres(ns["J_apply"], ns["r"], **kw)
+    c_mf, i_mf = gmres(J_mf, r_mf, **kw)
+    w = torch.randn(n_dof * dim, generator=gen).to(prob.device, prob.dtype)
+    jw_st, jw_mf = ns["J_apply"](w), J_mf(w)
+    torch.cuda.synchronize()
+    launches = dict(sweeps.LAUNCHES)
+    r_err, r_scale = float((r_mf - ns["r"]).abs().max()), float(ns["r"].abs().max())
+    jw_err, jw_scale = float((jw_mf - jw_st).abs().max()), float(jw_st.abs().max())
+    c_err, c_scale = float((c_mf - c_st).abs().max()), float(c_st.abs().max())
+    # the matrix-free solution put into the stored-tangent system
+    norm_b = float(torch.linalg.norm(ns["M_apply"](ns["r"])))
+    cross = float(torch.linalg.norm(ns["M_apply"](ns["r"] - ns["J_apply"](c_mf)))) / norm_b
+    say(f"[{label}] matrix-free Newton system vs the stored-tangent one: residual max|err| "
+        f"{r_err:.3e} scale {r_scale:.3e}; J w max|err| {jw_err:.3e} scale {jw_scale:.3e}; "
+        f"FDM-GMRES iterations {i_mf['iters']}/{i_st['iters']}, preconditioned residual "
+        f"{i_mf['res'] / norm_b:.3e}/{i_st['res'] / norm_b:.3e} of |M r|; the matrix-free "
+        f"solution leaves {cross:.3e} in the stored-tangent system; solutions differ by "
+        f"{c_err:.3e} of {c_scale:.3e}; launches { {k: n for k, n in launches.items() if n} }")
+    # residual and J w at the assemble and matvec bars (index_add_ sums with
+    # atomics).  The two solves stop at lin_rel_tol 1e-3 after different
+    # iteration counts, so their solutions differ by that tolerance times
+    # the system's conditioning (printed, not gated); the matrix-free
+    # solution must solve the stored-tangent system as well as its own
+    # (within 2 x its final residual: the operators agree to rounding)
+    if not r_err <= 1e-4 * r_scale:
+        fail(f"matrix-free Newton residual {r_err} > 1e-4 * {r_scale}")
+    if not jw_err <= 1e-4 * jw_scale:
+        fail(f"matrix-free J w {jw_err} > 1e-4 * {jw_scale}")
+    if not cross <= 2.0 * max(i_mf["res"] / norm_b, STEP_KW["lin_rel_tol"]):
+        fail(f"the matrix-free solution leaves {cross} in the stored-tangent system "
+             f"(its own residual {i_mf['res'] / norm_b})")
+    for name, _ in FUSED_KERNELS:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched by the matrix-free solve")
+
+    calls = {
+        "neohookean_residual": (
+            lambda: fused.neohookean_residual(u_el, dN, wq, lam, mu),
+            lambda: fused.neohookean_residual_plain(u_el, dN, wq, lam, mu),
+            nbytes(u_el, dN, wq)),
+        "neohookean_tangent_apply": (
+            lambda: fused.neohookean_tangent_apply(u_el, w_el, dN, wq, lam, mu),
+            lambda: fused.neohookean_tangent_apply_plain(u_el, w_el, dN, wq, lam, mu),
+            nbytes(u_el, w_el, dN, wq)),
+    }
+    el_out = 3 * 27 * prob.n_el * 4
+    n_pts = prob.n_el * prob.n_q
+    rows = []
+    for name, replaces in FUSED_KERNELS:
+        kern, plain, n_in = calls[name]
+        ms = cuda_ms(torch, kern, 20)
+        plain_ms = cuda_ms(torch, plain, 3)
+        row = kernel_row(name, SOURCE[2], replaces, launches[name], errs[name], ms, plain_ms,
+                         n_in + el_out, n_pts * OPS_PER_POINT[name])
+        say(f"[{label} timing] {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms; "
+            f"{(n_in + el_out) / 1e9:.3f} GB, bound {row['bound_ms']:.4f} ms by "
+            f"{row['bound_by']}; {(n_in + el_out) / ms / 1e9:.3f} TB/s")
+        rows.append(row)
+    return rows
+
+
+def dense_phases(torch, mt, sweeps, fused, sh, device, gen):
+    """Phases 13-18: the dense kernels against plain at 2 x 8^3, one step
     of the kernel path against the plain path there, the two-patch
     cantilever at 2 x 38^3, the kernels on its state, their times and one
-    profiled step.  Returns the dense rows of the kernels line."""
+    profiled step; on the same tables the fused neo-Hookean kernels; the
+    St. Venant-Kirchhoff cantilever at the same size.  Returns their rows
+    of the kernels line."""
     # ---- 13. dense kernels vs plain at 2 x 8^3, random fields ---------------
     prob = dense_build(mt, DENSE_CHECK_SPANS, device)
     E = prob.n_el
     rnd = lambda *s: torch.randn(*s, generator=gen).to(device, prob.dtype)  # noqa: E731
-    # each element scaled so that its largest |F - I| (Frobenius) is 0.1:
-    # strains up to 10%, where mu (F - F^-T) cancels most in float32
-    u_el = rnd(3, 27, E)
-    strain = lambda u: torch.linalg.vector_norm(  # noqa: E731
-        sweeps.dense_grad(u, prob.dense["dN_t"]), dim=(0, 1))
-    u_el = u_el * (0.1 / strain(u_el).amax(0))
+    grad = lambda u: sweeps.dense_grad(u, prob.dense["dN_t"])  # noqa: E731
+    u_el, eps = near_identity(torch, grad, rnd(3, 27, E))
     a_el, w_el = rnd(3, 27, E), rnd(3, 27, E)
     label = f"13. 2x{DENSE_CHECK_SPANS}^3 random"
-    eps = strain(u_el)
-    J = sweeps.soa.det(sweeps.soa.add_diag(sweeps.dense_grad(u_el, prob.dense["dN_t"]), 1.0))
+    J = sweeps.soa.det(sweeps.soa.add_diag(grad(u_el), 1.0))
     say(f"[{label}] n_el {E}, unknowns {prob.n_dof * 3}; |F - I| min {float(eps.min()):.4f} "
         f"median {float(eps.median()):.4f} max {float(eps.max()):.4f}; det F in "
         f"[{float(J.min()):.4f}, {float(J.max()):.4f}]")
-    compare_dense(torch, sweeps, prob, u_el, a_el, w_el, label)
+    compare_sym(torch, sweeps, prob, u_el, a_el, w_el, label)
 
     # ---- 14. one step at 2 x 8^3: cuda vs torch ------------------------------
     carry0 = mt.initial_carry(prob)
@@ -676,109 +1056,104 @@ def dense_phases(torch, mt, sweeps, sh, device, gen):
     say(f"[15. 2x38^3 dense] host build {host_s:.2f} s: n_el {prob.n_el}, n_q {prob.n_q}, "
         f"unknowns {prob.n_dof * prob.dim}; dense tables {tab_gb:.3f} GB on the device "
         f"(peak allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB)")
-    t0 = time.perf_counter()
-    carry = mt.initial_carry(prob)
-    torch.cuda.synchronize()
-    say(f"[15. 2x38^3 dense] initial carry {time.perf_counter() - t0:.2f} s")
-    step = mt.make_step(prob, **STEP_KW)
-    t0 = time.perf_counter()
-    carry = step(carry)
-    torch.cuda.synchronize()
-    say(f"[15. 2x38^3 dense] warm step {time.perf_counter() - t0:.3f} s {carry['newton']}")
-    times, diags = [], []
-    for _ in range(TIMED_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        carry = step(carry)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        diags.append(carry["newton"])
-    launches = dict(sweeps.LAUNCHES)
-    s_step = sum(times) / len(times)
-    qp_rate = prob.n_el * prob.n_q * RES_EVALS_PER_STEP / s_step
-    say(f"[15. 2x38^3 dense] {s_step:.4f} s/step over {TIMED_STEPS} steps "
-        f"({', '.join(f'{t:.3f}' for t in times)}); {qp_rate:.4e} qp-evals/s; newton iters "
-        f"{[d['iters'] for d in diags]}; gmres iters {[d['lin_iters'] for d in diags]}; "
-        f"max|u| {float(carry['u'].abs().max()):.4e}; peak allocated "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; launches "
-        f"{ {k: n for k, n in launches.items() if n} }")
-    for d in diags:
-        say(f"[15. 2x38^3 dense] newton |r0| {d['norm0']:.4e} -> |r| {d['norm']:.4e} "
-            f"(ratio {d['norm'] / d['norm0']:.2e})")
-    for name, _ in DENSE_KERNELS:  # at least once in each of the 1 + 5 steps
-        if launches[name] < 1 + TIMED_STEPS:
-            fail(f"kernel {name} was launched {launches[name]} times in 6 dense steps")
-    if not all(d["finite"] for d in diags):
-        fail("non-finite state on the dense path")
-    # rel_tol 1e-8 is below float32 resolution: a four-order drop is the goal
-    for d in diags:
-        if not (math.isfinite(d["norm"]) and d["norm"] <= 1e-4 * d["norm0"]):
-            fail(f"dense Newton did not converge: |r| {d['norm']} vs |r0| {d['norm0']}")
+    names = [n for n, _ in DENSE_KERNELS]
+    carry, step, s_step, launches = drive(torch, mt, sweeps, prob, "15. 2x38^3 dense",
+                                          TIMED_STEPS, names)
 
     # ---- 13 (path). the kernels on the path's state ---------------------------
-    g, _ = sh._gather_scatter(prob)
-    fc, dt = prob.facs, STEP_KW["dt"]
-    xa = carry["u"] + (carry["v"] + fc["fac0"] * dt * carry["a"]) * fc["fac1"] * dt
-    u_el, a_el = g(xa), g(carry["a"])
-    w_el = torch.randn(3, 27, prob.n_el, generator=gen).to(device, prob.dtype)
-    del xa
-    errs, Cs = compare_dense(torch, sweeps, prob, u_el, a_el, w_el, "13. 2x38^3 path")
+    u_el, a_el, w_el = predictor_fields(torch, sh, prob, carry, gen)
+    errs, Cs = compare_sym(torch, sweeps, prob, u_el, a_el, w_el, "13. 2x38^3 path")
 
     # ---- 16. times, bandwidth and one profiled step ---------------------------
-    mat, wq, rho = prob.material, prob.wdet_t, float(prob.material.density)
-    dN, N = prob.dense["dN_t"], prob.dense["N_t"]
-    fac0 = fc["fac3"] * dt * dt
-    args = (u_el, a_el, None, dN, N, wq, mat, dt, rho)
-    calls = {
-        "residual_dense": (lambda: sweeps.residual_dense(*args),
-                           lambda: sweeps.residual_dense_plain(*args)),
-        "assemble_dense[sym]": (lambda: sweeps.assemble_dense(*args),
-                                lambda: sweeps.assemble_dense_plain(*args)),
-        "matvec_dense[sym]": (
-            lambda: sweeps.matvec_dense(w_el, dN, N, wq, Cs, rho, fac0),
-            lambda: sweeps.matvec_dense_plain(w_el, dN, N, wq, Cs, rho, fac0)),
-    }
-    el_out = 3 * 27 * prob.n_el * 4
-    byts = {  # inputs read once, outputs written once
-        "residual_dense": nbytes(u_el, a_el, dN, N, wq) + el_out,
-        "assemble_dense[sym]": nbytes(u_el, a_el, dN, N, wq, Cs) + el_out,
-        "matvec_dense[sym]": nbytes(w_el, dN, N, wq, Cs) + el_out,
-    }
-    n_pts = prob.n_el * prob.n_q
-    rows = []
-    for name, replaces in DENSE_KERNELS:
-        kern, plain = calls[name]
-        ms = cuda_ms(torch, kern, 20)
-        plain_ms = cuda_ms(torch, plain, 3)
-        row = kernel_row(name, SOURCE[1], replaces, launches[name], errs[name], ms,
-                         plain_ms, byts[name], n_pts * OPS_PER_POINT[name])
-        say(f"[16. 2x38^3 timing] {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms; "
-            f"{byts[name] / 1e9:.3f} GB, bound {row['bound_ms']:.4f} ms by {row['bound_by']}; "
-            f"{byts[name] / ms / 1e9:.3f} TB/s ({byts[name] / ms / 1e9 / (HBM_BPS / 1e12):.2f} "
-            f"of 3.35)")
-        rows.append(row)
-    del calls, args, u_el, a_el, w_el, Cs
+    rows = time_sym(torch, sweeps, prob, u_el, a_el, w_el, Cs, names, launches, errs,
+                    "16. 2x38^3 timing")
+    carry = profile_step(torch, step, carry, s_step, "16. 2x38^3 profile")
 
-    from torch.profiler import ProfilerActivity, profile
+    # ---- 17. the fused neo-Hookean kernels on the same tables ------------------
+    rows += fused_phase(torch, sweeps, fused, sh, prob, step, carry, u_el, w_el, Cs, gen,
+                        "17. 2x38^3 fused")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        carry = step(carry)
-        torch.cuda.synchronize()
-        t_prof = (time.perf_counter() - t0) * 1e3
-    ev = [(e.key, e.count, e.self_device_time_total / 1e3)
-          for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-    busy = sum(t for _, _, t in ev)
-    d = carry["newton"]
-    if busy > 0:
-        say(f"[16. 2x38^3 profile] one step (newton {d['iters']}, gmres {d['lin_iters']}): "
-            f"device busy {busy:.1f} ms; idle share {1.0 - busy / (s_step * 1e3):.3f} of the "
-            f"timed {s_step * 1e3:.1f} ms/step (profiled step wall {t_prof:.1f} ms)")
-        for key, n, t in sorted(ev, key=lambda x: -x[2])[:12]:
-            say(f"[16. 2x38^3 profile]   {t:9.3f} ms  x{n:<5d} {key[:90]}")
-    else:
-        say("[16. 2x38^3 profile] device time not visible to torch.profiler: not measured")
-    del prob, carry, step, prof
+    # ---- 18. the St. Venant-Kirchhoff cantilever at the same size -------------
+    del Cs, step, carry, prob
+    torch.cuda.empty_cache()
+    rows += stvk_rows(torch, mt, sweeps, dense_build, DENSE_SPANS, device, u_el, a_el, w_el,
+                      "18. 2x38^3 StVK")
+    del u_el, a_el, w_el
+    torch.cuda.empty_cache()
+    return rows
+
+
+def hyper_phases(torch, mt, sweeps, sh, device, gen):
+    """Phases 19-22: the hyperelastic sf kernels (both materials) against
+    plain at 16^3, one step of the kernel path against the plain path
+    there, the neo-Hookean cube at 48^3, the kernels on its state, their
+    times, one profiled step, and the St. Venant-Kirchhoff cube at the
+    same size.  Returns their rows of the kernels line."""
+    # ---- 19. sf hyperelastic kernels vs plain at 16^3, both materials ----------
+    tags = {name: tag for name, (_, tag) in sweeps.HYPER_KERNELS.items()}
+    probs = {name: hyper_build(mt, CHECK_SPANS, device, name) for name in tags}
+    prob = next(iter(probs.values()))  # both share mesh and tables
+    E = prob.n_el
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(device, prob.dtype)  # noqa: E731
+    grad = lambda u: sweeps.sf_grad(u, prob.sf["tables"], prob.sf["jinv"])  # noqa: E731
+    u_el, eps = near_identity(torch, grad, rnd(3, 27, E))
+    a_el, w_el = rnd(3, 27, E), rnd(3, 27, E)
+    label = f"19. {CHECK_SPANS}^3 random"
+    J = sweeps.soa.det(sweeps.soa.add_diag(grad(u_el), 1.0))
+    say(f"[{label}] n_el {E}, unknowns {prob.n_dof * 3}; |F - I| min {float(eps.min()):.4f} "
+        f"median {float(eps.median()):.4f} max {float(eps.max()):.4f}; det F in "
+        f"[{float(J.min()):.4f}, {float(J.max()):.4f}]")
+    for name, p in probs.items():
+        compare_sym(torch, sweeps, p, u_el, a_el, w_el, f"{label} {tags[name]}")
+
+    # ---- 20. one step at 16^3: cuda vs torch, both materials -------------------
+    for name, p in probs.items():
+        carry0 = mt.initial_carry(p)
+        out = {impl: mt.make_step(p, residual_impl=impl, **STEP_KW)(carry0)
+               for impl in ("cuda", "torch")}
+        err = float((out["cuda"]["u"] - out["torch"]["u"]).abs().max())
+        scale = float(out["torch"]["u"].abs().max())
+        nc, nt = out["cuda"]["newton"], out["torch"]["newton"]
+        say(f"[20. {CHECK_SPANS}^3 step {tags[name]}] cuda vs torch: max|du| {err:.3e} max|u| "
+            f"{scale:.3e}; newton {nc['iters']}/{nt['iters']} gmres "
+            f"{nc['lin_iters']}/{nt['lin_iters']}")
+        # the bar of the reference package's pallas-vs-soa parity check
+        if not err <= 1e-4 * scale:
+            fail(f"{name} one-step parity {err} > 1e-4 * {scale}")
+    del prob, probs, carry0, out, u_el, a_el, w_el, J, eps
+    torch.cuda.empty_cache()
+
+    # ---- 21. the neo-Hookean cube at 48^3 ---------------------------------------
+    sweeps.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    prob = hyper_build(mt, SPANS, device)
+    torch.cuda.synchronize()
+    say(f"[21. 48^3 neo-Hookean] host build {time.perf_counter() - t0:.2f} s: n_el "
+        f"{prob.n_el}, n_q {prob.n_q}, unknowns {prob.n_dof * prob.dim}; sum-factorized "
+        f"tables, symmetric tangent")
+    names = sym_names(sweeps, "sf", prob.material)
+    carry, step, s_step, launches = drive(torch, mt, sweeps, prob, "21. 48^3 neo-Hookean",
+                                          TIMED_STEPS, names)
+
+    # ---- 19 (path). the kernels on the path's state ----------------------------
+    u_el, a_el, w_el = predictor_fields(torch, sh, prob, carry, gen)
+    eps = torch.linalg.vector_norm(
+        sweeps.sf_grad(u_el, prob.sf["tables"], prob.sf["jinv"]), dim=(0, 1))
+    say(f"[19. 48^3 path] |F - I| median {float(eps.median()):.3e} max "
+        f"{float(eps.max()):.3e}")
+    del eps
+    errs, Cs = compare_sym(torch, sweeps, prob, u_el, a_el, w_el, "19. 48^3 path")
+
+    # ---- 22. times, one profiled step, the other material -----------------------
+    rows = time_sym(torch, sweeps, prob, u_el, a_el, w_el, Cs, names, launches, errs,
+                    "22. 48^3 timing")
+    profile_step(torch, step, carry, s_step, "22. 48^3 neo-Hookean profile")
+    del Cs, step, carry, prob
+    torch.cuda.empty_cache()
+    rows += stvk_rows(torch, mt, sweeps, hyper_build, SPANS, device, u_el, a_el, w_el,
+                      "22. 48^3 StVK")
+    del u_el, a_el, w_el
     torch.cuda.empty_cache()
     return rows
 
@@ -804,6 +1179,7 @@ def main():
     import mimi_tpu_torch as mt
     from mimi_tpu_torch.fem import soa
     from mimi_tpu_torch.ops import build as kbuild
+    from mimi_tpu_torch.ops import fused_neohookean as fused
     from mimi_tpu_torch.ops import sweeps
     from mimi_tpu_torch.parallel import sharding as sh
     from mimi_tpu_torch.solvers.linear import gmres
@@ -864,49 +1240,10 @@ def main():
     say(f"[48^3] host build {host_s:.2f} s: n_el {prob.n_el}, n_q {prob.n_q}, "
         f"unknowns {prob.n_dof * prob.dim}; basis path: sum-factorized 1D tables "
         "+ per-point jinv and w det J (no dense N/dN tables)")
-    t0 = time.perf_counter()
-    carry = mt.initial_carry(prob)
-    torch.cuda.synchronize()
-    say(f"[48^3] initial carry {time.perf_counter() - t0:.2f} s")
-    step = mt.make_step(prob, **STEP_KW)
-    t0 = time.perf_counter()
-    carry = step(carry)
-    torch.cuda.synchronize()
-    say(f"[48^3] warm step {time.perf_counter() - t0:.3f} s {carry['newton']}")
-    diags = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(TIMED_STEPS):
-        carry = step(carry)
-        diags.append(carry["newton"])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(sweeps.LAUNCHES)
-    s_step = wall / TIMED_STEPS
-    qp_rate = prob.n_el * prob.n_q * RES_EVALS_PER_STEP / s_step
+    carry, step, s_step, launches = drive(torch, mt, sweeps, prob, "48^3", TIMED_STEPS,
+                                          [n for n, _ in KERNELS])
     eqps = carry["state"]["eqps"]
-    say(f"[48^3] {s_step:.4f} s/step over {TIMED_STEPS} steps; "
-        f"{qp_rate:.4e} qp-evals/s; newton iters {[d['iters'] for d in diags]}; "
-        f"gmres iters {[d['lin_iters'] for d in diags]}")
-    say(f"[48^3] eqps max {float(eqps.max()):.4e}, plastic points "
-        f"{int((eqps > 0).sum())}; max|u| {float(carry['u'].abs().max()):.4e}; "
-        f"finite {all(d['finite'] for d in diags)}; launches "
-        f"{ {k: n for k, n in launches.items() if n} }")
-    for d in diags:
-        say(f"[48^3] newton |r0| {d['norm0']:.4e} -> |r| {d['norm']:.4e} "
-            f"(ratio {d['norm'] / d['norm0']:.2e}, converged flag {d['converged']})")
-    for name, _ in KERNELS:
-        if launches[name] <= 0:
-            fail(f"kernel {name} was not launched on the main path")
-    if not all(d["finite"] for d in diags):
-        fail("non-finite state on the main path")
-    # The step's goal rel_tol 1e-8 (the benchmark's setting) lies below
-    # float32 resolution of the residual, so the flag stays False in float32
-    # in both packages; Newton has converged when the residual fell four
-    # orders, to the float32 floor.
-    for d in diags:
-        if not (math.isfinite(d["norm"]) and d["norm"] <= 1e-4 * d["norm0"]):
-            fail(f"Newton did not converge: |r| {d['norm']} vs |r0| {d['norm0']}")
+    say(f"[48^3] eqps max {float(eqps.max()):.4e}, plastic points {int((eqps > 0).sum())}")
 
     # ---- 6. kernels vs plain on the main path's inputs at 48^3 --------------
     g, _ = sh._gather_scatter(prob)
@@ -984,38 +1321,20 @@ def main():
         f"{max(a - b for a, b in pairs) / n_it:.4f})")
 
     # ---- 8. where one step's device time goes (torch.profiler) -------------
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        carry = step(carry)
-        torch.cuda.synchronize()
-        t_prof = (time.perf_counter() - t0) * 1e3
-    # device-side rows only (kernels, copies); operator rows repeat their
-    # kernels' time
-    ev = [(e.key, e.count, e.self_device_time_total / 1e3)
-          for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-    busy = sum(t for _, _, t in ev)
-    if busy > 0:
-        # the profiler slows the host, not the device: compare the device
-        # time with the unprofiled step time
-        say(f"[48^3 profile] one step: device busy {busy:.1f} ms; idle share "
-            f"{1.0 - busy / (s_step * 1e3):.3f} of the timed {s_step * 1e3:.1f} ms/step "
-            f"(profiled step wall {t_prof:.1f} ms)")
-        for key, n, t in sorted(ev, key=lambda x: -x[2])[:12]:
-            say(f"[48^3 profile]   {t:9.3f} ms  x{n:<5d} {key[:90]}")
-    else:
-        say("[48^3 profile] device time not visible to torch.profiler: not measured")
+    carry = profile_step(torch, step, carry, s_step, "48^3 profile")
 
     del C, ns, J_apply, M_apply, calls, u_el, a_el, w_el, st
-    del prob, carry, step, prof
+    del prob, carry, step
     torch.cuda.empty_cache()
 
     # ---- 9-12. the contact press ---------------------------------------------
     rows += contact_phases(torch, mt, sweeps, soa, sh, device, gen)
 
-    # ---- 13-16. the dense-table path ------------------------------------------
-    rows += dense_phases(torch, mt, sweeps, sh, device, gen)
+    # ---- 13-18. the dense-table path, the fused kernels on its tables ----------
+    rows += dense_phases(torch, mt, sweeps, fused, sh, device, gen)
+
+    # ---- 19-22. the hyperelastic single-patch path ------------------------------
+    rows += hyper_phases(torch, mt, sweeps, sh, device, gen)
 
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {

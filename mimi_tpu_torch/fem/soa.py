@@ -40,6 +40,32 @@ def sym(A):
     )
 
 
+def matmul(A, B):
+    """A @ B."""
+    return stack2(
+        [
+            [
+                sum(A[i, k] * B[k, j] for k in range(A.shape[1]))
+                for j in range(B.shape[1])
+            ]
+            for i in range(A.shape[0])
+        ]
+    )
+
+
+def matmul_tn(A, B):
+    """A^T @ B."""
+    return stack2(
+        [
+            [
+                sum(A[k, i] * B[k, j] for k in range(A.shape[0]))
+                for j in range(B.shape[1])
+            ]
+            for i in range(A.shape[1])
+        ]
+    )
+
+
 def matmul_nt(A, B):
     """A @ B^T."""
     return stack2(

@@ -11,8 +11,9 @@ on detached tensors and re-injects its exact sensitivity through one
 implicit-function-theorem correction.
 
 Ported so far: `J2` (small-strain J2 with nonlinear isotropic hardening)
-and `CompressibleOgdenNeoHookean` (with its closed-form dP/dF, the tangent
-the CUDA dense assemble writes).
+and the hyperelastic `CompressibleOgdenNeoHookean` and `StVenantKirchhoff`
+(each with its closed-form dP/dF as `tangent_soa`, the tangent the CUDA
+assemble kernels write).
 """
 
 from __future__ import annotations
@@ -91,6 +92,52 @@ def _pk1_from_cauchy_soa(sigma, F):
     return soa.det(F) * soa.matmul_nt(sigma, soa.inv(F))
 
 
+class StVenantKirchhoff(Material):
+    """E = (F^T F - I) / 2, S = lambda tr(E) I + 2 mu E, P = F S."""
+
+    tangent_major_symmetric = True  # P = F S(E): d2W/dF2 Hessian
+
+    def _second_pk(self, F):
+        E = 0.5 * soa.add_diag(soa.matmul_tn(F, F), -1.0)
+        return soa.add_diag(2.0 * self.mu * E, self.lambda_ * soa.trace(E))
+
+    def pk1_soa(self, F, state, dt):
+        # the CUDA kernels repeat these operations in this order
+        return soa.matmul(F, self._second_pk(F))
+
+    def tangent_soa(self, F):
+        """Closed-form dP/dF as C[c, d, g, f] = dP_cd / dF_gf over the
+        batch of F: with dS = lambda tr(F^T dF) I + mu (dF^T F + F^T dF),
+          dP = dF S + F dS,
+        so C_cdgf = d_cg S_fd + lambda F_cd F_gf
+                    + mu (F_cf F_gd + B_cg d_df), B = F F^T."""
+        S = self._second_pk(F)
+        B = soa.matmul_nt(F, F)
+        rows = []
+        for c in range(3):
+            for d in range(3):
+                for g in range(3):
+                    for f in range(3):
+                        x = self.lambda_ * F[c, d] * F[g, f] + self.mu * F[c, f] * F[g, d]
+                        if c == g:
+                            x = x + S[f, d]
+                        if d == f:
+                            x = x + self.mu * B[c, g]
+                        rows.append(x)
+        return torch.stack(rows, 0).reshape(3, 3, 3, 3, *F.shape[2:])
+
+
+def neohookean_pk1_soa(F, lam, mu):
+    """P = J sigma F^-T with sigma = mu/J (B - I) + lambda (J - 1) I: sigma
+    first, then J sigma F^-T, as the reference package writes it (the CUDA
+    kernels repeat these operations in this order)."""
+    J = soa.det(F)
+    B = soa.matmul_nt(F, F)
+    mu_over_J = mu / J
+    sigma = soa.add_diag(mu_over_J * B, -mu_over_J + lam * (J - 1.0))
+    return _pk1_from_cauchy_soa(sigma, F)
+
+
 class CompressibleOgdenNeoHookean(Material):
     """sigma = mu/J (B - I) + lambda (J - 1) I (the reference's
     materials.hpp), P = J sigma F^{-T}."""
@@ -98,13 +145,7 @@ class CompressibleOgdenNeoHookean(Material):
     tangent_major_symmetric = True  # hyperelastic energy Hessian
 
     def pk1_soa(self, F, state, dt):
-        # sigma first, then J sigma F^-T, as the reference package writes
-        # it (the CUDA kernels repeat these operations in this order)
-        J = soa.det(F)
-        B = soa.matmul_nt(F, F)
-        mu_over_J = self.mu / J
-        sigma = soa.add_diag(mu_over_J * B, -mu_over_J + self.lambda_ * (J - 1.0))
-        return _pk1_from_cauchy_soa(sigma, F)
+        return neohookean_pk1_soa(F, self.lambda_, self.mu)
 
     def tangent_soa(self, F):
         """Closed-form dP/dF as C[c, d, g, f] = dP_cd / dF_gf over the

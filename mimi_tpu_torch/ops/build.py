@@ -1,4 +1,5 @@
-"""Build and load the CUDA sweep kernels (ops/csrc/*.cu).
+"""Build and load the CUDA kernels (ops/csrc/*.cu, with the headers
+ops/csrc/*.cuh they share).
 
 nvcc compiles the sources into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), keyed by a hash
@@ -21,6 +22,11 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [
     os.path.join(_HERE, "csrc", "sweeps_sf.cu"),
     os.path.join(_HERE, "csrc", "sweeps_dense.cu"),
+    os.path.join(_HERE, "csrc", "fused_neohookean.cu"),
+]
+HEADERS = [
+    os.path.join(_HERE, "csrc", "materials.cuh"),
+    os.path.join(_HERE, "csrc", "dense_common.cuh"),
 ]
 FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -48,7 +54,7 @@ def nvcc():
 
 def _tag():
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         with open(src, "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:16]
@@ -96,18 +102,26 @@ def load():
     global _LIB
     if _LIB is not None:
         return _LIB
-    from .sweeps import _J2Params, _NHParams
+    from .sweeps import _HyperParams, _J2Params
 
     lib = ctypes.CDLL(build())
     vp, ll, ci, cf = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     lib.mimi_residual_sf.argtypes = [vp] * 15 + [_J2Params, cf, ll, vp]
     lib.mimi_assemble_sf.argtypes = [vp] * 16 + [ci, _J2Params, cf, ll, vp]
     lib.mimi_matvec_sf.argtypes = [vp] * 10 + [ci, vp, cf, cf, ci, cf, ll, vp]
-    lib.mimi_residual_dense.argtypes = [vp] * 6 + [_NHParams, ll, vp]
-    lib.mimi_assemble_dense.argtypes = [vp] * 7 + [_NHParams, ll, vp]
+    lib.mimi_residual_sf_hyper.argtypes = [vp] * 11 + [_HyperParams, ci, ll, vp]
+    lib.mimi_assemble_sf_hyper.argtypes = [vp] * 12 + [_HyperParams, ci, ll, vp]
+    lib.mimi_matvec_sf_sym.argtypes = [vp] * 11 + [cf, cf, ll, vp]
+    lib.mimi_residual_dense.argtypes = [vp] * 6 + [_HyperParams, ci, ll, vp]
+    lib.mimi_assemble_dense.argtypes = [vp] * 7 + [_HyperParams, ci, ll, vp]
     lib.mimi_matvec_dense.argtypes = [vp] * 6 + [cf, cf, ll, vp]
-    for kind in ("sf", "dense"):
-        for fn in ("residual", "assemble", "matvec"):
-            getattr(lib, f"mimi_{fn}_{kind}").restype = ctypes.c_int
+    lib.mimi_neohookean_residual.argtypes = [vp] * 4 + [cf, cf, ll, vp]
+    lib.mimi_neohookean_tangent_apply.argtypes = [vp] * 5 + [cf, cf, ll, vp]
+    for name in (
+        "residual_sf", "assemble_sf", "matvec_sf", "residual_sf_hyper",
+        "assemble_sf_hyper", "matvec_sf_sym", "residual_dense", "assemble_dense",
+        "matvec_dense", "neohookean_residual", "neohookean_tangent_apply",
+    ):
+        getattr(lib, f"mimi_{name}").restype = ctypes.c_int
     _LIB = lib
     return lib

@@ -1,0 +1,261 @@
+// Hyperelastic materials and tangent storages shared by the CUDA sweeps
+// (sweeps_sf.cu, sweeps_dense.cu, fused_neohookean.cu), for sm_90a.
+//
+// A material is a struct with its first Piola stress `pk1(F, P)` and its
+// closed-form dP/dF as `tangent(F)`, an object whose operator()(a, b)
+// returns C_ab = dP_a / dF_b with a = 3 c + d (no automatic
+// differentiation on the device).  A storage names the planes of the
+// per-point tangent block, writes them (`store`) and applies them to a
+// displacement gradient (`apply`).  The kernels take both as template
+// parameters.
+//
+// Rounding: the stresses are formed with single-rounding intrinsics (no
+// fused multiply-add), in the order of the plain torch versions' separate
+// operations (materials/__init__.py pk1_soa), so that P agrees with them to
+// the bit given the same F.  mu (F - F^-T) and mu/J (B - I) cancel near
+// F = I; an FMA there would differ from the plain version by an ulp of mu,
+// a relative 1e-4 of P at strains of 1e-3.  No --use_fast_math: divisions
+// and reciprocals are IEEE.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+// Lame constants and density of a hyperelastic material (the C entry
+// points' parameter block; mirrored by ops/sweeps.py _HyperParams)
+struct HyperelasticParams {
+  float mu, lam, rho;
+};
+
+namespace {
+
+// single-rounding IEEE operations the compiler may not contract, and the
+// 3 x 3 algebra of fem/soa.py in its operation order
+namespace rn {
+
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float rcp(float a) { return __frcp_rn(a); }
+
+__device__ __forceinline__ float det3(const float A[3][3]) {
+  const float m1 = mul(A[0][0], sub(mul(A[1][1], A[2][2]), mul(A[1][2], A[2][1])));
+  const float m2 = mul(A[0][1], sub(mul(A[1][0], A[2][2]), mul(A[1][2], A[2][0])));
+  const float m3 = mul(A[0][2], sub(mul(A[1][0], A[2][1]), mul(A[1][1], A[2][0])));
+  return add(sub(m1, m2), m3);
+}
+
+// adjugate inverse, the cofactor formulas of fem/soa.py inv
+__device__ __forceinline__ void inv3(const float A[3][3], float R[3][3]) {
+  const float id = rcp(det3(A));  // 1.0 / det: torch takes the reciprocal
+#define MIMI_COF(i1, j1, i2, j2) \
+  mul(sub(mul(A[i1][j1], A[i2][j2]), mul(A[i1][j2], A[i2][j1])), id)
+  R[0][0] = MIMI_COF(1, 1, 2, 2);
+  R[0][1] = MIMI_COF(0, 2, 2, 1);
+  R[0][2] = MIMI_COF(0, 1, 1, 2);
+  R[1][0] = MIMI_COF(1, 2, 2, 0);
+  R[1][1] = MIMI_COF(0, 0, 2, 2);
+  R[1][2] = MIMI_COF(0, 2, 1, 0);
+  R[2][0] = MIMI_COF(1, 0, 2, 1);
+  R[2][1] = MIMI_COF(0, 1, 2, 0);
+  R[2][2] = MIMI_COF(0, 0, 1, 1);
+#undef MIMI_COF
+}
+
+// (A B^T)_ij = (A_i0 B_j0 + A_i1 B_j1) + A_i2 B_j2
+__device__ __forceinline__ float dot_nt(const float A[3][3], const float B[3][3], int i,
+                                        int j) {
+  return add(add(mul(A[i][0], B[j][0]), mul(A[i][1], B[j][1])), mul(A[i][2], B[j][2]));
+}
+
+// (A^T B)_ij = (A_0i B_0j + A_1i B_1j) + A_2i B_2j
+__device__ __forceinline__ float dot_tn(const float A[3][3], const float B[3][3], int i,
+                                        int j) {
+  return add(add(mul(A[0][i], B[0][j]), mul(A[1][i], B[1][j])), mul(A[2][i], B[2][j]));
+}
+
+// (A B)_ij = (A_i0 B_0j + A_i1 B_1j) + A_i2 B_2j
+__device__ __forceinline__ float dot_nn(const float A[3][3], const float B[3][3], int i,
+                                        int j) {
+  return add(add(mul(A[i][0], B[0][j]), mul(A[i][1], B[1][j])), mul(A[i][2], B[2][j]));
+}
+
+}  // namespace rn
+
+// ---- materials -------------------------------------------------------------
+
+// Compressible Ogden neo-Hookean (materials/__init__.py
+// CompressibleOgdenNeoHookean): sigma = mu/J (B - I) + lambda (J - 1) I,
+// P = J sigma F^-T; dP/dF in closed form,
+//   C_cdgf = mu d_cg d_df + k1 G_cd G_gf - k2 G_cf G_gd,
+//   G = F^-T, k1 = lambda (2J - 1) J, k2 = lambda J (J - 1) - mu.
+struct NeoHookean {
+  float mu, lam;
+
+  struct Tangent {
+    float G[3][3], k1, k2, mu;
+    __device__ __forceinline__ float operator()(int a, int b) const {
+      const int c = a / 3, d = a % 3, g = b / 3, f = b % 3;
+      return (c == g && d == f ? mu : 0.f) + k1 * G[c][d] * G[g][f] - k2 * G[c][f] * G[g][d];
+    }
+  };
+
+  // P with the operation order of pk1_soa (sigma first, then J sigma F^-T)
+  __device__ __forceinline__ void pk1(const float F[3][3], float P[3][3]) const {
+    using namespace rn;
+    const float J = det3(F);
+    const float muJ = mul(rcp(J), mu);  // mu / J: torch multiplies by 1 / J
+    const float diag = add(-muJ, mul(lam, sub(J, 1.f)));
+    float sig[3][3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const float x = mul(muJ, dot_nt(F, F, i, j));
+        sig[i][j] = i == j ? add(x, diag) : x;
+      }
+    float fi[3][3];
+    inv3(F, fi);
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) P[i][j] = mul(J, dot_nt(sig, fi, i, j));
+  }
+
+  __device__ __forceinline__ Tangent tangent(const float F[3][3]) const {
+    Tangent t;
+    const float J = rn::det3(F);
+    float fi[3][3];
+    rn::inv3(F, fi);
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+      for (int d = 0; d < 3; ++d) t.G[c][d] = fi[d][c];
+    t.k1 = lam * (2.f * J - 1.f) * J;
+    t.k2 = lam * J * (J - 1.f) - mu;
+    t.mu = mu;
+    return t;
+  }
+};
+
+// St. Venant-Kirchhoff (materials/__init__.py StVenantKirchhoff):
+// E = (F^T F - I) / 2, S = lambda tr(E) I + 2 mu E, P = F S; dP/dF in
+// closed form,
+//   C_cdgf = d_cg S_fd + lambda F_cd F_gf + mu (F_cf F_gd + B_cg d_df),
+//   B = F F^T.
+struct StVK {
+  float mu, lam;
+
+  struct Tangent {
+    float F[3][3], S[3][3], B[3][3], mu, lam;
+    __device__ __forceinline__ float operator()(int a, int b) const {
+      const int c = a / 3, d = a % 3, g = b / 3, f = b % 3;
+      return (c == g ? S[f][d] : 0.f) + lam * F[c][d] * F[g][f] +
+             mu * (F[c][f] * F[g][d] + (d == f ? B[c][g] : 0.f));
+    }
+  };
+
+  // S with the operation order of pk1_soa
+  __device__ __forceinline__ void second_pk(const float F[3][3], float S[3][3]) const {
+    using namespace rn;
+    float E[3][3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const float c = dot_tn(F, F, i, j);
+        E[i][j] = mul(0.5f, i == j ? add(c, -1.f) : c);
+      }
+    const float diag = mul(lam, add(add(E[0][0], E[1][1]), E[2][2]));
+    const float mu2 = 2.f * mu;  // exact
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const float x = mul(mu2, E[i][j]);
+        S[i][j] = i == j ? add(x, diag) : x;
+      }
+  }
+
+  __device__ __forceinline__ void pk1(const float F[3][3], float P[3][3]) const {
+    float S[3][3];
+    second_pk(F, S);
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) P[i][j] = rn::dot_nn(F, S, i, j);
+  }
+
+  __device__ __forceinline__ Tangent tangent(const float F[3][3]) const {
+    Tangent t;
+    second_pk(F, t.S);
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        t.F[i][j] = F[i][j];
+        t.B[i][j] = F[i][0] * F[j][0] + F[i][1] * F[j][1] + F[i][2] * F[j][2];
+      }
+    t.mu = mu;
+    t.lam = lam;
+    return t;
+  }
+};
+
+// ---- tangent-block element types -------------------------------------------
+
+// float, or bfloat16 rounded to nearest even
+__device__ __forceinline__ void store_c(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_c(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ float load_c(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_c(const __nv_bfloat16* p) {
+  // a bfloat16 is the upper half of a float: widening is exact
+  const unsigned short bits = __ldg(reinterpret_cast<const unsigned short*>(p));
+  return __uint_as_float(((unsigned)bits) << 16);
+}
+
+// ---- tangent storages ------------------------------------------------------
+
+// upper triangle of the 9 x 9 dP/dF, row-major (ops/sweeps.py tri_index_map)
+struct SymStorage {
+  static constexpr int kPlanes = 45;
+  __host__ __device__ static constexpr int plane(int a, int b) {
+    const int lo = a < b ? a : b, hi = a < b ? b : a;
+    return lo * 9 - lo * (lo - 1) / 2 + (hi - lo);
+  }
+  // the stored planes of a major-symmetric tangent: (C_ab + C_ba) / 2,
+  // halves in the order the reference adds them (the transposed entry
+  // first)
+  template <class T, typename CT>
+  __device__ __forceinline__ static void store(CT* __restrict__ cout, long long qe,
+                                               long long QE, const T& C) {
+    int k = 0;
+#pragma unroll
+    for (int a = 0; a < 9; ++a)
+#pragma unroll
+      for (int b = a; b < 9; ++b, ++k)
+        store_c(cout + k * QE + qe, a == b ? C(a, a) : 0.5f * C(b, a) + 0.5f * C(a, b));
+  }
+  // dP_a = fac0 sum_k C(a, k) dF_k, k in order (ops/sweeps.py
+  // tangent_apply_sym)
+  template <typename CT>
+  __device__ __forceinline__ static void apply(const CT* __restrict__ cs, long long qe,
+                                               long long QE, const float dF[3][3],
+                                               float fac0, float dP[3][3]) {
+    float C[kPlanes];
+#pragma unroll
+    for (int k = 0; k < kPlanes; ++k) C[k] = load_c(cs + k * QE + qe);
+#pragma unroll
+    for (int a = 0; a < 9; ++a) {
+      float s = C[plane(a, 0)] * dF[0][0];
+#pragma unroll
+      for (int k = 1; k < 9; ++k) s += C[plane(a, k)] * dF[k / 3][k % 3];
+      dP[a / 3][a % 3] = fac0 * s;
+    }
+  }
+};
+
+}  // namespace

@@ -11,11 +11,11 @@
 // (residual_dense_plain, assemble_dense_plain, matvec_dense_plain).
 //
 // The residual and the assemble are templated on the material (its first
-// Piola stress and closed-form dP/dF as device functions) and on the
-// tangent storage; the matvec on the storage.  Instantiated: the
-// compressible Ogden neo-Hookean material with the symmetric storage,
-// plane (a, b), a <= b, of tri_index_map(9) holding (C_ab + C_ba) / 2
-// with C_ab = dP_a / dF_b, a = 3 c + d.
+// Piola stress and closed-form dP/dF as device functions, materials.cuh)
+// and on the tangent storage; the matvec on the storage.  Instantiated:
+// the compressible Ogden neo-Hookean and the St. Venant-Kirchhoff material
+// with the symmetric storage, plane (a, b), a <= b, of tri_index_map(9)
+// holding (C_ab + C_ba) / 2 with C_ab = dP_a / dF_b, a = 3 c + d.
 //
 // Design: one thread per element, 64 elements per block, looping over the
 // element's 64 quadrature points.  The batch-last layout puts neighbouring
@@ -33,201 +33,17 @@
 // reads the planes instead (4.40 GB, ~1.31 ms).  Per point they do a few
 // hundred flops against ~450 bytes, under one flop per byte.
 //
-// Rounding: the deformation gradient and the neo-Hookean stress are
-// formed with single-rounding intrinsics (no fused multiply-add), in the
-// order of the plain torch version's separate operations, so F and P
-// agree with it to the bit; the stress mu / J (B - I) + lambda (J - 1) I
-// cancels near F = I, and an FMA there would differ from the plain
-// version by an ulp of mu, a relative 1e-4 of P at strains of 1e-3.
-// No --use_fast_math: divisions and reciprocals are IEEE.
+// Rounding: the deformation gradient and the stress are formed with
+// single-rounding intrinsics (no fused multiply-add), in the order of the
+// plain torch version's separate operations, so F and P agree with it to
+// the bit (materials.cuh says why that matters near F = I).
 
 #include <cuda_runtime.h>
 
-namespace {
-
-constexpr int ND = 27;  // dofs per element (p = 2)
-constexpr int NQ = 64;  // quadrature points per element
-constexpr int NW = 3 * ND;
-constexpr int BLOCK = 64;
-
-}  // namespace
-
-struct NeoHookeanParams {
-  float mu, lam, rho;
-};
+#include "dense_common.cuh"
+#include "materials.cuh"
 
 namespace {
-
-// single-rounding IEEE operations the compiler may not contract
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float rcp(float a) { return __frcp_rn(a); }
-
-// this thread's element dof values (3, ND, E) into its shared column
-__device__ __forceinline__ void stage(const float* __restrict__ g, float (*s)[BLOCK],
-                                      long long e, long long E) {
-#pragma unroll 9
-  for (int k = 0; k < NW; ++k) s[k][threadIdx.x] = __ldg(g + (long long)k * E + e);
-}
-
-// G[g][f] = sum_n dN[n][f](q) w[g][n], summed in n order without FMA
-__device__ __forceinline__ void grad_q(const float* __restrict__ dN, float (*w)[BLOCK],
-                                       long long qe, long long QE, float G[3][3]) {
-#pragma unroll
-  for (int g = 0; g < 3; ++g)
-#pragma unroll
-    for (int f = 0; f < 3; ++f) G[g][f] = 0.f;
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    float d[3];
-#pragma unroll
-    for (int f = 0; f < 3; ++f) d[f] = __ldg(dN + (long long)(n * 3 + f) * QE + qe);
-#pragma unroll
-    for (int g = 0; g < 3; ++g) {
-      const float wv = w[g * ND + n][threadIdx.x];
-#pragma unroll
-      for (int f = 0; f < 3; ++f) G[g][f] = add(G[g][f], mul(d[f], wv));
-    }
-  }
-}
-
-// v[c] = sum_n N[n](q) w[c][n]
-__device__ __forceinline__ void value_q(const float* __restrict__ N, float (*w)[BLOCK],
-                                        long long qe, long long QE, float v[3]) {
-  v[0] = v[1] = v[2] = 0.f;
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    const float Nn = __ldg(N + (long long)n * QE + qe);
-#pragma unroll
-    for (int c = 0; c < 3; ++c) v[c] += Nn * w[c * ND + n][threadIdx.x];
-  }
-}
-
-// acc[c][n] += wq (sum_d dN[n][d] X[c][d] + N[n] m[c])
-__device__ __forceinline__ void scatter_q(float (&acc)[3][ND], const float* __restrict__ dN,
-                                          const float* __restrict__ N, long long qe,
-                                          long long QE, float wq, const float X[3][3],
-                                          const float m[3]) {
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    const float d0 = __ldg(dN + (long long)(n * 3 + 0) * QE + qe);
-    const float d1 = __ldg(dN + (long long)(n * 3 + 1) * QE + qe);
-    const float d2 = __ldg(dN + (long long)(n * 3 + 2) * QE + qe);
-    const float Nn = __ldg(N + (long long)n * QE + qe);
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-      acc[c][n] += wq * (d0 * X[c][0] + d1 * X[c][1] + d2 * X[c][2] + Nn * m[c]);
-  }
-}
-
-// det and adjugate inverse with the operation order of fem/soa.py
-__device__ __forceinline__ float det3(const float A[3][3]) {
-  const float m1 = mul(A[0][0], sub(mul(A[1][1], A[2][2]), mul(A[1][2], A[2][1])));
-  const float m2 = mul(A[0][1], sub(mul(A[1][0], A[2][2]), mul(A[1][2], A[2][0])));
-  const float m3 = mul(A[0][2], sub(mul(A[1][0], A[2][1]), mul(A[1][1], A[2][0])));
-  return add(sub(m1, m2), m3);
-}
-
-__device__ __forceinline__ void inv3(const float A[3][3], float R[3][3]) {
-  const float id = rcp(det3(A));  // 1.0 / det: torch takes the reciprocal
-#define COF(i1, j1, i2, j2) mul(sub(mul(A[i1][j1], A[i2][j2]), mul(A[i1][j2], A[i2][j1])), id)
-  R[0][0] = COF(1, 1, 2, 2);
-  R[0][1] = COF(0, 2, 2, 1);
-  R[0][2] = COF(0, 1, 1, 2);
-  R[1][0] = COF(1, 2, 2, 0);
-  R[1][1] = COF(0, 0, 2, 2);
-  R[1][2] = COF(0, 2, 1, 0);
-  R[2][0] = COF(1, 0, 2, 1);
-  R[2][1] = COF(0, 1, 2, 0);
-  R[2][2] = COF(0, 0, 1, 1);
-#undef COF
-}
-
-// (A B^T)_ij = (A_i0 B_j0 + A_i1 B_j1) + A_i2 B_j2
-__device__ __forceinline__ float dot_nt(const float A[3][3], const float B[3][3], int i,
-                                        int j) {
-  return add(add(mul(A[i][0], B[j][0]), mul(A[i][1], B[j][1])), mul(A[i][2], B[j][2]));
-}
-
-// ---- materials -------------------------------------------------------------
-
-// Compressible Ogden neo-Hookean (materials/__init__.py
-// CompressibleOgdenNeoHookean): sigma = mu/J (B - I) + lambda (J - 1) I,
-// P = J sigma F^-T; dP/dF in closed form,
-//   C_cdgf = mu d_cg d_df + k1 G_cd G_gf - k2 G_cf G_gd,
-//   G = F^-T, k1 = lambda (2J - 1) J, k2 = lambda J (J - 1) - mu.
-struct NeoHookean {
-  float mu, lam;
-
-  struct Tangent {
-    float G[3][3], k1, k2, mu;
-    __device__ __forceinline__ float operator()(int a, int b) const {
-      const int c = a / 3, d = a % 3, g = b / 3, f = b % 3;
-      return (c == g && d == f ? mu : 0.f) + k1 * G[c][d] * G[g][f] - k2 * G[c][f] * G[g][d];
-    }
-  };
-
-  // P with the operation order of pk1_soa (sigma first, then J sigma F^-T)
-  __device__ __forceinline__ void pk1(const float F[3][3], float P[3][3]) const {
-    const float J = det3(F);
-    const float muJ = mul(rcp(J), mu);  // mu / J: torch multiplies by 1 / J
-    const float diag = add(-muJ, mul(lam, sub(J, 1.f)));
-    float sig[3][3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const float x = mul(muJ, dot_nt(F, F, i, j));
-        sig[i][j] = i == j ? add(x, diag) : x;
-      }
-    float fi[3][3];
-    inv3(F, fi);
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = 0; j < 3; ++j) P[i][j] = mul(J, dot_nt(sig, fi, i, j));
-  }
-
-  __device__ __forceinline__ Tangent tangent(const float F[3][3]) const {
-    Tangent t;
-    const float J = det3(F);
-    float fi[3][3];
-    inv3(F, fi);
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-#pragma unroll
-      for (int d = 0; d < 3; ++d) t.G[c][d] = fi[d][c];
-    t.k1 = lam * (2.f * J - 1.f) * J;
-    t.k2 = lam * J * (J - 1.f) - mu;
-    t.mu = mu;
-    return t;
-  }
-};
-
-// ---- tangent storages ------------------------------------------------------
-
-// upper triangle of the 9 x 9 dP/dF, row-major (ops/sweeps.py tri_index_map)
-struct SymStorage {
-  static constexpr int kPlanes = 45;
-  __host__ __device__ static constexpr int plane(int a, int b) {
-    const int lo = a < b ? a : b, hi = a < b ? b : a;
-    return lo * 9 - lo * (lo - 1) / 2 + (hi - lo);
-  }
-  // the stored planes of a major-symmetric tangent: (C_ab + C_ba) / 2,
-  // halves in the order the reference adds them (the transposed entry
-  // first)
-  template <class T>
-  __device__ __forceinline__ static void store(float* __restrict__ cout, long long qe,
-                                               long long QE, const T& C) {
-    int k = 0;
-#pragma unroll
-    for (int a = 0; a < 9; ++a)
-#pragma unroll
-      for (int b = a; b < 9; ++b, ++k)
-        cout[k * QE + qe] = a == b ? C(a, a) : 0.5f * C(b, a) + 0.5f * C(a, b);
-  }
-};
 
 // ---- kernels ---------------------------------------------------------------
 
@@ -293,18 +109,8 @@ __global__ void __launch_bounds__(BLOCK)
     float dF[3][3], v[3];
     grad_q(dN, sw, qe, QE, dF);
     value_q(N, sw, qe, QE, v);
-    float C[Store::kPlanes];
-#pragma unroll
-    for (int k = 0; k < Store::kPlanes; ++k) C[k] = __ldg(cs + k * QE + qe);
-    // dP_a = fac0 sum_k C(a, k) dF_k, k in order (_tangent_apply)
     float dP[3][3];
-#pragma unroll
-    for (int a = 0; a < 9; ++a) {
-      float s = C[Store::plane(a, 0)] * dF[0][0];
-#pragma unroll
-      for (int k = 1; k < 9; ++k) s += C[Store::plane(a, k)] * dF[k / 3][k % 3];
-      dP[a / 3][a % 3] = fac0 * s;
-    }
+    Store::apply(cs, qe, QE, dF, fac0, dP);
     const float m[3] = {rho * v[0], rho * v[1], rho * v[2]};
     scatter_q(acc, dN, N, qe, QE, __ldg(wq + qe), dP, m);
   }
@@ -314,32 +120,42 @@ __global__ void __launch_bounds__(BLOCK)
     for (int n = 0; n < ND; ++n) out[(long long)(c * ND + n) * E + e] = acc[c][n];
 }
 
-inline unsigned grid_for(long long E) { return (unsigned)((E + BLOCK - 1) / BLOCK); }
+template <class Mat, bool TANGENT>
+int launch_residual(const float* u_el, const float* a_el, const float* dN, const float* N,
+                    const float* wq, float* out, float* cout, const HyperelasticParams& p,
+                    long long E, void* stream) {
+  residual_kernel<Mat, SymStorage, TANGENT><<<grid_for(E), BLOCK, 0, (cudaStream_t)stream>>>(
+      u_el, a_el, dN, N, wq, out, cout, Mat{p.mu, p.lam}, p.rho, E);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
-// C entry points: the neo-Hookean material with the symmetric storage.
-// Each returns the launch's cudaGetLastError().
+// C entry points, symmetric storage.  `material`: 0 the neo-Hookean, 1 the
+// St. Venant-Kirchhoff material.  Each returns the launch's
+// cudaGetLastError().
 extern "C" {
 
 int mimi_residual_dense(const float* u_el, const float* a_el, const float* dN,
-                        const float* N, const float* wq, float* out, NeoHookeanParams p,
-                        long long E, void* stream) {
+                        const float* N, const float* wq, float* out, HyperelasticParams p,
+                        int material, long long E, void* stream) {
   if (E <= 0) return 0;
-  residual_kernel<NeoHookean, SymStorage, false>
-      <<<grid_for(E), BLOCK, 0, (cudaStream_t)stream>>>(
-          u_el, a_el, dN, N, wq, out, nullptr, NeoHookean{p.mu, p.lam}, p.rho, E);
-  return (int)cudaGetLastError();
+  if (material == 0)
+    return launch_residual<NeoHookean, false>(u_el, a_el, dN, N, wq, out, nullptr, p, E, stream);
+  if (material == 1)
+    return launch_residual<StVK, false>(u_el, a_el, dN, N, wq, out, nullptr, p, E, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 int mimi_assemble_dense(const float* u_el, const float* a_el, const float* dN,
                         const float* N, const float* wq, float* out, float* cout,
-                        NeoHookeanParams p, long long E, void* stream) {
+                        HyperelasticParams p, int material, long long E, void* stream) {
   if (E <= 0) return 0;
-  residual_kernel<NeoHookean, SymStorage, true>
-      <<<grid_for(E), BLOCK, 0, (cudaStream_t)stream>>>(
-          u_el, a_el, dN, N, wq, out, cout, NeoHookean{p.mu, p.lam}, p.rho, E);
-  return (int)cudaGetLastError();
+  if (material == 0)
+    return launch_residual<NeoHookean, true>(u_el, a_el, dN, N, wq, out, cout, p, E, stream);
+  if (material == 1)
+    return launch_residual<StVK, true>(u_el, a_el, dN, N, wq, out, cout, p, E, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 int mimi_matvec_dense(const float* w_el, const float* dN, const float* N, const float* wq,

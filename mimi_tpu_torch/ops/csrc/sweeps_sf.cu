@@ -1,15 +1,29 @@
-// Sum-factorized quadrature sweeps of the implicit J2 step, for sm_90a.
+// Sum-factorized quadrature sweeps of the implicit step, for sm_90a.
 //
 // Three kernels, each replacing one Pallas TPU kernel of
-// mimi_tpu/ops/sweeps.py in its sum-factorized, c_storage="cauchy" branch:
-//   mimi_residual_sf  <- make_residual_sweep (sf_mode)        residual only
-//   mimi_assemble_sf  <- make_assemble_sweep (sf, "cauchy")   residual + 37 tangent planes
-//   mimi_matvec_sf    <- make_matvec_sweep_sf ("cauchy")      y = J w
+// mimi_tpu/ops/sweeps.py in its sum-factorized branch:
+//   residual_kernel<.., false, ..>  <- make_residual_sweep (sf_mode)   residual only
+//   residual_kernel<.., true, ..>   <- make_assemble_sweep (sf)        residual + tangent planes
+//   matvec_kernel                   <- make_matvec_sweep_sf            y = J w
+// for J2 with the 37-plane Cauchy-decomposition tangent
+// (c_storage="cauchy": mimi_residual_sf, mimi_assemble_sf, mimi_matvec_sf)
+// and for the hyperelastic materials of materials.cuh (neo-Hookean,
+// St. Venant-Kirchhoff) with the 45-plane symmetric tangent
+// (c_storage="sym": mimi_residual_sf_hyper, mimi_assemble_sf_hyper,
+// mimi_matvec_sf_sym).
 // The plain torch versions of the same functions are in ops/sweeps.py.
 //
 // Variants (compile-time template parameters, one instantiation each,
 // chosen on the host by the C entry points; no run-time branch in the hot
 // loop):
+//   Mat   the material: its state, its first Piola stress at a point and
+//         what its tangent storage needs of that point (`eval`).  J2Mat
+//         runs the radial return on the point's state; Hyper<NeoHookean>
+//         and Hyper<StVK> are stateless and form P without fused
+//         multiply-add, as the dense kernels do.
+//   Store the tangent block: CauchyStorage (37 planes: D-hat, sigma, F^-1,
+//         J; the matvec rebuilds P and applies the geometric terms) or
+//         SymStorage (45 upper-triangle planes of a major-symmetric dP/dF).
 //   VISC  the viscous flux of has_visc: residual and assemble add mu_v dV
 //         (dV = grad v at the point, from v_el as dF is formed from u_el;
 //         sweeps.py:404-406, :651-653); the matvec adds fac1 mu_v dF
@@ -38,7 +52,16 @@
 // plastic-heavy calls can turn compute bound.  Register
 // pressure (81 element values + 81 accumulators per thread) spills to
 // local memory, which stays in L1; a thread-per-point layout with shared
-// memory staging is the known next step and not done here.
+// memory staging is the known next step and not done here.  The symmetric
+// matvec streams 45 planes (1.27 GB at 48^3, ~0.50 ms at 3.35 TB/s).
+//
+// Rounding of the hyperelastic variants: F comes out of the per-point
+// basis products below with fused multiply-add, so it agrees with the
+// plain version's staged einsums to float32 rounding of grad u (not to the
+// bit, as on the dense tables); P is then formed from that F without FMA
+// in the plain version's operation order.  Near F = I the stress cancels,
+// so a rounding difference of F of one ulp of 1 (1.2e-7) is one of
+// (lambda + 2 mu) 1.2e-7 in P whatever the strain.
 //
 // The tangent has no automatic differentiation: the closed-form algorithmic
 // tangent of the radial return,
@@ -52,6 +75,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "materials.cuh"
 
 namespace {
 
@@ -188,18 +213,6 @@ __device__ __forceinline__ void scatter(float (&acc)[3][ND], const Basis& s,
         for (int c = 0; c < 3; ++c)
           acc[c][n] += g0 * Z[c][0] + g1 * Z[c][1] + g2 * Z[c][2] + N * mm[c];
       }
-}
-
-// tangent-block storage: float, or bfloat16 rounded to nearest even
-__device__ __forceinline__ void store_c(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_c(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-__device__ __forceinline__ float load_c(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_c(const __nv_bfloat16* p) {
-  // a bfloat16 is the upper half of a float: widening is exact
-  const unsigned short bits = __ldg(reinterpret_cast<const unsigned short*>(p));
-  return __uint_as_float(((unsigned)bits) << 16);
 }
 
 __device__ __forceinline__ float det3(const float A[3][3]) {
@@ -388,116 +401,75 @@ __device__ __forceinline__ void j2_cauchy(const J2Params& p, const float F[3][3]
   }
 }
 
-template <bool TANGENT, bool VISC, typename CT>
-__global__ void __launch_bounds__(BLOCK)
-    residual_kernel(const float* __restrict__ u_el, const float* __restrict__ a_el,
-                    const float* __restrict__ v_el, Tables tb,
-                    const float* __restrict__ jinv, const float* __restrict__ wq,
-                    const float* __restrict__ ps, const float* __restrict__ eqps,
-                    const float* __restrict__ temp, float* __restrict__ out,
-                    CT* __restrict__ cout, J2Params p, float mu_v, long long E) {
-  const long long e = (long long)blockIdx.x * BLOCK + threadIdx.x;
-  if (e >= E) return;
-  float uw[3][ND], aw[3][ND], vw[3][ND], acc[3][ND];
-#pragma unroll
-  for (int c = 0; c < 3; ++c)
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      uw[c][n] = __ldg(u_el + (long long)(c * ND + n) * E + e);
-      aw[c][n] = __ldg(a_el + (long long)(c * ND + n) * E + e);
-      if (VISC) vw[c][n] = __ldg(v_el + (long long)(c * ND + n) * E + e);
-      acc[c][n] = 0.f;
-    }
-  const long long QE = (long long)NQ * E;
-#pragma unroll 1
-  for (int q = 0; q < NQ; ++q) {
-    Basis s;
-    load_basis(tb, q, e, E, s);
-    float ji[3][3];
-    load_jinv(jinv, q, e, E, ji);
-    float F[3][3], vdum[3];
-    interp_grad<false>(uw, s, ji, F, vdum);
-    F[0][0] += 1.f;
-    F[1][1] += 1.f;
-    F[2][2] += 1.f;
-    const long long qe = (long long)q * E + e;
+// ---- materials on the sf kernels --------------------------------------------
+
+// J2 with its per-point state (plastic strain, eqps, temperature)
+struct J2Mat {
+  J2Params p;
+  const float* ps;
+  const float* eqps;
+  const float* temp;
+  struct Point {
+    float Mt[21], sig[3][3], fi[3][3], J;
+  };
+  template <bool TANGENT>
+  __device__ __forceinline__ void eval(const float F[3][3], long long qe, long long QE,
+                                       float P[3][3], Point& pt) const {
     float pst[3][3];
 #pragma unroll
     for (int i = 0; i < 3; ++i)
 #pragma unroll
       for (int j = 0; j < 3; ++j) pst[i][j] = __ldg(ps + (i * 3 + j) * QE + qe);
-    float sig[3][3], Mt[21];
-    j2_cauchy<TANGENT>(p, F, pst, __ldg(eqps + qe), __ldg(temp + qe), sig, Mt);
-    const float J = det3(F);
-    float fi[3][3];
-    inv3(F, J, fi);
-    float P[3][3];
+    j2_cauchy<TANGENT>(p, F, pst, __ldg(eqps + qe), __ldg(temp + qe), pt.sig, pt.Mt);
+    pt.J = det3(F);
+    inv3(F, pt.J, pt.fi);
 #pragma unroll
     for (int c = 0; c < 3; ++c)
 #pragma unroll
       for (int d = 0; d < 3; ++d)
-        P[c][d] = J * (sig[c][0] * fi[d][0] + sig[c][1] * fi[d][1] +
-                       sig[c][2] * fi[d][2]);
-    if (VISC) {
-      float dV[3][3], vdum2[3];
-      interp_grad<false>(vw, s, ji, dV, vdum2);
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-#pragma unroll
-        for (int d = 0; d < 3; ++d) P[c][d] += mu_v * dV[c][d];
-    }
-    float av[3];
-    interp_value(aw, s, av);
-    const float m[3] = {p.rho * av[0], p.rho * av[1], p.rho * av[2]};
-    scatter(acc, s, ji, __ldg(wq + qe), P, m);
-    if (TANGENT) {
-#pragma unroll
-      for (int k = 0; k < 21; ++k) store_c(cout + k * QE + qe, Mt[k]);
-      const int SI[6] = {0, 0, 0, 1, 1, 2};
-      const int SJ[6] = {0, 1, 2, 1, 2, 2};
-#pragma unroll
-      for (int a = 0; a < 6; ++a) store_c(cout + (21 + a) * QE + qe, sig[SI[a]][SJ[a]]);
-#pragma unroll
-      for (int r = 0; r < 3; ++r)
-#pragma unroll
-        for (int c = 0; c < 3; ++c) store_c(cout + (27 + r * 3 + c) * QE + qe, fi[r][c]);
-      store_c(cout + 36 * QE + qe, J);
-    }
+        P[c][d] = pt.J * (pt.sig[c][0] * pt.fi[d][0] + pt.sig[c][1] * pt.fi[d][1] +
+                          pt.sig[c][2] * pt.fi[d][2]);
   }
-#pragma unroll
-  for (int c = 0; c < 3; ++c)
-#pragma unroll
-    for (int n = 0; n < ND; ++n) out[(long long)(c * ND + n) * E + e] = acc[c][n];
-}
+};
 
-template <bool VISC, typename CT>
-__global__ void __launch_bounds__(BLOCK)
-    matvec_kernel(const float* __restrict__ w_el, Tables tb,
-                  const float* __restrict__ jinv, const float* __restrict__ wq,
-                  const CT* __restrict__ cb, float* __restrict__ out, float rho,
-                  float fac0, float fac1_mu_v, long long E) {
-  const long long e = (long long)blockIdx.x * BLOCK + threadIdx.x;
-  if (e >= E) return;
-  float ww[3][ND], acc[3][ND];
+// a stateless hyperelastic material of materials.cuh
+template <class H>
+struct Hyper {
+  H h;
+  using Point = typename H::Tangent;
+  template <bool TANGENT>
+  __device__ __forceinline__ void eval(const float F[3][3], long long, long long,
+                                       float P[3][3], Point& pt) const {
+    h.pk1(F, P);
+    if (TANGENT) pt = h.tangent(F);
+  }
+};
+
+// the 37-plane Cauchy-decomposition block (ops/sweeps.py
+// cauchy_plane_layout): D-hat 21, sigma 6, F^-1 9, J
+struct CauchyStorage {
+  template <typename CT>
+  __device__ __forceinline__ static void store(CT* __restrict__ cout, long long qe,
+                                               long long QE, const J2Mat::Point& pt) {
 #pragma unroll
-  for (int c = 0; c < 3; ++c)
+    for (int k = 0; k < 21; ++k) store_c(cout + k * QE + qe, pt.Mt[k]);
+    const int SI[6] = {0, 0, 0, 1, 1, 2};
+    const int SJ[6] = {0, 1, 2, 1, 2, 2};
 #pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      ww[c][n] = __ldg(w_el + (long long)(c * ND + n) * E + e);
-      acc[c][n] = 0.f;
-    }
-  const long long QE = (long long)NQ * E;
-  const int SI[6] = {0, 0, 0, 1, 1, 2};
-  const int SJ[6] = {0, 1, 2, 1, 2, 2};
-#pragma unroll 1
-  for (int q = 0; q < NQ; ++q) {
-    Basis s;
-    load_basis(tb, q, e, E, s);
-    float ji[3][3];
-    load_jinv(jinv, q, e, E, ji);
-    float dF[3][3], v[3];
-    interp_grad<true>(ww, s, ji, dF, v);
-    const long long qe = (long long)q * E + e;
+    for (int a = 0; a < 6; ++a) store_c(cout + (21 + a) * QE + qe, pt.sig[SI[a]][SJ[a]]);
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) store_c(cout + (27 + r * 3 + c) * QE + qe, pt.fi[r][c]);
+    store_c(cout + 36 * QE + qe, pt.J);
+  }
+  // dP = fac0 (tr(F^-1 dF) P + J (D-hat : sym dF) F^-T - P dF^T F^-T)
+  template <typename CT>
+  __device__ __forceinline__ static void apply(const CT* __restrict__ cb, long long qe,
+                                               long long QE, const float dF[3][3],
+                                               float fac0, float dP[3][3]) {
+    const int SI[6] = {0, 0, 0, 1, 1, 2};
+    const int SJ[6] = {0, 1, 2, 1, 2, 2};
     float M[21];
 #pragma unroll
     for (int k = 0; k < 21; ++k) M[k] = load_c(cb + k * QE + qe);
@@ -554,7 +526,6 @@ __global__ void __launch_bounds__(BLOCK)
 #pragma unroll
       for (int b = 0; b < 3; ++b)
         A[a][b] = dF[0][a] * fi[b][0] + dF[1][a] * fi[b][1] + dF[2][a] * fi[b][2];
-    float dP[3][3];
 #pragma unroll
     for (int c = 0; c < 3; ++c)
 #pragma unroll
@@ -564,6 +535,94 @@ __global__ void __launch_bounds__(BLOCK)
                                 dsig[c][2] * fi[d][2]) -
                            (P[c][0] * A[0][d] + P[c][1] * A[1][d] +
                             P[c][2] * A[2][d]));
+  }
+};
+
+// ---- kernels ---------------------------------------------------------------
+
+template <class Mat, class Store, bool TANGENT, bool VISC, typename CT>
+__global__ void __launch_bounds__(BLOCK)
+    residual_kernel(const float* __restrict__ u_el, const float* __restrict__ a_el,
+                    const float* __restrict__ v_el, Tables tb,
+                    const float* __restrict__ jinv, const float* __restrict__ wq,
+                    float* __restrict__ out, CT* __restrict__ cout, Mat mat, float rho,
+                    float mu_v, long long E) {
+  const long long e = (long long)blockIdx.x * BLOCK + threadIdx.x;
+  if (e >= E) return;
+  float uw[3][ND], aw[3][ND], vw[3][ND], acc[3][ND];
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      uw[c][n] = __ldg(u_el + (long long)(c * ND + n) * E + e);
+      aw[c][n] = __ldg(a_el + (long long)(c * ND + n) * E + e);
+      if (VISC) vw[c][n] = __ldg(v_el + (long long)(c * ND + n) * E + e);
+      acc[c][n] = 0.f;
+    }
+  const long long QE = (long long)NQ * E;
+#pragma unroll 1
+  for (int q = 0; q < NQ; ++q) {
+    Basis s;
+    load_basis(tb, q, e, E, s);
+    float ji[3][3];
+    load_jinv(jinv, q, e, E, ji);
+    float F[3][3], vdum[3];
+    interp_grad<false>(uw, s, ji, F, vdum);
+    F[0][0] += 1.f;
+    F[1][1] += 1.f;
+    F[2][2] += 1.f;
+    const long long qe = (long long)q * E + e;
+    float P[3][3];
+    typename Mat::Point pt;
+    mat.template eval<TANGENT>(F, qe, QE, P, pt);
+    if (VISC) {
+      float dV[3][3], vdum2[3];
+      interp_grad<false>(vw, s, ji, dV, vdum2);
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+#pragma unroll
+        for (int d = 0; d < 3; ++d) P[c][d] += mu_v * dV[c][d];
+    }
+    float av[3];
+    interp_value(aw, s, av);
+    const float m[3] = {rho * av[0], rho * av[1], rho * av[2]};
+    scatter(acc, s, ji, __ldg(wq + qe), P, m);
+    if (TANGENT) Store::store(cout, qe, QE, pt);
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+#pragma unroll
+    for (int n = 0; n < ND; ++n) out[(long long)(c * ND + n) * E + e] = acc[c][n];
+}
+
+template <class Store, bool VISC, typename CT>
+__global__ void __launch_bounds__(BLOCK)
+    matvec_kernel(const float* __restrict__ w_el, Tables tb,
+                  const float* __restrict__ jinv, const float* __restrict__ wq,
+                  const CT* __restrict__ cb, float* __restrict__ out, float rho,
+                  float fac0, float fac1_mu_v, long long E) {
+  const long long e = (long long)blockIdx.x * BLOCK + threadIdx.x;
+  if (e >= E) return;
+  float ww[3][ND], acc[3][ND];
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      ww[c][n] = __ldg(w_el + (long long)(c * ND + n) * E + e);
+      acc[c][n] = 0.f;
+    }
+  const long long QE = (long long)NQ * E;
+#pragma unroll 1
+  for (int q = 0; q < NQ; ++q) {
+    Basis s;
+    load_basis(tb, q, e, E, s);
+    float ji[3][3];
+    load_jinv(jinv, q, e, E, ji);
+    float dF[3][3], v[3];
+    interp_grad<true>(ww, s, ji, dF, v);
+    const long long qe = (long long)q * E + e;
+    float dP[3][3];
+    Store::apply(cb, qe, QE, dF, fac0, dP);
     if (VISC) {
 #pragma unroll
       for (int c = 0; c < 3; ++c)
@@ -581,31 +640,41 @@ __global__ void __launch_bounds__(BLOCK)
 
 inline unsigned grid_for(long long E) { return (unsigned)((E + BLOCK - 1) / BLOCK); }
 
-template <bool TANGENT, bool VISC, typename CT>
+template <class Mat, class Store, bool TANGENT, bool VISC, typename CT>
 int launch_residual(const float* u_el, const float* a_el, const float* v_el,
-                    const Tables& tb, const float* jinv, const float* wq,
-                    const float* ps, const float* eqps, const float* temp,
-                    float* out, void* cout, const J2Params& p, float mu_v,
-                    long long E, void* stream) {
-  residual_kernel<TANGENT, VISC, CT><<<grid_for(E), BLOCK, 0, (cudaStream_t)stream>>>(
-      u_el, a_el, v_el, tb, jinv, wq, ps, eqps, temp, out,
-      static_cast<CT*>(cout), p, mu_v, E);
+                    const Tables& tb, const float* jinv, const float* wq, float* out,
+                    void* cout, const Mat& mat, float rho, float mu_v, long long E,
+                    void* stream) {
+  residual_kernel<Mat, Store, TANGENT, VISC, CT>
+      <<<grid_for(E), BLOCK, 0, (cudaStream_t)stream>>>(
+          u_el, a_el, v_el, tb, jinv, wq, out, static_cast<CT*>(cout), mat, rho, mu_v, E);
   return (int)cudaGetLastError();
 }
 
-template <bool VISC, typename CT>
+template <class Store, bool VISC, typename CT>
 int launch_matvec(const float* w_el, const Tables& tb, const float* jinv,
                   const float* wq, const void* cb, float* out, float rho,
                   float fac0, float fac1_mu_v, long long E, void* stream) {
-  matvec_kernel<VISC, CT><<<grid_for(E), BLOCK, 0, (cudaStream_t)stream>>>(
+  matvec_kernel<Store, VISC, CT><<<grid_for(E), BLOCK, 0, (cudaStream_t)stream>>>(
       w_el, tb, jinv, wq, static_cast<const CT*>(cb), out, rho, fac0, fac1_mu_v, E);
   return (int)cudaGetLastError();
 }
 
+template <class H, bool TANGENT>
+int launch_hyper(const float* u_el, const float* a_el, const Tables& tb, const float* jinv,
+                 const float* wq, float* out, void* cout, const HyperelasticParams& p,
+                 long long E, void* stream) {
+  return launch_residual<Hyper<H>, SymStorage, TANGENT, false, float>(
+      u_el, a_el, nullptr, tb, jinv, wq, out, cout, Hyper<H>{H{p.mu, p.lam}}, p.rho, 0.f, E,
+      stream);
+}
+
 }  // namespace
 
-// C entry points.  v_el == nullptr selects the inviscid variant; c_bf16
-// selects the bfloat16 tangent block.
+// C entry points; each returns the launch's cudaGetLastError().  For J2,
+// v_el == nullptr selects the inviscid variant and c_bf16 the bfloat16
+// tangent block.  The hyperelastic ones are inviscid with a float32 block;
+// `material`: 0 the neo-Hookean, 1 the St. Venant-Kirchhoff material.
 extern "C" {
 
 int mimi_residual_sf(const float* u_el, const float* a_el, const float* v_el,
@@ -616,13 +685,12 @@ int mimi_residual_sf(const float* u_el, const float* a_el, const float* v_el,
                      J2Params p, float mu_v, long long E, void* stream) {
   if (E <= 0) return 0;
   Tables tb{{b0, d0, b1, d1, b2, d2}};
+  const J2Mat mat{p, ps, eqps, temp};
   if (v_el)
-    return launch_residual<false, true, float>(u_el, a_el, v_el, tb, jinv, wq, ps,
-                                               eqps, temp, out, nullptr, p, mu_v,
-                                               E, stream);
-  return launch_residual<false, false, float>(u_el, a_el, v_el, tb, jinv, wq, ps,
-                                              eqps, temp, out, nullptr, p, mu_v, E,
-                                              stream);
+    return launch_residual<J2Mat, CauchyStorage, false, true, float>(
+        u_el, a_el, v_el, tb, jinv, wq, out, nullptr, mat, p.rho, mu_v, E, stream);
+  return launch_residual<J2Mat, CauchyStorage, false, false, float>(
+      u_el, a_el, v_el, tb, jinv, wq, out, nullptr, mat, p.rho, mu_v, E, stream);
 }
 
 int mimi_assemble_sf(const float* u_el, const float* a_el, const float* v_el,
@@ -634,10 +702,10 @@ int mimi_assemble_sf(const float* u_el, const float* a_el, const float* v_el,
                      void* stream) {
   if (E <= 0) return 0;
   Tables tb{{b0, d0, b1, d1, b2, d2}};
-#define MIMI_ASM(VISC, CT)                                                    \
-  return launch_residual<true, VISC, CT>(u_el, a_el, v_el, tb, jinv, wq, ps,  \
-                                         eqps, temp, out, cout, p, mu_v, E,   \
-                                         stream)
+  const J2Mat mat{p, ps, eqps, temp};
+#define MIMI_ASM(VISC, CT)                                               \
+  return launch_residual<J2Mat, CauchyStorage, true, VISC, CT>(          \
+      u_el, a_el, v_el, tb, jinv, wq, out, cout, mat, p.rho, mu_v, E, stream)
   if (v_el) {
     if (c_bf16) MIMI_ASM(true, __nv_bfloat16);
     MIMI_ASM(true, float);
@@ -654,9 +722,9 @@ int mimi_matvec_sf(const float* w_el, const float* b0, const float* d0,
                    int visc, float fac1_mu_v, long long E, void* stream) {
   if (E <= 0) return 0;
   Tables tb{{b0, d0, b1, d1, b2, d2}};
-#define MIMI_MV(VISC, CT)                                                 \
-  return launch_matvec<VISC, CT>(w_el, tb, jinv, wq, cb, out, rho, fac0, \
-                                 fac1_mu_v, E, stream)
+#define MIMI_MV(VISC, CT)                                                      \
+  return launch_matvec<CauchyStorage, VISC, CT>(w_el, tb, jinv, wq, cb, out, rho, \
+                                                fac0, fac1_mu_v, E, stream)
   if (visc) {
     if (c_bf16) MIMI_MV(true, __nv_bfloat16);
     MIMI_MV(true, float);
@@ -664,6 +732,45 @@ int mimi_matvec_sf(const float* w_el, const float* b0, const float* d0,
   if (c_bf16) MIMI_MV(false, __nv_bfloat16);
   MIMI_MV(false, float);
 #undef MIMI_MV
+}
+
+int mimi_residual_sf_hyper(const float* u_el, const float* a_el, const float* b0,
+                           const float* d0, const float* b1, const float* d1,
+                           const float* b2, const float* d2, const float* jinv,
+                           const float* wq, float* out, HyperelasticParams p, int material,
+                           long long E, void* stream) {
+  if (E <= 0) return 0;
+  Tables tb{{b0, d0, b1, d1, b2, d2}};
+  if (material == 0)
+    return launch_hyper<NeoHookean, false>(u_el, a_el, tb, jinv, wq, out, nullptr, p, E, stream);
+  if (material == 1)
+    return launch_hyper<StVK, false>(u_el, a_el, tb, jinv, wq, out, nullptr, p, E, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+int mimi_assemble_sf_hyper(const float* u_el, const float* a_el, const float* b0,
+                           const float* d0, const float* b1, const float* d1,
+                           const float* b2, const float* d2, const float* jinv,
+                           const float* wq, float* out, float* cout, HyperelasticParams p,
+                           int material, long long E, void* stream) {
+  if (E <= 0) return 0;
+  Tables tb{{b0, d0, b1, d1, b2, d2}};
+  if (material == 0)
+    return launch_hyper<NeoHookean, true>(u_el, a_el, tb, jinv, wq, out, cout, p, E, stream);
+  if (material == 1)
+    return launch_hyper<StVK, true>(u_el, a_el, tb, jinv, wq, out, cout, p, E, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+int mimi_matvec_sf_sym(const float* w_el, const float* b0, const float* d0,
+                       const float* b1, const float* d1, const float* b2,
+                       const float* d2, const float* jinv, const float* wq,
+                       const float* cs, float* out, float rho, float fac0, long long E,
+                       void* stream) {
+  if (E <= 0) return 0;
+  Tables tb{{b0, d0, b1, d1, b2, d2}};
+  return launch_matvec<SymStorage, false, float>(w_el, tb, jinv, wq, cs, out, rho, fac0, 0.f,
+                                                 E, stream);
 }
 
 }  // extern "C"

@@ -3,15 +3,17 @@ tangent (assemble), and the GMRES matvec, on two kinds of tables.
 
 Counterpart of mimi_tpu/ops/sweeps.py (`make_residual_sweep`,
 `make_assemble_sweep`, `make_matvec_sweep_sf` and `make_matvec_sweep`):
-  - sum-factorized tables, c_storage="cauchy" (the 37-plane
-    Cauchy-decomposition tangent of the J2 family), with and without the
-    viscous flux, the tangent block in float32 or bfloat16:
-    `residual_sf`, `assemble_sf`, `matvec_sf`, kernels in
-    ops/csrc/sweeps_sf.cu;
+  - sum-factorized tables (`residual_sf`, `assemble_sf`, `matvec_sf`,
+    kernels in ops/csrc/sweeps_sf.cu) with c_storage="cauchy" (the
+    37-plane Cauchy-decomposition tangent of J2), with and without the
+    viscous flux, the tangent block in float32 or bfloat16; or with
+    c_storage="sym" (45 upper-triangle planes of a major-symmetric dP/dF:
+    the hyperelastic materials), inviscid, float32;
   - dense tables dN (nd, dim, n_q, n_el) and N (nd, n_q, n_el),
-    c_storage="sym" (45 upper-triangle planes of a major-symmetric dP/dF,
-    the hyperelastic materials), inviscid, float32: `residual_dense`,
+    c_storage="sym", inviscid, float32: `residual_dense`,
     `assemble_dense`, `matvec_dense`, kernels in ops/csrc/sweeps_dense.cu.
+The material decides the storage (`tangent_storage`); the residual and the
+assemble read it off the material, the matvec is told it (`storage`).
 Each sweep has
   - a plain torch version (`*_plain`), dtype-generic, on whole
     (n_q, n_el) planes;
@@ -44,26 +46,63 @@ from ..fem import soa
 
 
 def variant(name, visc=False, bf16=False):
-    """Counter name of one kernel variant: "matvec_sf", "matvec_sf[visc]",
-    "matvec_sf[bf16]", "matvec_sf[visc,bf16]"."""
+    """Counter name of one J2 kernel variant: "matvec_sf",
+    "matvec_sf[visc]", "matvec_sf[bf16]", "matvec_sf[visc,bf16]"."""
     tags = [t for t, on in (("visc", visc), ("bf16", bf16)) if on]
     return f"{name}[{','.join(tags)}]" if tags else name
 
 
 # kernel launches since the last reset, per kernel variant (CUDA tensors
-# only)
+# only): the J2 variants; the hyperelastic sf variants by material tag
+# ("nh" the neo-Hookean, "stvk" the St. Venant-Kirchhoff material); the
+# dense ones, whose untagged names are the neo-Hookean instantiations
 LAUNCHES = {
     variant(name, visc, bf16): 0
     for name in ("matvec_sf", "assemble_sf", "residual_sf")
     for visc in (False, True)
     for bf16 in ((False,) if name == "residual_sf" else (False, True))
 }
-LAUNCHES.update({"residual_dense": 0, "assemble_dense[sym]": 0, "matvec_dense[sym]": 0})
+# The hyperelastic materials the CUDA kernels instantiate, by class name:
+# (material id of the C entry points, counter tag).  csrc/materials.cuh
+# holds each one's struct, the entry points switch on the id.
+HYPER_KERNELS = {"CompressibleOgdenNeoHookean": (0, "nh"), "StVenantKirchhoff": (1, "stvk")}
+# planes of a tangent block by storage
+PLANES = {"cauchy": 37, "sym": 45, "full": 81}
+
+
+def hyper_counters(kind, tag):
+    """(residual, assemble) counter names of a hyperelastic material's
+    instantiations on the "sf" or "dense" tables (the untagged dense
+    names are the neo-Hookean's)."""
+    if kind == "dense" and tag == "nh":
+        return "residual_dense", "assemble_dense[sym]"
+    return f"residual_{kind}[{tag}]", f"assemble_{kind}[{tag},sym]"
+
+
+LAUNCHES.update({
+    name: 0
+    for kind in ("sf", "dense")
+    for _, tag in HYPER_KERNELS.values()
+    for name in hyper_counters(kind, tag)
+})
+LAUNCHES.update({
+    "matvec_sf[sym]": 0, "matvec_dense[sym]": 0,
+    # ops/fused_neohookean.py
+    "neohookean_residual": 0, "neohookean_tangent_apply": 0,
+})
 
 
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def tangent_storage(mat):
+    """The strongest exact compression of the per-point tangent the
+    material declares: "cauchy" (37 planes), "sym" (45) or "full" (81)."""
+    if mat.tangent_cauchy_decomp:
+        return "cauchy"
+    return "sym" if mat.tangent_major_symmetric else "full"
 
 
 def tri_index_map(d2: int):
@@ -305,15 +344,27 @@ def residual_sf_plain(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho,
 def assemble_sf_plain(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho,
                       v_el=None, mu_v=0.0, c_dtype=None):
     """Residual (with the viscous flux as residual_sf_plain) plus the
-    37-plane Cauchy-decomposition tangent block, stored in `c_dtype`
-    (default: the fields' dtype; bfloat16 rounds the planes to nearest
-    even).  Viscosity enters the matvec, not the block.
+    tangent block in the material's storage (`tangent_storage`), stored in
+    `c_dtype` (default: the fields' dtype; bfloat16 rounds the planes to
+    nearest even).  Viscosity enters the matvec, not the block.
 
+    "sym": the 45 planes of `sym_tangent_planes`.  "cauchy": 37 planes;
     D-hat comes from forward-mode derivatives of `mat.cauchy_soa` along
     the 6 one-hot symmetric seeds S_m = e_ij + e_ji (e_ii on the
     diagonal), scaled by 1/2 on off-diagonal basis columns and stored
     symmetric (pairs accumulated half plus half)."""
     F = soa.add_diag(sf_grad(u_el, tabs, jinv), 1.0)
+    storage = tangent_storage(mat)
+    if storage == "sym":
+        P, Cb = sym_tangent_planes(mat, F, state, dt)
+        y = sf_scatter(
+            _visc_flux(P, v_el, mu_v, tabs, jinv), rho * sf_value(a_el, tabs), tabs, jinv, wq
+        )
+        return y, Cb if c_dtype is None else Cb.to(c_dtype)
+    if storage != "cauchy":
+        raise NotImplementedError(
+            f"tangent storage {storage!r} of {mat.name()} (ROADMAP Queue 2 item 4)"
+        )
     lay = cauchy_plane_layout(3)
     SYM, tri6 = lay["sym"], lay["tri"]
     planes = [None] * lay["n_plane"]
@@ -346,12 +397,27 @@ def assemble_sf_plain(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho,
     return y, Cb if c_dtype is None else Cb.to(c_dtype)
 
 
-def matvec_sf_plain(w_el, tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v=None):
+def _tangent_apply(storage, Cb):
+    """The plain apply of a tangent block held in `storage`."""
+    if storage not in PLANES:
+        raise ValueError(f"unknown tangent storage {storage!r}")
+    if storage == "full":
+        raise NotImplementedError("tangent storage 'full' (ROADMAP Queue 2 item 4)")
+    if Cb.shape[0] != PLANES[storage]:
+        raise ValueError(
+            f"C: {PLANES[storage]} planes required for storage {storage!r}, got {Cb.shape[0]}"
+        )
+    return tangent_apply_sym if storage == "sym" else tangent_apply_cauchy
+
+
+def matvec_sf_plain(w_el, tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v=None, storage="cauchy"):
     """y[c, n] = sum_q wq (dN[n, d] dP[c, d] + N[n] rho w_q[c]),
-    dP = fac0 (dP/dF : grad w) (+ fac1 mu_v grad w) from the
-    Cauchy-decomposition block, widened to the fields' dtype."""
+    dP = fac0 (dP/dF : grad w) (+ fac1 mu_v grad w) from the block of
+    `storage` (the 37-plane Cauchy decomposition or the 45 symmetric
+    planes), widened to the fields' dtype."""
     dW = sf_grad(w_el, tabs, jinv)
-    dP = tangent_apply_cauchy(Cb.to(w_el.dtype), dW, fac0)
+    apply = _tangent_apply(storage, Cb)
+    dP = apply(Cb.to(w_el.dtype), dW, fac0)
     if fac1_mu_v is not None:
         dP = dP + fac1_mu_v * dW
     return sf_scatter(dP, rho * sf_value(w_el, tabs), tabs, jinv, wq)
@@ -419,24 +485,11 @@ def tangent_apply_sym(Cs, dF, fac0):
     return soa.stack2(rows)
 
 
-def residual_dense_plain(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho,
-                         v_el=None, mu_v=0.0):
-    """y[c, n] = sum_q wq (dN[n, d] (P(F) + mu_v dV)[c, d] + N[n] rho
-    a_q[c]), F = I + grad u, dV = grad v (none when v_el is None)."""
-    P = mat.pk1_soa(soa.add_diag(dense_grad(u_el, dN_t), 1.0), state, dt)
-    if v_el is not None:
-        P = P + mu_v * dense_grad(v_el, dN_t)
-    return dense_scatter(P, rho * dense_value(a_el, N_t), dN_t, N_t, wq)
-
-
-def assemble_dense_plain(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho,
-                         v_el=None, mu_v=0.0, c_dtype=None):
-    """Residual (as residual_dense_plain) plus the 45-plane symmetric
-    tangent: the columns C[:, b] = dP/dF_b are forward-mode derivatives of
-    `mat.pk1_soa` along the 9 one-hot seeds, and plane (a, b), a < b,
-    stores 0.5 C_ba + 0.5 C_ab (the reference adds the transposed half
-    first).  Stored in `c_dtype` (default: the fields' dtype)."""
-    F = soa.add_diag(dense_grad(u_el, dN_t), 1.0)
+def sym_tangent_planes(mat, F, state, dt):
+    """(P, the 45 symmetric planes) at F: the columns C[:, b] = dP/dF_b
+    are forward-mode derivatives of `mat.pk1_soa` along the 9 one-hot
+    seeds, and plane (a, b), a < b, stores 0.5 C_ba + 0.5 C_ab (the
+    reference adds the transposed half first)."""
     cols = []
     for b in range(9):
         seed = torch.zeros_like(F)
@@ -452,17 +505,48 @@ def assemble_dense_plain(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho,
         for a in range(9)
         for b in range(a, 9)
     ]
+    return P, torch.stack(planes, 0)
+
+
+def residual_dense_plain(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho,
+                         v_el=None, mu_v=0.0):
+    """y[c, n] = sum_q wq (dN[n, d] (P(F) + mu_v dV)[c, d] + N[n] rho
+    a_q[c]), F = I + grad u, dV = grad v (none when v_el is None)."""
+    P = mat.pk1_soa(soa.add_diag(dense_grad(u_el, dN_t), 1.0), state, dt)
+    if v_el is not None:
+        P = P + mu_v * dense_grad(v_el, dN_t)
+    return dense_scatter(P, rho * dense_value(a_el, N_t), dN_t, N_t, wq)
+
+
+def assemble_dense_plain(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho,
+                         v_el=None, mu_v=0.0, c_dtype=None):
+    """Residual (as residual_dense_plain) plus the 45-plane symmetric
+    tangent (`sym_tangent_planes`), stored in `c_dtype` (default: the
+    fields' dtype)."""
+    F = soa.add_diag(dense_grad(u_el, dN_t), 1.0)
+    P, Cs = sym_tangent_planes(mat, F, state, dt)
     if v_el is not None:
         P = P + mu_v * dense_grad(v_el, dN_t)
     y = dense_scatter(P, rho * dense_value(a_el, N_t), dN_t, N_t, wq)
-    Cs = torch.stack(planes, 0)
     return y, Cs if c_dtype is None else Cs.to(c_dtype)
 
 
-def matvec_dense_plain(w_el, dN_t, N_t, wq, Cs, rho, fac0, fac1_mu_v=None):
+def _dense_storage(storage):
+    """The dense sweeps hold the symmetric storage only."""
+    if storage not in PLANES:
+        raise ValueError(f"unknown tangent storage {storage!r}")
+    if storage != "sym":
+        raise NotImplementedError(
+            f"tangent storage {storage!r} on the dense sweeps "
+            f"(ROADMAP Queue 2 item {4 if storage == 'full' else 1})"
+        )
+
+
+def matvec_dense_plain(w_el, dN_t, N_t, wq, Cs, rho, fac0, fac1_mu_v=None, storage="sym"):
     """y[c, n] = sum_q wq (dN[n, d] dP[c, d] + N[n] rho w_q[c]),
     dP = fac0 (dP/dF : grad w) (+ fac1 mu_v grad w) from the symmetric
     planes, widened to the fields' dtype."""
+    _dense_storage(storage)
     dW = dense_grad(w_el, dN_t)
     dP = tangent_apply_sym(Cs.to(w_el.dtype), dW, fac0)
     if fac1_mu_v is not None:
@@ -499,14 +583,14 @@ def _j2_params(mat, dt, rho):
 
     if type(mat) is not J2:
         raise NotImplementedError(
-            f"the CUDA sweeps implement J2 only, not {mat.name()} "
-            "(ROADMAP Queue 1 item 2)"
+            f"of the Cauchy-storage materials the CUDA sweeps implement J2 only, "
+            f"not {mat.name()} (ROADMAP Queue 2 item 3)"
         )
     h = mat.hardening
     if not isinstance(h, H.JohnsonCookHardening):
         raise NotImplementedError(
             f"the CUDA sweeps implement Johnson-Cook hardening only, not "
-            f"{h.name()} (ROADMAP Queue 1 item 2)"
+            f"{h.name()} (ROADMAP Queue 2 item 3)"
         )
     rate = isinstance(h, H.JohnsonCookRateDependentHardening)
     if isinstance(h, H.JohnsonCookViscoConstantTemperatureHardening):
@@ -578,11 +662,65 @@ def _launch(fn, name, *args):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
+class _HyperParams(ctypes.Structure):
+    """Mirror of struct HyperelasticParams in csrc/materials.cuh."""
+
+    _fields_ = [(name, ctypes.c_float) for name in ("mu", "lam", "rho")]
+
+
+def _hyper_params(mat, rho):
+    """(parameter block, material id, counter tag) of a hyperelastic
+    material the CUDA kernels instantiate."""
+    if type(mat).__name__ not in HYPER_KERNELS:
+        raise NotImplementedError(
+            f"of the hyperelastic materials the CUDA sweeps implement "
+            f"{' and '.join(HYPER_KERNELS)}, not {mat.name()} (ROADMAP Queue 1 item 2)"
+        )
+    return (_HyperParams(mu=mat.mu, lam=mat.lambda_, rho=rho), *HYPER_KERNELS[type(mat).__name__])
+
+
+def _sf_hyper(assemble, u_el, a_el, state, tabs, jinv, wq, mat, rho, v_el,
+              c_dtype=torch.float32):
+    """The hyperelastic residual (or, with `assemble`, residual and 45
+    symmetric planes) on sum-factorized tables: `mimi_residual_sf_hyper` /
+    `mimi_assemble_sf_hyper`."""
+    from .build import load
+
+    if state is not None:
+        raise NotImplementedError(
+            "stateful materials with the symmetric storage on the CUDA sf sweeps "
+            "(ROADMAP Queue 2 item 4)"
+        )
+    if v_el is not None:
+        raise NotImplementedError(
+            "the viscous hyperelastic CUDA sf sweeps (ROADMAP Queue 2 item 2)"
+        )
+    if c_dtype != torch.float32:
+        raise NotImplementedError(
+            f"a {c_dtype} symmetric tangent block on the CUDA sf sweeps "
+            "(ROADMAP Queue 2 item 2)"
+        )
+    device, n_el = _check_common([("u_el", u_el), ("a_el", a_el)], tabs, jinv, wq)
+    prm, mat_id, tag = _hyper_params(mat, rho)
+    out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
+    head = (_ptr(u_el), _ptr(a_el), *[_ptr(t) for t in tabs], _ptr(jinv), _ptr(wq), _ptr(out))
+    tail = (prm, ctypes.c_int(mat_id), ctypes.c_longlong(n_el))
+    if not assemble:
+        _launch(load().mimi_residual_sf_hyper, hyper_counters("sf", tag)[0], *head, *tail)
+        return out
+    cs = torch.empty((45, 64, n_el), dtype=torch.float32, device=device)
+    _launch(load().mimi_assemble_sf_hyper, hyper_counters("sf", tag)[1], *head, _ptr(cs), *tail)
+    return out, cs
+
+
 def residual_sf(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el=None, mu_v=0.0):
-    """Residual sweep: plain torch on CPU tensors, the CUDA kernel
-    `mimi_residual_sf` on CUDA tensors; viscous flux when v_el is given."""
+    """Residual sweep: plain torch on CPU tensors; on CUDA tensors the
+    kernel `mimi_residual_sf` (J2; viscous flux when v_el is given) or
+    `mimi_residual_sf_hyper` (the hyperelastic materials, inviscid)."""
     if u_el.device.type == "cpu":
         return residual_sf_plain(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el, mu_v)
+    if tangent_storage(mat) == "sym":
+        return _sf_hyper(False, u_el, a_el, state, tabs, jinv, wq, mat, rho, v_el)
     from .build import load
 
     device, n_el = _check_common(
@@ -603,13 +741,17 @@ def residual_sf(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el=None, mu_v
 
 def assemble_sf(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el=None,
                 mu_v=0.0, c_dtype=torch.float32):
-    """Assemble sweep: (residual, 37-plane tangent block in `c_dtype`);
-    plain torch on CPU tensors, the CUDA kernel `mimi_assemble_sf` on
-    CUDA tensors; viscous flux when v_el is given."""
+    """Assemble sweep: (residual, tangent block in the material's storage
+    and in `c_dtype`); plain torch on CPU tensors; on CUDA tensors the
+    kernel `mimi_assemble_sf` (J2, 37 planes; viscous flux when v_el is
+    given) or `mimi_assemble_sf_hyper` (the hyperelastic materials, 45
+    planes, closed-form dP/dF, inviscid, float32)."""
     if u_el.device.type == "cpu":
         return assemble_sf_plain(
             u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el, mu_v, c_dtype
         )
+    if tangent_storage(mat) == "sym":
+        return _sf_hyper(True, u_el, a_el, state, tabs, jinv, wq, mat, rho, v_el, c_dtype)
     from .build import load
 
     device, n_el = _check_common(
@@ -630,15 +772,30 @@ def assemble_sf(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el=None,
     return out, cb
 
 
-def matvec_sf(w_el, tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v=None):
-    """GMRES matvec sweep: plain torch on CPU tensors, the CUDA kernel
-    `mimi_matvec_sf` on CUDA tensors; reads a float32 or bfloat16 block,
-    viscous term when fac1_mu_v is given."""
+def matvec_sf(w_el, tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v=None, storage="cauchy"):
+    """GMRES matvec sweep on the block of `storage`: plain torch on CPU
+    tensors; on CUDA tensors the kernel `mimi_matvec_sf` ("cauchy", 37
+    planes, float32 or bfloat16, viscous term when fac1_mu_v is given) or
+    `mimi_matvec_sf_sym` ("sym", 45 planes, float32, inviscid)."""
     if w_el.device.type == "cpu":
-        return matvec_sf_plain(w_el, tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v)
+        return matvec_sf_plain(w_el, tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v, storage)
     from .build import load
 
+    _tangent_apply(storage, Cb)
     device, n_el = _check_common([("w_el", w_el)], tabs, jinv, wq)
+    if storage == "sym":
+        if fac1_mu_v is not None:
+            raise NotImplementedError(
+                "the viscous symmetric CUDA sf matvec (ROADMAP Queue 2 item 2)"
+            )
+        _check("C", Cb, (45, 64, n_el), device)
+        out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
+        _launch(
+            load().mimi_matvec_sf_sym, "matvec_sf[sym]",
+            _ptr(w_el), *[_ptr(t) for t in tabs], _ptr(jinv), _ptr(wq), _ptr(Cb),
+            _ptr(out), ctypes.c_float(rho), ctypes.c_float(fac0), ctypes.c_longlong(n_el),
+        )
+        return out
     bf16 = _c_flag(Cb.dtype)
     _check("C", Cb, (37, 64, n_el), device, Cb.dtype)
     visc = fac1_mu_v is not None
@@ -651,23 +808,6 @@ def matvec_sf(w_el, tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v=None):
         ctypes.c_longlong(n_el),
     )
     return out
-
-
-class _NHParams(ctypes.Structure):
-    """Mirror of struct NeoHookeanParams in csrc/sweeps_dense.cu."""
-
-    _fields_ = [(name, ctypes.c_float) for name in ("mu", "lam", "rho")]
-
-
-def _nh_params(mat, rho):
-    from ..materials import CompressibleOgdenNeoHookean
-
-    if type(mat) is not CompressibleOgdenNeoHookean:
-        raise NotImplementedError(
-            f"the CUDA dense sweeps implement CompressibleOgdenNeoHookean only, "
-            f"not {mat.name()} (ROADMAP Queue 2 item 1)"
-        )
-    return _NHParams(mu=mat.mu, lam=mat.lambda_, rho=rho)
 
 
 def _check_dense(el_fields, dN_t, N_t, wq):
@@ -691,28 +831,29 @@ def _dense_unported(state, v_el=None, fac1_mu_v=None, c_dtype=torch.float32):
             "stateful materials on the CUDA dense sweeps (ROADMAP Queue 2 item 1)"
         )
     if v_el is not None or fac1_mu_v is not None:
-        raise NotImplementedError("the viscous CUDA dense sweeps (ROADMAP Queue 2 item 1)")
+        raise NotImplementedError("the viscous CUDA dense sweeps (ROADMAP Queue 2 item 2)")
     if c_dtype != torch.float32:
         raise NotImplementedError(
-            f"a {c_dtype} tangent block on the CUDA dense sweeps (ROADMAP Queue 2 item 1)"
+            f"a {c_dtype} tangent block on the CUDA dense sweeps (ROADMAP Queue 2 item 2)"
         )
 
 
 def residual_dense(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el=None, mu_v=0.0):
     """Dense residual sweep: plain torch on CPU tensors, the CUDA kernel
-    `mimi_residual_dense` on CUDA tensors (neo-Hookean, inviscid)."""
+    `mimi_residual_dense` on CUDA tensors (the hyperelastic materials,
+    inviscid)."""
     if u_el.device.type == "cpu":
         return residual_dense_plain(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el, mu_v)
     from .build import load
 
     _dense_unported(state, v_el)
     device, n_el = _check_dense([("u_el", u_el), ("a_el", a_el)], dN_t, N_t, wq)
-    prm = _nh_params(mat, rho)
+    prm, mat_id, tag = _hyper_params(mat, rho)
     out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
     _launch(
-        load().mimi_residual_dense, "residual_dense",
+        load().mimi_residual_dense, hyper_counters("dense", tag)[0],
         _ptr(u_el), _ptr(a_el), _ptr(dN_t), _ptr(N_t), _ptr(wq), _ptr(out), prm,
-        ctypes.c_longlong(n_el),
+        ctypes.c_int(mat_id), ctypes.c_longlong(n_el),
     )
     return out
 
@@ -720,8 +861,8 @@ def residual_dense(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el=None, mu
 def assemble_dense(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el=None,
                    mu_v=0.0, c_dtype=torch.float32):
     """Dense assemble sweep: (residual, 45-plane symmetric tangent); plain
-    torch on CPU tensors, the CUDA kernel `mimi_assemble_dense` (closed-form
-    neo-Hookean dP/dF) on CUDA tensors."""
+    torch on CPU tensors, the CUDA kernel `mimi_assemble_dense` (the
+    material's closed-form dP/dF) on CUDA tensors."""
     if u_el.device.type == "cpu":
         return assemble_dense_plain(
             u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el, mu_v, c_dtype
@@ -730,24 +871,25 @@ def assemble_dense(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el=None,
 
     _dense_unported(state, v_el, c_dtype=c_dtype)
     device, n_el = _check_dense([("u_el", u_el), ("a_el", a_el)], dN_t, N_t, wq)
-    prm = _nh_params(mat, rho)
+    prm, mat_id, tag = _hyper_params(mat, rho)
     out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
     cs = torch.empty((45, 64, n_el), dtype=torch.float32, device=device)
     _launch(
-        load().mimi_assemble_dense, "assemble_dense[sym]",
+        load().mimi_assemble_dense, hyper_counters("dense", tag)[1],
         _ptr(u_el), _ptr(a_el), _ptr(dN_t), _ptr(N_t), _ptr(wq), _ptr(out), _ptr(cs),
-        prm, ctypes.c_longlong(n_el),
+        prm, ctypes.c_int(mat_id), ctypes.c_longlong(n_el),
     )
     return out, cs
 
 
-def matvec_dense(w_el, dN_t, N_t, wq, Cs, rho, fac0, fac1_mu_v=None):
+def matvec_dense(w_el, dN_t, N_t, wq, Cs, rho, fac0, fac1_mu_v=None, storage="sym"):
     """Dense GMRES matvec sweep on the symmetric planes: plain torch on CPU
     tensors, the CUDA kernel `mimi_matvec_dense` on CUDA tensors."""
     if w_el.device.type == "cpu":
-        return matvec_dense_plain(w_el, dN_t, N_t, wq, Cs, rho, fac0, fac1_mu_v)
+        return matvec_dense_plain(w_el, dN_t, N_t, wq, Cs, rho, fac0, fac1_mu_v, storage)
     from .build import load
 
+    _dense_storage(storage)
     _dense_unported(None, fac1_mu_v=fac1_mu_v)
     device, n_el = _check_dense([("w_el", w_el)], dN_t, N_t, wq)
     _check("C", Cs, (45, 64, n_el), device)

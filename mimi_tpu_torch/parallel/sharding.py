@@ -600,22 +600,24 @@ def make_step(
       - "torch" (default on the CPU): their plain torch versions, any
         dtype; the counterpart of the reference package's "soa" engine.
     The problem's tables decide the sweeps (the reference's `matvec_impl`
-    "auto"): a problem with sum-factorized tables runs the sf sweeps with
-    the 37-plane Cauchy-decomposition tangent; a dense-table problem the
-    dense sweeps with the 45-plane symmetric tangent ("sym", for
-    materials with a major-symmetric dP/dF).  The tangent storage is the
+    "auto"): a problem with sum-factorized tables runs the sf sweeps, a
+    dense-table problem the dense sweeps.  The tangent storage is the
     strongest exact compression the material declares (cauchy > sym >
-    full); the other table/storage pairs raise.  `matvec_impl` and
+    full): the 37-plane Cauchy-decomposition tangent of J2 (sf sweeps) or
+    the 45-plane symmetric tangent of a material with a major-symmetric
+    dP/dF (the hyperelastic ones; sf and dense sweeps).  The other
+    table/storage pairs raise.  `matvec_impl` and
     `tangent_storage` take "auto" or the name of what the problem decides,
     as aliases of the reference's options.  Everything around
     the sweeps (gather/scatter, contact, FDM, GMRES, Newton) is the same
     torch code.  A material with viscosity > 0 adds the viscous flux
     S (v + fac1 a) to the residual sweeps and fac1 S to the matvec (the
-    CUDA dense sweeps are inviscid and raise).
+    CUDA kernels with the symmetric storage are inviscid and raise).
 
     `matvec_dtype` ("f32", "bf16") is the storage of the tangent block the
     GMRES matvec streams; "bf16" rounds it once in the assemble and
-    widens it on every read, on both engines.  Residuals stay float32.
+    widens it on every read, on both engines (Cauchy storage only).
+    Residuals stay float32.
 
     `contact_tangent` is the contact linearization of a problem with
     contact blocks: "consistent" applies the exact derivative of the
@@ -648,29 +650,27 @@ def make_step(
     if prob.fdm is None:
         raise _unported("problems without an FDM decomposition (block-Jacobi)", "Queue 1 item 6")
     kind = _tables(prob)[0]
-    storage = (
-        "cauchy" if mat.tangent_cauchy_decomp
-        else "sym" if mat.tangent_major_symmetric else "full"
-    )
+    storage = sweeps.tangent_storage(mat)
     # the tables and the material decide both; the reference's explicit
     # names are accepted as aliases of what they decide
-    for opt, val, known, picked in (
-        ("matvec_impl", matvec_impl, ("sf", "dense"), kind),
-        ("tangent_storage", tangent_storage, ("cauchy", "sym", "full"), storage),
+    for opt, val, known, picked, item in (
+        ("matvec_impl", matvec_impl, ("sf", "dense"), kind, "Queue 2 item 1"),
+        ("tangent_storage", tangent_storage, ("cauchy", "sym", "full"), storage,
+         "Queue 2 item 4"),
     ):
         if val not in ("auto", *known):
             raise ValueError(f"unknown {opt} {val!r}")
         if val not in ("auto", picked):
-            raise _unported(f"{opt}={val!r} on a problem that decides {picked!r}", "Queue 2 item 1")
-    if (kind, storage) not in (("sf", "cauchy"), ("dense", "sym")):
+            raise _unported(f"{opt}={val!r} on a problem that decides {picked!r}", item)
+    if (kind, storage) not in (("sf", "cauchy"), ("sf", "sym"), ("dense", "sym")):
         raise _unported(
             f"{mat.name()} with tangent_storage={storage!r} on the {kind} sweeps",
-            "Queue 2 item 1",
+            "Queue 2 item 4" if storage == "full" else "Queue 2 item 1",
         )
     if matvec_dtype not in ("f32", "bf16"):
         raise ValueError(f"unknown matvec_dtype {matvec_dtype!r}")
-    if matvec_dtype == "bf16" and kind == "dense":
-        raise _unported("matvec_dtype='bf16' on the dense sweeps", "Queue 2 item 1")
+    if matvec_dtype == "bf16" and storage == "sym":
+        raise _unported("matvec_dtype='bf16' with the symmetric storage", "Queue 2 item 2")
     if contact_tangent not in ("frozen", "consistent"):
         raise ValueError(f"unknown contact_tangent {contact_tangent!r}")
     contact_fns = _contact_fns_for(prob)
@@ -745,7 +745,10 @@ def make_step(
         def J_apply(w_flat):
             w = w_flat.reshape(n_dof, dim) * free
             y = scatter_el(
-                mv_sweep(gather_t(w), *tables, wq, Ck, rho, fac0, fac1_mu_v=fac1_mu_v)
+                mv_sweep(
+                    gather_t(w), *tables, wq, Ck, rho, fac0, fac1_mu_v=fac1_mu_v,
+                    storage=storage,
+                )
             )
             for conn, jvp in c_jvps:
                 y = y + fac0 * _scatter_conn(jvp(w), conn, n_dof)

@@ -14,7 +14,7 @@ import torch
 from .. import splines as _splines
 from ..config import default_dtype, resolve_device
 from ..contact.scene import NearestDistanceToSplines
-from ..materials import J2, CompressibleOgdenNeoHookean
+from ..materials import J2, CompressibleOgdenNeoHookean, StVenantKirchhoff
 from ..materials import hardening as _hardening
 from ..parallel.sharding import Problem
 
@@ -24,16 +24,19 @@ def _tensor(a, dtype, device):
 
 
 _ELASTIC = ("density", "viscosity", "lambda_", "mu", "young", "poisson", "K", "G")
+_HYPERELASTIC = {
+    cls.__name__: cls for cls in (CompressibleOgdenNeoHookean, StVenantKirchhoff)
+}
 
 
 def material_from_reference(mat):
     """The port's counterpart of a reference-package material (J2 with any
-    hardening law, or CompressibleOgdenNeoHookean), with its parameters
-    copied and set up for the same dimension when the reference material
-    was."""
+    hardening law, CompressibleOgdenNeoHookean or StVenantKirchhoff), with
+    its parameters copied and set up for the same dimension when the
+    reference material was."""
     name = type(mat).__name__
-    if name == "CompressibleOgdenNeoHookean":
-        out = CompressibleOgdenNeoHookean()
+    if name in _HYPERELASTIC:
+        out = _HYPERELASTIC[name]()
         for k in _ELASTIC:
             setattr(out, k, float(getattr(mat, k)))
         if hasattr(mat, "dim"):
@@ -119,7 +122,7 @@ def problem_from_numpy(ref, material=None, dtype=None, device="cuda", scenes=Non
     ):
         raise NotImplementedError("padded element batches (ROADMAP Queue 1 item 8)")
     if ref.sf is None and ref.dim != 3:
-        raise NotImplementedError("2D dense problems (ROADMAP Queue 2 item 1)")
+        raise NotImplementedError("2D dense problems (ROADMAP Queue 2 item 5)")
     rhs = np.asarray(ref.rhs)
     if dtype is None:
         dtype = torch.float64 if rhs.dtype == np.float64 else torch.float32
