@@ -4,7 +4,7 @@
 Builds the CUDA sweep kernels from the sources in this checkout (one nvcc
 per source, started together, into one library), holds each against its plain torch
 version, checks one implicit step of the kernel path against the plain
-path, then drives four paths, float32.  Three at 48^3 elements
+path, then drives five paths, float32.  Four at 48^3 elements
 (cube-nurbs.mesh at p=2, 375,000 unknowns):
   - the J2 Johnson-Cook body-force problem, generalized-alpha steps with
     4 line-search Newton iterations and FDM-preconditioned GMRES(40) at
@@ -19,7 +19,14 @@ path, then drives four paths, float32.  Three at 48^3 elements
     cube, E 2100, nu 0.3, the same face clamped, body force -3, the
     body-force path's step settings, through the sum-factorized kernels
     with the 45-plane symmetric tangent; two steps of the same cube with
-    the St. Venant-Kirchhoff material run that material's instantiations.
+    the St. Venant-Kirchhoff material run that material's instantiations;
+  - finite-strain J2 plasticity (phases 23-26): the same cube with J2Simo
+    and the Johnson-Cook material of the reference's golden trajectories,
+    the body-force path's settings, through the sum-factorized kernels
+    with the 81-plane full tangent (9 dual-number passes per point); its
+    kernels held against plain at 16^3 on random plastic input and one
+    plastic step per material there; three steps of the same cube with
+    J2Log run that material's instantiations.
 And the dense-table path (phases 13-16): the neo-Hookean two-patch
 cantilever of tests/test_multipatch.py (two-patch-cube.mesh, the second
 patch rotated) at p=2 and 2 x 38^3 = 109,744 elements, 379,200 unknowns,
@@ -74,6 +81,7 @@ SOURCE = [
     "mimi_tpu_torch/ops/csrc/sweeps_sf.cu",
     "mimi_tpu_torch/ops/csrc/sweeps_dense.cu",
     "mimi_tpu_torch/ops/csrc/fused_neohookean.cu",
+    "mimi_tpu_torch/ops/csrc/sweeps_sf_finite.cu",
 ]
 # the dense-table path: the two-patch neo-Hookean cantilever
 TWO_PATCH = os.path.join(ROOT, "tests", "data", "two-patch-cube.mesh")
@@ -84,15 +92,26 @@ DENSE_KERNELS = [  # (counter name, TPU kernel it replaces)
     ("assemble_dense[sym]", "mimi_tpu/ops/sweeps.py:472"),
     ("matvec_dense[sym]", "mimi_tpu/ops/sweeps.py:838"),
 ]
-# per table kind the TPU kernels that a hyperelastic material's (residual,
-# assemble, matvec) instantiations replace; their counter names come from
-# ops/sweeps.py (HYPER_KERNELS, hyper_counters)
+# per table kind the TPU kernels that a hyperelastic or finite-strain
+# material's (residual, assemble, matvec) instantiations replace; their
+# counter names come from ops/sweeps.py (HYPER_KERNELS, FULL_KERNELS,
+# material_counters)
 SYM_REPLACES = {
     "sf": ("mimi_tpu/ops/sweeps.py:338", "mimi_tpu/ops/sweeps.py:472",
            "mimi_tpu/ops/sweeps.py:922"),
     "dense": tuple(r for _, r in DENSE_KERNELS),
 }
 STVK_STEPS = 1  # timed steps after the warm one on each St. Venant-Kirchhoff drive
+# the finite-strain plasticity cube: J2Simo driven 1 warm + TIMED_STEPS,
+# J2Log 1 warm + LOG_STEPS; the one-step parity at 16^3 lowers the yield
+# stress so that the step yields (the path's A 70 stays elastic there)
+LOG_STEPS = 2
+# the finite-strain residual kernel against plain at the paths' states (see
+# finite_phases), read at the drive's last state and PATH_READINGS more: the
+# assemble's bar; on an NVIDIA H100 80GB HBM3 the readings ran 1.5e-5 to 6.5e-5
+PATH_RES_BAR = 1e-4
+PATH_READINGS = 3
+A_PLASTIC = 1.0
 FUSED_KERNELS = [  # (counter name, TPU kernel it replaces)
     ("neohookean_tangent_apply", "mimi_tpu/ops/pallas_residual.py:171"),
     ("neohookean_residual", "mimi_tpu/ops/pallas_residual.py:207"),
@@ -137,6 +156,18 @@ _CAUCHY_APPLY = 330  # D-hat : sym dF, P, tr(F^-1 dF), dF^T F^-T, dP
 _NH_STRESS, _NH_TANGENT = 190, 590
 _STVK_STRESS, _STVK_TANGENT = 115, 870
 _SYM_APPLY = 170  # 45 planes as a symmetric 9 x 9 product, fac0
+# The finite-strain materials (sweeps_sf_finite.cu), counted from their
+# bodies: J2Simo's two 3 x 3 inverses, cube root, be = f be_old f^T, the
+# deviators, the return's one-time residuals and P = tau F^-T; J2Log's
+# F_e^T F_e, the fast log (2 square roots of 7 Denman-Beavers iterations,
+# two inverses each, and 8 Gregory terms: ~2560), deviator and
+# P = J (s + p/J) F^-T.  A tangent pass is the same body on dual numbers:
+# a product is 4 operations instead of 1, a sum 2, a quotient ~5, so ~3x
+# the stress; the assemble runs 9.  The full apply: 81 products and sums,
+# fac0.
+_SIMO_STRESS, _SIMO_PASS = 490, 1300
+_LOG_STRESS, _LOG_PASS = 2900, 8500
+_FULL_APPLY = 170
 OPS_PER_POINT = {
     "residual_sf": _SF_RESIDUAL + _J2_STRESS,
     "assemble_sf": _SF_RESIDUAL + _J2_STRESS + _J2_TANGENT,
@@ -149,6 +180,11 @@ OPS_PER_POINT = {
     "matvec_sf[sym]": _SF_MATVEC + _SYM_APPLY,
     "residual_sf[stvk]": _SF_RESIDUAL + _STVK_STRESS,
     "assemble_sf[stvk,sym]": _SF_RESIDUAL + _STVK_STRESS + _STVK_TANGENT,
+    "residual_sf[simo]": _SF_RESIDUAL + _SIMO_STRESS,
+    "assemble_sf[simo,full]": _SF_RESIDUAL + _SIMO_STRESS + 9 * _SIMO_PASS,
+    "residual_sf[log]": _SF_RESIDUAL + _LOG_STRESS,
+    "assemble_sf[log,full]": _SF_RESIDUAL + _LOG_STRESS + 9 * _LOG_PASS,
+    "matvec_sf[full]": _SF_MATVEC + _FULL_APPLY,
     # Dense tables: the function is defined on dN (27, 3) and N (27) per
     # point, so the 27-node contractions are its own work (gradient 486,
     # values 162, scatter 648), then the material as above.
@@ -168,8 +204,11 @@ def say(msg):
     print(msg, flush=True)
 
 
-def jc_material(mt, A=70.0):
-    mat = mt.J2()
+def jc_material(mt, A=70.0, name="J2"):
+    """The J2-family material `name` with the Johnson-Cook temperature-
+    and rate-dependent hardening of the reference's golden trajectories
+    (tests/test_nonlinear_solid.py:26-42), yield stress A."""
+    mat = getattr(mt, name)()
     mat.density = 1.0
     mat.viscosity = -1.0
     mat.melting_temperature = 1500.0
@@ -185,9 +224,11 @@ def jc_material(mt, A=70.0):
     return mat
 
 
-def build(mt, spans, device):
+def build(mt, spans, device, name="J2", A=70.0):
+    """The body-force cube at `spans` per axis: boundary 1 clamped, body
+    force -3, the J2-family material `name` (J2 unless named)."""
     return mt.build_problem(
-        MESH, 1, 0, jc_material(mt), [(1, 0), (1, 1), (1, 2)], {1: -3.0},
+        MESH, 1, 0, jc_material(mt, A, name), [(1, 0), (1, 1), (1, 2)], {1: -3.0},
         rho_inf=0.5, device=device, refine_spans=spans,
     )
 
@@ -681,7 +722,7 @@ def sym_names(sweeps, kind, mat):
     """Counter names (residual, assemble, matvec) of a hyperelastic
     material's kernels on `kind` tables."""
     tag = sweeps.HYPER_KERNELS[mat.name()][1]
-    return [*sweeps.hyper_counters(kind, tag), f"matvec_{kind}[sym]"]
+    return [*sweeps.material_counters(kind, tag), f"matvec_{kind}[sym]"]
 
 
 def near_identity(torch, grad, u_el, amplitude=0.1):
@@ -1158,6 +1199,279 @@ def hyper_phases(torch, mt, sweeps, sh, device, gen):
     return rows
 
 
+def full_names(sweeps, name):
+    """Counter names (residual, assemble, matvec) of a finite-strain
+    material's kernels."""
+    tag = sweeps.FULL_KERNELS[name][1]
+    return [*sweeps.material_counters("sf", tag, "full"), "matvec_sf[full]"]
+
+
+def finite_inputs(torch, sweeps, soa, prob, gen):
+    """Random element fields and a random plastic history on the problem's
+    tables: the state after one plain accumulate_soa at a random F with
+    |F - I| up to 0.1 (per element), eqps raised by up to 1e-3, temperature
+    20-120; u_el at another such F, a_el and w_el of unit size.  Returns
+    (u_el, a_el, w_el, state, plastic share of the points at u_el)."""
+    mat, E, dt = prob.material, prob.n_el, STEP_KW["dt"]
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(prob.device, prob.dtype)  # noqa: E731
+    uni = lambda *s: torch.rand(*s, generator=gen).to(prob.device, prob.dtype)  # noqa: E731
+    grad = lambda u: sweeps.sf_grad(u, prob.sf["tables"], prob.sf["jinv"])  # noqa: E731
+    state = {k: v.clone() for k, v in prob.state0.items()}
+    state["temperature"] = 20.0 + 100.0 * uni(64, E)
+    u0, _ = near_identity(torch, grad, rnd(3, 27, E))
+    state = mat.accumulate_soa(soa.add_diag(grad(u0), 1.0), state, dt)
+    state = {k: v.contiguous() for k, v in state.items()}
+    state["eqps"] = state["eqps"] + 1e-3 * uni(64, E)
+    u_el, _ = near_identity(torch, grad, rnd(3, 27, E))
+    active = mat._return_map_soa(soa.add_diag(grad(u_el), 1.0), state, dt)[4]
+    return u_el, rnd(3, 27, E), rnd(3, 27, E), state, float(active.float().mean())
+
+
+def masked_err(torch, y_k, y_p, what):
+    """(max|y_k - y_p|, max|y_p|) over the entries that are finite in the
+    plain version; fails unless both are NaN at the same entries."""
+    nan_k, nan_p = torch.isnan(y_k), torch.isnan(y_p)
+    if not bool((nan_k == nan_p).all()):
+        fail(f"{what}: NaN at {int(nan_k.sum())} entries of the kernel's output, "
+             f"{int(nan_p.sum())} of the plain version's")
+    ok = ~nan_p
+    return float((y_k - y_p)[ok].abs().max()), float(y_p[ok].abs().max())
+
+
+def _elements(x, sl):
+    """x restricted to the elements `sl` (a slice of the last axis),
+    through dicts and lists; anything without a shape passes as it is."""
+    if isinstance(x, dict):
+        return {k: _elements(v, sl) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_elements(v, sl) for v in x]
+    return x[..., sl].contiguous() if hasattr(x, "shape") else x
+
+
+def compare_full(torch, sweeps, prob, u_el, a_el, w_el, state, label, res_bar=1e-5,
+                 parts=None):
+    """The problem's finite-strain material's three kernels against their
+    plain versions on the same inputs; returns ({kernel: max_abs_err}, the
+    plain 81 planes) and fails past the bars (residual `res_bar` x scale;
+    assemble residual, planes as one group and matvec 1e-4).  The kernels
+    run once on all elements; the plain residual and assemble run on each
+    element range of `parts` ({name: slice}, default all elements) and each
+    range is held at the bars on its own scale."""
+    mat, tabs, jinv, wq = prob.material, prob.sf["tables"], prob.sf["jinv"], prob.wdet_t
+    n_res, n_asm, n_mv = full_names(sweeps, mat.name())
+    args = (u_el, a_el, state, tabs, jinv, wq, mat, STEP_KW["dt"], float(mat.density))
+    fac0 = prob.facs["fac3"] * STEP_KW["dt"] ** 2
+    errs = {n_res: 0.0, n_asm: 0.0}
+    y_k = sweeps.residual_sf(*args)
+    ya_k, C_k = sweeps.assemble_sf(*args)
+    torch.cuda.synchronize()
+    if C_k.shape[0] != 81:
+        fail(f"{n_asm} wrote planes of shape {tuple(C_k.shape)}")
+    C_p = torch.empty_like(C_k)
+    for part, sl in (parts or {"": slice(None)}).items():
+        tag = f"[{label}{', ' + part if part else ''}]"
+        p_args = _elements(args, sl)
+        err, scale = masked_err(torch, y_k[..., sl], sweeps.residual_sf_plain(*p_args), n_res)
+        errs[n_res] = max(errs[n_res], err)
+        say(f"{tag} {n_res}: max|err| {err:.3e} scale {scale:.3e} ({err / scale:.3e}); "
+            f"non-finite entries {int(torch.isnan(y_k[..., sl]).sum())}")
+        if not err <= res_bar * scale:
+            fail(f"{n_res} disagrees with plain ({err} > {res_bar} * {scale}) {tag}")
+        ya_p, C_p[..., sl] = sweeps.assemble_sf_plain(*p_args)
+        err, scale = masked_err(torch, ya_k[..., sl], ya_p, f"{n_asm} residual")
+        c_err, c_scale = masked_err(torch, C_k[..., sl], C_p[..., sl], f"{n_asm} planes")
+        errs[n_asm] = max(errs[n_asm], err, c_err)
+        say(f"{tag} {n_asm}: residual max|err| {err:.3e} scale {scale:.3e}; 81 planes "
+            f"max|err| {c_err:.3e} of max {c_scale:.3e} ({c_err / c_scale:.3e})")
+        if not err <= 1e-4 * scale:
+            fail(f"{n_asm} residual disagrees ({err} > 1e-4 * {scale}) {tag}")
+        if not c_err <= 1e-4 * c_scale:
+            fail(f"{n_asm} tangent disagrees ({c_err} > 1e-4 * {c_scale}) {tag}")
+    del C_k
+    mv_k = sweeps.matvec_sf(w_el, tabs, jinv, wq, C_p, float(mat.density), fac0, storage="full")
+    torch.cuda.synchronize()
+    mv_pl = sweeps.matvec_sf_plain(w_el, tabs, jinv, wq, C_p, float(mat.density), fac0,
+                                   storage="full")
+    err, scale = masked_err(torch, mv_k, mv_pl, n_mv)
+    errs[n_mv] = err
+    say(f"[{label}] {n_mv}: max|err| {err:.3e} scale {scale:.3e}")
+    if not err <= 1e-4 * scale:
+        fail(f"{n_mv} disagrees with plain ({err} > 1e-4 * {scale})")
+    return errs, C_p
+
+
+def path_residual(torch, sweeps, sh, prob, carry, gen, label):
+    """The residual kernel against its plain version at the next step's
+    predictor of `carry`: max|err| / max|y|."""
+    mat = prob.material
+    u_el, a_el, _ = predictor_fields(torch, sh, prob, carry, gen)
+    args = (u_el, a_el, carry["state"], prob.sf["tables"], prob.sf["jinv"], prob.wdet_t, mat,
+            STEP_KW["dt"], float(mat.density))
+    y_k = sweeps.residual_sf(*args)
+    torch.cuda.synchronize()
+    err, scale = masked_err(torch, y_k, sweeps.residual_sf_plain(*args), label)
+    return err / scale
+
+
+def time_full(torch, sweeps, prob, u_el, a_el, w_el, state, Cf, names, launches, errs, label):
+    """Rows of the kernels line for the finite-strain kernels in `names`
+    at the problem's size: CUDA-event times of kernel and plain version,
+    bytes and bound."""
+    mat, tabs, jinv, wq = prob.material, prob.sf["tables"], prob.sf["jinv"], prob.wdet_t
+    rho, dt = float(mat.density), STEP_KW["dt"]
+    fac0 = prob.facs["fac3"] * dt * dt
+    args = (u_el, a_el, state, tabs, jinv, wq, mat, dt, rho)
+    mv_args = (w_el, tabs, jinv, wq, Cf, rho, fac0)
+    fns = [(lambda: sweeps.residual_sf(*args), lambda: sweeps.residual_sf_plain(*args)),
+           (lambda: sweeps.assemble_sf(*args), lambda: sweeps.assemble_sf_plain(*args)),
+           (lambda: sweeps.matvec_sf(*mv_args, storage="full"),
+            lambda: sweeps.matvec_sf_plain(*mv_args, storage="full"))]
+    el_out = 3 * 27 * prob.n_el * 4
+    byts = [  # inputs read once, outputs written once
+        nbytes(u_el, a_el, tabs, jinv, wq, state) + el_out,
+        nbytes(u_el, a_el, tabs, jinv, wq, state, Cf) + el_out,
+        nbytes(w_el, tabs, jinv, wq, Cf) + el_out,
+    ]
+    n_pts = prob.n_el * prob.n_q
+    rows = []
+    for i, (name, replaces) in enumerate(zip(full_names(sweeps, mat.name()), SYM_REPLACES["sf"])):
+        if name not in names:
+            continue
+        ms = cuda_ms(torch, fns[i][0], 10)
+        torch.cuda.empty_cache()
+        plain_ms = cuda_ms(torch, fns[i][1], 2)
+        torch.cuda.empty_cache()
+        row = kernel_row(name, SOURCE[3], replaces, launches[name], errs[name], ms, plain_ms,
+                         byts[i], n_pts * OPS_PER_POINT[name])
+        say(f"[{label}] {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms; "
+            f"{byts[i] / 1e9:.3f} GB, bound {row['bound_ms']:.4f} ms by {row['bound_by']}; "
+            f"{byts[i] / ms / 1e9:.3f} TB/s ({byts[i] / ms / 1e9 / (HBM_BPS / 1e12):.2f} "
+            f"of 3.35)")
+        rows.append(row)
+    return rows
+
+
+def finite_phases(torch, mt, sweeps, soa, sh, device, gen):
+    """Phases 23-26: the finite-strain kernels (J2Simo, J2Log, the 81-plane
+    storage) against plain at 16^3 on random plastic input (and, for
+    J2Log, input past the fast log series' range), one plastic step of the
+    kernel path against the plain path there per material, the J2Simo
+    cube at 48^3 (the kernels on its state, their times, one profiled
+    step) and the J2Log cube at the same size.  Returns their rows of the
+    kernels line."""
+    # ---- 23. finite-strain kernels vs plain at 16^3 ------------------------------
+    probs = {name: build(mt, CHECK_SPANS, device, name) for name in sweeps.FULL_KERNELS}
+    for name, p in probs.items():
+        label = f"23. {CHECK_SPANS}^3 random {name}"
+        u_el, a_el, w_el, state, share = finite_inputs(torch, sweeps, soa, p, gen)
+        eps = torch.linalg.vector_norm(
+            sweeps.sf_grad(u_el, p.sf["tables"], p.sf["jinv"]), dim=(0, 1))
+        say(f"[{label}] plastic share of the points {share:.3f}; |F - I| median "
+            f"{float(eps.median()):.4f} max {float(eps.max()):.4f}; eqps of the history max "
+            f"{float(state['eqps'].max()):.4e}")
+        if share < 0.25:
+            fail(f"{name}: plastic share {share} < 0.25: the check would not exercise the "
+                 "return map")
+        compare_full(torch, sweeps, p, u_el, a_el, w_el, state, label)
+        if name == "J2Log":
+            # The same input with element 0 stretched past the fast series'
+            # range at all 64 points (Fp^-1 = diag(6, 1, 1): the deep series,
+            # not poisoned) and element 1 past the deep range (diag(1e5, 1,
+            # 1): NaN-poisoned).  The plain version, as the reference, takes
+            # the deep series for a whole batch with one point out of range,
+            # the kernel for that point alone: the plain calls run on
+            # elements 0-1 and 2.. apart, so that both sides take the same
+            # series everywhere.
+            st = {k: v.clone() for k, v in state.items()}
+            diag = lambda x: torch.diag(torch.tensor([x, 1.0, 1.0])).to(device, p.dtype)  # noqa: E731
+            st["Fp_inv"][..., 0] = diag(6.0)[:, :, None]
+            st["Fp_inv"][..., 1] = diag(1e5)[:, :, None]
+            active = p.material._return_map_soa(
+                soa.add_diag(sweeps.sf_grad(u_el, p.sf["tables"], p.sf["jinv"]), 1.0), st,
+                STEP_KW["dt"])[4]
+            say(f"[23. {CHECK_SPANS}^3 J2Log out of range] plastic points {int(active.sum())} "
+                f"of {active.numel()} (element 1's are NaN)")
+            compare_full(torch, sweeps, p, u_el, a_el, w_el, st,
+                         f"23. {CHECK_SPANS}^3 J2Log out of range",
+                         parts={"elements 0-1 (deep series, poisoned)": slice(0, 2),
+                                "elements 2.. (fast series)": slice(2, None)})
+    del probs, u_el, a_el, w_el, state, st, active, eps
+
+    # ---- 24. one plastic step at 16^3: cuda vs torch, both materials -------------
+    for name in sweeps.FULL_KERNELS:
+        p = build(mt, CHECK_SPANS, device, name, A=A_PLASTIC)
+        carry0 = mt.initial_carry(p)
+        out = {impl: mt.make_step(p, residual_impl=impl, **STEP_KW)(carry0)
+               for impl in ("cuda", "torch")}
+        err = float((out["cuda"]["u"] - out["torch"]["u"]).abs().max())
+        scale = float(out["torch"]["u"].abs().max())
+        nc, nt = out["cuda"]["newton"], out["torch"]["newton"]
+        plastic = [int((out[i]["state"]["eqps"] > 0).sum()) for i in ("cuda", "torch")]
+        say(f"[24. {CHECK_SPANS}^3 step {name}, A {A_PLASTIC}] cuda vs torch: max|du| {err:.3e} "
+            f"max|u| {scale:.3e} ({err / scale:.3e}); plastic points {plastic[0]}/{plastic[1]} "
+            f"of {p.n_el * p.n_q}; newton {nc['iters']}/{nt['iters']} gmres "
+            f"{nc['lin_iters']}/{nt['lin_iters']}; |r| {nc['norm']:.3e}/{nt['norm']:.3e} of "
+            f"|r0| {nt['norm0']:.3e}")
+        if min(plastic) == 0:
+            fail(f"{name}: the 16^3 parity step has no plastic point")
+        # the bar of the reference package's pallas-vs-soa parity check
+        if not err <= 1e-4 * scale:
+            fail(f"{name} one-step parity {err} > 1e-4 * {scale}")
+        del p, carry0, out
+    torch.cuda.empty_cache()
+
+    # ---- 25. the J2Simo cube at 48^3 and 26. the J2Log cube ---------------------------
+    rows = []
+    for name, timed, ph in (("J2Simo", TIMED_STEPS, 25), ("J2Log", LOG_STEPS, 26)):
+        sweeps.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        prob = build(mt, SPANS, device, name)
+        torch.cuda.synchronize()
+        say(f"[{ph}. 48^3 {name}] host build {time.perf_counter() - t0:.2f} s: n_el "
+            f"{prob.n_el}, n_q {prob.n_q}, unknowns {prob.n_dof * prob.dim}; sum-factorized "
+            f"tables, full tangent (81 planes, "
+            f"{81 * prob.n_q * prob.n_el * 4 / 1e9:.3f} GB)")
+        names = full_names(sweeps, name)
+        carry, step, s_step, launches = drive(torch, mt, sweeps, prob, f"{ph}. 48^3 {name}",
+                                              timed, names)
+        eqps = carry["state"]["eqps"]
+        state_max = {k: float(v.abs().max()) for k, v in carry["state"].items()}
+        say(f"[{ph}. 48^3 {name}] eqps max {float(eqps.max()):.4e}, plastic points "
+            f"{int((eqps > 0).sum())}; state max|.| {state_max}")
+        # The kernels on the path's state, the next step's predictor.  Near
+        # equilibrium (strains ~1e-3) the residual is a small difference of
+        # element forces, while both versions round quantities of size 1 in
+        # their own order (nvcc contracts FMAs, torch rounds every op):
+        # J2Simo's F^-1, F_old F^-1, its inverse, cbrt and be = f be_old f^T
+        # (be ~ I), J2Log's square roots of C_e ~ I, whose log the series
+        # scales by 2^3.  A few ulps of 1 in be or log C are G x 1e-7 ~ 1e-4
+        # in the stress: the path-state bar is PATH_RES_BAR, read at
+        # PATH_READINGS further states below.
+        u_el, a_el, w_el = predictor_fields(torch, sh, prob, carry, gen)
+        errs, Cf = compare_full(torch, sweeps, prob, u_el, a_el, w_el, carry["state"],
+                                f"{ph}. 48^3 {name} path", res_bar=PATH_RES_BAR)
+        keep = names if name == "J2Simo" else names[:2]  # the matvec is timed once
+        rows += time_full(torch, sweeps, prob, u_el, a_el, w_el, carry["state"], Cf, keep,
+                          launches, errs, f"{ph}. 48^3 {name} timing")
+        if name == "J2Simo":
+            carry = profile_step(torch, step, carry, s_step, f"{ph}. 48^3 {name} profile")
+        del Cf, u_el, a_el, w_el
+        readings = []
+        for _ in range(PATH_READINGS):
+            carry = step(carry)
+            readings.append(path_residual(torch, sweeps, sh, prob, carry, gen,
+                                          f"{ph}. 48^3 {name} path readings"))
+        say(f"[{ph}. 48^3 {name} path readings] {names[0]} max|err| / max|y| at the "
+            f"predictors of {PATH_READINGS} further steps: "
+            f"{', '.join(f'{x:.3e}' for x in readings)} (bar {PATH_RES_BAR})")
+        if not max(readings) <= PATH_RES_BAR:
+            fail(f"{names[0]} disagrees with plain at a {name} path state: {max(readings)}")
+        del step, carry, prob
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main():
     import torch
 
@@ -1335,6 +1649,9 @@ def main():
 
     # ---- 19-22. the hyperelastic single-patch path ------------------------------
     rows += hyper_phases(torch, mt, sweeps, sh, device, gen)
+
+    # ---- 23-26. finite-strain J2 plasticity with the full tangent -----------------
+    rows += finite_phases(torch, mt, sweeps, soa, sh, device, gen)
 
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {

@@ -1,11 +1,12 @@
 """mimi_tpu_torch: the implicit isogeometric solid-mechanics step of
 mimi_tpu, ported to PyTorch with hand-written CUDA kernels for Hopper.
 
-The package imports torch and never jax.  It covers four paths of the
+The package imports torch and never jax.  It covers five paths of the
 compiled core: one polynomial 3D NURBS patch on the three sum-factorized
 quadrature sweeps, with J2 plasticity and Johnson-Cook hardening (and
-viscosity; the 37-plane Cauchy tangent) or with a hyperelastic material
-(neo-Hookean, St. Venant-Kirchhoff; the 45-plane symmetric tangent);
+viscosity; the 37-plane Cauchy tangent), with a hyperelastic material
+(neo-Hookean, St. Venant-Kirchhoff; the 45-plane symmetric tangent) or with
+finite-strain J2 plasticity (J2Simo, J2Log; the 81-plane full tangent);
 mortar penalty contact against rigid spline scenes (contact/); and
 multi-patch or repeated-knot 3D meshes with the hyperelastic materials on
 the three dense-table sweeps with the symmetric tangent
@@ -20,6 +21,8 @@ from .contact.scene import NearestDistanceToSplines  # noqa: F401
 
 from .materials import (  # noqa: F401
     J2,
+    J2Log,
+    J2Simo,
     CompressibleOgdenNeoHookean,
     Material,
     StVenantKirchhoff,
@@ -39,6 +42,8 @@ from .splines import NURBS, Bezier, BSpline  # noqa: F401
 __all__ = [
     "Material",
     "J2",
+    "J2Simo",
+    "J2Log",
     "CompressibleOgdenNeoHookean",
     "StVenantKirchhoff",
     "Hardening",

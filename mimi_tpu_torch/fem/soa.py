@@ -100,6 +100,17 @@ def fro_norm(A):
     return torch.sqrt(s)
 
 
+def ddot(A, B):
+    """Full contraction sum_ij A[i,j] B[i,j]."""
+    d = A.shape[0]
+    return sum(A[i, j] * B[i, j] for i in range(d) for j in range(d))
+
+
+def cbrt(x):
+    """Real cube root of positive x (torch has no cbrt)."""
+    return x ** (1.0 / 3.0)
+
+
 def det(A):
     if A.shape[0] != 3:
         raise NotImplementedError("soa.det is 3x3 only")

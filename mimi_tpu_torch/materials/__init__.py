@@ -10,10 +10,12 @@ Counterpart of mimi_tpu/materials/__init__.py for the structure-of-arrays
 on detached tensors and re-injects its exact sensitivity through one
 implicit-function-theorem correction.
 
-Ported so far: `J2` (small-strain J2 with nonlinear isotropic hardening)
-and the hyperelastic `CompressibleOgdenNeoHookean` and `StVenantKirchhoff`
-(each with its closed-form dP/dF as `tangent_soa`, the tangent the CUDA
-assemble kernels write).
+Ported so far: `J2` (small-strain J2 with nonlinear isotropic hardening;
+the 37-plane Cauchy tangent storage), the finite-strain plasticity models
+`J2Simo` and `J2Log` (the 81-plane `full` storage, whose planes the CUDA
+assemble kernels form by forward-mode dual numbers), and the hyperelastic
+`CompressibleOgdenNeoHookean` and `StVenantKirchhoff` (each with its
+closed-form dP/dF as `tangent_soa`, the 45-plane `sym` storage).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import math
 import torch
 
 from .hardening import Hardening
+from .logm import expm_sym_soa, logm_sym_soa
 from .scalar_solve import make_scalar_solver
 from ..config import default_dtype, resolve_device
 from ..fem import soa
@@ -194,8 +197,8 @@ class _J2ThermoBase(Material):
         self._tolerance = self.hardening.sigma_y_value() * _K_TOL
         hard = self.hardening
 
-        # residual(delta_eqps; q, eqps_old, thermo, dt, slope), slope = 3G,
-        # and its derivative in delta
+        # residual(delta_eqps; q, eqps_old, thermo, dt, slope), slope = 3G
+        # (J2, J2Log) or G tr(be) (J2Simo), and its derivative in delta
         def residual_grad(delta, q, eqps_old, thermo, dt, slope):
             rate = delta / dt
             flow = hard.evaluate(eqps_old + delta)
@@ -228,8 +231,10 @@ class _J2ThermoBase(Material):
         # residual(0) == 0 there, so they converge on the first check
         q_safe = torch.where(active, q, eval0 * thermo)
         ub = torch.where(active, ub_raw, 1.0)
+        # slope: 3G, or a tensor with tangents (J2Simo's G tr(be))
+        slope_ng = slope.detach() if torch.is_tensor(slope) else slope
         theta_ng = (
-            q_safe.detach(), eqps_old.detach(), thermo.detach(), dt, slope
+            q_safe.detach(), eqps_old.detach(), thermo.detach(), dt, slope_ng
         )
         d_star = self._solver(0.0, 0.0, ub.detach(), self._tolerance, theta_ng)
         # differentiable re-injection (theta with its tangents)
@@ -289,12 +294,144 @@ class J2(_J2ThermoBase):
         new["eqps"] = state["eqps"] + delta
         new["plastic_strain"] = state["plastic_strain"] + delta * N_p
         if self.hardening.is_temperature_dependent():
-            new["temperature"] = state["temperature"] + torch.where(
-                active,
-                self.heat_fraction
-                * q
-                * delta
-                / (self.density * self.specific_heat),
-                0.0,
-            )
+            new["temperature"] = _heat(self, state, q, delta, active)
+        return new
+
+
+def _eye_state(shape_prefix, d, dtype, device):
+    """Identity tensors over a batch, (*shape_prefix, d, d), contiguous."""
+    return torch.eye(d, dtype=dtype, device=device).expand(*shape_prefix, d, d).clone()
+
+
+def _heat(mat, state, q, delta, active):
+    """The temperature after the increment: adiabatic heating of the
+    plastic work where the point yielded."""
+    return state["temperature"] + torch.where(
+        active,
+        mat.heat_fraction * q * delta / (mat.density * mat.specific_heat),
+        0.0,
+    )
+
+
+class J2Simo(_J2ThermoBase):
+    """Finite-strain J2 (Simo): multiplicative split with the elastic left
+    Cauchy-Green trial push-forward (the reference's materials.hpp
+    J2Simo).  State: be_old, F_old (3 x 3), eqps, temperature."""
+
+    def init_state(self, shape_prefix, dtype=None, device="cuda"):
+        device = resolve_device(device)
+        dtype = dtype or default_dtype(device)
+        d = self.dim
+        return {
+            "be_old": _eye_state(shape_prefix, d, dtype, device),
+            "F_old": _eye_state(shape_prefix, d, dtype, device),
+            "eqps": torch.zeros(shape_prefix, dtype=dtype, device=device),
+            "temperature": torch.full(
+                shape_prefix, float(self.initial_temperature), dtype=dtype, device=device
+            ),
+        }
+
+    def _trial_soa(self, F, state):
+        # f_inv = F_old F^-1, f_bar = inv(f_inv) cbrt(det), as the reference
+        # computes it (an inverse of an inverse, then the cube root)
+        d = F.shape[0]
+        f_inv = soa.matmul(state["F_old"], soa.inv(F))
+        f_bar = soa.inv(f_inv)
+        f_bar = f_bar * soa.cbrt(soa.det(f_bar))
+        be = soa.matmul_nt(soa.matmul(f_bar, state["be_old"]), f_bar)
+        s = soa.dev(be, self.G)
+        s_norm = soa.fro_norm(s)
+        near_zero = s_norm < torch.finfo(s.dtype).eps
+        s_hat = math.sqrt(1.5) / torch.where(near_zero, 1.0, s_norm) * s
+        N_p = soa.stack2(
+            [
+                [
+                    torch.where(
+                        near_zero,
+                        math.sqrt(0.5) if i == j else s_hat[i, j] * 0.0,
+                        s_hat[i, j],
+                    )
+                    for j in range(d)
+                ]
+                for i in range(d)
+            ]
+        )
+        q = soa.ddot(N_p, s)  # s_effective
+        return be, s, N_p, q
+
+    def _return_map_soa(self, F, state, dt):
+        be, s, N_p, q = self._trial_soa(F, state)
+        thermo = self.hardening.thermo_contribution(state["temperature"])
+        be_trace = soa.trace(be)
+        delta, active = self._solve_delta_eqps(
+            q, state["eqps"], thermo, dt, self.G * be_trace
+        )
+        be = be - (2.0 / 3.0) * delta * be_trace * N_p
+        s = soa.dev(be, self.G)
+        return be, s, q, delta, active
+
+    def pk1_soa(self, F, state, dt):
+        be, s, q, delta, active = self._return_map_soa(F, state, dt)
+        J = soa.det(F)
+        tau = soa.add_diag(s, self.K * (J * J - 1.0) * 0.5)
+        return soa.matmul_nt(tau, soa.inv(F))
+
+    def accumulate_soa(self, F, state, dt):
+        be, s, q, delta, active = self._return_map_soa(F, state, dt)
+        new = dict(state)
+        new["F_old"] = F
+        new["be_old"] = be
+        new["eqps"] = state["eqps"] + delta
+        if self.hardening.is_temperature_dependent():
+            new["temperature"] = _heat(self, state, q, delta, active)
+        return new
+
+
+class J2Log(_J2ThermoBase):
+    """Finite-strain J2 in the logarithmic (Hencky) strain with the
+    exponential-map update of Fp^-1 (the reference's materials.hpp J2Log).
+    The first Piola stress is P = (det(F) s + p I) F^-T, as the reference's
+    call chain forms it.  State: Fp_inv (3 x 3), eqps, temperature."""
+
+    def init_state(self, shape_prefix, dtype=None, device="cuda"):
+        device = resolve_device(device)
+        dtype = dtype or default_dtype(device)
+        return {
+            "Fp_inv": _eye_state(shape_prefix, self.dim, dtype, device),
+            "eqps": torch.zeros(shape_prefix, dtype=dtype, device=device),
+            "temperature": torch.full(
+                shape_prefix, float(self.initial_temperature), dtype=dtype, device=device
+            ),
+        }
+
+    def _return_map_soa(self, F, state, dt):
+        F_e = soa.matmul(F, state["Fp_inv"])
+        C_e = soa.matmul_tn(F_e, F_e)
+        E_e = 0.5 * logm_sym_soa(C_e)
+        p = self.K * soa.trace(E_e)
+        s = soa.dev(E_e, 2.0 * self.G)
+        q = math.sqrt(1.5) * soa.fro_norm(s)
+        thermo = self.hardening.thermo_contribution(state["temperature"])
+        delta, active = self._solve_delta_eqps(
+            q, state["eqps"], thermo, dt, 3.0 * self.G
+        )
+        N_p = (1.5 / torch.where(q > 0.0, q, 1.0)) * s
+        s = s - 2.0 * self.G * delta * N_p
+        return p, s, q, delta, active, N_p
+
+    def pk1_soa(self, F, state, dt):
+        p, s, q, delta, active, N_p = self._return_map_soa(F, state, dt)
+        J = soa.det(F)
+        M = soa.add_diag(s, p / J)
+        return J * soa.matmul_nt(M, soa.inv(F))
+
+    def accumulate_soa(self, F, state, dt):
+        p, s, q, delta, active, N_p = self._return_map_soa(F, state, dt)
+        # delta == 0 on elastic points, where expm(0) == I exactly
+        exp_inc = expm_sym_soa(-delta * N_p)
+        new = dict(state)
+        new["Fp_inv"] = soa.matmul(state["Fp_inv"], exp_inc)
+        new["eqps"] = state["eqps"] + delta
+        if self.hardening.is_temperature_dependent():
+            new["temperature"] = _heat(self, state, q, delta, active)
         return new

@@ -20,13 +20,12 @@ import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [
-    os.path.join(_HERE, "csrc", "sweeps_sf.cu"),
-    os.path.join(_HERE, "csrc", "sweeps_dense.cu"),
-    os.path.join(_HERE, "csrc", "fused_neohookean.cu"),
+    os.path.join(_HERE, "csrc", name)
+    for name in ("sweeps_sf.cu", "sweeps_sf_finite.cu", "sweeps_dense.cu", "fused_neohookean.cu")
 ]
 HEADERS = [
-    os.path.join(_HERE, "csrc", "materials.cuh"),
-    os.path.join(_HERE, "csrc", "dense_common.cuh"),
+    os.path.join(_HERE, "csrc", name)
+    for name in ("materials.cuh", "dense_common.cuh", "sf_common.cuh", "dual.cuh")
 ]
 FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -112,6 +111,9 @@ def load():
     lib.mimi_residual_sf_hyper.argtypes = [vp] * 11 + [_HyperParams, ci, ll, vp]
     lib.mimi_assemble_sf_hyper.argtypes = [vp] * 12 + [_HyperParams, ci, ll, vp]
     lib.mimi_matvec_sf_sym.argtypes = [vp] * 11 + [cf, cf, ll, vp]
+    lib.mimi_residual_sf_finite.argtypes = [vp] * 15 + [_J2Params, ci, ll, vp]
+    lib.mimi_assemble_sf_finite.argtypes = [vp] * 16 + [_J2Params, ci, ll, vp]
+    lib.mimi_matvec_sf_full.argtypes = [vp] * 11 + [cf, cf, ll, vp]
     lib.mimi_residual_dense.argtypes = [vp] * 6 + [_HyperParams, ci, ll, vp]
     lib.mimi_assemble_dense.argtypes = [vp] * 7 + [_HyperParams, ci, ll, vp]
     lib.mimi_matvec_dense.argtypes = [vp] * 6 + [cf, cf, ll, vp]
@@ -119,7 +121,8 @@ def load():
     lib.mimi_neohookean_tangent_apply.argtypes = [vp] * 5 + [cf, cf, ll, vp]
     for name in (
         "residual_sf", "assemble_sf", "matvec_sf", "residual_sf_hyper",
-        "assemble_sf_hyper", "matvec_sf_sym", "residual_dense", "assemble_dense",
+        "assemble_sf_hyper", "matvec_sf_sym", "residual_sf_finite", "assemble_sf_finite",
+        "matvec_sf_full", "residual_dense", "assemble_dense",
         "matvec_dense", "neohookean_residual", "neohookean_tangent_apply",
     ):
         getattr(lib, f"mimi_{name}").restype = ctypes.c_int

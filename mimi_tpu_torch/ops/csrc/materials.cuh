@@ -228,10 +228,10 @@ struct SymStorage {
   }
   // the stored planes of a major-symmetric tangent: (C_ab + C_ba) / 2,
   // halves in the order the reference adds them (the transposed entry
-  // first)
-  template <class T, typename CT>
+  // first); the material is not needed (the signature is every storage's)
+  template <class Mat, class T, typename CT>
   __device__ __forceinline__ static void store(CT* __restrict__ cout, long long qe,
-                                               long long QE, const T& C) {
+                                               long long QE, const Mat&, const T& C) {
     int k = 0;
 #pragma unroll
     for (int a = 0; a < 9; ++a)

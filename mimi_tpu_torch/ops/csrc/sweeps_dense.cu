@@ -75,7 +75,7 @@ __global__ void __launch_bounds__(BLOCK)
     F[2][2] = add(F[2][2], 1.f);
     float P[3][3];
     mat.pk1(F, P);
-    if (TANGENT) Store::store(cout, qe, QE, mat.tangent(F));
+    if (TANGENT) Store::store(cout, qe, QE, mat, mat.tangent(F));
     float av[3];
     value_q(N, sa, qe, QE, av);
     const float m[3] = {rho * av[0], rho * av[1], rho * av[2]};

@@ -10,7 +10,11 @@
 // and for the hyperelastic materials of materials.cuh (neo-Hookean,
 // St. Venant-Kirchhoff) with the 45-plane symmetric tangent
 // (c_storage="sym": mimi_residual_sf_hyper, mimi_assemble_sf_hyper,
-// mimi_matvec_sf_sym).
+// mimi_matvec_sf_sym).  The finite-strain plasticity models J2Simo and J2Log
+// with the 81-plane full tangent (c_storage="full") instantiate the same
+// kernel templates in sweeps_sf_finite.cu; the templates, the 1D-table
+// interpolation and scatter, the Johnson-Cook radial return and FullStorage
+// are in sf_common.cuh.
 // The plain torch versions of the same functions are in ops/sweeps.py.
 //
 // Variants (compile-time template parameters, one instantiation each,
@@ -20,10 +24,13 @@
 //         what its tangent storage needs of that point (`eval`).  J2Mat
 //         runs the radial return on the point's state; Hyper<NeoHookean>
 //         and Hyper<StVK> are stateless and form P without fused
-//         multiply-add, as the dense kernels do.
+//         multiply-add, as the dense kernels do; J2SimoMat and J2LogMat
+//         (sweeps_sf_finite.cu) run one body for P in float and, for the
+//         tangent, in forward-mode dual numbers (dual.cuh).
 //   Store the tangent block: CauchyStorage (37 planes: D-hat, sigma, F^-1,
-//         J; the matvec rebuilds P and applies the geometric terms) or
-//         SymStorage (45 upper-triangle planes of a major-symmetric dP/dF).
+//         J; the matvec rebuilds P and applies the geometric terms),
+//         SymStorage (45 upper-triangle planes of a major-symmetric dP/dF)
+//         or FullStorage (81 planes C[a*9 + b] = dP_a / dF_b, sf_common.cuh).
 //   VISC  the viscous flux of has_visc: residual and assemble add mu_v dV
 //         (dV = grad v at the point, from v_el as dF is formed from u_el;
 //         sweeps.py:404-406, :651-653); the matvec adds fac1 mu_v dF
@@ -72,270 +79,9 @@
 // the same D-hat storage: tensor components C_ijkl over the symmetric basis,
 // upper triangle, 21 planes.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-
-#include "materials.cuh"
+#include "sf_common.cuh"
 
 namespace {
-
-constexpr int NG = 4;   // Gauss points per axis
-constexpr int P1 = 3;   // p + 1
-constexpr int NQ = NG * NG * NG;
-constexpr int ND = P1 * P1 * P1;
-constexpr int BLOCK = 128;
-
-}  // namespace
-
-struct J2Params {
-  float K, G, A, B, n, C, eps0_dot, t_ref, t_melt, m, thermo_const, tol, xtol,
-      dt, rho;
-  int rate_dep, thermo_mode, max_iter;
-};
-
-struct Tables {
-  const float* t[6];  // B0, D0, B1, D1, B2, D2, each (NG, P1, E)
-};
-
-namespace {
-
-struct Basis {
-  float b[3][P1];
-  float d[3][P1];
-};
-
-__device__ __forceinline__ void load_basis(const Tables& tb, int q, long long e,
-                                           long long E, Basis& s) {
-  const int qs[3] = {q & 3, (q >> 2) & 3, q >> 4};
-#pragma unroll
-  for (int ax = 0; ax < 3; ++ax) {
-#pragma unroll
-    for (int a = 0; a < P1; ++a) {
-      const long long off = (long long)(qs[ax] * P1 + a) * E + e;
-      s.b[ax][a] = __ldg(tb.t[2 * ax] + off);
-      s.d[ax][a] = __ldg(tb.t[2 * ax + 1] + off);
-    }
-  }
-}
-
-__device__ __forceinline__ void load_jinv(const float* __restrict__ jinv, int q,
-                                          long long e, long long E,
-                                          float ji[3][3]) {
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
-#pragma unroll
-    for (int f = 0; f < 3; ++f)
-      ji[a][f] = __ldg(jinv + ((long long)(a * 3 + f) * NQ + q) * E + e);
-}
-
-// physical gradient g[c][f] and (optionally) values v[c] of w at one point
-template <bool VALUES>
-__device__ __forceinline__ void interp_grad(const float (&w)[3][ND],
-                                            const Basis& s, const float ji[3][3],
-                                            float g[3][3], float v[3]) {
-  float gp[3][3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    v[c] = 0.f;
-    gp[c][0] = gp[c][1] = gp[c][2] = 0.f;
-  }
-#pragma unroll
-  for (int a2 = 0; a2 < P1; ++a2)
-#pragma unroll
-    for (int a1 = 0; a1 < P1; ++a1)
-#pragma unroll
-      for (int a0 = 0; a0 < P1; ++a0) {
-        const int n = a0 + P1 * a1 + P1 * P1 * a2;
-        const float bb = s.b[1][a1] * s.b[2][a2];
-        const float g0 = s.d[0][a0] * bb;
-        const float g1 = s.b[0][a0] * s.d[1][a1] * s.b[2][a2];
-        const float g2 = s.b[0][a0] * s.b[1][a1] * s.d[2][a2];
-        const float N = s.b[0][a0] * bb;
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          gp[c][0] += g0 * w[c][n];
-          gp[c][1] += g1 * w[c][n];
-          gp[c][2] += g2 * w[c][n];
-          if (VALUES) v[c] += N * w[c][n];
-        }
-      }
-#pragma unroll
-  for (int c = 0; c < 3; ++c)
-#pragma unroll
-    for (int f = 0; f < 3; ++f)
-      g[c][f] = gp[c][0] * ji[0][f] + gp[c][1] * ji[1][f] + gp[c][2] * ji[2][f];
-}
-
-// values v[c] of w at one point
-__device__ __forceinline__ void interp_value(const float (&w)[3][ND],
-                                             const Basis& s, float v[3]) {
-  v[0] = v[1] = v[2] = 0.f;
-#pragma unroll
-  for (int a2 = 0; a2 < P1; ++a2)
-#pragma unroll
-    for (int a1 = 0; a1 < P1; ++a1)
-#pragma unroll
-      for (int a0 = 0; a0 < P1; ++a0) {
-        const int n = a0 + P1 * a1 + P1 * P1 * a2;
-        const float N = s.b[0][a0] * s.b[1][a1] * s.b[2][a2];
-#pragma unroll
-        for (int c = 0; c < 3; ++c) v[c] += N * w[c][n];
-      }
-}
-
-// acc[c][n] += wq (dN[n][f] X[c][f] + N[n] m[c])
-__device__ __forceinline__ void scatter(float (&acc)[3][ND], const Basis& s,
-                                        const float ji[3][3], float wq,
-                                        const float X[3][3], const float m[3]) {
-  float Z[3][3], mm[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-#pragma unroll
-    for (int a = 0; a < 3; ++a)
-      Z[c][a] = ji[a][0] * (wq * X[c][0]) + ji[a][1] * (wq * X[c][1]) +
-                ji[a][2] * (wq * X[c][2]);
-    mm[c] = wq * m[c];
-  }
-#pragma unroll
-  for (int a2 = 0; a2 < P1; ++a2)
-#pragma unroll
-    for (int a1 = 0; a1 < P1; ++a1)
-#pragma unroll
-      for (int a0 = 0; a0 < P1; ++a0) {
-        const int n = a0 + P1 * a1 + P1 * P1 * a2;
-        const float bb = s.b[1][a1] * s.b[2][a2];
-        const float g0 = s.d[0][a0] * bb;
-        const float g1 = s.b[0][a0] * s.d[1][a1] * s.b[2][a2];
-        const float g2 = s.b[0][a0] * s.b[1][a1] * s.d[2][a2];
-        const float N = s.b[0][a0] * bb;
-#pragma unroll
-        for (int c = 0; c < 3; ++c)
-          acc[c][n] += g0 * Z[c][0] + g1 * Z[c][1] + g2 * Z[c][2] + N * mm[c];
-      }
-}
-
-__device__ __forceinline__ float det3(const float A[3][3]) {
-  return A[0][0] * (A[1][1] * A[2][2] - A[1][2] * A[2][1]) -
-         A[0][1] * (A[1][0] * A[2][2] - A[1][2] * A[2][0]) +
-         A[0][2] * (A[1][0] * A[2][1] - A[1][1] * A[2][0]);
-}
-
-// adjugate inverse, the same cofactor formulas as fem/soa.py inv
-__device__ __forceinline__ void inv3(const float A[3][3], float det,
-                                     float R[3][3]) {
-  const float id = 1.f / det;
-#define COF(i1, j1, i2, j2) (A[i1][j1] * A[i2][j2] - A[i1][j2] * A[i2][j1])
-  R[0][0] = COF(1, 1, 2, 2) * id;
-  R[0][1] = COF(0, 2, 2, 1) * id;
-  R[0][2] = COF(0, 1, 1, 2) * id;
-  R[1][0] = COF(1, 2, 2, 0) * id;
-  R[1][1] = COF(0, 0, 2, 2) * id;
-  R[1][2] = COF(0, 2, 1, 0) * id;
-  R[2][0] = COF(1, 0, 2, 1) * id;
-  R[2][1] = COF(0, 1, 2, 0) * id;
-  R[2][2] = COF(0, 0, 1, 1) * id;
-#undef COF
-}
-
-// ---- Johnson-Cook hardening and the radial-return residual -------------
-
-__device__ __forceinline__ void jc_flow(const J2Params& p, float e, float& H,
-                                        float& dH) {
-  // A for |eqps| < 1e-13: keeps powf(0, n - 1) out of the derivative
-  if (fabsf(e) < 1.0e-13f) {
-    H = p.A;
-    dH = 0.f;
-  } else {
-    H = p.A + p.B * powf(e, p.n);
-    dH = p.B * (p.n * powf(e, p.n - 1.f));
-  }
-}
-
-__device__ __forceinline__ void jc_rate(const J2Params& p, float rate, float& R,
-                                        float& dR) {
-  // rate guard: logf only above the reference rate
-  if (p.rate_dep && rate > p.eps0_dot) {
-    R = 1.f + p.C * logf(rate / p.eps0_dot);
-    dR = p.C / rate;
-  } else {
-    R = 1.f;
-    dR = 0.f;
-  }
-}
-
-__device__ __forceinline__ float jc_thermo(const J2Params& p, float T) {
-  if (p.thermo_mode == 2) return p.thermo_const;
-  if (p.thermo_mode == 0) return 1.f;
-  if (T < p.t_ref) return 1.f;
-  if (T > p.t_melt) return 0.f;
-  const float theta = (T - p.t_ref) / (p.t_melt - p.t_ref);
-  return 1.f - powf(fmaxf(theta, 0.f), p.m);
-}
-
-// r(d) = q - 3G d - H(eqps0 + d) (R(d / dt) thermo) and dr/dd
-__device__ __forceinline__ void rr_residual(const J2Params& p, float d, float q,
-                                            float eqps0, float thermo,
-                                            float& r, float& dr) {
-  float H, dH, R, dR;
-  jc_flow(p, eqps0 + d, H, dH);
-  jc_rate(p, d / p.dt, R, dR);
-  const float slope = 3.f * p.G;
-  r = q - slope * d - H * (R * thermo);
-  dr = -slope - (dH * (R * thermo) + H * ((dR / p.dt) * thermo));
-}
-
-// Safeguarded Newton-bisection on [0, ub] with the reference's rules
-// (materials/scalar_solve.py), early exit per thread, then the
-// implicit-function-theorem correction.  Returns delta (0 when elastic) and
-// dr/dd at the solution in *fprime.
-__device__ float radial_return(const J2Params& p, float q, float eqps0,
-                               float thermo, bool* active, float* fprime) {
-  float r0, dr0;
-  rr_residual(p, 0.f, q, eqps0, thermo, r0, dr0);
-  *active = r0 > p.tol;
-  if (!*active) return 0.f;
-  float H0, dH0;
-  jc_flow(p, eqps0, H0, dH0);
-  const float lo = 0.f;
-  const float hi = (q - H0 * thermo) / (3.f * p.G);
-  float f_lo, f_hi, tmp;
-  rr_residual(p, lo, q, eqps0, thermo, f_lo, tmp);
-  rr_residual(p, hi, q, eqps0, thermo, f_hi, tmp);
-  const bool swap = f_lo > 0.f;
-  float xl = swap ? hi : lo;
-  float xh = swap ? lo : hi;
-  float x = (0.f < lo || 0.f > hi) ? 0.5f * (lo + hi) : 0.f;
-  float dx = fabsf(hi - lo);
-  float dxo = dx;
-  float f, df;
-  rr_residual(p, x, q, eqps0, thermo, f, df);
-  for (int it = 0; it < p.max_iter; ++it) {
-    const bool bisect = ((x - xh) * df - f > 0.f) || ((x - xl) * df - f < 0.f) ||
-                        (fabsf(2.f * f) > fabsf(dxo * df));
-    dxo = dx;
-    if (bisect) {
-      dx = 0.5f * (xh - xl);
-      x = xl + dx;
-    } else {
-      dx = f / df;
-      x = x - f / df;
-    }
-    rr_residual(p, x, q, eqps0, thermo, f, df);
-    const bool conv = (fabsf(dx) < p.xtol) || (fabsf(f) < p.tol);
-    if (f < 0.f)
-      xl = x;
-    else
-      xh = x;
-    if (conv) break;
-  }
-  if (fabsf(f_hi) < p.xtol) x = hi;
-  if (fabsf(f_lo) < p.xtol) x = lo;
-  float fv, fp;
-  rr_residual(p, x, q, eqps0, thermo, fv, fp);
-  *fprime = fp;
-  return x - fv / fp;
-}
 
 // J2 Cauchy stress at one point; with TANGENT also the 21 D-hat planes
 template <bool TANGENT>
@@ -365,9 +111,9 @@ __device__ __forceinline__ void j2_cauchy(const J2Params& p, const float F[3][3]
   const float snorm = sqrtf(ss);
   const float q = sqrtf(1.5f) * snorm;
   bool active;
-  float fprime = 0.f;
+  float fprime = 0.f, dstar;
   const float delta =
-      radial_return(p, q, eqps, jc_thermo(p, temp), &active, &fprime);
+      radial_return(p, q, eqps, jc_thermo(p, temp), 3.f * p.G, &active, &fprime, &dstar);
   const float npf = 1.5f / (q > 0.f ? q : 1.f);
 #pragma unroll
   for (int i = 0; i < 3; ++i)
@@ -450,7 +196,8 @@ struct Hyper {
 struct CauchyStorage {
   template <typename CT>
   __device__ __forceinline__ static void store(CT* __restrict__ cout, long long qe,
-                                               long long QE, const J2Mat::Point& pt) {
+                                               long long QE, const J2Mat&,
+                                               const J2Mat::Point& pt) {
 #pragma unroll
     for (int k = 0; k < 21; ++k) store_c(cout + k * QE + qe, pt.Mt[k]);
     const int SI[6] = {0, 0, 0, 1, 1, 2};
@@ -537,128 +284,6 @@ struct CauchyStorage {
                             P[c][2] * A[2][d]));
   }
 };
-
-// ---- kernels ---------------------------------------------------------------
-
-template <class Mat, class Store, bool TANGENT, bool VISC, typename CT>
-__global__ void __launch_bounds__(BLOCK)
-    residual_kernel(const float* __restrict__ u_el, const float* __restrict__ a_el,
-                    const float* __restrict__ v_el, Tables tb,
-                    const float* __restrict__ jinv, const float* __restrict__ wq,
-                    float* __restrict__ out, CT* __restrict__ cout, Mat mat, float rho,
-                    float mu_v, long long E) {
-  const long long e = (long long)blockIdx.x * BLOCK + threadIdx.x;
-  if (e >= E) return;
-  float uw[3][ND], aw[3][ND], vw[3][ND], acc[3][ND];
-#pragma unroll
-  for (int c = 0; c < 3; ++c)
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      uw[c][n] = __ldg(u_el + (long long)(c * ND + n) * E + e);
-      aw[c][n] = __ldg(a_el + (long long)(c * ND + n) * E + e);
-      if (VISC) vw[c][n] = __ldg(v_el + (long long)(c * ND + n) * E + e);
-      acc[c][n] = 0.f;
-    }
-  const long long QE = (long long)NQ * E;
-#pragma unroll 1
-  for (int q = 0; q < NQ; ++q) {
-    Basis s;
-    load_basis(tb, q, e, E, s);
-    float ji[3][3];
-    load_jinv(jinv, q, e, E, ji);
-    float F[3][3], vdum[3];
-    interp_grad<false>(uw, s, ji, F, vdum);
-    F[0][0] += 1.f;
-    F[1][1] += 1.f;
-    F[2][2] += 1.f;
-    const long long qe = (long long)q * E + e;
-    float P[3][3];
-    typename Mat::Point pt;
-    mat.template eval<TANGENT>(F, qe, QE, P, pt);
-    if (VISC) {
-      float dV[3][3], vdum2[3];
-      interp_grad<false>(vw, s, ji, dV, vdum2);
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-#pragma unroll
-        for (int d = 0; d < 3; ++d) P[c][d] += mu_v * dV[c][d];
-    }
-    float av[3];
-    interp_value(aw, s, av);
-    const float m[3] = {rho * av[0], rho * av[1], rho * av[2]};
-    scatter(acc, s, ji, __ldg(wq + qe), P, m);
-    if (TANGENT) Store::store(cout, qe, QE, pt);
-  }
-#pragma unroll
-  for (int c = 0; c < 3; ++c)
-#pragma unroll
-    for (int n = 0; n < ND; ++n) out[(long long)(c * ND + n) * E + e] = acc[c][n];
-}
-
-template <class Store, bool VISC, typename CT>
-__global__ void __launch_bounds__(BLOCK)
-    matvec_kernel(const float* __restrict__ w_el, Tables tb,
-                  const float* __restrict__ jinv, const float* __restrict__ wq,
-                  const CT* __restrict__ cb, float* __restrict__ out, float rho,
-                  float fac0, float fac1_mu_v, long long E) {
-  const long long e = (long long)blockIdx.x * BLOCK + threadIdx.x;
-  if (e >= E) return;
-  float ww[3][ND], acc[3][ND];
-#pragma unroll
-  for (int c = 0; c < 3; ++c)
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      ww[c][n] = __ldg(w_el + (long long)(c * ND + n) * E + e);
-      acc[c][n] = 0.f;
-    }
-  const long long QE = (long long)NQ * E;
-#pragma unroll 1
-  for (int q = 0; q < NQ; ++q) {
-    Basis s;
-    load_basis(tb, q, e, E, s);
-    float ji[3][3];
-    load_jinv(jinv, q, e, E, ji);
-    float dF[3][3], v[3];
-    interp_grad<true>(ww, s, ji, dF, v);
-    const long long qe = (long long)q * E + e;
-    float dP[3][3];
-    Store::apply(cb, qe, QE, dF, fac0, dP);
-    if (VISC) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-#pragma unroll
-        for (int d = 0; d < 3; ++d) dP[c][d] += fac1_mu_v * dF[c][d];
-    }
-    const float m[3] = {rho * v[0], rho * v[1], rho * v[2]};
-    scatter(acc, s, ji, __ldg(wq + qe), dP, m);
-  }
-#pragma unroll
-  for (int c = 0; c < 3; ++c)
-#pragma unroll
-    for (int n = 0; n < ND; ++n) out[(long long)(c * ND + n) * E + e] = acc[c][n];
-}
-
-inline unsigned grid_for(long long E) { return (unsigned)((E + BLOCK - 1) / BLOCK); }
-
-template <class Mat, class Store, bool TANGENT, bool VISC, typename CT>
-int launch_residual(const float* u_el, const float* a_el, const float* v_el,
-                    const Tables& tb, const float* jinv, const float* wq, float* out,
-                    void* cout, const Mat& mat, float rho, float mu_v, long long E,
-                    void* stream) {
-  residual_kernel<Mat, Store, TANGENT, VISC, CT>
-      <<<grid_for(E), BLOCK, 0, (cudaStream_t)stream>>>(
-          u_el, a_el, v_el, tb, jinv, wq, out, static_cast<CT*>(cout), mat, rho, mu_v, E);
-  return (int)cudaGetLastError();
-}
-
-template <class Store, bool VISC, typename CT>
-int launch_matvec(const float* w_el, const Tables& tb, const float* jinv,
-                  const float* wq, const void* cb, float* out, float rho,
-                  float fac0, float fac1_mu_v, long long E, void* stream) {
-  matvec_kernel<Store, VISC, CT><<<grid_for(E), BLOCK, 0, (cudaStream_t)stream>>>(
-      w_el, tb, jinv, wq, static_cast<const CT*>(cb), out, rho, fac0, fac1_mu_v, E);
-  return (int)cudaGetLastError();
-}
 
 template <class H, bool TANGENT>
 int launch_hyper(const float* u_el, const float* a_el, const Tables& tb, const float* jinv,

@@ -8,7 +8,9 @@ Counterpart of mimi_tpu/ops/sweeps.py (`make_residual_sweep`,
     37-plane Cauchy-decomposition tangent of J2), with and without the
     viscous flux, the tangent block in float32 or bfloat16; or with
     c_storage="sym" (45 upper-triangle planes of a major-symmetric dP/dF:
-    the hyperelastic materials), inviscid, float32;
+    the hyperelastic materials), inviscid, float32; or with
+    c_storage="full" (the 81 planes of dP/dF: J2Simo and J2Log, kernels in
+    ops/csrc/sweeps_sf_finite.cu), inviscid, float32;
   - dense tables dN (nd, dim, n_q, n_el) and N (nd, n_q, n_el),
     c_storage="sym", inviscid, float32: `residual_dense`,
     `assemble_dense`, `matvec_dense`, kernels in ops/csrc/sweeps_dense.cu.
@@ -40,7 +42,7 @@ import ctypes
 
 import numpy as np
 import torch
-from torch.func import jvp
+from torch.func import jvp, vmap
 
 from ..fem import soa
 
@@ -53,9 +55,10 @@ def variant(name, visc=False, bf16=False):
 
 
 # kernel launches since the last reset, per kernel variant (CUDA tensors
-# only): the J2 variants; the hyperelastic sf variants by material tag
-# ("nh" the neo-Hookean, "stvk" the St. Venant-Kirchhoff material); the
-# dense ones, whose untagged names are the neo-Hookean instantiations
+# only): the J2 variants; the hyperelastic and finite-strain sf variants by
+# material tag ("nh" the neo-Hookean, "stvk" the St. Venant-Kirchhoff
+# material, "simo" J2Simo, "log" J2Log); the dense ones, whose untagged
+# names are the neo-Hookean instantiations
 LAUNCHES = {
     variant(name, visc, bf16): 0
     for name in ("matvec_sf", "assemble_sf", "residual_sf")
@@ -66,27 +69,40 @@ LAUNCHES = {
 # (material id of the C entry points, counter tag).  csrc/materials.cuh
 # holds each one's struct, the entry points switch on the id.
 HYPER_KERNELS = {"CompressibleOgdenNeoHookean": (0, "nh"), "StVenantKirchhoff": (1, "stvk")}
+# The finite-strain plasticity models on the sf kernels with the 81-plane
+# tangent (csrc/sweeps_sf_finite.cu), by class name: (material id of its C
+# entry points, counter tag, state leaves in the order the entry points
+# take them)
+FULL_KERNELS = {
+    "J2Simo": (0, "simo", ("be_old", "F_old", "eqps", "temperature")),
+    "J2Log": (1, "log", ("Fp_inv", "eqps", "temperature")),
+}
 # planes of a tangent block by storage
 PLANES = {"cauchy": 37, "sym": 45, "full": 81}
 
 
-def hyper_counters(kind, tag):
-    """(residual, assemble) counter names of a hyperelastic material's
-    instantiations on the "sf" or "dense" tables (the untagged dense
-    names are the neo-Hookean's)."""
+def material_counters(kind, tag, storage="sym"):
+    """(residual, assemble) counter names of a material's instantiations on
+    the "sf" or "dense" tables with the "sym" or "full" storage (the
+    untagged dense names are the neo-Hookean's)."""
     if kind == "dense" and tag == "nh":
         return "residual_dense", "assemble_dense[sym]"
-    return f"residual_{kind}[{tag}]", f"assemble_{kind}[{tag},sym]"
+    return f"residual_{kind}[{tag}]", f"assemble_{kind}[{tag},{storage}]"
 
 
 LAUNCHES.update({
     name: 0
     for kind in ("sf", "dense")
     for _, tag in HYPER_KERNELS.values()
-    for name in hyper_counters(kind, tag)
+    for name in material_counters(kind, tag)
 })
 LAUNCHES.update({
-    "matvec_sf[sym]": 0, "matvec_dense[sym]": 0,
+    name: 0
+    for _, tag, _ in FULL_KERNELS.values()
+    for name in material_counters("sf", tag, "full")
+})
+LAUNCHES.update({
+    "matvec_sf[sym]": 0, "matvec_sf[full]": 0, "matvec_dense[sym]": 0,
     # ops/fused_neohookean.py
     "neohookean_residual": 0, "neohookean_tangent_apply": 0,
 })
@@ -348,23 +364,21 @@ def assemble_sf_plain(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho,
     `c_dtype` (default: the fields' dtype; bfloat16 rounds the planes to
     nearest even).  Viscosity enters the matvec, not the block.
 
-    "sym": the 45 planes of `sym_tangent_planes`.  "cauchy": 37 planes;
+    "sym": the 45 planes of `sym_tangent_planes`.  "full": the 81 planes
+    of `full_tangent_planes`.  "cauchy": 37 planes;
     D-hat comes from forward-mode derivatives of `mat.cauchy_soa` along
     the 6 one-hot symmetric seeds S_m = e_ij + e_ji (e_ii on the
     diagonal), scaled by 1/2 on off-diagonal basis columns and stored
     symmetric (pairs accumulated half plus half)."""
     F = soa.add_diag(sf_grad(u_el, tabs, jinv), 1.0)
     storage = tangent_storage(mat)
-    if storage == "sym":
-        P, Cb = sym_tangent_planes(mat, F, state, dt)
+    if storage in ("sym", "full"):
+        planes = sym_tangent_planes if storage == "sym" else full_tangent_planes
+        P, Cb = planes(mat, F, state, dt)
         y = sf_scatter(
             _visc_flux(P, v_el, mu_v, tabs, jinv), rho * sf_value(a_el, tabs), tabs, jinv, wq
         )
         return y, Cb if c_dtype is None else Cb.to(c_dtype)
-    if storage != "cauchy":
-        raise NotImplementedError(
-            f"tangent storage {storage!r} of {mat.name()} (ROADMAP Queue 2 item 4)"
-        )
     lay = cauchy_plane_layout(3)
     SYM, tri6 = lay["sym"], lay["tri"]
     planes = [None] * lay["n_plane"]
@@ -401,20 +415,19 @@ def _tangent_apply(storage, Cb):
     """The plain apply of a tangent block held in `storage`."""
     if storage not in PLANES:
         raise ValueError(f"unknown tangent storage {storage!r}")
-    if storage == "full":
-        raise NotImplementedError("tangent storage 'full' (ROADMAP Queue 2 item 4)")
     if Cb.shape[0] != PLANES[storage]:
         raise ValueError(
             f"C: {PLANES[storage]} planes required for storage {storage!r}, got {Cb.shape[0]}"
         )
-    return tangent_apply_sym if storage == "sym" else tangent_apply_cauchy
+    return {"cauchy": tangent_apply_cauchy, "sym": tangent_apply_sym,
+            "full": tangent_apply_full}[storage]
 
 
 def matvec_sf_plain(w_el, tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v=None, storage="cauchy"):
     """y[c, n] = sum_q wq (dN[n, d] dP[c, d] + N[n] rho w_q[c]),
     dP = fac0 (dP/dF : grad w) (+ fac1 mu_v grad w) from the block of
-    `storage` (the 37-plane Cauchy decomposition or the 45 symmetric
-    planes), widened to the fields' dtype."""
+    `storage` (the 37-plane Cauchy decomposition, the 45 symmetric planes
+    or the 81 full ones), widened to the fields' dtype."""
     dW = sf_grad(w_el, tabs, jinv)
     apply = _tangent_apply(storage, Cb)
     dP = apply(Cb.to(w_el.dtype), dW, fac0)
@@ -490,12 +503,7 @@ def sym_tangent_planes(mat, F, state, dt):
     are forward-mode derivatives of `mat.pk1_soa` along the 9 one-hot
     seeds, and plane (a, b), a < b, stores 0.5 C_ba + 0.5 C_ab (the
     reference adds the transposed half first)."""
-    cols = []
-    for b in range(9):
-        seed = torch.zeros_like(F)
-        seed[b // 3, b % 3] = 1.0
-        P, col = jvp(lambda Ft: mat.pk1_soa(Ft, state, dt), (F,), (seed,))
-        cols.append(col)
+    P, cols = _jvp_columns(mat, F, state, dt)
 
     def C(a, b):  # dP_a / dF_b
         return cols[b][a // 3, a % 3]
@@ -506,6 +514,42 @@ def sym_tangent_planes(mat, F, state, dt):
         for b in range(a, 9)
     ]
     return P, torch.stack(planes, 0)
+
+
+def tangent_apply_full(Cf, dF, fac0):
+    """dP[c, d] = fac0 sum_b C[a*9 + b] dF_b, a = 3c + d, b = 3g + f, from
+    the 81 planes Cf of dP/dF (b in order, as _tangent_apply)."""
+    rows = []
+    for c in range(3):
+        row = []
+        for d in range(3):
+            a = 3 * c + d
+            acc = Cf[a * 9] * dF[0, 0]
+            for b in range(1, 9):
+                acc = acc + Cf[a * 9 + b] * dF[b // 3, b % 3]
+            row.append(fac0 * acc)
+        rows.append(row)
+    return soa.stack2(rows)
+
+
+def _jvp_columns(mat, F, state, dt):
+    """(P, [dP/dF_b for b in 0..8]): forward-mode derivatives of
+    `mat.pk1_soa` along the 9 one-hot seeds e_b, b = 3g + f, batched over
+    the seeds (vmap), so the primal, and with it the radial return's
+    scalar solve, runs once."""
+    seeds = torch.zeros((9, *F.shape), dtype=F.dtype, device=F.device)
+    for b in range(9):
+        seeds[b, b // 3, b % 3] = 1.0
+    P, cols = vmap(lambda s: jvp(lambda Ft: mat.pk1_soa(Ft, state, dt), (F,), (s,)))(seeds)
+    return P[0], list(cols)
+
+
+def full_tangent_planes(mat, F, state, dt):
+    """(P, the 81 planes C[a*9 + b] = dP_a / dF_b), a = 3c + d indexing P
+    and b = 3g + f indexing F, from 9 forward-mode derivatives of
+    `mat.pk1_soa` (the reference's `full` storage, flattened)."""
+    P, cols = _jvp_columns(mat, F, state, dt)
+    return P, torch.stack([cols[b][a // 3, a % 3] for a in range(9) for b in range(9)], 0)
 
 
 def residual_dense_plain(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho,
@@ -538,7 +582,7 @@ def _dense_storage(storage):
     if storage != "sym":
         raise NotImplementedError(
             f"tangent storage {storage!r} on the dense sweeps "
-            f"(ROADMAP Queue 2 item {4 if storage == 'full' else 1})"
+            "(ROADMAP Queue 2 item 2)"
         )
 
 
@@ -575,22 +619,22 @@ class _J2Params(ctypes.Structure):
     ]
 
 
-def _j2_params(mat, dt, rho):
-    """Kernel parameters of a set-up J2 material with a Johnson-Cook
-    family hardening law."""
-    from ..materials import J2, _K_TOL
+def _j2_params(mat, dt, rho, family=("J2",)):
+    """Kernel parameters of a set-up material of the J2 family (a class
+    named in `family`) with a Johnson-Cook family hardening law."""
+    from ..materials import _K_TOL
     from ..materials import hardening as H
 
-    if type(mat) is not J2:
+    if mat.name() not in family:
         raise NotImplementedError(
-            f"of the Cauchy-storage materials the CUDA sweeps implement J2 only, "
-            f"not {mat.name()} (ROADMAP Queue 2 item 3)"
+            f"the CUDA sweeps implement {' and '.join(family)} with this storage, "
+            f"not {mat.name()} (ROADMAP Queue 2 item 1)"
         )
     h = mat.hardening
     if not isinstance(h, H.JohnsonCookHardening):
         raise NotImplementedError(
             f"the CUDA sweeps implement Johnson-Cook hardening only, not "
-            f"{h.name()} (ROADMAP Queue 2 item 3)"
+            f"{h.name()} (ROADMAP Queue 2 item 1)"
         )
     rate = isinstance(h, H.JohnsonCookRateDependentHardening)
     if isinstance(h, H.JohnsonCookViscoConstantTemperatureHardening):
@@ -688,17 +732,17 @@ def _sf_hyper(assemble, u_el, a_el, state, tabs, jinv, wq, mat, rho, v_el,
 
     if state is not None:
         raise NotImplementedError(
-            "stateful materials with the symmetric storage on the CUDA sf sweeps "
-            "(ROADMAP Queue 2 item 4)"
+            "a stateful material with the symmetric storage: no such material is "
+            "ported (ROADMAP Queue 1 item 2)"
         )
     if v_el is not None:
         raise NotImplementedError(
-            "the viscous hyperelastic CUDA sf sweeps (ROADMAP Queue 2 item 2)"
+            "the viscous hyperelastic CUDA sf sweeps (ROADMAP Queue 2 item 4)"
         )
     if c_dtype != torch.float32:
         raise NotImplementedError(
             f"a {c_dtype} symmetric tangent block on the CUDA sf sweeps "
-            "(ROADMAP Queue 2 item 2)"
+            "(ROADMAP Queue 2 item 4)"
         )
     device, n_el = _check_common([("u_el", u_el), ("a_el", a_el)], tabs, jinv, wq)
     prm, mat_id, tag = _hyper_params(mat, rho)
@@ -706,21 +750,59 @@ def _sf_hyper(assemble, u_el, a_el, state, tabs, jinv, wq, mat, rho, v_el,
     head = (_ptr(u_el), _ptr(a_el), *[_ptr(t) for t in tabs], _ptr(jinv), _ptr(wq), _ptr(out))
     tail = (prm, ctypes.c_int(mat_id), ctypes.c_longlong(n_el))
     if not assemble:
-        _launch(load().mimi_residual_sf_hyper, hyper_counters("sf", tag)[0], *head, *tail)
+        _launch(load().mimi_residual_sf_hyper, material_counters("sf", tag)[0], *head, *tail)
         return out
     cs = torch.empty((45, 64, n_el), dtype=torch.float32, device=device)
-    _launch(load().mimi_assemble_sf_hyper, hyper_counters("sf", tag)[1], *head, _ptr(cs), *tail)
+    _launch(load().mimi_assemble_sf_hyper, material_counters("sf", tag)[1], *head, _ptr(cs), *tail)
     return out, cs
+
+
+def _sf_finite(assemble, u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el,
+               c_dtype=torch.float32):
+    """The residual (or, with `assemble`, residual and the 81 planes of
+    dP/dF) of a finite-strain plasticity model (FULL_KERNELS) on
+    sum-factorized tables: `mimi_residual_sf_finite` /
+    `mimi_assemble_sf_finite`, inviscid, float32."""
+    from .build import load
+
+    if v_el is not None:
+        raise NotImplementedError(
+            "the viscous CUDA sf sweeps with the full storage (ROADMAP Queue 2 item 3)"
+        )
+    if c_dtype != torch.float32:
+        raise NotImplementedError(
+            f"a {c_dtype} full tangent block on the CUDA sf sweeps (ROADMAP Queue 2 item 3)"
+        )
+    prm = _j2_params(mat, dt, rho, family=tuple(FULL_KERNELS))
+    mat_id, tag, leaves = FULL_KERNELS[mat.name()]
+    device, n_el = _check_common([("u_el", u_el), ("a_el", a_el)], tabs, jinv, wq)
+    for k in leaves:
+        _check(k, state[k], (3, 3, 64, n_el) if state[k].dim() == 4 else (64, n_el), device)
+    st = [_ptr(state[k]) for k in leaves] + [_ptr(None)] * (4 - len(leaves))
+    out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
+    head = (_ptr(u_el), _ptr(a_el), *[_ptr(t) for t in tabs], _ptr(jinv), _ptr(wq), *st,
+            _ptr(out))
+    tail = (prm, ctypes.c_int(mat_id), ctypes.c_longlong(n_el))
+    names = material_counters("sf", tag, "full")
+    if not assemble:
+        _launch(load().mimi_residual_sf_finite, names[0], *head, *tail)
+        return out
+    cf = torch.empty((81, 64, n_el), dtype=torch.float32, device=device)
+    _launch(load().mimi_assemble_sf_finite, names[1], *head, _ptr(cf), *tail)
+    return out, cf
 
 
 def residual_sf(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el=None, mu_v=0.0):
     """Residual sweep: plain torch on CPU tensors; on CUDA tensors the
-    kernel `mimi_residual_sf` (J2; viscous flux when v_el is given) or
-    `mimi_residual_sf_hyper` (the hyperelastic materials, inviscid)."""
+    kernel `mimi_residual_sf` (J2; viscous flux when v_el is given),
+    `mimi_residual_sf_hyper` (the hyperelastic materials, inviscid) or
+    `mimi_residual_sf_finite` (J2Simo, J2Log; inviscid)."""
     if u_el.device.type == "cpu":
         return residual_sf_plain(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el, mu_v)
     if tangent_storage(mat) == "sym":
         return _sf_hyper(False, u_el, a_el, state, tabs, jinv, wq, mat, rho, v_el)
+    if tangent_storage(mat) == "full":
+        return _sf_finite(False, u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el)
     from .build import load
 
     device, n_el = _check_common(
@@ -740,18 +822,25 @@ def residual_sf(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el=None, mu_v
 
 
 def assemble_sf(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el=None,
-                mu_v=0.0, c_dtype=torch.float32):
+                mu_v=0.0, c_dtype=None):
     """Assemble sweep: (residual, tangent block in the material's storage
-    and in `c_dtype`); plain torch on CPU tensors; on CUDA tensors the
+    and in `c_dtype`, by default the fields' dtype); plain torch on CPU
+    tensors; on CUDA tensors the
     kernel `mimi_assemble_sf` (J2, 37 planes; viscous flux when v_el is
-    given) or `mimi_assemble_sf_hyper` (the hyperelastic materials, 45
-    planes, closed-form dP/dF, inviscid, float32)."""
+    given), `mimi_assemble_sf_hyper` (the hyperelastic materials, 45
+    planes, closed-form dP/dF, inviscid, float32) or
+    `mimi_assemble_sf_finite` (J2Simo, J2Log: 81 planes from 9
+    forward-mode dual-number passes, inviscid, float32)."""
+    c_dtype = c_dtype or u_el.dtype
     if u_el.device.type == "cpu":
         return assemble_sf_plain(
             u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el, mu_v, c_dtype
         )
     if tangent_storage(mat) == "sym":
         return _sf_hyper(True, u_el, a_el, state, tabs, jinv, wq, mat, rho, v_el, c_dtype)
+    if tangent_storage(mat) == "full":
+        return _sf_finite(True, u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el,
+                          c_dtype)
     from .build import load
 
     device, n_el = _check_common(
@@ -775,23 +864,25 @@ def assemble_sf(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el=None,
 def matvec_sf(w_el, tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v=None, storage="cauchy"):
     """GMRES matvec sweep on the block of `storage`: plain torch on CPU
     tensors; on CUDA tensors the kernel `mimi_matvec_sf` ("cauchy", 37
-    planes, float32 or bfloat16, viscous term when fac1_mu_v is given) or
-    `mimi_matvec_sf_sym` ("sym", 45 planes, float32, inviscid)."""
+    planes, float32 or bfloat16, viscous term when fac1_mu_v is given),
+    `mimi_matvec_sf_sym` ("sym", 45 planes, float32, inviscid) or
+    `mimi_matvec_sf_full` ("full", 81 planes, float32, inviscid)."""
     if w_el.device.type == "cpu":
         return matvec_sf_plain(w_el, tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v, storage)
     from .build import load
 
     _tangent_apply(storage, Cb)
     device, n_el = _check_common([("w_el", w_el)], tabs, jinv, wq)
-    if storage == "sym":
+    if storage in ("sym", "full"):
         if fac1_mu_v is not None:
             raise NotImplementedError(
-                "the viscous symmetric CUDA sf matvec (ROADMAP Queue 2 item 2)"
+                f"the viscous {storage!r} CUDA sf matvec (ROADMAP Queue 2 item "
+                f"{4 if storage == 'sym' else 3})"
             )
-        _check("C", Cb, (45, 64, n_el), device)
+        _check("C", Cb, (PLANES[storage], 64, n_el), device)
         out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
         _launch(
-            load().mimi_matvec_sf_sym, "matvec_sf[sym]",
+            getattr(load(), f"mimi_matvec_sf_{storage}"), f"matvec_sf[{storage}]",
             _ptr(w_el), *[_ptr(t) for t in tabs], _ptr(jinv), _ptr(wq), _ptr(Cb),
             _ptr(out), ctypes.c_float(rho), ctypes.c_float(fac0), ctypes.c_longlong(n_el),
         )
@@ -828,13 +919,13 @@ def _check_dense(el_fields, dN_t, N_t, wq):
 def _dense_unported(state, v_el=None, fac1_mu_v=None, c_dtype=torch.float32):
     if state is not None:
         raise NotImplementedError(
-            "stateful materials on the CUDA dense sweeps (ROADMAP Queue 2 item 1)"
+            "stateful materials on the CUDA dense sweeps (ROADMAP Queue 2 item 2)"
         )
     if v_el is not None or fac1_mu_v is not None:
-        raise NotImplementedError("the viscous CUDA dense sweeps (ROADMAP Queue 2 item 2)")
+        raise NotImplementedError("the viscous CUDA dense sweeps (ROADMAP Queue 2 item 4)")
     if c_dtype != torch.float32:
         raise NotImplementedError(
-            f"a {c_dtype} tangent block on the CUDA dense sweeps (ROADMAP Queue 2 item 2)"
+            f"a {c_dtype} tangent block on the CUDA dense sweeps (ROADMAP Queue 2 item 4)"
         )
 
 
@@ -851,7 +942,7 @@ def residual_dense(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el=None, mu
     prm, mat_id, tag = _hyper_params(mat, rho)
     out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
     _launch(
-        load().mimi_residual_dense, hyper_counters("dense", tag)[0],
+        load().mimi_residual_dense, material_counters("dense", tag)[0],
         _ptr(u_el), _ptr(a_el), _ptr(dN_t), _ptr(N_t), _ptr(wq), _ptr(out), prm,
         ctypes.c_int(mat_id), ctypes.c_longlong(n_el),
     )
@@ -859,10 +950,12 @@ def residual_dense(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el=None, mu
 
 
 def assemble_dense(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el=None,
-                   mu_v=0.0, c_dtype=torch.float32):
-    """Dense assemble sweep: (residual, 45-plane symmetric tangent); plain
-    torch on CPU tensors, the CUDA kernel `mimi_assemble_dense` (the
-    material's closed-form dP/dF) on CUDA tensors."""
+                   mu_v=0.0, c_dtype=None):
+    """Dense assemble sweep: (residual, 45-plane symmetric tangent in
+    `c_dtype`, by default the fields' dtype); plain torch on CPU tensors,
+    the CUDA kernel `mimi_assemble_dense` (the material's closed-form
+    dP/dF) on CUDA tensors."""
+    c_dtype = c_dtype or u_el.dtype
     if u_el.device.type == "cpu":
         return assemble_dense_plain(
             u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el, mu_v, c_dtype
@@ -875,7 +968,7 @@ def assemble_dense(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el=None,
     out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
     cs = torch.empty((45, 64, n_el), dtype=torch.float32, device=device)
     _launch(
-        load().mimi_assemble_dense, hyper_counters("dense", tag)[1],
+        load().mimi_assemble_dense, material_counters("dense", tag)[1],
         _ptr(u_el), _ptr(a_el), _ptr(dN_t), _ptr(N_t), _ptr(wq), _ptr(out), _ptr(cs),
         prm, ctypes.c_int(mat_id), ctypes.c_longlong(n_el),
     )

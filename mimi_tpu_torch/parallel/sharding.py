@@ -4,9 +4,11 @@ Counterpart of mimi_tpu/parallel/sharding.py for one device and three
 paths:
   - one polynomial 3D patch with simple interior knots (the J2 body-force
     step and the contact press, mortar penalty contact against a rigid
-    spline tool, with viscosity): the sum-factorized sweeps with the
-    37-plane Cauchy tangent (the viscous flux and a bfloat16 tangent
-    block where asked), structured gather and pad-and-sum scatter;
+    spline tool, with viscosity; the hyperelastic and the finite-strain
+    plastic cubes): the sum-factorized sweeps with the 37-plane Cauchy
+    tangent (the viscous flux and a bfloat16 tangent block where asked),
+    the 45-plane symmetric or the 81-plane full tangent, structured
+    gather and pad-and-sum scatter;
   - every other 3D problem, multi-patch meshes and repeated interior knots
     (the neo-Hookean two-patch cantilever): the dense-table sweeps with
     the 45-plane symmetric tangent, gather and index_add_ scatter through
@@ -603,16 +605,18 @@ def make_step(
     "auto"): a problem with sum-factorized tables runs the sf sweeps, a
     dense-table problem the dense sweeps.  The tangent storage is the
     strongest exact compression the material declares (cauchy > sym >
-    full): the 37-plane Cauchy-decomposition tangent of J2 (sf sweeps) or
+    full): the 37-plane Cauchy-decomposition tangent of J2 (sf sweeps),
     the 45-plane symmetric tangent of a material with a major-symmetric
-    dP/dF (the hyperelastic ones; sf and dense sweeps).  The other
-    table/storage pairs raise.  `matvec_impl` and
+    dP/dF (the hyperelastic ones; sf and dense sweeps), or the 81-plane
+    full dP/dF of the finite-strain plasticity models J2Simo and J2Log (sf
+    sweeps).  The other table/storage pairs raise.  `matvec_impl` and
     `tangent_storage` take "auto" or the name of what the problem decides,
     as aliases of the reference's options.  Everything around
     the sweeps (gather/scatter, contact, FDM, GMRES, Newton) is the same
     torch code.  A material with viscosity > 0 adds the viscous flux
     S (v + fac1 a) to the residual sweeps and fac1 S to the matvec (the
-    CUDA kernels with the symmetric storage are inviscid and raise).
+    CUDA kernels with the symmetric and full storages are inviscid and
+    raise).
 
     `matvec_dtype` ("f32", "bf16") is the storage of the tangent block the
     GMRES matvec streams; "bf16" rounds it once in the assemble and
@@ -654,23 +658,28 @@ def make_step(
     # the tables and the material decide both; the reference's explicit
     # names are accepted as aliases of what they decide
     for opt, val, known, picked, item in (
-        ("matvec_impl", matvec_impl, ("sf", "dense"), kind, "Queue 2 item 1"),
+        ("matvec_impl", matvec_impl, ("sf", "dense"), kind, "Queue 2 item 2"),
         ("tangent_storage", tangent_storage, ("cauchy", "sym", "full"), storage,
-         "Queue 2 item 4"),
+         "Queue 2 item 3"),
     ):
         if val not in ("auto", *known):
             raise ValueError(f"unknown {opt} {val!r}")
         if val not in ("auto", picked):
             raise _unported(f"{opt}={val!r} on a problem that decides {picked!r}", item)
-    if (kind, storage) not in (("sf", "cauchy"), ("sf", "sym"), ("dense", "sym")):
+    if kind == "dense" and storage != "sym":
         raise _unported(
-            f"{mat.name()} with tangent_storage={storage!r} on the {kind} sweeps",
-            "Queue 2 item 4" if storage == "full" else "Queue 2 item 1",
+            f"{mat.name()} with tangent_storage={storage!r} on the dense sweeps",
+            "Queue 2 item 2",
         )
+    if storage == "full" and mat.name() not in sweeps.FULL_KERNELS:
+        raise _unported(f"{mat.name()} with the 81-plane tangent", "Queue 1 item 2")
     if matvec_dtype not in ("f32", "bf16"):
         raise ValueError(f"unknown matvec_dtype {matvec_dtype!r}")
-    if matvec_dtype == "bf16" and storage == "sym":
-        raise _unported("matvec_dtype='bf16' with the symmetric storage", "Queue 2 item 2")
+    if matvec_dtype == "bf16" and storage != "cauchy":
+        raise _unported(
+            f"matvec_dtype='bf16' with the {storage!r} storage",
+            "Queue 2 item 4" if storage == "sym" else "Queue 2 item 3",
+        )
     if contact_tangent not in ("frozen", "consistent"):
         raise ValueError(f"unknown contact_tangent {contact_tangent!r}")
     contact_fns = _contact_fns_for(prob)

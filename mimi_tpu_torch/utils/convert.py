@@ -14,7 +14,7 @@ import torch
 from .. import splines as _splines
 from ..config import default_dtype, resolve_device
 from ..contact.scene import NearestDistanceToSplines
-from ..materials import J2, CompressibleOgdenNeoHookean, StVenantKirchhoff
+from ..materials import J2, CompressibleOgdenNeoHookean, J2Log, J2Simo, StVenantKirchhoff
 from ..materials import hardening as _hardening
 from ..parallel.sharding import Problem
 
@@ -24,16 +24,17 @@ def _tensor(a, dtype, device):
 
 
 _ELASTIC = ("density", "viscosity", "lambda_", "mu", "young", "poisson", "K", "G")
+_J2_FAMILY = {cls.__name__: cls for cls in (J2, J2Simo, J2Log)}
 _HYPERELASTIC = {
     cls.__name__: cls for cls in (CompressibleOgdenNeoHookean, StVenantKirchhoff)
 }
 
 
 def material_from_reference(mat):
-    """The port's counterpart of a reference-package material (J2 with any
-    hardening law, CompressibleOgdenNeoHookean or StVenantKirchhoff), with
-    its parameters copied and set up for the same dimension when the
-    reference material was."""
+    """The port's counterpart of a reference-package material (J2, J2Simo or
+    J2Log with any hardening law, CompressibleOgdenNeoHookean or
+    StVenantKirchhoff), with its parameters copied and set up for the same
+    dimension when the reference material was."""
     name = type(mat).__name__
     if name in _HYPERELASTIC:
         out = _HYPERELASTIC[name]()
@@ -42,9 +43,9 @@ def material_from_reference(mat):
         if hasattr(mat, "dim"):
             out.setup(mat.dim)
         return out
-    if name != "J2":
+    if name not in _J2_FAMILY:
         raise NotImplementedError(f"{name} is not ported yet (ROADMAP Queue 1 item 2)")
-    out = J2()
+    out = _J2_FAMILY[name]()
     for k in _ELASTIC + (
         "heat_fraction", "specific_heat", "initial_temperature", "melting_temperature",
     ):
@@ -122,7 +123,7 @@ def problem_from_numpy(ref, material=None, dtype=None, device="cuda", scenes=Non
     ):
         raise NotImplementedError("padded element batches (ROADMAP Queue 1 item 8)")
     if ref.sf is None and ref.dim != 3:
-        raise NotImplementedError("2D dense problems (ROADMAP Queue 2 item 5)")
+        raise NotImplementedError("2D dense problems (ROADMAP Queue 2 item 6)")
     rhs = np.asarray(ref.rhs)
     if dtype is None:
         dtype = torch.float64 if rhs.dtype == np.float64 else torch.float32

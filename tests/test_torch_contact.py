@@ -39,6 +39,7 @@ from mimi_tpu_torch.utils.convert import (
     problem_from_numpy,
     scene_from_reference,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one thread)
 
 MESH = os.path.join(os.path.dirname(__file__), "data", "cube-nurbs.mesh")
 KAPPA = 5e7

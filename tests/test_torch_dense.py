@@ -45,6 +45,7 @@ from mimi_tpu_torch.utils.convert import (
     material_from_reference,
     problem_from_numpy,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one thread)
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 MP = os.path.join(DATA, "two-patch-cube.mesh")

@@ -20,6 +20,7 @@ from mimi_tpu_torch.fem.space import FESpace, _tensor_basis_numpy, domain_dim_ta
 from mimi_tpu_torch.nurbs.mesh_io import read_mfem_nurbs_mesh
 from mimi_tpu_torch.nurbs.topology import build_patch_from_mesh
 from mimi_tpu_torch.utils.convert import problem_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MESH = os.path.join(ROOT, "tests", "data", "cube-nurbs.mesh")

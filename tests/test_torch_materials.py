@@ -13,6 +13,7 @@ from mimi_tpu.fem import soa as jsoa
 
 import mimi_tpu_torch as mt
 from mimi_tpu_torch.fem import soa as tsoa
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one thread)
 
 DT = 0.05
 B = (64, 24)  # (n_q, n_el) batch

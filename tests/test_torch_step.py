@@ -21,6 +21,7 @@ from mimi_tpu_torch.utils.convert import (
     carry_to_numpy,
     problem_from_numpy,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one thread)
 
 MESH = os.path.join(os.path.dirname(__file__), "data", "cube-nurbs.mesh")
 A_PLASTIC = 1.0  # JC yield stress; the benchmark's 70 stays elastic at 4^3

@@ -22,6 +22,7 @@ from mimi_tpu.parallel import sharding as jsh
 from mimi_tpu_torch.fem import soa as tsoa
 from mimi_tpu_torch.ops import sweeps as tsw
 from mimi_tpu_torch.utils.convert import material_from_reference
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one thread)
 
 MESH = os.path.join(os.path.dirname(__file__), "data", "cube-nurbs.mesh")
 DT, RHO, FAC0 = 0.05, 1.0, 0.01
