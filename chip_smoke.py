@@ -38,6 +38,15 @@ tangent apply (ops/fused_neohookean.py) against their plain versions and
 the dense kernels, driven by a matrix-free solve of the path's Newton
 system; and two St. Venant-Kirchhoff steps.
 
+And the 2D dense-table path (phases 27-32): the golden cantilever of the
+reference's trajectories (balken.mesh, the unit square, at p=3) at 512^2
+= 262,144 elements, 530,450 unknowns, J2 Johnson-Cook (1 warm + 5 timed
+steps) and its neo-Hookean twin (1 + 2), through the dense kernels with
+the 14-plane Cauchy and the 10-plane symmetric tangent and the 2D FDM;
+every instantiation of the templated dense kernels (2D p=2 and p=3, 3D
+p=2 with J2) against its plain version, one step of the kernel path
+against the plain path per 2D material and for 3D dense J2.
+
     python3 chip_smoke.py
 
 Exits non-zero without a CUDA device, outside a checkout, or when any
@@ -48,6 +57,7 @@ phase fails.  The last line of standard output is the device record
 import json
 import math
 import os
+import resource
 import subprocess
 import sys
 import time
@@ -82,6 +92,7 @@ SOURCE = [
     "mimi_tpu_torch/ops/csrc/sweeps_dense.cu",
     "mimi_tpu_torch/ops/csrc/fused_neohookean.cu",
     "mimi_tpu_torch/ops/csrc/sweeps_sf_finite.cu",
+    "mimi_tpu_torch/ops/csrc/sweeps_dense_j2.cu",
 ]
 # the dense-table path: the two-patch neo-Hookean cantilever
 TWO_PATCH = os.path.join(ROOT, "tests", "data", "two-patch-cube.mesh")
@@ -112,6 +123,24 @@ LOG_STEPS = 2
 PATH_RES_BAR = 1e-4
 PATH_READINGS = 3
 A_PLASTIC = 1.0
+# the 2D dense-table path: the golden cantilever of the reference's
+# trajectories (tests/test_nonlinear_solid.py:22-90), balken.mesh (the unit
+# square) elevated by 2 to p = 3 and subdivided 9 times: 512^2 = 262,144
+# elements, 16 dofs and 25 points each, 530,450 unknowns; boundary 2
+# clamped; J2 Johnson-Cook (body force -3, dt 0.5, 1 warm + 5 timed steps)
+# and its neo-Hookean twin (body force -5, dt 0.05, 1 + 2); the golden's
+# 10 Newton iterations, GMRES(30, at most 80) at lin_rel_tol 1e-3, FDM.
+BALKEN = os.path.join(ROOT, "tests", "data", "balken.mesh")
+GOLDEN_SUBDIVIDE = 9  # 2^9 = 512 spans per axis, p = 3
+P2_SUBDIVIDE = 7  # the p = 2 instantiations (elevate 1) at 128^2
+STEP2D_SUBDIVIDE = 6  # the one-step parity at 64^2
+GOLDEN_2D = {  # material: (body force in y, dt, timed steps)
+    "J2": (-3.0, 0.5, 5),
+    "CompressibleOgdenNeoHookean": (-5.0, 0.05, 2),
+    "StVenantKirchhoff": (-5.0, 0.05, 1),
+}
+STEP2D_KW = dict(newton_iters=10, solver="cg", cg_iters=80, gmres_restart=30, precond="fdm",
+                 lin_rel_tol=1e-3)
 FUSED_KERNELS = [  # (counter name, TPU kernel it replaces)
     ("neohookean_tangent_apply", "mimi_tpu/ops/pallas_residual.py:171"),
     ("neohookean_residual", "mimi_tpu/ops/pallas_residual.py:207"),
@@ -192,6 +221,19 @@ OPS_PER_POINT = {
     "residual_dense[stvk]": 1500, "assemble_dense[stvk,sym]": 2370,
     # two gradients, F^-1, three 3 x 3 products, the scatter; no N table
     "neohookean_residual": 1250, "neohookean_tangent_apply": 1780,
+}
+# The dense rows of other (dim, p) and of J2, from dense_ops: per point the
+# dim x nd gradient (2 dim^2 nd), the values (2 dim nd) and the scatter of
+# flux and mass ((2 dim + 2) dim nd) of the function on dN and N, then the
+# material, counted from its body: (stress, tangent planes, tangent
+# apply) by material tag and dim.  J2's 2D stress: strain, deviator over
+# trace / 2, norm, the return's one-time residual, sigma, det, inverse and
+# J sigma F^-T; its 6 D-hat planes; the 2D Cauchy apply (D-hat : sym dF,
+# P, tr(F^-1 dF), dF^T F^-T, dP).  The radial return's iterations are not
+# counted (see above).
+MATERIAL_OPS = {
+    ("j2", 3): (_J2_STRESS, _J2_TANGENT, _CAUCHY_APPLY), ("j2", 2): (110, 60, 100),
+    ("nh", 2): (60, 150, 36), ("stvk", 2): (40, 160, 36),
 }
 
 
@@ -687,12 +729,14 @@ def hyper_material(mt, name="CompressibleOgdenNeoHookean"):
     return mat
 
 
-def dense_build(mt, spans, device, name="CompressibleOgdenNeoHookean"):
+def dense_build(mt, spans, device, name="CompressibleOgdenNeoHookean", A=70.0, dtype=None):
     """The two-patch cantilever at `spans` per patch and axis (neo-Hookean
-    unless another hyperelastic material is named)."""
+    unless another hyperelastic material or J2, yield stress A, is
+    named)."""
+    mat = jc_material(mt, A) if name == "J2" else hyper_material(mt, name)
     return mt.build_problem(
-        TWO_PATCH, 1, 0, hyper_material(mt, name), [(0, 0), (0, 1), (0, 2)], {1: -5.0},
-        rho_inf=0.5, device=device, refine_spans=spans,
+        TWO_PATCH, 1, 0, mat, [(0, 0), (0, 1), (0, 2)], {1: -5.0},
+        rho_inf=0.5, device=device, refine_spans=spans, dtype=dtype,
     )
 
 
@@ -868,22 +912,26 @@ def drive(torch, mt, sweeps, prob, label, timed, kernels):
     return carry, step, s_step, launches
 
 
-def predictor_fields(torch, sh, prob, carry, gen):
+def predictor_fields(torch, sh, prob, carry, gen, dt=STEP_KW["dt"]):
     """Element inputs of the sweeps at the path's state: u at the next
     step's predictor, a the carry's, w random."""
     g, _ = sh._gather_scatter(prob)
-    fc, dt = prob.facs, STEP_KW["dt"]
+    fc = prob.facs
     xa = carry["u"] + (carry["v"] + fc["fac0"] * dt * carry["a"]) * fc["fac1"] * dt
-    w_el = torch.randn(3, 27, prob.n_el, generator=gen).to(prob.device, prob.dtype)
-    return g(xa), g(carry["a"]), w_el
+    u_el = g(xa)
+    w_el = torch.randn(*u_el.shape, generator=gen).to(prob.device, prob.dtype)
+    return u_el, g(carry["a"]), w_el
 
 
-def profile_step(torch, step, carry, s_step, label):
+def profile_step(torch, step, carry, s_step, label, cpu=True):
     """One profiled step: device busy time, idle share of the timed
-    s/step, device time by kernel name.  Returns the new carry."""
+    s/step, device time by kernel name.  Returns the new carry.  With
+    cpu=False only the device is traced: a step of ~10^5 launches then
+    takes seconds to post-process instead of minutes."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if cpu else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         carry = step(carry)
         torch.cuda.synchronize()
@@ -1472,6 +1520,479 @@ def finite_phases(torch, mt, sweeps, soa, sh, device, gen):
     return rows
 
 
+def balken_build(mt, name, elevate, subdivide, device, dtype=None):
+    """The golden cantilever: balken.mesh elevated by `elevate`, subdivided
+    `subdivide` times, boundary 2 clamped, the golden's material `name`
+    (J2 Johnson-Cook, or a hyperelastic material) and body force."""
+    mat = jc_material(mt) if name == "J2" else hyper_material(mt, name)
+    return mt.build_problem(BALKEN, elevate, subdivide, mat, [(2, 0), (2, 1)],
+                            {1: GOLDEN_2D[name][0]}, rho_inf=0.5, device=device, dtype=dtype)
+
+
+def dense_degree(prob):
+    nd = prob.dense["dN_t"].shape[0]
+    return round(nd ** (1.0 / prob.dim)) - 1
+
+
+def dense_names(sweeps, prob):
+    """Counter names (residual, assemble, matvec) of the problem's material
+    on its dense tables: storage, material tag and (dim, p) suffix."""
+    storage = sweeps.tangent_storage(prob.material)
+    tag = "j2" if storage == "cauchy" else sweeps.HYPER_KERNELS[prob.material.name()][1]
+    dim, p = prob.dim, dense_degree(prob)
+    return [*sweeps.material_counters("dense", tag, storage, dim, p),
+            sweeps.matvec_counter("dense", storage, dim, p)]
+
+
+def dense_ops(sweeps, prob):
+    """Operations per point of the (residual, assemble, matvec) functions
+    of the problem's material on its dense tables (MATERIAL_OPS)."""
+    names = dense_names(sweeps, prob)
+    if all(n in OPS_PER_POINT for n in names):
+        return [OPS_PER_POINT[n] for n in names]
+    dim, nd = prob.dim, prob.dense["dN_t"].shape[0]
+    tag = "j2" if sweeps.tangent_storage(prob.material) == "cauchy" else \
+        sweeps.HYPER_KERNELS[prob.material.name()][1]
+    stress, tangent, apply = MATERIAL_OPS[(tag, dim)]
+    base = 2 * dim * dim * nd + 2 * dim * nd + (2 * dim + 2) * dim * nd
+    return [base + 2 * dim + stress, base + 2 * dim + stress + tangent, base + dim + apply]
+
+
+def plane_groups(sweeps, storage, dim):
+    """Plane ranges of a tangent block held against their group's max:
+    the Cauchy block's D-hat, sigma, F^-1 and J; the symmetric block as
+    one group."""
+    if storage == "cauchy":
+        lay = sweeps.cauchy_plane_layout(dim)
+        return [(0, lay["n_tri"]), (lay["off_sig"], lay["off_fi"]),
+                (lay["off_fi"], lay["off_j"]), (lay["off_j"], lay["n_plane"])]
+    return [(0, sweeps.n_planes(storage, dim))]
+
+
+def dense_inputs(torch, sweeps, soa, prob, gen, dt, amplitude=0.1):
+    """Random element fields on the problem's dense tables: u_el with |F - I|
+    up to `amplitude` per element, a_el and w_el of unit size; for J2 a
+    random history (eqps up to 0.01, temperature 20-120).  Returns (u_el,
+    a_el, w_el, state, plastic share of the points at u_el or None)."""
+    dN, E, nq = prob.dense["dN_t"], prob.n_el, prob.n_q
+    shape = (prob.dim, dN.shape[0], E)
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(prob.device, prob.dtype)  # noqa: E731
+    uni = lambda *s: torch.rand(*s, generator=gen).to(prob.device, prob.dtype)  # noqa: E731
+    u_el, _ = near_identity(torch, lambda u: sweeps.dense_grad(u, dN), rnd(*shape), amplitude)
+    state, share = None, None
+    if prob.state0 is not None:
+        state = {k: v.clone() for k, v in prob.state0.items()}
+        state["eqps"] = 0.01 * uni(nq, E)
+        state["temperature"] = 20.0 + 100.0 * uni(nq, E)
+        F = soa.add_diag(sweeps.dense_grad(u_el, dN), 1.0)
+        share = float(prob.material._return_map(F, state, dt)[4].float().mean())
+    return u_el, rnd(*shape), rnd(*shape), state, share
+
+
+def compare_dense(torch, sweeps, prob, u_el, a_el, w_el, state, dt, label):
+    """The problem's material's three dense kernels against their plain
+    versions on the same inputs; returns ({kernel: max_abs_err}, the plain
+    tangent block) and fails past the bars: residual 1e-5 x scale,
+    assemble residual and matvec 1e-4 x scale, planes 1e-4 of their
+    group's max (plane_groups)."""
+    mat, wq = prob.material, prob.wdet_t
+    dN, N = prob.dense["dN_t"], prob.dense["N_t"]
+    storage = sweeps.tangent_storage(mat)
+    n_res, n_asm, n_mv = dense_names(sweeps, prob)
+    rho = float(mat.density)
+    args = (u_el, a_el, state, dN, N, wq, mat, dt, rho)
+    fac0 = prob.facs["fac3"] * dt * dt
+    errs = {}
+    y_k = sweeps.residual_dense(*args)
+    torch.cuda.synchronize()
+    y_p = sweeps.residual_dense_plain(*args)
+    err, scale = float((y_k - y_p).abs().max()), float(y_p.abs().max())
+    errs[n_res] = err
+    say(f"[{label}] {n_res}: max|err| {err:.3e} scale {scale:.3e} ({err / scale:.3e})")
+    # float32: F and P to the bit on elastic points (no FMA, the plain
+    # version's order), the quadrature sums in another order; plastic
+    # points: two float32 radial returns
+    if not err <= 1e-5 * scale:
+        fail(f"{n_res} disagrees with plain ({err} > 1e-5 * {scale})")
+    del y_k, y_p
+    ya_k, C_k = sweeps.assemble_dense(*args)
+    torch.cuda.synchronize()
+    ya_p, C_p = sweeps.assemble_dense_plain(*args)
+    err, scale = float((ya_k - ya_p).abs().max()), float(ya_p.abs().max())
+    if C_k.shape != C_p.shape or C_k.shape[0] != sweeps.n_planes(storage, prob.dim):
+        fail(f"{n_asm} wrote planes of shape {tuple(C_k.shape)}, plain {tuple(C_p.shape)}")
+    diff = (C_k - C_p).abs().amax(dim=(1, 2))
+    mag = C_p.abs().amax(dim=(1, 2))
+    rel = max(float(diff[a:b].max() / mag[a:b].max().clamp_min(1e-30))
+              for a, b in plane_groups(sweeps, storage, prob.dim))
+    errs[n_asm] = max(err, float(diff.max()))
+    say(f"[{label}] {n_asm}: residual max|err| {err:.3e} scale {scale:.3e}; {C_k.shape[0]} "
+        f"planes worst err vs group max {rel:.3e}")
+    if not err <= 1e-4 * scale:
+        fail(f"{n_asm} residual disagrees ({err} > 1e-4 * {scale})")
+    # the closed-form tangent against the plain version's forward-mode
+    # planes, float32
+    if not rel <= 1e-4:
+        fail(f"{n_asm} tangent disagrees (plane err {rel} of its group's max)")
+    del ya_k, C_k, ya_p
+    mv_k = sweeps.matvec_dense(w_el, dN, N, wq, C_p, rho, fac0, storage=storage)
+    torch.cuda.synchronize()
+    mv_p = sweeps.matvec_dense_plain(w_el, dN, N, wq, C_p, rho, fac0, storage=storage)
+    err, scale = float((mv_k - mv_p).abs().max()), float(mv_p.abs().max())
+    errs[n_mv] = err
+    say(f"[{label}] {n_mv}: max|err| {err:.3e} scale {scale:.3e}")
+    if not err <= 1e-4 * scale:
+        fail(f"{n_mv} disagrees with plain ({err} > 1e-4 * {scale})")
+    return errs, C_p
+
+
+def time_dense(torch, sweeps, prob, u_el, a_el, w_el, state, C, dt, launches, errs, label,
+               matvec=True):
+    """Rows of the kernels line for the problem's material's dense kernels
+    (the matvec unless `matvec` is False: another material's row times the
+    same instantiation): CUDA-event times of kernel and plain version,
+    bytes (inputs read once, outputs written once) and bound."""
+    mat, wq = prob.material, prob.wdet_t
+    dN, N = prob.dense["dN_t"], prob.dense["N_t"]
+    storage = sweeps.tangent_storage(mat)
+    rho, fac0 = float(mat.density), prob.facs["fac3"] * dt * dt
+    args = (u_el, a_el, state, dN, N, wq, mat, dt, rho)
+    mv_args = (w_el, dN, N, wq, C, rho, fac0)
+    fns = [(lambda: sweeps.residual_dense(*args), lambda: sweeps.residual_dense_plain(*args)),
+           (lambda: sweeps.assemble_dense(*args), lambda: sweeps.assemble_dense_plain(*args)),
+           (lambda: sweeps.matvec_dense(*mv_args, storage=storage),
+            lambda: sweeps.matvec_dense_plain(*mv_args, storage=storage))]
+    el_out = nbytes(u_el)
+    byts = [nbytes(u_el, a_el, dN, N, wq, state) + el_out,
+            nbytes(u_el, a_el, dN, N, wq, state, C) + el_out,
+            nbytes(w_el, dN, N, wq, C) + el_out]
+    n_pts = prob.n_el * prob.n_q
+    source = SOURCE[4] if storage == "cauchy" else SOURCE[1]
+    rows = []
+    for i, (name, replaces, ops) in enumerate(zip(dense_names(sweeps, prob),
+                                                  SYM_REPLACES["dense"], dense_ops(sweeps, prob))):
+        if i == 2 and not matvec:
+            continue
+        ms = cuda_ms(torch, fns[i][0], 20)
+        plain_ms = cuda_ms(torch, fns[i][1], 2)
+        torch.cuda.empty_cache()
+        row = kernel_row(name, source, replaces, launches[name], errs[name], ms, plain_ms,
+                         byts[i], n_pts * ops)
+        say(f"[{label}] {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms; "
+            f"{byts[i] / 1e9:.3f} GB, bound {row['bound_ms']:.4f} ms by {row['bound_by']}; "
+            f"{byts[i] / ms / 1e9:.3f} TB/s ({byts[i] / ms / 1e9 / (HBM_BPS / 1e12):.2f} "
+            f"of 3.35)")
+        rows.append(row)
+    return rows
+
+
+def drive_dense(torch, mt, sweeps, prob, label, timed, dt, step_kw):
+    """The default engine's path on the dense problem: the initial carry,
+    one warm and `timed` timed steps.  Prints s/step, qp-evals/s (with its
+    count: n_el n_q (3 Newton iterations + 1) per step, the assemble and
+    two line-search residuals per iteration and the state update), the
+    Newton and GMRES iterations, the residual drop and the plastic share
+    of each step.  Fails unless the problem's three kernels were launched
+    in each step and the state stayed finite; returns (carry, step, s/step,
+    launches, [(step input carry, step output carry, drop)])."""
+    names = dense_names(sweeps, prob)
+    t0 = time.perf_counter()
+    carry = mt.initial_carry(prob)
+    torch.cuda.synchronize()
+    say(f"[{label}] initial carry {time.perf_counter() - t0:.2f} s")
+    step = mt.make_step(prob, dt, **step_kw)
+    t0 = time.perf_counter()
+    carry = step(carry)
+    torch.cuda.synchronize()
+    say(f"[{label}] warm step {time.perf_counter() - t0:.3f} s {carry['newton']}")
+    times, steps = [], []
+    for _ in range(timed):
+        before = carry
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry = step(carry)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        d = carry["newton"]
+        steps.append((before, carry, d["norm"] / d["norm0"]))
+    launches = dict(sweeps.LAUNCHES)
+    s_step = sum(times) / len(times)
+    evals = [prob.n_el * prob.n_q * (c["newton"]["iters"] * 3 + 1) for _, c, _ in steps]
+    say(f"[{label}] {s_step:.4f} s/step over {timed} steps "
+        f"({', '.join(f'{t:.3f}' for t in times)}); {sum(evals) / sum(times):.4e} qp-evals/s "
+        f"(n_el {prob.n_el} x n_q {prob.n_q} x (3 x Newton iterations + 1) per step: "
+        f"{evals}); max|u| {float(carry['u'].abs().max()):.4e}; peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    for i, (b, c, drop) in enumerate(steps):
+        d = c["newton"]
+        share = ""
+        if c["state"] is not None:
+            yielded = c["state"]["eqps"] > b["state"]["eqps"]
+            share = (f"; plastic share {float(yielded.float().mean()):.4f}, eqps max "
+                     f"{float(c['state']['eqps'].max()):.4e}")
+        say(f"[{label}] timed step {i}: newton {d['iters']}, gmres {d['lin_iters']}, |r0| "
+            f"{d['norm0']:.4e} -> |r| {d['norm']:.4e} (drop {drop:.2e}){share}")
+    for name in names:  # at least once in each of the 1 + timed steps
+        if launches[name] < 1 + timed:
+            fail(f"kernel {name} was launched {launches[name]} times in {1 + timed} steps "
+                 f"of {label}")
+    if not all(c["newton"]["finite"] for _, c, _ in steps):
+        fail(f"non-finite state on {label}")
+    return carry, step, s_step, launches, steps
+
+
+def drop_of(carry):
+    d = carry["newton"]
+    return d["norm"] / d["norm0"]
+
+
+def hold_short_step(torch, mt, prob, before, after, dt, step_kw, label, gen, full=True):
+    """A step of the kernel path whose Newton residual did not fall four
+    orders (`after`, taken from the carry `before`), held against the
+    plain path.  Always: the step's first Newton system, assembled by both
+    paths from `before` (residual and J w at the assemble and matvec bars,
+    1e-4 x scale).  With `full`, also the whole step on the plain path: the
+    kernel path must not stop short where the plain path reaches the drop,
+    its drop must be within 3x of the plain path's, and where Newton got
+    the residual below 1e-2 of |r0| on both paths (a solution fixed to that
+    precision) the two steps agree at 1e-4 x max|u|.  Where Newton stalls
+    on both paths (GMRES at its cap: the configuration, not the kernel,
+    phase 29 runs it in float64) the outputs of two stalled iterations are
+    printed, not held.  Anything else fails the run."""
+    cap = step_kw["cg_iters"]
+    ns = [mt.make_step(prob, dt, residual_impl=impl, **step_kw).newton_system(before)
+          for impl in ("cuda", "torch")]
+    w = torch.randn(ns[0]["r"].shape, generator=gen).to(prob.device, prob.dtype)
+    jw = [n["J_apply"](w) for n in ns]
+    r_err, r_scale = float((ns[0]["r"] - ns[1]["r"]).abs().max()), float(ns[1]["r"].abs().max())
+    jw_err, jw_scale = float((jw[0] - jw[1]).abs().max()), float(jw[1].abs().max())
+    d = after["newton"]
+    say(f"[{label}] drop {drop_of(after):.3e} (newton {d['iters']}, gmres {d['lin_iters']}: "
+        f"{d['lin_iters'] / max(d['iters'], 1):.1f} per solve against the cap of {cap}); the "
+        f"step's first Newton system, kernel path vs plain path: residual max|err| "
+        f"{r_err:.3e} of {r_scale:.3e}, J w {jw_err:.3e} of {jw_scale:.3e}")
+    if not (r_err <= 1e-4 * r_scale and jw_err <= 1e-4 * jw_scale):
+        fail(f"{label}: the Newton system differs between the kernel and plain paths")
+    if not after["newton"]["finite"]:
+        fail(f"{label}: non-finite state")
+    if drop_of(after) > 1e-2:
+        say(f"[{label}] Newton stalled on the kernel path (GMRES at its cap): the whole step "
+            "is not rerun on the plain path, whose stalled iterates would not be held")
+        return
+    if not full:
+        return
+    plain = mt.make_step(prob, dt, residual_impl="torch", **step_kw)(before)
+    dk, dp = drop_of(after), drop_of(plain)
+    err = float((plain["u"] - after["u"]).abs().max())
+    scale = float(plain["u"].abs().max())
+    stalled = dp > 1e-2 and dk > 1e-2
+    say(f"[{label}] the step on both paths: drop {dk:.3e} / {dp:.3e} (newton "
+        f"{after['newton']['iters']}/{plain['newton']['iters']}, gmres "
+        f"{after['newton']['lin_iters']}/{plain['newton']['lin_iters']}); max|du| {err:.3e} of "
+        f"max|u| {scale:.3e} ({err / scale:.3e}); "
+        + ("Newton stalls on both paths: two stalled iterations, not held" if stalled else
+           "both stop short of 1e-4 at the float32 floor of the residual"))
+    if not plain["newton"]["finite"]:
+        fail(f"{label}: non-finite state on the plain path")
+    if not (math.isfinite(dk) and dp > 1e-4 and dk <= 3.0 * dp):
+        fail(f"{label}: the kernel path's Newton drop {dk} falls short of the plain path's "
+             f"{dp} and of 1e-4")
+    if not stalled and not err <= 1e-4 * scale:
+        fail(f"{label}: kernel path vs plain path {err} > 1e-4 * {scale}")
+
+
+def check_drops(torch, mt, prob, steps, dt, step_kw, label, gen):
+    """Each timed step's Newton residual must fall four orders (rel_tol
+    1e-8 is below float32 resolution); a step that does not is held kernel
+    path against plain path from its input carry (hold_short_step): the
+    whole step for the first such step, the Newton system for every one."""
+    first = True
+    for i, (before, after, drop) in enumerate(steps):
+        if not (math.isfinite(drop) and drop <= 1e-4):
+            hold_short_step(torch, mt, prob, before, after, dt, step_kw,
+                            f"{label} timed step {i}", gen, full=first)
+            first = False
+
+
+def step_parity(torch, mt, build64, prob, dt, step_kw, label, gen):
+    """One step from the initial carry, kernel path against plain path at
+    1e-4 x max|u|, finite state.  The float32 Newton residual may stop
+    short of a 1e-4 drop at this size: the same step from the same carry
+    in float64 on the plain path (`build64` builds the problem in float64)
+    must reach it,
+    and the float32 kernel step must agree with it at 1e-4 x max|u|; a
+    float32 step short of the drop is then held as hold_short_step does."""
+    carry0 = mt.initial_carry(prob)
+    out = {impl: mt.make_step(prob, dt, residual_impl=impl, **step_kw)(carry0)
+           for impl in ("cuda", "torch")}
+    err = float((out["cuda"]["u"] - out["torch"]["u"]).abs().max())
+    scale = float(out["torch"]["u"].abs().max())
+    nc, nt = out["cuda"]["newton"], out["torch"]["newton"]
+    plastic = ""
+    if carry0["state"] is not None:
+        plastic = "; plastic points " + "/".join(
+            str(int((out[i]["state"]["eqps"] > 0).sum())) for i in ("cuda", "torch"))
+    say(f"[{label}] cuda vs torch: max|du| {err:.3e} max|u| {scale:.3e} ({err / scale:.3e}); "
+        f"newton {nc['iters']}/{nt['iters']} gmres {nc['lin_iters']}/{nt['lin_iters']}; "
+        f"drop {drop_of(out['cuda']):.2e}/{drop_of(out['torch']):.2e}{plastic}")
+    # the bar of the reference package's pallas-vs-soa parity check
+    if not err <= 1e-4 * scale:
+        fail(f"{label}: one-step parity {err} > 1e-4 * {scale}")
+    p64 = build64()
+    carry64 = dict(carry0, **{k: carry0[k].double() for k in ("u", "v", "a")})
+    if carry0["state"] is not None:
+        carry64["state"] = {k: v.double() for k, v in carry0["state"].items()}
+    ref = mt.make_step(p64, dt, residual_impl="torch", **step_kw)(carry64)
+    err64 = float((out["cuda"]["u"].double() - ref["u"]).abs().max())
+    scale64 = float(ref["u"].abs().max())
+    say(f"[{label}] float64 plain step: Newton {ref['newton']['iters']}, drop "
+        f"{drop_of(ref):.2e}; the float32 kernel step vs it max|du| {err64:.3e} of "
+        f"{scale64:.3e} ({err64 / scale64:.3e})")
+    if not (ref["newton"]["finite"] and drop_of(ref) <= 1e-4):
+        fail(f"{label}: the float64 step did not reach a 1e-4 drop ({ref['newton']})")
+    if not err64 <= 1e-4 * scale64:
+        fail(f"{label}: the float32 kernel step vs float64 {err64} > 1e-4 * {scale64}")
+    if not drop_of(out["cuda"]) <= 1e-4:
+        hold_short_step(torch, mt, prob, carry0, out["cuda"], dt, step_kw, label, gen)
+    elif not (nc["finite"] and nt["finite"]):
+        fail(f"{label}: non-finite state")
+    return p64, ref
+
+
+def dense2d_phases(torch, mt, sweeps, soa, sh, device, gen):
+    """Phases 27-32: the 2D dense-table path (the golden cantilever at
+    p = 3), the 2D p = 2 instantiations and 3D dense J2.  27: host build of
+    the 512^2 J2 problem; 28: every new kernel against plain (2D p = 3 at
+    512^2, J2 on a plastic input; 2D p = 2 at 128^2; 3D J2 on the two-patch
+    cube at 2 x 8^3); 29: one step kernel path against plain path (2D J2
+    and neo-Hookean at 64^2, 3D two-patch J2 at 2 x 8^3); 30: the timed
+    drives at 512^2 (J2 1 + 5 steps, neo-Hookean 1 + 2) and the short
+    drives that launch the other instantiations; 31: one profiled step per
+    2D material at 512^2; 32: the rows of the kernels line, timed at the
+    drives' states.  Returns the rows."""
+    rows = []
+    t_start = time.perf_counter()
+
+    def clock(what):
+        say(f"[27-32 clock] {what}: {time.perf_counter() - t_start:.1f} s since phase 27")
+
+    # ---- 29. one step at 64^2 (2D) and 2 x 8^3 (3D J2): cuda vs torch ----------
+    f64 = torch.float64
+    for name in ("J2", "CompressibleOgdenNeoHookean"):
+        prob = balken_build(mt, name, 2, STEP2D_SUBDIVIDE, device)
+        label = f"29. {2**STEP2D_SUBDIVIDE}^2 step {name}"
+        p64, carry = step_parity(
+            torch, mt, lambda: balken_build(mt, name, 2, STEP2D_SUBDIVIDE, device, f64), prob,
+            GOLDEN_2D[name][1], STEP2D_KW, label, gen)
+        if name != "J2":
+            continue
+        # the J2 configuration itself in float64 on the plain path, two
+        # steps further (printed, not held): where Newton stalls here it is
+        # the problem and its solver settings, not float32 or the kernels
+        step64 = mt.make_step(p64, GOLDEN_2D[name][1], residual_impl="torch", **STEP2D_KW)
+        for i in (1, 2):
+            carry = step64(carry)
+            d = carry["newton"]
+            eqps = (f", eqps max {float(carry['state']['eqps'].max()):.3e}"
+                    if carry["state"] is not None else "")
+            say(f"[{label}] float64 plain step {i}: drop {drop_of(carry):.2e}, newton "
+                f"{d['iters']}, gmres {d['lin_iters']} ({d['lin_iters'] / max(d['iters'], 1):.1f} "
+                f"per solve, cap {STEP2D_KW['cg_iters']}), max|u| "
+                f"{float(carry['u'].abs().max()):.3e}{eqps}")
+        del p64, carry, step64
+    prob = dense_build(mt, DENSE_CHECK_SPANS, device, "J2", A=A_PLASTIC)
+    step_parity(torch, mt,
+                lambda: dense_build(mt, DENSE_CHECK_SPANS, device, "J2", A_PLASTIC, f64), prob,
+                STEP_KW["dt"], {k: v for k, v in STEP_KW.items() if k != "dt"},
+                f"29. 2x{DENSE_CHECK_SPANS}^3 step J2, A {A_PLASTIC}", gen)
+
+    # ---- 28. 3D dense J2 + cauchy against plain at 2 x 8^3 ----------------------
+    prob = dense_build(mt, DENSE_CHECK_SPANS, device, "J2")
+    u_el, a_el, w_el, state, share = dense_inputs(torch, sweeps, soa, prob, gen, STEP_KW["dt"],
+                                                  0.2)
+    label = f"28. 2x{DENSE_CHECK_SPANS}^3 random J2"
+    say(f"[{label}] plastic share of the points {share:.3f}")
+    if share < 0.25:
+        fail(f"{label}: plastic share {share} < 0.25")
+    compare_dense(torch, sweeps, prob, u_el, a_el, w_el, state, STEP_KW["dt"], label)
+    del prob, u_el, a_el, w_el, state
+    torch.cuda.empty_cache()
+    clock("phases 28-29 at 64^2 and 2 x 8^3")
+
+    # ---- 27-32. 2D p = 3 at 512^2 and p = 2 at 128^2 ------------------------------
+    cases = [(name, 2, GOLDEN_SUBDIVIDE) for name in GOLDEN_2D]
+    cases += [(name, 1, P2_SUBDIVIDE) for name in GOLDEN_2D]
+    for name, elevate, subdivide in cases:
+        force, dt, timed = GOLDEN_2D[name]
+        n = 2**subdivide
+        if elevate == 1:
+            timed = 1
+        tag = f"{n}^2 p={elevate + 1} {name}"
+        sweeps.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        t0 = time.perf_counter()
+        prob = balken_build(mt, name, elevate, subdivide, device)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        say(f"[27. {tag}] host build {host_s:.2f} s: n_el {prob.n_el}, n_q {prob.n_q}, nd "
+            f"{prob.dense['dN_t'].shape[0]}, unknowns {prob.n_dof * prob.dim}; dense tables "
+            f"{nbytes(prob.dense, prob.wdet_t) / 1e9:.3f} GB; device peak allocated "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; host peak RSS of the process "
+            f"{rss / 1e6:.3f} GB ({(rss - rss0) / 1e6:.3f} GB above its peak before the build)")
+        u_el, a_el, w_el, state, share = dense_inputs(torch, sweeps, soa, prob, gen, dt, 0.2)
+        if share is not None:
+            say(f"[28. {tag} random] plastic share of the points {share:.3f}")
+            if share < 0.25:
+                fail(f"{tag}: plastic share {share} < 0.25: the check would not exercise "
+                     "the return map")
+        compare_dense(torch, sweeps, prob, u_el, a_el, w_el, state, dt, f"28. {tag} random")
+        del u_el, a_el, w_el, state
+        torch.cuda.empty_cache()
+        sweeps.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        carry, step, s_step, launches, steps = drive_dense(
+            torch, mt, sweeps, prob, f"30. {tag}", timed, dt, STEP2D_KW)
+        clock(f"{tag} drive")
+        check_drops(torch, mt, prob, steps, dt, STEP2D_KW, f"30. {tag}", gen)
+        clock(f"{tag} drops held")
+        del steps
+        u_el, a_el, w_el = predictor_fields(torch, sh, prob, carry, gen, dt)
+        errs, C = compare_dense(torch, sweeps, prob, u_el, a_el, w_el, carry["state"], dt,
+                                f"28. {tag} path")
+        rows += time_dense(torch, sweeps, prob, u_el, a_el, w_el, carry["state"], C, dt,
+                           launches, errs, f"32. {tag} timing",
+                           matvec=name != "StVenantKirchhoff")
+        if elevate == 2 and name != "StVenantKirchhoff":
+            profile_step(torch, step, carry, s_step, f"31. {tag} profile", cpu=False)
+        del prob, carry, step, u_el, a_el, w_el, C
+        torch.cuda.empty_cache()
+        clock(tag)
+
+    # ---- 30, 32. 3D dense J2 on the cantilever's 2 x 38^3 tables -----------------
+    sweeps.reset_launches()
+    t0 = time.perf_counter()
+    prob = dense_build(mt, DENSE_SPANS, device, "J2")
+    torch.cuda.synchronize()
+    tag = f"2x{DENSE_SPANS}^3 J2"
+    say(f"[30. {tag}] host build {time.perf_counter() - t0:.2f} s: n_el {prob.n_el}")
+    kw = {k: v for k, v in STEP_KW.items() if k != "dt"}
+    carry, step, s_step, launches, steps = drive_dense(
+        torch, mt, sweeps, prob, f"30. {tag}", 1, STEP_KW["dt"], kw)
+    check_drops(torch, mt, prob, steps, STEP_KW["dt"], kw, f"30. {tag}", gen)
+    u_el, a_el, w_el = predictor_fields(torch, sh, prob, carry, gen)
+    errs, C = compare_dense(torch, sweeps, prob, u_el, a_el, w_el, carry["state"],
+                            STEP_KW["dt"], f"28. {tag} path")
+    rows += time_dense(torch, sweeps, prob, u_el, a_el, w_el, carry["state"], C,
+                       STEP_KW["dt"], launches, errs, f"32. {tag} timing")
+    del prob, carry, step, steps, u_el, a_el, w_el, C
+    torch.cuda.empty_cache()
+    clock(tag)
+    return rows
+
+
 def main():
     import torch
 
@@ -1508,10 +2029,11 @@ def main():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             say(f"  ptxas: {line.strip()}")
 
+    gen = torch.Generator().manual_seed(0)
+
     # ---- 3. kernel vs plain at 16^3 -----------------------------------------
     prob = build(mt, CHECK_SPANS, device)
     E, h = prob.n_el, 1.0 / CHECK_SPANS
-    gen = torch.Generator().manual_seed(0)
     dt_ = prob.dtype
     rnd = lambda *s: torch.randn(*s, generator=gen).to(device, dt_)  # noqa: E731
     u_el = 0.06 * h * rnd(3, 27, E)  # strains ~5-10%: past yield, F well-conditioned
@@ -1652,6 +2174,9 @@ def main():
 
     # ---- 23-26. finite-strain J2 plasticity with the full tangent -----------------
     rows += finite_phases(torch, mt, sweeps, soa, sh, device, gen)
+
+    # ---- 27-32. the 2D dense-table path, 3D dense J2 --------------------------------
+    rows += dense2d_phases(torch, mt, sweeps, soa, sh, device, gen)
 
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {

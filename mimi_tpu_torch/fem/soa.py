@@ -112,8 +112,11 @@ def cbrt(x):
 
 
 def det(A):
-    if A.shape[0] != 3:
-        raise NotImplementedError("soa.det is 3x3 only")
+    d = A.shape[0]
+    if d == 2:
+        return A[0, 0] * A[1, 1] - A[0, 1] * A[1, 0]
+    if d != 3:
+        raise NotImplementedError(f"soa.det of a {d}x{d} tensor")
     return (
         A[0, 0] * (A[1, 1] * A[2, 2] - A[1, 2] * A[2, 1])
         - A[0, 1] * (A[1, 0] * A[2, 2] - A[1, 2] * A[2, 0])
@@ -122,9 +125,16 @@ def det(A):
 
 
 def inv(A):
-    """Closed-form (adjugate) 3x3 inverse."""
-    if A.shape[0] != 3:
-        raise NotImplementedError("soa.inv is 3x3 only")
+    """Closed-form (adjugate) 2x2 or 3x3 inverse, in the reference's
+    operation order: 2x2 divides by det, 3x3 multiplies by 1 / det."""
+    d = A.shape[0]
+    if d == 2:
+        detA = det(A)
+        return stack2(
+            [[A[1, 1] / detA, -A[0, 1] / detA], [-A[1, 0] / detA, A[0, 0] / detA]]
+        )
+    if d != 3:
+        raise NotImplementedError(f"soa.inv of a {d}x{d} tensor")
 
     def c(i1, j1, i2, j2):
         return A[i1, j1] * A[i2, j2] - A[i1, j2] * A[i2, j1]

@@ -10,8 +10,10 @@ Counterpart of mimi_tpu/materials/__init__.py for the structure-of-arrays
 on detached tensors and re-injects its exact sensitivity through one
 implicit-function-theorem correction.
 
-Ported so far: `J2` (small-strain J2 with nonlinear isotropic hardening;
-the 37-plane Cauchy tangent storage), the finite-strain plasticity models
+Every model works on 2 x 2 (2D) and 3 x 3 (3D) tensors, as the reference's
+do (a true 2 x 2 tensor in 2D, the deviator over trace / 2).  Ported so
+far: `J2` (small-strain J2 with nonlinear isotropic hardening; the
+Cauchy-decomposition tangent storage, 37 planes in 3D and 14 in 2D), the finite-strain plasticity models
 `J2Simo` and `J2Log` (the 81-plane `full` storage, whose planes the CUDA
 assemble kernels form by forward-mode dual numbers), and the hyperelastic
 `CompressibleOgdenNeoHookean` and `StVenantKirchhoff` (each with its
@@ -116,18 +118,19 @@ class StVenantKirchhoff(Material):
                     + mu (F_cf F_gd + B_cg d_df), B = F F^T."""
         S = self._second_pk(F)
         B = soa.matmul_nt(F, F)
+        n = F.shape[0]
         rows = []
-        for c in range(3):
-            for d in range(3):
-                for g in range(3):
-                    for f in range(3):
+        for c in range(n):
+            for d in range(n):
+                for g in range(n):
+                    for f in range(n):
                         x = self.lambda_ * F[c, d] * F[g, f] + self.mu * F[c, f] * F[g, d]
                         if c == g:
                             x = x + S[f, d]
                         if d == f:
                             x = x + self.mu * B[c, g]
                         rows.append(x)
-        return torch.stack(rows, 0).reshape(3, 3, 3, 3, *F.shape[2:])
+        return torch.stack(rows, 0).reshape(n, n, n, n, *F.shape[2:])
 
 
 def neohookean_pk1_soa(F, lam, mu):
@@ -161,16 +164,17 @@ class CompressibleOgdenNeoHookean(Material):
         fi = soa.inv(F)
         k1 = self.lambda_ * (2.0 * J - 1.0) * J
         k2 = self.lambda_ * J * (J - 1.0) - self.mu
+        n = F.shape[0]
         rows = []
-        for c in range(3):
-            for d in range(3):
-                for g in range(3):
-                    for f in range(3):
+        for c in range(n):
+            for d in range(n):
+                for g in range(n):
+                    for f in range(n):
                         x = k1 * fi[d, c] * fi[f, g] - k2 * fi[f, c] * fi[d, g]
                         if c == g and d == f:
                             x = x + self.mu
                         rows.append(x)
-        return torch.stack(rows, 0).reshape(3, 3, 3, 3, *F.shape[2:])
+        return torch.stack(rows, 0).reshape(n, n, n, n, *F.shape[2:])
 
 
 class _J2ThermoBase(Material):

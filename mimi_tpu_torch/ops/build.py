@@ -21,11 +21,12 @@ import time
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [
     os.path.join(_HERE, "csrc", name)
-    for name in ("sweeps_sf.cu", "sweeps_sf_finite.cu", "sweeps_dense.cu", "fused_neohookean.cu")
+    for name in ("sweeps_sf.cu", "sweeps_sf_finite.cu", "sweeps_dense.cu", "sweeps_dense_j2.cu",
+                 "fused_neohookean.cu")
 ]
 HEADERS = [
     os.path.join(_HERE, "csrc", name)
-    for name in ("materials.cuh", "dense_common.cuh", "sf_common.cuh", "dual.cuh")
+    for name in ("materials.cuh", "j2.cuh", "dense_common.cuh", "sf_common.cuh", "dual.cuh")
 ]
 FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -96,35 +97,41 @@ def build():
     return so
 
 
+def bind(lib):
+    """Set the ctypes signatures of the kernel library's C entry points."""
+    from .sweeps import _HyperParams, _J2Params
+
+    vp, ll, ci, cf = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+    sigs = {
+        "residual_sf": [vp] * 15 + [_J2Params, cf, ll, vp],
+        "assemble_sf": [vp] * 16 + [ci, _J2Params, cf, ll, vp],
+        "matvec_sf": [vp] * 10 + [ci, vp, cf, cf, ci, cf, ll, vp],
+        "residual_sf_hyper": [vp] * 11 + [_HyperParams, ci, ll, vp],
+        "assemble_sf_hyper": [vp] * 12 + [_HyperParams, ci, ll, vp],
+        "matvec_sf_sym": [vp] * 11 + [cf, cf, ll, vp],
+        "residual_sf_finite": [vp] * 15 + [_J2Params, ci, ll, vp],
+        "assemble_sf_finite": [vp] * 16 + [_J2Params, ci, ll, vp],
+        "matvec_sf_full": [vp] * 11 + [cf, cf, ll, vp],
+        # dense: ..., dim, p, n_el, stream
+        "residual_dense": [vp] * 6 + [_HyperParams, ci, ci, ci, ll, vp],
+        "assemble_dense": [vp] * 7 + [_HyperParams, ci, ci, ci, ll, vp],
+        "matvec_dense": [vp] * 6 + [cf, cf, ci, ci, ll, vp],
+        "residual_dense_j2": [vp] * 9 + [_J2Params, ci, ci, ll, vp],
+        "assemble_dense_j2": [vp] * 10 + [_J2Params, ci, ci, ll, vp],
+        "matvec_dense_cauchy": [vp] * 6 + [cf, cf, ci, ci, ll, vp],
+        "neohookean_residual": [vp] * 4 + [cf, cf, ll, vp],
+        "neohookean_tangent_apply": [vp] * 5 + [cf, cf, ll, vp],
+    }
+    for name, args in sigs.items():
+        fn = getattr(lib, f"mimi_{name}")
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def load():
     """The loaded kernel library with its ctypes signatures."""
     global _LIB
-    if _LIB is not None:
-        return _LIB
-    from .sweeps import _HyperParams, _J2Params
-
-    lib = ctypes.CDLL(build())
-    vp, ll, ci, cf = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-    lib.mimi_residual_sf.argtypes = [vp] * 15 + [_J2Params, cf, ll, vp]
-    lib.mimi_assemble_sf.argtypes = [vp] * 16 + [ci, _J2Params, cf, ll, vp]
-    lib.mimi_matvec_sf.argtypes = [vp] * 10 + [ci, vp, cf, cf, ci, cf, ll, vp]
-    lib.mimi_residual_sf_hyper.argtypes = [vp] * 11 + [_HyperParams, ci, ll, vp]
-    lib.mimi_assemble_sf_hyper.argtypes = [vp] * 12 + [_HyperParams, ci, ll, vp]
-    lib.mimi_matvec_sf_sym.argtypes = [vp] * 11 + [cf, cf, ll, vp]
-    lib.mimi_residual_sf_finite.argtypes = [vp] * 15 + [_J2Params, ci, ll, vp]
-    lib.mimi_assemble_sf_finite.argtypes = [vp] * 16 + [_J2Params, ci, ll, vp]
-    lib.mimi_matvec_sf_full.argtypes = [vp] * 11 + [cf, cf, ll, vp]
-    lib.mimi_residual_dense.argtypes = [vp] * 6 + [_HyperParams, ci, ll, vp]
-    lib.mimi_assemble_dense.argtypes = [vp] * 7 + [_HyperParams, ci, ll, vp]
-    lib.mimi_matvec_dense.argtypes = [vp] * 6 + [cf, cf, ll, vp]
-    lib.mimi_neohookean_residual.argtypes = [vp] * 4 + [cf, cf, ll, vp]
-    lib.mimi_neohookean_tangent_apply.argtypes = [vp] * 5 + [cf, cf, ll, vp]
-    for name in (
-        "residual_sf", "assemble_sf", "matvec_sf", "residual_sf_hyper",
-        "assemble_sf_hyper", "matvec_sf_sym", "residual_sf_finite", "assemble_sf_finite",
-        "matvec_sf_full", "residual_dense", "assemble_dense",
-        "matvec_dense", "neohookean_residual", "neohookean_tangent_apply",
-    ):
-        getattr(lib, f"mimi_{name}").restype = ctypes.c_int
-    _LIB = lib
-    return lib
+    if _LIB is None:
+        _LIB = bind(ctypes.CDLL(build()))
+    return _LIB

@@ -1,90 +1,224 @@
-// Shared by the dense-table CUDA sources (sweeps_dense.cu,
-// fused_neohookean.cu): sizes, staging of an element's dof values in shared
-// memory, and the per-point interpolation and scatter on dense tables
-// dN (27, 3, 64, E), N (27, 64, E).  One thread per element; each thread
-// owns one column of the shared arrays, so no barrier is needed.
+// Shared by the dense-table CUDA sources (sweeps_dense.cu, sweeps_dense_j2.cu,
+// fused_neohookean.cu), for sm_90a: the element sizes of a dimension and
+// degree, staging of an element's dof values in shared memory, the
+// per-point interpolation and scatter on dense tables dN (ND, DIM, NQ, E),
+// N (ND, NQ, E), and the residual / assemble and matvec kernel templates
+// with their launchers.  One thread per element; each thread owns one
+// column of the shared arrays, so no barrier is needed.  The design notes
+// are at the head of sweeps_dense.cu.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "materials.cuh"
 
 namespace {
 
-constexpr int ND = 27;  // dofs per element (p = 2)
-constexpr int NQ = 64;  // quadrature points per element
-constexpr int NW = 3 * ND;
 constexpr int BLOCK = 64;
 
 using rn::add;
 using rn::mul;
 
-// this thread's element dof values (3, ND, E) into its shared column
+// sizes of a degree-P element in DIM dimensions: (P + 1)^DIM dofs and the
+// (P + 2)^DIM Gauss points of the default order 2P + 3 (fem/space.py)
+template <int DIM, int P>
+struct DenseShape {
+  static_assert(DIM == 2 || DIM == 3, "2D or 3D");
+  static constexpr int ND = DIM == 2 ? (P + 1) * (P + 1) : (P + 1) * (P + 1) * (P + 1);
+  static constexpr int NQ = DIM == 2 ? (P + 2) * (P + 2) : (P + 2) * (P + 2) * (P + 2);
+  static constexpr int NW = DIM * ND;  // values per element field
+};
+
+// this thread's element dof values (DIM, ND, E) into its shared column
+template <int NW>
 __device__ __forceinline__ void stage(const float* __restrict__ g, float (*s)[BLOCK],
                                       long long e, long long E) {
-#pragma unroll 9
+#pragma unroll 8
   for (int k = 0; k < NW; ++k) s[k][threadIdx.x] = __ldg(g + (long long)k * E + e);
 }
 
-// G[g][f] = sum_n dN[n][f](q) w[g][n], summed in n order without FMA
+// G[g][f] = sum_n dN[n][f](q) w[g][n], summed in n order without FMA (as
+// ops/sweeps.py dense_grad), so F agrees with the plain version to the bit
+template <int DIM, int ND>
 __device__ __forceinline__ void grad_q(const float* __restrict__ dN, float (*w)[BLOCK],
-                                       long long qe, long long QE, float G[3][3]) {
+                                       long long qe, long long QE, float G[DIM][DIM]) {
 #pragma unroll
-  for (int g = 0; g < 3; ++g)
+  for (int g = 0; g < DIM; ++g)
 #pragma unroll
-    for (int f = 0; f < 3; ++f) G[g][f] = 0.f;
+    for (int f = 0; f < DIM; ++f) G[g][f] = 0.f;
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
-    float d[3];
+    float d[DIM];
 #pragma unroll
-    for (int f = 0; f < 3; ++f) d[f] = __ldg(dN + (long long)(n * 3 + f) * QE + qe);
+    for (int f = 0; f < DIM; ++f) d[f] = __ldg(dN + (long long)(n * DIM + f) * QE + qe);
 #pragma unroll
-    for (int g = 0; g < 3; ++g) {
+    for (int g = 0; g < DIM; ++g) {
       const float wv = w[g * ND + n][threadIdx.x];
 #pragma unroll
-      for (int f = 0; f < 3; ++f) G[g][f] = add(G[g][f], mul(d[f], wv));
+      for (int f = 0; f < DIM; ++f) G[g][f] = add(G[g][f], mul(d[f], wv));
     }
   }
 }
 
 // v[c] = sum_n N[n](q) w[c][n]
+template <int DIM, int ND>
 __device__ __forceinline__ void value_q(const float* __restrict__ N, float (*w)[BLOCK],
-                                        long long qe, long long QE, float v[3]) {
-  v[0] = v[1] = v[2] = 0.f;
+                                        long long qe, long long QE, float v[DIM]) {
+#pragma unroll
+  for (int c = 0; c < DIM; ++c) v[c] = 0.f;
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
     const float Nn = __ldg(N + (long long)n * QE + qe);
 #pragma unroll
-    for (int c = 0; c < 3; ++c) v[c] += Nn * w[c * ND + n][threadIdx.x];
+    for (int c = 0; c < DIM; ++c) v[c] += Nn * w[c * ND + n][threadIdx.x];
   }
 }
 
 // acc[c][n] += wq (sum_d dN[n][d] X[c][d] + N[n] m[c]); without MASS the
 // N[n] m[c] term is left out and N, m are not read
-template <bool MASS = true>
-__device__ __forceinline__ void scatter_q(float (&acc)[3][ND], const float* __restrict__ dN,
+template <int DIM, int ND, bool MASS = true>
+__device__ __forceinline__ void scatter_q(float (&acc)[DIM][ND], const float* __restrict__ dN,
                                           const float* __restrict__ N, long long qe,
-                                          long long QE, float wq, const float X[3][3],
+                                          long long QE, float wq, const float X[DIM][DIM],
                                           const float* m) {
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
-    const float d0 = __ldg(dN + (long long)(n * 3 + 0) * QE + qe);
-    const float d1 = __ldg(dN + (long long)(n * 3 + 1) * QE + qe);
-    const float d2 = __ldg(dN + (long long)(n * 3 + 2) * QE + qe);
-    if (MASS) {
-      const float Nn = __ldg(N + (long long)n * QE + qe);
+    float d[DIM];
 #pragma unroll
-      for (int c = 0; c < 3; ++c)
-        acc[c][n] += wq * (d0 * X[c][0] + d1 * X[c][1] + d2 * X[c][2] + Nn * m[c]);
-    } else {
+    for (int f = 0; f < DIM; ++f) d[f] = __ldg(dN + (long long)(n * DIM + f) * QE + qe);
+    const float Nn = MASS ? __ldg(N + (long long)n * QE + qe) : 0.f;
 #pragma unroll
-      for (int c = 0; c < 3; ++c)
-        acc[c][n] += wq * (d0 * X[c][0] + d1 * X[c][1] + d2 * X[c][2]);
+    for (int c = 0; c < DIM; ++c) {
+      float x = d[0] * X[c][0];
+#pragma unroll
+      for (int f = 1; f < DIM; ++f) x += d[f] * X[c][f];
+      if (MASS) x += Nn * m[c];
+      acc[c][n] += wq * x;
     }
   }
 }
 
 inline unsigned grid_for(long long E) { return (unsigned)((E + BLOCK - 1) / BLOCK); }
+
+// ---- kernels ---------------------------------------------------------------
+
+// Residual y[c][n] = sum_q wq (dN[n][d] P(F)[c][d] + N[n] rho a_q[c]),
+// F = I + grad u; with TANGENT also the tangent block of `Store` (the
+// assemble).  `Mat` forms P and the point's tangent data from F and, for a
+// material with state, the point's state leaves (`eval`).
+template <class Mat, class Store, int DIM, int P, bool TANGENT>
+__global__ void __launch_bounds__(BLOCK)
+    dense_residual_kernel(const float* __restrict__ u_el, const float* __restrict__ a_el,
+                          const float* __restrict__ dN, const float* __restrict__ N,
+                          const float* __restrict__ wq, float* __restrict__ out,
+                          float* __restrict__ cout, Mat mat, float rho, long long E) {
+  using S = DenseShape<DIM, P>;
+  constexpr int ND = S::ND;
+  __shared__ float su[S::NW][BLOCK];
+  __shared__ float sa[S::NW][BLOCK];
+  const long long e = (long long)blockIdx.x * BLOCK + threadIdx.x;
+  if (e >= E) return;  // threads share nothing: no barrier below
+  stage<S::NW>(u_el, su, e, E);
+  stage<S::NW>(a_el, sa, e, E);
+  float acc[DIM][ND];
+#pragma unroll
+  for (int c = 0; c < DIM; ++c)
+#pragma unroll
+    for (int n = 0; n < ND; ++n) acc[c][n] = 0.f;
+  const long long QE = (long long)S::NQ * E;
+#pragma unroll 1
+  for (int q = 0; q < S::NQ; ++q) {
+    const long long qe = (long long)q * E + e;
+    float F[DIM][DIM];
+    grad_q<DIM, ND>(dN, su, qe, QE, F);
+#pragma unroll
+    for (int i = 0; i < DIM; ++i) F[i][i] = add(F[i][i], 1.f);
+    float Pk[DIM][DIM];
+    typename Mat::Point pt;
+    mat.template eval<TANGENT>(F, qe, QE, Pk, pt);
+    if (TANGENT) Store::store(cout, qe, QE, mat, pt);
+    float av[DIM], m[DIM];
+    value_q<DIM, ND>(N, sa, qe, QE, av);
+#pragma unroll
+    for (int c = 0; c < DIM; ++c) m[c] = rho * av[c];
+    scatter_q<DIM, ND>(acc, dN, N, qe, QE, __ldg(wq + qe), Pk, m);
+  }
+#pragma unroll
+  for (int c = 0; c < DIM; ++c)
+#pragma unroll
+    for (int n = 0; n < ND; ++n) out[(long long)(c * ND + n) * E + e] = acc[c][n];
+}
+
+// y = J w: y[c][n] = sum_q wq (dN[n][d] dP[c][d] + N[n] rho w_q[c]),
+// dP = fac0 C : grad w from the tangent block of `Store`
+template <class Store, int DIM, int P>
+__global__ void __launch_bounds__(BLOCK)
+    dense_matvec_kernel(const float* __restrict__ w_el, const float* __restrict__ dN,
+                        const float* __restrict__ N, const float* __restrict__ wq,
+                        const float* __restrict__ cs, float* __restrict__ out, float rho,
+                        float fac0, long long E) {
+  using S = DenseShape<DIM, P>;
+  constexpr int ND = S::ND;
+  __shared__ float sw[S::NW][BLOCK];
+  const long long e = (long long)blockIdx.x * BLOCK + threadIdx.x;
+  if (e >= E) return;
+  stage<S::NW>(w_el, sw, e, E);
+  float acc[DIM][ND];
+#pragma unroll
+  for (int c = 0; c < DIM; ++c)
+#pragma unroll
+    for (int n = 0; n < ND; ++n) acc[c][n] = 0.f;
+  const long long QE = (long long)S::NQ * E;
+#pragma unroll 1
+  for (int q = 0; q < S::NQ; ++q) {
+    const long long qe = (long long)q * E + e;
+    float dF[DIM][DIM], v[DIM], m[DIM];
+    grad_q<DIM, ND>(dN, sw, qe, QE, dF);
+    value_q<DIM, ND>(N, sw, qe, QE, v);
+    float dP[DIM][DIM];
+    Store::apply(cs, qe, QE, dF, fac0, dP);
+#pragma unroll
+    for (int c = 0; c < DIM; ++c) m[c] = rho * v[c];
+    scatter_q<DIM, ND>(acc, dN, N, qe, QE, __ldg(wq + qe), dP, m);
+  }
+#pragma unroll
+  for (int c = 0; c < DIM; ++c)
+#pragma unroll
+    for (int n = 0; n < ND; ++n) out[(long long)(c * ND + n) * E + e] = acc[c][n];
+}
+
+template <class Mat, class Store, int DIM, int P, bool TANGENT>
+int launch_dense_residual(const float* u_el, const float* a_el, const float* dN,
+                          const float* N, const float* wq, float* out, float* cout,
+                          const Mat& mat, float rho, long long E, void* stream) {
+  dense_residual_kernel<Mat, Store, DIM, P, TANGENT>
+      <<<grid_for(E), BLOCK, 0, (cudaStream_t)stream>>>(u_el, a_el, dN, N, wq, out, cout,
+                                                         mat, rho, E);
+  return (int)cudaGetLastError();
+}
+
+template <class Store, int DIM, int P>
+int launch_dense_matvec(const float* w_el, const float* dN, const float* N, const float* wq,
+                        const float* cs, float* out, float rho, float fac0, long long E,
+                        void* stream) {
+  dense_matvec_kernel<Store, DIM, P><<<grid_for(E), BLOCK, 0, (cudaStream_t)stream>>>(
+      w_el, dN, N, wq, cs, out, rho, fac0, E);
+  return (int)cudaGetLastError();
+}
+
+// The instantiated (dimension, degree) pairs: fn(DIM, P) as integral
+// constants for (2, 2), (2, 3) and (3, 2); cudaErrorInvalidValue for any
+// other pair (ops/sweeps.py refuses them before a launch).
+template <class Fn>
+int with_dense_shape(int dim, int p, Fn fn) {
+  using std::integral_constant;
+  if (dim == 2 && p == 2) return fn(integral_constant<int, 2>{}, integral_constant<int, 2>{});
+  if (dim == 2 && p == 3) return fn(integral_constant<int, 2>{}, integral_constant<int, 3>{});
+  if (dim == 3 && p == 2) return fn(integral_constant<int, 3>{}, integral_constant<int, 2>{});
+  return (int)cudaErrorInvalidValue;
+}
 
 }  // namespace

@@ -39,10 +39,14 @@
 
 namespace {
 
+using Shape = DenseShape<3, 2>;  // p = 2: 27 dofs, 64 points
+constexpr int ND = Shape::ND, NQ = Shape::NQ, NW = Shape::NW;
+using NeoHookean3 = NeoHookean<3>;
+
 __device__ __forceinline__ void deformation_gradient(const float* __restrict__ dN,
                                                      float (*su)[BLOCK], long long qe,
                                                      long long QE, float F[3][3]) {
-  grad_q(dN, su, qe, QE, F);
+  grad_q<3, ND>(dN, su, qe, QE, F);
   F[0][0] = add(F[0][0], 1.f);
   F[1][1] = add(F[1][1], 1.f);
   F[2][2] = add(F[2][2], 1.f);
@@ -66,11 +70,11 @@ __device__ __forceinline__ void write_out(float* __restrict__ out, const float (
 __global__ void __launch_bounds__(BLOCK)
     nh_residual_kernel(const float* __restrict__ u_el, const float* __restrict__ dN,
                        const float* __restrict__ wq, float* __restrict__ out,
-                       NeoHookean mat, long long E) {
+                       NeoHookean3 mat, long long E) {
   __shared__ float su[NW][BLOCK];
   const long long e = (long long)blockIdx.x * BLOCK + threadIdx.x;
   if (e >= E) return;  // threads share nothing: no barrier below
-  stage(u_el, su, e, E);
+  stage<NW>(u_el, su, e, E);
   float acc[3][ND];
   zero(acc);
   const long long QE = (long long)NQ * E;
@@ -80,7 +84,7 @@ __global__ void __launch_bounds__(BLOCK)
     float F[3][3], P[3][3];
     deformation_gradient(dN, su, qe, QE, F);
     mat.pk1(F, P);
-    scatter_q<false>(acc, dN, nullptr, qe, QE, __ldg(wq + qe), P, nullptr);
+    scatter_q<3, ND, false>(acc, dN, nullptr, qe, QE, __ldg(wq + qe), P, nullptr);
   }
   write_out(out, acc, e, E);
 }
@@ -88,13 +92,13 @@ __global__ void __launch_bounds__(BLOCK)
 __global__ void __launch_bounds__(BLOCK)
     nh_tangent_apply_kernel(const float* __restrict__ u_el, const float* __restrict__ w_el,
                             const float* __restrict__ dN, const float* __restrict__ wq,
-                            float* __restrict__ out, NeoHookean mat, long long E) {
+                            float* __restrict__ out, NeoHookean3 mat, long long E) {
   __shared__ float su[NW][BLOCK];
   __shared__ float sw[NW][BLOCK];
   const long long e = (long long)blockIdx.x * BLOCK + threadIdx.x;
   if (e >= E) return;
-  stage(u_el, su, e, E);
-  stage(w_el, sw, e, E);
+  stage<NW>(u_el, su, e, E);
+  stage<NW>(w_el, sw, e, E);
   float acc[3][ND];
   zero(acc);
   const long long QE = (long long)NQ * E;
@@ -103,7 +107,7 @@ __global__ void __launch_bounds__(BLOCK)
     const long long qe = (long long)q * E + e;
     float F[3][3], dF[3][3], fi[3][3];
     deformation_gradient(dN, su, qe, QE, F);
-    grad_q(dN, sw, qe, QE, dF);
+    grad_q<3, ND>(dN, sw, qe, QE, dF);
     const float J = rn::det3(F);
     rn::inv3(F, fi);  // G = F^-T: G[c][d] = fi[d][c]
     float t = 0.f;    // tr(F^-1 dF) = sum_cd G_cd dF_cd
@@ -128,7 +132,7 @@ __global__ void __launch_bounds__(BLOCK)
         const float M = fi[0][c] * A[0][d] + fi[1][c] * A[1][d] + fi[2][c] * A[2][d];
         dP[c][d] = mat.mu * dF[c][d] + coef_t * fi[d][c] - coef_m * M;
       }
-    scatter_q<false>(acc, dN, nullptr, qe, QE, __ldg(wq + qe), dP, nullptr);
+    scatter_q<3, ND, false>(acc, dN, nullptr, qe, QE, __ldg(wq + qe), dP, nullptr);
   }
   write_out(out, acc, e, E);
 }
@@ -142,7 +146,7 @@ int mimi_neohookean_residual(const float* u_el, const float* dN, const float* wq
                              float lam, float mu, long long E, void* stream) {
   if (E <= 0) return 0;
   nh_residual_kernel<<<grid_for(E), BLOCK, 0, (cudaStream_t)stream>>>(
-      u_el, dN, wq, out, NeoHookean{mu, lam}, E);
+      u_el, dN, wq, out, NeoHookean3{mu, lam}, E);
   return (int)cudaGetLastError();
 }
 
@@ -151,7 +155,7 @@ int mimi_neohookean_tangent_apply(const float* u_el, const float* w_el, const fl
                                   long long E, void* stream) {
   if (E <= 0) return 0;
   nh_tangent_apply_kernel<<<grid_for(E), BLOCK, 0, (cudaStream_t)stream>>>(
-      u_el, w_el, dN, wq, out, NeoHookean{mu, lam}, E);
+      u_el, w_el, dN, wq, out, NeoHookean3{mu, lam}, E);
   return (int)cudaGetLastError();
 }
 

@@ -2,8 +2,8 @@
 // Cauchy storage, the hyperelastic materials with the symmetric storage)
 // and sweeps_sf_finite.cu (J2Simo and J2Log with the full storage), for
 // sm_90a: the 1D basis tables, interpolation and scatter of one element's
-// fields at one point, the Johnson-Cook hardening and the radial return,
-// the full 81-plane storage, and the residual / matvec kernel templates
+// fields at one point (the Johnson-Cook radial return is in j2.cuh), the
+// full 81-plane storage, and the residual / matvec kernel templates
 // with their launchers.  Each source instantiates what it needs; the design
 // notes are at the head of sweeps_sf.cu.
 
@@ -14,6 +14,7 @@
 #include <math.h>
 
 #include "dual.cuh"
+#include "j2.cuh"
 #include "materials.cuh"
 
 namespace {
@@ -25,12 +26,6 @@ constexpr int ND = P1 * P1 * P1;
 constexpr int BLOCK = 128;
 
 }  // namespace
-
-struct J2Params {
-  float K, G, A, B, n, C, eps0_dot, t_ref, t_melt, m, thermo_const, tol, xtol,
-      dt, rho;
-  int rate_dep, thermo_mode, max_iter;
-};
 
 struct Tables {
   const float* t[6];  // B0, D0, B1, D1, B2, D2, each (NG, P1, E)
@@ -151,108 +146,6 @@ __device__ __forceinline__ void scatter(float (&acc)[3][ND], const Basis& s,
         for (int c = 0; c < 3; ++c)
           acc[c][n] += g0 * Z[c][0] + g1 * Z[c][1] + g2 * Z[c][2] + N * mm[c];
       }
-}
-
-// ---- Johnson-Cook hardening and the radial-return residual -------------
-
-__device__ __forceinline__ void jc_flow(const J2Params& p, float e, float& H,
-                                        float& dH) {
-  // A for |eqps| < 1e-13: keeps powf(0, n - 1) out of the derivative
-  if (fabsf(e) < 1.0e-13f) {
-    H = p.A;
-    dH = 0.f;
-  } else {
-    H = p.A + p.B * powf(e, p.n);
-    dH = p.B * (p.n * powf(e, p.n - 1.f));
-  }
-}
-
-__device__ __forceinline__ void jc_rate(const J2Params& p, float rate, float& R,
-                                        float& dR) {
-  // rate guard: logf only above the reference rate
-  if (p.rate_dep && rate > p.eps0_dot) {
-    R = 1.f + p.C * logf(rate / p.eps0_dot);
-    dR = p.C / rate;
-  } else {
-    R = 1.f;
-    dR = 0.f;
-  }
-}
-
-__device__ __forceinline__ float jc_thermo(const J2Params& p, float T) {
-  if (p.thermo_mode == 2) return p.thermo_const;
-  if (p.thermo_mode == 0) return 1.f;
-  if (T < p.t_ref) return 1.f;
-  if (T > p.t_melt) return 0.f;
-  const float theta = (T - p.t_ref) / (p.t_melt - p.t_ref);
-  return 1.f - powf(fmaxf(theta, 0.f), p.m);
-}
-
-// r(d) = q - slope d - H(eqps0 + d) (R(d / dt) thermo) and dr/dd; slope is
-// 3G (J2, J2Log) or G tr(be) (J2Simo)
-__device__ __forceinline__ void rr_residual(const J2Params& p, float d, float q,
-                                            float eqps0, float thermo, float slope,
-                                            float& r, float& dr) {
-  float H, dH, R, dR;
-  jc_flow(p, eqps0 + d, H, dH);
-  jc_rate(p, d / p.dt, R, dR);
-  r = q - slope * d - H * (R * thermo);
-  dr = -slope - (dH * (R * thermo) + H * ((dR / p.dt) * thermo));
-}
-
-// Safeguarded Newton-bisection on [0, ub] with the reference's rules
-// (materials/scalar_solve.py), early exit per thread, then the
-// implicit-function-theorem correction.  Returns delta (0 when elastic),
-// dr/dd at the solution in *fprime and the uncorrected root in *dstar
-// (both left alone when elastic).
-__device__ float radial_return(const J2Params& p, float q, float eqps0,
-                               float thermo, float slope, bool* active,
-                               float* fprime, float* dstar) {
-  float r0, dr0;
-  rr_residual(p, 0.f, q, eqps0, thermo, slope, r0, dr0);
-  *active = r0 > p.tol;
-  if (!*active) return 0.f;
-  float H0, dH0;
-  jc_flow(p, eqps0, H0, dH0);
-  const float lo = 0.f;
-  const float hi = (q - H0 * thermo) / slope;
-  float f_lo, f_hi, tmp;
-  rr_residual(p, lo, q, eqps0, thermo, slope, f_lo, tmp);
-  rr_residual(p, hi, q, eqps0, thermo, slope, f_hi, tmp);
-  const bool swap = f_lo > 0.f;
-  float xl = swap ? hi : lo;
-  float xh = swap ? lo : hi;
-  float x = (0.f < lo || 0.f > hi) ? 0.5f * (lo + hi) : 0.f;
-  float dx = fabsf(hi - lo);
-  float dxo = dx;
-  float f, df;
-  rr_residual(p, x, q, eqps0, thermo, slope, f, df);
-  for (int it = 0; it < p.max_iter; ++it) {
-    const bool bisect = ((x - xh) * df - f > 0.f) || ((x - xl) * df - f < 0.f) ||
-                        (fabsf(2.f * f) > fabsf(dxo * df));
-    dxo = dx;
-    if (bisect) {
-      dx = 0.5f * (xh - xl);
-      x = xl + dx;
-    } else {
-      dx = f / df;
-      x = x - f / df;
-    }
-    rr_residual(p, x, q, eqps0, thermo, slope, f, df);
-    const bool conv = (fabsf(dx) < p.xtol) || (fabsf(f) < p.tol);
-    if (f < 0.f)
-      xl = x;
-    else
-      xh = x;
-    if (conv) break;
-  }
-  if (fabsf(f_hi) < p.xtol) x = hi;
-  if (fabsf(f_lo) < p.xtol) x = lo;
-  float fv, fp;
-  rr_residual(p, x, q, eqps0, thermo, slope, fv, fp);
-  *fprime = fp;
-  *dstar = x;
-  return x - fv / fp;
 }
 
 // ---- the full storage: 81 planes C[a*9 + b] = dP_a / dF_b ------------------

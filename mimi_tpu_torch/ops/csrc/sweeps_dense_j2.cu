@@ -1,0 +1,117 @@
+// Dense-table quadrature sweeps of the implicit step for small-strain J2
+// with the Cauchy-decomposition tangent storage, for sm_90a.
+//
+// Three kernels, each replacing one Pallas TPU kernel of
+// mimi_tpu/ops/sweeps.py in its dense-table branch with c_storage="cauchy":
+//   mimi_residual_dense_j2   <- make_residual_sweep (dense, J2 state)   residual only
+//   mimi_assemble_dense_j2   <- make_assemble_sweep (dense, "cauchy")   residual + Cauchy block
+//   mimi_matvec_dense_cauchy <- make_matvec_sweep ("cauchy")           y = J w
+// on the kernel templates of dense_common.cuh (design notes at the head of
+// sweeps_dense.cu), for (DIM, P) = (2, 2), (2, 3) and (3, 2).  The plain
+// torch versions are residual_dense_plain, assemble_dense_plain and
+// matvec_dense_plain with the J2 material (ops/sweeps.py).
+//
+// The point body is j2.cuh's: the radial return on the point's state
+// (plastic strain (DIM, DIM, NQ, E), eqps and temperature (NQ, E), read
+// once per point) and the closed-form algorithmic tangent, stored as
+// CauchyStorage<DIM>: D-hat, sigma, F^-1 and J, 37 planes in 3D and 14 in
+// 2D (6 + 3 + 4 + 1).  The matvec rebuilds P = J sigma F^-T and applies the
+// geometric terms per point.
+//
+// What bounds them on the H100: bytes on elastic points.  At 512^2 (2D,
+// p = 3, 262,144 elements, 25 points each) the residual streams dN 0.84 GB,
+// N 0.42 GB, the state 0.16 GB and w det J, ~1.5 GB (0.46 ms at
+// 3.35 TB/s); the assemble writes the 14 planes too (0.37 GB); the matvec
+// reads them instead.  A plastic point adds the radial return's iterations
+// (up to 100 safeguarded Newton-bisection trips with powf / logf).
+//
+// Rounding: F is formed without FMA in the plain version's order
+// (dense_common.cuh grad_q), and P = J sigma F^-T from sigma with the
+// single-rounding 2 x 2 / 3 x 3 algebra of materials.cuh, as the plain
+// version's _pk1_from_cauchy_soa.
+
+#include <cuda_runtime.h>
+
+#include "dense_common.cuh"
+#include "j2.cuh"
+#include "materials.cuh"
+
+namespace {
+
+// J2 with its per-point state on the dense kernels' material interface
+template <int DIM>
+struct DenseJ2 {
+  J2Params p;
+  const float* ps;
+  const float* eqps;
+  const float* temp;
+  struct Point {  // what CauchyStorage<DIM> stores
+    float Mt[Voigt<DIM>::NT], sig[DIM][DIM], fi[DIM][DIM], J;
+  };
+  template <bool TANGENT>
+  __device__ __forceinline__ void eval(const float F[DIM][DIM], long long qe, long long QE,
+                                       float P[DIM][DIM], Point& pt) const {
+    float pst[DIM][DIM];
+#pragma unroll
+    for (int i = 0; i < DIM; ++i)
+#pragma unroll
+      for (int j = 0; j < DIM; ++j) pst[i][j] = __ldg(ps + (i * DIM + j) * QE + qe);
+    j2_cauchy<DIM, TANGENT>(p, F, pst, __ldg(eqps + qe), __ldg(temp + qe), pt.sig, pt.Mt);
+    pt.J = rn::det(F);
+    rn::inv(F, pt.fi);
+#pragma unroll
+    for (int c = 0; c < DIM; ++c)
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) P[c][d] = rn::mul(pt.J, rn::dot_nt<DIM>(pt.sig, pt.fi, c, d));
+  }
+};
+
+template <bool TANGENT>
+int j2_entry(const float* u_el, const float* a_el, const float* dN, const float* N,
+             const float* wq, const float* ps, const float* eqps, const float* temp,
+             float* out, float* cout, const J2Params& p, int dim, int deg, long long E,
+             void* stream) {
+  if (E <= 0) return 0;
+  return with_dense_shape(dim, deg, [&](auto D, auto G) {
+    constexpr int DIM = decltype(D)::value, P = decltype(G)::value;
+    return launch_dense_residual<DenseJ2<DIM>, CauchyStorage<DIM>, DIM, P, TANGENT>(
+        u_el, a_el, dN, N, wq, out, cout, DenseJ2<DIM>{p, ps, eqps, temp}, p.rho, E, stream);
+  });
+}
+
+}  // namespace
+
+// C entry points, Cauchy-decomposition storage; (dim, p) one of the
+// instantiated pairs (2, 2), (2, 3), (3, 2).  Each returns the launch's
+// cudaGetLastError(), or cudaErrorInvalidValue for a (dim, p) not
+// instantiated.
+extern "C" {
+
+int mimi_residual_dense_j2(const float* u_el, const float* a_el, const float* dN,
+                           const float* N, const float* wq, const float* ps,
+                           const float* eqps, const float* temp, float* out, J2Params p,
+                           int dim, int deg, long long E, void* stream) {
+  return j2_entry<false>(u_el, a_el, dN, N, wq, ps, eqps, temp, out, nullptr, p, dim, deg, E,
+                         stream);
+}
+
+int mimi_assemble_dense_j2(const float* u_el, const float* a_el, const float* dN,
+                           const float* N, const float* wq, const float* ps,
+                           const float* eqps, const float* temp, float* out, float* cout,
+                           J2Params p, int dim, int deg, long long E, void* stream) {
+  return j2_entry<true>(u_el, a_el, dN, N, wq, ps, eqps, temp, out, cout, p, dim, deg, E,
+                        stream);
+}
+
+int mimi_matvec_dense_cauchy(const float* w_el, const float* dN, const float* N,
+                             const float* wq, const float* cb, float* out, float rho,
+                             float fac0, int dim, int deg, long long E, void* stream) {
+  if (E <= 0) return 0;
+  return with_dense_shape(dim, deg, [&](auto D, auto G) {
+    constexpr int DIM = decltype(D)::value, P = decltype(G)::value;
+    return launch_dense_matvec<CauchyStorage<DIM>, DIM, P>(w_el, dN, N, wq, cb, out, rho,
+                                                           fac0, E, stream);
+  });
+}
+
+}  // extern "C"

@@ -11,9 +11,12 @@ Counterpart of mimi_tpu/ops/sweeps.py (`make_residual_sweep`,
     the hyperelastic materials), inviscid, float32; or with
     c_storage="full" (the 81 planes of dP/dF: J2Simo and J2Log, kernels in
     ops/csrc/sweeps_sf_finite.cu), inviscid, float32;
-  - dense tables dN (nd, dim, n_q, n_el) and N (nd, n_q, n_el),
-    c_storage="sym", inviscid, float32: `residual_dense`,
-    `assemble_dense`, `matvec_dense`, kernels in ops/csrc/sweeps_dense.cu.
+  - dense tables dN (nd, dim, n_q, n_el) and N (nd, n_q, n_el) in 2D or
+    3D, c_storage="sym" (the hyperelastic materials: 45 planes in 3D, 10
+    in 2D) or "cauchy" (J2 with its state: 37 / 14 planes), inviscid,
+    float32: `residual_dense`, `assemble_dense`, `matvec_dense`, kernels
+    in ops/csrc/sweeps_dense.cu and sweeps_dense_j2.cu, compiled for the
+    (dim, p) pairs of DENSE_SHAPES.
 The material decides the storage (`tangent_storage`); the residual and the
 assemble read it off the material, the matvec is told it (`storage`).
 Each sweep has
@@ -29,11 +32,11 @@ fac1 mu_v grad(w).  A bfloat16 tangent block is rounded to nearest even
 when it is written and widened to float on every read.
 
 Layouts (batch-last, elements fastest; shared with the JAX package):
-element dof values (dim, nd, n_el) with n = a0 + P a1 + P^2 a2; per-axis
+element dof values (dim, nd, n_el) with n = a0 + P a1 (+ P^2 a2); per-axis
 1D tables B0, D0, B1, D1, B2, D2 of shape (n_g, p+1, n_el); the per-qp
 Jacobian inverse jinv[a, f] = d xi_a / d X_f of shape (3, 3, n_q, n_el)
 with q = q0 + G q1 + G^2 q2; quadrature weights times det J, wq
-(n_q, n_el); material state leaves (3, 3, n_q, n_el) / (n_q, n_el).
+(n_q, n_el); material state leaves (dim, dim, n_q, n_el) / (n_q, n_el).
 """
 
 from __future__ import annotations
@@ -57,8 +60,9 @@ def variant(name, visc=False, bf16=False):
 # kernel launches since the last reset, per kernel variant (CUDA tensors
 # only): the J2 variants; the hyperelastic and finite-strain sf variants by
 # material tag ("nh" the neo-Hookean, "stvk" the St. Venant-Kirchhoff
-# material, "simo" J2Simo, "log" J2Log); the dense ones, whose untagged
-# names are the neo-Hookean instantiations
+# material, "simo" J2Simo, "log" J2Log); the dense ones by material tag
+# ("j2" for J2; the untagged names are the neo-Hookean instantiations) and
+# (dimension, degree) suffix ("@2d_p3"; none for 3D p = 2)
 LAUNCHES = {
     variant(name, visc, bf16): 0
     for name in ("matvec_sf", "assemble_sf", "residual_sf")
@@ -77,24 +81,52 @@ FULL_KERNELS = {
     "J2Simo": (0, "simo", ("be_old", "F_old", "eqps", "temperature")),
     "J2Log": (1, "log", ("Fp_inv", "eqps", "temperature")),
 }
-# planes of a tangent block by storage
-PLANES = {"cauchy": 37, "sym": 45, "full": 81}
+STORAGES = ("cauchy", "sym", "full")
 
 
-def material_counters(kind, tag, storage="sym"):
+def n_planes(storage, dim=3):
+    """Planes of a tangent block in `storage` for `dim`: cauchy 37 (3D) /
+    14 (2D), sym 45 / 10, full 81 / 16."""
+    if storage not in STORAGES:
+        raise ValueError(f"unknown tangent storage {storage!r}")
+    d2 = dim * dim
+    if storage == "cauchy":
+        return cauchy_plane_layout(dim)["n_plane"]
+    return d2 * (d2 + 1) // 2 if storage == "sym" else d2 * d2
+
+
+# the (dimension, degree) pairs the dense kernels are compiled for: 2D p = 2
+# (the examples), 2D p = 3 (the golden cantilever), 3D p = 2
+DENSE_SHAPES = ((2, 2), (2, 3), (3, 2))
+
+
+def _shape_suffix(dim, p):
+    """Counter-name suffix of an instantiation's (dim, p): none for 3D
+    p = 2, else "@2d_p3" and the like."""
+    return "" if (dim, p) == (3, 2) else f"@{dim}d_p{p}"
+
+
+def material_counters(kind, tag, storage="sym", dim=3, p=2):
     """(residual, assemble) counter names of a material's instantiations on
-    the "sf" or "dense" tables with the "sym" or "full" storage (the
-    untagged dense names are the neo-Hookean's)."""
+    the "sf" or "dense" tables with the "sym", "full" or "cauchy" storage
+    (the untagged dense names are the neo-Hookean's; dense J2 is "j2"),
+    with the suffix of (dim, p)."""
+    sfx = _shape_suffix(dim, p)
     if kind == "dense" and tag == "nh":
-        return "residual_dense", "assemble_dense[sym]"
-    return f"residual_{kind}[{tag}]", f"assemble_{kind}[{tag},{storage}]"
+        return f"residual_dense{sfx}", f"assemble_dense[sym]{sfx}"
+    return f"residual_{kind}[{tag}]{sfx}", f"assemble_{kind}[{tag},{storage}]{sfx}"
+
+
+def matvec_counter(kind, storage, dim=3, p=2):
+    """Counter name of a matvec instantiation: "matvec_dense[cauchy]@2d_p3"
+    and the like."""
+    return f"matvec_{kind}[{storage}]{_shape_suffix(dim, p)}"
 
 
 LAUNCHES.update({
     name: 0
-    for kind in ("sf", "dense")
     for _, tag in HYPER_KERNELS.values()
-    for name in material_counters(kind, tag)
+    for name in material_counters("sf", tag)
 })
 LAUNCHES.update({
     name: 0
@@ -102,7 +134,14 @@ LAUNCHES.update({
     for name in material_counters("sf", tag, "full")
 })
 LAUNCHES.update({
-    "matvec_sf[sym]": 0, "matvec_sf[full]": 0, "matvec_dense[sym]": 0,
+    name: 0
+    for dim, p in DENSE_SHAPES
+    for tag, storage in [(t, "sym") for _, t in HYPER_KERNELS.values()] + [("j2", "cauchy")]
+    for name in (*material_counters("dense", tag, storage, dim, p),
+                 matvec_counter("dense", storage, dim, p))
+})
+LAUNCHES.update({
+    "matvec_sf[sym]": 0, "matvec_sf[full]": 0,
     # ops/fused_neohookean.py
     "neohookean_residual": 0, "neohookean_tangent_apply": 0,
 })
@@ -115,7 +154,7 @@ def reset_launches():
 
 def tangent_storage(mat):
     """The strongest exact compression of the per-point tangent the
-    material declares: "cauchy" (37 planes), "sym" (45) or "full" (81)."""
+    material declares: "cauchy", "sym" or "full" (n_planes)."""
     if mat.tangent_cauchy_decomp:
         return "cauchy"
     return "sym" if mat.tangent_major_symmetric else "full"
@@ -295,9 +334,10 @@ def sf_scatter(X, vecm, tabs, jinv, wq):
 
 def tangent_apply_cauchy(Cb, dF, fac0):
     """dP = fac0 (tr(F^-1 dF) P + J (D-hat : sym dF) F^-T - P dF^T F^-T)
-    from the 37-plane Cauchy-decomposition block Cb (cauchy_plane_layout),
-    P = J sigma F^-T rebuilt from the stored sigma, F^-1 and J."""
-    dim = 3
+    from the Cauchy-decomposition block Cb (cauchy_plane_layout of dF's
+    dimension: 37 planes in 3D, 14 in 2D), P = J sigma F^-T rebuilt from
+    the stored sigma, F^-1 and J."""
+    dim = dF.shape[0]
     lay = cauchy_plane_layout(dim)
     SYM, tri6 = lay["sym"], lay["tri"]
 
@@ -365,22 +405,26 @@ def assemble_sf_plain(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho,
     nearest even).  Viscosity enters the matvec, not the block.
 
     "sym": the 45 planes of `sym_tangent_planes`.  "full": the 81 planes
-    of `full_tangent_planes`.  "cauchy": 37 planes;
-    D-hat comes from forward-mode derivatives of `mat.cauchy_soa` along
-    the 6 one-hot symmetric seeds S_m = e_ij + e_ji (e_ii on the
-    diagonal), scaled by 1/2 on off-diagonal basis columns and stored
-    symmetric (pairs accumulated half plus half)."""
+    of `full_tangent_planes`.  "cauchy": the 37 planes of
+    `cauchy_tangent_planes`."""
     F = soa.add_diag(sf_grad(u_el, tabs, jinv), 1.0)
-    storage = tangent_storage(mat)
-    if storage in ("sym", "full"):
-        planes = sym_tangent_planes if storage == "sym" else full_tangent_planes
-        P, Cb = planes(mat, F, state, dt)
-        y = sf_scatter(
-            _visc_flux(P, v_el, mu_v, tabs, jinv), rho * sf_value(a_el, tabs), tabs, jinv, wq
-        )
-        return y, Cb if c_dtype is None else Cb.to(c_dtype)
-    lay = cauchy_plane_layout(3)
-    SYM, tri6 = lay["sym"], lay["tri"]
+    P, Cb = tangent_planes(tangent_storage(mat))(mat, F, state, dt)
+    y = sf_scatter(
+        _visc_flux(P, v_el, mu_v, tabs, jinv), rho * sf_value(a_el, tabs), tabs, jinv, wq
+    )
+    return y, Cb if c_dtype is None else Cb.to(c_dtype)
+
+
+def cauchy_tangent_planes(mat, F, state, dt):
+    """(P, the Cauchy-decomposition planes of cauchy_plane_layout) at F of
+    any dimension.  D-hat comes from forward-mode derivatives of
+    `mat.cauchy_soa` along the one-hot symmetric seeds S_m = e_ij + e_ji
+    (e_ii on the diagonal), scaled by 1/2 on off-diagonal basis columns
+    and stored symmetric (pairs accumulated half plus half); then sigma,
+    F^-1 and J, and P = J sigma F^-T."""
+    dim = F.shape[0]
+    lay = cauchy_plane_layout(dim)
+    SYM, tri = lay["sym"], lay["tri"]
     planes = [None] * lay["n_plane"]
     sig = None
     for m, (i, j) in enumerate(SYM):
@@ -392,32 +436,34 @@ def assemble_sf_plain(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho,
         for a, (ii, jj) in enumerate(SYM):
             x = col[ii, jj] * wm
             if a == m:
-                planes[tri6[(a, m)]] = x
+                planes[tri[(a, m)]] = x
             elif a > m:
-                planes[tri6[(m, a)]] = 0.5 * x
+                planes[tri[(m, a)]] = 0.5 * x
             else:
-                planes[tri6[(a, m)]] = planes[tri6[(a, m)]] + 0.5 * x
+                planes[tri[(a, m)]] = planes[tri[(a, m)]] + 0.5 * x
     fi = soa.inv(F)
     jd = soa.det(F)
     for a, (ii, jj) in enumerate(SYM):
         planes[lay["off_sig"] + a] = sig[ii, jj]
-    for r in range(3):
-        for c in range(3):
-            planes[lay["off_fi"] + r * 3 + c] = fi[r, c]
+    for r in range(dim):
+        for c in range(dim):
+            planes[lay["off_fi"] + r * dim + c] = fi[r, c]
     planes[lay["off_j"]] = jd
-    P = _visc_flux(jd * soa.matmul_nt(sig, fi), v_el, mu_v, tabs, jinv)
-    y = sf_scatter(P, rho * sf_value(a_el, tabs), tabs, jinv, wq)
-    Cb = torch.stack(planes, 0)
-    return y, Cb if c_dtype is None else Cb.to(c_dtype)
+    return jd * soa.matmul_nt(sig, fi), torch.stack(planes, 0)
 
 
-def _tangent_apply(storage, Cb):
-    """The plain apply of a tangent block held in `storage`."""
-    if storage not in PLANES:
-        raise ValueError(f"unknown tangent storage {storage!r}")
-    if Cb.shape[0] != PLANES[storage]:
+def tangent_planes(storage):
+    """(mat, F, state, dt) -> (P, tangent planes) of `storage`."""
+    return {"cauchy": cauchy_tangent_planes, "sym": sym_tangent_planes,
+            "full": full_tangent_planes}[storage]
+
+
+def _tangent_apply(storage, Cb, dim=3):
+    """The plain apply of a tangent block held in `storage` for `dim`."""
+    if Cb.shape[0] != n_planes(storage, dim):
         raise ValueError(
-            f"C: {PLANES[storage]} planes required for storage {storage!r}, got {Cb.shape[0]}"
+            f"C: {n_planes(storage, dim)} planes required for storage {storage!r} in "
+            f"{dim}D, got {Cb.shape[0]}"
         )
     return {"cauchy": tangent_apply_cauchy, "sym": tangent_apply_sym,
             "full": tangent_apply_full}[storage]
@@ -429,15 +475,15 @@ def matvec_sf_plain(w_el, tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v=None, storage
     `storage` (the 37-plane Cauchy decomposition, the 45 symmetric planes
     or the 81 full ones), widened to the fields' dtype."""
     dW = sf_grad(w_el, tabs, jinv)
-    apply = _tangent_apply(storage, Cb)
-    dP = apply(Cb.to(w_el.dtype), dW, fac0)
+    dP = _tangent_apply(storage, Cb)(Cb.to(w_el.dtype), dW, fac0)
     if fac1_mu_v is not None:
         dP = dP + fac1_mu_v * dW
     return sf_scatter(dP, rho * sf_value(w_el, tabs), tabs, jinv, wq)
 
 
 # ---------------------------------------------------------------------------
-# plain torch versions on dense tables (c_storage="sym")
+# plain torch versions on dense tables (2D and 3D; c_storage "sym" or
+# "cauchy")
 # ---------------------------------------------------------------------------
 
 
@@ -478,78 +524,92 @@ def dense_scatter(X, vecm, dN_t, N_t, wq):
 
 
 def tangent_apply_sym(Cs, dF, fac0):
-    """dP[c, d] = fac0 sum_k C(3c + d, k) dF_k from the 45 upper-triangle
-    planes Cs of a major-symmetric dP/dF (k in order, as _tangent_apply)."""
-    tri, _ = tri_index_map(9)
+    """dP[c, d] = fac0 sum_k C(D c + d, k) dF_k from the D2 (D2 + 1) / 2
+    upper-triangle planes Cs of a major-symmetric dP/dF, D = dim of dF,
+    D2 = D^2 (45 planes in 3D, 10 in 2D; k in order, as _tangent_apply)."""
+    dim = dF.shape[0]
+    d2 = dim * dim
+    tri, _ = tri_index_map(d2)
 
     def C_at(a, k):
         return Cs[tri[(min(a, k), max(a, k))]]
 
     rows = []
-    for c in range(3):
+    for c in range(dim):
         row = []
-        for d in range(3):
-            a = 3 * c + d
+        for d in range(dim):
+            a = dim * c + d
             acc = C_at(a, 0) * dF[0, 0]
-            for k in range(1, 9):
-                acc = acc + C_at(a, k) * dF[k // 3, k % 3]
+            for k in range(1, d2):
+                acc = acc + C_at(a, k) * dF[k // dim, k % dim]
             row.append(fac0 * acc)
         rows.append(row)
     return soa.stack2(rows)
 
 
 def sym_tangent_planes(mat, F, state, dt):
-    """(P, the 45 symmetric planes) at F: the columns C[:, b] = dP/dF_b
-    are forward-mode derivatives of `mat.pk1_soa` along the 9 one-hot
-    seeds, and plane (a, b), a < b, stores 0.5 C_ba + 0.5 C_ab (the
-    reference adds the transposed half first)."""
+    """(P, the symmetric planes) at F: the columns C[:, b] = dP/dF_b are
+    forward-mode derivatives of `mat.pk1_soa` along the D2 one-hot seeds,
+    and plane (a, b), a < b, stores 0.5 C_ba + 0.5 C_ab (the reference
+    adds the transposed half first)."""
+    dim = F.shape[0]
     P, cols = _jvp_columns(mat, F, state, dt)
 
     def C(a, b):  # dP_a / dF_b
-        return cols[b][a // 3, a % 3]
+        return cols[b][a // dim, a % dim]
 
+    d2 = dim * dim
     planes = [
         C(a, a) if a == b else 0.5 * C(b, a) + 0.5 * C(a, b)
-        for a in range(9)
-        for b in range(a, 9)
+        for a in range(d2)
+        for b in range(a, d2)
     ]
     return P, torch.stack(planes, 0)
 
 
 def tangent_apply_full(Cf, dF, fac0):
-    """dP[c, d] = fac0 sum_b C[a*9 + b] dF_b, a = 3c + d, b = 3g + f, from
-    the 81 planes Cf of dP/dF (b in order, as _tangent_apply)."""
+    """dP[c, d] = fac0 sum_b C[a D2 + b] dF_b, a = D c + d, b = D g + f,
+    from the D2^2 planes Cf of dP/dF (b in order, as _tangent_apply)."""
+    dim = dF.shape[0]
+    d2 = dim * dim
     rows = []
-    for c in range(3):
+    for c in range(dim):
         row = []
-        for d in range(3):
-            a = 3 * c + d
-            acc = Cf[a * 9] * dF[0, 0]
-            for b in range(1, 9):
-                acc = acc + Cf[a * 9 + b] * dF[b // 3, b % 3]
+        for d in range(dim):
+            a = dim * c + d
+            acc = Cf[a * d2] * dF[0, 0]
+            for b in range(1, d2):
+                acc = acc + Cf[a * d2 + b] * dF[b // dim, b % dim]
             row.append(fac0 * acc)
         rows.append(row)
     return soa.stack2(rows)
 
 
 def _jvp_columns(mat, F, state, dt):
-    """(P, [dP/dF_b for b in 0..8]): forward-mode derivatives of
-    `mat.pk1_soa` along the 9 one-hot seeds e_b, b = 3g + f, batched over
+    """(P, [dP/dF_b for b in 0..D2-1]): forward-mode derivatives of
+    `mat.pk1_soa` along the one-hot seeds e_b, b = D g + f, batched over
     the seeds (vmap), so the primal, and with it the radial return's
     scalar solve, runs once."""
-    seeds = torch.zeros((9, *F.shape), dtype=F.dtype, device=F.device)
-    for b in range(9):
-        seeds[b, b // 3, b % 3] = 1.0
+    dim = F.shape[0]
+    d2 = dim * dim
+    seeds = torch.zeros((d2, *F.shape), dtype=F.dtype, device=F.device)
+    for b in range(d2):
+        seeds[b, b // dim, b % dim] = 1.0
     P, cols = vmap(lambda s: jvp(lambda Ft: mat.pk1_soa(Ft, state, dt), (F,), (s,)))(seeds)
     return P[0], list(cols)
 
 
 def full_tangent_planes(mat, F, state, dt):
-    """(P, the 81 planes C[a*9 + b] = dP_a / dF_b), a = 3c + d indexing P
-    and b = 3g + f indexing F, from 9 forward-mode derivatives of
-    `mat.pk1_soa` (the reference's `full` storage, flattened)."""
+    """(P, the D2^2 planes C[a D2 + b] = dP_a / dF_b), a = D c + d
+    indexing P and b = D g + f indexing F, from D2 forward-mode
+    derivatives of `mat.pk1_soa` (the reference's `full` storage,
+    flattened)."""
+    dim = F.shape[0]
+    d2 = dim * dim
     P, cols = _jvp_columns(mat, F, state, dt)
-    return P, torch.stack([cols[b][a // 3, a % 3] for a in range(9) for b in range(9)], 0)
+    return P, torch.stack(
+        [cols[b][a // dim, a % dim] for a in range(d2) for b in range(d2)], 0
+    )
 
 
 def residual_dense_plain(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho,
@@ -564,35 +624,38 @@ def residual_dense_plain(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho,
 
 def assemble_dense_plain(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho,
                          v_el=None, mu_v=0.0, c_dtype=None):
-    """Residual (as residual_dense_plain) plus the 45-plane symmetric
-    tangent (`sym_tangent_planes`), stored in `c_dtype` (default: the
-    fields' dtype)."""
+    """Residual (as residual_dense_plain) plus the tangent block in the
+    material's storage, stored in `c_dtype` (default: the fields' dtype):
+    "sym", the symmetric planes of `sym_tangent_planes` (the hyperelastic
+    materials), or "cauchy", the planes of `cauchy_tangent_planes` (J2)."""
+    storage = tangent_storage(mat)
+    _dense_storage(storage)
     F = soa.add_diag(dense_grad(u_el, dN_t), 1.0)
-    P, Cs = sym_tangent_planes(mat, F, state, dt)
+    P, Cb = tangent_planes(storage)(mat, F, state, dt)
     if v_el is not None:
         P = P + mu_v * dense_grad(v_el, dN_t)
     y = dense_scatter(P, rho * dense_value(a_el, N_t), dN_t, N_t, wq)
-    return y, Cs if c_dtype is None else Cs.to(c_dtype)
+    return y, Cb if c_dtype is None else Cb.to(c_dtype)
 
 
 def _dense_storage(storage):
-    """The dense sweeps hold the symmetric storage only."""
-    if storage not in PLANES:
+    """The dense sweeps hold the symmetric and the Cauchy storage."""
+    if storage not in STORAGES:
         raise ValueError(f"unknown tangent storage {storage!r}")
-    if storage != "sym":
+    if storage == "full":
         raise NotImplementedError(
-            f"tangent storage {storage!r} on the dense sweeps "
+            "the full tangent storage (J2Simo, J2Log) on the dense sweeps "
             "(ROADMAP Queue 2 item 2)"
         )
 
 
-def matvec_dense_plain(w_el, dN_t, N_t, wq, Cs, rho, fac0, fac1_mu_v=None, storage="sym"):
+def matvec_dense_plain(w_el, dN_t, N_t, wq, Cb, rho, fac0, fac1_mu_v=None, storage="sym"):
     """y[c, n] = sum_q wq (dN[n, d] dP[c, d] + N[n] rho w_q[c]),
-    dP = fac0 (dP/dF : grad w) (+ fac1 mu_v grad w) from the symmetric
-    planes, widened to the fields' dtype."""
+    dP = fac0 (dP/dF : grad w) (+ fac1 mu_v grad w) from the block of
+    `storage` ("sym" or "cauchy"), widened to the fields' dtype."""
     _dense_storage(storage)
     dW = dense_grad(w_el, dN_t)
-    dP = tangent_apply_sym(Cs.to(w_el.dtype), dW, fac0)
+    dP = _tangent_apply(storage, Cb, dN_t.shape[1])(Cb.to(w_el.dtype), dW, fac0)
     if fac1_mu_v is not None:
         dP = dP + fac1_mu_v * dW
     return dense_scatter(dP, rho * dense_value(w_el, N_t), dN_t, N_t, wq)
@@ -604,7 +667,7 @@ def matvec_dense_plain(w_el, dN_t, N_t, wq, Cs, rho, fac0, fac1_mu_v=None, stora
 
 
 class _J2Params(ctypes.Structure):
-    """Mirror of struct J2Params in csrc/sweeps_sf.cu."""
+    """Mirror of struct J2Params in csrc/j2.cuh."""
 
     _fields_ = [
         (name, ctypes.c_float)
@@ -654,30 +717,54 @@ def _j2_params(mat, dt, rho, family=("J2",)):
     )
 
 
-def _check(name, t, shape, device, dtype=torch.float32):
-    if t.device != device or t.dtype != dtype:
-        raise ValueError(f"{name}: {dtype} on {device} required, got {t.dtype} on {t.device}")
+def _check_shape(name, t, shape):
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(shape)} required, got {tuple(t.shape)}")
+
+
+def _check(name, t, shape, device, dtype=torch.float32):
+    _check_shape(name, t, shape)
+    if t.device != device or t.dtype != dtype:
+        raise ValueError(f"{name}: {dtype} on {device} required, got {t.dtype} on {t.device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: contiguous tensor required")
 
 
-def _check_common(el_fields, tabs, jinv, wq):
-    """Validate the shared sum-factorized operands; returns (device,
-    n_el).  The kernels are compiled for p = 2 and 4 Gauss points per
-    axis (27 dofs, 64 quadrature points per element)."""
-    el_fields = [(n, t) for n, t in el_fields if t is not None]
-    device = el_fields[0][1].device
+def _check_device(device):
     if device.type != "cuda":
         raise ValueError(f"CUDA sweep called on a {device} tensor")
-    n_el = el_fields[0][1].shape[-1]
+
+
+def _check_common(el_fields, tabs, jinv, wq):
+    """Validate the shared sum-factorized operands; returns (device,
+    n_el).  Shapes that do not fit together raise ValueError; consistent
+    shapes of another degree or Gauss count than the kernels are compiled
+    for (p = 2 and 4 Gauss points per axis: 27 dofs, 64 quadrature points
+    per element) raise NotImplementedError, before the device is asked."""
+    el_fields = [(n, t) for n, t in el_fields if t is not None]
+    if len(tabs) != 6:
+        raise ValueError(f"tabs: 6 one-dimensional tables required, got {len(tabs)}")
+    n_g, p1, n_el = tabs[0].shape
+    nd, n_q = p1**3, n_g**3
     for name, t in el_fields:
-        _check(name, t, (3, 27, n_el), device)
+        _check_shape(name, t, (3, nd, n_el))
     for k, t in enumerate(tabs):
-        _check(f"tabs[{k}]", t, (4, 3, n_el), device)
-    _check("jinv", jinv, (3, 3, 64, n_el), device)
-    _check("wq", wq, (64, n_el), device)
+        _check_shape(f"tabs[{k}]", t, (n_g, p1, n_el))
+    _check_shape("jinv", jinv, (3, 3, n_q, n_el))
+    _check_shape("wq", wq, (n_q, n_el))
+    if (n_g, p1) != (4, 3):
+        raise NotImplementedError(
+            f"sum-factorized tables of degree {p1 - 1} with {n_g} Gauss points per axis: "
+            "the CUDA sf sweeps are compiled for degree 2 with 4 (ROADMAP Queue 2 item 8)"
+        )
+    device = el_fields[0][1].device
+    _check_device(device)
+    for name, t in el_fields:
+        _check(name, t, (3, nd, n_el), device)
+    for k, t in enumerate(tabs):
+        _check(f"tabs[{k}]", t, (n_g, p1, n_el), device)
+    _check("jinv", jinv, (3, 3, n_q, n_el), device)
+    _check("wq", wq, (n_q, n_el), device)
     return device, n_el
 
 
@@ -879,7 +966,7 @@ def matvec_sf(w_el, tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v=None, storage="cauc
                 f"the viscous {storage!r} CUDA sf matvec (ROADMAP Queue 2 item "
                 f"{4 if storage == 'sym' else 3})"
             )
-        _check("C", Cb, (PLANES[storage], 64, n_el), device)
+        _check("C", Cb, (n_planes(storage), 64, n_el), device)
         out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
         _launch(
             getattr(load(), f"mimi_matvec_sf_{storage}"), f"matvec_sf[{storage}]",
@@ -902,25 +989,39 @@ def matvec_sf(w_el, tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v=None, storage="cauc
 
 
 def _check_dense(el_fields, dN_t, N_t, wq):
-    """Validate the dense operands (p = 2 and 64 points per element: 27
-    dofs); returns (device, n_el)."""
-    device = el_fields[0][1].device
-    if device.type != "cuda":
-        raise ValueError(f"CUDA sweep called on a {device} tensor")
-    n_el = el_fields[0][1].shape[-1]
+    """Validate the dense operands; returns (device, n_el, dim, p).  Shapes
+    that do not fit together raise ValueError; consistent tables of a
+    (dimension, degree) the kernels are not compiled for (DENSE_SHAPES,
+    each with its (p + 2)^dim Gauss points) raise NotImplementedError,
+    before the device is asked."""
+    if dN_t.dim() != 4:
+        raise ValueError(f"dN_t: (nd, dim, n_q, n_el) required, got {tuple(dN_t.shape)}")
+    nd, dim, n_q, n_el = dN_t.shape
+    p1 = round(nd ** (1.0 / dim)) if dim in (2, 3) else 0
+    if p1**dim != nd:
+        raise ValueError(f"dN_t: {nd} dofs per element is no (p + 1)^{dim}")
     for name, t in el_fields:
-        _check(name, t, (3, 27, n_el), device)
-    _check("dN_t", dN_t, (27, 3, 64, n_el), device)
-    _check("N_t", N_t, (27, 64, n_el), device)
-    _check("wq", wq, (64, n_el), device)
-    return device, n_el
-
-
-def _dense_unported(state, v_el=None, fac1_mu_v=None, c_dtype=torch.float32):
-    if state is not None:
+        _check_shape(name, t, (dim, nd, n_el))
+    _check_shape("N_t", N_t, (nd, n_q, n_el))
+    _check_shape("wq", wq, (n_q, n_el))
+    p = p1 - 1
+    if (dim, p) not in DENSE_SHAPES or n_q != (p + 2) ** dim:
         raise NotImplementedError(
-            "stateful materials on the CUDA dense sweeps (ROADMAP Queue 2 item 2)"
+            f"dense tables of degree {p} in {dim}D with {n_q} points per element: the "
+            f"CUDA dense sweeps are compiled for (dim, p) in {DENSE_SHAPES} with "
+            "(p + 2)^dim points (ROADMAP Queue 2 item 8)"
         )
+    device = dN_t.device
+    _check_device(device)
+    for name, t in el_fields:
+        _check(name, t, (dim, nd, n_el), device)
+    _check("dN_t", dN_t, (nd, dim, n_q, n_el), device)
+    _check("N_t", N_t, (nd, n_q, n_el), device)
+    _check("wq", wq, (n_q, n_el), device)
+    return device, n_el, dim, p
+
+
+def _dense_unported(v_el=None, fac1_mu_v=None, c_dtype=torch.float32):
     if v_el is not None or fac1_mu_v is not None:
         raise NotImplementedError("the viscous CUDA dense sweeps (ROADMAP Queue 2 item 4)")
     if c_dtype != torch.float32:
@@ -929,67 +1030,97 @@ def _dense_unported(state, v_el=None, fac1_mu_v=None, c_dtype=torch.float32):
         )
 
 
-def residual_dense(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el=None, mu_v=0.0):
-    """Dense residual sweep: plain torch on CPU tensors, the CUDA kernel
-    `mimi_residual_dense` on CUDA tensors (the hyperelastic materials,
-    inviscid)."""
-    if u_el.device.type == "cpu":
-        return residual_dense_plain(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el, mu_v)
+def _dense_sweep(assemble, u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho):
+    """The dense residual (or, with `assemble`, residual and tangent block)
+    kernel of the material: the hyperelastic ones with the symmetric
+    storage (`mimi_residual_dense` / `mimi_assemble_dense`), J2 with the
+    Cauchy storage and its state (`mimi_residual_dense_j2` /
+    `mimi_assemble_dense_j2`)."""
     from .build import load
 
-    _dense_unported(state, v_el)
-    device, n_el = _check_dense([("u_el", u_el), ("a_el", a_el)], dN_t, N_t, wq)
-    prm, mat_id, tag = _hyper_params(mat, rho)
-    out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
-    _launch(
-        load().mimi_residual_dense, material_counters("dense", tag)[0],
-        _ptr(u_el), _ptr(a_el), _ptr(dN_t), _ptr(N_t), _ptr(wq), _ptr(out), prm,
-        ctypes.c_int(mat_id), ctypes.c_longlong(n_el),
-    )
-    return out
+    storage = tangent_storage(mat)
+    _dense_storage(storage)
+    if storage == "sym" and state is not None:
+        raise NotImplementedError(
+            "a stateful material with the symmetric storage: no such material is "
+            "ported (ROADMAP Queue 1 item 2)"
+        )
+    prm = _j2_params(mat, dt, rho) if storage == "cauchy" else None
+    device, n_el, dim, p = _check_dense([("u_el", u_el), ("a_el", a_el)], dN_t, N_t, wq)
+    n_q = wq.shape[0]
+    head = (_ptr(u_el), _ptr(a_el), _ptr(dN_t), _ptr(N_t), _ptr(wq))
+    shape = (ctypes.c_int(dim), ctypes.c_int(p), ctypes.c_longlong(n_el))
+    if storage == "cauchy":
+        _check("plastic_strain", state["plastic_strain"], (dim, dim, n_q, n_el), device)
+        _check("eqps", state["eqps"], (n_q, n_el), device)
+        _check("temperature", state["temperature"], (n_q, n_el), device)
+        head += tuple(_ptr(state[k]) for k in ("plastic_strain", "eqps", "temperature"))
+        tag, fns, tail = "j2", ("mimi_residual_dense_j2", "mimi_assemble_dense_j2"), (prm,)
+    else:
+        prm, mat_id, tag = _hyper_params(mat, rho)
+        fns, tail = ("mimi_residual_dense", "mimi_assemble_dense"), (prm, ctypes.c_int(mat_id))
+    names = material_counters("dense", tag, storage, dim, p)
+    out = torch.empty((dim, u_el.shape[1], n_el), dtype=torch.float32, device=device)
+    if not assemble:
+        _launch(getattr(load(), fns[0]), names[0], *head, _ptr(out), *tail, *shape)
+        return out
+    cb = torch.empty((n_planes(storage, dim), n_q, n_el), dtype=torch.float32, device=device)
+    _launch(getattr(load(), fns[1]), names[1], *head, _ptr(out), _ptr(cb), *tail, *shape)
+    return out, cb
+
+
+def residual_dense(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el=None, mu_v=0.0):
+    """Dense residual sweep: plain torch on CPU tensors; on CUDA tensors the
+    kernel `mimi_residual_dense` (the hyperelastic materials) or
+    `mimi_residual_dense_j2` (J2), inviscid, for the (dim, p) pairs of
+    DENSE_SHAPES."""
+    if u_el.device.type == "cpu":
+        return residual_dense_plain(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el, mu_v)
+    _dense_unported(v_el)
+    return _dense_sweep(False, u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho)
 
 
 def assemble_dense(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el=None,
                    mu_v=0.0, c_dtype=None):
-    """Dense assemble sweep: (residual, 45-plane symmetric tangent in
-    `c_dtype`, by default the fields' dtype); plain torch on CPU tensors,
-    the CUDA kernel `mimi_assemble_dense` (the material's closed-form
-    dP/dF) on CUDA tensors."""
+    """Dense assemble sweep: (residual, tangent block in the material's
+    storage and in `c_dtype`, by default the fields' dtype); plain torch on
+    CPU tensors; on CUDA tensors the kernel `mimi_assemble_dense` (the
+    hyperelastic materials' closed-form dP/dF, the symmetric planes) or
+    `mimi_assemble_dense_j2` (J2's closed-form algorithmic tangent, the
+    Cauchy planes), inviscid, float32."""
     c_dtype = c_dtype or u_el.dtype
     if u_el.device.type == "cpu":
         return assemble_dense_plain(
             u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el, mu_v, c_dtype
         )
-    from .build import load
-
-    _dense_unported(state, v_el, c_dtype=c_dtype)
-    device, n_el = _check_dense([("u_el", u_el), ("a_el", a_el)], dN_t, N_t, wq)
-    prm, mat_id, tag = _hyper_params(mat, rho)
-    out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
-    cs = torch.empty((45, 64, n_el), dtype=torch.float32, device=device)
-    _launch(
-        load().mimi_assemble_dense, material_counters("dense", tag)[1],
-        _ptr(u_el), _ptr(a_el), _ptr(dN_t), _ptr(N_t), _ptr(wq), _ptr(out), _ptr(cs),
-        prm, ctypes.c_int(mat_id), ctypes.c_longlong(n_el),
-    )
-    return out, cs
+    _dense_unported(v_el, c_dtype=c_dtype)
+    return _dense_sweep(True, u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho)
 
 
-def matvec_dense(w_el, dN_t, N_t, wq, Cs, rho, fac0, fac1_mu_v=None, storage="sym"):
-    """Dense GMRES matvec sweep on the symmetric planes: plain torch on CPU
-    tensors, the CUDA kernel `mimi_matvec_dense` on CUDA tensors."""
-    if w_el.device.type == "cpu":
-        return matvec_dense_plain(w_el, dN_t, N_t, wq, Cs, rho, fac0, fac1_mu_v, storage)
+def _dense_matvec(w_el, dN_t, N_t, wq, Cb, rho, fac0, storage):
+    """The dense matvec kernel of `storage`: `mimi_matvec_dense` ("sym") or
+    `mimi_matvec_dense_cauchy` ("cauchy")."""
     from .build import load
 
     _dense_storage(storage)
-    _dense_unported(None, fac1_mu_v=fac1_mu_v)
-    device, n_el = _check_dense([("w_el", w_el)], dN_t, N_t, wq)
-    _check("C", Cs, (45, 64, n_el), device)
-    out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
+    device, n_el, dim, p = _check_dense([("w_el", w_el)], dN_t, N_t, wq)
+    _check("C", Cb, (n_planes(storage, dim), wq.shape[0], n_el), device)
+    out = torch.empty((dim, w_el.shape[1], n_el), dtype=torch.float32, device=device)
+    fn = "mimi_matvec_dense" if storage == "sym" else "mimi_matvec_dense_cauchy"
     _launch(
-        load().mimi_matvec_dense, "matvec_dense[sym]",
-        _ptr(w_el), _ptr(dN_t), _ptr(N_t), _ptr(wq), _ptr(Cs), _ptr(out),
-        ctypes.c_float(rho), ctypes.c_float(fac0), ctypes.c_longlong(n_el),
+        getattr(load(), fn), matvec_counter("dense", storage, dim, p),
+        _ptr(w_el), _ptr(dN_t), _ptr(N_t), _ptr(wq), _ptr(Cb), _ptr(out),
+        ctypes.c_float(rho), ctypes.c_float(fac0), ctypes.c_int(dim), ctypes.c_int(p),
+        ctypes.c_longlong(n_el),
     )
     return out
+
+
+def matvec_dense(w_el, dN_t, N_t, wq, Cb, rho, fac0, fac1_mu_v=None, storage="sym"):
+    """Dense GMRES matvec sweep on the block of `storage`: plain torch on
+    CPU tensors; on CUDA tensors the kernel `mimi_matvec_dense` ("sym") or
+    `mimi_matvec_dense_cauchy` ("cauchy"), inviscid, float32."""
+    if w_el.device.type == "cpu":
+        return matvec_dense_plain(w_el, dN_t, N_t, wq, Cb, rho, fac0, fac1_mu_v, storage)
+    _dense_unported(fac1_mu_v=fac1_mu_v)
+    return _dense_matvec(w_el, dN_t, N_t, wq, Cb, rho, fac0, storage)

@@ -9,10 +9,15 @@ paths:
     tangent (the viscous flux and a bfloat16 tangent block where asked),
     the 45-plane symmetric or the 81-plane full tangent, structured
     gather and pad-and-sum scatter;
-  - every other 3D problem, multi-patch meshes and repeated interior knots
-    (the neo-Hookean two-patch cantilever): the dense-table sweeps with
-    the 45-plane symmetric tangent, gather and index_add_ scatter through
-    the connectivity, the patch-wise additive-Schwarz FDM.
+  - every other problem, 2D patches (the golden cantilever, balken at
+    p=3), multi-patch meshes and repeated interior knots (the neo-Hookean
+    two-patch cantilever): the dense-table sweeps with the symmetric
+    tangent of the hyperelastic materials (45 planes in 3D, 10 in 2D) or
+    J2's Cauchy-decomposition tangent (37 / 14 planes) and its state,
+    structured gather and pad-and-sum scatter on one patch with simple
+    interior knots, else gather and index_add_ scatter through the
+    connectivity, the FDM (patch-wise additive Schwarz on several
+    patches).
 All run FDM-preconditioned GMRES and the reference's LineSearchNewton
 semantics
 (goal max(rel*|r0|, abs), non-finite abort, 3-point line search with a
@@ -60,7 +65,7 @@ class Problem:
     rhs: torch.Tensor  # (n_dof, dim)
     free: torch.Tensor  # (n_dof, dim) 1.0 / 0.0
     facs: dict  # generalized-alpha factors
-    state0: dict | None  # SoA material state: (3, 3, n_q, n_el) / (n_q, n_el)
+    state0: dict | None  # SoA material state: (dim, dim, n_q, n_el) / (n_q, n_el)
     fdm: dict | None  # FDM preconditioner data (host numpy), or None
     # structured dof grid {"spans", "nc", "pp1"} (one patch, simple interior
     # knots), or None: gather and scatter then go through connT
@@ -490,7 +495,7 @@ def _select_impl(prob, residual_impl):
 
 
 def _grad(prob, w_el):
-    """Physical gradient (3, 3, n_q, n_el) of element fields (3, nd, n_el)."""
+    """Physical gradient (dim, dim, n_q, n_el) of element fields (dim, nd, n_el)."""
     kind, (t1, t2) = _tables(prob)
     return sweeps.sf_grad(w_el, t1, t2) if kind == "sf" else sweeps.dense_grad(w_el, t1)
 
@@ -605,11 +610,11 @@ def make_step(
     "auto"): a problem with sum-factorized tables runs the sf sweeps, a
     dense-table problem the dense sweeps.  The tangent storage is the
     strongest exact compression the material declares (cauchy > sym >
-    full): the 37-plane Cauchy-decomposition tangent of J2 (sf sweeps),
-    the 45-plane symmetric tangent of a material with a major-symmetric
-    dP/dF (the hyperelastic ones; sf and dense sweeps), or the 81-plane
-    full dP/dF of the finite-strain plasticity models J2Simo and J2Log (sf
-    sweeps).  The other table/storage pairs raise.  `matvec_impl` and
+    full): the Cauchy-decomposition tangent of J2 (37 planes in 3D, 14 in
+    2D; sf and dense sweeps), the symmetric tangent of a material with a
+    major-symmetric dP/dF (the hyperelastic ones, 45 / 10 planes; sf and
+    dense sweeps), or the 81-plane full dP/dF of the finite-strain
+    plasticity models J2Simo and J2Log (sf sweeps).  Dense + full raises.  `matvec_impl` and
     `tangent_storage` take "auto" or the name of what the problem decides,
     as aliases of the reference's options.  Everything around
     the sweeps (gather/scatter, contact, FDM, GMRES, Newton) is the same
@@ -666,9 +671,9 @@ def make_step(
             raise ValueError(f"unknown {opt} {val!r}")
         if val not in ("auto", picked):
             raise _unported(f"{opt}={val!r} on a problem that decides {picked!r}", item)
-    if kind == "dense" and storage != "sym":
+    if kind == "dense" and storage == "full":
         raise _unported(
-            f"{mat.name()} with tangent_storage={storage!r} on the dense sweeps",
+            f"{mat.name()} with tangent_storage='full' on the dense sweeps",
             "Queue 2 item 2",
         )
     if storage == "full" and mat.name() not in sweeps.FULL_KERNELS:

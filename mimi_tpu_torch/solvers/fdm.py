@@ -10,7 +10,8 @@ with 1D B-spline mass/stiffness matrices per parametric axis and
 coef_cd = fac0 alpha_cd + fac1 mu_v (alpha_cd = lambda + 2 mu on the
 diagonal, mu off it).  The generalized eigenbases K_d V_d = M_d V_d L_d
 (built once on the host with scipy) diagonalize it, so the inverse applies
-as three small dense 1D transforms per side (torch einsums on the device).
+as two or three small dense 1D transforms per side, one per parametric
+axis of the 2D or 3D patch (torch einsums on the device).
 Face Dirichlet sets restrict the 1D matrices; the eigenbasis is embedded
 with zero rows at constrained indices.  Penalty contact on a face folds
 into the face-normal component's 1D stiffness as a boundary spring.
@@ -195,51 +196,61 @@ def build_fdm_data_multipatch(fes, dir_pairs, material, contact_springs=None):
 
 
 def make_fdm_apply(fdm, fac0, fac1, dtype, device):
-    """v_flat -> J_hat^{-1} v_flat (3D patches), tables on `device`; the
-    additive-Schwarz sum over patches for multi-patch data."""
+    """v_flat -> J_hat^{-1} v_flat (2D or 3D patches), tables on `device`;
+    the additive-Schwarz sum over patches for multi-patch data."""
     if "mp" in fdm:
         return _make_fdm_apply_multipatch(fdm, fac0, fac1, dtype, device)
     dim = fdm["dim"]
     nc = fdm["nc"]
-    if len(nc) != 3:
-        raise NotImplementedError(
-            "2D FDM apply is not ported yet (ROADMAP Queue 1 item 6)"
-        )
+    d = len(nc)
     rho = fdm["rho"]
     mu_v = fdm["mu_v"]
 
     def dev(a):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
-    Ve = [[dev(fdm["Ve"][c][ax]) for ax in range(3)] for c in range(dim)]
+    Ve = [[dev(fdm["Ve"][c][ax]) for ax in range(d)] for c in range(dim)]
     D = []
     for c in range(dim):
         coef = [
-            fac0 * float(fdm["alpha"][c, ax]) + fac1 * mu_v for ax in range(3)
+            fac0 * float(fdm["alpha"][c, ax]) + fac1 * mu_v for ax in range(d)
         ]
-        l0, l1, l2 = (np.asarray(fdm["lam"][c][ax]) for ax in range(3))
-        Dc = (
-            rho
-            + coef[0] * l0[None, None, :]
-            + coef[1] * l1[None, :, None]
-            + coef[2] * l2[:, None, None]
-        )
+        lam = [np.asarray(fdm["lam"][c][ax]) for ax in range(d)]
+        if d == 3:
+            Dc = (
+                rho
+                + coef[0] * lam[0][None, None, :]
+                + coef[1] * lam[1][None, :, None]
+                + coef[2] * lam[2][:, None, None]
+            )
+        else:
+            Dc = rho + coef[0] * lam[0][None, :] + coef[1] * lam[1][:, None]
         D.append(dev(1.0 / Dc))
     n_dof = int(np.prod(nc))
 
+    def apply3(g, V, Dc):
+        t = torch.einsum("abi,ik->abk", g, V[0])
+        t = torch.einsum("aji,jk->aki", t, V[1])
+        t = torch.einsum("jbi,jk->kbi", t, V[2])
+        t = t * Dc
+        t = torch.einsum("kbi,jk->jbi", t, V[2])
+        t = torch.einsum("aki,jk->aji", t, V[1])
+        return torch.einsum("abk,ik->abi", t, V[0])
+
+    def apply2(g, V, Dc):
+        t = torch.einsum("ai,ik->ak", g, V[0])
+        t = torch.einsum("ji,jk->ki", t, V[1])
+        t = t * Dc
+        t = torch.einsum("ki,jk->ji", t, V[1])
+        return torch.einsum("ak,ik->ai", t, V[0])
+
+    one = apply3 if d == 3 else apply2
+
     def apply(v_flat):
         v = v_flat.reshape(n_dof, dim)
-        outs = []
-        for c in range(dim):
-            g = v[:, c].reshape(nc[2], nc[1], nc[0])
-            t = torch.einsum("abi,ik->abk", g, Ve[c][0])
-            t = torch.einsum("aji,jk->aki", t, Ve[c][1])
-            t = torch.einsum("jbi,jk->kbi", t, Ve[c][2])
-            t = t * D[c]
-            t = torch.einsum("kbi,jk->jbi", t, Ve[c][2])
-            t = torch.einsum("aki,jk->aji", t, Ve[c][1])
-            t = torch.einsum("abk,ik->abi", t, Ve[c][0])
-            outs.append(t.reshape(-1))
+        outs = [
+            one(v[:, c].reshape(*nc[::-1]), Ve[c], D[c]).reshape(-1) for c in range(dim)
+        ]
         return torch.stack(outs, -1).reshape(-1)
 
     return apply

@@ -122,8 +122,6 @@ def problem_from_numpy(ref, material=None, dtype=None, device="cuda", scenes=Non
         ref.grid is not None and ref.n_el != int(np.prod(ref.grid["spans"]))
     ):
         raise NotImplementedError("padded element batches (ROADMAP Queue 1 item 8)")
-    if ref.sf is None and ref.dim != 3:
-        raise NotImplementedError("2D dense problems (ROADMAP Queue 2 item 6)")
     rhs = np.asarray(ref.rhs)
     if dtype is None:
         dtype = torch.float64 if rhs.dtype == np.float64 else torch.float32
