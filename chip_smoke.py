@@ -40,12 +40,24 @@ system; and two St. Venant-Kirchhoff steps.
 
 And the 2D dense-table path (phases 27-32): the golden cantilever of the
 reference's trajectories (balken.mesh, the unit square, at p=3) at 512^2
-= 262,144 elements, 530,450 unknowns, J2 Johnson-Cook (1 warm + 5 timed
+= 262,144 elements, 530,450 unknowns, J2 Johnson-Cook (1 warm + 3 timed
 steps) and its neo-Hookean twin (1 + 2), through the dense kernels with
 the 14-plane Cauchy and the 10-plane symmetric tangent and the 2D FDM;
 every instantiation of the templated dense kernels (2D p=2 and p=3, 3D
 p=2 with J2) against its plain version, one step of the kernel path
 against the plain path per 2D material and for 3D dense J2.
+
+And the finite-strain plasticity models on dense tables (phases 33-37):
+the golden cantilever at 512^2 with J2Simo and with J2Log (1 warm + 3
+timed steps each, dt 0.1), through the dense kernels with the 16-plane
+full tangent (4 dual-number passes per point) and their state; every
+dense + full instantiation (2D p=2 and p=3, 3D p=2, both materials)
+against its plain version on random plastic input (J2Log also past the
+fast log series' range), one plastic step of the kernel path against the
+plain path at 64^2 per material (the third step, from two float64 plain
+steps) and of 3D J2Simo at 2 x 8^3, the 128^2 p=2 and the two-patch
+2 x 38^3 drives of both materials, a profiled step per 2D material at
+512^2 and the kernels' rows at the drives' states.
 
     python3 chip_smoke.py
 
@@ -93,7 +105,10 @@ SOURCE = [
     "mimi_tpu_torch/ops/csrc/fused_neohookean.cu",
     "mimi_tpu_torch/ops/csrc/sweeps_sf_finite.cu",
     "mimi_tpu_torch/ops/csrc/sweeps_dense_j2.cu",
+    "mimi_tpu_torch/ops/csrc/sweeps_dense_finite.cu",
 ]
+# the dense kernels' source by tangent storage
+DENSE_SOURCE = {"sym": SOURCE[1], "cauchy": SOURCE[4], "full": SOURCE[5]}
 # the dense-table path: the two-patch neo-Hookean cantilever
 TWO_PATCH = os.path.join(ROOT, "tests", "data", "two-patch-cube.mesh")
 DENSE_SPANS = 38  # per patch and axis: 2 x 38^3 = 109,744 elements
@@ -127,7 +142,7 @@ A_PLASTIC = 1.0
 # trajectories (tests/test_nonlinear_solid.py:22-90), balken.mesh (the unit
 # square) elevated by 2 to p = 3 and subdivided 9 times: 512^2 = 262,144
 # elements, 16 dofs and 25 points each, 530,450 unknowns; boundary 2
-# clamped; J2 Johnson-Cook (body force -3, dt 0.5, 1 warm + 5 timed steps)
+# clamped; J2 Johnson-Cook (body force -3, dt 0.5, 1 warm + 3 timed steps)
 # and its neo-Hookean twin (body force -5, dt 0.05, 1 + 2); the golden's
 # 10 Newton iterations, GMRES(30, at most 80) at lin_rel_tol 1e-3, FDM.
 BALKEN = os.path.join(ROOT, "tests", "data", "balken.mesh")
@@ -135,12 +150,48 @@ GOLDEN_SUBDIVIDE = 9  # 2^9 = 512 spans per axis, p = 3
 P2_SUBDIVIDE = 7  # the p = 2 instantiations (elevate 1) at 128^2
 STEP2D_SUBDIVIDE = 6  # the one-step parity at 64^2
 GOLDEN_2D = {  # material: (body force in y, dt, timed steps)
-    "J2": (-3.0, 0.5, 5),
+    "J2": (-3.0, 0.5, 3),  # 3 timed steps keep the smoke near half its time limit
     "CompressibleOgdenNeoHookean": (-5.0, 0.05, 2),
     "StVenantKirchhoff": (-5.0, 0.05, 1),
 }
 STEP2D_KW = dict(newton_iters=10, solver="cg", cg_iters=80, gmres_restart=30, precond="fdm",
                  lin_rel_tol=1e-3)
+# the finite-strain golden cantilevers (tests/test_nonlinear_solid.py:
+# 108-134) at 512^2 and 128^2 (p = 2), by material: (body force in y, dt,
+# timed steps).  The golden's dt 0.5 does not converge refined, in float64
+# too (Newton stops at a drop of 0.43 for J2Simo and diverges for J2Log at
+# 64^2).  Neither does dt 0.2 at 512^2: Newton fails in the first step on
+# the kernel path and on the plain path, float32 and float64 alike (drops
+# 0.33-0.36 for J2Simo, 0.85-31 for J2Log), and at 256^2 in the third
+# step; at 128^2 all three paths converge (finite_witness.py).  dt 0.1,
+# whose third and fourth steps yield at 512^2.  The one-step parity at
+# 64^2 takes the third step at dt 0.2 (PARITY_DT), which converges there
+# in float64 and yields.
+GOLDEN_FINITE = {"J2Simo": (-3.0, 0.1, 3), "J2Log": (-3.0, 0.1, 3)}
+PARITY_DT = 0.2
+# the fast log series' range left by element 0 (the deep series) and
+# element 1 (further: NaN-poisoned in 3D; in 2D float32 cannot resolve C_e's
+# small eigenvalue that far, and the deep series takes it) through
+# Fp^-1 = diag(x, 1[, 1]), by dimension
+LOG_STRETCH = {2: (12.0, 1e8), 3: (6.0, 1e5)}
+# A finite-strain kernel forms the trial state in its own float32 rounding
+# (inverses, a cube root or a log series), so at a point right at the yield
+# surface it may take the other branch than the plain version: the stress
+# is continuous there, the tangent is not.  compare_kernels leaves such
+# points out of the planes' bar, after checking that the plain trial state
+# lies within YIELD_BAND of the flow stress at each of them.
+YIELD_BAND = 1e-4
+# The first Newton system's residual r = f_ext - f_int(u) - M a of a
+# finite-strain drive, kernel path against plain path, by material (1e-4
+# for every other).  Near equilibrium r is a small difference of element
+# forces, so float32 fixes it only to ~1e-3 of max|r|: the plain path in
+# float32 against float64 at the same carry read 2.6e-4 to 2.2e-3 at
+# 128^2 and 512^2, for both materials, and the kernel path the same.
+# Kernel against plain in float32 read 6.5e-6 to 4.0e-5 for J2Simo, and
+# 3.6e-5 to 1.7e-4 for J2Log, whose log series rounds C_e ~ I in its own
+# order; the plain path at the carry rounded to bfloat16 reads 5 to 17
+# (finite_witness.py, NVIDIA H100 80GB HBM3).  J w keeps 1e-4.
+NEWTON_R_BAR = {"J2Log": 1e-3}
 FUSED_KERNELS = [  # (counter name, TPU kernel it replaces)
     ("neohookean_tangent_apply", "mimi_tpu/ops/pallas_residual.py:171"),
     ("neohookean_residual", "mimi_tpu/ops/pallas_residual.py:207"),
@@ -231,9 +282,19 @@ OPS_PER_POINT = {
 # J sigma F^-T; its 6 D-hat planes; the 2D Cauchy apply (D-hat : sym dF,
 # P, tr(F^-1 dF), dF^T F^-T, dP).  The radial return's iterations are not
 # counted (see above).
+# The finite-strain materials on dense tables (finite.cuh): 3D as on the
+# sf tables above; 2D counted from the same bodies on 2 x 2 tensors:
+# J2Simo's stress ~150 (two 2 x 2 inverses, cube root, be = f be_old f^T,
+# deviators, the return's one-time residual, P = tau F^-T), J2Log's ~800
+# (the fast log: 2 square roots of 7 Denman-Beavers iterations, ~480, and
+# 7 Gregory terms); a dual pass ~3x the stress, 4 passes; the 16-plane
+# apply 32.
 MATERIAL_OPS = {
     ("j2", 3): (_J2_STRESS, _J2_TANGENT, _CAUCHY_APPLY), ("j2", 2): (110, 60, 100),
     ("nh", 2): (60, 150, 36), ("stvk", 2): (40, 160, 36),
+    ("simo", 3): (_SIMO_STRESS, 9 * _SIMO_PASS, _FULL_APPLY),
+    ("log", 3): (_LOG_STRESS, 9 * _LOG_PASS, _FULL_APPLY),
+    ("simo", 2): (150, 4 * 450, 32), ("log", 2): (800, 4 * 2400, 32),
 }
 
 
@@ -327,6 +388,12 @@ def plastic_points(soa, sweeps, prob, u_el, state, dt):
     element displacements u_el."""
     F = soa.add_diag(sweeps.sf_grad(u_el, prob.sf["tables"], prob.sf["jinv"]), 1.0)
     return int(prob.material._return_map(F, state, dt)[4].sum())
+
+
+# timed calls of a plain version after its warm call: the plain sweeps take
+# 10 ms to 2 s, far above the events' resolution, and their time is a
+# reference for the kernels' rows, not a result
+PLAIN_REPS = 1
 
 
 def cuda_ms(torch, fn, reps):
@@ -661,7 +728,7 @@ def contact_phases(torch, mt, sweeps, soa, sh, device, gen):
     for name, replaces in VARIANTS:
         kern, plain = calls[name]
         ms = cuda_ms(torch, kern, 20)
-        plain_ms = cuda_ms(torch, plain, 3)
+        plain_ms = cuda_ms(torch, plain, PLAIN_REPS)
         row = kernel_row(name, SOURCE[0], replaces, launches[name], errs[name], ms,
                          plain_ms, byts[name], n_pts * OPS_PER_POINT[name])
         say(f"[11. 48^3 timing] {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms; "
@@ -679,7 +746,7 @@ def contact_phases(torch, mt, sweeps, soa, sh, device, gen):
 
     sd = NDS.translate_scene_data(sd, PUSH)
     p0 = n_proj[0]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         carry = step(carry, contact_scenes=[sd])
         torch.cuda.synchronize()
@@ -709,7 +776,7 @@ def contact_phases(torch, mt, sweeps, soa, sh, device, gen):
         res = query(qpts, sd)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         query(qpts, sd)
         torch.cuda.synchronize()
     q_dev = sum(t for _, _, t in device_rows(prof))
@@ -731,9 +798,9 @@ def hyper_material(mt, name="CompressibleOgdenNeoHookean"):
 
 def dense_build(mt, spans, device, name="CompressibleOgdenNeoHookean", A=70.0, dtype=None):
     """The two-patch cantilever at `spans` per patch and axis (neo-Hookean
-    unless another hyperelastic material or J2, yield stress A, is
-    named)."""
-    mat = jc_material(mt, A) if name == "J2" else hyper_material(mt, name)
+    unless another hyperelastic material or a J2-family one, yield stress
+    A, is named)."""
+    mat = jc_material(mt, A, name) if name.startswith("J2") else hyper_material(mt, name)
     return mt.build_problem(
         TWO_PATCH, 1, 0, mat, [(0, 0), (0, 1), (0, 2)], {1: -5.0},
         rho_inf=0.5, device=device, refine_spans=spans, dtype=dtype,
@@ -854,7 +921,7 @@ def time_sym(torch, sweeps, prob, u_el, a_el, w_el, Cs, names, launches, errs, l
             continue
         a, kw = (mv_args, {"storage": "sym"}) if i == 2 else (args, {})
         ms = cuda_ms(torch, lambda: fns[i](*a, **kw), 20)
-        plain_ms = cuda_ms(torch, lambda: plain[i](*a, **kw), 3)
+        plain_ms = cuda_ms(torch, lambda: plain[i](*a, **kw), PLAIN_REPS)
         row = kernel_row(name, SOURCE[0 if kind == "sf" else 1], replaces, launches[name],
                          errs[name], ms, plain_ms, byts[i], n_pts * OPS_PER_POINT[name])
         say(f"[{label}] {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms; "
@@ -923,15 +990,15 @@ def predictor_fields(torch, sh, prob, carry, gen, dt=STEP_KW["dt"]):
     return u_el, g(carry["a"]), w_el
 
 
-def profile_step(torch, step, carry, s_step, label, cpu=True):
+def profile_step(torch, step, carry, s_step, label):
     """One profiled step: device busy time, idle share of the timed
-    s/step, device time by kernel name.  Returns the new carry.  With
-    cpu=False only the device is traced: a step of ~10^5 launches then
-    takes seconds to post-process instead of minutes."""
+    s/step, device time by kernel name.  Returns the new carry.  Only the
+    device is traced: with the host's operators too, a step of ~10^5
+    launches takes tens of seconds to post-process, for rows no line
+    prints."""
     from torch.profiler import ProfilerActivity, profile
 
-    activities = [ProfilerActivity.CPU] if cpu else []
-    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         carry = step(carry)
         torch.cuda.synchronize()
@@ -1087,7 +1154,7 @@ def fused_phase(torch, sweeps, fused, sh, prob, step, carry, u_el, w_el, Cs, gen
     for name, replaces in FUSED_KERNELS:
         kern, plain, n_in = calls[name]
         ms = cuda_ms(torch, kern, 20)
-        plain_ms = cuda_ms(torch, plain, 3)
+        plain_ms = cuda_ms(torch, plain, PLAIN_REPS)
         row = kernel_row(name, SOURCE[2], replaces, launches[name], errs[name], ms, plain_ms,
                          n_in + el_out, n_pts * OPS_PER_POINT[name])
         say(f"[{label} timing] {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms; "
@@ -1247,13 +1314,6 @@ def hyper_phases(torch, mt, sweeps, sh, device, gen):
     return rows
 
 
-def full_names(sweeps, name):
-    """Counter names (residual, assemble, matvec) of a finite-strain
-    material's kernels."""
-    tag = sweeps.FULL_KERNELS[name][1]
-    return [*sweeps.material_counters("sf", tag, "full"), "matvec_sf[full]"]
-
-
 def finite_inputs(torch, sweeps, soa, prob, gen):
     """Random element fields and a random plastic history on the problem's
     tables: the state after one plain accumulate_soa at a random F with
@@ -1296,51 +1356,83 @@ def _elements(x, sl):
     return x[..., sl].contiguous() if hasattr(x, "shape") else x
 
 
-def compare_full(torch, sweeps, prob, u_el, a_el, w_el, state, label, res_bar=1e-5,
-                 parts=None):
-    """The problem's finite-strain material's three kernels against their
-    plain versions on the same inputs; returns ({kernel: max_abs_err}, the
-    plain 81 planes) and fails past the bars (residual `res_bar` x scale;
-    assemble residual, planes as one group and matvec 1e-4).  The kernels
+def compare_kernels(torch, sweeps, prob, u_el, a_el, w_el, state, dt, label, parts=None,
+                    res_bar=1e-5):
+    """The problem's material's three kernels (sum-factorized or dense
+    tables) against their plain versions on the same inputs; returns
+    ({kernel: max_abs_err}, the plain tangent block) and fails past the
+    bars: residual `res_bar` x scale, assemble residual and matvec 1e-4 x
+    scale, planes 1e-4 of their group's max (plane_groups).  The kernels
     run once on all elements; the plain residual and assemble run on each
-    element range of `parts` ({name: slice}, default all elements) and each
-    range is held at the bars on its own scale."""
-    mat, tabs, jinv, wq = prob.material, prob.sf["tables"], prob.sf["jinv"], prob.wdet_t
-    n_res, n_asm, n_mv = full_names(sweeps, mat.name())
-    args = (u_el, a_el, state, tabs, jinv, wq, mat, STEP_KW["dt"], float(mat.density))
-    fac0 = prob.facs["fac3"] * STEP_KW["dt"] ** 2
+    element range of `parts` ({name: slice}, default all elements), each
+    held on its own scale.  Entries the plain version NaN-poisons must be
+    NaN in the kernel's output too (masked_err).  With the full storage,
+    points at the yield surface where the kernel takes the other branch
+    (YIELD_BAND) are counted and left out of the planes' bar."""
+    mat, wq = prob.material, prob.wdet_t
+    tables, (res_k, asm_k, mv_k), (res_p, asm_p, mv_p) = kernel_fns(sweeps, prob)
+    storage = sweeps.tangent_storage(mat)
+    n_res, n_asm, n_mv = kernel_names(sweeps, prob)
+    rho = float(mat.density)
+    args = (u_el, a_el, state, *tables, wq, mat, dt, rho)
+    fac0 = prob.facs["fac3"] * dt * dt
     errs = {n_res: 0.0, n_asm: 0.0}
-    y_k = sweeps.residual_sf(*args)
-    ya_k, C_k = sweeps.assemble_sf(*args)
+    y_k = res_k(*args)
+    ya_k, C_k = asm_k(*args)
     torch.cuda.synchronize()
-    if C_k.shape[0] != 81:
+    if C_k.shape[0] != sweeps.n_planes(storage, prob.dim):
         fail(f"{n_asm} wrote planes of shape {tuple(C_k.shape)}")
     C_p = torch.empty_like(C_k)
     for part, sl in (parts or {"": slice(None)}).items():
         tag = f"[{label}{', ' + part if part else ''}]"
-        p_args = _elements(args, sl)
-        err, scale = masked_err(torch, y_k[..., sl], sweeps.residual_sf_plain(*p_args), n_res)
+        p_args = args if part == "" else _elements(args, sl)
+        err, scale = masked_err(torch, y_k[..., sl], res_p(*p_args), n_res)
         errs[n_res] = max(errs[n_res], err)
         say(f"{tag} {n_res}: max|err| {err:.3e} scale {scale:.3e} ({err / scale:.3e}); "
             f"non-finite entries {int(torch.isnan(y_k[..., sl]).sum())}")
+        # float32: dense F to the bit (no FMA, the plain version's order),
+        # the quadrature sums in another order; the materials' float32
+        # bodies (J2's to the bit, the finite-strain ones in their own
+        # rounding)
         if not err <= res_bar * scale:
             fail(f"{n_res} disagrees with plain ({err} > {res_bar} * {scale}) {tag}")
-        ya_p, C_p[..., sl] = sweeps.assemble_sf_plain(*p_args)
+        ya_p, C_p[..., sl] = asm_p(*p_args)
         err, scale = masked_err(torch, ya_k[..., sl], ya_p, f"{n_asm} residual")
-        c_err, c_scale = masked_err(torch, C_k[..., sl], C_p[..., sl], f"{n_asm} planes")
-        errs[n_asm] = max(errs[n_asm], err, c_err)
-        say(f"{tag} {n_asm}: residual max|err| {err:.3e} scale {scale:.3e}; 81 planes "
-            f"max|err| {c_err:.3e} of max {c_scale:.3e} ({c_err / c_scale:.3e})")
+        masked_err(torch, C_k[..., sl], C_p[..., sl], f"{n_asm} planes")
+        dC = torch.nan_to_num(C_k[..., sl] - C_p[..., sl]).abs()
+        mag = torch.nan_to_num(C_p[..., sl]).abs().amax(dim=(1, 2))
+        surface = ""
+        if storage == "full":
+            off = dC.amax(0) > 1e-4 * mag.max()
+            if bool(off.any()):
+                margin = float(yield_margin(torch, sweeps, prob, p_args[0], p_args[2],
+                                            p_args[3:5])[off].max())
+                surface = (f"; {int(off.sum())} points at the yield surface (plain trial "
+                           f"within {margin:.1e} of the flow stress) on the other branch in "
+                           "the kernel, left out of the planes' bar")
+                if not margin <= YIELD_BAND:
+                    fail(f"{n_asm} tangent disagrees at points {margin} of the flow stress off "
+                         f"the yield surface {tag}")
+                dC = dC * (~off).to(dC.dtype)
+        diff = dC.amax(dim=(1, 2))
+        del dC
+        rel = max(float(diff[a:b].max() / mag[a:b].max().clamp_min(1e-30))
+                  for a, b in plane_groups(sweeps, storage, prob.dim))
+        errs[n_asm] = max(errs[n_asm], err, float(diff.max()))
+        say(f"{tag} {n_asm}: residual max|err| {err:.3e} scale {scale:.3e}; {C_k.shape[0]} "
+            f"planes worst err vs group max {rel:.3e}{surface}")
         if not err <= 1e-4 * scale:
             fail(f"{n_asm} residual disagrees ({err} > 1e-4 * {scale}) {tag}")
-        if not c_err <= 1e-4 * c_scale:
-            fail(f"{n_asm} tangent disagrees ({c_err} > 1e-4 * {c_scale}) {tag}")
-    del C_k
-    mv_k = sweeps.matvec_sf(w_el, tabs, jinv, wq, C_p, float(mat.density), fac0, storage="full")
+        # the kernel's tangent (closed form, or dual numbers) against the
+        # plain version's forward-mode planes, float32
+        if not rel <= 1e-4:
+            fail(f"{n_asm} tangent disagrees (plane err {rel} of its group's max) {tag}")
+        del ya_p
+    del y_k, ya_k, C_k
+    mv_args = (w_el, *tables, wq, C_p, rho, fac0)
+    y_mv = mv_k(*mv_args, storage=storage)
     torch.cuda.synchronize()
-    mv_pl = sweeps.matvec_sf_plain(w_el, tabs, jinv, wq, C_p, float(mat.density), fac0,
-                                   storage="full")
-    err, scale = masked_err(torch, mv_k, mv_pl, n_mv)
+    err, scale = masked_err(torch, y_mv, mv_p(*mv_args, storage=storage), n_mv)
     errs[n_mv] = err
     say(f"[{label}] {n_mv}: max|err| {err:.3e} scale {scale:.3e}")
     if not err <= 1e-4 * scale:
@@ -1382,12 +1474,12 @@ def time_full(torch, sweeps, prob, u_el, a_el, w_el, state, Cf, names, launches,
     ]
     n_pts = prob.n_el * prob.n_q
     rows = []
-    for i, (name, replaces) in enumerate(zip(full_names(sweeps, mat.name()), SYM_REPLACES["sf"])):
+    for i, (name, replaces) in enumerate(zip(kernel_names(sweeps, prob), SYM_REPLACES["sf"])):
         if name not in names:
             continue
         ms = cuda_ms(torch, fns[i][0], 10)
         torch.cuda.empty_cache()
-        plain_ms = cuda_ms(torch, fns[i][1], 2)
+        plain_ms = cuda_ms(torch, fns[i][1], PLAIN_REPS)
         torch.cuda.empty_cache()
         row = kernel_row(name, SOURCE[3], replaces, launches[name], errs[name], ms, plain_ms,
                          byts[i], n_pts * OPS_PER_POINT[name])
@@ -1420,7 +1512,7 @@ def finite_phases(torch, mt, sweeps, soa, sh, device, gen):
         if share < 0.25:
             fail(f"{name}: plastic share {share} < 0.25: the check would not exercise the "
                  "return map")
-        compare_full(torch, sweeps, p, u_el, a_el, w_el, state, label)
+        compare_kernels(torch, sweeps, p, u_el, a_el, w_el, state, STEP_KW["dt"], label)
         if name == "J2Log":
             # The same input with element 0 stretched past the fast series'
             # range at all 64 points (Fp^-1 = diag(6, 1, 1): the deep series,
@@ -1439,9 +1531,9 @@ def finite_phases(torch, mt, sweeps, soa, sh, device, gen):
                 STEP_KW["dt"])[4]
             say(f"[23. {CHECK_SPANS}^3 J2Log out of range] plastic points {int(active.sum())} "
                 f"of {active.numel()} (element 1's are NaN)")
-            compare_full(torch, sweeps, p, u_el, a_el, w_el, st,
-                         f"23. {CHECK_SPANS}^3 J2Log out of range",
-                         parts={"elements 0-1 (deep series, poisoned)": slice(0, 2),
+            compare_kernels(torch, sweeps, p, u_el, a_el, w_el, st, STEP_KW["dt"],
+                            f"23. {CHECK_SPANS}^3 J2Log out of range",
+                            parts={"elements 0-1 (deep series, poisoned)": slice(0, 2),
                                 "elements 2.. (fast series)": slice(2, None)})
     del probs, u_el, a_el, w_el, state, st, active, eps
 
@@ -1480,7 +1572,7 @@ def finite_phases(torch, mt, sweeps, soa, sh, device, gen):
             f"{prob.n_el}, n_q {prob.n_q}, unknowns {prob.n_dof * prob.dim}; sum-factorized "
             f"tables, full tangent (81 planes, "
             f"{81 * prob.n_q * prob.n_el * 4 / 1e9:.3f} GB)")
-        names = full_names(sweeps, name)
+        names = kernel_names(sweeps, prob)
         carry, step, s_step, launches = drive(torch, mt, sweeps, prob, f"{ph}. 48^3 {name}",
                                               timed, names)
         eqps = carry["state"]["eqps"]
@@ -1497,8 +1589,9 @@ def finite_phases(torch, mt, sweeps, soa, sh, device, gen):
         # in the stress: the path-state bar is PATH_RES_BAR, read at
         # PATH_READINGS further states below.
         u_el, a_el, w_el = predictor_fields(torch, sh, prob, carry, gen)
-        errs, Cf = compare_full(torch, sweeps, prob, u_el, a_el, w_el, carry["state"],
-                                f"{ph}. 48^3 {name} path", res_bar=PATH_RES_BAR)
+        errs, Cf = compare_kernels(torch, sweeps, prob, u_el, a_el, w_el, carry["state"],
+                                   STEP_KW["dt"], f"{ph}. 48^3 {name} path",
+                                   res_bar=PATH_RES_BAR)
         keep = names if name == "J2Simo" else names[:2]  # the matvec is timed once
         rows += time_full(torch, sweeps, prob, u_el, a_el, w_el, carry["state"], Cf, keep,
                           launches, errs, f"{ph}. 48^3 {name} timing")
@@ -1523,10 +1616,12 @@ def finite_phases(torch, mt, sweeps, soa, sh, device, gen):
 def balken_build(mt, name, elevate, subdivide, device, dtype=None):
     """The golden cantilever: balken.mesh elevated by `elevate`, subdivided
     `subdivide` times, boundary 2 clamped, the golden's material `name`
-    (J2 Johnson-Cook, or a hyperelastic material) and body force."""
-    mat = jc_material(mt) if name == "J2" else hyper_material(mt, name)
+    (J2, J2Simo or J2Log with Johnson-Cook hardening, or a hyperelastic
+    material) and body force."""
+    mat = jc_material(mt, name=name) if name.startswith("J2") else hyper_material(mt, name)
+    force = {**GOLDEN_2D, **GOLDEN_FINITE}[name][0]
     return mt.build_problem(BALKEN, elevate, subdivide, mat, [(2, 0), (2, 1)],
-                            {1: GOLDEN_2D[name][0]}, rho_inf=0.5, device=device, dtype=dtype)
+                            {1: force}, rho_inf=0.5, device=device, dtype=dtype)
 
 
 def dense_degree(prob):
@@ -1534,26 +1629,57 @@ def dense_degree(prob):
     return round(nd ** (1.0 / prob.dim)) - 1
 
 
-def dense_names(sweeps, prob):
+def material_tag(sweeps, mat):
+    """The counter tag of a material's kernels ("j2", "simo", "nh", ...)."""
+    storage = sweeps.tangent_storage(mat)
+    if storage == "cauchy":
+        return "j2"
+    return (sweeps.FULL_KERNELS if storage == "full" else sweeps.HYPER_KERNELS)[mat.name()][1]
+
+
+def kernel_names(sweeps, prob):
     """Counter names (residual, assemble, matvec) of the problem's material
-    on its dense tables: storage, material tag and (dim, p) suffix."""
+    on its tables: kind, storage, material tag and (dim, p) suffix (sf
+    tables: 3D, p = 2)."""
     storage = sweeps.tangent_storage(prob.material)
-    tag = "j2" if storage == "cauchy" else sweeps.HYPER_KERNELS[prob.material.name()][1]
+    tag = material_tag(sweeps, prob.material)
+    if prob.sf is not None:
+        return [*sweeps.material_counters("sf", tag, storage), sweeps.matvec_counter("sf", storage)]
     dim, p = prob.dim, dense_degree(prob)
     return [*sweeps.material_counters("dense", tag, storage, dim, p),
             sweeps.matvec_counter("dense", storage, dim, p)]
 
 
+def kernel_fns(sweeps, prob):
+    """The problem's tables and sweeps: (tables, (residual, assemble,
+    matvec), their plain versions), sum-factorized or dense."""
+    if prob.sf is not None:
+        return ((prob.sf["tables"], prob.sf["jinv"]),
+                (sweeps.residual_sf, sweeps.assemble_sf, sweeps.matvec_sf),
+                (sweeps.residual_sf_plain, sweeps.assemble_sf_plain, sweeps.matvec_sf_plain))
+    return ((prob.dense["dN_t"], prob.dense["N_t"]),
+            (sweeps.residual_dense, sweeps.assemble_dense, sweeps.matvec_dense),
+            (sweeps.residual_dense_plain, sweeps.assemble_dense_plain, sweeps.matvec_dense_plain))
+
+
+def grad_of(sweeps, prob, u_el, tables=None):
+    """Physical displacement gradient (dim, dim, n_q, n_el) of u_el on the
+    problem's tables (or on `tables`, the same restricted to u_el's
+    elements)."""
+    tables = tables or kernel_fns(sweeps, prob)[0]
+    if prob.sf is not None:
+        return sweeps.sf_grad(u_el, *tables)
+    return sweeps.dense_grad(u_el, tables[0])
+
+
 def dense_ops(sweeps, prob):
     """Operations per point of the (residual, assemble, matvec) functions
     of the problem's material on its dense tables (MATERIAL_OPS)."""
-    names = dense_names(sweeps, prob)
+    names = kernel_names(sweeps, prob)
     if all(n in OPS_PER_POINT for n in names):
         return [OPS_PER_POINT[n] for n in names]
     dim, nd = prob.dim, prob.dense["dN_t"].shape[0]
-    tag = "j2" if sweeps.tangent_storage(prob.material) == "cauchy" else \
-        sweeps.HYPER_KERNELS[prob.material.name()][1]
-    stress, tangent, apply = MATERIAL_OPS[(tag, dim)]
+    stress, tangent, apply = MATERIAL_OPS[(material_tag(sweeps, prob.material), dim)]
     base = 2 * dim * dim * nd + 2 * dim * nd + (2 * dim + 2) * dim * nd
     return [base + 2 * dim + stress, base + 2 * dim + stress + tangent, base + dim + apply]
 
@@ -1589,63 +1715,6 @@ def dense_inputs(torch, sweeps, soa, prob, gen, dt, amplitude=0.1):
     return u_el, rnd(*shape), rnd(*shape), state, share
 
 
-def compare_dense(torch, sweeps, prob, u_el, a_el, w_el, state, dt, label):
-    """The problem's material's three dense kernels against their plain
-    versions on the same inputs; returns ({kernel: max_abs_err}, the plain
-    tangent block) and fails past the bars: residual 1e-5 x scale,
-    assemble residual and matvec 1e-4 x scale, planes 1e-4 of their
-    group's max (plane_groups)."""
-    mat, wq = prob.material, prob.wdet_t
-    dN, N = prob.dense["dN_t"], prob.dense["N_t"]
-    storage = sweeps.tangent_storage(mat)
-    n_res, n_asm, n_mv = dense_names(sweeps, prob)
-    rho = float(mat.density)
-    args = (u_el, a_el, state, dN, N, wq, mat, dt, rho)
-    fac0 = prob.facs["fac3"] * dt * dt
-    errs = {}
-    y_k = sweeps.residual_dense(*args)
-    torch.cuda.synchronize()
-    y_p = sweeps.residual_dense_plain(*args)
-    err, scale = float((y_k - y_p).abs().max()), float(y_p.abs().max())
-    errs[n_res] = err
-    say(f"[{label}] {n_res}: max|err| {err:.3e} scale {scale:.3e} ({err / scale:.3e})")
-    # float32: F and P to the bit on elastic points (no FMA, the plain
-    # version's order), the quadrature sums in another order; plastic
-    # points: two float32 radial returns
-    if not err <= 1e-5 * scale:
-        fail(f"{n_res} disagrees with plain ({err} > 1e-5 * {scale})")
-    del y_k, y_p
-    ya_k, C_k = sweeps.assemble_dense(*args)
-    torch.cuda.synchronize()
-    ya_p, C_p = sweeps.assemble_dense_plain(*args)
-    err, scale = float((ya_k - ya_p).abs().max()), float(ya_p.abs().max())
-    if C_k.shape != C_p.shape or C_k.shape[0] != sweeps.n_planes(storage, prob.dim):
-        fail(f"{n_asm} wrote planes of shape {tuple(C_k.shape)}, plain {tuple(C_p.shape)}")
-    diff = (C_k - C_p).abs().amax(dim=(1, 2))
-    mag = C_p.abs().amax(dim=(1, 2))
-    rel = max(float(diff[a:b].max() / mag[a:b].max().clamp_min(1e-30))
-              for a, b in plane_groups(sweeps, storage, prob.dim))
-    errs[n_asm] = max(err, float(diff.max()))
-    say(f"[{label}] {n_asm}: residual max|err| {err:.3e} scale {scale:.3e}; {C_k.shape[0]} "
-        f"planes worst err vs group max {rel:.3e}")
-    if not err <= 1e-4 * scale:
-        fail(f"{n_asm} residual disagrees ({err} > 1e-4 * {scale})")
-    # the closed-form tangent against the plain version's forward-mode
-    # planes, float32
-    if not rel <= 1e-4:
-        fail(f"{n_asm} tangent disagrees (plane err {rel} of its group's max)")
-    del ya_k, C_k, ya_p
-    mv_k = sweeps.matvec_dense(w_el, dN, N, wq, C_p, rho, fac0, storage=storage)
-    torch.cuda.synchronize()
-    mv_p = sweeps.matvec_dense_plain(w_el, dN, N, wq, C_p, rho, fac0, storage=storage)
-    err, scale = float((mv_k - mv_p).abs().max()), float(mv_p.abs().max())
-    errs[n_mv] = err
-    say(f"[{label}] {n_mv}: max|err| {err:.3e} scale {scale:.3e}")
-    if not err <= 1e-4 * scale:
-        fail(f"{n_mv} disagrees with plain ({err} > 1e-4 * {scale})")
-    return errs, C_p
-
-
 def time_dense(torch, sweeps, prob, u_el, a_el, w_el, state, C, dt, launches, errs, label,
                matvec=True):
     """Rows of the kernels line for the problem's material's dense kernels
@@ -1667,14 +1736,14 @@ def time_dense(torch, sweeps, prob, u_el, a_el, w_el, state, C, dt, launches, er
             nbytes(u_el, a_el, dN, N, wq, state, C) + el_out,
             nbytes(w_el, dN, N, wq, C) + el_out]
     n_pts = prob.n_el * prob.n_q
-    source = SOURCE[4] if storage == "cauchy" else SOURCE[1]
+    source = DENSE_SOURCE[storage]
     rows = []
-    for i, (name, replaces, ops) in enumerate(zip(dense_names(sweeps, prob),
+    for i, (name, replaces, ops) in enumerate(zip(kernel_names(sweeps, prob),
                                                   SYM_REPLACES["dense"], dense_ops(sweeps, prob))):
         if i == 2 and not matvec:
             continue
         ms = cuda_ms(torch, fns[i][0], 20)
-        plain_ms = cuda_ms(torch, fns[i][1], 2)
+        plain_ms = cuda_ms(torch, fns[i][1], PLAIN_REPS)
         torch.cuda.empty_cache()
         row = kernel_row(name, source, replaces, launches[name], errs[name], ms, plain_ms,
                          byts[i], n_pts * ops)
@@ -1695,7 +1764,7 @@ def drive_dense(torch, mt, sweeps, prob, label, timed, dt, step_kw):
     of each step.  Fails unless the problem's three kernels were launched
     in each step and the state stayed finite; returns (carry, step, s/step,
     launches, [(step input carry, step output carry, drop)])."""
-    names = dense_names(sweeps, prob)
+    names = kernel_names(sweeps, prob)
     t0 = time.perf_counter()
     carry = mt.initial_carry(prob)
     torch.cuda.synchronize()
@@ -1731,7 +1800,8 @@ def drive_dense(torch, mt, sweeps, prob, label, timed, dt, step_kw):
             yielded = c["state"]["eqps"] > b["state"]["eqps"]
             share = (f"; plastic share {float(yielded.float().mean()):.4f}, eqps max "
                      f"{float(c['state']['eqps'].max()):.4e}")
-        say(f"[{label}] timed step {i}: newton {d['iters']}, gmres {d['lin_iters']}, |r0| "
+        say(f"[{label}] timed step {i}: newton {d['iters']}, gmres {d['lin_iters']} "
+            f"({d['lin_iters'] / max(d['iters'], 1):.1f} per solve), |r0| "
             f"{d['norm0']:.4e} -> |r| {d['norm']:.4e} (drop {drop:.2e}){share}")
     for name in names:  # at least once in each of the 1 + timed steps
         if launches[name] < 1 + timed:
@@ -1747,19 +1817,21 @@ def drop_of(carry):
     return d["norm"] / d["norm0"]
 
 
-def hold_short_step(torch, mt, prob, before, after, dt, step_kw, label, gen, full=True):
+def hold_short_step(torch, mt, prob, before, after, dt, step_kw, label, gen, full=True,
+                    r_bar=1e-4, plain=None):
     """A step of the kernel path whose Newton residual did not fall four
     orders (`after`, taken from the carry `before`), held against the
     plain path.  Always: the step's first Newton system, assembled by both
-    paths from `before` (residual and J w at the assemble and matvec bars,
-    1e-4 x scale).  With `full`, also the whole step on the plain path: the
+    paths from `before` (the residual at `r_bar` x scale, J w at the matvec
+    bar, 1e-4 x scale).  With `full`, also the whole step on the plain path: the
     kernel path must not stop short where the plain path reaches the drop,
     its drop must be within 3x of the plain path's, and where Newton got
     the residual below 1e-2 of |r0| on both paths (a solution fixed to that
     precision) the two steps agree at 1e-4 x max|u|.  Where Newton stalls
     on both paths (GMRES at its cap: the configuration, not the kernel,
     phase 29 runs it in float64) the outputs of two stalled iterations are
-    printed, not held.  Anything else fails the run."""
+    printed, not held.  Anything else fails the run.  `plain` is the plain
+    path's step from `before` where the caller has it."""
     cap = step_kw["cg_iters"]
     ns = [mt.make_step(prob, dt, residual_impl=impl, **step_kw).newton_system(before)
           for impl in ("cuda", "torch")]
@@ -1772,7 +1844,7 @@ def hold_short_step(torch, mt, prob, before, after, dt, step_kw, label, gen, ful
         f"{d['lin_iters'] / max(d['iters'], 1):.1f} per solve against the cap of {cap}); the "
         f"step's first Newton system, kernel path vs plain path: residual max|err| "
         f"{r_err:.3e} of {r_scale:.3e}, J w {jw_err:.3e} of {jw_scale:.3e}")
-    if not (r_err <= 1e-4 * r_scale and jw_err <= 1e-4 * jw_scale):
+    if not (r_err <= r_bar * r_scale and jw_err <= 1e-4 * jw_scale):
         fail(f"{label}: the Newton system differs between the kernel and plain paths")
     if not after["newton"]["finite"]:
         fail(f"{label}: non-finite state")
@@ -1782,7 +1854,8 @@ def hold_short_step(torch, mt, prob, before, after, dt, step_kw, label, gen, ful
         return
     if not full:
         return
-    plain = mt.make_step(prob, dt, residual_impl="torch", **step_kw)(before)
+    if plain is None:
+        plain = mt.make_step(prob, dt, residual_impl="torch", **step_kw)(before)
     dk, dp = drop_of(after), drop_of(plain)
     err = float((plain["u"] - after["u"]).abs().max())
     scale = float(plain["u"].abs().max())
@@ -1802,7 +1875,7 @@ def hold_short_step(torch, mt, prob, before, after, dt, step_kw, label, gen, ful
         fail(f"{label}: kernel path vs plain path {err} > 1e-4 * {scale}")
 
 
-def check_drops(torch, mt, prob, steps, dt, step_kw, label, gen):
+def check_drops(torch, mt, prob, steps, dt, step_kw, label, gen, r_bar=1e-4):
     """Each timed step's Newton residual must fall four orders (rel_tol
     1e-8 is below float32 resolution); a step that does not is held kernel
     path against plain path from its input carry (hold_short_step): the
@@ -1811,19 +1884,34 @@ def check_drops(torch, mt, prob, steps, dt, step_kw, label, gen):
     for i, (before, after, drop) in enumerate(steps):
         if not (math.isfinite(drop) and drop <= 1e-4):
             hold_short_step(torch, mt, prob, before, after, dt, step_kw,
-                            f"{label} timed step {i}", gen, full=first)
+                            f"{label} timed step {i}", gen, full=first, r_bar=r_bar)
             first = False
 
 
-def step_parity(torch, mt, build64, prob, dt, step_kw, label, gen):
+def step_parity(torch, mt, build64, prob, dt, step_kw, label, gen, warm=0):
     """One step from the initial carry, kernel path against plain path at
     1e-4 x max|u|, finite state.  The float32 Newton residual may stop
     short of a 1e-4 drop at this size: the same step from the same carry
     in float64 on the plain path (`build64` builds the problem in float64)
     must reach it,
     and the float32 kernel step must agree with it at 1e-4 x max|u|; a
-    float32 step short of the drop is then held as hold_short_step does."""
-    carry0 = mt.initial_carry(prob)
+    float32 step short of the drop is then held as hold_short_step does.
+    With `warm` > 0 the step held is step warm + 1: its carry is that of
+    `warm` plain float64 steps from the initial carry, cast to float32, and
+    the float64 plain step continues from the float64 carry."""
+    if warm:
+        p64 = build64()
+        carry64 = mt.initial_carry(p64, residual_impl="torch")
+        step64 = mt.make_step(p64, dt, residual_impl="torch", **step_kw)
+        for i in range(warm):
+            carry64 = step64(carry64)
+            say(f"[{label}] float64 plain step {i + 1}: drop {drop_of(carry64):.2e}, newton "
+                f"{carry64['newton']['iters']}, eqps max "
+                f"{float(carry64['state']['eqps'].max()):.3e}")
+        carry0 = dict(carry64, **{k: carry64[k].to(prob.dtype) for k in ("u", "v", "a")})
+        carry0["state"] = {k: v.to(prob.dtype) for k, v in carry64["state"].items()}
+    else:
+        carry0 = mt.initial_carry(prob)
     out = {impl: mt.make_step(prob, dt, residual_impl=impl, **step_kw)(carry0)
            for impl in ("cuda", "torch")}
     err = float((out["cuda"]["u"] - out["torch"]["u"]).abs().max())
@@ -1831,18 +1919,20 @@ def step_parity(torch, mt, build64, prob, dt, step_kw, label, gen):
     nc, nt = out["cuda"]["newton"], out["torch"]["newton"]
     plastic = ""
     if carry0["state"] is not None:
-        plastic = "; plastic points " + "/".join(
-            str(int((out[i]["state"]["eqps"] > 0).sum())) for i in ("cuda", "torch"))
+        plastic = "; points yielding in the step " + "/".join(
+            str(int((out[i]["state"]["eqps"] > carry0["state"]["eqps"]).sum()))
+            for i in ("cuda", "torch"))
     say(f"[{label}] cuda vs torch: max|du| {err:.3e} max|u| {scale:.3e} ({err / scale:.3e}); "
         f"newton {nc['iters']}/{nt['iters']} gmres {nc['lin_iters']}/{nt['lin_iters']}; "
         f"drop {drop_of(out['cuda']):.2e}/{drop_of(out['torch']):.2e}{plastic}")
     # the bar of the reference package's pallas-vs-soa parity check
     if not err <= 1e-4 * scale:
         fail(f"{label}: one-step parity {err} > 1e-4 * {scale}")
-    p64 = build64()
-    carry64 = dict(carry0, **{k: carry0[k].double() for k in ("u", "v", "a")})
-    if carry0["state"] is not None:
-        carry64["state"] = {k: v.double() for k, v in carry0["state"].items()}
+    if not warm:
+        p64 = build64()
+        carry64 = dict(carry0, **{k: carry0[k].double() for k in ("u", "v", "a")})
+        if carry0["state"] is not None:
+            carry64["state"] = {k: v.double() for k, v in carry0["state"].items()}
     ref = mt.make_step(p64, dt, residual_impl="torch", **step_kw)(carry64)
     err64 = float((out["cuda"]["u"].double() - ref["u"]).abs().max())
     scale64 = float(ref["u"].abs().max())
@@ -1854,7 +1944,8 @@ def step_parity(torch, mt, build64, prob, dt, step_kw, label, gen):
     if not err64 <= 1e-4 * scale64:
         fail(f"{label}: the float32 kernel step vs float64 {err64} > 1e-4 * {scale64}")
     if not drop_of(out["cuda"]) <= 1e-4:
-        hold_short_step(torch, mt, prob, carry0, out["cuda"], dt, step_kw, label, gen)
+        hold_short_step(torch, mt, prob, carry0, out["cuda"], dt, step_kw, label, gen,
+                        plain=out["torch"])
     elif not (nc["finite"] and nt["finite"]):
         fail(f"{label}: non-finite state")
     return p64, ref
@@ -1867,7 +1958,7 @@ def dense2d_phases(torch, mt, sweeps, soa, sh, device, gen):
     512^2, J2 on a plastic input; 2D p = 2 at 128^2; 3D J2 on the two-patch
     cube at 2 x 8^3); 29: one step kernel path against plain path (2D J2
     and neo-Hookean at 64^2, 3D two-patch J2 at 2 x 8^3); 30: the timed
-    drives at 512^2 (J2 1 + 5 steps, neo-Hookean 1 + 2) and the short
+    drives at 512^2 (J2 1 + 3 steps, neo-Hookean 1 + 2) and the short
     drives that launch the other instantiations; 31: one profiled step per
     2D material at 512^2; 32: the rows of the kernels line, timed at the
     drives' states.  Returns the rows."""
@@ -1915,7 +2006,7 @@ def dense2d_phases(torch, mt, sweeps, soa, sh, device, gen):
     say(f"[{label}] plastic share of the points {share:.3f}")
     if share < 0.25:
         fail(f"{label}: plastic share {share} < 0.25")
-    compare_dense(torch, sweeps, prob, u_el, a_el, w_el, state, STEP_KW["dt"], label)
+    compare_kernels(torch, sweeps, prob, u_el, a_el, w_el, state, STEP_KW["dt"], label)
     del prob, u_el, a_el, w_el, state
     torch.cuda.empty_cache()
     clock("phases 28-29 at 64^2 and 2 x 8^3")
@@ -1948,7 +2039,7 @@ def dense2d_phases(torch, mt, sweeps, soa, sh, device, gen):
             if share < 0.25:
                 fail(f"{tag}: plastic share {share} < 0.25: the check would not exercise "
                      "the return map")
-        compare_dense(torch, sweeps, prob, u_el, a_el, w_el, state, dt, f"28. {tag} random")
+        compare_kernels(torch, sweeps, prob, u_el, a_el, w_el, state, dt, f"28. {tag} random")
         del u_el, a_el, w_el, state
         torch.cuda.empty_cache()
         sweeps.reset_launches()
@@ -1960,13 +2051,13 @@ def dense2d_phases(torch, mt, sweeps, soa, sh, device, gen):
         clock(f"{tag} drops held")
         del steps
         u_el, a_el, w_el = predictor_fields(torch, sh, prob, carry, gen, dt)
-        errs, C = compare_dense(torch, sweeps, prob, u_el, a_el, w_el, carry["state"], dt,
+        errs, C = compare_kernels(torch, sweeps, prob, u_el, a_el, w_el, carry["state"], dt,
                                 f"28. {tag} path")
         rows += time_dense(torch, sweeps, prob, u_el, a_el, w_el, carry["state"], C, dt,
                            launches, errs, f"32. {tag} timing",
                            matvec=name != "StVenantKirchhoff")
         if elevate == 2 and name != "StVenantKirchhoff":
-            profile_step(torch, step, carry, s_step, f"31. {tag} profile", cpu=False)
+            profile_step(torch, step, carry, s_step, f"31. {tag} profile")
         del prob, carry, step, u_el, a_el, w_el, C
         torch.cuda.empty_cache()
         clock(tag)
@@ -1983,13 +2074,219 @@ def dense2d_phases(torch, mt, sweeps, soa, sh, device, gen):
         torch, mt, sweeps, prob, f"30. {tag}", 1, STEP_KW["dt"], kw)
     check_drops(torch, mt, prob, steps, STEP_KW["dt"], kw, f"30. {tag}", gen)
     u_el, a_el, w_el = predictor_fields(torch, sh, prob, carry, gen)
-    errs, C = compare_dense(torch, sweeps, prob, u_el, a_el, w_el, carry["state"],
+    errs, C = compare_kernels(torch, sweeps, prob, u_el, a_el, w_el, carry["state"],
                             STEP_KW["dt"], f"28. {tag} path")
     rows += time_dense(torch, sweeps, prob, u_el, a_el, w_el, carry["state"], C,
                        STEP_KW["dt"], launches, errs, f"32. {tag} timing")
     del prob, carry, step, steps, u_el, a_el, w_el, C
     torch.cuda.empty_cache()
     clock(tag)
+    return rows
+
+
+def dense_finite_inputs(torch, sweeps, soa, prob, gen, dt, amplitude=0.2):
+    """Random element fields and a random plastic history on the problem's
+    dense tables (a finite-strain material): the state after one plain
+    accumulate_soa at a random F with |F - I| up to `amplitude` per
+    element, eqps raised by up to 1e-3, temperature 20-120; u_el at another
+    such F, a_el and w_el of unit size.  Returns (u_el, a_el, w_el, state,
+    plastic share of the points at u_el)."""
+    mat, E, nq, dN = prob.material, prob.n_el, prob.n_q, prob.dense["dN_t"]
+    shape = (prob.dim, dN.shape[0], E)
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(prob.device, prob.dtype)  # noqa: E731
+    uni = lambda *s: torch.rand(*s, generator=gen).to(prob.device, prob.dtype)  # noqa: E731
+    grad = lambda u: sweeps.dense_grad(u, dN)  # noqa: E731
+    state = {k: v.clone() for k, v in prob.state0.items()}
+    state["temperature"] = 20.0 + 100.0 * uni(nq, E)
+    u0, _ = near_identity(torch, grad, rnd(*shape), amplitude)
+    state = mat.accumulate_soa(soa.add_diag(grad(u0), 1.0), state, dt)
+    state = {k: v.contiguous() for k, v in state.items()}
+    state["eqps"] = state["eqps"] + 1e-3 * uni(nq, E)
+    u_el, _ = near_identity(torch, grad, rnd(*shape), amplitude)
+    active = mat._return_map_soa(soa.add_diag(grad(u_el), 1.0), state, dt)[4]
+    return u_el, rnd(*shape), rnd(*shape), state, float(active.float().mean())
+
+
+def yield_margin(torch, sweeps, prob, u_el, state, tables=None):
+    """|r(0)| / (H thermo) per point (n_q, n_el): how far the plain trial
+    state of a finite-strain material (J2Simo, J2Log) lies from the yield
+    surface, relative to the flow stress (grad_of's `tables`)."""
+    from mimi_tpu_torch.fem import soa
+    from mimi_tpu_torch.materials.logm import logm_sym_soa
+
+    mat = prob.material
+    F = soa.add_diag(grad_of(sweeps, prob, u_el, tables), 1.0)
+    if mat.name() == "J2Simo":
+        q = mat._trial_soa(F, state)[3]
+    else:
+        Fe = soa.matmul(F, state["Fp_inv"])
+        E = 0.5 * logm_sym_soa(soa.matmul_tn(Fe, Fe))
+        q = math.sqrt(1.5) * soa.fro_norm(soa.dev(E, 2.0 * mat.G))
+    h = mat.hardening
+    flow = h.evaluate(state["eqps"]) * h.thermo_contribution(state["temperature"])
+    return (q - flow).abs() / flow
+
+
+def yield_flips(torch, sweeps, soa, prob, u_el, state, dt):
+    """(points on the plastic branch of the plain float32 return map at
+    u_el, points whose yield decision the same plain return map takes
+    otherwise in float64 on the same F and state): how many points sit so
+    close to the yield surface that float32 rounding decides their branch,
+    where the kernel, rounding in its own order, may take the other."""
+    mat = prob.material
+    F = soa.add_diag(sweeps.dense_grad(u_el, prob.dense["dN_t"]), 1.0)
+    a32 = mat._return_map_soa(F, state, dt)[4]
+    a64 = mat._return_map_soa(F.double(), {k: v.double() for k, v in state.items()}, dt)[4]
+    return int(a32.sum()), int((a32 != a64).sum())
+
+
+def deep_points(torch, sweeps, soa, prob, u_el, state):
+    """Points whose fast log series' argument is out of range
+    (materials/logm.py: ||X||_F > 0.40), where the J2Log kernels take the
+    deep series."""
+    from mimi_tpu_torch.materials import logm
+
+    F = soa.add_diag(sweeps.dense_grad(u_el, prob.dense["dN_t"]), 1.0)
+    Fe = soa.matmul(F, state["Fp_inv"])
+    _, xn = logm._logm_core(soa.matmul_tn(Fe, Fe), *logm.LOGM_FAST)
+    return int((~(xn <= logm.LOGM_X_MAX)).sum())
+
+
+def check_dense_finite(torch, sweeps, soa, prob, gen, dt, label):
+    """Phase 33 on one problem: its finite-strain material's three dense
+    kernels against plain on random plastic input (in the fast log
+    series' range), with the points whose yield decision float32 rounding
+    decides; for J2Log also the same input with element 0 past the fast
+    series' range (the deep series) and element 1 further (LOG_STRETCH),
+    the plain calls on elements 0-1 and 2.. apart (the plain version
+    escalates per batch, the kernel per point)."""
+    u_el, a_el, w_el, state, share = dense_finite_inputs(torch, sweeps, soa, prob, gen, dt)
+    n_pl, flips = yield_flips(torch, sweeps, soa, prob, u_el, state, dt)
+    say(f"[{label}] plastic share of the points {share:.3f} ({n_pl} of {prob.n_el * prob.n_q}); "
+        f"yield decision differs between the float32 and float64 plain return maps at {flips} "
+        f"points; eqps of the history max {float(state['eqps'].max()):.4e}")
+    if share < 0.25:
+        fail(f"{label}: plastic share {share} < 0.25: the check would not exercise the return map")
+    name = prob.material.name()
+    if name == "J2Log":
+        deep = deep_points(torch, sweeps, soa, prob, u_el, state)
+        say(f"[{label}] points past the fast log series' range: {deep}")
+        if deep:
+            fail(f"{label}: the in-range input has {deep} points past the fast series' range")
+    compare_kernels(torch, sweeps, prob, u_el, a_el, w_el, state, dt, label)
+    if name == "J2Log":
+        st = {k: v.clone() for k, v in state.items()}
+        for e, x in enumerate(LOG_STRETCH[prob.dim]):
+            diag = torch.ones(prob.dim, dtype=prob.dtype, device=prob.device)
+            diag[0] = x
+            st["Fp_inv"][..., e] = torch.diag(diag)[:, :, None]
+        deep = deep_points(torch, sweeps, soa, prob, u_el, st)
+        say(f"[{label}, out of range] points past the fast log series' range: {deep} of "
+            f"{prob.n_el * prob.n_q} (elements 0-1: {2 * prob.n_q} points)")
+        if deep < 2 * prob.n_q:
+            fail(f"{label}: the stretched elements do not leave the fast series' range")
+        compare_kernels(torch, sweeps, prob, u_el, a_el, w_el, st, dt, f"{label}, out of range",
+                      parts={"elements 0-1 (deep series)": slice(0, 2),
+                             "elements 2.. (fast series)": slice(2, None)})
+    del u_el, a_el, w_el, state
+    torch.cuda.empty_cache()
+
+
+def dense_finite_phases(torch, mt, sweeps, soa, sh, device, gen):
+    """Phases 33-37: the finite-strain plasticity models J2Simo and J2Log
+    on dense tables with the full tangent.  33: every dense + full
+    instantiation against plain on random plastic input (2D p = 3 at
+    512^2, 2D p = 2 at 128^2, 3D p = 2 at 2 x 8^3), J2Log also past the
+    fast log series' range; 34: one plastic step of the kernel path
+    against the plain path (64^2 per material: the third step at dt 0.2
+    from two float64 plain steps; 3D J2Simo at 2 x 8^3, A 1); 35: the timed
+    drives (the golden cantilevers at 512^2 and 128^2 p = 2, 1 + 3 steps at
+    dt 0.1; 2 x 38^3, 1 + 1), each step short of a 1e-4 Newton drop held
+    against the plain path; 36: one profiled step per material at 512^2;
+    37: the kernels' rows at the drives' states.  Returns the rows."""
+    rows = []
+    t_start = time.perf_counter()
+
+    def clock(what):
+        say(f"[33-37 clock] {what}: {time.perf_counter() - t_start:.1f} s since phase 33")
+
+    f64 = torch.float64
+    kw3 = {k: v for k, v in STEP_KW.items() if k != "dt"}
+
+    # ---- 34. one plastic step: cuda vs torch ----------------------------------------
+    for name in GOLDEN_FINITE:
+        prob = balken_build(mt, name, 2, STEP2D_SUBDIVIDE, device)
+        step_parity(torch, mt, lambda: balken_build(mt, name, 2, STEP2D_SUBDIVIDE, device, f64),
+                    prob, PARITY_DT, STEP2D_KW,
+                    f"34. {2**STEP2D_SUBDIVIDE}^2 step 3 {name}, dt {PARITY_DT}", gen, warm=2)
+        del prob
+    prob = dense_build(mt, DENSE_CHECK_SPANS, device, "J2Simo", A=A_PLASTIC)
+    step_parity(torch, mt,
+                lambda: dense_build(mt, DENSE_CHECK_SPANS, device, "J2Simo", A_PLASTIC, f64),
+                prob, STEP_KW["dt"], kw3,
+                f"34. 2x{DENSE_CHECK_SPANS}^3 step J2Simo, A {A_PLASTIC}", gen)
+
+    # ---- 33. 3D dense + full against plain at 2 x 8^3 ---------------------------------
+    for name in sweeps.FULL_KERNELS:
+        prob = dense_build(mt, DENSE_CHECK_SPANS, device, name)
+        check_dense_finite(torch, sweeps, soa, prob, gen, STEP_KW["dt"],
+                           f"33. 2x{DENSE_CHECK_SPANS}^3 random {name}")
+    del prob
+    torch.cuda.empty_cache()
+    clock("phases 33-34 at 64^2 and 2 x 8^3")
+
+    # ---- 33, 35-37. 2D p = 3 at 512^2, p = 2 at 128^2, 3D at 2 x 38^3 --------------------
+    cases = [(name, 2, GOLDEN_SUBDIVIDE) for name in GOLDEN_FINITE]
+    cases += [(name, 1, P2_SUBDIVIDE) for name in GOLDEN_FINITE]
+    cases += [(name, None, DENSE_SPANS) for name in GOLDEN_FINITE]
+    for name, elevate, n in cases:
+        if elevate is None:
+            dt, timed, kw = STEP_KW["dt"], 1, kw3
+            tag = f"2x{n}^3 {name}"
+        else:
+            _, dt, timed = GOLDEN_FINITE[name]
+            kw = STEP2D_KW
+            tag = f"{2**n}^2 p={elevate + 1} {name}"
+        sweeps.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        prob = (dense_build(mt, n, device, name) if elevate is None
+                else balken_build(mt, name, elevate, n, device))
+        torch.cuda.synchronize()
+        say(f"[35. {tag}] host build {time.perf_counter() - t0:.2f} s: n_el {prob.n_el}, n_q "
+            f"{prob.n_q}, nd {prob.dense['dN_t'].shape[0]}, unknowns {prob.n_dof * prob.dim}; "
+            f"dense tables {nbytes(prob.dense, prob.wdet_t) / 1e9:.3f} GB, state "
+            f"{nbytes(prob.state0) / 1e9:.3f} GB, full tangent "
+            f"{sweeps.n_planes('full', prob.dim)} planes "
+            f"({sweeps.n_planes('full', prob.dim) * prob.n_q * prob.n_el * 4 / 1e9:.3f} GB); "
+            f"device peak allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+        if elevate is not None:
+            check_dense_finite(torch, sweeps, soa, prob, gen, dt, f"33. {tag} random")
+        sweeps.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        carry, step, s_step, launches, steps = drive_dense(
+            torch, mt, sweeps, prob, f"35. {tag}", timed, dt, kw)
+        clock(f"{tag} drive")
+        check_drops(torch, mt, prob, steps, dt, kw, f"35. {tag}", gen,
+                    NEWTON_R_BAR.get(name, 1e-4))
+        clock(f"{tag} drops held")
+        del steps
+        u_el, a_el, w_el = predictor_fields(torch, sh, prob, carry, gen, dt)
+        n_pl, flips = yield_flips(torch, sweeps, soa, prob, u_el, carry["state"], dt)
+        say(f"[33. {tag} path] plastic points at the next predictor {n_pl}; yield decision "
+            f"differs between the float32 and float64 plain return maps at {flips}")
+        # near equilibrium the residual is a small difference of element
+        # forces, and both versions round be ~ I or log C_e ~ 0 in their own
+        # order: the finite-strain path-state bar of phases 25-26
+        errs, C = compare_kernels(torch, sweeps, prob, u_el, a_el, w_el, carry["state"], dt,
+                                f"33. {tag} path", res_bar=PATH_RES_BAR)
+        rows += time_dense(torch, sweeps, prob, u_el, a_el, w_el, carry["state"], C, dt,
+                           launches, errs, f"37. {tag} timing", matvec=name == "J2Simo")
+        if elevate == 2:
+            profile_step(torch, step, carry, s_step, f"36. {tag} profile")
+        del prob, carry, step, u_el, a_el, w_el, C
+        torch.cuda.empty_cache()
+        clock(tag)
     return rows
 
 
@@ -2020,7 +2317,7 @@ def main():
     from mimi_tpu_torch.solvers.linear import gmres
 
     # ---- 2. build ----------------------------------------------------------
-    t0 = time.perf_counter()
+    t0 = t_main = time.perf_counter()
     kbuild.load()
     build_s = time.perf_counter() - t0
     say(f"kernel build: {build_s:.2f} s (cached={kbuild.BUILD_INFO['cached']}; one nvcc "
@@ -2109,7 +2406,7 @@ def main():
     for name, replaces in KERNELS:
         kern, plain = calls[name]
         ms = cuda_ms(torch, kern, 20)
-        plain_ms = cuda_ms(torch, plain, 3)
+        plain_ms = cuda_ms(torch, plain, PLAIN_REPS)
         row = kernel_row(name, SOURCE[0], replaces, launches[name], errs[name], ms,
                          plain_ms, byts[name], n_pts * OPS_PER_POINT[name])
         say(f"[48^3 timing] {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms; "
@@ -2163,20 +2460,30 @@ def main():
     del prob, carry, step
     torch.cuda.empty_cache()
 
+    say(f"[clock] phases 1-8 done: {time.perf_counter() - t_main:.1f} s since phase 2")
     # ---- 9-12. the contact press ---------------------------------------------
     rows += contact_phases(torch, mt, sweeps, soa, sh, device, gen)
+    say(f"[clock] phases 9-12 done: {time.perf_counter() - t_main:.1f} s since phase 2")
 
     # ---- 13-18. the dense-table path, the fused kernels on its tables ----------
     rows += dense_phases(torch, mt, sweeps, fused, sh, device, gen)
+    say(f"[clock] phases 13-18 done: {time.perf_counter() - t_main:.1f} s since phase 2")
 
     # ---- 19-22. the hyperelastic single-patch path ------------------------------
     rows += hyper_phases(torch, mt, sweeps, sh, device, gen)
+    say(f"[clock] phases 19-22 done: {time.perf_counter() - t_main:.1f} s since phase 2")
 
     # ---- 23-26. finite-strain J2 plasticity with the full tangent -----------------
     rows += finite_phases(torch, mt, sweeps, soa, sh, device, gen)
+    say(f"[clock] phases 23-26 done: {time.perf_counter() - t_main:.1f} s since phase 2")
 
     # ---- 27-32. the 2D dense-table path, 3D dense J2 --------------------------------
     rows += dense2d_phases(torch, mt, sweeps, soa, sh, device, gen)
+    say(f"[clock] phases 27-32 done: {time.perf_counter() - t_main:.1f} s since phase 2")
+
+    # ---- 33-37. J2Simo and J2Log on dense tables with the full tangent ------------------
+    rows += dense_finite_phases(torch, mt, sweeps, soa, sh, device, gen)
+    say(f"[clock] phases 33-37 done: {time.perf_counter() - t_main:.1f} s since phase 2")
 
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {

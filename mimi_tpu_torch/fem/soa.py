@@ -107,8 +107,9 @@ def ddot(A, B):
 
 
 def cbrt(x):
-    """Real cube root of positive x (torch has no cbrt)."""
-    return x ** (1.0 / 3.0)
+    """Real cube root, negative x included, as jnp.cbrt (torch has no
+    cbrt): sign(x) |x|^(1/3), which is x ** (1/3) to the bit for x > 0."""
+    return torch.sign(x) * x.abs() ** (1.0 / 3.0)
 
 
 def det(A):

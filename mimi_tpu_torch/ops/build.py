@@ -22,11 +22,12 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [
     os.path.join(_HERE, "csrc", name)
     for name in ("sweeps_sf.cu", "sweeps_sf_finite.cu", "sweeps_dense.cu", "sweeps_dense_j2.cu",
-                 "fused_neohookean.cu")
+                 "sweeps_dense_finite.cu", "fused_neohookean.cu")
 ]
 HEADERS = [
     os.path.join(_HERE, "csrc", name)
-    for name in ("materials.cuh", "j2.cuh", "dense_common.cuh", "sf_common.cuh", "dual.cuh")
+    for name in ("materials.cuh", "j2.cuh", "dense_common.cuh", "sf_common.cuh", "dual.cuh",
+                 "finite.cuh")
 ]
 FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -119,6 +120,9 @@ def bind(lib):
         "residual_dense_j2": [vp] * 9 + [_J2Params, ci, ci, ll, vp],
         "assemble_dense_j2": [vp] * 10 + [_J2Params, ci, ci, ll, vp],
         "matvec_dense_cauchy": [vp] * 6 + [cf, cf, ci, ci, ll, vp],
+        "residual_dense_finite": [vp] * 10 + [_J2Params, ci, ci, ci, ll, vp],
+        "assemble_dense_finite": [vp] * 11 + [_J2Params, ci, ci, ci, ll, vp],
+        "matvec_dense_full": [vp] * 6 + [cf, cf, ci, ci, ll, vp],
         "neohookean_residual": [vp] * 4 + [cf, cf, ll, vp],
         "neohookean_tangent_apply": [vp] * 5 + [cf, cf, ll, vp],
     }

@@ -1,20 +1,22 @@
-// A forward-mode dual number and the 3 x 3 algebra templated on the scalar,
-// for sm_90a.
+// A forward-mode dual number and the DIM x DIM algebra (DIM 2 or 3)
+// templated on the scalar, for sm_90a.
 //
 // The CUDA kernels have no automatic differentiation.  Where a tangent has
 // no practical closed form (the finite-strain plasticity models of
-// sweeps_sf_finite.cu: J2Simo's inverse of an inverse and cube root,
-// J2Log's Hencky strain by square-root iterations and a series), the
-// material is written once as `template <class T>` and run with T = Dual
-// along a one-hot seed of F: the derivative parts of P are then one column
-// of dP/dF, as `jax.linearize` / `torch.func.jvp` of `pk1_soa` give it.
-// Comparisons and branches look at the value part only.
+// finite.cuh: J2Simo's inverse of an inverse and cube root, J2Log's Hencky
+// strain by square-root iterations and a series), the material is written
+// once as `template <class T>` and run with T = Dual along a one-hot seed
+// of F: the derivative parts of P are then one column of dP/dF, as
+// `jax.linearize` / `torch.func.jvp` of `pk1_soa` give it.  Comparisons and
+// branches look at the value part only.
 //
-// With T = float the templates are plain float code (det3 and inv3 are
-// the cofactor formulas of fem/soa.py, which the J2 kernels use).
+// With T = float the templates are plain float code in fem/soa.py's
+// formulas: the 2 x 2 inverse divides the adjugate by det, the 3 x 3 one
+// multiplies the cofactors by 1 / det; the deviator is over trace / DIM.
 
 #pragma once
 
+#include <cuda_runtime.h>
 #include <math.h>
 
 struct Dual {
@@ -61,84 +63,119 @@ __device__ __forceinline__ Dual powf(Dual a, float n) {
 __device__ __forceinline__ float val(float x) { return x; }
 __device__ __forceinline__ float val(const Dual& x) { return x.v; }
 
-// ---- 3 x 3 algebra on either scalar ------------------------------------------
+// ---- D x D algebra on either scalar (D deduced from the arrays) ---------------
 
-template <class T>
-__device__ __forceinline__ T det3(const T A[3][3]) {
-  return A[0][0] * (A[1][1] * A[2][2] - A[1][2] * A[2][1]) -
-         A[0][1] * (A[1][0] * A[2][2] - A[1][2] * A[2][0]) +
-         A[0][2] * (A[1][0] * A[2][1] - A[1][1] * A[2][0]);
+namespace sm {
+
+template <class T, int D>
+__device__ __forceinline__ T det(const T A[D][D]) {
+  static_assert(D == 2 || D == 3, "2 x 2 or 3 x 3");
+  if constexpr (D == 2) {
+    return A[0][0] * A[1][1] - A[0][1] * A[1][0];
+  } else {
+    return A[0][0] * (A[1][1] * A[2][2] - A[1][2] * A[2][1]) -
+           A[0][1] * (A[1][0] * A[2][2] - A[1][2] * A[2][0]) +
+           A[0][2] * (A[1][0] * A[2][1] - A[1][1] * A[2][0]);
+  }
 }
 
-// adjugate inverse, the same cofactor formulas as fem/soa.py inv
-template <class T>
-__device__ __forceinline__ void inv3(const T A[3][3], T det, T R[3][3]) {
-  const T id = 1.f / det;
+// R = A^-1 given det = det(A), as fem/soa.py inv: 2 x 2 the adjugate divided
+// by det, 3 x 3 the cofactors times 1 / det
+template <class T, int D>
+__device__ __forceinline__ void inv(const T A[D][D], T det, T R[D][D]) {
+  if constexpr (D == 2) {
+    R[0][0] = A[1][1] / det;
+    R[0][1] = -A[0][1] / det;
+    R[1][0] = -A[1][0] / det;
+    R[1][1] = A[0][0] / det;
+  } else {
+    const T id = 1.f / det;
 #define MIMI_COF(i1, j1, i2, j2) (A[i1][j1] * A[i2][j2] - A[i1][j2] * A[i2][j1])
-  R[0][0] = MIMI_COF(1, 1, 2, 2) * id;
-  R[0][1] = MIMI_COF(0, 2, 2, 1) * id;
-  R[0][2] = MIMI_COF(0, 1, 1, 2) * id;
-  R[1][0] = MIMI_COF(1, 2, 2, 0) * id;
-  R[1][1] = MIMI_COF(0, 0, 2, 2) * id;
-  R[1][2] = MIMI_COF(0, 2, 1, 0) * id;
-  R[2][0] = MIMI_COF(1, 0, 2, 1) * id;
-  R[2][1] = MIMI_COF(0, 1, 2, 0) * id;
-  R[2][2] = MIMI_COF(0, 0, 1, 1) * id;
+    R[0][0] = MIMI_COF(1, 1, 2, 2) * id;
+    R[0][1] = MIMI_COF(0, 2, 2, 1) * id;
+    R[0][2] = MIMI_COF(0, 1, 1, 2) * id;
+    R[1][0] = MIMI_COF(1, 2, 2, 0) * id;
+    R[1][1] = MIMI_COF(0, 0, 2, 2) * id;
+    R[1][2] = MIMI_COF(0, 2, 1, 0) * id;
+    R[2][0] = MIMI_COF(1, 0, 2, 1) * id;
+    R[2][1] = MIMI_COF(0, 1, 2, 0) * id;
+    R[2][2] = MIMI_COF(0, 0, 1, 1) * id;
 #undef MIMI_COF
+  }
 }
 
 // R = A B, R = A B^T, R = A^T B (sums in k order, as fem/soa.py); R must not
 // alias A or B
-template <class TA, class TB, class TR>
-__device__ __forceinline__ void mat_nn(const TA A[3][3], const TB B[3][3], TR R[3][3]) {
+template <class TA, class TB, class TR, int D>
+__device__ __forceinline__ void mat_nn(const TA A[D][D], const TB B[D][D], TR R[D][D]) {
 #pragma unroll
-  for (int i = 0; i < 3; ++i)
+  for (int i = 0; i < D; ++i)
 #pragma unroll
-    for (int j = 0; j < 3; ++j) R[i][j] = A[i][0] * B[0][j] + A[i][1] * B[1][j] + A[i][2] * B[2][j];
+    for (int j = 0; j < D; ++j) {
+      TR s = A[i][0] * B[0][j];
+#pragma unroll
+      for (int k = 1; k < D; ++k) s = s + A[i][k] * B[k][j];
+      R[i][j] = s;
+    }
 }
 
-template <class TA, class TB, class TR>
-__device__ __forceinline__ void mat_nt(const TA A[3][3], const TB B[3][3], TR R[3][3]) {
+template <class TA, class TB, class TR, int D>
+__device__ __forceinline__ void mat_nt(const TA A[D][D], const TB B[D][D], TR R[D][D]) {
 #pragma unroll
-  for (int i = 0; i < 3; ++i)
+  for (int i = 0; i < D; ++i)
 #pragma unroll
-    for (int j = 0; j < 3; ++j) R[i][j] = A[i][0] * B[j][0] + A[i][1] * B[j][1] + A[i][2] * B[j][2];
+    for (int j = 0; j < D; ++j) {
+      TR s = A[i][0] * B[j][0];
+#pragma unroll
+      for (int k = 1; k < D; ++k) s = s + A[i][k] * B[j][k];
+      R[i][j] = s;
+    }
 }
 
-template <class TA, class TB, class TR>
-__device__ __forceinline__ void mat_tn(const TA A[3][3], const TB B[3][3], TR R[3][3]) {
+template <class TA, class TB, class TR, int D>
+__device__ __forceinline__ void mat_tn(const TA A[D][D], const TB B[D][D], TR R[D][D]) {
 #pragma unroll
-  for (int i = 0; i < 3; ++i)
+  for (int i = 0; i < D; ++i)
 #pragma unroll
-    for (int j = 0; j < 3; ++j) R[i][j] = A[0][i] * B[0][j] + A[1][i] * B[1][j] + A[2][i] * B[2][j];
+    for (int j = 0; j < D; ++j) {
+      TR s = A[0][i] * B[0][j];
+#pragma unroll
+      for (int k = 1; k < D; ++k) s = s + A[k][i] * B[k][j];
+      R[i][j] = s;
+    }
 }
 
-template <class T>
-__device__ __forceinline__ T trace3(const T A[3][3]) {
-  return A[0][0] + A[1][1] + A[2][2];
-}
-
-// R = factor dev(A): factor (A_ii - tr(A) / 3) on the diagonal, factor A_ij
-// off it (fem/soa.py dev); R may alias A
-template <class T>
-__device__ __forceinline__ void dev3(const T A[3][3], float factor, T R[3][3]) {
-  const T tr3 = trace3(A) / 3.f;
+template <class T, int D>
+__device__ __forceinline__ T trace(const T A[D][D]) {
+  T s = A[0][0];
 #pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) R[i][j] = i == j ? factor * (A[i][j] - tr3) : factor * A[i][j];
-}
-
-// sum_ij A_ij B_ij, row by row
-template <class T>
-__device__ __forceinline__ T ddot3(const T A[3][3], const T B[3][3]) {
-  T s = A[0][0] * B[0][0];
-#pragma unroll
-  for (int k = 1; k < 9; ++k) s = s + A[k / 3][k % 3] * B[k / 3][k % 3];
+  for (int i = 1; i < D; ++i) s = s + A[i][i];
   return s;
 }
 
-template <class T>
-__device__ __forceinline__ T fro_norm3(const T A[3][3]) {
-  return sqrtf(ddot3(A, A));
+// R = factor dev(A): factor (A_ii - tr(A) / D) on the diagonal, factor A_ij
+// off it (fem/soa.py dev); R may alias A
+template <class T, int D>
+__device__ __forceinline__ void dev(const T A[D][D], float factor, T R[D][D]) {
+  const T trd = trace(A) / (float)D;
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) R[i][j] = i == j ? factor * (A[i][j] - trd) : factor * A[i][j];
 }
+
+// sum_ij A_ij B_ij, row by row
+template <class T, int D>
+__device__ __forceinline__ T ddot(const T A[D][D], const T B[D][D]) {
+  T s = A[0][0] * B[0][0];
+#pragma unroll
+  for (int k = 1; k < D * D; ++k) s = s + A[k / D][k % D] * B[k / D][k % D];
+  return s;
+}
+
+template <class T, int D>
+__device__ __forceinline__ T fro_norm(const T A[D][D]) {
+  return sqrtf(ddot(A, A));
+}
+
+}  // namespace sm

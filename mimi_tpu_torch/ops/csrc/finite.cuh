@@ -1,0 +1,356 @@
+// The finite-strain plasticity models J2Simo and J2Log at one quadrature
+// point, templated on the dimension DIM (2 or 3), for sm_90a; shared by the
+// sum-factorized (sweeps_sf_finite.cu, DIM = 3) and the dense-table
+// (sweeps_dense_finite.cu, DIM = 2 and 3) CUDA sweeps with the full tangent
+// storage (FullStorage<DIM>, materials.cuh).
+//
+// Each material's P(F, state) is one `template <class T>` body, the plain
+// versions' (materials/__init__.py J2Simo, J2Log; materials/logm.py) step
+// by step.  The residual runs it with T = float; the assemble runs it once
+// in float (P, and the radial return's converged increment d*, its r'(d*)
+// and whether the point yields), then DIM^2 times with T = Dual (dual.cuh),
+// seeded with e_b, and writes the derivative parts as column b of
+// C[a DIM^2 + b] = dP_a / dF_b.  The dual passes do not repeat the scalar
+// solve: like the reference (materials/__init__.py _solve_delta_eqps) they
+// apply one implicit-function-theorem correction
+// delta = d* - r(d*; q, slope) / r'(d*), with q and the slope carrying
+// derivatives and r' a plain float.  Branches (yielding, J2Simo's
+// near-zero deviator, q > 0, the log's range escalation) follow the value.
+// One Dual (two floats) per scalar and one pass per seed, rather than all
+// DIM^2 derivatives at once: the J2Log body holds four DIM x DIM matrices
+// through its square-root iterations, 72 floats as Dual in 3D and 360 as a
+// nine-wide dual, and the one-thread-per-element kernels already sit at 255
+// registers with spills (PERF.md).
+//
+// In 2D the reference uses true 2 x 2 tensors, and so does this body: the
+// deviator over trace / 2, J2Simo's cube root of the 2 x 2 det(f_bar), the
+// log's trace prescaling by trace / 2.
+//
+// J2Log's Hencky strain: log C_e by trace prescaling, 2 Denman-Beavers
+// square roots of 7 iterations and 8 Gregory terms (materials/logm.py);
+// a point whose series argument has ||X||_F > 0.40 is recomputed with 5
+// roots, 14 iterations and 12 terms, and NaN-poisoned if it is still out
+// of range.  The reference decides this per batch (one lax.cond: every
+// point of a batch with one bad point takes the deep series); the kernel
+// decides per point, so an in-range point of such a batch keeps the fast
+// series here.  The two differ by the deep series' float32 rounding, which
+// its five square roots scale by 2^6 in log C.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <float.h>
+
+#include <type_traits>
+
+#include "dual.cuh"
+#include "j2.cuh"
+#include "materials.cuh"
+
+namespace {
+
+// the radial return at one point, from the float pass
+struct ReturnMap {
+  bool active = false;
+  float dstar = 0.f, fprime = 1.f;
+};
+
+// The plastic increment.  float: the safeguarded solve (j2.cuh
+// radial_return), which records the point's ReturnMap.  Dual: the
+// implicit-function-theorem correction at the recorded root,
+// d* - r(d*; q, slope) / r'(d*), zero on an elastic point.
+template <class T>
+__device__ __forceinline__ T plastic_increment(const J2Params& p, const T& q, const T& slope,
+                                               float eqps0, float thermo, ReturnMap& rm) {
+  if constexpr (std::is_same<T, float>::value) {
+    return radial_return(p, q, eqps0, thermo, slope, &rm.active, &rm.fprime, &rm.dstar);
+  } else {
+    if (!rm.active) return T(0.f);
+    float H, dH, R, dR;
+    jc_flow(p, eqps0 + rm.dstar, H, dH);
+    jc_rate(p, rm.dstar / p.dt, R, dR);
+    const T r = q - slope * rm.dstar - H * (R * thermo);
+    return rm.dstar - r / rm.fprime;
+  }
+}
+
+// a DIM x DIM state leaf (DIM, DIM, NQ, E) at one point
+template <int DIM>
+__device__ __forceinline__ void load_leaf(const float* __restrict__ t, long long qe,
+                                          long long QE, float A[DIM][DIM]) {
+#pragma unroll
+  for (int i = 0; i < DIM; ++i)
+#pragma unroll
+    for (int j = 0; j < DIM; ++j) A[i][j] = __ldg(t + (i * DIM + j) * QE + qe);
+}
+
+// Denman-Beavers square root of SPD A, in place
+template <class T, int DIM>
+__device__ void sqrt_db(T A[DIM][DIM], int iters) {
+  T Y[DIM][DIM], Z[DIM][DIM];
+#pragma unroll
+  for (int i = 0; i < DIM; ++i)
+#pragma unroll
+    for (int j = 0; j < DIM; ++j) {
+      Y[i][j] = A[i][j];
+      Z[i][j] = T(i == j ? 1.f : 0.f);
+    }
+#pragma unroll 1
+  for (int it = 0; it < iters; ++it) {
+    T Yi[DIM][DIM], Zi[DIM][DIM];
+    sm::inv(Y, sm::det(Y), Yi);
+    sm::inv(Z, sm::det(Z), Zi);
+#pragma unroll
+    for (int i = 0; i < DIM; ++i)
+#pragma unroll
+      for (int j = 0; j < DIM; ++j) {
+        Y[i][j] = 0.5f * (Y[i][j] + Zi[i][j]);
+        Z[i][j] = 0.5f * (Z[i][j] + Yi[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < DIM; ++i)
+#pragma unroll
+    for (int j = 0; j < DIM; ++j) A[i][j] = Y[i][j];
+}
+
+constexpr float kLogmXMax = 0.40f;  // materials/logm.py LOGM_X_MAX
+
+// L = log C for SPD C (materials/logm.py _logm_core): the fast
+// configuration, the deep one where the series argument is out of range,
+// NaN beyond that
+template <class T, int DIM>
+__device__ void logm_spd(const T C[DIM][DIM], T L[DIM][DIM]) {
+#pragma unroll 1
+  for (int deep = 0; deep < 2; ++deep) {
+    const int levels = deep ? 5 : 2, terms = deep ? 12 : 8, iters = deep ? 14 : 7;
+    const T s = sm::trace(C) / (float)DIM;
+    T A[DIM][DIM];
+#pragma unroll
+    for (int i = 0; i < DIM; ++i)
+#pragma unroll
+      for (int j = 0; j < DIM; ++j) A[i][j] = C[i][j] / s;
+#pragma unroll 1
+    for (int l = 0; l < levels; ++l) sqrt_db(A, iters);
+    T Am[DIM][DIM], Ap[DIM][DIM], Api[DIM][DIM], X[DIM][DIM], X2[DIM][DIM];
+#pragma unroll
+    for (int i = 0; i < DIM; ++i)
+#pragma unroll
+      for (int j = 0; j < DIM; ++j) {
+        Am[i][j] = i == j ? A[i][j] - 1.f : A[i][j];
+        Ap[i][j] = i == j ? A[i][j] + 1.f : A[i][j];
+      }
+    sm::inv(Ap, sm::det(Ap), Api);
+    sm::mat_nn(Am, Api, X);
+    sm::mat_nn(X, X, X2);
+    T term[DIM][DIM], acc[DIM][DIM];
+#pragma unroll
+    for (int i = 0; i < DIM; ++i)
+#pragma unroll
+      for (int j = 0; j < DIM; ++j) term[i][j] = acc[i][j] = X[i][j];
+#pragma unroll 1
+    for (int k = 1; k < terms; ++k) {
+      T t2[DIM][DIM];
+      sm::mat_nn(term, X2, t2);
+      const float den = 2.f * k + 1.f;
+#pragma unroll
+      for (int i = 0; i < DIM; ++i)
+#pragma unroll
+        for (int j = 0; j < DIM; ++j) {
+          term[i][j] = t2[i][j];
+          acc[i][j] = acc[i][j] + term[i][j] / den;
+        }
+    }
+    const float scale = deep ? 64.f : 8.f;  // 2^(levels + 1)
+    const T ls = logf(s);
+#pragma unroll
+    for (int i = 0; i < DIM; ++i)
+#pragma unroll
+      for (int j = 0; j < DIM; ++j) L[i][j] = i == j ? scale * acc[i][j] + ls : scale * acc[i][j];
+    if (val(sm::fro_norm(X)) <= kLogmXMax) return;  // false for NaN too
+  }
+#pragma unroll
+  for (int i = 0; i < DIM; ++i)
+#pragma unroll
+    for (int j = 0; j < DIM; ++j) L[i][j] = L[i][j] * NAN;
+}
+
+// What the DIM^2 tangent passes of a point need: F and the float pass's
+// return
+template <int DIM>
+struct FinitePoint {
+  float F[DIM][DIM];
+  ReturnMap rm;
+};
+
+// The float pass and the DIM^2 dual passes of a finite-strain material
+// whose `pk1<T>(F, qe, QE, rm, P)` is written once for both scalars (CRTP),
+// on the sweep kernels' material interface (`eval`, and `column` for
+// FullStorage<DIM>).
+template <class M, int DIM>
+struct FiniteMat {
+  static constexpr int D2 = DIM * DIM;
+  using Point = FinitePoint<DIM>;
+  template <bool TANGENT>
+  __device__ __forceinline__ void eval(const float F[DIM][DIM], long long qe, long long QE,
+                                       float P[DIM][DIM], Point& pt) const {
+    ReturnMap rm;
+    static_cast<const M*>(this)->template pk1<float>(F, qe, QE, rm, P);
+    if (TANGENT) {
+#pragma unroll
+      for (int i = 0; i < DIM; ++i)
+#pragma unroll
+        for (int j = 0; j < DIM; ++j) pt.F[i][j] = F[i][j];
+      pt.rm = rm;
+    }
+  }
+  // column b of dP/dF: one forward-mode pass seeded with e_b, b = DIM g + f
+  __device__ __forceinline__ void column(const Point& pt, long long qe, long long QE, int b,
+                                         float col[D2]) const {
+    Dual F[DIM][DIM], P[DIM][DIM];
+#pragma unroll
+    for (int k = 0; k < D2; ++k)
+      F[k / DIM][k % DIM] = Dual(pt.F[k / DIM][k % DIM], k == b ? 1.f : 0.f);
+    ReturnMap rm = pt.rm;
+    static_cast<const M*>(this)->template pk1<Dual>(F, qe, QE, rm, P);
+#pragma unroll
+    for (int a = 0; a < D2; ++a) col[a] = P[a / DIM][a % DIM].d;
+  }
+};
+
+// J2Simo (materials/__init__.py J2Simo): state be_old, F_old (DIM, DIM,
+// NQ, E), eqps, temperature (NQ, E).  The trial state follows the
+// reference's sequence f_inv = F_old F^-1, f_bar = inv(f_inv) cbrt(det),
+// be = f_bar be_old f_bar^T (the cube root in 2D too); the slope of the
+// radial return is G tr(be); P = tau F^-T with
+// tau = G dev(be) + K (J^2 - 1)/2 I.
+template <int DIM>
+struct J2SimoMat : FiniteMat<J2SimoMat<DIM>, DIM> {
+  J2Params p;
+  const float *be_old, *F_old, *eqps, *temp;
+
+  template <class T>
+  __device__ void pk1(const T F[DIM][DIM], long long qe, long long QE, ReturnMap& rm,
+                      T P[DIM][DIM]) const {
+    float Fo[DIM][DIM], beo[DIM][DIM];
+    load_leaf<DIM>(F_old, qe, QE, Fo);
+    load_leaf<DIM>(be_old, qe, QE, beo);
+    const float e0 = __ldg(eqps + qe);
+    const float thermo = jc_thermo(p, __ldg(temp + qe));
+    T Fi[DIM][DIM], finv[DIM][DIM], fbar[DIM][DIM], tmp[DIM][DIM], be[DIM][DIM],
+        s[DIM][DIM], N[DIM][DIM];
+    const T J = sm::det(F);
+    sm::inv(F, J, Fi);
+    sm::mat_nn(Fo, Fi, finv);
+    sm::inv(finv, sm::det(finv), fbar);
+    const T c = cbrtf(sm::det(fbar));
+#pragma unroll
+    for (int i = 0; i < DIM; ++i)
+#pragma unroll
+      for (int j = 0; j < DIM; ++j) fbar[i][j] = fbar[i][j] * c;
+    sm::mat_nn(fbar, beo, tmp);
+    sm::mat_nt(tmp, fbar, be);
+    sm::dev(be, p.G, s);
+    const T s_norm = sm::fro_norm(s);
+    // the reference's jnp.finfo(float32).eps
+    const bool near_zero = val(s_norm) < FLT_EPSILON;
+    const T shat = sqrtf(1.5f) / (near_zero ? T(1.f) : s_norm);
+#pragma unroll
+    for (int i = 0; i < DIM; ++i)
+#pragma unroll
+      for (int j = 0; j < DIM; ++j)
+        N[i][j] = near_zero ? T(i == j ? sqrtf(0.5f) : 0.f) : shat * s[i][j];
+    const T q = sm::ddot(N, s);
+    const T tr = sm::trace(be);
+    const T delta = plastic_increment(p, q, T(p.G) * tr, e0, thermo, rm);
+    const T coef = (2.f / 3.f) * delta * tr;
+#pragma unroll
+    for (int i = 0; i < DIM; ++i)
+#pragma unroll
+      for (int j = 0; j < DIM; ++j) be[i][j] = be[i][j] - coef * N[i][j];
+    sm::dev(be, p.G, s);
+    const T kd = p.K * (J * J - 1.f) * 0.5f;
+#pragma unroll
+    for (int i = 0; i < DIM; ++i) s[i][i] = s[i][i] + kd;
+    sm::mat_nt(s, Fi, P);
+  }
+};
+
+// J2Log (materials/__init__.py J2Log): state Fp_inv (DIM, DIM, NQ, E),
+// eqps, temperature (NQ, E).  E = log(F_e^T F_e) / 2 with F_e = F Fp_inv;
+// slope 3G; P = J (s + p/J I) F^-T.
+template <int DIM>
+struct J2LogMat : FiniteMat<J2LogMat<DIM>, DIM> {
+  J2Params p;
+  const float *fp_inv, *eqps, *temp;
+
+  template <class T>
+  __device__ void pk1(const T F[DIM][DIM], long long qe, long long QE, ReturnMap& rm,
+                      T P[DIM][DIM]) const {
+    float Fpi[DIM][DIM];
+    load_leaf<DIM>(fp_inv, qe, QE, Fpi);
+    const float e0 = __ldg(eqps + qe);
+    const float thermo = jc_thermo(p, __ldg(temp + qe));
+    T Fe[DIM][DIM], E[DIM][DIM], s[DIM][DIM];
+    sm::mat_nn(F, Fpi, Fe);
+    {
+      T Ce[DIM][DIM];
+      sm::mat_tn(Fe, Fe, Ce);
+      logm_spd(Ce, E);
+    }
+#pragma unroll
+    for (int i = 0; i < DIM; ++i)
+#pragma unroll
+      for (int j = 0; j < DIM; ++j) E[i][j] = 0.5f * E[i][j];
+    const T pr = p.K * sm::trace(E);
+    sm::dev(E, 2.f * p.G, s);
+    const T q = sqrtf(1.5f) * sm::fro_norm(s);
+    const T delta = plastic_increment(p, q, T(3.f * p.G), e0, thermo, rm);
+    const T npf = 1.5f / (val(q) > 0.f ? q : T(1.f));
+    const T g = (2.f * p.G) * delta;
+#pragma unroll
+    for (int i = 0; i < DIM; ++i)
+#pragma unroll
+      for (int j = 0; j < DIM; ++j) s[i][j] = s[i][j] - g * (npf * s[i][j]);
+    const T J = sm::det(F);
+    const T pj = pr / J;
+#pragma unroll
+    for (int i = 0; i < DIM; ++i) s[i][i] = s[i][i] + pj;
+    T Fi[DIM][DIM], M[DIM][DIM];
+    sm::inv(F, J, Fi);
+    sm::mat_nt(s, Fi, M);
+#pragma unroll
+    for (int i = 0; i < DIM; ++i)
+#pragma unroll
+      for (int j = 0; j < DIM; ++j) P[i][j] = J * M[i][j];
+  }
+};
+
+// The material `material` (0 J2Simo, 1 J2Log: ops/sweeps.py FULL_KERNELS)
+// with its state leaves s0..s3 in the entry points' order (J2Simo be_old,
+// F_old, eqps, temperature; J2Log Fp_inv, eqps, temperature, s3 unused),
+// passed to fn as the material object; cudaErrorInvalidValue for another id.
+template <int DIM, class Fn>
+int with_finite_material(int material, const J2Params& p, const float* s0, const float* s1,
+                         const float* s2, const float* s3, Fn fn) {
+  if (material == 0) {
+    J2SimoMat<DIM> m;
+    m.p = p;
+    m.be_old = s0;
+    m.F_old = s1;
+    m.eqps = s2;
+    m.temp = s3;
+    return fn(m);
+  }
+  if (material == 1) {
+    J2LogMat<DIM> m;
+    m.p = p;
+    m.fp_inv = s0;
+    m.eqps = s1;
+    m.temp = s2;
+    return fn(m);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace

@@ -1,5 +1,6 @@
 // Hyperelastic materials and tangent storages shared by the CUDA sweeps
-// (sweeps_sf.cu, sweeps_dense.cu, fused_neohookean.cu), for sm_90a.
+// (sweeps_sf.cu, sweeps_sf_finite.cu, sweeps_dense.cu, sweeps_dense_j2.cu,
+// sweeps_dense_finite.cu, fused_neohookean.cu), for sm_90a.
 //
 // A material is a struct templated on the dimension DIM (2 or 3) with its
 // first Piola stress `pk1(F, P)` and its closed-form dP/dF as
@@ -314,6 +315,43 @@ struct SymStorage {
       float s = C[plane(a, 0)] * dF[0][0];
 #pragma unroll
       for (int k = 1; k < D2; ++k) s += C[plane(a, k)] * dF[k / DIM][k % DIM];
+      dP[a / DIM][a % DIM] = fac0 * s;
+    }
+  }
+};
+
+// all D2 x D2 planes of dP/dF, C[a D2 + b] = dP_a / dF_b with a = DIM c + d
+// indexing P and b = DIM g + f indexing F (ops/sweeps.py
+// full_tangent_planes): 81 planes in 3D, 16 in 2D.  The material supplies
+// column b at a point, `mat.column(pt, qe, QE, b, col)` (finite.cuh: one
+// forward-mode pass seeded with e_b).
+template <int DIM>
+struct FullStorage {
+  static constexpr int D2 = DIM * DIM;
+  static constexpr int kPlanes = D2 * D2;
+  template <class Mat, typename CT>
+  __device__ __forceinline__ static void store(CT* __restrict__ cout, long long qe,
+                                               long long QE, const Mat& mat,
+                                               const typename Mat::Point& pt) {
+#pragma unroll 1
+    for (int b = 0; b < D2; ++b) {
+      float col[D2];
+      mat.column(pt, qe, QE, b, col);
+#pragma unroll
+      for (int a = 0; a < D2; ++a) store_c(cout + (a * D2 + b) * QE + qe, col[a]);
+    }
+  }
+  // dP_a = fac0 sum_b C[a D2 + b] dF_b, b in order (ops/sweeps.py
+  // tangent_apply_full); each row is read as it is used
+  template <typename CT>
+  __device__ __forceinline__ static void apply(const CT* __restrict__ cf, long long qe,
+                                               long long QE, const float dF[DIM][DIM],
+                                               float fac0, float dP[DIM][DIM]) {
+#pragma unroll
+    for (int a = 0; a < D2; ++a) {
+      float s = load_c(cf + (a * D2) * QE + qe) * dF[0][0];
+#pragma unroll
+      for (int b = 1; b < D2; ++b) s += load_c(cf + (a * D2 + b) * QE + qe) * dF[b / DIM][b % DIM];
       dP[a / DIM][a % DIM] = fac0 * s;
     }
   }

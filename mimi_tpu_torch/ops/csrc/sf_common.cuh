@@ -2,8 +2,8 @@
 // Cauchy storage, the hyperelastic materials with the symmetric storage)
 // and sweeps_sf_finite.cu (J2Simo and J2Log with the full storage), for
 // sm_90a: the 1D basis tables, interpolation and scatter of one element's
-// fields at one point (the Johnson-Cook radial return is in j2.cuh), the
-// full 81-plane storage, and the residual / matvec kernel templates
+// fields at one point (the Johnson-Cook radial return is in j2.cuh, the
+// storages in materials.cuh), and the residual / matvec kernel templates
 // with their launchers.  Each source instantiates what it needs; the design
 // notes are at the head of sweeps_sf.cu.
 
@@ -147,42 +147,6 @@ __device__ __forceinline__ void scatter(float (&acc)[3][ND], const Basis& s,
           acc[c][n] += g0 * Z[c][0] + g1 * Z[c][1] + g2 * Z[c][2] + N * mm[c];
       }
 }
-
-// ---- the full storage: 81 planes C[a*9 + b] = dP_a / dF_b ------------------
-
-// a = 3c + d indexes P, b = 3g + f indexes F (ops/sweeps.py
-// full_tangent_planes).  The material supplies column b at a point,
-// `mat.column(pt, qe, QE, b, col)`: one forward-mode pass seeded with e_b.
-struct FullStorage {
-  static constexpr int kPlanes = 81;
-  template <class Mat, typename CT>
-  __device__ __forceinline__ static void store(CT* __restrict__ cout, long long qe,
-                                               long long QE, const Mat& mat,
-                                               const typename Mat::Point& pt) {
-#pragma unroll 1
-    for (int b = 0; b < 9; ++b) {
-      float col[9];
-      mat.column(pt, qe, QE, b, col);
-#pragma unroll
-      for (int a = 0; a < 9; ++a) store_c(cout + (a * 9 + b) * QE + qe, col[a]);
-    }
-  }
-  // dP_a = fac0 sum_b C[a*9 + b] dF_b, b in order (ops/sweeps.py
-  // tangent_apply_full); each row is read as it is used
-  template <typename CT>
-  __device__ __forceinline__ static void apply(const CT* __restrict__ cf, long long qe,
-                                               long long QE, const float dF[3][3],
-                                               float fac0, float dP[3][3]) {
-#pragma unroll
-    for (int a = 0; a < 9; ++a) {
-      float s = load_c(cf + (a * 9) * QE + qe) * dF[0][0];
-#pragma unroll
-      for (int b = 1; b < 9; ++b) s += load_c(cf + (a * 9 + b) * QE + qe) * dF[b / 3][b % 3];
-      dP[a / 3][a % 3] = fac0 * s;
-    }
-  }
-};
-
 
 template <class Mat, class Store, bool TANGENT, bool VISC, typename CT>
 __global__ void __launch_bounds__(BLOCK)

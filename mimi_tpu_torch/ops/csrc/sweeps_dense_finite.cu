@@ -1,0 +1,113 @@
+// Dense-table quadrature sweeps of the finite-strain plasticity models
+// J2Simo and J2Log with the full tangent storage, for sm_90a.
+//
+// Three kernels, each replacing one Pallas TPU kernel of
+// mimi_tpu/ops/sweeps.py in its dense-table branch with c_storage="full":
+//   mimi_residual_dense_finite <- make_residual_sweep (dense, J2Simo / J2Log state)  residual only
+//   mimi_assemble_dense_finite <- make_assemble_sweep (dense, "full")               residual + DIM^4 planes
+//   mimi_matvec_dense_full     <- make_matvec_sweep ("full")                       y = J w
+// on the kernel templates of dense_common.cuh (design notes at the head of
+// sweeps_dense.cu), for (DIM, P) = (2, 2), (2, 3) and (3, 2): 2D patches
+// (the golden cantilever at p = 3, the examples at p = 2) and multi-patch
+// or knot-repeated 3D meshes.  `material` 0 is J2Simo, 1 J2Log
+// (ops/sweeps.py FULL_KERNELS).  The plain torch versions are
+// residual_dense_plain, assemble_dense_plain (full_tangent_planes) and
+// matvec_dense_plain (tangent_apply_full) with these materials.
+//
+// The point bodies are finite.cuh's, shared with the sum-factorized
+// sweeps: P(F, state) written once for float and for forward-mode dual
+// numbers; the assemble runs it once in float and DIM^2 times in Dual
+// (4 passes in 2D, 9 in 3D) and stores FullStorage<DIM>,
+// C[a DIM^2 + b] = dP_a / dF_b: 16 planes in 2D, 81 in 3D.  The state is
+// read at each point: J2Simo be_old, F_old (DIM, DIM, NQ, E), eqps and
+// temperature (NQ, E); J2Log Fp_inv, eqps, temperature.
+//
+// What bounds them on the H100: bytes on elastic points for the residual
+// and the matvec.  At 512^2 (2D, p = 3, 262,144 elements, 25 points each)
+// the residual streams dN 0.84 GB, N 0.42 GB, J2Simo's state 0.26 GB and
+// w det J, ~1.65 GB (0.49 ms at 3.35 TB/s); the matvec reads the 16 planes
+// (0.42 GB) in place of the state.  The assemble runs the material
+// DIM^2 + 1 times per point (J2Log's square-root iterations: ~8,500
+// operations per dual pass in 3D), so it may turn compute bound; a plastic
+// point adds the radial return's iterations (up to 100 safeguarded
+// Newton-bisection trips with powf / logf) once, in the float pass.
+//
+// Rounding: F is formed without FMA in the plain version's order
+// (dense_common.cuh grad_q), so it agrees with the plain version to the
+// bit; the material body then rounds in its own order (FMA allowed, cbrtf
+// against torch's x ** (1/3)), so the trial state, and at points right at
+// the yield surface the yield decision, may differ from the plain
+// version's by float32 rounding.
+
+#include <cuda_runtime.h>
+
+#include "dense_common.cuh"
+#include "finite.cuh"
+#include "materials.cuh"
+
+namespace {
+
+template <int DIM, int P, bool TANGENT>
+int launch_finite(const float* u_el, const float* a_el, const float* dN, const float* N,
+                  const float* wq, const float* s0, const float* s1, const float* s2,
+                  const float* s3, float* out, float* cout, const J2Params& p, int material,
+                  long long E, void* stream) {
+  return with_finite_material<DIM>(material, p, s0, s1, s2, s3, [&](const auto& m) {
+    using Mat = std::decay_t<decltype(m)>;
+    return launch_dense_residual<Mat, FullStorage<DIM>, DIM, P, TANGENT>(
+        u_el, a_el, dN, N, wq, out, cout, m, p.rho, E, stream);
+  });
+}
+
+template <bool TANGENT>
+int finite_entry(const float* u_el, const float* a_el, const float* dN, const float* N,
+                 const float* wq, const float* s0, const float* s1, const float* s2,
+                 const float* s3, float* out, float* cout, const J2Params& p, int material,
+                 int dim, int deg, long long E, void* stream) {
+  if (E <= 0) return 0;
+  return with_dense_shape(dim, deg, [&](auto D, auto G) {
+    return launch_finite<decltype(D)::value, decltype(G)::value, TANGENT>(
+        u_el, a_el, dN, N, wq, s0, s1, s2, s3, out, cout, p, material, E, stream);
+  });
+}
+
+}  // namespace
+
+// C entry points, full storage; (dim, p) one of the instantiated pairs
+// (2, 2), (2, 3), (3, 2).  The state leaves s0..s3 in the order of
+// ops/sweeps.py FULL_KERNELS (J2Simo be_old, F_old, eqps, temperature;
+// J2Log Fp_inv, eqps, temperature, s3 unused).  Each returns the launch's
+// cudaGetLastError(), or cudaErrorInvalidValue for a (dim, p) not
+// instantiated or an unknown material.
+extern "C" {
+
+int mimi_residual_dense_finite(const float* u_el, const float* a_el, const float* dN,
+                               const float* N, const float* wq, const float* s0,
+                               const float* s1, const float* s2, const float* s3,
+                               float* out, J2Params p, int material, int dim, int deg,
+                               long long E, void* stream) {
+  return finite_entry<false>(u_el, a_el, dN, N, wq, s0, s1, s2, s3, out, nullptr, p,
+                             material, dim, deg, E, stream);
+}
+
+int mimi_assemble_dense_finite(const float* u_el, const float* a_el, const float* dN,
+                               const float* N, const float* wq, const float* s0,
+                               const float* s1, const float* s2, const float* s3,
+                               float* out, float* cout, J2Params p, int material, int dim,
+                               int deg, long long E, void* stream) {
+  return finite_entry<true>(u_el, a_el, dN, N, wq, s0, s1, s2, s3, out, cout, p, material,
+                            dim, deg, E, stream);
+}
+
+int mimi_matvec_dense_full(const float* w_el, const float* dN, const float* N,
+                           const float* wq, const float* cf, float* out, float rho,
+                           float fac0, int dim, int deg, long long E, void* stream) {
+  if (E <= 0) return 0;
+  return with_dense_shape(dim, deg, [&](auto D, auto G) {
+    constexpr int DIM = decltype(D)::value, P = decltype(G)::value;
+    return launch_dense_matvec<FullStorage<DIM>, DIM, P>(w_el, dN, N, wq, cf, out, rho, fac0,
+                                                         E, stream);
+  });
+}
+
+}  // extern "C"

@@ -12,9 +12,9 @@
 // (c_storage="sym": mimi_residual_sf_hyper, mimi_assemble_sf_hyper,
 // mimi_matvec_sf_sym).  The finite-strain plasticity models J2Simo and J2Log
 // with the 81-plane full tangent (c_storage="full") instantiate the same
-// kernel templates in sweeps_sf_finite.cu; the templates, the 1D-table
-// interpolation and scatter and FullStorage are in sf_common.cuh, the
-// Johnson-Cook radial return in j2.cuh.
+// kernel templates in sweeps_sf_finite.cu; the templates and the 1D-table
+// interpolation and scatter are in sf_common.cuh, the storages in
+// materials.cuh, the Johnson-Cook radial return in j2.cuh.
 // The plain torch versions of the same functions are in ops/sweeps.py.
 //
 // Variants (compile-time template parameters, one instantiation each,
@@ -25,12 +25,12 @@
 //         runs the radial return on the point's state; Hyper<NeoHookean<3>>
 //         and Hyper<StVK<3>> (materials.cuh) are stateless and form P without fused
 //         multiply-add, as the dense kernels do; J2SimoMat and J2LogMat
-//         (sweeps_sf_finite.cu) run one body for P in float and, for the
-//         tangent, in forward-mode dual numbers (dual.cuh).
+//         (finite.cuh) run one body for P in float and, for the tangent,
+//         in forward-mode dual numbers (dual.cuh).
 //   Store the tangent block: CauchyStorage (37 planes: D-hat, sigma, F^-1,
 //         J; the matvec rebuilds P and applies the geometric terms),
 //         SymStorage (45 upper-triangle planes of a major-symmetric dP/dF)
-//         or FullStorage (81 planes C[a*9 + b] = dP_a / dF_b, sf_common.cuh).
+//         or FullStorage<3> (81 planes C[a*9 + b] = dP_a / dF_b).
 //   VISC  the viscous flux of has_visc: residual and assemble add mu_v dV
 //         (dV = grad v at the point, from v_el as dF is formed from u_el;
 //         sweeps.py:404-406, :651-653); the matvec adds fac1 mu_v dF
@@ -98,8 +98,8 @@ struct J2Mat {
 #pragma unroll
       for (int j = 0; j < 3; ++j) pst[i][j] = __ldg(ps + (i * 3 + j) * QE + qe);
     j2_cauchy<3, TANGENT>(p, F, pst, __ldg(eqps + qe), __ldg(temp + qe), pt.sig, pt.Mt);
-    pt.J = det3(F);
-    inv3(F, pt.J, pt.fi);
+    pt.J = sm::det(F);
+    sm::inv(F, pt.J, pt.fi);
 #pragma unroll
     for (int c = 0; c < 3; ++c)
 #pragma unroll

@@ -13,10 +13,12 @@ Counterpart of mimi_tpu/ops/sweeps.py (`make_residual_sweep`,
     ops/csrc/sweeps_sf_finite.cu), inviscid, float32;
   - dense tables dN (nd, dim, n_q, n_el) and N (nd, n_q, n_el) in 2D or
     3D, c_storage="sym" (the hyperelastic materials: 45 planes in 3D, 10
-    in 2D) or "cauchy" (J2 with its state: 37 / 14 planes), inviscid,
+    in 2D), "cauchy" (J2 with its state: 37 / 14 planes) or "full"
+    (J2Simo and J2Log with their state: 81 / 16 planes), inviscid,
     float32: `residual_dense`, `assemble_dense`, `matvec_dense`, kernels
-    in ops/csrc/sweeps_dense.cu and sweeps_dense_j2.cu, compiled for the
-    (dim, p) pairs of DENSE_SHAPES.
+    in ops/csrc/sweeps_dense.cu, sweeps_dense_j2.cu and
+    sweeps_dense_finite.cu, compiled for the (dim, p) pairs of
+    DENSE_SHAPES.
 The material decides the storage (`tangent_storage`); the residual and the
 assemble read it off the material, the matvec is told it (`storage`).
 Each sweep has
@@ -61,8 +63,9 @@ def variant(name, visc=False, bf16=False):
 # only): the J2 variants; the hyperelastic and finite-strain sf variants by
 # material tag ("nh" the neo-Hookean, "stvk" the St. Venant-Kirchhoff
 # material, "simo" J2Simo, "log" J2Log); the dense ones by material tag
-# ("j2" for J2; the untagged names are the neo-Hookean instantiations) and
-# (dimension, degree) suffix ("@2d_p3"; none for 3D p = 2)
+# ("j2" for J2, "simo", "log"; the untagged names are the neo-Hookean
+# instantiations) and (dimension, degree) suffix ("@2d_p3"; none for 3D
+# p = 2)
 LAUNCHES = {
     variant(name, visc, bf16): 0
     for name in ("matvec_sf", "assemble_sf", "residual_sf")
@@ -73,10 +76,10 @@ LAUNCHES = {
 # (material id of the C entry points, counter tag).  csrc/materials.cuh
 # holds each one's struct, the entry points switch on the id.
 HYPER_KERNELS = {"CompressibleOgdenNeoHookean": (0, "nh"), "StVenantKirchhoff": (1, "stvk")}
-# The finite-strain plasticity models on the sf kernels with the 81-plane
-# tangent (csrc/sweeps_sf_finite.cu), by class name: (material id of its C
-# entry points, counter tag, state leaves in the order the entry points
-# take them)
+# The finite-strain plasticity models on the kernels with the full tangent
+# (csrc/sweeps_sf_finite.cu, sweeps_dense_finite.cu), by class name:
+# (material id of their C entry points, counter tag, state leaves in the
+# order the entry points take them)
 FULL_KERNELS = {
     "J2Simo": (0, "simo", ("be_old", "F_old", "eqps", "temperature")),
     "J2Log": (1, "log", ("Fp_inv", "eqps", "temperature")),
@@ -136,7 +139,8 @@ LAUNCHES.update({
 LAUNCHES.update({
     name: 0
     for dim, p in DENSE_SHAPES
-    for tag, storage in [(t, "sym") for _, t in HYPER_KERNELS.values()] + [("j2", "cauchy")]
+    for tag, storage in ([(t, "sym") for _, t in HYPER_KERNELS.values()] + [("j2", "cauchy")]
+                         + [(t, "full") for _, t, _ in FULL_KERNELS.values()])
     for name in (*material_counters("dense", tag, storage, dim, p),
                  matvec_counter("dense", storage, dim, p))
 })
@@ -482,8 +486,8 @@ def matvec_sf_plain(w_el, tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v=None, storage
 
 
 # ---------------------------------------------------------------------------
-# plain torch versions on dense tables (2D and 3D; c_storage "sym" or
-# "cauchy")
+# plain torch versions on dense tables (2D and 3D; c_storage "sym", "cauchy"
+# or "full")
 # ---------------------------------------------------------------------------
 
 
@@ -627,9 +631,9 @@ def assemble_dense_plain(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho,
     """Residual (as residual_dense_plain) plus the tangent block in the
     material's storage, stored in `c_dtype` (default: the fields' dtype):
     "sym", the symmetric planes of `sym_tangent_planes` (the hyperelastic
-    materials), or "cauchy", the planes of `cauchy_tangent_planes` (J2)."""
+    materials), "cauchy", the planes of `cauchy_tangent_planes` (J2), or
+    "full", the dim^4 planes of `full_tangent_planes` (J2Simo, J2Log)."""
     storage = tangent_storage(mat)
-    _dense_storage(storage)
     F = soa.add_diag(dense_grad(u_el, dN_t), 1.0)
     P, Cb = tangent_planes(storage)(mat, F, state, dt)
     if v_el is not None:
@@ -638,22 +642,10 @@ def assemble_dense_plain(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho,
     return y, Cb if c_dtype is None else Cb.to(c_dtype)
 
 
-def _dense_storage(storage):
-    """The dense sweeps hold the symmetric and the Cauchy storage."""
-    if storage not in STORAGES:
-        raise ValueError(f"unknown tangent storage {storage!r}")
-    if storage == "full":
-        raise NotImplementedError(
-            "the full tangent storage (J2Simo, J2Log) on the dense sweeps "
-            "(ROADMAP Queue 2 item 2)"
-        )
-
-
 def matvec_dense_plain(w_el, dN_t, N_t, wq, Cb, rho, fac0, fac1_mu_v=None, storage="sym"):
     """y[c, n] = sum_q wq (dN[n, d] dP[c, d] + N[n] rho w_q[c]),
     dP = fac0 (dP/dF : grad w) (+ fac1 mu_v grad w) from the block of
-    `storage` ("sym" or "cauchy"), widened to the fields' dtype."""
-    _dense_storage(storage)
+    `storage` ("sym", "cauchy" or "full"), widened to the fields' dtype."""
     dW = dense_grad(w_el, dN_t)
     dP = _tangent_apply(storage, Cb, dN_t.shape[1])(Cb.to(w_el.dtype), dW, fac0)
     if fac1_mu_v is not None:
@@ -844,6 +836,16 @@ def _sf_hyper(assemble, u_el, a_el, state, tabs, jinv, wq, mat, rho, v_el,
     return out, cs
 
 
+def _finite_state(mat, state, dim, n_q, n_el, device):
+    """(material id, counter tag, the entry points' four state pointers) of
+    a FULL_KERNELS material, its leaves checked as (dim, dim, n_q, n_el) or
+    (n_q, n_el)."""
+    mat_id, tag, leaves = FULL_KERNELS[mat.name()]
+    for k in leaves:
+        _check(k, state[k], (dim, dim, n_q, n_el) if state[k].dim() == 4 else (n_q, n_el), device)
+    return mat_id, tag, [_ptr(state[k]) for k in leaves] + [_ptr(None)] * (4 - len(leaves))
+
+
 def _sf_finite(assemble, u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el,
                c_dtype=torch.float32):
     """The residual (or, with `assemble`, residual and the 81 planes of
@@ -861,11 +863,8 @@ def _sf_finite(assemble, u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el,
             f"a {c_dtype} full tangent block on the CUDA sf sweeps (ROADMAP Queue 2 item 3)"
         )
     prm = _j2_params(mat, dt, rho, family=tuple(FULL_KERNELS))
-    mat_id, tag, leaves = FULL_KERNELS[mat.name()]
     device, n_el = _check_common([("u_el", u_el), ("a_el", a_el)], tabs, jinv, wq)
-    for k in leaves:
-        _check(k, state[k], (3, 3, 64, n_el) if state[k].dim() == 4 else (64, n_el), device)
-    st = [_ptr(state[k]) for k in leaves] + [_ptr(None)] * (4 - len(leaves))
+    mat_id, tag, st = _finite_state(mat, state, 3, 64, n_el, device)
     out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
     head = (_ptr(u_el), _ptr(a_el), *[_ptr(t) for t in tabs], _ptr(jinv), _ptr(wq), *st,
             _ptr(out))
@@ -1021,12 +1020,20 @@ def _check_dense(el_fields, dN_t, N_t, wq):
     return device, n_el, dim, p
 
 
-def _dense_unported(v_el=None, fac1_mu_v=None, c_dtype=torch.float32):
+def _dense_unported(storage, v_el=None, fac1_mu_v=None, c_dtype=torch.float32):
+    """Raise for what the CUDA dense sweeps do not implement: viscosity and
+    a bfloat16 block (Queue 2 item 3 with the full storage, item 4 with the
+    others)."""
+    item = 3 if storage == "full" else 4
     if v_el is not None or fac1_mu_v is not None:
-        raise NotImplementedError("the viscous CUDA dense sweeps (ROADMAP Queue 2 item 4)")
+        raise NotImplementedError(
+            f"the viscous CUDA dense sweeps with the {storage!r} storage "
+            f"(ROADMAP Queue 2 item {item})"
+        )
     if c_dtype != torch.float32:
         raise NotImplementedError(
-            f"a {c_dtype} tangent block on the CUDA dense sweeps (ROADMAP Queue 2 item 4)"
+            f"a {c_dtype} {storage!r} tangent block on the CUDA dense sweeps "
+            f"(ROADMAP Queue 2 item {item})"
         )
 
 
@@ -1035,17 +1042,21 @@ def _dense_sweep(assemble, u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho):
     kernel of the material: the hyperelastic ones with the symmetric
     storage (`mimi_residual_dense` / `mimi_assemble_dense`), J2 with the
     Cauchy storage and its state (`mimi_residual_dense_j2` /
-    `mimi_assemble_dense_j2`)."""
+    `mimi_assemble_dense_j2`), J2Simo and J2Log with the full storage and
+    their state (`mimi_residual_dense_finite` /
+    `mimi_assemble_dense_finite`)."""
     from .build import load
 
     storage = tangent_storage(mat)
-    _dense_storage(storage)
     if storage == "sym" and state is not None:
         raise NotImplementedError(
             "a stateful material with the symmetric storage: no such material is "
             "ported (ROADMAP Queue 1 item 2)"
         )
-    prm = _j2_params(mat, dt, rho) if storage == "cauchy" else None
+    if storage == "cauchy":
+        prm = _j2_params(mat, dt, rho)
+    elif storage == "full":
+        prm = _j2_params(mat, dt, rho, family=tuple(FULL_KERNELS))
     device, n_el, dim, p = _check_dense([("u_el", u_el), ("a_el", a_el)], dN_t, N_t, wq)
     n_q = wq.shape[0]
     head = (_ptr(u_el), _ptr(a_el), _ptr(dN_t), _ptr(N_t), _ptr(wq))
@@ -1056,6 +1067,11 @@ def _dense_sweep(assemble, u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho):
         _check("temperature", state["temperature"], (n_q, n_el), device)
         head += tuple(_ptr(state[k]) for k in ("plastic_strain", "eqps", "temperature"))
         tag, fns, tail = "j2", ("mimi_residual_dense_j2", "mimi_assemble_dense_j2"), (prm,)
+    elif storage == "full":
+        mat_id, tag, st = _finite_state(mat, state, dim, n_q, n_el, device)
+        head += tuple(st)
+        fns = ("mimi_residual_dense_finite", "mimi_assemble_dense_finite")
+        tail = (prm, ctypes.c_int(mat_id))
     else:
         prm, mat_id, tag = _hyper_params(mat, rho)
         fns, tail = ("mimi_residual_dense", "mimi_assemble_dense"), (prm, ctypes.c_int(mat_id))
@@ -1071,12 +1087,12 @@ def _dense_sweep(assemble, u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho):
 
 def residual_dense(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el=None, mu_v=0.0):
     """Dense residual sweep: plain torch on CPU tensors; on CUDA tensors the
-    kernel `mimi_residual_dense` (the hyperelastic materials) or
-    `mimi_residual_dense_j2` (J2), inviscid, for the (dim, p) pairs of
-    DENSE_SHAPES."""
+    kernel `mimi_residual_dense` (the hyperelastic materials),
+    `mimi_residual_dense_j2` (J2) or `mimi_residual_dense_finite` (J2Simo,
+    J2Log), inviscid, for the (dim, p) pairs of DENSE_SHAPES."""
     if u_el.device.type == "cpu":
         return residual_dense_plain(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el, mu_v)
-    _dense_unported(v_el)
+    _dense_unported(tangent_storage(mat), v_el)
     return _dense_sweep(False, u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho)
 
 
@@ -1085,28 +1101,31 @@ def assemble_dense(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el=None,
     """Dense assemble sweep: (residual, tangent block in the material's
     storage and in `c_dtype`, by default the fields' dtype); plain torch on
     CPU tensors; on CUDA tensors the kernel `mimi_assemble_dense` (the
-    hyperelastic materials' closed-form dP/dF, the symmetric planes) or
+    hyperelastic materials' closed-form dP/dF, the symmetric planes),
     `mimi_assemble_dense_j2` (J2's closed-form algorithmic tangent, the
-    Cauchy planes), inviscid, float32."""
+    Cauchy planes) or `mimi_assemble_dense_finite` (J2Simo, J2Log: the
+    dim^4 planes of dP/dF from dim^2 forward-mode dual-number passes),
+    inviscid, float32."""
     c_dtype = c_dtype or u_el.dtype
     if u_el.device.type == "cpu":
         return assemble_dense_plain(
             u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el, mu_v, c_dtype
         )
-    _dense_unported(v_el, c_dtype=c_dtype)
+    _dense_unported(tangent_storage(mat), v_el, c_dtype=c_dtype)
     return _dense_sweep(True, u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho)
 
 
 def _dense_matvec(w_el, dN_t, N_t, wq, Cb, rho, fac0, storage):
-    """The dense matvec kernel of `storage`: `mimi_matvec_dense` ("sym") or
-    `mimi_matvec_dense_cauchy` ("cauchy")."""
+    """The dense matvec kernel of `storage`: `mimi_matvec_dense` ("sym"),
+    `mimi_matvec_dense_cauchy` ("cauchy") or `mimi_matvec_dense_full`
+    ("full")."""
     from .build import load
 
-    _dense_storage(storage)
     device, n_el, dim, p = _check_dense([("w_el", w_el)], dN_t, N_t, wq)
     _check("C", Cb, (n_planes(storage, dim), wq.shape[0], n_el), device)
     out = torch.empty((dim, w_el.shape[1], n_el), dtype=torch.float32, device=device)
-    fn = "mimi_matvec_dense" if storage == "sym" else "mimi_matvec_dense_cauchy"
+    fn = {"sym": "mimi_matvec_dense", "cauchy": "mimi_matvec_dense_cauchy",
+          "full": "mimi_matvec_dense_full"}[storage]
     _launch(
         getattr(load(), fn), matvec_counter("dense", storage, dim, p),
         _ptr(w_el), _ptr(dN_t), _ptr(N_t), _ptr(wq), _ptr(Cb), _ptr(out),
@@ -1118,9 +1137,10 @@ def _dense_matvec(w_el, dN_t, N_t, wq, Cb, rho, fac0, storage):
 
 def matvec_dense(w_el, dN_t, N_t, wq, Cb, rho, fac0, fac1_mu_v=None, storage="sym"):
     """Dense GMRES matvec sweep on the block of `storage`: plain torch on
-    CPU tensors; on CUDA tensors the kernel `mimi_matvec_dense` ("sym") or
-    `mimi_matvec_dense_cauchy` ("cauchy"), inviscid, float32."""
+    CPU tensors; on CUDA tensors the kernel `mimi_matvec_dense` ("sym"),
+    `mimi_matvec_dense_cauchy` ("cauchy") or `mimi_matvec_dense_full`
+    ("full"), inviscid, float32."""
     if w_el.device.type == "cpu":
         return matvec_dense_plain(w_el, dN_t, N_t, wq, Cb, rho, fac0, fac1_mu_v, storage)
-    _dense_unported(fac1_mu_v=fac1_mu_v)
+    _dense_unported(storage, fac1_mu_v=fac1_mu_v)
     return _dense_matvec(w_el, dN_t, N_t, wq, Cb, rho, fac0, storage)

@@ -500,14 +500,16 @@ def _grad(prob, w_el):
     return sweeps.sf_grad(w_el, t1, t2) if kind == "sf" else sweeps.dense_grad(w_el, t1)
 
 
-def initial_carry(prob: Problem, dt: float = 1.0):
+def initial_carry(prob: Problem, dt: float = 1.0, residual_impl: str | None = None):
     """Zero fields + the first-step explicit acceleration
     a0 = M^{-1}(f - E(0) - S v0 - contact(0)) (consistent mass,
     diagonal-preconditioned CG; v0 = 0, so the viscous term vanishes).
     `dt` only reaches rate-dependent terms; nothing yields at the zero
-    state, so any positive value is equivalent."""
+    state, so any positive value is equivalent.  `residual_impl` selects
+    the residual sweep as in `make_step` ("torch" for a float64 problem on
+    the card: the kernels are float32)."""
     z = torch.zeros((prob.n_dof, prob.dim), dtype=prob.dtype, device=prob.device)
-    a0 = _explicit_accel(prob, z, prob.state0, dt)
+    a0 = _explicit_accel(prob, z, prob.state0, dt, residual_impl)
     zero = lambda *shape: torch.zeros(shape, dtype=prob.dtype, device=prob.device)  # noqa: E731
     return {
         "u": z,
@@ -537,8 +539,8 @@ def initial_carry(prob: Problem, dt: float = 1.0):
     }
 
 
-def _explicit_accel(prob, u, state, dt):
-    res_sweep, _, _ = _select_impl(prob, None)
+def _explicit_accel(prob, u, state, dt, residual_impl=None):
+    res_sweep, _, _ = _select_impl(prob, residual_impl)
     gather_t, scatter_el = _gather_scatter(prob)
     mat = prob.material
     kind, tables = _tables(prob)
@@ -613,8 +615,9 @@ def make_step(
     full): the Cauchy-decomposition tangent of J2 (37 planes in 3D, 14 in
     2D; sf and dense sweeps), the symmetric tangent of a material with a
     major-symmetric dP/dF (the hyperelastic ones, 45 / 10 planes; sf and
-    dense sweeps), or the 81-plane full dP/dF of the finite-strain
-    plasticity models J2Simo and J2Log (sf sweeps).  Dense + full raises.  `matvec_impl` and
+    dense sweeps), or the full dP/dF of the finite-strain plasticity
+    models J2Simo and J2Log (81 planes in 3D, 16 in 2D; sf and dense
+    sweeps).  `matvec_impl` and
     `tangent_storage` take "auto" or the name of what the problem decides,
     as aliases of the reference's options.  Everything around
     the sweeps (gather/scatter, contact, FDM, GMRES, Newton) is the same
@@ -671,13 +674,8 @@ def make_step(
             raise ValueError(f"unknown {opt} {val!r}")
         if val not in ("auto", picked):
             raise _unported(f"{opt}={val!r} on a problem that decides {picked!r}", item)
-    if kind == "dense" and storage == "full":
-        raise _unported(
-            f"{mat.name()} with tangent_storage='full' on the dense sweeps",
-            "Queue 2 item 2",
-        )
     if storage == "full" and mat.name() not in sweeps.FULL_KERNELS:
-        raise _unported(f"{mat.name()} with the 81-plane tangent", "Queue 1 item 2")
+        raise _unported(f"{mat.name()} with the full tangent", "Queue 1 item 2")
     if matvec_dtype not in ("f32", "bf16"):
         raise ValueError(f"unknown matvec_dtype {matvec_dtype!r}")
     if matvec_dtype == "bf16" and storage != "cauchy":

@@ -531,19 +531,6 @@ def test_2d_launch_counters():
     assert tsw.matvec_counter("dense", "sym", 2, 2) == "matvec_dense[sym]@2d_p2"
 
 
-@pytest.mark.parametrize("name", ["J2Simo", "J2Log"])
-def test_2d_dense_full_raises(name):
-    """The finite-strain materials on 2D dense tables need dense + full
-    (the dual-number bodies on DIM), which is not ported."""
-    prob = mt.build_problem(BALKEN, 2, 1, _material(mt, name), CLAMP, {1: -3.0},
-                            rho_inf=0.5, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 2"):
-        mt.make_step(prob, 0.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 2"):
-        tsw.matvec_dense_plain(torch.zeros(2, 16, 4), prob.dense["dN_t"], prob.dense["N_t"],
-                               prob.wdet_t, torch.zeros(16, 25, 4), 1.0, 1.0, storage="full")
-
-
 def _meta(*shape):
     return torch.empty(shape, device="meta")
 

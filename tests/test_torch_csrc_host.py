@@ -1,0 +1,204 @@
+"""The port's CUDA sources (mimi_tpu_torch/ops/csrc/*.cu) built as host C++.
+
+The card's compiler is not here, so g++ builds each source against the
+host stand-ins of mimi_tpu_torch/ops/csrc/host_stub/ (the qualifiers
+compile away, __ldg is a load, the single-rounding intrinsics are IEEE
+float operations).  A copy of the sources has every launch
+`kernel<<<grid, block, shared, stream>>>(args)` rewritten into a serial
+loop over blocks and threads that calls the kernel with blockIdx and
+threadIdx set: the kernels share nothing between threads, so the loop is
+exact.  Each source must compile; the objects are linked into one library
+with the C entry points of ops/build.py, and the dense finite-strain
+kernels (sweeps_dense_finite.cu) run on CPU tensors at 4 elements (2D,
+p = 3) against their plain versions at 1e-5.  Skips where no g++ is found.
+"""
+
+import ctypes
+import os
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+import mimi_tpu_torch as mt
+from mimi_tpu_torch.fem import soa
+from mimi_tpu_torch.ops import build as kbuild
+from mimi_tpu_torch.ops import sweeps as tsw
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one thread)
+
+CSRC = os.path.join(os.path.dirname(kbuild.__file__), "csrc")
+STUB = os.path.join(CSRC, "host_stub")
+BALKEN = os.path.join(os.path.dirname(__file__), "data", "balken.mesh")
+SOURCES = [os.path.basename(s) for s in kbuild.SOURCES]
+CXX = ["-std=c++17", "-O1", "-fPIC", "-ffp-contract=off", "-w"]
+
+
+def _statement_start(text, i):
+    """Index just after the `;`, `{` or `}` before position i."""
+    return max(text.rfind(c, 0, i) for c in ";{}") + 1
+
+
+def _matching_paren(text, i):
+    """Index of the `)` that closes the `(` at position i."""
+    depth = 0
+    for j in range(i, len(text)):
+        depth += {"(": 1, ")": -1}.get(text[j], 0)
+        if depth == 0:
+            return j
+    raise ValueError("unbalanced parentheses")
+
+
+def _split_top(args):
+    """The comma-separated parts of `args` outside any parentheses."""
+    parts, depth, cur = [], 0, ""
+    for c in args:
+        depth += {"(": 1, ")": -1}.get(c, 0)
+        if c == "," and depth == 0:
+            parts.append(cur)
+            cur = ""
+        else:
+            cur += c
+    return parts + [cur]
+
+
+def serial_launches(text):
+    """`kernel<<<grid, block, shared, stream>>>(args)` -> a loop over the
+    grid's blocks and the block's threads calling `kernel(args)`."""
+    while "<<<" in text:
+        i = text.index("<<<")
+        start = _statement_start(text, i)
+        j = text.index(">>>", i)
+        grid, block = _split_top(text[i + 3:j])[:2]
+        k = text.index("(", j)
+        end = _matching_paren(text, k)
+        kernel, args = text[start:i].strip(), text[k + 1:end]
+        loop = (f" {{ const unsigned mimi_g = ({grid}), mimi_b = ({block});"
+                " for (unsigned mimi_bx = 0; mimi_bx < mimi_g; ++mimi_bx)"
+                " for (unsigned mimi_tx = 0; mimi_tx < mimi_b; ++mimi_tx) {"
+                " blockIdx.x = mimi_bx; threadIdx.x = mimi_tx;"
+                f" {kernel}({args}); }} }}")
+        text = text[:start] + loop + text[end + 1:]
+    return text
+
+
+def host_build(dest):
+    """Copy the sources and headers into `dest` with serial launches, and
+    compile every source with g++ in parallel.  Returns ({source: (return
+    code, compiler output)}, [object paths])."""
+    for name in os.listdir(CSRC):
+        if name.endswith((".cu", ".cuh")):
+            with open(os.path.join(CSRC, name)) as f:
+                text = serial_launches(f.read())
+            with open(os.path.join(dest, name), "w") as f:
+                f.write(text)
+    objs = [os.path.join(dest, f"{name}.o") for name in SOURCES]
+    procs = [
+        subprocess.Popen(
+            ["g++", *CXX, "-x", "c++", "-I", STUB, "-I", dest, "-c", "-o", obj,
+             os.path.join(dest, name)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for name, obj in zip(SOURCES, objs)
+    ]
+    out = {name: (p.wait(timeout=600), p.stdout.read()) for name, p in zip(SOURCES, procs)}
+    return out, objs
+
+
+@pytest.fixture(scope="module")
+def built(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ on this host to build the CUDA sources as C++")
+    dest = str(tmp_path_factory.mktemp("csrc_host"))
+    results, objs = host_build(dest)
+    return dest, results, objs
+
+
+@pytest.fixture(scope="module")
+def lib(built):
+    dest, results, objs = built
+    failed = [name for name, (rc, _) in results.items() if rc]
+    assert not failed, f"sources that do not compile: {failed}"
+    so = os.path.join(dest, "libmimi_sweeps_host.so")
+    r = subprocess.run(["g++", "-shared", "-o", so, *objs], capture_output=True, text=True)
+    assert r.returncode == 0, r.stderr
+    return kbuild.bind(ctypes.CDLL(so))
+
+
+def test_serial_launch_rewrite():
+    text = ("int f(long long E, void* s) {\n  k<A, B>\n      <<<grid_for(E), BLOCK, 0, "
+            "(cudaStream_t)s>>>(x, g(y, z), E);\n  return 0;\n}")
+    out = serial_launches(text)
+    assert "<<<" not in out and "k<A, B>(x, g(y, z), E);" in out
+    assert "mimi_g = (grid_for(E)), mimi_b = ( BLOCK)" in out
+    assert re.search(r"\{ const unsigned mimi_g", out)
+
+
+@pytest.mark.parametrize("source", SOURCES)
+def test_source_compiles_as_host_cpp(built, source):
+    _, results, _ = built
+    rc, log = results[source]
+    assert rc == 0, f"g++ could not build {source}:\n{log[-4000:]}"
+
+
+def _material(name):
+    mat = getattr(mt, name)()
+    mat.density = 1.0
+    mat.viscosity = -1.0
+    mat.melting_temperature = 1500.0
+    mat.initial_temperature = 20.0
+    mat.specific_heat = 450.0
+    mat.set_young_poisson(2100.0, 0.3)
+    h = mt.JohnsonCookTemperatureAndRateDependentHardening()
+    h.A, h.B, h.n, h.m = 70.0, 140.0, 0.2835, 1.3558
+    h.eps0_dot = 0.004
+    h.reference_temperature = 20.0
+    mat.hardening = h
+    return mat
+
+
+def _ptr(t):
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+@pytest.mark.parametrize("name", list(tsw.FULL_KERNELS))
+def test_dense_finite_kernels_on_cpu_tensors(lib, name):
+    """The three dense finite-strain kernels of the host build on the
+    golden cantilever's 2D p = 3 tables at 4 elements (float32), on a
+    plastic history, against the plain versions at 1e-5 of scale; the
+    16 planes at 1e-5 of their max."""
+    prob = mt.build_problem(BALKEN, 2, 1, _material(name), [(2, 0), (2, 1)], {1: -3.0},
+                            rho_inf=0.5, device="cpu", dtype=torch.float32)
+    mat, dN, N, wq = prob.material, prob.dense["dN_t"], prob.dense["N_t"], prob.wdet_t
+    E, nq, nd = prob.n_el, prob.n_q, dN.shape[0]
+    rng = np.random.default_rng(3)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
+    u0, u_el = (f32(0.04 * rng.standard_normal((2, nd, E))) for _ in range(2))
+    a_el, w_el = f32(rng.standard_normal((2, nd, E))), f32(rng.standard_normal((2, nd, E)))
+    dt, rho, fac0 = 0.2, 1.0, 0.01
+    F0 = soa.add_diag(tsw.dense_grad(u0, dN), 1.0)
+    state = mat.accumulate_soa(F0, {k: v.clone() for k, v in prob.state0.items()}, dt)
+    state = {k: v.contiguous() for k, v in state.items()}
+    assert float(state["eqps"].max()) > 0.0
+    mat_id, _, leaves = tsw.FULL_KERNELS[name]
+    st = [_ptr(state[k]) for k in leaves] + [_ptr(None)] * (4 - len(leaves))
+    prm = tsw._j2_params(mat, dt, rho, family=tuple(tsw.FULL_KERNELS))
+    head = (_ptr(u_el), _ptr(a_el), _ptr(dN), _ptr(N), _ptr(wq), *st)
+    shape = (ctypes.c_int(2), ctypes.c_int(3), ctypes.c_longlong(E), ctypes.c_void_p(None))
+    out, out_a = torch.empty(2, nd, E), torch.empty(2, nd, E)
+    C = torch.empty(16, nq, E)
+    assert lib.mimi_residual_dense_finite(*head, _ptr(out), prm, mat_id, *shape) == 0
+    assert lib.mimi_assemble_dense_finite(*head, _ptr(out_a), _ptr(C), prm, mat_id, *shape) == 0
+    args = (u_el, a_el, state, dN, N, wq, mat, dt, rho)
+    y = tsw.residual_dense_plain(*args)
+    y_a, C_p = tsw.assemble_dense_plain(*args)
+    assert float((out - y).abs().max()) <= 1e-5 * float(y.abs().max())
+    assert float((out_a - y_a).abs().max()) <= 1e-5 * float(y_a.abs().max())
+    assert float((C - C_p).abs().max()) <= 1e-5 * float(C_p.abs().max())
+    mv = torch.empty(2, nd, E)
+    assert lib.mimi_matvec_dense_full(_ptr(w_el), _ptr(dN), _ptr(N), _ptr(wq), _ptr(C_p),
+                                      _ptr(mv), rho, fac0, *shape) == 0
+    mv_p = tsw.matvec_dense_plain(w_el, dN, N, wq, C_p, rho, fac0, storage="full")
+    assert float((mv - mv_p).abs().max()) <= 1e-5 * float(mv_p.abs().max())

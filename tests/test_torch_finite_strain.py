@@ -432,18 +432,6 @@ def test_unported_sf_full_options_raise(small, option, item):
         mt.make_step(small, 0.05, **option)
 
 
-def test_dense_full_raises():
-    """A finite-strain material on a dense-table problem (two patches)
-    needs dense + full, which is not ported."""
-    prob = mt.build_problem(
-        os.path.join(DATA, "two-patch-cube.mesh"), 1, 0, _material(mt, "J2Simo", setup=False),
-        [(0, 0), (0, 1), (0, 2)], {1: -5.0}, device="cpu", refine_spans=2,
-    )
-    assert prob.dense is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 2"):
-        mt.make_step(prob, 0.05)
-
-
 def test_conversion_round_trips(point_case):
     """material_from_reference copies the material (its hardening too);
     problem_from_numpy carries the reference's initial state;
