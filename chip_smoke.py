@@ -59,6 +59,24 @@ steps) and of 3D J2Simo at 2 x 8^3, the 128^2 p=2 and the two-patch
 2 x 38^3 drives of both materials, a profiled step per 2D material at
 512^2 and the kernels' rows at the drives' states.
 
+And the viscous neo-Hookean contact presses with the frozen contact
+tangent (phases 38-42), the material of tests/test_contact.py:154-158 and
+the examples (E 1e6, nu 0.3, density 1e3, viscosity 100, penalty 5e7, dt
+0.01, the contact press's step settings): path A, the 2D two-patch press
+of examples/multipatch_contact.py at 2 x 512^2 = 524,288 elements (p=2,
+the viscous dense (2, 2) kernels with the 10-plane symmetric tangent, the
+two-patch FDM with the contact spring); path B, the cube press of
+tests/test_contact.py at 48^3 (the viscous sf kernels with the 45-plane
+symmetric tangent in bfloat16).  Each tool starts touching the body (the
+example's y = 1.02 would leave the first four steps untouched) and is
+pushed 0.005 (A) or 0.01 (B) before each of 1 warm + 3 timed steps.  On
+each path's tables every new viscous and bfloat16 instantiation is held
+against its plain version on random input (at 2 x 512^2 also those of St.
+Venant-Kirchhoff and J2), and the path kernels at the path's state; the
+next Newton system at full size and one step at 2 x 64^2 / 16^3 are held
+kernel path against plain path.  The viscous instantiations of the other
+shapes are held where those tables are built (phases 13, 18, 22, 28, 32).
+
     python3 chip_smoke.py
 
 Exits non-zero without a CUDA device, outside a checkout, or when any
@@ -106,6 +124,7 @@ SOURCE = [
     "mimi_tpu_torch/ops/csrc/sweeps_sf_finite.cu",
     "mimi_tpu_torch/ops/csrc/sweeps_dense_j2.cu",
     "mimi_tpu_torch/ops/csrc/sweeps_dense_finite.cu",
+    "mimi_tpu_torch/ops/csrc/sweeps_sf_hyper.cu",
 ]
 # the dense kernels' source by tangent storage
 DENSE_SOURCE = {"sym": SOURCE[1], "cauchy": SOURCE[4], "full": SOURCE[5]}
@@ -192,6 +211,34 @@ YIELD_BAND = 1e-4
 # order; the plain path at the carry rounded to bfloat16 reads 5 to 17
 # (finite_witness.py, NVIDIA H100 80GB HBM3).  J w keeps 1e-4.
 NEWTON_R_BAR = {"J2Log": 1e-3}
+# The viscous neo-Hookean contact presses (phases 38-42): the material of
+# tests/test_contact.py:154-158 and the examples (examples/toy_problem.py:
+# 40-43, multipatch_contact.py:40-44): CompressibleOgdenNeoHookean, E 1e6,
+# nu 0.3, density 1e3, viscosity 100, penalty 5e7; dt 0.01, rho_inf 0.5,
+# float32; the contact press's step settings with the default (frozen)
+# contact tangent.  Path A, the 2D two-patch press of
+# examples/multipatch_contact.py: two-patch-square.mesh elevated to p = 2
+# and subdivided 9 times, 2 x 512^2 = 524,288 elements, the bottom edge
+# clamped, the top edge (both patches) against a flat tool pushed down
+# 0.005 per step.  Path B, the cube press of tests/test_contact.py:146-196
+# at the bench's size: cube-nurbs.mesh at p = 2, 48^3, the bottom face
+# clamped, the top face against the bilinear tool pushed down 0.01 per
+# step, a bfloat16 block.  Both tools start touching the body (the
+# example's 1.02 leaves four steps untouched), so the warm step and the
+# timed steps are engaged.
+TWO_SQUARE = os.path.join(ROOT, "tests", "data", "two-patch-square.mesh")
+PRESS_2D_SUBDIVIDE = 9  # 2 x 512^2 elements
+PRESS_2D_HELD = 6  # the held step: 2 x 64^2
+PRESS_TIMED = 3  # timed steps after the warm one on each press
+PRESS_STEP_KW = dict(dt=0.01, newton_iters=12, solver="cg", cg_iters=80, precond="fdm",
+                     lin_rel_tol=1e-2, rel_tol=1e-3)
+PRESS_PUSH = {2: [0.0, -0.005], 3: [0.0, 0.0, -0.01]}
+# viscosity of the viscous instantiations' checks on random input where
+# the material has none (the presses' own)
+VISC_MU = 100.0
+# the (viscous, bfloat16 block) instantiations held per table kind beside a
+# hyperelastic material's inviscid float32 ones
+VISC_COMBOS = {"dense": ((True, False),), "sf": ((True, False), (True, True), (False, True))}
 FUSED_KERNELS = [  # (counter name, TPU kernel it replaces)
     ("neohookean_tangent_apply", "mimi_tpu/ops/pallas_residual.py:171"),
     ("neohookean_residual", "mimi_tpu/ops/pallas_residual.py:207"),
@@ -922,7 +969,7 @@ def time_sym(torch, sweeps, prob, u_el, a_el, w_el, Cs, names, launches, errs, l
         a, kw = (mv_args, {"storage": "sym"}) if i == 2 else (args, {})
         ms = cuda_ms(torch, lambda: fns[i](*a, **kw), 20)
         plain_ms = cuda_ms(torch, lambda: plain[i](*a, **kw), PLAIN_REPS)
-        row = kernel_row(name, SOURCE[0 if kind == "sf" else 1], replaces, launches[name],
+        row = kernel_row(name, SOURCE[6 if kind == "sf" else 1], replaces, launches[name],
                          errs[name], ms, plain_ms, byts[i], n_pts * OPS_PER_POINT[name])
         say(f"[{label}] {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms; "
             f"{byts[i] / 1e9:.3f} GB, bound {row['bound_ms']:.4f} ms by {row['bound_by']}; "
@@ -990,17 +1037,17 @@ def predictor_fields(torch, sh, prob, carry, gen, dt=STEP_KW["dt"]):
     return u_el, g(carry["a"]), w_el
 
 
-def profile_step(torch, step, carry, s_step, label):
-    """One profiled step: device busy time, idle share of the timed
-    s/step, device time by kernel name.  Returns the new carry.  Only the
-    device is traced: with the host's operators too, a step of ~10^5
-    launches takes tens of seconds to post-process, for rows no line
-    prints."""
+def profile_step(torch, step, carry, s_step, label, contact_scenes=None):
+    """One profiled step (with the tool at `contact_scenes` on a contact
+    problem): device busy time, idle share of the timed s/step, device
+    time by kernel name.  Returns the new carry.  Only the device is
+    traced: with the host's operators too, a step of ~10^5 launches takes
+    tens of seconds to post-process, for rows no line prints."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        carry = step(carry)
+        carry = step(carry, contact_scenes=contact_scenes)
         torch.cuda.synchronize()
         t_prof = (time.perf_counter() - t0) * 1e3
     ev = [(e.key, e.count, e.self_device_time_total / 1e3)
@@ -1032,6 +1079,14 @@ def stvk_rows(torch, mt, sweeps, build, spans, device, u_el, a_el, w_el, label):
     # St. Venant-Kirchhoff has no F^-1 and no 1/J: its stress loses less
     # to cancellation than the neo-Hookean, and the same bars hold
     errs, Cs = compare_sym(torch, sweeps, sprob, u_el, a_el, w_el, label)
+    # its viscous (and, on sf tables, bfloat16) instantiations on the same
+    # inputs, printed for the record (no driven path launches them)
+    v_el = torch.randn(*u_el.shape, generator=torch.Generator().manual_seed(38)).to(u_el)
+    hold_viscous(torch, sweeps, sprob, sprob.material,
+                 {"u_el": u_el, "a_el": a_el, "v_el": v_el, "w_el": w_el, "state": None},
+                 STEP_KW["dt"], f"38. {label.split('. ', 1)[-1]} random",
+                 combos=VISC_COMBOS["sf" if sprob.sf is not None else "dense"])
+    del v_el
     sweeps.reset_launches()
     _, _, _, launches = drive(torch, mt, sweeps, sprob, f"{label} drive", STVK_STEPS,
                               names + [f"matvec_{kind}[sym]"])
@@ -1219,6 +1274,11 @@ def dense_phases(torch, mt, sweeps, fused, sh, device, gen):
     # ---- 13 (path). the kernels on the path's state ---------------------------
     u_el, a_el, w_el = predictor_fields(torch, sh, prob, carry, gen)
     errs, Cs = compare_sym(torch, sweeps, prob, u_el, a_el, w_el, "13. 2x38^3 path")
+    v_el = torch.randn(*u_el.shape, generator=gen).to(u_el)
+    hold_viscous(torch, sweeps, prob, prob.material,
+                 {"u_el": u_el, "a_el": a_el, "v_el": v_el, "w_el": w_el, "state": None},
+                 STEP_KW["dt"], "38. 2x38^3 path")
+    del v_el
 
     # ---- 16. times, bandwidth and one profiled step ---------------------------
     rows = time_sym(torch, sweeps, prob, u_el, a_el, w_el, Cs, names, launches, errs,
@@ -2040,6 +2100,12 @@ def dense2d_phases(torch, mt, sweeps, soa, sh, device, gen):
                 fail(f"{tag}: plastic share {share} < 0.25: the check would not exercise "
                      "the return map")
         compare_kernels(torch, sweeps, prob, u_el, a_el, w_el, state, dt, f"28. {tag} random")
+        if elevate == 2:  # the viscous (2, 3) instantiations, printed for the record
+            v_el = torch.randn(*u_el.shape, generator=gen).to(u_el)
+            hold_viscous(torch, sweeps, prob, prob.material,
+                         {"u_el": u_el, "a_el": a_el, "v_el": v_el, "w_el": w_el,
+                          "state": state}, dt, f"38. {tag} random")
+            del v_el
         del u_el, a_el, w_el, state
         torch.cuda.empty_cache()
         sweeps.reset_launches()
@@ -2078,7 +2144,13 @@ def dense2d_phases(torch, mt, sweeps, soa, sh, device, gen):
                             STEP_KW["dt"], f"28. {tag} path")
     rows += time_dense(torch, sweeps, prob, u_el, a_el, w_el, carry["state"], C,
                        STEP_KW["dt"], launches, errs, f"32. {tag} timing")
-    del prob, carry, step, steps, u_el, a_el, w_el, C
+    del C
+    v_el = torch.randn(*u_el.shape, generator=gen).to(u_el)
+    hold_viscous(torch, sweeps, prob, prob.material,
+                 {"u_el": u_el, "a_el": a_el, "v_el": v_el, "w_el": w_el,
+                  "state": carry["state"]}, STEP_KW["dt"], f"38. {tag} path")
+    del v_el
+    del prob, carry, step, steps, u_el, a_el, w_el
     torch.cuda.empty_cache()
     clock(tag)
     return rows
@@ -2290,6 +2362,384 @@ def dense_finite_phases(torch, mt, sweeps, soa, sh, device, gen):
     return rows
 
 
+def hold_viscous(torch, sweeps, prob, mat, f, dt, label, launches=None,
+                 combos=((True, False),)):
+    """The viscous and bfloat16 instantiations of `mat`'s kernels on the
+    problem's tables, sum-factorized or dense (`mat` need not be the
+    problem's: the tables do not depend on it), against their plain
+    versions on the inputs `f` (u_el, a_el, v_el, w_el, state), for each
+    (viscous, bfloat16 block) of `combos`: the residual (viscous only, it
+    writes no block), the assemble and the matvec on the plain version's
+    block.  Bars: residual 1e-5 x scale; assemble residual and matvec 1e-4
+    x scale; float32 planes 1e-4 of their group's max; bfloat16 planes
+    2^-7 of their group's max (one bfloat16 step) against the plain float32
+    planes rounded to bfloat16.  Each is timed (CUDA events over 20 calls,
+    the plain version over PLAIN_REPS after a warm one); returns the rows
+    with their launches in `launches` (0 where no driven path launched
+    the variant: such rows are printed for the record, not put in the
+    kernels line)."""
+    import dataclasses
+
+    launches = launches or {}
+    vprob = dataclasses.replace(prob, material=mat)
+    kind = "sf" if prob.sf is not None else "dense"
+    tables, kern, plain = kernel_fns(sweeps, vprob)
+    storage, tag, dim = sweeps.tangent_storage(mat), material_tag(sweeps, mat), prob.dim
+    p = 2 if kind == "sf" else dense_degree(prob)
+    wq, rho = prob.wdet_t, float(mat.density)
+    mu_v = float(mat.viscosity) if float(mat.viscosity) > 0.0 else VISC_MU
+    fac0 = prob.facs["fac3"] * dt * dt
+    fac1_mu_v = prob.facs["fac4"] * dt * mu_v
+    args = (f["u_el"], f["a_el"], f["state"], *tables, wq, mat, dt, rho)
+    if kind == "sf":
+        base = [OPS_PER_POINT[n] for n in kernel_names(sweeps, vprob)]
+        extra = (_SF_VISCOUS, _SF_VISCOUS, 18)
+    else:
+        base, nd = dense_ops(sweeps, vprob), prob.dense["dN_t"].shape[0]
+        extra = (2 * dim * dim * nd + 2 * dim * dim,) * 2 + (2 * dim * dim,)
+    source = SOURCE[6] if kind == "sf" else DENSE_SOURCE[storage]
+    el_out = nbytes(f["u_el"])
+    n_pts = prob.n_el * prob.n_q
+    rows, held = [], set()
+    for visc, bf16 in combos:
+        vk = dict(v_el=f["v_el"], mu_v=mu_v) if visc else {}
+        fm = fac1_mu_v if visc else None
+        cd = torch.bfloat16 if bf16 else torch.float32
+        names = (*sweeps.material_counters(kind, tag, storage, dim, p, visc, bf16),
+                 sweeps.matvec_counter(kind, storage, dim, p, visc, bf16))
+        checks = []  # (i, name, err, kernel call, plain call, bytes)
+        fields = (f["u_el"], f["a_el"], f["v_el"] if visc else None, tables, wq, f["state"])
+        if visc and names[0] not in held:  # the residual writes no block
+            held.add(names[0])
+            y_k = kern[0](*args, **vk)
+            torch.cuda.synchronize()
+            err, scale = masked_err(torch, y_k, plain[0](*args, **vk), names[0])
+            say(f"[{label}] {names[0]}: max|err| {err:.3e} scale {scale:.3e} ({err / scale:.3e})")
+            if not err <= 1e-5 * scale:
+                fail(f"{names[0]} disagrees with plain ({err} > 1e-5 * {scale}) [{label}]")
+            checks.append((0, err, lambda vk=vk: kern[0](*args, **vk),
+                           lambda vk=vk: plain[0](*args, **vk), nbytes(*fields) + el_out))
+            del y_k
+        ya_k, C_k = kern[1](*args, **vk, c_dtype=cd)
+        torch.cuda.synchronize()
+        ya_p, C_p = plain[1](*args, **vk, c_dtype=cd)
+        if C_k.dtype != cd:
+            fail(f"{names[1]} wrote a {C_k.dtype} block")
+        err, scale = masked_err(torch, ya_k, ya_p, f"{names[1]} residual")
+        diff = (C_k.float() - C_p.float()).abs().amax(dim=(1, 2))
+        mag = C_p.float().abs().amax(dim=(1, 2))
+        rel = max(float(diff[a:b].max() / mag[a:b].max().clamp_min(1e-30))
+                  for a, b in plane_groups(sweeps, storage, dim))
+        bar = 2.0**-7 if bf16 else 1e-4
+        say(f"[{label}] {names[1]}: residual max|err| {err:.3e} scale {scale:.3e}; "
+            f"{C_k.shape[0]} {'bfloat16' if bf16 else 'float32'} planes worst err vs group max "
+            f"{rel:.3e} (bar {bar:.3e})")
+        if not err <= 1e-4 * scale:
+            fail(f"{names[1]} residual disagrees ({err} > 1e-4 * {scale}) [{label}]")
+        if not rel <= bar:
+            fail(f"{names[1]} planes disagree ({rel} of their group's max) [{label}]")
+        checks.append((1, max(err, float(diff.max())), lambda vk=vk, cd=cd: kern[1](*args, **vk, c_dtype=cd),
+                       lambda vk=vk, cd=cd: plain[1](*args, **vk, c_dtype=cd),
+                       nbytes(*fields, C_p) + el_out))
+        del ya_k, C_k, ya_p, diff, mag
+        mv_args = (f["w_el"], *tables, wq, C_p, rho, fac0, fm)
+        y_k = kern[2](*mv_args, storage=storage)
+        torch.cuda.synchronize()
+        err, scale = masked_err(torch, y_k, plain[2](*mv_args, storage=storage), names[2])
+        say(f"[{label}] {names[2]}: max|err| {err:.3e} scale {scale:.3e}")
+        if not err <= 1e-4 * scale:
+            fail(f"{names[2]} disagrees with plain ({err} > 1e-4 * {scale}) [{label}]")
+        checks.append((2, err, lambda a=mv_args: kern[2](*a, storage=storage),
+                       lambda a=mv_args: plain[2](*a, storage=storage),
+                       nbytes(f["w_el"], tables, wq, C_p) + el_out))
+        del y_k
+        for i, err, kcall, pcall, byts in checks:
+            ms = cuda_ms(torch, kcall, 20)
+            plain_ms = cuda_ms(torch, pcall, PLAIN_REPS)
+            torch.cuda.empty_cache()
+            row = kernel_row(names[i], source, SYM_REPLACES[kind][i], launches.get(names[i], 0),
+                             err, ms, plain_ms, byts, n_pts * (base[i] + (extra[i] if visc else 0)))
+            say(f"[{label} timing] {names[i]}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms; "
+                f"{byts / 1e9:.3f} GB, bound {row['bound_ms']:.4f} ms by {row['bound_by']}; "
+                f"{byts / ms / 1e9:.3f} TB/s ({byts / ms / 1e9 / (HBM_BPS / 1e12):.2f} of 3.35); "
+                f"launches on a driven path {row['launches']}")
+            rows.append(row)
+        del C_p, checks
+        torch.cuda.empty_cache()
+    return rows
+
+
+def random_visc_inputs(torch, sweeps, prob, mat, gen, dt, amplitude=0.1):
+    """Random element fields on the problem's tables for `mat`: u_el with
+    |F - I| up to `amplitude` per element, a_el, v_el and w_el of unit
+    size; for a J2-family material a random history (its initial state,
+    eqps up to 0.01, temperature 20-120)."""
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(prob.device, prob.dtype)  # noqa: E731
+    uni = lambda *s: torch.rand(*s, generator=gen).to(prob.device, prob.dtype)  # noqa: E731
+    nd = 27 if prob.sf is not None else prob.dense["dN_t"].shape[0]
+    shape = (prob.dim, nd, prob.n_el)
+    u_el, _ = near_identity(torch, lambda u: grad_of(sweeps, prob, u), rnd(*shape), amplitude)
+    state = None
+    if mat.has_state:
+        from mimi_tpu_torch.fem import soa
+
+        state = soa.state_to_soa(mat.init_state((prob.n_el, prob.n_q), dtype=prob.dtype,
+                                                device=prob.device))
+        state["eqps"] = 0.01 * uni(prob.n_q, prob.n_el)
+        state["temperature"] = 20.0 + 100.0 * uni(prob.n_q, prob.n_el)
+    return {"u_el": u_el, "a_el": rnd(*shape), "v_el": rnd(*shape), "w_el": rnd(*shape),
+            "state": state}
+
+
+def press_material(mt):
+    """The presses' material: the viscous neo-Hookean of the examples."""
+    mat = mt.CompressibleOgdenNeoHookean()
+    mat.density = 1e3
+    mat.viscosity = 100.0
+    mat.set_young_poisson(1e6, 0.3)
+    return mat
+
+
+def press_build(mt, dim, size, device, dtype=None):
+    """Path A (dim 2: two-patch-square.mesh at p = 2 subdivided `size`
+    times, the top edge, bid 3, against a flat tool at y = 1) or path B
+    (dim 3: cube-nurbs.mesh at p = 2 and size^3, the top face, bid 1,
+    against the bilinear tool at z = 1); the other side clamped; penalty
+    5e7."""
+    scene = mt.NearestDistanceToSplines()
+    if dim == 2:
+        scene.add_spline(mt.Bezier([1], [[-0.5, 1.0], [2.5, 1.0]]))
+        scene.plant_kd_tree(200, 1)
+    else:
+        scene.add_spline(mt.Bezier([1, 1], [[-0.5, -0.5, 1.0], [-0.5, 1.5, 1.0],
+                                            [1.5, -0.5, 1.0], [1.5, 1.5, 1.0]]))
+        scene.plant_kd_tree(max(size, 8), 1)
+    scene.coefficient = 5e7
+    if dim == 2:
+        return mt.build_problem(TWO_SQUARE, 1, size, press_material(mt), [(2, 0), (2, 1)], {},
+                                rho_inf=0.5, device=device, dtype=dtype, contact=[(3, scene)])
+    return mt.build_problem(MESH, 1, 0, press_material(mt), [(0, 0), (0, 1), (0, 2)], {},
+                            rho_inf=0.5, device=device, dtype=dtype, refine_spans=size,
+                            contact=[(1, scene)])
+
+
+def drive_press(torch, mt, sweeps, prob, label, step_kw):
+    """The default engine's path on a press: the initial carry, one warm
+    and PRESS_TIMED timed steps, the tool pushed before each.  Prints per
+    step the wall time, Newton and GMRES counts, the residual drop, the
+    closest-point projections, the face points that penetrate and that
+    pass the angle gate, the contact force from the traction residual;
+    s/step, qp-evals/s, peak device memory.  Fails unless the problem's
+    three kernels were launched in each step, the state stayed finite and
+    the tool engaged the body.  Returns (carry, step, s/step, launches,
+    the last scene data)."""
+    NDS = mt.NearestDistanceToSplines
+    cd, cs = prob.contact[0], prob.contact_static[0]
+    query, n_proj = cs["query"], [0]
+
+    def counted_query(*a):  # closest-point projections per step
+        n_proj[0] += 1
+        return query(*a)
+
+    cs["query"] = counted_query
+    push = PRESS_PUSH[prob.dim]
+    t0 = time.perf_counter()
+    carry = mt.initial_carry(prob)
+    torch.cuda.synchronize()
+    say(f"[{label}] initial carry {time.perf_counter() - t0:.2f} s")
+    step = mt.make_step(prob, **step_kw)
+    sd, times, diags, engaged = cd["scene"], [], [], []
+    n_fq = cd["wq"].numel()
+    for i in range(1 + PRESS_TIMED):
+        sd = NDS.translate_scene_data(sd, push)
+        p0 = n_proj[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry = step(carry, contact_scenes=[sd])
+        torch.cuda.synchronize()
+        t_s = time.perf_counter() - t0
+        d, c = carry["newton"], carry["contact"][0]
+        force = (-c["res_el"].sum((0, 1))).tolist()
+        tool = float(sd[0]["cps"][0, prob.dim - 1])
+        say(f"[{label}] step {i} ({'warm' if i == 0 else 'timed'}), tool at {tool:.4f}: "
+            f"{t_s:.3f} s; newton {d['iters']}, gmres {d['lin_iters']} "
+            f"({d['lin_iters'] / max(d['iters'], 1):.1f} per solve, cap "
+            f"{step_kw['cg_iters']}), |r0| {d['norm0']:.4e} -> |r| {d['norm']:.4e} (drop "
+            f"{d['norm'] / d['norm0']:.3e}, converged {d['converged']}); projections "
+            f"{n_proj[0] - p0}, unconverged {int(c['proj_unconverged'])}; face points "
+            f"penetrating {int(c['n_penetrating'])} of {n_fq}, past the angle gate "
+            f"{int(c['n_engaged'])}; force from the traction residual "
+            f"({', '.join(f'{x:.4e}' for x in force)}); max|u| "
+            f"{float(carry['u'].abs().max()):.4e}")
+        if not d["finite"]:
+            fail(f"{label}: non-finite state at step {i}")
+        engaged.append(int(c["n_engaged"]))
+        if i > 0:
+            times.append(t_s)
+            diags.append(d)
+    cs["query"] = query
+    launches = dict(sweeps.LAUNCHES)
+    s_step = sum(times) / len(times)
+    evals = [prob.n_el * prob.n_q * (d["iters"] * 3 + 1) for d in diags]
+    say(f"[{label}] {s_step:.4f} s/step over {PRESS_TIMED} timed steps "
+        f"({', '.join(f'{t:.3f}' for t in times)}); {sum(evals) / sum(times):.4e} qp-evals/s "
+        f"(n_el {prob.n_el} x n_q {prob.n_q} x (3 x Newton iterations + 1) per step: "
+        f"{evals}); newton {[d['iters'] for d in diags]}, gmres "
+        f"{[d['lin_iters'] for d in diags]}, drops "
+        f"{', '.join(f'{d['norm'] / d['norm0']:.3e}' for d in diags)}; engaged points "
+        f"{engaged}; peak allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB; "
+        f"launches { {k: n for k, n in launches.items() if n} }")
+    for name in press_kernel_names(sweeps, prob, step_kw):
+        if launches[name] < 1 + PRESS_TIMED:
+            fail(f"kernel {name} was launched {launches[name]} times in {1 + PRESS_TIMED} "
+                 f"steps of {label}")
+    if min(engaged) == 0:
+        fail(f"{label}: a step ended with no face point past the angle gate ({engaged})")
+    return carry, step, s_step, launches, sd
+
+
+def press_kernel_names(sweeps, prob, step_kw):
+    """Counter names (residual, assemble, matvec) of a press's viscous
+    kernels, with the block of step_kw's matvec_dtype."""
+    kind = "sf" if prob.sf is not None else "dense"
+    bf16 = step_kw.get("matvec_dtype") == "bf16"
+    tag, storage = material_tag(sweeps, prob.material), sweeps.tangent_storage(prob.material)
+    p = 2 if kind == "sf" else dense_degree(prob)
+    return [*sweeps.material_counters(kind, tag, storage, prob.dim, p, True, bf16),
+            sweeps.matvec_counter(kind, storage, prob.dim, p, True, bf16)]
+
+
+def press_newton_system(torch, mt, prob, carry, sd, step_kw, label, gen):
+    """The Newton system of the next step from `carry` with the tool at
+    `sd`, kernel path against plain path: the residual at 1e-4 x scale,
+    J w at 1e-4 x scale (2^-7 with a bfloat16 block: each path rounds its
+    own).  Prints the difference of the two whole steps too (contact
+    steps are held on the Newton system: which float32 points pass the
+    reference's angle gate turns on rounding, ROADMAP Queue 3)."""
+    bf16 = step_kw.get("matvec_dtype") == "bf16"
+    steps = [mt.make_step(prob, residual_impl=impl, **step_kw) for impl in ("cuda", "torch")]
+    ns = [s.newton_system(carry, contact_scenes=[sd]) for s in steps]
+    w = torch.randn(ns[0]["r"].shape, generator=gen).to(prob.device, prob.dtype)
+    jw = [n["J_apply"](w) for n in ns]
+    r_err, r_scale = float((ns[0]["r"] - ns[1]["r"]).abs().max()), float(ns[1]["r"].abs().max())
+    jw_err, jw_scale = float((jw[0] - jw[1]).abs().max()), float(jw[1].abs().max())
+    jw_bar = 2.0**-7 if bf16 else 1e-4
+    say(f"[{label}] the Newton system, kernel path vs plain path: residual max|err| "
+        f"{r_err:.3e} of {r_scale:.3e} ({r_err / r_scale:.3e}); J w {jw_err:.3e} of "
+        f"{jw_scale:.3e} ({jw_err / jw_scale:.3e}, bar {jw_bar:.3e})")
+    if not (r_err <= 1e-4 * r_scale and jw_err <= jw_bar * jw_scale):
+        fail(f"{label}: the Newton system differs between the kernel and plain paths")
+    return steps
+
+
+def press_phases(torch, mt, sweeps, soa, sh, device, gen):
+    """Phases 38-42: the viscous neo-Hookean contact presses with the
+    frozen contact tangent.  For each path: the host build, the new
+    instantiations on the path's tables against plain on random input (38:
+    at 2 x 512^2 the viscous dense (2, 2) kernels of the neo-Hookean, St.
+    Venant-Kirchhoff and J2 materials; at 48^3 the neo-Hookean sf kernels
+    viscous with a float32 block and inviscid with a bfloat16 one), the
+    drive (39 path A, 41 path B: 1 warm + PRESS_TIMED steps), the path
+    kernels against plain at the path's state and their rows, the next
+    Newton system kernel path against plain path at full size, one
+    profiled step, and one step held kernel path against plain path at a
+    small size (40: 2 x 64^2, 42: 16^3).  Returns the rows of the kernels
+    line."""
+    NDS = mt.NearestDistanceToSplines
+    rows = []
+    for dim, size, held, tag in ((2, PRESS_2D_SUBDIVIDE, PRESS_2D_HELD, "A"),
+                                 (3, SPANS, CHECK_SPANS, "B")):
+        step_kw = dict(PRESS_STEP_KW, **({"matvec_dtype": "bf16"} if dim == 3 else {}))
+        dt = step_kw["dt"]
+        n_drive, n_held = ("39", "40") if dim == 2 else ("41", "42")
+        size_s = f"2x{2**size}^2" if dim == 2 else f"{size}^3"
+        sweeps.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        prob = press_build(mt, dim, size, device)
+        torch.cuda.synchronize()
+        cd = prob.contact[0]
+        label = f"{n_drive}. path {tag} {size_s}"
+        tables = prob.dense if prob.dense is not None else (prob.sf["tables"], prob.sf["jinv"])
+        say(f"[{label}] host build {time.perf_counter() - t0:.2f} s: n_el {prob.n_el}, n_q "
+            f"{prob.n_q}, unknowns {prob.n_dof * prob.dim}, {'dense' if prob.dense else 'sf'} "
+            f"tables {nbytes(tables, prob.wdet_t) / 1e9:.3f} GB; contact elements "
+            f"{cd['conn'].shape[0]} x {cd['wq'].shape[1]} points, mortar dofs "
+            f"{prob.contact_static[0]['n_local']}; device peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+
+        # ---- 38. the new instantiations on the path's tables, random input ----
+        if dim == 2:
+            others = [("CompressibleOgdenNeoHookean", ((True, False),)),
+                      ("StVenantKirchhoff", ((True, False),)), ("J2", ((True, False),))]
+        else:
+            others = [("CompressibleOgdenNeoHookean", ((True, False), (False, True)))]
+        for name, combos in others:
+            mat = jc_material(mt, name=name) if name == "J2" else hyper_material(mt, name)
+            mat.setup(dim)
+            f = random_visc_inputs(torch, sweeps, prob, mat, gen, dt,
+                                   0.2 if name == "J2" else 0.1)
+            rows_r = hold_viscous(torch, sweeps, prob, mat, f, dt,
+                                  f"38. {size_s} random {material_tag(sweeps, mat)}",
+                                  combos=combos)
+            rows += [r for r in rows_r if r["launches"] > 0]
+            del f
+            torch.cuda.empty_cache()
+
+        # ---- 39 / 41. the drive ------------------------------------------------
+        sweeps.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        carry, step, s_step, launches, sd = drive_press(torch, mt, sweeps, prob, label, step_kw)
+
+        # ---- the path kernels at the path's state, their rows ---------------------
+        g, _ = sh._gather_scatter(prob)
+        fc = prob.facs
+        xa = carry["u"] + (carry["v"] + fc["fac0"] * dt * carry["a"]) * fc["fac1"] * dt
+        va = carry["v"] + fc["fac2"] * dt * carry["a"]
+        f = {"u_el": g(xa), "a_el": g(carry["a"]), "v_el": g(va), "state": None,
+             "w_el": torch.randn(*g(xa).shape, generator=gen).to(device, prob.dtype)}
+        del xa, va
+        rows += hold_viscous(torch, sweeps, prob, prob.material, f, dt, f"{label} path",
+                             launches, combos=((True, dim == 3),))
+        del f
+        torch.cuda.empty_cache()
+
+        # ---- the next Newton system, kernel path vs plain path ----------------------
+        sd_next = NDS.translate_scene_data(sd, PRESS_PUSH[dim])
+        press_newton_system(torch, mt, prob, carry, sd_next, step_kw, f"{label} next system",
+                            gen)
+        torch.cuda.empty_cache()
+
+        # ---- one profiled step ------------------------------------------------------
+        carry = profile_step(torch, step, carry, s_step, f"{label} profile",
+                             contact_scenes=[sd_next])
+        del carry, step, prob, cd, g, tables
+        torch.cuda.empty_cache()
+
+        # ---- 40 / 42. one step at a small size, kernel path vs plain path ----------
+        hprob = press_build(mt, dim, held, device)
+        hlabel = f"{n_held}. path {tag} {f'2x{2**held}^2' if dim == 2 else f'{held}^3'} step"
+        carry0 = mt.initial_carry(hprob)
+        sd = NDS.translate_scene_data(hprob.contact[0]["scene"], PRESS_PUSH[dim])
+        steps = press_newton_system(torch, mt, hprob, carry0, sd, step_kw, hlabel, gen)
+        out = [s(carry0, contact_scenes=[sd]) for s in steps]
+        err = float((out[0]["u"] - out[1]["u"]).abs().max())
+        scale = float(out[1]["u"].abs().max())
+        nk, npl = out[0]["newton"], out[1]["newton"]
+        ck, cp = out[0]["contact"][0], out[1]["contact"][0]
+        say(f"[{hlabel}] the whole step, kernel path vs plain path: max|du| {err:.3e} of max|u| "
+            f"{scale:.3e} ({err / scale:.3e}); newton {nk['iters']}/{npl['iters']}, gmres "
+            f"{nk['lin_iters']}/{npl['lin_iters']}, drops {nk['norm'] / nk['norm0']:.3e}/"
+            f"{npl['norm'] / npl['norm0']:.3e}; past the angle gate {int(ck['n_engaged'])}/"
+            f"{int(cp['n_engaged'])} of penetrating {int(ck['n_penetrating'])}/"
+            f"{int(cp['n_penetrating'])}")
+        if not (nk["finite"] and npl["finite"]) or int(cp["n_penetrating"]) == 0:
+            fail(f"{hlabel}: a non-finite or unengaged step")
+        del hprob, carry0, steps, out
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main():
     import torch
 
@@ -2484,6 +2934,10 @@ def main():
     # ---- 33-37. J2Simo and J2Log on dense tables with the full tangent ------------------
     rows += dense_finite_phases(torch, mt, sweeps, soa, sh, device, gen)
     say(f"[clock] phases 33-37 done: {time.perf_counter() - t_main:.1f} s since phase 2")
+
+    # ---- 38-42. the viscous neo-Hookean contact presses, frozen tangent -----------------
+    rows += press_phases(torch, mt, sweeps, soa, sh, device, gen)
+    say(f"[clock] phases 38-42 done: {time.perf_counter() - t_main:.1f} s since phase 2")
 
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {

@@ -22,6 +22,11 @@ contact tangent (`jax.linearize(contact_residual)` in
 parallel/sharding.py): one pressure and residual pass at u that keeps its
 intermediates, and a closed-form directional derivative w -> d res_el
 that reuses them and never reruns the projection.
+
+`residual_grad_pass` is the reference's frozen tangent (its
+`residual_grad_pass`, `jax.jacfwd` of the element residual): the residual
+pass and, per contact element, the Jacobian of its traction residual in
+its own dof values with the nodal pressure held fixed.
 """
 
 from __future__ import annotations
@@ -46,6 +51,46 @@ def _surface_normal_raw_dot(J, dJ):
     return torch.linalg.cross(dJ[..., 0], J[..., 1], dim=-1) + torch.linalg.cross(
         J[..., 0], dJ[..., 1], dim=-1
     )
+
+
+def _traction(cd, pressure, det, c):
+    """Traction residual of the pressure on the surface with the
+    unnormalized normals c and their norms det: (res_el (n_mb, nd, dim),
+    force, integrated pressure, (p_q, nrm, fac))."""
+    N = cd["N"]
+    p_q = torch.einsum("eqn,en->eq", N, pressure[cd["ldof"]])
+    nrm = cd["nsign"][:, None, None] * (c / det[..., None])
+    fac = cd["wq"] * det * p_q
+    res_el = -torch.einsum("eq,eqn,eqd->end", fac, N, nrm)
+    force = torch.einsum("eq,eqd->d", fac, nrm)
+    return res_el, force, fac.sum(), (p_q, nrm, fac)
+
+
+def residual_grad_pass(u, cd, pressure):
+    """The residual pass at u (n_dof, dim) and the frozen-pressure element
+    blocks: (res_el, blocks (n_mb, nd dim, nd dim), force, integrated
+    pressure), blocks[e, n dim + d, m dim + c] = d res_el[e, n, d] /
+    d u[conn[e, m], c] at fixed nodal pressure.  The traction w det J p n
+    is -(w p_q nsign) c with c the unnormalized surface normal, so its
+    derivative is that of c, linear in the surface tangents (2D) or
+    bilinear (3D); the blocks are its derivative along each of the nd dim
+    unit element seeds, in closed form."""
+    dim = u.shape[-1]
+    cur = u[cd["conn"]] + cd["x_ref_el"]
+    N, dN = cd["N"], cd["dN"]
+    J = torch.einsum("end,eqnk->eqdk", cur, dN)
+    c = _surface_normal_raw(J)
+    res_el, force, pint, (p_q, _, _) = _traction(
+        cd, pressure, torch.linalg.vector_norm(c, dim=-1), c
+    )
+    n_mb, nd = cd["conn"].shape
+    # seeds s = m dim + c: dJ[s, e, q, d, k] = delta(d, c) dN[e, q, m, k]
+    eye = torch.eye(dim, dtype=u.dtype, device=u.device)
+    dJ = torch.einsum("eqmk,cd->mceqdk", dN, eye).reshape(nd * dim, n_mb, *J.shape[1:])
+    dc = _surface_normal_raw_dot(J.expand_as(dJ), dJ)
+    wp = cd["wq"] * p_q * cd["nsign"][:, None]
+    d_res = -torch.einsum("eq,eqn,seqd->ends", wp, N, dc)
+    return res_el, d_res.reshape(n_mb, nd * dim, nd * dim), force, pint
 
 
 def make_contact_fns(dim: int, n_local: int, batched_query):
@@ -104,15 +149,6 @@ def make_contact_fns(dim: int, n_local: int, batched_query):
                           torch.zeros_like(area))
         return gpa * penalty, fac.sum(), (J, c, det, fac, area, gap, pos, gpa)
 
-    def traction(cd, pressure, det, c):
-        N = cd["N"]
-        p_q = torch.einsum("eqn,en->eq", N, pressure[cd["ldof"]])
-        nrm = cd["nsign"][:, None, None] * (c / det[..., None])
-        fac = cd["wq"] * det * p_q
-        res_el = -torch.einsum("eq,eqn,eqd->end", fac, N, nrm)
-        force = torch.einsum("eq,eqd->d", fac, nrm)
-        return res_el, force, fac.sum(), (p_q, nrm, fac)
-
     def pressure_pass(u, cd, scene_data, penalty):
         cur, g, _, _, qdiag = gap_pass(u, cd, scene_data)
         pressure, total_area, _ = pressure_from(cur, g, cd, penalty)
@@ -122,7 +158,7 @@ def make_contact_fns(dim: int, n_local: int, batched_query):
         cur = u[cd["conn"]] + cd["x_ref_el"]
         J = torch.einsum("end,eqnk->eqdk", cur, cd["dN"])
         c = _surface_normal_raw(J)
-        res_el, force, pint, _ = traction(
+        res_el, force, pint, _ = _traction(
             cd, pressure, torch.linalg.vector_norm(c, dim=-1), c
         )
         return res_el, force, pint
@@ -135,7 +171,7 @@ def make_contact_fns(dim: int, n_local: int, batched_query):
         pressure, total_area, (J, c, det, fac, area, gap, pos, gpa) = pressure_from(
             cur, g, cd, penalty
         )
-        res_el, force, pint, (p_q, nrm, fac_p) = traction(cd, pressure, det, c)
+        res_el, force, pint, (p_q, nrm, fac_p) = _traction(cd, pressure, det, c)
         N, dN, wq, ldof = cd["N"], cd["dN"], cd["wq"], cd["ldof"]
         nsign = cd["nsign"][:, None, None]
         gm = gmask.to(u.dtype)

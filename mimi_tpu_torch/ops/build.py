@@ -21,8 +21,8 @@ import time
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [
     os.path.join(_HERE, "csrc", name)
-    for name in ("sweeps_sf.cu", "sweeps_sf_finite.cu", "sweeps_dense.cu", "sweeps_dense_j2.cu",
-                 "sweeps_dense_finite.cu", "fused_neohookean.cu")
+    for name in ("sweeps_sf.cu", "sweeps_sf_hyper.cu", "sweeps_sf_finite.cu", "sweeps_dense.cu",
+                 "sweeps_dense_j2.cu", "sweeps_dense_finite.cu", "fused_neohookean.cu")
 ]
 HEADERS = [
     os.path.join(_HERE, "csrc", name)
@@ -107,19 +107,19 @@ def bind(lib):
         "residual_sf": [vp] * 15 + [_J2Params, cf, ll, vp],
         "assemble_sf": [vp] * 16 + [ci, _J2Params, cf, ll, vp],
         "matvec_sf": [vp] * 10 + [ci, vp, cf, cf, ci, cf, ll, vp],
-        "residual_sf_hyper": [vp] * 11 + [_HyperParams, ci, ll, vp],
-        "assemble_sf_hyper": [vp] * 12 + [_HyperParams, ci, ll, vp],
-        "matvec_sf_sym": [vp] * 11 + [cf, cf, ll, vp],
+        "residual_sf_hyper": [vp] * 12 + [_HyperParams, cf, ci, ll, vp],
+        "assemble_sf_hyper": [vp] * 13 + [ci, _HyperParams, cf, ci, ll, vp],
+        "matvec_sf_sym": [vp] * 10 + [ci, vp, cf, cf, ci, cf, ll, vp],
         "residual_sf_finite": [vp] * 15 + [_J2Params, ci, ll, vp],
         "assemble_sf_finite": [vp] * 16 + [_J2Params, ci, ll, vp],
         "matvec_sf_full": [vp] * 11 + [cf, cf, ll, vp],
         # dense: ..., dim, p, n_el, stream
-        "residual_dense": [vp] * 6 + [_HyperParams, ci, ci, ci, ll, vp],
-        "assemble_dense": [vp] * 7 + [_HyperParams, ci, ci, ci, ll, vp],
-        "matvec_dense": [vp] * 6 + [cf, cf, ci, ci, ll, vp],
-        "residual_dense_j2": [vp] * 9 + [_J2Params, ci, ci, ll, vp],
-        "assemble_dense_j2": [vp] * 10 + [_J2Params, ci, ci, ll, vp],
-        "matvec_dense_cauchy": [vp] * 6 + [cf, cf, ci, ci, ll, vp],
+        "residual_dense": [vp] * 7 + [_HyperParams, cf, ci, ci, ci, ll, vp],
+        "assemble_dense": [vp] * 8 + [_HyperParams, cf, ci, ci, ci, ll, vp],
+        "matvec_dense": [vp] * 6 + [cf, cf, ci, cf, ci, ci, ll, vp],
+        "residual_dense_j2": [vp] * 10 + [_J2Params, cf, ci, ci, ll, vp],
+        "assemble_dense_j2": [vp] * 11 + [_J2Params, cf, ci, ci, ll, vp],
+        "matvec_dense_cauchy": [vp] * 6 + [cf, cf, ci, cf, ci, ci, ll, vp],
         "residual_dense_finite": [vp] * 10 + [_J2Params, ci, ci, ci, ll, vp],
         "assemble_dense_finite": [vp] * 11 + [_J2Params, ci, ci, ci, ll, vp],
         "matvec_dense_full": [vp] * 6 + [cf, cf, ci, ci, ll, vp],

@@ -40,11 +40,12 @@ __device__ __forceinline__ void stage(const float* __restrict__ g, float (*s)[BL
   for (int k = 0; k < NW; ++k) s[k][threadIdx.x] = __ldg(g + (long long)k * E + e);
 }
 
-// G[g][f] = sum_n dN[n][f](q) w[g][n], summed in n order without FMA (as
-// ops/sweeps.py dense_grad), so F agrees with the plain version to the bit
-template <int DIM, int ND>
-__device__ __forceinline__ void grad_q(const float* __restrict__ dN, float (*w)[BLOCK],
-                                       long long qe, long long QE, float G[DIM][DIM]) {
+// G[g][f] = sum_n dN[n][f](q) w(g ND + n), summed in n order without FMA
+// (as ops/sweeps.py dense_grad), so F agrees with the plain version to the
+// bit; `w(k)` returns value k of the element's field
+template <int DIM, int ND, class W>
+__device__ __forceinline__ void grad_q_of(const float* __restrict__ dN, const W& w,
+                                          long long qe, long long QE, float G[DIM][DIM]) {
 #pragma unroll
   for (int g = 0; g < DIM; ++g)
 #pragma unroll
@@ -56,11 +57,18 @@ __device__ __forceinline__ void grad_q(const float* __restrict__ dN, float (*w)[
     for (int f = 0; f < DIM; ++f) d[f] = __ldg(dN + (long long)(n * DIM + f) * QE + qe);
 #pragma unroll
     for (int g = 0; g < DIM; ++g) {
-      const float wv = w[g * ND + n][threadIdx.x];
+      const float wv = w(g * ND + n);
 #pragma unroll
       for (int f = 0; f < DIM; ++f) G[g][f] = add(G[g][f], mul(d[f], wv));
     }
   }
+}
+
+// the gradient of the field staged in this thread's shared column
+template <int DIM, int ND>
+__device__ __forceinline__ void grad_q(const float* __restrict__ dN, float (*w)[BLOCK],
+                                       long long qe, long long QE, float G[DIM][DIM]) {
+  grad_q_of<DIM, ND>(dN, [w](int k) { return w[k][threadIdx.x]; }, qe, QE, G);
 }
 
 // v[c] = sum_n N[n](q) w[c][n]
@@ -108,13 +116,19 @@ inline unsigned grid_for(long long E) { return (unsigned)((E + BLOCK - 1) / BLOC
 // Residual y[c][n] = sum_q wq (dN[n][d] P(F)[c][d] + N[n] rho a_q[c]),
 // F = I + grad u; with TANGENT also the tangent block of `Store` (the
 // assemble).  `Mat` forms P and the point's tangent data from F and, for a
-// material with state, the point's state leaves (`eval`).
-template <class Mat, class Store, int DIM, int P, bool TANGENT>
+// material with state, the point's state leaves (`eval`).  With VISC the
+// viscous flux mu_v grad v joins P before the scatter (the tangent block
+// does not change).  v is read from device memory at each point, not
+// staged: a third staged field would take 62 KB of static shared memory
+// at 3D p = 2, past the 48 KB a static allocation may have; its rows
+// come from L1 or L2 after the first point.
+template <class Mat, class Store, int DIM, int P, bool TANGENT, bool VISC>
 __global__ void __launch_bounds__(BLOCK)
     dense_residual_kernel(const float* __restrict__ u_el, const float* __restrict__ a_el,
-                          const float* __restrict__ dN, const float* __restrict__ N,
-                          const float* __restrict__ wq, float* __restrict__ out,
-                          float* __restrict__ cout, Mat mat, float rho, long long E) {
+                          const float* __restrict__ v_el, const float* __restrict__ dN,
+                          const float* __restrict__ N, const float* __restrict__ wq,
+                          float* __restrict__ out, float* __restrict__ cout, Mat mat,
+                          float rho, float mu_v, long long E) {
   using S = DenseShape<DIM, P>;
   constexpr int ND = S::ND;
   __shared__ float su[S::NW][BLOCK];
@@ -140,6 +154,15 @@ __global__ void __launch_bounds__(BLOCK)
     typename Mat::Point pt;
     mat.template eval<TANGENT>(F, qe, QE, Pk, pt);
     if (TANGENT) Store::store(cout, qe, QE, mat, pt);
+    if (VISC) {  // P + mu_v dV, in the plain version's order
+      float dV[DIM][DIM];
+      grad_q_of<DIM, ND>(dN, [=](int k) { return __ldg(v_el + (long long)k * E + e); }, qe,
+                         QE, dV);
+#pragma unroll
+      for (int c = 0; c < DIM; ++c)
+#pragma unroll
+        for (int d = 0; d < DIM; ++d) Pk[c][d] = add(Pk[c][d], mul(mu_v, dV[c][d]));
+    }
     float av[DIM], m[DIM];
     value_q<DIM, ND>(N, sa, qe, QE, av);
 #pragma unroll
@@ -153,13 +176,14 @@ __global__ void __launch_bounds__(BLOCK)
 }
 
 // y = J w: y[c][n] = sum_q wq (dN[n][d] dP[c][d] + N[n] rho w_q[c]),
-// dP = fac0 C : grad w from the tangent block of `Store`
-template <class Store, int DIM, int P>
+// dP = fac0 C : grad w from the tangent block of `Store`, + fac1 mu_v grad w
+// with VISC
+template <class Store, int DIM, int P, bool VISC>
 __global__ void __launch_bounds__(BLOCK)
     dense_matvec_kernel(const float* __restrict__ w_el, const float* __restrict__ dN,
                         const float* __restrict__ N, const float* __restrict__ wq,
                         const float* __restrict__ cs, float* __restrict__ out, float rho,
-                        float fac0, long long E) {
+                        float fac0, float fac1_mu_v, long long E) {
   using S = DenseShape<DIM, P>;
   constexpr int ND = S::ND;
   __shared__ float sw[S::NW][BLOCK];
@@ -180,6 +204,12 @@ __global__ void __launch_bounds__(BLOCK)
     value_q<DIM, ND>(N, sw, qe, QE, v);
     float dP[DIM][DIM];
     Store::apply(cs, qe, QE, dF, fac0, dP);
+    if (VISC) {
+#pragma unroll
+      for (int c = 0; c < DIM; ++c)
+#pragma unroll
+        for (int d = 0; d < DIM; ++d) dP[c][d] = add(dP[c][d], mul(fac1_mu_v, dF[c][d]));
+    }
 #pragma unroll
     for (int c = 0; c < DIM; ++c) m[c] = rho * v[c];
     scatter_q<DIM, ND>(acc, dN, N, qe, QE, __ldg(wq + qe), dP, m);
@@ -190,22 +220,23 @@ __global__ void __launch_bounds__(BLOCK)
     for (int n = 0; n < ND; ++n) out[(long long)(c * ND + n) * E + e] = acc[c][n];
 }
 
-template <class Mat, class Store, int DIM, int P, bool TANGENT>
+template <class Mat, class Store, int DIM, int P, bool TANGENT, bool VISC = false>
 int launch_dense_residual(const float* u_el, const float* a_el, const float* dN,
                           const float* N, const float* wq, float* out, float* cout,
-                          const Mat& mat, float rho, long long E, void* stream) {
-  dense_residual_kernel<Mat, Store, DIM, P, TANGENT>
-      <<<grid_for(E), BLOCK, 0, (cudaStream_t)stream>>>(u_el, a_el, dN, N, wq, out, cout,
-                                                         mat, rho, E);
+                          const Mat& mat, float rho, long long E, void* stream,
+                          const float* v_el = nullptr, float mu_v = 0.f) {
+  dense_residual_kernel<Mat, Store, DIM, P, TANGENT, VISC>
+      <<<grid_for(E), BLOCK, 0, (cudaStream_t)stream>>>(u_el, a_el, v_el, dN, N, wq, out,
+                                                         cout, mat, rho, mu_v, E);
   return (int)cudaGetLastError();
 }
 
-template <class Store, int DIM, int P>
+template <class Store, int DIM, int P, bool VISC = false>
 int launch_dense_matvec(const float* w_el, const float* dN, const float* N, const float* wq,
                         const float* cs, float* out, float rho, float fac0, long long E,
-                        void* stream) {
-  dense_matvec_kernel<Store, DIM, P><<<grid_for(E), BLOCK, 0, (cudaStream_t)stream>>>(
-      w_el, dN, N, wq, cs, out, rho, fac0, E);
+                        void* stream, float fac1_mu_v = 0.f) {
+  dense_matvec_kernel<Store, DIM, P, VISC><<<grid_for(E), BLOCK, 0, (cudaStream_t)stream>>>(
+      w_el, dN, N, wq, cs, out, rho, fac0, fac1_mu_v, E);
   return (int)cudaGetLastError();
 }
 

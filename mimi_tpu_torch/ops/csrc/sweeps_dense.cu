@@ -4,9 +4,12 @@
 // Three kernels, each replacing one Pallas TPU kernel of
 // mimi_tpu/ops/sweeps.py in its dense-table branch (dN (ND, DIM, NQ, E),
 // N (ND, NQ, E), w det J (NQ, E) streamed from device memory):
-//   mimi_residual_dense  <- make_residual_sweep (dense, inviscid)   residual only
+//   mimi_residual_dense  <- make_residual_sweep (dense)            residual only
 //   mimi_assemble_dense  <- make_assemble_sweep (dense, "sym")      residual + symmetric planes
 //   mimi_matvec_dense    <- make_matvec_sweep ("sym")              y = J w
+// each inviscid or with the viscous flux of has_visc (VISC: the residual
+// and the assemble add mu_v grad v to P, sweeps.py:404-414, :651-664; the
+// matvec adds fac1 mu_v grad w, :816-834).
 // J2 with the Cauchy-decomposition storage instantiates the same templates
 // in sweeps_dense_j2.cu.  The plain torch versions of the same functions
 // are in ops/sweeps.py (residual_dense_plain, assemble_dense_plain,
@@ -52,61 +55,81 @@
 
 namespace {
 
-template <template <int> class H, int DIM, int P, bool TANGENT>
-int launch_hyper(const float* u_el, const float* a_el, const float* dN, const float* N,
-                 const float* wq, float* out, float* cout, const HyperelasticParams& p,
-                 long long E, void* stream) {
+template <template <int> class H, int DIM, int P, bool TANGENT, bool VISC>
+int launch_hyper(const float* u_el, const float* a_el, const float* v_el, const float* dN,
+                 const float* N, const float* wq, float* out, float* cout,
+                 const HyperelasticParams& p, float mu_v, long long E, void* stream) {
   using Mat = Hyper<H<DIM>>;
-  return launch_dense_residual<Mat, SymStorage<DIM>, DIM, P, TANGENT>(
-      u_el, a_el, dN, N, wq, out, cout, Mat{H<DIM>{p.mu, p.lam}}, p.rho, E, stream);
+  return launch_dense_residual<Mat, SymStorage<DIM>, DIM, P, TANGENT, VISC>(
+      u_el, a_el, dN, N, wq, out, cout, Mat{H<DIM>{p.mu, p.lam}}, p.rho, E, stream, v_el,
+      mu_v);
 }
 
-template <bool TANGENT>
-int hyper_entry(const float* u_el, const float* a_el, const float* dN, const float* N,
-                const float* wq, float* out, float* cout, const HyperelasticParams& p,
-                int material, int dim, int deg, long long E, void* stream) {
-  if (E <= 0) return 0;
+template <bool TANGENT, bool VISC>
+int hyper_entry(const float* u_el, const float* a_el, const float* v_el, const float* dN,
+                const float* N, const float* wq, float* out, float* cout,
+                const HyperelasticParams& p, float mu_v, int material, int dim, int deg,
+                long long E, void* stream) {
   return with_dense_shape(dim, deg, [&](auto D, auto G) {
     constexpr int DIM = decltype(D)::value, P = decltype(G)::value;
     if (material == 0)
-      return launch_hyper<NeoHookean, DIM, P, TANGENT>(u_el, a_el, dN, N, wq, out, cout, p,
-                                                       E, stream);
+      return launch_hyper<NeoHookean, DIM, P, TANGENT, VISC>(u_el, a_el, v_el, dN, N, wq, out,
+                                                             cout, p, mu_v, E, stream);
     if (material == 1)
-      return launch_hyper<StVK, DIM, P, TANGENT>(u_el, a_el, dN, N, wq, out, cout, p, E,
-                                                 stream);
+      return launch_hyper<StVK, DIM, P, TANGENT, VISC>(u_el, a_el, v_el, dN, N, wq, out, cout,
+                                                       p, mu_v, E, stream);
     return (int)cudaErrorInvalidValue;
   });
+}
+
+template <bool TANGENT>
+int hyper_visc_entry(const float* u_el, const float* a_el, const float* v_el, const float* dN,
+                     const float* N, const float* wq, float* out, float* cout,
+                     const HyperelasticParams& p, float mu_v, int material, int dim, int deg,
+                     long long E, void* stream) {
+  if (E <= 0) return 0;
+  if (v_el)
+    return hyper_entry<TANGENT, true>(u_el, a_el, v_el, dN, N, wq, out, cout, p, mu_v,
+                                      material, dim, deg, E, stream);
+  return hyper_entry<TANGENT, false>(u_el, a_el, v_el, dN, N, wq, out, cout, p, mu_v,
+                                     material, dim, deg, E, stream);
 }
 
 }  // namespace
 
 // C entry points, symmetric storage.  `material`: 0 the neo-Hookean, 1 the
 // St. Venant-Kirchhoff material; (dim, p) one of the instantiated pairs
-// (2, 2), (2, 3), (3, 2).  Each returns the launch's cudaGetLastError(), or
-// cudaErrorInvalidValue for a material or (dim, p) not instantiated.
+// (2, 2), (2, 3), (3, 2); v_el == nullptr (visc == 0 for the matvec)
+// selects the inviscid instantiation.  Each returns the launch's
+// cudaGetLastError(), or cudaErrorInvalidValue for a material or (dim, p)
+// not instantiated.
 extern "C" {
 
-int mimi_residual_dense(const float* u_el, const float* a_el, const float* dN,
-                        const float* N, const float* wq, float* out, HyperelasticParams p,
-                        int material, int dim, int deg, long long E, void* stream) {
-  return hyper_entry<false>(u_el, a_el, dN, N, wq, out, nullptr, p, material, dim, deg, E,
-                            stream);
+int mimi_residual_dense(const float* u_el, const float* a_el, const float* v_el,
+                        const float* dN, const float* N, const float* wq, float* out,
+                        HyperelasticParams p, float mu_v, int material, int dim, int deg,
+                        long long E, void* stream) {
+  return hyper_visc_entry<false>(u_el, a_el, v_el, dN, N, wq, out, nullptr, p, mu_v, material,
+                                 dim, deg, E, stream);
 }
 
-int mimi_assemble_dense(const float* u_el, const float* a_el, const float* dN,
-                        const float* N, const float* wq, float* out, float* cout,
-                        HyperelasticParams p, int material, int dim, int deg, long long E,
-                        void* stream) {
-  return hyper_entry<true>(u_el, a_el, dN, N, wq, out, cout, p, material, dim, deg, E,
-                           stream);
+int mimi_assemble_dense(const float* u_el, const float* a_el, const float* v_el,
+                        const float* dN, const float* N, const float* wq, float* out,
+                        float* cout, HyperelasticParams p, float mu_v, int material, int dim,
+                        int deg, long long E, void* stream) {
+  return hyper_visc_entry<true>(u_el, a_el, v_el, dN, N, wq, out, cout, p, mu_v, material,
+                                dim, deg, E, stream);
 }
 
 int mimi_matvec_dense(const float* w_el, const float* dN, const float* N, const float* wq,
-                      const float* cs, float* out, float rho, float fac0, int dim, int deg,
-                      long long E, void* stream) {
+                      const float* cs, float* out, float rho, float fac0, int visc,
+                      float fac1_mu_v, int dim, int deg, long long E, void* stream) {
   if (E <= 0) return 0;
   return with_dense_shape(dim, deg, [&](auto D, auto G) {
     constexpr int DIM = decltype(D)::value, P = decltype(G)::value;
+    if (visc)
+      return launch_dense_matvec<SymStorage<DIM>, DIM, P, true>(w_el, dN, N, wq, cs, out, rho,
+                                                                fac0, E, stream, fac1_mu_v);
     return launch_dense_matvec<SymStorage<DIM>, DIM, P>(w_el, dN, N, wq, cs, out, rho, fac0,
                                                         E, stream);
   });

@@ -6,6 +6,7 @@
 //   mimi_residual_dense_j2   <- make_residual_sweep (dense, J2 state)   residual only
 //   mimi_assemble_dense_j2   <- make_assemble_sweep (dense, "cauchy")   residual + Cauchy block
 //   mimi_matvec_dense_cauchy <- make_matvec_sweep ("cauchy")           y = J w
+// each inviscid or viscous (VISC, as sweeps_dense.cu says),
 // on the kernel templates of dense_common.cuh (design notes at the head of
 // sweeps_dense.cu), for (DIM, P) = (2, 2), (2, 3) and (3, 2).  The plain
 // torch versions are residual_dense_plain, assemble_dense_plain and
@@ -66,49 +67,68 @@ struct DenseJ2 {
   }
 };
 
-template <bool TANGENT>
-int j2_entry(const float* u_el, const float* a_el, const float* dN, const float* N,
-             const float* wq, const float* ps, const float* eqps, const float* temp,
-             float* out, float* cout, const J2Params& p, int dim, int deg, long long E,
-             void* stream) {
-  if (E <= 0) return 0;
+template <bool TANGENT, bool VISC>
+int j2_entry(const float* u_el, const float* a_el, const float* v_el, const float* dN,
+             const float* N, const float* wq, const float* ps, const float* eqps,
+             const float* temp, float* out, float* cout, const J2Params& p, float mu_v,
+             int dim, int deg, long long E, void* stream) {
   return with_dense_shape(dim, deg, [&](auto D, auto G) {
     constexpr int DIM = decltype(D)::value, P = decltype(G)::value;
-    return launch_dense_residual<DenseJ2<DIM>, CauchyStorage<DIM>, DIM, P, TANGENT>(
-        u_el, a_el, dN, N, wq, out, cout, DenseJ2<DIM>{p, ps, eqps, temp}, p.rho, E, stream);
+    return launch_dense_residual<DenseJ2<DIM>, CauchyStorage<DIM>, DIM, P, TANGENT, VISC>(
+        u_el, a_el, dN, N, wq, out, cout, DenseJ2<DIM>{p, ps, eqps, temp}, p.rho, E, stream,
+        v_el, mu_v);
   });
+}
+
+template <bool TANGENT>
+int j2_visc_entry(const float* u_el, const float* a_el, const float* v_el, const float* dN,
+                  const float* N, const float* wq, const float* ps, const float* eqps,
+                  const float* temp, float* out, float* cout, const J2Params& p, float mu_v,
+                  int dim, int deg, long long E, void* stream) {
+  if (E <= 0) return 0;
+  if (v_el)
+    return j2_entry<TANGENT, true>(u_el, a_el, v_el, dN, N, wq, ps, eqps, temp, out, cout, p,
+                                   mu_v, dim, deg, E, stream);
+  return j2_entry<TANGENT, false>(u_el, a_el, v_el, dN, N, wq, ps, eqps, temp, out, cout, p,
+                                  mu_v, dim, deg, E, stream);
 }
 
 }  // namespace
 
 // C entry points, Cauchy-decomposition storage; (dim, p) one of the
-// instantiated pairs (2, 2), (2, 3), (3, 2).  Each returns the launch's
-// cudaGetLastError(), or cudaErrorInvalidValue for a (dim, p) not
+// instantiated pairs (2, 2), (2, 3), (3, 2); v_el == nullptr (visc == 0 for
+// the matvec) selects the inviscid instantiation.  Each returns the
+// launch's cudaGetLastError(), or cudaErrorInvalidValue for a (dim, p) not
 // instantiated.
 extern "C" {
 
-int mimi_residual_dense_j2(const float* u_el, const float* a_el, const float* dN,
-                           const float* N, const float* wq, const float* ps,
+int mimi_residual_dense_j2(const float* u_el, const float* a_el, const float* v_el,
+                           const float* dN, const float* N, const float* wq, const float* ps,
                            const float* eqps, const float* temp, float* out, J2Params p,
-                           int dim, int deg, long long E, void* stream) {
-  return j2_entry<false>(u_el, a_el, dN, N, wq, ps, eqps, temp, out, nullptr, p, dim, deg, E,
-                         stream);
+                           float mu_v, int dim, int deg, long long E, void* stream) {
+  return j2_visc_entry<false>(u_el, a_el, v_el, dN, N, wq, ps, eqps, temp, out, nullptr, p,
+                              mu_v, dim, deg, E, stream);
 }
 
-int mimi_assemble_dense_j2(const float* u_el, const float* a_el, const float* dN,
-                           const float* N, const float* wq, const float* ps,
+int mimi_assemble_dense_j2(const float* u_el, const float* a_el, const float* v_el,
+                           const float* dN, const float* N, const float* wq, const float* ps,
                            const float* eqps, const float* temp, float* out, float* cout,
-                           J2Params p, int dim, int deg, long long E, void* stream) {
-  return j2_entry<true>(u_el, a_el, dN, N, wq, ps, eqps, temp, out, cout, p, dim, deg, E,
-                        stream);
+                           J2Params p, float mu_v, int dim, int deg, long long E,
+                           void* stream) {
+  return j2_visc_entry<true>(u_el, a_el, v_el, dN, N, wq, ps, eqps, temp, out, cout, p, mu_v,
+                             dim, deg, E, stream);
 }
 
 int mimi_matvec_dense_cauchy(const float* w_el, const float* dN, const float* N,
                              const float* wq, const float* cb, float* out, float rho,
-                             float fac0, int dim, int deg, long long E, void* stream) {
+                             float fac0, int visc, float fac1_mu_v, int dim, int deg,
+                             long long E, void* stream) {
   if (E <= 0) return 0;
   return with_dense_shape(dim, deg, [&](auto D, auto G) {
     constexpr int DIM = decltype(D)::value, P = decltype(G)::value;
+    if (visc)
+      return launch_dense_matvec<CauchyStorage<DIM>, DIM, P, true>(
+          w_el, dN, N, wq, cb, out, rho, fac0, E, stream, fac1_mu_v);
     return launch_dense_matvec<CauchyStorage<DIM>, DIM, P>(w_el, dN, N, wq, cb, out, rho,
                                                            fac0, E, stream);
   });

@@ -6,13 +6,12 @@
 //   residual_kernel<.., true, ..>   <- make_assemble_sweep (sf)        residual + tangent planes
 //   matvec_kernel                   <- make_matvec_sweep_sf            y = J w
 // for J2 with the 37-plane Cauchy-decomposition tangent
-// (c_storage="cauchy": mimi_residual_sf, mimi_assemble_sf, mimi_matvec_sf)
-// and for the hyperelastic materials of materials.cuh (neo-Hookean,
-// St. Venant-Kirchhoff) with the 45-plane symmetric tangent
-// (c_storage="sym": mimi_residual_sf_hyper, mimi_assemble_sf_hyper,
-// mimi_matvec_sf_sym).  The finite-strain plasticity models J2Simo and J2Log
-// with the 81-plane full tangent (c_storage="full") instantiate the same
-// kernel templates in sweeps_sf_finite.cu; the templates and the 1D-table
+// (c_storage="cauchy": mimi_residual_sf, mimi_assemble_sf, mimi_matvec_sf).
+// The hyperelastic materials of materials.cuh (neo-Hookean, St.
+// Venant-Kirchhoff) with the 45-plane symmetric tangent (c_storage="sym")
+// instantiate the same kernel templates in sweeps_sf_hyper.cu, the
+// finite-strain plasticity models J2Simo and J2Log with the 81-plane full
+// tangent (c_storage="full") in sweeps_sf_finite.cu; the templates and the 1D-table
 // interpolation and scatter are in sf_common.cuh, the storages in
 // materials.cuh, the Johnson-Cook radial return in j2.cuh.
 // The plain torch versions of the same functions are in ops/sweeps.py.
@@ -109,21 +108,11 @@ struct J2Mat {
   }
 };
 
-template <class H, bool TANGENT>
-int launch_hyper(const float* u_el, const float* a_el, const Tables& tb, const float* jinv,
-                 const float* wq, float* out, void* cout, const HyperelasticParams& p,
-                 long long E, void* stream) {
-  return launch_residual<Hyper<H>, SymStorage<3>, TANGENT, false, float>(
-      u_el, a_el, nullptr, tb, jinv, wq, out, cout, Hyper<H>{H{p.mu, p.lam}}, p.rho, 0.f, E,
-      stream);
-}
-
 }  // namespace
 
-// C entry points; each returns the launch's cudaGetLastError().  For J2,
+// C entry points of J2; each returns the launch's cudaGetLastError().
 // v_el == nullptr selects the inviscid variant and c_bf16 the bfloat16
-// tangent block.  The hyperelastic ones are inviscid with a float32 block;
-// `material`: 0 the neo-Hookean, 1 the St. Venant-Kirchhoff material.
+// tangent block.
 extern "C" {
 
 int mimi_residual_sf(const float* u_el, const float* a_el, const float* v_el,
@@ -181,45 +170,6 @@ int mimi_matvec_sf(const float* w_el, const float* b0, const float* d0,
   if (c_bf16) MIMI_MV(false, __nv_bfloat16);
   MIMI_MV(false, float);
 #undef MIMI_MV
-}
-
-int mimi_residual_sf_hyper(const float* u_el, const float* a_el, const float* b0,
-                           const float* d0, const float* b1, const float* d1,
-                           const float* b2, const float* d2, const float* jinv,
-                           const float* wq, float* out, HyperelasticParams p, int material,
-                           long long E, void* stream) {
-  if (E <= 0) return 0;
-  Tables tb{{b0, d0, b1, d1, b2, d2}};
-  if (material == 0)
-    return launch_hyper<NeoHookean<3>, false>(u_el, a_el, tb, jinv, wq, out, nullptr, p, E, stream);
-  if (material == 1)
-    return launch_hyper<StVK<3>, false>(u_el, a_el, tb, jinv, wq, out, nullptr, p, E, stream);
-  return (int)cudaErrorInvalidValue;
-}
-
-int mimi_assemble_sf_hyper(const float* u_el, const float* a_el, const float* b0,
-                           const float* d0, const float* b1, const float* d1,
-                           const float* b2, const float* d2, const float* jinv,
-                           const float* wq, float* out, float* cout, HyperelasticParams p,
-                           int material, long long E, void* stream) {
-  if (E <= 0) return 0;
-  Tables tb{{b0, d0, b1, d1, b2, d2}};
-  if (material == 0)
-    return launch_hyper<NeoHookean<3>, true>(u_el, a_el, tb, jinv, wq, out, cout, p, E, stream);
-  if (material == 1)
-    return launch_hyper<StVK<3>, true>(u_el, a_el, tb, jinv, wq, out, cout, p, E, stream);
-  return (int)cudaErrorInvalidValue;
-}
-
-int mimi_matvec_sf_sym(const float* w_el, const float* b0, const float* d0,
-                       const float* b1, const float* d1, const float* b2,
-                       const float* d2, const float* jinv, const float* wq,
-                       const float* cs, float* out, float rho, float fac0, long long E,
-                       void* stream) {
-  if (E <= 0) return 0;
-  Tables tb{{b0, d0, b1, d1, b2, d2}};
-  return launch_matvec<SymStorage<3>, false, float>(w_el, tb, jinv, wq, cs, out, rho, fac0, 0.f,
-                                                 E, stream);
 }
 
 }  // extern "C"

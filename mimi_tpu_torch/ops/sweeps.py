@@ -3,20 +3,21 @@ tangent (assemble), and the GMRES matvec, on two kinds of tables.
 
 Counterpart of mimi_tpu/ops/sweeps.py (`make_residual_sweep`,
 `make_assemble_sweep`, `make_matvec_sweep_sf` and `make_matvec_sweep`):
-  - sum-factorized tables (`residual_sf`, `assemble_sf`, `matvec_sf`,
-    kernels in ops/csrc/sweeps_sf.cu) with c_storage="cauchy" (the
-    37-plane Cauchy-decomposition tangent of J2), with and without the
+  - sum-factorized tables (`residual_sf`, `assemble_sf`, `matvec_sf`)
+    with c_storage="cauchy" (the 37-plane Cauchy-decomposition tangent of
+    J2, kernels in ops/csrc/sweeps_sf.cu) or c_storage="sym" (45
+    upper-triangle planes of a major-symmetric dP/dF: the hyperelastic
+    materials, ops/csrc/sweeps_sf_hyper.cu), each with and without the
     viscous flux, the tangent block in float32 or bfloat16; or with
-    c_storage="sym" (45 upper-triangle planes of a major-symmetric dP/dF:
-    the hyperelastic materials), inviscid, float32; or with
     c_storage="full" (the 81 planes of dP/dF: J2Simo and J2Log, kernels in
     ops/csrc/sweeps_sf_finite.cu), inviscid, float32;
   - dense tables dN (nd, dim, n_q, n_el) and N (nd, n_q, n_el) in 2D or
     3D, c_storage="sym" (the hyperelastic materials: 45 planes in 3D, 10
-    in 2D), "cauchy" (J2 with its state: 37 / 14 planes) or "full"
-    (J2Simo and J2Log with their state: 81 / 16 planes), inviscid,
-    float32: `residual_dense`, `assemble_dense`, `matvec_dense`, kernels
-    in ops/csrc/sweeps_dense.cu, sweeps_dense_j2.cu and
+    in 2D) or "cauchy" (J2 with its state: 37 / 14 planes), with and
+    without the viscous flux, or "full" (J2Simo and J2Log with their
+    state: 81 / 16 planes), inviscid; float32 blocks:
+    `residual_dense`, `assemble_dense`, `matvec_dense`, kernels in
+    ops/csrc/sweeps_dense.cu, sweeps_dense_j2.cu and
     sweeps_dense_finite.cu, compiled for the (dim, p) pairs of
     DENSE_SHAPES.
 The material decides the storage (`tangent_storage`); the residual and the
@@ -52,10 +53,14 @@ from torch.func import jvp, vmap
 from ..fem import soa
 
 
+def _flags(visc=False, bf16=False):
+    return [t for t, on in (("visc", visc), ("bf16", bf16)) if on]
+
+
 def variant(name, visc=False, bf16=False):
     """Counter name of one J2 kernel variant: "matvec_sf",
     "matvec_sf[visc]", "matvec_sf[bf16]", "matvec_sf[visc,bf16]"."""
-    tags = [t for t, on in (("visc", visc), ("bf16", bf16)) if on]
+    tags = _flags(visc, bf16)
     return f"{name}[{','.join(tags)}]" if tags else name
 
 
@@ -65,7 +70,8 @@ def variant(name, visc=False, bf16=False):
 # material, "simo" J2Simo, "log" J2Log); the dense ones by material tag
 # ("j2" for J2, "simo", "log"; the untagged names are the neo-Hookean
 # instantiations) and (dimension, degree) suffix ("@2d_p3"; none for 3D
-# p = 2)
+# p = 2); "visc" and "bf16" tag the viscous and the bfloat16-block
+# instantiations
 LAUNCHES = {
     variant(name, visc, bf16): 0
     for name in ("matvec_sf", "assemble_sf", "residual_sf")
@@ -109,27 +115,34 @@ def _shape_suffix(dim, p):
     return "" if (dim, p) == (3, 2) else f"@{dim}d_p{p}"
 
 
-def material_counters(kind, tag, storage="sym", dim=3, p=2):
+def material_counters(kind, tag, storage="sym", dim=3, p=2, visc=False, bf16=False):
     """(residual, assemble) counter names of a material's instantiations on
     the "sf" or "dense" tables with the "sym", "full" or "cauchy" storage
     (the untagged dense names are the neo-Hookean's; dense J2 is "j2"),
-    with the suffix of (dim, p)."""
+    viscous and with a bfloat16 block where asked (the residual writes no
+    block), with the suffix of (dim, p): "assemble_sf[nh,sym,visc,bf16]",
+    "residual_dense[j2,visc]@2d_p2" and the like."""
     sfx = _shape_suffix(dim, p)
     if kind == "dense" and tag == "nh":
-        return f"residual_dense{sfx}", f"assemble_dense[sym]{sfx}"
-    return f"residual_{kind}[{tag}]{sfx}", f"assemble_{kind}[{tag},{storage}]{sfx}"
+        res, asm = variant("residual_dense", visc), ["sym"]
+    else:
+        res, asm = f"residual_{kind}[{','.join([tag, *_flags(visc)])}]", [tag, storage]
+    return res + sfx, f"assemble_{kind}[{','.join(asm + _flags(visc, bf16))}]{sfx}"
 
 
-def matvec_counter(kind, storage, dim=3, p=2):
-    """Counter name of a matvec instantiation: "matvec_dense[cauchy]@2d_p3"
-    and the like."""
-    return f"matvec_{kind}[{storage}]{_shape_suffix(dim, p)}"
+def matvec_counter(kind, storage, dim=3, p=2, visc=False, bf16=False):
+    """Counter name of a matvec instantiation: "matvec_dense[cauchy]@2d_p3",
+    "matvec_sf[sym,visc,bf16]" and the like."""
+    return f"matvec_{kind}[{','.join([storage, *_flags(visc, bf16)])}]{_shape_suffix(dim, p)}"
 
 
 LAUNCHES.update({
     name: 0
     for _, tag in HYPER_KERNELS.values()
-    for name in material_counters("sf", tag)
+    for visc in (False, True)
+    for bf16 in (False, True)
+    for name in (*material_counters("sf", tag, visc=visc, bf16=bf16),
+                 matvec_counter("sf", "sym", visc=visc, bf16=bf16))
 })
 LAUNCHES.update({
     name: 0
@@ -139,13 +152,15 @@ LAUNCHES.update({
 LAUNCHES.update({
     name: 0
     for dim, p in DENSE_SHAPES
-    for tag, storage in ([(t, "sym") for _, t in HYPER_KERNELS.values()] + [("j2", "cauchy")]
-                         + [(t, "full") for _, t, _ in FULL_KERNELS.values()])
-    for name in (*material_counters("dense", tag, storage, dim, p),
-                 matvec_counter("dense", storage, dim, p))
+    for tag, storage, viscs in ([(t, "sym", (False, True)) for _, t in HYPER_KERNELS.values()]
+                                + [("j2", "cauchy", (False, True))]
+                                + [(t, "full", (False,)) for _, t, _ in FULL_KERNELS.values()])
+    for visc in viscs
+    for name in (*material_counters("dense", tag, storage, dim, p, visc),
+                 matvec_counter("dense", storage, dim, p, visc))
 })
 LAUNCHES.update({
-    "matvec_sf[sym]": 0, "matvec_sf[full]": 0,
+    "matvec_sf[full]": 0,
     # ops/fused_neohookean.py
     "neohookean_residual": 0, "neohookean_tangent_apply": 0,
 })
@@ -802,10 +817,11 @@ def _hyper_params(mat, rho):
     return (_HyperParams(mu=mat.mu, lam=mat.lambda_, rho=rho), *HYPER_KERNELS[type(mat).__name__])
 
 
-def _sf_hyper(assemble, u_el, a_el, state, tabs, jinv, wq, mat, rho, v_el,
+def _sf_hyper(assemble, u_el, a_el, state, tabs, jinv, wq, mat, rho, v_el, mu_v,
               c_dtype=torch.float32):
     """The hyperelastic residual (or, with `assemble`, residual and 45
-    symmetric planes) on sum-factorized tables: `mimi_residual_sf_hyper` /
+    symmetric planes in float32 or bfloat16) on sum-factorized tables,
+    with the viscous flux where v_el is given: `mimi_residual_sf_hyper` /
     `mimi_assemble_sf_hyper`."""
     from .build import load
 
@@ -814,25 +830,22 @@ def _sf_hyper(assemble, u_el, a_el, state, tabs, jinv, wq, mat, rho, v_el,
             "a stateful material with the symmetric storage: no such material is "
             "ported (ROADMAP Queue 1 item 2)"
         )
-    if v_el is not None:
-        raise NotImplementedError(
-            "the viscous hyperelastic CUDA sf sweeps (ROADMAP Queue 2 item 4)"
-        )
-    if c_dtype != torch.float32:
-        raise NotImplementedError(
-            f"a {c_dtype} symmetric tangent block on the CUDA sf sweeps "
-            "(ROADMAP Queue 2 item 4)"
-        )
-    device, n_el = _check_common([("u_el", u_el), ("a_el", a_el)], tabs, jinv, wq)
+    bf16 = _c_flag(c_dtype)
+    device, n_el = _check_common(
+        [("u_el", u_el), ("a_el", a_el), ("v_el", v_el)], tabs, jinv, wq
+    )
     prm, mat_id, tag = _hyper_params(mat, rho)
+    names = material_counters("sf", tag, visc=v_el is not None, bf16=bool(bf16))
     out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
-    head = (_ptr(u_el), _ptr(a_el), *[_ptr(t) for t in tabs], _ptr(jinv), _ptr(wq), _ptr(out))
-    tail = (prm, ctypes.c_int(mat_id), ctypes.c_longlong(n_el))
+    head = (_ptr(u_el), _ptr(a_el), _ptr(v_el), *[_ptr(t) for t in tabs], _ptr(jinv),
+            _ptr(wq), _ptr(out))
+    tail = (prm, ctypes.c_float(mu_v), ctypes.c_int(mat_id), ctypes.c_longlong(n_el))
     if not assemble:
-        _launch(load().mimi_residual_sf_hyper, material_counters("sf", tag)[0], *head, *tail)
+        _launch(load().mimi_residual_sf_hyper, names[0], *head, *tail)
         return out
-    cs = torch.empty((45, 64, n_el), dtype=torch.float32, device=device)
-    _launch(load().mimi_assemble_sf_hyper, material_counters("sf", tag)[1], *head, _ptr(cs), *tail)
+    cs = torch.empty((45, 64, n_el), dtype=c_dtype, device=device)
+    _launch(load().mimi_assemble_sf_hyper, names[1], *head, _ptr(cs), ctypes.c_int(bf16),
+            *tail)
     return out, cs
 
 
@@ -880,13 +893,13 @@ def _sf_finite(assemble, u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el,
 
 def residual_sf(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el=None, mu_v=0.0):
     """Residual sweep: plain torch on CPU tensors; on CUDA tensors the
-    kernel `mimi_residual_sf` (J2; viscous flux when v_el is given),
-    `mimi_residual_sf_hyper` (the hyperelastic materials, inviscid) or
+    kernel `mimi_residual_sf` (J2) or `mimi_residual_sf_hyper` (the
+    hyperelastic materials), with the viscous flux when v_el is given, or
     `mimi_residual_sf_finite` (J2Simo, J2Log; inviscid)."""
     if u_el.device.type == "cpu":
         return residual_sf_plain(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el, mu_v)
     if tangent_storage(mat) == "sym":
-        return _sf_hyper(False, u_el, a_el, state, tabs, jinv, wq, mat, rho, v_el)
+        return _sf_hyper(False, u_el, a_el, state, tabs, jinv, wq, mat, rho, v_el, mu_v)
     if tangent_storage(mat) == "full":
         return _sf_finite(False, u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el)
     from .build import load
@@ -912,18 +925,19 @@ def assemble_sf(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el=None,
     """Assemble sweep: (residual, tangent block in the material's storage
     and in `c_dtype`, by default the fields' dtype); plain torch on CPU
     tensors; on CUDA tensors the
-    kernel `mimi_assemble_sf` (J2, 37 planes; viscous flux when v_el is
-    given), `mimi_assemble_sf_hyper` (the hyperelastic materials, 45
-    planes, closed-form dP/dF, inviscid, float32) or
-    `mimi_assemble_sf_finite` (J2Simo, J2Log: 81 planes from 9
-    forward-mode dual-number passes, inviscid, float32)."""
+    kernel `mimi_assemble_sf` (J2, 37 planes) or `mimi_assemble_sf_hyper`
+    (the hyperelastic materials, 45 planes, closed-form dP/dF), each with
+    the viscous flux when v_el is given and the block in float32 or
+    bfloat16, or `mimi_assemble_sf_finite` (J2Simo, J2Log: 81 planes from
+    9 forward-mode dual-number passes, inviscid, float32)."""
     c_dtype = c_dtype or u_el.dtype
     if u_el.device.type == "cpu":
         return assemble_sf_plain(
             u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el, mu_v, c_dtype
         )
     if tangent_storage(mat) == "sym":
-        return _sf_hyper(True, u_el, a_el, state, tabs, jinv, wq, mat, rho, v_el, c_dtype)
+        return _sf_hyper(True, u_el, a_el, state, tabs, jinv, wq, mat, rho, v_el, mu_v,
+                         c_dtype)
     if tangent_storage(mat) == "full":
         return _sf_finite(True, u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el,
                           c_dtype)
@@ -950,35 +964,37 @@ def assemble_sf(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el=None,
 def matvec_sf(w_el, tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v=None, storage="cauchy"):
     """GMRES matvec sweep on the block of `storage`: plain torch on CPU
     tensors; on CUDA tensors the kernel `mimi_matvec_sf` ("cauchy", 37
-    planes, float32 or bfloat16, viscous term when fac1_mu_v is given),
-    `mimi_matvec_sf_sym` ("sym", 45 planes, float32, inviscid) or
+    planes) or `mimi_matvec_sf_sym` ("sym", 45 planes), each on a float32
+    or bfloat16 block with the viscous term when fac1_mu_v is given, or
     `mimi_matvec_sf_full` ("full", 81 planes, float32, inviscid)."""
     if w_el.device.type == "cpu":
         return matvec_sf_plain(w_el, tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v, storage)
     from .build import load
 
     _tangent_apply(storage, Cb)
+    visc = fac1_mu_v is not None
+    if storage == "full" and (visc or Cb.dtype != torch.float32):
+        raise NotImplementedError(
+            "the viscous or bfloat16 'full' CUDA sf matvec (ROADMAP Queue 2 item 3)"
+        )
     device, n_el = _check_common([("w_el", w_el)], tabs, jinv, wq)
-    if storage in ("sym", "full"):
-        if fac1_mu_v is not None:
-            raise NotImplementedError(
-                f"the viscous {storage!r} CUDA sf matvec (ROADMAP Queue 2 item "
-                f"{4 if storage == 'sym' else 3})"
-            )
-        _check("C", Cb, (n_planes(storage), 64, n_el), device)
-        out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
+    out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
+    if storage == "full":
+        _check("C", Cb, (81, 64, n_el), device)
         _launch(
-            getattr(load(), f"mimi_matvec_sf_{storage}"), f"matvec_sf[{storage}]",
+            load().mimi_matvec_sf_full, "matvec_sf[full]",
             _ptr(w_el), *[_ptr(t) for t in tabs], _ptr(jinv), _ptr(wq), _ptr(Cb),
             _ptr(out), ctypes.c_float(rho), ctypes.c_float(fac0), ctypes.c_longlong(n_el),
         )
         return out
     bf16 = _c_flag(Cb.dtype)
-    _check("C", Cb, (37, 64, n_el), device, Cb.dtype)
-    visc = fac1_mu_v is not None
-    out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
+    _check("C", Cb, (n_planes(storage), 64, n_el), device, Cb.dtype)
+    fn, name = (
+        (load().mimi_matvec_sf, variant("matvec_sf", visc, bf16)) if storage == "cauchy"
+        else (load().mimi_matvec_sf_sym, matvec_counter("sf", "sym", visc=visc, bf16=bool(bf16)))
+    )
     _launch(
-        load().mimi_matvec_sf, variant("matvec_sf", visc, bf16),
+        fn, name,
         _ptr(w_el), *[_ptr(t) for t in tabs], _ptr(jinv), _ptr(wq), _ptr(Cb),
         ctypes.c_int(bf16), _ptr(out), ctypes.c_float(rho), ctypes.c_float(fac0),
         ctypes.c_int(int(visc)), ctypes.c_float(fac1_mu_v if visc else 0.0),
@@ -1021,30 +1037,32 @@ def _check_dense(el_fields, dN_t, N_t, wq):
 
 
 def _dense_unported(storage, v_el=None, fac1_mu_v=None, c_dtype=torch.float32):
-    """Raise for what the CUDA dense sweeps do not implement: viscosity and
-    a bfloat16 block (Queue 2 item 3 with the full storage, item 4 with the
-    others)."""
-    item = 3 if storage == "full" else 4
-    if v_el is not None or fac1_mu_v is not None:
+    """Raise for what the CUDA dense sweeps do not implement: viscosity with
+    the full storage (Queue 2 item 3) and a bfloat16 block (item 3 with the
+    full storage; with the others item 4, which needs the bfloat16 table
+    streams of Queue 1 item 10 as well)."""
+    if storage == "full" and (v_el is not None or fac1_mu_v is not None):
         raise NotImplementedError(
-            f"the viscous CUDA dense sweeps with the {storage!r} storage "
-            f"(ROADMAP Queue 2 item {item})"
+            "the viscous CUDA dense sweeps with the 'full' storage (ROADMAP Queue 2 item 3)"
         )
     if c_dtype != torch.float32:
         raise NotImplementedError(
-            f"a {c_dtype} {storage!r} tangent block on the CUDA dense sweeps "
-            f"(ROADMAP Queue 2 item {item})"
+            f"a {c_dtype} {storage!r} tangent block on the CUDA dense sweeps (ROADMAP "
+            + ("Queue 2 item 3)" if storage == "full"
+               else "Queue 2 item 4, with the bfloat16 table streams of Queue 1 item 10)")
         )
 
 
-def _dense_sweep(assemble, u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho):
+def _dense_sweep(assemble, u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el=None,
+                 mu_v=0.0):
     """The dense residual (or, with `assemble`, residual and tangent block)
     kernel of the material: the hyperelastic ones with the symmetric
     storage (`mimi_residual_dense` / `mimi_assemble_dense`), J2 with the
     Cauchy storage and its state (`mimi_residual_dense_j2` /
-    `mimi_assemble_dense_j2`), J2Simo and J2Log with the full storage and
-    their state (`mimi_residual_dense_finite` /
-    `mimi_assemble_dense_finite`)."""
+    `mimi_assemble_dense_j2`), each with the viscous flux when v_el is
+    given; J2Simo and J2Log with the full storage and their state
+    (`mimi_residual_dense_finite` / `mimi_assemble_dense_finite`,
+    inviscid)."""
     from .build import load
 
     storage = tangent_storage(mat)
@@ -1057,16 +1075,19 @@ def _dense_sweep(assemble, u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho):
         prm = _j2_params(mat, dt, rho)
     elif storage == "full":
         prm = _j2_params(mat, dt, rho, family=tuple(FULL_KERNELS))
-    device, n_el, dim, p = _check_dense([("u_el", u_el), ("a_el", a_el)], dN_t, N_t, wq)
+    fields = [("u_el", u_el), ("a_el", a_el)] + ([("v_el", v_el)] if v_el is not None else [])
+    device, n_el, dim, p = _check_dense(fields, dN_t, N_t, wq)
     n_q = wq.shape[0]
-    head = (_ptr(u_el), _ptr(a_el), _ptr(dN_t), _ptr(N_t), _ptr(wq))
+    visc = () if storage == "full" else (_ptr(v_el),)
+    head = (_ptr(u_el), _ptr(a_el), *visc, _ptr(dN_t), _ptr(N_t), _ptr(wq))
+    mu = () if storage == "full" else (ctypes.c_float(mu_v),)
     shape = (ctypes.c_int(dim), ctypes.c_int(p), ctypes.c_longlong(n_el))
     if storage == "cauchy":
         _check("plastic_strain", state["plastic_strain"], (dim, dim, n_q, n_el), device)
         _check("eqps", state["eqps"], (n_q, n_el), device)
         _check("temperature", state["temperature"], (n_q, n_el), device)
         head += tuple(_ptr(state[k]) for k in ("plastic_strain", "eqps", "temperature"))
-        tag, fns, tail = "j2", ("mimi_residual_dense_j2", "mimi_assemble_dense_j2"), (prm,)
+        tag, fns, tail = "j2", ("mimi_residual_dense_j2", "mimi_assemble_dense_j2"), (prm, *mu)
     elif storage == "full":
         mat_id, tag, st = _finite_state(mat, state, dim, n_q, n_el, device)
         head += tuple(st)
@@ -1074,8 +1095,9 @@ def _dense_sweep(assemble, u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho):
         tail = (prm, ctypes.c_int(mat_id))
     else:
         prm, mat_id, tag = _hyper_params(mat, rho)
-        fns, tail = ("mimi_residual_dense", "mimi_assemble_dense"), (prm, ctypes.c_int(mat_id))
-    names = material_counters("dense", tag, storage, dim, p)
+        fns = ("mimi_residual_dense", "mimi_assemble_dense")
+        tail = (prm, *mu, ctypes.c_int(mat_id))
+    names = material_counters("dense", tag, storage, dim, p, v_el is not None)
     out = torch.empty((dim, u_el.shape[1], n_el), dtype=torch.float32, device=device)
     if not assemble:
         _launch(getattr(load(), fns[0]), names[0], *head, _ptr(out), *tail, *shape)
@@ -1087,13 +1109,14 @@ def _dense_sweep(assemble, u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho):
 
 def residual_dense(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el=None, mu_v=0.0):
     """Dense residual sweep: plain torch on CPU tensors; on CUDA tensors the
-    kernel `mimi_residual_dense` (the hyperelastic materials),
-    `mimi_residual_dense_j2` (J2) or `mimi_residual_dense_finite` (J2Simo,
-    J2Log), inviscid, for the (dim, p) pairs of DENSE_SHAPES."""
+    kernel `mimi_residual_dense` (the hyperelastic materials) or
+    `mimi_residual_dense_j2` (J2), each with the viscous flux when v_el is
+    given, or `mimi_residual_dense_finite` (J2Simo, J2Log; inviscid), for
+    the (dim, p) pairs of DENSE_SHAPES."""
     if u_el.device.type == "cpu":
         return residual_dense_plain(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el, mu_v)
     _dense_unported(tangent_storage(mat), v_el)
-    return _dense_sweep(False, u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho)
+    return _dense_sweep(False, u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el, mu_v)
 
 
 def assemble_dense(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el=None,
@@ -1101,24 +1124,24 @@ def assemble_dense(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el=None,
     """Dense assemble sweep: (residual, tangent block in the material's
     storage and in `c_dtype`, by default the fields' dtype); plain torch on
     CPU tensors; on CUDA tensors the kernel `mimi_assemble_dense` (the
-    hyperelastic materials' closed-form dP/dF, the symmetric planes),
+    hyperelastic materials' closed-form dP/dF, the symmetric planes) or
     `mimi_assemble_dense_j2` (J2's closed-form algorithmic tangent, the
-    Cauchy planes) or `mimi_assemble_dense_finite` (J2Simo, J2Log: the
-    dim^4 planes of dP/dF from dim^2 forward-mode dual-number passes),
-    inviscid, float32."""
+    Cauchy planes), each with the viscous flux when v_el is given, or
+    `mimi_assemble_dense_finite` (J2Simo, J2Log: the dim^4 planes of dP/dF
+    from dim^2 forward-mode dual-number passes, inviscid); float32."""
     c_dtype = c_dtype or u_el.dtype
     if u_el.device.type == "cpu":
         return assemble_dense_plain(
             u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el, mu_v, c_dtype
         )
     _dense_unported(tangent_storage(mat), v_el, c_dtype=c_dtype)
-    return _dense_sweep(True, u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho)
+    return _dense_sweep(True, u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el, mu_v)
 
 
-def _dense_matvec(w_el, dN_t, N_t, wq, Cb, rho, fac0, storage):
-    """The dense matvec kernel of `storage`: `mimi_matvec_dense` ("sym"),
-    `mimi_matvec_dense_cauchy` ("cauchy") or `mimi_matvec_dense_full`
-    ("full")."""
+def _dense_matvec(w_el, dN_t, N_t, wq, Cb, rho, fac0, storage, fac1_mu_v=None):
+    """The dense matvec kernel of `storage`: `mimi_matvec_dense` ("sym") or
+    `mimi_matvec_dense_cauchy` ("cauchy"), each with the viscous term when
+    fac1_mu_v is given, or `mimi_matvec_dense_full` ("full", inviscid)."""
     from .build import load
 
     device, n_el, dim, p = _check_dense([("w_el", w_el)], dN_t, N_t, wq)
@@ -1126,10 +1149,13 @@ def _dense_matvec(w_el, dN_t, N_t, wq, Cb, rho, fac0, storage):
     out = torch.empty((dim, w_el.shape[1], n_el), dtype=torch.float32, device=device)
     fn = {"sym": "mimi_matvec_dense", "cauchy": "mimi_matvec_dense_cauchy",
           "full": "mimi_matvec_dense_full"}[storage]
+    visc = fac1_mu_v is not None
+    flux = () if storage == "full" else (
+        ctypes.c_int(int(visc)), ctypes.c_float(fac1_mu_v if visc else 0.0))
     _launch(
-        getattr(load(), fn), matvec_counter("dense", storage, dim, p),
+        getattr(load(), fn), matvec_counter("dense", storage, dim, p, visc),
         _ptr(w_el), _ptr(dN_t), _ptr(N_t), _ptr(wq), _ptr(Cb), _ptr(out),
-        ctypes.c_float(rho), ctypes.c_float(fac0), ctypes.c_int(dim), ctypes.c_int(p),
+        ctypes.c_float(rho), ctypes.c_float(fac0), *flux, ctypes.c_int(dim), ctypes.c_int(p),
         ctypes.c_longlong(n_el),
     )
     return out
@@ -1137,10 +1163,11 @@ def _dense_matvec(w_el, dN_t, N_t, wq, Cb, rho, fac0, storage):
 
 def matvec_dense(w_el, dN_t, N_t, wq, Cb, rho, fac0, fac1_mu_v=None, storage="sym"):
     """Dense GMRES matvec sweep on the block of `storage`: plain torch on
-    CPU tensors; on CUDA tensors the kernel `mimi_matvec_dense` ("sym"),
-    `mimi_matvec_dense_cauchy` ("cauchy") or `mimi_matvec_dense_full`
-    ("full"), inviscid, float32."""
+    CPU tensors; on CUDA tensors the kernel `mimi_matvec_dense` ("sym") or
+    `mimi_matvec_dense_cauchy` ("cauchy"), each with the viscous term when
+    fac1_mu_v is given, or `mimi_matvec_dense_full` ("full", inviscid);
+    float32."""
     if w_el.device.type == "cpu":
         return matvec_dense_plain(w_el, dN_t, N_t, wq, Cb, rho, fac0, fac1_mu_v, storage)
-    _dense_unported(storage, fac1_mu_v=fac1_mu_v)
-    return _dense_matvec(w_el, dN_t, N_t, wq, Cb, rho, fac0, storage)
+    _dense_unported(storage, fac1_mu_v=fac1_mu_v, c_dtype=Cb.dtype)
+    return _dense_matvec(w_el, dN_t, N_t, wq, Cb, rho, fac0, storage, fac1_mu_v)

@@ -22,9 +22,11 @@ All run FDM-preconditioned GMRES and the reference's LineSearchNewton
 semantics
 (goal max(rel*|r0|, abs), non-finite abort, 3-point line search with a
 1e-12 scale floor, a 5-iteration best-improvement window, best iterate
-returned on non-convergence).  Contact adds its residual to every
-residual evaluation and its consistent tangent (closest-point query held
-at the assemble point) to the GMRES matvec (contact/mortar.py).
+returned on non-convergence).  Contact (on either kind of tables) adds
+its residual to every residual evaluation and its tangent to the GMRES
+matvec: the frozen-pressure element blocks, the reference's default, or
+the consistent tangent with the closest-point query held at the assemble
+point (contact/mortar.py).
 
 Options of the reference package that this path does not cover raise
 NotImplementedError naming their ROADMAP item.  Multi-device sharding is
@@ -40,7 +42,7 @@ import numpy as np
 import torch
 
 from ..config import default_dtype, resolve_device
-from ..contact.mortar import make_contact_fns
+from ..contact.mortar import make_contact_fns, residual_grad_pass
 from ..fem import soa
 from ..fem.multipatch import MultiPatchFESpace
 from ..fem.space import FESpace, _connectivity, _quad_weights, batch_last, domain_dim_tables
@@ -169,8 +171,8 @@ def build_problem(
     contact: [(bid, scene), ...] mortar penalty contact of boundary `bid`
     against a NearestDistanceToSplines scene (penalty
     scene.coefficient), with boundary quadrature of order
-    `contact_quadrature_order` (default 2p+3); sum-factorized problems
-    only."""
+    `contact_quadrature_order` (default 2p+3), on either kind of tables
+    (the boundary tables of one patch or of several)."""
     for opt, what, item in (
         (traction, "traction", "Queue 1 item 6"),
         (constant_velocity, "constant velocity", "Queue 1 item 6"),
@@ -203,8 +205,6 @@ def build_problem(
         conn, n_q, wdet_t, nodal, sf = _sf_tables(fes, quadrature_order, dev)
         dense = connT = None
     else:
-        if contact:
-            raise _unported("contact on dense-table problems", "Queue 1 item 6")
         conn, n_q, wdet_t, nodal, dense = _dense_tables(fes, quadrature_order, dtype, device)
         sf = None
         connT = torch.as_tensor(np.ascontiguousarray(conn.T), dtype=torch.int64, device=device)
@@ -623,20 +623,24 @@ def make_step(
     the sweeps (gather/scatter, contact, FDM, GMRES, Newton) is the same
     torch code.  A material with viscosity > 0 adds the viscous flux
     S (v + fac1 a) to the residual sweeps and fac1 S to the matvec (the
-    CUDA kernels with the symmetric and full storages are inviscid and
-    raise).
+    CUDA kernels with the full storage are inviscid and raise).
 
     `matvec_dtype` ("f32", "bf16") is the storage of the tangent block the
     GMRES matvec streams; "bf16" rounds it once in the assemble and
-    widens it on every read, on both engines (Cauchy storage only).
-    Residuals stay float32.
+    widens it on every read, on both engines (the Cauchy and the
+    symmetric storage; the full storage raises, ROADMAP Queue 2 item 3).
+    Residuals stay float32.  Dense tables take a float32 block only (a
+    bfloat16 dense block raises, ROADMAP Queue 2 item 4).
 
     `contact_tangent` is the contact linearization of a problem with
-    contact blocks: "consistent" applies the exact derivative of the
-    contact residual with the closest-point query held at the assemble
-    point (the reference's jax.linearize of the full two-pass residual);
-    the reference's default "frozen" (element blocks at frozen pressure)
-    is not ported.
+    contact blocks, as in the reference:
+      - "frozen" (the default): the derivative of the traction residual
+        pass at frozen nodal pressure, as per-element blocks assembled with
+        the residual (contact/mortar.py residual_grad_pass) and applied in
+        the matvec; Newton converges linearly on engaged contact;
+      - "consistent": the exact derivative of the contact residual with
+        the closest-point query held at the assemble point (the
+        reference's jax.linearize of the full two-pass residual).
 
     Newton runs up to `newton_iters` iterations; each linear solve is
     FDM-preconditioned GMRES(restart) with at most `cg_iters` iterations
@@ -678,20 +682,19 @@ def make_step(
         raise _unported(f"{mat.name()} with the full tangent", "Queue 1 item 2")
     if matvec_dtype not in ("f32", "bf16"):
         raise ValueError(f"unknown matvec_dtype {matvec_dtype!r}")
-    if matvec_dtype == "bf16" and storage != "cauchy":
-        raise _unported(
-            f"matvec_dtype='bf16' with the {storage!r} storage",
-            "Queue 2 item 4" if storage == "sym" else "Queue 2 item 3",
-        )
+    if matvec_dtype == "bf16" and storage == "full":
+        raise _unported("matvec_dtype='bf16' with the 'full' storage", "Queue 2 item 3")
+    if matvec_dtype == "bf16" and kind == "dense":
+        raise _unported("matvec_dtype='bf16' on dense tables (with the bfloat16 table "
+                        "streams of Queue 1 item 10)", "Queue 2 item 4")
     if contact_tangent not in ("frozen", "consistent"):
         raise ValueError(f"unknown contact_tangent {contact_tangent!r}")
+    frozen = contact_tangent == "frozen"
     contact_fns = _contact_fns_for(prob)
-    if contact_fns and contact_tangent == "frozen":
-        raise _unported(
-            "contact_tangent='frozen' (frozen-pressure element blocks); use "
-            "'consistent'", "Queue 1 item 5",
-        )
     res_sweep, asm_sweep, mv_sweep = _select_impl(prob, residual_impl)
+    on_kernels = res_sweep in (sweeps.residual_sf, sweeps.residual_dense)
+    if on_kernels and storage == "full" and float(mat.viscosity) > 0.0:
+        raise _unported("the viscous CUDA sweeps with the 'full' storage", "Queue 2 item 3")
 
     f = prob.facs
     dim, n_dof = prob.dim, prob.n_dof
@@ -735,9 +738,20 @@ def make_step(
             y = y + contact_residual(xa + fac0 * aa, scenes)
         return (y - rhs) * free
 
+    def frozen_blocks(blocks, cd):
+        """w_el -> the frozen-pressure element blocks applied to w_el."""
+        n_mb, nd = cd["conn"].shape
+
+        def apply(w):
+            w_el = w[cd["conn"]].reshape(n_mb, nd * dim, 1)
+            return torch.bmm(blocks, w_el).reshape(n_mb, nd, dim)
+
+        return apply
+
     def assemble(aa, xa, va, state, scenes):
         """Residual, the tangent block and, per contact block, the
-        derivative of its residual with the query held at xa + fac0 aa."""
+        derivative of its residual at xa + fac0 aa: the frozen-pressure
+        element blocks, or the consistent one with the query held."""
         u_el, a_el, v_el = el_fields(aa, xa, va)
         res_t, Ck = asm_sweep(
             u_el, a_el, state, *tables, wq, mat, dt, rho,
@@ -745,8 +759,14 @@ def make_step(
         )
         r = scatter_el(res_t)
         c_jvps = []
-        for cd, sd, (_, _, lin) in zip(prob.contact, scenes, contact_fns):
-            res_el, _, jvp = lin(xa + fac0 * aa, cd, sd, cd["penalty"])
+        u_cur = xa + fac0 * aa
+        for cd, sd, (pp, _, lin) in zip(prob.contact, scenes, contact_fns):
+            if frozen:
+                pressure, _, _ = pp(u_cur, cd, sd, cd["penalty"])
+                res_el, blocks, _, _ = residual_grad_pass(u_cur, cd, pressure)
+                jvp = frozen_blocks(blocks, cd)
+            else:
+                res_el, _, jvp = lin(u_cur, cd, sd, cd["penalty"])
             r = r + _scatter_conn(res_el, cd["conn"], n_dof)
             c_jvps.append((cd["conn"], jvp))
         return (r - rhs) * free, (Ck, c_jvps)

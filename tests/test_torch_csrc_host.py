@@ -10,7 +10,10 @@ threadIdx set: the kernels share nothing between threads, so the loop is
 exact.  Each source must compile; the objects are linked into one library
 with the C entry points of ops/build.py, and the dense finite-strain
 kernels (sweeps_dense_finite.cu) run on CPU tensors at 4 elements (2D,
-p = 3) against their plain versions at 1e-5.  Skips where no g++ is found.
+p = 3), the viscous dense kernels (sym and cauchy, 2D and 3D) and the
+viscous hyperelastic sf kernels with a float32 or bfloat16 block
+(sweeps_sf_hyper.cu) at a few elements, against their plain versions at
+1e-5.  Skips where no g++ is found.
 """
 
 import ctypes
@@ -31,7 +34,9 @@ from torch_threads import one_torch_thread  # noqa: F401  (autouse: one thread)
 
 CSRC = os.path.join(os.path.dirname(kbuild.__file__), "csrc")
 STUB = os.path.join(CSRC, "host_stub")
-BALKEN = os.path.join(os.path.dirname(__file__), "data", "balken.mesh")
+DATA = os.path.join(os.path.dirname(__file__), "data")
+BALKEN = os.path.join(DATA, "balken.mesh")
+MESH = os.path.join(DATA, "cube-nurbs.mesh")
 SOURCES = [os.path.basename(s) for s in kbuild.SOURCES]
 CXX = ["-std=c++17", "-O1", "-fPIC", "-ffp-contract=off", "-w"]
 
@@ -201,4 +206,127 @@ def test_dense_finite_kernels_on_cpu_tensors(lib, name):
     assert lib.mimi_matvec_dense_full(_ptr(w_el), _ptr(dN), _ptr(N), _ptr(wq), _ptr(C_p),
                                       _ptr(mv), rho, fac0, *shape) == 0
     mv_p = tsw.matvec_dense_plain(w_el, dN, N, wq, C_p, rho, fac0, storage="full")
+    assert float((mv - mv_p).abs().max()) <= 1e-5 * float(mv_p.abs().max())
+
+
+def _hyper(name, viscosity=100.0):
+    mat = getattr(mt, name)()
+    mat.density = 1e3
+    mat.viscosity = viscosity
+    mat.set_young_poisson(1e6, 0.3)
+    return mat
+
+
+@pytest.mark.parametrize(
+    "case",
+    ["nh_2d_p2", "stvk_2d_p3", "nh_3d_p2", "j2_2d_p2", "j2_3d_p2"],
+)
+def test_dense_viscous_kernels_on_cpu_tensors(lib, case):
+    """The viscous dense residual, assemble and matvec of the host build
+    (sym and cauchy storages, 2D and 3D) on CPU tensors at a few elements,
+    float32, against the plain versions with v_el and fac1 mu_v at 1e-5 of
+    scale; the planes at 1e-5 of their max.  The viscous flux is a real
+    part of each output (the inviscid kernel differs by far more)."""
+    tag, d, p = case.split("_")
+    dim, deg = int(d[0]), int(p[1])
+    if dim == 2:
+        mesh, clamp, elev, subd = (os.path.join(DATA, "two-patch-square.mesh"),
+                                   [(2, 0), (2, 1)], deg - 1, 1)
+    else:
+        mesh, clamp, elev, subd = (os.path.join(DATA, "two-patch-cube.mesh"),
+                                   [(0, 0), (0, 1), (0, 2)], 1, 0)
+    mat = _material("J2") if tag == "j2" else _hyper(
+        "CompressibleOgdenNeoHookean" if tag == "nh" else "StVenantKirchhoff")
+    mat.viscosity = 100.0
+    prob = mt.build_problem(mesh, elev, subd, mat, clamp, {}, rho_inf=0.5, device="cpu",
+                            dtype=torch.float32)
+    dN, N, wq, E, nq = prob.dense["dN_t"], prob.dense["N_t"], prob.wdet_t, prob.n_el, prob.n_q
+    nd = dN.shape[0]
+    assert (dim, nd) == (prob.dim, (deg + 1) ** dim)
+    rng = np.random.default_rng(4)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
+    u_el, a_el, v_el, w_el = (f32(s * rng.standard_normal((dim, nd, E)))
+                              for s in (0.02, 1.0, 50.0, 1.0))
+    state = None
+    if tag == "j2":
+        state = {k: v.clone() for k, v in prob.state0.items()}
+        state["eqps"] = f32(0.01 * rng.random((nq, E)))
+    dt, rho, fac0, mu_v, fac1_mu_v = 0.01, float(mat.density), 1e-6, 100.0, 50.0
+    shape = (ctypes.c_int(dim), ctypes.c_int(deg), ctypes.c_longlong(E), ctypes.c_void_p(None))
+    storage = tsw.tangent_storage(mat)
+    head = (_ptr(u_el), _ptr(a_el), _ptr(v_el), _ptr(dN), _ptr(N), _ptr(wq))
+    if tag == "j2":
+        head += tuple(_ptr(state[k]) for k in ("plastic_strain", "eqps", "temperature"))
+        tail = (tsw._j2_params(mat, dt, rho), ctypes.c_float(mu_v))
+        fns = (lib.mimi_residual_dense_j2, lib.mimi_assemble_dense_j2, lib.mimi_matvec_dense_cauchy)
+    else:
+        prm, mat_id, _ = tsw._hyper_params(mat, rho)
+        tail = (prm, ctypes.c_float(mu_v), ctypes.c_int(mat_id))
+        fns = (lib.mimi_residual_dense, lib.mimi_assemble_dense, lib.mimi_matvec_dense)
+    out, out_a = torch.empty(dim, nd, E), torch.empty(dim, nd, E)
+    C = torch.empty(tsw.n_planes(storage, dim), nq, E)
+    assert fns[0](*head, _ptr(out), *tail, *shape) == 0
+    assert fns[1](*head, _ptr(out_a), _ptr(C), *tail, *shape) == 0
+    args = (u_el, a_el, state, dN, N, wq, mat, dt, rho)
+    y = tsw.residual_dense_plain(*args, v_el=v_el, mu_v=mu_v)
+    y_a, C_p = tsw.assemble_dense_plain(*args, v_el=v_el, mu_v=mu_v)
+    y0 = tsw.residual_dense_plain(*args)
+    assert float((out - y).abs().max()) <= 1e-5 * float(y.abs().max())
+    assert float((out_a - y_a).abs().max()) <= 1e-5 * float(y_a.abs().max())
+    assert float((y0 - y).abs().max()) > 1e-2 * float(y.abs().max())
+    assert float((C - C_p).abs().max()) <= 1e-5 * float(C_p.abs().max())
+    mv = torch.empty(dim, nd, E)
+    assert fns[2](_ptr(w_el), _ptr(dN), _ptr(N), _ptr(wq), _ptr(C_p), _ptr(mv), rho, fac0, 1,
+                  fac1_mu_v, *shape) == 0
+    mv_p = tsw.matvec_dense_plain(w_el, dN, N, wq, C_p, rho, fac0, fac1_mu_v, storage=storage)
+    mv0 = tsw.matvec_dense_plain(w_el, dN, N, wq, C_p, rho, fac0, storage=storage)
+    assert float((mv - mv_p).abs().max()) <= 1e-5 * float(mv_p.abs().max())
+    assert float((mv0 - mv_p).abs().max()) > 1e-2 * float(mv_p.abs().max())
+
+
+@pytest.mark.parametrize("name", ["CompressibleOgdenNeoHookean", "StVenantKirchhoff"])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_sf_hyper_viscous_kernels_on_cpu_tensors(lib, name, bf16):
+    """The viscous hyperelastic sf residual and assemble (the 45 planes in
+    float32 or bfloat16) and the viscous sym matvec of the host build on
+    the 2^3 cube's tables, float32, against the plain versions: residuals
+    and matvec at 1e-5 of scale, float32 planes at 1e-5 of their max; a
+    bfloat16 plane within one bfloat16 step (2^-7) of the plain version's
+    float32 plane rounded to bfloat16 (the kernel rounds its own float32
+    plane, which agrees with the plain one to float32 rounding of F)."""
+    mat = _hyper(name)
+    prob = mt.build_problem(MESH, 1, 1, mat, [(1, 0), (1, 1), (1, 2)], {}, rho_inf=0.5,
+                            device="cpu", dtype=torch.float32)
+    tabs, jinv, wq, E = prob.sf["tables"], prob.sf["jinv"], prob.wdet_t, prob.n_el
+    rng = np.random.default_rng(5)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
+    u_el, a_el, v_el, w_el = (f32(s * rng.standard_normal((3, 27, E)))
+                              for s in (0.02, 1.0, 50.0, 1.0))
+    rho, fac0, mu_v, fac1_mu_v = 1e3, 1e-6, 100.0, 50.0
+    c_dtype = torch.bfloat16 if bf16 else torch.float32
+    prm, mat_id, _ = tsw._hyper_params(mat, rho)
+    head = (_ptr(u_el), _ptr(a_el), _ptr(v_el), *[_ptr(t) for t in tabs], _ptr(jinv), _ptr(wq))
+    tail = (prm, ctypes.c_float(mu_v), ctypes.c_int(mat_id), ctypes.c_longlong(E),
+            ctypes.c_void_p(None))
+    out, out_a = torch.empty(3, 27, E), torch.empty(3, 27, E)
+    C = torch.empty(45, 64, E, dtype=c_dtype)
+    assert lib.mimi_residual_sf_hyper(*head, _ptr(out), *tail) == 0
+    assert lib.mimi_assemble_sf_hyper(*head, _ptr(out_a), _ptr(C), int(bf16), *tail) == 0
+    args = (u_el, a_el, None, tabs, jinv, wq, mat, 0.01, rho)
+    y = tsw.residual_sf_plain(*args, v_el=v_el, mu_v=mu_v)
+    y_a, C_p = tsw.assemble_sf_plain(*args, v_el=v_el, mu_v=mu_v)
+    assert float((out - y).abs().max()) <= 1e-5 * float(y.abs().max())
+    assert float((out_a - y_a).abs().max()) <= 1e-5 * float(y_a.abs().max())
+    scale = float(C_p.abs().max())
+    if bf16:
+        err = float((C.float() - C_p.to(torch.bfloat16).float()).abs().max())
+        assert err <= 2.0**-7 * scale
+    else:
+        assert float((C - C_p).abs().max()) <= 1e-5 * scale
+    Cb = C_p.to(c_dtype)
+    mv = torch.empty(3, 27, E)
+    assert lib.mimi_matvec_sf_sym(_ptr(w_el), *[_ptr(t) for t in tabs], _ptr(jinv), _ptr(wq),
+                                  _ptr(Cb), int(bf16), _ptr(mv), rho, fac0, 1, fac1_mu_v,
+                                  ctypes.c_longlong(E), ctypes.c_void_p(None)) == 0
+    mv_p = tsw.matvec_sf_plain(w_el, tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v, storage="sym")
     assert float((mv - mv_p).abs().max()) <= 1e-5 * float(mv_p.abs().max())

@@ -203,14 +203,16 @@ def test_import_leaves_jax_out():
 )
 def test_unported_build_options_raise(option):
     if "contact" in option:
-        # contact is ported; the step refuses the reference's default
-        # frozen-pressure contact tangent, which is not
+        # contact is ported with both tangents, the reference's default
+        # frozen-pressure one too: the default step builds; the Schur
+        # contact preconditioner stays unported
         scene = mt.NearestDistanceToSplines()
         scene.add_spline(mt.Bezier([1, 1], [[0, 0, 1.02], [0, 1, 1.02], [1, 0, 1.02], [1, 1, 1.02]]))
         scene.plant_kd_tree(8)
         prob = mt.build_problem(MESH, material=_material(mt), device="cpu", **BUILD, contact=[(2, scene)])
+        assert callable(mt.make_step(prob, 0.05))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            mt.make_step(prob, 0.05)
+            mt.make_step(prob, 0.05, precond="schur")
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mt.build_problem(MESH, material=_material(mt), device="cpu", **BUILD, **option)
