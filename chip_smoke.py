@@ -48,7 +48,7 @@ p=2 with J2) against its plain version, one step of the kernel path
 against the plain path per 2D material and for 3D dense J2.
 
 And the finite-strain plasticity models on dense tables (phases 33-37):
-the golden cantilever at 512^2 with J2Simo and with J2Log (1 warm + 3
+the golden cantilever at 512^2 with J2Simo and with J2Log (1 warm + 2
 timed steps each, dt 0.1), through the dense kernels with the 16-plane
 full tangent (4 dual-number passes per point) and their state; every
 dense + full instantiation (2D p=2 and p=3, 3D p=2, both materials)
@@ -77,6 +77,23 @@ next Newton system at full size and one step at 2 x 64^2 / 16^3 are held
 kernel path against plain path.  The viscous instantiations of the other
 shapes are held where those tables are built (phases 13, 18, 22, 28, 32).
 
+And J2Linear and the PowerLaw and Voce hardening laws (phases 43-47):
+path C, the 48^3 body-force cube with J2Linear (E 2100, nu 0.3, the
+reference's hardening moduli isotropic 50 and kinematic 30, yield stress
+5), the sf kernels with the Cauchy storage; path D, the golden
+cantilever's mesh at 512^2 p = 3 with J2Linear, the dense (2, 3) kernels;
+path E, the 48^3 cube with J2 and the reference's PowerLaw (sigma_y 10,
+n 2, eps0 1e-3), body force -5; dt 0.05, 1 warm + 3 timed steps each, C
+and E yielding at 1% of the points or more.  Every new instantiation
+(J2Linear's, sf and dense, viscous and not, float32 and bfloat16 sf
+blocks; J2, J2Simo and J2Log with each law, sf and dense) is held against
+its plain version on random plastic input on the paths' tables (J2Linear's
+dense (2, 2) at 128^2 and (3, 2) at 2 x 8^3), the path kernels at the
+paths' states, the next Newton system at full size, one profiled step per
+path, and one plastic step kernel path against plain path each of J2Linear
+(16^3, 64^2 p = 3), J2 + PowerLaw and J2Simo + Voce (16^3) and J2Log +
+PowerLaw (64^2 p = 3).
+
     python3 chip_smoke.py
 
 Exits non-zero without a CUDA device, outside a checkout, or when any
@@ -96,7 +113,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 MESH = os.path.join(ROOT, "tests", "data", "cube-nurbs.mesh")
 SPANS = 48  # main path: 48^3 elements
 CHECK_SPANS = 16  # kernel-vs-plain and one-step parity
-TIMED_STEPS = 5
+# timed steps of the 48^3 body-force, neo-Hookean and J2Simo drives, and of
+# the contact press: 3 keep the whole smoke near twelve minutes
+TIMED_STEPS = 3
 NEWTON_ITERS = 4
 RES_EVALS_PER_STEP = NEWTON_ITERS * 3 + 1  # assemble + 2 line-search residuals, + accumulate
 STEP_KW = dict(dt=0.05, newton_iters=NEWTON_ITERS, solver="cg", cg_iters=40,
@@ -110,7 +129,7 @@ KERNELS = [  # (counter name, TPU kernel it replaces)
 CONTACT_STEP_KW = dict(dt=0.01, newton_iters=12, solver="cg", cg_iters=80,
                        precond="fdm", lin_rel_tol=1e-2, rel_tol=1e-3,
                        contact_tangent="consistent", matvec_dtype="bf16")
-CONTACT_TIMED_STEPS = 5
+CONTACT_TIMED_STEPS = 3
 PUSH = [0.0, 0.0, -0.01]  # tool motion per step
 VARIANTS = [  # (counter name, TPU kernel it replaces); the contact path's
     ("residual_sf[visc]", "mimi_tpu/ops/sweeps.py:338"),
@@ -183,10 +202,10 @@ STEP2D_KW = dict(newton_iters=10, solver="cg", cg_iters=80, gmres_restart=30, pr
 # the kernel path and on the plain path, float32 and float64 alike (drops
 # 0.33-0.36 for J2Simo, 0.85-31 for J2Log), and at 256^2 in the third
 # step; at 128^2 all three paths converge (finite_witness.py).  dt 0.1,
-# whose third and fourth steps yield at 512^2.  The one-step parity at
-# 64^2 takes the third step at dt 0.2 (PARITY_DT), which converges there
-# in float64 and yields.
-GOLDEN_FINITE = {"J2Simo": (-3.0, 0.1, 3), "J2Log": (-3.0, 0.1, 3)}
+# whose third step (the last of 1 warm + 2 timed) yields at 512^2.  The
+# one-step parity at 64^2 takes the third step at dt 0.2 (PARITY_DT),
+# which converges there in float64 and yields.
+GOLDEN_FINITE = {"J2Simo": (-3.0, 0.1, 2), "J2Log": (-3.0, 0.1, 2)}
 PARITY_DT = 0.2
 # the fast log series' range left by element 0 (the deep series) and
 # element 1 (further: NaN-poisoned in 3D; in 2D float32 cannot resolve C_e's
@@ -211,6 +230,36 @@ YIELD_BAND = 1e-4
 # order; the plain path at the carry rounded to bfloat16 reads 5 to 17
 # (finite_witness.py, NVIDIA H100 80GB HBM3).  J w keeps 1e-4.
 NEWTON_R_BAR = {"J2Log": 1e-3}
+# Phases 43-47: J2Linear and the PowerLaw and Voce hardening laws.
+# J2Linear: E 2100, nu 0.3, density 1, the hardening moduli of the
+# reference's tests/test_materials.py:256-260 (isotropic 50, kinematic 30),
+# yield stress 5: its kernel test's 0 leaves every point perfectly plastic,
+# where the deviatoric tangent vanishes and the elastic FDM preconditioner
+# has nothing to precondition.  Path C: the body-force cube at 48^3 (face
+# 1 clamped, body force -3) with J2Linear, the sf kernels with the Cauchy
+# storage; path D: the golden cantilever's mesh at 512^2 p = 3 (boundary 2
+# clamped, body force -3) with J2Linear, the dense (2, 3) kernels, the 2D
+# step settings; path E: the 48^3 cube with J2 and the reference's
+# PowerLaw (sigma_y 10, n 2, eps0 1e-3; tests/test_pallas.py:397-440), body
+# force -5.  All at dt 0.05 (the J2 cantilever's dt 0.5 does not converge
+# refined), 1 warm + PATH_TIMED timed steps; C and E must leave eqps > 0 at
+# YIELD_SHARE of the points.  Phase 47's steps lower the yield stress to
+# SMALL_SIGMA_Y so that the first step yields at 16^3 and 64^2.
+J2LIN_MODULI = (50.0, 30.0)  # isotropic, kinematic
+J2LIN_SIGMA_Y = 5.0
+POWER_LAW = (10.0, 2.0, 1e-3)  # sigma_y, n, eps0
+VOCE_LAW = (10.0, 30.0, 0.02)  # sigma_y, sigma_sat, strain constant
+PATH_DT = 0.05
+PATH_TIMED = 3
+YIELD_SHARE = 0.01
+SMALL_SIGMA_Y = 1.0
+# |F - I| of phase 43's random plastic input, per element: for J2Linear
+# (yield strain ~2e-3) a mixed share of elastic and plastic points; for the
+# laws 0.1, as phases 13 and 23 take: at 0.02 J2Log's C_e ~ I leaves its
+# sf residual, a small difference of rounded stresses, at 3e-5 of its scale
+# against plain (NVIDIA H100 80GB HBM3)
+J2LIN_AMPLITUDE = 0.006
+LAW_AMPLITUDE = 0.1
 # The viscous neo-Hookean contact presses (phases 38-42): the material of
 # tests/test_contact.py:154-158 and the examples (examples/toy_problem.py:
 # 40-43, multipatch_contact.py:40-44): CompressibleOgdenNeoHookean, E 1e6,
@@ -336,8 +385,13 @@ OPS_PER_POINT = {
 # (the fast log: 2 square roots of 7 Denman-Beavers iterations, ~480, and
 # 7 Gregory terms); a dual pass ~3x the stress, 4 passes; the 16-plane
 # apply 32.
+# J2Linear (csrc/j2.cuh j2_linear_cauchy): J2's trial state, eta = s - beta,
+# its norm, phi, the increment, eta / |eta| and sigma, det F, F^-1 and
+# J sigma F^-T (3D ~250, 2D ~125); its D-hat planes take dev(n) and the
+# symmetrized n (x) dev(n) (3D ~200, 2D ~70); the Cauchy apply as J2's.
 MATERIAL_OPS = {
     ("j2", 3): (_J2_STRESS, _J2_TANGENT, _CAUCHY_APPLY), ("j2", 2): (110, 60, 100),
+    ("j2lin", 3): (250, 200, _CAUCHY_APPLY), ("j2lin", 2): (125, 70, 100),
     ("nh", 2): (60, 150, 36), ("stvk", 2): (40, 160, 36),
     ("simo", 3): (_SIMO_STRESS, 9 * _SIMO_PASS, _FULL_APPLY),
     ("log", 3): (_LOG_STRESS, 9 * _LOG_PASS, _FULL_APPLY),
@@ -1426,9 +1480,10 @@ def compare_kernels(torch, sweeps, prob, u_el, a_el, w_el, state, dt, label, par
     run once on all elements; the plain residual and assemble run on each
     element range of `parts` ({name: slice}, default all elements), each
     held on its own scale.  Entries the plain version NaN-poisons must be
-    NaN in the kernel's output too (masked_err).  With the full storage,
-    points at the yield surface where the kernel takes the other branch
-    (YIELD_BAND) are counted and left out of the planes' bar."""
+    NaN in the kernel's output too (masked_err).  For a material with a
+    yield surface, points at it where the kernel takes the other branch
+    (YIELD_BAND) are counted and left out of the planes' bar
+    (planes_rel)."""
     mat, wq = prob.material, prob.wdet_t
     tables, (res_k, asm_k, mv_k), (res_p, asm_p, mv_p) = kernel_fns(sweeps, prob)
     storage = sweeps.tangent_storage(mat)
@@ -1459,26 +1514,9 @@ def compare_kernels(torch, sweeps, prob, u_el, a_el, w_el, state, dt, label, par
         ya_p, C_p[..., sl] = asm_p(*p_args)
         err, scale = masked_err(torch, ya_k[..., sl], ya_p, f"{n_asm} residual")
         masked_err(torch, C_k[..., sl], C_p[..., sl], f"{n_asm} planes")
-        dC = torch.nan_to_num(C_k[..., sl] - C_p[..., sl]).abs()
-        mag = torch.nan_to_num(C_p[..., sl]).abs().amax(dim=(1, 2))
-        surface = ""
-        if storage == "full":
-            off = dC.amax(0) > 1e-4 * mag.max()
-            if bool(off.any()):
-                margin = float(yield_margin(torch, sweeps, prob, p_args[0], p_args[2],
-                                            p_args[3:5])[off].max())
-                surface = (f"; {int(off.sum())} points at the yield surface (plain trial "
-                           f"within {margin:.1e} of the flow stress) on the other branch in "
-                           "the kernel, left out of the planes' bar")
-                if not margin <= YIELD_BAND:
-                    fail(f"{n_asm} tangent disagrees at points {margin} of the flow stress off "
-                         f"the yield surface {tag}")
-                dC = dC * (~off).to(dC.dtype)
-        diff = dC.amax(dim=(1, 2))
-        del dC
-        rel = max(float(diff[a:b].max() / mag[a:b].max().clamp_min(1e-30))
-                  for a, b in plane_groups(sweeps, storage, prob.dim))
-        errs[n_asm] = max(errs[n_asm], err, float(diff.max()))
+        rel, dmax, surface = planes_rel(torch, sweeps, prob, C_k[..., sl], C_p[..., sl], 1e-4,
+                                        p_args, f"{n_asm} {tag}")
+        errs[n_asm] = max(errs[n_asm], err, dmax)
         say(f"{tag} {n_asm}: residual max|err| {err:.3e} scale {scale:.3e}; {C_k.shape[0]} "
             f"planes worst err vs group max {rel:.3e}{surface}")
         if not err <= 1e-4 * scale:
@@ -1500,6 +1538,39 @@ def compare_kernels(torch, sweeps, prob, u_el, a_el, w_el, state, dt, label, par
     return errs, C_p
 
 
+def planes_rel(torch, sweeps, prob, C_k, C_p, bar, args, what, mat=None):
+    """(worst plane error against its group's max (plane_groups), max
+    |C_k - C_p|, a note) of the kernel's tangent block C_k against the
+    plain one C_p (either dtype; compared in float32).  For a material with
+    state (`mat`, default the problem's), the points whose planes differ by
+    more than `bar` of the block's max must lie within YIELD_BAND of the
+    yield surface in the plain trial state at args = (u_el, a_el, state,
+    *tables): the kernel, rounding its own trial state, took the other
+    branch there; they are counted and left out."""
+    mat = mat or prob.material
+    dC = torch.nan_to_num(C_k.float() - C_p.float()).abs()
+    mag = torch.nan_to_num(C_p.float()).abs().amax(dim=(1, 2))
+    note = ""
+    if args[2] is not None:
+        off = dC.amax(0) > bar * mag.max()
+        if bool(off.any()):
+            margin = float(yield_margin(torch, sweeps, prob, args[0], args[2], args[3:5],
+                                        mat)[off].max())
+            note = (f"; {int(off.sum())} points at the yield surface (plain trial within "
+                    f"{margin:.1e} of the flow stress) on the other branch in the kernel, left "
+                    "out of the planes' bar")
+            if not margin <= YIELD_BAND:
+                fail(f"{what}: tangent disagrees at points {margin} of the flow stress off the "
+                     "yield surface")
+            dC = dC * (~off).to(dC.dtype)
+    diff = dC.amax(dim=(1, 2))
+    del dC
+    storage = sweeps.tangent_storage(mat)
+    rel = max(float(diff[a:b].max() / mag[a:b].max().clamp_min(1e-30))
+              for a, b in plane_groups(sweeps, storage, prob.dim))
+    return rel, float(diff.max()), note
+
+
 def path_residual(torch, sweeps, sh, prob, carry, gen, label):
     """The residual kernel against its plain version at the next step's
     predictor of `carry`: max|err| / max|y|."""
@@ -1513,36 +1584,42 @@ def path_residual(torch, sweeps, sh, prob, carry, gen, label):
     return err / scale
 
 
-def time_full(torch, sweeps, prob, u_el, a_el, w_el, state, Cf, names, launches, errs, label):
-    """Rows of the kernels line for the finite-strain kernels in `names`
-    at the problem's size: CUDA-event times of kernel and plain version,
-    bytes and bound."""
+# the sf kernels' source by tangent storage
+SF_SOURCE = {"cauchy": SOURCE[0], "full": SOURCE[3], "sym": SOURCE[6]}
+
+
+def time_sf(torch, sweeps, prob, u_el, a_el, w_el, state, C, names, launches, errs, label):
+    """Rows of the kernels line for the problem's material's sum-factorized
+    kernels in `names` at the problem's size: CUDA-event times of kernel
+    and plain version, bytes and bound."""
     mat, tabs, jinv, wq = prob.material, prob.sf["tables"], prob.sf["jinv"], prob.wdet_t
+    storage = sweeps.tangent_storage(mat)
     rho, dt = float(mat.density), STEP_KW["dt"]
     fac0 = prob.facs["fac3"] * dt * dt
     args = (u_el, a_el, state, tabs, jinv, wq, mat, dt, rho)
-    mv_args = (w_el, tabs, jinv, wq, Cf, rho, fac0)
+    mv_args = (w_el, tabs, jinv, wq, C, rho, fac0)
     fns = [(lambda: sweeps.residual_sf(*args), lambda: sweeps.residual_sf_plain(*args)),
            (lambda: sweeps.assemble_sf(*args), lambda: sweeps.assemble_sf_plain(*args)),
-           (lambda: sweeps.matvec_sf(*mv_args, storage="full"),
-            lambda: sweeps.matvec_sf_plain(*mv_args, storage="full"))]
+           (lambda: sweeps.matvec_sf(*mv_args, storage=storage),
+            lambda: sweeps.matvec_sf_plain(*mv_args, storage=storage))]
     el_out = 3 * 27 * prob.n_el * 4
     byts = [  # inputs read once, outputs written once
         nbytes(u_el, a_el, tabs, jinv, wq, state) + el_out,
-        nbytes(u_el, a_el, tabs, jinv, wq, state, Cf) + el_out,
-        nbytes(w_el, tabs, jinv, wq, Cf) + el_out,
+        nbytes(u_el, a_el, tabs, jinv, wq, state, C) + el_out,
+        nbytes(w_el, tabs, jinv, wq, C) + el_out,
     ]
     n_pts = prob.n_el * prob.n_q
     rows = []
-    for i, (name, replaces) in enumerate(zip(kernel_names(sweeps, prob), SYM_REPLACES["sf"])):
+    for i, (name, replaces, ops) in enumerate(zip(kernel_names(sweeps, prob), SYM_REPLACES["sf"],
+                                                  sf_ops(sweeps, prob))):
         if name not in names:
             continue
         ms = cuda_ms(torch, fns[i][0], 10)
         torch.cuda.empty_cache()
         plain_ms = cuda_ms(torch, fns[i][1], PLAIN_REPS)
         torch.cuda.empty_cache()
-        row = kernel_row(name, SOURCE[3], replaces, launches[name], errs[name], ms, plain_ms,
-                         byts[i], n_pts * OPS_PER_POINT[name])
+        row = kernel_row(name, SF_SOURCE[storage], replaces, launches[name], errs[name], ms,
+                         plain_ms, byts[i], n_pts * ops)
         say(f"[{label}] {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms; "
             f"{byts[i] / 1e9:.3f} GB, bound {row['bound_ms']:.4f} ms by {row['bound_by']}; "
             f"{byts[i] / ms / 1e9:.3f} TB/s ({byts[i] / ms / 1e9 / (HBM_BPS / 1e12):.2f} "
@@ -1653,7 +1730,7 @@ def finite_phases(torch, mt, sweeps, soa, sh, device, gen):
                                    STEP_KW["dt"], f"{ph}. 48^3 {name} path",
                                    res_bar=PATH_RES_BAR)
         keep = names if name == "J2Simo" else names[:2]  # the matvec is timed once
-        rows += time_full(torch, sweeps, prob, u_el, a_el, w_el, carry["state"], Cf, keep,
+        rows += time_sf(torch, sweeps, prob, u_el, a_el, w_el, carry["state"], Cf, keep,
                           launches, errs, f"{ph}. 48^3 {name} timing")
         if name == "J2Simo":
             carry = profile_step(torch, step, carry, s_step, f"{ph}. 48^3 {name} profile")
@@ -1689,25 +1766,39 @@ def dense_degree(prob):
     return round(nd ** (1.0 / prob.dim)) - 1
 
 
-def material_tag(sweeps, mat):
-    """The counter tag of a material's kernels ("j2", "simo", "nh", ...)."""
-    storage = sweeps.tangent_storage(mat)
-    if storage == "cauchy":
-        return "j2"
-    return (sweeps.FULL_KERNELS if storage == "full" else sweeps.HYPER_KERNELS)[mat.name()][1]
+def ops_tag(sweeps, mat):
+    """The material's key of MATERIAL_OPS: its tag without the law (the law
+    changes how the flow stress is evaluated, not the operations counted)."""
+    return sweeps.kernel_tag(mat).split("-")[0]
+
+
+def matvec_name(sweeps, kind, storage, dim=3, p=2, visc=False, bf16=False):
+    """Counter name of a matvec instantiation (the sf Cauchy ones have the
+    untagged names of sweeps.variant)."""
+    if kind == "sf" and storage == "cauchy":
+        return sweeps.variant("matvec_sf", visc, bf16)
+    return sweeps.matvec_counter(kind, storage, dim, p, visc, bf16)
 
 
 def kernel_names(sweeps, prob):
     """Counter names (residual, assemble, matvec) of the problem's material
     on its tables: kind, storage, material tag and (dim, p) suffix (sf
     tables: 3D, p = 2)."""
-    storage = sweeps.tangent_storage(prob.material)
-    tag = material_tag(sweeps, prob.material)
-    if prob.sf is not None:
-        return [*sweeps.material_counters("sf", tag, storage), sweeps.matvec_counter("sf", storage)]
-    dim, p = prob.dim, dense_degree(prob)
-    return [*sweeps.material_counters("dense", tag, storage, dim, p),
-            sweeps.matvec_counter("dense", storage, dim, p)]
+    mat, storage = prob.material, sweeps.tangent_storage(prob.material)
+    kind = "sf" if prob.sf is not None else "dense"
+    dim, p = (3, 2) if kind == "sf" else (prob.dim, dense_degree(prob))
+    return [*sweeps.kernel_counters(mat, kind, dim, p), matvec_name(sweeps, kind, storage, dim, p)]
+
+
+def sf_ops(sweeps, prob):
+    """Operations per point of the (residual, assemble, matvec) functions
+    of the problem's material on its sum-factorized tables
+    (OPS_PER_POINT, else the sf structure with MATERIAL_OPS)."""
+    names = kernel_names(sweeps, prob)
+    if all(n in OPS_PER_POINT for n in names):
+        return [OPS_PER_POINT[n] for n in names]
+    stress, tangent, apply = MATERIAL_OPS[(ops_tag(sweeps, prob.material), 3)]
+    return [_SF_RESIDUAL + stress, _SF_RESIDUAL + stress + tangent, _SF_MATVEC + apply]
 
 
 def kernel_fns(sweeps, prob):
@@ -1739,7 +1830,7 @@ def dense_ops(sweeps, prob):
     if all(n in OPS_PER_POINT for n in names):
         return [OPS_PER_POINT[n] for n in names]
     dim, nd = prob.dim, prob.dense["dN_t"].shape[0]
-    stress, tangent, apply = MATERIAL_OPS[(material_tag(sweeps, prob.material), dim)]
+    stress, tangent, apply = MATERIAL_OPS[(ops_tag(sweeps, prob.material), dim)]
     base = 2 * dim * dim * nd + 2 * dim * nd + (2 * dim + 2) * dim * nd
     return [base + 2 * dim + stress, base + 2 * dim + stress + tangent, base + dim + apply]
 
@@ -2179,16 +2270,24 @@ def dense_finite_inputs(torch, sweeps, soa, prob, gen, dt, amplitude=0.2):
     return u_el, rnd(*shape), rnd(*shape), state, float(active.float().mean())
 
 
-def yield_margin(torch, sweeps, prob, u_el, state, tables=None):
-    """|r(0)| / (H thermo) per point (n_q, n_el): how far the plain trial
-    state of a finite-strain material (J2Simo, J2Log) lies from the yield
-    surface, relative to the flow stress (grad_of's `tables`)."""
+def yield_margin(torch, sweeps, prob, u_el, state, tables=None, mat=None):
+    """|q - H| / H per point (n_q, n_el): how far the plain trial state of
+    a J2-family material (`mat`, default the problem's) lies from the yield
+    surface, relative to the flow stress H (H thermo for the laws, sigma_y +
+    H_iso eqps for J2Linear; grad_of's `tables`)."""
     from mimi_tpu_torch.fem import soa
     from mimi_tpu_torch.materials.logm import logm_sym_soa
 
-    mat = prob.material
+    mat = mat or prob.material
     F = soa.add_diag(grad_of(sweeps, prob, u_el, tables), 1.0)
-    if mat.name() == "J2Simo":
+    if mat.name() == "J2Linear":
+        eps = soa.add_diag(soa.sym(F) - state["plastic_strain"], -1.0)
+        q = math.sqrt(1.5) * soa.fro_norm(soa.dev(eps, 2.0 * mat.G) - state["beta"])
+        flow = mat.sigma_y + mat.isotropic_hardening * state["eqps"]
+        return (q - flow).abs() / flow
+    if mat.name() == "J2":
+        q = mat._trial_soa(F, state)[2]
+    elif mat.name() == "J2Simo":
         q = mat._trial_soa(F, state)[3]
     else:
         Fe = soa.matmul(F, state["Fp_inv"])
@@ -2272,7 +2371,7 @@ def dense_finite_phases(torch, mt, sweeps, soa, sh, device, gen):
     fast log series' range; 34: one plastic step of the kernel path
     against the plain path (64^2 per material: the third step at dt 0.2
     from two float64 plain steps; 3D J2Simo at 2 x 8^3, A 1); 35: the timed
-    drives (the golden cantilevers at 512^2 and 128^2 p = 2, 1 + 3 steps at
+    drives (the golden cantilevers at 512^2 and 128^2 p = 2, 1 + 2 steps at
     dt 0.1; 2 x 38^3, 1 + 1), each step short of a 1e-4 Newton drop held
     against the plain path; 36: one profiled step per material at 512^2;
     37: the kernels' rows at the drives' states.  Returns the rows."""
@@ -2363,17 +2462,19 @@ def dense_finite_phases(torch, mt, sweeps, soa, sh, device, gen):
 
 
 def hold_viscous(torch, sweeps, prob, mat, f, dt, label, launches=None,
-                 combos=((True, False),)):
+                 combos=((True, False),), inviscid_residual=False):
     """The viscous and bfloat16 instantiations of `mat`'s kernels on the
     problem's tables, sum-factorized or dense (`mat` need not be the
     problem's: the tables do not depend on it), against their plain
     versions on the inputs `f` (u_el, a_el, v_el, w_el, state), for each
     (viscous, bfloat16 block) of `combos`: the residual (viscous only, it
-    writes no block), the assemble and the matvec on the plain version's
-    block.  Bars: residual 1e-5 x scale; assemble residual and matvec 1e-4
-    x scale; float32 planes 1e-4 of their group's max; bfloat16 planes
-    2^-7 of their group's max (one bfloat16 step) against the plain float32
-    planes rounded to bfloat16.  Each is timed (CUDA events over 20 calls,
+    writes no block, unless `inviscid_residual`), the assemble and the
+    matvec on the plain version's block.  Bars: residual 1e-5 x scale;
+    assemble residual and matvec 1e-4 x scale; float32 planes 1e-4 of their
+    group's max; bfloat16 planes 2^-7 of their group's max (one bfloat16
+    step) against the plain float32 planes rounded to bfloat16; points at
+    a yield surface on the other branch in the kernel are counted and left
+    out (planes_rel).  Each is timed (CUDA events over 20 calls,
     the plain version over PLAIN_REPS after a warm one); returns the rows
     with their launches in `launches` (0 where no driven path launched
     the variant: such rows are printed for the record, not put in the
@@ -2384,7 +2485,7 @@ def hold_viscous(torch, sweeps, prob, mat, f, dt, label, launches=None,
     vprob = dataclasses.replace(prob, material=mat)
     kind = "sf" if prob.sf is not None else "dense"
     tables, kern, plain = kernel_fns(sweeps, vprob)
-    storage, tag, dim = sweeps.tangent_storage(mat), material_tag(sweeps, mat), prob.dim
+    storage, dim = sweeps.tangent_storage(mat), prob.dim
     p = 2 if kind == "sf" else dense_degree(prob)
     wq, rho = prob.wdet_t, float(mat.density)
     mu_v = float(mat.viscosity) if float(mat.viscosity) > 0.0 else VISC_MU
@@ -2392,12 +2493,12 @@ def hold_viscous(torch, sweeps, prob, mat, f, dt, label, launches=None,
     fac1_mu_v = prob.facs["fac4"] * dt * mu_v
     args = (f["u_el"], f["a_el"], f["state"], *tables, wq, mat, dt, rho)
     if kind == "sf":
-        base = [OPS_PER_POINT[n] for n in kernel_names(sweeps, vprob)]
+        base = sf_ops(sweeps, vprob)
         extra = (_SF_VISCOUS, _SF_VISCOUS, 18)
     else:
         base, nd = dense_ops(sweeps, vprob), prob.dense["dN_t"].shape[0]
         extra = (2 * dim * dim * nd + 2 * dim * dim,) * 2 + (2 * dim * dim,)
-    source = SOURCE[6] if kind == "sf" else DENSE_SOURCE[storage]
+    source = (SF_SOURCE if kind == "sf" else DENSE_SOURCE)[storage]
     el_out = nbytes(f["u_el"])
     n_pts = prob.n_el * prob.n_q
     rows, held = [], set()
@@ -2405,11 +2506,11 @@ def hold_viscous(torch, sweeps, prob, mat, f, dt, label, launches=None,
         vk = dict(v_el=f["v_el"], mu_v=mu_v) if visc else {}
         fm = fac1_mu_v if visc else None
         cd = torch.bfloat16 if bf16 else torch.float32
-        names = (*sweeps.material_counters(kind, tag, storage, dim, p, visc, bf16),
-                 sweeps.matvec_counter(kind, storage, dim, p, visc, bf16))
+        names = (*sweeps.kernel_counters(mat, kind, dim, p, visc, bf16),
+                 matvec_name(sweeps, kind, storage, dim, p, visc, bf16))
         checks = []  # (i, name, err, kernel call, plain call, bytes)
         fields = (f["u_el"], f["a_el"], f["v_el"] if visc else None, tables, wq, f["state"])
-        if visc and names[0] not in held:  # the residual writes no block
+        if (visc or inviscid_residual) and names[0] not in held:  # it writes no block
             held.add(names[0])
             y_k = kern[0](*args, **vk)
             torch.cuda.synchronize()
@@ -2426,22 +2527,20 @@ def hold_viscous(torch, sweeps, prob, mat, f, dt, label, launches=None,
         if C_k.dtype != cd:
             fail(f"{names[1]} wrote a {C_k.dtype} block")
         err, scale = masked_err(torch, ya_k, ya_p, f"{names[1]} residual")
-        diff = (C_k.float() - C_p.float()).abs().amax(dim=(1, 2))
-        mag = C_p.float().abs().amax(dim=(1, 2))
-        rel = max(float(diff[a:b].max() / mag[a:b].max().clamp_min(1e-30))
-                  for a, b in plane_groups(sweeps, storage, dim))
         bar = 2.0**-7 if bf16 else 1e-4
+        rel, dmax, note = planes_rel(torch, sweeps, prob, C_k, C_p, bar, args,
+                                     f"{names[1]} [{label}]", mat)
         say(f"[{label}] {names[1]}: residual max|err| {err:.3e} scale {scale:.3e}; "
             f"{C_k.shape[0]} {'bfloat16' if bf16 else 'float32'} planes worst err vs group max "
-            f"{rel:.3e} (bar {bar:.3e})")
+            f"{rel:.3e} (bar {bar:.3e}){note}")
         if not err <= 1e-4 * scale:
             fail(f"{names[1]} residual disagrees ({err} > 1e-4 * {scale}) [{label}]")
         if not rel <= bar:
             fail(f"{names[1]} planes disagree ({rel} of their group's max) [{label}]")
-        checks.append((1, max(err, float(diff.max())), lambda vk=vk, cd=cd: kern[1](*args, **vk, c_dtype=cd),
+        checks.append((1, max(err, dmax), lambda vk=vk, cd=cd: kern[1](*args, **vk, c_dtype=cd),
                        lambda vk=vk, cd=cd: plain[1](*args, **vk, c_dtype=cd),
                        nbytes(*fields, C_p) + el_out))
-        del ya_k, C_k, ya_p, diff, mag
+        del ya_k, C_k, ya_p
         mv_args = (f["w_el"], *tables, wq, C_p, rho, fac0, fm)
         y_k = kern[2](*mv_args, storage=storage)
         torch.cuda.synchronize()
@@ -2603,22 +2702,23 @@ def press_kernel_names(sweeps, prob, step_kw):
     kernels, with the block of step_kw's matvec_dtype."""
     kind = "sf" if prob.sf is not None else "dense"
     bf16 = step_kw.get("matvec_dtype") == "bf16"
-    tag, storage = material_tag(sweeps, prob.material), sweeps.tangent_storage(prob.material)
+    tag, storage = sweeps.kernel_tag(prob.material), sweeps.tangent_storage(prob.material)
     p = 2 if kind == "sf" else dense_degree(prob)
     return [*sweeps.material_counters(kind, tag, storage, prob.dim, p, True, bf16),
             sweeps.matvec_counter(kind, storage, prob.dim, p, True, bf16)]
 
 
-def press_newton_system(torch, mt, prob, carry, sd, step_kw, label, gen):
-    """The Newton system of the next step from `carry` with the tool at
-    `sd`, kernel path against plain path: the residual at 1e-4 x scale,
-    J w at 1e-4 x scale (2^-7 with a bfloat16 block: each path rounds its
-    own).  Prints the difference of the two whole steps too (contact
-    steps are held on the Newton system: which float32 points pass the
-    reference's angle gate turns on rounding, ROADMAP Queue 3)."""
+def newton_system_parity(torch, mt, prob, carry, sd, step_kw, label, gen):
+    """The Newton system of the next step from `carry` (with the tool at
+    `sd` on a press, None without contact), kernel path against plain
+    path: the residual at 1e-4 x scale, J w at 1e-4 x scale (2^-7 with a
+    bfloat16 block: each path rounds its own).  Returns the two paths'
+    steps.  (Contact steps are held on the Newton system: which float32
+    points pass the reference's angle gate turns on rounding, ROADMAP
+    Queue 3.)"""
     bf16 = step_kw.get("matvec_dtype") == "bf16"
     steps = [mt.make_step(prob, residual_impl=impl, **step_kw) for impl in ("cuda", "torch")]
-    ns = [s.newton_system(carry, contact_scenes=[sd]) for s in steps]
+    ns = [s.newton_system(carry, contact_scenes=None if sd is None else [sd]) for s in steps]
     w = torch.randn(ns[0]["r"].shape, generator=gen).to(prob.device, prob.dtype)
     jw = [n["J_apply"](w) for n in ns]
     r_err, r_scale = float((ns[0]["r"] - ns[1]["r"]).abs().max()), float(ns[1]["r"].abs().max())
@@ -2680,7 +2780,7 @@ def press_phases(torch, mt, sweeps, soa, sh, device, gen):
             f = random_visc_inputs(torch, sweeps, prob, mat, gen, dt,
                                    0.2 if name == "J2" else 0.1)
             rows_r = hold_viscous(torch, sweeps, prob, mat, f, dt,
-                                  f"38. {size_s} random {material_tag(sweeps, mat)}",
+                                  f"38. {size_s} random {sweeps.kernel_tag(mat)}",
                                   combos=combos)
             rows += [r for r in rows_r if r["launches"] > 0]
             del f
@@ -2706,7 +2806,7 @@ def press_phases(torch, mt, sweeps, soa, sh, device, gen):
 
         # ---- the next Newton system, kernel path vs plain path ----------------------
         sd_next = NDS.translate_scene_data(sd, PRESS_PUSH[dim])
-        press_newton_system(torch, mt, prob, carry, sd_next, step_kw, f"{label} next system",
+        newton_system_parity(torch, mt, prob, carry, sd_next, step_kw, f"{label} next system",
                             gen)
         torch.cuda.empty_cache()
 
@@ -2721,7 +2821,7 @@ def press_phases(torch, mt, sweeps, soa, sh, device, gen):
         hlabel = f"{n_held}. path {tag} {f'2x{2**held}^2' if dim == 2 else f'{held}^3'} step"
         carry0 = mt.initial_carry(hprob)
         sd = NDS.translate_scene_data(hprob.contact[0]["scene"], PRESS_PUSH[dim])
-        steps = press_newton_system(torch, mt, hprob, carry0, sd, step_kw, hlabel, gen)
+        steps = newton_system_parity(torch, mt, hprob, carry0, sd, step_kw, hlabel, gen)
         out = [s(carry0, contact_scenes=[sd]) for s in steps]
         err = float((out[0]["u"] - out[1]["u"]).abs().max())
         scale = float(out[1]["u"].abs().max())
@@ -2737,6 +2837,297 @@ def press_phases(torch, mt, sweeps, soa, sh, device, gen):
             fail(f"{hlabel}: a non-finite or unengaged step")
         del hprob, carry0, steps, out
         torch.cuda.empty_cache()
+    return rows
+
+
+def j2lin_material(mt, sigma_y=None):
+    """J2Linear: E 2100, nu 0.3, density 1, no viscosity, the hardening
+    moduli of the reference's tests/test_materials.py:256-260 (isotropic 50,
+    kinematic 30), yield stress J2LIN_SIGMA_Y unless given."""
+    mat = mt.J2Linear()
+    mat.density = 1.0
+    mat.viscosity = -1.0
+    mat.set_young_poisson(2100.0, 0.3)
+    mat.isotropic_hardening, mat.kinematic_hardening = J2LIN_MODULI
+    mat.sigma_y = J2LIN_SIGMA_Y if sigma_y is None else sigma_y
+    return mat
+
+
+def law_material(mt, name, law, sigma_y=None):
+    """The J2-family material `name` with the elastic and thermal data of
+    jc_material and the PowerLaw ("pow": POWER_LAW, the reference's
+    tests/test_pallas.py:397-440) or Voce ("voce": VOCE_LAW) hardening, its
+    initial yield sigma_y where given."""
+    mat = jc_material(mt, name=name)
+    if law == "pow":
+        h = mt.PowerLawHardening()
+        h.sigma_y, h.n, h.eps0 = POWER_LAW
+    else:
+        h = mt.VoceHardening()
+        h.sigma_y, h.sigma_sat, h.strain_constant = VOCE_LAW
+    if sigma_y is not None:
+        h.sigma_y = sigma_y
+    mat.hardening = h
+    return mat
+
+
+def cube_of(mt, mat, spans, device, force=-3.0, dtype=None):
+    """The body-force cube at `spans` per axis with the material `mat`."""
+    return mt.build_problem(MESH, 1, 0, mat, [(1, 0), (1, 1), (1, 2)], {1: force},
+                            rho_inf=0.5, device=device, refine_spans=spans, dtype=dtype)
+
+
+def cantilever_of(mt, mat, elevate, subdivide, device, dtype=None):
+    """The golden cantilever's mesh (boundary 2 clamped, body force -3) with
+    the material `mat`."""
+    return mt.build_problem(BALKEN, elevate, subdivide, mat, [(2, 0), (2, 1)], {1: -3.0},
+                            rho_inf=0.5, device=device, dtype=dtype)
+
+
+def plastic_mask(mat, F, state, dt):
+    """The points on the plastic branch of a J2-family material's plain
+    return map at F."""
+    if mat.name() == "J2Linear":
+        return mat._common_soa(F, state)[3] > 0
+    if mat.name() == "J2":
+        return mat._return_map(F, state, dt)[4]
+    return mat._return_map_soa(F, state, dt)[4]
+
+
+def plastic_inputs(torch, sweeps, soa, prob, mat, gen, dt, amplitude):
+    """Random element fields and a random plastic history of the J2-family
+    material `mat` on the problem's tables (`mat` need not be the
+    problem's): the state after one plain accumulate_soa from `mat`'s
+    initial state at a random F with |F - I| up to `amplitude` per element
+    (temperature 20-120 where the material has one), eqps raised by up to
+    1e-3; u_el at another such F; a_el, v_el and w_el of unit size.
+    Returns (fields as hold_viscous takes them, plastic share of the points
+    at u_el)."""
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(prob.device, prob.dtype)  # noqa: E731
+    uni = lambda *s: torch.rand(*s, generator=gen).to(prob.device, prob.dtype)  # noqa: E731
+    nd = 27 if prob.sf is not None else prob.dense["dN_t"].shape[0]
+    shape = (prob.dim, nd, prob.n_el)
+    grad = lambda u: grad_of(sweeps, prob, u)  # noqa: E731
+    state = soa.state_to_soa(mat.init_state((prob.n_el, prob.n_q), dtype=prob.dtype,
+                                            device=prob.device))
+    if "temperature" in state:
+        state["temperature"] = 20.0 + 100.0 * uni(prob.n_q, prob.n_el)
+    u0, _ = near_identity(torch, grad, rnd(*shape), amplitude)
+    state = mat.accumulate_soa(soa.add_diag(grad(u0), 1.0), state, dt)
+    state = {k: v.contiguous() for k, v in state.items()}
+    state["eqps"] = state["eqps"] + 1e-3 * uni(prob.n_q, prob.n_el)
+    u_el, _ = near_identity(torch, grad, rnd(*shape), amplitude)
+    share = float(plastic_mask(mat, soa.add_diag(grad(u_el), 1.0), state, dt).float().mean())
+    return {"u_el": u_el, "a_el": rnd(*shape), "v_el": rnd(*shape), "w_el": rnd(*shape),
+            "state": state}, share
+
+
+def hold_branches(torch, sweeps, soa, prob, cases, dt, label, gen):
+    """Phase 43 on one problem's tables: each (material, (viscous,
+    bfloat16) combinations, amplitude) of `cases` against its plain
+    versions on random plastic input (plastic_inputs, share >= 0.25),
+    residual, assemble and matvec of every combination (hold_viscous).
+    Returns the rows (no driven path launches them: printed, not in the
+    kernels line)."""
+    rows = []
+    kind = "sf" if prob.sf is not None else "dense"
+    for mat, combos, amplitude in cases:
+        mat.setup(prob.dim)
+        tag = sweeps.kernel_tag(mat)
+        f, share = plastic_inputs(torch, sweeps, soa, prob, mat, gen, dt, amplitude)
+        say(f"[43. {label} random {tag}] {kind} tables, {prob.n_el} elements; |F - I| up to "
+            f"{amplitude}; plastic share of the points {share:.3f}; eqps of the history max "
+            f"{float(f['state']['eqps'].max()):.4e}")
+        if share < 0.25:
+            fail(f"43. {label} {tag}: plastic share {share} < 0.25: the check would not exercise "
+                 "the return map")
+        rows += hold_viscous(torch, sweeps, prob, mat, f, dt, f"43. {label} random {tag}",
+                             combos=combos, inviscid_residual=True)
+        del f
+        torch.cuda.empty_cache()
+    return rows
+
+
+def drive_path(torch, mt, sweeps, sh, prob, label, dt, step_kw, gen, min_yield):
+    """Phases 44-46 on one path: the host-built problem driven 1 warm +
+    PATH_TIMED steps (drive_dense: s/step, qp-evals/s, Newton, GMRES, drops,
+    the plastic share of each step, peak memory, the kernels launched in
+    every step), each step short of a 1e-4 Newton drop held against the
+    plain path (check_drops); the share of points with eqps > 0 after the
+    last timed step (at least `min_yield`); the path's kernels against
+    plain at the next predictor and their rows; the next Newton system
+    kernel path against plain path; one profiled step.  Returns the rows of
+    the residual and the assemble."""
+    sweeps.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    carry, step, s_step, launches, steps = drive_dense(torch, mt, sweeps, prob, label,
+                                                       PATH_TIMED, dt, step_kw)
+    yielded = float((carry["state"]["eqps"] > 0).float().mean())
+    say(f"[{label}] share of the points with eqps > 0 after the last timed step {yielded:.4f} "
+        f"(at least {min_yield})")
+    if not yielded >= min_yield:
+        fail(f"{label}: {yielded} of the points yielded, fewer than {min_yield}")
+    check_drops(torch, mt, prob, steps, dt, step_kw, label, gen)
+    del steps
+    u_el, a_el, w_el = predictor_fields(torch, sh, prob, carry, gen, dt)
+    # Near equilibrium the residual is a small difference of element forces;
+    # on sf tables F is formed with FMAs (sweeps_sf.cu), one ulp of 1 from the
+    # plain version's, which is G x 1e-7 in the stress: the path-state bar of
+    # phases 25-26, PATH_RES_BAR (the J2Linear cube read 2.0e-5 of max|y|
+    # there, NVIDIA H100 80GB HBM3).  Dense F is the plain version's to the
+    # bit: 1e-5.
+    errs, C = compare_kernels(torch, sweeps, prob, u_el, a_el, w_el, carry["state"], dt,
+                              f"{label} path",
+                              res_bar=PATH_RES_BAR if prob.sf is not None else 1e-5)
+    # the matvec instantiation is J2's, whose row the main path and phase 32
+    # time: one row per name in the kernels line
+    if prob.sf is not None:
+        rows = time_sf(torch, sweeps, prob, u_el, a_el, w_el, carry["state"], C,
+                       kernel_names(sweeps, prob)[:2], launches, errs, f"{label} timing")
+    else:
+        rows = time_dense(torch, sweeps, prob, u_el, a_el, w_el, carry["state"], C, dt,
+                          launches, errs, f"{label} timing", matvec=False)
+    del u_el, a_el, w_el, C
+    torch.cuda.empty_cache()
+    newton_system_parity(torch, mt, prob, carry, None, dict(step_kw, dt=dt),
+                         f"{label} next system", gen)
+    profile_step(torch, step, carry, s_step, f"{label} profile")
+    return rows
+
+
+def small_step(torch, mt, prob, dt, step_kw, label, gen):
+    """Phase 47: one plastic step from the initial carry, kernel path
+    against plain path at 1e-4 x max|u| where both reach a 1e-4 Newton
+    drop; a step short of it is held from its input carry
+    (hold_short_step).  Fails unless points yield on both paths."""
+    carry0 = mt.initial_carry(prob)
+    out = {impl: mt.make_step(prob, dt, residual_impl=impl, **step_kw)(carry0)
+           for impl in ("cuda", "torch")}
+    err = float((out["cuda"]["u"] - out["torch"]["u"]).abs().max())
+    scale = float(out["torch"]["u"].abs().max())
+    nc, nt = out["cuda"]["newton"], out["torch"]["newton"]
+    plastic = [int((out[i]["state"]["eqps"] > 0).sum()) for i in ("cuda", "torch")]
+    say(f"[{label}] cuda vs torch: max|du| {err:.3e} max|u| {scale:.3e} ({err / scale:.3e}); "
+        f"plastic points {plastic[0]}/{plastic[1]} of {prob.n_el * prob.n_q}; newton "
+        f"{nc['iters']}/{nt['iters']} gmres {nc['lin_iters']}/{nt['lin_iters']}; drop "
+        f"{drop_of(out['cuda']):.2e}/{drop_of(out['torch']):.2e}")
+    if min(plastic) == 0:
+        fail(f"{label}: no point yields in the step")
+    if not (nc["finite"] and nt["finite"]):
+        fail(f"{label}: non-finite state")
+    if max(drop_of(out["cuda"]), drop_of(out["torch"])) <= 1e-4:
+        # the bar of the reference package's pallas-vs-soa parity check
+        if not err <= 1e-4 * scale:
+            fail(f"{label}: one-step parity {err} > 1e-4 * {scale}")
+    else:
+        hold_short_step(torch, mt, prob, carry0, out["cuda"], dt, step_kw, label, gen,
+                        r_bar=NEWTON_R_BAR.get(prob.material.name(), 1e-4),
+                        plain=out["torch"])
+
+
+def j2lin_law_phases(torch, mt, sweeps, soa, sh, device, gen):
+    """Phases 43-47: J2Linear and the PowerLaw and Voce laws on the CUDA
+    sweeps.  43: every new instantiation against plain at full size on
+    random plastic input: J2Linear's sf (viscous and not, float32 and
+    bfloat16 blocks) on path C's 48^3 tables, its dense (2, 3) on path D's
+    512^2 tables, (2, 2) at 128^2 and (3, 2) at 2 x 8^3 (viscous and not);
+    J2, J2Simo and J2Log with each law on the 48^3 and the 512^2 tables.
+    44-46: paths C (J2Linear, 48^3 sf), D (J2Linear, 512^2 p = 3 dense) and
+    E (J2 + PowerLaw, 48^3 sf) driven (drive_path).  47: one plastic step
+    kernel path against plain path each of J2Linear at 16^3 and at 64^2
+    p = 3, J2 + PowerLaw and J2Simo + Voce at 16^3, J2Log + PowerLaw at
+    64^2 p = 3.  Returns the paths' rows of the kernels line."""
+    rows = []
+    t_start = time.perf_counter()
+    kw3 = {k: v for k, v in STEP_KW.items() if k != "dt"}
+    both = [(False, False), (False, True), (True, False), (True, True)]
+    dense_visc = [(False, False), (True, False)]
+
+    def clock(what):
+        say(f"[43-47 clock] {what}: {time.perf_counter() - t_start:.1f} s since phase 43")
+
+    def law_cases(amplitude):
+        return [(law_material(mt, name, law), [(False, False)], amplitude)
+                for name in ("J2", "J2Simo", "J2Log") for law in ("pow", "voce")]
+
+    # ---- path C's tables: 43 (sf) and 44 -------------------------------------------
+    t0 = time.perf_counter()
+    prob = cube_of(mt, j2lin_material(mt), SPANS, device)
+    torch.cuda.synchronize()
+    say(f"[44. path C {SPANS}^3 J2Linear] host build {time.perf_counter() - t0:.2f} s: n_el "
+        f"{prob.n_el}, n_q {prob.n_q}, unknowns {prob.n_dof * prob.dim}; state leaves "
+        f"{sorted(prob.state0)} ({nbytes(prob.state0) / 1e9:.3f} GB)")
+    hold_branches(torch, sweeps, soa, prob,
+                  [(j2lin_material(mt), both, J2LIN_AMPLITUDE)] + law_cases(LAW_AMPLITUDE),
+                  STEP_KW["dt"], f"{SPANS}^3", gen)
+    clock("43 on the 48^3 tables")
+    rows += drive_path(torch, mt, sweeps, sh, prob, f"44. path C {SPANS}^3 J2Linear", PATH_DT,
+                       kw3, gen, YIELD_SHARE)
+    del prob
+    torch.cuda.empty_cache()
+    clock("44")
+
+    # ---- 46. path E ------------------------------------------------------------------
+    t0 = time.perf_counter()
+    prob = cube_of(mt, law_material(mt, "J2", "pow"), SPANS, device, force=-5.0)
+    torch.cuda.synchronize()
+    say(f"[46. path E {SPANS}^3 J2 + PowerLaw] host build {time.perf_counter() - t0:.2f} s")
+    rows += drive_path(torch, mt, sweeps, sh, prob, f"46. path E {SPANS}^3 J2 + PowerLaw",
+                       PATH_DT, kw3, gen, YIELD_SHARE)
+    del prob
+    torch.cuda.empty_cache()
+    clock("46")
+
+    # ---- path D's tables: 43 (dense (2, 3)) and 45 ---------------------------------------
+    t0 = time.perf_counter()
+    prob = cantilever_of(mt, j2lin_material(mt), 2, GOLDEN_SUBDIVIDE, device)
+    torch.cuda.synchronize()
+    tag = f"{2**GOLDEN_SUBDIVIDE}^2 p=3"
+    say(f"[45. path D {tag} J2Linear] host build {time.perf_counter() - t0:.2f} s: n_el "
+        f"{prob.n_el}, n_q {prob.n_q}, unknowns {prob.n_dof * prob.dim}; dense tables "
+        f"{nbytes(prob.dense, prob.wdet_t) / 1e9:.3f} GB")
+    hold_branches(torch, sweeps, soa, prob,
+                  [(j2lin_material(mt), dense_visc, J2LIN_AMPLITUDE)] + law_cases(LAW_AMPLITUDE),
+                  PATH_DT, tag, gen)
+    clock("43 on the 512^2 tables")
+    rows += drive_path(torch, mt, sweeps, sh, prob, f"45. path D {tag} J2Linear", PATH_DT,
+                       STEP2D_KW, gen, 0.0)
+    del prob
+    torch.cuda.empty_cache()
+    clock("45")
+
+    # ---- 43: dense (2, 2) at 128^2 and (3, 2) at 2 x 8^3 -----------------------------------
+    prob = cantilever_of(mt, j2lin_material(mt), 1, P2_SUBDIVIDE, device)
+    hold_branches(torch, sweeps, soa, prob, [(j2lin_material(mt), dense_visc, J2LIN_AMPLITUDE)],
+                  PATH_DT, f"{2**P2_SUBDIVIDE}^2 p=2", gen)
+    prob = mt.build_problem(TWO_PATCH, 1, 0, j2lin_material(mt), [(0, 0), (0, 1), (0, 2)],
+                            {1: -5.0}, rho_inf=0.5, device=device, refine_spans=DENSE_CHECK_SPANS)
+    hold_branches(torch, sweeps, soa, prob, [(j2lin_material(mt), dense_visc, J2LIN_AMPLITUDE)],
+                  PATH_DT, f"2x{DENSE_CHECK_SPANS}^3", gen)
+    del prob
+    torch.cuda.empty_cache()
+    clock("43 at 128^2 and 2 x 8^3")
+
+    # ---- 47. one plastic step each, kernel path vs plain path -------------------------------
+    small = 2**STEP2D_SUBDIVIDE
+    for label, prob, kw in (
+        (f"{CHECK_SPANS}^3 J2Linear", cube_of(mt, j2lin_material(mt, SMALL_SIGMA_Y), CHECK_SPANS,
+                                              device), kw3),
+        (f"{small}^2 p=3 J2Linear", cantilever_of(mt, j2lin_material(mt, SMALL_SIGMA_Y), 2,
+                                                  STEP2D_SUBDIVIDE, device), STEP2D_KW),
+        (f"{CHECK_SPANS}^3 J2 + PowerLaw", cube_of(mt, law_material(mt, "J2", "pow", SMALL_SIGMA_Y),
+                                                   CHECK_SPANS, device, force=-5.0), kw3),
+        (f"{CHECK_SPANS}^3 J2Simo + Voce", cube_of(mt, law_material(mt, "J2Simo", "voce",
+                                                                    SMALL_SIGMA_Y),
+                                                   CHECK_SPANS, device, force=-5.0), kw3),
+        (f"{small}^2 p=3 J2Log + PowerLaw", cantilever_of(
+            mt, law_material(mt, "J2Log", "pow", SMALL_SIGMA_Y), 2, STEP2D_SUBDIVIDE, device),
+         STEP2D_KW),
+    ):
+        small_step(torch, mt, prob, PATH_DT, kw, f"47. {label} step, sigma_y {SMALL_SIGMA_Y}", gen)
+        del prob
+        torch.cuda.empty_cache()
+    clock("47")
     return rows
 
 
@@ -2938,6 +3329,10 @@ def main():
     # ---- 38-42. the viscous neo-Hookean contact presses, frozen tangent -----------------
     rows += press_phases(torch, mt, sweeps, soa, sh, device, gen)
     say(f"[clock] phases 38-42 done: {time.perf_counter() - t_main:.1f} s since phase 2")
+
+    # ---- 43-47. J2Linear and the PowerLaw and Voce laws -----------------------------------
+    rows += j2lin_law_phases(torch, mt, sweeps, soa, sh, device, gen)
+    say(f"[clock] phases 43-47 done: {time.perf_counter() - t_main:.1f} s since phase 2")
 
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {

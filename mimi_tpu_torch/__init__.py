@@ -3,8 +3,9 @@ mimi_tpu, ported to PyTorch with hand-written CUDA kernels for Hopper.
 
 The package imports torch and never jax.  It covers five paths of the
 compiled core: one polynomial 3D NURBS patch on the three sum-factorized
-quadrature sweeps, with J2 plasticity and Johnson-Cook hardening (and
-viscosity; the 37-plane Cauchy tangent), with a hyperelastic material
+quadrature sweeps, with small-strain J2 plasticity (J2 with any of the
+five hardening laws, J2Linear; and viscosity; the 37-plane Cauchy
+tangent), with a hyperelastic material
 (neo-Hookean, St. Venant-Kirchhoff; the 45-plane symmetric tangent) or with
 finite-strain J2 plasticity (J2Simo, J2Log; the 81-plane full tangent);
 mortar penalty contact against rigid spline scenes (contact/); and
@@ -21,6 +22,7 @@ from .contact.scene import NearestDistanceToSplines  # noqa: F401
 
 from .materials import (  # noqa: F401
     J2,
+    J2Linear,
     J2Log,
     J2Simo,
     CompressibleOgdenNeoHookean,
@@ -42,6 +44,7 @@ from .splines import NURBS, Bezier, BSpline  # noqa: F401
 __all__ = [
     "Material",
     "J2",
+    "J2Linear",
     "J2Simo",
     "J2Log",
     "CompressibleOgdenNeoHookean",

@@ -11,9 +11,11 @@ on detached tensors and re-injects its exact sensitivity through one
 implicit-function-theorem correction.
 
 Every model works on 2 x 2 (2D) and 3 x 3 (3D) tensors, as the reference's
-do (a true 2 x 2 tensor in 2D, the deviator over trace / 2).  Ported so
-far: `J2` (small-strain J2 with nonlinear isotropic hardening; the
-Cauchy-decomposition tangent storage, 37 planes in 3D and 14 in 2D), the finite-strain plasticity models
+do (a true 2 x 2 tensor in 2D, the deviator over trace / 2).  Ported:
+`J2` (small-strain J2 with nonlinear isotropic hardening, any of the
+reference's five laws) and `J2Linear` (small-strain J2 with linear
+isotropic and kinematic hardening, a closed-form return), both with the
+Cauchy-decomposition tangent storage (37 planes in 3D and 14 in 2D), the finite-strain plasticity models
 `J2Simo` and `J2Log` (the 81-plane `full` storage, whose planes the CUDA
 assemble kernels form by forward-mode dual numbers), and the hyperelastic
 `CompressibleOgdenNeoHookean` and `StVenantKirchhoff` (each with its
@@ -175,6 +177,65 @@ class CompressibleOgdenNeoHookean(Material):
                             x = x + self.mu
                         rows.append(x)
         return torch.stack(rows, 0).reshape(n, n, n, n, *F.shape[2:])
+
+
+class J2Linear(Material):
+    """Small-strain J2 with linear isotropic and kinematic hardening and a
+    closed-form return (the reference's materials.hpp J2Linear, "Computational
+    Methods for Plasticity" box 7.5).  State: plastic_strain, beta (the
+    back stress), eqps."""
+
+    has_state = True
+    tangent_cauchy_decomp = True  # sigma = sigma(sym F), symmetric
+
+    def __init__(self):
+        super().__init__()
+        self.isotropic_hardening = 0.0
+        self.kinematic_hardening = 0.0
+        self.sigma_y = 0.0
+
+    def init_state(self, shape_prefix, dtype=None, device="cuda"):
+        device = resolve_device(device)
+        dtype = dtype or default_dtype(device)
+        d = self.dim
+        return {
+            "plastic_strain": torch.zeros((*shape_prefix, d, d), dtype=dtype, device=device),
+            "beta": torch.zeros((*shape_prefix, d, d), dtype=dtype, device=device),
+            "eqps": torch.zeros(shape_prefix, dtype=dtype, device=device),
+        }
+
+    def _common_soa(self, F, state):
+        # the CUDA kernels (csrc/j2.cuh j2_linear_cauchy) repeat these
+        # operations in this order up to the yield decision phi > 0
+        G = self.G
+        eps = soa.add_diag(soa.sym(F) - state["plastic_strain"], -1.0)
+        p = self.K * soa.trace(eps)
+        s = soa.dev(eps, 2.0 * G)
+        eta = s - state["beta"]
+        eta_norm = soa.fro_norm(eta)
+        q = math.sqrt(1.5) * eta_norm
+        phi = q - (self.sigma_y + self.isotropic_hardening * state["eqps"])
+        denom = 3.0 * G + self.kinematic_hardening + self.isotropic_hardening
+        dps = torch.where(phi > 0.0, phi / denom, 0.0)
+        eta_hat = eta / torch.where(eta_norm > 0.0, eta_norm, 1.0)
+        return p, s, eta_hat, dps
+
+    def cauchy_soa(self, F, state, dt):
+        p, s, eta_hat, dps = self._common_soa(F, state)
+        s = s - math.sqrt(6.0) * self.G * dps * eta_hat
+        return soa.add_diag(s, p)
+
+    def pk1_soa(self, F, state, dt):
+        return _pk1_from_cauchy_soa(self.cauchy_soa(F, state, dt), F)
+
+    def accumulate_soa(self, F, state, dt):
+        _, _, eta_hat, dps = self._common_soa(F, state)
+        return {
+            "plastic_strain": state["plastic_strain"] + math.sqrt(1.5) * dps * eta_hat,
+            "beta": state["beta"]
+            + math.sqrt(2.0 / 3.0) * self.kinematic_hardening * dps * eta_hat,
+            "eqps": state["eqps"] + dps,
+        }
 
 
 class _J2ThermoBase(Material):

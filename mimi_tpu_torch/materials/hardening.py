@@ -12,12 +12,19 @@ Each law exposes
   rate_contribution_grad(rate)      its derivative
   thermo_contribution(T)         -> multiplier
   sigma_y_value()                -> initial yield, used for solver tolerances
-Inputs are tensors; the guards keep forward-mode derivatives NaN-free.
+Inputs are tensors or Python numbers (a number is taken as a float64
+tensor, and the result is a 0-d tensor); the guards keep forward-mode
+derivatives NaN-free.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def _t(x):
+    """A tensor input as it is; a Python number as a float64 0-d tensor."""
+    return x if torch.is_tensor(x) else torch.tensor(x, dtype=torch.float64)
 
 
 class Hardening:
@@ -72,9 +79,10 @@ class PowerLawHardening(Hardening):
         self.eps0 = 0.0
 
     def evaluate(self, eqps):
-        return self.sigma_y * (1.0 + eqps / self.eps0) ** (1.0 / self.n)
+        return self.sigma_y * (1.0 + _t(eqps) / self.eps0) ** (1.0 / self.n)
 
     def evaluate_grad(self, eqps):
+        eqps = _t(eqps)
         return (self.sigma_y / (self.n * self.eps0)) * (
             1.0 + eqps / self.eps0
         ) ** (1.0 / self.n - 1.0)
@@ -91,12 +99,12 @@ class VoceHardening(Hardening):
 
     def evaluate(self, eqps):
         return self.sigma_sat - (self.sigma_sat - self.sigma_y) * torch.exp(
-            -eqps / self.strain_constant
+            -_t(eqps) / self.strain_constant
         )
 
     def evaluate_grad(self, eqps):
         return ((self.sigma_sat - self.sigma_y) / self.strain_constant) * (
-            torch.exp(-eqps / self.strain_constant)
+            torch.exp(-_t(eqps) / self.strain_constant)
         )
 
     def sigma_y_value(self):
@@ -112,11 +120,13 @@ class JohnsonCookHardening(Hardening):
     def evaluate(self, eqps):
         # A for |eqps| < 1e-13; the double where keeps the derivative
         # finite at eqps == 0 (0**(n-1) would be inf)
+        eqps = _t(eqps)
         small = eqps.abs() < 1.0e-13
         safe = torch.where(small, torch.ones_like(eqps), eqps)
         return torch.where(small, self.A, self.A + self.B * safe**self.n)
 
     def evaluate_grad(self, eqps):
+        eqps = _t(eqps)
         small = eqps.abs() < 1.0e-13
         safe = torch.where(small, torch.ones_like(eqps), eqps)
         return torch.where(small, 0.0, self.B * (self.n * safe ** (self.n - 1.0)))
@@ -140,6 +150,7 @@ class JohnsonCookRateDependentHardening(JohnsonCookHardening):
     def rate_contribution(self, rate):
         # log guard: below the reference rate the contribution is 1 and
         # log is never evaluated at rate <= 0
+        rate = _t(rate)
         active = rate > self.eps0_dot
         safe = torch.where(active, rate, torch.full_like(rate, self.eps0_dot))
         return torch.where(
@@ -147,6 +158,7 @@ class JohnsonCookRateDependentHardening(JohnsonCookHardening):
         )
 
     def rate_contribution_grad(self, rate):
+        rate = _t(rate)
         active = rate > self.eps0_dot
         safe = torch.where(active, rate, torch.full_like(rate, self.eps0_dot))
         return torch.where(active, self.C / safe, 0.0)
@@ -177,6 +189,7 @@ class JohnsonCookTemperatureAndRateDependentHardening(
     def thermo_contribution(self, temperature):
         t_ref = self.reference_temperature
         t_mel = self.melting_temperature
+        temperature = _t(temperature)
         theta = (temperature - t_ref) / (t_mel - t_ref)
         return torch.where(
             temperature < t_ref,

@@ -104,8 +104,8 @@ def bind(lib):
 
     vp, ll, ci, cf = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     sigs = {
-        "residual_sf": [vp] * 15 + [_J2Params, cf, ll, vp],
-        "assemble_sf": [vp] * 16 + [ci, _J2Params, cf, ll, vp],
+        "residual_sf": [vp] * 16 + [_J2Params, cf, ci, ll, vp],
+        "assemble_sf": [vp] * 17 + [ci, _J2Params, cf, ci, ll, vp],
         "matvec_sf": [vp] * 10 + [ci, vp, cf, cf, ci, cf, ll, vp],
         "residual_sf_hyper": [vp] * 12 + [_HyperParams, cf, ci, ll, vp],
         "assemble_sf_hyper": [vp] * 13 + [ci, _HyperParams, cf, ci, ll, vp],
@@ -117,8 +117,8 @@ def bind(lib):
         "residual_dense": [vp] * 7 + [_HyperParams, cf, ci, ci, ci, ll, vp],
         "assemble_dense": [vp] * 8 + [_HyperParams, cf, ci, ci, ci, ll, vp],
         "matvec_dense": [vp] * 6 + [cf, cf, ci, cf, ci, ci, ll, vp],
-        "residual_dense_j2": [vp] * 10 + [_J2Params, cf, ci, ci, ll, vp],
-        "assemble_dense_j2": [vp] * 11 + [_J2Params, cf, ci, ci, ll, vp],
+        "residual_dense_j2": [vp] * 11 + [_J2Params, cf, ci, ci, ci, ll, vp],
+        "assemble_dense_j2": [vp] * 12 + [_J2Params, cf, ci, ci, ci, ll, vp],
         "matvec_dense_cauchy": [vp] * 6 + [cf, cf, ci, cf, ci, ci, ll, vp],
         "residual_dense_finite": [vp] * 10 + [_J2Params, ci, ci, ci, ll, vp],
         "assemble_dense_finite": [vp] * 11 + [_J2Params, ci, ci, ci, ll, vp],

@@ -61,14 +61,16 @@ struct ReturnMap {
 // d* - r(d*; q, slope) / r'(d*), zero on an elastic point.
 template <class T>
 __device__ __forceinline__ T plastic_increment(const J2Params& p, const T& q, const T& slope,
-                                               float eqps0, float thermo, ReturnMap& rm) {
+                                               bool host_slope, float eqps0, float thermo,
+                                               ReturnMap& rm) {
   if constexpr (std::is_same<T, float>::value) {
-    return radial_return(p, q, eqps0, thermo, slope, &rm.active, &rm.fprime, &rm.dstar);
+    return radial_return(p, q, eqps0, thermo, slope, host_slope, &rm.active, &rm.fprime,
+                         &rm.dstar);
   } else {
     if (!rm.active) return T(0.f);
     float H, dH, R, dR;
-    jc_flow(p, eqps0 + rm.dstar, H, dH);
-    jc_rate(p, rm.dstar / p.dt, R, dR);
+    flow(p, rn::add(eqps0, rm.dstar), H, dH);
+    jc_rate(p, rn::mul(rm.dstar, p.inv_dt), R, dR);
     const T r = q - slope * rm.dstar - H * (R * thermo);
     return rm.dstar - r / rm.fprime;
   }
@@ -262,7 +264,7 @@ struct J2SimoMat : FiniteMat<J2SimoMat<DIM>, DIM> {
         N[i][j] = near_zero ? T(i == j ? sqrtf(0.5f) : 0.f) : shat * s[i][j];
     const T q = sm::ddot(N, s);
     const T tr = sm::trace(be);
-    const T delta = plastic_increment(p, q, T(p.G) * tr, e0, thermo, rm);
+    const T delta = plastic_increment(p, q, T(p.G) * tr, false, e0, thermo, rm);
     const T coef = (2.f / 3.f) * delta * tr;
 #pragma unroll
     for (int i = 0; i < DIM; ++i)
@@ -305,7 +307,7 @@ struct J2LogMat : FiniteMat<J2LogMat<DIM>, DIM> {
     const T pr = p.K * sm::trace(E);
     sm::dev(E, 2.f * p.G, s);
     const T q = sqrtf(1.5f) * sm::fro_norm(s);
-    const T delta = plastic_increment(p, q, T(3.f * p.G), e0, thermo, rm);
+    const T delta = plastic_increment(p, q, T(p.g3), true, e0, thermo, rm);
     const T npf = 1.5f / (val(q) > 0.f ? q : T(1.f));
     const T g = (2.f * p.G) * delta;
 #pragma unroll

@@ -50,3 +50,6 @@ inline float __uint_as_float(unsigned u) {
   memcpy(&f, &u, sizeof f);
   return f;
 }
+
+// torch's pow(x, -0.5) on the card (rsqrt); here 1 / sqrt
+inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }

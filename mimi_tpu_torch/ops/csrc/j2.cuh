@@ -1,13 +1,32 @@
-// Small-strain J2 plasticity with Johnson-Cook hardening, shared by the
-// sum-factorized (sweeps_sf.cu, through sf_common.cuh) and the dense-table
-// (sweeps_dense_j2.cu) CUDA sweeps, for sm_90a: the kernel parameters, the
-// hardening law, the safeguarded radial return, the Cauchy stress and its
-// closed-form algorithmic tangent at one point, and the Cauchy-decomposition
-// tangent storage, all templated on the dimension DIM (2 or 3).
+// Small-strain J2 plasticity, shared by the sum-factorized (sweeps_sf.cu,
+// through sf_common.cuh) and the dense-table (sweeps_dense_j2.cu) CUDA
+// sweeps, for sm_90a: the kernel parameters, the hardening laws, the
+// safeguarded radial return, and two point bodies, each with its Cauchy
+// stress and closed-form algorithmic tangent at one point: J2 (nonlinear
+// isotropic hardening by one of the reference's laws, j2_cauchy) and
+// J2Linear (linear isotropic and kinematic hardening, a closed-form return,
+// j2_linear_cauchy); then the Cauchy-decomposition tangent storage, all
+// templated on the dimension DIM (2 or 3).
+//
+// The laws (J2Params::law, uniform across a launch like thermo_mode): the
+// Johnson-Cook family, H = A + B e^n (with the rate and temperature factors
+// of its subclasses); PowerLaw, H = sigma_y (1 + e / eps0)^(1/n); Voce,
+// H = sigma_sat - (sigma_sat - sigma_y) exp(-e / c).  PowerLaw and Voce are
+// rate- and temperature-independent.  The laws, the thermal factor, the
+// scalar solve and J2's stress are formed in the plain version's operation
+// order without FMA (materials/hardening.py, materials/__init__.py,
+// materials/scalar_solve.py), as torch evaluates them on the card: a tensor
+// divided by a Python number d is multiplied by float(1 / d), the
+// reciprocal taken in double (the host passes it); a number divided by a
+// tensor x is 1 / x times the number; pow(x, e) by a Python number e is
+// sqrt, x x, x x x, rsqrt, 1 / x or 1 / (x x) at e = 0.5, 2, 3, -0.5, -1, -2
+// (the J2Params pow modes), powf otherwise.  On dense tables, where F
+// agrees with the plain version's to the bit, J2's stress, yield decision,
+// float32 root and increment do too.
 //
 // In 2D the reference uses a true 2 x 2 tensor (materials/__init__.py J2,
 // fem/soa.py dev over trace / 2), not plane strain in a 3 x 3 embedding.
-// The algorithmic tangent
+// J2's algorithmic tangent
 //   M = K 1(x)1 + 2G (1 - 3G d/q) I_dev + 6G^2 (d/q - 1/(3G + h')) n(x)n,
 //   I_dev = I_sym - 1(x)1 / DIM, n = s / |s|, q = sqrt(3/2) |s|,
 //   h' = -dr/dd - 3G at the converged increment,
@@ -16,7 +35,8 @@
 // of the reference implementation (including its implicit-function-theorem
 // correction d = d* - r/r') and is written as tensor components C_ijkl over
 // the symmetric basis sym_basis(DIM), upper triangle: 21 planes in 3D, 6 in
-// 2D (ops/sweeps.py cauchy_plane_layout).
+// 2D (ops/sweeps.py cauchy_plane_layout).  J2Linear's has the same shape
+// with eta = s - beta in place of s (j2_linear_cauchy).
 
 #pragma once
 
@@ -27,36 +47,96 @@
 #include "materials.cuh"
 
 // the J2-family kernel parameters (the C entry points' parameter block;
-// mirrored by ops/sweeps.py _J2Params)
+// mirrored field by field by ops/sweeps.py _J2Params).  A reciprocal
+// float(1 / x) is taken on the host in double, as torch forms a tensor
+// divided by a Python number on the card.
 struct J2Params {
   float K, G, A, B, n, C, eps0_dot, t_ref, t_melt, m, thermo_const, tol, xtol,
       dt, rho;
   int rate_dep, thermo_mode, max_iter;
+  // the hardening law (LAW_*); how torch evaluates the powers x^pw of the
+  // flow stress, x^dpw of its derivative and theta^m of the thermal factor
+  // (POW_*)
+  int law, pow_mode, dpow_mode, m_mode;
+  // pw, dpw: n and n - 1 (Johnson-Cook), 1 / n and 1 / n - 1 (PowerLaw)
+  float pw, dpw;
+  // PowerLaw: sigma_y, float(1 / eps0), dH = dh_coef (1 + e / eps0)^dpw;
+  // Voce: sigma_sat, sat_diff = sigma_sat - sigma_y, float(1 / c),
+  // dH = dv_coef exp(-e / c); J2Linear: sigma_y
+  float sigma_y, inv_eps0, dh_coef, sigma_sat, sat_diff, inv_c, dv_coef;
+  // float(3G) (the slope of J2's and J2Log's return), float(1 / (3G)),
+  // float(1 / dt), float(1 / eps0_dot), float(1 / (t_melt - t_ref))
+  float g3, inv_g3, inv_dt, inv_eps0_dot, inv_dtemp;
+  // J2Linear: the isotropic and kinematic hardening moduli, sqrt(6) G and
+  // float(1 / (3G + h_kin + h_iso))
+  float h_iso, h_kin, sqrt6_g, inv_denom;
 };
 
+// J2Params::law
+enum { LAW_JC = 0, LAW_POWER = 1, LAW_VOCE = 2 };
+// J2Params::*_mode: how torch's pow(x, e) evaluates an exponent e
+enum {
+  POW_GENERAL = 0, POW_SQRT, POW_SQUARE, POW_CUBE, POW_RSQRT, POW_RECIP, POW_INV_SQUARE,
+  POW_IDENTITY, POW_ZERO
+};
 
 namespace {
 
-// ---- Johnson-Cook hardening and the radial-return residual -------------
+// ---- the hardening laws and the radial return ------------------------------
+//
+// Every operation of the return map follows the plain version's
+// (materials/hardening.py, materials/__init__.py _solve_delta_eqps,
+// materials/scalar_solve.py) one by one without FMA, so that with the same
+// trial state the kernel finds the same float32 root, slope and increment
+// as the plain version: the tangent's c2 = 6G^2 (d/q - 1/(3G + h')) then
+// agrees with it even where h' is unbounded (Johnson-Cook with n < 1 at a
+// point yielding from eqps 0).
 
-__device__ __forceinline__ void jc_flow(const J2Params& p, float e, float& H,
-                                        float& dH) {
-  // A for |eqps| < 1e-13: keeps powf(0, n - 1) out of the derivative
-  if (fabsf(e) < 1.0e-13f) {
-    H = p.A;
-    dH = 0.f;
-  } else {
-    H = p.A + p.B * powf(e, p.n);
-    dH = p.B * (p.n * powf(e, p.n - 1.f));
+// x^e as torch's pow(tensor, e) evaluates it on the card
+__device__ __forceinline__ float torch_pow(int mode, float e, float x) {
+  switch (mode) {
+    case POW_SQRT: return sqrtf(x);
+    case POW_SQUARE: return rn::mul(x, x);
+    case POW_CUBE: return rn::mul(rn::mul(x, x), x);
+    case POW_RSQRT: return rsqrtf(x);
+    case POW_RECIP: return rn::div(1.f, x);
+    case POW_INV_SQUARE: return rn::div(1.f, rn::mul(x, x));
+    case POW_IDENTITY: return x;
+    case POW_ZERO: return 1.f;
+    default: return powf(x, e);
   }
 }
 
+// the flow stress H(e) and its derivative dH (hardening.py evaluate,
+// evaluate_grad)
+__device__ __forceinline__ void flow(const J2Params& p, float e, float& H, float& dH) {
+  using namespace rn;
+  if (p.law == LAW_POWER) {
+    const float base = add(mul(e, p.inv_eps0), 1.f);  // 1.0 + eqps / eps0
+    H = mul(torch_pow(p.pow_mode, p.pw, base), p.sigma_y);
+    dH = mul(torch_pow(p.dpow_mode, p.dpw, base), p.dh_coef);
+  } else if (p.law == LAW_VOCE) {
+    const float x = expf(mul(-e, p.inv_c));  // exp(-eqps / c)
+    H = sub(p.sigma_sat, mul(x, p.sat_diff));
+    dH = mul(x, p.dv_coef);
+  } else if (fabsf(e) < 1.0e-13f) {
+    // Johnson-Cook: A for |eqps| < 1e-13 keeps 0^(n - 1) out of dH
+    H = p.A;
+    dH = 0.f;
+  } else {
+    H = add(p.A, mul(p.B, torch_pow(p.pow_mode, p.pw, e)));
+    dH = mul(p.B, mul(torch_pow(p.dpow_mode, p.dpw, e), p.n));
+  }
+}
+
+// the Johnson-Cook rate factor R(rate) and dR / d rate: 1 and 0 at or
+// below the reference rate (logf never sees it) and for the other laws
 __device__ __forceinline__ void jc_rate(const J2Params& p, float rate, float& R,
                                         float& dR) {
-  // rate guard: logf only above the reference rate
+  using namespace rn;
   if (p.rate_dep && rate > p.eps0_dot) {
-    R = 1.f + p.C * logf(rate / p.eps0_dot);
-    dR = p.C / rate;
+    R = add(mul(logf(mul(rate, p.inv_eps0_dot)), p.C), 1.f);
+    dR = mul(div(1.f, rate), p.C);  // C / rate: torch takes the reciprocal
   } else {
     R = 1.f;
     dR = 0.f;
@@ -68,8 +148,8 @@ __device__ __forceinline__ float jc_thermo(const J2Params& p, float T) {
   if (p.thermo_mode == 0) return 1.f;
   if (T < p.t_ref) return 1.f;
   if (T > p.t_melt) return 0.f;
-  const float theta = (T - p.t_ref) / (p.t_melt - p.t_ref);
-  return 1.f - powf(fmaxf(theta, 0.f), p.m);
+  const float theta = rn::mul(rn::sub(T, p.t_ref), p.inv_dtemp);
+  return rn::sub(1.f, torch_pow(p.m_mode, p.m, fmaxf(theta, 0.f)));
 }
 
 // r(d) = q - slope d - H(eqps0 + d) (R(d / dt) thermo) and dr/dd; slope is
@@ -77,60 +157,58 @@ __device__ __forceinline__ float jc_thermo(const J2Params& p, float T) {
 __device__ __forceinline__ void rr_residual(const J2Params& p, float d, float q,
                                             float eqps0, float thermo, float slope,
                                             float& r, float& dr) {
+  using namespace rn;
   float H, dH, R, dR;
-  jc_flow(p, eqps0 + d, H, dH);
-  jc_rate(p, d / p.dt, R, dR);
-  r = q - slope * d - H * (R * thermo);
-  dr = -slope - (dH * (R * thermo) + H * ((dR / p.dt) * thermo));
-}
-
-// r(0) = q - H(eqps0) thermo in the plain version's operation order without
-// FMA (materials/hardening.py: A + B eqps0^n; the rate contribution at rate
-// 0 is 1), so that the yield decision r(0) > tol agrees with it to the bit
-// given the same q: a point at the yield surface then takes the same branch
-// in both, and the tangent planes can be held point by point
-__device__ __forceinline__ float trial_residual(const J2Params& p, float q, float eqps0,
-                                                float thermo) {
-  const float H =
-      fabsf(eqps0) < 1.0e-13f ? p.A : __fadd_rn(p.A, __fmul_rn(p.B, powf(eqps0, p.n)));
-  return __fsub_rn(q, __fmul_rn(H, thermo));
+  flow(p, add(eqps0, d), H, dH);
+  jc_rate(p, mul(d, p.inv_dt), R, dR);
+  const float RT = mul(R, thermo);
+  r = sub(sub(q, mul(slope, d)), mul(H, RT));
+  dr = sub(-slope, add(mul(dH, RT), mul(H, mul(mul(dR, p.inv_dt), thermo))));
 }
 
 // Safeguarded Newton-bisection on [0, ub] with the reference's rules
 // (materials/scalar_solve.py), early exit per thread, then the
-// implicit-function-theorem correction.  Returns delta (0 when elastic),
-// dr/dd at the solution in *fprime and the uncorrected root in *dstar
-// (both left alone when elastic).
-__device__ float radial_return(const J2Params& p, float q, float eqps0,
-                               float thermo, float slope, bool* active,
-                               float* fprime, float* dstar) {
-  *active = trial_residual(p, q, eqps0, thermo) > p.tol;
+// implicit-function-theorem correction.  The yield decision r(0) > tol
+// agrees with the plain version's to the bit given the same q, so a point
+// at the yield surface takes the same branch in both.  host_slope: the
+// plain version's slope is the number 3G (J2, J2Log; ub = (q - H thermo)
+// times float(1 / (3G))), else a tensor (J2Simo; ub divides).  Returns
+// delta (0 when elastic), dr/dd at the solution in *fprime and the
+// uncorrected root in *dstar (both left alone when elastic).
+__device__ float radial_return(const J2Params& p, float q, float eqps0, float thermo,
+                               float slope, bool host_slope, bool* active, float* fprime,
+                               float* dstar) {
+  using namespace rn;
+  float f_lo, tmp;
+  rr_residual(p, 0.f, q, eqps0, thermo, slope, f_lo, tmp);
+  *active = f_lo > p.tol;
   if (!*active) return 0.f;
   float H0, dH0;
-  jc_flow(p, eqps0, H0, dH0);
+  flow(p, eqps0, H0, dH0);
+  const float ub = sub(q, mul(H0, thermo));
   const float lo = 0.f;
-  const float hi = (q - H0 * thermo) / slope;
-  float f_lo, f_hi, tmp;
-  rr_residual(p, lo, q, eqps0, thermo, slope, f_lo, tmp);
+  const float hi = host_slope ? mul(ub, p.inv_g3) : div(ub, slope);
+  float f_hi;
   rr_residual(p, hi, q, eqps0, thermo, slope, f_hi, tmp);
   const bool swap = f_lo > 0.f;
   float xl = swap ? hi : lo;
   float xh = swap ? lo : hi;
-  float x = (0.f < lo || 0.f > hi) ? 0.5f * (lo + hi) : 0.f;
-  float dx = fabsf(hi - lo);
+  float x = (0.f < lo || 0.f > hi) ? mul(add(lo, hi), 0.5f) : 0.f;
+  float dx = fabsf(sub(hi, lo));
   float dxo = dx;
   float f, df;
   rr_residual(p, x, q, eqps0, thermo, slope, f, df);
   for (int it = 0; it < p.max_iter; ++it) {
-    const bool bisect = ((x - xh) * df - f > 0.f) || ((x - xl) * df - f < 0.f) ||
-                        (fabsf(2.f * f) > fabsf(dxo * df));
+    const bool bisect = (sub(mul(sub(x, xh), df), f) > 0.f) ||
+                        (sub(mul(sub(x, xl), df), f) < 0.f) ||
+                        (fabsf(mul(2.f, f)) > fabsf(mul(dxo, df)));
     dxo = dx;
     if (bisect) {
-      dx = 0.5f * (xh - xl);
-      x = xl + dx;
+      dx = mul(sub(xh, xl), 0.5f);
+      x = add(xl, dx);
     } else {
-      dx = f / df;
-      x = x - f / df;
+      dx = div(f, df);
+      x = sub(x, dx);
     }
     rr_residual(p, x, q, eqps0, thermo, slope, f, df);
     const bool conv = (fabsf(dx) < p.xtol) || (fabsf(f) < p.tol);
@@ -146,7 +224,7 @@ __device__ float radial_return(const J2Params& p, float q, float eqps0,
   rr_residual(p, x, q, eqps0, thermo, slope, fv, fp);
   *fprime = fp;
   *dstar = x;
-  return x - fv / fp;
+  return sub(x, div(fv, fp));
 }
 
 // ---- the symmetric (Voigt) basis of DIM x DIM tensors ----------------------
@@ -170,20 +248,18 @@ struct Voigt {
   }
 };
 
-// ---- the J2 point body -------------------------------------------------------
+// ---- the point bodies --------------------------------------------------------
 
-// J2 Cauchy stress at one point; with TANGENT also the NT D-hat planes
-template <int DIM, bool TANGENT>
-__device__ __forceinline__ void j2_cauchy(const J2Params& p, const float F[DIM][DIM],
-                                          const float ps[DIM][DIM], float eqps,
-                                          float temp, float sig[DIM][DIM],
-                                          float Mt[Voigt<DIM>::NT]) {
-  using V = Voigt<DIM>;
+// The trial state of both bodies in the operation order of
+// materials/__init__.py (J2._trial_soa, J2Linear._common_soa) without FMA:
+// eps = sym(F) - ps - I, p = K tr(eps), s = 2G (eps - tr(eps) / DIM I) with
+// tr / DIM as torch forms it on the card (times float(1 / DIM)).  With the
+// same F, s agrees with the plain version's to the bit.
+template <int DIM>
+__device__ __forceinline__ void j2_trial(const J2Params& p, const float F[DIM][DIM],
+                                         const float ps[DIM][DIM], float s[DIM][DIM],
+                                         float& pr) {
   using namespace rn;
-  // the trial state in the operation order of materials/__init__.py
-  // J2._trial_soa without FMA (eps = sym(F) - ps - I, the deviator over
-  // trace / DIM, q = sqrt(3/2) |s|): with the same F, q agrees with the
-  // plain version's to the bit, and with it the yield decision
   float eps[DIM][DIM];
 #pragma unroll
   for (int i = 0; i < DIM; ++i)
@@ -195,30 +271,74 @@ __device__ __forceinline__ void j2_cauchy(const J2Params& p, const float F[DIM][
   float tr = eps[0][0];
 #pragma unroll
   for (int i = 1; i < DIM; ++i) tr = add(tr, eps[i][i]);
-  const float pr = mul(p.K, tr);
-  const float trd = div(tr, (float)DIM);
+  pr = mul(p.K, tr);
+  const float trd = mul(tr, (float)(1.0 / DIM));
   const float G2 = 2.f * p.G;  // exact
-  float s[DIM][DIM];
+#pragma unroll
+  for (int i = 0; i < DIM; ++i)
+#pragma unroll
+    for (int j = 0; j < DIM; ++j) s[i][j] = mul(G2, i == j ? sub(eps[i][j], trd) : eps[i][j]);
+}
+
+// |A| summed row by row from 0, as fem/soa.py fro_norm
+template <int DIM>
+__device__ __forceinline__ float fro_norm(const float A[DIM][DIM]) {
   float ss = 0.f;
 #pragma unroll
   for (int i = 0; i < DIM; ++i)
 #pragma unroll
-    for (int j = 0; j < DIM; ++j) {
-      s[i][j] = mul(G2, i == j ? sub(eps[i][j], trd) : eps[i][j]);
-      ss = add(ss, mul(s[i][j], s[i][j]));
+    for (int j = 0; j < DIM; ++j) ss = rn::add(ss, rn::mul(A[i][j], A[i][j]));
+  return sqrtf(ss);
+}
+
+// the NT D-hat planes K 1(x)1 + c1 I_dev + c2 sym(n (x) m), upper triangle
+// over the symmetric basis: m = n for J2, m = dev(n) for J2Linear
+template <int DIM>
+__device__ __forceinline__ void j2_planes(float K, float c1, float c2, const float n[DIM][DIM],
+                                          const float m[DIM][DIM], float Mt[Voigt<DIM>::NT]) {
+  using V = Voigt<DIM>;
+  int k = 0;
+#pragma unroll
+  for (int a = 0; a < V::NS; ++a)
+#pragma unroll
+    for (int b = a; b < V::NS; ++b) {
+      const int i = V::i(a), j = V::j(a), kk = V::i(b), l = V::j(b);
+      const float dij = i == j ? 1.f : 0.f, dkl = kk == l ? 1.f : 0.f;
+      const float isym = 0.5f * ((i == kk && j == l ? 1.f : 0.f) +
+                                 (i == l && j == kk ? 1.f : 0.f));
+      const float idev = isym - dij * dkl / (float)DIM;
+      Mt[k++] = K * dij * dkl + c1 * idev +
+                c2 * (0.5f * (n[i][j] * m[kk][l] + m[i][j] * n[kk][l]));
     }
-  const float snorm = sqrtf(ss);
-  const float q = mul(sqrtf(1.5f), snorm);
+}
+
+// J2 Cauchy stress at one point; with TANGENT also the NT D-hat planes.
+// q = sqrt(3/2) |s| agrees with the plain version's to the bit given the
+// same F, and with it the yield decision
+template <int DIM, bool TANGENT>
+__device__ __forceinline__ void j2_cauchy(const J2Params& p, const float F[DIM][DIM],
+                                          const float ps[DIM][DIM], float eqps,
+                                          float temp, float sig[DIM][DIM],
+                                          float Mt[Voigt<DIM>::NT]) {
+  float s[DIM][DIM], pr;
+  j2_trial<DIM>(p, F, ps, s, pr);
+  const float G2 = 2.f * p.G;
+  const float snorm = fro_norm<DIM>(s);
+  const float q = rn::mul(sqrtf(1.5f), snorm);
   bool active;
   float fprime = 0.f, dstar;
   const float delta =
-      radial_return(p, q, eqps, jc_thermo(p, temp), 3.f * p.G, &active, &fprime, &dstar);
-  const float npf = 1.5f / (q > 0.f ? q : 1.f);
+      radial_return(p, q, eqps, jc_thermo(p, temp), p.g3, true, &active, &fprime, &dstar);
+  // sigma = s - 2G delta N_p + p I, N_p = 1.5 / q s (torch takes 1 / q)
+  const float npf = rn::mul(rn::div(1.f, q > 0.f ? q : 1.f), 1.5f);
+  const float gd = rn::mul(delta, G2);
 #pragma unroll
   for (int i = 0; i < DIM; ++i)
 #pragma unroll
-    for (int j = 0; j < DIM; ++j)
-      sig[i][j] = (s[i][j] - G2 * delta * (npf * s[i][j])) + (i == j ? pr : 0.f);
+    for (int j = 0; j < DIM; ++j) {
+      const float x = rn::sub(s[i][j], rn::mul(gd, rn::mul(npf, s[i][j])));
+      sig[i][j] = i == j ? rn::add(x, pr) : x;
+    }
   if (TANGENT) {
     const float G = p.G;
     float c1 = G2, c2 = 0.f;
@@ -228,19 +348,69 @@ __device__ __forceinline__ void j2_cauchy(const J2Params& p, const float F[DIM][
       c2 = 6.f * G * G * (delta / q - 1.f / (3.f * G + h));
     }
     const float inv_s = snorm > 0.f ? 1.f / snorm : 0.f;
-    int k = 0;
+    float n[DIM][DIM];
 #pragma unroll
-    for (int a = 0; a < V::NS; ++a)
+    for (int i = 0; i < DIM; ++i)
 #pragma unroll
-      for (int b = a; b < V::NS; ++b) {
-        const int i = V::i(a), j = V::j(a), kk = V::i(b), l = V::j(b);
-        const float dij = i == j ? 1.f : 0.f, dkl = kk == l ? 1.f : 0.f;
-        const float isym = 0.5f * ((i == kk && j == l ? 1.f : 0.f) +
-                                   (i == l && j == kk ? 1.f : 0.f));
-        const float idev = isym - dij * dkl / (float)DIM;
-        Mt[k++] = p.K * dij * dkl + c1 * idev +
-                  c2 * (s[i][j] * inv_s) * (s[kk][l] * inv_s);
-      }
+      for (int j = 0; j < DIM; ++j) n[i][j] = s[i][j] * inv_s;
+    j2_planes<DIM>(p.K, c1, c2, n, n, Mt);
+  }
+}
+
+// J2Linear Cauchy stress at one point (materials/__init__.py
+// J2Linear._common_soa, cauchy_soa): eta = s - beta, q = sqrt(3/2) |eta|,
+// phi = q - (sigma_y + h_iso eqps), the increment dps = phi / (3G + h_kin +
+// h_iso) where phi > 0 (the yield decision, to the bit with the plain
+// version's given the same F), sigma = s - sqrt(6) G dps eta / |eta| + p I.
+// With TANGENT also the NT D-hat planes, the forward derivative of that:
+//   D = K 1(x)1 + 2G (1 - 3G dps/q) I_dev
+//       + 6G^2 (dps/q - 1/(3G + h_kin + h_iso)) sym(n (x) dev(n)),
+// n = eta / |eta|, which is K 1(x)1 + 2G I_dev on an elastic point and J2's
+// shape where beta is deviatoric (dev(n) = n).
+template <int DIM, bool TANGENT>
+__device__ __forceinline__ void j2_linear_cauchy(const J2Params& p, const float F[DIM][DIM],
+                                                 const float ps[DIM][DIM],
+                                                 const float beta[DIM][DIM], float eqps,
+                                                 float sig[DIM][DIM],
+                                                 float Mt[Voigt<DIM>::NT]) {
+  using namespace rn;
+  float s[DIM][DIM], pr;
+  j2_trial<DIM>(p, F, ps, s, pr);
+  float n[DIM][DIM];  // eta, then eta / |eta|
+#pragma unroll
+  for (int i = 0; i < DIM; ++i)
+#pragma unroll
+    for (int j = 0; j < DIM; ++j) n[i][j] = sub(s[i][j], beta[i][j]);
+  const float enorm = fro_norm<DIM>(n);
+  const float q = mul(sqrtf(1.5f), enorm);
+  const float phi = sub(q, add(mul(eqps, p.h_iso), p.sigma_y));
+  const float dps = phi > 0.f ? mul(phi, p.inv_denom) : 0.f;
+  const float en = enorm > 0.f ? enorm : 1.f;
+  const float c = mul(dps, p.sqrt6_g);
+#pragma unroll
+  for (int i = 0; i < DIM; ++i)
+#pragma unroll
+    for (int j = 0; j < DIM; ++j) {
+      n[i][j] = div(n[i][j], en);
+      const float x = sub(s[i][j], mul(c, n[i][j]));
+      sig[i][j] = i == j ? add(x, pr) : x;
+    }
+  if (TANGENT) {
+    const float G = p.G, G2 = 2.f * p.G;
+    float c1 = G2, c2 = 0.f;
+    if (phi > 0.f) {
+      c1 = G2 * (1.f - 3.f * G * dps / q);
+      c2 = 6.f * G * G * (dps / q - p.inv_denom);
+    }
+    float tn = n[0][0];
+#pragma unroll
+    for (int i = 1; i < DIM; ++i) tn += n[i][i];
+    float dn[DIM][DIM];
+#pragma unroll
+    for (int i = 0; i < DIM; ++i)
+#pragma unroll
+      for (int j = 0; j < DIM; ++j) dn[i][j] = i == j ? n[i][j] - tn / (float)DIM : n[i][j];
+    j2_planes<DIM>(p.K, c1, c2, n, dn, Mt);
   }
 }
 

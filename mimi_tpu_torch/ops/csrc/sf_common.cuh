@@ -2,7 +2,7 @@
 // Cauchy storage, the hyperelastic materials with the symmetric storage)
 // and sweeps_sf_finite.cu (J2Simo and J2Log with the full storage), for
 // sm_90a: the 1D basis tables, interpolation and scatter of one element's
-// fields at one point (the Johnson-Cook radial return is in j2.cuh, the
+// fields at one point (the J2 return maps are in j2.cuh, the
 // storages in materials.cuh), and the residual / matvec kernel templates
 // with their launchers.  Each source instantiates what it needs; the design
 // notes are at the head of sweeps_sf.cu.

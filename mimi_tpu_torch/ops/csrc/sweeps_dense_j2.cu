@@ -1,20 +1,23 @@
 // Dense-table quadrature sweeps of the implicit step for small-strain J2
-// with the Cauchy-decomposition tangent storage, for sm_90a.
+// (any of the reference's hardening laws) and J2Linear with the
+// Cauchy-decomposition tangent storage, for sm_90a.
 //
 // Three kernels, each replacing one Pallas TPU kernel of
 // mimi_tpu/ops/sweeps.py in its dense-table branch with c_storage="cauchy":
-//   mimi_residual_dense_j2   <- make_residual_sweep (dense, J2 state)   residual only
+//   mimi_residual_dense_j2   <- make_residual_sweep (dense, J2 state)    residual only
 //   mimi_assemble_dense_j2   <- make_assemble_sweep (dense, "cauchy")   residual + Cauchy block
 //   mimi_matvec_dense_cauchy <- make_matvec_sweep ("cauchy")           y = J w
 // each inviscid or viscous (VISC, as sweeps_dense.cu says),
 // on the kernel templates of dense_common.cuh (design notes at the head of
 // sweeps_dense.cu), for (DIM, P) = (2, 2), (2, 3) and (3, 2).  The plain
 // torch versions are residual_dense_plain, assemble_dense_plain and
-// matvec_dense_plain with the J2 material (ops/sweeps.py).
+// matvec_dense_plain with the J2 or J2Linear material (ops/sweeps.py).
 //
-// The point body is j2.cuh's: the radial return on the point's state
+// The point bodies are j2.cuh's: J2's radial return on the point's state
 // (plastic strain (DIM, DIM, NQ, E), eqps and temperature (NQ, E), read
-// once per point) and the closed-form algorithmic tangent, stored as
+// once per point) or J2Linear's closed-form return (plastic strain, the
+// back stress beta (DIM, DIM, NQ, E) and eqps), and the closed-form
+// algorithmic tangent, stored as
 // CauchyStorage<DIM>: D-hat, sigma, F^-1 and J, 37 planes in 3D and 14 in
 // 2D (6 + 3 + 4 + 1).  The matvec rebuilds P = J sigma F^-T and applies the
 // geometric terms per point.
@@ -33,19 +36,24 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "dense_common.cuh"
 #include "j2.cuh"
 #include "materials.cuh"
 
 namespace {
 
-// J2 with its per-point state on the dense kernels' material interface
-template <int DIM>
+// J2 (LINEAR false: plastic strain, eqps, temperature) or J2Linear (LINEAR
+// true: plastic strain, eqps, beta) with its per-point state on the dense
+// kernels' material interface
+template <int DIM, bool LINEAR>
 struct DenseJ2 {
   J2Params p;
   const float* ps;
   const float* eqps;
-  const float* temp;
+  const float* temp;  // J2
+  const float* beta;  // J2Linear
   struct Point {  // what CauchyStorage<DIM> stores
     float Mt[Voigt<DIM>::NT], sig[DIM][DIM], fi[DIM][DIM], J;
   };
@@ -57,7 +65,16 @@ struct DenseJ2 {
     for (int i = 0; i < DIM; ++i)
 #pragma unroll
       for (int j = 0; j < DIM; ++j) pst[i][j] = __ldg(ps + (i * DIM + j) * QE + qe);
-    j2_cauchy<DIM, TANGENT>(p, F, pst, __ldg(eqps + qe), __ldg(temp + qe), pt.sig, pt.Mt);
+    if constexpr (LINEAR) {
+      float bt[DIM][DIM];
+#pragma unroll
+      for (int i = 0; i < DIM; ++i)
+#pragma unroll
+        for (int j = 0; j < DIM; ++j) bt[i][j] = __ldg(beta + (i * DIM + j) * QE + qe);
+      j2_linear_cauchy<DIM, TANGENT>(p, F, pst, bt, __ldg(eqps + qe), pt.sig, pt.Mt);
+    } else {
+      j2_cauchy<DIM, TANGENT>(p, F, pst, __ldg(eqps + qe), __ldg(temp + qe), pt.sig, pt.Mt);
+    }
     pt.J = rn::det(F);
     rn::inv(F, pt.fi);
 #pragma unroll
@@ -67,56 +84,58 @@ struct DenseJ2 {
   }
 };
 
-template <bool TANGENT, bool VISC>
+// the residual (TANGENT false) or assemble kernel of J2 (material 0) or
+// J2Linear (material 1) at (dim, deg), inviscid or viscous
+template <bool TANGENT>
 int j2_entry(const float* u_el, const float* a_el, const float* v_el, const float* dN,
              const float* N, const float* wq, const float* ps, const float* eqps,
-             const float* temp, float* out, float* cout, const J2Params& p, float mu_v,
-             int dim, int deg, long long E, void* stream) {
+             const float* temp, const float* beta, float* out, float* cout, const J2Params& p,
+             float mu_v, int material, int dim, int deg, long long E, void* stream) {
+  if (E <= 0) return 0;
+  if (material != 0 && material != 1) return cudaErrorInvalidValue;
   return with_dense_shape(dim, deg, [&](auto D, auto G) {
     constexpr int DIM = decltype(D)::value, P = decltype(G)::value;
-    return launch_dense_residual<DenseJ2<DIM>, CauchyStorage<DIM>, DIM, P, TANGENT, VISC>(
-        u_el, a_el, dN, N, wq, out, cout, DenseJ2<DIM>{p, ps, eqps, temp}, p.rho, E, stream,
-        v_el, mu_v);
+    auto go = [&](auto linear) {
+      constexpr bool LINEAR = decltype(linear)::value;
+      using Mat = DenseJ2<DIM, LINEAR>;
+      const Mat mat{p, ps, eqps, temp, beta};
+      if (v_el)
+        return launch_dense_residual<Mat, CauchyStorage<DIM>, DIM, P, TANGENT, true>(
+            u_el, a_el, dN, N, wq, out, cout, mat, p.rho, E, stream, v_el, mu_v);
+      return launch_dense_residual<Mat, CauchyStorage<DIM>, DIM, P, TANGENT, false>(
+          u_el, a_el, dN, N, wq, out, cout, mat, p.rho, E, stream, v_el, mu_v);
+    };
+    if (material == 1) return go(std::true_type{});
+    return go(std::false_type{});
   });
-}
-
-template <bool TANGENT>
-int j2_visc_entry(const float* u_el, const float* a_el, const float* v_el, const float* dN,
-                  const float* N, const float* wq, const float* ps, const float* eqps,
-                  const float* temp, float* out, float* cout, const J2Params& p, float mu_v,
-                  int dim, int deg, long long E, void* stream) {
-  if (E <= 0) return 0;
-  if (v_el)
-    return j2_entry<TANGENT, true>(u_el, a_el, v_el, dN, N, wq, ps, eqps, temp, out, cout, p,
-                                   mu_v, dim, deg, E, stream);
-  return j2_entry<TANGENT, false>(u_el, a_el, v_el, dN, N, wq, ps, eqps, temp, out, cout, p,
-                                  mu_v, dim, deg, E, stream);
 }
 
 }  // namespace
 
-// C entry points, Cauchy-decomposition storage; (dim, p) one of the
-// instantiated pairs (2, 2), (2, 3), (3, 2); v_el == nullptr (visc == 0 for
-// the matvec) selects the inviscid instantiation.  Each returns the
-// launch's cudaGetLastError(), or cudaErrorInvalidValue for a (dim, p) not
-// instantiated.
+// C entry points, Cauchy-decomposition storage; J2 (material 0; the state
+// pointers ps, eqps, temp) or J2Linear (material 1; ps, eqps, beta); (dim,
+// p) one of the instantiated pairs (2, 2), (2, 3), (3, 2); v_el == nullptr
+// (visc == 0 for the matvec) selects the inviscid instantiation.  Each
+// returns the launch's cudaGetLastError(), or cudaErrorInvalidValue for a
+// material or a (dim, p) not instantiated.
 extern "C" {
 
 int mimi_residual_dense_j2(const float* u_el, const float* a_el, const float* v_el,
                            const float* dN, const float* N, const float* wq, const float* ps,
-                           const float* eqps, const float* temp, float* out, J2Params p,
-                           float mu_v, int dim, int deg, long long E, void* stream) {
-  return j2_visc_entry<false>(u_el, a_el, v_el, dN, N, wq, ps, eqps, temp, out, nullptr, p,
-                              mu_v, dim, deg, E, stream);
+                           const float* eqps, const float* temp, const float* beta,
+                           float* out, J2Params p, float mu_v, int material, int dim, int deg,
+                           long long E, void* stream) {
+  return j2_entry<false>(u_el, a_el, v_el, dN, N, wq, ps, eqps, temp, beta, out, nullptr, p,
+                         mu_v, material, dim, deg, E, stream);
 }
 
 int mimi_assemble_dense_j2(const float* u_el, const float* a_el, const float* v_el,
                            const float* dN, const float* N, const float* wq, const float* ps,
-                           const float* eqps, const float* temp, float* out, float* cout,
-                           J2Params p, float mu_v, int dim, int deg, long long E,
-                           void* stream) {
-  return j2_visc_entry<true>(u_el, a_el, v_el, dN, N, wq, ps, eqps, temp, out, cout, p, mu_v,
-                             dim, deg, E, stream);
+                           const float* eqps, const float* temp, const float* beta,
+                           float* out, float* cout, J2Params p, float mu_v, int material,
+                           int dim, int deg, long long E, void* stream) {
+  return j2_entry<true>(u_el, a_el, v_el, dN, N, wq, ps, eqps, temp, beta, out, cout, p, mu_v,
+                        material, dim, deg, E, stream);
 }
 
 int mimi_matvec_dense_cauchy(const float* w_el, const float* dN, const float* N,

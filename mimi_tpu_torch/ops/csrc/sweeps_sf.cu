@@ -5,23 +5,25 @@
 //   residual_kernel<.., false, ..>  <- make_residual_sweep (sf_mode)   residual only
 //   residual_kernel<.., true, ..>   <- make_assemble_sweep (sf)        residual + tangent planes
 //   matvec_kernel                   <- make_matvec_sweep_sf            y = J w
-// for J2 with the 37-plane Cauchy-decomposition tangent
-// (c_storage="cauchy": mimi_residual_sf, mimi_assemble_sf, mimi_matvec_sf).
+// for J2 (any of the reference's hardening laws) and J2Linear with the
+// 37-plane Cauchy-decomposition tangent (c_storage="cauchy":
+// mimi_residual_sf, mimi_assemble_sf, mimi_matvec_sf).
 // The hyperelastic materials of materials.cuh (neo-Hookean, St.
 // Venant-Kirchhoff) with the 45-plane symmetric tangent (c_storage="sym")
 // instantiate the same kernel templates in sweeps_sf_hyper.cu, the
 // finite-strain plasticity models J2Simo and J2Log with the 81-plane full
 // tangent (c_storage="full") in sweeps_sf_finite.cu; the templates and the 1D-table
 // interpolation and scatter are in sf_common.cuh, the storages in
-// materials.cuh, the Johnson-Cook radial return in j2.cuh.
+// materials.cuh, the J2 return maps and hardening laws in j2.cuh.
 // The plain torch versions of the same functions are in ops/sweeps.py.
 //
 // Variants (compile-time template parameters, one instantiation each,
 // chosen on the host by the C entry points; no run-time branch in the hot
 // loop):
 //   Mat   the material: its state, its first Piola stress at a point and
-//         what its tangent storage needs of that point (`eval`).  J2Mat
-//         runs the radial return on the point's state; Hyper<NeoHookean<3>>
+//         what its tangent storage needs of that point (`eval`).
+//         J2Mat<false> runs J2's radial return on the point's state,
+//         J2Mat<true> J2Linear's closed-form return; Hyper<NeoHookean<3>>
 //         and Hyper<StVK<3>> (materials.cuh) are stateless and form P without fused
 //         multiply-add, as the dense kernels do; J2SimoMat and J2LogMat
 //         (finite.cuh) run one body for P in float and, for the tangent,
@@ -69,9 +71,12 @@
 // so a rounding difference of F of one ulp of 1 (1.2e-7) is one of
 // (lambda + 2 mu) 1.2e-7 in P whatever the strain.
 //
-// The tangent has no automatic differentiation: J2's closed-form
-// algorithmic tangent, its point body (j2_cauchy<3>) and the 37-plane
-// CauchyStorage<3> are in j2.cuh, shared with the dense-table sweeps.
+// The tangent has no automatic differentiation: the closed-form
+// algorithmic tangents, the point bodies (j2_cauchy<3>, j2_linear_cauchy<3>)
+// and the 37-plane CauchyStorage<3> are in j2.cuh, shared with the
+// dense-table sweeps.
+
+#include <type_traits>
 
 #include "sf_common.cuh"
 
@@ -79,12 +84,16 @@ namespace {
 
 // ---- materials on the sf kernels --------------------------------------------
 
-// J2 with its per-point state (plastic strain, eqps, temperature)
+// J2 (LINEAR false: plastic strain, eqps, temperature; the radial return
+// with the law of J2Params) or J2Linear (LINEAR true: plastic strain, eqps,
+// the back stress beta; the closed-form return) with its per-point state
+template <bool LINEAR>
 struct J2Mat {
   J2Params p;
   const float* ps;
   const float* eqps;
-  const float* temp;
+  const float* temp;  // J2
+  const float* beta;  // J2Linear
   struct Point {  // what CauchyStorage<3> stores
     float Mt[Voigt<3>::NT], sig[3][3], fi[3][3], J;
   };
@@ -96,7 +105,16 @@ struct J2Mat {
     for (int i = 0; i < 3; ++i)
 #pragma unroll
       for (int j = 0; j < 3; ++j) pst[i][j] = __ldg(ps + (i * 3 + j) * QE + qe);
-    j2_cauchy<3, TANGENT>(p, F, pst, __ldg(eqps + qe), __ldg(temp + qe), pt.sig, pt.Mt);
+    if constexpr (LINEAR) {
+      float bt[3][3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) bt[i][j] = __ldg(beta + (i * 3 + j) * QE + qe);
+      j2_linear_cauchy<3, TANGENT>(p, F, pst, bt, __ldg(eqps + qe), pt.sig, pt.Mt);
+    } else {
+      j2_cauchy<3, TANGENT>(p, F, pst, __ldg(eqps + qe), __ldg(temp + qe), pt.sig, pt.Mt);
+    }
     pt.J = sm::det(F);
     sm::inv(F, pt.J, pt.fi);
 #pragma unroll
@@ -108,49 +126,67 @@ struct J2Mat {
   }
 };
 
+// the residual (TANGENT false) or assemble kernel of J2 (material 0) or
+// J2Linear (material 1), inviscid or viscous, with a float or bfloat16 block
+template <bool TANGENT>
+int j2_sf(const float* u_el, const float* a_el, const float* v_el, const Tables& tb,
+          const float* jinv, const float* wq, const float* ps, const float* eqps,
+          const float* temp, const float* beta, float* out, void* cout, int c_bf16,
+          const J2Params& p, float mu_v, int material, long long E, void* stream) {
+  if (E <= 0) return 0;
+  if (material != 0 && material != 1) return cudaErrorInvalidValue;
+  auto by_visc = [&](auto linear) {
+    constexpr bool LINEAR = decltype(linear)::value;
+    const J2Mat<LINEAR> mat{p, ps, eqps, temp, beta};
+#define MIMI_J2(VISC, CT)                                                          \
+  return launch_residual<J2Mat<LINEAR>, CauchyStorage<3>, TANGENT, VISC, CT>(      \
+      u_el, a_el, v_el, tb, jinv, wq, out, cout, mat, p.rho, mu_v, E, stream)
+    if (v_el) {
+      if constexpr (TANGENT) {
+        if (c_bf16) MIMI_J2(true, __nv_bfloat16);
+      }
+      MIMI_J2(true, float);
+    }
+    if constexpr (TANGENT) {
+      if (c_bf16) MIMI_J2(false, __nv_bfloat16);
+    }
+    MIMI_J2(false, float);
+#undef MIMI_J2
+  };
+  if (material == 1) return by_visc(std::true_type{});
+  return by_visc(std::false_type{});
+}
+
 }  // namespace
 
-// C entry points of J2; each returns the launch's cudaGetLastError().
+// C entry points of J2 (material 0; the state pointers ps, eqps, temp) and
+// J2Linear (material 1; ps, eqps, beta); each returns the launch's
+// cudaGetLastError(), or cudaErrorInvalidValue for another material.
 // v_el == nullptr selects the inviscid variant and c_bf16 the bfloat16
-// tangent block.
+// tangent block.  One entry point per sweep for both materials: they share
+// the storage, the block layout and the matvec, and differ in one state
+// leaf and the point body.
 extern "C" {
 
 int mimi_residual_sf(const float* u_el, const float* a_el, const float* v_el,
                      const float* b0, const float* d0, const float* b1,
                      const float* d1, const float* b2, const float* d2,
                      const float* jinv, const float* wq, const float* ps,
-                     const float* eqps, const float* temp, float* out,
-                     J2Params p, float mu_v, long long E, void* stream) {
-  if (E <= 0) return 0;
-  Tables tb{{b0, d0, b1, d1, b2, d2}};
-  const J2Mat mat{p, ps, eqps, temp};
-  if (v_el)
-    return launch_residual<J2Mat, CauchyStorage<3>, false, true, float>(
-        u_el, a_el, v_el, tb, jinv, wq, out, nullptr, mat, p.rho, mu_v, E, stream);
-  return launch_residual<J2Mat, CauchyStorage<3>, false, false, float>(
-      u_el, a_el, v_el, tb, jinv, wq, out, nullptr, mat, p.rho, mu_v, E, stream);
+                     const float* eqps, const float* temp, const float* beta, float* out,
+                     J2Params p, float mu_v, int material, long long E, void* stream) {
+  return j2_sf<false>(u_el, a_el, v_el, Tables{{b0, d0, b1, d1, b2, d2}}, jinv, wq, ps, eqps,
+                      temp, beta, out, nullptr, 0, p, mu_v, material, E, stream);
 }
 
 int mimi_assemble_sf(const float* u_el, const float* a_el, const float* v_el,
                      const float* b0, const float* d0, const float* b1,
                      const float* d1, const float* b2, const float* d2,
                      const float* jinv, const float* wq, const float* ps,
-                     const float* eqps, const float* temp, float* out,
-                     void* cout, int c_bf16, J2Params p, float mu_v, long long E,
+                     const float* eqps, const float* temp, const float* beta, float* out,
+                     void* cout, int c_bf16, J2Params p, float mu_v, int material, long long E,
                      void* stream) {
-  if (E <= 0) return 0;
-  Tables tb{{b0, d0, b1, d1, b2, d2}};
-  const J2Mat mat{p, ps, eqps, temp};
-#define MIMI_ASM(VISC, CT)                                               \
-  return launch_residual<J2Mat, CauchyStorage<3>, true, VISC, CT>(          \
-      u_el, a_el, v_el, tb, jinv, wq, out, cout, mat, p.rho, mu_v, E, stream)
-  if (v_el) {
-    if (c_bf16) MIMI_ASM(true, __nv_bfloat16);
-    MIMI_ASM(true, float);
-  }
-  if (c_bf16) MIMI_ASM(false, __nv_bfloat16);
-  MIMI_ASM(false, float);
-#undef MIMI_ASM
+  return j2_sf<true>(u_el, a_el, v_el, Tables{{b0, d0, b1, d1, b2, d2}}, jinv, wq, ps, eqps,
+                     temp, beta, out, cout, c_bf16, p, mu_v, material, E, stream);
 }
 
 int mimi_matvec_sf(const float* w_el, const float* b0, const float* d0,

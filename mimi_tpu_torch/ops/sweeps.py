@@ -5,7 +5,7 @@ Counterpart of mimi_tpu/ops/sweeps.py (`make_residual_sweep`,
 `make_assemble_sweep`, `make_matvec_sweep_sf` and `make_matvec_sweep`):
   - sum-factorized tables (`residual_sf`, `assemble_sf`, `matvec_sf`)
     with c_storage="cauchy" (the 37-plane Cauchy-decomposition tangent of
-    J2, kernels in ops/csrc/sweeps_sf.cu) or c_storage="sym" (45
+    J2 and J2Linear, kernels in ops/csrc/sweeps_sf.cu) or c_storage="sym" (45
     upper-triangle planes of a major-symmetric dP/dF: the hyperelastic
     materials, ops/csrc/sweeps_sf_hyper.cu), each with and without the
     viscous flux, the tangent block in float32 or bfloat16; or with
@@ -13,7 +13,7 @@ Counterpart of mimi_tpu/ops/sweeps.py (`make_residual_sweep`,
     ops/csrc/sweeps_sf_finite.cu), inviscid, float32;
   - dense tables dN (nd, dim, n_q, n_el) and N (nd, n_q, n_el) in 2D or
     3D, c_storage="sym" (the hyperelastic materials: 45 planes in 3D, 10
-    in 2D) or "cauchy" (J2 with its state: 37 / 14 planes), with and
+    in 2D) or "cauchy" (J2 and J2Linear with their state: 37 / 14 planes), with and
     without the viscous flux, or "full" (J2Simo and J2Log with their
     state: 81 / 16 planes), inviscid; float32 blocks:
     `residual_dense`, `assemble_dense`, `matvec_dense`, kernels in
@@ -21,7 +21,9 @@ Counterpart of mimi_tpu/ops/sweeps.py (`make_residual_sweep`,
     sweeps_dense_finite.cu, compiled for the (dim, p) pairs of
     DENSE_SHAPES.
 The material decides the storage (`tangent_storage`); the residual and the
-assemble read it off the material, the matvec is told it (`storage`).
+assemble read it off the material, the matvec is told it (`storage`).  The
+J2 family (J2, J2Simo, J2Log) runs with any of the reference's hardening
+laws: the Johnson-Cook family, PowerLaw and Voce (`_j2_params`).
 Each sweep has
   - a plain torch version (`*_plain`), dtype-generic, on whole
     (n_q, n_el) planes;
@@ -45,6 +47,7 @@ with q = q0 + G q1 + G^2 q2; quadrature weights times det J, wq
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -65,13 +68,15 @@ def variant(name, visc=False, bf16=False):
 
 
 # kernel launches since the last reset, per kernel variant (CUDA tensors
-# only): the J2 variants; the hyperelastic and finite-strain sf variants by
-# material tag ("nh" the neo-Hookean, "stvk" the St. Venant-Kirchhoff
-# material, "simo" J2Simo, "log" J2Log); the dense ones by material tag
-# ("j2" for J2, "simo", "log"; the untagged names are the neo-Hookean
-# instantiations) and (dimension, degree) suffix ("@2d_p3"; none for 3D
-# p = 2); "visc" and "bf16" tag the viscous and the bfloat16-block
-# instantiations
+# only): the sf variants of J2 with a Johnson-Cook family law (untagged);
+# the other sf variants by material tag (kernel_tag: "j2lin" J2Linear, "nh"
+# the neo-Hookean, "stvk" the St. Venant-Kirchhoff material, "simo" J2Simo,
+# "log" J2Log, and "j2-pow", "simo-voce" and the like for a J2-family
+# material with the PowerLaw or Voce law); the dense ones by material tag
+# ("j2" for J2, "j2lin", "simo", "log", the law suffixes as on sf; the
+# untagged names are the neo-Hookean instantiations) and (dimension,
+# degree) suffix ("@2d_p3"; none for 3D p = 2); "visc" and "bf16" tag the
+# viscous and the bfloat16-block instantiations
 LAUNCHES = {
     variant(name, visc, bf16): 0
     for name in ("matvec_sf", "assemble_sf", "residual_sf")
@@ -90,6 +95,18 @@ FULL_KERNELS = {
     "J2Simo": (0, "simo", ("be_old", "F_old", "eqps", "temperature")),
     "J2Log": (1, "log", ("Fp_inv", "eqps", "temperature")),
 }
+# The small-strain J2 models on the kernels with the Cauchy storage
+# (csrc/sweeps_sf.cu, sweeps_dense_j2.cu), by class name: (material id of
+# their C entry points, counter tag, the state leaves in the entry points'
+# four slots ps, eqps, temp, beta; None where the material has none)
+CAUCHY_KERNELS = {
+    "J2": (0, "j2", ("plastic_strain", "eqps", "temperature", None)),
+    "J2Linear": (1, "j2lin", ("plastic_strain", "eqps", None, "beta")),
+}
+# The hardening laws of the J2 family the kernels run besides the
+# Johnson-Cook family (csrc/j2.cuh flow), by class name: (law id of
+# J2Params, counter tag)
+LAW_KERNELS = {"PowerLawHardening": (1, "pow"), "VoceHardening": (2, "voce")}
 STORAGES = ("cauchy", "sym", "full")
 
 
@@ -144,17 +161,24 @@ LAUNCHES.update({
     for name in (*material_counters("sf", tag, visc=visc, bf16=bf16),
                  matvec_counter("sf", "sym", visc=visc, bf16=bf16))
 })
+_LAWS = ("",) + tuple(f"-{t}" for _, t in LAW_KERNELS.values())
+# the tags of the J2 family's instantiations, each law's included
+_CAUCHY_TAGS = [f"j2{law}" for law in _LAWS] + ["j2lin"]
+_FULL_TAGS = [f"{t}{law}" for _, t, _ in FULL_KERNELS.values() for law in _LAWS]
 LAUNCHES.update({
     name: 0
-    for _, tag, _ in FULL_KERNELS.values()
-    for name in material_counters("sf", tag, "full")
+    for tag in _CAUCHY_TAGS[1:]
+    for visc in (False, True)
+    for bf16 in (False, True)
+    for name in material_counters("sf", tag, "cauchy", visc=visc, bf16=bf16)
 })
+LAUNCHES.update({name: 0 for tag in _FULL_TAGS for name in material_counters("sf", tag, "full")})
 LAUNCHES.update({
     name: 0
     for dim, p in DENSE_SHAPES
     for tag, storage, viscs in ([(t, "sym", (False, True)) for _, t in HYPER_KERNELS.values()]
-                                + [("j2", "cauchy", (False, True))]
-                                + [(t, "full", (False,)) for _, t, _ in FULL_KERNELS.values()])
+                                + [(t, "cauchy", (False, True)) for t in _CAUCHY_TAGS]
+                                + [(t, "full", (False,)) for t in _FULL_TAGS])
     for visc in viscs
     for name in (*material_counters("dense", tag, storage, dim, p, visc),
                  matvec_counter("dense", storage, dim, p, visc))
@@ -169,6 +193,29 @@ LAUNCHES.update({
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def kernel_tag(mat):
+    """Counter tag of the material's kernels: the material's ("j2", "j2lin",
+    "simo", "log", "nh", "stvk") and, for a J2-family law the kernels run
+    besides the Johnson-Cook family, the law's ("j2-pow", "simo-voce")."""
+    tags = {name: v[1] for table in (HYPER_KERNELS, CAUCHY_KERNELS, FULL_KERNELS)
+            for name, v in table.items()}
+    if mat.name() not in tags:
+        raise NotImplementedError(f"the CUDA sweeps implement no {mat.name()}")
+    law = LAW_KERNELS.get(type(getattr(mat, "hardening", None)).__name__)
+    return tags[mat.name()] + (f"-{law[1]}" if law else "")
+
+
+def kernel_counters(mat, kind, dim=3, p=2, visc=False, bf16=False):
+    """(residual, assemble) counter names of the material's kernels on the
+    "sf" or "dense" tables at (dim, p), viscous and with a bfloat16 block
+    where asked (material_counters; J2 with a Johnson-Cook family law on sf
+    tables has the untagged names of `variant`)."""
+    tag = kernel_tag(mat)
+    if kind == "sf" and tag == "j2":
+        return variant("residual_sf", visc), variant("assemble_sf", visc, bf16)
+    return material_counters(kind, tag, tangent_storage(mat), dim, p, visc, bf16)
 
 
 def tangent_storage(mat):
@@ -674,7 +721,7 @@ def matvec_dense_plain(w_el, dN_t, N_t, wq, Cb, rho, fac0, fac1_mu_v=None, stora
 
 
 class _J2Params(ctypes.Structure):
-    """Mirror of struct J2Params in csrc/j2.cuh."""
+    """Mirror of struct J2Params in csrc/j2.cuh, field by field."""
 
     _fields_ = [
         (name, ctypes.c_float)
@@ -683,28 +730,71 @@ class _J2Params(ctypes.Structure):
             "m", "thermo_const", "tol", "xtol", "dt", "rho",
         )
     ] + [
-        ("rate_dep", ctypes.c_int),
-        ("thermo_mode", ctypes.c_int),
-        ("max_iter", ctypes.c_int),
+        (name, ctypes.c_int)
+        for name in ("rate_dep", "thermo_mode", "max_iter", "law", "pow_mode", "dpow_mode",
+                     "m_mode")
+    ] + [
+        (name, ctypes.c_float)
+        for name in (
+            "pw", "dpw", "sigma_y", "inv_eps0", "dh_coef", "sigma_sat", "sat_diff", "inv_c",
+            "dv_coef", "g3", "inv_g3", "inv_dt", "inv_eps0_dot", "inv_dtemp", "h_iso",
+            "h_kin", "sqrt6_g", "inv_denom",
+        )
     ]
+
+
+# J2Params' pow modes of an exponent e: how torch's pow(tensor, e) evaluates
+# it on the card (sqrt, x x, x x x, rsqrt, 1 / x, 1 / (x x), x, 1); powf
+# (0) otherwise
+_POW_MODES = {0.5: 1, 2.0: 2, 3.0: 3, -0.5: 4, -1.0: 5, -2.0: 6, 1.0: 7, 0.0: 8}
+
+
+def _pow_params(pw, dpw):
+    """J2Params fields of the flow stress's exponent pw and its
+    derivative's dpw (each taken in double, as torch gets it)."""
+    return dict(pw=pw, dpw=dpw, pow_mode=_POW_MODES.get(float(pw), 0),
+                dpow_mode=_POW_MODES.get(float(dpw), 0))
 
 
 def _j2_params(mat, dt, rho, family=("J2",)):
     """Kernel parameters of a set-up material of the J2 family (a class
-    named in `family`) with a Johnson-Cook family hardening law."""
+    named in `family`): J2Linear's moduli, or the elastic constants, the
+    return's tolerances and the hardening law (the Johnson-Cook family,
+    PowerLaw or Voce) of J2, J2Simo and J2Log.  A tensor divided by a
+    Python number d is multiplied by float(1 / d) on the card, so the
+    reciprocals are taken here in double."""
     from ..materials import _K_TOL
     from ..materials import hardening as H
 
     if mat.name() not in family:
         raise NotImplementedError(
             f"the CUDA sweeps implement {' and '.join(family)} with this storage, "
-            f"not {mat.name()} (ROADMAP Queue 2 item 1)"
+            f"not {mat.name()}"
+        )
+    if mat.name() == "J2Linear":
+        G, h_iso, h_kin = mat.G, mat.isotropic_hardening, mat.kinematic_hardening
+        return _J2Params(
+            K=mat.K, G=G, dt=dt, rho=rho, sigma_y=mat.sigma_y, h_iso=h_iso, h_kin=h_kin,
+            sqrt6_g=math.sqrt(6.0) * G, inv_denom=1.0 / (3.0 * G + h_kin + h_iso),
         )
     h = mat.hardening
+    base = dict(K=mat.K, G=mat.G, tol=mat._tolerance, xtol=_K_TOL, dt=dt, rho=rho,
+                max_iter=100, g3=3.0 * mat.G, inv_g3=1.0 / (3.0 * mat.G), inv_dt=1.0 / dt)
+    if isinstance(h, H.PowerLawHardening):
+        return _J2Params(
+            **base, **_pow_params(1.0 / h.n, 1.0 / h.n - 1.0), law=LAW_KERNELS[h.name()][0],
+            sigma_y=h.sigma_y, inv_eps0=1.0 / h.eps0, dh_coef=h.sigma_y / (h.n * h.eps0),
+        )
+    if isinstance(h, H.VoceHardening):
+        return _J2Params(
+            **base, law=LAW_KERNELS[h.name()][0], sigma_y=h.sigma_y, sigma_sat=h.sigma_sat,
+            sat_diff=h.sigma_sat - h.sigma_y, inv_c=1.0 / h.strain_constant,
+            dv_coef=(h.sigma_sat - h.sigma_y) / h.strain_constant,
+        )
     if not isinstance(h, H.JohnsonCookHardening):
         raise NotImplementedError(
-            f"the CUDA sweeps implement Johnson-Cook hardening only, not "
-            f"{h.name()} (ROADMAP Queue 2 item 1)"
+            f"the CUDA sweeps implement the Johnson-Cook family, PowerLaw and Voce "
+            f"hardening, not {h.name()}"
         )
     rate = isinstance(h, H.JohnsonCookRateDependentHardening)
     if isinstance(h, H.JohnsonCookViscoConstantTemperatureHardening):
@@ -713,14 +803,15 @@ def _j2_params(mat, dt, rho, family=("J2",)):
         thermo_mode, thermo_const = 1, 1.0
     else:
         thermo_mode, thermo_const = 0, 1.0
+    t_ref = getattr(h, "reference_temperature", 0.0)
+    t_melt = getattr(h, "melting_temperature", 1.0)
+    eps0_dot, m = getattr(h, "eps0_dot", 1.0), getattr(h, "m", 1.0)
     return _J2Params(
-        K=mat.K, G=mat.G, A=h.A, B=h.B, n=h.n,
-        C=getattr(h, "C", 0.0), eps0_dot=getattr(h, "eps0_dot", 1.0),
-        t_ref=getattr(h, "reference_temperature", 0.0),
-        t_melt=getattr(h, "melting_temperature", 1.0),
-        m=getattr(h, "m", 1.0), thermo_const=thermo_const,
-        tol=mat._tolerance, xtol=_K_TOL, dt=dt, rho=rho,
-        rate_dep=int(rate), thermo_mode=thermo_mode, max_iter=100,
+        **base, **_pow_params(h.n, h.n - 1.0), A=h.A, B=h.B, n=h.n, C=getattr(h, "C", 0.0),
+        eps0_dot=eps0_dot, inv_eps0_dot=1.0 / eps0_dot, t_ref=t_ref, t_melt=t_melt,
+        inv_dtemp=1.0 / (t_melt - t_ref) if t_melt != t_ref else 0.0, m=m,
+        m_mode=_POW_MODES.get(float(m), 0), thermo_const=thermo_const, rate_dep=int(rate),
+        thermo_mode=thermo_mode,
     )
 
 
@@ -775,10 +866,19 @@ def _check_common(el_fields, tabs, jinv, wq):
     return device, n_el
 
 
-def _check_state(state, device, n_el):
-    _check("plastic_strain", state["plastic_strain"], (3, 3, 64, n_el), device)
-    _check("eqps", state["eqps"], (64, n_el), device)
-    _check("temperature", state["temperature"], (64, n_el), device)
+def _state_ptrs(state, leaves, dim, n_q, n_el, device):
+    """Pointers to the state leaves named in `leaves` (None: a null
+    pointer), each checked as (dim, dim, n_q, n_el) or (n_q, n_el)."""
+    for k in filter(None, leaves):
+        _check(k, state[k], (dim, dim, n_q, n_el) if state[k].dim() == 4 else (n_q, n_el), device)
+    return [_ptr(None if k is None else state[k]) for k in leaves]
+
+
+def _cauchy_state(mat, state, dim, n_q, n_el, device):
+    """(material id, the entry points' four state pointers ps, eqps, temp,
+    beta) of a CAUCHY_KERNELS material, its leaves checked."""
+    mat_id, _, leaves = CAUCHY_KERNELS[mat.name()]
+    return mat_id, _state_ptrs(state, leaves, dim, n_q, n_el, device)
 
 
 def _c_flag(c_dtype):
@@ -850,13 +950,11 @@ def _sf_hyper(assemble, u_el, a_el, state, tabs, jinv, wq, mat, rho, v_el, mu_v,
 
 
 def _finite_state(mat, state, dim, n_q, n_el, device):
-    """(material id, counter tag, the entry points' four state pointers) of
-    a FULL_KERNELS material, its leaves checked as (dim, dim, n_q, n_el) or
-    (n_q, n_el)."""
-    mat_id, tag, leaves = FULL_KERNELS[mat.name()]
-    for k in leaves:
-        _check(k, state[k], (dim, dim, n_q, n_el) if state[k].dim() == 4 else (n_q, n_el), device)
-    return mat_id, tag, [_ptr(state[k]) for k in leaves] + [_ptr(None)] * (4 - len(leaves))
+    """(material id, the entry points' four state pointers) of a
+    FULL_KERNELS material, its leaves checked."""
+    mat_id, _, leaves = FULL_KERNELS[mat.name()]
+    return mat_id, _state_ptrs(state, (*leaves, *[None] * (4 - len(leaves))), dim, n_q, n_el,
+                               device)
 
 
 def _sf_finite(assemble, u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el,
@@ -877,12 +975,12 @@ def _sf_finite(assemble, u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el,
         )
     prm = _j2_params(mat, dt, rho, family=tuple(FULL_KERNELS))
     device, n_el = _check_common([("u_el", u_el), ("a_el", a_el)], tabs, jinv, wq)
-    mat_id, tag, st = _finite_state(mat, state, 3, 64, n_el, device)
+    mat_id, st = _finite_state(mat, state, 3, 64, n_el, device)
     out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
     head = (_ptr(u_el), _ptr(a_el), *[_ptr(t) for t in tabs], _ptr(jinv), _ptr(wq), *st,
             _ptr(out))
     tail = (prm, ctypes.c_int(mat_id), ctypes.c_longlong(n_el))
-    names = material_counters("sf", tag, "full")
+    names = kernel_counters(mat, "sf")
     if not assemble:
         _launch(load().mimi_residual_sf_finite, names[0], *head, *tail)
         return out
@@ -891,33 +989,46 @@ def _sf_finite(assemble, u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el,
     return out, cf
 
 
+def _sf_cauchy(assemble, u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el, mu_v,
+               c_dtype=torch.float32):
+    """The residual (or, with `assemble`, residual and the 37 Cauchy planes
+    in float32 or bfloat16) of J2 or J2Linear (CAUCHY_KERNELS) on
+    sum-factorized tables, with the viscous flux where v_el is given:
+    `mimi_residual_sf` / `mimi_assemble_sf`."""
+    from .build import load
+
+    bf16 = _c_flag(c_dtype)
+    device, n_el = _check_common(
+        [("u_el", u_el), ("a_el", a_el), ("v_el", v_el)], tabs, jinv, wq
+    )
+    prm = _j2_params(mat, dt, rho, family=tuple(CAUCHY_KERNELS))
+    mat_id, st = _cauchy_state(mat, state, 3, 64, n_el, device)
+    names = kernel_counters(mat, "sf", visc=v_el is not None, bf16=bool(bf16))
+    out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
+    head = (_ptr(u_el), _ptr(a_el), _ptr(v_el), *[_ptr(t) for t in tabs], _ptr(jinv),
+            _ptr(wq), *st, _ptr(out))
+    tail = (prm, ctypes.c_float(mu_v), ctypes.c_int(mat_id), ctypes.c_longlong(n_el))
+    if not assemble:
+        _launch(load().mimi_residual_sf, names[0], *head, *tail)
+        return out
+    cb = torch.empty((37, 64, n_el), dtype=c_dtype, device=device)
+    _launch(load().mimi_assemble_sf, names[1], *head, _ptr(cb), ctypes.c_int(bf16), *tail)
+    return out, cb
+
+
 def residual_sf(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el=None, mu_v=0.0):
     """Residual sweep: plain torch on CPU tensors; on CUDA tensors the
-    kernel `mimi_residual_sf` (J2) or `mimi_residual_sf_hyper` (the
-    hyperelastic materials), with the viscous flux when v_el is given, or
-    `mimi_residual_sf_finite` (J2Simo, J2Log; inviscid)."""
+    kernel `mimi_residual_sf` (J2 with any of the five hardening laws,
+    J2Linear) or `mimi_residual_sf_hyper` (the hyperelastic materials), with
+    the viscous flux when v_el is given, or `mimi_residual_sf_finite`
+    (J2Simo, J2Log; inviscid)."""
     if u_el.device.type == "cpu":
         return residual_sf_plain(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el, mu_v)
     if tangent_storage(mat) == "sym":
         return _sf_hyper(False, u_el, a_el, state, tabs, jinv, wq, mat, rho, v_el, mu_v)
     if tangent_storage(mat) == "full":
         return _sf_finite(False, u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el)
-    from .build import load
-
-    device, n_el = _check_common(
-        [("u_el", u_el), ("a_el", a_el), ("v_el", v_el)], tabs, jinv, wq
-    )
-    _check_state(state, device, n_el)
-    prm = _j2_params(mat, dt, rho)
-    out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
-    _launch(
-        load().mimi_residual_sf, variant("residual_sf", v_el is not None),
-        _ptr(u_el), _ptr(a_el), _ptr(v_el), *[_ptr(t) for t in tabs], _ptr(jinv),
-        _ptr(wq), _ptr(state["plastic_strain"]), _ptr(state["eqps"]),
-        _ptr(state["temperature"]), _ptr(out), prm, ctypes.c_float(mu_v),
-        ctypes.c_longlong(n_el),
-    )
-    return out
+    return _sf_cauchy(False, u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el, mu_v)
 
 
 def assemble_sf(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el=None,
@@ -925,11 +1036,13 @@ def assemble_sf(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el=None,
     """Assemble sweep: (residual, tangent block in the material's storage
     and in `c_dtype`, by default the fields' dtype); plain torch on CPU
     tensors; on CUDA tensors the
-    kernel `mimi_assemble_sf` (J2, 37 planes) or `mimi_assemble_sf_hyper`
-    (the hyperelastic materials, 45 planes, closed-form dP/dF), each with
-    the viscous flux when v_el is given and the block in float32 or
-    bfloat16, or `mimi_assemble_sf_finite` (J2Simo, J2Log: 81 planes from
-    9 forward-mode dual-number passes, inviscid, float32)."""
+    kernel `mimi_assemble_sf` (J2 with any of the five hardening laws,
+    J2Linear: 37 planes, the closed-form algorithmic tangent) or
+    `mimi_assemble_sf_hyper` (the hyperelastic materials, 45 planes,
+    closed-form dP/dF), each with the viscous flux when v_el is given and
+    the block in float32 or bfloat16, or `mimi_assemble_sf_finite` (J2Simo,
+    J2Log: 81 planes from 9 forward-mode dual-number passes, inviscid,
+    float32)."""
     c_dtype = c_dtype or u_el.dtype
     if u_el.device.type == "cpu":
         return assemble_sf_plain(
@@ -941,24 +1054,8 @@ def assemble_sf(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el=None,
     if tangent_storage(mat) == "full":
         return _sf_finite(True, u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el,
                           c_dtype)
-    from .build import load
-
-    device, n_el = _check_common(
-        [("u_el", u_el), ("a_el", a_el), ("v_el", v_el)], tabs, jinv, wq
-    )
-    _check_state(state, device, n_el)
-    bf16 = _c_flag(c_dtype)
-    prm = _j2_params(mat, dt, rho)
-    out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
-    cb = torch.empty((37, 64, n_el), dtype=c_dtype, device=device)
-    _launch(
-        load().mimi_assemble_sf, variant("assemble_sf", v_el is not None, bf16),
-        _ptr(u_el), _ptr(a_el), _ptr(v_el), *[_ptr(t) for t in tabs], _ptr(jinv),
-        _ptr(wq), _ptr(state["plastic_strain"]), _ptr(state["eqps"]),
-        _ptr(state["temperature"]), _ptr(out), _ptr(cb), ctypes.c_int(bf16), prm,
-        ctypes.c_float(mu_v), ctypes.c_longlong(n_el),
-    )
-    return out, cb
+    return _sf_cauchy(True, u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el, mu_v,
+                      c_dtype)
 
 
 def matvec_sf(w_el, tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v=None, storage="cauchy"):
@@ -1057,12 +1154,12 @@ def _dense_sweep(assemble, u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el=
                  mu_v=0.0):
     """The dense residual (or, with `assemble`, residual and tangent block)
     kernel of the material: the hyperelastic ones with the symmetric
-    storage (`mimi_residual_dense` / `mimi_assemble_dense`), J2 with the
-    Cauchy storage and its state (`mimi_residual_dense_j2` /
-    `mimi_assemble_dense_j2`), each with the viscous flux when v_el is
-    given; J2Simo and J2Log with the full storage and their state
-    (`mimi_residual_dense_finite` / `mimi_assemble_dense_finite`,
-    inviscid)."""
+    storage (`mimi_residual_dense` / `mimi_assemble_dense`), J2 (any of the
+    five hardening laws) and J2Linear with the Cauchy storage and their
+    state (`mimi_residual_dense_j2` / `mimi_assemble_dense_j2`), each with
+    the viscous flux when v_el is given; J2Simo and J2Log with the full
+    storage and their state (`mimi_residual_dense_finite` /
+    `mimi_assemble_dense_finite`, inviscid)."""
     from .build import load
 
     storage = tangent_storage(mat)
@@ -1071,10 +1168,9 @@ def _dense_sweep(assemble, u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el=
             "a stateful material with the symmetric storage: no such material is "
             "ported (ROADMAP Queue 1 item 2)"
         )
-    if storage == "cauchy":
-        prm = _j2_params(mat, dt, rho)
-    elif storage == "full":
-        prm = _j2_params(mat, dt, rho, family=tuple(FULL_KERNELS))
+    if storage != "sym":
+        prm = _j2_params(mat, dt, rho,
+                         family=tuple(CAUCHY_KERNELS if storage == "cauchy" else FULL_KERNELS))
     fields = [("u_el", u_el), ("a_el", a_el)] + ([("v_el", v_el)] if v_el is not None else [])
     device, n_el, dim, p = _check_dense(fields, dN_t, N_t, wq)
     n_q = wq.shape[0]
@@ -1083,21 +1179,20 @@ def _dense_sweep(assemble, u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el=
     mu = () if storage == "full" else (ctypes.c_float(mu_v),)
     shape = (ctypes.c_int(dim), ctypes.c_int(p), ctypes.c_longlong(n_el))
     if storage == "cauchy":
-        _check("plastic_strain", state["plastic_strain"], (dim, dim, n_q, n_el), device)
-        _check("eqps", state["eqps"], (n_q, n_el), device)
-        _check("temperature", state["temperature"], (n_q, n_el), device)
-        head += tuple(_ptr(state[k]) for k in ("plastic_strain", "eqps", "temperature"))
-        tag, fns, tail = "j2", ("mimi_residual_dense_j2", "mimi_assemble_dense_j2"), (prm, *mu)
+        mat_id, st = _cauchy_state(mat, state, dim, n_q, n_el, device)
+        head += tuple(st)
+        fns = ("mimi_residual_dense_j2", "mimi_assemble_dense_j2")
+        tail = (prm, *mu, ctypes.c_int(mat_id))
     elif storage == "full":
-        mat_id, tag, st = _finite_state(mat, state, dim, n_q, n_el, device)
+        mat_id, st = _finite_state(mat, state, dim, n_q, n_el, device)
         head += tuple(st)
         fns = ("mimi_residual_dense_finite", "mimi_assemble_dense_finite")
         tail = (prm, ctypes.c_int(mat_id))
     else:
-        prm, mat_id, tag = _hyper_params(mat, rho)
+        prm, mat_id, _ = _hyper_params(mat, rho)
         fns = ("mimi_residual_dense", "mimi_assemble_dense")
         tail = (prm, *mu, ctypes.c_int(mat_id))
-    names = material_counters("dense", tag, storage, dim, p, v_el is not None)
+    names = kernel_counters(mat, "dense", dim, p, v_el is not None)
     out = torch.empty((dim, u_el.shape[1], n_el), dtype=torch.float32, device=device)
     if not assemble:
         _launch(getattr(load(), fns[0]), names[0], *head, _ptr(out), *tail, *shape)
@@ -1110,8 +1205,8 @@ def _dense_sweep(assemble, u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el=
 def residual_dense(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el=None, mu_v=0.0):
     """Dense residual sweep: plain torch on CPU tensors; on CUDA tensors the
     kernel `mimi_residual_dense` (the hyperelastic materials) or
-    `mimi_residual_dense_j2` (J2), each with the viscous flux when v_el is
-    given, or `mimi_residual_dense_finite` (J2Simo, J2Log; inviscid), for
+    `mimi_residual_dense_j2` (J2 with any of the five hardening laws,
+    J2Linear), each with the viscous flux when v_el is given, or `mimi_residual_dense_finite` (J2Simo, J2Log; inviscid), for
     the (dim, p) pairs of DENSE_SHAPES."""
     if u_el.device.type == "cpu":
         return residual_dense_plain(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el, mu_v)
@@ -1125,8 +1220,8 @@ def assemble_dense(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el=None,
     storage and in `c_dtype`, by default the fields' dtype); plain torch on
     CPU tensors; on CUDA tensors the kernel `mimi_assemble_dense` (the
     hyperelastic materials' closed-form dP/dF, the symmetric planes) or
-    `mimi_assemble_dense_j2` (J2's closed-form algorithmic tangent, the
-    Cauchy planes), each with the viscous flux when v_el is given, or
+    `mimi_assemble_dense_j2` (the closed-form algorithmic tangent of J2
+    or J2Linear, the Cauchy planes), each with the viscous flux when v_el is given, or
     `mimi_assemble_dense_finite` (J2Simo, J2Log: the dim^4 planes of dP/dF
     from dim^2 forward-mode dual-number passes, inviscid); float32."""
     c_dtype = c_dtype or u_el.dtype

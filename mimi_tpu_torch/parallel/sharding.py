@@ -612,14 +612,19 @@ def make_step(
     "auto"): a problem with sum-factorized tables runs the sf sweeps, a
     dense-table problem the dense sweeps.  The tangent storage is the
     strongest exact compression the material declares (cauchy > sym >
-    full): the Cauchy-decomposition tangent of J2 (37 planes in 3D, 14 in
-    2D; sf and dense sweeps), the symmetric tangent of a material with a
+    full): the Cauchy-decomposition tangent of J2 (with any of the five
+    hardening laws) and J2Linear (37 planes in 3D, 14 in 2D; sf and dense
+    sweeps), the symmetric tangent of a material with a
     major-symmetric dP/dF (the hyperelastic ones, 45 / 10 planes; sf and
     dense sweeps), or the full dP/dF of the finite-strain plasticity
     models J2Simo and J2Log (81 planes in 3D, 16 in 2D; sf and dense
     sweeps).  `matvec_impl` and
     `tangent_storage` take "auto" or the name of what the problem decides,
-    as aliases of the reference's options.  Everything around
+    as aliases of the reference's options; "sym" on a material without a
+    major-symmetric dP/dF and "cauchy" on one without the
+    Cauchy-decomposition contract raise ValueError, as in the reference, and
+    a weaker storage than the material's ("full" on J2 or a hyperelastic
+    material) is not ported (NotImplementedError).  Everything around
     the sweeps (gather/scatter, contact, FDM, GMRES, Newton) is the same
     torch code.  A material with viscosity > 0 adds the viscous flux
     S (v + fac1 a) to the residual sweeps and fac1 S to the matvec (the
@@ -667,6 +672,20 @@ def make_step(
         raise _unported("problems without an FDM decomposition (block-Jacobi)", "Queue 1 item 6")
     kind = _tables(prob)[0]
     storage = sweeps.tangent_storage(mat)
+    # a compression the material does not declare would corrupt the Krylov
+    # operator: a wrong request, as in the reference
+    if tangent_storage == "sym" and not mat.tangent_major_symmetric:
+        raise ValueError(
+            f"{mat.name()} does not declare a major-symmetric dP/dF "
+            "(tangent_major_symmetric); symmetric tangent storage would silently "
+            "corrupt the Krylov operator"
+        )
+    if tangent_storage == "cauchy" and not mat.tangent_cauchy_decomp:
+        raise ValueError(
+            f"{mat.name()} does not declare the Cauchy-decomposition contract "
+            "(tangent_cauchy_decomp: sigma symmetric and a function of sym(F) only); "
+            "the Cauchy-decomposition storage would silently corrupt the Krylov operator"
+        )
     # the tables and the material decide both; the reference's explicit
     # names are accepted as aliases of what they decide
     for opt, val, known, picked, item in (

@@ -14,7 +14,14 @@ import torch
 from .. import splines as _splines
 from ..config import default_dtype, resolve_device
 from ..contact.scene import NearestDistanceToSplines
-from ..materials import J2, CompressibleOgdenNeoHookean, J2Log, J2Simo, StVenantKirchhoff
+from ..materials import (
+    J2,
+    CompressibleOgdenNeoHookean,
+    J2Linear,
+    J2Log,
+    J2Simo,
+    StVenantKirchhoff,
+)
 from ..materials import hardening as _hardening
 from ..parallel.sharding import Problem
 
@@ -25,26 +32,34 @@ def _tensor(a, dtype, device):
 
 _ELASTIC = ("density", "viscosity", "lambda_", "mu", "young", "poisson", "K", "G")
 _J2_FAMILY = {cls.__name__: cls for cls in (J2, J2Simo, J2Log)}
-_HYPERELASTIC = {
-    cls.__name__: cls for cls in (CompressibleOgdenNeoHookean, StVenantKirchhoff)
+# the materials without a hardening law: (class, their own parameters
+# beside the elastic ones)
+_NO_LAW = {
+    cls.__name__: (cls, own)
+    for cls, own in (
+        (CompressibleOgdenNeoHookean, ()),
+        (StVenantKirchhoff, ()),
+        (J2Linear, ("isotropic_hardening", "kinematic_hardening", "sigma_y")),
+    )
 }
 
 
 def material_from_reference(mat):
     """The port's counterpart of a reference-package material (J2, J2Simo or
-    J2Log with any hardening law, CompressibleOgdenNeoHookean or
+    J2Log with any hardening law, J2Linear, CompressibleOgdenNeoHookean or
     StVenantKirchhoff), with its parameters copied and set up for the same
     dimension when the reference material was."""
     name = type(mat).__name__
-    if name in _HYPERELASTIC:
-        out = _HYPERELASTIC[name]()
-        for k in _ELASTIC:
+    if name in _NO_LAW:
+        cls, own = _NO_LAW[name]
+        out = cls()
+        for k in _ELASTIC + own:
             setattr(out, k, float(getattr(mat, k)))
         if hasattr(mat, "dim"):
             out.setup(mat.dim)
         return out
     if name not in _J2_FAMILY:
-        raise NotImplementedError(f"{name} is not ported yet (ROADMAP Queue 1 item 2)")
+        raise NotImplementedError(f"{name} is not ported")
     out = _J2_FAMILY[name]()
     for k in _ELASTIC + (
         "heat_fraction", "specific_heat", "initial_temperature", "melting_temperature",

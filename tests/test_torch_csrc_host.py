@@ -257,7 +257,8 @@ def test_dense_viscous_kernels_on_cpu_tensors(lib, case):
     head = (_ptr(u_el), _ptr(a_el), _ptr(v_el), _ptr(dN), _ptr(N), _ptr(wq))
     if tag == "j2":
         head += tuple(_ptr(state[k]) for k in ("plastic_strain", "eqps", "temperature"))
-        tail = (tsw._j2_params(mat, dt, rho), ctypes.c_float(mu_v))
+        head += (_ptr(None),)  # J2 has no back stress
+        tail = (tsw._j2_params(mat, dt, rho), ctypes.c_float(mu_v), ctypes.c_int(0))
         fns = (lib.mimi_residual_dense_j2, lib.mimi_assemble_dense_j2, lib.mimi_matvec_dense_cauchy)
     else:
         prm, mat_id, _ = tsw._hyper_params(mat, rho)
@@ -330,3 +331,210 @@ def test_sf_hyper_viscous_kernels_on_cpu_tensors(lib, name, bf16):
                                   ctypes.c_longlong(E), ctypes.c_void_p(None)) == 0
     mv_p = tsw.matvec_sf_plain(w_el, tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v, storage="sym")
     assert float((mv - mv_p).abs().max()) <= 1e-5 * float(mv_p.abs().max())
+
+
+def test_j2_params_mirror_matches_the_c_struct(built):
+    """ops/sweeps.py _J2Params lays its fields where g++ lays those of
+    csrc/j2.cuh's J2Params: every offset and the size (a mismatch would
+    corrupt every J2-family launch)."""
+    dest = built[0]
+    names = [name for name, _ in tsw._J2Params._fields_]
+    src = os.path.join(dest, "j2_params_layout.cpp")
+    with open(src, "w") as f:
+        f.write('#include <cstddef>\n#include <cstdio>\n#include "j2.cuh"\nint main() {\n')
+        f.write('  std::printf("%zu", sizeof(J2Params));\n')
+        for name in names:
+            f.write(f'  std::printf(" %zu", offsetof(J2Params, {name}));\n')
+        f.write("  return 0;\n}\n")
+    exe = os.path.join(dest, "j2_params_layout")
+    r = subprocess.run(["g++", *CXX, "-I", STUB, "-I", dest, "-o", exe, src],
+                       capture_output=True, text=True)
+    assert r.returncode == 0, r.stdout + r.stderr
+    size, *offsets = map(int, subprocess.run([exe], capture_output=True, text=True,
+                                             check=True).stdout.split())
+    assert size == ctypes.sizeof(tsw._J2Params)
+    assert offsets == [getattr(tsw._J2Params, name).offset for name in names]
+
+
+@pytest.fixture
+def host_sweeps(lib, monkeypatch):
+    """ops/sweeps.py's kernel wrappers on CPU tensors through the host
+    build: the library, no device check, launches on no stream."""
+    def launch(fn, name, *args):
+        tsw.LAUNCHES[name] += 1
+        err = fn(*args, ctypes.c_void_p(None))
+        assert err == 0, f"{name} returned {err}"
+
+    monkeypatch.setattr(kbuild, "load", lambda: lib)
+    monkeypatch.setattr(tsw, "_check_device", lambda device: None)
+    monkeypatch.setattr(tsw, "_launch", launch)
+    tsw.reset_launches()
+    return tsw
+
+
+def _law(name):
+    """The PowerLaw of the reference's kernel test (sigma_y 10, n 2 -- the
+    exponent 1/2 that torch evaluates as a square root -- eps0 1e-3) or a
+    Voce law with the same initial yield."""
+    if name == "pow":
+        h = mt.PowerLawHardening()
+        h.sigma_y, h.n, h.eps0 = 10.0, 2.0, 1e-3
+    else:
+        h = mt.VoceHardening()
+        h.sigma_y, h.sigma_sat, h.strain_constant = 10.0, 30.0, 0.02
+    return h
+
+
+def _j2_family(name, law=None, viscosity=-1.0):
+    if name == "J2Linear":
+        mat = mt.J2Linear()
+        mat.sigma_y, mat.isotropic_hardening, mat.kinematic_hardening = 5.0, 50.0, 30.0
+        mat.density, mat.viscosity = 1.0, viscosity
+        mat.set_young_poisson(2100.0, 0.3)
+        return mat
+    mat = _material(name)
+    mat.viscosity = viscosity
+    mat.hardening = _law(law)
+    return mat
+
+
+def _host_problem(kind, dim, deg, mat):
+    """A few elements of sum-factorized (the 2^3 cube) or dense tables in
+    (dim, deg), float32, on the CPU."""
+    if kind == "sf":
+        mesh, clamp, elev, subd = MESH, [(1, 0), (1, 1), (1, 2)], 1, 1
+    elif dim == 2:
+        mesh, clamp, elev, subd = BALKEN, [(2, 0), (2, 1)], deg - 1, 1
+    else:
+        mesh, clamp, elev, subd = (os.path.join(DATA, "two-patch-cube.mesh"),
+                                   [(0, 0), (0, 1), (0, 2)], 1, 0)
+    prob = mt.build_problem(mesh, elev, subd, mat, clamp, {}, rho_inf=0.5, device="cpu",
+                            dtype=torch.float32)
+    assert (prob.sf is not None) == (kind == "sf") and prob.dim == dim
+    return prob
+
+
+def _plastic_inputs(prob, rng, amplitude):
+    """Random element fields and a random plastic history (the state after
+    one plain accumulate_soa at a random F, eqps raised by up to 1e-3): u_el,
+    a_el, v_el, w_el, state."""
+    mat, dim, E = prob.material, prob.dim, prob.n_el
+    tables = (prob.sf["tables"], prob.sf["jinv"]) if prob.sf else (prob.dense["dN_t"],)
+    grad = (lambda u: tsw.sf_grad(u, *tables)) if prob.sf else (lambda u: tsw.dense_grad(u, *tables))
+    nd = 27 if prob.sf else prob.dense["dN_t"].shape[0]
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
+    u0, u_el = (f32(amplitude * rng.standard_normal((dim, nd, E))) for _ in range(2))
+    a_el, v_el, w_el = (f32(rng.standard_normal((dim, nd, E))) for _ in range(3))
+    state = mat.accumulate_soa(soa.add_diag(grad(u0), 1.0),
+                               {k: v.clone() for k, v in prob.state0.items()}, 0.05)
+    state = {k: v.contiguous() for k, v in state.items()}
+    assert float(state["eqps"].max()) > 0.0
+    state["eqps"] = state["eqps"] + f32(1e-3 * rng.random(state["eqps"].shape))
+    return u_el, a_el, v_el, w_el, state
+
+
+def _hold_host_sweeps(sw, prob, f, visc, bf16, matvec=True):
+    """The material's residual, assemble and (with `matvec`) matvec kernels
+    of the host build through the wrappers' own marshalling against the
+    plain versions: residuals and matvec at 1e-5 of scale, float32 planes
+    at 1e-5 of their max, bfloat16 planes within one bfloat16 step (2^-7)
+    of the plain float32 planes rounded to bfloat16."""
+    mat, wq = prob.material, prob.wdet_t
+    u_el, a_el, v_el, w_el, state = f
+    dt, rho, fac0 = 0.05, float(mat.density), 1e-6
+    mu_v = 100.0 if visc else 0.0
+    vk = dict(v_el=v_el, mu_v=mu_v) if visc else {}
+    c_dtype = torch.bfloat16 if bf16 else torch.float32
+    storage = sw.tangent_storage(mat)
+    if prob.sf is not None:
+        tables = (prob.sf["tables"], prob.sf["jinv"])
+        sweep = {"cauchy": sw._sf_cauchy, "full": sw._sf_finite}[storage]
+        extra = (vk.get("v_el"), mu_v) if storage == "cauchy" else (vk.get("v_el"),)
+        y = sweep(False, u_el, a_el, state, *tables, wq, mat, dt, rho, *extra)
+        y_a, C = sweep(True, u_el, a_el, state, *tables, wq, mat, dt, rho, *extra, c_dtype)
+        plain = (sw.residual_sf_plain, sw.assemble_sf_plain, sw.matvec_sf_plain)
+        kind = "sf"
+    else:
+        tables = (prob.dense["dN_t"], prob.dense["N_t"])
+        y = sw._dense_sweep(False, u_el, a_el, state, *tables, wq, mat, dt, rho, **vk)
+        y_a, C = sw._dense_sweep(True, u_el, a_el, state, *tables, wq, mat, dt, rho, **vk)
+        plain = (sw.residual_dense_plain, sw.assemble_dense_plain, sw.matvec_dense_plain)
+        kind = "dense"
+    args = (u_el, a_el, state, *tables, wq, mat, dt, rho)
+    y_p = plain[0](*args, **vk)
+    y_ap, C_p = plain[1](*args, **vk)
+    assert float((y - y_p).abs().max()) <= 1e-5 * float(y_p.abs().max())
+    assert float((y_a - y_ap).abs().max()) <= 1e-5 * float(y_ap.abs().max())
+    scale = float(C_p.abs().max())
+    if bf16:
+        assert C.dtype == torch.bfloat16
+        assert float((C.float() - C_p.to(torch.bfloat16).float()).abs().max()) <= 2.0**-7 * scale
+    else:
+        assert float((C - C_p).abs().max()) <= 1e-5 * scale
+    p = 2 if kind == "sf" else round(tables[0].shape[0] ** (1.0 / prob.dim)) - 1
+    names = sw.kernel_counters(mat, kind, prob.dim, p, visc, bf16)
+    assert sw.LAUNCHES[names[0]] == 1 and sw.LAUNCHES[names[1]] == 1
+    if not matvec:
+        return C_p
+    Cb = C_p.to(c_dtype)
+    fm = 50.0 if visc else None
+    if kind == "sf":
+        mv = torch.empty_like(w_el)
+        assert lib_call(sw, "mimi_matvec_sf", _ptr(w_el), *[_ptr(t) for t in tables[0]],
+                        _ptr(tables[1]), _ptr(wq), _ptr(Cb), int(bf16), _ptr(mv), rho, fac0,
+                        int(visc), fm or 0.0, ctypes.c_longlong(prob.n_el)) == 0
+    else:
+        mv = sw._dense_matvec(w_el, *tables, wq, Cb, rho, fac0, storage, fm)
+    mv_p = plain[2](w_el, *tables, wq, Cb, rho, fac0, fm, storage=storage)
+    assert float((mv - mv_p).abs().max()) <= 1e-5 * float(mv_p.abs().max())
+    return C_p
+
+
+def lib_call(sw, name, *args):
+    return getattr(kbuild.load(), name)(*args, ctypes.c_void_p(None))
+
+
+J2LIN_CASES = ([("sf", 3, 2, visc, bf16) for visc in (False, True) for bf16 in (False, True)]
+               + [("dense", d, p, visc, False) for d, p in tsw.DENSE_SHAPES
+                  for visc in (False, True)])
+
+
+@pytest.mark.parametrize(
+    "kind, dim, deg, visc, bf16", J2LIN_CASES,
+    ids=[f"{k}_{d}d_p{p}{'_visc' if v else ''}{'_bf16' if b else ''}"
+         for k, d, p, v, b in J2LIN_CASES])
+def test_j2linear_kernels_on_cpu_tensors(host_sweeps, kind, dim, deg, visc, bf16):
+    """J2Linear's residual, assemble and matvec of the host build on a few
+    elements of each table kind and shape, inviscid and viscous, with a
+    float32 or (sf) bfloat16 block, on a random plastic history with a
+    deviatoric back stress, against the plain versions; the kernels'
+    counters are J2Linear's."""
+    prob = _host_problem(kind, dim, deg, _j2_family("J2Linear"))
+    f = _plastic_inputs(prob, np.random.default_rng(6), 0.002 if dim == 2 else 0.001)
+    tables = (prob.sf["tables"], prob.sf["jinv"]) if prob.sf else (prob.dense["dN_t"],)
+    grad = tsw.sf_grad(f[0], *tables) if prob.sf else tsw.dense_grad(f[0], *tables)
+    share = float((prob.material._common_soa(soa.add_diag(grad, 1.0), f[4])[3] > 0)
+                  .float().mean())
+    assert 0.1 < share < 0.9, share
+    beta = f[4]["beta"]
+    assert float(beta.abs().max()) > 0.0
+    assert float(soa.trace(beta).abs().max()) <= 1e-6 * float(beta.abs().max())
+    _hold_host_sweeps(host_sweeps, prob, f, visc, bf16)
+
+
+LAW_CASES = [(name, law, kind) for name in ("J2", "J2Simo", "J2Log")
+             for law in ("pow", "voce") for kind in ("sf", "dense")]
+
+
+@pytest.mark.parametrize("name, law, kind", LAW_CASES,
+                         ids=[f"{n}_{law}_{k}" for n, law, k in LAW_CASES])
+def test_j2_family_laws_on_cpu_tensors(host_sweeps, name, law, kind):
+    """J2, J2Simo and J2Log with the PowerLaw and the Voce law through the
+    host build's residual and assemble on a few sum-factorized (3D p = 2) or
+    dense (2D p = 3) elements on a random plastic history, against the plain
+    versions; the counters carry the law's tag."""
+    dim, deg = (3, 2) if kind == "sf" else (2, 3)
+    prob = _host_problem(kind, dim, deg, _j2_family(name, law))
+    f = _plastic_inputs(prob, np.random.default_rng(7), 0.002 if kind == "sf" else 0.004)
+    assert host_sweeps.kernel_tag(prob.material).endswith(f"-{law}")
+    _hold_host_sweeps(host_sweeps, prob, f, False, False, matvec=False)

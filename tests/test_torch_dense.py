@@ -430,10 +430,14 @@ def test_step_on_converted_problem_matches_port_build(problems):
 
 def test_unported_dense_options_raise(problems):
     _, port = problems
-    for option in ({"tangent_storage": "cauchy"}, {"tangent_storage": "full"},
-                   {"matvec_dtype": "bf16"}, {"matvec_impl": "sf"}):
+    for option in ({"tangent_storage": "full"}, {"matvec_dtype": "bf16"},
+                   {"matvec_impl": "sf"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             mt.make_step(port, 0.05, **option)
+    # the neo-Hookean sigma is no function of sym(F) alone: a wrong request,
+    # as in the reference
+    with pytest.raises(ValueError, match="Cauchy-decomposition"):
+        mt.make_step(port, 0.05, tangent_storage="cauchy")
     with pytest.raises(ValueError, match="unknown"):
         mt.make_step(port, 0.05, matvec_impl="csr")
 
