@@ -2,9 +2,11 @@
 """Smoke run of mimi_tpu_torch on one CUDA GPU.
 
 Builds the CUDA sweep kernels from the sources in this checkout (one nvcc
-per source, started together, into one library), holds each against its plain torch
-version, checks one implicit step of the kernel path against the plain
-path, then drives five paths, float32.  Four at 48^3 elements
+per source, started together, into one library), prints ptxas's registers,
+shared memory and spills of every instantiation of the sf residual kernel
+(failing where a J2-family Cauchy or hyperelastic one spills), holds each
+kernel against its plain torch version, checks one implicit step of the
+kernel path against the plain path, then drives five paths, float32.  Four at 48^3 elements
 (cube-nurbs.mesh at p=2, 375,000 unknowns):
   - the J2 Johnson-Cook body-force problem, generalized-alpha steps with
     4 line-search Newton iterations and FDM-preconditioned GMRES(40) at
@@ -14,7 +16,9 @@ path, then drives five paths, float32.  Four at 48^3 elements
     J2 Johnson-Cook with viscosity 100, 12 Newton iterations at rel_tol
     1e-3, GMRES(30, at most 80) at lin_rel_tol 1e-2, the consistent
     contact tangent and a bfloat16 tangent block, which runs the viscous
-    and bfloat16 variants of the kernels (phases 9-12);
+    and bfloat16 variants of the kernels (phases 9-12); the same variants
+    on random plastic input at 47^3 = 103,823 elements, where the sf
+    residual kernel's last tile of 32 elements holds 15 (phase 11b);
   - the hyperelastic single-patch path (phases 19-22): the neo-Hookean
     cube, E 2100, nu 0.3, the same face clamped, body force -3, the
     body-force path's step settings, through the sum-factorized kernels
@@ -104,6 +108,7 @@ phase fails.  The last line of standard output is the device record
 import json
 import math
 import os
+import re
 import resource
 import subprocess
 import sys
@@ -131,6 +136,7 @@ CONTACT_STEP_KW = dict(dt=0.01, newton_iters=12, solver="cg", cg_iters=80,
                        contact_tangent="consistent", matvec_dtype="bf16")
 CONTACT_TIMED_STEPS = 3
 PUSH = [0.0, 0.0, -0.01]  # tool motion per step
+RAGGED_SPANS = 47  # 103,823 elements: the sf residual kernel's last tile holds 15 of 32
 VARIANTS = [  # (counter name, TPU kernel it replaces); the contact path's
     ("residual_sf[visc]", "mimi_tpu/ops/sweeps.py:338"),
     ("assemble_sf[visc,bf16]", "mimi_tpu/ops/sweeps.py:472"),
@@ -484,6 +490,60 @@ def kernel_row(name, source, replaces, launches, err, ms, plain_ms, n_bytes, n_o
             "library_ms": None}
 
 
+def ptxas_entries(log, nvcc):
+    """{kernel: {"registers", "smem", "stack", "spill_stores", "spill_loads"}}
+    from nvcc's -Xptxas -v output, the kernels' names demangled by the
+    toolkit's cu++filt beside `nvcc` where it is found."""
+    entries, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            cur = entries.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    filt = os.path.join(os.path.dirname(nvcc), "cu++filt")
+    names = list(entries)
+    if os.path.exists(filt) and names:
+        out = subprocess.run([filt], input="\n".join(names), capture_output=True,
+                             text=True).stdout.splitlines()
+        if len(out) == len(names):
+            return {re.sub(r"<unnamed>::|\(anonymous namespace\)::", "", d): entries[n]
+                    for n, d in zip(names, out)}
+    return entries
+
+
+def check_residual_ptxas(kbuild):
+    """Registers, shared memory and spills of every instantiation of the
+    sf residual kernel (sf_common.cuh residual_kernel: one thread per
+    element and point slot); fails where a J2-family Cauchy (J2Mat) or
+    hyperelastic (Hyper) one spills.  The finite-strain ones (J2SimoMat,
+    J2LogMat: 9 dual-number passes per point) are printed, not held."""
+    if kbuild.BUILD_INFO["cached"]:
+        say("[2. ptxas] the library was cached: no ptxas output in this run")
+        return
+    ents = {n: v for n, v in ptxas_entries(kbuild.BUILD_INFO["log"], kbuild.nvcc()).items()
+            if re.search(r"(?<![A-Za-z_])residual_kernel", n)}  # not dense_residual_kernel
+    if not ents:
+        fail("no residual_kernel instantiation in the ptxas output")
+    for name, v in sorted(ents.items()):
+        spilled = v.get("spill_stores", 0) + v.get("spill_loads", 0)
+        name = re.sub(r"\((int|bool)\)", "", name.split("(const float")[0])
+        say(f"[2. ptxas] {name}: {v.get('registers')} registers, {v.get('smem')} B smem, "
+            f"spill stores {v.get('spill_stores')} B, loads {v.get('spill_loads')} B, stack "
+            f"{v.get('stack')} B")
+        if spilled and ("J2Mat" in name or "Hyper" in name):
+            fail(f"{name} spills {spilled} B")
+
+
 def plastic_points(soa, sweeps, prob, u_el, state, dt):
     """Quadrature points on the plastic branch of the J2 return map at the
     element displacements u_el."""
@@ -623,6 +683,29 @@ def compare_variants(torch, sweeps, prob, f, dt, mu_v, label):
     if not err <= 1e-4 * scale:
         fail(f"viscous bfloat16 matvec kernel disagrees ({err} > 1e-4 * {scale})")
     return errs, C_p
+
+
+def ragged_tile_phase(torch, mt, sweeps, soa, device, gen):
+    """Phase 11b: J2's viscous residual and viscous assemble with a
+    bfloat16 block (the contact press's variants) and the matvec on its
+    block at RAGGED_SPANS^3 elements, where the residual kernel's last tile
+    of 32 elements is partial, on random plastic input (plastic_inputs,
+    share >= 0.25), against their plain versions at hold_viscous's bars,
+    timed beside phase 11's rows."""
+    prob = build(mt, RAGGED_SPANS, device)
+    E, dt = prob.n_el, STEP_KW["dt"]
+    f, share = plastic_inputs(torch, sweeps, soa, prob, prob.material, gen, dt, LAW_AMPLITUDE)
+    label = f"11b. {RAGGED_SPANS}^3 ragged tile"
+    say(f"[{label}] {E} elements, {E % 32} in the last tile of 32; |F - I| up to "
+        f"{LAW_AMPLITUDE}; plastic share of the points {share:.3f}")
+    if E % 32 == 0:
+        fail(f"{RAGGED_SPANS}^3 fills every tile of 32: no ragged tile to check")
+    if share < 0.25:
+        fail(f"{label}: plastic share {share} < 0.25: the check would not exercise the return "
+             "map")
+    hold_viscous(torch, sweeps, prob, prob.material, f, dt, label, combos=((True, True),))
+    del prob, f
+    torch.cuda.empty_cache()
 
 
 def contact_phases(torch, mt, sweeps, soa, sh, device, gen):
@@ -837,6 +920,7 @@ def contact_phases(torch, mt, sweeps, soa, sh, device, gen):
             f"{n_plastic} plastic points); {byts[name] / ms / 1e9:.3f} TB/s")
         rows.append(row)
     del f, Cb, calls
+    ragged_tile_phase(torch, mt, sweeps, soa, device, gen)
 
     # ---- 12. where one contact step's time goes (torch.profiler) -----------
     from torch.profiler import ProfilerActivity, profile
@@ -3166,6 +3250,7 @@ def main():
     for line in kbuild.BUILD_INFO["log"].splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             say(f"  ptxas: {line.strip()}")
+    check_residual_ptxas(kbuild)
 
     gen = torch.Generator().manual_seed(0)
 

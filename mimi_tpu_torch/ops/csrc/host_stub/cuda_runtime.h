@@ -1,15 +1,17 @@
 // Host stand-ins for the CUDA runtime names that the kernel sources of
-// ops/csrc use, so that a C++ compiler builds them for the CPU
+// ops/csrc use, so that a C++20 compiler builds them for the CPU
 // (tests/test_torch_csrc_host.py).  Not used by the nvcc build.
 //
-// The qualifiers compile away; __shared__ arrays become locals of each
-// kernel call (each thread of the dense kernels owns one column of them, so
-// one call per thread computes what the block does); blockIdx and
-// threadIdx are globals that a serial loop over blocks and threads sets
-// before each call (the test rewrites `kernel<<<grid, block, ...>>>(args)`
-// into that loop).  The single-rounding intrinsics are plain IEEE float
-// operations, exact as long as the compiler contracts no FMA
-// (-ffp-contract=off).
+// The qualifiers compile away.  A launch runs as on the card, one block
+// at a time: mimi_host_launch starts one host thread per thread of the
+// block, and each runs the kernel for every block in turn, with a barrier
+// between blocks (the test rewrites `kernel<<<grid, block, ...>>>(args)`
+// into that call).  threadIdx and blockIdx are thread_local; a __shared__
+// variable is a static local of the kernel, so the block's threads share
+// it and the next block finds it as the last one left it; __syncthreads()
+// is a barrier of the block's threads.  The single-rounding intrinsics are
+// plain IEEE float operations, exact as long as the compiler contracts no
+// FMA (-ffp-contract=off).
 
 #pragma once
 
@@ -17,18 +19,46 @@
 #include <math.h>
 #include <string.h>
 
+#include <barrier>
+#include <thread>
+#include <vector>
+
 #define __device__
 #define __host__
 #define __global__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
-#define __shared__
+#define __shared__ static
 
 struct mimi_host_index {
   unsigned x, y, z;
 };
-inline mimi_host_index blockIdx{0, 0, 0};
-inline mimi_host_index threadIdx{0, 0, 0};
+inline thread_local mimi_host_index blockIdx{0, 0, 0};
+inline thread_local mimi_host_index threadIdx{0, 0, 0};
+
+// the barrier of the block that runs now (one launch at a time)
+inline std::barrier<>* mimi_host_block_barrier = nullptr;
+inline void __syncthreads() { mimi_host_block_barrier->arrive_and_wait(); }
+
+// run `kernel()` as a grid of `grid` blocks of `block` threads
+template <class K>
+inline void mimi_host_launch(unsigned grid, unsigned block, const K& kernel) {
+  std::barrier<> sync(block);
+  mimi_host_block_barrier = &sync;
+  std::vector<std::thread> threads;
+  threads.reserve(block);
+  for (unsigned t = 0; t < block; ++t)
+    threads.emplace_back([&, t] {
+      threadIdx = {t, 0, 0};
+      for (unsigned b = 0; b < grid; ++b) {
+        blockIdx = {b, 0, 0};
+        kernel();
+        sync.arrive_and_wait();  // the block's shared memory passes to the next block
+      }
+    });
+  for (std::thread& th : threads) th.join();
+  mimi_host_block_barrier = nullptr;
+}
 
 typedef struct mimi_host_stream* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };

@@ -1,11 +1,35 @@
-// The sum-factorized sweep kernels shared by sweeps_sf.cu (J2 with the
-// Cauchy storage, the hyperelastic materials with the symmetric storage)
-// and sweeps_sf_finite.cu (J2Simo and J2Log with the full storage), for
-// sm_90a: the 1D basis tables, interpolation and scatter of one element's
-// fields at one point (the J2 return maps are in j2.cuh, the
-// storages in materials.cuh), and the residual / matvec kernel templates
-// with their launchers.  Each source instantiates what it needs; the design
-// notes are at the head of sweeps_sf.cu.
+// The sum-factorized sweep kernels shared by sweeps_sf.cu (J2 and J2Linear
+// with the Cauchy storage), sweeps_sf_hyper.cu (the hyperelastic materials
+// with the symmetric storage) and sweeps_sf_finite.cu (J2Simo and J2Log
+// with the full storage), for sm_90a: the 1D basis tables, interpolation
+// and scatter of one element's fields at one point (the J2 return maps are
+// in j2.cuh, the storages in materials.cuh), and the residual / matvec
+// kernel templates with their launchers.  Each source instantiates what it
+// needs.
+//
+// residual_kernel (residual, and with TANGENT the tangent planes) maps one
+// thread to an (element, point slot): a block takes a tile of TILE = 32
+// consecutive elements, one per lane, and SLOTS = 4 warps, warp s taking
+// the points q = s (mod SLOTS) of every element in the tile.  The tile's
+// element fields (u, a and, viscous, v: (3, 27) values each) are staged
+// once in shared memory as [81][TILE], so a lane reads its own column
+// without bank conflicts, and every batch-last read and write at
+// qe = q E + e (tables, jinv, w det J, state, tangent planes) is one
+// 128-byte line per warp.  The 64 points run in 16 rounds of SLOTS: each
+// warp forms its point's F from shared memory (interp_grad, the operations
+// of the one-thread-per-element kernel it replaced, so F and every yield
+// decision round as before), runs the material, stores the planes, and
+// hands its 1D basis values and its flux (Z = jinv w det J P, w det J rho
+// a) to shared memory; after a barrier each thread adds the round's SLOTS
+// points, in q order, to the outputs of the nodes n = s + SLOTS j it owns,
+// all three components (the transpose of the scatter): the reduction is
+// deterministic, uses no atomics, and a thread holds 21 accumulators
+// instead of 81.  The outputs are written coalesced at the end.  Shared
+// memory: 36.1 KB a block, 46.5 KB viscous.  Design notes and what bounds
+// the kernels: the head of sweeps_sf.cu.
+//
+// matvec_kernel is one thread per element, looping over its 64 points
+// with the element's w and its 81 accumulators in registers.
 
 #pragma once
 
@@ -23,7 +47,22 @@ constexpr int NG = 4;   // Gauss points per axis
 constexpr int P1 = 3;   // p + 1
 constexpr int NQ = NG * NG * NG;
 constexpr int ND = P1 * P1 * P1;
-constexpr int BLOCK = 128;
+constexpr int NV = 3 * ND;  // values of a vector field on one element
+constexpr int BLOCK = 128;  // matvec_kernel: elements per block
+
+// residual_kernel: elements per block (a warp's lanes), point slots (one
+// warp each), element outputs a thread sums, and the blocks an SM must
+// hold (__launch_bounds__), which cap a thread's registers at
+// 65536 / (4 * 128) = 128
+constexpr int TILE = 32;
+constexpr int SLOTS = 4;
+constexpr int OWN_NODES = (ND + SLOTS - 1) / SLOTS;
+constexpr int OWN = 3 * OWN_NODES;
+constexpr int RES_MIN_BLOCKS = 4;
+
+// what one point hands to the reduction, per lane: its 1D basis values
+// b[ax][a], d[ax][a], its flux Z[c][a] and its mass term mm[c]
+constexpr int ST_B = 0, ST_D = 3 * P1, ST_Z = 6 * P1, ST_M = ST_Z + 9, NSTAGE = ST_M + 3;
 
 }  // namespace
 
@@ -62,10 +101,10 @@ __device__ __forceinline__ void load_jinv(const float* __restrict__ jinv, int q,
       ji[a][f] = __ldg(jinv + ((long long)(a * 3 + f) * NQ + q) * E + e);
 }
 
-// physical gradient g[c][f] and (optionally) values v[c] of w at one point
-template <bool VALUES>
-__device__ __forceinline__ void interp_grad(const float (&w)[3][ND],
-                                            const Basis& s, const float ji[3][3],
+// physical gradient g[c][f] and (optionally) values v[c] of a field at one
+// point; `w(c, n)` returns the element's value n of component c
+template <bool VALUES, class W>
+__device__ __forceinline__ void interp_grad(const W& w, const Basis& s, const float ji[3][3],
                                             float g[3][3], float v[3]) {
   float gp[3][3];
 #pragma unroll
@@ -87,10 +126,11 @@ __device__ __forceinline__ void interp_grad(const float (&w)[3][ND],
         const float N = s.b[0][a0] * bb;
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-          gp[c][0] += g0 * w[c][n];
-          gp[c][1] += g1 * w[c][n];
-          gp[c][2] += g2 * w[c][n];
-          if (VALUES) v[c] += N * w[c][n];
+          const float wn = w(c, n);
+          gp[c][0] += g0 * wn;
+          gp[c][1] += g1 * wn;
+          gp[c][2] += g2 * wn;
+          if (VALUES) v[c] += N * wn;
         }
       }
 #pragma unroll
@@ -100,9 +140,9 @@ __device__ __forceinline__ void interp_grad(const float (&w)[3][ND],
       g[c][f] = gp[c][0] * ji[0][f] + gp[c][1] * ji[1][f] + gp[c][2] * ji[2][f];
 }
 
-// values v[c] of w at one point
-__device__ __forceinline__ void interp_value(const float (&w)[3][ND],
-                                             const Basis& s, float v[3]) {
+// values v[c] of a field at one point
+template <class W>
+__device__ __forceinline__ void interp_value(const W& w, const Basis& s, float v[3]) {
   v[0] = v[1] = v[2] = 0.f;
 #pragma unroll
   for (int a2 = 0; a2 < P1; ++a2)
@@ -113,15 +153,13 @@ __device__ __forceinline__ void interp_value(const float (&w)[3][ND],
         const int n = a0 + P1 * a1 + P1 * P1 * a2;
         const float N = s.b[0][a0] * s.b[1][a1] * s.b[2][a2];
 #pragma unroll
-        for (int c = 0; c < 3; ++c) v[c] += N * w[c][n];
+        for (int c = 0; c < 3; ++c) v[c] += N * w(c, n);
       }
 }
 
-// acc[c][n] += wq (dN[n][f] X[c][f] + N[n] m[c])
-__device__ __forceinline__ void scatter(float (&acc)[3][ND], const Basis& s,
-                                        const float ji[3][3], float wq,
-                                        const float X[3][3], const float m[3]) {
-  float Z[3][3], mm[3];
+// the flux of one point: Z[c][a] = sum_f jinv[a][f] wq X[c][f], mm[c] = wq m[c]
+__device__ __forceinline__ void point_flux(const float ji[3][3], float wq, const float X[3][3],
+                                           const float m[3], float Z[3][3], float mm[3]) {
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
 #pragma unroll
@@ -130,6 +168,11 @@ __device__ __forceinline__ void scatter(float (&acc)[3][ND], const Basis& s,
                 ji[a][2] * (wq * X[c][2]);
     mm[c] = wq * m[c];
   }
+}
+
+// acc[c][n] += dN[n][f] Z[c][f] + N[n] mm[c] of one point, wq in Z and mm
+__device__ __forceinline__ void scatter(float (&acc)[3][ND], const Basis& s,
+                                        const float Z[3][3], const float mm[3]) {
 #pragma unroll
   for (int a2 = 0; a2 < P1; ++a2)
 #pragma unroll
@@ -148,60 +191,164 @@ __device__ __forceinline__ void scatter(float (&acc)[3][ND], const Basis& s,
       }
 }
 
+// ---- residual_kernel: one thread per (element, point slot) --------------------
+
+// a block's shared memory: the tile's element fields, [value][lane], and
+// the NSTAGE values each slot's current point hands to the reduction
+template <bool VISC>
+struct TileShared {
+  float u[NV][TILE];
+  float a[NV][TILE];
+  float v[VISC ? NV : 1][TILE];
+  float pt[SLOTS][NSTAGE][TILE];
+};
+
+// point q of element e (this thread's lane): F, grad v and a from the
+// staged fields, the basis values into st[k][lane] (so that only jinv, grad
+// v and a stay live across the material), the material and the tangent
+// planes, then the point's flux into st[k][lane]
 template <class Mat, class Store, bool TANGENT, bool VISC, typename CT>
-__global__ void __launch_bounds__(BLOCK)
+__device__ __forceinline__ void tile_point(const TileShared<VISC>& sh, int lane, int q,
+                                           long long e, long long E, const Tables& tb,
+                                           const float* __restrict__ jinv,
+                                           const float* __restrict__ wq, CT* __restrict__ cout,
+                                           const Mat& mat, float rho, float mu_v,
+                                           float (*st)[TILE]) {
+  float ji[3][3];
+  load_jinv(jinv, q, e, E, ji);
+  float F[3][3], dV[3][3], av[3];
+  {
+    Basis s;
+    load_basis(tb, q, e, E, s);
+    float vdum[3];
+    interp_grad<false>([&](int c, int n) { return sh.u[c * ND + n][lane]; }, s, ji, F, vdum);
+    if constexpr (VISC)
+      interp_grad<false>([&](int c, int n) { return sh.v[c * ND + n][lane]; }, s, ji, dV,
+                         vdum);
+    interp_value([&](int c, int n) { return sh.a[c * ND + n][lane]; }, s, av);
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax)
+#pragma unroll
+      for (int a = 0; a < P1; ++a) {
+        st[ST_B + ax * P1 + a][lane] = s.b[ax][a];
+        st[ST_D + ax * P1 + a][lane] = s.d[ax][a];
+      }
+  }
+  F[0][0] += 1.f;
+  F[1][1] += 1.f;
+  F[2][2] += 1.f;
+  const long long QE = (long long)NQ * E, qe = (long long)q * E + e;
+  float P[3][3];
+  {  // the point's tangent data is dead before the flux is formed
+    typename Mat::Point pt;
+    mat.template eval<TANGENT>(F, qe, QE, P, pt);
+    if constexpr (TANGENT) Store::store(cout, qe, QE, mat, pt);
+  }
+  if constexpr (VISC) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+      for (int d = 0; d < 3; ++d) P[c][d] += mu_v * dV[c][d];
+  }
+  const float m[3] = {rho * av[0], rho * av[1], rho * av[2]};
+  float Z[3][3], mm[3];
+  point_flux(ji, __ldg(wq + qe), P, m, Z, mm);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) st[ST_Z + c * 3 + a][lane] = Z[c][a];
+    st[ST_M + c][lane] = mm[c];
+  }
+}
+
+// acc[3 j + c] += the round's SLOTS points, in slot (= q) order, for the
+// outputs (c, n) of the nodes n = W + SLOTS j this thread owns; the terms
+// are scatter's, the basis products formed once per node
+template <int W>
+__device__ __forceinline__ void add_round(float (&acc)[OWN],
+                                          float (*pt)[NSTAGE][TILE], int lane) {
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s) {
+    const float(*p)[TILE] = pt[s];
+#pragma unroll
+    for (int j = 0; j < OWN_NODES; ++j) {
+      const int n = W + SLOTS * j;
+      if (n < ND) {
+        const int a0 = n % P1, a1 = (n / P1) % P1, a2 = n / (P1 * P1);
+        const float b0 = p[ST_B + a0][lane], b1 = p[ST_B + P1 + a1][lane],
+                    b2 = p[ST_B + 2 * P1 + a2][lane];
+        const float d0 = p[ST_D + a0][lane], d1 = p[ST_D + P1 + a1][lane],
+                    d2 = p[ST_D + 2 * P1 + a2][lane];
+        const float bb = b1 * b2;
+        const float g0 = d0 * bb;
+        const float g1 = b0 * d1 * b2;
+        const float g2 = b0 * b1 * d2;
+        const float N = b0 * bb;
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          acc[3 * j + c] += g0 * p[ST_Z + c * 3][lane] + g1 * p[ST_Z + c * 3 + 1][lane] +
+                            g2 * p[ST_Z + c * 3 + 2][lane] + N * p[ST_M + c][lane];
+      }
+    }
+  }
+}
+
+// add_round<slot>, the slot known at compile time in each branch (the
+// branch is uniform across a warp)
+template <int W = 0>
+__device__ __forceinline__ void add_round_of(int slot, float (&acc)[OWN],
+                                             float (*pt)[NSTAGE][TILE], int lane) {
+  if constexpr (W + 1 < SLOTS) {
+    if (slot != W) {
+      add_round_of<W + 1>(slot, acc, pt, lane);
+      return;
+    }
+  }
+  add_round<W>(acc, pt, lane);
+}
+
+template <class Mat, class Store, bool TANGENT, bool VISC, typename CT>
+__global__ void __launch_bounds__(TILE * SLOTS, RES_MIN_BLOCKS)
     residual_kernel(const float* __restrict__ u_el, const float* __restrict__ a_el,
                     const float* __restrict__ v_el, Tables tb,
                     const float* __restrict__ jinv, const float* __restrict__ wq,
                     float* __restrict__ out, CT* __restrict__ cout, Mat mat, float rho,
                     float mu_v, long long E) {
-  const long long e = (long long)blockIdx.x * BLOCK + threadIdx.x;
-  if (e >= E) return;
-  float uw[3][ND], aw[3][ND], vw[3][ND], acc[3][ND];
-#pragma unroll
-  for (int c = 0; c < 3; ++c)
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      uw[c][n] = __ldg(u_el + (long long)(c * ND + n) * E + e);
-      aw[c][n] = __ldg(a_el + (long long)(c * ND + n) * E + e);
-      if (VISC) vw[c][n] = __ldg(v_el + (long long)(c * ND + n) * E + e);
-      acc[c][n] = 0.f;
-    }
-  const long long QE = (long long)NQ * E;
-#pragma unroll 1
-  for (int q = 0; q < NQ; ++q) {
-    Basis s;
-    load_basis(tb, q, e, E, s);
-    float ji[3][3];
-    load_jinv(jinv, q, e, E, ji);
-    float F[3][3], vdum[3];
-    interp_grad<false>(uw, s, ji, F, vdum);
-    F[0][0] += 1.f;
-    F[1][1] += 1.f;
-    F[2][2] += 1.f;
-    const long long qe = (long long)q * E + e;
-    float P[3][3];
-    typename Mat::Point pt;
-    mat.template eval<TANGENT>(F, qe, QE, P, pt);
-    if (VISC) {
-      float dV[3][3], vdum2[3];
-      interp_grad<false>(vw, s, ji, dV, vdum2);
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-#pragma unroll
-        for (int d = 0; d < 3; ++d) P[c][d] += mu_v * dV[c][d];
-    }
-    float av[3];
-    interp_value(aw, s, av);
-    const float m[3] = {rho * av[0], rho * av[1], rho * av[2]};
-    scatter(acc, s, ji, __ldg(wq + qe), P, m);
-    if constexpr (TANGENT) Store::store(cout, qe, QE, mat, pt);
+  __shared__ TileShared<VISC> sh;
+  const int lane = threadIdx.x % TILE, slot = threadIdx.x / TILE;
+  const long long e = (long long)blockIdx.x * TILE + lane;
+  const bool live = e < E;  // the last tile is ragged where E % TILE != 0
+  for (int r = slot; r < NV; r += SLOTS) {
+    const long long off = (long long)r * E + e;
+    sh.u[r][lane] = live ? __ldg(u_el + off) : 0.f;
+    sh.a[r][lane] = live ? __ldg(a_el + off) : 0.f;
+    if constexpr (VISC) sh.v[r][lane] = live ? __ldg(v_el + off) : 0.f;
   }
+  __syncthreads();
+  float acc[OWN];
 #pragma unroll
-  for (int c = 0; c < 3; ++c)
+  for (int k = 0; k < OWN; ++k) acc[k] = 0.f;
+#pragma unroll 1
+  for (int q0 = 0; q0 < NQ; q0 += SLOTS) {
+    if (live)
+      tile_point<Mat, Store, TANGENT, VISC, CT>(sh, lane, q0 + slot, e, E, tb, jinv, wq, cout,
+                                                mat, rho, mu_v, sh.pt[slot]);
+    __syncthreads();
+    if (live) add_round_of(slot, acc, sh.pt, lane);
+    __syncthreads();  // the round's points are read before the next overwrites them
+  }
+  if (live) {
 #pragma unroll
-    for (int n = 0; n < ND; ++n) out[(long long)(c * ND + n) * E + e] = acc[c][n];
+    for (int j = 0; j < OWN_NODES; ++j) {
+      const int n = slot + SLOTS * j;
+      if (n < ND)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) out[(long long)(c * ND + n) * E + e] = acc[3 * j + c];
+    }
+  }
 }
+
+// ---- matvec_kernel: one thread per element ----------------------------------
 
 template <class Store, bool VISC, typename CT>
 __global__ void __launch_bounds__(BLOCK)
@@ -219,6 +366,7 @@ __global__ void __launch_bounds__(BLOCK)
       ww[c][n] = __ldg(w_el + (long long)(c * ND + n) * E + e);
       acc[c][n] = 0.f;
     }
+  const auto wf = [&](int c, int n) { return ww[c][n]; };
   const long long QE = (long long)NQ * E;
 #pragma unroll 1
   for (int q = 0; q < NQ; ++q) {
@@ -227,7 +375,7 @@ __global__ void __launch_bounds__(BLOCK)
     float ji[3][3];
     load_jinv(jinv, q, e, E, ji);
     float dF[3][3], v[3];
-    interp_grad<true>(ww, s, ji, dF, v);
+    interp_grad<true>(wf, s, ji, dF, v);
     const long long qe = (long long)q * E + e;
     float dP[3][3];
     Store::apply(cb, qe, QE, dF, fac0, dP);
@@ -238,7 +386,9 @@ __global__ void __launch_bounds__(BLOCK)
         for (int d = 0; d < 3; ++d) dP[c][d] += fac1_mu_v * dF[c][d];
     }
     const float m[3] = {rho * v[0], rho * v[1], rho * v[2]};
-    scatter(acc, s, ji, __ldg(wq + qe), dP, m);
+    float Z[3][3], mm[3];
+    point_flux(ji, __ldg(wq + qe), dP, m, Z, mm);
+    scatter(acc, s, Z, mm);
   }
 #pragma unroll
   for (int c = 0; c < 3; ++c)
@@ -246,15 +396,14 @@ __global__ void __launch_bounds__(BLOCK)
     for (int n = 0; n < ND; ++n) out[(long long)(c * ND + n) * E + e] = acc[c][n];
 }
 
-inline unsigned grid_for(long long E) { return (unsigned)((E + BLOCK - 1) / BLOCK); }
-
 template <class Mat, class Store, bool TANGENT, bool VISC, typename CT>
 int launch_residual(const float* u_el, const float* a_el, const float* v_el,
                     const Tables& tb, const float* jinv, const float* wq, float* out,
                     void* cout, const Mat& mat, float rho, float mu_v, long long E,
                     void* stream) {
+  const unsigned tiles = (unsigned)((E + TILE - 1) / TILE);
   residual_kernel<Mat, Store, TANGENT, VISC, CT>
-      <<<grid_for(E), BLOCK, 0, (cudaStream_t)stream>>>(
+      <<<tiles, TILE * SLOTS, 0, (cudaStream_t)stream>>>(
           u_el, a_el, v_el, tb, jinv, wq, out, static_cast<CT*>(cout), mat, rho, mu_v, E);
   return (int)cudaGetLastError();
 }
@@ -263,7 +412,8 @@ template <class Store, bool VISC, typename CT>
 int launch_matvec(const float* w_el, const Tables& tb, const float* jinv,
                   const float* wq, const void* cb, float* out, float rho,
                   float fac0, float fac1_mu_v, long long E, void* stream) {
-  matvec_kernel<Store, VISC, CT><<<grid_for(E), BLOCK, 0, (cudaStream_t)stream>>>(
+  const unsigned grid = (unsigned)((E + BLOCK - 1) / BLOCK);
+  matvec_kernel<Store, VISC, CT><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
       w_el, tb, jinv, wq, static_cast<const CT*>(cb), out, rho, fac0, fac1_mu_v, E);
   return (int)cudaGetLastError();
 }

@@ -42,13 +42,32 @@
 //         to nearest even (as astype(bfloat16)); the matvec widens on load.
 //         At 48^3 the matvec then streams 0.52 GB of C instead of 1.05 GB.
 //
-// Design: one thread per element, looping over its 64 quadrature points.
-// The batch-last layout (..., n_q, n_el) puts neighbouring elements on
-// neighbouring addresses, so every table, state and tangent read of a warp
-// coalesces; the 81 element outputs accumulate in registers, so there is no
-// cross-thread reduction and no atomics.  The 1D tables are indexed
-// directly by (q0, q1, q2) and (a0, a1, a2): q = q0 + 4 q1 + 16 q2 and
-// n = a0 + 3 a1 + 9 a2, basis products formed per point.
+// Design of the residual and assemble (residual_kernel, sf_common.cuh):
+// one thread per (element, point slot).  A block of 128 threads takes a
+// tile of 32 consecutive elements, one per lane, in 4 warps, warp s taking
+// the points q = s (mod 4) of every element; the batch-last layout
+// (..., n_q, n_el) makes every table, jinv, w det J, state and
+// tangent-plane access of a warp one 128-byte line.  The tile's u, a (and
+// v) are staged once in shared memory, [81][32] per field, each lane
+// reading its own column; per point the warp forms F (and grad v, a) from
+// there with the operations of the one-thread-per-element kernel this
+// replaced, so every output rounds as that kernel's did, runs the material
+// and stores the planes, and hands the point's 1D basis values and flux to
+// shared memory.  Every 4 points a barrier, then each thread adds them, in
+// q order, to the outputs of the 7 (6) nodes it owns, three components
+// each: 21 accumulators, a deterministic reduction without atomics.  The
+// last tile is masked where E % 32 != 0.  __launch_bounds__(128, 4) caps a
+// thread at 128 registers, 16 warps per SM; ptxas (CUDA 12.8, sm_90a):
+// every J2Mat and Hyper instantiation 121-128 registers, 0 B spilled;
+// J2SimoMat's and J2LogMat's residual 0 B, their assemble (9 dual-number
+// passes a point) 36 and 452 B (PERF.md section 6).  The one-thread-per-element kernel it replaced held
+// u, a, v and 81 accumulators per thread: 255 registers, 584-1372 B
+// spilled, 8 warps per SM.
+// The matvec (matvec_kernel) is still one thread per element, looping over
+// its 64 points with w and the 81 accumulators in registers.  The 1D
+// tables are indexed directly by (q0, q1, q2) and (a0, a1, a2):
+// q = q0 + 4 q1 + 16 q2 and n = a0 + 3 a1 + 9 a2, basis products formed
+// per point.
 //
 // What bounds them on the H100: the matvec streams the 37-plane tangent
 // block (9.5 KB per element) plus jinv (2.3 KB) once per GMRES iteration,
@@ -56,12 +75,11 @@
 // 3.35 TB/s): per point it does ~1.7k flops against ~200 bytes, about
 // 8 flop/byte, under the ~20 flop/byte float32 ridge.  The assemble writes
 // the same 1.05 GB tangent and runs the radial return (up to 100
-// safeguarded Newton-bisection trips with powf/logf on plastic points), so
-// plastic-heavy calls can turn compute bound.  Register
-// pressure (81 element values + 81 accumulators per thread) spills to
-// local memory, which stays in L1; a thread-per-point layout with shared
-// memory staging is the known next step and not done here.  The symmetric
-// matvec streams 45 planes (1.27 GB at 48^3, ~0.50 ms at 3.35 TB/s).
+// safeguarded Newton-bisection trips with powf/logf on plastic points):
+// plastic-heavy calls are bound by the trips' dependent chains at 16 warps
+// per SM, the elastic ones by the per-point interpolation and reduction
+// instructions.  The symmetric matvec streams 45 planes (1.27 GB at 48^3,
+// ~0.50 ms at 3.35 TB/s).
 //
 // Rounding of the hyperelastic variants: F comes out of the per-point
 // basis products below with fused multiply-add, so it agrees with the

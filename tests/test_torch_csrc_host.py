@@ -4,16 +4,20 @@ The card's compiler is not here, so g++ builds each source against the
 host stand-ins of mimi_tpu_torch/ops/csrc/host_stub/ (the qualifiers
 compile away, __ldg is a load, the single-rounding intrinsics are IEEE
 float operations).  A copy of the sources has every launch
-`kernel<<<grid, block, shared, stream>>>(args)` rewritten into a serial
-loop over blocks and threads that calls the kernel with blockIdx and
-threadIdx set: the kernels share nothing between threads, so the loop is
-exact.  Each source must compile; the objects are linked into one library
-with the C entry points of ops/build.py, and the dense finite-strain
-kernels (sweeps_dense_finite.cu) run on CPU tensors at 4 elements (2D,
-p = 3), the viscous dense kernels (sym and cauchy, 2D and 3D) and the
-viscous hyperelastic sf kernels with a float32 or bfloat16 block
-(sweeps_sf_hyper.cu) at a few elements, against their plain versions at
-1e-5.  Skips where no g++ is found.
+`kernel<<<grid, block, shared, stream>>>(args)` rewritten into a call of
+the stub's mimi_host_launch, which runs the blocks one at a time, each
+with one host thread per thread of the block: __shared__ storage is shared
+by the block's threads and __syncthreads() is a barrier of them, so the
+sf residual kernel, whose threads reduce through shared memory, runs as
+on the card.  Each source must compile; the objects are linked into one
+library with the C entry points of ops/build.py, and the dense
+finite-strain kernels (sweeps_dense_finite.cu) run on CPU tensors at 4
+elements (2D, p = 3), the viscous dense kernels (sym and cauchy, 2D and
+3D), the viscous hyperelastic sf kernels with a float32 or bfloat16 block
+(sweeps_sf_hyper.cu) and the J2-family sf and dense kernels at a few
+elements, the sf residual and assemble of J2 also on a partial tile and on
+full tiles with a ragged tail, against their plain versions.  Skips where
+no g++ is found.
 """
 
 import ctypes
@@ -38,7 +42,7 @@ DATA = os.path.join(os.path.dirname(__file__), "data")
 BALKEN = os.path.join(DATA, "balken.mesh")
 MESH = os.path.join(DATA, "cube-nurbs.mesh")
 SOURCES = [os.path.basename(s) for s in kbuild.SOURCES]
-CXX = ["-std=c++17", "-O1", "-fPIC", "-ffp-contract=off", "-w"]
+CXX = ["-std=c++20", "-O1", "-fPIC", "-pthread", "-ffp-contract=off", "-w"]
 
 
 def _statement_start(text, i):
@@ -70,8 +74,9 @@ def _split_top(args):
 
 
 def serial_launches(text):
-    """`kernel<<<grid, block, shared, stream>>>(args)` -> a loop over the
-    grid's blocks and the block's threads calling `kernel(args)`."""
+    """`kernel<<<grid, block, shared, stream>>>(args)` -> a call of the
+    stub's mimi_host_launch running `kernel(args)` as the grid's blocks, one
+    after the other, each on one host thread per thread of the block."""
     while "<<<" in text:
         i = text.index("<<<")
         start = _statement_start(text, i)
@@ -81,16 +86,13 @@ def serial_launches(text):
         end = _matching_paren(text, k)
         kernel, args = text[start:i].strip(), text[k + 1:end]
         loop = (f" {{ const unsigned mimi_g = ({grid}), mimi_b = ({block});"
-                " for (unsigned mimi_bx = 0; mimi_bx < mimi_g; ++mimi_bx)"
-                " for (unsigned mimi_tx = 0; mimi_tx < mimi_b; ++mimi_tx) {"
-                " blockIdx.x = mimi_bx; threadIdx.x = mimi_tx;"
-                f" {kernel}({args}); }} }}")
+                f" mimi_host_launch(mimi_g, mimi_b, [&] {{ {kernel}({args}); }}); }}")
         text = text[:start] + loop + text[end + 1:]
     return text
 
 
 def host_build(dest):
-    """Copy the sources and headers into `dest` with serial launches, and
+    """Copy the sources and headers into `dest` with host launches, and
     compile every source with g++ in parallel.  Returns ({source: (return
     code, compiler output)}, [object paths])."""
     for name in os.listdir(CSRC):
@@ -139,6 +141,49 @@ def test_serial_launch_rewrite():
     assert "<<<" not in out and "k<A, B>(x, g(y, z), E);" in out
     assert "mimi_g = (grid_for(E)), mimi_b = ( BLOCK)" in out
     assert re.search(r"\{ const unsigned mimi_g", out)
+
+
+BLOCK_SUM = r"""
+#include <cstdio>
+#include "cuda_runtime.h"
+constexpr int NT = 64, NB = 3;
+__global__ void block_sum(const float* x, float* out) {
+  __shared__ float s[NT];
+  const unsigned t = threadIdx.x;
+  s[t] = x[blockIdx.x * NT + t];
+  __syncthreads();
+  for (unsigned h = NT / 2; h > 0; h /= 2) {  // each step reads other threads' sums
+    if (t < h) s[t] += s[t + h];
+    __syncthreads();
+  }
+  if (t == 0) out[blockIdx.x] = s[0];
+}
+int main() {
+  float x[NB * NT], out[NB];
+  for (int i = 0; i < NB * NT; ++i) x[i] = (float)(i + 1);
+  block_sum<<<NB, NT, 0, (cudaStream_t)nullptr>>>(x, out);
+  for (int b = 0; b < NB; ++b) std::printf("%.1f ", out[b]);
+  return 0;
+}
+"""
+
+
+def test_host_launch_runs_a_block_cooperatively(tmp_path):
+    """The stub runs a block's threads together: a kernel that sums each
+    block's 64 values by a tree through shared memory, with a barrier
+    after every step, gives the exact sums (integers in float32) for
+    three blocks that reuse the same shared array."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ on this host to build the CUDA sources as C++")
+    src, exe = tmp_path / "block_sum.cpp", tmp_path / "block_sum"
+    src.write_text(serial_launches(BLOCK_SUM))
+    assert "<<<" not in src.read_text()
+    r = subprocess.run(["g++", *CXX, "-I", STUB, "-o", str(exe), str(src)],
+                       capture_output=True, text=True)
+    assert r.returncode == 0, r.stdout + r.stderr
+    sums = [float(v) for v in subprocess.run([str(exe)], capture_output=True, text=True,
+                                             check=True, timeout=60).stdout.split()]
+    assert sums == [float(sum(range(64 * b + 1, 64 * b + 65))) for b in range(3)]
 
 
 @pytest.mark.parametrize("source", SOURCES)
@@ -538,3 +583,27 @@ def test_j2_family_laws_on_cpu_tensors(host_sweeps, name, law, kind):
     f = _plastic_inputs(prob, np.random.default_rng(7), 0.002 if kind == "sf" else 0.004)
     assert host_sweeps.kernel_tag(prob.material).endswith(f"-{law}")
     _hold_host_sweeps(host_sweeps, prob, f, False, False, matvec=False)
+
+
+TILE_CASES = [(spans, visc, bf16) for spans in (3, 5) for visc, bf16 in ((False, False),
+                                                                          (True, True))]
+
+
+@pytest.mark.parametrize("spans, visc, bf16", TILE_CASES,
+                         ids=[f"{n}^3{'_visc_bf16' if v else ''}" for n, v, _ in TILE_CASES])
+def test_j2_sf_tiles_on_cpu_tensors(host_sweeps, spans, visc, bf16):
+    """J2 with Johnson-Cook hardening through the host build's sf residual,
+    assemble and matvec on a random plastic history, inviscid with a
+    float32 block and viscous with a bfloat16 block (the contact press's
+    variant), against the plain versions: at 3^3 = 27 elements the residual
+    kernel's one tile of 32 is partial, at 5^3 = 125 three full tiles are
+    followed by a ragged one of 29 elements."""
+    mat = _material("J2")
+    prob = mt.build_problem(MESH, 1, 0, mat, [(1, 0), (1, 1), (1, 2)], {}, rho_inf=0.5,
+                            device="cpu", dtype=torch.float32, refine_spans=spans)
+    assert prob.sf is not None and prob.n_el == spans**3
+    f = _plastic_inputs(prob, np.random.default_rng(8), 0.03 / spans)
+    F = soa.add_diag(tsw.sf_grad(f[0], prob.sf["tables"], prob.sf["jinv"]), 1.0)
+    share = float(prob.material._return_map(F, f[4], 0.05)[4].float().mean())
+    assert 0.1 < share < 0.9, share
+    _hold_host_sweeps(host_sweeps, prob, f, visc, bf16)
