@@ -44,7 +44,7 @@ system; and two St. Venant-Kirchhoff steps.
 
 And the 2D dense-table path (phases 27-32): the golden cantilever of the
 reference's trajectories (balken.mesh, the unit square, at p=3) at 512^2
-= 262,144 elements, 530,450 unknowns, J2 Johnson-Cook (1 warm + 3 timed
+= 262,144 elements, 530,450 unknowns, J2 Johnson-Cook (1 warm + 2 timed
 steps) and its neo-Hookean twin (1 + 2), through the dense kernels with
 the 14-plane Cauchy and the 10-plane symmetric tangent and the 2D FDM;
 every instantiation of the templated dense kernels (2D p=2 and p=3, 3D
@@ -73,7 +73,7 @@ two-patch FDM with the contact spring); path B, the cube press of
 tests/test_contact.py at 48^3 (the viscous sf kernels with the 45-plane
 symmetric tangent in bfloat16).  Each tool starts touching the body (the
 example's y = 1.02 would leave the first four steps untouched) and is
-pushed 0.005 (A) or 0.01 (B) before each of 1 warm + 3 timed steps.  On
+pushed 0.005 (A) or 0.01 (B) before each of 1 warm + 2 timed steps.  On
 each path's tables every new viscous and bfloat16 instantiation is held
 against its plain version on random input (at 2 x 512^2 also those of St.
 Venant-Kirchhoff and J2), and the path kernels at the path's state; the
@@ -87,7 +87,7 @@ reference's hardening moduli isotropic 50 and kinematic 30, yield stress
 5), the sf kernels with the Cauchy storage; path D, the golden
 cantilever's mesh at 512^2 p = 3 with J2Linear, the dense (2, 3) kernels;
 path E, the 48^3 cube with J2 and the reference's PowerLaw (sigma_y 10,
-n 2, eps0 1e-3), body force -5; dt 0.05, 1 warm + 3 timed steps each, C
+n 2, eps0 1e-3), body force -5; dt 0.05, 1 warm + 2 timed steps each, C
 and E yielding at 1% of the points or more.  Every new instantiation
 (J2Linear's, sf and dense, viscous and not, float32 and bfloat16 sf
 blocks; J2, J2Simo and J2Log with each law, sf and dense) is held against
@@ -97,6 +97,28 @@ paths' states, the next Newton system at full size, one profiled step per
 path, and one plastic step kernel path against plain path each of J2Linear
 (16^3, 64^2 p = 3), J2 + PowerLaw and J2Simo + Voce (16^3) and J2Log +
 PowerLaw (64^2 p = 3).
+
+And the finite-strain contact presses and the full block of every
+material (phases 48-53): path F, the cube press of phases 9-12 (48^3, the
+bilinear tool pushed 0.01 per step, kappa 5e7, E 1e6, density 1e3,
+viscosity 100, the Johnson-Cook law A 700 / B 1400, dt 0.01, 12 Newton,
+FDM-GMRES(30, 80) at 1e-2, the bfloat16 block, the frozen contact tangent)
+with J2Simo and with J2Log, through the viscous bfloat16 full sf kernels;
+path G, the 2D two-patch press of path A (2 x 512^2) with the same J2Simo,
+through the viscous dense (2, 2) full kernels; 1 warm + 2 timed steps
+each.  Every new instantiation (J2Simo's and J2Log's viscous and bfloat16
+full kernels, sf and at every dense shape; the full block of J2, J2Linear
+and the hyperelastic materials) against its plain version on random input
+at full size, the path kernels at the paths' states, the next Newton
+system, a profiled step, one step held at 16^3 / 2 x 64^2, one body-force
+J2 step with tangent_storage="full" against the Cauchy block's.  Phase 48
+times the J2-family kernels' radial return at its cap of 40 trips against
+the 100 of the "torch" engine (the press's plastic sf sweeps in phase 11,
+the golden J2 cantilever's dense (2, 3) sweeps in phase 32, J2Log's sf
+assemble on random plastic input), with the plain twin's share of plastic
+points that reach the cap.  The kernels run the radial return at most 40
+trips, as the reference's Pallas kernels do; every kernel is held against
+its plain version run as its twin (materials.kernel_solver_mode).
 
     python3 chip_smoke.py
 
@@ -119,8 +141,8 @@ MESH = os.path.join(ROOT, "tests", "data", "cube-nurbs.mesh")
 SPANS = 48  # main path: 48^3 elements
 CHECK_SPANS = 16  # kernel-vs-plain and one-step parity
 # timed steps of the 48^3 body-force, neo-Hookean and J2Simo drives, and of
-# the contact press: 3 keep the whole smoke near twelve minutes
-TIMED_STEPS = 3
+# the contact press: 2 keep the whole smoke near fourteen minutes
+TIMED_STEPS = 2
 NEWTON_ITERS = 4
 RES_EVALS_PER_STEP = NEWTON_ITERS * 3 + 1  # assemble + 2 line-search residuals, + accumulate
 STEP_KW = dict(dt=0.05, newton_iters=NEWTON_ITERS, solver="cg", cg_iters=40,
@@ -134,7 +156,7 @@ KERNELS = [  # (counter name, TPU kernel it replaces)
 CONTACT_STEP_KW = dict(dt=0.01, newton_iters=12, solver="cg", cg_iters=80,
                        precond="fdm", lin_rel_tol=1e-2, rel_tol=1e-3,
                        contact_tangent="consistent", matvec_dtype="bf16")
-CONTACT_TIMED_STEPS = 3
+CONTACT_TIMED_STEPS = 2
 PUSH = [0.0, 0.0, -0.01]  # tool motion per step
 RAGGED_SPANS = 47  # 103,823 elements: the sf residual kernel's last tile holds 15 of 32
 VARIANTS = [  # (counter name, TPU kernel it replaces); the contact path's
@@ -186,7 +208,7 @@ A_PLASTIC = 1.0
 # trajectories (tests/test_nonlinear_solid.py:22-90), balken.mesh (the unit
 # square) elevated by 2 to p = 3 and subdivided 9 times: 512^2 = 262,144
 # elements, 16 dofs and 25 points each, 530,450 unknowns; boundary 2
-# clamped; J2 Johnson-Cook (body force -3, dt 0.5, 1 warm + 3 timed steps)
+# clamped; J2 Johnson-Cook (body force -3, dt 0.5, 1 warm + 2 timed steps)
 # and its neo-Hookean twin (body force -5, dt 0.05, 1 + 2); the golden's
 # 10 Newton iterations, GMRES(30, at most 80) at lin_rel_tol 1e-3, FDM.
 BALKEN = os.path.join(ROOT, "tests", "data", "balken.mesh")
@@ -194,7 +216,7 @@ GOLDEN_SUBDIVIDE = 9  # 2^9 = 512 spans per axis, p = 3
 P2_SUBDIVIDE = 7  # the p = 2 instantiations (elevate 1) at 128^2
 STEP2D_SUBDIVIDE = 6  # the one-step parity at 64^2
 GOLDEN_2D = {  # material: (body force in y, dt, timed steps)
-    "J2": (-3.0, 0.5, 3),  # 3 timed steps keep the smoke near half its time limit
+    "J2": (-3.0, 0.5, 2),  # 2 timed steps keep the smoke near fourteen minutes
     "CompressibleOgdenNeoHookean": (-5.0, 0.05, 2),
     "StVenantKirchhoff": (-5.0, 0.05, 1),
 }
@@ -256,7 +278,7 @@ J2LIN_SIGMA_Y = 5.0
 POWER_LAW = (10.0, 2.0, 1e-3)  # sigma_y, n, eps0
 VOCE_LAW = (10.0, 30.0, 0.02)  # sigma_y, sigma_sat, strain constant
 PATH_DT = 0.05
-PATH_TIMED = 3
+PATH_TIMED = 2
 YIELD_SHARE = 0.01
 SMALL_SIGMA_Y = 1.0
 # |F - I| of phase 43's random plastic input, per element: for J2Linear
@@ -284,7 +306,8 @@ LAW_AMPLITUDE = 0.1
 TWO_SQUARE = os.path.join(ROOT, "tests", "data", "two-patch-square.mesh")
 PRESS_2D_SUBDIVIDE = 9  # 2 x 512^2 elements
 PRESS_2D_HELD = 6  # the held step: 2 x 64^2
-PRESS_TIMED = 3  # timed steps after the warm one on each press
+PRESS_TIMED = 2  # timed steps after the warm one on each press (A and B)
+PRESS_F_TIMED = 2  # on paths F and G
 PRESS_STEP_KW = dict(dt=0.01, newton_iters=12, solver="cg", cg_iters=80, precond="fdm",
                      lin_rel_tol=1e-2, rel_tol=1e-3)
 PRESS_PUSH = {2: [0.0, -0.005], 3: [0.0, 0.0, -0.01]}
@@ -443,15 +466,12 @@ def build(mt, spans, device, name="J2", A=70.0):
     )
 
 
-def build_contact(mt, spans, device):
+def build_contact(mt, spans, device, name="J2", dtype=None):
     """The contact press: clamped bottom face, top face (bid 1) against a
-    rigid bilinear Bezier tool at z = 1.02 (kappa 5e7), J2 Johnson-Cook
-    (A 700, B 1400), E 1e6, nu 0.3, density 1e3, viscosity 100."""
-    mat = jc_material(mt, A=700.0)
-    mat.hardening.B = 1400.0
-    mat.density = 1e3
-    mat.viscosity = 100.0
-    mat.set_young_poisson(1e6, 0.3)
+    rigid bilinear Bezier tool at z = 1.02 (kappa 5e7), the J2-family
+    material `name` (J2 unless named) with the Johnson-Cook law A 700,
+    B 1400, E 1e6, nu 0.3, density 1e3, viscosity 100."""
+    mat = press_finite_material(mt, name)
     scene = mt.NearestDistanceToSplines()
     scene.add_spline(mt.Bezier([1, 1], [[-0.5, -0.5, 1.02], [-0.5, 1.5, 1.02],
                                         [1.5, -0.5, 1.02], [1.5, 1.5, 1.02]]))
@@ -459,7 +479,7 @@ def build_contact(mt, spans, device):
     scene.coefficient = 5e7
     return mt.build_problem(
         MESH, 1, 0, mat, [(0, 0), (0, 1), (0, 2)], {}, rho_inf=0.5,
-        device=device, refine_spans=spans,
+        device=device, dtype=dtype, refine_spans=spans,
         contact=[(1, scene)],
     )
 
@@ -525,12 +545,14 @@ def check_residual_ptxas(kbuild):
     """Registers, shared memory and spills of every instantiation of the
     sf residual kernel (sf_common.cuh residual_kernel: one thread per
     element and point slot); fails where a J2-family Cauchy (J2Mat) or
-    hyperelastic (Hyper) one spills.  The finite-strain ones (J2SimoMat,
-    J2LogMat: 9 dual-number passes per point) are printed, not held."""
+    hyperelastic (Hyper) one spills, with its own or the full block.  The
+    finite-strain ones (J2SimoMat, J2LogMat: 9 dual-number passes per point)
+    and the other kernels with the full block are printed, not held."""
     if kbuild.BUILD_INFO["cached"]:
         say("[2. ptxas] the library was cached: no ptxas output in this run")
         return
-    ents = {n: v for n, v in ptxas_entries(kbuild.BUILD_INFO["log"], kbuild.nvcc()).items()
+    every = ptxas_entries(kbuild.BUILD_INFO["log"], kbuild.nvcc())
+    ents = {n: v for n, v in every.items()
             if re.search(r"(?<![A-Za-z_])residual_kernel", n)}  # not dense_residual_kernel
     if not ents:
         fail("no residual_kernel instantiation in the ptxas output")
@@ -542,6 +564,13 @@ def check_residual_ptxas(kbuild):
             f"{v.get('stack')} B")
         if spilled and ("J2Mat" in name or "Hyper" in name):
             fail(f"{name} spills {spilled} B")
+    # the other kernels with the full block (dense residual and matvec, sf
+    # matvec): printed, not held
+    for name, v in sorted(every.items()):
+        if "FullStorage" in name and name not in ents:
+            name = re.sub(r"\((int|bool)\)", "", name.split("(const float")[0])
+            say(f"[2. ptxas] {name}: {v.get('registers')} registers, {v.get('smem')} B smem, "
+                f"spill stores {v.get('spill_stores')} B, loads {v.get('spill_loads')} B")
 
 
 def plastic_points(soa, sweeps, prob, u_el, state, dt):
@@ -555,6 +584,19 @@ def plastic_points(soa, sweeps, prob, u_el, state, dt):
 # 10 ms to 2 s, far above the events' resolution, and their time is a
 # reference for the kernels' rows, not a result
 PLAIN_REPS = 1
+
+
+def twin(fn):
+    """The plain sweep `fn` as its kernel's twin: the J2 family's radial
+    return stops at the kernels' 40 trips (materials.kernel_solver_mode, the
+    reference's Pallas-kernel mode); the "torch" engine's steps keep 100."""
+    from mimi_tpu_torch.materials import kernel_solver_mode
+
+    def run(*args, **kwargs):
+        with kernel_solver_mode():
+            return fn(*args, **kwargs)
+
+    return run
 
 
 def cuda_ms(torch, fn, reps):
@@ -580,7 +622,7 @@ def compare_sweeps(torch, sweeps, prob, u_el, a_el, w_el, state, label):
     errs = {}
     y_k = sweeps.residual_sf(*args)
     torch.cuda.synchronize()
-    y_p = sweeps.residual_sf_plain(*args)
+    y_p = twin(sweeps.residual_sf_plain)(*args)
     err, scale = float((y_k - y_p).abs().max()), float(y_p.abs().max())
     errs["residual_sf"] = err
     say(f"[{label}] residual: max|err| {err:.3e} scale {scale:.3e}")
@@ -590,7 +632,7 @@ def compare_sweeps(torch, sweeps, prob, u_el, a_el, w_el, state, label):
         fail(f"residual kernel disagrees with plain ({err} > 1e-5 * {scale})")
     ya_k, C_k = sweeps.assemble_sf(*args)
     torch.cuda.synchronize()
-    ya_p, C_p = sweeps.assemble_sf_plain(*args)
+    ya_p, C_p = twin(sweeps.assemble_sf_plain)(*args)
     err, scale = float((ya_k - ya_p).abs().max()), float(ya_p.abs().max())
     # tangent block: each plane against the largest entry of its group
     # (D-hat, sigma, F^-1, J); a plane whose entries are all small, such as
@@ -615,7 +657,7 @@ def compare_sweeps(torch, sweeps, prob, u_el, a_el, w_el, state, label):
         fail(f"assemble kernel tangent disagrees (plane err {float(rel.max())})")
     mv_k = sweeps.matvec_sf(w_el, tabs, jinv, wq, C_p, float(mat.density), fac0)
     torch.cuda.synchronize()
-    mv_p = sweeps.matvec_sf_plain(w_el, tabs, jinv, wq, C_p, float(mat.density), fac0)
+    mv_p = twin(sweeps.matvec_sf_plain)(w_el, tabs, jinv, wq, C_p, float(mat.density), fac0)
     err, scale = float((mv_k - mv_p).abs().max()), float(mv_p.abs().max())
     errs["matvec_sf"] = err
     say(f"[{label}] matvec: max|err| {err:.3e} scale {scale:.3e}")
@@ -623,13 +665,6 @@ def compare_sweeps(torch, sweeps, prob, u_el, a_el, w_el, state, label):
     if not err <= 1e-4 * scale:
         fail(f"matvec kernel disagrees with plain ({err} > 1e-4 * {scale})")
     return errs, C_p
-
-
-def group_rel(diff, ref):
-    """max over the plane groups of the Cauchy block (D-hat, sigma, F^-1,
-    J) of max|diff| / max|ref| in the group."""
-    return max(float(diff[a:b].max() / ref[a:b].abs().max().clamp_min(1e-30))
-               for a, b in ((0, 21), (21, 27), (27, 36), (36, 37)))
 
 
 def compare_variants(torch, sweeps, prob, f, dt, mu_v, label):
@@ -648,7 +683,7 @@ def compare_variants(torch, sweeps, prob, f, dt, mu_v, label):
     errs = {}
     y_k = sweeps.residual_sf(*args, **visc)
     torch.cuda.synchronize()
-    y_p = sweeps.residual_sf_plain(*args, **visc)
+    y_p = twin(sweeps.residual_sf_plain)(*args, **visc)
     err, scale = float((y_k - y_p).abs().max()), float(y_p.abs().max())
     errs["residual_sf[visc]"] = err
     say(f"[{label}] residual[visc]: max|err| {err:.3e} scale {scale:.3e}")
@@ -657,12 +692,12 @@ def compare_variants(torch, sweeps, prob, f, dt, mu_v, label):
         fail(f"viscous residual kernel disagrees ({err} > 1e-5 * {scale})")
     ya_k, C_k = sweeps.assemble_sf(*args, **visc, c_dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    ya_p, C_p = sweeps.assemble_sf_plain(*args, **visc, c_dtype=torch.bfloat16)
+    ya_p, C_p = twin(sweeps.assemble_sf_plain)(*args, **visc, c_dtype=torch.bfloat16)
     err, scale = float((ya_k - ya_p).abs().max()), float(ya_p.abs().max())
     if C_k.dtype != torch.bfloat16:
         fail(f"bfloat16 assemble wrote {C_k.dtype}")
     diff = (C_k.float() - C_p.float()).abs()
-    rel = group_rel(diff, C_p.float())
+    rel = group_err(torch, C_k, C_p.double(), plane_groups(sweeps, "cauchy", 3))
     share = float((C_k != C_p).float().mean())
     errs["assemble_sf[visc,bf16]"] = max(err, float(diff.max()))
     say(f"[{label}] assemble[visc,bf16]: residual max|err| {err:.3e} scale {scale:.3e}; "
@@ -676,7 +711,7 @@ def compare_variants(torch, sweeps, prob, f, dt, mu_v, label):
         fail(f"bfloat16 tangent planes disagree (err {rel} of group max)")
     mv_k = sweeps.matvec_sf(f["w_el"], tabs, jinv, wq, C_p, rho, fac0, fac1_mu_v)
     torch.cuda.synchronize()
-    mv_p = sweeps.matvec_sf_plain(f["w_el"], tabs, jinv, wq, C_p, rho, fac0, fac1_mu_v)
+    mv_p = twin(sweeps.matvec_sf_plain)(f["w_el"], tabs, jinv, wq, C_p, rho, fac0, fac1_mu_v)
     err, scale = float((mv_k - mv_p).abs().max()), float(mv_p.abs().max())
     errs["matvec_sf[visc,bf16]"] = err
     say(f"[{label}] matvec[visc,bf16] on one bf16 block: max|err| {err:.3e} scale {scale:.3e}")
@@ -889,13 +924,13 @@ def contact_phases(torch, mt, sweeps, soa, sh, device, gen):
     bf16 = torch.bfloat16
     calls = {
         "residual_sf[visc]": (lambda: sweeps.residual_sf(*args, **visc),
-                              lambda: sweeps.residual_sf_plain(*args, **visc)),
+                              lambda: twin(sweeps.residual_sf_plain)(*args, **visc)),
         "assemble_sf[visc,bf16]": (
             lambda: sweeps.assemble_sf(*args, **visc, c_dtype=bf16),
-            lambda: sweeps.assemble_sf_plain(*args, **visc, c_dtype=bf16)),
+            lambda: twin(sweeps.assemble_sf_plain)(*args, **visc, c_dtype=bf16)),
         "matvec_sf[visc,bf16]": (
             lambda: sweeps.matvec_sf(f["w_el"], tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v),
-            lambda: sweeps.matvec_sf_plain(f["w_el"], tabs, jinv, wq, Cb, rho, fac0,
+            lambda: twin(sweeps.matvec_sf_plain)(f["w_el"], tabs, jinv, wq, Cb, rho, fac0,
                                            fac1_mu_v)),
     }
     n_pts = prob.n_el * prob.n_q
@@ -919,15 +954,12 @@ def contact_phases(torch, mt, sweeps, soa, sh, device, gen):
             f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} ({byts[name] / 1e9:.3f} GB, "
             f"{n_plastic} plastic points); {byts[name] / ms / 1e9:.3f} TB/s")
         rows.append(row)
+    cap_share(torch, "48. 48^3 contact path", lambda: sweeps.residual_sf_plain(*args, **visc))
     del f, Cb, calls
     ragged_tile_phase(torch, mt, sweeps, soa, device, gen)
 
     # ---- 12. where one contact step's time goes (torch.profiler) -----------
     from torch.profiler import ProfilerActivity, profile
-
-    def device_rows(prof):
-        return [(e.key, e.count, e.self_device_time_total / 1e3)
-                for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
 
     sd = NDS.translate_scene_data(sd, PUSH)
     p0 = n_proj[0]
@@ -937,7 +969,7 @@ def contact_phases(torch, mt, sweeps, soa, sh, device, gen):
         torch.cuda.synchronize()
         t_prof = (time.perf_counter() - t0) * 1e3
     d = carry["newton"]
-    ev = device_rows(prof)
+    ev = device_times(prof)
     busy = sum(t for _, _, t in ev)
     if busy > 0:
         say(f"[12. 48^3 contact profile] one step (newton {d['iters']}, gmres "
@@ -964,7 +996,7 @@ def contact_phases(torch, mt, sweeps, soa, sh, device, gen):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         query(qpts, sd)
         torch.cuda.synchronize()
-    q_dev = sum(t for _, _, t in device_rows(prof))
+    q_dev = sum(t for _, _, t in device_times(prof))
     say(f"[12. 48^3 contact profile] closest-point projection of {qpts.shape[0]} points: "
         f"wall {sorted(walls)[2]:.3f} ms (median of 5), device busy "
         f"{q_dev:.3f} ms; unconverged {int((~res['converged']).sum())}")
@@ -1010,7 +1042,7 @@ def sym_sweeps(sweeps, prob):
     else:
         kind, tables = "dense", (prob.dense["dN_t"], prob.dense["N_t"])
     fns = [getattr(sweeps, f"{n}_{kind}") for n in ("residual", "assemble", "matvec")]
-    plain = [getattr(sweeps, f"{n}_{kind}_plain") for n in ("residual", "assemble", "matvec")]
+    plain = [twin(getattr(sweeps, f"{n}_{kind}_plain")) for n in ("residual", "assemble", "matvec")]
     return kind, tables, fns, plain
 
 
@@ -1175,6 +1207,18 @@ def predictor_fields(torch, sh, prob, carry, gen, dt=STEP_KW["dt"]):
     return u_el, g(carry["a"]), w_el
 
 
+def device_times(prof):
+    """[(kernel name, launches, device ms)] of a profiled window, summed
+    from the raw trace events: building the profiler's event tree
+    (key_averages) takes tens of seconds for a step of ~10^5 launches."""
+    acc = {}
+    for e in prof.profiler.kineto_results.events():
+        if str(e.device_type()).endswith("CUDA"):
+            n, t = acc.get(e.name(), (0, 0.0))
+            acc[e.name()] = (n + 1, t + e.duration_ns() / 1e6)
+    return [(k, n, t) for k, (n, t) in acc.items()]
+
+
 def profile_step(torch, step, carry, s_step, label, contact_scenes=None):
     """One profiled step (with the tool at `contact_scenes` on a contact
     problem): device busy time, idle share of the timed s/step, device
@@ -1188,14 +1232,17 @@ def profile_step(torch, step, carry, s_step, label, contact_scenes=None):
         carry = step(carry, contact_scenes=contact_scenes)
         torch.cuda.synchronize()
         t_prof = (time.perf_counter() - t0) * 1e3
-    ev = [(e.key, e.count, e.self_device_time_total / 1e3)
-          for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    ev = device_times(prof)
     busy = sum(t for _, _, t in ev)
     d = carry["newton"]
     if busy > 0:
+        # the profiler slows the host, so the profiled step's own wall
+        # overstates idling; on a press the profiled (next) step may also do
+        # more work than the timed ones did
         say(f"[{label}] one step (newton {d['iters']}, gmres {d['lin_iters']}): "
             f"device busy {busy:.1f} ms; idle share {1.0 - busy / (s_step * 1e3):.3f} of the "
-            f"timed {s_step * 1e3:.1f} ms/step (profiled step wall {t_prof:.1f} ms)")
+            f"timed {s_step * 1e3:.1f} ms/step, {1.0 - busy / t_prof:.3f} of the profiled "
+            f"step's wall {t_prof:.1f} ms")
         for key, n, t in sorted(ev, key=lambda x: -x[2])[:12]:
             say(f"[{label}]   {t:9.3f} ms  x{n:<5d} {key[:90]}")
     else:
@@ -1598,7 +1645,7 @@ def compare_kernels(torch, sweeps, prob, u_el, a_el, w_el, state, dt, label, par
         ya_p, C_p[..., sl] = asm_p(*p_args)
         err, scale = masked_err(torch, ya_k[..., sl], ya_p, f"{n_asm} residual")
         masked_err(torch, C_k[..., sl], C_p[..., sl], f"{n_asm} planes")
-        rel, dmax, surface = planes_rel(torch, sweeps, prob, C_k[..., sl], C_p[..., sl], 1e-4,
+        rel, dmax, surface, _ = planes_rel(torch, sweeps, prob, C_k[..., sl], C_p[..., sl], 1e-4,
                                         p_args, f"{n_asm} {tag}")
         errs[n_asm] = max(errs[n_asm], err, dmax)
         say(f"{tag} {n_asm}: residual max|err| {err:.3e} scale {scale:.3e}; {C_k.shape[0]} "
@@ -1622,37 +1669,63 @@ def compare_kernels(torch, sweeps, prob, u_el, a_el, w_el, state, dt, label, par
     return errs, C_p
 
 
-def planes_rel(torch, sweeps, prob, C_k, C_p, bar, args, what, mat=None):
-    """(worst plane error against its group's max (plane_groups), max
-    |C_k - C_p|, a note) of the kernel's tangent block C_k against the
-    plain one C_p (either dtype; compared in float32).  For a material with
+def group_err(torch, C, C_ref, groups, keep=None):
+    """max over the plane groups of max|C - C_ref| / max|C_ref| in the
+    group, in float64, over the entries C_ref has finite (and, with `keep`,
+    the points it marks)."""
+    d = torch.nan_to_num((C.double() - C_ref).abs())
+    if keep is not None:
+        d = d * keep.to(d.dtype)
+    d = d.amax(dim=(1, 2))
+    m = torch.nan_to_num(C_ref.abs()).amax(dim=(1, 2))
+    return max(float(d[a:b].max() / m[a:b].max().clamp_min(1e-300)) for a, b in groups)
+
+
+def planes_rel(torch, sweeps, prob, C_k, C_p, bar, args, what, mat=None, storage=None,
+               witness=False):
+    """(worst plane error against its group's max (plane_groups of the
+    block's `storage`, default the material's), max |C_k - C_p|, a note,
+    the points kept) of the kernel's tangent block C_k against the plain
+    one C_p (either dtype; compared in float32).  For a material with
     state (`mat`, default the problem's), the points whose planes differ by
     more than `bar` of the block's max must lie within YIELD_BAND of the
     yield surface in the plain trial state at args = (u_el, a_el, state,
     *tables): the kernel, rounding its own trial state, took the other
-    branch there; they are counted and left out."""
+    branch there; they are counted and left out.  A point off the yield
+    surface past the bar fails, unless `witness` (a state that holds
+    inverted elements): then it stays in the error, and the caller holds
+    the planes of the kept points against float64."""
     mat = mat or prob.material
     dC = torch.nan_to_num(C_k.float() - C_p.float()).abs()
     mag = torch.nan_to_num(C_p.float()).abs().amax(dim=(1, 2))
-    note = ""
+    note, keep = "", None
     if args[2] is not None:
         off = dC.amax(0) > bar * mag.max()
         if bool(off.any()):
-            margin = float(yield_margin(torch, sweeps, prob, args[0], args[2], args[3:5],
-                                        mat)[off].max())
-            note = (f"; {int(off.sum())} points at the yield surface (plain trial within "
-                    f"{margin:.1e} of the flow stress) on the other branch in the kernel, left "
-                    "out of the planes' bar")
-            if not margin <= YIELD_BAND:
-                fail(f"{what}: tangent disagrees at points {margin} of the flow stress off the "
-                     "yield surface")
-            dC = dC * (~off).to(dC.dtype)
+            margin = yield_margin(torch, sweeps, prob, args[0], args[2], args[3:5], mat)
+            band = off & (margin <= YIELD_BAND)
+            far = off & ~band
+            if bool(band.any()):
+                note = (f"; {int(band.sum())} points at the yield surface (plain trial within "
+                        f"{float(margin[band].max()):.1e} of the flow stress) on the other "
+                        "branch in the kernel, left out of the planes' bar")
+            if bool(far.any()):
+                nearest = float(margin[far].min())
+                if not witness:
+                    fail(f"{what}: tangent disagrees at {int(far.sum())} points off the yield "
+                         f"surface (plain trial at least {nearest} of the flow stress from it)")
+                note += (f"; {int(far.sum())} points off the yield surface (at least "
+                         f"{nearest:.1e} of the flow stress from it) past the bar, held against "
+                         "float64")
+            keep = ~band
+            dC = dC * keep.to(dC.dtype)
+            del margin, band, far
     diff = dC.amax(dim=(1, 2))
     del dC
-    storage = sweeps.tangent_storage(mat)
+    storage = storage or sweeps.tangent_storage(mat)
     rel = max(float(diff[a:b].max() / mag[a:b].max().clamp_min(1e-30))
               for a, b in plane_groups(sweeps, storage, prob.dim))
-    return rel, float(diff.max()), note
+    return rel, float(diff.max()), note, keep
 
 
 def path_residual(torch, sweeps, sh, prob, carry, gen, label):
@@ -1664,7 +1737,7 @@ def path_residual(torch, sweeps, sh, prob, carry, gen, label):
             STEP_KW["dt"], float(mat.density))
     y_k = sweeps.residual_sf(*args)
     torch.cuda.synchronize()
-    err, scale = masked_err(torch, y_k, sweeps.residual_sf_plain(*args), label)
+    err, scale = masked_err(torch, y_k, twin(sweeps.residual_sf_plain)(*args), label)
     return err / scale
 
 
@@ -1682,10 +1755,10 @@ def time_sf(torch, sweeps, prob, u_el, a_el, w_el, state, C, names, launches, er
     fac0 = prob.facs["fac3"] * dt * dt
     args = (u_el, a_el, state, tabs, jinv, wq, mat, dt, rho)
     mv_args = (w_el, tabs, jinv, wq, C, rho, fac0)
-    fns = [(lambda: sweeps.residual_sf(*args), lambda: sweeps.residual_sf_plain(*args)),
-           (lambda: sweeps.assemble_sf(*args), lambda: sweeps.assemble_sf_plain(*args)),
+    fns = [(lambda: sweeps.residual_sf(*args), lambda: twin(sweeps.residual_sf_plain)(*args)),
+           (lambda: sweeps.assemble_sf(*args), lambda: twin(sweeps.assemble_sf_plain)(*args)),
            (lambda: sweeps.matvec_sf(*mv_args, storage=storage),
-            lambda: sweeps.matvec_sf_plain(*mv_args, storage=storage))]
+            lambda: twin(sweeps.matvec_sf_plain)(*mv_args, storage=storage))]
     el_out = 3 * 27 * prob.n_el * 4
     byts = [  # inputs read once, outputs written once
         nbytes(u_el, a_el, tabs, jinv, wq, state) + el_out,
@@ -1856,14 +1929,6 @@ def ops_tag(sweeps, mat):
     return sweeps.kernel_tag(mat).split("-")[0]
 
 
-def matvec_name(sweeps, kind, storage, dim=3, p=2, visc=False, bf16=False):
-    """Counter name of a matvec instantiation (the sf Cauchy ones have the
-    untagged names of sweeps.variant)."""
-    if kind == "sf" and storage == "cauchy":
-        return sweeps.variant("matvec_sf", visc, bf16)
-    return sweeps.matvec_counter(kind, storage, dim, p, visc, bf16)
-
-
 def kernel_names(sweeps, prob):
     """Counter names (residual, assemble, matvec) of the problem's material
     on its tables: kind, storage, material tag and (dim, p) suffix (sf
@@ -1871,7 +1936,7 @@ def kernel_names(sweeps, prob):
     mat, storage = prob.material, sweeps.tangent_storage(prob.material)
     kind = "sf" if prob.sf is not None else "dense"
     dim, p = (3, 2) if kind == "sf" else (prob.dim, dense_degree(prob))
-    return [*sweeps.kernel_counters(mat, kind, dim, p), matvec_name(sweeps, kind, storage, dim, p)]
+    return [*sweeps.kernel_counters(mat, kind, dim, p), sweeps.matvec_counter(kind, storage, dim, p)]
 
 
 def sf_ops(sweeps, prob):
@@ -1891,10 +1956,12 @@ def kernel_fns(sweeps, prob):
     if prob.sf is not None:
         return ((prob.sf["tables"], prob.sf["jinv"]),
                 (sweeps.residual_sf, sweeps.assemble_sf, sweeps.matvec_sf),
-                (sweeps.residual_sf_plain, sweeps.assemble_sf_plain, sweeps.matvec_sf_plain))
+                tuple(map(twin, (sweeps.residual_sf_plain, sweeps.assemble_sf_plain,
+                                 sweeps.matvec_sf_plain))))
     return ((prob.dense["dN_t"], prob.dense["N_t"]),
             (sweeps.residual_dense, sweeps.assemble_dense, sweeps.matvec_dense),
-            (sweeps.residual_dense_plain, sweeps.assemble_dense_plain, sweeps.matvec_dense_plain))
+            tuple(map(twin, (sweeps.residual_dense_plain, sweeps.assemble_dense_plain,
+                             sweeps.matvec_dense_plain))))
 
 
 def grad_of(sweeps, prob, u_el, tables=None):
@@ -1962,10 +2029,10 @@ def time_dense(torch, sweeps, prob, u_el, a_el, w_el, state, C, dt, launches, er
     rho, fac0 = float(mat.density), prob.facs["fac3"] * dt * dt
     args = (u_el, a_el, state, dN, N, wq, mat, dt, rho)
     mv_args = (w_el, dN, N, wq, C, rho, fac0)
-    fns = [(lambda: sweeps.residual_dense(*args), lambda: sweeps.residual_dense_plain(*args)),
-           (lambda: sweeps.assemble_dense(*args), lambda: sweeps.assemble_dense_plain(*args)),
+    fns = [(lambda: sweeps.residual_dense(*args), lambda: twin(sweeps.residual_dense_plain)(*args)),
+           (lambda: sweeps.assemble_dense(*args), lambda: twin(sweeps.assemble_dense_plain)(*args)),
            (lambda: sweeps.matvec_dense(*mv_args, storage=storage),
-            lambda: sweeps.matvec_dense_plain(*mv_args, storage=storage))]
+            lambda: twin(sweeps.matvec_dense_plain)(*mv_args, storage=storage))]
     el_out = nbytes(u_el)
     byts = [nbytes(u_el, a_el, dN, N, wq, state) + el_out,
             nbytes(u_el, a_el, dN, N, wq, state, C) + el_out,
@@ -2048,8 +2115,10 @@ def drive_dense(torch, mt, sweeps, prob, label, timed, dt, step_kw):
 
 
 def drop_of(carry):
+    """The step's Newton residual drop |r| / |r0| (0 for a step that starts
+    at equilibrium)."""
     d = carry["newton"]
-    return d["norm"] / d["norm0"]
+    return d["norm"] / d["norm0"] if d["norm0"] > 0 else 0.0
 
 
 def hold_short_step(torch, mt, prob, before, after, dt, step_kw, label, gen, full=True,
@@ -2193,7 +2262,7 @@ def dense2d_phases(torch, mt, sweeps, soa, sh, device, gen):
     512^2, J2 on a plastic input; 2D p = 2 at 128^2; 3D J2 on the two-patch
     cube at 2 x 8^3); 29: one step kernel path against plain path (2D J2
     and neo-Hookean at 64^2, 3D two-patch J2 at 2 x 8^3); 30: the timed
-    drives at 512^2 (J2 1 + 3 steps, neo-Hookean 1 + 2) and the short
+    drives at 512^2 (J2 1 + 2 steps, neo-Hookean 1 + 2) and the short
     drives that launch the other instantiations; 31: one profiled step per
     2D material at 512^2; 32: the rows of the kernels line, timed at the
     drives' states.  Returns the rows."""
@@ -2297,6 +2366,11 @@ def dense2d_phases(torch, mt, sweeps, soa, sh, device, gen):
         rows += time_dense(torch, sweeps, prob, u_el, a_el, w_el, carry["state"], C, dt,
                            launches, errs, f"32. {tag} timing",
                            matvec=name != "StVenantKirchhoff")
+        if name == "J2" and elevate == 2:
+            dargs = (u_el, a_el, carry["state"], prob.dense["dN_t"], prob.dense["N_t"],
+                     prob.wdet_t, prob.material, dt, float(prob.material.density))
+            cap_share(torch, f"48. {tag} path", lambda: sweeps.residual_dense_plain(*dargs))
+            del dargs
         if elevate == 2 and name != "StVenantKirchhoff":
             profile_step(torch, step, carry, s_step, f"31. {tag} profile")
         del prob, carry, step, u_el, a_el, w_el, C
@@ -2545,20 +2619,60 @@ def dense_finite_phases(torch, mt, sweeps, soa, sh, device, gen):
     return rows
 
 
+def as_f64(torch, x):
+    """x with every floating tensor (in dicts, lists and tuples) in float64."""
+    if isinstance(x, dict):
+        return {k: as_f64(torch, v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(as_f64(torch, v) for v in x)
+    return x.double() if torch.is_tensor(x) and x.is_floating_point() else x
+
+
+def witnessed(torch, what, err, scale, bar, y_k, y_p, plain64):
+    """A kernel output y_k held against its plain version y_p at `bar` x
+    scale; where that fails and `plain64` (the plain version in float64 on
+    the same inputs, a callable) is given, held instead against float64:
+    the kernel passes if it is within `bar` x scale of the float64 output,
+    or as close to it as the plain float32 output is, twice over.  Given
+    only at a state that holds inverted elements, where float32 itself
+    resolves the output no better.  Prints the witness; returns whether the
+    output is held."""
+    if err <= bar * scale:
+        return True
+    if not plain64:
+        return False
+    y64 = plain64()
+    ok = ~torch.isnan(y64)
+    e32 = float((y_p.double() - y64)[ok].abs().max())
+    ek = float((y_k.double() - y64)[ok].abs().max())
+    held = ek <= max(bar * scale, 2.0 * e32)
+    say(f"    {what}: kernel vs plain {err:.3e} of {scale:.3e} past {bar:.1e}; the float64 "
+        f"witness: plain float32 vs float64 {e32:.3e} ({e32 / scale:.3e}), kernel vs float64 "
+        f"{ek:.3e} ({ek / scale:.3e}), bar max({bar:.1e}, 2x the plain's): "
+        f"{'held' if held else 'not held'}")
+    return held
+
+
 def hold_viscous(torch, sweeps, prob, mat, f, dt, label, launches=None,
-                 combos=((True, False),), inviscid_residual=False):
+                 combos=((True, False),), inviscid_residual=False, storage=None,
+                 residual=True, witness=False):
     """The viscous and bfloat16 instantiations of `mat`'s kernels on the
     problem's tables, sum-factorized or dense (`mat` need not be the
     problem's: the tables do not depend on it), against their plain
     versions on the inputs `f` (u_el, a_el, v_el, w_el, state), for each
     (viscous, bfloat16 block) of `combos`: the residual (viscous only, it
-    writes no block, unless `inviscid_residual`), the assemble and the
-    matvec on the plain version's block.  Bars: residual 1e-5 x scale;
-    assemble residual and matvec 1e-4 x scale; float32 planes 1e-4 of their
-    group's max; bfloat16 planes 2^-7 of their group's max (one bfloat16
-    step) against the plain float32 planes rounded to bfloat16; points at
-    a yield surface on the other branch in the kernel are counted and left
-    out (planes_rel).  Each is timed (CUDA events over 20 calls,
+    writes no block, unless `inviscid_residual`; none without `residual`),
+    the assemble of the block in `storage` (default: the material's own)
+    and the matvec on the plain version's block.  Bars: residual 1e-5 x
+    scale; assemble residual and matvec 1e-4 x scale; float32 planes 1e-4
+    of their group's max; bfloat16 planes 2^-7 of their group's max (one
+    bfloat16 step) against the plain float32 planes rounded to bfloat16;
+    points at a yield surface on the other branch in the kernel are counted
+    and left out (planes_rel).  With `witness` (a path state that holds
+    inverted elements), an output past its bar is held against the plain
+    version in float64 instead (witnessed; the planes by their group's max
+    likewise, over every point but the yield-band ones).  Each is timed
+    (CUDA events over 20 calls,
     the plain version over PLAIN_REPS after a warm one); returns the rows
     with their launches in `launches` (0 where no driven path launched
     the variant: such rows are printed for the record, not put in the
@@ -2569,20 +2683,29 @@ def hold_viscous(torch, sweeps, prob, mat, f, dt, label, launches=None,
     vprob = dataclasses.replace(prob, material=mat)
     kind = "sf" if prob.sf is not None else "dense"
     tables, kern, plain = kernel_fns(sweeps, vprob)
-    storage, dim = sweeps.tangent_storage(mat), prob.dim
+    own, dim = sweeps.tangent_storage(mat), prob.dim
+    storage = storage or own
     p = 2 if kind == "sf" else dense_degree(prob)
     wq, rho = prob.wdet_t, float(mat.density)
     mu_v = float(mat.viscosity) if float(mat.viscosity) > 0.0 else VISC_MU
     fac0 = prob.facs["fac3"] * dt * dt
     fac1_mu_v = prob.facs["fac4"] * dt * mu_v
     args = (f["u_el"], f["a_el"], f["state"], *tables, wq, mat, dt, rho)
+    args64 = as_f64(torch, args) if witness else None
     if kind == "sf":
         base = sf_ops(sweeps, vprob)
         extra = (_SF_VISCOUS, _SF_VISCOUS, 18)
+        full_apply = _SF_MATVEC + _FULL_APPLY
     else:
         base, nd = dense_ops(sweeps, vprob), prob.dense["dN_t"].shape[0]
         extra = (2 * dim * dim * nd + 2 * dim * dim,) * 2 + (2 * dim * dim,)
-    source = (SF_SOURCE if kind == "sf" else DENSE_SOURCE)[storage]
+        # dense_ops' matvec with the full apply, 2 dim^4
+        full_apply = (2 * dim * dim * nd + 2 * dim * nd + (2 * dim + 2) * dim * nd + dim
+                      + 2 * dim**4)
+    if storage != own:  # the full block of a material with a stronger own storage
+        base = [base[0], base[1], full_apply]
+    sources = (SF_SOURCE if kind == "sf" else DENSE_SOURCE)
+    source = (sources[own], sources[own], sources[storage])
     el_out = nbytes(f["u_el"])
     n_pts = prob.n_el * prob.n_q
     rows, held = [], set()
@@ -2590,48 +2713,74 @@ def hold_viscous(torch, sweeps, prob, mat, f, dt, label, launches=None,
         vk = dict(v_el=f["v_el"], mu_v=mu_v) if visc else {}
         fm = fac1_mu_v if visc else None
         cd = torch.bfloat16 if bf16 else torch.float32
-        names = (*sweeps.kernel_counters(mat, kind, dim, p, visc, bf16),
-                 matvec_name(sweeps, kind, storage, dim, p, visc, bf16))
+        names = (*sweeps.kernel_counters(mat, kind, dim, p, visc, bf16, storage),
+                 sweeps.matvec_counter(kind, storage, dim, p, visc, bf16))
         checks = []  # (i, name, err, kernel call, plain call, bytes)
         fields = (f["u_el"], f["a_el"], f["v_el"] if visc else None, tables, wq, f["state"])
-        if (visc or inviscid_residual) and names[0] not in held:  # it writes no block
-            held.add(names[0])
+        if residual and (visc or inviscid_residual) and names[0] not in held:
+            held.add(names[0])  # it writes no block
             y_k = kern[0](*args, **vk)
             torch.cuda.synchronize()
-            err, scale = masked_err(torch, y_k, plain[0](*args, **vk), names[0])
+            y_p = plain[0](*args, **vk)
+            err, scale = masked_err(torch, y_k, y_p, names[0])
             say(f"[{label}] {names[0]}: max|err| {err:.3e} scale {scale:.3e} ({err / scale:.3e})")
-            if not err <= 1e-5 * scale:
+            if not witnessed(torch, names[0], err, scale, 1e-5, y_k, y_p, witness and (
+                    lambda vk=vk: plain[0](*args64, **as_f64(torch, vk)))):
                 fail(f"{names[0]} disagrees with plain ({err} > 1e-5 * {scale}) [{label}]")
+            del y_p
             checks.append((0, err, lambda vk=vk: kern[0](*args, **vk),
                            lambda vk=vk: plain[0](*args, **vk), nbytes(*fields) + el_out))
             del y_k
-        ya_k, C_k = kern[1](*args, **vk, c_dtype=cd)
+        ak = dict(vk, c_dtype=cd, storage=storage)
+        ya_k, C_k = kern[1](*args, **ak)
         torch.cuda.synchronize()
-        ya_p, C_p = plain[1](*args, **vk, c_dtype=cd)
-        if C_k.dtype != cd:
-            fail(f"{names[1]} wrote a {C_k.dtype} block")
+        ya_p, C_p = plain[1](*args, **ak)
+        if C_k.dtype != cd or C_k.shape[0] != sweeps.n_planes(storage, dim):
+            fail(f"{names[1]} wrote a {C_k.dtype} block of {C_k.shape[0]} planes")
         err, scale = masked_err(torch, ya_k, ya_p, f"{names[1]} residual")
         bar = 2.0**-7 if bf16 else 1e-4
-        rel, dmax, note = planes_rel(torch, sweeps, prob, C_k, C_p, bar, args,
-                                     f"{names[1]} [{label}]", mat)
+        rel, dmax, note, keep = planes_rel(torch, sweeps, prob, C_k, C_p, bar, args,
+                                           f"{names[1]} [{label}]", mat, storage, witness)
         say(f"[{label}] {names[1]}: residual max|err| {err:.3e} scale {scale:.3e}; "
             f"{C_k.shape[0]} {'bfloat16' if bf16 else 'float32'} planes worst err vs group max "
             f"{rel:.3e} (bar {bar:.3e}){note}")
-        if not err <= 1e-4 * scale:
+        if witness and (err > 1e-4 * scale or not rel <= bar):
+            ya64, C64 = plain[1](*args64, **as_f64(torch, dict(vk, storage=storage)),
+                                 c_dtype=torch.float64)
+            # the planes of the points kept by planes_rel (the yield-band
+            # points left out of both), every other point in
+            groups = plane_groups(sweeps, storage, dim)
+            rel_p = group_err(torch, C_p, C64, groups, keep)
+            rel_k = group_err(torch, C_k, C64, groups, keep)
+            held_planes = rel <= bar or rel_k <= max(bar, 2.0 * rel_p)
+            say(f"    {names[1]} planes: kernel vs plain {rel:.3e} of the group max past "
+                f"{bar:.1e}; the float64 witness: plain {'bfloat16' if bf16 else 'float32'} vs "
+                f"float64 {rel_p:.3e}, kernel vs float64 {rel_k:.3e}, bar max({bar:.1e}, 2x the "
+                f"plain's): {'held' if held_planes else 'not held'}")
+            held_res = witnessed(torch, f"{names[1]} residual", err, scale, 1e-4, ya_k, ya_p,
+                                 lambda y=ya64: y)
+            del ya64, C64
+        else:
+            held_res, held_planes = err <= 1e-4 * scale, rel <= bar
+        del keep
+        if not held_res:
             fail(f"{names[1]} residual disagrees ({err} > 1e-4 * {scale}) [{label}]")
-        if not rel <= bar:
+        if not held_planes:
             fail(f"{names[1]} planes disagree ({rel} of their group's max) [{label}]")
-        checks.append((1, max(err, dmax), lambda vk=vk, cd=cd: kern[1](*args, **vk, c_dtype=cd),
-                       lambda vk=vk, cd=cd: plain[1](*args, **vk, c_dtype=cd),
+        checks.append((1, max(err, dmax), lambda ak=ak: kern[1](*args, **ak),
+                       lambda ak=ak: plain[1](*args, **ak),
                        nbytes(*fields, C_p) + el_out))
         del ya_k, C_k, ya_p
         mv_args = (f["w_el"], *tables, wq, C_p, rho, fac0, fm)
         y_k = kern[2](*mv_args, storage=storage)
         torch.cuda.synchronize()
-        err, scale = masked_err(torch, y_k, plain[2](*mv_args, storage=storage), names[2])
+        y_p = plain[2](*mv_args, storage=storage)
+        err, scale = masked_err(torch, y_k, y_p, names[2])
         say(f"[{label}] {names[2]}: max|err| {err:.3e} scale {scale:.3e}")
-        if not err <= 1e-4 * scale:
+        if not witnessed(torch, names[2], err, scale, 1e-4, y_k, y_p, witness and (
+                lambda a=mv_args: plain[2](*as_f64(torch, a), storage=storage))):
             fail(f"{names[2]} disagrees with plain ({err} > 1e-4 * {scale}) [{label}]")
+        del y_p
         checks.append((2, err, lambda a=mv_args: kern[2](*a, storage=storage),
                        lambda a=mv_args: plain[2](*a, storage=storage),
                        nbytes(f["w_el"], tables, wq, C_p) + el_out))
@@ -2640,8 +2789,9 @@ def hold_viscous(torch, sweeps, prob, mat, f, dt, label, launches=None,
             ms = cuda_ms(torch, kcall, 20)
             plain_ms = cuda_ms(torch, pcall, PLAIN_REPS)
             torch.cuda.empty_cache()
-            row = kernel_row(names[i], source, SYM_REPLACES[kind][i], launches.get(names[i], 0),
-                             err, ms, plain_ms, byts, n_pts * (base[i] + (extra[i] if visc else 0)))
+            row = kernel_row(names[i], source[i], SYM_REPLACES[kind][i],
+                             launches.get(names[i], 0), err, ms, plain_ms, byts,
+                             n_pts * (base[i] + (extra[i] if visc else 0)))
             say(f"[{label} timing] {names[i]}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms; "
                 f"{byts / 1e9:.3f} GB, bound {row['bound_ms']:.4f} ms by {row['bound_by']}; "
                 f"{byts / ms / 1e9:.3f} TB/s ({byts / ms / 1e9 / (HBM_BPS / 1e12):.2f} of 3.35); "
@@ -2683,12 +2833,12 @@ def press_material(mt):
     return mat
 
 
-def press_build(mt, dim, size, device, dtype=None):
+def press_build(mt, dim, size, device, dtype=None, mat=None):
     """Path A (dim 2: two-patch-square.mesh at p = 2 subdivided `size`
     times, the top edge, bid 3, against a flat tool at y = 1) or path B
     (dim 3: cube-nurbs.mesh at p = 2 and size^3, the top face, bid 1,
     against the bilinear tool at z = 1); the other side clamped; penalty
-    5e7."""
+    5e7; the presses' material unless `mat` is given (paths G and F)."""
     scene = mt.NearestDistanceToSplines()
     if dim == 2:
         scene.add_spline(mt.Bezier([1], [[-0.5, 1.0], [2.5, 1.0]]))
@@ -2698,25 +2848,30 @@ def press_build(mt, dim, size, device, dtype=None):
                                             [1.5, -0.5, 1.0], [1.5, 1.5, 1.0]]))
         scene.plant_kd_tree(max(size, 8), 1)
     scene.coefficient = 5e7
+    mat = mat or press_material(mt)
     if dim == 2:
-        return mt.build_problem(TWO_SQUARE, 1, size, press_material(mt), [(2, 0), (2, 1)], {},
+        return mt.build_problem(TWO_SQUARE, 1, size, mat, [(2, 0), (2, 1)], {},
                                 rho_inf=0.5, device=device, dtype=dtype, contact=[(3, scene)])
-    return mt.build_problem(MESH, 1, 0, press_material(mt), [(0, 0), (0, 1), (0, 2)], {},
+    return mt.build_problem(MESH, 1, 0, mat, [(0, 0), (0, 1), (0, 2)], {},
                             rho_inf=0.5, device=device, dtype=dtype, refine_spans=size,
                             contact=[(1, scene)])
 
 
-def drive_press(torch, mt, sweeps, prob, label, step_kw):
+def drive_press(torch, mt, sweeps, prob, label, step_kw, timed=None, engaged_each=True):
     """The default engine's path on a press: the initial carry, one warm
-    and PRESS_TIMED timed steps, the tool pushed before each.  Prints per
+    and `timed` (default PRESS_TIMED) timed steps, the tool pushed before
+    each.  Prints per
     step the wall time, Newton and GMRES counts, the residual drop, the
     closest-point projections, the face points that penetrate and that
     pass the angle gate, the contact force from the traction residual;
     s/step, qp-evals/s, peak device memory.  Fails unless the problem's
     three kernels were launched in each step, the state stayed finite and
-    the tool engaged the body.  Returns (carry, step, s/step, launches,
-    the last scene data)."""
+    the tool engaged the body in every step (without `engaged_each`: in a
+    timed step; the reference's press starts its tool 0.02 above the
+    body).  Returns (carry, step, s/step, launches, the last scene
+    data)."""
     NDS = mt.NearestDistanceToSplines
+    timed = timed or PRESS_TIMED
     cd, cs = prob.contact[0], prob.contact_static[0]
     query, n_proj = cs["query"], [0]
 
@@ -2733,7 +2888,7 @@ def drive_press(torch, mt, sweeps, prob, label, step_kw):
     step = mt.make_step(prob, **step_kw)
     sd, times, diags, engaged = cd["scene"], [], [], []
     n_fq = cd["wq"].numel()
-    for i in range(1 + PRESS_TIMED):
+    for i in range(1 + timed):
         sd = NDS.translate_scene_data(sd, push)
         p0 = n_proj[0]
         torch.cuda.synchronize()
@@ -2748,7 +2903,7 @@ def drive_press(torch, mt, sweeps, prob, label, step_kw):
             f"{t_s:.3f} s; newton {d['iters']}, gmres {d['lin_iters']} "
             f"({d['lin_iters'] / max(d['iters'], 1):.1f} per solve, cap "
             f"{step_kw['cg_iters']}), |r0| {d['norm0']:.4e} -> |r| {d['norm']:.4e} (drop "
-            f"{d['norm'] / d['norm0']:.3e}, converged {d['converged']}); projections "
+            f"{drop_of(carry):.3e}, converged {d['converged']}); projections "
             f"{n_proj[0] - p0}, unconverged {int(c['proj_unconverged'])}; face points "
             f"penetrating {int(c['n_penetrating'])} of {n_fq}, past the angle gate "
             f"{int(c['n_engaged'])}; force from the traction residual "
@@ -2764,19 +2919,19 @@ def drive_press(torch, mt, sweeps, prob, label, step_kw):
     launches = dict(sweeps.LAUNCHES)
     s_step = sum(times) / len(times)
     evals = [prob.n_el * prob.n_q * (d["iters"] * 3 + 1) for d in diags]
-    say(f"[{label}] {s_step:.4f} s/step over {PRESS_TIMED} timed steps "
+    say(f"[{label}] {s_step:.4f} s/step over {timed} timed steps "
         f"({', '.join(f'{t:.3f}' for t in times)}); {sum(evals) / sum(times):.4e} qp-evals/s "
         f"(n_el {prob.n_el} x n_q {prob.n_q} x (3 x Newton iterations + 1) per step: "
         f"{evals}); newton {[d['iters'] for d in diags]}, gmres "
         f"{[d['lin_iters'] for d in diags]}, drops "
-        f"{', '.join(f'{d['norm'] / d['norm0']:.3e}' for d in diags)}; engaged points "
+        f"{', '.join(f'{d['norm'] / max(d['norm0'], 1e-300):.3e}' for d in diags)}; engaged points "
         f"{engaged}; peak allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB; "
         f"launches { {k: n for k, n in launches.items() if n} }")
     for name in press_kernel_names(sweeps, prob, step_kw):
-        if launches[name] < 1 + PRESS_TIMED:
-            fail(f"kernel {name} was launched {launches[name]} times in {1 + PRESS_TIMED} "
+        if launches[name] < 1 + timed:
+            fail(f"kernel {name} was launched {launches[name]} times in {1 + timed} "
                  f"steps of {label}")
-    if min(engaged) == 0:
+    if (min(engaged) if engaged_each else max(engaged[1:])) == 0:
         fail(f"{label}: a step ended with no face point past the angle gate ({engaged})")
     return carry, step, s_step, launches, sd
 
@@ -2792,14 +2947,16 @@ def press_kernel_names(sweeps, prob, step_kw):
             sweeps.matvec_counter(kind, storage, prob.dim, p, True, bf16)]
 
 
-def newton_system_parity(torch, mt, prob, carry, sd, step_kw, label, gen):
+def newton_system_parity(torch, mt, prob, carry, sd, step_kw, label, gen, prob64=None):
     """The Newton system of the next step from `carry` (with the tool at
     `sd` on a press, None without contact), kernel path against plain
     path: the residual at 1e-4 x scale, J w at 1e-4 x scale (2^-7 with a
-    bfloat16 block: each path rounds its own).  Returns the two paths'
-    steps.  (Contact steps are held on the Newton system: which float32
-    points pass the reference's angle gate turns on rounding, ROADMAP
-    Queue 3.)"""
+    bfloat16 block: each path rounds its own).  With `prob64` (the problem
+    in float64, given at a state that holds inverted elements), a part
+    past its bar is held against the plain path's float64 system instead
+    (witnessed).  Returns the two paths' steps.
+    (Contact steps are held on the Newton system: which float32 points pass
+    the reference's angle gate turns on rounding, ROADMAP Queue 3.)"""
     bf16 = step_kw.get("matvec_dtype") == "bf16"
     steps = [mt.make_step(prob, residual_impl=impl, **step_kw) for impl in ("cuda", "torch")]
     ns = [s.newton_system(carry, contact_scenes=None if sd is None else [sd]) for s in steps]
@@ -2811,7 +2968,20 @@ def newton_system_parity(torch, mt, prob, carry, sd, step_kw, label, gen):
     say(f"[{label}] the Newton system, kernel path vs plain path: residual max|err| "
         f"{r_err:.3e} of {r_scale:.3e} ({r_err / r_scale:.3e}); J w {jw_err:.3e} of "
         f"{jw_scale:.3e} ({jw_err / jw_scale:.3e}, bar {jw_bar:.3e})")
-    if not (r_err <= 1e-4 * r_scale and jw_err <= jw_bar * jw_scale):
+    ns64 = []
+
+    def plain64():
+        if not ns64:
+            kw64 = dict(step_kw, matvec_dtype="f32", residual_impl="torch")
+            ns64.append(mt.make_step(prob64, **kw64).newton_system(
+                as_f64(torch, carry), contact_scenes=None if sd is None else [as_f64(torch, sd)]))
+        return ns64[0]
+
+    held = (witnessed(torch, "residual", r_err, r_scale, 1e-4, ns[0]["r"], ns[1]["r"],
+                      prob64 and (lambda: plain64()["r"]))
+            and witnessed(torch, "J w", jw_err, jw_scale, jw_bar, jw[0], jw[1],
+                          prob64 and (lambda: plain64()["J_apply"](w.double()))))
+    if not held:
         fail(f"{label}: the Newton system differs between the kernel and plain paths")
     return steps
 
@@ -3215,6 +3385,290 @@ def j2lin_law_phases(torch, mt, sweeps, soa, sh, device, gen):
     return rows
 
 
+def cap_share(torch, label, plain_residual):
+    """Phase 48, how far the radial return's cap of 40 trips binds on one
+    kernel input: the plain residual `plain_residual` run as the kernels'
+    twin (kernel_solver_mode) and as the "torch" engine's 100-trip solve;
+    prints the share of the plastic points that reach the cap of 40 and
+    that run past it.  (The kernels' times at 100 and 40 trips:
+    scripts/ab_trip_cap.py.)"""
+    from mimi_tpu_torch.materials import kernel_solver_mode, record_trips
+
+    with kernel_solver_mode(), record_trips() as log40:
+        plain_residual()
+    with record_trips() as log100:
+        plain_residual()
+    t40, t100 = torch.cat([t.reshape(-1) for t in log40]), torch.cat(
+        [t.reshape(-1) for t in log100])
+    plastic = t40 > 0
+    n_pl = max(int(plastic.sum()), 1)
+    say(f"[{label}] plain twin: plastic points {int(plastic.sum())} of {t40.numel()}; share of "
+        f"them at the cap of 40 trips {int((t40 >= 40).sum()) / n_pl:.4f}; without the cap past "
+        f"40 {int((t100 > 40).sum()) / n_pl:.4f}, at 100 {int((t100 >= 100).sum()) / n_pl:.4f}; "
+        f"mean trips {float(t40[plastic].float().mean()):.2f} (capped) / "
+        f"{float(t100[plastic].float().mean()):.2f}")
+
+
+def press_finite_material(mt, name):
+    """The contact press's J2-family material `name` (J2; J2Simo or J2Log
+    on paths F and G): the Johnson-Cook law A 700, B 1400, E 1e6, nu 0.3,
+    density 1e3, viscosity 100."""
+    mat = jc_material(mt, A=700.0, name=name)
+    mat.hardening.B = 1400.0
+    mat.density = 1e3
+    mat.viscosity = 100.0
+    mat.set_young_poisson(1e6, 0.3)
+    return mat
+
+
+def with_material(soa, prob, mat):
+    """The problem with another material of the same elastic constants
+    (the FDM data is the same) and that material's initial state."""
+    import dataclasses
+
+    mat.setup(prob.dim)
+    state0 = soa.state_to_soa(mat.init_state((prob.n_el, prob.n_q), dtype=prob.dtype,
+                                             device=prob.device))
+    return dataclasses.replace(prob, material=mat, state0=state0)
+
+
+def full_others(mt, dim):
+    """The materials whose kernels write the full block on request: J2,
+    J2Linear, the neo-Hookean and the St. Venant-Kirchhoff material, set up
+    for `dim`, with the body-force problems' data."""
+    mats = [jc_material(mt), j2lin_material(mt), hyper_material(mt),
+            hyper_material(mt, "StVenantKirchhoff")]
+    for m in mats:
+        m.setup(dim)
+    return mats
+
+
+def hold_full_others(torch, mt, sweeps, soa, prob, combos, dt, label, gen):
+    """The full block of J2 (Johnson-Cook, the golden's law), J2Linear and
+    the hyperelastic materials on the problem's tables against the plain
+    full planes (hold_viscous with storage="full", the residual being the
+    material's own instantiation), on random input: plastic for the J2
+    family (share >= 0.25), |F - I| up to 0.1 for the hyperelastic ones."""
+    rows = []
+    for mat in full_others(mt, prob.dim):
+        tag = sweeps.kernel_tag(mat)
+        if mat.has_state:
+            amp = J2LIN_AMPLITUDE if tag == "j2lin" else 0.2
+            f, share = plastic_inputs(torch, sweeps, soa, prob, mat, gen, dt, amp)
+            if share < 0.25:
+                fail(f"{label} {tag}: plastic share {share} < 0.25")
+        else:
+            f, share = random_visc_inputs(torch, sweeps, prob, mat, gen, dt), 0.0
+        say(f"[{label} full {tag}] plastic share of the points {share:.3f}")
+        rows += hold_viscous(torch, sweeps, prob, mat, f, dt, f"{label} full {tag}",
+                             combos=combos, storage="full", residual=False)
+        del f
+        torch.cuda.empty_cache()
+    return rows
+
+
+def finite_press_paths(torch, mt, sweeps, soa, sh, device, gen):
+    """Phases 48-53: the finite-strain contact presses and the full block
+    of every material.  48: how far the trip cap binds (cap_share), here
+    on J2Log's random plastic input at the golden law (at the press's and
+    the golden J2 cantilever's path states in phases 11 and 32).  49: on path F's 48^3 tables, J2Simo's and J2Log's viscous
+    residual and their assemble and matvec viscous with a float32 block,
+    viscous and inviscid with a bfloat16 one, against plain on random
+    plastic input of the press's law; the full block of J2, J2Linear and
+    the hyperelastic materials, every (viscous, bfloat16) pair.  50: path F,
+    the reference's cube press (build_contact: the tool from 0.02 above the
+    face, pushed 0.01 before each step) with J2Simo and with J2Log (1 warm
+    + PRESS_F_TIMED steps, the bfloat16 full block), the path kernels at
+    the path state (where it holds inverted elements, a check past its bar
+    held against the plain version in float64),
+    the next Newton system at full size kernel path vs plain path, a
+    profiled step, one step held at 16^3.  51: path G, the 2D two-patch
+    press with J2Simo (dense (2, 2), 2 x 512^2), the same, the step held at
+    2 x 64^2; on its tables J2Log's viscous kernels and the full block of
+    the other materials.  52: the viscous full kernels and the full block
+    of the other materials at (2, 3) on 512^2 p = 3 and (3, 2) on 2 x 8^3.
+    53: one body-force J2 step at 48^3 with tangent_storage="full" against
+    the Cauchy storage's.  Returns the paths' rows of the kernels line."""
+    NDS = mt.NearestDistanceToSplines
+    rows = []
+    t_start = time.perf_counter()
+    sf_combos = ((True, False), (True, True), (False, True))
+    all_sf = ((False, False), (True, False), (True, True), (False, True))
+    dense_combos = ((False, False), (True, False))
+
+    def clock(what):
+        say(f"[48-53 clock] {what}: {time.perf_counter() - t_start:.1f} s since phase 48")
+
+    def held_random(prob, names, combos, label, dt):
+        for name in names:
+            mat = press_finite_material(mt, name)
+            mat.setup(prob.dim)
+            f, share = plastic_inputs(torch, sweeps, soa, prob, mat, gen, dt, LAW_AMPLITUDE)
+            say(f"[{label} random {name}] plastic share of the points {share:.3f}")
+            if share < 0.25:
+                fail(f"{label} {name}: plastic share {share} < 0.25")
+            hold_viscous(torch, sweeps, prob, mat, f, dt, f"{label} random {name}",
+                         combos=combos)
+            del f
+            torch.cuda.empty_cache()
+
+    for dim, size, held, tag in ((3, SPANS, CHECK_SPANS, "F"),
+                                 (2, PRESS_2D_SUBDIVIDE, PRESS_2D_HELD, "G")):
+        step_kw = dict(PRESS_STEP_KW, **({"matvec_dtype": "bf16"} if dim == 3 else {}))
+        dt = step_kw["dt"]
+        size_s = f"2x{2**size}^2" if dim == 2 else f"{size}^3"
+        n_rand, n_drive = ("49", "50") if dim == 3 else ("51", "51")
+        # path F: the reference's press (build_contact, the tool 0.02 above the
+        # face); path G: path A's mesh and tool, touching
+        build_path = ((lambda name, dtype=None: build_contact(mt, size, device, name, dtype))
+                      if dim == 3 else
+                      (lambda name, dtype=None: press_build(mt, dim, size, device, dtype,
+                                                            press_finite_material(mt, name))))
+        t0 = time.perf_counter()
+        base = build_path("J2Simo")
+        torch.cuda.synchronize()
+        say(f"[{n_drive}. path {tag} {size_s}] host build {time.perf_counter() - t0:.2f} s: "
+            f"n_el {base.n_el}, n_q {base.n_q}, unknowns {base.n_dof * base.dim}, "
+            f"{'dense' if base.dense else 'sf'} tables; full block "
+            f"{sweeps.n_planes('full', dim) * base.n_q * base.n_el * (2 if dim == 3 else 4) / 1e9:.3f}"
+            f" GB ({'bfloat16' if dim == 3 else 'float32'})")
+
+        # ---- 49 / 51. the new instantiations on the path's tables, random input -----
+        held_random(base, sweeps.FULL_KERNELS, sf_combos if dim == 3 else ((True, False),),
+                    f"{n_rand}. {size_s}", dt)
+        hold_full_others(torch, mt, sweeps, soa, base, all_sf if dim == 3 else dense_combos, dt,
+                         f"{n_rand}. {size_s}", gen)
+        if dim == 3:  # 48: J2Log's assemble at the golden law on random plastic input
+            mat = jc_material(mt, name="J2Log")
+            mat.setup(3)
+            f, share = plastic_inputs(torch, sweeps, soa, base, mat, gen, STEP_KW["dt"],
+                                      LAW_AMPLITUDE)
+            tabs, jinv = base.sf["tables"], base.sf["jinv"]
+            args = (f["u_el"], f["a_el"], f["state"], tabs, jinv, base.wdet_t, mat,
+                    STEP_KW["dt"], 1.0)
+            say(f"[48. {size_s} random J2Log, the golden law] plastic share {share:.3f}")
+            cap_share(torch, f"48. {size_s} random J2Log, the golden law",
+                      lambda: sweeps.residual_sf_plain(*args))
+            del f, args
+            torch.cuda.empty_cache()
+        clock(f"path {tag}'s tables, random input")
+
+        # ---- 50 / 51. the drives ---------------------------------------------------------
+        for name in (sweeps.FULL_KERNELS if dim == 3 else ("J2Simo",)):
+            prob = with_material(soa, base, press_finite_material(mt, name))
+            label = f"{n_drive}. path {tag} {size_s} {name}"
+            sweeps.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            carry, step, s_step, launches, sd = drive_press(torch, mt, sweeps, prob, label,
+                                                            step_kw, PRESS_F_TIMED,
+                                                            engaged_each=dim == 2)
+            eqps = carry["state"]["eqps"]
+            say(f"[{label}] eqps max {float(eqps.max()):.4e}, share of the points with eqps > 0 "
+                f"{float((eqps > 0).float().mean()):.4f}")
+            if not float(eqps.max()) > 0.0:
+                fail(f"{label}: no point yielded")
+            g, _ = sh._gather_scatter(prob)
+            fc = prob.facs
+            xa = carry["u"] + (carry["v"] + fc["fac0"] * dt * carry["a"]) * fc["fac1"] * dt
+            va = carry["v"] + fc["fac2"] * dt * carry["a"]
+            f = {"u_el": g(xa), "a_el": g(carry["a"]), "v_el": g(va), "state": carry["state"],
+                 "w_el": torch.randn(*g(xa).shape, generator=gen).to(device, prob.dtype)}
+            del xa, va
+            J = torch.linalg.det(soa.add_diag(grad_of(sweeps, prob, f["u_el"]), 1.0)
+                                 .permute(2, 3, 0, 1))
+            inverted = int((J <= 0).sum())
+            say(f"[{label}] at the path state: det F min {float(J.min()):.4e}, points with "
+                f"det F <= 0 {inverted} of {J.numel()}" + (
+                    ": inverted elements, where float32 resolves the stress no better than the "
+                    "float64 witness shows" if inverted else ""))
+            del J
+            # only a state that holds inverted elements holds a check past its
+            # bar against the plain version in float64 (witnessed)
+            named = {r["name"] for r in rows}  # J2Log's drive runs J2Simo's matvec
+            rows += [r for r in hold_viscous(torch, sweeps, prob, prob.material, f, dt,
+                                             f"{label} path", launches, combos=((True, dim == 3),),
+                                             witness=inverted > 0)
+                     if r["name"] not in named]
+            del f
+            torch.cuda.empty_cache()
+            sd_next = NDS.translate_scene_data(sd, PRESS_PUSH[dim])
+            prob64 = build_path(name, torch.float64) if inverted else None
+            newton_system_parity(torch, mt, prob, carry, sd_next, step_kw,
+                                 f"{label} next system", gen, prob64=prob64)
+            del prob64
+            torch.cuda.empty_cache()
+            profile_step(torch, step, carry, s_step, f"{label} profile",
+                         contact_scenes=[sd_next])
+            del carry, step, prob
+            torch.cuda.empty_cache()
+            clock(f"path {tag} {name}")
+
+            # one step at a small size, kernel path vs plain path
+            hprob = press_build(mt, dim, held, device, mat=press_finite_material(mt, name))
+            hsize = f"2x{2**held}^2" if dim == 2 else f"{held}^3"
+            hlabel = f"{n_drive}. path {tag} {hsize} {name} step"
+            carry0 = mt.initial_carry(hprob)
+            sd0 = NDS.translate_scene_data(hprob.contact[0]["scene"], PRESS_PUSH[dim])
+            steps = newton_system_parity(torch, mt, hprob, carry0, sd0, step_kw, hlabel, gen)
+            out = [s(carry0, contact_scenes=[sd0]) for s in steps]
+            err = float((out[0]["u"] - out[1]["u"]).abs().max())
+            scale = float(out[1]["u"].abs().max())
+            nk, npl = out[0]["newton"], out[1]["newton"]
+            say(f"[{hlabel}] the whole step, kernel path vs plain path: max|du| {err:.3e} of "
+                f"max|u| {scale:.3e} ({err / scale:.3e}); newton {nk['iters']}/{npl['iters']}, "
+                f"gmres {nk['lin_iters']}/{npl['lin_iters']}, drops "
+                f"{nk['norm'] / nk['norm0']:.3e}/{npl['norm'] / npl['norm0']:.3e}; plastic "
+                f"points {int((out[0]['state']['eqps'] > 0).sum())}/"
+                f"{int((out[1]['state']['eqps'] > 0).sum())}; penetrating "
+                f"{int(out[0]['contact'][0]['n_penetrating'])}/"
+                f"{int(out[1]['contact'][0]['n_penetrating'])}")
+            if not (nk["finite"] and npl["finite"]) or int(
+                    out[1]["contact"][0]["n_penetrating"]) == 0:
+                fail(f"{hlabel}: a non-finite or unengaged step")
+            del hprob, carry0, steps, out
+            torch.cuda.empty_cache()
+        del base
+        torch.cuda.empty_cache()
+        clock(f"path {tag}")
+
+    # ---- 52. (2, 3) at 512^2 p = 3 and (3, 2) at 2 x 8^3 -------------------------------------
+    for prob, label in (
+        (cantilever_of(mt, press_finite_material(mt, "J2Simo"), 2, GOLDEN_SUBDIVIDE, device),
+         f"52. {2**GOLDEN_SUBDIVIDE}^2 p=3"),
+        (mt.build_problem(TWO_PATCH, 1, 0, press_finite_material(mt, "J2Simo"),
+                          [(0, 0), (0, 1), (0, 2)], {1: -5.0}, rho_inf=0.5, device=device,
+                          refine_spans=DENSE_CHECK_SPANS), f"52. 2x{DENSE_CHECK_SPANS}^3"),
+    ):
+        held_random(prob, sweeps.FULL_KERNELS, ((True, False),), label, PRESS_STEP_KW["dt"])
+        hold_full_others(torch, mt, sweeps, soa, prob, dense_combos, PATH_DT, label, gen)
+        del prob
+        torch.cuda.empty_cache()
+    clock("52")
+
+    # ---- 53. the full block on the body-force J2 cube, one step against cauchy ---------------
+    prob = build(mt, SPANS, device)
+    carry0 = mt.initial_carry(prob)
+    sweeps.reset_launches()
+    out = {s: mt.make_step(prob, tangent_storage=s, **STEP_KW)(carry0) for s in ("full", "cauchy")}
+    err = float((out["full"]["u"] - out["cauchy"]["u"]).abs().max())
+    scale = float(out["cauchy"]["u"].abs().max())
+    nf, nc = out["full"]["newton"], out["cauchy"]["newton"]
+    say(f"[53. {SPANS}^3 J2 step, full vs cauchy block] max|du| {err:.3e} of max|u| "
+        f"{scale:.3e} ({err / scale:.3e}); newton {nf['iters']}/{nc['iters']}, gmres "
+        f"{nf['lin_iters']}/{nc['lin_iters']}; launches "
+        f"{ {k: n for k, n in sweeps.LAUNCHES.items() if n} }")
+    for name in ("assemble_sf[j2,full]", "matvec_sf[full]", "assemble_sf", "matvec_sf"):
+        if sweeps.LAUNCHES[name] == 0:
+            fail(f"53: kernel {name} was not launched")
+    if not err <= max(1e-4 * scale, 1e-7):
+        fail(f"53: the full-block step differs from the Cauchy-block step ({err} > 1e-4 * "
+             f"{scale})")
+    del prob, carry0, out
+    torch.cuda.empty_cache()
+    clock("53")
+    return rows
+
+
 def main():
     import torch
 
@@ -3315,11 +3769,11 @@ def main():
     st = carry["state"]
     calls = {
         "matvec_sf": (lambda: sweeps.matvec_sf(w_el, tabs, jinv, wq, C, rho, fac0),
-                      lambda: sweeps.matvec_sf_plain(w_el, tabs, jinv, wq, C, rho, fac0)),
+                      lambda: twin(sweeps.matvec_sf_plain)(w_el, tabs, jinv, wq, C, rho, fac0)),
         "assemble_sf": (lambda: sweeps.assemble_sf(u_el, a_el, st, tabs, jinv, wq, mat, dt, rho),
-                        lambda: sweeps.assemble_sf_plain(u_el, a_el, st, tabs, jinv, wq, mat, dt, rho)),
+                        lambda: twin(sweeps.assemble_sf_plain)(u_el, a_el, st, tabs, jinv, wq, mat, dt, rho)),
         "residual_sf": (lambda: sweeps.residual_sf(u_el, a_el, st, tabs, jinv, wq, mat, dt, rho),
-                        lambda: sweeps.residual_sf_plain(u_el, a_el, st, tabs, jinv, wq, mat, dt, rho)),
+                        lambda: twin(sweeps.residual_sf_plain)(u_el, a_el, st, tabs, jinv, wq, mat, dt, rho)),
     }
     n_pts = prob.n_el * prob.n_q
     el_out = 3 * 27 * prob.n_el * 4
@@ -3418,6 +3872,10 @@ def main():
     # ---- 43-47. J2Linear and the PowerLaw and Voce laws -----------------------------------
     rows += j2lin_law_phases(torch, mt, sweeps, soa, sh, device, gen)
     say(f"[clock] phases 43-47 done: {time.perf_counter() - t_main:.1f} s since phase 2")
+
+    # ---- 48-53. the finite-strain presses (paths F and G), the full block --------------------
+    rows += finite_press_paths(torch, mt, sweeps, soa, sh, device, gen)
+    say(f"[clock] phases 48-53 done: {time.perf_counter() - t_main:.1f} s since phase 2")
 
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {

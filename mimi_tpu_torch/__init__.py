@@ -7,7 +7,9 @@ quadrature sweeps, with small-strain J2 plasticity (J2 with any of the
 five hardening laws, J2Linear; and viscosity; the 37-plane Cauchy
 tangent), with a hyperelastic material
 (neo-Hookean, St. Venant-Kirchhoff; the 45-plane symmetric tangent) or with
-finite-strain J2 plasticity (J2Simo, J2Log; the 81-plane full tangent);
+finite-strain J2 plasticity (J2Simo, J2Log; the 81-plane full tangent,
+which every material also writes on request), each with viscosity and a
+bfloat16 tangent block;
 mortar penalty contact against rigid spline scenes (contact/); and
 multi-patch or repeated-knot 3D meshes with the hyperelastic materials on
 the three dense-table sweeps with the symmetric tangent

@@ -24,6 +24,7 @@ closed-form dP/dF as `tangent_soa`, the 45-plane `sym` storage).
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -35,6 +36,39 @@ from ..config import default_dtype, resolve_device
 from ..fem import soa
 
 _K_TOL = 1.0e-10
+# trips of the radial return's scalar solve inside the reference's Pallas
+# kernels (its fixed-trip `_solver_fori`, materials/__init__.py of the JAX
+# package): the CUDA kernels run the same cap (ops/sweeps.py _j2_params),
+# the "torch" engine and the state update the solver's 100
+KERNEL_SOLVE_TRIPS = 40
+
+_KERNEL_SOLVE = {"on": False, "trips": None}
+
+
+@contextlib.contextmanager
+def kernel_solver_mode():
+    """Inside: the radial return's scalar solve stops at KERNEL_SOLVE_TRIPS
+    trips, as inside the reference's kernels (its `kernel_solver_mode`) and
+    the port's CUDA kernels: the plain twin that a kernel is held against."""
+    old = _KERNEL_SOLVE["on"]
+    _KERNEL_SOLVE["on"] = True
+    try:
+        yield
+    finally:
+        _KERNEL_SOLVE["on"] = old
+
+
+@contextlib.contextmanager
+def record_trips():
+    """Inside: every radial-return solve appends to the yielded list the
+    trips each lane ran (0 on an elastic lane; the cap on a lane that never
+    converged)."""
+    old = _KERNEL_SOLVE["trips"]
+    log = _KERNEL_SOLVE["trips"] = []
+    try:
+        yield log
+    finally:
+        _KERNEL_SOLVE["trips"] = old
 
 
 class Material:
@@ -275,11 +309,13 @@ class _J2ThermoBase(Material):
 
         self._residual_grad = residual_grad
         self._solver = make_scalar_solver(residual_grad, _K_TOL, 100)
+        self._solver_fori = make_scalar_solver(residual_grad, _K_TOL, KERNEL_SOLVE_TRIPS)
 
     def _solve_delta_eqps(self, q, eqps_old, thermo, dt, slope):
         """Masked radial-return solve: active where residual(0) > tol.
 
-        The bracketed Newton-bisection runs on detached inputs; the exact
+        The scalar solve takes KERNEL_SOLVE_TRIPS trips inside
+        kernel_solver_mode(), 100 outside.  The bracketed Newton-bisection runs on detached inputs; the exact
         sensitivity comes back through one implicit-function-theorem
         correction delta = d* - r(d*, theta)/r'(d*), whose value equals d*
         (r ~ 0 there) and whose forward derivative is the IFT derivative.
@@ -301,7 +337,13 @@ class _J2ThermoBase(Material):
         theta_ng = (
             q_safe.detach(), eqps_old.detach(), thermo.detach(), dt, slope_ng
         )
-        d_star = self._solver(0.0, 0.0, ub.detach(), self._tolerance, theta_ng)
+        solver = self._solver_fori if _KERNEL_SOLVE["on"] else self._solver
+        log = _KERNEL_SOLVE["trips"]
+        d_star = solver(0.0, 0.0, ub.detach(), self._tolerance, theta_ng,
+                        return_trips=log is not None)
+        if log is not None:
+            d_star, trips = d_star
+            log.append(torch.where(active, trips, 0))
         # differentiable re-injection (theta with its tangents)
         fval, _ = self._residual_grad(d_star, q_safe, eqps_old, thermo, dt, slope)
         _, fprime = self._residual_grad(d_star, *theta_ng)

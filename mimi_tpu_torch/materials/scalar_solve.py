@@ -5,7 +5,9 @@ Counterpart of mimi_tpu/materials/scalar_solve.py (the reference's
 switching rule, stopping tests and `max_iter`.  It runs as a Python loop
 over whole batches with per-lane freezing: the loop ends when every lane
 has converged or after `max_iter` trips, and a converged lane never moves
-again, so every lane gets exactly the iterate it would get alone.
+again, so every lane gets exactly the iterate it would get alone.  With
+max_iter=40 it is the reference's fixed-trip `loop="fori"` variant, which
+its Pallas kernels run: an early exit changes no lane's iterate there.
 
 The solve is not differentiated: callers pass detached inputs and
 re-inject sensitivities by one implicit-function-theorem correction
@@ -20,9 +22,11 @@ import torch
 def make_scalar_solver(val_grad, xtol, max_iter=100):
     """val_grad(x, *theta) -> (residual, d residual / dx), lane-wise.
     Returns solve(x0, lo, hi, rtol, theta) -> root, all arguments
-    broadcastable tensors (or numbers for x0/lo)."""
+    broadcastable tensors (or numbers for x0/lo); with return_trips=True
+    (root, the trips each lane ran before it converged, max_iter for a lane
+    that never did)."""
 
-    def solve(x0, lo, hi, rtol, theta):
+    def solve(x0, lo, hi, rtol, theta, return_trips=False):
         hi = torch.as_tensor(hi)
         lo = torch.as_tensor(lo, dtype=hi.dtype, device=hi.device)
         x0 = torch.as_tensor(x0, dtype=hi.dtype, device=hi.device)
@@ -42,9 +46,12 @@ def make_scalar_solver(val_grad, xtol, max_iter=100):
         dx = delta0.expand(shape).clone()
         dxo = dx.clone()
         conv = torch.zeros(shape, dtype=torch.bool, device=x.device)
+        trips = torch.zeros(shape, dtype=torch.int32, device=x.device) if return_trips else None
 
         it = 0
         while it < max_iter and not bool(conv.all()):
+            if return_trips:
+                trips += (~conv).int()
             use_bisect = (
                 (((x - xh) * df - f) > 0.0)
                 | (((x - xl) * df - f) < 0.0)
@@ -67,6 +74,6 @@ def make_scalar_solver(val_grad, xtol, max_iter=100):
         # corner cases: a bracket endpoint is already the root
         x = torch.where(f_hi.abs() < xtol, hi, x)
         x = torch.where(f_lo.abs() < xtol, lo, x)
-        return x
+        return (x, trips) if return_trips else x
 
     return solve

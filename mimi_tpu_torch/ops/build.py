@@ -34,6 +34,13 @@ FLAGS = [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
+# sources built with -fmad=false: each product and sum rounded on its own,
+# as the plain version's separate torch operations round them.  With fused
+# multiply-adds the dense finite-strain kernels' float32 tangent planes
+# differ from their plain twin's by up to 1.7e-4 of their group's max at the
+# contact press's law, each side about as far from float64; without, by
+# 3e-7, at 0-22% more time (scripts/witness_finite_planes.py, PERF.md)
+NO_FMAD = ("sweeps_dense_finite.cu",)
 BUILD_DIR = os.path.join(_HERE, "_build")
 
 _LIB = None
@@ -53,8 +60,13 @@ def nvcc():
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
+def flags_of(src):
+    """nvcc's flags for the source `src`."""
+    return FLAGS + (["-fmad=false"] if os.path.basename(src) in NO_FMAD else [])
+
+
 def _tag():
-    h = hashlib.sha256(" ".join(FLAGS).encode())
+    h = hashlib.sha256(" ".join(FLAGS + list(NO_FMAD)).encode())
     for src in SOURCES + HEADERS:
         with open(src, "rb") as f:
             h.update(f.read())
@@ -73,7 +85,7 @@ def build():
     objs = [f"{tmp}.{i}.o" for i in range(len(SOURCES))]
     procs = [
         subprocess.Popen(
-            [nvcc(), *FLAGS, "-c", "-o", obj, src],
+            [nvcc(), *flags_of(src), "-c", "-o", obj, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         for src, obj in zip(SOURCES, objs)
@@ -104,25 +116,26 @@ def bind(lib):
 
     vp, ll, ci, cf = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     sigs = {
+        # sf: ..., n_el, stream
         "residual_sf": [vp] * 16 + [_J2Params, cf, ci, ll, vp],
-        "assemble_sf": [vp] * 17 + [ci, _J2Params, cf, ci, ll, vp],
+        "assemble_sf": [vp] * 17 + [ci, ci, _J2Params, cf, ci, ll, vp],
         "matvec_sf": [vp] * 10 + [ci, vp, cf, cf, ci, cf, ll, vp],
         "residual_sf_hyper": [vp] * 12 + [_HyperParams, cf, ci, ll, vp],
-        "assemble_sf_hyper": [vp] * 13 + [ci, _HyperParams, cf, ci, ll, vp],
+        "assemble_sf_hyper": [vp] * 13 + [ci, ci, _HyperParams, cf, ci, ll, vp],
         "matvec_sf_sym": [vp] * 10 + [ci, vp, cf, cf, ci, cf, ll, vp],
-        "residual_sf_finite": [vp] * 15 + [_J2Params, ci, ll, vp],
-        "assemble_sf_finite": [vp] * 16 + [_J2Params, ci, ll, vp],
-        "matvec_sf_full": [vp] * 11 + [cf, cf, ll, vp],
+        "residual_sf_finite": [vp] * 16 + [_J2Params, cf, ci, ll, vp],
+        "assemble_sf_finite": [vp] * 17 + [ci, _J2Params, cf, ci, ll, vp],
+        "matvec_sf_full": [vp] * 10 + [ci, vp, cf, cf, ci, cf, ll, vp],
         # dense: ..., dim, p, n_el, stream
         "residual_dense": [vp] * 7 + [_HyperParams, cf, ci, ci, ci, ll, vp],
-        "assemble_dense": [vp] * 8 + [_HyperParams, cf, ci, ci, ci, ll, vp],
+        "assemble_dense": [vp] * 8 + [ci, _HyperParams, cf, ci, ci, ci, ll, vp],
         "matvec_dense": [vp] * 6 + [cf, cf, ci, cf, ci, ci, ll, vp],
         "residual_dense_j2": [vp] * 11 + [_J2Params, cf, ci, ci, ci, ll, vp],
-        "assemble_dense_j2": [vp] * 12 + [_J2Params, cf, ci, ci, ci, ll, vp],
+        "assemble_dense_j2": [vp] * 12 + [ci, _J2Params, cf, ci, ci, ci, ll, vp],
         "matvec_dense_cauchy": [vp] * 6 + [cf, cf, ci, cf, ci, ci, ll, vp],
-        "residual_dense_finite": [vp] * 10 + [_J2Params, ci, ci, ci, ll, vp],
-        "assemble_dense_finite": [vp] * 11 + [_J2Params, ci, ci, ci, ll, vp],
-        "matvec_dense_full": [vp] * 6 + [cf, cf, ci, ci, ll, vp],
+        "residual_dense_finite": [vp] * 11 + [_J2Params, cf, ci, ci, ci, ll, vp],
+        "assemble_dense_finite": [vp] * 12 + [_J2Params, cf, ci, ci, ci, ll, vp],
+        "matvec_dense_full": [vp] * 6 + [cf, cf, ci, cf, ci, ci, ll, vp],
         "neohookean_residual": [vp] * 4 + [cf, cf, ll, vp],
         "neohookean_tangent_apply": [vp] * 5 + [cf, cf, ll, vp],
     }

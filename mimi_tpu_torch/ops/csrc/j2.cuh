@@ -167,7 +167,9 @@ __device__ __forceinline__ void rr_residual(const J2Params& p, float d, float q,
 }
 
 // Safeguarded Newton-bisection on [0, ub] with the reference's rules
-// (materials/scalar_solve.py), early exit per thread, then the
+// (materials/scalar_solve.py), at most p.max_iter trips (40: the reference's
+// in-kernel cap, its fixed-trip solve under kernel_solver_mode, whose
+// per-lane freezing the early exit per thread reproduces), then the
 // implicit-function-theorem correction.  The yield decision r(0) > tol
 // agrees with the plain version's to the bit given the same q, so a point
 // at the yield surface takes the same branch in both.  host_slope: the
@@ -414,11 +416,80 @@ __device__ __forceinline__ void j2_linear_cauchy(const J2Params& p, const float 
   }
 }
 
+// dP = fac0 (tr(F^-1 dF) P + J (D-hat : sym dF) F^-T - P dF^T F^-T) from
+// D-hat's NT upper-triangle planes M, sigma, F^-1 and J = det F: the tangent
+// apply of CauchyStorage<DIM> and, on a unit dF, a column of dP/dF
+template <int DIM>
+__device__ __forceinline__ void cauchy_dP(const float M[Voigt<DIM>::NT],
+                                          const float sig[DIM][DIM], const float fi[DIM][DIM],
+                                          float J, const float dF[DIM][DIM], float fac0,
+                                          float dP[DIM][DIM]) {
+  using V = Voigt<DIM>;
+  // d sigma = D-hat : (dF_ii, dF_ij + dF_ji), symmetric storage
+  float cm[V::NS], ds[V::NS];
+#pragma unroll
+  for (int a = 0; a < V::NS; ++a)
+    cm[a] = V::i(a) == V::j(a) ? dF[V::i(a)][V::i(a)]
+                               : dF[V::i(a)][V::j(a)] + dF[V::j(a)][V::i(a)];
+#pragma unroll
+  for (int a = 0; a < V::NS; ++a) {
+    float acc = 0.f;
+#pragma unroll
+    for (int b = 0; b < V::NS; ++b) acc += M[V::tri(a, b)] * cm[b];
+    ds[a] = acc;
+  }
+  float dsig[DIM][DIM];
+#pragma unroll
+  for (int a = 0; a < V::NS; ++a) {
+    dsig[V::i(a)][V::j(a)] = ds[a];
+    dsig[V::j(a)][V::i(a)] = ds[a];
+  }
+  float P[DIM][DIM], dsf[DIM][DIM];
+#pragma unroll
+  for (int c = 0; c < DIM; ++c)
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) {
+      float x = 0.f, y = 0.f;
+#pragma unroll
+      for (int k = 0; k < DIM; ++k) {
+        x += sig[c][k] * fi[d][k];
+        y += dsig[c][k] * fi[d][k];
+      }
+      P[c][d] = J * x;
+      dsf[c][d] = y;
+    }
+  float trF = 0.f;
+#pragma unroll
+  for (int c = 0; c < DIM; ++c)
+#pragma unroll
+    for (int k = 0; k < DIM; ++k) trF += fi[c][k] * dF[k][c];
+  float A[DIM][DIM];  // A = dF^T F^-T
+#pragma unroll
+  for (int a = 0; a < DIM; ++a)
+#pragma unroll
+    for (int b = 0; b < DIM; ++b) {
+      float x = 0.f;
+#pragma unroll
+      for (int k = 0; k < DIM; ++k) x += dF[k][a] * fi[b][k];
+      A[a][b] = x;
+    }
+#pragma unroll
+  for (int c = 0; c < DIM; ++c)
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) {
+      float x = 0.f;
+#pragma unroll
+      for (int k = 0; k < DIM; ++k) x += P[c][k] * A[k][d];
+      dP[c][d] = fac0 * (trF * P[c][d] + J * dsf[c][d] - x);
+    }
+}
+
 // ---- the Cauchy-decomposition storage -----------------------------------------
 
 // the block of ops/sweeps.py cauchy_plane_layout(DIM): D-hat NT planes,
 // sigma NS, F^-1 DIM^2, J: 21 + 6 + 9 + 1 = 37 in 3D, 6 + 3 + 4 + 1 = 14 in
-// 2D.  The material's point holds Mt, sig, fi and J.
+// 2D.  The material's point holds Mt, sig, fi and J; `column` gives the
+// same point's full dP/dF to FullStorage<DIM>.
 template <int DIM>
 struct CauchyStorage {
   using V = Voigt<DIM>;
@@ -462,64 +533,23 @@ struct CauchyStorage {
     for (int r = 0; r < DIM; ++r)
 #pragma unroll
       for (int c = 0; c < DIM; ++c) fi[r][c] = load_c(cb + (OFF_FI + r * DIM + c) * QE + qe);
-    const float J = load_c(cb + OFF_J * QE + qe);
-    // d sigma = D-hat : (dF_ii, dF_ij + dF_ji), symmetric storage
-    float cm[V::NS], ds[V::NS];
+    cauchy_dP<DIM>(M, sig, fi, load_c(cb + OFF_J * QE + qe), dF, fac0, dP);
+  }
+
+  // column b of dP/dF, C[a DIM^2 + b] = dP_a / dF_b (FullStorage<DIM>), of
+  // a point of a Cauchy-decomposition material: the same map on the unit
+  // direction e_b, from the point's registers instead of stored planes
+  template <class Point>
+  __device__ __forceinline__ static void column(const Point& pt, int b,
+                                                float col[DIM * DIM]) {
+    float E[DIM][DIM], dP[DIM][DIM];
 #pragma unroll
-    for (int a = 0; a < V::NS; ++a)
-      cm[a] = V::i(a) == V::j(a) ? dF[V::i(a)][V::i(a)]
-                                 : dF[V::i(a)][V::j(a)] + dF[V::j(a)][V::i(a)];
+    for (int r = 0; r < DIM; ++r)
 #pragma unroll
-    for (int a = 0; a < V::NS; ++a) {
-      float acc = 0.f;
+      for (int c = 0; c < DIM; ++c) E[r][c] = r * DIM + c == b ? 1.f : 0.f;
+    cauchy_dP<DIM>(pt.Mt, pt.sig, pt.fi, pt.J, E, 1.f, dP);
 #pragma unroll
-      for (int b = 0; b < V::NS; ++b) acc += M[V::tri(a, b)] * cm[b];
-      ds[a] = acc;
-    }
-    float dsig[DIM][DIM];
-#pragma unroll
-    for (int a = 0; a < V::NS; ++a) {
-      dsig[V::i(a)][V::j(a)] = ds[a];
-      dsig[V::j(a)][V::i(a)] = ds[a];
-    }
-    float P[DIM][DIM], dsf[DIM][DIM];
-#pragma unroll
-    for (int c = 0; c < DIM; ++c)
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) {
-        float x = 0.f, y = 0.f;
-#pragma unroll
-        for (int k = 0; k < DIM; ++k) {
-          x += sig[c][k] * fi[d][k];
-          y += dsig[c][k] * fi[d][k];
-        }
-        P[c][d] = J * x;
-        dsf[c][d] = y;
-      }
-    float trF = 0.f;
-#pragma unroll
-    for (int c = 0; c < DIM; ++c)
-#pragma unroll
-      for (int k = 0; k < DIM; ++k) trF += fi[c][k] * dF[k][c];
-    float A[DIM][DIM];  // A = dF^T F^-T
-#pragma unroll
-    for (int a = 0; a < DIM; ++a)
-#pragma unroll
-      for (int b = 0; b < DIM; ++b) {
-        float x = 0.f;
-#pragma unroll
-        for (int k = 0; k < DIM; ++k) x += dF[k][a] * fi[b][k];
-        A[a][b] = x;
-      }
-#pragma unroll
-    for (int c = 0; c < DIM; ++c)
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) {
-        float x = 0.f;
-#pragma unroll
-        for (int k = 0; k < DIM; ++k) x += P[c][k] * A[k][d];
-        dP[c][d] = fac0 * (trF * P[c][d] + J * dsf[c][d] - x);
-      }
+    for (int a = 0; a < DIM * DIM; ++a) col[a] = dP[a / DIM][a % DIM];
   }
 };
 

@@ -248,7 +248,8 @@ struct StVK {
 
 // a stateless hyperelastic material of the above on the sweep kernels'
 // material interface: `eval` forms P at a point and, with TANGENT, the
-// point's closed-form tangent
+// point's closed-form tangent, which SymStorage<kDim> reads entry by entry
+// and FullStorage<kDim> column by column (`column`)
 template <class H>
 struct Hyper {
   static constexpr int kDim = H::kDim;
@@ -259,6 +260,12 @@ struct Hyper {
                                        float P[kDim][kDim], Point& pt) const {
     h.pk1(F, P);
     if (TANGENT) pt = h.tangent(F);
+  }
+  // column b of dP/dF: C_ab for every a, unsymmetrized
+  __device__ __forceinline__ void column(const Point& pt, long long, long long, int b,
+                                         float col[kDim * kDim]) const {
+#pragma unroll
+    for (int a = 0; a < kDim * kDim; ++a) col[a] = pt(a, b);
   }
 };
 
@@ -323,8 +330,10 @@ struct SymStorage {
 // all D2 x D2 planes of dP/dF, C[a D2 + b] = dP_a / dF_b with a = DIM c + d
 // indexing P and b = DIM g + f indexing F (ops/sweeps.py
 // full_tangent_planes): 81 planes in 3D, 16 in 2D.  The material supplies
-// column b at a point, `mat.column(pt, qe, QE, b, col)` (finite.cuh: one
-// forward-mode pass seeded with e_b).
+// column b at a point, `mat.column(pt, qe, QE, b, col)`: finite.cuh's
+// J2Simo and J2Log one forward-mode pass seeded with e_b; the J2 family's
+// Cauchy materials their closed-form tangent on e_b (j2.cuh
+// CauchyStorage::column); the hyperelastic ones their closed-form C_ab.
 template <int DIM>
 struct FullStorage {
   static constexpr int D2 = DIM * DIM;

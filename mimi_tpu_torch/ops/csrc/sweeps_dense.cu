@@ -5,7 +5,7 @@
 // mimi_tpu/ops/sweeps.py in its dense-table branch (dN (ND, DIM, NQ, E),
 // N (ND, NQ, E), w det J (NQ, E) streamed from device memory):
 //   mimi_residual_dense  <- make_residual_sweep (dense)            residual only
-//   mimi_assemble_dense  <- make_assemble_sweep (dense, "sym")      residual + symmetric planes
+//   mimi_assemble_dense  <- make_assemble_sweep (dense, "sym"; "full")  residual + symmetric or full planes
 //   mimi_matvec_dense    <- make_matvec_sweep ("sym")              y = J w
 // each inviscid or with the viscous flux of has_visc (VISC: the residual
 // and the assemble add mu_v grad v to P, sweeps.py:404-414, :651-664; the
@@ -55,43 +55,50 @@
 
 namespace {
 
-template <template <int> class H, int DIM, int P, bool TANGENT, bool VISC>
+template <template <int> class H, class Store, int DIM, int P, bool TANGENT, bool VISC>
 int launch_hyper(const float* u_el, const float* a_el, const float* v_el, const float* dN,
                  const float* N, const float* wq, float* out, float* cout,
                  const HyperelasticParams& p, float mu_v, long long E, void* stream) {
   using Mat = Hyper<H<DIM>>;
-  return launch_dense_residual<Mat, SymStorage<DIM>, DIM, P, TANGENT, VISC>(
+  return launch_dense_residual<Mat, Store, DIM, P, TANGENT, VISC>(
       u_el, a_el, dN, N, wq, out, cout, Mat{H<DIM>{p.mu, p.lam}}, p.rho, E, stream, v_el,
       mu_v);
 }
 
 template <bool TANGENT, bool VISC>
 int hyper_entry(const float* u_el, const float* a_el, const float* v_el, const float* dN,
-                const float* N, const float* wq, float* out, float* cout,
+                const float* N, const float* wq, float* out, float* cout, int full,
                 const HyperelasticParams& p, float mu_v, int material, int dim, int deg,
                 long long E, void* stream) {
   return with_dense_shape(dim, deg, [&](auto D, auto G) {
     constexpr int DIM = decltype(D)::value, P = decltype(G)::value;
-    if (material == 0)
-      return launch_hyper<NeoHookean, DIM, P, TANGENT, VISC>(u_el, a_el, v_el, dN, N, wq, out,
-                                                             cout, p, mu_v, E, stream);
-    if (material == 1)
-      return launch_hyper<StVK, DIM, P, TANGENT, VISC>(u_el, a_el, v_el, dN, N, wq, out, cout,
-                                                       p, mu_v, E, stream);
-    return (int)cudaErrorInvalidValue;
+    auto go = [&](auto store) {
+      using Store = decltype(store);
+      if (material == 0)
+        return launch_hyper<NeoHookean, Store, DIM, P, TANGENT, VISC>(
+            u_el, a_el, v_el, dN, N, wq, out, cout, p, mu_v, E, stream);
+      if (material == 1)
+        return launch_hyper<StVK, Store, DIM, P, TANGENT, VISC>(u_el, a_el, v_el, dN, N, wq,
+                                                                out, cout, p, mu_v, E, stream);
+      return (int)cudaErrorInvalidValue;
+    };
+    if constexpr (TANGENT) {  // the residual writes no block
+      if (full) return go(FullStorage<DIM>{});
+    }
+    return go(SymStorage<DIM>{});
   });
 }
 
 template <bool TANGENT>
 int hyper_visc_entry(const float* u_el, const float* a_el, const float* v_el, const float* dN,
-                     const float* N, const float* wq, float* out, float* cout,
+                     const float* N, const float* wq, float* out, float* cout, int full,
                      const HyperelasticParams& p, float mu_v, int material, int dim, int deg,
                      long long E, void* stream) {
   if (E <= 0) return 0;
   if (v_el)
-    return hyper_entry<TANGENT, true>(u_el, a_el, v_el, dN, N, wq, out, cout, p, mu_v,
+    return hyper_entry<TANGENT, true>(u_el, a_el, v_el, dN, N, wq, out, cout, full, p, mu_v,
                                       material, dim, deg, E, stream);
-  return hyper_entry<TANGENT, false>(u_el, a_el, v_el, dN, N, wq, out, cout, p, mu_v,
+  return hyper_entry<TANGENT, false>(u_el, a_el, v_el, dN, N, wq, out, cout, full, p, mu_v,
                                      material, dim, deg, E, stream);
 }
 
@@ -100,25 +107,27 @@ int hyper_visc_entry(const float* u_el, const float* a_el, const float* v_el, co
 // C entry points, symmetric storage.  `material`: 0 the neo-Hookean, 1 the
 // St. Venant-Kirchhoff material; (dim, p) one of the instantiated pairs
 // (2, 2), (2, 3), (3, 2); v_el == nullptr (visc == 0 for the matvec)
-// selects the inviscid instantiation.  Each returns the launch's
-// cudaGetLastError(), or cudaErrorInvalidValue for a material or (dim, p)
-// not instantiated.
+// selects the inviscid instantiation; the assemble's `full` the DIM^4
+// planes of dP/dF (FullStorage<DIM>, the matvec mimi_matvec_dense_full of
+// sweeps_dense_finite.cu) for the symmetric ones.  Each returns the
+// launch's cudaGetLastError(), or cudaErrorInvalidValue for a material or
+// (dim, p) not instantiated.
 extern "C" {
 
 int mimi_residual_dense(const float* u_el, const float* a_el, const float* v_el,
                         const float* dN, const float* N, const float* wq, float* out,
                         HyperelasticParams p, float mu_v, int material, int dim, int deg,
                         long long E, void* stream) {
-  return hyper_visc_entry<false>(u_el, a_el, v_el, dN, N, wq, out, nullptr, p, mu_v, material,
-                                 dim, deg, E, stream);
+  return hyper_visc_entry<false>(u_el, a_el, v_el, dN, N, wq, out, nullptr, 0, p, mu_v,
+                                 material, dim, deg, E, stream);
 }
 
 int mimi_assemble_dense(const float* u_el, const float* a_el, const float* v_el,
                         const float* dN, const float* N, const float* wq, float* out,
-                        float* cout, HyperelasticParams p, float mu_v, int material, int dim,
-                        int deg, long long E, void* stream) {
-  return hyper_visc_entry<true>(u_el, a_el, v_el, dN, N, wq, out, cout, p, mu_v, material,
-                                dim, deg, E, stream);
+                        float* cout, int full, HyperelasticParams p, float mu_v, int material,
+                        int dim, int deg, long long E, void* stream) {
+  return hyper_visc_entry<true>(u_el, a_el, v_el, dN, N, wq, out, cout, full, p, mu_v,
+                                material, dim, deg, E, stream);
 }
 
 int mimi_matvec_dense(const float* w_el, const float* dN, const float* N, const float* wq,

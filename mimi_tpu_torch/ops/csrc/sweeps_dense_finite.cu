@@ -6,13 +6,18 @@
 //   mimi_residual_dense_finite <- make_residual_sweep (dense, J2Simo / J2Log state)  residual only
 //   mimi_assemble_dense_finite <- make_assemble_sweep (dense, "full")               residual + DIM^4 planes
 //   mimi_matvec_dense_full     <- make_matvec_sweep ("full")                       y = J w
+// each inviscid or viscous (VISC: the residual and the assemble add
+// mu_v grad v to P, the matvec fac1 mu_v grad w, as sweeps_dense.cu says),
 // on the kernel templates of dense_common.cuh (design notes at the head of
 // sweeps_dense.cu), for (DIM, P) = (2, 2), (2, 3) and (3, 2): 2D patches
 // (the golden cantilever at p = 3, the examples at p = 2) and multi-patch
 // or knot-repeated 3D meshes.  `material` 0 is J2Simo, 1 J2Log
 // (ops/sweeps.py FULL_KERNELS).  The plain torch versions are
 // residual_dense_plain, assemble_dense_plain (full_tangent_planes) and
-// matvec_dense_plain (tangent_apply_full) with these materials.
+// matvec_dense_plain (tangent_apply_full) with these materials.  The
+// matvec also applies the full block that J2, J2Linear
+// (sweeps_dense_j2.cu) and the hyperelastic materials (sweeps_dense.cu)
+// write when it is asked for.
 //
 // The point bodies are finite.cuh's, shared with the sum-factorized
 // sweeps: P(F, state) written once for float and for forward-mode dual
@@ -29,8 +34,9 @@
 // (0.42 GB) in place of the state.  The assemble runs the material
 // DIM^2 + 1 times per point (J2Log's square-root iterations: ~8,500
 // operations per dual pass in 3D), so it may turn compute bound; a plastic
-// point adds the radial return's iterations (up to 100 safeguarded
-// Newton-bisection trips with powf / logf) once, in the float pass.
+// point adds the radial return's iterations (up to 40 safeguarded
+// Newton-bisection trips with powf / logf, the reference kernels' cap)
+// once, in the float pass.
 //
 // Rounding: F is formed without FMA in the plain version's order
 // (dense_common.cuh grad_q), so it agrees with the plain version to the
@@ -47,27 +53,31 @@
 
 namespace {
 
-template <int DIM, int P, bool TANGENT>
-int launch_finite(const float* u_el, const float* a_el, const float* dN, const float* N,
-                  const float* wq, const float* s0, const float* s1, const float* s2,
-                  const float* s3, float* out, float* cout, const J2Params& p, int material,
-                  long long E, void* stream) {
+template <int DIM, int P, bool TANGENT, bool VISC>
+int launch_finite(const float* u_el, const float* a_el, const float* v_el, const float* dN,
+                  const float* N, const float* wq, const float* s0, const float* s1,
+                  const float* s2, const float* s3, float* out, float* cout, const J2Params& p,
+                  float mu_v, int material, long long E, void* stream) {
   return with_finite_material<DIM>(material, p, s0, s1, s2, s3, [&](const auto& m) {
     using Mat = std::decay_t<decltype(m)>;
-    return launch_dense_residual<Mat, FullStorage<DIM>, DIM, P, TANGENT>(
-        u_el, a_el, dN, N, wq, out, cout, m, p.rho, E, stream);
+    return launch_dense_residual<Mat, FullStorage<DIM>, DIM, P, TANGENT, VISC>(
+        u_el, a_el, dN, N, wq, out, cout, m, p.rho, E, stream, v_el, mu_v);
   });
 }
 
 template <bool TANGENT>
-int finite_entry(const float* u_el, const float* a_el, const float* dN, const float* N,
-                 const float* wq, const float* s0, const float* s1, const float* s2,
-                 const float* s3, float* out, float* cout, const J2Params& p, int material,
-                 int dim, int deg, long long E, void* stream) {
+int finite_entry(const float* u_el, const float* a_el, const float* v_el, const float* dN,
+                 const float* N, const float* wq, const float* s0, const float* s1,
+                 const float* s2, const float* s3, float* out, float* cout, const J2Params& p,
+                 float mu_v, int material, int dim, int deg, long long E, void* stream) {
   if (E <= 0) return 0;
   return with_dense_shape(dim, deg, [&](auto D, auto G) {
-    return launch_finite<decltype(D)::value, decltype(G)::value, TANGENT>(
-        u_el, a_el, dN, N, wq, s0, s1, s2, s3, out, cout, p, material, E, stream);
+    constexpr int DIM = decltype(D)::value, P = decltype(G)::value;
+    if (v_el)
+      return launch_finite<DIM, P, TANGENT, true>(u_el, a_el, v_el, dN, N, wq, s0, s1, s2, s3,
+                                                  out, cout, p, mu_v, material, E, stream);
+    return launch_finite<DIM, P, TANGENT, false>(u_el, a_el, v_el, dN, N, wq, s0, s1, s2, s3,
+                                                 out, cout, p, mu_v, material, E, stream);
   });
 }
 
@@ -76,35 +86,41 @@ int finite_entry(const float* u_el, const float* a_el, const float* dN, const fl
 // C entry points, full storage; (dim, p) one of the instantiated pairs
 // (2, 2), (2, 3), (3, 2).  The state leaves s0..s3 in the order of
 // ops/sweeps.py FULL_KERNELS (J2Simo be_old, F_old, eqps, temperature;
-// J2Log Fp_inv, eqps, temperature, s3 unused).  Each returns the launch's
-// cudaGetLastError(), or cudaErrorInvalidValue for a (dim, p) not
+// J2Log Fp_inv, eqps, temperature, s3 unused); v_el == nullptr (visc == 0
+// for the matvec) selects the inviscid instantiation.  Each returns the
+// launch's cudaGetLastError(), or cudaErrorInvalidValue for a (dim, p) not
 // instantiated or an unknown material.
 extern "C" {
 
-int mimi_residual_dense_finite(const float* u_el, const float* a_el, const float* dN,
-                               const float* N, const float* wq, const float* s0,
-                               const float* s1, const float* s2, const float* s3,
-                               float* out, J2Params p, int material, int dim, int deg,
-                               long long E, void* stream) {
-  return finite_entry<false>(u_el, a_el, dN, N, wq, s0, s1, s2, s3, out, nullptr, p,
-                             material, dim, deg, E, stream);
+int mimi_residual_dense_finite(const float* u_el, const float* a_el, const float* v_el,
+                               const float* dN, const float* N, const float* wq,
+                               const float* s0, const float* s1, const float* s2,
+                               const float* s3, float* out, J2Params p, float mu_v,
+                               int material, int dim, int deg, long long E, void* stream) {
+  return finite_entry<false>(u_el, a_el, v_el, dN, N, wq, s0, s1, s2, s3, out, nullptr, p,
+                             mu_v, material, dim, deg, E, stream);
 }
 
-int mimi_assemble_dense_finite(const float* u_el, const float* a_el, const float* dN,
-                               const float* N, const float* wq, const float* s0,
-                               const float* s1, const float* s2, const float* s3,
-                               float* out, float* cout, J2Params p, int material, int dim,
-                               int deg, long long E, void* stream) {
-  return finite_entry<true>(u_el, a_el, dN, N, wq, s0, s1, s2, s3, out, cout, p, material,
-                            dim, deg, E, stream);
+int mimi_assemble_dense_finite(const float* u_el, const float* a_el, const float* v_el,
+                               const float* dN, const float* N, const float* wq,
+                               const float* s0, const float* s1, const float* s2,
+                               const float* s3, float* out, float* cout, J2Params p,
+                               float mu_v, int material, int dim, int deg, long long E,
+                               void* stream) {
+  return finite_entry<true>(u_el, a_el, v_el, dN, N, wq, s0, s1, s2, s3, out, cout, p, mu_v,
+                            material, dim, deg, E, stream);
 }
 
 int mimi_matvec_dense_full(const float* w_el, const float* dN, const float* N,
                            const float* wq, const float* cf, float* out, float rho,
-                           float fac0, int dim, int deg, long long E, void* stream) {
+                           float fac0, int visc, float fac1_mu_v, int dim, int deg,
+                           long long E, void* stream) {
   if (E <= 0) return 0;
   return with_dense_shape(dim, deg, [&](auto D, auto G) {
     constexpr int DIM = decltype(D)::value, P = decltype(G)::value;
+    if (visc)
+      return launch_dense_matvec<FullStorage<DIM>, DIM, P, true>(w_el, dN, N, wq, cf, out, rho,
+                                                                 fac0, E, stream, fac1_mu_v);
     return launch_dense_matvec<FullStorage<DIM>, DIM, P>(w_el, dN, N, wq, cf, out, rho, fac0,
                                                          E, stream);
   });

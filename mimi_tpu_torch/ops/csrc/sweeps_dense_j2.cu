@@ -5,7 +5,7 @@
 // Three kernels, each replacing one Pallas TPU kernel of
 // mimi_tpu/ops/sweeps.py in its dense-table branch with c_storage="cauchy":
 //   mimi_residual_dense_j2   <- make_residual_sweep (dense, J2 state)    residual only
-//   mimi_assemble_dense_j2   <- make_assemble_sweep (dense, "cauchy")   residual + Cauchy block
+//   mimi_assemble_dense_j2   <- make_assemble_sweep (dense, "cauchy"; "full")  residual + Cauchy or full block
 //   mimi_matvec_dense_cauchy <- make_matvec_sweep ("cauchy")           y = J w
 // each inviscid or viscous (VISC, as sweeps_dense.cu says),
 // on the kernel templates of dense_common.cuh (design notes at the head of
@@ -27,7 +27,8 @@
 // N 0.42 GB, the state 0.16 GB and w det J, ~1.5 GB (0.46 ms at
 // 3.35 TB/s); the assemble writes the 14 planes too (0.37 GB); the matvec
 // reads them instead.  A plastic point adds the radial return's iterations
-// (up to 100 safeguarded Newton-bisection trips with powf / logf).
+// (up to 40 safeguarded Newton-bisection trips with powf / logf, the
+// reference kernels' cap).
 //
 // Rounding: F is formed without FMA in the plain version's order
 // (dense_common.cuh grad_q), and P = J sigma F^-T from sigma with the
@@ -82,31 +83,45 @@ struct DenseJ2 {
 #pragma unroll
       for (int d = 0; d < DIM; ++d) P[c][d] = rn::mul(pt.J, rn::dot_nt<DIM>(pt.sig, pt.fi, c, d));
   }
+  // column b of dP/dF for FullStorage<DIM>: the Cauchy tangent on e_b
+  __device__ __forceinline__ void column(const Point& pt, long long, long long, int b,
+                                         float col[DIM * DIM]) const {
+    CauchyStorage<DIM>::column(pt, b, col);
+  }
 };
 
 // the residual (TANGENT false) or assemble kernel of J2 (material 0) or
-// J2Linear (material 1) at (dim, deg), inviscid or viscous
+// J2Linear (material 1) at (dim, deg), inviscid or viscous, with the Cauchy
+// block or (full) the DIM^4 planes of dP/dF
 template <bool TANGENT>
 int j2_entry(const float* u_el, const float* a_el, const float* v_el, const float* dN,
              const float* N, const float* wq, const float* ps, const float* eqps,
-             const float* temp, const float* beta, float* out, float* cout, const J2Params& p,
-             float mu_v, int material, int dim, int deg, long long E, void* stream) {
+             const float* temp, const float* beta, float* out, float* cout, int full,
+             const J2Params& p, float mu_v, int material, int dim, int deg, long long E,
+             void* stream) {
   if (E <= 0) return 0;
   if (material != 0 && material != 1) return cudaErrorInvalidValue;
   return with_dense_shape(dim, deg, [&](auto D, auto G) {
     constexpr int DIM = decltype(D)::value, P = decltype(G)::value;
-    auto go = [&](auto linear) {
+    auto go = [&](auto linear, auto store) {
       constexpr bool LINEAR = decltype(linear)::value;
       using Mat = DenseJ2<DIM, LINEAR>;
+      using Store = decltype(store);
       const Mat mat{p, ps, eqps, temp, beta};
       if (v_el)
-        return launch_dense_residual<Mat, CauchyStorage<DIM>, DIM, P, TANGENT, true>(
+        return launch_dense_residual<Mat, Store, DIM, P, TANGENT, true>(
             u_el, a_el, dN, N, wq, out, cout, mat, p.rho, E, stream, v_el, mu_v);
-      return launch_dense_residual<Mat, CauchyStorage<DIM>, DIM, P, TANGENT, false>(
+      return launch_dense_residual<Mat, Store, DIM, P, TANGENT, false>(
           u_el, a_el, dN, N, wq, out, cout, mat, p.rho, E, stream, v_el, mu_v);
     };
-    if (material == 1) return go(std::true_type{});
-    return go(std::false_type{});
+    auto by_store = [&](auto linear) {
+      if constexpr (TANGENT) {  // the residual writes no block
+        if (full) return go(linear, FullStorage<DIM>{});
+      }
+      return go(linear, CauchyStorage<DIM>{});
+    };
+    if (material == 1) return by_store(std::true_type{});
+    return by_store(std::false_type{});
   });
 }
 
@@ -115,7 +130,9 @@ int j2_entry(const float* u_el, const float* a_el, const float* v_el, const floa
 // C entry points, Cauchy-decomposition storage; J2 (material 0; the state
 // pointers ps, eqps, temp) or J2Linear (material 1; ps, eqps, beta); (dim,
 // p) one of the instantiated pairs (2, 2), (2, 3), (3, 2); v_el == nullptr
-// (visc == 0 for the matvec) selects the inviscid instantiation.  Each
+// (visc == 0 for the matvec) selects the inviscid instantiation; the
+// assemble's `full` the DIM^4 planes of dP/dF (FullStorage<DIM>, the matvec
+// mimi_matvec_dense_full of sweeps_dense_finite.cu) for the Cauchy block.  Each
 // returns the launch's cudaGetLastError(), or cudaErrorInvalidValue for a
 // material or a (dim, p) not instantiated.
 extern "C" {
@@ -125,17 +142,17 @@ int mimi_residual_dense_j2(const float* u_el, const float* a_el, const float* v_
                            const float* eqps, const float* temp, const float* beta,
                            float* out, J2Params p, float mu_v, int material, int dim, int deg,
                            long long E, void* stream) {
-  return j2_entry<false>(u_el, a_el, v_el, dN, N, wq, ps, eqps, temp, beta, out, nullptr, p,
-                         mu_v, material, dim, deg, E, stream);
+  return j2_entry<false>(u_el, a_el, v_el, dN, N, wq, ps, eqps, temp, beta, out, nullptr, 0,
+                         p, mu_v, material, dim, deg, E, stream);
 }
 
 int mimi_assemble_dense_j2(const float* u_el, const float* a_el, const float* v_el,
                            const float* dN, const float* N, const float* wq, const float* ps,
                            const float* eqps, const float* temp, const float* beta,
-                           float* out, float* cout, J2Params p, float mu_v, int material,
-                           int dim, int deg, long long E, void* stream) {
-  return j2_entry<true>(u_el, a_el, v_el, dN, N, wq, ps, eqps, temp, beta, out, cout, p, mu_v,
-                        material, dim, deg, E, stream);
+                           float* out, float* cout, int full, J2Params p, float mu_v,
+                           int material, int dim, int deg, long long E, void* stream) {
+  return j2_entry<true>(u_el, a_el, v_el, dN, N, wq, ps, eqps, temp, beta, out, cout, full, p,
+                        mu_v, material, dim, deg, E, stream);
 }
 
 int mimi_matvec_dense_cauchy(const float* w_el, const float* dN, const float* N,

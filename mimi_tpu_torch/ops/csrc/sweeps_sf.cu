@@ -7,7 +7,9 @@
 //   matvec_kernel                   <- make_matvec_sweep_sf            y = J w
 // for J2 (any of the reference's hardening laws) and J2Linear with the
 // 37-plane Cauchy-decomposition tangent (c_storage="cauchy":
-// mimi_residual_sf, mimi_assemble_sf, mimi_matvec_sf).
+// mimi_residual_sf, mimi_assemble_sf, mimi_matvec_sf) or, asked for, the
+// 81-plane full one (c_storage="full": mimi_assemble_sf's `full`, the
+// matvec mimi_matvec_sf_full of sweeps_sf_finite.cu).
 // The hyperelastic materials of materials.cuh (neo-Hookean, St.
 // Venant-Kirchhoff) with the 45-plane symmetric tangent (c_storage="sym")
 // instantiate the same kernel templates in sweeps_sf_hyper.cu, the
@@ -31,13 +33,14 @@
 //   Store the tangent block: CauchyStorage (37 planes: D-hat, sigma, F^-1,
 //         J; the matvec rebuilds P and applies the geometric terms),
 //         SymStorage (45 upper-triangle planes of a major-symmetric dP/dF)
-//         or FullStorage<3> (81 planes C[a*9 + b] = dP_a / dF_b).
+//         or FullStorage<3> (81 planes C[a*9 + b] = dP_a / dF_b: every
+//         material's, column by column from its own tangent).
 //   VISC  the viscous flux of has_visc: residual and assemble add mu_v dV
 //         (dV = grad v at the point, from v_el as dF is formed from u_el;
 //         sweeps.py:404-406, :651-653); the matvec adds fac1 mu_v dF
 //         (_tangent_apply :816-817, :833-834).  The tangent block does not
 //         change.  Costs one more (3,27,E) read in residual and assemble.
-//   CT    storage of the 37-plane tangent block, float or __nv_bfloat16
+//   CT    storage of the tangent block, float or __nv_bfloat16
 //         (c_dtype, sweeps.py:474,595-617).  The assemble rounds each plane
 //         to nearest even (as astype(bfloat16)); the matvec widens on load.
 //         At 48^3 the matvec then streams 0.52 GB of C instead of 1.05 GB.
@@ -74,8 +77,9 @@
 // 1.4 GB per call at 48^3, so it is bandwidth bound (~0.42 ms floor at
 // 3.35 TB/s): per point it does ~1.7k flops against ~200 bytes, about
 // 8 flop/byte, under the ~20 flop/byte float32 ridge.  The assemble writes
-// the same 1.05 GB tangent and runs the radial return (up to 100
-// safeguarded Newton-bisection trips with powf/logf on plastic points):
+// the same 1.05 GB tangent and runs the radial return (up to 40
+// safeguarded Newton-bisection trips with powf/logf on plastic points, the
+// reference kernels' cap):
 // plastic-heavy calls are bound by the trips' dependent chains at 16 warps
 // per SM, the elastic ones by the per-point interpolation and reduction
 // instructions.  The symmetric matvec streams 45 planes (1.27 GB at 48^3,
@@ -142,22 +146,29 @@ struct J2Mat {
         P[c][d] = pt.J * (pt.sig[c][0] * pt.fi[d][0] + pt.sig[c][1] * pt.fi[d][1] +
                           pt.sig[c][2] * pt.fi[d][2]);
   }
+  // column b of dP/dF for FullStorage<3>: the Cauchy tangent on e_b
+  __device__ __forceinline__ void column(const Point& pt, long long, long long, int b,
+                                         float col[9]) const {
+    CauchyStorage<3>::column(pt, b, col);
+  }
 };
 
 // the residual (TANGENT false) or assemble kernel of J2 (material 0) or
 // J2Linear (material 1), inviscid or viscous, with a float or bfloat16 block
+// of the Cauchy storage or (full) the 81 planes of dP/dF
 template <bool TANGENT>
 int j2_sf(const float* u_el, const float* a_el, const float* v_el, const Tables& tb,
           const float* jinv, const float* wq, const float* ps, const float* eqps,
-          const float* temp, const float* beta, float* out, void* cout, int c_bf16,
+          const float* temp, const float* beta, float* out, void* cout, int c_bf16, int full,
           const J2Params& p, float mu_v, int material, long long E, void* stream) {
   if (E <= 0) return 0;
   if (material != 0 && material != 1) return cudaErrorInvalidValue;
-  auto by_visc = [&](auto linear) {
+  auto by_visc = [&](auto linear, auto store) {
     constexpr bool LINEAR = decltype(linear)::value;
+    using Store = decltype(store);
     const J2Mat<LINEAR> mat{p, ps, eqps, temp, beta};
-#define MIMI_J2(VISC, CT)                                                          \
-  return launch_residual<J2Mat<LINEAR>, CauchyStorage<3>, TANGENT, VISC, CT>(      \
+#define MIMI_J2(VISC, CT)                                                    \
+  return launch_residual<J2Mat<LINEAR>, Store, TANGENT, VISC, CT>(           \
       u_el, a_el, v_el, tb, jinv, wq, out, cout, mat, p.rho, mu_v, E, stream)
     if (v_el) {
       if constexpr (TANGENT) {
@@ -171,8 +182,14 @@ int j2_sf(const float* u_el, const float* a_el, const float* v_el, const Tables&
     MIMI_J2(false, float);
 #undef MIMI_J2
   };
-  if (material == 1) return by_visc(std::true_type{});
-  return by_visc(std::false_type{});
+  auto by_store = [&](auto linear) {
+    if constexpr (TANGENT) {  // the residual writes no block
+      if (full) return by_visc(linear, FullStorage<3>{});
+    }
+    return by_visc(linear, CauchyStorage<3>{});
+  };
+  if (material == 1) return by_store(std::true_type{});
+  return by_store(std::false_type{});
 }
 
 }  // namespace
@@ -180,8 +197,10 @@ int j2_sf(const float* u_el, const float* a_el, const float* v_el, const Tables&
 // C entry points of J2 (material 0; the state pointers ps, eqps, temp) and
 // J2Linear (material 1; ps, eqps, beta); each returns the launch's
 // cudaGetLastError(), or cudaErrorInvalidValue for another material.
-// v_el == nullptr selects the inviscid variant and c_bf16 the bfloat16
-// tangent block.  One entry point per sweep for both materials: they share
+// v_el == nullptr selects the inviscid variant, c_bf16 the bfloat16
+// tangent block and full the 81 planes of dP/dF (FullStorage<3>, the
+// matvec mimi_matvec_sf_full of sweeps_sf_finite.cu) for the 37 of the
+// Cauchy decomposition.  One entry point per sweep for both materials: they share
 // the storage, the block layout and the matvec, and differ in one state
 // leaf and the point body.
 extern "C" {
@@ -193,7 +212,7 @@ int mimi_residual_sf(const float* u_el, const float* a_el, const float* v_el,
                      const float* eqps, const float* temp, const float* beta, float* out,
                      J2Params p, float mu_v, int material, long long E, void* stream) {
   return j2_sf<false>(u_el, a_el, v_el, Tables{{b0, d0, b1, d1, b2, d2}}, jinv, wq, ps, eqps,
-                      temp, beta, out, nullptr, 0, p, mu_v, material, E, stream);
+                      temp, beta, out, nullptr, 0, 0, p, mu_v, material, E, stream);
 }
 
 int mimi_assemble_sf(const float* u_el, const float* a_el, const float* v_el,
@@ -201,10 +220,10 @@ int mimi_assemble_sf(const float* u_el, const float* a_el, const float* v_el,
                      const float* d1, const float* b2, const float* d2,
                      const float* jinv, const float* wq, const float* ps,
                      const float* eqps, const float* temp, const float* beta, float* out,
-                     void* cout, int c_bf16, J2Params p, float mu_v, int material, long long E,
-                     void* stream) {
+                     void* cout, int c_bf16, int full, J2Params p, float mu_v, int material,
+                     long long E, void* stream) {
   return j2_sf<true>(u_el, a_el, v_el, Tables{{b0, d0, b1, d1, b2, d2}}, jinv, wq, ps, eqps,
-                     temp, beta, out, cout, c_bf16, p, mu_v, material, E, stream);
+                     temp, beta, out, cout, c_bf16, full, p, mu_v, material, E, stream);
 }
 
 int mimi_matvec_sf(const float* w_el, const float* b0, const float* d0,

@@ -5,6 +5,7 @@
 // mimi_tpu/ops/sweeps.py on the sum-factorized tables:
 //   residual_kernel<Hyper<..>, SymStorage<3>, false, VISC, float>  <- make_residual_sweep (sf_mode)
 //   residual_kernel<Hyper<..>, SymStorage<3>, true, VISC, CT>      <- make_assemble_sweep (sf, "sym")
+//   residual_kernel<Hyper<..>, FullStorage<3>, true, VISC, CT>     <- make_assemble_sweep (sf, "full")
 //   matvec_kernel<SymStorage<3>, VISC, CT>                         <- make_matvec_sweep_sf ("sym")
 // C entry points mimi_residual_sf_hyper, mimi_assemble_sf_hyper
 // (`material`: 0 the neo-Hookean, 1 the St. Venant-Kirchhoff material) and
@@ -29,23 +30,24 @@
 
 namespace {
 
-template <class H, bool TANGENT, bool VISC, typename CT>
+template <class H, class Store, bool TANGENT, bool VISC, typename CT>
 int launch_hyper(const float* u_el, const float* a_el, const float* v_el, const Tables& tb,
                  const float* jinv, const float* wq, float* out, void* cout,
                  const HyperelasticParams& p, float mu_v, long long E, void* stream) {
-  return launch_residual<Hyper<H>, SymStorage<3>, TANGENT, VISC, CT>(
+  return launch_residual<Hyper<H>, Store, TANGENT, VISC, CT>(
       u_el, a_el, v_el, tb, jinv, wq, out, cout, Hyper<H>{H{p.mu, p.lam}}, p.rho, mu_v, E,
       stream);
 }
 
-// the material's instantiation for (v_el given, c_bf16)
-template <class H, bool TANGENT>
+// the material's instantiation for (v_el given, c_bf16) with the block of
+// Store
+template <class H, class Store, bool TANGENT>
 int hyper_variant(const float* u_el, const float* a_el, const float* v_el, const Tables& tb,
                   const float* jinv, const float* wq, float* out, void* cout, int c_bf16,
                   const HyperelasticParams& p, float mu_v, long long E, void* stream) {
-#define MIMI_HYPER(VISC, CT)                                                            \
-  return launch_hyper<H, TANGENT, VISC, CT>(u_el, a_el, v_el, tb, jinv, wq, out, cout, p, \
-                                            mu_v, E, stream)
+#define MIMI_HYPER(VISC, CT)                                                                   \
+  return launch_hyper<H, Store, TANGENT, VISC, CT>(u_el, a_el, v_el, tb, jinv, wq, out, cout, \
+                                                   p, mu_v, E, stream)
   if constexpr (TANGENT) {  // the residual writes no block
     if (c_bf16) {
       if (v_el) MIMI_HYPER(true, __nv_bfloat16);
@@ -57,27 +59,45 @@ int hyper_variant(const float* u_el, const float* a_el, const float* v_el, const
 #undef MIMI_HYPER
 }
 
+// the material's instantiations with the symmetric block or (full) the
+// 81 planes of dP/dF
+template <class H, bool TANGENT>
+int hyper_storage(const float* u_el, const float* a_el, const float* v_el, const Tables& tb,
+                  const float* jinv, const float* wq, float* out, void* cout, int c_bf16,
+                  int full, const HyperelasticParams& p, float mu_v, long long E,
+                  void* stream) {
+  if constexpr (TANGENT) {
+    if (full)
+      return hyper_variant<H, FullStorage<3>, true>(u_el, a_el, v_el, tb, jinv, wq, out, cout,
+                                                    c_bf16, p, mu_v, E, stream);
+  }
+  return hyper_variant<H, SymStorage<3>, TANGENT>(u_el, a_el, v_el, tb, jinv, wq, out, cout,
+                                                  c_bf16, p, mu_v, E, stream);
+}
+
 template <bool TANGENT>
 int hyper_entry(const float* u_el, const float* a_el, const float* v_el, const float* b0,
                 const float* d0, const float* b1, const float* d1, const float* b2,
                 const float* d2, const float* jinv, const float* wq, float* out, void* cout,
-                int c_bf16, const HyperelasticParams& p, float mu_v, int material, long long E,
-                void* stream) {
+                int c_bf16, int full, const HyperelasticParams& p, float mu_v, int material,
+                long long E, void* stream) {
   if (E <= 0) return 0;
   Tables tb{{b0, d0, b1, d1, b2, d2}};
   if (material == 0)
-    return hyper_variant<NeoHookean<3>, TANGENT>(u_el, a_el, v_el, tb, jinv, wq, out, cout,
-                                                 c_bf16, p, mu_v, E, stream);
+    return hyper_storage<NeoHookean<3>, TANGENT>(u_el, a_el, v_el, tb, jinv, wq, out, cout,
+                                                 c_bf16, full, p, mu_v, E, stream);
   if (material == 1)
-    return hyper_variant<StVK<3>, TANGENT>(u_el, a_el, v_el, tb, jinv, wq, out, cout, c_bf16,
-                                           p, mu_v, E, stream);
+    return hyper_storage<StVK<3>, TANGENT>(u_el, a_el, v_el, tb, jinv, wq, out, cout, c_bf16,
+                                           full, p, mu_v, E, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // C entry points; each returns the launch's cudaGetLastError(), or
-// cudaErrorInvalidValue for a material not instantiated.
+// cudaErrorInvalidValue for a material not instantiated.  `full` selects
+// the 81 planes of dP/dF (FullStorage<3>, the matvec mimi_matvec_sf_full of
+// sweeps_sf_finite.cu) for the 45 symmetric ones.
 extern "C" {
 
 int mimi_residual_sf_hyper(const float* u_el, const float* a_el, const float* v_el,
@@ -86,17 +106,17 @@ int mimi_residual_sf_hyper(const float* u_el, const float* a_el, const float* v_
                            const float* wq, float* out, HyperelasticParams p, float mu_v,
                            int material, long long E, void* stream) {
   return hyper_entry<false>(u_el, a_el, v_el, b0, d0, b1, d1, b2, d2, jinv, wq, out, nullptr,
-                            0, p, mu_v, material, E, stream);
+                            0, 0, p, mu_v, material, E, stream);
 }
 
 int mimi_assemble_sf_hyper(const float* u_el, const float* a_el, const float* v_el,
                            const float* b0, const float* d0, const float* b1, const float* d1,
                            const float* b2, const float* d2, const float* jinv,
-                           const float* wq, float* out, void* cout, int c_bf16,
+                           const float* wq, float* out, void* cout, int c_bf16, int full,
                            HyperelasticParams p, float mu_v, int material, long long E,
                            void* stream) {
   return hyper_entry<true>(u_el, a_el, v_el, b0, d0, b1, d1, b2, d2, jinv, wq, out, cout,
-                           c_bf16, p, mu_v, material, E, stream);
+                           c_bf16, full, p, mu_v, material, E, stream);
 }
 
 int mimi_matvec_sf_sym(const float* w_el, const float* b0, const float* d0, const float* b1,

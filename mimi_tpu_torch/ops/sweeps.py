@@ -7,21 +7,28 @@ Counterpart of mimi_tpu/ops/sweeps.py (`make_residual_sweep`,
     with c_storage="cauchy" (the 37-plane Cauchy-decomposition tangent of
     J2 and J2Linear, kernels in ops/csrc/sweeps_sf.cu) or c_storage="sym" (45
     upper-triangle planes of a major-symmetric dP/dF: the hyperelastic
-    materials, ops/csrc/sweeps_sf_hyper.cu), each with and without the
-    viscous flux, the tangent block in float32 or bfloat16; or with
-    c_storage="full" (the 81 planes of dP/dF: J2Simo and J2Log, kernels in
-    ops/csrc/sweeps_sf_finite.cu), inviscid, float32;
+    materials, ops/csrc/sweeps_sf_hyper.cu) or c_storage="full" (the 81
+    planes of dP/dF: J2Simo and J2Log, kernels in
+    ops/csrc/sweeps_sf_finite.cu), each with and without the viscous flux,
+    the tangent block in float32 or bfloat16;
   - dense tables dN (nd, dim, n_q, n_el) and N (nd, n_q, n_el) in 2D or
     3D, c_storage="sym" (the hyperelastic materials: 45 planes in 3D, 10
-    in 2D) or "cauchy" (J2 and J2Linear with their state: 37 / 14 planes), with and
-    without the viscous flux, or "full" (J2Simo and J2Log with their
-    state: 81 / 16 planes), inviscid; float32 blocks:
+    in 2D), "cauchy" (J2 and J2Linear with their state: 37 / 14 planes)
+    or "full" (J2Simo and J2Log with their state: 81 / 16 planes), with
+    and without the viscous flux; float32 blocks:
     `residual_dense`, `assemble_dense`, `matvec_dense`, kernels in
     ops/csrc/sweeps_dense.cu, sweeps_dense_j2.cu and
     sweeps_dense_finite.cu, compiled for the (dim, p) pairs of
     DENSE_SHAPES.
-The material decides the storage (`tangent_storage`); the residual and the
-assemble read it off the material, the matvec is told it (`storage`).  The
+The material decides the storage (`tangent_storage`): the residual reads
+it off the material; the assemble writes the material's own block or,
+asked with `storage="full"`, the full one of any material (J2's, J2Linear's
+and the hyperelastic materials' from their closed-form tangents); the
+matvec is told the block's storage (`storage`).  The J2 family's radial
+return runs at most materials.KERNEL_SOLVE_TRIPS (40) trips in the kernels, as in the
+reference's Pallas kernels; the plain versions run the "torch" engine's
+100 unless called inside materials.kernel_solver_mode(), the kernels'
+plain twin.  The
 J2 family (J2, J2Simo, J2Log) runs with any of the reference's hardening
 laws: the Johnson-Cook family, PowerLaw and Voce (`_j2_params`).
 Each sweep has
@@ -54,6 +61,7 @@ import torch
 from torch.func import jvp, vmap
 
 from ..fem import soa
+from ..materials import KERNEL_SOLVE_TRIPS
 
 
 def _flags(visc=False, bf16=False):
@@ -77,12 +85,7 @@ def variant(name, visc=False, bf16=False):
 # untagged names are the neo-Hookean instantiations) and (dimension,
 # degree) suffix ("@2d_p3"; none for 3D p = 2); "visc" and "bf16" tag the
 # viscous and the bfloat16-block instantiations
-LAUNCHES = {
-    variant(name, visc, bf16): 0
-    for name in ("matvec_sf", "assemble_sf", "residual_sf")
-    for visc in (False, True)
-    for bf16 in ((False,) if name == "residual_sf" else (False, True))
-}
+LAUNCHES = {}
 # The hyperelastic materials the CUDA kernels instantiate, by class name:
 # (material id of the C entry points, counter tag).  csrc/materials.cuh
 # holds each one's struct, the entry points switch on the id.
@@ -134,57 +137,63 @@ def _shape_suffix(dim, p):
 
 def material_counters(kind, tag, storage="sym", dim=3, p=2, visc=False, bf16=False):
     """(residual, assemble) counter names of a material's instantiations on
-    the "sf" or "dense" tables with the "sym", "full" or "cauchy" storage
-    (the untagged dense names are the neo-Hookean's; dense J2 is "j2"),
+    the "sf" or "dense" tables with the "sym", "full" or "cauchy" storage,
     viscous and with a bfloat16 block where asked (the residual writes no
     block), with the suffix of (dim, p): "assemble_sf[nh,sym,visc,bf16]",
-    "residual_dense[j2,visc]@2d_p2" and the like."""
+    "residual_dense[j2,visc]@2d_p2" and the like.  The neo-Hookean's dense
+    names and those of J2 with a Johnson-Cook family law on sf tables are
+    untagged ("residual_dense[visc]", "assemble_dense[sym]"; `variant`) in
+    the material's own storage."""
     sfx = _shape_suffix(dim, p)
-    if kind == "dense" and tag == "nh":
-        res, asm = variant("residual_dense", visc), ["sym"]
+    if kind == "sf" and tag == "j2":
+        res = variant("residual_sf", visc)
+        if storage == "cauchy":
+            return res, variant("assemble_sf", visc, bf16)
+    elif kind == "dense" and tag == "nh":
+        res = variant("residual_dense", visc) + sfx
     else:
-        res, asm = f"residual_{kind}[{','.join([tag, *_flags(visc)])}]", [tag, storage]
-    return res + sfx, f"assemble_{kind}[{','.join(asm + _flags(visc, bf16))}]{sfx}"
+        res = f"residual_{kind}[{','.join([tag, *_flags(visc)])}]{sfx}"
+    asm = ["sym"] if (kind, tag, storage) == ("dense", "nh", "sym") else [tag, storage]
+    return res, f"assemble_{kind}[{','.join(asm + _flags(visc, bf16))}]{sfx}"
 
 
 def matvec_counter(kind, storage, dim=3, p=2, visc=False, bf16=False):
     """Counter name of a matvec instantiation: "matvec_dense[cauchy]@2d_p3",
-    "matvec_sf[sym,visc,bf16]" and the like."""
+    "matvec_sf[sym,visc,bf16]" and the like (the Cauchy sf matvec's are
+    untagged: "matvec_sf[visc,bf16]")."""
+    if (kind, storage) == ("sf", "cauchy"):
+        return variant("matvec_sf", visc, bf16)
     return f"matvec_{kind}[{','.join([storage, *_flags(visc, bf16)])}]{_shape_suffix(dim, p)}"
 
 
-LAUNCHES.update({
-    name: 0
-    for _, tag in HYPER_KERNELS.values()
-    for visc in (False, True)
-    for bf16 in (False, True)
-    for name in (*material_counters("sf", tag, visc=visc, bf16=bf16),
-                 matvec_counter("sf", "sym", visc=visc, bf16=bf16))
-})
 _LAWS = ("",) + tuple(f"-{t}" for _, t in LAW_KERNELS.values())
 # the tags of the J2 family's instantiations, each law's included
 _CAUCHY_TAGS = [f"j2{law}" for law in _LAWS] + ["j2lin"]
 _FULL_TAGS = [f"{t}{law}" for _, t, _ in FULL_KERNELS.values() for law in _LAWS]
+_HYPER_TAGS = [t for _, t in HYPER_KERNELS.values()]
+_BOTH = (False, True)
+# every material's instantiations in its own storage and in the full one,
+# viscous or not, with a float32 or (sf only) a bfloat16 block
 LAUNCHES.update({
     name: 0
-    for tag in _CAUCHY_TAGS[1:]
-    for visc in (False, True)
-    for bf16 in (False, True)
-    for name in material_counters("sf", tag, "cauchy", visc=visc, bf16=bf16)
+    for tags, own in ((_HYPER_TAGS, "sym"), (_CAUCHY_TAGS, "cauchy"), (_FULL_TAGS, "full"))
+    for tag in tags
+    for storage in {own, "full"}
+    for visc in _BOTH
+    for name in (
+        *[n for bf16 in _BOTH for n in material_counters("sf", tag, storage, visc=visc, bf16=bf16)],
+        *[n for dim, p in DENSE_SHAPES
+          for n in material_counters("dense", tag, storage, dim, p, visc)],
+    )
 })
-LAUNCHES.update({name: 0 for tag in _FULL_TAGS for name in material_counters("sf", tag, "full")})
 LAUNCHES.update({
     name: 0
-    for dim, p in DENSE_SHAPES
-    for tag, storage, viscs in ([(t, "sym", (False, True)) for _, t in HYPER_KERNELS.values()]
-                                + [(t, "cauchy", (False, True)) for t in _CAUCHY_TAGS]
-                                + [(t, "full", (False,)) for t in _FULL_TAGS])
-    for visc in viscs
-    for name in (*material_counters("dense", tag, storage, dim, p, visc),
-                 matvec_counter("dense", storage, dim, p, visc))
+    for storage in STORAGES
+    for visc in _BOTH
+    for name in (*[matvec_counter("sf", storage, visc=visc, bf16=bf16) for bf16 in _BOTH],
+                 *[matvec_counter("dense", storage, dim, p, visc) for dim, p in DENSE_SHAPES])
 })
 LAUNCHES.update({
-    "matvec_sf[full]": 0,
     # ops/fused_neohookean.py
     "neohookean_residual": 0, "neohookean_tangent_apply": 0,
 })
@@ -207,15 +216,13 @@ def kernel_tag(mat):
     return tags[mat.name()] + (f"-{law[1]}" if law else "")
 
 
-def kernel_counters(mat, kind, dim=3, p=2, visc=False, bf16=False):
+def kernel_counters(mat, kind, dim=3, p=2, visc=False, bf16=False, storage=None):
     """(residual, assemble) counter names of the material's kernels on the
     "sf" or "dense" tables at (dim, p), viscous and with a bfloat16 block
-    where asked (material_counters; J2 with a Johnson-Cook family law on sf
-    tables has the untagged names of `variant`)."""
-    tag = kernel_tag(mat)
-    if kind == "sf" and tag == "j2":
-        return variant("residual_sf", visc), variant("assemble_sf", visc, bf16)
-    return material_counters(kind, tag, tangent_storage(mat), dim, p, visc, bf16)
+    where asked, the block in `storage` (default: the material's;
+    material_counters)."""
+    return material_counters(kind, kernel_tag(mat), storage or tangent_storage(mat), dim, p,
+                             visc, bf16)
 
 
 def tangent_storage(mat):
@@ -464,17 +471,17 @@ def residual_sf_plain(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho,
 
 
 def assemble_sf_plain(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho,
-                      v_el=None, mu_v=0.0, c_dtype=None):
+                      v_el=None, mu_v=0.0, c_dtype=None, storage=None):
     """Residual (with the viscous flux as residual_sf_plain) plus the
-    tangent block in the material's storage (`tangent_storage`), stored in
-    `c_dtype` (default: the fields' dtype; bfloat16 rounds the planes to
-    nearest even).  Viscosity enters the matvec, not the block.
+    tangent block in `storage` (default: the material's, `tangent_storage`),
+    stored in `c_dtype` (default: the fields' dtype; bfloat16 rounds the
+    planes to nearest even).  Viscosity enters the matvec, not the block.
 
     "sym": the 45 planes of `sym_tangent_planes`.  "full": the 81 planes
-    of `full_tangent_planes`.  "cauchy": the 37 planes of
+    of `full_tangent_planes` (any material).  "cauchy": the 37 planes of
     `cauchy_tangent_planes`."""
     F = soa.add_diag(sf_grad(u_el, tabs, jinv), 1.0)
-    P, Cb = tangent_planes(tangent_storage(mat))(mat, F, state, dt)
+    P, Cb = tangent_planes(storage or tangent_storage(mat))(mat, F, state, dt)
     y = sf_scatter(
         _visc_flux(P, v_el, mu_v, tabs, jinv), rho * sf_value(a_el, tabs), tabs, jinv, wq
     )
@@ -689,15 +696,15 @@ def residual_dense_plain(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho,
 
 
 def assemble_dense_plain(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho,
-                         v_el=None, mu_v=0.0, c_dtype=None):
-    """Residual (as residual_dense_plain) plus the tangent block in the
-    material's storage, stored in `c_dtype` (default: the fields' dtype):
-    "sym", the symmetric planes of `sym_tangent_planes` (the hyperelastic
-    materials), "cauchy", the planes of `cauchy_tangent_planes` (J2), or
-    "full", the dim^4 planes of `full_tangent_planes` (J2Simo, J2Log)."""
-    storage = tangent_storage(mat)
+                         v_el=None, mu_v=0.0, c_dtype=None, storage=None):
+    """Residual (as residual_dense_plain) plus the tangent block in
+    `storage` (default: the material's), stored in `c_dtype` (default: the
+    fields' dtype): "sym", the symmetric planes of `sym_tangent_planes` (the
+    hyperelastic materials), "cauchy", the planes of `cauchy_tangent_planes`
+    (J2, J2Linear), or "full", the dim^4 planes of `full_tangent_planes`
+    (any material; J2Simo's and J2Log's own)."""
     F = soa.add_diag(dense_grad(u_el, dN_t), 1.0)
-    P, Cb = tangent_planes(storage)(mat, F, state, dt)
+    P, Cb = tangent_planes(storage or tangent_storage(mat))(mat, F, state, dt)
     if v_el is not None:
         P = P + mu_v * dense_grad(v_el, dN_t)
     y = dense_scatter(P, rho * dense_value(a_el, N_t), dN_t, N_t, wq)
@@ -779,7 +786,7 @@ def _j2_params(mat, dt, rho, family=("J2",)):
         )
     h = mat.hardening
     base = dict(K=mat.K, G=mat.G, tol=mat._tolerance, xtol=_K_TOL, dt=dt, rho=rho,
-                max_iter=100, g3=3.0 * mat.G, inv_g3=1.0 / (3.0 * mat.G), inv_dt=1.0 / dt)
+                max_iter=KERNEL_SOLVE_TRIPS, g3=3.0 * mat.G, inv_g3=1.0 / (3.0 * mat.G), inv_dt=1.0 / dt)
     if isinstance(h, H.PowerLawHardening):
         return _J2Params(
             **base, **_pow_params(1.0 / h.n, 1.0 / h.n - 1.0), law=LAW_KERNELS[h.name()][0],
@@ -917,38 +924,6 @@ def _hyper_params(mat, rho):
     return (_HyperParams(mu=mat.mu, lam=mat.lambda_, rho=rho), *HYPER_KERNELS[type(mat).__name__])
 
 
-def _sf_hyper(assemble, u_el, a_el, state, tabs, jinv, wq, mat, rho, v_el, mu_v,
-              c_dtype=torch.float32):
-    """The hyperelastic residual (or, with `assemble`, residual and 45
-    symmetric planes in float32 or bfloat16) on sum-factorized tables,
-    with the viscous flux where v_el is given: `mimi_residual_sf_hyper` /
-    `mimi_assemble_sf_hyper`."""
-    from .build import load
-
-    if state is not None:
-        raise NotImplementedError(
-            "a stateful material with the symmetric storage: no such material is "
-            "ported (ROADMAP Queue 1 item 2)"
-        )
-    bf16 = _c_flag(c_dtype)
-    device, n_el = _check_common(
-        [("u_el", u_el), ("a_el", a_el), ("v_el", v_el)], tabs, jinv, wq
-    )
-    prm, mat_id, tag = _hyper_params(mat, rho)
-    names = material_counters("sf", tag, visc=v_el is not None, bf16=bool(bf16))
-    out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
-    head = (_ptr(u_el), _ptr(a_el), _ptr(v_el), *[_ptr(t) for t in tabs], _ptr(jinv),
-            _ptr(wq), _ptr(out))
-    tail = (prm, ctypes.c_float(mu_v), ctypes.c_int(mat_id), ctypes.c_longlong(n_el))
-    if not assemble:
-        _launch(load().mimi_residual_sf_hyper, names[0], *head, *tail)
-        return out
-    cs = torch.empty((45, 64, n_el), dtype=c_dtype, device=device)
-    _launch(load().mimi_assemble_sf_hyper, names[1], *head, _ptr(cs), ctypes.c_int(bf16),
-            *tail)
-    return out, cs
-
-
 def _finite_state(mat, state, dim, n_q, n_el, device):
     """(material id, the entry points' four state pointers) of a
     FULL_KERNELS material, its leaves checked."""
@@ -957,141 +932,140 @@ def _finite_state(mat, state, dim, n_q, n_el, device):
                                device)
 
 
-def _sf_finite(assemble, u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el,
-               c_dtype=torch.float32):
-    """The residual (or, with `assemble`, residual and the 81 planes of
-    dP/dF) of a finite-strain plasticity model (FULL_KERNELS) on
-    sum-factorized tables: `mimi_residual_sf_finite` /
-    `mimi_assemble_sf_finite`, inviscid, float32."""
+def _block_storage(mat, storage):
+    """The storage of the material's tangent block: its own
+    (`tangent_storage`) unless "full" is asked, the one storage every
+    material's kernels also write."""
+    own = tangent_storage(mat)
+    storage = storage or own
+    if storage not in (own, "full"):
+        raise ValueError(
+            f"{mat.name()}'s kernels write its own {own!r} tangent block or the 'full' one, "
+            f"not {storage!r}"
+        )
+    return own, storage
+
+
+def _material_args(mat, state, dt, rho, dim, n_q, n_el, device, kind):
+    """(C entry-point stem, parameter block, material id, state pointers) of
+    the material's kernels on `kind` tables: the hyperelastic ones
+    (HYPER_KERNELS, stateless), J2 and J2Linear (CAUCHY_KERNELS) or J2Simo
+    and J2Log (FULL_KERNELS)."""
+    own = tangent_storage(mat)
+    if own == "sym":
+        if state is not None:
+            raise NotImplementedError(
+                "a stateful material with the symmetric storage: no such material is "
+                "ported (ROADMAP Queue 1 item 2)"
+            )
+        prm, mat_id, _ = _hyper_params(mat, rho)
+        return ("_sf_hyper" if kind == "sf" else "_dense"), prm, mat_id, ()
+    table = FULL_KERNELS if own == "full" else CAUCHY_KERNELS
+    prm = _j2_params(mat, dt, rho, family=tuple(table))
+    mat_id, st = (_finite_state if own == "full" else _cauchy_state)(
+        mat, state, dim, n_q, n_el, device)
+    stem = {("sf", "cauchy"): "_sf", ("sf", "full"): "_sf_finite",
+            ("dense", "cauchy"): "_dense_j2", ("dense", "full"): "_dense_finite"}[(kind, own)]
+    return stem, prm, mat_id, tuple(st)
+
+
+def _sf_sweep(assemble, u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el=None, mu_v=0.0,
+              c_dtype=torch.float32, storage=None):
+    """The material's residual (or, with `assemble`, residual and tangent
+    block in `storage` and c_dtype) kernel on sum-factorized tables, with the
+    viscous flux where v_el is given: `mimi_residual_sf` / `mimi_assemble_sf`
+    (J2 with any of the five hardening laws, J2Linear), `..._sf_hyper` (the
+    hyperelastic materials) or `..._sf_finite` (J2Simo, J2Log)."""
     from .build import load
 
-    if v_el is not None:
-        raise NotImplementedError(
-            "the viscous CUDA sf sweeps with the full storage (ROADMAP Queue 2 item 3)"
-        )
-    if c_dtype != torch.float32:
-        raise NotImplementedError(
-            f"a {c_dtype} full tangent block on the CUDA sf sweeps (ROADMAP Queue 2 item 3)"
-        )
-    prm = _j2_params(mat, dt, rho, family=tuple(FULL_KERNELS))
-    device, n_el = _check_common([("u_el", u_el), ("a_el", a_el)], tabs, jinv, wq)
-    mat_id, st = _finite_state(mat, state, 3, 64, n_el, device)
-    out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
-    head = (_ptr(u_el), _ptr(a_el), *[_ptr(t) for t in tabs], _ptr(jinv), _ptr(wq), *st,
-            _ptr(out))
-    tail = (prm, ctypes.c_int(mat_id), ctypes.c_longlong(n_el))
-    names = kernel_counters(mat, "sf")
-    if not assemble:
-        _launch(load().mimi_residual_sf_finite, names[0], *head, *tail)
-        return out
-    cf = torch.empty((81, 64, n_el), dtype=torch.float32, device=device)
-    _launch(load().mimi_assemble_sf_finite, names[1], *head, _ptr(cf), *tail)
-    return out, cf
-
-
-def _sf_cauchy(assemble, u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el, mu_v,
-               c_dtype=torch.float32):
-    """The residual (or, with `assemble`, residual and the 37 Cauchy planes
-    in float32 or bfloat16) of J2 or J2Linear (CAUCHY_KERNELS) on
-    sum-factorized tables, with the viscous flux where v_el is given:
-    `mimi_residual_sf` / `mimi_assemble_sf`."""
-    from .build import load
-
+    own, storage = _block_storage(mat, storage)
     bf16 = _c_flag(c_dtype)
     device, n_el = _check_common(
         [("u_el", u_el), ("a_el", a_el), ("v_el", v_el)], tabs, jinv, wq
     )
-    prm = _j2_params(mat, dt, rho, family=tuple(CAUCHY_KERNELS))
-    mat_id, st = _cauchy_state(mat, state, 3, 64, n_el, device)
-    names = kernel_counters(mat, "sf", visc=v_el is not None, bf16=bool(bf16))
+    stem, prm, mat_id, st = _material_args(mat, state, dt, rho, 3, 64, n_el, device, "sf")
+    names = kernel_counters(mat, "sf", visc=v_el is not None, bf16=bool(bf16), storage=storage)
     out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
     head = (_ptr(u_el), _ptr(a_el), _ptr(v_el), *[_ptr(t) for t in tabs], _ptr(jinv),
             _ptr(wq), *st, _ptr(out))
     tail = (prm, ctypes.c_float(mu_v), ctypes.c_int(mat_id), ctypes.c_longlong(n_el))
+    lib = load()
     if not assemble:
-        _launch(load().mimi_residual_sf, names[0], *head, *tail)
+        _launch(getattr(lib, f"mimi_residual{stem}"), names[0], *head, *tail)
         return out
-    cb = torch.empty((37, 64, n_el), dtype=c_dtype, device=device)
-    _launch(load().mimi_assemble_sf, names[1], *head, _ptr(cb), ctypes.c_int(bf16), *tail)
+    cb = torch.empty((n_planes(storage), 64, n_el), dtype=c_dtype, device=device)
+    # the full-storage switch of the materials with a stronger own storage
+    full = () if own == "full" else (ctypes.c_int(int(storage == "full")),)
+    _launch(getattr(lib, f"mimi_assemble{stem}"), names[1], *head, _ptr(cb), ctypes.c_int(bf16),
+            *full, *tail)
     return out, cb
 
 
 def residual_sf(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el=None, mu_v=0.0):
     """Residual sweep: plain torch on CPU tensors; on CUDA tensors the
     kernel `mimi_residual_sf` (J2 with any of the five hardening laws,
-    J2Linear) or `mimi_residual_sf_hyper` (the hyperelastic materials), with
-    the viscous flux when v_el is given, or `mimi_residual_sf_finite`
-    (J2Simo, J2Log; inviscid)."""
+    J2Linear), `mimi_residual_sf_hyper` (the hyperelastic materials) or
+    `mimi_residual_sf_finite` (J2Simo, J2Log), each with the viscous flux
+    when v_el is given."""
     if u_el.device.type == "cpu":
         return residual_sf_plain(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el, mu_v)
-    if tangent_storage(mat) == "sym":
-        return _sf_hyper(False, u_el, a_el, state, tabs, jinv, wq, mat, rho, v_el, mu_v)
-    if tangent_storage(mat) == "full":
-        return _sf_finite(False, u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el)
-    return _sf_cauchy(False, u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el, mu_v)
+    return _sf_sweep(False, u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el, mu_v)
 
 
 def assemble_sf(u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el=None,
-                mu_v=0.0, c_dtype=None):
-    """Assemble sweep: (residual, tangent block in the material's storage
-    and in `c_dtype`, by default the fields' dtype); plain torch on CPU
-    tensors; on CUDA tensors the
-    kernel `mimi_assemble_sf` (J2 with any of the five hardening laws,
-    J2Linear: 37 planes, the closed-form algorithmic tangent) or
-    `mimi_assemble_sf_hyper` (the hyperelastic materials, 45 planes,
-    closed-form dP/dF), each with the viscous flux when v_el is given and
-    the block in float32 or bfloat16, or `mimi_assemble_sf_finite` (J2Simo,
-    J2Log: 81 planes from 9 forward-mode dual-number passes, inviscid,
-    float32)."""
+                mu_v=0.0, c_dtype=None, storage=None):
+    """Assemble sweep: (residual, tangent block in `storage`, by default the
+    material's, and in `c_dtype`, by default the fields' dtype); plain torch
+    on CPU tensors; on CUDA tensors the kernel `mimi_assemble_sf` (J2 with
+    any of the five hardening laws, J2Linear: the 37 Cauchy planes of the
+    closed-form algorithmic tangent), `mimi_assemble_sf_hyper` (the
+    hyperelastic materials, the 45 symmetric planes of the closed-form
+    dP/dF), each also with the 81 full planes from the same closed forms,
+    or `mimi_assemble_sf_finite` (J2Simo, J2Log: 81 planes from 9
+    forward-mode dual-number passes), each with the viscous flux when v_el
+    is given and the block in float32 or bfloat16."""
     c_dtype = c_dtype or u_el.dtype
     if u_el.device.type == "cpu":
         return assemble_sf_plain(
-            u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el, mu_v, c_dtype
+            u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el, mu_v, c_dtype, storage
         )
-    if tangent_storage(mat) == "sym":
-        return _sf_hyper(True, u_el, a_el, state, tabs, jinv, wq, mat, rho, v_el, mu_v,
-                         c_dtype)
-    if tangent_storage(mat) == "full":
-        return _sf_finite(True, u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el,
-                          c_dtype)
-    return _sf_cauchy(True, u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el, mu_v,
-                      c_dtype)
+    return _sf_sweep(True, u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el, mu_v,
+                     c_dtype, storage)
+
+
+# the sf and dense matvec entry points by storage
+_MATVEC_FNS = {
+    "sf": {"cauchy": "mimi_matvec_sf", "sym": "mimi_matvec_sf_sym", "full": "mimi_matvec_sf_full"},
+    "dense": {"cauchy": "mimi_matvec_dense_cauchy", "sym": "mimi_matvec_dense",
+              "full": "mimi_matvec_dense_full"},
+}
 
 
 def matvec_sf(w_el, tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v=None, storage="cauchy"):
     """GMRES matvec sweep on the block of `storage`: plain torch on CPU
     tensors; on CUDA tensors the kernel `mimi_matvec_sf` ("cauchy", 37
-    planes) or `mimi_matvec_sf_sym` ("sym", 45 planes), each on a float32
-    or bfloat16 block with the viscous term when fac1_mu_v is given, or
-    `mimi_matvec_sf_full` ("full", 81 planes, float32, inviscid)."""
+    planes), `mimi_matvec_sf_sym` ("sym", 45 planes) or `mimi_matvec_sf_full`
+    ("full", 81 planes), each on a float32 or bfloat16 block with the
+    viscous term when fac1_mu_v is given."""
     if w_el.device.type == "cpu":
         return matvec_sf_plain(w_el, tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v, storage)
+    return _sf_matvec(w_el, tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v, storage)
+
+
+def _sf_matvec(w_el, tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v=None, storage="cauchy"):
+    """The sf matvec kernel of `storage` (_MATVEC_FNS) on a float32 or
+    bfloat16 block, with the viscous term when fac1_mu_v is given."""
     from .build import load
 
     _tangent_apply(storage, Cb)
     visc = fac1_mu_v is not None
-    if storage == "full" and (visc or Cb.dtype != torch.float32):
-        raise NotImplementedError(
-            "the viscous or bfloat16 'full' CUDA sf matvec (ROADMAP Queue 2 item 3)"
-        )
     device, n_el = _check_common([("w_el", w_el)], tabs, jinv, wq)
     out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
-    if storage == "full":
-        _check("C", Cb, (81, 64, n_el), device)
-        _launch(
-            load().mimi_matvec_sf_full, "matvec_sf[full]",
-            _ptr(w_el), *[_ptr(t) for t in tabs], _ptr(jinv), _ptr(wq), _ptr(Cb),
-            _ptr(out), ctypes.c_float(rho), ctypes.c_float(fac0), ctypes.c_longlong(n_el),
-        )
-        return out
     bf16 = _c_flag(Cb.dtype)
     _check("C", Cb, (n_planes(storage), 64, n_el), device, Cb.dtype)
-    fn, name = (
-        (load().mimi_matvec_sf, variant("matvec_sf", visc, bf16)) if storage == "cauchy"
-        else (load().mimi_matvec_sf_sym, matvec_counter("sf", "sym", visc=visc, bf16=bool(bf16)))
-    )
     _launch(
-        fn, name,
+        getattr(load(), _MATVEC_FNS["sf"][storage]),
+        matvec_counter("sf", storage, visc=visc, bf16=bool(bf16)),
         _ptr(w_el), *[_ptr(t) for t in tabs], _ptr(jinv), _ptr(wq), _ptr(Cb),
         ctypes.c_int(bf16), _ptr(out), ctypes.c_float(rho), ctypes.c_float(fac0),
         ctypes.c_int(int(visc)), ctypes.c_float(fac1_mu_v if visc else 0.0),
@@ -1133,124 +1107,99 @@ def _check_dense(el_fields, dN_t, N_t, wq):
     return device, n_el, dim, p
 
 
-def _dense_unported(storage, v_el=None, fac1_mu_v=None, c_dtype=torch.float32):
-    """Raise for what the CUDA dense sweeps do not implement: viscosity with
-    the full storage (Queue 2 item 3) and a bfloat16 block (item 3 with the
-    full storage; with the others item 4, which needs the bfloat16 table
+def _dense_unported(storage, c_dtype=torch.float32):
+    """Raise for what the CUDA dense sweeps do not implement: a bfloat16
+    block of any storage (Queue 2 item 4, which needs the bfloat16 table
     streams of Queue 1 item 10 as well)."""
-    if storage == "full" and (v_el is not None or fac1_mu_v is not None):
-        raise NotImplementedError(
-            "the viscous CUDA dense sweeps with the 'full' storage (ROADMAP Queue 2 item 3)"
-        )
     if c_dtype != torch.float32:
         raise NotImplementedError(
             f"a {c_dtype} {storage!r} tangent block on the CUDA dense sweeps (ROADMAP "
-            + ("Queue 2 item 3)" if storage == "full"
-               else "Queue 2 item 4, with the bfloat16 table streams of Queue 1 item 10)")
+            "Queue 2 item 4, with the bfloat16 table streams of Queue 1 item 10)"
         )
 
 
 def _dense_sweep(assemble, u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el=None,
-                 mu_v=0.0):
-    """The dense residual (or, with `assemble`, residual and tangent block)
-    kernel of the material: the hyperelastic ones with the symmetric
-    storage (`mimi_residual_dense` / `mimi_assemble_dense`), J2 (any of the
-    five hardening laws) and J2Linear with the Cauchy storage and their
-    state (`mimi_residual_dense_j2` / `mimi_assemble_dense_j2`), each with
-    the viscous flux when v_el is given; J2Simo and J2Log with the full
-    storage and their state (`mimi_residual_dense_finite` /
-    `mimi_assemble_dense_finite`, inviscid)."""
+                 mu_v=0.0, storage=None):
+    """The dense residual (or, with `assemble`, residual and float32 tangent
+    block in `storage`, by default the material's) kernel of the material,
+    with the viscous flux when v_el is given: the hyperelastic ones
+    (`mimi_residual_dense` / `mimi_assemble_dense`: the symmetric or the
+    full block), J2 (any of the five hardening laws) and J2Linear with their
+    state (`mimi_residual_dense_j2` / `mimi_assemble_dense_j2`: the Cauchy or
+    the full block), J2Simo and J2Log with their state
+    (`mimi_residual_dense_finite` / `mimi_assemble_dense_finite`: full)."""
     from .build import load
 
-    storage = tangent_storage(mat)
-    if storage == "sym" and state is not None:
-        raise NotImplementedError(
-            "a stateful material with the symmetric storage: no such material is "
-            "ported (ROADMAP Queue 1 item 2)"
-        )
-    if storage != "sym":
-        prm = _j2_params(mat, dt, rho,
-                         family=tuple(CAUCHY_KERNELS if storage == "cauchy" else FULL_KERNELS))
+    own, storage = _block_storage(mat, storage)
     fields = [("u_el", u_el), ("a_el", a_el)] + ([("v_el", v_el)] if v_el is not None else [])
     device, n_el, dim, p = _check_dense(fields, dN_t, N_t, wq)
     n_q = wq.shape[0]
-    visc = () if storage == "full" else (_ptr(v_el),)
-    head = (_ptr(u_el), _ptr(a_el), *visc, _ptr(dN_t), _ptr(N_t), _ptr(wq))
-    mu = () if storage == "full" else (ctypes.c_float(mu_v),)
-    shape = (ctypes.c_int(dim), ctypes.c_int(p), ctypes.c_longlong(n_el))
-    if storage == "cauchy":
-        mat_id, st = _cauchy_state(mat, state, dim, n_q, n_el, device)
-        head += tuple(st)
-        fns = ("mimi_residual_dense_j2", "mimi_assemble_dense_j2")
-        tail = (prm, *mu, ctypes.c_int(mat_id))
-    elif storage == "full":
-        mat_id, st = _finite_state(mat, state, dim, n_q, n_el, device)
-        head += tuple(st)
-        fns = ("mimi_residual_dense_finite", "mimi_assemble_dense_finite")
-        tail = (prm, ctypes.c_int(mat_id))
-    else:
-        prm, mat_id, _ = _hyper_params(mat, rho)
-        fns = ("mimi_residual_dense", "mimi_assemble_dense")
-        tail = (prm, *mu, ctypes.c_int(mat_id))
-    names = kernel_counters(mat, "dense", dim, p, v_el is not None)
+    stem, prm, mat_id, st = _material_args(mat, state, dt, rho, dim, n_q, n_el, device, "dense")
+    head = (_ptr(u_el), _ptr(a_el), _ptr(v_el), _ptr(dN_t), _ptr(N_t), _ptr(wq), *st)
+    tail = (prm, ctypes.c_float(mu_v), ctypes.c_int(mat_id), ctypes.c_int(dim), ctypes.c_int(p),
+            ctypes.c_longlong(n_el))
+    names = kernel_counters(mat, "dense", dim, p, v_el is not None, storage=storage)
     out = torch.empty((dim, u_el.shape[1], n_el), dtype=torch.float32, device=device)
+    lib = load()
     if not assemble:
-        _launch(getattr(load(), fns[0]), names[0], *head, _ptr(out), *tail, *shape)
+        _launch(getattr(lib, f"mimi_residual{stem}"), names[0], *head, _ptr(out), *tail)
         return out
     cb = torch.empty((n_planes(storage, dim), n_q, n_el), dtype=torch.float32, device=device)
-    _launch(getattr(load(), fns[1]), names[1], *head, _ptr(out), _ptr(cb), *tail, *shape)
+    full = () if own == "full" else (ctypes.c_int(int(storage == "full")),)
+    _launch(getattr(lib, f"mimi_assemble{stem}"), names[1], *head, _ptr(out), _ptr(cb), *full,
+            *tail)
     return out, cb
 
 
 def residual_dense(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el=None, mu_v=0.0):
     """Dense residual sweep: plain torch on CPU tensors; on CUDA tensors the
-    kernel `mimi_residual_dense` (the hyperelastic materials) or
+    kernel `mimi_residual_dense` (the hyperelastic materials),
     `mimi_residual_dense_j2` (J2 with any of the five hardening laws,
-    J2Linear), each with the viscous flux when v_el is given, or `mimi_residual_dense_finite` (J2Simo, J2Log; inviscid), for
-    the (dim, p) pairs of DENSE_SHAPES."""
+    J2Linear) or `mimi_residual_dense_finite` (J2Simo, J2Log), each with the
+    viscous flux when v_el is given, for the (dim, p) pairs of
+    DENSE_SHAPES."""
     if u_el.device.type == "cpu":
         return residual_dense_plain(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el, mu_v)
-    _dense_unported(tangent_storage(mat), v_el)
     return _dense_sweep(False, u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el, mu_v)
 
 
 def assemble_dense(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el=None,
-                   mu_v=0.0, c_dtype=None):
-    """Dense assemble sweep: (residual, tangent block in the material's
-    storage and in `c_dtype`, by default the fields' dtype); plain torch on
-    CPU tensors; on CUDA tensors the kernel `mimi_assemble_dense` (the
-    hyperelastic materials' closed-form dP/dF, the symmetric planes) or
-    `mimi_assemble_dense_j2` (the closed-form algorithmic tangent of J2
-    or J2Linear, the Cauchy planes), each with the viscous flux when v_el is given, or
+                   mu_v=0.0, c_dtype=None, storage=None):
+    """Dense assemble sweep: (residual, tangent block in `storage`, by
+    default the material's, and in `c_dtype`, by default the fields'
+    dtype); plain torch on CPU tensors; on CUDA tensors the kernel
+    `mimi_assemble_dense` (the hyperelastic materials' closed-form dP/dF,
+    the symmetric or full planes), `mimi_assemble_dense_j2` (the closed-form
+    algorithmic tangent of J2 or J2Linear, the Cauchy or full planes) or
     `mimi_assemble_dense_finite` (J2Simo, J2Log: the dim^4 planes of dP/dF
-    from dim^2 forward-mode dual-number passes, inviscid); float32."""
+    from dim^2 forward-mode dual-number passes), each with the viscous flux
+    when v_el is given; float32."""
     c_dtype = c_dtype or u_el.dtype
     if u_el.device.type == "cpu":
         return assemble_dense_plain(
-            u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el, mu_v, c_dtype
+            u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el, mu_v, c_dtype, storage
         )
-    _dense_unported(tangent_storage(mat), v_el, c_dtype=c_dtype)
-    return _dense_sweep(True, u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el, mu_v)
+    _dense_unported(storage or tangent_storage(mat), c_dtype)
+    return _dense_sweep(True, u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el, mu_v,
+                        storage)
 
 
 def _dense_matvec(w_el, dN_t, N_t, wq, Cb, rho, fac0, storage, fac1_mu_v=None):
-    """The dense matvec kernel of `storage`: `mimi_matvec_dense` ("sym") or
-    `mimi_matvec_dense_cauchy` ("cauchy"), each with the viscous term when
-    fac1_mu_v is given, or `mimi_matvec_dense_full` ("full", inviscid)."""
+    """The dense matvec kernel of `storage`: `mimi_matvec_dense` ("sym"),
+    `mimi_matvec_dense_cauchy` ("cauchy") or `mimi_matvec_dense_full`
+    ("full"), each with the viscous term when fac1_mu_v is given."""
     from .build import load
 
     device, n_el, dim, p = _check_dense([("w_el", w_el)], dN_t, N_t, wq)
     _check("C", Cb, (n_planes(storage, dim), wq.shape[0], n_el), device)
     out = torch.empty((dim, w_el.shape[1], n_el), dtype=torch.float32, device=device)
-    fn = {"sym": "mimi_matvec_dense", "cauchy": "mimi_matvec_dense_cauchy",
-          "full": "mimi_matvec_dense_full"}[storage]
     visc = fac1_mu_v is not None
-    flux = () if storage == "full" else (
-        ctypes.c_int(int(visc)), ctypes.c_float(fac1_mu_v if visc else 0.0))
     _launch(
-        getattr(load(), fn), matvec_counter("dense", storage, dim, p, visc),
+        getattr(load(), _MATVEC_FNS["dense"][storage]),
+        matvec_counter("dense", storage, dim, p, visc),
         _ptr(w_el), _ptr(dN_t), _ptr(N_t), _ptr(wq), _ptr(Cb), _ptr(out),
-        ctypes.c_float(rho), ctypes.c_float(fac0), *flux, ctypes.c_int(dim), ctypes.c_int(p),
+        ctypes.c_float(rho), ctypes.c_float(fac0), ctypes.c_int(int(visc)),
+        ctypes.c_float(fac1_mu_v if visc else 0.0), ctypes.c_int(dim), ctypes.c_int(p),
         ctypes.c_longlong(n_el),
     )
     return out
@@ -1258,11 +1207,10 @@ def _dense_matvec(w_el, dN_t, N_t, wq, Cb, rho, fac0, storage, fac1_mu_v=None):
 
 def matvec_dense(w_el, dN_t, N_t, wq, Cb, rho, fac0, fac1_mu_v=None, storage="sym"):
     """Dense GMRES matvec sweep on the block of `storage`: plain torch on
-    CPU tensors; on CUDA tensors the kernel `mimi_matvec_dense` ("sym") or
-    `mimi_matvec_dense_cauchy` ("cauchy"), each with the viscous term when
-    fac1_mu_v is given, or `mimi_matvec_dense_full` ("full", inviscid);
-    float32."""
+    CPU tensors; on CUDA tensors the kernel `mimi_matvec_dense` ("sym"),
+    `mimi_matvec_dense_cauchy` ("cauchy") or `mimi_matvec_dense_full`
+    ("full"), each with the viscous term when fac1_mu_v is given; float32."""
     if w_el.device.type == "cpu":
         return matvec_dense_plain(w_el, dN_t, N_t, wq, Cb, rho, fac0, fac1_mu_v, storage)
-    _dense_unported(storage, fac1_mu_v=fac1_mu_v, c_dtype=Cb.dtype)
+    _dense_unported(storage, Cb.dtype)
     return _dense_matvec(w_el, dN_t, N_t, wq, Cb, rho, fac0, storage, fac1_mu_v)

@@ -610,32 +610,39 @@ def make_step(
         dtype; the counterpart of the reference package's "soa" engine.
     The problem's tables decide the sweeps (the reference's `matvec_impl`
     "auto"): a problem with sum-factorized tables runs the sf sweeps, a
-    dense-table problem the dense sweeps.  The tangent storage is the
-    strongest exact compression the material declares (cauchy > sym >
-    full): the Cauchy-decomposition tangent of J2 (with any of the five
-    hardening laws) and J2Linear (37 planes in 3D, 14 in 2D; sf and dense
-    sweeps), the symmetric tangent of a material with a
-    major-symmetric dP/dF (the hyperelastic ones, 45 / 10 planes; sf and
-    dense sweeps), or the full dP/dF of the finite-strain plasticity
-    models J2Simo and J2Log (81 planes in 3D, 16 in 2D; sf and dense
-    sweeps).  `matvec_impl` and
-    `tangent_storage` take "auto" or the name of what the problem decides,
-    as aliases of the reference's options; "sym" on a material without a
-    major-symmetric dP/dF and "cauchy" on one without the
-    Cauchy-decomposition contract raise ValueError, as in the reference, and
-    a weaker storage than the material's ("full" on J2 or a hyperelastic
-    material) is not ported (NotImplementedError).  Everything around
+    dense-table problem the dense sweeps (`matvec_impl` takes "auto" or
+    the name of what the tables decide, as an alias of the reference's
+    option).  `tangent_storage` "auto" takes the strongest exact
+    compression the material declares (cauchy > sym > full): the
+    Cauchy-decomposition tangent of J2 (with any of the five hardening
+    laws) and J2Linear (37 planes in 3D, 14 in 2D), the symmetric tangent
+    of a material with a major-symmetric dP/dF (the hyperelastic ones, 45 /
+    10 planes), or the full dP/dF of the finite-strain plasticity models
+    J2Simo and J2Log (81 planes in 3D, 16 in 2D); "full" takes the full
+    dP/dF on any material (its closed form on J2, J2Linear and the
+    hyperelastic materials), as the reference does; "sym" on a material
+    without a major-symmetric dP/dF and "cauchy" on one without the
+    Cauchy-decomposition contract raise ValueError, as in the reference.
+    Every storage runs on the sf and the dense sweeps.  Everything around
     the sweeps (gather/scatter, contact, FDM, GMRES, Newton) is the same
     torch code.  A material with viscosity > 0 adds the viscous flux
-    S (v + fac1 a) to the residual sweeps and fac1 S to the matvec (the
-    CUDA kernels with the full storage are inviscid and raise).
+    S (v + fac1 a) to the residual sweeps and fac1 S to the matvec.
 
     `matvec_dtype` ("f32", "bf16") is the storage of the tangent block the
     GMRES matvec streams; "bf16" rounds it once in the assemble and
-    widens it on every read, on both engines (the Cauchy and the
-    symmetric storage; the full storage raises, ROADMAP Queue 2 item 3).
-    Residuals stay float32.  Dense tables take a float32 block only (a
-    bfloat16 dense block raises, ROADMAP Queue 2 item 4).
+    widens it on every read, on both engines, in every storage.  Residuals
+    stay float32.  Dense tables take a float32 block only (a bfloat16
+    dense block raises, ROADMAP Queue 2 item 4).
+
+    The radial return of the J2 family runs up to 40 scalar-solve trips in
+    the CUDA kernels, as in the reference's Pallas kernels, and 100 on the
+    "torch" engine and in the state update, as in its "soa" engine
+    (materials.kernel_solver_mode holds the plain twin of the kernels).
+
+    `solver` defaults to "cg" (FDM-preconditioned GMRES, which "iterative"
+    and "gmres" name too), where the reference's default is its dense LU
+    ("dense", ROADMAP Queue 1 item 6, not ported): a call that relies on
+    the reference's default runs an iterative solve here.
 
     `contact_tangent` is the contact linearization of a problem with
     contact blocks, as in the reference:
@@ -671,7 +678,6 @@ def make_step(
     if prob.fdm is None:
         raise _unported("problems without an FDM decomposition (block-Jacobi)", "Queue 1 item 6")
     kind = _tables(prob)[0]
-    storage = sweeps.tangent_storage(mat)
     # a compression the material does not declare would corrupt the Krylov
     # operator: a wrong request, as in the reference
     if tangent_storage == "sym" and not mat.tangent_major_symmetric:
@@ -686,23 +692,22 @@ def make_step(
             "(tangent_cauchy_decomp: sigma symmetric and a function of sym(F) only); "
             "the Cauchy-decomposition storage would silently corrupt the Krylov operator"
         )
-    # the tables and the material decide both; the reference's explicit
-    # names are accepted as aliases of what they decide
-    for opt, val, known, picked, item in (
-        ("matvec_impl", matvec_impl, ("sf", "dense"), kind, "Queue 2 item 2"),
-        ("tangent_storage", tangent_storage, ("cauchy", "sym", "full"), storage,
-         "Queue 2 item 3"),
-    ):
-        if val not in ("auto", *known):
-            raise ValueError(f"unknown {opt} {val!r}")
-        if val not in ("auto", picked):
-            raise _unported(f"{opt}={val!r} on a problem that decides {picked!r}", item)
-    if storage == "full" and mat.name() not in sweeps.FULL_KERNELS:
-        raise _unported(f"{mat.name()} with the full tangent", "Queue 1 item 2")
+    if tangent_storage not in ("auto", *sweeps.STORAGES):
+        raise ValueError(f"unknown tangent_storage {tangent_storage!r}")
+    # "auto": the strongest exact compression the material declares; "full"
+    # (exact for every material) is taken on any
+    storage = sweeps.tangent_storage(mat) if tangent_storage == "auto" else tangent_storage
+    # the tables decide the sweeps; the reference's explicit names are
+    # accepted as aliases of what they decide
+    if matvec_impl not in ("auto", "sf", "dense"):
+        raise ValueError(f"unknown matvec_impl {matvec_impl!r}")
+    if matvec_impl not in ("auto", kind):
+        raise _unported(f"matvec_impl={matvec_impl!r} on a problem that decides {kind!r}",
+                        "Queue 2 item 2")
+    if mat.name() not in (*sweeps.HYPER_KERNELS, *sweeps.CAUCHY_KERNELS, *sweeps.FULL_KERNELS):
+        raise _unported(f"{mat.name()} with the {storage} tangent", "Queue 1 item 2")
     if matvec_dtype not in ("f32", "bf16"):
         raise ValueError(f"unknown matvec_dtype {matvec_dtype!r}")
-    if matvec_dtype == "bf16" and storage == "full":
-        raise _unported("matvec_dtype='bf16' with the 'full' storage", "Queue 2 item 3")
     if matvec_dtype == "bf16" and kind == "dense":
         raise _unported("matvec_dtype='bf16' on dense tables (with the bfloat16 table "
                         "streams of Queue 1 item 10)", "Queue 2 item 4")
@@ -711,9 +716,6 @@ def make_step(
     frozen = contact_tangent == "frozen"
     contact_fns = _contact_fns_for(prob)
     res_sweep, asm_sweep, mv_sweep = _select_impl(prob, residual_impl)
-    on_kernels = res_sweep in (sweeps.residual_sf, sweeps.residual_dense)
-    if on_kernels and storage == "full" and float(mat.viscosity) > 0.0:
-        raise _unported("the viscous CUDA sweeps with the 'full' storage", "Queue 2 item 3")
 
     f = prob.facs
     dim, n_dof = prob.dim, prob.n_dof
@@ -774,7 +776,7 @@ def make_step(
         u_el, a_el, v_el = el_fields(aa, xa, va)
         res_t, Ck = asm_sweep(
             u_el, a_el, state, *tables, wq, mat, dt, rho,
-            v_el=v_el, mu_v=mu_v, c_dtype=c_dtype,
+            v_el=v_el, mu_v=mu_v, c_dtype=c_dtype, storage=storage,
         )
         r = scatter_el(res_t)
         c_jvps = []

@@ -16,8 +16,11 @@ elements (2D, p = 3), the viscous dense kernels (sym and cauchy, 2D and
 3D), the viscous hyperelastic sf kernels with a float32 or bfloat16 block
 (sweeps_sf_hyper.cu) and the J2-family sf and dense kernels at a few
 elements, the sf residual and assemble of J2 also on a partial tile and on
-full tiles with a ragged tail, against their plain versions.  Skips where
-no g++ is found.
+full tiles with a ragged tail, J2Simo's and J2Log's viscous and bfloat16
+full-storage kernels and the full block of J2, J2Linear and the
+hyperelastic materials, sf and dense, against their plain versions (the J2
+family's as the kernels' twin, the radial return at 40 trips:
+materials.kernel_solver_mode).  Skips where no g++ is found.
 """
 
 import ctypes
@@ -32,6 +35,7 @@ import torch
 
 import mimi_tpu_torch as mt
 from mimi_tpu_torch.fem import soa
+from mimi_tpu_torch.materials import kernel_solver_mode
 from mimi_tpu_torch.ops import build as kbuild
 from mimi_tpu_torch.ops import sweeps as tsw
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one thread)
@@ -193,6 +197,16 @@ def test_source_compiles_as_host_cpp(built, source):
     assert rc == 0, f"g++ could not build {source}:\n{log[-4000:]}"
 
 
+def test_only_the_dense_finite_source_builds_without_fused_multiply_add():
+    """nvcc builds the dense finite-strain kernels with -fmad=false (each
+    product and sum rounded on its own, as their plain twin's torch
+    operations round them) and every other source with its default."""
+    for src in kbuild.SOURCES:
+        flags = kbuild.flags_of(src)
+        assert flags[: len(kbuild.FLAGS)] == kbuild.FLAGS
+        assert ("-fmad=false" in flags) == (os.path.basename(src) == "sweeps_dense_finite.cu")
+
+
 def _material(name):
     mat = getattr(mt, name)()
     mat.density = 1.0
@@ -235,21 +249,23 @@ def test_dense_finite_kernels_on_cpu_tensors(lib, name):
     mat_id, _, leaves = tsw.FULL_KERNELS[name]
     st = [_ptr(state[k]) for k in leaves] + [_ptr(None)] * (4 - len(leaves))
     prm = tsw._j2_params(mat, dt, rho, family=tuple(tsw.FULL_KERNELS))
-    head = (_ptr(u_el), _ptr(a_el), _ptr(dN), _ptr(N), _ptr(wq), *st)
+    head = (_ptr(u_el), _ptr(a_el), _ptr(None), _ptr(dN), _ptr(N), _ptr(wq), *st)
     shape = (ctypes.c_int(2), ctypes.c_int(3), ctypes.c_longlong(E), ctypes.c_void_p(None))
     out, out_a = torch.empty(2, nd, E), torch.empty(2, nd, E)
     C = torch.empty(16, nq, E)
-    assert lib.mimi_residual_dense_finite(*head, _ptr(out), prm, mat_id, *shape) == 0
-    assert lib.mimi_assemble_dense_finite(*head, _ptr(out_a), _ptr(C), prm, mat_id, *shape) == 0
+    tail = (prm, ctypes.c_float(0.0), mat_id)
+    assert lib.mimi_residual_dense_finite(*head, _ptr(out), *tail, *shape) == 0
+    assert lib.mimi_assemble_dense_finite(*head, _ptr(out_a), _ptr(C), *tail, *shape) == 0
     args = (u_el, a_el, state, dN, N, wq, mat, dt, rho)
-    y = tsw.residual_dense_plain(*args)
-    y_a, C_p = tsw.assemble_dense_plain(*args)
+    with kernel_solver_mode():
+        y = tsw.residual_dense_plain(*args)
+        y_a, C_p = tsw.assemble_dense_plain(*args)
     assert float((out - y).abs().max()) <= 1e-5 * float(y.abs().max())
     assert float((out_a - y_a).abs().max()) <= 1e-5 * float(y_a.abs().max())
     assert float((C - C_p).abs().max()) <= 1e-5 * float(C_p.abs().max())
     mv = torch.empty(2, nd, E)
     assert lib.mimi_matvec_dense_full(_ptr(w_el), _ptr(dN), _ptr(N), _ptr(wq), _ptr(C_p),
-                                      _ptr(mv), rho, fac0, *shape) == 0
+                                      _ptr(mv), rho, fac0, 0, 0.0, *shape) == 0
     mv_p = tsw.matvec_dense_plain(w_el, dN, N, wq, C_p, rho, fac0, storage="full")
     assert float((mv - mv_p).abs().max()) <= 1e-5 * float(mv_p.abs().max())
 
@@ -312,11 +328,12 @@ def test_dense_viscous_kernels_on_cpu_tensors(lib, case):
     out, out_a = torch.empty(dim, nd, E), torch.empty(dim, nd, E)
     C = torch.empty(tsw.n_planes(storage, dim), nq, E)
     assert fns[0](*head, _ptr(out), *tail, *shape) == 0
-    assert fns[1](*head, _ptr(out_a), _ptr(C), *tail, *shape) == 0
+    assert fns[1](*head, _ptr(out_a), _ptr(C), 0, *tail, *shape) == 0  # not the full block
     args = (u_el, a_el, state, dN, N, wq, mat, dt, rho)
-    y = tsw.residual_dense_plain(*args, v_el=v_el, mu_v=mu_v)
-    y_a, C_p = tsw.assemble_dense_plain(*args, v_el=v_el, mu_v=mu_v)
-    y0 = tsw.residual_dense_plain(*args)
+    with kernel_solver_mode():
+        y = tsw.residual_dense_plain(*args, v_el=v_el, mu_v=mu_v)
+        y_a, C_p = tsw.assemble_dense_plain(*args, v_el=v_el, mu_v=mu_v)
+        y0 = tsw.residual_dense_plain(*args)
     assert float((out - y).abs().max()) <= 1e-5 * float(y.abs().max())
     assert float((out_a - y_a).abs().max()) <= 1e-5 * float(y_a.abs().max())
     assert float((y0 - y).abs().max()) > 1e-2 * float(y.abs().max())
@@ -357,7 +374,7 @@ def test_sf_hyper_viscous_kernels_on_cpu_tensors(lib, name, bf16):
     out, out_a = torch.empty(3, 27, E), torch.empty(3, 27, E)
     C = torch.empty(45, 64, E, dtype=c_dtype)
     assert lib.mimi_residual_sf_hyper(*head, _ptr(out), *tail) == 0
-    assert lib.mimi_assemble_sf_hyper(*head, _ptr(out_a), _ptr(C), int(bf16), *tail) == 0
+    assert lib.mimi_assemble_sf_hyper(*head, _ptr(out_a), _ptr(C), int(bf16), 0, *tail) == 0
     args = (u_el, a_el, None, tabs, jinv, wq, mat, 0.01, rho)
     y = tsw.residual_sf_plain(*args, v_el=v_el, mu_v=mu_v)
     y_a, C_p = tsw.assemble_sf_plain(*args, v_el=v_el, mu_v=mu_v)
@@ -478,65 +495,64 @@ def _plastic_inputs(prob, rng, amplitude):
     return u_el, a_el, v_el, w_el, state
 
 
-def _hold_host_sweeps(sw, prob, f, visc, bf16, matvec=True):
-    """The material's residual, assemble and (with `matvec`) matvec kernels
-    of the host build through the wrappers' own marshalling against the
-    plain versions: residuals and matvec at 1e-5 of scale, float32 planes
-    at 1e-5 of their max, bfloat16 planes within one bfloat16 step (2^-7)
-    of the plain float32 planes rounded to bfloat16."""
+def _hold_host_sweeps(sw, prob, f, visc, bf16, matvec=True, storage=None):
+    """The material's residual, assemble (the block in `storage`, default
+    the material's own) and (with `matvec`) matvec kernels of the host
+    build through the wrappers' own marshalling against the plain versions
+    (the J2 family's return at the kernels' 40 trips): residuals and matvec
+    at 1e-5 of scale, float32 planes at 1e-5 of their max, bfloat16 planes
+    within one bfloat16 step (2^-7) of the plain float32 planes rounded to
+    bfloat16."""
     mat, wq = prob.material, prob.wdet_t
     u_el, a_el, v_el, w_el, state = f
     dt, rho, fac0 = 0.05, float(mat.density), 1e-6
     mu_v = 100.0 if visc else 0.0
     vk = dict(v_el=v_el, mu_v=mu_v) if visc else {}
     c_dtype = torch.bfloat16 if bf16 else torch.float32
-    storage = sw.tangent_storage(mat)
+    storage = storage or sw.tangent_storage(mat)
     if prob.sf is not None:
         tables = (prob.sf["tables"], prob.sf["jinv"])
-        sweep = {"cauchy": sw._sf_cauchy, "full": sw._sf_finite}[storage]
-        extra = (vk.get("v_el"), mu_v) if storage == "cauchy" else (vk.get("v_el"),)
-        y = sweep(False, u_el, a_el, state, *tables, wq, mat, dt, rho, *extra)
-        y_a, C = sweep(True, u_el, a_el, state, *tables, wq, mat, dt, rho, *extra, c_dtype)
+        sweep, mv_kernel = sw._sf_sweep, sw._sf_matvec
         plain = (sw.residual_sf_plain, sw.assemble_sf_plain, sw.matvec_sf_plain)
         kind = "sf"
     else:
         tables = (prob.dense["dN_t"], prob.dense["N_t"])
-        y = sw._dense_sweep(False, u_el, a_el, state, *tables, wq, mat, dt, rho, **vk)
-        y_a, C = sw._dense_sweep(True, u_el, a_el, state, *tables, wq, mat, dt, rho, **vk)
+        sweep = sw._dense_sweep
         plain = (sw.residual_dense_plain, sw.assemble_dense_plain, sw.matvec_dense_plain)
         kind = "dense"
     args = (u_el, a_el, state, *tables, wq, mat, dt, rho)
-    y_p = plain[0](*args, **vk)
-    y_ap, C_p = plain[1](*args, **vk)
+    y = sweep(False, *args, **vk)
+    ak = dict(vk, storage=storage, **({"c_dtype": c_dtype} if kind == "sf" else {}))
+    y_a, C = sweep(True, *args, **ak)
+    with kernel_solver_mode():
+        y_p = plain[0](*args, **vk)
+        y_ap, C_p = plain[1](*args, **ak)
+    assert C.shape[0] == sw.n_planes(storage, prob.dim)
     assert float((y - y_p).abs().max()) <= 1e-5 * float(y_p.abs().max())
     assert float((y_a - y_ap).abs().max()) <= 1e-5 * float(y_ap.abs().max())
-    scale = float(C_p.abs().max())
+    scale = float(C_p.float().abs().max())
     if bf16:
         assert C.dtype == torch.bfloat16
-        assert float((C.float() - C_p.to(torch.bfloat16).float()).abs().max()) <= 2.0**-7 * scale
+        _, C32 = sweep(True, *args, **dict(ak, c_dtype=torch.float32))
+        assert torch.equal(C, C32.to(torch.bfloat16))
+        assert float((C.float() - C_p.float()).abs().max()) <= 2.0**-7 * scale
     else:
         assert float((C - C_p).abs().max()) <= 1e-5 * scale
     p = 2 if kind == "sf" else round(tables[0].shape[0] ** (1.0 / prob.dim)) - 1
-    names = sw.kernel_counters(mat, kind, prob.dim, p, visc, bf16)
+    names = sw.kernel_counters(mat, kind, prob.dim, p, visc, bf16, storage)
     assert sw.LAUNCHES[names[0]] == 1 and sw.LAUNCHES[names[1]] == 1
     if not matvec:
         return C_p
     Cb = C_p.to(c_dtype)
     fm = 50.0 if visc else None
     if kind == "sf":
-        mv = torch.empty_like(w_el)
-        assert lib_call(sw, "mimi_matvec_sf", _ptr(w_el), *[_ptr(t) for t in tables[0]],
-                        _ptr(tables[1]), _ptr(wq), _ptr(Cb), int(bf16), _ptr(mv), rho, fac0,
-                        int(visc), fm or 0.0, ctypes.c_longlong(prob.n_el)) == 0
+        mv = mv_kernel(w_el, *tables, wq, Cb, rho, fac0, fm, storage)
     else:
         mv = sw._dense_matvec(w_el, *tables, wq, Cb, rho, fac0, storage, fm)
     mv_p = plain[2](w_el, *tables, wq, Cb, rho, fac0, fm, storage=storage)
     assert float((mv - mv_p).abs().max()) <= 1e-5 * float(mv_p.abs().max())
+    assert sw.LAUNCHES[sw.matvec_counter(kind, storage, prob.dim, p, visc, bf16)] == 1
     return C_p
-
-
-def lib_call(sw, name, *args):
-    return getattr(kbuild.load(), name)(*args, ctypes.c_void_p(None))
 
 
 J2LIN_CASES = ([("sf", 3, 2, visc, bf16) for visc in (False, True) for bf16 in (False, True)]
@@ -607,3 +623,72 @@ def test_j2_sf_tiles_on_cpu_tensors(host_sweeps, spans, visc, bf16):
     share = float(prob.material._return_map(F, f[4], 0.05)[4].float().mean())
     assert 0.1 < share < 0.9, share
     _hold_host_sweeps(host_sweeps, prob, f, visc, bf16)
+
+
+def _press_law(name, viscosity=100.0):
+    """J2Simo or J2Log with the contact press's Johnson-Cook law (A 700,
+    B 1400), E 1e6, density 1e3 and viscosity."""
+    mat = _material(name)
+    mat.hardening.A, mat.hardening.B = 700.0, 1400.0
+    mat.density, mat.viscosity = 1e3, viscosity
+    mat.set_young_poisson(1e6, 0.3)
+    return mat
+
+
+FINITE_CASES = ([("sf", 3, 2, name, visc, bf16) for name in tsw.FULL_KERNELS
+                 for visc, bf16 in ((True, False), (True, True), (False, True))]
+                + [("dense", d, p, name, True, False) for d, p in tsw.DENSE_SHAPES
+                   for name in tsw.FULL_KERNELS])
+
+
+@pytest.mark.parametrize(
+    "kind, dim, deg, name, visc, bf16", FINITE_CASES,
+    ids=[f"{n}_{k}_{d}d_p{p}{'_visc' if v else ''}{'_bf16' if b else ''}"
+         for k, d, p, n, v, b in FINITE_CASES])
+def test_finite_viscous_bf16_kernels_on_cpu_tensors(host_sweeps, kind, dim, deg, name, visc,
+                                                    bf16):
+    """J2Simo's and J2Log's viscous residual, their full assemble viscous or
+    with a bfloat16 block and the matvec on it, sf and at every dense shape,
+    on a random plastic history of the press's law, against the plain
+    versions; the counters are the new instantiations'."""
+    prob = _host_problem(kind, dim, deg, _press_law(name))
+    f = _plastic_inputs(prob, np.random.default_rng(9), 0.002 if kind == "sf" else 0.004)
+    _hold_host_sweeps(host_sweeps, prob, f, visc, bf16)
+
+
+def _hyper_inputs(prob, rng):
+    nd = 27 if prob.sf else prob.dense["dN_t"].shape[0]
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
+    return tuple(f32(s * rng.standard_normal((prob.dim, nd, prob.n_el)))
+                 for s in (0.02, 1.0, 1.0, 1.0)) + (None,)
+
+
+OTHERS = ("J2", "J2Linear", "CompressibleOgdenNeoHookean", "StVenantKirchhoff")
+FULL_OTHER_CASES = ([("sf", 3, 2, name, visc, bf16) for name in OTHERS
+                     for visc in (False, True) for bf16 in (False, True)]
+                    + [("dense", d, p, name, visc, False) for d, p in tsw.DENSE_SHAPES
+                       for name in OTHERS for visc in (False, True)])
+
+
+@pytest.mark.parametrize(
+    "kind, dim, deg, name, visc, bf16", FULL_OTHER_CASES,
+    ids=[f"{n}_{k}_{d}d_p{p}{'_visc' if v else ''}{'_bf16' if b else ''}"
+         for k, d, p, n, v, b in FULL_OTHER_CASES])
+def test_full_block_of_other_materials_on_cpu_tensors(host_sweeps, kind, dim, deg, name, visc,
+                                                      bf16):
+    """The full block (81 planes in 3D, 16 in 2D) that J2, J2Linear and the
+    hyperelastic materials write on request, sf and at every dense shape,
+    inviscid and viscous, float32 and (sf) bfloat16, and the full matvec on
+    it, against the plain full planes: J2 and J2Linear on a random plastic
+    history, the hyperelastic materials at strains of a few percent."""
+    mat = _j2_family(name, "pow") if name.startswith("J2") else _hyper(name, -1.0)
+    if name == "J2":
+        mat = _material("J2")
+        mat.hardening.A = 5.0
+    prob = _host_problem(kind, dim, deg, mat)
+    rng = np.random.default_rng(10)
+    if mat.has_state:
+        f = _plastic_inputs(prob, rng, 0.002 if kind == "sf" else 0.004)
+    else:
+        f = _hyper_inputs(prob, rng)
+    _hold_host_sweeps(host_sweeps, prob, f, visc, bf16, storage="full")

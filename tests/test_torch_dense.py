@@ -430,10 +430,18 @@ def test_step_on_converted_problem_matches_port_build(problems):
 
 def test_unported_dense_options_raise(problems):
     _, port = problems
-    for option in ({"tangent_storage": "full"}, {"matvec_dtype": "bf16"},
-                   {"matvec_impl": "sf"}):
+    for option in ({"matvec_dtype": "bf16"}, {"matvec_impl": "sf"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             mt.make_step(port, 0.05, **option)
+    # the full block of the neo-Hookean dP/dF is ported on dense tables: its
+    # Newton system is the symmetric block's to rounding
+    carry = mt.initial_carry(port)
+    ns = [mt.make_step(port, 0.05, tangent_storage=s).newton_system(carry)
+          for s in ("full", "sym")]
+    w = torch.tensor(np.random.default_rng(4).standard_normal(ns[0]["r"].shape))
+    jw = [n["J_apply"](w) for n in ns]
+    assert torch.equal(ns[0]["r"], ns[1]["r"])
+    assert float((jw[0] - jw[1]).abs().max()) <= 1e-12 * float(jw[1].abs().max())
     # the neo-Hookean sigma is no function of sym(F) alone: a wrong request,
     # as in the reference
     with pytest.raises(ValueError, match="Cauchy-decomposition"):

@@ -375,9 +375,12 @@ def _meta_args(name, dim=2, p=3, n_q=25):
 @pytest.mark.parametrize("what", ["viscous", "bf16", "shape"])
 def test_dense_full_unported_raise(what):
     """What stays unported of dense + full raises NotImplementedError with
-    its ROADMAP item at the wrapper, before any launch: the viscous sweeps
-    and a bfloat16 block (Queue 2 item 3), tables of a degree the kernels
-    are not compiled for (item 8)."""
+    its ROADMAP item at the wrapper, before any launch: a bfloat16 block
+    (Queue 2 item 4, with the bfloat16 table streams), tables of a degree
+    the kernels are not compiled for (item 8).  The viscous sweeps are
+    ported: the wrappers take them up to the device check, and a viscous
+    J2Simo step on the golden cantilever's dense tables runs on the CPU,
+    its first Newton residual changed by the viscous flux."""
     if what == "shape":
         w, st, dN, N, wq, mat = _meta_args("J2Log", dim=3, p=3, n_q=125)
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 8"):
@@ -387,11 +390,23 @@ def test_dense_full_unported_raise(what):
         return
     w, st, dN, N, wq, mat = _meta_args("J2Simo")
     if what == "viscous":
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 3"):
+        with pytest.raises(ValueError, match="CUDA sweep called on a meta tensor"):
             tsw.residual_dense(w, w, st, dN, N, wq, mat, DT, RHO, v_el=w, mu_v=1.0)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 3"):
+        with pytest.raises(ValueError, match="CUDA sweep called on a meta tensor"):
             tsw.matvec_dense(w, dN, N, wq, _meta(16, 25, 8), RHO, FAC0, fac1_mu_v=0.1,
                              storage="full")
+        mats = [_material(mt, "J2Simo") for _ in range(2)]
+        mats[0].viscosity = 1.0
+        probs = [mt.build_problem(BALKEN, 2, 1, m, [(2, 0), (2, 1)], {1: -3.0}, rho_inf=0.5,
+                                  device="cpu") for m in mats]
+        assert probs[0].dense is not None
+        carry = mt.initial_carry(probs[0])
+        carry["v"] = torch.ones_like(carry["v"]) * probs[0].free
+        steps = [mt.make_step(p, 0.05) for p in probs]
+        r = [s.newton_system(carry)["r"] for s in steps]
+        assert float((r[0] - r[1]).abs().max()) > 1e-6 * float(r[1].abs().max())
+        out = steps[0](carry)
+        assert out["newton"]["finite"] and out["newton"]["iters"] > 0
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 3"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 4"):
             tsw.assemble_dense(w, w, st, dN, N, wq, mat, DT, RHO, c_dtype=torch.bfloat16)

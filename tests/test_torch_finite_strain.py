@@ -434,6 +434,20 @@ def test_unported_sf_full_options_raise(small, option, item):
         with pytest.raises(ValueError, match="major-symmetric"):
             mt.make_step(small, 0.05, **option)
         return
+    if option == {"matvec_dtype": "bf16"}:
+        # ported: the full block rounded to bfloat16; the step runs, and
+        # its J w differs from the float64 block's by the block's rounding
+        carry = mt.initial_carry(small)
+        steps = [mt.make_step(small, 0.05, matvec_dtype=d) for d in ("bf16", "f32")]
+        ns = [s.newton_system(carry) for s in steps]
+        w = torch.randn(ns[0]["r"].shape, generator=torch.Generator().manual_seed(2),
+                        dtype=ns[0]["r"].dtype)
+        jw = [n["J_apply"](w) for n in ns]
+        assert torch.equal(ns[0]["r"], ns[1]["r"])
+        assert 0.0 < float((jw[0] - jw[1]).abs().max()) <= 2.0**-7 * float(jw[1].abs().max())
+        out = steps[0](carry)
+        assert out["newton"]["finite"] and out["newton"]["iters"] > 0
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 2 item {item}"):
         mt.make_step(small, 0.05, **option)
 

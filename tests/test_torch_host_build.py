@@ -237,6 +237,20 @@ def test_unported_step_options_raise(problems, option):
         with pytest.raises(ValueError, match="major-symmetric"):
             mt.make_step(port, 0.05, **option)
         return
+    if option == {"tangent_storage": "full"}:
+        # ported: the full dP/dF of J2's closed-form tangent, as the
+        # reference takes it; the step's Newton system is the Cauchy
+        # storage's to rounding
+        carry = mt.initial_carry(port)
+        ns = [mt.make_step(port, 0.05, tangent_storage=s).newton_system(carry)
+              for s in ("full", "cauchy")]
+        w = torch.tensor(np.random.default_rng(3).standard_normal(ns[0]["r"].shape))
+        jw = [n["J_apply"](w) for n in ns]
+        assert torch.equal(ns[0]["r"], ns[1]["r"])
+        assert float((jw[0] - jw[1]).abs().max()) <= 1e-12 * float(jw[1].abs().max())
+        out = mt.make_step(port, 0.05, tangent_storage="full")(carry)
+        assert out["newton"]["finite"] and out["newton"]["iters"] > 0
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mt.make_step(port, 0.05, **option)
 

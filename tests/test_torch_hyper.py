@@ -397,6 +397,18 @@ def test_unported_sf_sym_options_raise(small, option):
         with pytest.raises(ValueError, match="Cauchy-decomposition"):
             mt.make_step(small, 0.05, **option)
         return
+    if option == {"tangent_storage": "full"}:
+        # ported: the 81 planes of the closed-form dP/dF; the Newton system
+        # is the symmetric block's to rounding (dP/dF is major-symmetric)
+        carry = mt.initial_carry(small)
+        ns = [mt.make_step(small, 0.05, tangent_storage=s).newton_system(carry)
+              for s in ("full", "sym")]
+        w = torch.randn(ns[0]["r"].shape, generator=torch.Generator().manual_seed(1),
+                        dtype=ns[0]["r"].dtype)
+        jw = [n["J_apply"](w) for n in ns]
+        assert torch.equal(ns[0]["r"], ns[1]["r"])
+        assert float((jw[0] - jw[1]).abs().max()) <= 1e-12 * float(jw[1].abs().max())
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item"):
         mt.make_step(small, 0.05, **option)
 

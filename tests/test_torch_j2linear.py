@@ -272,14 +272,18 @@ def test_three_cube_steps_match_reference_soa(cube):
 def test_sym_storage_is_a_wrong_request(cube):
     """As the reference (tests/test_pallas.py:537-554): the symmetric
     storage on J2Linear, whose dP/dF is not major-symmetric, is a
-    ValueError; the full storage, exact but weaker than the Cauchy one, is
-    not ported."""
+    ValueError; the full storage, exact but weaker than the Cauchy one,
+    runs, its Newton system the Cauchy storage's to rounding."""
     _, port = cube
     with pytest.raises(ValueError, match="major-symmetric"):
         mt.make_step(port, DT, solver="cg", tangent_storage="sym")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 3"):
-        mt.make_step(port, DT, tangent_storage="full")
-    assert callable(mt.make_step(port, DT, tangent_storage="cauchy"))
+    carry = mt.initial_carry(port)
+    ns = [mt.make_step(port, DT, tangent_storage=s).newton_system(carry)
+          for s in ("full", "cauchy")]
+    w = torch.tensor(np.random.default_rng(5).standard_normal(ns[0]["r"].shape))
+    jw = [n["J_apply"](w) for n in ns]
+    assert torch.equal(ns[0]["r"], ns[1]["r"])
+    assert float((jw[0] - jw[1]).abs().max()) <= 1e-12 * float(jw[1].abs().max())
 
 
 def test_counters_name_j2linear_instantiations():

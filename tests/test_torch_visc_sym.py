@@ -285,8 +285,7 @@ def test_unported_branches_still_raise(press):
     """What stays unported raises NotImplementedError naming its ROADMAP
     item, before any launch (meta tensors: no device is asked): a
     bfloat16 block on dense tables (Queue 2 item 4, in make_step and at
-    the dense wrappers), the viscous or bfloat16 sf sweeps with the full
-    storage (item 3)."""
+    the dense wrappers), in every storage."""
     dense = mt.build_problem(os.path.join(os.path.dirname(MESH), "two-patch-square.mesh"), 1, 1,
                              _material(mt), [(2, 0), (2, 1)], {}, rho_inf=0.5, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 4"):
@@ -299,12 +298,10 @@ def test_unported_branches_still_raise(press):
         tsw.assemble_dense(w, w, None, dN, N, wq, mat, DT, RHO, c_dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 4"):
         tsw.matvec_dense(w, dN, N, wq, _meta(10, nq, E).to(torch.bfloat16), RHO, FAC0)
-    simo = mt.J2Simo()
-    tabs, jinv, wq3, w3 = [_meta(4, 3, E)] * 6, _meta(3, 3, 64, E), _meta(64, E), _meta(3, 27, E)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 3"):
-        tsw.residual_sf(w3, w3, None, tabs, jinv, wq3, simo, DT, RHO, v_el=w3, mu_v=1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 3"):
-        tsw.matvec_sf(w3, tabs, jinv, wq3, _meta(81, 64, E), RHO, FAC0, 0.1, storage="full")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 3"):
-        tsw.matvec_sf(w3, tabs, jinv, wq3, _meta(81, 64, E).to(torch.bfloat16), RHO, FAC0,
-                      storage="full")
+    for storage, n in (("full", 16), ("sym", 10)):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 4"):
+            tsw.assemble_dense(w, w, None, dN, N, wq, mat, DT, RHO, c_dtype=torch.bfloat16,
+                               storage=storage)
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 4"):
+            tsw.matvec_dense(w, dN, N, wq, _meta(n, nq, E).to(torch.bfloat16), RHO, FAC0,
+                             storage=storage)
