@@ -120,6 +120,20 @@ points that reach the cap.  The kernels run the radial return at most 40
 trips, as the reference's Pallas kernels do; every kernel is held against
 its plain version run as its twin (materials.kernel_solver_mode).
 
+And the cubic (p = 3) 3D sweeps (phases 54-57): path H, the body-force
+path on the reference's own cubic mesh (cube-nurbs-3.mesh, 4 nodes and 5
+Gauss points per axis) at 48^3, 397,953 unknowns, through the sf kernels
+of the _p3 sources (1 warm + 2 timed steps); path I, the neo-Hookean
+two-patch cube of phases 13-16 elevated to p = 3 at 2 x 38^3, 408,483
+unknowns, through the tiled dense (3, 3) kernels (1 warm + 1 timed step).
+Every p = 3 instantiation against its plain version on random input (sf at
+16^3 and on a ragged tile of 33 elements, dense at 2 x 8^3), each path's
+kernels at its state (the plain versions on four slices of the elements:
+at path I's size they would not fit the card whole), their rows, a
+profiled step, one step of each path's problem held kernel path against
+plain path at 16^3 / 2 x 8^3.  ptxas's gate holds the p = 3 J2-family and
+hyperelastic sf residual instantiations too.
+
     python3 chip_smoke.py
 
 Exits non-zero without a CUDA device, outside a checkout, or when any
@@ -303,6 +317,27 @@ LAW_AMPLITUDE = 0.1
 # step, a bfloat16 block.  Both tools start touching the body (the
 # example's 1.02 leaves four steps untouched), so the warm step and the
 # timed steps are engaged.
+# Phases 54-57: the cubic (p = 3) 3D sweeps.  Path H: the body-force cube of
+# the main path (J2 Johnson-Cook A 70 / B 140, face 1 clamped, body force
+# -3, dt 0.05, 4 line-search Newton iterations, FDM-GMRES(30, 40) at 1e-3)
+# on the reference's own cubic mesh, cube-nurbs-3.mesh
+# (tests/test_mesh_refinement.py:47-54), refined to 48^3 = 110,592
+# elements of 64 dofs and 125 points, 397,953 unknowns: the sf kernels at
+# (p + 1, n_g) = (4, 5), 1 warm + P3_TIMED steps.  Path I: the neo-Hookean
+# two-patch cube of phases 13-16 (tests/test_multipatch.py:123-163: E 2100,
+# nu 0.3, the x = 0 face clamped, body force -5) elevated by 2 to p = 3 at
+# 2 x 38^3 = 109,744 elements, 408,483 unknowns, the body-force path's step
+# settings: the dense (3, 3) kernels with the symmetric block and the
+# additive-Schwarz FDM, 1 warm + P3_DENSE_TIMED steps.  At path I's size
+# the plain versions would hold (nd, dim, dim, n_q, n_el) products of
+# ~32 GB: the sweeps are per element, so on both paths their plain twins run
+# on P3_PARTS contiguous slices of the elements, the kernels' outputs held
+# slice by slice and the plain version's time summed over the slices.
+MESH3 = os.path.join(ROOT, "tests", "data", "cube-nurbs-3.mesh")
+P3_TIMED = 2
+P3_DENSE_TIMED = 1  # path I's steps take ~10x path H's
+P3_PARTS = 4
+P3_RAGGED = 33  # the sf residual kernel's tiles of 32: one full, one of 1
 TWO_SQUARE = os.path.join(ROOT, "tests", "data", "two-patch-square.mesh")
 PRESS_2D_SUBDIVIDE = 9  # 2 x 512^2 elements
 PRESS_2D_HELD = 6  # the held step: 2 x 64^2
@@ -422,6 +457,8 @@ MATERIAL_OPS = {
     ("j2", 3): (_J2_STRESS, _J2_TANGENT, _CAUCHY_APPLY), ("j2", 2): (110, 60, 100),
     ("j2lin", 3): (250, 200, _CAUCHY_APPLY), ("j2lin", 2): (125, 70, 100),
     ("nh", 2): (60, 150, 36), ("stvk", 2): (40, 160, 36),
+    ("nh", 3): (_NH_STRESS, _NH_TANGENT, _SYM_APPLY),
+    ("stvk", 3): (_STVK_STRESS, _STVK_TANGENT, _SYM_APPLY),
     ("simo", 3): (_SIMO_STRESS, 9 * _SIMO_PASS, _FULL_APPLY),
     ("log", 3): (_LOG_STRESS, 9 * _LOG_PASS, _FULL_APPLY),
     ("simo", 2): (150, 4 * 450, 32), ("log", 2): (800, 4 * 2400, 32),
@@ -565,10 +602,13 @@ def check_residual_ptxas(kbuild):
         if spilled and ("J2Mat" in name or "Hyper" in name):
             fail(f"{name} spills {spilled} B")
     # the other kernels with the full block (dense residual and matvec, sf
-    # matvec): printed, not held
-    for name, v in sorted(every.items()):
-        if "FullStorage" in name and name not in ents:
-            name = re.sub(r"\((int|bool)\)", "", name.split("(const float")[0])
+    # matvec) and those at p = 3 (the sf matvec at SfShape<4, 5>, the tiled
+    # dense (3, 3) kernels): printed, not held
+    for full_name, v in sorted(every.items()):
+        # cu++filt writes template arguments as (int)4, (bool)0
+        name = re.sub(r"\((int|bool)\)", "", full_name.split("(const float")[0])
+        p3 = "SfShape<4, 5>" in name or "dense_tile_kernel<3, 3" in name
+        if ("FullStorage" in name or p3) and full_name not in ents:
             say(f"[2. ptxas] {name}: {v.get('registers')} registers, {v.get('smem')} B smem, "
                 f"spill stores {v.get('spill_stores')} B, loads {v.get('spill_loads')} B")
 
@@ -1602,7 +1642,7 @@ def _elements(x, sl):
 
 
 def compare_kernels(torch, sweeps, prob, u_el, a_el, w_el, state, dt, label, parts=None,
-                    res_bar=1e-5):
+                    res_bar=1e-5, whole_scale=False):
     """The problem's material's three kernels (sum-factorized or dense
     tables) against their plain versions on the same inputs; returns
     ({kernel: max_abs_err}, the plain tangent block) and fails past the
@@ -1614,7 +1654,9 @@ def compare_kernels(torch, sweeps, prob, u_el, a_el, w_el, state, dt, label, par
     NaN in the kernel's output too (masked_err).  For a material with a
     yield surface, points at it where the kernel takes the other branch
     (YIELD_BAND) are counted and left out of the planes' bar
-    (planes_rel)."""
+    (planes_rel).  With `whole_scale` the parts only bound the plain
+    versions' memory: every output and the planes are held on the scale
+    of all elements, as without parts."""
     mat, wq = prob.material, prob.wdet_t
     tables, (res_k, asm_k, mv_k), (res_p, asm_p, mv_p) = kernel_fns(sweeps, prob)
     storage = sweeps.tangent_storage(mat)
@@ -1629,22 +1671,29 @@ def compare_kernels(torch, sweeps, prob, u_el, a_el, w_el, state, dt, label, par
     if C_k.shape[0] != sweeps.n_planes(storage, prob.dim):
         fail(f"{n_asm} wrote planes of shape {tuple(C_k.shape)}")
     C_p = torch.empty_like(C_k)
+    whole = {n_res: [0.0, 0.0], n_asm: [0.0, 0.0]}  # (max|err|, scale) over the parts
     for part, sl in (parts or {"": slice(None)}).items():
         tag = f"[{label}{', ' + part if part else ''}]"
         p_args = args if part == "" else _elements(args, sl)
         err, scale = masked_err(torch, y_k[..., sl], res_p(*p_args), n_res)
         errs[n_res] = max(errs[n_res], err)
+        whole[n_res] = [max(err, whole[n_res][0]), max(scale, whole[n_res][1])]
         say(f"{tag} {n_res}: max|err| {err:.3e} scale {scale:.3e} ({err / scale:.3e}); "
             f"non-finite entries {int(torch.isnan(y_k[..., sl]).sum())}")
         # float32: dense F to the bit (no FMA, the plain version's order),
         # the quadrature sums in another order; the materials' float32
         # bodies (J2's to the bit, the finite-strain ones in their own
         # rounding)
-        if not err <= res_bar * scale:
+        if not whole_scale and not err <= res_bar * scale:
             fail(f"{n_res} disagrees with plain ({err} > {res_bar} * {scale}) {tag}")
         ya_p, C_p[..., sl] = asm_p(*p_args)
         err, scale = masked_err(torch, ya_k[..., sl], ya_p, f"{n_asm} residual")
+        whole[n_asm] = [max(err, whole[n_asm][0]), max(scale, whole[n_asm][1])]
         masked_err(torch, C_k[..., sl], C_p[..., sl], f"{n_asm} planes")
+        del ya_p
+        if whole_scale:
+            say(f"{tag} {n_asm}: residual max|err| {err:.3e} scale {scale:.3e}")
+            continue
         rel, dmax, surface, _ = planes_rel(torch, sweeps, prob, C_k[..., sl], C_p[..., sl], 1e-4,
                                         p_args, f"{n_asm} {tag}")
         errs[n_asm] = max(errs[n_asm], err, dmax)
@@ -1656,7 +1705,20 @@ def compare_kernels(torch, sweeps, prob, u_el, a_el, w_el, state, dt, label, par
         # plain version's forward-mode planes, float32
         if not rel <= 1e-4:
             fail(f"{n_asm} tangent disagrees (plane err {rel} of its group's max) {tag}")
-        del ya_p
+    if whole_scale:
+        (err_r, scale_r), (err_a, scale_a) = whole[n_res], whole[n_asm]
+        rel, dmax, surface, _ = planes_rel(torch, sweeps, prob, C_k, C_p, 1e-4, args,
+                                           f"{n_asm} [{label}]")
+        errs[n_asm] = max(err_a, dmax)
+        say(f"[{label}] all elements: {n_res} max|err| {err_r:.3e} scale {scale_r:.3e} "
+            f"({err_r / scale_r:.3e}); {n_asm} residual max|err| {err_a:.3e} scale "
+            f"{scale_a:.3e}; {C_k.shape[0]} planes worst err vs group max {rel:.3e}{surface}")
+        if not err_r <= res_bar * scale_r:
+            fail(f"{n_res} disagrees with plain ({err_r} > {res_bar} * {scale_r}) [{label}]")
+        if not err_a <= 1e-4 * scale_a:
+            fail(f"{n_asm} residual disagrees ({err_a} > 1e-4 * {scale_a}) [{label}]")
+        if not rel <= 1e-4:
+            fail(f"{n_asm} tangent disagrees (plane err {rel} of its group's max) [{label}]")
     del y_k, ya_k, C_k
     mv_args = (w_el, *tables, wq, C_p, rho, fac0)
     y_mv = mv_k(*mv_args, storage=storage)
@@ -1741,8 +1803,14 @@ def path_residual(torch, sweeps, sh, prob, carry, gen, label):
     return err / scale
 
 
-# the sf kernels' source by tangent storage
+# the sf kernels' source by tangent storage (p = 2; sf_source)
 SF_SOURCE = {"cauchy": SOURCE[0], "full": SOURCE[3], "sym": SOURCE[6]}
+
+
+def sf_source(storage, p):
+    """The source of the sf kernels of `storage` at degree p: the _p3
+    twins at p = 3."""
+    return SF_SOURCE[storage].replace(".cu", "_p3.cu") if p == 3 else SF_SOURCE[storage]
 
 
 def time_sf(torch, sweeps, prob, u_el, a_el, w_el, state, C, names, launches, errs, label):
@@ -1759,7 +1827,7 @@ def time_sf(torch, sweeps, prob, u_el, a_el, w_el, state, C, names, launches, er
            (lambda: sweeps.assemble_sf(*args), lambda: twin(sweeps.assemble_sf_plain)(*args)),
            (lambda: sweeps.matvec_sf(*mv_args, storage=storage),
             lambda: twin(sweeps.matvec_sf_plain)(*mv_args, storage=storage))]
-    el_out = 3 * 27 * prob.n_el * 4
+    el_out = nbytes(u_el)
     byts = [  # inputs read once, outputs written once
         nbytes(u_el, a_el, tabs, jinv, wq, state) + el_out,
         nbytes(u_el, a_el, tabs, jinv, wq, state, C) + el_out,
@@ -1775,8 +1843,8 @@ def time_sf(torch, sweeps, prob, u_el, a_el, w_el, state, C, names, launches, er
         torch.cuda.empty_cache()
         plain_ms = cuda_ms(torch, fns[i][1], PLAIN_REPS)
         torch.cuda.empty_cache()
-        row = kernel_row(name, SF_SOURCE[storage], replaces, launches[name], errs[name], ms,
-                         plain_ms, byts[i], n_pts * ops)
+        row = kernel_row(name, sf_source(storage, degree_of(prob)), replaces, launches[name],
+                         errs[name], ms, plain_ms, byts[i], n_pts * ops)
         say(f"[{label}] {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms; "
             f"{byts[i] / 1e9:.3f} GB, bound {row['bound_ms']:.4f} ms by {row['bound_by']}; "
             f"{byts[i] / ms / 1e9:.3f} TB/s ({byts[i] / ms / 1e9 / (HBM_BPS / 1e12):.2f} "
@@ -1923,6 +1991,16 @@ def dense_degree(prob):
     return round(nd ** (1.0 / prob.dim)) - 1
 
 
+def degree_of(prob):
+    """The problem's degree, sum-factorized or dense tables."""
+    return prob.sf["pp1"] - 1 if prob.sf is not None else dense_degree(prob)
+
+
+def nodes_of(prob):
+    """Dofs per element of the problem's tables."""
+    return prob.sf["pp1"] ** 3 if prob.sf is not None else prob.dense["dN_t"].shape[0]
+
+
 def ops_tag(sweeps, mat):
     """The material's key of MATERIAL_OPS: its tag without the law (the law
     changes how the flow stress is evaluated, not the operations counted)."""
@@ -1931,23 +2009,41 @@ def ops_tag(sweeps, mat):
 
 def kernel_names(sweeps, prob):
     """Counter names (residual, assemble, matvec) of the problem's material
-    on its tables: kind, storage, material tag and (dim, p) suffix (sf
-    tables: 3D, p = 2)."""
+    on its tables: kind, storage, material tag and (dim, p) suffix."""
     mat, storage = prob.material, sweeps.tangent_storage(prob.material)
     kind = "sf" if prob.sf is not None else "dense"
-    dim, p = (3, 2) if kind == "sf" else (prob.dim, dense_degree(prob))
+    dim, p = prob.dim, degree_of(prob)
     return [*sweeps.kernel_counters(mat, kind, dim, p), sweeps.matvec_counter(kind, storage, dim, p)]
 
 
 def sf_ops(sweeps, prob):
     """Operations per point of the (residual, assemble, matvec) functions
     of the problem's material on its sum-factorized tables
-    (OPS_PER_POINT, else the sf structure with MATERIAL_OPS)."""
+    (OPS_PER_POINT, else the sf structure of its shape, sf_struct, with
+    MATERIAL_OPS)."""
     names = kernel_names(sweeps, prob)
     if all(n in OPS_PER_POINT for n in names):
         return [OPS_PER_POINT[n] for n in names]
     stress, tangent, apply = MATERIAL_OPS[(ops_tag(sweeps, prob.material), 3)]
-    return [_SF_RESIDUAL + stress, _SF_RESIDUAL + stress + tangent, _SF_MATVEC + apply]
+    st = sf_struct(prob)
+    return [st["residual"] + stress, st["residual"] + stress + tangent, st["matvec"] + apply]
+
+
+def sf_struct(prob):
+    """Operations per point of the sf functions' interpolation and scatter
+    at the problem's shape (p + 1 = P nodes, G points per axis), counted as
+    the staged 1D contractions of the p = 2 constants above, per vector
+    component and element: a gradient 2 P (2 G P^2 + 3 G^2 P + 3 G^3), the
+    values of the same field 2 P G^3 more, of another field
+    2 P (G P^2 + G^2 P + G^3); three components over G^3 points.  At p = 2
+    these are _SF_GRAD, _SF_SAME_VALUE and _SF_OTHER_VALUE (115, 18, 42);
+    at p = 3 (P 4, G 5) 160, 24 and 59."""
+    P, G = prob.sf["pp1"], prob.sf["n_g"]
+    grad = round(3 * 2 * P * (2 * G * P * P + 3 * G * G * P + 3 * G**3) / G**3)
+    same = 6 * P
+    other = round(3 * 2 * P * (G * P * P + G * G * P + G**3) / G**3)
+    return {"residual": grad + _JINV + 3 + other + _SCALE + _JINV + grad + same,
+            "matvec": 2 * (grad + same + _JINV) + _SCALE, "viscous": grad + _JINV + 18}
 
 
 def kernel_fns(sweeps, prob):
@@ -2655,7 +2751,7 @@ def witnessed(torch, what, err, scale, bar, y_k, y_p, plain64):
 
 def hold_viscous(torch, sweeps, prob, mat, f, dt, label, launches=None,
                  combos=((True, False),), inviscid_residual=False, storage=None,
-                 residual=True, witness=False):
+                 residual=True, witness=False, timed=True):
     """The viscous and bfloat16 instantiations of `mat`'s kernels on the
     problem's tables, sum-factorized or dense (`mat` need not be the
     problem's: the tables do not depend on it), against their plain
@@ -2673,10 +2769,10 @@ def hold_viscous(torch, sweeps, prob, mat, f, dt, label, launches=None,
     version in float64 instead (witnessed; the planes by their group's max
     likewise, over every point but the yield-band ones).  Each is timed
     (CUDA events over 20 calls,
-    the plain version over PLAIN_REPS after a warm one); returns the rows
-    with their launches in `launches` (0 where no driven path launched
-    the variant: such rows are printed for the record, not put in the
-    kernels line)."""
+    the plain version over PLAIN_REPS after a warm one) unless not `timed`;
+    returns the rows with their launches in `launches` (0 where no driven
+    path launched the variant: such rows are printed for the record, not
+    put in the kernels line)."""
     import dataclasses
 
     launches = launches or {}
@@ -2685,7 +2781,7 @@ def hold_viscous(torch, sweeps, prob, mat, f, dt, label, launches=None,
     tables, kern, plain = kernel_fns(sweeps, vprob)
     own, dim = sweeps.tangent_storage(mat), prob.dim
     storage = storage or own
-    p = 2 if kind == "sf" else dense_degree(prob)
+    p = degree_of(prob)
     wq, rho = prob.wdet_t, float(mat.density)
     mu_v = float(mat.viscosity) if float(mat.viscosity) > 0.0 else VISC_MU
     fac0 = prob.facs["fac3"] * dt * dt
@@ -2693,9 +2789,9 @@ def hold_viscous(torch, sweeps, prob, mat, f, dt, label, launches=None,
     args = (f["u_el"], f["a_el"], f["state"], *tables, wq, mat, dt, rho)
     args64 = as_f64(torch, args) if witness else None
     if kind == "sf":
-        base = sf_ops(sweeps, vprob)
-        extra = (_SF_VISCOUS, _SF_VISCOUS, 18)
-        full_apply = _SF_MATVEC + _FULL_APPLY
+        base, st = sf_ops(sweeps, vprob), sf_struct(prob)
+        extra = (st["viscous"], st["viscous"], 18)
+        full_apply = st["matvec"] + _FULL_APPLY
     else:
         base, nd = dense_ops(sweeps, vprob), prob.dense["dN_t"].shape[0]
         extra = (2 * dim * dim * nd + 2 * dim * dim,) * 2 + (2 * dim * dim,)
@@ -2704,8 +2800,8 @@ def hold_viscous(torch, sweeps, prob, mat, f, dt, label, launches=None,
                       + 2 * dim**4)
     if storage != own:  # the full block of a material with a stronger own storage
         base = [base[0], base[1], full_apply]
-    sources = (SF_SOURCE if kind == "sf" else DENSE_SOURCE)
-    source = (sources[own], sources[own], sources[storage])
+    src = (lambda st: sf_source(st, p)) if kind == "sf" else DENSE_SOURCE.get
+    source = (src(own), src(own), src(storage))
     el_out = nbytes(f["u_el"])
     n_pts = prob.n_el * prob.n_q
     rows, held = [], set()
@@ -2785,7 +2881,7 @@ def hold_viscous(torch, sweeps, prob, mat, f, dt, label, launches=None,
                        lambda a=mv_args: plain[2](*a, storage=storage),
                        nbytes(f["w_el"], tables, wq, C_p) + el_out))
         del y_k
-        for i, err, kcall, pcall, byts in checks:
+        for i, err, kcall, pcall, byts in checks if timed else ():
             ms = cuda_ms(torch, kcall, 20)
             plain_ms = cuda_ms(torch, pcall, PLAIN_REPS)
             torch.cuda.empty_cache()
@@ -2809,8 +2905,7 @@ def random_visc_inputs(torch, sweeps, prob, mat, gen, dt, amplitude=0.1):
     eqps up to 0.01, temperature 20-120)."""
     rnd = lambda *s: torch.randn(*s, generator=gen).to(prob.device, prob.dtype)  # noqa: E731
     uni = lambda *s: torch.rand(*s, generator=gen).to(prob.device, prob.dtype)  # noqa: E731
-    nd = 27 if prob.sf is not None else prob.dense["dN_t"].shape[0]
-    shape = (prob.dim, nd, prob.n_el)
+    shape = (prob.dim, nodes_of(prob), prob.n_el)
     u_el, _ = near_identity(torch, lambda u: grad_of(sweeps, prob, u), rnd(*shape), amplitude)
     state = None
     if mat.has_state:
@@ -2942,7 +3037,7 @@ def press_kernel_names(sweeps, prob, step_kw):
     kind = "sf" if prob.sf is not None else "dense"
     bf16 = step_kw.get("matvec_dtype") == "bf16"
     tag, storage = sweeps.kernel_tag(prob.material), sweeps.tangent_storage(prob.material)
-    p = 2 if kind == "sf" else dense_degree(prob)
+    p = degree_of(prob)
     return [*sweeps.material_counters(kind, tag, storage, prob.dim, p, True, bf16),
             sweeps.matvec_counter(kind, storage, prob.dim, p, True, bf16)]
 
@@ -3033,10 +3128,10 @@ def press_phases(torch, mt, sweeps, soa, sh, device, gen):
             mat.setup(dim)
             f = random_visc_inputs(torch, sweeps, prob, mat, gen, dt,
                                    0.2 if name == "J2" else 0.1)
-            rows_r = hold_viscous(torch, sweeps, prob, mat, f, dt,
-                                  f"38. {size_s} random {sweeps.kernel_tag(mat)}",
-                                  combos=combos)
-            rows += [r for r in rows_r if r["launches"] > 0]
+            # no driven path launches these: held, not timed
+            hold_viscous(torch, sweeps, prob, mat, f, dt,
+                         f"38. {size_s} random {sweeps.kernel_tag(mat)}", combos=combos,
+                         timed=False)
             del f
             torch.cuda.empty_cache()
 
@@ -3159,8 +3254,7 @@ def plastic_inputs(torch, sweeps, soa, prob, mat, gen, dt, amplitude):
     at u_el)."""
     rnd = lambda *s: torch.randn(*s, generator=gen).to(prob.device, prob.dtype)  # noqa: E731
     uni = lambda *s: torch.rand(*s, generator=gen).to(prob.device, prob.dtype)  # noqa: E731
-    nd = 27 if prob.sf is not None else prob.dense["dN_t"].shape[0]
-    shape = (prob.dim, nd, prob.n_el)
+    shape = (prob.dim, nodes_of(prob), prob.n_el)
     grad = lambda u: grad_of(sweeps, prob, u)  # noqa: E731
     state = soa.state_to_soa(mat.init_state((prob.n_el, prob.n_q), dtype=prob.dtype,
                                             device=prob.device))
@@ -3180,10 +3274,8 @@ def hold_branches(torch, sweeps, soa, prob, cases, dt, label, gen):
     """Phase 43 on one problem's tables: each (material, (viscous,
     bfloat16) combinations, amplitude) of `cases` against its plain
     versions on random plastic input (plastic_inputs, share >= 0.25),
-    residual, assemble and matvec of every combination (hold_viscous).
-    Returns the rows (no driven path launches them: printed, not in the
-    kernels line)."""
-    rows = []
+    residual, assemble and matvec of every combination (hold_viscous; no
+    driven path launches them: held, not timed)."""
     kind = "sf" if prob.sf is not None else "dense"
     for mat, combos, amplitude in cases:
         mat.setup(prob.dim)
@@ -3195,11 +3287,10 @@ def hold_branches(torch, sweeps, soa, prob, cases, dt, label, gen):
         if share < 0.25:
             fail(f"43. {label} {tag}: plastic share {share} < 0.25: the check would not exercise "
                  "the return map")
-        rows += hold_viscous(torch, sweeps, prob, mat, f, dt, f"43. {label} random {tag}",
-                             combos=combos, inviscid_residual=True)
+        hold_viscous(torch, sweeps, prob, mat, f, dt, f"43. {label} random {tag}",
+                     combos=combos, inviscid_residual=True, timed=False)
         del f
         torch.cuda.empty_cache()
-    return rows
 
 
 def drive_path(torch, mt, sweeps, sh, prob, label, dt, step_kw, gen, min_yield):
@@ -3443,7 +3534,7 @@ def full_others(mt, dim):
     return mats
 
 
-def hold_full_others(torch, mt, sweeps, soa, prob, combos, dt, label, gen):
+def hold_full_others(torch, mt, sweeps, soa, prob, combos, dt, label, gen, timed=True):
     """The full block of J2 (Johnson-Cook, the golden's law), J2Linear and
     the hyperelastic materials on the problem's tables against the plain
     full planes (hold_viscous with storage="full", the residual being the
@@ -3461,9 +3552,241 @@ def hold_full_others(torch, mt, sweeps, soa, prob, combos, dt, label, gen):
             f, share = random_visc_inputs(torch, sweeps, prob, mat, gen, dt), 0.0
         say(f"[{label} full {tag}] plastic share of the points {share:.3f}")
         rows += hold_viscous(torch, sweeps, prob, mat, f, dt, f"{label} full {tag}",
-                             combos=combos, storage="full", residual=False)
+                             combos=combos, storage="full", residual=False, timed=timed)
         del f
         torch.cuda.empty_cache()
+    return rows
+
+
+def cube3_of(mt, mat, spans, device, force=-3.0, dtype=None):
+    """The body-force cube on the reference's p = 3 mesh at `spans` per
+    axis with the material `mat` (path H's problem)."""
+    return mt.build_problem(MESH3, 0, 0, mat, [(1, 0), (1, 1), (1, 2)], {1: force},
+                            rho_inf=0.5, device=device, refine_spans=spans, dtype=dtype)
+
+
+def two_patch3_of(mt, mat, spans, device, dtype=None):
+    """The two-patch cube elevated by 2 to p = 3 at 2 x `spans`^3 with the
+    material `mat` (path I's problem)."""
+    return mt.build_problem(TWO_PATCH, 2, 0, mat, [(0, 0), (0, 1), (0, 2)], {1: -5.0},
+                            rho_inf=0.5, device=device, refine_spans=spans, dtype=dtype)
+
+
+def first_elements(prob, n):
+    """The problem restricted to its first n elements (the sweeps are per
+    element): tables, w det J and the initial state."""
+    import dataclasses
+
+    sl = slice(0, n)
+    sf = None if prob.sf is None else dict(prob.sf, tables=_elements(prob.sf["tables"], sl),
+                                           jinv=_elements(prob.sf["jinv"], sl))
+    dense = None if prob.dense is None else _elements(prob.dense, sl)
+    return dataclasses.replace(prob, n_el=n, sf=sf, dense=dense,
+                               wdet_t=_elements(prob.wdet_t, sl),
+                               state0=None if prob.state0 is None else _elements(prob.state0, sl))
+
+
+def p3_materials(mt):
+    """Every material the p = 3 kernels instantiate, set up in 3D: J2
+    (Johnson-Cook, A 70), J2Linear, the neo-Hookean, St. Venant-Kirchhoff,
+    J2Simo and J2Log (Johnson-Cook)."""
+    mats = [jc_material(mt), j2lin_material(mt), hyper_material(mt),
+            hyper_material(mt, "StVenantKirchhoff"), jc_material(mt, name="J2Simo"),
+            jc_material(mt, name="J2Log")]
+    for m in mats:
+        m.setup(3)
+    return mats
+
+
+def hold_p3(torch, mt, sweeps, soa, prob, combos, label, gen, mats=None, full=True,
+            amplitude=LAW_AMPLITUDE):
+    """Phase 54 on one problem's p = 3 tables: each material's residual,
+    assemble and matvec (hold_viscous, untimed: no driven path launches
+    most of them) for each (viscous, bfloat16 block) of `combos`, on random
+    plastic input for the J2 family (|F - I| up to `amplitude`, J2Linear's
+    J2LIN_AMPLITUDE; share of plastic points >= 0.25), |F - I| up to 0.1
+    for the hyperelastic ones; with `full` also the full block of J2,
+    J2Linear and the hyperelastic materials."""
+    dt = STEP_KW["dt"]
+    for mat in mats or p3_materials(mt):
+        tag = sweeps.kernel_tag(mat)
+        if mat.has_state:
+            amp = J2LIN_AMPLITUDE if tag == "j2lin" else amplitude
+            f, share = plastic_inputs(torch, sweeps, soa, prob, mat, gen, dt, amp)
+            if share < 0.25:
+                fail(f"{label} {tag}: plastic share {share} < 0.25: the check would not "
+                     "exercise the return map")
+        else:
+            f, share = random_visc_inputs(torch, sweeps, prob, mat, gen, dt), 0.0
+        say(f"[{label} {tag}] {prob.n_el} elements, p = {degree_of(prob)}; plastic share of "
+            f"the points {share:.3f}")
+        hold_viscous(torch, sweeps, prob, mat, f, dt, f"{label} {tag}", combos=combos,
+                     inviscid_residual=True, timed=False)
+        del f
+        torch.cuda.empty_cache()
+    if full:
+        hold_full_others(torch, mt, sweeps, soa, prob, combos, dt, label, gen, timed=False)
+
+
+def p3_rows(torch, sweeps, prob, u_el, a_el, w_el, state, C, dt, launches, errs, label, parts):
+    """Rows of the kernels line for the problem's p = 3 kernels at the
+    path's state: CUDA-event times of the kernels on all elements, of their
+    plain versions summed over the element slices `parts`, bytes (inputs
+    read once, outputs written once) and bound."""
+    mat, wq = prob.material, prob.wdet_t
+    tables, kern, plain = kernel_fns(sweeps, prob)
+    storage = sweeps.tangent_storage(mat)
+    rho, fac0 = float(mat.density), prob.facs["fac3"] * dt * dt
+    args = (u_el, a_el, state, *tables, wq, mat, dt, rho)
+    mv_args = (w_el, *tables, wq, C, rho, fac0)
+    calls = [(kern[0], plain[0], args, {}), (kern[1], plain[1], args, {}),
+             (kern[2], plain[2], mv_args, {"storage": storage})]
+    el_out = nbytes(u_el)
+    byts = [nbytes(u_el, a_el, tables, wq, state) + el_out,
+            nbytes(u_el, a_el, tables, wq, state, C) + el_out,
+            nbytes(w_el, tables, wq, C) + el_out]
+    kind = "sf" if prob.sf is not None else "dense"
+    ops = sf_ops(sweeps, prob) if kind == "sf" else dense_ops(sweeps, prob)
+    source = sf_source(storage, 3) if kind == "sf" else DENSE_SOURCE[storage]
+    n_pts = prob.n_el * prob.n_q
+    rows = []
+    for i, name in enumerate(kernel_names(sweeps, prob)):
+        kfn, pfn, a, kw = calls[i]
+        ms = cuda_ms(torch, lambda: kfn(*a, **kw), 5)
+        torch.cuda.empty_cache()
+        plain_ms = 0.0
+        for sl in parts.values():
+            a_sl = _elements(a, sl)
+            plain_ms += cuda_ms(torch, lambda: pfn(*a_sl, **kw), PLAIN_REPS)
+            del a_sl
+            torch.cuda.empty_cache()
+        row = kernel_row(name, source, SYM_REPLACES[kind][i], launches[name], errs[name], ms,
+                         plain_ms, byts[i], n_pts * ops[i])
+        say(f"[{label}] {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms (summed over "
+            f"{len(parts)} slices); {byts[i] / 1e9:.3f} GB, bound {row['bound_ms']:.4f} ms by "
+            f"{row['bound_by']}; {byts[i] / ms / 1e9:.3f} TB/s "
+            f"({byts[i] / ms / 1e9 / (HBM_BPS / 1e12):.2f} of 3.35); launches {row['launches']}")
+        rows.append(row)
+    return rows
+
+
+def drive_p3(torch, mt, sweeps, sh, prob, label, timed, gen):
+    """Phases 55-56 on one path: 1 warm + `timed` steps (drive_dense: s/step,
+    qp-evals/s, Newton, GMRES, drops, the kernels launched in every step),
+    peak memory, the share of points with eqps > 0; the path's kernels
+    against plain at the next predictor, the plain versions on P3_PARTS
+    slices of the elements (compare_kernels); their rows (p3_rows); one
+    profiled step."""
+    dt = STEP_KW["dt"]
+    kw = {k: v for k, v in STEP_KW.items() if k != "dt"}
+    sweeps.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    carry, step, s_step, launches, _ = drive_dense(torch, mt, sweeps, prob, label, timed, dt, kw)
+    say(f"[{label}] peak allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB"
+        + ("" if carry["state"] is None else
+           f"; share of the points with eqps > 0 "
+           f"{float((carry['state']['eqps'] > 0).float().mean()):.4f}"))
+    u_el, a_el, w_el = predictor_fields(torch, sh, prob, carry, gen, dt)
+    cut = [round(k * prob.n_el / P3_PARTS) for k in range(P3_PARTS + 1)]
+    parts = {f"elements {a}-{b - 1}": slice(a, b) for a, b in zip(cut, cut[1:])}
+    # sf tables: F is formed with FMAs, the path-state bar of phases 25-26
+    errs, C = compare_kernels(torch, sweeps, prob, u_el, a_el, w_el, carry["state"], dt,
+                              f"{label} path", parts=parts,
+                              res_bar=PATH_RES_BAR if prob.sf is not None else 1e-5,
+                              whole_scale=True)
+    rows = p3_rows(torch, sweeps, prob, u_el, a_el, w_el, carry["state"], C, dt, launches, errs,
+                   f"{label} timing", parts)
+    del u_el, a_el, w_el, C
+    torch.cuda.empty_cache()
+    profile_step(torch, step, carry, s_step, f"{label} profile")
+    return rows
+
+
+def p3_phases(torch, mt, sweeps, soa, sh, device, gen):
+    """Phases 54-57: the cubic (p = 3) 3D sweeps.  54: every p = 3
+    instantiation against plain on random input: the sf kernels at 16^3
+    (every material, viscous or not, float32 and bfloat16 blocks, the full
+    block of every material) and on a ragged tile (the first 33 elements),
+    the dense (3, 3) kernels at 2 x 8^3 (viscous or not).  55: path H (48^3,
+    sf).  56: path I (2 x 38^3, dense (3, 3)).  57: one step kernel path
+    against plain path of path H's problem at 16^3 (yield stress
+    SMALL_SIGMA_Y: the step yields) and of path I's at 2 x 8^3.  Returns the
+    paths' rows of the kernels line."""
+    t_start = time.perf_counter()
+    both = [(False, False), (False, True), (True, False), (True, True)]
+    dense_visc = [(False, False), (True, False)]
+
+    def clock(what):
+        say(f"[54-57 clock] {what}: {time.perf_counter() - t_start:.1f} s since phase 54")
+
+    # ---- 54. every p = 3 instantiation on random input ---------------------------------
+    prob = cube3_of(mt, jc_material(mt), CHECK_SPANS, device)
+    hold_p3(torch, mt, sweeps, soa, prob, both, f"54. {CHECK_SPANS}^3 p=3 random", gen)
+    mats = p3_materials(mt)
+    # 33 elements hold ~100x fewer points than 16^3: |F - I| up to 0.2 keeps
+    # the share of plastic points past 0.25 (0.128 at 0.1 on an NVIDIA H100
+    # 80GB HBM3)
+    hold_p3(torch, mt, sweeps, soa, first_elements(prob, P3_RAGGED),
+            [(False, False), (True, True)], f"54. {P3_RAGGED} elements p=3 random", gen,
+            mats=[mats[0], mats[2], mats[4]], full=False, amplitude=0.2)
+    clock("54 sf")
+    prob = two_patch3_of(mt, hyper_material(mt), DENSE_CHECK_SPANS, device)
+    hold_p3(torch, mt, sweeps, soa, prob, dense_visc, f"54. 2x{DENSE_CHECK_SPANS}^3 p=3 random",
+            gen)
+    del prob
+    torch.cuda.empty_cache()
+    clock("54 dense")
+
+    # ---- 55. path H ---------------------------------------------------------------------
+    t0 = time.perf_counter()
+    prob = cube3_of(mt, jc_material(mt), SPANS, device)
+    torch.cuda.synchronize()
+    label = f"55. path H {SPANS}^3 p=3 J2"
+    say(f"[{label}] host build {time.perf_counter() - t0:.2f} s: n_el {prob.n_el}, n_q "
+        f"{prob.n_q}, nd {prob.sf['pp1'] ** 3}, unknowns {prob.n_dof * prob.dim}; sf tables "
+        f"and jinv {nbytes(prob.sf['tables'], prob.sf['jinv']) / 1e9:.3f} GB")
+    rows = drive_p3(torch, mt, sweeps, sh, prob, label, P3_TIMED, gen)
+    del prob
+    torch.cuda.empty_cache()
+    clock("55")
+
+    # ---- 56. path I ---------------------------------------------------------------------
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    prob = two_patch3_of(mt, hyper_material(mt), DENSE_SPANS, device)
+    torch.cuda.synchronize()
+    label = f"56. path I 2x{DENSE_SPANS}^3 p=3 neo-Hookean"
+    say(f"[{label}] host build {time.perf_counter() - t0:.2f} s: n_el {prob.n_el}, n_q "
+        f"{prob.n_q}, nd {prob.dense['dN_t'].shape[0]}, unknowns {prob.n_dof * prob.dim}; "
+        f"dense tables {nbytes(prob.dense, prob.wdet_t) / 1e9:.3f} GB (peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB)")
+    rows += drive_p3(torch, mt, sweeps, sh, prob, label, P3_DENSE_TIMED, gen)
+    del prob
+    torch.cuda.empty_cache()
+    clock("56")
+
+    # ---- 57. one step each, kernel path vs plain path -----------------------------------
+    kw3 = {k: v for k, v in STEP_KW.items() if k != "dt"}
+    prob = cube3_of(mt, jc_material(mt, A=SMALL_SIGMA_Y), CHECK_SPANS, device)
+    small_step(torch, mt, prob, STEP_KW["dt"], kw3,
+               f"57. {CHECK_SPANS}^3 p=3 J2 step, A {SMALL_SIGMA_Y}", gen)
+    prob = two_patch3_of(mt, hyper_material(mt), DENSE_CHECK_SPANS, device)
+    carry0 = mt.initial_carry(prob)
+    out = {impl: mt.make_step(prob, residual_impl=impl, **STEP_KW)(carry0)
+           for impl in ("cuda", "torch")}
+    err = float((out["cuda"]["u"] - out["torch"]["u"]).abs().max())
+    scale = float(out["torch"]["u"].abs().max())
+    nc, nt = out["cuda"]["newton"], out["torch"]["newton"]
+    say(f"[57. 2x{DENSE_CHECK_SPANS}^3 p=3 neo-Hookean step] cuda vs torch: max|du| {err:.3e} "
+        f"max|u| {scale:.3e} ({err / scale:.3e}); newton {nc['iters']}/{nt['iters']} gmres "
+        f"{nc['lin_iters']}/{nt['lin_iters']}; drop {drop_of(out['cuda']):.2e}/"
+        f"{drop_of(out['torch']):.2e}")
+    # the bar of the reference package's pallas-vs-soa parity check
+    if not (nc["finite"] and err <= 1e-4 * scale):
+        fail(f"p = 3 dense one-step parity {err} > 1e-4 * {scale}")
+    del prob, carry0, out
+    torch.cuda.empty_cache()
+    clock("57")
     return rows
 
 
@@ -3508,7 +3831,7 @@ def finite_press_paths(torch, mt, sweeps, soa, sh, device, gen):
             if share < 0.25:
                 fail(f"{label} {name}: plastic share {share} < 0.25")
             hold_viscous(torch, sweeps, prob, mat, f, dt, f"{label} random {name}",
-                         combos=combos)
+                         combos=combos, timed=False)
             del f
             torch.cuda.empty_cache()
 
@@ -3537,7 +3860,7 @@ def finite_press_paths(torch, mt, sweeps, soa, sh, device, gen):
         held_random(base, sweeps.FULL_KERNELS, sf_combos if dim == 3 else ((True, False),),
                     f"{n_rand}. {size_s}", dt)
         hold_full_others(torch, mt, sweeps, soa, base, all_sf if dim == 3 else dense_combos, dt,
-                         f"{n_rand}. {size_s}", gen)
+                         f"{n_rand}. {size_s}", gen, timed=False)
         if dim == 3:  # 48: J2Log's assemble at the golden law on random plastic input
             mat = jc_material(mt, name="J2Log")
             mat.setup(3)
@@ -3640,7 +3963,8 @@ def finite_press_paths(torch, mt, sweeps, soa, sh, device, gen):
                           refine_spans=DENSE_CHECK_SPANS), f"52. 2x{DENSE_CHECK_SPANS}^3"),
     ):
         held_random(prob, sweeps.FULL_KERNELS, ((True, False),), label, PRESS_STEP_KW["dt"])
-        hold_full_others(torch, mt, sweeps, soa, prob, dense_combos, PATH_DT, label, gen)
+        hold_full_others(torch, mt, sweeps, soa, prob, dense_combos, PATH_DT, label, gen,
+                         timed=False)
         del prob
         torch.cuda.empty_cache()
     clock("52")
@@ -3876,6 +4200,10 @@ def main():
     # ---- 48-53. the finite-strain presses (paths F and G), the full block --------------------
     rows += finite_press_paths(torch, mt, sweeps, soa, sh, device, gen)
     say(f"[clock] phases 48-53 done: {time.perf_counter() - t_main:.1f} s since phase 2")
+
+    # ---- 54-57. the cubic (p = 3) sweeps: paths H and I --------------------------------------
+    rows += p3_phases(torch, mt, sweeps, soa, sh, device, gen)
+    say(f"[clock] phases 54-57 done: {time.perf_counter() - t_main:.1f} s since phase 2")
 
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {

@@ -21,13 +21,14 @@ import time
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [
     os.path.join(_HERE, "csrc", name)
-    for name in ("sweeps_sf.cu", "sweeps_sf_hyper.cu", "sweeps_sf_finite.cu", "sweeps_dense.cu",
+    for name in ("sweeps_sf.cu", "sweeps_sf_hyper.cu", "sweeps_sf_finite.cu", "sweeps_sf_p3.cu",
+                 "sweeps_sf_hyper_p3.cu", "sweeps_sf_finite_p3.cu", "sweeps_dense.cu",
                  "sweeps_dense_j2.cu", "sweeps_dense_finite.cu", "fused_neohookean.cu")
 ]
 HEADERS = [
     os.path.join(_HERE, "csrc", name)
     for name in ("materials.cuh", "j2.cuh", "dense_common.cuh", "sf_common.cuh", "dual.cuh",
-                 "finite.cuh")
+                 "finite.cuh", "launch.cuh")
 ]
 FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -42,6 +43,8 @@ FLAGS = [
 # 3e-7, at 0-22% more time (scripts/witness_finite_planes.py, PERF.md)
 NO_FMAD = ("sweeps_dense_finite.cu",)
 BUILD_DIR = os.path.join(_HERE, "_build")
+# the entry points compiled at each sf shape
+_SF_NAMES = ("_sf", "_sf_hyper", "_sf_finite", "_sf_sym", "_sf_full")
 
 _LIB = None
 # seconds and compiler output of the last build in this process
@@ -111,8 +114,9 @@ def build():
 
 
 def bind(lib):
-    """Set the ctypes signatures of the kernel library's C entry points."""
-    from .sweeps import _HyperParams, _J2Params
+    """Set the ctypes signatures of the kernel library's C entry points
+    (the sf ones at each shape of sweeps.SF_SHAPES, named with its suffix)."""
+    from .sweeps import SF_SHAPES, _HyperParams, _J2Params, sf_suffix
 
     vp, ll, ci, cf = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     sigs = {
@@ -140,9 +144,11 @@ def bind(lib):
         "neohookean_tangent_apply": [vp] * 5 + [cf, cf, ll, vp],
     }
     for name, args in sigs.items():
-        fn = getattr(lib, f"mimi_{name}")
-        fn.argtypes = args
-        fn.restype = ctypes.c_int
+        shapes = SF_SHAPES if name.endswith(_SF_NAMES) else [None]
+        for shape in shapes:
+            fn = getattr(lib, f"mimi_{name}{sf_suffix(*shape) if shape else ''}")
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
     return lib
 
 

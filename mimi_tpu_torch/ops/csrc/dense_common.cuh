@@ -4,8 +4,11 @@
 // per-point interpolation and scatter on dense tables dN (ND, DIM, NQ, E),
 // N (ND, NQ, E), and the residual / assemble and matvec kernel templates
 // with their launchers.  One thread per element; each thread owns one
-// column of the shared arrays, so no barrier is needed.  The design notes
-// are at the head of sweeps_dense.cu.
+// column of the shared arrays (dynamic shared memory, launch.cuh: 40.5 KB a
+// block for the residual at 3D p = 2), so no barrier is needed.  At 3D
+// p = 3 the launchers take the tiled kernels below instead (one thread per
+// element and point slot).  The design notes are at the head of
+// sweeps_dense.cu.
 
 #pragma once
 
@@ -13,6 +16,7 @@
 
 #include <type_traits>
 
+#include "launch.cuh"
 #include "materials.cuh"
 
 namespace {
@@ -119,9 +123,9 @@ inline unsigned grid_for(long long E) { return (unsigned)((E + BLOCK - 1) / BLOC
 // material with state, the point's state leaves (`eval`).  With VISC the
 // viscous flux mu_v grad v joins P before the scatter (the tangent block
 // does not change).  v is read from device memory at each point, not
-// staged: a third staged field would take 62 KB of static shared memory
-// at 3D p = 2, past the 48 KB a static allocation may have; its rows
-// come from L1 or L2 after the first point.
+// staged: a third staged field would take 62 KB of shared memory at 3D
+// p = 2 (144 KB at p = 3) and halve the blocks an SM holds; its rows come
+// from L1 or L2 after the first point.
 template <class Mat, class Store, int DIM, int P, bool TANGENT, bool VISC>
 __global__ void __launch_bounds__(BLOCK)
     dense_residual_kernel(const float* __restrict__ u_el, const float* __restrict__ a_el,
@@ -131,8 +135,9 @@ __global__ void __launch_bounds__(BLOCK)
                           float rho, float mu_v, long long E) {
   using S = DenseShape<DIM, P>;
   constexpr int ND = S::ND;
-  __shared__ float su[S::NW][BLOCK];
-  __shared__ float sa[S::NW][BLOCK];
+  MIMI_DYNAMIC_SHARED(float, smem);  // su[NW][BLOCK], sa[NW][BLOCK]
+  float(*su)[BLOCK] = reinterpret_cast<float(*)[BLOCK]>(smem);
+  float(*sa)[BLOCK] = su + S::NW;
   const long long e = (long long)blockIdx.x * BLOCK + threadIdx.x;
   if (e >= E) return;  // threads share nothing: no barrier below
   stage<S::NW>(u_el, su, e, E);
@@ -186,7 +191,8 @@ __global__ void __launch_bounds__(BLOCK)
                         float fac0, float fac1_mu_v, long long E) {
   using S = DenseShape<DIM, P>;
   constexpr int ND = S::ND;
-  __shared__ float sw[S::NW][BLOCK];
+  MIMI_DYNAMIC_SHARED(float, smem);  // sw[NW][BLOCK]
+  float(*sw)[BLOCK] = reinterpret_cast<float(*)[BLOCK]>(smem);
   const long long e = (long long)blockIdx.x * BLOCK + threadIdx.x;
   if (e >= E) return;
   stage<S::NW>(w_el, sw, e, E);
@@ -220,35 +226,267 @@ __global__ void __launch_bounds__(BLOCK)
     for (int n = 0; n < ND; ++n) out[(long long)(c * ND + n) * E + e] = acc[c][n];
 }
 
+// ---- the tiled kernels of 3D p = 3 ---------------------------------------------
+//
+// At (3, 3) a thread of the kernels above would hold 192 output sums: they
+// spill to local memory, and the two staged fields take 96 KB a block (2
+// blocks, 4 warps an SM).  The (3, 3) residual, assemble and matvec instead
+// map one thread to an (element, point slot), as the sf residual kernel
+// does (sf_common.cuh): a block takes a tile of DTILE = 32 consecutive
+// elements, one per lane, in DSLOTS = 4 warps, warp s taking the points
+// q = s (mod 4) of every element.  The tile's element fields are staged
+// once in shared memory as [3 ND][DTILE]; per point a thread forms F (or
+// grad w) from its lane's column and its point's dN row, with the same
+// operations as grad_q_of above, runs the material (or the tangent apply)
+// and hands the point's flux X[c][d], mass term m[c] and w det J to shared
+// memory; after a barrier each thread adds the round's 4 points, in q
+// order, to the outputs of the nodes n = s + 4 j it owns (16 nodes, 48
+// sums), reading those nodes' dN and N at the round's points, with the
+// scatter's operations (scatter_q).  Every table read of a warp is one
+// 128-byte line; dN is read twice, as above.  Shared memory: 55.8 KB a
+// block for the residual, 31.2 KB for the matvec.
+
+constexpr int DTILE = 32;
+constexpr int DSLOTS = 4;
+
+// what one point hands to its nodes' owners: X[c][d], m[c] and w det J
+template <int DIM>
+struct TileStage {
+  static constexpr int M = DIM * DIM, W = DIM * DIM + DIM, N = DIM * DIM + DIM + 1;
+};
+
+// v[c] = sum_n N[n](q) w(c ND + n), as value_q
+template <int DIM, int ND, class W>
+__device__ __forceinline__ void value_q_of(const float* __restrict__ N, const W& w,
+                                           long long qe, long long QE, float v[DIM]) {
+#pragma unroll
+  for (int c = 0; c < DIM; ++c) v[c] = 0.f;
+#pragma unroll 8
+  for (int n = 0; n < ND; ++n) {
+    const float Nn = __ldg(N + (long long)n * QE + qe);
+#pragma unroll
+    for (int c = 0; c < DIM; ++c) v[c] += Nn * w(c * ND + n);
+  }
+}
+
+// one point of the residual (and, with TANGENT, the assemble): fields u
+// (s0) and a (s1)
+template <class Mat, class Store, int DIM, int P, bool TANGENT, bool VISC>
+struct ResidualPoint {
+  Mat mat;
+  float* cout;
+  const float* v_el;
+  const float* dN;
+  const float* N;
+  float rho, mu_v;
+  __device__ __forceinline__ void operator()(const float (*s0)[DTILE], const float (*s1)[DTILE],
+                                             int lane, long long e, long long E, long long qe,
+                                             long long QE, float X[DIM][DIM],
+                                             float m[DIM]) const {
+    constexpr int ND = DenseShape<DIM, P>::ND;
+    float F[DIM][DIM];
+    grad_q_of<DIM, ND>(dN, [=](int k) { return s0[k][lane]; }, qe, QE, F);
+#pragma unroll
+    for (int i = 0; i < DIM; ++i) F[i][i] = add(F[i][i], 1.f);
+    typename Mat::Point pt;
+    mat.template eval<TANGENT>(F, qe, QE, X, pt);
+    if (TANGENT) Store::store(cout, qe, QE, mat, pt);
+    if (VISC) {  // P + mu_v dV, in the plain version's order
+      float dV[DIM][DIM];
+      grad_q_of<DIM, ND>(dN, [=](int k) { return __ldg(v_el + (long long)k * E + e); }, qe, QE,
+                         dV);
+#pragma unroll
+      for (int c = 0; c < DIM; ++c)
+#pragma unroll
+        for (int d = 0; d < DIM; ++d) X[c][d] = add(X[c][d], mul(mu_v, dV[c][d]));
+    }
+    float av[DIM];
+    value_q_of<DIM, ND>(N, [=](int k) { return s1[k][lane]; }, qe, QE, av);
+#pragma unroll
+    for (int c = 0; c < DIM; ++c) m[c] = rho * av[c];
+  }
+};
+
+// one point of the matvec: field w (s0)
+template <class Store, int DIM, int P, bool VISC>
+struct MatvecPoint {
+  const float* cs;
+  const float* dN;
+  const float* N;
+  float rho, fac0, fac1_mu_v;
+  __device__ __forceinline__ void operator()(const float (*s0)[DTILE], const float (*)[DTILE],
+                                             int lane, long long, long long, long long qe,
+                                             long long QE, float X[DIM][DIM],
+                                             float m[DIM]) const {
+    constexpr int ND = DenseShape<DIM, P>::ND;
+    const auto w = [=](int k) { return s0[k][lane]; };
+    float dF[DIM][DIM], v[DIM];
+    grad_q_of<DIM, ND>(dN, w, qe, QE, dF);
+    value_q_of<DIM, ND>(N, w, qe, QE, v);
+    Store::apply(cs, qe, QE, dF, fac0, X);
+    if (VISC) {
+#pragma unroll
+      for (int c = 0; c < DIM; ++c)
+#pragma unroll
+        for (int d = 0; d < DIM; ++d) X[c][d] = add(X[c][d], mul(fac1_mu_v, dF[c][d]));
+    }
+#pragma unroll
+    for (int c = 0; c < DIM; ++c) m[c] = rho * v[c];
+  }
+};
+
+// y[c][n] = sum_q wq (dN[n][d] X[c][d] + N[n] m[c]) with the point's X and
+// m from `point` (ResidualPoint or MatvecPoint) on the NF staged fields f0
+// (and f1)
+template <int DIM, int P, int NF, class Pt>
+__global__ void __launch_bounds__(DTILE * DSLOTS)
+    dense_tile_kernel(Pt point, const float* __restrict__ f0, const float* __restrict__ f1,
+                      const float* __restrict__ dN, const float* __restrict__ N,
+                      const float* __restrict__ wq, float* __restrict__ out, long long E) {
+  using S = DenseShape<DIM, P>;
+  using T = TileStage<DIM>;
+  constexpr int ND = S::ND, NW = S::NW, NQ = S::NQ;
+  constexpr int OWN_NODES = (ND + DSLOTS - 1) / DSLOTS;
+  MIMI_DYNAMIC_SHARED(float, smem);  // s0[NW][DTILE] (, s1[NW][DTILE]), st[DSLOTS][T::N][DTILE]
+  float(*s0)[DTILE] = reinterpret_cast<float(*)[DTILE]>(smem);
+  float(*s1)[DTILE] = s0 + (NF > 1 ? NW : 0);
+  float(*st)[T::N][DTILE] = reinterpret_cast<float(*)[T::N][DTILE]>(s0 + NF * NW);
+  const int lane = threadIdx.x % DTILE, slot = threadIdx.x / DTILE;
+  const long long e = (long long)blockIdx.x * DTILE + lane;
+  const bool live = e < E;  // the last tile is ragged where E % DTILE != 0
+  for (int r = slot; r < NW; r += DSLOTS) {
+    const long long off = (long long)r * E + e;
+    s0[r][lane] = live ? __ldg(f0 + off) : 0.f;
+    if (NF > 1) s1[r][lane] = live ? __ldg(f1 + off) : 0.f;
+  }
+  __syncthreads();
+  float acc[OWN_NODES][DIM];
+#pragma unroll
+  for (int j = 0; j < OWN_NODES; ++j)
+#pragma unroll
+    for (int c = 0; c < DIM; ++c) acc[j][c] = 0.f;
+  const long long QE = (long long)NQ * E;
+#pragma unroll 1
+  for (int q0 = 0; q0 < NQ; q0 += DSLOTS) {
+    const int q = q0 + slot;
+    if (live && q < NQ) {  // the last round is partial where DSLOTS does not divide NQ
+      const long long qe = (long long)q * E + e;
+      float X[DIM][DIM], m[DIM];
+      point(s0, s1, lane, e, E, qe, QE, X, m);
+#pragma unroll
+      for (int c = 0; c < DIM; ++c) {
+#pragma unroll
+        for (int d = 0; d < DIM; ++d) st[slot][c * DIM + d][lane] = X[c][d];
+        st[slot][T::M + c][lane] = m[c];
+      }
+      st[slot][T::W][lane] = __ldg(wq + qe);
+    }
+    __syncthreads();
+    if (live) {
+#pragma unroll 1
+      for (int s = 0; s < DSLOTS && q0 + s < NQ; ++s) {
+        const long long qe = (long long)(q0 + s) * E + e;
+        const float(*p)[DTILE] = st[s];
+#pragma unroll
+        for (int j = 0; j < OWN_NODES; ++j) {
+          const int n = slot + DSLOTS * j;
+          if (n < ND) {  // scatter_q's operations for node n
+            float d[DIM];
+#pragma unroll
+            for (int f = 0; f < DIM; ++f) d[f] = __ldg(dN + (long long)(n * DIM + f) * QE + qe);
+            const float Nn = __ldg(N + (long long)n * QE + qe);
+#pragma unroll
+            for (int c = 0; c < DIM; ++c) {
+              float x = d[0] * p[c * DIM][lane];
+#pragma unroll
+              for (int f = 1; f < DIM; ++f) x += d[f] * p[c * DIM + f][lane];
+              x += Nn * p[T::M + c][lane];
+              acc[j][c] += p[T::W][lane] * x;
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // the round's points are read before the next overwrites them
+  }
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < OWN_NODES; ++j) {
+      const int n = slot + DSLOTS * j;
+      if (n < ND)
+#pragma unroll
+        for (int c = 0; c < DIM; ++c) out[(long long)(c * ND + n) * E + e] = acc[j][c];
+    }
+  }
+}
+
+template <int DIM, int P, int NF, class Pt>
+int launch_dense_tile(const Pt& point, const float* f0, const float* f1, const float* dN,
+                      const float* N, const float* wq, float* out, long long E, void* stream) {
+  constexpr size_t smem = sizeof(float) * DTILE *
+                          (NF * DenseShape<DIM, P>::NW + DSLOTS * TileStage<DIM>::N);
+  if (const int err = allow_dynamic_smem<dense_tile_kernel<DIM, P, NF, Pt>>(smem)) return err;
+  const unsigned tiles = (unsigned)((E + DTILE - 1) / DTILE);
+  dense_tile_kernel<DIM, P, NF, Pt><<<tiles, DTILE * DSLOTS, smem, (cudaStream_t)stream>>>(
+      point, f0, f1, dN, N, wq, out, E);
+  return (int)cudaGetLastError();
+}
+
+// the shapes that take the tiled kernels
+template <int DIM, int P>
+constexpr bool tiled_shape() {
+  return DIM == 3 && P == 3;
+}
+
 template <class Mat, class Store, int DIM, int P, bool TANGENT, bool VISC = false>
 int launch_dense_residual(const float* u_el, const float* a_el, const float* dN,
                           const float* N, const float* wq, float* out, float* cout,
                           const Mat& mat, float rho, long long E, void* stream,
                           const float* v_el = nullptr, float mu_v = 0.f) {
-  dense_residual_kernel<Mat, Store, DIM, P, TANGENT, VISC>
-      <<<grid_for(E), BLOCK, 0, (cudaStream_t)stream>>>(u_el, a_el, v_el, dN, N, wq, out,
-                                                         cout, mat, rho, mu_v, E);
-  return (int)cudaGetLastError();
+  if constexpr (tiled_shape<DIM, P>()) {
+    const ResidualPoint<Mat, Store, DIM, P, TANGENT, VISC> point{mat, cout, v_el, dN, N, rho,
+                                                                 mu_v};
+    return launch_dense_tile<DIM, P, 2>(point, u_el, a_el, dN, N, wq, out, E, stream);
+  } else {
+    constexpr size_t smem = 2 * sizeof(float) * DenseShape<DIM, P>::NW * BLOCK;
+    if (const int err =
+            allow_dynamic_smem<dense_residual_kernel<Mat, Store, DIM, P, TANGENT, VISC>>(smem))
+      return err;
+    dense_residual_kernel<Mat, Store, DIM, P, TANGENT, VISC>
+        <<<grid_for(E), BLOCK, smem, (cudaStream_t)stream>>>(u_el, a_el, v_el, dN, N, wq, out,
+                                                              cout, mat, rho, mu_v, E);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <class Store, int DIM, int P, bool VISC = false>
 int launch_dense_matvec(const float* w_el, const float* dN, const float* N, const float* wq,
                         const float* cs, float* out, float rho, float fac0, long long E,
                         void* stream, float fac1_mu_v = 0.f) {
-  dense_matvec_kernel<Store, DIM, P, VISC><<<grid_for(E), BLOCK, 0, (cudaStream_t)stream>>>(
-      w_el, dN, N, wq, cs, out, rho, fac0, fac1_mu_v, E);
-  return (int)cudaGetLastError();
+  if constexpr (tiled_shape<DIM, P>()) {
+    const MatvecPoint<Store, DIM, P, VISC> point{cs, dN, N, rho, fac0, fac1_mu_v};
+    return launch_dense_tile<DIM, P, 1>(point, w_el, nullptr, dN, N, wq, out, E, stream);
+  } else {
+    constexpr size_t smem = sizeof(float) * DenseShape<DIM, P>::NW * BLOCK;
+    if (const int err = allow_dynamic_smem<dense_matvec_kernel<Store, DIM, P, VISC>>(smem))
+      return err;
+    dense_matvec_kernel<Store, DIM, P, VISC>
+        <<<grid_for(E), BLOCK, smem, (cudaStream_t)stream>>>(w_el, dN, N, wq, cs, out, rho, fac0,
+                                                              fac1_mu_v, E);
+    return (int)cudaGetLastError();
+  }
 }
 
 // The instantiated (dimension, degree) pairs: fn(DIM, P) as integral
-// constants for (2, 2), (2, 3) and (3, 2); cudaErrorInvalidValue for any
-// other pair (ops/sweeps.py refuses them before a launch).
+// constants for (2, 2), (2, 3), (3, 2) and (3, 3); cudaErrorInvalidValue
+// for any other pair (ops/sweeps.py refuses them before a launch).
 template <class Fn>
 int with_dense_shape(int dim, int p, Fn fn) {
   using std::integral_constant;
   if (dim == 2 && p == 2) return fn(integral_constant<int, 2>{}, integral_constant<int, 2>{});
   if (dim == 2 && p == 3) return fn(integral_constant<int, 2>{}, integral_constant<int, 3>{});
   if (dim == 3 && p == 2) return fn(integral_constant<int, 3>{}, integral_constant<int, 2>{});
+  if (dim == 3 && p == 3) return fn(integral_constant<int, 3>{}, integral_constant<int, 3>{});
   return (int)cudaErrorInvalidValue;
 }
 

@@ -8,8 +8,10 @@
 // between blocks (the test rewrites `kernel<<<grid, block, ...>>>(args)`
 // into that call).  threadIdx and blockIdx are thread_local; a __shared__
 // variable is a static local of the kernel, so the block's threads share
-// it and the next block finds it as the last one left it; __syncthreads()
-// is a barrier of the block's threads.  The single-rounding intrinsics are
+// it and the next block finds it as the last one left it; the launch's
+// dynamic shared memory (MIMI_DYNAMIC_SHARED, launch.cuh) is one buffer of
+// the launch's `shared` bytes, allocated once and shared in the same way;
+// __syncthreads() is a barrier of the block's threads.  The single-rounding intrinsics are
 // plain IEEE float operations, exact as long as the compiler contracts no
 // FMA (-ffp-contract=off).
 
@@ -17,9 +19,11 @@
 
 #include <float.h>
 #include <math.h>
+#include <stddef.h>
 #include <string.h>
 
 #include <barrier>
+#include <cstddef>
 #include <thread>
 #include <vector>
 
@@ -40,9 +44,17 @@ inline thread_local mimi_host_index threadIdx{0, 0, 0};
 inline std::barrier<>* mimi_host_block_barrier = nullptr;
 inline void __syncthreads() { mimi_host_block_barrier->arrive_and_wait(); }
 
-// run `kernel()` as a grid of `grid` blocks of `block` threads
+// the dynamic shared memory of the launch that runs now
+inline unsigned char* mimi_host_dynamic_shared = nullptr;
+#define MIMI_DYNAMIC_SHARED(T, name) T* name = reinterpret_cast<T*>(mimi_host_dynamic_shared)
+
+// run `kernel()` as a grid of `grid` blocks of `block` threads with
+// `shared` bytes of dynamic shared memory
 template <class K>
-inline void mimi_host_launch(unsigned grid, unsigned block, const K& kernel) {
+inline void mimi_host_launch(unsigned grid, unsigned block, size_t shared, const K& kernel) {
+  std::vector<std::max_align_t> smem((shared + sizeof(std::max_align_t) - 1) /
+                                     sizeof(std::max_align_t));
+  mimi_host_dynamic_shared = reinterpret_cast<unsigned char*>(smem.data());
   std::barrier<> sync(block);
   mimi_host_block_barrier = &sync;
   std::vector<std::thread> threads;
@@ -58,11 +70,21 @@ inline void mimi_host_launch(unsigned grid, unsigned block, const K& kernel) {
     });
   for (std::thread& th : threads) th.join();
   mimi_host_block_barrier = nullptr;
+  mimi_host_dynamic_shared = nullptr;
 }
 
 typedef struct mimi_host_stream* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <class T>
+inline cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
 
 template <class T>
 inline T __ldg(const T* p) {

@@ -1,0 +1,40 @@
+// Dynamic shared memory of the sweep kernels, for sm_90a: a block's tile
+// past the 48 KB that a static __shared__ allocation may hold (the p = 3
+// sf tile, 67.7 KB and 92.2 KB viscous; the dense (3, 3) columns, 96 KB).
+// The host stand-in (host_stub/cuda_runtime.h) defines MIMI_DYNAMIC_SHARED
+// first, as the launch's buffer shared by the block's threads.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <stddef.h>
+
+#ifndef MIMI_DYNAMIC_SHARED
+// `T* name`: the launch's dynamic shared memory, 16-byte aligned
+#define MIMI_DYNAMIC_SHARED(T, name)                                  \
+  extern __shared__ __align__(16) unsigned char name##_bytes[];       \
+  T* name = reinterpret_cast<T*>(name##_bytes)
+#endif
+
+namespace {
+
+constexpr size_t STATIC_SMEM = 48 * 1024;
+
+// Allow the kernel K `bytes` of dynamic shared memory on the current
+// device before its first launch there (a launch asking more than 48 KB
+// is refused otherwise); once per kernel and device.
+template <auto K>
+int allow_dynamic_smem(size_t bytes) {
+  if (bytes <= STATIC_SMEM) return 0;
+  static unsigned long long done = 0;  // one bit per device
+  int dev = 0;
+  if (const cudaError_t err = cudaGetDevice(&dev)) return (int)err;
+  if (dev < 64 && (done >> dev & 1ull)) return 0;
+  const cudaError_t err =
+      cudaFuncSetAttribute(K, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && dev < 64) done |= 1ull << dev;
+  return (int)err;
+}
+
+}  // namespace

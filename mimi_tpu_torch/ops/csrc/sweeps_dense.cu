@@ -19,11 +19,12 @@
 // Piola stress and closed-form dP/dF as device functions, materials.cuh),
 // the tangent storage, the dimension DIM and the degree P (ND = (P+1)^DIM
 // dofs, NQ = (P+2)^DIM points).  Instantiated here, for (DIM, P) = (2, 2),
-// (2, 3) and (3, 2): the compressible Ogden neo-Hookean and the
+// (2, 3), (3, 2) and (3, 3): the compressible Ogden neo-Hookean and the
 // St. Venant-Kirchhoff material with SymStorage<DIM>, plane (a, b), a <= b,
 // of tri_index_map(DIM^2) holding (C_ab + C_ba) / 2 with C_ab = dP_a / dF_b,
 // a = DIM c + d: 45 planes in 3D, 10 in 2D.  p = 3 in 2D is the golden
-// cantilever's (balken elevated by 2), p = 2 in 2D the examples'.
+// cantilever's (balken elevated by 2), p = 2 in 2D the examples', p = 3 in
+// 3D the two-patch cube elevated by 2 (64 dofs, 125 points).
 //
 // Design: one thread per element, 64 elements per block, looping over the
 // element's NQ quadrature points (a rolled loop: `#pragma unroll 1` keeps
@@ -40,7 +41,16 @@
 // element fields, 3.17 GB, about 0.95 ms at 3.35 TB/s; the assemble writes
 // the 45 planes as well (1.26 GB, 4.43 GB in all, ~1.32 ms); the matvec
 // reads the planes instead (4.40 GB, ~1.31 ms).  At 512^2 (2D, p = 3) dN is
-// 0.84 GB, N 0.42 GB, the 10 planes 0.26 GB.  Per point they do a few
+// 0.84 GB, N 0.42 GB, the 10 planes 0.26 GB.  At 3D p = 3 and the same E
+// dN is 10.5 GB, N 3.5 GB and the 45 planes 2.5 GB: ~4.3 ms for the
+// residual, ~5.0 ms for the assemble and the matvec.  There a thread's 192
+// output sums would spill to local memory and the two staged fields take
+// 96 KB a block (2 blocks, 4 warps an SM): one thread per element ran the
+// residual and the matvec at 50-60x their bound on an H100.  So the (3, 3)
+// kernels are
+// tiled as the sf residual is, one thread per element and point slot, each
+// thread summing the outputs of 16 nodes (dense_common.cuh
+// dense_tile_kernel).  Per point they do a few
 // hundred flops against a few hundred bytes, under one flop per byte.
 //
 // Rounding: the deformation gradient and the stress are formed with
@@ -106,7 +116,7 @@ int hyper_visc_entry(const float* u_el, const float* a_el, const float* v_el, co
 
 // C entry points, symmetric storage.  `material`: 0 the neo-Hookean, 1 the
 // St. Venant-Kirchhoff material; (dim, p) one of the instantiated pairs
-// (2, 2), (2, 3), (3, 2); v_el == nullptr (visc == 0 for the matvec)
+// (2, 2), (2, 3), (3, 2), (3, 3); v_el == nullptr (visc == 0 for the matvec)
 // selects the inviscid instantiation; the assemble's `full` the DIM^4
 // planes of dP/dF (FullStorage<DIM>, the matvec mimi_matvec_dense_full of
 // sweeps_dense_finite.cu) for the symmetric ones.  Each returns the

@@ -9,9 +9,9 @@
 // each inviscid or viscous (VISC: the residual and the assemble add
 // mu_v grad v to P, the matvec fac1 mu_v grad w, as sweeps_dense.cu says),
 // on the kernel templates of dense_common.cuh (design notes at the head of
-// sweeps_dense.cu), for (DIM, P) = (2, 2), (2, 3) and (3, 2): 2D patches
-// (the golden cantilever at p = 3, the examples at p = 2) and multi-patch
-// or knot-repeated 3D meshes.  `material` 0 is J2Simo, 1 J2Log
+// sweeps_dense.cu), for (DIM, P) = (2, 2), (2, 3), (3, 2) and (3, 3): 2D
+// patches (the golden cantilever at p = 3, the examples at p = 2) and
+// multi-patch or knot-repeated 3D meshes.  `material` 0 is J2Simo, 1 J2Log
 // (ops/sweeps.py FULL_KERNELS).  The plain torch versions are
 // residual_dense_plain, assemble_dense_plain (full_tangent_planes) and
 // matvec_dense_plain (tangent_apply_full) with these materials.  The
@@ -84,8 +84,8 @@ int finite_entry(const float* u_el, const float* a_el, const float* v_el, const 
 }  // namespace
 
 // C entry points, full storage; (dim, p) one of the instantiated pairs
-// (2, 2), (2, 3), (3, 2).  The state leaves s0..s3 in the order of
-// ops/sweeps.py FULL_KERNELS (J2Simo be_old, F_old, eqps, temperature;
+// (2, 2), (2, 3), (3, 2), (3, 3).  The state leaves s0..s3 in the order
+// of ops/sweeps.py FULL_KERNELS (J2Simo be_old, F_old, eqps, temperature;
 // J2Log Fp_inv, eqps, temperature, s3 unused); v_el == nullptr (visc == 0
 // for the matvec) selects the inviscid instantiation.  Each returns the
 // launch's cudaGetLastError(), or cudaErrorInvalidValue for a (dim, p) not

@@ -9,8 +9,8 @@
 //   mimi_matvec_dense_cauchy <- make_matvec_sweep ("cauchy")           y = J w
 // each inviscid or viscous (VISC, as sweeps_dense.cu says),
 // on the kernel templates of dense_common.cuh (design notes at the head of
-// sweeps_dense.cu), for (DIM, P) = (2, 2), (2, 3) and (3, 2).  The plain
-// torch versions are residual_dense_plain, assemble_dense_plain and
+// sweeps_dense.cu), for (DIM, P) = (2, 2), (2, 3), (3, 2) and (3, 3).  The
+// plain torch versions are residual_dense_plain, assemble_dense_plain and
 // matvec_dense_plain with the J2 or J2Linear material (ops/sweeps.py).
 //
 // The point bodies are j2.cuh's: J2's radial return on the point's state
@@ -129,8 +129,8 @@ int j2_entry(const float* u_el, const float* a_el, const float* v_el, const floa
 
 // C entry points, Cauchy-decomposition storage; J2 (material 0; the state
 // pointers ps, eqps, temp) or J2Linear (material 1; ps, eqps, beta); (dim,
-// p) one of the instantiated pairs (2, 2), (2, 3), (3, 2); v_el == nullptr
-// (visc == 0 for the matvec) selects the inviscid instantiation; the
+// p) one of the instantiated pairs (2, 2), (2, 3), (3, 2), (3, 3); v_el ==
+// nullptr (visc == 0 for the matvec) selects the inviscid instantiation; the
 // assemble's `full` the DIM^4 planes of dP/dF (FullStorage<DIM>, the matvec
 // mimi_matvec_dense_full of sweeps_dense_finite.cu) for the Cauchy block.  Each
 // returns the launch's cudaGetLastError(), or cudaErrorInvalidValue for a

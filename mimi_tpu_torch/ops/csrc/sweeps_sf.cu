@@ -72,6 +72,14 @@
 // q = q0 + 4 q1 + 16 q2 and n = a0 + 3 a1 + 9 a2, basis products formed
 // per point.
 //
+// p = 3 (sweeps_sf_p3.cu: this file at SfShape<4, 5>, the entry points
+// named *_p3): 64 dofs and 125 points per element, [192][32] per staged
+// field, 16 nodes and 48 accumulators a thread, 32 rounds of 4 points (the
+// last holds one); 3 blocks an SM inviscid (170 registers), 2 viscous
+// (255), every J2Mat and Hyper instantiation 0 B spilled.  The matvec's
+// 384 values of w and sums per thread spill (~9 KB): ~100x its bound, ROADMAP
+// Queue 2 item 11.
+//
 // What bounds them on the H100: the matvec streams the 37-plane tangent
 // block (9.5 KB per element) plus jinv (2.3 KB) once per GMRES iteration,
 // 1.4 GB per call at 48^3, so it is bandwidth bound (~0.42 ms floor at
@@ -168,7 +176,7 @@ int j2_sf(const float* u_el, const float* a_el, const float* v_el, const Tables&
     using Store = decltype(store);
     const J2Mat<LINEAR> mat{p, ps, eqps, temp, beta};
 #define MIMI_J2(VISC, CT)                                                    \
-  return launch_residual<J2Mat<LINEAR>, Store, TANGENT, VISC, CT>(           \
+  return launch_residual<Sf, J2Mat<LINEAR>, Store, TANGENT, VISC, CT>(       \
       u_el, a_el, v_el, tb, jinv, wq, out, cout, mat, p.rho, mu_v, E, stream)
     if (v_el) {
       if constexpr (TANGENT) {
@@ -194,7 +202,8 @@ int j2_sf(const float* u_el, const float* a_el, const float* v_el, const Tables&
 
 }  // namespace
 
-// C entry points of J2 (material 0; the state pointers ps, eqps, temp) and
+// C entry points (named *_p3 in the p = 3 twin of this source:
+// MIMI_SF_ENTRY) of J2 (material 0; the state pointers ps, eqps, temp) and
 // J2Linear (material 1; ps, eqps, beta); each returns the launch's
 // cudaGetLastError(), or cudaErrorInvalidValue for another material.
 // v_el == nullptr selects the inviscid variant, c_bf16 the bfloat16
@@ -205,7 +214,7 @@ int j2_sf(const float* u_el, const float* a_el, const float* v_el, const Tables&
 // leaf and the point body.
 extern "C" {
 
-int mimi_residual_sf(const float* u_el, const float* a_el, const float* v_el,
+int MIMI_SF_ENTRY(mimi_residual_sf)(const float* u_el, const float* a_el, const float* v_el,
                      const float* b0, const float* d0, const float* b1,
                      const float* d1, const float* b2, const float* d2,
                      const float* jinv, const float* wq, const float* ps,
@@ -215,7 +224,7 @@ int mimi_residual_sf(const float* u_el, const float* a_el, const float* v_el,
                       temp, beta, out, nullptr, 0, 0, p, mu_v, material, E, stream);
 }
 
-int mimi_assemble_sf(const float* u_el, const float* a_el, const float* v_el,
+int MIMI_SF_ENTRY(mimi_assemble_sf)(const float* u_el, const float* a_el, const float* v_el,
                      const float* b0, const float* d0, const float* b1,
                      const float* d1, const float* b2, const float* d2,
                      const float* jinv, const float* wq, const float* ps,
@@ -226,7 +235,7 @@ int mimi_assemble_sf(const float* u_el, const float* a_el, const float* v_el,
                      temp, beta, out, cout, c_bf16, full, p, mu_v, material, E, stream);
 }
 
-int mimi_matvec_sf(const float* w_el, const float* b0, const float* d0,
+int MIMI_SF_ENTRY(mimi_matvec_sf)(const float* w_el, const float* b0, const float* d0,
                    const float* b1, const float* d1, const float* b2,
                    const float* d2, const float* jinv, const float* wq,
                    const void* cb, int c_bf16, float* out, float rho, float fac0,
@@ -234,8 +243,8 @@ int mimi_matvec_sf(const float* w_el, const float* b0, const float* d0,
   if (E <= 0) return 0;
   Tables tb{{b0, d0, b1, d1, b2, d2}};
 #define MIMI_MV(VISC, CT)                                                      \
-  return launch_matvec<CauchyStorage<3>, VISC, CT>(w_el, tb, jinv, wq, cb, out, rho, \
-                                                fac0, fac1_mu_v, E, stream)
+  return launch_matvec<Sf, CauchyStorage<3>, VISC, CT>(w_el, tb, jinv, wq, cb, out, rho, \
+                                                    fac0, fac1_mu_v, E, stream)
   if (visc) {
     if (c_bf16) MIMI_MV(true, __nv_bfloat16);
     MIMI_MV(true, float);

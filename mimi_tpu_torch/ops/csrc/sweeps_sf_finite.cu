@@ -46,7 +46,7 @@ int launch_finite_material(const float* u_el, const float* a_el, const float* v_
   return with_finite_material<3>(material, p, s0, s1, s2, s3, [&](const auto& m) {
     using Mat = std::decay_t<decltype(m)>;
 #define MIMI_FINITE(VISC, CT)                                                              \
-  return launch_residual<Mat, FullStorage<3>, TANGENT, VISC, CT>(                          \
+  return launch_residual<Sf, Mat, FullStorage<3>, TANGENT, VISC, CT>(                      \
       u_el, a_el, v_el, tb, jinv, wq, out, cout, m, p.rho, mu_v, E, stream)
     if constexpr (TANGENT) {  // the residual writes no block
       if (c_bf16) {
@@ -62,7 +62,8 @@ int launch_finite_material(const float* u_el, const float* a_el, const float* v_
 
 }  // namespace
 
-// C entry points; each returns the launch's cudaGetLastError(), or
+// C entry points (named *_p3 in the p = 3 twin of this source:
+// MIMI_SF_ENTRY); each returns the launch's cudaGetLastError(), or
 // cudaErrorInvalidValue for an unknown material.  The state leaves s0..s3
 // in the order of ops/sweeps.py FULL_KERNELS: J2Simo be_old, F_old, eqps,
 // temperature; J2Log Fp_inv, eqps, temperature (s3 unused).  v_el ==
@@ -70,7 +71,7 @@ int launch_finite_material(const float* u_el, const float* a_el, const float* v_
 // c_bf16 the bfloat16 block.
 extern "C" {
 
-int mimi_residual_sf_finite(const float* u_el, const float* a_el, const float* v_el,
+int MIMI_SF_ENTRY(mimi_residual_sf_finite)(const float* u_el, const float* a_el, const float* v_el,
                             const float* b0, const float* d0, const float* b1,
                             const float* d1, const float* b2, const float* d2,
                             const float* jinv, const float* wq, const float* s0,
@@ -82,7 +83,7 @@ int mimi_residual_sf_finite(const float* u_el, const float* a_el, const float* v
                                        nullptr, 0, p, mu_v, material, E, stream);
 }
 
-int mimi_assemble_sf_finite(const float* u_el, const float* a_el, const float* v_el,
+int MIMI_SF_ENTRY(mimi_assemble_sf_finite)(const float* u_el, const float* a_el, const float* v_el,
                             const float* b0, const float* d0, const float* b1,
                             const float* d1, const float* b2, const float* d2,
                             const float* jinv, const float* wq, const float* s0,
@@ -95,7 +96,7 @@ int mimi_assemble_sf_finite(const float* u_el, const float* a_el, const float* v
                                       cout, c_bf16, p, mu_v, material, E, stream);
 }
 
-int mimi_matvec_sf_full(const float* w_el, const float* b0, const float* d0,
+int MIMI_SF_ENTRY(mimi_matvec_sf_full)(const float* w_el, const float* b0, const float* d0,
                         const float* b1, const float* d1, const float* b2,
                         const float* d2, const float* jinv, const float* wq,
                         const void* cf, int c_bf16, float* out, float rho, float fac0,
@@ -103,8 +104,8 @@ int mimi_matvec_sf_full(const float* w_el, const float* b0, const float* d0,
   if (E <= 0) return 0;
   Tables tb{{b0, d0, b1, d1, b2, d2}};
 #define MIMI_MV(VISC, CT)                                                                 \
-  return launch_matvec<FullStorage<3>, VISC, CT>(w_el, tb, jinv, wq, cf, out, rho, fac0, \
-                                                 fac1_mu_v, E, stream)
+  return launch_matvec<Sf, FullStorage<3>, VISC, CT>(w_el, tb, jinv, wq, cf, out, rho, fac0, \
+                                                     fac1_mu_v, E, stream)
   if (visc) {
     if (c_bf16) MIMI_MV(true, __nv_bfloat16);
     MIMI_MV(true, float);

@@ -34,7 +34,7 @@ template <class H, class Store, bool TANGENT, bool VISC, typename CT>
 int launch_hyper(const float* u_el, const float* a_el, const float* v_el, const Tables& tb,
                  const float* jinv, const float* wq, float* out, void* cout,
                  const HyperelasticParams& p, float mu_v, long long E, void* stream) {
-  return launch_residual<Hyper<H>, Store, TANGENT, VISC, CT>(
+  return launch_residual<Sf, Hyper<H>, Store, TANGENT, VISC, CT>(
       u_el, a_el, v_el, tb, jinv, wq, out, cout, Hyper<H>{H{p.mu, p.lam}}, p.rho, mu_v, E,
       stream);
 }
@@ -94,13 +94,14 @@ int hyper_entry(const float* u_el, const float* a_el, const float* v_el, const f
 
 }  // namespace
 
-// C entry points; each returns the launch's cudaGetLastError(), or
+// C entry points (named *_p3 in the p = 3 twin of this source:
+// MIMI_SF_ENTRY); each returns the launch's cudaGetLastError(), or
 // cudaErrorInvalidValue for a material not instantiated.  `full` selects
 // the 81 planes of dP/dF (FullStorage<3>, the matvec mimi_matvec_sf_full of
 // sweeps_sf_finite.cu) for the 45 symmetric ones.
 extern "C" {
 
-int mimi_residual_sf_hyper(const float* u_el, const float* a_el, const float* v_el,
+int MIMI_SF_ENTRY(mimi_residual_sf_hyper)(const float* u_el, const float* a_el, const float* v_el,
                            const float* b0, const float* d0, const float* b1, const float* d1,
                            const float* b2, const float* d2, const float* jinv,
                            const float* wq, float* out, HyperelasticParams p, float mu_v,
@@ -109,7 +110,7 @@ int mimi_residual_sf_hyper(const float* u_el, const float* a_el, const float* v_
                             0, 0, p, mu_v, material, E, stream);
 }
 
-int mimi_assemble_sf_hyper(const float* u_el, const float* a_el, const float* v_el,
+int MIMI_SF_ENTRY(mimi_assemble_sf_hyper)(const float* u_el, const float* a_el, const float* v_el,
                            const float* b0, const float* d0, const float* b1, const float* d1,
                            const float* b2, const float* d2, const float* jinv,
                            const float* wq, float* out, void* cout, int c_bf16, int full,
@@ -119,15 +120,15 @@ int mimi_assemble_sf_hyper(const float* u_el, const float* a_el, const float* v_
                            c_bf16, full, p, mu_v, material, E, stream);
 }
 
-int mimi_matvec_sf_sym(const float* w_el, const float* b0, const float* d0, const float* b1,
-                       const float* d1, const float* b2, const float* d2, const float* jinv,
+int MIMI_SF_ENTRY(mimi_matvec_sf_sym)(const float* w_el, const float* b0, const float* d0,
+                       const float* b1, const float* d1, const float* b2, const float* d2, const float* jinv,
                        const float* wq, const void* cs, int c_bf16, float* out, float rho,
                        float fac0, int visc, float fac1_mu_v, long long E, void* stream) {
   if (E <= 0) return 0;
   Tables tb{{b0, d0, b1, d1, b2, d2}};
 #define MIMI_MV(VISC, CT)                                                                \
-  return launch_matvec<SymStorage<3>, VISC, CT>(w_el, tb, jinv, wq, cs, out, rho, fac0, \
-                                                fac1_mu_v, E, stream)
+  return launch_matvec<Sf, SymStorage<3>, VISC, CT>(w_el, tb, jinv, wq, cs, out, rho, fac0, \
+                                                    fac1_mu_v, E, stream)
   if (visc) {
     if (c_bf16) MIMI_MV(true, __nv_bfloat16);
     MIMI_MV(true, float);

@@ -10,7 +10,9 @@ Counterpart of mimi_tpu/ops/sweeps.py (`make_residual_sweep`,
     materials, ops/csrc/sweeps_sf_hyper.cu) or c_storage="full" (the 81
     planes of dP/dF: J2Simo and J2Log, kernels in
     ops/csrc/sweeps_sf_finite.cu), each with and without the viscous flux,
-    the tangent block in float32 or bfloat16;
+    the tangent block in float32 or bfloat16, compiled for the (p + 1, n_g)
+    pairs of SF_SHAPES (p = 2 and p = 3; the p = 3 entry points, of the
+    *_p3.cu sources, carry the suffix "_p3", `sf_suffix`);
   - dense tables dN (nd, dim, n_q, n_el) and N (nd, n_q, n_el) in 2D or
     3D, c_storage="sym" (the hyperelastic materials: 45 planes in 3D, 10
     in 2D), "cauchy" (J2 and J2Linear with their state: 37 / 14 planes)
@@ -82,9 +84,9 @@ def variant(name, visc=False, bf16=False):
 # "log" J2Log, and "j2-pow", "simo-voce" and the like for a J2-family
 # material with the PowerLaw or Voce law); the dense ones by material tag
 # ("j2" for J2, "j2lin", "simo", "log", the law suffixes as on sf; the
-# untagged names are the neo-Hookean instantiations) and (dimension,
-# degree) suffix ("@2d_p3"; none for 3D p = 2); "visc" and "bf16" tag the
-# viscous and the bfloat16-block instantiations
+# untagged names are the neo-Hookean instantiations); both kinds by
+# (dimension, degree) suffix ("@2d_p3", "@3d_p3"; none for 3D p = 2);
+# "visc" and "bf16" tag the viscous and the bfloat16-block instantiations
 LAUNCHES = {}
 # The hyperelastic materials the CUDA kernels instantiate, by class name:
 # (material id of the C entry points, counter tag).  csrc/materials.cuh
@@ -125,13 +127,22 @@ def n_planes(storage, dim=3):
 
 
 # the (dimension, degree) pairs the dense kernels are compiled for: 2D p = 2
-# (the examples), 2D p = 3 (the golden cantilever), 3D p = 2
-DENSE_SHAPES = ((2, 2), (2, 3), (3, 2))
+# (the examples), 2D p = 3 (the golden cantilever), 3D p = 2 and p = 3
+DENSE_SHAPES = ((2, 2), (2, 3), (3, 2), (3, 3))
+# the (p + 1, Gauss points per axis) pairs the sf kernels are compiled for:
+# p = 2 and p = 3 with the default p + 2 points per axis (fem/space.py)
+SF_SHAPES = ((3, 4), (4, 5))
+
+
+def sf_suffix(p1, n_g):
+    """Suffix of the sf C entry points compiled for (p + 1, n_g): none at
+    p = 2, "_p3" at p = 3 (the *_p3.cu sources)."""
+    return "" if (p1, n_g) == (3, 4) else f"_p{p1 - 1}"
 
 
 def _shape_suffix(dim, p):
     """Counter-name suffix of an instantiation's (dim, p): none for 3D
-    p = 2, else "@2d_p3" and the like."""
+    p = 2, else "@2d_p3", "@3d_p3" and the like."""
     return "" if (dim, p) == (3, 2) else f"@{dim}d_p{p}"
 
 
@@ -146,9 +157,9 @@ def material_counters(kind, tag, storage="sym", dim=3, p=2, visc=False, bf16=Fal
     the material's own storage."""
     sfx = _shape_suffix(dim, p)
     if kind == "sf" and tag == "j2":
-        res = variant("residual_sf", visc)
+        res = variant("residual_sf", visc) + sfx
         if storage == "cauchy":
-            return res, variant("assemble_sf", visc, bf16)
+            return res, variant("assemble_sf", visc, bf16) + sfx
     elif kind == "dense" and tag == "nh":
         res = variant("residual_dense", visc) + sfx
     else:
@@ -160,9 +171,9 @@ def material_counters(kind, tag, storage="sym", dim=3, p=2, visc=False, bf16=Fal
 def matvec_counter(kind, storage, dim=3, p=2, visc=False, bf16=False):
     """Counter name of a matvec instantiation: "matvec_dense[cauchy]@2d_p3",
     "matvec_sf[sym,visc,bf16]" and the like (the Cauchy sf matvec's are
-    untagged: "matvec_sf[visc,bf16]")."""
+    untagged: "matvec_sf[visc,bf16]", "matvec_sf@3d_p3")."""
     if (kind, storage) == ("sf", "cauchy"):
-        return variant("matvec_sf", visc, bf16)
+        return variant("matvec_sf", visc, bf16) + _shape_suffix(dim, p)
     return f"matvec_{kind}[{','.join([storage, *_flags(visc, bf16)])}]{_shape_suffix(dim, p)}"
 
 
@@ -181,7 +192,8 @@ LAUNCHES.update({
     for storage in {own, "full"}
     for visc in _BOTH
     for name in (
-        *[n for bf16 in _BOTH for n in material_counters("sf", tag, storage, visc=visc, bf16=bf16)],
+        *[n for bf16 in _BOTH for p1, _ in SF_SHAPES
+          for n in material_counters("sf", tag, storage, 3, p1 - 1, visc, bf16)],
         *[n for dim, p in DENSE_SHAPES
           for n in material_counters("dense", tag, storage, dim, p, visc)],
     )
@@ -190,7 +202,8 @@ LAUNCHES.update({
     name: 0
     for storage in STORAGES
     for visc in _BOTH
-    for name in (*[matvec_counter("sf", storage, visc=visc, bf16=bf16) for bf16 in _BOTH],
+    for name in (*[matvec_counter("sf", storage, 3, p1 - 1, visc, bf16) for bf16 in _BOTH
+                   for p1, _ in SF_SHAPES],
                  *[matvec_counter("dense", storage, dim, p, visc) for dim, p in DENSE_SHAPES])
 })
 LAUNCHES.update({
@@ -841,11 +854,12 @@ def _check_device(device):
 
 
 def _check_common(el_fields, tabs, jinv, wq):
-    """Validate the shared sum-factorized operands; returns (device,
-    n_el).  Shapes that do not fit together raise ValueError; consistent
-    shapes of another degree or Gauss count than the kernels are compiled
-    for (p = 2 and 4 Gauss points per axis: 27 dofs, 64 quadrature points
-    per element) raise NotImplementedError, before the device is asked."""
+    """Validate the shared sum-factorized operands; returns (device, n_el,
+    p + 1, n_g).  Shapes that do not fit together raise ValueError;
+    consistent shapes of another degree or Gauss count than the kernels are
+    compiled for (SF_SHAPES: p = 2 with 4 Gauss points per axis, 27 dofs and
+    64 points per element; p = 3 with 5, 64 dofs and 125 points) raise
+    NotImplementedError, before the device is asked."""
     el_fields = [(n, t) for n, t in el_fields if t is not None]
     if len(tabs) != 6:
         raise ValueError(f"tabs: 6 one-dimensional tables required, got {len(tabs)}")
@@ -857,10 +871,11 @@ def _check_common(el_fields, tabs, jinv, wq):
         _check_shape(f"tabs[{k}]", t, (n_g, p1, n_el))
     _check_shape("jinv", jinv, (3, 3, n_q, n_el))
     _check_shape("wq", wq, (n_q, n_el))
-    if (n_g, p1) != (4, 3):
+    if (p1, n_g) not in SF_SHAPES:
         raise NotImplementedError(
             f"sum-factorized tables of degree {p1 - 1} with {n_g} Gauss points per axis: "
-            "the CUDA sf sweeps are compiled for degree 2 with 4 (ROADMAP Queue 2 item 8)"
+            "the CUDA sf sweeps are compiled for degree 2 with 4 and degree 3 with 5 "
+            "(ROADMAP Queue 2 item 8)"
         )
     device = el_fields[0][1].device
     _check_device(device)
@@ -870,7 +885,7 @@ def _check_common(el_fields, tabs, jinv, wq):
         _check(f"tabs[{k}]", t, (n_g, p1, n_el), device)
     _check("jinv", jinv, (3, 3, n_q, n_el), device)
     _check("wq", wq, (n_q, n_el), device)
-    return device, n_el
+    return device, n_el, p1, n_g
 
 
 def _state_ptrs(state, leaves, dim, n_q, n_el, device):
@@ -980,12 +995,15 @@ def _sf_sweep(assemble, u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el=No
 
     own, storage = _block_storage(mat, storage)
     bf16 = _c_flag(c_dtype)
-    device, n_el = _check_common(
+    device, n_el, p1, n_g = _check_common(
         [("u_el", u_el), ("a_el", a_el), ("v_el", v_el)], tabs, jinv, wq
     )
-    stem, prm, mat_id, st = _material_args(mat, state, dt, rho, 3, 64, n_el, device, "sf")
-    names = kernel_counters(mat, "sf", visc=v_el is not None, bf16=bool(bf16), storage=storage)
-    out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
+    n_q = n_g**3
+    stem, prm, mat_id, st = _material_args(mat, state, dt, rho, 3, n_q, n_el, device, "sf")
+    stem += sf_suffix(p1, n_g)
+    names = kernel_counters(mat, "sf", 3, p1 - 1, visc=v_el is not None, bf16=bool(bf16),
+                            storage=storage)
+    out = torch.empty((3, p1**3, n_el), dtype=torch.float32, device=device)
     head = (_ptr(u_el), _ptr(a_el), _ptr(v_el), *[_ptr(t) for t in tabs], _ptr(jinv),
             _ptr(wq), *st, _ptr(out))
     tail = (prm, ctypes.c_float(mu_v), ctypes.c_int(mat_id), ctypes.c_longlong(n_el))
@@ -993,7 +1011,7 @@ def _sf_sweep(assemble, u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el=No
     if not assemble:
         _launch(getattr(lib, f"mimi_residual{stem}"), names[0], *head, *tail)
         return out
-    cb = torch.empty((n_planes(storage), 64, n_el), dtype=c_dtype, device=device)
+    cb = torch.empty((n_planes(storage), n_q, n_el), dtype=c_dtype, device=device)
     # the full-storage switch of the materials with a stronger own storage
     full = () if own == "full" else (ctypes.c_int(int(storage == "full")),)
     _launch(getattr(lib, f"mimi_assemble{stem}"), names[1], *head, _ptr(cb), ctypes.c_int(bf16),
@@ -1059,13 +1077,13 @@ def _sf_matvec(w_el, tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v=None, storage="cau
 
     _tangent_apply(storage, Cb)
     visc = fac1_mu_v is not None
-    device, n_el = _check_common([("w_el", w_el)], tabs, jinv, wq)
-    out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
+    device, n_el, p1, n_g = _check_common([("w_el", w_el)], tabs, jinv, wq)
+    out = torch.empty((3, p1**3, n_el), dtype=torch.float32, device=device)
     bf16 = _c_flag(Cb.dtype)
-    _check("C", Cb, (n_planes(storage), 64, n_el), device, Cb.dtype)
+    _check("C", Cb, (n_planes(storage), n_g**3, n_el), device, Cb.dtype)
     _launch(
-        getattr(load(), _MATVEC_FNS["sf"][storage]),
-        matvec_counter("sf", storage, visc=visc, bf16=bool(bf16)),
+        getattr(load(), _MATVEC_FNS["sf"][storage] + sf_suffix(p1, n_g)),
+        matvec_counter("sf", storage, 3, p1 - 1, visc, bool(bf16)),
         _ptr(w_el), *[_ptr(t) for t in tabs], _ptr(jinv), _ptr(wq), _ptr(Cb),
         ctypes.c_int(bf16), _ptr(out), ctypes.c_float(rho), ctypes.c_float(fac0),
         ctypes.c_int(int(visc)), ctypes.c_float(fac1_mu_v if visc else 0.0),

@@ -537,13 +537,15 @@ def _meta(*shape):
 
 @pytest.mark.parametrize(
     "dim, p, n_q",
-    [(2, 4, 36), (3, 3, 125), (2, 3, 16)],
-    ids=["2d_p4", "3d_p3", "2d_p3_4pts"],
+    [(2, 4, 36), (3, 3, 216), (2, 3, 16), (3, 4, 216)],
+    ids=["2d_p4", "3d_p3", "2d_p3_4pts", "3d_p4"],
 )
 def test_uninstantiated_dense_shape_raises(dim, p, n_q):
     """Consistent dense tables of a (dim, p) or point count the kernels
     are not compiled for raise NotImplementedError naming Queue 2 item 8
-    at the wrapper, before any launch (meta tensors: no device is asked)."""
+    at the wrapper, before any launch (meta tensors: no device is asked):
+    3D p = 3 is compiled with its default 5^3 points only, 3D p = 4 not at
+    all."""
     nd, E = (p + 1) ** dim, 8
     dN, N, wq = _meta(nd, dim, n_q, E), _meta(nd, n_q, E), _meta(n_q, E)
     w = _meta(dim, nd, E)
@@ -568,11 +570,12 @@ def test_inconsistent_dense_shape_is_a_value_error():
             tsw.residual_dense(w, w, None, dN_, N, wq, mat, 0.5, RHO)
 
 
-@pytest.mark.parametrize("n_g, p1", [(3, 3), (5, 4)], ids=["p2_3pts", "p3"])
+@pytest.mark.parametrize("n_g, p1", [(3, 3), (6, 4), (6, 5)], ids=["p2_3pts", "p3", "p4"])
 def test_uninstantiated_sf_shape_raises(n_g, p1):
     """The sf sweeps' _check_common: consistent tables of another degree or
-    Gauss count raise NotImplementedError (Queue 2 item 8); inconsistent
-    ones ValueError."""
+    Gauss count (p = 2 and p = 3 are compiled with p + 2 points per axis
+    only, p = 4 not at all) raise NotImplementedError (Queue 2 item 8);
+    inconsistent ones ValueError."""
     E = 8
     tabs = [_meta(n_g, p1, E) for _ in range(6)]
     jinv, wq = _meta(3, 3, n_g**3, E), _meta(n_g**3, E)

@@ -80,17 +80,19 @@ def _split_top(args):
 def serial_launches(text):
     """`kernel<<<grid, block, shared, stream>>>(args)` -> a call of the
     stub's mimi_host_launch running `kernel(args)` as the grid's blocks, one
-    after the other, each on one host thread per thread of the block."""
+    after the other, each on one host thread per thread of the block, with
+    the launch's `shared` bytes of dynamic shared memory."""
     while "<<<" in text:
         i = text.index("<<<")
         start = _statement_start(text, i)
         j = text.index(">>>", i)
-        grid, block = _split_top(text[i + 3:j])[:2]
+        grid, block, shared = (_split_top(text[i + 3:j]) + ["0"])[:3]
         k = text.index("(", j)
         end = _matching_paren(text, k)
         kernel, args = text[start:i].strip(), text[k + 1:end]
         loop = (f" {{ const unsigned mimi_g = ({grid}), mimi_b = ({block});"
-                f" mimi_host_launch(mimi_g, mimi_b, [&] {{ {kernel}({args}); }}); }}")
+                f" const size_t mimi_s = ({shared});"
+                f" mimi_host_launch(mimi_g, mimi_b, mimi_s, [&] {{ {kernel}({args}); }}); }}")
         text = text[:start] + loop + text[end + 1:]
     return text
 
@@ -469,7 +471,7 @@ def _host_problem(kind, dim, deg, mat):
         mesh, clamp, elev, subd = BALKEN, [(2, 0), (2, 1)], deg - 1, 1
     else:
         mesh, clamp, elev, subd = (os.path.join(DATA, "two-patch-cube.mesh"),
-                                   [(0, 0), (0, 1), (0, 2)], 1, 0)
+                                   [(0, 0), (0, 1), (0, 2)], deg - 1, 0)
     prob = mt.build_problem(mesh, elev, subd, mat, clamp, {}, rho_inf=0.5, device="cpu",
                             dtype=torch.float32)
     assert (prob.sf is not None) == (kind == "sf") and prob.dim == dim
@@ -483,7 +485,7 @@ def _plastic_inputs(prob, rng, amplitude):
     mat, dim, E = prob.material, prob.dim, prob.n_el
     tables = (prob.sf["tables"], prob.sf["jinv"]) if prob.sf else (prob.dense["dN_t"],)
     grad = (lambda u: tsw.sf_grad(u, *tables)) if prob.sf else (lambda u: tsw.dense_grad(u, *tables))
-    nd = 27 if prob.sf else prob.dense["dN_t"].shape[0]
+    nd = prob.sf["pp1"] ** 3 if prob.sf else prob.dense["dN_t"].shape[0]
     f32 = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
     u0, u_el = (f32(amplitude * rng.standard_normal((dim, nd, E))) for _ in range(2))
     a_el, v_el, w_el = (f32(rng.standard_normal((dim, nd, E))) for _ in range(3))
@@ -538,7 +540,7 @@ def _hold_host_sweeps(sw, prob, f, visc, bf16, matvec=True, storage=None):
         assert float((C.float() - C_p.float()).abs().max()) <= 2.0**-7 * scale
     else:
         assert float((C - C_p).abs().max()) <= 1e-5 * scale
-    p = 2 if kind == "sf" else round(tables[0].shape[0] ** (1.0 / prob.dim)) - 1
+    p = prob.sf["pp1"] - 1 if kind == "sf" else round(tables[0].shape[0] ** (1.0 / prob.dim)) - 1
     names = sw.kernel_counters(mat, kind, prob.dim, p, visc, bf16, storage)
     assert sw.LAUNCHES[names[0]] == 1 and sw.LAUNCHES[names[1]] == 1
     if not matvec:
@@ -657,7 +659,7 @@ def test_finite_viscous_bf16_kernels_on_cpu_tensors(host_sweeps, kind, dim, deg,
 
 
 def _hyper_inputs(prob, rng):
-    nd = 27 if prob.sf else prob.dense["dN_t"].shape[0]
+    nd = prob.sf["pp1"] ** 3 if prob.sf else prob.dense["dN_t"].shape[0]
     f32 = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
     return tuple(f32(s * rng.standard_normal((prob.dim, nd, prob.n_el)))
                  for s in (0.02, 1.0, 1.0, 1.0)) + (None,)
@@ -692,3 +694,73 @@ def test_full_block_of_other_materials_on_cpu_tensors(host_sweeps, kind, dim, de
     else:
         f = _hyper_inputs(prob, rng)
     _hold_host_sweeps(host_sweeps, prob, f, visc, bf16, storage="full")
+
+
+def _first_elements(prob, n):
+    """The problem restricted to its first n elements (the sweeps are per
+    element): tables, w det J and the initial state."""
+    import dataclasses
+
+    cut = lambda t: t[..., :n].contiguous()  # noqa: E731
+    sf = dense = None
+    if prob.sf is not None:
+        sf = dict(prob.sf, tables=[cut(t) for t in prob.sf["tables"]], jinv=cut(prob.sf["jinv"]))
+    else:
+        dense = {k: cut(v) for k, v in prob.dense.items()}
+    state0 = None if prob.state0 is None else {k: cut(v) for k, v in prob.state0.items()}
+    return dataclasses.replace(prob, n_el=n, sf=sf, dense=dense, wdet_t=cut(prob.wdet_t),
+                               state0=state0)
+
+
+P3_CASES = [(kind, name, visc, bf16) for kind in ("sf", "dense")
+            for name, visc, bf16 in (("J2", False, False),
+                                     ("CompressibleOgdenNeoHookean", True, True),
+                                     ("J2Simo", False, False))]
+
+
+@pytest.mark.parametrize(
+    "kind, name, visc, bf16", P3_CASES,
+    ids=[f"{k}_{n}{'_visc' if v else ''}{'_bf16' if b else ''}" for k, n, v, b in P3_CASES])
+def test_p3_kernels_on_cpu_tensors(host_sweeps, kind, name, visc, bf16):
+    """The p = 3 kernels of the host build (the sf ones of the _p3 sources
+    at 4 nodes and 5 Gauss points per axis, the dense (3, 3) ones) on 40
+    elements, through the wrappers' own marshalling, against the plain
+    versions: J2 on a random plastic history (the return at 40 trips),
+    the viscous neo-Hookean with a bfloat16 block (float32 on dense
+    tables, whose block is float32 only), J2Simo's full block.  On sf
+    tables the residual kernel's 40 elements are one full tile of 32 and
+    a ragged one of 8; the counters carry the shape."""
+    if name == "J2":
+        mat = _material("J2")
+        mat.hardening.A = 5.0
+    elif name == "J2Simo":
+        mat = _press_law("J2Simo", viscosity=-1.0)
+    else:
+        mat = _hyper(name)
+    if kind == "sf":
+        prob = mt.build_problem(os.path.join(DATA, "cube-nurbs-3.mesh"), 0, 0, mat,
+                                [(1, 0), (1, 1), (1, 2)], {}, rho_inf=0.5, device="cpu",
+                                dtype=torch.float32, refine_spans=4)
+        assert (prob.sf["pp1"], prob.sf["n_g"], prob.n_q) == (4, 5, 125)
+    else:
+        prob = mt.build_problem(os.path.join(DATA, "two-patch-cube.mesh"), 2, 0, mat,
+                                [(0, 0), (0, 1), (0, 2)], {}, rho_inf=0.5, device="cpu",
+                                dtype=torch.float32, refine_spans=3)
+        assert prob.dense["dN_t"].shape[:3] == (64, 3, 125)
+        bf16 = False
+    prob = _first_elements(prob, 40)
+    rng = np.random.default_rng(12)
+    if mat.has_state:
+        f = _plastic_inputs(prob, rng, 0.002 if kind == "sf" else 0.004)
+        F = soa.add_diag(tsw.sf_grad(f[0], prob.sf["tables"], prob.sf["jinv"]) if prob.sf
+                         else tsw.dense_grad(f[0], prob.dense["dN_t"]), 1.0)
+        ret = mat._return_map(F, f[4], 0.05) if name == "J2" else mat._return_map_soa(F, f[4], 0.05)
+        share = float(ret[4].float().mean())
+        # J2 on both branches of the return; J2Simo (its press law yields at
+        # a strain of 7e-4) past yield at nearly every point, as the p = 2
+        # kernels' check above holds it
+        assert share > 0.1 and (name != "J2" or share < 0.95), share
+    else:
+        f = _hyper_inputs(prob, rng)
+    _hold_host_sweeps(host_sweeps, prob, f, visc, bf16)
+    assert host_sweeps.kernel_counters(prob.material, kind, 3, 3, visc, bf16)[0].endswith("@3d_p3")

@@ -382,11 +382,11 @@ def test_dense_full_unported_raise(what):
     J2Simo step on the golden cantilever's dense tables runs on the CPU,
     its first Newton residual changed by the viscous flux."""
     if what == "shape":
-        w, st, dN, N, wq, mat = _meta_args("J2Log", dim=3, p=3, n_q=125)
+        w, st, dN, N, wq, mat = _meta_args("J2Log", dim=3, p=4, n_q=216)
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 8"):
             tsw.residual_dense(w, w, st, dN, N, wq, mat, DT, RHO)
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 8"):
-            tsw.matvec_dense(w, dN, N, wq, _meta(81, 125, 8), RHO, FAC0, storage="full")
+            tsw.matvec_dense(w, dN, N, wq, _meta(81, 216, 8), RHO, FAC0, storage="full")
         return
     w, st, dN, N, wq, mat = _meta_args("J2Simo")
     if what == "viscous":
