@@ -3,8 +3,9 @@
 
 Builds the CUDA sweep kernels from the sources in this checkout (one nvcc
 per source, started together, into one library), prints ptxas's registers,
-shared memory and spills of every instantiation of the sf residual kernel
-(failing where a J2-family Cauchy or hyperelastic one spills), holds each
+shared memory and spills of every instantiation of the sf kernel template,
+residual, assemble and matvec (failing where a matvec or a J2-family
+Cauchy or hyperelastic residual or assemble spills), holds each
 kernel against its plain torch version, checks one implicit step of the
 kernel path against the plain path, then drives five paths, float32.  Four at 48^3 elements
 (cube-nurbs.mesh at p=2, 375,000 unknowns):
@@ -132,7 +133,7 @@ kernels at its state (the plain versions on four slices of the elements:
 at path I's size they would not fit the card whole), their rows, a
 profiled step, one step of each path's problem held kernel path against
 plain path at 16^3 / 2 x 8^3.  ptxas's gate holds the p = 3 J2-family and
-hyperelastic sf residual instantiations too.
+hyperelastic sf residual instantiations and every p = 3 sf matvec too.
 
     python3 chip_smoke.py
 
@@ -497,10 +498,7 @@ def jc_material(mt, A=70.0, name="J2"):
 def build(mt, spans, device, name="J2", A=70.0):
     """The body-force cube at `spans` per axis: boundary 1 clamped, body
     force -3, the J2-family material `name` (J2 unless named)."""
-    return mt.build_problem(
-        MESH, 1, 0, jc_material(mt, A, name), [(1, 0), (1, 1), (1, 2)], {1: -3.0},
-        rho_inf=0.5, device=device, refine_spans=spans,
-    )
+    return cube_of(mt, jc_material(mt, A, name), spans, device)
 
 
 def build_contact(mt, spans, device, name="J2", dtype=None):
@@ -534,15 +532,20 @@ def nbytes(*objs):
     return total
 
 
-def kernel_row(name, source, replaces, launches, err, ms, plain_ms, n_bytes, n_ops):
-    """One entry of the kernels line.  The bound is the larger of the
-    bytes the call must move (inputs read once, outputs written once) over
-    the memory rate and its operations over the float32 rate."""
+def bound_of(n_bytes, n_ops):
+    """(ms, "bytes" or "operations"): the larger of the bytes a call must
+    move (inputs read once, outputs written once) over the memory rate and
+    its operations over the float32 rate."""
     t_bytes, t_ops = n_bytes / HBM_BPS * 1e3, n_ops / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def kernel_row(name, source, replaces, launches, err, ms, plain_ms, n_bytes, n_ops):
+    """One entry of the kernels line, its bound from bound_of."""
+    bound, by = bound_of(n_bytes, n_ops)
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": bound, "bound_by": by,
             # no single PyTorch call computes a fused quadrature sweep
             "library_ms": None}
 
@@ -578,36 +581,38 @@ def ptxas_entries(log, nvcc):
     return entries
 
 
-def check_residual_ptxas(kbuild):
+def check_sf_ptxas(kbuild):
     """Registers, shared memory and spills of every instantiation of the
-    sf residual kernel (sf_common.cuh residual_kernel: one thread per
-    element and point slot); fails where a J2-family Cauchy (J2Mat) or
-    hyperelastic (Hyper) one spills, with its own or the full block.  The
+    sf kernel template (sf_common.cuh sf_tile_kernel: one thread per element
+    and point slot), at p = 2 and p = 3; fails where a matvec (SfMatvecPoint,
+    any storage) or a J2-family Cauchy (J2Mat) or hyperelastic (Hyper)
+    residual or assemble spills, with its own or the full block.  The
     finite-strain ones (J2SimoMat, J2LogMat: 9 dual-number passes per point)
-    and the other kernels with the full block are printed, not held."""
+    and the other kernels with the full block or at p = 3 are printed, not
+    held."""
     if kbuild.BUILD_INFO["cached"]:
         say("[2. ptxas] the library was cached: no ptxas output in this run")
         return
     every = ptxas_entries(kbuild.BUILD_INFO["log"], kbuild.nvcc())
-    ents = {n: v for n, v in every.items()
-            if re.search(r"(?<![A-Za-z_])residual_kernel", n)}  # not dense_residual_kernel
-    if not ents:
-        fail("no residual_kernel instantiation in the ptxas output")
+    ents = {n: v for n, v in every.items() if "sf_tile_kernel" in n}
+    if not any("SfMatvecPoint" in n for n in ents) or not any("SfResidualPoint" in n
+                                                              for n in ents):
+        fail("no sf_tile_kernel matvec or residual instantiation in the ptxas output")
     for name, v in sorted(ents.items()):
         spilled = v.get("spill_stores", 0) + v.get("spill_loads", 0)
-        name = re.sub(r"\((int|bool)\)", "", name.split("(const float")[0])
+        # cu++filt writes template arguments as (int)4, (bool)0; the
+        # arguments after the template's ">" are cut
+        name = re.sub(r"\((int|bool)\)", "", name.split(">(")[0] + ">")
         say(f"[2. ptxas] {name}: {v.get('registers')} registers, {v.get('smem')} B smem, "
             f"spill stores {v.get('spill_stores')} B, loads {v.get('spill_loads')} B, stack "
             f"{v.get('stack')} B")
-        if spilled and ("J2Mat" in name or "Hyper" in name):
+        if spilled and ("SfMatvecPoint" in name or "J2Mat" in name or "Hyper" in name):
             fail(f"{name} spills {spilled} B")
-    # the other kernels with the full block (dense residual and matvec, sf
-    # matvec) and those at p = 3 (the sf matvec at SfShape<4, 5>, the tiled
-    # dense (3, 3) kernels): printed, not held
+    # the other kernels with the full block (the dense residual and matvec)
+    # and at p = 3 (the tiled dense (3, 3) kernels): printed, not held
     for full_name, v in sorted(every.items()):
-        # cu++filt writes template arguments as (int)4, (bool)0
         name = re.sub(r"\((int|bool)\)", "", full_name.split("(const float")[0])
-        p3 = "SfShape<4, 5>" in name or "dense_tile_kernel<3, 3" in name
+        p3 = "dense_tile_kernel<3, 3" in name
         if ("FullStorage" in name or p3) and full_name not in ents:
             say(f"[2. ptxas] {name}: {v.get('registers')} registers, {v.get('smem')} B smem, "
                 f"spill stores {v.get('spill_stores')} B, loads {v.get('spill_loads')} B")
@@ -1058,20 +1063,15 @@ def dense_build(mt, spans, device, name="CompressibleOgdenNeoHookean", A=70.0, d
     unless another hyperelastic material or a J2-family one, yield stress
     A, is named)."""
     mat = jc_material(mt, A, name) if name.startswith("J2") else hyper_material(mt, name)
-    return mt.build_problem(
-        TWO_PATCH, 1, 0, mat, [(0, 0), (0, 1), (0, 2)], {1: -5.0},
-        rho_inf=0.5, device=device, refine_spans=spans, dtype=dtype,
-    )
+    return shared_build(mt, mat, 3, TWO_PATCH, 1, 0, [(0, 0), (0, 1), (0, 2)], -5.0, device,
+                        spans, dtype)
 
 
 def hyper_build(mt, spans, device, name="CompressibleOgdenNeoHookean"):
     """The hyperelastic cube (neo-Hookean unless another material is
     named): one patch at `spans` per axis, boundary 1 clamped, body force
     -3 in y."""
-    return mt.build_problem(
-        MESH, 1, 0, hyper_material(mt, name), [(1, 0), (1, 1), (1, 2)], {1: -3.0},
-        rho_inf=0.5, device=device, refine_spans=spans,
-    )
+    return cube_of(mt, hyper_material(mt, name), spans, device)
 
 
 def sym_sweeps(sweeps, prob):
@@ -1284,7 +1284,8 @@ def profile_step(torch, step, carry, s_step, label, contact_scenes=None):
             f"timed {s_step * 1e3:.1f} ms/step, {1.0 - busy / t_prof:.3f} of the profiled "
             f"step's wall {t_prof:.1f} ms")
         for key, n, t in sorted(ev, key=lambda x: -x[2])[:12]:
-            say(f"[{label}]   {t:9.3f} ms  x{n:<5d} {key[:90]}")
+            key = key.replace("(anonymous namespace)::", "")
+            say(f"[{label}]   {t:9.3f} ms  x{n:<5d} {key[:110]}")
     else:
         say(f"[{label}] device time not visible to torch.profiler: not measured")
     return carry
@@ -1401,8 +1402,8 @@ def fused_phase(torch, sweeps, fused, sh, prob, step, carry, u_el, w_el, Cs, gen
         f"{i_mf['res'] / norm_b:.3e}/{i_st['res'] / norm_b:.3e} of |M r|; the matrix-free "
         f"solution leaves {cross:.3e} in the stored-tangent system; solutions differ by "
         f"{c_err:.3e} of {c_scale:.3e}; launches { {k: n for k, n in launches.items() if n} }")
-    # residual and J w at the assemble and matvec bars (index_add_ sums with
-    # atomics).  The two solves stop at lin_rel_tol 1e-3 after different
+    # residual and J w at the assemble and matvec bars.  The two solves stop
+    # at lin_rel_tol 1e-3 after different
     # iteration counts, so their solutions differ by that tolerance times
     # the system's conditioning (printed, not gated); the matrix-free
     # solution must solve the stored-tangent system as well as its own
@@ -1475,7 +1476,7 @@ def dense_phases(torch, mt, sweeps, fused, sh, device, gen):
     say(f"[14. 2x{DENSE_CHECK_SPANS}^3 step] cuda vs torch: max|du| {err:.3e} max|u| "
         f"{scale:.3e}; newton {nc['iters']}/{nt['iters']} gmres "
         f"{nc['lin_iters']}/{nt['lin_iters']}")
-    # index_add_ scatters in float32 with atomics: rounding, not bitwise
+    # float32 with another summation order: rounding, not bitwise
     if not err <= 1e-4 * scale:
         fail(f"dense one-step parity {err} > 1e-4 * {scale}")
     del prob, carry0, out, u_el, a_el, w_el, J, eps
@@ -1982,8 +1983,8 @@ def balken_build(mt, name, elevate, subdivide, device, dtype=None):
     material) and body force."""
     mat = jc_material(mt, name=name) if name.startswith("J2") else hyper_material(mt, name)
     force = {**GOLDEN_2D, **GOLDEN_FINITE}[name][0]
-    return mt.build_problem(BALKEN, elevate, subdivide, mat, [(2, 0), (2, 1)],
-                            {1: force}, rho_inf=0.5, device=device, dtype=dtype)
+    return shared_build(mt, mat, 2, BALKEN, elevate, subdivide, [(2, 0), (2, 1)], force, device,
+                        dtype=dtype)
 
 
 def dense_degree(prob):
@@ -2881,6 +2882,10 @@ def hold_viscous(torch, sweeps, prob, mat, f, dt, label, launches=None,
                        lambda a=mv_args: plain[2](*a, storage=storage),
                        nbytes(f["w_el"], tables, wq, C_p) + el_out))
         del y_k
+        for i, _, _, _, byts in () if timed else checks:
+            bound, by = bound_of(byts, n_pts * (base[i] + (extra[i] if visc else 0)))
+            say(f"[{label}] {names[i]}: held, not timed; {byts / 1e9:.4f} GB, bound "
+                f"{bound:.5f} ms by {by} at {prob.n_el} elements")
         for i, err, kcall, pcall, byts in checks if timed else ():
             ms = cuda_ms(torch, kcall, 20)
             plain_ms = cuda_ms(torch, pcall, PLAIN_REPS)
@@ -3081,6 +3086,34 @@ def newton_system_parity(torch, mt, prob, carry, sd, step_kw, label, gen, prob64
     return steps
 
 
+def scatter_timing(torch, sh, prob, gen, label):
+    """The fixed-order conn scatter of a multi-patch problem (fem/scatter.py,
+    sharding._gather_scatter) on random float32 element values: its inverse
+    map's bytes and its transient gather's, ms per call against the
+    index_add_ it replaced (timed here only, as a yardstick), the largest
+    difference between the two, and whether two of its calls agree to the
+    bit (two index_add_ calls need not)."""
+    _, scatter = sh._gather_scatter(prob)
+    nd, dim, inv = prob.connT.shape[0], prob.dim, prob.conn_inv
+    r = torch.randn(dim, nd, prob.n_el, generator=gen).to(prob.device, prob.dtype)
+    idx = prob.connT.reshape(-1)
+
+    def index_add():
+        out = torch.zeros((dim, prob.n_dof), dtype=r.dtype, device=r.device)
+        return out.index_add_(1, idx, r.reshape(dim, -1)).T
+
+    y, y2, y_ia = scatter(r), scatter(r), index_add()
+    torch.cuda.synchronize()
+    ms, ms_ia = cuda_ms(torch, lambda: scatter(r), 20), cuda_ms(torch, index_add, 20)
+    say(f"[{label}] conn scatter (fixed order): inverse map {tuple(inv.shape)} "
+        f"{inv.numel() * inv.element_size() / 1e6:.1f} MB, transient gather "
+        f"{dim * inv.numel() * r.element_size() / 1e6:.1f} MB; {ms:.4f} ms a call against "
+        f"index_add_ {ms_ia:.4f} ms; max|diff| {float((y - y_ia).abs().max()):.3e} of "
+        f"{float(y_ia.abs().max()):.3e}; two calls equal to the bit: {torch.equal(y, y2)}")
+    if not torch.equal(y, y2):
+        fail(f"{label}: the fixed-order scatter differs between two calls")
+
+
 def press_phases(torch, mt, sweeps, soa, sh, device, gen):
     """Phases 38-42: the viscous neo-Hookean contact presses with the
     frozen contact tangent.  For each path: the host build, the new
@@ -3116,6 +3149,8 @@ def press_phases(torch, mt, sweeps, soa, sh, device, gen):
             f"{cd['conn'].shape[0]} x {cd['wq'].shape[1]} points, mortar dofs "
             f"{prob.contact_static[0]['n_local']}; device peak "
             f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+        if prob.grid is None:
+            scatter_timing(torch, sh, prob, gen, label)
 
         # ---- 38. the new instantiations on the path's tables, random input ----
         if dim == 2:
@@ -3220,17 +3255,42 @@ def law_material(mt, name, law, sigma_y=None):
     return mat
 
 
+# the body-force problems built so far, by mesh, refinement, clamped
+# boundary, force, device, dtype and the material's elastic constants: the
+# tables, the load and the FDM data depend on nothing else, so each is built
+# once (~3-7 s at full size) and every other material of the same constants
+# gets it through with_material
+_BUILT = {}
+
+
+def shared_build(mt, mat, dim, mesh, elevate, subdivide, clamp, force, device, spans=None,
+                 dtype=None):
+    """The body-force problem on `mesh` (boundary 1 loaded with `force` in
+    y, the boundaries of `clamp` fixed) with the material `mat`, from
+    _BUILT where it was built before."""
+    from mimi_tpu_torch.fem import soa
+
+    mat.setup(dim)
+    key = (mesh, elevate, subdivide, tuple(clamp), force, spans, str(device), dtype,
+           float(mat.lambda_), float(mat.mu))
+    if key not in _BUILT:
+        _BUILT[key] = mt.build_problem(mesh, elevate, subdivide, mat, clamp, {1: force},
+                                       rho_inf=0.5, device=device, refine_spans=spans,
+                                       dtype=dtype)
+    return with_material(soa, _BUILT[key], mat)
+
+
 def cube_of(mt, mat, spans, device, force=-3.0, dtype=None):
     """The body-force cube at `spans` per axis with the material `mat`."""
-    return mt.build_problem(MESH, 1, 0, mat, [(1, 0), (1, 1), (1, 2)], {1: force},
-                            rho_inf=0.5, device=device, refine_spans=spans, dtype=dtype)
+    return shared_build(mt, mat, 3, MESH, 1, 0, [(1, 0), (1, 1), (1, 2)], force, device, spans,
+                        dtype)
 
 
 def cantilever_of(mt, mat, elevate, subdivide, device, dtype=None):
     """The golden cantilever's mesh (boundary 2 clamped, body force -3) with
     the material `mat`."""
-    return mt.build_problem(BALKEN, elevate, subdivide, mat, [(2, 0), (2, 1)], {1: -3.0},
-                            rho_inf=0.5, device=device, dtype=dtype)
+    return shared_build(mt, mat, 2, BALKEN, elevate, subdivide, [(2, 0), (2, 1)], -3.0, device,
+                        dtype=dtype)
 
 
 def plastic_mask(mat, F, state, dt):
@@ -3514,12 +3574,15 @@ def press_finite_material(mt, name):
 
 def with_material(soa, prob, mat):
     """The problem with another material of the same elastic constants
-    (the FDM data is the same) and that material's initial state."""
+    (the FDM data is the same) and that material's initial state (None for
+    a stateless one)."""
     import dataclasses
 
     mat.setup(prob.dim)
-    state0 = soa.state_to_soa(mat.init_state((prob.n_el, prob.n_q), dtype=prob.dtype,
-                                             device=prob.device))
+    state0 = None
+    if mat.has_state:
+        state0 = soa.state_to_soa(mat.init_state((prob.n_el, prob.n_q), dtype=prob.dtype,
+                                                 device=prob.device))
     return dataclasses.replace(prob, material=mat, state0=state0)
 
 
@@ -3855,6 +3918,8 @@ def finite_press_paths(torch, mt, sweeps, soa, sh, device, gen):
             f"{'dense' if base.dense else 'sf'} tables; full block "
             f"{sweeps.n_planes('full', dim) * base.n_q * base.n_el * (2 if dim == 3 else 4) / 1e9:.3f}"
             f" GB ({'bfloat16' if dim == 3 else 'float32'})")
+        if base.grid is None:
+            scatter_timing(torch, sh, base, gen, f"{n_drive}. path {tag} {size_s}")
 
         # ---- 49 / 51. the new instantiations on the path's tables, random input -----
         held_random(base, sweeps.FULL_KERNELS, sf_combos if dim == 3 else ((True, False),),
@@ -4028,7 +4093,7 @@ def main():
     for line in kbuild.BUILD_INFO["log"].splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             say(f"  ptxas: {line.strip()}")
-    check_residual_ptxas(kbuild)
+    check_sf_ptxas(kbuild)
 
     gen = torch.Generator().manual_seed(0)
 
@@ -4202,6 +4267,8 @@ def main():
     say(f"[clock] phases 48-53 done: {time.perf_counter() - t_main:.1f} s since phase 2")
 
     # ---- 54-57. the cubic (p = 3) sweeps: paths H and I --------------------------------------
+    _BUILT.clear()  # no p = 2 problem is built again; path I needs the card's memory
+    torch.cuda.empty_cache()
     rows += p3_phases(torch, mt, sweeps, soa, sh, device, gen)
     say(f"[clock] phases 54-57 done: {time.perf_counter() - t_main:.1f} s since phase 2")
 

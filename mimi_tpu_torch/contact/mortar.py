@@ -5,7 +5,8 @@ Counterpart of mimi_tpu/contact/mortar.py `make_contact_fns`:
 pressure pass (all marked boundary elements): per quadrature point a
 closest-point query at the current coordinates (u + x_ref), the unit
 spline normal, the normal gap clamped min(g, 0) with the 1e-5 angle gate;
-mortar-averaged nodal gap and area by scatter-add; nodal pressure
+mortar-averaged nodal gap and area by scatter-add (in a fixed order,
+fem/scatter.py, through the block's "inv"); nodal pressure
 p = gap / area * penalty.
 
 residual pass: traction residual t = -(w det J p) n with n the element
@@ -31,7 +32,26 @@ its own dof values with the nodal pressure held fixed.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from ..fem.scatter import gather_sum, inverse_map
+
+
+def contact_scatter_tables(conn, ldof, device):
+    """The fixed-order scatter of a contact block with (n_mb, nd) global
+    dofs `conn` and local mortar dofs `ldof` (host arrays): "inv", the
+    (n_local, max valence) positions in the flattened (n_mb nd) element
+    values of each local dof (fem/scatter.py inverse_map), and "gdof",
+    each local dof's global dof."""
+    conn, ldof = np.asarray(conn).ravel(), np.asarray(ldof).ravel()
+    n_local = int(ldof.max()) + 1
+    gdof = np.zeros(n_local, dtype=np.int64)
+    gdof[ldof] = conn
+    return {
+        "inv": torch.as_tensor(inverse_map(ldof, n_local), device=device),
+        "gdof": torch.as_tensor(gdof, device=device),
+    }
 
 
 def _surface_normal_raw(J):
@@ -99,13 +119,15 @@ def make_contact_fns(dim: int, n_local: int, batched_query):
     `cd` is a dict of element tables for one marked boundary block:
       conn (n_mb, nd) global scalar dofs (int64), N (n_mb, q, nd),
       dN (n_mb, q, nd, dim-1), wq (n_mb, q), nsign (n_mb,),
-      ldof (n_mb, nd) local mortar dof ids, x_ref_el (n_mb, nd, dim).
+      ldof (n_mb, nd) local mortar dof ids, x_ref_el (n_mb, nd, dim),
+      and the fixed-order scatter's inv (n_local, max valence) and gdof
+      (n_local,) (`contact_scatter_tables`), which also give the n_local
+      mortar dofs that the reference's signature passes.
 
     Returns (pressure_pass, residual_pass, linearized_pass)."""
 
-    def scatter_local(vals_el, ldof):
-        out = torch.zeros(n_local, dtype=vals_el.dtype, device=vals_el.device)
-        return out.index_add_(0, ldof.reshape(-1), vals_el.reshape(-1))
+    def scatter_local(vals_el, inv):
+        return gather_sum(vals_el.reshape(-1), inv)
 
     def gap_pass(u, cd, scene_data):
         """Query at the current quadrature points; the held results and
@@ -142,8 +164,8 @@ def make_contact_fns(dim: int, n_local: int, batched_query):
         c = _surface_normal_raw(J)
         det = torch.linalg.vector_norm(c, dim=-1)
         fac = cd["wq"] * det
-        area = scatter_local(torch.einsum("eq,eqn->en", fac, N), cd["ldof"])
-        gap = scatter_local(torch.einsum("eq,eqn->en", fac * g, N), cd["ldof"])
+        area = scatter_local(torch.einsum("eq,eqn->en", fac, N), cd["inv"])
+        gap = scatter_local(torch.einsum("eq,eqn->en", fac * g, N), cd["inv"])
         pos = area > 0.0
         gpa = torch.where(pos, gap / torch.where(pos, area, torch.ones_like(area)),
                           torch.zeros_like(area))
@@ -184,8 +206,8 @@ def make_contact_fns(dim: int, n_local: int, batched_query):
             dc = _surface_normal_raw_dot(J, dJ)
             ddet = (c * dc).sum(-1) / det
             dfac = wq * ddet
-            darea = scatter_local(torch.einsum("eq,eqn->en", dfac, N), ldof)
-            dgap = scatter_local(torch.einsum("eq,eqn->en", dfac * g + fac * dg, N), ldof)
+            darea = scatter_local(torch.einsum("eq,eqn->en", dfac, N), cd["inv"])
+            dgap = scatter_local(torch.einsum("eq,eqn->en", dfac * g + fac * dg, N), cd["inv"])
             dp = torch.where(pos, (dgap - gpa * darea) / safe_area,
                              torch.zeros_like(area)) * penalty
             dp_q = torch.einsum("eqn,en->eq", N, dp[ldof])

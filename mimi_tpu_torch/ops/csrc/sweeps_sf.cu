@@ -1,10 +1,11 @@
 // Sum-factorized quadrature sweeps of the implicit step, for sm_90a.
 //
 // Three kernels, each replacing one Pallas TPU kernel of
-// mimi_tpu/ops/sweeps.py in its sum-factorized branch:
-//   residual_kernel<.., false, ..>  <- make_residual_sweep (sf_mode)   residual only
-//   residual_kernel<.., true, ..>   <- make_assemble_sweep (sf)        residual + tangent planes
-//   matvec_kernel                   <- make_matvec_sweep_sf            y = J w
+// mimi_tpu/ops/sweeps.py in its sum-factorized branch, all instantiations
+// of one template (sf_common.cuh sf_tile_kernel) with a point functor:
+//   SfResidualPoint<.., false, ..>  <- make_residual_sweep (sf_mode)   residual only
+//   SfResidualPoint<.., true, ..>   <- make_assemble_sweep (sf)        residual + tangent planes
+//   SfMatvecPoint                   <- make_matvec_sweep_sf            y = J w
 // for J2 (any of the reference's hardening laws) and J2Linear with the
 // 37-plane Cauchy-decomposition tangent (c_storage="cauchy":
 // mimi_residual_sf, mimi_assemble_sf, mimi_matvec_sf) or, asked for, the
@@ -45,53 +46,60 @@
 //         to nearest even (as astype(bfloat16)); the matvec widens on load.
 //         At 48^3 the matvec then streams 0.52 GB of C instead of 1.05 GB.
 //
-// Design of the residual and assemble (residual_kernel, sf_common.cuh):
-// one thread per (element, point slot).  A block of 128 threads takes a
-// tile of 32 consecutive elements, one per lane, in 4 warps, warp s taking
-// the points q = s (mod 4) of every element; the batch-last layout
-// (..., n_q, n_el) makes every table, jinv, w det J, state and
-// tangent-plane access of a warp one 128-byte line.  The tile's u, a (and
-// v) are staged once in shared memory, [81][32] per field, each lane
-// reading its own column; per point the warp forms F (and grad v, a) from
-// there with the operations of the one-thread-per-element kernel this
-// replaced, so every output rounds as that kernel's did, runs the material
-// and stores the planes, and hands the point's 1D basis values and flux to
-// shared memory.  Every 4 points a barrier, then each thread adds them, in
-// q order, to the outputs of the 7 (6) nodes it owns, three components
-// each: 21 accumulators, a deterministic reduction without atomics.  The
-// last tile is masked where E % 32 != 0.  __launch_bounds__(128, 4) caps a
-// thread at 128 registers, 16 warps per SM; ptxas (CUDA 12.8, sm_90a):
-// every J2Mat and Hyper instantiation 121-128 registers, 0 B spilled;
+// Design (sf_tile_kernel, sf_common.cuh): one thread per (element, point
+// slot).  A block of 128 threads takes a tile of 32 consecutive elements,
+// one per lane, in 4 warps, warp s taking the points q = s (mod 4) of every
+// element; the batch-last layout (..., n_q, n_el) makes every table,
+// jinv, w det J, state and tangent-plane access of a warp one 128-byte
+// line.  The tile's element fields (the residual's u, a and v; the
+// matvec's w) are staged once in shared memory, [81][32] per field, each
+// lane reading its own column; per point the warp forms F (grad v, a; or
+// grad w and w) from there with the operations of the one-thread-per-
+// element kernels this replaced, so every output rounds as theirs did,
+// runs the material and stores the planes (or applies the block), and
+// hands the point's 1D basis values and flux to shared memory.  Every 4
+// points a barrier, then each thread adds them, in q order, to the
+// outputs of the 7 (6) nodes it owns, three components each: 21
+// accumulators, a deterministic reduction without atomics.  The last tile
+// is masked where E % 32 != 0.  __launch_bounds__(128, 4) caps a thread at
+// 128 registers, 16 warps per SM; ptxas (CUDA 12.8, sm_90a): every J2Mat
+// and Hyper residual instantiation 121-128 registers, 0 B spilled;
 // J2SimoMat's and J2LogMat's residual 0 B, their assemble (9 dual-number
-// passes a point) 36 and 452 B (PERF.md section 6).  The one-thread-per-element kernel it replaced held
-// u, a, v and 81 accumulators per thread: 255 registers, 584-1372 B
-// spilled, 8 warps per SM.
-// The matvec (matvec_kernel) is still one thread per element, looping over
-// its 64 points with w and the 81 accumulators in registers.  The 1D
+// passes a point) 36 and 452 B (PERF.md section 6); every matvec 0 B
+// (phase 2 of chip_smoke.py fails on a spilled one).  The one-thread-per-
+// element kernels it replaced held the fields and 81 accumulators per
+// thread: 255 registers, 376-1372 B spilled, 8 warps per SM.  The 1D
 // tables are indexed directly by (q0, q1, q2) and (a0, a1, a2):
 // q = q0 + 4 q1 + 16 q2 and n = a0 + 3 a1 + 9 a2, basis products formed
-// per point.
+// per point and, by each owner, per node.
 //
 // p = 3 (sweeps_sf_p3.cu: this file at SfShape<4, 5>, the entry points
 // named *_p3): 64 dofs and 125 points per element, [192][32] per staged
 // field, 16 nodes and 48 accumulators a thread, 32 rounds of 4 points (the
-// last holds one); 3 blocks an SM inviscid (170 registers), 2 viscous
-// (255), every J2Mat and Hyper instantiation 0 B spilled.  The matvec's
-// 384 values of w and sums per thread spill (~9 KB): ~100x its bound, ROADMAP
-// Queue 2 item 11.
+// last holds one); the residual 3 blocks an SM inviscid (170 registers), 2
+// viscous (255), the matvec 3 (43.0 KB a block); every J2Mat and Hyper
+// instantiation 0 B spilled.  The one-thread-per-element matvec this
+// replaced held 384 values of w and sums a thread and spilled ~11 KB:
+// ~100x its bound.
 //
 // What bounds them on the H100: the matvec streams the 37-plane tangent
 // block (9.5 KB per element) plus jinv (2.3 KB) once per GMRES iteration,
-// 1.4 GB per call at 48^3, so it is bandwidth bound (~0.42 ms floor at
-// 3.35 TB/s): per point it does ~1.7k flops against ~200 bytes, about
-// 8 flop/byte, under the ~20 flop/byte float32 ridge.  The assemble writes
-// the same 1.05 GB tangent and runs the radial return (up to 40
-// safeguarded Newton-bisection trips with powf/logf on plastic points, the
-// reference kernels' cap):
-// plastic-heavy calls are bound by the trips' dependent chains at 16 warps
-// per SM, the elastic ones by the per-point interpolation and reduction
-// instructions.  The symmetric matvec streams 45 planes (1.27 GB at 48^3,
-// ~0.50 ms at 3.35 TB/s).
+// 1.4 GB per call at 48^3, so by bytes it would take ~0.42 ms at
+// 3.35 TB/s: per point ~1.7k flops against ~200 bytes, about 8 flop/byte,
+// under the ~20 flop/byte float32 ridge.  What holds the tile back from
+// that is its instructions per point: the O(ND) interpolation of grad w
+// from shared memory and, per owner, the O(ND / 4) node terms of the
+// reduction, ~3 x 4 ND fused multiply-adds a point with their
+// shared-memory reads, and a barrier every 4 points; at p = 3 (64 nodes)
+// these, not the block's bytes, set its time (the TPU kernel's staged
+// axis-by-axis contraction, ~10 terms a point instead of 64, is the next
+// design: ROADMAP Queue 2 item 11).  The assemble writes the same 1.05 GB
+// tangent and runs the radial return (up to 40 safeguarded
+// Newton-bisection trips with powf/logf on plastic points, the reference
+// kernels' cap): plastic-heavy calls are bound by the trips' dependent
+// chains at 16 warps per SM, the elastic ones by the per-point
+// interpolation and reduction instructions.  The symmetric matvec streams
+// 45 planes (1.27 GB at 48^3, ~0.50 ms at 3.35 TB/s).
 //
 // Rounding of the hyperelastic variants: F comes out of the per-point
 // basis products below with fused multiply-add, so it agrees with the

@@ -3,9 +3,9 @@
 //
 // Replaces the `full` branch of three Pallas TPU kernels of
 // mimi_tpu/ops/sweeps.py on the sum-factorized tables:
-//   residual_kernel<J2SimoMat<3> | J2LogMat<3>, FullStorage<3>, false, VISC, float>  <- make_residual_sweep (sf_mode)
-//   residual_kernel<J2SimoMat<3> | J2LogMat<3>, FullStorage<3>, true, VISC, CT>      <- make_assemble_sweep (sf, full, :620-648)
-//   matvec_kernel<FullStorage<3>, VISC, CT>                                           <- make_matvec_sweep_sf (full, :820-836)
+//   SfResidualPoint<J2SimoMat<3> | J2LogMat<3>, FullStorage<3>, false, VISC, float>  <- make_residual_sweep (sf_mode)
+//   SfResidualPoint<J2SimoMat<3> | J2LogMat<3>, FullStorage<3>, true, VISC, CT>      <- make_assemble_sweep (sf, full, :620-648)
+//   SfMatvecPoint<FullStorage<3>, VISC, CT>                                           <- make_matvec_sweep_sf (full, :820-836)
 // C entry points mimi_residual_sf_finite, mimi_assemble_sf_finite
 // (`material`: 0 J2Simo, 1 J2Log) and mimi_matvec_sf_full (the matvec of
 // every material's full block: J2 and J2Linear write one in sweeps_sf.cu,

@@ -3,10 +3,10 @@
 //
 // Replaces the c_storage="sym" branch of three Pallas TPU kernels of
 // mimi_tpu/ops/sweeps.py on the sum-factorized tables:
-//   residual_kernel<Hyper<..>, SymStorage<3>, false, VISC, float>  <- make_residual_sweep (sf_mode)
-//   residual_kernel<Hyper<..>, SymStorage<3>, true, VISC, CT>      <- make_assemble_sweep (sf, "sym")
-//   residual_kernel<Hyper<..>, FullStorage<3>, true, VISC, CT>     <- make_assemble_sweep (sf, "full")
-//   matvec_kernel<SymStorage<3>, VISC, CT>                         <- make_matvec_sweep_sf ("sym")
+//   SfResidualPoint<Hyper<..>, SymStorage<3>, false, VISC, float>  <- make_residual_sweep (sf_mode)
+//   SfResidualPoint<Hyper<..>, SymStorage<3>, true, VISC, CT>      <- make_assemble_sweep (sf, "sym")
+//   SfResidualPoint<Hyper<..>, FullStorage<3>, true, VISC, CT>     <- make_assemble_sweep (sf, "full")
+//   SfMatvecPoint<SymStorage<3>, VISC, CT>                         <- make_matvec_sweep_sf ("sym")
 // C entry points mimi_residual_sf_hyper, mimi_assemble_sf_hyper
 // (`material`: 0 the neo-Hookean, 1 the St. Venant-Kirchhoff material) and
 // mimi_matvec_sf_sym.  Each comes inviscid or with the viscous flux of

@@ -15,7 +15,7 @@ paths:
     tangent of the hyperelastic materials (45 planes in 3D, 10 in 2D) or
     J2's Cauchy-decomposition tangent (37 / 14 planes) and its state,
     structured gather and pad-and-sum scatter on one patch with simple
-    interior knots, else gather and index_add_ scatter through the
+    interior knots, else gather and fixed-order scatter through the
     connectivity, the FDM (patch-wise additive Schwarz on several
     patches).
 All run FDM-preconditioned GMRES and the reference's LineSearchNewton
@@ -42,9 +42,10 @@ import numpy as np
 import torch
 
 from ..config import default_dtype, resolve_device
-from ..contact.mortar import make_contact_fns, residual_grad_pass
+from ..contact.mortar import contact_scatter_tables, make_contact_fns, residual_grad_pass
 from ..fem import soa
 from ..fem.multipatch import MultiPatchFESpace
+from ..fem.scatter import gather_sum, inverse_map
 from ..fem.space import FESpace, _connectivity, _quad_weights, batch_last, domain_dim_tables
 from ..nurbs.mesh_io import read_mfem_nurbs_mesh
 from ..nurbs.topology import build_patch_from_mesh
@@ -73,6 +74,9 @@ class Problem:
     # knots), or None: gather and scatter then go through connT
     grid: dict | None = None
     connT: torch.Tensor | None = None  # (nd, n_el) conn.T on the device
+    # (n_dof, max valence) the positions in connT of each dof
+    # (fem/scatter.py inverse_map), with connT: the scatter's fixed order
+    conn_inv: torch.Tensor | None = None
     # exactly one of: the sum-factorized tables {"tables": [B0, D0, B1, D1,
     # B2, D2], "jinv", "n_g", "pp1"}, or the dense tables {"dN_t"
     # (nd, dim, n_q, n_el), "N_t" (nd, n_q, n_el)}
@@ -203,11 +207,12 @@ def build_problem(
     dev = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)  # noqa: E731
     if grid is not None and _sf_gate(patch, quadrature_order):
         conn, n_q, wdet_t, nodal, sf = _sf_tables(fes, quadrature_order, dev)
-        dense = connT = None
+        dense = connT = conn_inv = None
     else:
         conn, n_q, wdet_t, nodal, dense = _dense_tables(fes, quadrature_order, dtype, device)
         sf = None
         connT = torch.as_tensor(np.ascontiguousarray(conn.T), dtype=torch.int64, device=device)
+        conn_inv = torch.as_tensor(inverse_map(conn.T, fes.n_dof), device=device)
     n_el = conn.shape[0]
 
     dir_pairs = list(dirichlet)
@@ -245,6 +250,7 @@ def build_problem(
         ),
         grid=grid,
         connT=connT,
+        conn_inv=conn_inv,
         sf=sf,
         dense=dense,
         contact=contact_data,
@@ -352,6 +358,7 @@ def _contact_blocks(fes, contact, quadrature_order, dtype, device):
 
         data.append(
             {
+                **contact_scatter_tables(c_conn, lookup[c_conn], device),
                 "conn": dev(c_conn, torch.int64),
                 "N": dev(bt.N[marked]),
                 "dN": dev(bt.dN_dxi[marked]),
@@ -376,11 +383,13 @@ def _contact_fns_for(prob):
     ]
 
 
-def _scatter_conn(res_el, conn, n_dof):
-    """(n_mb, nd, dim) boundary-element values -> (n_dof, dim)."""
+def _scatter_conn(res_el, cd, n_dof):
+    """(n_mb, nd, dim) boundary-element values of the contact block cd ->
+    (n_dof, dim), summed in a fixed order (cd's "inv", "gdof")."""
     dim = res_el.shape[-1]
     out = torch.zeros((n_dof, dim), dtype=res_el.dtype, device=res_el.device)
-    return out.index_add_(0, conn.reshape(-1), res_el.reshape(-1, dim))
+    out[cd["gdof"]] = gather_sum(res_el.reshape(-1, dim).T, cd["inv"]).T
+    return out
 
 
 def _local_offsets(pp1):
@@ -428,20 +437,18 @@ def _structured_scatter(res_t, spans, pp1, nc, n_dof):
 def _gather_scatter(prob):
     """(gather_t, scatter_el): (n_dof, dim) -> (dim, nd, n_el) element
     values and back, as slices of the structured dof grid, or through the
-    connectivity (u.T[:, connT], index_add_ on the transposed (C, n_dof)
-    accumulator) when the problem has no grid."""
+    connectivity (u.T[:, connT], and each dof's element values gathered
+    through conn_inv and summed in a fixed order) when the problem has no
+    grid."""
     g = prob.grid
     if g is None:
-        connT, n_dof = prob.connT, prob.n_dof
-        idx = connT.reshape(-1)
+        connT, inv = prob.connT, prob.conn_inv
 
         def gather_conn(u):
             return u.T[:, connT]
 
         def scatter_conn(res_t):
-            C = res_t.shape[0]
-            out = torch.zeros((C, n_dof), dtype=res_t.dtype, device=res_t.device)
-            return out.index_add_(1, idx, res_t.reshape(C, -1)).T
+            return gather_sum(res_t.reshape(res_t.shape[0], -1), inv).T
 
         return gather_conn, scatter_conn
 
@@ -554,7 +561,7 @@ def _explicit_accel(prob, u, state, dt, residual_impl=None):
     )
     for cd, (pp, rp, _) in zip(prob.contact, _contact_fns_for(prob)):
         pressure, _, _ = pp(u, cd, cd["scene"], cd["penalty"])
-        E_u = E_u + _scatter_conn(rp(u, cd, pressure)[0], cd["conn"], n_dof)
+        E_u = E_u + _scatter_conn(rp(u, cd, pressure)[0], cd, n_dof)
     z = (prob.rhs - E_u) * free
 
     # consistent mass apply and its diagonal sum_q w N^2, plain torch
@@ -747,7 +754,7 @@ def make_step(
         out = torch.zeros_like(u_cur)
         for cd, sd, (pp, rp, _) in zip(prob.contact, scenes, contact_fns):
             pressure, _, _ = pp(u_cur, cd, sd, cd["penalty"])
-            out = out + _scatter_conn(rp(u_cur, cd, pressure)[0], cd["conn"], n_dof)
+            out = out + _scatter_conn(rp(u_cur, cd, pressure)[0], cd, n_dof)
         return out
 
     def residual(aa, xa, va, state, scenes):
@@ -788,8 +795,8 @@ def make_step(
                 jvp = frozen_blocks(blocks, cd)
             else:
                 res_el, _, jvp = lin(u_cur, cd, sd, cd["penalty"])
-            r = r + _scatter_conn(res_el, cd["conn"], n_dof)
-            c_jvps.append((cd["conn"], jvp))
+            r = r + _scatter_conn(res_el, cd, n_dof)
+            c_jvps.append((cd, jvp))
         return (r - rhs) * free, (Ck, c_jvps)
 
     def operators(ctx):
@@ -803,8 +810,8 @@ def make_step(
                     storage=storage,
                 )
             )
-            for conn, jvp in c_jvps:
-                y = y + fac0 * _scatter_conn(jvp(w), conn, n_dof)
+            for cd, jvp in c_jvps:
+                y = y + fac0 * _scatter_conn(jvp(w), cd, n_dof)
             return (y * free + w_flat.reshape(n_dof, dim) * (1 - free)).reshape(-1)
 
         return J_apply, fdm_apply

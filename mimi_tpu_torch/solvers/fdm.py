@@ -257,7 +257,9 @@ def make_fdm_apply(fdm, fac0, fac1, dtype, device):
 
 
 def _make_fdm_apply_multipatch(fdm, fac0, fac1, dtype, device):
-    """v -> sum_p R_p^T J_hat_p^{-1} R_p v over the per-patch inverses."""
+    """v -> sum_p R_p^T J_hat_p^{-1} R_p v over the per-patch inverses; a
+    patch's dofs are distinct, so each patch's sum is an indexed assignment,
+    the patches added in order (no atomics)."""
     n_dof, dim = fdm["n_dof"], fdm["dim"]
     applies = [make_fdm_apply(fp, fac0, fac1, dtype, device) for fp in fdm["mp"]]
     gdofs = [
@@ -269,7 +271,7 @@ def _make_fdm_apply_multipatch(fdm, fac0, fac1, dtype, device):
         v = v_flat.reshape(n_dof, dim)
         out = torch.zeros_like(v)
         for ap, g in zip(applies, gdofs):
-            out.index_add_(0, g, ap(v[g].reshape(-1)).reshape(-1, dim))
+            out[g] += ap(v[g].reshape(-1)).reshape(-1, dim)
         return out.reshape(-1)
 
     return apply

@@ -13,7 +13,9 @@ import torch
 
 from .. import splines as _splines
 from ..config import default_dtype, resolve_device
+from ..contact.mortar import contact_scatter_tables
 from ..contact.scene import NearestDistanceToSplines
+from ..fem.scatter import inverse_map
 from ..materials import (
     J2,
     CompressibleOgdenNeoHookean,
@@ -114,6 +116,7 @@ def _contact_from_reference(ref, scenes, dtype, device):
             {k: _tensor(v, dtype, device) for k, v in sd.items()} for sd in cd["scene"]
         ]
         blk["penalty"] = float(np.asarray(cd["penalty"]))
+        blk.update(contact_scatter_tables(np.asarray(cd["conn"]), np.asarray(cd["ldof"]), device))
         data.append(blk)
         static.append(
             {"n_local": int(cs["n_local"]), "query": port_scene.make_batched_query(),
@@ -148,7 +151,7 @@ def problem_from_numpy(ref, material=None, dtype=None, device="cuda", scenes=Non
         state0 = {k: _tensor(v, dtype, device) for k, v in ref.state0.items()}
     contact, contact_static = _contact_from_reference(ref, scenes or [], dtype, device)
     conn = np.asarray(ref.conn)
-    tables = dict(grid=None, sf=None, dense=None, connT=None)
+    tables = dict(grid=None, sf=None, dense=None, connT=None, conn_inv=None)
     if ref.sf is not None and ref.grid is not None:
         tables.update(
             grid=dict(ref.grid),
@@ -162,6 +165,7 @@ def problem_from_numpy(ref, material=None, dtype=None, device="cuda", scenes=Non
     else:
         tables.update(
             connT=torch.tensor(conn.T, dtype=torch.int64, device=device),
+            conn_inv=torch.as_tensor(inverse_map(conn.T, int(ref.n_dof)), device=device),
             dense={
                 "dN_t": _tensor(np.transpose(ref.dN_dX, (2, 3, 1, 0)), dtype, device),
                 "N_t": _tensor(np.transpose(ref.N, (2, 1, 0)), dtype, device),

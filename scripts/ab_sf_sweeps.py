@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Time the sum-factorized residual and assemble kernels of this checkout
-against another version of the same CUDA sources, on one CUDA GPU, on the
-same inputs in one process.
+"""Time the sum-factorized residual, assemble and matvec kernels of this
+checkout against another version of the same CUDA sources, on one CUDA
+GPU, on the same inputs in one process.
 
     mkdir -p <dir>; git archive <rev> mimi_tpu_torch/ops/csrc | tar -x -C <dir>
-    python3 scripts/ab_sf_sweeps.py --base <dir>
+    python3 scripts/ab_sf_sweeps.py --base <dir> [--only REGEX]
 
 The base's sources (<dir>/mimi_tpu_torch/ops/csrc) are built with the
 flags of ops/build.py into <dir>/_build and bound with its signatures, so
@@ -14,14 +14,23 @@ random plastic input (chip_smoke.py phase 9's recipe; the viscous residual
 and the viscous assemble with a bfloat16 block, the contact press's
 variants, and the float32 assemble), the neo-Hookean material near F = I
 (inviscid, and viscous with a bfloat16 block), J2Simo and J2Log on
-chip_smoke.py's random plastic history.  Every output of the two versions
-is compared; the times are CUDA-event means, taken base, new, new, base.
-Prints the card's name and power limit first.
+chip_smoke.py's random plastic history; every sf matvec instantiation
+(cauchy, sym and full, inviscid and viscous, float32 and bfloat16 block)
+on random w and random planes at p = 2 (48^3) and at p = 3 (the inviscid
+float32 ones on path H's tables at 48^3, cube-nurbs-3.mesh; the viscous
+and bfloat16 ones at 16^3).  Every output of the two versions is
+compared: the max abs difference, relative to the output's max, and
+whether they are equal to the bit.  The times are CUDA-event means,
+taken base, new, new, base.  Prints the card's name and power limit
+first and ptxas's registers and spills of this checkout's sf kernels
+(chip_smoke.py phase 2's report; a spill is printed, not raised).
+`--only` keeps the rows whose name matches the regular expression.
 """
 
 import argparse
 import ctypes
 import os
+import re
 import subprocess
 import sys
 import time
@@ -38,13 +47,14 @@ def build_base(kb, base):
     objs = [os.path.join(out, os.path.basename(s) + ".o") for s in srcs]
     procs = [subprocess.Popen([kb.nvcc(), *kb.FLAGS, "-c", "-o", o, s], stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True) for s, o in zip(srcs, objs)]
+    logs = []
     for s, p in zip(srcs, procs):
-        log = p.communicate()[0]
+        logs.append(p.communicate()[0])
         if p.returncode:
-            sys.exit(f"nvcc failed on {s}:\n{log[-3000:]}")
+            sys.exit(f"nvcc failed on {s}:\n{logs[-1][-3000:]}")
     so = os.path.join(out, "libbase.so")
     subprocess.run([kb.nvcc(), "-shared", "-o", so, *objs], check=True)
-    return kb.bind(ctypes.CDLL(so))
+    return kb.bind(ctypes.CDLL(so)), "".join(logs)
 
 
 def main():
@@ -52,6 +62,7 @@ def main():
     ap.add_argument("--base", required=True, help="directory holding the other version's "
                     "mimi_tpu_torch/ops/csrc")
     ap.add_argument("--spans", type=int, default=48)
+    ap.add_argument("--only", default="", help="time only the rows whose name matches")
     args = ap.parse_args()
     import torch
 
@@ -67,30 +78,61 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
     t0 = time.perf_counter()
-    libs = {"new": kb.load(), "base": build_base(kb, os.path.abspath(args.base))}
+    libs = {"new": kb.load()}
+    libs["base"], base_log = build_base(kb, os.path.abspath(args.base))
     print(f"builds {time.perf_counter() - t0:.1f} s", flush=True)
+    cs.fail = lambda msg: print(f"[2. ptxas] {msg}", flush=True)
+    cs.check_sf_ptxas(kb)
+    for name, v in sorted(cs.ptxas_entries(base_log, kb.nvcc()).items()):
+        if "sf_tile_kernel" in name and "SfMatvecPoint" in name:
+            print(f"[base ptxas] {name.split('>(')[0]}>: {v.get('registers')} "
+                  f"registers, spill stores {v.get('spill_stores')} B", flush=True)
     dev, gen, n = torch.device("cuda"), torch.Generator().manual_seed(0), args.spans
 
     def ab(label, calls, reps):
         for name, fn in calls.items():
+            if not re.search(args.only, name):
+                continue
             outs = {}
             for tag in ("base", "new"):
                 kb._LIB = libs[tag]
                 o = fn()
                 outs[tag] = [x.float() for x in (o if isinstance(o, tuple) else (o,))]
             torch.cuda.synchronize()
-            diff = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-                       for a, b in zip(outs["new"], outs["base"]))
-            del outs
+            pairs = list(zip(outs["new"], outs["base"]))
+            diff = max(float((a - b).abs().max()) for a, b in pairs)
+            rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                      for a, b in pairs)
+            same = all(torch.equal(a, b) for a, b in pairs)
+            del outs, pairs
             ts = []
             for tag in ("base", "new", "new", "base"):
                 kb._LIB = libs[tag]
                 ts.append(cs.cuda_ms(torch, fn, reps))
             print(f"[{label}] {name}: base {ts[0]:.4f} / {ts[3]:.4f} ms, new {ts[1]:.4f} / "
                   f"{ts[2]:.4f} ms, base / new {(ts[0] + ts[3]) / (ts[1] + ts[2]):.2f}; outputs "
-                  f"differ by {diff:.2e} of their max", flush=True)
+                  f"differ by {diff:.3e} ({rel:.2e} of their max), equal to the bit: {same}",
+                  flush=True)
         kb._LIB = libs["new"]
         torch.cuda.empty_cache()
+
+    def matvecs(label, prob, combos, reps):
+        """The sf matvec of each (storage, viscous, bfloat16) in combos on
+        prob's tables, random w and random planes."""
+        E, nd = prob.n_el, prob.sf["pp1"] ** 3
+        tabs, jinv, wq = prob.sf["tables"], prob.sf["jinv"], prob.wdet_t
+        w_el = torch.randn(3, nd, E, generator=gen).to(dev)
+        calls = {}
+        for storage, visc, bf16 in combos:
+            C = torch.randn(sweeps.n_planes(storage), prob.n_q, E, generator=gen).to(dev)
+            C = C.to(torch.bfloat16) if bf16 else C
+            name = sweeps.matvec_counter("sf", storage, 3, prob.sf["pp1"] - 1, visc, bf16)
+            calls[name] = (lambda C=C, storage=storage, fm=(50.0 if visc else None):
+                           sweeps.matvec_sf(w_el, tabs, jinv, wq, C, 1e2, 1e-3, fm, storage))
+        ab(label, calls, reps)
+
+    combos = [(storage, visc, bf16) for storage in ("cauchy", "sym", "full")
+              for visc in (False, True) for bf16 in (False, True)]
 
     prob = cs.build(mt, n, dev)
     E, h = prob.n_el, 1.0 / n
@@ -138,6 +180,15 @@ def main():
         ab(name, {f"residual_sf[{tag}]": lambda: sweeps.residual_sf(*a),
                   f"assemble_sf[{tag},full]": lambda: sweeps.assemble_sf(*a)}, 5)
         del prob, a, u_el, a_el, st, tabs, jinv, wq
+    prob = cs.build(mt, n, dev)
+    matvecs("p=2 matvec", prob, combos, 20)
+    del prob
+    mat = cs.jc_material(mt)
+    prob = cs.cube3_of(mt, mat, n, dev)
+    matvecs("p=3 matvec", prob, [c for c in combos if not (c[1] or c[2])], 5)
+    del prob
+    prob = cs.cube3_of(mt, mat, 16, dev)
+    matvecs("p=3 matvec 16^3", prob, [c for c in combos if c[1] or c[2]], 20)
 
 
 if __name__ == "__main__":

@@ -6,18 +6,24 @@ residual kernel against its plain twin; at the first state where they
 differ by more than 1e-3 of the scale, print the worst element's points:
 F, det F, the state, P from the kernel (recovered point by point from
 one-hot quadrature weights), from the plain twin in float32 and from
-float64, the trial state and the return map.  The drive is not
-deterministic (index_add_ atomics, the contact set): each attempt ends
-at another state, some with inverted elements (ROADMAP Queue 3).  A
-failed check of the drive is printed, not raised.
+float64, the trial state and the return map.  Each attempt prints the
+state it ends at: det F min, the points with det F <= 0 and a SHA-256 of
+the carry (u, v, a and the material state, in that order); the drive's
+scatters add in a fixed order (fem/scatter.py), so every attempt, and
+every run of the script, should end at the same state.  The drives run
+under torch.use_deterministic_algorithms(True, warn_only=True), and the
+operations that torch knows to be nondeterministic on the card are
+printed.  A failed check of the drive is printed, not raised.
 
     python3 scripts/diag_path_g.py [--attempts 5]
 """
 
 import argparse
+import hashlib
 import os
 import subprocess
 import sys
+import warnings
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -82,6 +88,9 @@ def main():
     from mimi_tpu_torch.parallel import sharding as sh
 
     cs.fail = lambda msg: print(f"FAIL (printed, not raised): {msg}", flush=True)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    warnings.simplefilter("always")
+    warnings.showwarning = lambda msg, *_: print(f"torch warns: {msg}", flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     kbuild.load()
@@ -108,9 +117,13 @@ def main():
         d = (y_k - y_p).abs()
         err, scale = float(d.max()), float(y_p.abs().max())
         J = soa.det(soa.add_diag(sweeps.dense_grad(f["u_el"], dN), 1.0))
+        digest = hashlib.sha256()
+        for t in (carry["u"], carry["v"], carry["a"],
+                  *(carry["state"][k] for k in sorted(carry["state"]))):
+            digest.update(t.detach().cpu().contiguous().numpy().tobytes())
         print(f"attempt {attempt}: residual kernel vs plain {err:.4e} of {scale:.4e} "
-              f"({err / scale:.3e}); det F min {float(J.min()):.3e}, points with det F <= 0 "
-              f"{int((J <= 0).sum())}", flush=True)
+              f"({err / scale:.3e}); det F min {float(J.min())!r}, points with det F <= 0 "
+              f"{int((J <= 0).sum())}, carry sha256 {digest.hexdigest()}", flush=True)
         if err > 1e-3 * scale:
             worst_point(torch, mt, sweeps, soa, prob, f, int(d.amax(dim=(0, 1)).argmax()), dt,
                         mu_v)

@@ -16,7 +16,9 @@ elements (2D, p = 3), the viscous dense kernels (sym and cauchy, 2D and
 3D), the viscous hyperelastic sf kernels with a float32 or bfloat16 block
 (sweeps_sf_hyper.cu) and the J2-family sf and dense kernels at a few
 elements, the sf residual and assemble of J2 also on a partial tile and on
-full tiles with a ragged tail, J2Simo's and J2Log's viscous and bfloat16
+full tiles with a ragged tail, the sf matvec of every storage, viscous or
+not, float32 or bfloat16 block, at p = 2 and p = 3 on a ragged last tile,
+J2Simo's and J2Log's viscous and bfloat16
 full-storage kernels and the full block of J2, J2Linear and the
 hyperelastic materials, sf and dense, against their plain versions (the J2
 family's as the kernels' twin, the radial return at 40 trips:
@@ -764,3 +766,44 @@ def test_p3_kernels_on_cpu_tensors(host_sweeps, kind, name, visc, bf16):
         f = _hyper_inputs(prob, rng)
     _hold_host_sweeps(host_sweeps, prob, f, visc, bf16)
     assert host_sweeps.kernel_counters(prob.material, kind, 3, 3, visc, bf16)[0].endswith("@3d_p3")
+
+
+MATVEC_CASES = [(p, storage, visc, bf16) for p in (2, 3) for storage in ("cauchy", "sym", "full")
+                for visc in (False, True) for bf16 in (False, True)]
+
+
+@pytest.mark.parametrize(
+    "p, storage, visc, bf16", MATVEC_CASES,
+    ids=[f"p{p}_{s}{'_visc' if v else ''}{'_bf16' if b else ''}"
+         for p, s, v, b in MATVEC_CASES])
+def test_sf_matvec_tiles_on_cpu_tensors(host_sweeps, p, storage, visc, bf16):
+    """The tiled sf matvec of the host build (one thread per element and
+    point slot, the points' fluxes reduced by the nodes' owners through
+    shared memory) with every storage, inviscid and viscous, a float32 or
+    bfloat16 block, against matvec_sf_plain at 1e-5 of scale, on a ragged
+    last tile: 125 = 3 x 32 + 29 elements at p = 2, 45 = 32 + 13 at p = 3.
+    The block's planes are random (the matvec is linear in them)."""
+    mesh, elev, spans, n = (("cube-nurbs.mesh", 1, 5, 125) if p == 2
+                            else ("cube-nurbs-3.mesh", 0, 4, 45))
+    prob = mt.build_problem(os.path.join(DATA, mesh), elev, 0, _hyper("StVenantKirchhoff"),
+                            [(1, 0), (1, 1), (1, 2)], {}, rho_inf=0.5, device="cpu",
+                            dtype=torch.float32, refine_spans=spans)
+    prob = _first_elements(prob, n)
+    assert prob.sf["pp1"] == p + 1 and n % 32 != 0
+    rng = np.random.default_rng(13)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
+    w_el = f32(rng.standard_normal((3, (p + 1) ** 3, n)))
+    Cb = f32(rng.standard_normal((host_sweeps.n_planes(storage), prob.n_q, n)))
+    Cb = Cb.to(torch.bfloat16 if bf16 else torch.float32)
+    tables = (prob.sf["tables"], prob.sf["jinv"], prob.wdet_t)
+    args = (1e2, 1.0, 1.0 if visc else None)  # rho, fac0, fac1 mu_v
+    mv = host_sweeps._sf_matvec(w_el, *tables, Cb, *args, storage)
+    mv_p = host_sweeps.matvec_sf_plain(w_el, *tables, Cb, *args, storage=storage)
+    assert float((mv - mv_p).abs().max()) <= 1e-5 * float(mv_p.abs().max())
+    # the mass, the block's and the viscous terms each move the output by
+    # more than 10% of its max at these factors
+    for k in range(3 if visc else 2):
+        off = tuple(None if i == k == 2 else 0.0 if i == k else a for i, a in enumerate(args))
+        mv0 = host_sweeps.matvec_sf_plain(w_el, *tables, Cb, *off, storage=storage)
+        assert float((mv_p - mv0).abs().max()) > 0.1 * float(mv_p.abs().max())
+    assert host_sweeps.LAUNCHES[host_sweeps.matvec_counter("sf", storage, 3, p, visc, bf16)] == 1
