@@ -135,6 +135,23 @@ profiled step, one step of each path's problem held kernel path against
 plain path at 16^3 / 2 x 8^3.  ptxas's gate holds the p = 3 J2-family and
 hyperelastic sf residual instantiations and every p = 3 sf matvec too.
 
+And the bfloat16 dense block (phases 58-61, with holds inside phases 28,
+38 and 54): every bfloat16 dense instantiation (each material's own block
+and the full block, inviscid and viscous, the matvec on a bfloat16 block
+and bfloat16 copies of dN and N: sweeps_dense_bf16.cu and its twins)
+against its plain version on random input, at (2, 2) on path A's tables,
+(2, 3) on the golden cantilever's, (3, 2) on path J's and (3, 3) at
+2 x 8^3; path A's next Newton system with the bfloat16 block; path J, the
+main path's 48^3 J2 cube with matvec_impl="dense" and matvec_dtype="bf16"
+(the reference's main path before its sum-factorized matvec), the patch's
+dense tables built on the step's request: 1 warm + 2 timed steps through
+the dense (3, 2) J2 residual, the Cauchy assemble writing a bfloat16 block
+and the Cauchy matvec on it, the path kernels at its state, one step held
+kernel path against plain path at full size, the reference's own bars of
+its bfloat16 test (tests/test_pallas.py:342-393) from the initial carry,
+a profiled step.  Phase 2 prints ptxas's registers and spills of every
+bfloat16 dense instantiation and fails where such a matvec spills.
+
     python3 chip_smoke.py
 
 Exits non-zero without a CUDA device, outside a checkout, or when any
@@ -589,7 +606,8 @@ def check_sf_ptxas(kbuild):
     residual or assemble spills, with its own or the full block.  The
     finite-strain ones (J2SimoMat, J2LogMat: 9 dual-number passes per point)
     and the other kernels with the full block or at p = 3 are printed, not
-    held."""
+    held; so is every bfloat16 dense instantiation (the `*_bf16.cu`
+    sources), failing where one of their matvecs spills."""
     if kbuild.BUILD_INFO["cached"]:
         say("[2. ptxas] the library was cached: no ptxas output in this run")
         return
@@ -608,14 +626,23 @@ def check_sf_ptxas(kbuild):
             f"{v.get('stack')} B")
         if spilled and ("SfMatvecPoint" in name or "J2Mat" in name or "Hyper" in name):
             fail(f"{name} spills {spilled} B")
-    # the other kernels with the full block (the dense residual and matvec)
-    # and at p = 3 (the tiled dense (3, 3) kernels): printed, not held
+    # the other kernels with the full block (the dense residual and matvec),
+    # at p = 3 (the tiled dense (3, 3) kernels) and with a bfloat16 dense
+    # block: printed, not held, but a spilled bfloat16 dense matvec
+    bf16_matvecs = 0
     for full_name, v in sorted(every.items()):
         name = re.sub(r"\((int|bool)\)", "", full_name.split("(const float")[0])
         p3 = "dense_tile_kernel<3, 3" in name
-        if ("FullStorage" in name or p3) and full_name not in ents:
+        bf16 = "__nv_bfloat16" in full_name.split(">(")[0] and "dense_" in full_name
+        if ("FullStorage" in name or p3 or bf16) and full_name not in ents:
             say(f"[2. ptxas] {name}: {v.get('registers')} registers, {v.get('smem')} B smem, "
                 f"spill stores {v.get('spill_stores')} B, loads {v.get('spill_loads')} B")
+        if bf16 and ("MatvecPoint" in name or "dense_matvec_kernel" in name):
+            bf16_matvecs += 1
+            if v.get("spill_stores", 0) + v.get("spill_loads", 0):
+                fail(f"{name} spills")
+    if not bf16_matvecs:
+        fail("no bfloat16 dense matvec instantiation in the ptxas output")
 
 
 def plastic_points(soa, sweeps, prob, u_el, state, dt):
@@ -2154,16 +2181,17 @@ def time_dense(torch, sweeps, prob, u_el, a_el, w_el, state, C, dt, launches, er
     return rows
 
 
-def drive_dense(torch, mt, sweeps, prob, label, timed, dt, step_kw):
+def drive_dense(torch, mt, sweeps, prob, label, timed, dt, step_kw, names=None):
     """The default engine's path on the dense problem: the initial carry,
     one warm and `timed` timed steps.  Prints s/step, qp-evals/s (with its
     count: n_el n_q (3 Newton iterations + 1) per step, the assemble and
     two line-search residuals per iteration and the state update), the
     Newton and GMRES iterations, the residual drop and the plastic share
-    of each step.  Fails unless the problem's three kernels were launched
-    in each step and the state stayed finite; returns (carry, step, s/step,
-    launches, [(step input carry, step output carry, drop)])."""
-    names = kernel_names(sweeps, prob)
+    of each step.  Fails unless the problem's three kernels (`names`, by
+    default kernel_names') were launched in each step and the state stayed
+    finite; returns (carry, step, s/step, launches, [(step input carry,
+    step output carry, drop)])."""
+    names = names or kernel_names(sweeps, prob)
     t0 = time.perf_counter()
     carry = mt.initial_carry(prob)
     torch.cuda.synchronize()
@@ -2447,6 +2475,8 @@ def dense2d_phases(torch, mt, sweeps, soa, sh, device, gen):
                          {"u_el": u_el, "a_el": a_el, "v_el": v_el, "w_el": w_el,
                           "state": state}, dt, f"38. {tag} random")
             del v_el
+        if elevate == 2 and name == "J2":  # every bfloat16 dense (2, 3) instantiation
+            hold_dense_bf16(torch, mt, sweeps, soa, prob, f"28. {n}^2 p=3 random bf16", gen)
         del u_el, a_el, w_el, state
         torch.cuda.empty_cache()
         sweeps.reset_launches()
@@ -2760,7 +2790,9 @@ def hold_viscous(torch, sweeps, prob, mat, f, dt, label, launches=None,
     (viscous, bfloat16 block) of `combos`: the residual (viscous only, it
     writes no block, unless `inviscid_residual`; none without `residual`),
     the assemble of the block in `storage` (default: the material's own)
-    and the matvec on the plain version's block.  Bars: residual 1e-5 x
+    and the matvec on the plain version's block (on dense tables, with a
+    bfloat16 block, on bfloat16 copies of dN and N, as make_step's
+    matvec_dtype="bf16" makes them).  Bars: residual 1e-5 x
     scale; assemble residual and matvec 1e-4 x scale; float32 planes 1e-4
     of their group's max; bfloat16 planes 2^-7 of their group's max (one
     bfloat16 step) against the plain float32 planes rounded to bfloat16;
@@ -2868,7 +2900,10 @@ def hold_viscous(torch, sweeps, prob, mat, f, dt, label, launches=None,
                        lambda ak=ak: plain[1](*args, **ak),
                        nbytes(*fields, C_p) + el_out))
         del ya_k, C_k, ya_p
-        mv_args = (f["w_el"], *tables, wq, C_p, rho, fac0, fm)
+        mv_tables = tables
+        if bf16 and kind == "dense":  # the matvec's bfloat16 table streams
+            mv_tables = tuple(t.to(torch.bfloat16) for t in tables)
+        mv_args = (f["w_el"], *mv_tables, wq, C_p, rho, fac0, fm)
         y_k = kern[2](*mv_args, storage=storage)
         torch.cuda.synchronize()
         y_p = plain[2](*mv_args, storage=storage)
@@ -2880,8 +2915,8 @@ def hold_viscous(torch, sweeps, prob, mat, f, dt, label, launches=None,
         del y_p
         checks.append((2, err, lambda a=mv_args: kern[2](*a, storage=storage),
                        lambda a=mv_args: plain[2](*a, storage=storage),
-                       nbytes(f["w_el"], tables, wq, C_p) + el_out))
-        del y_k
+                       nbytes(f["w_el"], mv_tables, wq, C_p) + el_out))
+        del y_k, mv_tables
         for i, _, _, _, byts in () if timed else checks:
             bound, by = bound_of(byts, n_pts * (base[i] + (extra[i] if visc else 0)))
             say(f"[{label}] {names[i]}: held, not timed; {byts / 1e9:.4f} GB, bound "
@@ -2890,7 +2925,10 @@ def hold_viscous(torch, sweeps, prob, mat, f, dt, label, launches=None,
             ms = cuda_ms(torch, kcall, 20)
             plain_ms = cuda_ms(torch, pcall, PLAIN_REPS)
             torch.cuda.empty_cache()
-            row = kernel_row(names[i], source[i], SYM_REPLACES[kind][i],
+            # the bfloat16 dense assemble and matvec: the *_bf16.cu twins
+            src_i = source[i].replace(".cu", "_bf16.cu") if bf16 and kind == "dense" and i \
+                else source[i]
+            row = kernel_row(names[i], src_i, SYM_REPLACES[kind][i],
                              launches.get(names[i], 0), err, ms, plain_ms, byts,
                              n_pts * (base[i] + (extra[i] if visc else 0)))
             say(f"[{label} timing] {names[i]}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms; "
@@ -3169,6 +3207,8 @@ def press_phases(torch, mt, sweeps, soa, sh, device, gen):
                          timed=False)
             del f
             torch.cuda.empty_cache()
+        if dim == 2:  # every bfloat16 dense (2, 2) instantiation on path A's tables
+            hold_dense_bf16(torch, mt, sweeps, soa, prob, f"38. {size_s} random bf16", gen)
 
         # ---- 39 / 41. the drive ------------------------------------------------
         sweeps.reset_launches()
@@ -3192,6 +3232,10 @@ def press_phases(torch, mt, sweeps, soa, sh, device, gen):
         sd_next = NDS.translate_scene_data(sd, PRESS_PUSH[dim])
         newton_system_parity(torch, mt, prob, carry, sd_next, step_kw, f"{label} next system",
                             gen)
+        if dim == 2:  # the same system with the bfloat16 dense block and tables
+            newton_system_parity(torch, mt, prob, carry, sd_next,
+                                 dict(step_kw, matvec_dtype="bf16"),
+                                 f"{label} next system bf16", gen)
         torch.cuda.empty_cache()
 
         # ---- one profiled step ------------------------------------------------------
@@ -3649,15 +3693,15 @@ def first_elements(prob, n):
                                state0=None if prob.state0 is None else _elements(prob.state0, sl))
 
 
-def p3_materials(mt):
-    """Every material the p = 3 kernels instantiate, set up in 3D: J2
+def kernel_materials(mt, dim=3):
+    """Every material the kernels instantiate, set up in `dim`: J2
     (Johnson-Cook, A 70), J2Linear, the neo-Hookean, St. Venant-Kirchhoff,
     J2Simo and J2Log (Johnson-Cook)."""
     mats = [jc_material(mt), j2lin_material(mt), hyper_material(mt),
             hyper_material(mt, "StVenantKirchhoff"), jc_material(mt, name="J2Simo"),
             jc_material(mt, name="J2Log")]
     for m in mats:
-        m.setup(3)
+        m.setup(dim)
     return mats
 
 
@@ -3671,7 +3715,7 @@ def hold_p3(torch, mt, sweeps, soa, prob, combos, label, gen, mats=None, full=Tr
     for the hyperelastic ones; with `full` also the full block of J2,
     J2Linear and the hyperelastic materials."""
     dt = STEP_KW["dt"]
-    for mat in mats or p3_materials(mt):
+    for mat in mats or kernel_materials(mt):
         tag = sweeps.kernel_tag(mat)
         if mat.has_state:
             amp = J2LIN_AMPLITUDE if tag == "j2lin" else amplitude
@@ -3785,7 +3829,7 @@ def p3_phases(torch, mt, sweeps, soa, sh, device, gen):
     # ---- 54. every p = 3 instantiation on random input ---------------------------------
     prob = cube3_of(mt, jc_material(mt), CHECK_SPANS, device)
     hold_p3(torch, mt, sweeps, soa, prob, both, f"54. {CHECK_SPANS}^3 p=3 random", gen)
-    mats = p3_materials(mt)
+    mats = kernel_materials(mt)
     # 33 elements hold ~100x fewer points than 16^3: |F - I| up to 0.2 keeps
     # the share of plastic points past 0.25 (0.128 at 0.1 on an NVIDIA H100
     # 80GB HBM3)
@@ -3796,6 +3840,8 @@ def p3_phases(torch, mt, sweeps, soa, sh, device, gen):
     prob = two_patch3_of(mt, hyper_material(mt), DENSE_CHECK_SPANS, device)
     hold_p3(torch, mt, sweeps, soa, prob, dense_visc, f"54. 2x{DENSE_CHECK_SPANS}^3 p=3 random",
             gen)
+    hold_dense_bf16(torch, mt, sweeps, soa, prob, f"54. 2x{DENSE_CHECK_SPANS}^3 p=3 random bf16",
+                    gen)
     del prob
     torch.cuda.empty_cache()
     clock("54 dense")
@@ -4057,6 +4103,197 @@ def finite_press_paths(torch, mt, sweeps, soa, sh, device, gen):
     clock("53")
     return rows
 
+# (viscous, bfloat16 block) of the bfloat16 dense instantiations held on
+# random input (hold_dense_bf16)
+BF16_COMBOS = ((False, True), (True, True))
+
+
+def hold_dense_bf16(torch, mt, sweeps, soa, prob, label, gen, dt=STEP_KW["dt"]):
+    """Every bfloat16 dense instantiation at the problem's (dim, p), on its
+    dense tables, against its plain version on random input (hold_viscous,
+    untimed): each material's assemble of its own block and, for the
+    materials with a stronger own storage, of the full block, inviscid and
+    viscous, and the matvec on the plain version's bfloat16 block with
+    bfloat16 copies of dN and N (the `_bf16` twins of sweeps_dense.cu,
+    sweeps_dense_j2.cu and sweeps_dense_finite.cu).  Bars: the assemble's
+    residual 1e-4 x scale, its bfloat16 planes 2^-7 of their group's max,
+    the matvec 1e-4 x scale.  Plastic input for the J2 family (share of
+    plastic points >= 0.25), |F - I| up to 0.1 for the hyperelastic
+    materials."""
+    t0 = time.perf_counter()
+    for mat in kernel_materials(mt, prob.dim):
+        tag = sweeps.kernel_tag(mat)
+        if mat.has_state:
+            amp = J2LIN_AMPLITUDE if tag == "j2lin" else LAW_AMPLITUDE
+            f, share = plastic_inputs(torch, sweeps, soa, prob, mat, gen, dt, amp)
+            if share < 0.25:
+                fail(f"{label} {tag}: plastic share {share} < 0.25: the check would not "
+                     "exercise the return map")
+        else:
+            f, share = random_visc_inputs(torch, sweeps, prob, mat, gen, dt), 0.0
+        say(f"[{label} {tag}] {prob.n_el} elements, (dim, p) = ({prob.dim}, "
+            f"{dense_degree(prob)}); plastic share of the points {share:.3f}")
+        for storage in dict.fromkeys((sweeps.tangent_storage(mat), "full")):
+            hold_viscous(torch, sweeps, prob, mat, f, dt, f"{label} {tag}", combos=BF16_COMBOS,
+                         storage=storage, residual=False, timed=False)
+        del f
+        torch.cuda.empty_cache()
+    say(f"[{label}] every bfloat16 dense instantiation held at {prob.n_el} elements: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+# Path J (phases 58-61): the main path's body-force J2 cube (cube-nurbs.mesh
+# at p = 2, 48^3, J2 Johnson-Cook, body force -3, dt 0.05, 4 Newton,
+# FDM-GMRES(30, 40) at 1e-3) with matvec_impl="dense" and
+# matvec_dtype="bf16": the reference's main path before the sum-factorized
+# matvec replaced it (mimi_tpu/parallel/sharding.py:798-815, :1078-1082),
+# the configuration its bfloat16 kernel test runs at 4^3
+# (tests/test_pallas.py:342-393).  The dense (3, 2) J2 residual in float32,
+# the dense (3, 2) Cauchy assemble writing a bfloat16 block and the Cauchy
+# matvec on that block and bfloat16 copies of dN and N; the patch's dense
+# tables built on the step's request (sharding.dense_tables).
+J_STEP_KW = dict({k: v for k, v in STEP_KW.items() if k != "dt"}, matvec_impl="dense",
+                 matvec_dtype="bf16")
+J_TIMED = 2
+# the reference's own check (tests/test_pallas.py:366-393): one Newton
+# iteration of 8 GMRES iterations at lin_rel_tol 1e-2 from the initial
+# carry; the bfloat16 steps within 2e-2 of max|u| of the float32 ones, the
+# dense float32 step within 1e-5 of the sf one
+J_REF_KW = dict(newton_iters=1, solver="cg", cg_iters=8, lin_rel_tol=1e-2)
+
+
+def path_j_phases(torch, mt, sweeps, soa, sh, device, gen):
+    """Phases 58-61: path J.  58: host build of the 48^3 sf problem and,
+    on request, its dense tables; every bfloat16 dense (3, 2) instantiation
+    against plain on random input on those tables (hold_dense_bf16).  59:
+    the drive, 1 warm + J_TIMED steps through make_step(matvec_impl="dense",
+    matvec_dtype="bf16"), no sf kernel launched, each step's Newton drop
+    (a step short of 1e-4 held from its input carry, check_drops).  60: the
+    path kernels against plain at the path's state and their rows; one
+    step of the kernel path against the plain path at full size (1e-4 x
+    max|u|); the reference's two bars from the initial carry (J_REF_KW).
+    61: a profiled step.  Returns the path's rows of the kernels line."""
+    import dataclasses
+
+    rows = []
+    dt = STEP_KW["dt"]
+    t_start = time.perf_counter()
+
+    def clock(what):
+        say(f"[58-61 clock] {what}: {time.perf_counter() - t_start:.1f} s since phase 58")
+
+    # ---- 58. the problem, its dense tables on request, the (3, 2) bf16 holds -----
+    sweeps.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    t0 = time.perf_counter()
+    prob = build(mt, SPANS, device)
+    torch.cuda.synchronize()
+    t_sf = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d = sh.dense_tables(prob)
+    torch.cuda.synchronize()
+    t_dense = time.perf_counter() - t0
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    label = f"59. path J {SPANS}^3"
+    rel_w = float(((d["wdet_t"] - prob.wdet_t).abs().max() / prob.wdet_t.abs().max()))
+    say(f"[58. path J {SPANS}^3] host build {t_sf:.2f} s (sf tables); the patch's dense tables "
+        f"on request {t_dense:.2f} s: dN, N and w det J {nbytes(d) / 1e9:.3f} GB (float32), "
+        f"conn equal to the sf tables'; w det J against the sf tables' {rel_w:.2e} of its max; "
+        f"device peak allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB; host peak "
+        f"RSS of the process {rss / 1e6:.3f} GB ({(rss - rss0) / 1e6:.3f} GB above its peak "
+        "before the build)")
+    if not rel_w <= 1e-5:
+        fail(f"58: the dense tables' w det J differs from the sf tables' by {rel_w}")
+    # the dense-table view of the problem: the kernel-vs-plain helpers read
+    # a dense problem's tables
+    pj = dataclasses.replace(prob, sf=None, dense={"dN_t": d["dN_t"], "N_t": d["N_t"]},
+                             wdet_t=d["wdet_t"])
+    hold_dense_bf16(torch, mt, sweeps, soa, pj, f"58. {SPANS}^3 dense random bf16", gen)
+    clock("58")
+
+    # ---- 59. the drive --------------------------------------------------------------
+    mat = prob.material
+    names = [sweeps.kernel_counters(mat, "dense", 3, 2)[0],
+             sweeps.kernel_counters(mat, "dense", 3, 2, bf16=True)[1],
+             sweeps.matvec_counter("dense", "cauchy", 3, 2, bf16=True)]
+    sweeps.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    carry, step, s_step, launches, steps = drive_dense(torch, mt, sweeps, prob, label, J_TIMED,
+                                                       dt, J_STEP_KW, names)
+    # the initial carry's explicit acceleration runs the problem's own (sf)
+    # residual once; the steps run the dense sweeps only
+    sf_launched = {k: n for k, n in launches.items() if "_sf" in k and n}
+    if sf_launched not in ({}, {sweeps.kernel_counters(mat, "sf")[0]: 1}):
+        fail(f"{label}: sf kernels launched in the steps of the dense path: {sf_launched}")
+    eqps = carry["state"]["eqps"]
+    say(f"[{label}] eqps max {float(eqps.max()):.4e}, plastic points {int((eqps > 0).sum())}")
+    check_drops(torch, mt, prob, steps, dt, J_STEP_KW, label, gen)
+    del steps
+    clock("59")
+
+    # ---- 60. the path kernels at the path's state, their rows ----------------------------
+    u_el, a_el, w_el = predictor_fields(torch, sh, prob, carry, gen)
+    f = {"u_el": u_el, "a_el": a_el, "v_el": None, "w_el": w_el, "state": carry["state"]}
+    rows += hold_viscous(torch, sweeps, pj, mat, f, dt, f"60. path J {SPANS}^3 path", launches,
+                         combos=((False, True),), inviscid_residual=True)
+    del f, u_el, a_el, w_el
+    torch.cuda.empty_cache()
+    clock("60 kernels")
+    # one step from the path's state, kernel path against plain path
+    out = {impl: mt.make_step(prob, dt, residual_impl=impl, **J_STEP_KW)(carry)
+           for impl in ("cuda", "torch")}
+    err = float((out["cuda"]["u"] - out["torch"]["u"]).abs().max())
+    scale = float(out["torch"]["u"].abs().max())
+    nc, nt = out["cuda"]["newton"], out["torch"]["newton"]
+    say(f"[60. path J step] kernel path vs plain path from the path's state: max|du| {err:.3e} "
+        f"of max|u| {scale:.3e} ({err / scale:.3e}); newton {nc['iters']}/{nt['iters']}, gmres "
+        f"{nc['lin_iters']}/{nt['lin_iters']}, drops {drop_of(out['cuda']):.2e}/"
+        f"{drop_of(out['torch']):.2e}")
+    if not (nc["finite"] and nt["finite"]):
+        fail("60. path J step: non-finite state")
+    if not err <= 1e-4 * scale:
+        fail(f"60. path J step: kernel path vs plain path {err} > 1e-4 * {scale}")
+    if not drop_of(out["cuda"]) <= 1e-4:
+        hold_short_step(torch, mt, prob, carry, out["cuda"], dt, J_STEP_KW, "60. path J step",
+                        gen, plain=out["torch"])
+    del out
+    torch.cuda.empty_cache()
+    clock("60 step")
+    # the reference's two bars, from the initial carry
+    c0 = mt.initial_carry(prob)
+    u = {}
+    for tag, opt in (("sf f32", {}), ("dense f32", {"matvec_impl": "dense"}),
+                     ("sf bf16", {"matvec_dtype": "bf16"}),
+                     ("dense bf16", {"matvec_impl": "dense", "matvec_dtype": "bf16"})):
+        o = mt.make_step(prob, dt, **J_REF_KW, **opt)(c0)
+        if not o["newton"]["finite"]:
+            fail(f"60. reference bars: the {tag} step is not finite")
+        u[tag] = o["u"]
+    scale = float(u["sf f32"].abs().max())
+    errs = {pair: float((u[pair[0]] - u[pair[1]]).abs().max())
+            for pair in (("dense f32", "sf f32"), ("sf bf16", "sf f32"),
+                         ("dense bf16", "dense f32"))}
+    bars = {("dense f32", "sf f32"): 1e-5, ("sf bf16", "sf f32"): 2e-2,
+            ("dense bf16", "dense f32"): 2e-2}
+    say("[60. path J reference bars] one Newton iteration, 8 GMRES at 1e-2, from the initial "
+        "carry: " + "; ".join(f"{a} vs {b} {e:.3e} of max|u| {scale:.3e} ({e / scale:.3e}, bar "
+                              f"{bars[(a, b)]:.0e})" for (a, b), e in errs.items()))
+    for pair, e in errs.items():
+        if not e <= bars[pair] * scale:
+            fail(f"60. path J: {pair[0]} vs {pair[1]} {e} > {bars[pair]} * {scale}")
+    del c0, u
+    clock("60 reference bars")
+
+    # ---- 61. one profiled step ----------------------------------------------------------
+    carry = profile_step(torch, step, carry, s_step, f"61. path J {SPANS}^3 profile")
+    del carry, step, pj, d
+    prob.dense = None  # the dense tables and their copies go with the problem
+    del prob
+    torch.cuda.empty_cache()
+    clock("61")
+    return rows
+
 
 def main():
     import torch
@@ -4271,6 +4508,10 @@ def main():
     torch.cuda.empty_cache()
     rows += p3_phases(torch, mt, sweeps, soa, sh, device, gen)
     say(f"[clock] phases 54-57 done: {time.perf_counter() - t_main:.1f} s since phase 2")
+
+    # ---- 58-61. path J: the main path with the dense bfloat16 matvec ----------------------
+    rows += path_j_phases(torch, mt, sweeps, soa, sh, device, gen)
+    say(f"[clock] phases 58-61 done: {time.perf_counter() - t_main:.1f} s since phase 2")
 
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {

@@ -23,7 +23,9 @@ SOURCES = [
     os.path.join(_HERE, "csrc", name)
     for name in ("sweeps_sf.cu", "sweeps_sf_hyper.cu", "sweeps_sf_finite.cu", "sweeps_sf_p3.cu",
                  "sweeps_sf_hyper_p3.cu", "sweeps_sf_finite_p3.cu", "sweeps_dense.cu",
-                 "sweeps_dense_j2.cu", "sweeps_dense_finite.cu", "fused_neohookean.cu")
+                 "sweeps_dense_j2.cu", "sweeps_dense_finite.cu", "sweeps_dense_bf16.cu",
+                 "sweeps_dense_j2_bf16.cu", "sweeps_dense_finite_bf16.cu",
+                 "fused_neohookean.cu")
 ]
 HEADERS = [
     os.path.join(_HERE, "csrc", name)
@@ -40,11 +42,16 @@ FLAGS = [
 # multiply-adds the dense finite-strain kernels' float32 tangent planes
 # differ from their plain twin's by up to 1.7e-4 of their group's max at the
 # contact press's law, each side about as far from float64; without, by
-# 3e-7, at 0-22% more time (scripts/witness_finite_planes.py, PERF.md)
-NO_FMAD = ("sweeps_dense_finite.cu",)
+# 3e-7, at 0-22% more time (scripts/witness_finite_planes.py, PERF.md); its
+# bfloat16 twin rounds the same float32 planes
+NO_FMAD = ("sweeps_dense_finite.cu", "sweeps_dense_finite_bf16.cu")
 BUILD_DIR = os.path.join(_HERE, "_build")
 # the entry points compiled at each sf shape
 _SF_NAMES = ("_sf", "_sf_hyper", "_sf_finite", "_sf_sym", "_sf_full")
+# the dense entry points with a bfloat16 twin (suffix _bf16: the block, and
+# the matvec's dN and N, as __nv_bfloat16*, 2-byte data behind a c_void_p)
+_BF16_NAMES = ("assemble_dense", "matvec_dense", "assemble_dense_j2", "matvec_dense_cauchy",
+               "assemble_dense_finite", "matvec_dense_full")
 
 _LIB = None
 # seconds and compiler output of the last build in this process
@@ -115,7 +122,9 @@ def build():
 
 def bind(lib):
     """Set the ctypes signatures of the kernel library's C entry points
-    (the sf ones at each shape of sweeps.SF_SHAPES, named with its suffix)."""
+    (the sf ones at each shape of sweeps.SF_SHAPES, named with its suffix;
+    the dense assembles and matvecs also as their bfloat16 twins, suffix
+    _bf16, with the same signature: every pointer is a c_void_p)."""
     from .sweeps import SF_SHAPES, _HyperParams, _J2Params, sf_suffix
 
     vp, ll, ci, cf = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
@@ -144,9 +153,12 @@ def bind(lib):
         "neohookean_tangent_apply": [vp] * 5 + [cf, cf, ll, vp],
     }
     for name, args in sigs.items():
-        shapes = SF_SHAPES if name.endswith(_SF_NAMES) else [None]
-        for shape in shapes:
-            fn = getattr(lib, f"mimi_{name}{sf_suffix(*shape) if shape else ''}")
+        if name.endswith(_SF_NAMES):
+            suffixes = [sf_suffix(*shape) for shape in SF_SHAPES]
+        else:
+            suffixes = ["", "_bf16"] if name in _BF16_NAMES else [""]
+        for suffix in suffixes:
+            fn = getattr(lib, f"mimi_{name}{suffix}")
             fn.argtypes = args
             fn.restype = ctypes.c_int
     return lib

@@ -1,17 +1,21 @@
 // Shared by the dense-table CUDA sources (sweeps_dense.cu, sweeps_dense_j2.cu,
-// fused_neohookean.cu), for sm_90a: the element sizes of a dimension and
-// degree, staging of an element's dof values in shared memory, the
-// per-point interpolation and scatter on dense tables dN (ND, DIM, NQ, E),
-// N (ND, NQ, E), and the residual / assemble and matvec kernel templates
-// with their launchers.  One thread per element; each thread owns one
-// column of the shared arrays (dynamic shared memory, launch.cuh: 40.5 KB a
-// block for the residual at 3D p = 2), so no barrier is needed.  At 3D
-// p = 3 the launchers take the tiled kernels below instead (one thread per
-// element and point slot).  The design notes are at the head of
-// sweeps_dense.cu.
+// sweeps_dense_finite.cu, their bfloat16 twins, fused_neohookean.cu), for
+// sm_90a: the element sizes of a dimension and degree, staging of an
+// element's dof values in shared memory, the per-point interpolation and
+// scatter on dense tables dN (ND, DIM, NQ, E), N (ND, NQ, E), and the
+// residual / assemble and matvec kernel templates with their launchers.
+// The tangent block's element type (CT) and the matvec's tables' (TT) are
+// template parameters, float or __nv_bfloat16, widened on load
+// (materials.cuh load_c; a float load is the __ldg it always was).  One
+// thread per element; each thread owns one column of the shared arrays
+// (dynamic shared memory, launch.cuh: 40.5 KB a block for the residual at
+// 3D p = 2), so no barrier is needed.  At 3D p = 3 the launchers take the
+// tiled kernels below instead (one thread per element and point slot).
+// The design notes are at the head of sweeps_dense.cu.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -19,7 +23,30 @@
 #include "launch.cuh"
 #include "materials.cuh"
 
+// The element type of the block that a dense source's assemble writes and
+// its matvec reads, with the matvec's tables in the same type, and the
+// names of its C entry points: float and the plain names, or, where the
+// source defines MIMI_DENSE_BF16 before including its float32 twin
+// (sweeps_dense_bf16.cu and the like), __nv_bfloat16 and the suffix _bf16.
+#ifdef MIMI_DENSE_BF16
+#define MIMI_DENSE_ENTRY(name) name##_bf16
+#else
+#define MIMI_DENSE_ENTRY(name) name
+#endif
+
 namespace {
+
+#ifdef MIMI_DENSE_BF16
+using DenseBlock = __nv_bfloat16;
+#else
+using DenseBlock = float;
+#endif
+
+// T in a context where it is not deduced (a pointer that may be nullptr)
+template <class T>
+struct same_type {
+  using type = T;
+};
 
 constexpr int BLOCK = 64;
 
@@ -47,8 +74,8 @@ __device__ __forceinline__ void stage(const float* __restrict__ g, float (*s)[BL
 // G[g][f] = sum_n dN[n][f](q) w(g ND + n), summed in n order without FMA
 // (as ops/sweeps.py dense_grad), so F agrees with the plain version to the
 // bit; `w(k)` returns value k of the element's field
-template <int DIM, int ND, class W>
-__device__ __forceinline__ void grad_q_of(const float* __restrict__ dN, const W& w,
+template <int DIM, int ND, typename TT, class W>
+__device__ __forceinline__ void grad_q_of(const TT* __restrict__ dN, const W& w,
                                           long long qe, long long QE, float G[DIM][DIM]) {
 #pragma unroll
   for (int g = 0; g < DIM; ++g)
@@ -58,7 +85,7 @@ __device__ __forceinline__ void grad_q_of(const float* __restrict__ dN, const W&
   for (int n = 0; n < ND; ++n) {
     float d[DIM];
 #pragma unroll
-    for (int f = 0; f < DIM; ++f) d[f] = __ldg(dN + (long long)(n * DIM + f) * QE + qe);
+    for (int f = 0; f < DIM; ++f) d[f] = load_c(dN + (long long)(n * DIM + f) * QE + qe);
 #pragma unroll
     for (int g = 0; g < DIM; ++g) {
       const float wv = w(g * ND + n);
@@ -69,21 +96,21 @@ __device__ __forceinline__ void grad_q_of(const float* __restrict__ dN, const W&
 }
 
 // the gradient of the field staged in this thread's shared column
-template <int DIM, int ND>
-__device__ __forceinline__ void grad_q(const float* __restrict__ dN, float (*w)[BLOCK],
+template <int DIM, int ND, typename TT>
+__device__ __forceinline__ void grad_q(const TT* __restrict__ dN, float (*w)[BLOCK],
                                        long long qe, long long QE, float G[DIM][DIM]) {
   grad_q_of<DIM, ND>(dN, [w](int k) { return w[k][threadIdx.x]; }, qe, QE, G);
 }
 
 // v[c] = sum_n N[n](q) w[c][n]
-template <int DIM, int ND>
-__device__ __forceinline__ void value_q(const float* __restrict__ N, float (*w)[BLOCK],
+template <int DIM, int ND, typename TT>
+__device__ __forceinline__ void value_q(const TT* __restrict__ N, float (*w)[BLOCK],
                                         long long qe, long long QE, float v[DIM]) {
 #pragma unroll
   for (int c = 0; c < DIM; ++c) v[c] = 0.f;
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
-    const float Nn = __ldg(N + (long long)n * QE + qe);
+    const float Nn = load_c(N + (long long)n * QE + qe);
 #pragma unroll
     for (int c = 0; c < DIM; ++c) v[c] += Nn * w[c * ND + n][threadIdx.x];
   }
@@ -91,17 +118,17 @@ __device__ __forceinline__ void value_q(const float* __restrict__ N, float (*w)[
 
 // acc[c][n] += wq (sum_d dN[n][d] X[c][d] + N[n] m[c]); without MASS the
 // N[n] m[c] term is left out and N, m are not read
-template <int DIM, int ND, bool MASS = true>
-__device__ __forceinline__ void scatter_q(float (&acc)[DIM][ND], const float* __restrict__ dN,
-                                          const float* __restrict__ N, long long qe,
-                                          long long QE, float wq, const float X[DIM][DIM],
-                                          const float* m) {
+template <int DIM, int ND, bool MASS = true, typename TT>
+__device__ __forceinline__ void scatter_q(float (&acc)[DIM][ND], const TT* __restrict__ dN,
+                                          const typename same_type<TT>::type* __restrict__ N,
+                                          long long qe, long long QE, float wq,
+                                          const float X[DIM][DIM], const float* m) {
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
     float d[DIM];
 #pragma unroll
-    for (int f = 0; f < DIM; ++f) d[f] = __ldg(dN + (long long)(n * DIM + f) * QE + qe);
-    const float Nn = MASS ? __ldg(N + (long long)n * QE + qe) : 0.f;
+    for (int f = 0; f < DIM; ++f) d[f] = load_c(dN + (long long)(n * DIM + f) * QE + qe);
+    const float Nn = MASS ? load_c(N + (long long)n * QE + qe) : 0.f;
 #pragma unroll
     for (int c = 0; c < DIM; ++c) {
       float x = d[0] * X[c][0];
@@ -125,13 +152,14 @@ inline unsigned grid_for(long long E) { return (unsigned)((E + BLOCK - 1) / BLOC
 // does not change).  v is read from device memory at each point, not
 // staged: a third staged field would take 62 KB of shared memory at 3D
 // p = 2 (144 KB at p = 3) and halve the blocks an SM holds; its rows come
-// from L1 or L2 after the first point.
-template <class Mat, class Store, int DIM, int P, bool TANGENT, bool VISC>
+// from L1 or L2 after the first point.  The block is stored in CT (float,
+// or bfloat16 rounded to nearest even); the tables are read in float32.
+template <class Mat, class Store, int DIM, int P, bool TANGENT, bool VISC, typename CT>
 __global__ void __launch_bounds__(BLOCK)
     dense_residual_kernel(const float* __restrict__ u_el, const float* __restrict__ a_el,
                           const float* __restrict__ v_el, const float* __restrict__ dN,
                           const float* __restrict__ N, const float* __restrict__ wq,
-                          float* __restrict__ out, float* __restrict__ cout, Mat mat,
+                          float* __restrict__ out, CT* __restrict__ cout, Mat mat,
                           float rho, float mu_v, long long E) {
   using S = DenseShape<DIM, P>;
   constexpr int ND = S::ND;
@@ -182,12 +210,13 @@ __global__ void __launch_bounds__(BLOCK)
 
 // y = J w: y[c][n] = sum_q wq (dN[n][d] dP[c][d] + N[n] rho w_q[c]),
 // dP = fac0 C : grad w from the tangent block of `Store`, + fac1 mu_v grad w
-// with VISC
-template <class Store, int DIM, int P, bool VISC>
+// with VISC; the block in CT and the tables dN, N in TT (float, or the
+// bfloat16 copies of the matvec's table streams), each widened on load
+template <class Store, int DIM, int P, bool VISC, typename CT, typename TT>
 __global__ void __launch_bounds__(BLOCK)
-    dense_matvec_kernel(const float* __restrict__ w_el, const float* __restrict__ dN,
-                        const float* __restrict__ N, const float* __restrict__ wq,
-                        const float* __restrict__ cs, float* __restrict__ out, float rho,
+    dense_matvec_kernel(const float* __restrict__ w_el, const TT* __restrict__ dN,
+                        const TT* __restrict__ N, const float* __restrict__ wq,
+                        const CT* __restrict__ cs, float* __restrict__ out, float rho,
                         float fac0, float fac1_mu_v, long long E) {
   using S = DenseShape<DIM, P>;
   constexpr int ND = S::ND;
@@ -256,25 +285,25 @@ struct TileStage {
 };
 
 // v[c] = sum_n N[n](q) w(c ND + n), as value_q
-template <int DIM, int ND, class W>
-__device__ __forceinline__ void value_q_of(const float* __restrict__ N, const W& w,
+template <int DIM, int ND, typename TT, class W>
+__device__ __forceinline__ void value_q_of(const TT* __restrict__ N, const W& w,
                                            long long qe, long long QE, float v[DIM]) {
 #pragma unroll
   for (int c = 0; c < DIM; ++c) v[c] = 0.f;
 #pragma unroll 8
   for (int n = 0; n < ND; ++n) {
-    const float Nn = __ldg(N + (long long)n * QE + qe);
+    const float Nn = load_c(N + (long long)n * QE + qe);
 #pragma unroll
     for (int c = 0; c < DIM; ++c) v[c] += Nn * w(c * ND + n);
   }
 }
 
-// one point of the residual (and, with TANGENT, the assemble): fields u
-// (s0) and a (s1)
-template <class Mat, class Store, int DIM, int P, bool TANGENT, bool VISC>
+// one point of the residual (and, with TANGENT, the assemble, the block in
+// CT): fields u (s0) and a (s1)
+template <class Mat, class Store, int DIM, int P, bool TANGENT, bool VISC, typename CT>
 struct ResidualPoint {
   Mat mat;
-  float* cout;
+  CT* cout;
   const float* v_el;
   const float* dN;
   const float* N;
@@ -307,12 +336,12 @@ struct ResidualPoint {
   }
 };
 
-// one point of the matvec: field w (s0)
-template <class Store, int DIM, int P, bool VISC>
+// one point of the matvec: field w (s0), the block in CT, the tables in TT
+template <class Store, int DIM, int P, bool VISC, typename CT, typename TT>
 struct MatvecPoint {
-  const float* cs;
-  const float* dN;
-  const float* N;
+  const CT* cs;
+  const TT* dN;
+  const TT* N;
   float rho, fac0, fac1_mu_v;
   __device__ __forceinline__ void operator()(const float (*s0)[DTILE], const float (*)[DTILE],
                                              int lane, long long, long long, long long qe,
@@ -337,11 +366,11 @@ struct MatvecPoint {
 
 // y[c][n] = sum_q wq (dN[n][d] X[c][d] + N[n] m[c]) with the point's X and
 // m from `point` (ResidualPoint or MatvecPoint) on the NF staged fields f0
-// (and f1)
-template <int DIM, int P, int NF, class Pt>
+// (and f1); the scatter reads dN, N in TT (the point's own tables)
+template <int DIM, int P, int NF, typename TT, class Pt>
 __global__ void __launch_bounds__(DTILE * DSLOTS)
     dense_tile_kernel(Pt point, const float* __restrict__ f0, const float* __restrict__ f1,
-                      const float* __restrict__ dN, const float* __restrict__ N,
+                      const TT* __restrict__ dN, const TT* __restrict__ N,
                       const float* __restrict__ wq, float* __restrict__ out, long long E) {
   using S = DenseShape<DIM, P>;
   using T = TileStage<DIM>;
@@ -393,8 +422,8 @@ __global__ void __launch_bounds__(DTILE * DSLOTS)
           if (n < ND) {  // scatter_q's operations for node n
             float d[DIM];
 #pragma unroll
-            for (int f = 0; f < DIM; ++f) d[f] = __ldg(dN + (long long)(n * DIM + f) * QE + qe);
-            const float Nn = __ldg(N + (long long)n * QE + qe);
+            for (int f = 0; f < DIM; ++f) d[f] = load_c(dN + (long long)(n * DIM + f) * QE + qe);
+            const float Nn = load_c(N + (long long)n * QE + qe);
 #pragma unroll
             for (int c = 0; c < DIM; ++c) {
               float x = d[0] * p[c * DIM][lane];
@@ -420,14 +449,15 @@ __global__ void __launch_bounds__(DTILE * DSLOTS)
   }
 }
 
-template <int DIM, int P, int NF, class Pt>
-int launch_dense_tile(const Pt& point, const float* f0, const float* f1, const float* dN,
-                      const float* N, const float* wq, float* out, long long E, void* stream) {
+template <int DIM, int P, int NF, typename TT, class Pt>
+int launch_dense_tile(const Pt& point, const float* f0, const float* f1, const TT* dN,
+                      const TT* N, const float* wq, float* out, long long E, void* stream) {
   constexpr size_t smem = sizeof(float) * DTILE *
                           (NF * DenseShape<DIM, P>::NW + DSLOTS * TileStage<DIM>::N);
-  if (const int err = allow_dynamic_smem<dense_tile_kernel<DIM, P, NF, Pt>>(smem)) return err;
+  if (const int err = allow_dynamic_smem<dense_tile_kernel<DIM, P, NF, TT, Pt>>(smem))
+    return err;
   const unsigned tiles = (unsigned)((E + DTILE - 1) / DTILE);
-  dense_tile_kernel<DIM, P, NF, Pt><<<tiles, DTILE * DSLOTS, smem, (cudaStream_t)stream>>>(
+  dense_tile_kernel<DIM, P, NF, TT, Pt><<<tiles, DTILE * DSLOTS, smem, (cudaStream_t)stream>>>(
       point, f0, f1, dN, N, wq, out, E);
   return (int)cudaGetLastError();
 }
@@ -438,39 +468,42 @@ constexpr bool tiled_shape() {
   return DIM == 3 && P == 3;
 }
 
-template <class Mat, class Store, int DIM, int P, bool TANGENT, bool VISC = false>
+// the block in CT (deduced from cout); the tables in float32
+template <class Mat, class Store, int DIM, int P, bool TANGENT, bool VISC = false, typename CT>
 int launch_dense_residual(const float* u_el, const float* a_el, const float* dN,
-                          const float* N, const float* wq, float* out, float* cout,
+                          const float* N, const float* wq, float* out, CT* cout,
                           const Mat& mat, float rho, long long E, void* stream,
                           const float* v_el = nullptr, float mu_v = 0.f) {
   if constexpr (tiled_shape<DIM, P>()) {
-    const ResidualPoint<Mat, Store, DIM, P, TANGENT, VISC> point{mat, cout, v_el, dN, N, rho,
-                                                                 mu_v};
+    const ResidualPoint<Mat, Store, DIM, P, TANGENT, VISC, CT> point{
+        mat, cout, v_el, dN, N, rho, mu_v};
     return launch_dense_tile<DIM, P, 2>(point, u_el, a_el, dN, N, wq, out, E, stream);
   } else {
     constexpr size_t smem = 2 * sizeof(float) * DenseShape<DIM, P>::NW * BLOCK;
-    if (const int err =
-            allow_dynamic_smem<dense_residual_kernel<Mat, Store, DIM, P, TANGENT, VISC>>(smem))
+    if (const int err = allow_dynamic_smem<
+            dense_residual_kernel<Mat, Store, DIM, P, TANGENT, VISC, CT>>(smem))
       return err;
-    dense_residual_kernel<Mat, Store, DIM, P, TANGENT, VISC>
+    dense_residual_kernel<Mat, Store, DIM, P, TANGENT, VISC, CT>
         <<<grid_for(E), BLOCK, smem, (cudaStream_t)stream>>>(u_el, a_el, v_el, dN, N, wq, out,
                                                               cout, mat, rho, mu_v, E);
     return (int)cudaGetLastError();
   }
 }
 
-template <class Store, int DIM, int P, bool VISC = false>
-int launch_dense_matvec(const float* w_el, const float* dN, const float* N, const float* wq,
-                        const float* cs, float* out, float rho, float fac0, long long E,
+// the block in CT and the tables in TT (deduced from cs and dN)
+template <class Store, int DIM, int P, bool VISC = false, typename CT, typename TT>
+int launch_dense_matvec(const float* w_el, const TT* dN, const TT* N, const float* wq,
+                        const CT* cs, float* out, float rho, float fac0, long long E,
                         void* stream, float fac1_mu_v = 0.f) {
   if constexpr (tiled_shape<DIM, P>()) {
-    const MatvecPoint<Store, DIM, P, VISC> point{cs, dN, N, rho, fac0, fac1_mu_v};
+    const MatvecPoint<Store, DIM, P, VISC, CT, TT> point{cs, dN, N, rho, fac0, fac1_mu_v};
     return launch_dense_tile<DIM, P, 1>(point, w_el, nullptr, dN, N, wq, out, E, stream);
   } else {
     constexpr size_t smem = sizeof(float) * DenseShape<DIM, P>::NW * BLOCK;
-    if (const int err = allow_dynamic_smem<dense_matvec_kernel<Store, DIM, P, VISC>>(smem))
+    if (const int err =
+            allow_dynamic_smem<dense_matvec_kernel<Store, DIM, P, VISC, CT, TT>>(smem))
       return err;
-    dense_matvec_kernel<Store, DIM, P, VISC>
+    dense_matvec_kernel<Store, DIM, P, VISC, CT, TT>
         <<<grid_for(E), BLOCK, smem, (cudaStream_t)stream>>>(w_el, dN, N, wq, cs, out, rho, fac0,
                                                               fac1_mu_v, E);
     return (int)cudaGetLastError();

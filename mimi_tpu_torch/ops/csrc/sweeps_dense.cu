@@ -57,6 +57,16 @@
 // single-rounding intrinsics (no fused multiply-add), in the order of the
 // plain torch version's separate operations, so F and P agree with it to
 // the bit (materials.cuh says why that matters near F = I).
+//
+// bfloat16 (sweeps_dense_bf16.cu, which defines MIMI_DENSE_BF16 and
+// includes this source): mimi_assemble_dense_bf16 writes the block rounded
+// to nearest even, from the float32 tables; mimi_matvec_dense_bf16 reads
+// that block and the bfloat16 copies of dN and N (the reference's dN_mv /
+// N_mv, mimi_tpu/parallel/sharding.py:1147-1154), each widened exactly on
+// load, all arithmetic in float32.  There the matvec moves half the bytes
+// (at 3D p = 2 and E = 110,592: 2.21 GB in place of 4.40), read as 64-byte
+// rows a warp instead of 128.  The residual writes no block: it has no
+// bfloat16 instantiation.
 
 #include <cuda_runtime.h>
 
@@ -67,7 +77,7 @@ namespace {
 
 template <template <int> class H, class Store, int DIM, int P, bool TANGENT, bool VISC>
 int launch_hyper(const float* u_el, const float* a_el, const float* v_el, const float* dN,
-                 const float* N, const float* wq, float* out, float* cout,
+                 const float* N, const float* wq, float* out, DenseBlock* cout,
                  const HyperelasticParams& p, float mu_v, long long E, void* stream) {
   using Mat = Hyper<H<DIM>>;
   return launch_dense_residual<Mat, Store, DIM, P, TANGENT, VISC>(
@@ -77,7 +87,7 @@ int launch_hyper(const float* u_el, const float* a_el, const float* v_el, const 
 
 template <bool TANGENT, bool VISC>
 int hyper_entry(const float* u_el, const float* a_el, const float* v_el, const float* dN,
-                const float* N, const float* wq, float* out, float* cout, int full,
+                const float* N, const float* wq, float* out, DenseBlock* cout, int full,
                 const HyperelasticParams& p, float mu_v, int material, int dim, int deg,
                 long long E, void* stream) {
   return with_dense_shape(dim, deg, [&](auto D, auto G) {
@@ -101,7 +111,7 @@ int hyper_entry(const float* u_el, const float* a_el, const float* v_el, const f
 
 template <bool TANGENT>
 int hyper_visc_entry(const float* u_el, const float* a_el, const float* v_el, const float* dN,
-                     const float* N, const float* wq, float* out, float* cout, int full,
+                     const float* N, const float* wq, float* out, DenseBlock* cout, int full,
                      const HyperelasticParams& p, float mu_v, int material, int dim, int deg,
                      long long E, void* stream) {
   if (E <= 0) return 0;
@@ -119,11 +129,14 @@ int hyper_visc_entry(const float* u_el, const float* a_el, const float* v_el, co
 // (2, 2), (2, 3), (3, 2), (3, 3); v_el == nullptr (visc == 0 for the matvec)
 // selects the inviscid instantiation; the assemble's `full` the DIM^4
 // planes of dP/dF (FullStorage<DIM>, the matvec mimi_matvec_dense_full of
-// sweeps_dense_finite.cu) for the symmetric ones.  Each returns the
-// launch's cudaGetLastError(), or cudaErrorInvalidValue for a material or
-// (dim, p) not instantiated.
+// sweeps_dense_finite.cu) for the symmetric ones.  The block (and the
+// matvec's dN, N) in DenseBlock: float here, __nv_bfloat16 in the _bf16
+// entry points of sweeps_dense_bf16.cu.  Each returns the launch's
+// cudaGetLastError(), or cudaErrorInvalidValue for a material or (dim, p)
+// not instantiated.
 extern "C" {
 
+#ifndef MIMI_DENSE_BF16
 int mimi_residual_dense(const float* u_el, const float* a_el, const float* v_el,
                         const float* dN, const float* N, const float* wq, float* out,
                         HyperelasticParams p, float mu_v, int material, int dim, int deg,
@@ -131,18 +144,23 @@ int mimi_residual_dense(const float* u_el, const float* a_el, const float* v_el,
   return hyper_visc_entry<false>(u_el, a_el, v_el, dN, N, wq, out, nullptr, 0, p, mu_v,
                                  material, dim, deg, E, stream);
 }
+#endif
 
-int mimi_assemble_dense(const float* u_el, const float* a_el, const float* v_el,
-                        const float* dN, const float* N, const float* wq, float* out,
-                        float* cout, int full, HyperelasticParams p, float mu_v, int material,
-                        int dim, int deg, long long E, void* stream) {
+int MIMI_DENSE_ENTRY(mimi_assemble_dense)(const float* u_el, const float* a_el,
+                                          const float* v_el, const float* dN, const float* N,
+                                          const float* wq, float* out, DenseBlock* cout,
+                                          int full, HyperelasticParams p, float mu_v,
+                                          int material, int dim, int deg, long long E,
+                                          void* stream) {
   return hyper_visc_entry<true>(u_el, a_el, v_el, dN, N, wq, out, cout, full, p, mu_v,
                                 material, dim, deg, E, stream);
 }
 
-int mimi_matvec_dense(const float* w_el, const float* dN, const float* N, const float* wq,
-                      const float* cs, float* out, float rho, float fac0, int visc,
-                      float fac1_mu_v, int dim, int deg, long long E, void* stream) {
+int MIMI_DENSE_ENTRY(mimi_matvec_dense)(const float* w_el, const DenseBlock* dN,
+                                        const DenseBlock* N, const float* wq,
+                                        const DenseBlock* cs, float* out, float rho,
+                                        float fac0, int visc, float fac1_mu_v, int dim, int deg,
+                                        long long E, void* stream) {
   if (E <= 0) return 0;
   return with_dense_shape(dim, deg, [&](auto D, auto G) {
     constexpr int DIM = decltype(D)::value, P = decltype(G)::value;

@@ -44,6 +44,11 @@
 // against torch's x ** (1/3)), so the trial state, and at points right at
 // the yield surface the yield decision, may differ from the plain
 // version's by float32 rounding.
+//
+// bfloat16 (sweeps_dense_finite_bf16.cu, MIMI_DENSE_BF16, built with
+// -fmad=false as this source): mimi_assemble_dense_finite_bf16 stores the
+// full block rounded to nearest even, mimi_matvec_dense_full_bf16 reads it
+// with the bfloat16 copies of dN and N, as sweeps_dense.cu says.
 
 #include <cuda_runtime.h>
 
@@ -56,8 +61,8 @@ namespace {
 template <int DIM, int P, bool TANGENT, bool VISC>
 int launch_finite(const float* u_el, const float* a_el, const float* v_el, const float* dN,
                   const float* N, const float* wq, const float* s0, const float* s1,
-                  const float* s2, const float* s3, float* out, float* cout, const J2Params& p,
-                  float mu_v, int material, long long E, void* stream) {
+                  const float* s2, const float* s3, float* out, DenseBlock* cout,
+                  const J2Params& p, float mu_v, int material, long long E, void* stream) {
   return with_finite_material<DIM>(material, p, s0, s1, s2, s3, [&](const auto& m) {
     using Mat = std::decay_t<decltype(m)>;
     return launch_dense_residual<Mat, FullStorage<DIM>, DIM, P, TANGENT, VISC>(
@@ -68,8 +73,9 @@ int launch_finite(const float* u_el, const float* a_el, const float* v_el, const
 template <bool TANGENT>
 int finite_entry(const float* u_el, const float* a_el, const float* v_el, const float* dN,
                  const float* N, const float* wq, const float* s0, const float* s1,
-                 const float* s2, const float* s3, float* out, float* cout, const J2Params& p,
-                 float mu_v, int material, int dim, int deg, long long E, void* stream) {
+                 const float* s2, const float* s3, float* out, DenseBlock* cout,
+                 const J2Params& p, float mu_v, int material, int dim, int deg, long long E,
+                 void* stream) {
   if (E <= 0) return 0;
   return with_dense_shape(dim, deg, [&](auto D, auto G) {
     constexpr int DIM = decltype(D)::value, P = decltype(G)::value;
@@ -87,11 +93,13 @@ int finite_entry(const float* u_el, const float* a_el, const float* v_el, const 
 // (2, 2), (2, 3), (3, 2), (3, 3).  The state leaves s0..s3 in the order
 // of ops/sweeps.py FULL_KERNELS (J2Simo be_old, F_old, eqps, temperature;
 // J2Log Fp_inv, eqps, temperature, s3 unused); v_el == nullptr (visc == 0
-// for the matvec) selects the inviscid instantiation.  Each returns the
-// launch's cudaGetLastError(), or cudaErrorInvalidValue for a (dim, p) not
-// instantiated or an unknown material.
+// for the matvec) selects the inviscid instantiation; the block (and the
+// matvec's dN, N) in DenseBlock, __nv_bfloat16 in the _bf16 entry points.
+// Each returns the launch's cudaGetLastError(), or cudaErrorInvalidValue
+// for a (dim, p) not instantiated or an unknown material.
 extern "C" {
 
+#ifndef MIMI_DENSE_BF16
 int mimi_residual_dense_finite(const float* u_el, const float* a_el, const float* v_el,
                                const float* dN, const float* N, const float* wq,
                                const float* s0, const float* s1, const float* s2,
@@ -100,21 +108,25 @@ int mimi_residual_dense_finite(const float* u_el, const float* a_el, const float
   return finite_entry<false>(u_el, a_el, v_el, dN, N, wq, s0, s1, s2, s3, out, nullptr, p,
                              mu_v, material, dim, deg, E, stream);
 }
+#endif
 
-int mimi_assemble_dense_finite(const float* u_el, const float* a_el, const float* v_el,
-                               const float* dN, const float* N, const float* wq,
-                               const float* s0, const float* s1, const float* s2,
-                               const float* s3, float* out, float* cout, J2Params p,
-                               float mu_v, int material, int dim, int deg, long long E,
-                               void* stream) {
+int MIMI_DENSE_ENTRY(mimi_assemble_dense_finite)(const float* u_el, const float* a_el,
+                                                 const float* v_el, const float* dN,
+                                                 const float* N, const float* wq,
+                                                 const float* s0, const float* s1,
+                                                 const float* s2, const float* s3, float* out,
+                                                 DenseBlock* cout, J2Params p, float mu_v,
+                                                 int material, int dim, int deg, long long E,
+                                                 void* stream) {
   return finite_entry<true>(u_el, a_el, v_el, dN, N, wq, s0, s1, s2, s3, out, cout, p, mu_v,
                             material, dim, deg, E, stream);
 }
 
-int mimi_matvec_dense_full(const float* w_el, const float* dN, const float* N,
-                           const float* wq, const float* cf, float* out, float rho,
-                           float fac0, int visc, float fac1_mu_v, int dim, int deg,
-                           long long E, void* stream) {
+int MIMI_DENSE_ENTRY(mimi_matvec_dense_full)(const float* w_el, const DenseBlock* dN,
+                                             const DenseBlock* N, const float* wq,
+                                             const DenseBlock* cf, float* out, float rho,
+                                             float fac0, int visc, float fac1_mu_v, int dim,
+                                             int deg, long long E, void* stream) {
   if (E <= 0) return 0;
   return with_dense_shape(dim, deg, [&](auto D, auto G) {
     constexpr int DIM = decltype(D)::value, P = decltype(G)::value;

@@ -34,6 +34,13 @@
 // (dense_common.cuh grad_q), and P = J sigma F^-T from sigma with the
 // single-rounding 2 x 2 / 3 x 3 algebra of materials.cuh, as the plain
 // version's _pk1_from_cauchy_soa.
+//
+// bfloat16 (sweeps_dense_j2_bf16.cu, MIMI_DENSE_BF16):
+// mimi_assemble_dense_j2_bf16 stores the Cauchy (or full) block rounded to
+// nearest even, mimi_matvec_dense_cauchy_bf16 reads it with the bfloat16
+// copies of dN and N, as sweeps_dense.cu says; the driven path J (the main
+// path's 48^3 J2 cube with matvec_impl="dense", matvec_dtype="bf16") runs
+// the (3, 2) pair.
 
 #include <cuda_runtime.h>
 
@@ -96,7 +103,7 @@ struct DenseJ2 {
 template <bool TANGENT>
 int j2_entry(const float* u_el, const float* a_el, const float* v_el, const float* dN,
              const float* N, const float* wq, const float* ps, const float* eqps,
-             const float* temp, const float* beta, float* out, float* cout, int full,
+             const float* temp, const float* beta, float* out, DenseBlock* cout, int full,
              const J2Params& p, float mu_v, int material, int dim, int deg, long long E,
              void* stream) {
   if (E <= 0) return 0;
@@ -132,11 +139,13 @@ int j2_entry(const float* u_el, const float* a_el, const float* v_el, const floa
 // p) one of the instantiated pairs (2, 2), (2, 3), (3, 2), (3, 3); v_el ==
 // nullptr (visc == 0 for the matvec) selects the inviscid instantiation; the
 // assemble's `full` the DIM^4 planes of dP/dF (FullStorage<DIM>, the matvec
-// mimi_matvec_dense_full of sweeps_dense_finite.cu) for the Cauchy block.  Each
-// returns the launch's cudaGetLastError(), or cudaErrorInvalidValue for a
-// material or a (dim, p) not instantiated.
+// mimi_matvec_dense_full of sweeps_dense_finite.cu) for the Cauchy block; the
+// block (and the matvec's dN, N) in DenseBlock, __nv_bfloat16 in the _bf16
+// entry points.  Each returns the launch's cudaGetLastError(), or
+// cudaErrorInvalidValue for a material or a (dim, p) not instantiated.
 extern "C" {
 
+#ifndef MIMI_DENSE_BF16
 int mimi_residual_dense_j2(const float* u_el, const float* a_el, const float* v_el,
                            const float* dN, const float* N, const float* wq, const float* ps,
                            const float* eqps, const float* temp, const float* beta,
@@ -145,20 +154,24 @@ int mimi_residual_dense_j2(const float* u_el, const float* a_el, const float* v_
   return j2_entry<false>(u_el, a_el, v_el, dN, N, wq, ps, eqps, temp, beta, out, nullptr, 0,
                          p, mu_v, material, dim, deg, E, stream);
 }
+#endif
 
-int mimi_assemble_dense_j2(const float* u_el, const float* a_el, const float* v_el,
-                           const float* dN, const float* N, const float* wq, const float* ps,
-                           const float* eqps, const float* temp, const float* beta,
-                           float* out, float* cout, int full, J2Params p, float mu_v,
-                           int material, int dim, int deg, long long E, void* stream) {
+int MIMI_DENSE_ENTRY(mimi_assemble_dense_j2)(const float* u_el, const float* a_el,
+                                             const float* v_el, const float* dN,
+                                             const float* N, const float* wq, const float* ps,
+                                             const float* eqps, const float* temp,
+                                             const float* beta, float* out, DenseBlock* cout,
+                                             int full, J2Params p, float mu_v, int material,
+                                             int dim, int deg, long long E, void* stream) {
   return j2_entry<true>(u_el, a_el, v_el, dN, N, wq, ps, eqps, temp, beta, out, cout, full, p,
                         mu_v, material, dim, deg, E, stream);
 }
 
-int mimi_matvec_dense_cauchy(const float* w_el, const float* dN, const float* N,
-                             const float* wq, const float* cb, float* out, float rho,
-                             float fac0, int visc, float fac1_mu_v, int dim, int deg,
-                             long long E, void* stream) {
+int MIMI_DENSE_ENTRY(mimi_matvec_dense_cauchy)(const float* w_el, const DenseBlock* dN,
+                                               const DenseBlock* N, const float* wq,
+                                               const DenseBlock* cb, float* out, float rho,
+                                               float fac0, int visc, float fac1_mu_v, int dim,
+                                               int deg, long long E, void* stream) {
   if (E <= 0) return 0;
   return with_dense_shape(dim, deg, [&](auto D, auto G) {
     constexpr int DIM = decltype(D)::value, P = decltype(G)::value;

@@ -17,10 +17,12 @@ Counterpart of mimi_tpu/ops/sweeps.py (`make_residual_sweep`,
     3D, c_storage="sym" (the hyperelastic materials: 45 planes in 3D, 10
     in 2D), "cauchy" (J2 and J2Linear with their state: 37 / 14 planes)
     or "full" (J2Simo and J2Log with their state: 81 / 16 planes), with
-    and without the viscous flux; float32 blocks:
+    and without the viscous flux, the block in float32 or bfloat16 (the
+    bfloat16 matvec reads bfloat16 copies of dN and N as well):
     `residual_dense`, `assemble_dense`, `matvec_dense`, kernels in
     ops/csrc/sweeps_dense.cu, sweeps_dense_j2.cu and
-    sweeps_dense_finite.cu, compiled for the (dim, p) pairs of
+    sweeps_dense_finite.cu and their bfloat16 twins (*_bf16.cu, entry
+    points with the suffix "_bf16"), compiled for the (dim, p) pairs of
     DENSE_SHAPES.
 The material decides the storage (`tangent_storage`): the residual reads
 it off the material; the assemble writes the material's own block or,
@@ -43,7 +45,8 @@ Each sweep has
 The viscous flux mu_v grad(v) joins P in the residual and the assemble
 (v_el = the element values of va + fac1 aa); the matvec adds
 fac1 mu_v grad(w).  A bfloat16 tangent block is rounded to nearest even
-when it is written and widened to float on every read.
+when it is written and widened to float on every read; so are the
+bfloat16 table copies the dense matvec reads.
 
 Layouts (batch-last, elements fastest; shared with the JAX package):
 element dof values (dim, nd, n_el) with n = a0 + P a1 (+ P^2 a2); per-axis
@@ -184,27 +187,29 @@ _FULL_TAGS = [f"{t}{law}" for _, t, _ in FULL_KERNELS.values() for law in _LAWS]
 _HYPER_TAGS = [t for _, t in HYPER_KERNELS.values()]
 _BOTH = (False, True)
 # every material's instantiations in its own storage and in the full one,
-# viscous or not, with a float32 or (sf only) a bfloat16 block
+# viscous or not, with a float32 or a bfloat16 block, sf and dense
 LAUNCHES.update({
     name: 0
     for tags, own in ((_HYPER_TAGS, "sym"), (_CAUCHY_TAGS, "cauchy"), (_FULL_TAGS, "full"))
     for tag in tags
     for storage in {own, "full"}
     for visc in _BOTH
+    for bf16 in _BOTH
     for name in (
-        *[n for bf16 in _BOTH for p1, _ in SF_SHAPES
+        *[n for p1, _ in SF_SHAPES
           for n in material_counters("sf", tag, storage, 3, p1 - 1, visc, bf16)],
         *[n for dim, p in DENSE_SHAPES
-          for n in material_counters("dense", tag, storage, dim, p, visc)],
+          for n in material_counters("dense", tag, storage, dim, p, visc, bf16)],
     )
 })
 LAUNCHES.update({
     name: 0
     for storage in STORAGES
     for visc in _BOTH
-    for name in (*[matvec_counter("sf", storage, 3, p1 - 1, visc, bf16) for bf16 in _BOTH
-                   for p1, _ in SF_SHAPES],
-                 *[matvec_counter("dense", storage, dim, p, visc) for dim, p in DENSE_SHAPES])
+    for bf16 in _BOTH
+    for name in (*[matvec_counter("sf", storage, 3, p1 - 1, visc, bf16) for p1, _ in SF_SHAPES],
+                 *[matvec_counter("dense", storage, dim, p, visc, bf16)
+                   for dim, p in DENSE_SHAPES])
 })
 LAUNCHES.update({
     # ops/fused_neohookean.py
@@ -727,7 +732,11 @@ def assemble_dense_plain(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho,
 def matvec_dense_plain(w_el, dN_t, N_t, wq, Cb, rho, fac0, fac1_mu_v=None, storage="sym"):
     """y[c, n] = sum_q wq (dN[n, d] dP[c, d] + N[n] rho w_q[c]),
     dP = fac0 (dP/dF : grad w) (+ fac1 mu_v grad w) from the block of
-    `storage` ("sym", "cauchy" or "full"), widened to the fields' dtype."""
+    `storage` ("sym", "cauchy" or "full").  The block and the tables (a
+    bfloat16 block comes with bfloat16 copies of dN and N, the reference's
+    dN_mv / N_mv) are widened to the fields' dtype before any arithmetic,
+    as the kernels widen them on load."""
+    dN_t, N_t = dN_t.to(w_el.dtype), N_t.to(w_el.dtype)
     dW = dense_grad(w_el, dN_t)
     dP = _tangent_apply(storage, Cb, dN_t.shape[1])(Cb.to(w_el.dtype), dW, fac0)
     if fac1_mu_v is not None:
@@ -1092,12 +1101,13 @@ def _sf_matvec(w_el, tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v=None, storage="cau
     return out
 
 
-def _check_dense(el_fields, dN_t, N_t, wq):
-    """Validate the dense operands; returns (device, n_el, dim, p).  Shapes
-    that do not fit together raise ValueError; consistent tables of a
-    (dimension, degree) the kernels are not compiled for (DENSE_SHAPES,
-    each with its (p + 2)^dim Gauss points) raise NotImplementedError,
-    before the device is asked."""
+def _check_dense(el_fields, dN_t, N_t, wq, table_dtype=torch.float32):
+    """Validate the dense operands, the tables dN_t and N_t in
+    `table_dtype` (float32, or bfloat16 for the bfloat16 matvec); returns
+    (device, n_el, dim, p).  Shapes that do not fit together raise
+    ValueError; consistent tables of a (dimension, degree) the kernels are
+    not compiled for (DENSE_SHAPES, each with its (p + 2)^dim Gauss points)
+    raise NotImplementedError, before the device is asked."""
     if dN_t.dim() != 4:
         raise ValueError(f"dN_t: (nd, dim, n_q, n_el) required, got {tuple(dN_t.shape)}")
     nd, dim, n_q, n_el = dN_t.shape
@@ -1119,36 +1129,28 @@ def _check_dense(el_fields, dN_t, N_t, wq):
     _check_device(device)
     for name, t in el_fields:
         _check(name, t, (dim, nd, n_el), device)
-    _check("dN_t", dN_t, (nd, dim, n_q, n_el), device)
-    _check("N_t", N_t, (nd, n_q, n_el), device)
+    _check("dN_t", dN_t, (nd, dim, n_q, n_el), device, table_dtype)
+    _check("N_t", N_t, (nd, n_q, n_el), device, table_dtype)
     _check("wq", wq, (n_q, n_el), device)
     return device, n_el, dim, p
 
 
-def _dense_unported(storage, c_dtype=torch.float32):
-    """Raise for what the CUDA dense sweeps do not implement: a bfloat16
-    block of any storage (Queue 2 item 4, which needs the bfloat16 table
-    streams of Queue 1 item 10 as well)."""
-    if c_dtype != torch.float32:
-        raise NotImplementedError(
-            f"a {c_dtype} {storage!r} tangent block on the CUDA dense sweeps (ROADMAP "
-            "Queue 2 item 4, with the bfloat16 table streams of Queue 1 item 10)"
-        )
-
-
 def _dense_sweep(assemble, u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el=None,
-                 mu_v=0.0, storage=None):
-    """The dense residual (or, with `assemble`, residual and float32 tangent
-    block in `storage`, by default the material's) kernel of the material,
-    with the viscous flux when v_el is given: the hyperelastic ones
-    (`mimi_residual_dense` / `mimi_assemble_dense`: the symmetric or the
-    full block), J2 (any of the five hardening laws) and J2Linear with their
-    state (`mimi_residual_dense_j2` / `mimi_assemble_dense_j2`: the Cauchy or
-    the full block), J2Simo and J2Log with their state
-    (`mimi_residual_dense_finite` / `mimi_assemble_dense_finite`: full)."""
+                 mu_v=0.0, storage=None, c_dtype=torch.float32):
+    """The dense residual (or, with `assemble`, residual and tangent block
+    in `storage`, by default the material's, and in c_dtype, float32 or
+    bfloat16) kernel of the material, with the viscous flux when v_el is
+    given: the hyperelastic ones (`mimi_residual_dense` /
+    `mimi_assemble_dense`: the symmetric or the full block), J2 (any of the
+    five hardening laws) and J2Linear with their state
+    (`mimi_residual_dense_j2` / `mimi_assemble_dense_j2`: the Cauchy or the
+    full block), J2Simo and J2Log with their state
+    (`mimi_residual_dense_finite` / `mimi_assemble_dense_finite`: full); a
+    bfloat16 block from the assembles' `_bf16` twins."""
     from .build import load
 
     own, storage = _block_storage(mat, storage)
+    bf16 = _c_flag(c_dtype)
     fields = [("u_el", u_el), ("a_el", a_el)] + ([("v_el", v_el)] if v_el is not None else [])
     device, n_el, dim, p = _check_dense(fields, dN_t, N_t, wq)
     n_q = wq.shape[0]
@@ -1156,16 +1158,16 @@ def _dense_sweep(assemble, u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el=
     head = (_ptr(u_el), _ptr(a_el), _ptr(v_el), _ptr(dN_t), _ptr(N_t), _ptr(wq), *st)
     tail = (prm, ctypes.c_float(mu_v), ctypes.c_int(mat_id), ctypes.c_int(dim), ctypes.c_int(p),
             ctypes.c_longlong(n_el))
-    names = kernel_counters(mat, "dense", dim, p, v_el is not None, storage=storage)
+    names = kernel_counters(mat, "dense", dim, p, v_el is not None, bool(bf16), storage)
     out = torch.empty((dim, u_el.shape[1], n_el), dtype=torch.float32, device=device)
     lib = load()
     if not assemble:
         _launch(getattr(lib, f"mimi_residual{stem}"), names[0], *head, _ptr(out), *tail)
         return out
-    cb = torch.empty((n_planes(storage, dim), n_q, n_el), dtype=torch.float32, device=device)
+    cb = torch.empty((n_planes(storage, dim), n_q, n_el), dtype=c_dtype, device=device)
     full = () if own == "full" else (ctypes.c_int(int(storage == "full")),)
-    _launch(getattr(lib, f"mimi_assemble{stem}"), names[1], *head, _ptr(out), _ptr(cb), *full,
-            *tail)
+    _launch(getattr(lib, f"mimi_assemble{stem}{'_bf16' if bf16 else ''}"), names[1], *head,
+            _ptr(out), _ptr(cb), *full, *tail)
     return out, cb
 
 
@@ -1191,30 +1193,39 @@ def assemble_dense(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el=None,
     algorithmic tangent of J2 or J2Linear, the Cauchy or full planes) or
     `mimi_assemble_dense_finite` (J2Simo, J2Log: the dim^4 planes of dP/dF
     from dim^2 forward-mode dual-number passes), each with the viscous flux
-    when v_el is given; float32."""
+    when v_el is given and the block in float32 or bfloat16 (their `_bf16`
+    twins), from the float32 tables."""
     c_dtype = c_dtype or u_el.dtype
     if u_el.device.type == "cpu":
         return assemble_dense_plain(
             u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el, mu_v, c_dtype, storage
         )
-    _dense_unported(storage or tangent_storage(mat), c_dtype)
     return _dense_sweep(True, u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el, mu_v,
-                        storage)
+                        storage, c_dtype)
 
 
 def _dense_matvec(w_el, dN_t, N_t, wq, Cb, rho, fac0, storage, fac1_mu_v=None):
     """The dense matvec kernel of `storage`: `mimi_matvec_dense` ("sym"),
     `mimi_matvec_dense_cauchy` ("cauchy") or `mimi_matvec_dense_full`
-    ("full"), each with the viscous term when fac1_mu_v is given."""
+    ("full"), each with the viscous term when fac1_mu_v is given; a
+    bfloat16 block through their `_bf16` twins, which read dN_t and N_t as
+    bfloat16 copies too (the reference's dN_mv / N_mv)."""
     from .build import load
 
-    device, n_el, dim, p = _check_dense([("w_el", w_el)], dN_t, N_t, wq)
-    _check("C", Cb, (n_planes(storage, dim), wq.shape[0], n_el), device)
+    bf16 = _c_flag(Cb.dtype)
+    if dN_t.dtype != Cb.dtype or N_t.dtype != Cb.dtype:
+        raise ValueError(
+            f"the dense matvec reads its tables in the block's dtype ({Cb.dtype}: the "
+            f"bfloat16 block comes with bfloat16 copies of dN and N), got dN_t "
+            f"{dN_t.dtype}, N_t {N_t.dtype}"
+        )
+    device, n_el, dim, p = _check_dense([("w_el", w_el)], dN_t, N_t, wq, Cb.dtype)
+    _check("C", Cb, (n_planes(storage, dim), wq.shape[0], n_el), device, Cb.dtype)
     out = torch.empty((dim, w_el.shape[1], n_el), dtype=torch.float32, device=device)
     visc = fac1_mu_v is not None
     _launch(
-        getattr(load(), _MATVEC_FNS["dense"][storage]),
-        matvec_counter("dense", storage, dim, p, visc),
+        getattr(load(), _MATVEC_FNS["dense"][storage] + ("_bf16" if bf16 else "")),
+        matvec_counter("dense", storage, dim, p, visc, bool(bf16)),
         _ptr(w_el), _ptr(dN_t), _ptr(N_t), _ptr(wq), _ptr(Cb), _ptr(out),
         ctypes.c_float(rho), ctypes.c_float(fac0), ctypes.c_int(int(visc)),
         ctypes.c_float(fac1_mu_v if visc else 0.0), ctypes.c_int(dim), ctypes.c_int(p),
@@ -1227,8 +1238,9 @@ def matvec_dense(w_el, dN_t, N_t, wq, Cb, rho, fac0, fac1_mu_v=None, storage="sy
     """Dense GMRES matvec sweep on the block of `storage`: plain torch on
     CPU tensors; on CUDA tensors the kernel `mimi_matvec_dense` ("sym"),
     `mimi_matvec_dense_cauchy` ("cauchy") or `mimi_matvec_dense_full`
-    ("full"), each with the viscous term when fac1_mu_v is given; float32."""
+    ("full"), each with the viscous term when fac1_mu_v is given, on a
+    float32 block and float32 tables or a bfloat16 block and bfloat16
+    copies of dN_t and N_t (the `_bf16` twins)."""
     if w_el.device.type == "cpu":
         return matvec_dense_plain(w_el, dN_t, N_t, wq, Cb, rho, fac0, fac1_mu_v, storage)
-    _dense_unported(storage, Cb.dtype)
     return _dense_matvec(w_el, dN_t, N_t, wq, Cb, rho, fac0, storage, fac1_mu_v)

@@ -8,7 +8,8 @@ paths:
     plastic cubes): the sum-factorized sweeps with the 37-plane Cauchy
     tangent (the viscous flux and a bfloat16 tangent block where asked),
     the 45-plane symmetric or the 81-plane full tangent, structured
-    gather and pad-and-sum scatter;
+    gather and pad-and-sum scatter; with matvec_impl="dense", the dense
+    sweeps on the patch's dense tables, built on request;
   - every other problem, 2D patches (the golden cantilever, balken at
     p=3), multi-patch meshes and repeated interior knots (the neo-Hookean
     two-patch cantilever): the dense-table sweeps with the symmetric
@@ -77,11 +78,15 @@ class Problem:
     # (n_dof, max valence) the positions in connT of each dof
     # (fem/scatter.py inverse_map), with connT: the scatter's fixed order
     conn_inv: torch.Tensor | None = None
-    # exactly one of: the sum-factorized tables {"tables": [B0, D0, B1, D1,
-    # B2, D2], "jinv", "n_g", "pp1"}, or the dense tables {"dN_t"
-    # (nd, dim, n_q, n_el), "N_t" (nd, n_q, n_el)}
+    # the sum-factorized tables {"tables": [B0, D0, B1, D1, B2, D2], "jinv",
+    # "n_g", "pp1"}, or the dense tables {"dN_t" (nd, dim, n_q, n_el), "N_t"
+    # (nd, n_q, n_el)}; an sf problem gets dense tables too, with their own
+    # "wdet_t", where a step asks for them (`dense_tables`)
     sf: dict | None = None
     dense: dict | None = None
+    # an sf build's (FE space, quadrature order), from which `dense_tables`
+    # builds the patch's dense tables on request
+    dense_src: tuple | None = None
     # mortar contact: per block a dict of element tables, scene data and
     # penalty (contact/mortar.py), and its static part {"n_local",
     # "query", "bid"}
@@ -205,9 +210,11 @@ def build_problem(
     material.setup(dim)
     grid = _structured_grid(patch)
     dev = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)  # noqa: E731
+    dense_src = None
     if grid is not None and _sf_gate(patch, quadrature_order):
         conn, n_q, wdet_t, nodal, sf = _sf_tables(fes, quadrature_order, dev)
         dense = connT = conn_inv = None
+        dense_src = (fes, quadrature_order)
     else:
         conn, n_q, wdet_t, nodal, dense = _dense_tables(fes, quadrature_order, dtype, device)
         sf = None
@@ -253,6 +260,7 @@ def build_problem(
         conn_inv=conn_inv,
         sf=sf,
         dense=dense,
+        dense_src=dense_src,
         contact=contact_data,
         contact_static=contact_static,
     )
@@ -334,6 +342,28 @@ def _dense_tables(fes, quadrature_order, dtype, device):
 
     conn = np.concatenate(conns)
     return conn, n_q, cat(ws), nodal, {"dN_t": cat(dNs), "N_t": cat(Ns)}
+
+
+def dense_tables(prob):
+    """The problem's dense tables {"dN_t", "N_t", "wdet_t"}: a dense-table
+    problem's own (its w det J is prob.wdet_t); on a sum-factorized problem
+    those of its one patch, built on the first request (the reference keeps
+    both kinds of tables on the host and puts on the device what the step
+    reads, mimi_tpu/parallel/sharding.py:1091-1093) and kept on the problem
+    (prob.dense; set it to None to free them).  Elements, local dofs and
+    points come in the sf tables' order (one `_connectivity`, q axis-0
+    fastest), so the structured gather and scatter and the material state
+    serve both kinds."""
+    if prob.dense is None:
+        if prob.dense_src is None:
+            raise ValueError("the problem has no dense tables and no patch to build them from")
+        fes, quadrature_order = prob.dense_src
+        conn, n_q, wdet_t, _, dense = _dense_tables(fes, quadrature_order, prob.dtype,
+                                                    prob.device)
+        if n_q != prob.n_q or not np.array_equal(conn, prob.conn):
+            raise RuntimeError("the dense tables order elements or dofs unlike the sf tables")
+        prob.dense = dict(dense, wdet_t=wdet_t)
+    return {"wdet_t": prob.wdet_t, **prob.dense}
 
 
 def _contact_blocks(fes, contact, quadrature_order, dtype, device):
@@ -476,19 +506,22 @@ _SWEEPS = {
 }
 
 
-def _tables(prob):
-    """The problem's sweep tables: ("sf", (tables, jinv)) or ("dense",
-    (dN_t, N_t)); every sweep takes them after (u_el, a_el, state) or
-    w_el."""
-    if prob.sf is not None:
-        return "sf", (prob.sf["tables"], prob.sf["jinv"])
-    return "dense", (prob.dense["dN_t"], prob.dense["N_t"])
+def _tables(prob, matvec_impl="auto"):
+    """The sweep tables of the problem's step, with their w det J:
+    ("sf", (tables, jinv), wdet_t) or ("dense", (dN_t, N_t), wdet_t); every
+    sweep takes the pair after (u_el, a_el, state) or w_el.  An sf problem
+    runs the sf sweeps unless `matvec_impl` is "dense" (`dense_tables`)."""
+    if prob.sf is not None and matvec_impl != "dense":
+        return "sf", (prob.sf["tables"], prob.sf["jinv"]), prob.wdet_t
+    d = dense_tables(prob)
+    return "dense", (d["dN_t"], d["N_t"]), d["wdet_t"]
 
 
-def _select_impl(prob, residual_impl):
-    """(residual, assemble, matvec) sweeps on the problem's tables:
-    "cuda", the hand-written kernels (ops/csrc), the default on CUDA
-    problems; "torch", their plain torch versions, the default on CPU."""
+def _select_impl(prob, residual_impl, kind=None):
+    """(residual, assemble, matvec) sweeps on the `kind` tables (default:
+    the problem's own): "cuda", the hand-written kernels (ops/csrc), the
+    default on CUDA problems; "torch", their plain torch versions, the
+    default on CPU."""
     if residual_impl is None:
         residual_impl = "cuda" if prob.device.type == "cuda" else "torch"
     if residual_impl not in ("cuda", "torch"):
@@ -498,12 +531,13 @@ def _select_impl(prob, residual_impl):
         )
     if residual_impl == "cuda" and prob.device.type != "cuda":
         raise ValueError("residual_impl='cuda' needs a problem on a CUDA device")
-    return _SWEEPS[(_tables(prob)[0], residual_impl)]
+    return _SWEEPS[(kind or _tables(prob)[0], residual_impl)]
 
 
-def _grad(prob, w_el):
-    """Physical gradient (dim, dim, n_q, n_el) of element fields (dim, nd, n_el)."""
-    kind, (t1, t2) = _tables(prob)
+def _grad(kind, tables, w_el):
+    """Physical gradient (dim, dim, n_q, n_el) of element fields (dim, nd,
+    n_el) on the `kind` tables."""
+    t1, t2 = tables
     return sweeps.sf_grad(w_el, t1, t2) if kind == "sf" else sweeps.dense_grad(w_el, t1)
 
 
@@ -550,8 +584,7 @@ def _explicit_accel(prob, u, state, dt, residual_impl=None):
     res_sweep, _, _ = _select_impl(prob, residual_impl)
     gather_t, scatter_el = _gather_scatter(prob)
     mat = prob.material
-    kind, tables = _tables(prob)
-    wq = prob.wdet_t
+    kind, tables, wq = _tables(prob)
     free = prob.free
     n_dof, dim = prob.n_dof, prob.dim
     rho = float(mat.density)
@@ -615,12 +648,16 @@ def make_step(
         reference package's "pallas".
       - "torch" (default on the CPU): their plain torch versions, any
         dtype; the counterpart of the reference package's "soa" engine.
-    The problem's tables decide the sweeps (the reference's `matvec_impl`
-    "auto"): a problem with sum-factorized tables runs the sf sweeps, a
-    dense-table problem the dense sweeps (`matvec_impl` takes "auto" or
-    the name of what the tables decide, as an alias of the reference's
-    option).  `tangent_storage` "auto" takes the strongest exact
-    compression the material declares (cauchy > sym > full): the
+    `matvec_impl` picks the tables all three sweeps run on, as in the
+    reference: "auto" (the default) the problem's own, the sf sweeps on a
+    problem with sum-factorized tables and the dense sweeps on a
+    dense-table problem; "dense" the dense sweeps on either, on an sf
+    problem on its patch's dense tables, built at the first such request
+    and kept on the problem (`dense_tables`; the structured gather and
+    scatter stay); "sf" the sf sweeps, on a problem without sf tables a
+    ValueError, as in the reference.  `tangent_storage` "auto" takes the
+    strongest exact compression the material declares (cauchy > sym >
+    full): the
     Cauchy-decomposition tangent of J2 (with any of the five hardening
     laws) and J2Linear (37 planes in 3D, 14 in 2D), the symmetric tangent
     of a material with a major-symmetric dP/dF (the hyperelastic ones, 45 /
@@ -637,9 +674,10 @@ def make_step(
 
     `matvec_dtype` ("f32", "bf16") is the storage of the tangent block the
     GMRES matvec streams; "bf16" rounds it once in the assemble and
-    widens it on every read, on both engines, in every storage.  Residuals
-    stay float32.  Dense tables take a float32 block only (a bfloat16
-    dense block raises, ROADMAP Queue 2 item 4).
+    widens it on every read, on both engines, in every storage.  On dense
+    tables the matvec then reads bfloat16 copies of dN and N as well, made
+    once here (the reference's dN_mv / N_mv); the residual and the
+    assemble keep the float32 tables, and all arithmetic stays float32.
 
     The radial return of the J2 family runs up to 40 scalar-solve trips in
     the CUDA kernels, as in the reference's Pallas kernels, and 100 on the
@@ -684,7 +722,6 @@ def make_step(
         raise ValueError(f"unknown precond {precond!r}")
     if prob.fdm is None:
         raise _unported("problems without an FDM decomposition (block-Jacobi)", "Queue 1 item 6")
-    kind = _tables(prob)[0]
     # a compression the material does not declare would corrupt the Krylov
     # operator: a wrong request, as in the reference
     if tangent_storage == "sym" and not mat.tangent_major_symmetric:
@@ -704,25 +741,23 @@ def make_step(
     # "auto": the strongest exact compression the material declares; "full"
     # (exact for every material) is taken on any
     storage = sweeps.tangent_storage(mat) if tangent_storage == "auto" else tangent_storage
-    # the tables decide the sweeps; the reference's explicit names are
-    # accepted as aliases of what they decide
     if matvec_impl not in ("auto", "sf", "dense"):
         raise ValueError(f"unknown matvec_impl {matvec_impl!r}")
-    if matvec_impl not in ("auto", kind):
-        raise _unported(f"matvec_impl={matvec_impl!r} on a problem that decides {kind!r}",
-                        "Queue 2 item 2")
+    if matvec_impl == "sf" and prob.sf is None:
+        raise ValueError(
+            "matvec_impl='sf' needs a problem with sum-factorization tables (Problem.sf: "
+            "one polynomial 3D patch with simple interior knots, one Gauss count per axis)"
+        )
     if mat.name() not in (*sweeps.HYPER_KERNELS, *sweeps.CAUCHY_KERNELS, *sweeps.FULL_KERNELS):
         raise _unported(f"{mat.name()} with the {storage} tangent", "Queue 1 item 2")
     if matvec_dtype not in ("f32", "bf16"):
         raise ValueError(f"unknown matvec_dtype {matvec_dtype!r}")
-    if matvec_dtype == "bf16" and kind == "dense":
-        raise _unported("matvec_dtype='bf16' on dense tables (with the bfloat16 table "
-                        "streams of Queue 1 item 10)", "Queue 2 item 4")
     if contact_tangent not in ("frozen", "consistent"):
         raise ValueError(f"unknown contact_tangent {contact_tangent!r}")
     frozen = contact_tangent == "frozen"
     contact_fns = _contact_fns_for(prob)
-    res_sweep, asm_sweep, mv_sweep = _select_impl(prob, residual_impl)
+    kind, tables, wq = _tables(prob, matvec_impl)
+    res_sweep, asm_sweep, mv_sweep = _select_impl(prob, residual_impl, kind)
 
     f = prob.facs
     dim, n_dof = prob.dim, prob.n_dof
@@ -739,7 +774,11 @@ def make_step(
     mu_v = float(mat.viscosity) if has_visc else 0.0
     fac1_mu_v = fac1 * mu_v if has_visc else None
     c_dtype = torch.bfloat16 if matvec_dtype == "bf16" else prob.dtype
-    tables, wq = _tables(prob)[1], prob.wdet_t
+    # the matvec's table streams: on dense tables with a bfloat16 block,
+    # half-width copies made once (the residual and assemble keep float32)
+    mv_tables = tables
+    if kind == "dense" and matvec_dtype == "bf16":
+        mv_tables = tuple(t.to(torch.bfloat16) for t in tables)
     rhs, free = prob.rhs, prob.free
     fdm_apply = make_fdm_apply(prob.fdm, fac0, fac1, prob.dtype, prob.device)
     gather_t, scatter_el = _gather_scatter(prob)
@@ -806,7 +845,7 @@ def make_step(
             w = w_flat.reshape(n_dof, dim) * free
             y = scatter_el(
                 mv_sweep(
-                    gather_t(w), *tables, wq, Ck, rho, fac0, fac1_mu_v=fac1_mu_v,
+                    gather_t(w), *mv_tables, wq, Ck, rho, fac0, fac1_mu_v=fac1_mu_v,
                     storage=storage,
                 )
             )
@@ -901,7 +940,7 @@ def make_step(
         v_new = v * prev_fac + f["fac1_inv"] * va
         a_new = a * prev_fac + f["fac5_inv"] * aa
         if state is not None:
-            dF = _grad(prob, gather_t(u_new))
+            dF = _grad(kind, tables, gather_t(u_new))
             state = mat.accumulate_soa(soa.add_diag(dF, 1.0), state, dt)
         # contact observables at the converged alpha level (the reference
         # records from its last residual assembly there)

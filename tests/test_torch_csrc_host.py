@@ -202,13 +202,15 @@ def test_source_compiles_as_host_cpp(built, source):
 
 
 def test_only_the_dense_finite_source_builds_without_fused_multiply_add():
-    """nvcc builds the dense finite-strain kernels with -fmad=false (each
-    product and sum rounded on its own, as their plain twin's torch
-    operations round them) and every other source with its default."""
+    """nvcc builds the dense finite-strain kernels (sweeps_dense_finite.cu
+    and its bfloat16 twin) with -fmad=false (each product and sum rounded
+    on its own, as their plain twin's torch operations round them) and
+    every other source with its default."""
     for src in kbuild.SOURCES:
         flags = kbuild.flags_of(src)
         assert flags[: len(kbuild.FLAGS)] == kbuild.FLAGS
-        assert ("-fmad=false" in flags) == (os.path.basename(src) == "sweeps_dense_finite.cu")
+        assert ("-fmad=false" in flags) == (os.path.basename(src) in (
+            "sweeps_dense_finite.cu", "sweeps_dense_finite_bf16.cu"))
 
 
 def _material(name):
@@ -506,7 +508,8 @@ def _hold_host_sweeps(sw, prob, f, visc, bf16, matvec=True, storage=None):
     (the J2 family's return at the kernels' 40 trips): residuals and matvec
     at 1e-5 of scale, float32 planes at 1e-5 of their max, bfloat16 planes
     within one bfloat16 step (2^-7) of the plain float32 planes rounded to
-    bfloat16."""
+    bfloat16; on dense tables the bfloat16 matvec reads bfloat16 copies of
+    dN and N."""
     mat, wq = prob.material, prob.wdet_t
     u_el, a_el, v_el, w_el, state = f
     dt, rho, fac0 = 0.05, float(mat.density), 1e-6
@@ -526,7 +529,7 @@ def _hold_host_sweeps(sw, prob, f, visc, bf16, matvec=True, storage=None):
         kind = "dense"
     args = (u_el, a_el, state, *tables, wq, mat, dt, rho)
     y = sweep(False, *args, **vk)
-    ak = dict(vk, storage=storage, **({"c_dtype": c_dtype} if kind == "sf" else {}))
+    ak = dict(vk, storage=storage, c_dtype=c_dtype)
     y_a, C = sweep(True, *args, **ak)
     with kernel_solver_mode():
         y_p = plain[0](*args, **vk)
@@ -552,6 +555,7 @@ def _hold_host_sweeps(sw, prob, f, visc, bf16, matvec=True, storage=None):
     if kind == "sf":
         mv = mv_kernel(w_el, *tables, wq, Cb, rho, fac0, fm, storage)
     else:
+        tables = tuple(t.to(c_dtype) for t in tables)  # the matvec's table streams
         mv = sw._dense_matvec(w_el, *tables, wq, Cb, rho, fac0, storage, fm)
     mv_p = plain[2](w_el, *tables, wq, Cb, rho, fac0, fm, storage=storage)
     assert float((mv - mv_p).abs().max()) <= 1e-5 * float(mv_p.abs().max())
@@ -807,3 +811,32 @@ def test_sf_matvec_tiles_on_cpu_tensors(host_sweeps, p, storage, visc, bf16):
         mv0 = host_sweeps.matvec_sf_plain(w_el, *tables, Cb, *off, storage=storage)
         assert float((mv_p - mv0).abs().max()) > 0.1 * float(mv_p.abs().max())
     assert host_sweeps.LAUNCHES[host_sweeps.matvec_counter("sf", storage, 3, p, visc, bf16)] == 1
+
+
+# one bfloat16 instantiation of each bfloat16 dense source: (source, material,
+# dim, degree, viscous)
+DENSE_BF16_CASES = [("sweeps_dense_bf16.cu", "CompressibleOgdenNeoHookean", 2, 2, True),
+                    ("sweeps_dense_j2_bf16.cu", "J2", 3, 2, False),
+                    ("sweeps_dense_finite_bf16.cu", "J2Simo", 2, 3, True)]
+
+
+@pytest.mark.parametrize("source, name, dim, deg, visc", DENSE_BF16_CASES,
+                         ids=[c[0].split(".")[0] for c in DENSE_BF16_CASES])
+def test_dense_bf16_kernels_on_cpu_tensors(host_sweeps, source, name, dim, deg, visc):
+    """The bfloat16 dense assemble and matvec of each bfloat16 source
+    (sweeps_dense_bf16.cu: the neo-Hookean sym block, viscous, 2D p = 2;
+    sweeps_dense_j2_bf16.cu: J2's Cauchy block, 3D p = 2;
+    sweeps_dense_finite_bf16.cu: J2Simo's full block, viscous, 2D p = 3)
+    against their plain versions: the assemble's residual at 1e-5 of scale,
+    its block equal to the float32 kernel's rounded to nearest even and
+    within 2^-7 of the plain planes' max, the matvec on bfloat16 copies of
+    dN and N at 1e-5 of scale; the counters are the `_bf16` entry points'."""
+    assert source in SOURCES
+    if name.startswith("J2"):
+        mat = _j2_family(name, "pow") if name == "J2" else _press_law(name)
+        prob = _host_problem("dense", dim, deg, mat)
+        f = _plastic_inputs(prob, np.random.default_rng(12), 0.004)
+    else:
+        prob = _host_problem("dense", dim, deg, _hyper(name))
+        f = _hyper_inputs(prob, np.random.default_rng(12))
+    _hold_host_sweeps(host_sweeps, prob, f, visc, True)

@@ -430,12 +430,20 @@ def test_step_on_converted_problem_matches_port_build(problems):
 
 def test_unported_dense_options_raise(problems):
     _, port = problems
-    for option in ({"matvec_dtype": "bf16"}, {"matvec_impl": "sf"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            mt.make_step(port, 0.05, **option)
+    # the sum-factorized sweeps on a problem without sf tables: a wrong
+    # request, as in the reference (mimi_tpu/parallel/sharding.py:965-970)
+    with pytest.raises(ValueError, match="sum-factorization tables"):
+        mt.make_step(port, 0.05, matvec_impl="sf")
+    carry = mt.initial_carry(port)
+    # the bfloat16 block with the bfloat16 table streams is ported: the
+    # residual is the float32 block's, J w within one bfloat16 step of it
+    ns = [mt.make_step(port, 0.05, matvec_dtype=d).newton_system(carry) for d in ("bf16", "f32")]
+    w = torch.tensor(np.random.default_rng(3).standard_normal(ns[0]["r"].shape))
+    jw = [n["J_apply"](w) for n in ns]
+    assert torch.equal(ns[0]["r"], ns[1]["r"])
+    assert 0.0 < float((jw[0] - jw[1]).abs().max()) <= 2.0**-7 * float(jw[1].abs().max())
     # the full block of the neo-Hookean dP/dF is ported on dense tables: its
     # Newton system is the symmetric block's to rounding
-    carry = mt.initial_carry(port)
     ns = [mt.make_step(port, 0.05, tangent_storage=s).newton_system(carry)
           for s in ("full", "sym")]
     w = torch.tensor(np.random.default_rng(4).standard_normal(ns[0]["r"].shape))

@@ -375,12 +375,12 @@ def _meta_args(name, dim=2, p=3, n_q=25):
 @pytest.mark.parametrize("what", ["viscous", "bf16", "shape"])
 def test_dense_full_unported_raise(what):
     """What stays unported of dense + full raises NotImplementedError with
-    its ROADMAP item at the wrapper, before any launch: a bfloat16 block
-    (Queue 2 item 4, with the bfloat16 table streams), tables of a degree
-    the kernels are not compiled for (item 8).  The viscous sweeps are
-    ported: the wrappers take them up to the device check, and a viscous
-    J2Simo step on the golden cantilever's dense tables runs on the CPU,
-    its first Newton residual changed by the viscous flux."""
+    its ROADMAP item at the wrapper, before any launch: tables of a degree
+    the kernels are not compiled for (item 8).  The viscous sweeps and the
+    bfloat16 block are ported: the wrappers take them up to the device
+    check; a viscous J2Simo step on the golden cantilever's dense tables
+    runs on the CPU, its first Newton residual changed by the viscous
+    flux, and so does the bfloat16 block's Newton system."""
     if what == "shape":
         w, st, dN, N, wq, mat = _meta_args("J2Log", dim=3, p=4, n_q=216)
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 8"):
@@ -408,5 +408,22 @@ def test_dense_full_unported_raise(what):
         out = steps[0](carry)
         assert out["newton"]["finite"] and out["newton"]["iters"] > 0
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 4"):
+        # ported: the bfloat16 full block and the bfloat16 copies of dN and
+        # N; the wrappers take them up to the device check, and a J2Simo
+        # step's Newton system on the golden cantilever's dense tables runs
+        # on the CPU, J w within one bfloat16 step of the float64 block's
+        with pytest.raises(ValueError, match="CUDA sweep called on a meta tensor"):
             tsw.assemble_dense(w, w, st, dN, N, wq, mat, DT, RHO, c_dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="CUDA sweep called on a meta tensor"):
+            tsw.matvec_dense(w, dN.to(torch.bfloat16), N.to(torch.bfloat16), wq,
+                             _meta(16, 25, 8).to(torch.bfloat16), RHO, FAC0, storage="full")
+        prob = mt.build_problem(BALKEN, 2, 1, _material(mt, "J2Simo"), [(2, 0), (2, 1)],
+                                {1: -3.0}, rho_inf=0.5, device="cpu")
+        carry = mt.initial_carry(prob)
+        ns = [mt.make_step(prob, 0.05, matvec_dtype=d).newton_system(carry)
+              for d in ("bf16", "f32")]
+        w = torch.randn(ns[0]["r"].shape, generator=torch.Generator().manual_seed(5),
+                        dtype=ns[0]["r"].dtype)
+        jw = [n["J_apply"](w) for n in ns]
+        assert torch.equal(ns[0]["r"], ns[1]["r"])
+        assert 0.0 < float((jw[0] - jw[1]).abs().max()) <= 2.0**-7 * float(jw[1].abs().max())

@@ -448,8 +448,17 @@ def test_unported_sf_full_options_raise(small, option, item):
         out = steps[0](carry)
         assert out["newton"]["finite"] and out["newton"]["iters"] > 0
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 2 item {item}"):
-        mt.make_step(small, 0.05, **option)
+    # ported: matvec_impl="dense" runs the dense sweeps on the patch's dense
+    # tables; the Newton system is the sf one's to rounding
+    assert option == {"matvec_impl": "dense"} and item == 2
+    carry = mt.initial_carry(small)
+    ns = [mt.make_step(small, 0.05, matvec_impl=impl).newton_system(carry)
+          for impl in ("dense", "sf")]
+    w = torch.randn(ns[0]["r"].shape, generator=torch.Generator().manual_seed(3),
+                    dtype=ns[0]["r"].dtype)
+    jw = [n["J_apply"](w) for n in ns]
+    assert float((ns[0]["r"] - ns[1]["r"]).abs().max()) <= 1e-12 * float(ns[1]["r"].abs().max())
+    assert float((jw[0] - jw[1]).abs().max()) <= 1e-10 * float(jw[1].abs().max())
 
 
 def test_conversion_round_trips(point_case):

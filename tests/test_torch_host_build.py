@@ -251,6 +251,18 @@ def test_unported_step_options_raise(problems, option):
         out = mt.make_step(port, 0.05, tangent_storage="full")(carry)
         assert out["newton"]["finite"] and out["newton"]["iters"] > 0
         return
+    if option == {"matvec_impl": "dense"}:
+        # ported: the dense sweeps on the patch's dense tables, as the
+        # reference takes it; the Newton system is the sf one's to rounding
+        carry = mt.initial_carry(port)
+        ns = [mt.make_step(port, 0.05, matvec_impl=m).newton_system(carry)
+              for m in ("dense", "sf")]
+        w = torch.tensor(np.random.default_rng(4).standard_normal(ns[0]["r"].shape))
+        jw = [n["J_apply"](w) for n in ns]
+        r_err = float((ns[0]["r"] - ns[1]["r"]).abs().max())
+        assert r_err <= 1e-12 * float(ns[1]["r"].abs().max())
+        assert float((jw[0] - jw[1]).abs().max()) <= 1e-10 * float(jw[1].abs().max())
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mt.make_step(port, 0.05, **option)
 

@@ -409,8 +409,17 @@ def test_unported_sf_sym_options_raise(small, option):
         assert torch.equal(ns[0]["r"], ns[1]["r"])
         assert float((jw[0] - jw[1]).abs().max()) <= 1e-12 * float(jw[1].abs().max())
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item"):
-        mt.make_step(small, 0.05, **option)
+    # ported: matvec_impl="dense" runs the dense sweeps on the patch's dense
+    # tables; the Newton system is the sf one's to rounding
+    assert option == {"matvec_impl": "dense"}
+    carry = mt.initial_carry(small)
+    ns = [mt.make_step(small, 0.05, matvec_impl=impl).newton_system(carry)
+          for impl in ("dense", "sf")]
+    w = torch.randn(ns[0]["r"].shape, generator=torch.Generator().manual_seed(2),
+                    dtype=ns[0]["r"].dtype)
+    jw = [n["J_apply"](w) for n in ns]
+    assert float((ns[0]["r"] - ns[1]["r"]).abs().max()) <= 1e-12 * float(ns[1]["r"].abs().max())
+    assert float((jw[0] - jw[1]).abs().max()) <= 1e-10 * float(jw[1].abs().max())
 
 
 def test_full_storage_material_raises(small):

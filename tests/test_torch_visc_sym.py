@@ -282,26 +282,34 @@ def _meta(*shape):
 
 
 def test_unported_branches_still_raise(press):
-    """What stays unported raises NotImplementedError naming its ROADMAP
-    item, before any launch (meta tensors: no device is asked): a
-    bfloat16 block on dense tables (Queue 2 item 4, in make_step and at
-    the dense wrappers), in every storage."""
+    """The bfloat16 block on dense tables, once unported, is taken: make_step
+    runs it on the viscous 2D two-patch press (the Newton system's residual
+    is the float32 block's, J w within one bfloat16 step of it, the block
+    and the bfloat16 copies of dN and N rounded), and the dense wrappers
+    take a bfloat16 block in every storage up to the device check (meta
+    tensors: no device is asked); the bfloat16 matvec refuses float32
+    tables with a ValueError."""
     dense = mt.build_problem(os.path.join(os.path.dirname(MESH), "two-patch-square.mesh"), 1, 1,
                              _material(mt), [(2, 0), (2, 1)], {}, rho_inf=0.5, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 4"):
-        mt.make_step(dense, DT, matvec_dtype="bf16")
+    carry = mt.initial_carry(dense)
+    carry["v"] = torch.ones_like(carry["v"]) * dense.free
+    ns = [mt.make_step(dense, DT, matvec_dtype=d).newton_system(carry) for d in ("bf16", "f32")]
+    w = torch.tensor(np.random.default_rng(16).standard_normal(ns[0]["r"].shape))
+    jw = [n["J_apply"](w) for n in ns]
+    assert torch.equal(ns[0]["r"], ns[1]["r"])
+    err = float((jw[0] - jw[1]).abs().max())
+    assert 0.0 < err <= 2.0**-7 * float(jw[1].abs().max())
     E, nq = 8, 16
     w, dN, N, wq = _meta(2, 9, E), _meta(9, 2, nq, E), _meta(9, nq, E), _meta(nq, E)
+    dNb, Nb = dN.to(torch.bfloat16), N.to(torch.bfloat16)
     mat = _material(mt)
     mat.setup(2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 4"):
-        tsw.assemble_dense(w, w, None, dN, N, wq, mat, DT, RHO, c_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 4"):
-        tsw.matvec_dense(w, dN, N, wq, _meta(10, nq, E).to(torch.bfloat16), RHO, FAC0)
-    for storage, n in (("full", 16), ("sym", 10)):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 4"):
+    for storage, n in (("sym", 10), ("full", 16)):
+        with pytest.raises(ValueError, match="CUDA sweep called on a meta tensor"):
             tsw.assemble_dense(w, w, None, dN, N, wq, mat, DT, RHO, c_dtype=torch.bfloat16,
                                storage=storage)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 4"):
-            tsw.matvec_dense(w, dN, N, wq, _meta(n, nq, E).to(torch.bfloat16), RHO, FAC0,
-                             storage=storage)
+        Cb = _meta(n, nq, E).to(torch.bfloat16)
+        with pytest.raises(ValueError, match="tables in the block's dtype"):
+            tsw.matvec_dense(w, dN, N, wq, Cb, RHO, FAC0, storage=storage)
+        with pytest.raises(ValueError, match="CUDA sweep called on a meta tensor"):
+            tsw.matvec_dense(w, dNb, Nb, wq, Cb, RHO, FAC0, storage=storage)
