@@ -1,9 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of mimi_tpu_torch on one CUDA GPU.
 
-Builds the CUDA sweep kernels from the sources in this checkout (one nvcc
-per source, started together, into one library), prints ptxas's registers,
-shared memory and spills of every instantiation of the sf kernel template,
+Builds the CUDA sweep kernels from the sources in this checkout (one
+library per kind of tables and element shape, one nvcc per source and
+shape on a pool of processes: ops/build.py; the default shapes first,
+then the new shapes of phases 62-67, which compile while phases 3-61
+run), prints each library's build seconds and ptxas's registers,
+shared memory and spills of every instantiation of the sf kernel template
+(phase 2: the main path's library; phase 62: every other),
 residual, assemble and matvec (failing where a matvec or a J2-family
 Cauchy or hyperelastic residual or assemble spills), holds each
 kernel against its plain torch version, checks one implicit step of the
@@ -45,8 +49,8 @@ system; and two St. Venant-Kirchhoff steps.
 
 And the 2D dense-table path (phases 27-32): the golden cantilever of the
 reference's trajectories (balken.mesh, the unit square, at p=3) at 512^2
-= 262,144 elements, 530,450 unknowns, J2 Johnson-Cook (1 warm + 2 timed
-steps) and its neo-Hookean twin (1 + 2), through the dense kernels with
+= 262,144 elements, 530,450 unknowns, J2 Johnson-Cook (1 warm + 1 timed
+step) and its neo-Hookean twin (1 + 1), through the dense kernels with
 the 14-plane Cauchy and the 10-plane symmetric tangent and the 2D FDM;
 every instantiation of the templated dense kernels (2D p=2 and p=3, 3D
 p=2 with J2) against its plain version, one step of the kernel path
@@ -74,7 +78,7 @@ two-patch FDM with the contact spring); path B, the cube press of
 tests/test_contact.py at 48^3 (the viscous sf kernels with the 45-plane
 symmetric tangent in bfloat16).  Each tool starts touching the body (the
 example's y = 1.02 would leave the first four steps untouched) and is
-pushed 0.005 (A) or 0.01 (B) before each of 1 warm + 2 timed steps.  On
+pushed 0.005 (A) or 0.01 (B) before each of 1 warm + 1 timed step.  On
 each path's tables every new viscous and bfloat16 instantiation is held
 against its plain version on random input (at 2 x 512^2 also those of St.
 Venant-Kirchhoff and J2), and the path kernels at the path's state; the
@@ -88,7 +92,7 @@ reference's hardening moduli isotropic 50 and kinematic 30, yield stress
 5), the sf kernels with the Cauchy storage; path D, the golden
 cantilever's mesh at 512^2 p = 3 with J2Linear, the dense (2, 3) kernels;
 path E, the 48^3 cube with J2 and the reference's PowerLaw (sigma_y 10,
-n 2, eps0 1e-3), body force -5; dt 0.05, 1 warm + 2 timed steps each, C
+n 2, eps0 1e-3), body force -5; dt 0.05, 1 warm + 1 timed step each, C
 and E yielding at 1% of the points or more.  Every new instantiation
 (J2Linear's, sf and dense, viscous and not, float32 and bfloat16 sf
 blocks; J2, J2Simo and J2Log with each law, sf and dense) is held against
@@ -124,7 +128,7 @@ its plain version run as its twin (materials.kernel_solver_mode).
 And the cubic (p = 3) 3D sweeps (phases 54-57): path H, the body-force
 path on the reference's own cubic mesh (cube-nurbs-3.mesh, 4 nodes and 5
 Gauss points per axis) at 48^3, 397,953 unknowns, through the sf kernels
-of the _p3 sources (1 warm + 2 timed steps); path I, the neo-Hookean
+at (p + 1, n_g) = (4, 5) (1 warm + 1 timed step); path I, the neo-Hookean
 two-patch cube of phases 13-16 elevated to p = 3 at 2 x 38^3, 408,483
 unknowns, through the tiled dense (3, 3) kernels (1 warm + 1 timed step).
 Every p = 3 instantiation against its plain version on random input (sf at
@@ -144,13 +148,32 @@ against its plain version on random input, at (2, 2) on path A's tables,
 2 x 8^3; path A's next Newton system with the bfloat16 block; path J, the
 main path's 48^3 J2 cube with matvec_impl="dense" and matvec_dtype="bf16"
 (the reference's main path before its sum-factorized matvec), the patch's
-dense tables built on the step's request: 1 warm + 2 timed steps through
+dense tables built on the step's request: 1 warm + 1 timed step through
 the dense (3, 2) J2 residual, the Cauchy assemble writing a bfloat16 block
 and the Cauchy matvec on it, the path kernels at its state, one step held
 kernel path against plain path at full size, the reference's own bars of
 its bfloat16 test (tests/test_pallas.py:342-393) from the initial carry,
 a profiled step.  Phase 2 prints ptxas's registers and spills of every
 bfloat16 dense instantiation and fails where such a matvec spills.
+
+And the remaining degrees, quadrature orders and element shapes (phases
+62-67), each shape's kernels built from the sources at its first use:
+their libraries' build seconds and ptxas (the same gate as phase 2);
+every instantiation at each new shape against its plain version on
+random input (sf p = 1 at 48^3 and on a ragged tile of 33 elements, p = 4
+at 16^3 and on 33 elements, p = 2 at quadrature orders 5 and 9 at 16^3;
+dense 2D p = 1, p = 4, degrees [3, 2], p = 2 at quadrature order 5 and a
+rational quarter annulus at 64^2, 3D p = 1 at 2 x 8^3 and p = 4 at
+2 x 5^3), the fused neo-Hookean kernels at (3, 125, 216), (2, 25, 36) and
+(3, 8, 27) against plain and against the dense kernels; one step kernel
+path against plain path of the p = 1 cube and of the p = 2 cube at
+quadrature order 5 at 16^3; path K, the body-force J2 cube of path H
+elevated to p = 4 (cube-nurbs-3.mesh, 40^3, 255,552 unknowns, sf
+SfShape<5, 6>), and path L, the golden cantilever's neo-Hookean twin at
+p = 4 (balken.mesh elevated by 3, 512^2, 532,512 unknowns, dense
+(2, 25, 36)), 1 warm + 2 timed steps each, their kernels at the path
+state, rows and a profiled step; one step each held kernel path against
+plain path at 3^3 / 64^2.
 
     python3 chip_smoke.py
 
@@ -159,6 +182,7 @@ phase fails.  The last line of standard output is the device record
 {"ok": true, "device": {...}}; the line before it lists the kernels.
 """
 
+import collections
 import json
 import math
 import os
@@ -229,7 +253,7 @@ STVK_STEPS = 1  # timed steps after the warm one on each St. Venant-Kirchhoff dr
 # the finite-strain plasticity cube: J2Simo driven 1 warm + TIMED_STEPS,
 # J2Log 1 warm + LOG_STEPS; the one-step parity at 16^3 lowers the yield
 # stress so that the step yields (the path's A 70 stays elastic there)
-LOG_STEPS = 2
+LOG_STEPS = 1  # 1 since phases 62-67 were added (2 before)
 # the finite-strain residual kernel against plain at the paths' states (see
 # finite_phases), read at the drive's last state and PATH_READINGS more: the
 # assemble's bar; on an NVIDIA H100 80GB HBM3 the readings ran 1.5e-5 to 6.5e-5
@@ -240,16 +264,17 @@ A_PLASTIC = 1.0
 # trajectories (tests/test_nonlinear_solid.py:22-90), balken.mesh (the unit
 # square) elevated by 2 to p = 3 and subdivided 9 times: 512^2 = 262,144
 # elements, 16 dofs and 25 points each, 530,450 unknowns; boundary 2
-# clamped; J2 Johnson-Cook (body force -3, dt 0.5, 1 warm + 2 timed steps)
-# and its neo-Hookean twin (body force -5, dt 0.05, 1 + 2); the golden's
+# clamped; J2 Johnson-Cook (body force -3, dt 0.5, 1 warm + 1 timed step)
+# and its neo-Hookean twin (body force -5, dt 0.05, 1 + 1); the golden's
 # 10 Newton iterations, GMRES(30, at most 80) at lin_rel_tol 1e-3, FDM.
 BALKEN = os.path.join(ROOT, "tests", "data", "balken.mesh")
 GOLDEN_SUBDIVIDE = 9  # 2^9 = 512 spans per axis, p = 3
 P2_SUBDIVIDE = 7  # the p = 2 instantiations (elevate 1) at 128^2
 STEP2D_SUBDIVIDE = 6  # the one-step parity at 64^2
 GOLDEN_2D = {  # material: (body force in y, dt, timed steps)
-    "J2": (-3.0, 0.5, 2),  # 2 timed steps keep the smoke near fourteen minutes
-    "CompressibleOgdenNeoHookean": (-5.0, 0.05, 2),
+    # 1 timed step each since phases 62-67 were added (2 before)
+    "J2": (-3.0, 0.5, 1),
+    "CompressibleOgdenNeoHookean": (-5.0, 0.05, 1),
     "StVenantKirchhoff": (-5.0, 0.05, 1),
 }
 STEP2D_KW = dict(newton_iters=10, solver="cg", cg_iters=80, gmres_restart=30, precond="fdm",
@@ -310,7 +335,7 @@ J2LIN_SIGMA_Y = 5.0
 POWER_LAW = (10.0, 2.0, 1e-3)  # sigma_y, n, eps0
 VOCE_LAW = (10.0, 30.0, 0.02)  # sigma_y, sigma_sat, strain constant
 PATH_DT = 0.05
-PATH_TIMED = 2
+PATH_TIMED = 1  # paths C, D, E: 1 since phases 62-67 were added (2 before)
 YIELD_SHARE = 0.01
 SMALL_SIGMA_Y = 1.0
 # |F - I| of phase 43's random plastic input, per element: for J2Linear
@@ -352,15 +377,17 @@ LAW_AMPLITUDE = 0.1
 # on P3_PARTS contiguous slices of the elements, the kernels' outputs held
 # slice by slice and the plain version's time summed over the slices.
 MESH3 = os.path.join(ROOT, "tests", "data", "cube-nurbs-3.mesh")
-P3_TIMED = 2
+P3_TIMED = 1  # 1 since phases 62-67 were added (2 before)
 P3_DENSE_TIMED = 1  # path I's steps take ~10x path H's
 P3_PARTS = 4
 P3_RAGGED = 33  # the sf residual kernel's tiles of 32: one full, one of 1
 TWO_SQUARE = os.path.join(ROOT, "tests", "data", "two-patch-square.mesh")
 PRESS_2D_SUBDIVIDE = 9  # 2 x 512^2 elements
 PRESS_2D_HELD = 6  # the held step: 2 x 64^2
-PRESS_TIMED = 2  # timed steps after the warm one on each press (A and B)
-PRESS_F_TIMED = 2  # on paths F and G
+# timed steps after the warm one on each press (A and B): 1 since phases
+# 62-67 were added (2 before)
+PRESS_TIMED = 1
+PRESS_F_TIMED = 2  # on paths F and G: the first timed step is the first that yields
 PRESS_STEP_KW = dict(dt=0.01, newton_iters=12, solver="cg", cg_iters=80, precond="fdm",
                      lin_rel_tol=1e-2, rel_tol=1e-3)
 PRESS_PUSH = {2: [0.0, -0.005], 3: [0.0, 0.0, -0.01]}
@@ -492,6 +519,16 @@ def say(msg):
     print(msg, flush=True)
 
 
+def pending_builds():
+    """The nvcc compiles still queued or running (phase 2 queues every
+    shape's; ops/build.py pending).  A step timed while any are pending
+    shares the host's cores with them (at nice 10): its s/step and idle
+    share read higher than on a quiet host, so the timing lines print it."""
+    from mimi_tpu_torch.ops import build
+
+    return build.pending()
+
+
 def jc_material(mt, A=70.0, name="J2"):
     """The J2-family material `name` with the Johnson-Cook temperature-
     and rate-dependent hardening of the reference's golden trajectories
@@ -598,50 +635,63 @@ def ptxas_entries(log, nvcc):
     return entries
 
 
-def check_sf_ptxas(kbuild):
-    """Registers, shared memory and spills of every instantiation of the
-    sf kernel template (sf_common.cuh sf_tile_kernel: one thread per element
-    and point slot), at p = 2 and p = 3; fails where a matvec (SfMatvecPoint,
-    any storage) or a J2-family Cauchy (J2Mat) or hyperelastic (Hyper)
-    residual or assemble spills, with its own or the full block.  The
-    finite-strain ones (J2SimoMat, J2LogMat: 9 dual-number passes per point)
-    and the other kernels with the full block or at p = 3 are printed, not
-    held; so is every bfloat16 dense instantiation (the `*_bf16.cu`
-    sources), failing where one of their matvecs spills."""
-    if kbuild.BUILD_INFO["cached"]:
-        say("[2. ptxas] the library was cached: no ptxas output in this run")
+def check_ptxas(kbuild, keys, label="2. ptxas"):
+    """Build seconds of each library of `keys` ((kind, shape) of
+    ops/build.py), and registers, shared memory and spills of every
+    instantiation of the sf kernel template (sf_common.cuh sf_tile_kernel:
+    one thread per element and point slot) in them; fails where a matvec
+    (SfMatvecPoint, any storage) or a J2-family Cauchy (J2Mat) or
+    hyperelastic (Hyper) residual or assemble spills, with its own or the
+    full block, at any shape.  The finite-strain ones (J2SimoMat,
+    J2LogMat: 9 dual-number passes per point) and the dense kernels with the
+    full block, tiled (dense_tile_kernel) or at a shape outside the
+    defaults are printed, not held; so is every bfloat16 dense
+    instantiation (the `*_bf16.cu` sources), failing where one of their
+    matvecs spills."""
+    logs = []
+    for key in keys:
+        info = kbuild.BUILD_INFO[kbuild.key_of(*key)]
+        say(f"[{label}] {key[0]} {key[1]}: compiled {info['seconds']:.2f} s after its queueing "
+            f"(cached={info['cached']}; nvcc seconds by source "
+            f"{ {k: round(v, 1) for k, v in info['nvcc'].items()} }, then one link)")
+        logs.append(info["log"])
+    if not any(logs):
+        say(f"[{label}] the libraries were cached: no ptxas output in this run")
         return
-    every = ptxas_entries(kbuild.BUILD_INFO["log"], kbuild.nvcc())
+    every = ptxas_entries("".join(logs), kbuild.nvcc())
     ents = {n: v for n, v in every.items() if "sf_tile_kernel" in n}
-    if not any("SfMatvecPoint" in n for n in ents) or not any("SfResidualPoint" in n
-                                                              for n in ents):
+    if any(k[0] == "sf" for k in keys) and (
+            not any("SfMatvecPoint" in n for n in ents)
+            or not any("SfResidualPoint" in n for n in ents)):
         fail("no sf_tile_kernel matvec or residual instantiation in the ptxas output")
     for name, v in sorted(ents.items()):
         spilled = v.get("spill_stores", 0) + v.get("spill_loads", 0)
         # cu++filt writes template arguments as (int)4, (bool)0; the
         # arguments after the template's ">" are cut
         name = re.sub(r"\((int|bool)\)", "", name.split(">(")[0] + ">")
-        say(f"[2. ptxas] {name}: {v.get('registers')} registers, {v.get('smem')} B smem, "
+        say(f"[{label}] {name}: {v.get('registers')} registers, {v.get('smem')} B smem, "
             f"spill stores {v.get('spill_stores')} B, loads {v.get('spill_loads')} B, stack "
             f"{v.get('stack')} B")
         if spilled and ("SfMatvecPoint" in name or "J2Mat" in name or "Hyper" in name):
             fail(f"{name} spills {spilled} B")
     # the other kernels with the full block (the dense residual and matvec),
-    # at p = 3 (the tiled dense (3, 3) kernels) and with a bfloat16 dense
-    # block: printed, not held, but a spilled bfloat16 dense matvec
+    # tiled, at a new dense shape or with a bfloat16 dense block: printed,
+    # not held, but a spilled bfloat16 dense matvec
+    new_dense = [s for k, s in keys if k == "dense" and ("dense", s) not in EARLIER_KEYS]
     bf16_matvecs = 0
     for full_name, v in sorted(every.items()):
         name = re.sub(r"\((int|bool)\)", "", full_name.split("(const float")[0])
-        p3 = "dense_tile_kernel<3, 3" in name
+        tiled = "dense_tile_kernel" in name
+        new = any(f"DenseShape<{d}, {n}, {q}>" in name for d, n, q in new_dense)
         bf16 = "__nv_bfloat16" in full_name.split(">(")[0] and "dense_" in full_name
-        if ("FullStorage" in name or p3 or bf16) and full_name not in ents:
-            say(f"[2. ptxas] {name}: {v.get('registers')} registers, {v.get('smem')} B smem, "
+        if ("FullStorage" in name or tiled or new or bf16) and full_name not in ents:
+            say(f"[{label}] {name}: {v.get('registers')} registers, {v.get('smem')} B smem, "
                 f"spill stores {v.get('spill_stores')} B, loads {v.get('spill_loads')} B")
         if bf16 and ("MatvecPoint" in name or "dense_matvec_kernel" in name):
             bf16_matvecs += 1
             if v.get("spill_stores", 0) + v.get("spill_loads", 0):
                 fail(f"{name} spills")
-    if not bf16_matvecs:
+    if any(k[0] == "dense" for k in keys) and not bf16_matvecs:
         fail("no bfloat16 dense matvec instantiation in the ptxas output")
 
 
@@ -919,6 +969,7 @@ def contact_phases(torch, mt, sweeps, soa, sh, device, gen):
     step = mt.make_step(prob, **CONTACT_STEP_KW)
     sd = cd["scene"]
     times, diags, penetrating, all_diags = [], [], [], []
+    n_bg = pending_builds()
     for i in range(1 + CONTACT_TIMED_STEPS):
         sd = NDS.translate_scene_data(sd, PUSH)  # on the device
         p0 = n_proj[0]
@@ -949,12 +1000,13 @@ def contact_phases(torch, mt, sweeps, soa, sh, device, gen):
             times.append(t_s)
             diags.append(d)
             penetrating.append(int(c["n_penetrating"]))
-    launches = dict(sweeps.LAUNCHES)
+    launches = collections.Counter(sweeps.LAUNCHES)
     s_step = sum(times) / len(times)
     say(f"[11. 48^3 contact] {s_step:.4f} s/step over {len(times)} timed steps "
         f"({', '.join(f'{t:.3f}' for t in times)}); newton iters "
         f"{[d['iters'] for d in diags]}; gmres iters {[d['lin_iters'] for d in diags]}; "
-        f"launches { {k: n for k, n in launches.items() if n} }")
+        f"launches { {k: n for k, n in launches.items() if n} }; nvcc compiles pending "
+        f"{n_bg} -> {pending_builds()}")
     # Newton: converged (rel_tol 1e-3), or down to the float32 floor of the
     # gated contact residual (|r| <= 2e-2 |r0|: rounding flips points
     # across the reference's angle gate, each worth ~kappa g w det J), or
@@ -1231,7 +1283,7 @@ def drive(torch, mt, sweeps, prob, label, timed, kernels):
     carry = step(carry)
     torch.cuda.synchronize()
     say(f"[{label}] warm step {time.perf_counter() - t0:.3f} s {carry['newton']}")
-    times, diags = [], []
+    times, diags, n_bg = [], [], pending_builds()
     for _ in range(timed):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1239,7 +1291,7 @@ def drive(torch, mt, sweeps, prob, label, timed, kernels):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         diags.append(carry["newton"])
-    launches = dict(sweeps.LAUNCHES)
+    launches = collections.Counter(sweeps.LAUNCHES)
     s_step = sum(times) / len(times)
     qp_rate = prob.n_el * prob.n_q * RES_EVALS_PER_STEP / s_step
     say(f"[{label}] {s_step:.4f} s/step over {timed} steps "
@@ -1247,7 +1299,8 @@ def drive(torch, mt, sweeps, prob, label, timed, kernels):
         f"{[d['iters'] for d in diags]}; gmres iters {[d['lin_iters'] for d in diags]}; "
         f"max|u| {float(carry['u'].abs().max()):.4e}; peak allocated "
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; launches "
-        f"{ {k: n for k, n in launches.items() if n} }")
+        f"{ {k: n for k, n in launches.items() if n} }; nvcc compiles pending {n_bg} -> "
+        f"{pending_builds()}")
     for d in diags:
         say(f"[{label}] newton |r0| {d['norm0']:.4e} -> |r| {d['norm']:.4e} "
             f"(ratio {d['norm'] / d['norm0']:.2e})")
@@ -1294,6 +1347,7 @@ def profile_step(torch, step, carry, s_step, label, contact_scenes=None):
     tens of seconds to post-process, for rows no line prints."""
     from torch.profiler import ProfilerActivity, profile
 
+    n_bg = pending_builds()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         carry = step(carry, contact_scenes=contact_scenes)
@@ -1309,7 +1363,7 @@ def profile_step(torch, step, carry, s_step, label, contact_scenes=None):
         say(f"[{label}] one step (newton {d['iters']}, gmres {d['lin_iters']}): "
             f"device busy {busy:.1f} ms; idle share {1.0 - busy / (s_step * 1e3):.3f} of the "
             f"timed {s_step * 1e3:.1f} ms/step, {1.0 - busy / t_prof:.3f} of the profiled "
-            f"step's wall {t_prof:.1f} ms")
+            f"step's wall {t_prof:.1f} ms; nvcc compiles pending {n_bg} -> {pending_builds()}")
         for key, n, t in sorted(ev, key=lambda x: -x[2])[:12]:
             key = key.replace("(anonymous namespace)::", "")
             say(f"[{label}]   {t:9.3f} ms  x{n:<5d} {key[:110]}")
@@ -1416,7 +1470,7 @@ def fused_phase(torch, sweeps, fused, sh, prob, step, carry, u_el, w_el, Cs, gen
     w = torch.randn(n_dof * dim, generator=gen).to(prob.device, prob.dtype)
     jw_st, jw_mf = ns["J_apply"](w), J_mf(w)
     torch.cuda.synchronize()
-    launches = dict(sweeps.LAUNCHES)
+    launches = collections.Counter(sweeps.LAUNCHES)
     r_err, r_scale = float((r_mf - ns["r"]).abs().max()), float(ns["r"].abs().max())
     jw_err, jw_scale = float((jw_mf - jw_st).abs().max()), float(jw_st.abs().max())
     c_err, c_scale = float((c_mf - c_st).abs().max()), float(c_st.abs().max())
@@ -1831,14 +1885,9 @@ def path_residual(torch, sweeps, sh, prob, carry, gen, label):
     return err / scale
 
 
-# the sf kernels' source by tangent storage (p = 2; sf_source)
+# the sf kernels' source by tangent storage (every shape: ops/build.py
+# compiles it once per shape)
 SF_SOURCE = {"cauchy": SOURCE[0], "full": SOURCE[3], "sym": SOURCE[6]}
-
-
-def sf_source(storage, p):
-    """The source of the sf kernels of `storage` at degree p: the _p3
-    twins at p = 3."""
-    return SF_SOURCE[storage].replace(".cu", "_p3.cu") if p == 3 else SF_SOURCE[storage]
 
 
 def time_sf(torch, sweeps, prob, u_el, a_el, w_el, state, C, names, launches, errs, label):
@@ -1871,7 +1920,7 @@ def time_sf(torch, sweeps, prob, u_el, a_el, w_el, state, C, names, launches, er
         torch.cuda.empty_cache()
         plain_ms = cuda_ms(torch, fns[i][1], PLAIN_REPS)
         torch.cuda.empty_cache()
-        row = kernel_row(name, sf_source(storage, degree_of(prob)), replaces, launches[name],
+        row = kernel_row(name, SF_SOURCE[storage], replaces, launches[name],
                          errs[name], ms, plain_ms, byts[i], n_pts * ops)
         say(f"[{label}] {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms; "
             f"{byts[i] / 1e9:.3f} GB, bound {row['bound_ms']:.4f} ms by {row['bound_by']}; "
@@ -2014,14 +2063,13 @@ def balken_build(mt, name, elevate, subdivide, device, dtype=None):
                         dtype=dtype)
 
 
-def dense_degree(prob):
-    nd = prob.dense["dN_t"].shape[0]
-    return round(nd ** (1.0 / prob.dim)) - 1
-
-
-def degree_of(prob):
-    """The problem's degree, sum-factorized or dense tables."""
-    return prob.sf["pp1"] - 1 if prob.sf is not None else dense_degree(prob)
+def table_key(prob):
+    """The shape key of the problem's tables, as ops/build.py builds their
+    kernels: (p + 1, n_g) on sum-factorized tables, (dim, nd, n_q) on dense
+    ones."""
+    if prob.sf is not None:
+        return prob.sf["pp1"], prob.sf["n_g"]
+    return prob.dim, prob.dense["dN_t"].shape[0], prob.n_q
 
 
 def nodes_of(prob):
@@ -2040,7 +2088,7 @@ def kernel_names(sweeps, prob):
     on its tables: kind, storage, material tag and (dim, p) suffix."""
     mat, storage = prob.material, sweeps.tangent_storage(prob.material)
     kind = "sf" if prob.sf is not None else "dense"
-    dim, p = prob.dim, degree_of(prob)
+    dim, p = prob.dim, table_key(prob)
     return [*sweeps.kernel_counters(mat, kind, dim, p), sweeps.matvec_counter(kind, storage, dim, p)]
 
 
@@ -2201,7 +2249,7 @@ def drive_dense(torch, mt, sweeps, prob, label, timed, dt, step_kw, names=None):
     carry = step(carry)
     torch.cuda.synchronize()
     say(f"[{label}] warm step {time.perf_counter() - t0:.3f} s {carry['newton']}")
-    times, steps = [], []
+    times, steps, n_bg = [], [], pending_builds()
     for _ in range(timed):
         before = carry
         torch.cuda.synchronize()
@@ -2211,7 +2259,7 @@ def drive_dense(torch, mt, sweeps, prob, label, timed, dt, step_kw, names=None):
         times.append(time.perf_counter() - t0)
         d = carry["newton"]
         steps.append((before, carry, d["norm"] / d["norm0"]))
-    launches = dict(sweeps.LAUNCHES)
+    launches = collections.Counter(sweeps.LAUNCHES)
     s_step = sum(times) / len(times)
     evals = [prob.n_el * prob.n_q * (c["newton"]["iters"] * 3 + 1) for _, c, _ in steps]
     say(f"[{label}] {s_step:.4f} s/step over {timed} steps "
@@ -2219,7 +2267,8 @@ def drive_dense(torch, mt, sweeps, prob, label, timed, dt, step_kw, names=None):
         f"(n_el {prob.n_el} x n_q {prob.n_q} x (3 x Newton iterations + 1) per step: "
         f"{evals}); max|u| {float(carry['u'].abs().max()):.4e}; peak allocated "
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; launches "
-        f"{ {k: n for k, n in launches.items() if n} }")
+        f"{ {k: n for k, n in launches.items() if n} }; nvcc compiles pending {n_bg} -> "
+        f"{pending_builds()}")
     for i, (b, c, drop) in enumerate(steps):
         d = c["newton"]
         share = ""
@@ -2387,7 +2436,7 @@ def dense2d_phases(torch, mt, sweeps, soa, sh, device, gen):
     512^2, J2 on a plastic input; 2D p = 2 at 128^2; 3D J2 on the two-patch
     cube at 2 x 8^3); 29: one step kernel path against plain path (2D J2
     and neo-Hookean at 64^2, 3D two-patch J2 at 2 x 8^3); 30: the timed
-    drives at 512^2 (J2 1 + 2 steps, neo-Hookean 1 + 2) and the short
+    drives at 512^2 (J2 1 + 1 steps, neo-Hookean 1 + 1) and the short
     drives that launch the other instantiations; 31: one profiled step per
     2D material at 512^2; 32: the rows of the kernels line, timed at the
     drives' states.  Returns the rows."""
@@ -2814,7 +2863,7 @@ def hold_viscous(torch, sweeps, prob, mat, f, dt, label, launches=None,
     tables, kern, plain = kernel_fns(sweeps, vprob)
     own, dim = sweeps.tangent_storage(mat), prob.dim
     storage = storage or own
-    p = degree_of(prob)
+    p = table_key(prob)
     wq, rho = prob.wdet_t, float(mat.density)
     mu_v = float(mat.viscosity) if float(mat.viscosity) > 0.0 else VISC_MU
     fac0 = prob.facs["fac3"] * dt * dt
@@ -2833,12 +2882,16 @@ def hold_viscous(torch, sweeps, prob, mat, f, dt, label, launches=None,
                       + 2 * dim**4)
     if storage != own:  # the full block of a material with a stronger own storage
         base = [base[0], base[1], full_apply]
-    src = (lambda st: sf_source(st, p)) if kind == "sf" else DENSE_SOURCE.get
+    src = SF_SOURCE.get if kind == "sf" else DENSE_SOURCE.get
     source = (src(own), src(own), src(storage))
     el_out = nbytes(f["u_el"])
     n_pts = prob.n_el * prob.n_q
     rows, held = [], set()
-    for visc, bf16 in combos:
+    # the plain assemble by viscous flag, in float32: the bfloat16 block is
+    # the float32 one rounded to nearest even (assemble_*_plain), so the
+    # combos of one flag share one plain call
+    plain_asm = {}
+    for i_combo, (visc, bf16) in enumerate(combos):
         vk = dict(v_el=f["v_el"], mu_v=mu_v) if visc else {}
         fm = fac1_mu_v if visc else None
         cd = torch.bfloat16 if bf16 else torch.float32
@@ -2863,7 +2916,9 @@ def hold_viscous(torch, sweeps, prob, mat, f, dt, label, launches=None,
         ak = dict(vk, c_dtype=cd, storage=storage)
         ya_k, C_k = kern[1](*args, **ak)
         torch.cuda.synchronize()
-        ya_p, C_p = plain[1](*args, **ak)
+        if visc not in plain_asm:
+            plain_asm[visc] = plain[1](*args, **dict(ak, c_dtype=torch.float32))
+        ya_p, C_p = plain_asm[visc][0], plain_asm[visc][1].to(cd)
         if C_k.dtype != cd or C_k.shape[0] != sweeps.n_planes(storage, dim):
             fail(f"{names[1]} wrote a {C_k.dtype} block of {C_k.shape[0]} planes")
         err, scale = masked_err(torch, ya_k, ya_p, f"{names[1]} residual")
@@ -2900,6 +2955,8 @@ def hold_viscous(torch, sweeps, prob, mat, f, dt, label, launches=None,
                        lambda ak=ak: plain[1](*args, **ak),
                        nbytes(*fields, C_p) + el_out))
         del ya_k, C_k, ya_p
+        if all(v != visc for v, _ in combos[i_combo + 1:]):
+            del plain_asm[visc]  # no later combo of this flag
         mv_tables = tables
         if bf16 and kind == "dense":  # the matvec's bfloat16 table streams
             mv_tables = tuple(t.to(torch.bfloat16) for t in tables)
@@ -3025,7 +3082,7 @@ def drive_press(torch, mt, sweeps, prob, label, step_kw, timed=None, engaged_eac
     say(f"[{label}] initial carry {time.perf_counter() - t0:.2f} s")
     step = mt.make_step(prob, **step_kw)
     sd, times, diags, engaged = cd["scene"], [], [], []
-    n_fq = cd["wq"].numel()
+    n_fq, n_bg = cd["wq"].numel(), pending_builds()
     for i in range(1 + timed):
         sd = NDS.translate_scene_data(sd, push)
         p0 = n_proj[0]
@@ -3054,7 +3111,7 @@ def drive_press(torch, mt, sweeps, prob, label, step_kw, timed=None, engaged_eac
             times.append(t_s)
             diags.append(d)
     cs["query"] = query
-    launches = dict(sweeps.LAUNCHES)
+    launches = collections.Counter(sweeps.LAUNCHES)
     s_step = sum(times) / len(times)
     evals = [prob.n_el * prob.n_q * (d["iters"] * 3 + 1) for d in diags]
     say(f"[{label}] {s_step:.4f} s/step over {timed} timed steps "
@@ -3064,7 +3121,8 @@ def drive_press(torch, mt, sweeps, prob, label, step_kw, timed=None, engaged_eac
         f"{[d['lin_iters'] for d in diags]}, drops "
         f"{', '.join(f'{d['norm'] / max(d['norm0'], 1e-300):.3e}' for d in diags)}; engaged points "
         f"{engaged}; peak allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB; "
-        f"launches { {k: n for k, n in launches.items() if n} }")
+        f"launches { {k: n for k, n in launches.items() if n} }; nvcc compiles pending "
+        f"{n_bg} -> {pending_builds()}")
     for name in press_kernel_names(sweeps, prob, step_kw):
         if launches[name] < 1 + timed:
             fail(f"kernel {name} was launched {launches[name]} times in {1 + timed} "
@@ -3080,7 +3138,7 @@ def press_kernel_names(sweeps, prob, step_kw):
     kind = "sf" if prob.sf is not None else "dense"
     bf16 = step_kw.get("matvec_dtype") == "bf16"
     tag, storage = sweeps.kernel_tag(prob.material), sweeps.tangent_storage(prob.material)
-    p = degree_of(prob)
+    p = table_key(prob)
     return [*sweeps.material_counters(kind, tag, storage, prob.dim, p, True, bf16),
             sweeps.matvec_counter(kind, storage, prob.dim, p, True, bf16)]
 
@@ -3641,7 +3699,8 @@ def full_others(mt, dim):
     return mats
 
 
-def hold_full_others(torch, mt, sweeps, soa, prob, combos, dt, label, gen, timed=True):
+def hold_full_others(torch, mt, sweeps, soa, prob, combos, dt, label, gen, timed=True,
+                     amplitude=0.2, j2lin_amplitude=J2LIN_AMPLITUDE):
     """The full block of J2 (Johnson-Cook, the golden's law), J2Linear and
     the hyperelastic materials on the problem's tables against the plain
     full planes (hold_viscous with storage="full", the residual being the
@@ -3651,7 +3710,7 @@ def hold_full_others(torch, mt, sweeps, soa, prob, combos, dt, label, gen, timed
     for mat in full_others(mt, prob.dim):
         tag = sweeps.kernel_tag(mat)
         if mat.has_state:
-            amp = J2LIN_AMPLITUDE if tag == "j2lin" else 0.2
+            amp = j2lin_amplitude if tag == "j2lin" else amplitude
             f, share = plastic_inputs(torch, sweeps, soa, prob, mat, gen, dt, amp)
             if share < 0.25:
                 fail(f"{label} {tag}: plastic share {share} < 0.25")
@@ -3665,17 +3724,18 @@ def hold_full_others(torch, mt, sweeps, soa, prob, combos, dt, label, gen, timed
     return rows
 
 
-def cube3_of(mt, mat, spans, device, force=-3.0, dtype=None):
-    """The body-force cube on the reference's p = 3 mesh at `spans` per
-    axis with the material `mat` (path H's problem)."""
-    return mt.build_problem(MESH3, 0, 0, mat, [(1, 0), (1, 1), (1, 2)], {1: force},
+def cube3_of(mt, mat, spans, device, force=-3.0, dtype=None, elevate=0):
+    """The body-force cube on the reference's p = 3 mesh, elevated by
+    `elevate`, at `spans` per axis with the material `mat` (path H's
+    problem; path K's at elevate 1)."""
+    return mt.build_problem(MESH3, elevate, 0, mat, [(1, 0), (1, 1), (1, 2)], {1: force},
                             rho_inf=0.5, device=device, refine_spans=spans, dtype=dtype)
 
 
-def two_patch3_of(mt, mat, spans, device, dtype=None):
-    """The two-patch cube elevated by 2 to p = 3 at 2 x `spans`^3 with the
-    material `mat` (path I's problem)."""
-    return mt.build_problem(TWO_PATCH, 2, 0, mat, [(0, 0), (0, 1), (0, 2)], {1: -5.0},
+def two_patch3_of(mt, mat, spans, device, dtype=None, elevate=2):
+    """The two-patch cube elevated by `elevate` (default 2: p = 3) at
+    2 x `spans`^3 with the material `mat` (path I's problem)."""
+    return mt.build_problem(TWO_PATCH, elevate, 0, mat, [(0, 0), (0, 1), (0, 2)], {1: -5.0},
                             rho_inf=0.5, device=device, refine_spans=spans, dtype=dtype)
 
 
@@ -3711,28 +3771,31 @@ def hold_p3(torch, mt, sweeps, soa, prob, combos, label, gen, mats=None, full=Tr
     assemble and matvec (hold_viscous, untimed: no driven path launches
     most of them) for each (viscous, bfloat16 block) of `combos`, on random
     plastic input for the J2 family (|F - I| up to `amplitude`, J2Linear's
-    J2LIN_AMPLITUDE; share of plastic points >= 0.25), |F - I| up to 0.1
+    J2LIN_AMPLITUDE scaled as `amplitude` to LAW_AMPLITUDE; share of plastic
+    points >= 0.25), |F - I| up to 0.1
     for the hyperelastic ones; with `full` also the full block of J2,
     J2Linear and the hyperelastic materials."""
     dt = STEP_KW["dt"]
-    for mat in mats or kernel_materials(mt):
+    for mat in mats or kernel_materials(mt, prob.dim):
         tag = sweeps.kernel_tag(mat)
         if mat.has_state:
-            amp = J2LIN_AMPLITUDE if tag == "j2lin" else amplitude
+            amp = J2LIN_AMPLITUDE * amplitude / LAW_AMPLITUDE if tag == "j2lin" else amplitude
             f, share = plastic_inputs(torch, sweeps, soa, prob, mat, gen, dt, amp)
             if share < 0.25:
                 fail(f"{label} {tag}: plastic share {share} < 0.25: the check would not "
                      "exercise the return map")
         else:
             f, share = random_visc_inputs(torch, sweeps, prob, mat, gen, dt), 0.0
-        say(f"[{label} {tag}] {prob.n_el} elements, p = {degree_of(prob)}; plastic share of "
+        say(f"[{label} {tag}] {prob.n_el} elements, shape {table_key(prob)}; plastic share of "
             f"the points {share:.3f}")
         hold_viscous(torch, sweeps, prob, mat, f, dt, f"{label} {tag}", combos=combos,
                      inviscid_residual=True, timed=False)
         del f
         torch.cuda.empty_cache()
     if full:
-        hold_full_others(torch, mt, sweeps, soa, prob, combos, dt, label, gen, timed=False)
+        hold_full_others(torch, mt, sweeps, soa, prob, combos, dt, label, gen, timed=False,
+                         amplitude=max(0.2, amplitude),
+                         j2lin_amplitude=J2LIN_AMPLITUDE * amplitude / LAW_AMPLITUDE)
 
 
 def p3_rows(torch, sweeps, prob, u_el, a_el, w_el, state, C, dt, launches, errs, label, parts):
@@ -3754,7 +3817,7 @@ def p3_rows(torch, sweeps, prob, u_el, a_el, w_el, state, C, dt, launches, errs,
             nbytes(w_el, tables, wq, C) + el_out]
     kind = "sf" if prob.sf is not None else "dense"
     ops = sf_ops(sweeps, prob) if kind == "sf" else dense_ops(sweeps, prob)
-    source = sf_source(storage, 3) if kind == "sf" else DENSE_SOURCE[storage]
+    source = SF_SOURCE[storage] if kind == "sf" else DENSE_SOURCE[storage]
     n_pts = prob.n_el * prob.n_q
     rows = []
     for i, name in enumerate(kernel_names(sweeps, prob)):
@@ -3777,15 +3840,15 @@ def p3_rows(torch, sweeps, prob, u_el, a_el, w_el, state, C, dt, launches, errs,
     return rows
 
 
-def drive_p3(torch, mt, sweeps, sh, prob, label, timed, gen):
-    """Phases 55-56 on one path: 1 warm + `timed` steps (drive_dense: s/step,
-    qp-evals/s, Newton, GMRES, drops, the kernels launched in every step),
+def drive_p3(torch, mt, sweeps, sh, prob, label, timed, gen, dt=STEP_KW["dt"], kw=None):
+    """Phases 55-56 (and 65-66) on one path: 1 warm + `timed` steps at `dt`
+    with the step settings `kw` (default: the body-force path's; drive_dense:
+    s/step, qp-evals/s, Newton, GMRES, drops, the kernels launched in every step),
     peak memory, the share of points with eqps > 0; the path's kernels
     against plain at the next predictor, the plain versions on P3_PARTS
     slices of the elements (compare_kernels); their rows (p3_rows); one
     profiled step."""
-    dt = STEP_KW["dt"]
-    kw = {k: v for k, v in STEP_KW.items() if k != "dt"}
+    kw = kw or {k: v for k, v in STEP_KW.items() if k != "dt"}
     sweeps.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     carry, step, s_step, launches, _ = drive_dense(torch, mt, sweeps, prob, label, timed, dt, kw)
@@ -3814,14 +3877,14 @@ def p3_phases(torch, mt, sweeps, soa, sh, device, gen):
     instantiation against plain on random input: the sf kernels at 16^3
     (every material, viscous or not, float32 and bfloat16 blocks, the full
     block of every material) and on a ragged tile (the first 33 elements),
-    the dense (3, 3) kernels at 2 x 8^3 (viscous or not).  55: path H (48^3,
+    the dense (3, 3) kernels at 2 x 8^3 (viscous or not, float32 and
+    bfloat16 blocks, the full block of every material).  55: path H (48^3,
     sf).  56: path I (2 x 38^3, dense (3, 3)).  57: one step kernel path
     against plain path of path H's problem at 16^3 (yield stress
     SMALL_SIGMA_Y: the step yields) and of path I's at 2 x 8^3.  Returns the
     paths' rows of the kernels line."""
     t_start = time.perf_counter()
     both = [(False, False), (False, True), (True, False), (True, True)]
-    dense_visc = [(False, False), (True, False)]
 
     def clock(what):
         say(f"[54-57 clock] {what}: {time.perf_counter() - t_start:.1f} s since phase 54")
@@ -3838,10 +3901,9 @@ def p3_phases(torch, mt, sweeps, soa, sh, device, gen):
             mats=[mats[0], mats[2], mats[4]], full=False, amplitude=0.2)
     clock("54 sf")
     prob = two_patch3_of(mt, hyper_material(mt), DENSE_CHECK_SPANS, device)
-    hold_p3(torch, mt, sweeps, soa, prob, dense_visc, f"54. 2x{DENSE_CHECK_SPANS}^3 p=3 random",
-            gen)
-    hold_dense_bf16(torch, mt, sweeps, soa, prob, f"54. 2x{DENSE_CHECK_SPANS}^3 p=3 random bf16",
-                    gen)
+    # the four combos: each material's own block and the full block in
+    # float32 and bfloat16 (hold_dense_bf16's), inviscid and viscous
+    hold_p3(torch, mt, sweeps, soa, prob, both, f"54. 2x{DENSE_CHECK_SPANS}^3 p=3 random", gen)
     del prob
     torch.cuda.empty_cache()
     clock("54 dense")
@@ -4093,7 +4155,7 @@ def finite_press_paths(torch, mt, sweeps, soa, sh, device, gen):
         f"{nf['lin_iters']}/{nc['lin_iters']}; launches "
         f"{ {k: n for k, n in sweeps.LAUNCHES.items() if n} }")
     for name in ("assemble_sf[j2,full]", "matvec_sf[full]", "assemble_sf", "matvec_sf"):
-        if sweeps.LAUNCHES[name] == 0:
+        if sweeps.LAUNCHES.get(name, 0) == 0:
             fail(f"53: kernel {name} was not launched")
     if not err <= max(1e-4 * scale, 1e-7):
         fail(f"53: the full-block step differs from the Cauchy-block step ({err} > 1e-4 * "
@@ -4131,8 +4193,8 @@ def hold_dense_bf16(torch, mt, sweeps, soa, prob, label, gen, dt=STEP_KW["dt"]):
                      "exercise the return map")
         else:
             f, share = random_visc_inputs(torch, sweeps, prob, mat, gen, dt), 0.0
-        say(f"[{label} {tag}] {prob.n_el} elements, (dim, p) = ({prob.dim}, "
-            f"{dense_degree(prob)}); plastic share of the points {share:.3f}")
+        say(f"[{label} {tag}] {prob.n_el} elements, (dim, nd, n_q) = {table_key(prob)}; "
+            f"plastic share of the points {share:.3f}")
         for storage in dict.fromkeys((sweeps.tangent_storage(mat), "full")):
             hold_viscous(torch, sweeps, prob, mat, f, dt, f"{label} {tag}", combos=BF16_COMBOS,
                          storage=storage, residual=False, timed=False)
@@ -4154,7 +4216,7 @@ def hold_dense_bf16(torch, mt, sweeps, soa, prob, label, gen, dt=STEP_KW["dt"]):
 # tables built on the step's request (sharding.dense_tables).
 J_STEP_KW = dict({k: v for k, v in STEP_KW.items() if k != "dt"}, matvec_impl="dense",
                  matvec_dtype="bf16")
-J_TIMED = 2
+J_TIMED = 1  # 1 since phases 62-67 were added (2 before)
 # the reference's own check (tests/test_pallas.py:366-393): one Newton
 # iteration of 8 GMRES iterations at lin_rel_tol 1e-2 from the initial
 # carry; the bfloat16 steps within 2e-2 of max|u| of the float32 ones, the
@@ -4295,6 +4357,265 @@ def path_j_phases(torch, mt, sweeps, soa, sh, device, gen):
     return rows
 
 
+# Phases 62-67: the remaining degrees, quadrature orders and element
+# shapes, each shape's kernels compiled from the sources at its first use
+# (ops/build.py; NEW_KEYS queued on the build's pool after the default
+# shapes, so they compile while phases 3-61 run).  Path K: the body-force J2
+# cube of path H (cube-nurbs-3.mesh) elevated by 1 to p = 4 at 40^3 = 64,000
+# elements of 125 dofs and 216 points (13.8M points, path H's count),
+# 255,552 unknowns, path H's settings: the sf kernels at SfShape<5, 6>.
+# Path L: the golden cantilever's neo-Hookean twin (balken.mesh, force -5,
+# dt 0.05, the cantilever's step settings) elevated by 3 to p = 4 at 512^2,
+# 25 dofs and 36 points per element, 532,512 unknowns: the dense (2, 25, 36)
+# kernels.  1 warm + PATH_KL_TIMED steps each.
+MESH1 = MESH  # cube-nurbs.mesh is p = 1
+ES_SPANS = 16  # the sf holds of p = 4 and of other Gauss counts: 16^3
+P1_SPANS = 48  # the p = 1 sf holds: 48^3
+K_SPANS = 40
+K_HELD = 3  # path K's held step: 3^3
+L_HELD = 6  # path L's held step: 64^2
+PATH_KL_TIMED = 2
+DENSE4_SPANS = 5  # the dense (3, 125, 216) holds: 2 x 5^3 = 250 elements, a ragged tile
+# the shapes of phases 62-67, (kind, shape) keys of ops/build.py
+NEW_KEYS = [("sf", (2, 3)), ("sf", (5, 6)), ("sf", (3, 3)), ("sf", (3, 5)),
+            ("dense", (2, 4, 9)), ("dense", (3, 8, 27)), ("dense", (3, 125, 216)),
+            ("dense", (2, 25, 36)), ("dense", (2, 12, 20)), ("dense", (2, 9, 9))]
+# every library the smoke launches, in the order the phases first launch it
+# the shapes of the paths before phase 62: sf p = 2 and p = 3, dense 3D p = 2,
+# 2D p = 3 and p = 2, 3D p = 3, each with its default p + 2 Gauss points per
+# axis, in the order the phases first launch them
+EARLIER_KEYS = [("sf", (3, 4)), ("dense", (3, 27, 64)), ("dense", (2, 16, 25)),
+                ("dense", (2, 9, 16)), ("sf", (4, 5)), ("dense", (3, 64, 125))]
+BUILD_ORDER = EARLIER_KEYS + NEW_KEYS
+
+
+def mixed_degree_mesh(mt):
+    """balken.mesh with degrees [3, 2]: 12 dofs and 20 points per element
+    (nurbs/mesh_io.py single_patch_mesh)."""
+    from mimi_tpu_torch.nurbs.mesh_io import read_mfem_nurbs_mesh, single_patch_mesh
+    from mimi_tpu_torch.nurbs.topology import build_patch_from_mesh
+
+    template = read_mfem_nurbs_mesh(BALKEN)
+    patch = build_patch_from_mesh(template)[0]
+    patch.elevate_axis(0, 2)
+    patch.elevate_axis(1, 1)
+    return single_patch_mesh(template, patch.degrees, patch.knot_vectors, patch.control_points,
+                             patch.weights)
+
+
+def quarter_annulus_mesh():
+    """A rational patch built in code: the quarter annulus 1 <= r <= 2,
+    0 <= theta <= pi / 2, degree 2 on both axes (axis 0 radial, axis 1 the
+    exact circular arcs, weights 1, 1/sqrt(2), 1), on balken.mesh's
+    topology: boundary 1 the edge theta = 0, 2 theta = pi / 2, 3 the inner
+    and 4 the outer arc."""
+    import numpy as np
+
+    from mimi_tpu_torch.nurbs.mesh_io import read_mfem_nurbs_mesh, single_patch_mesh
+
+    arc = [(1.0, 0.0, 1.0), (1.0, 1.0, 2**-0.5), (0.0, 1.0, 1.0)]
+    cps = [(r * x, r * y) for x, y, _ in arc for r in (1.0, 1.5, 2.0)]
+    w = [wa for _, _, wa in arc for _ in range(3)]
+    kv = np.array([0.0, 0.0, 0.0, 1.0, 1.0, 1.0])
+    return single_patch_mesh(read_mfem_nurbs_mesh(BALKEN), [2, 2], [kv, kv], np.array(cps),
+                             np.array(w))
+
+
+def hold_fused(torch, sweeps, fused, prob, gen, label):
+    """The fused neo-Hookean residual and matrix-free tangent apply on the
+    problem's dense tables (a neo-Hookean problem at any shape) on random
+    input against their plain versions and against residual_dense
+    (a_el = 0) / matvec_dense (rho = 0, fac0 = 1) on the planes assembled at
+    the same u: phase 17's bars (1e-5 and 1e-4 of scale)."""
+    mat, wq = prob.material, prob.wdet_t
+    dN, N = prob.dense["dN_t"], prob.dense["N_t"]
+    lam, mu, dt = mat.lambda_, mat.mu, STEP_KW["dt"]
+    f = random_visc_inputs(torch, sweeps, prob, mat, gen, dt)
+    u_el, w_el = f["u_el"], f["w_el"]
+    names = sweeps.fused_counters(table_key(prob))
+    n0 = [sweeps.LAUNCHES.get(n, 0) for n in names]
+    r_k = fused.neohookean_residual(u_el, dN, wq, lam, mu)
+    torch.cuda.synchronize()
+    r_p = fused.neohookean_residual_plain(u_el, dN, wq, lam, mu)
+    r_d = sweeps.residual_dense(u_el, torch.zeros_like(u_el), None, dN, N, wq, mat, dt, 1.0)
+    _, Cs = sweeps.assemble_dense(u_el, torch.zeros_like(u_el), None, dN, N, wq, mat, dt, 1.0)
+    y_k = fused.neohookean_tangent_apply(u_el, w_el, dN, wq, lam, mu)
+    torch.cuda.synchronize()
+    y_p = fused.neohookean_tangent_apply_plain(u_el, w_el, dN, wq, lam, mu)
+    y_d = sweeps.matvec_dense(w_el, dN, N, wq, Cs, 0.0, 1.0)
+    for name, k, pl, d, bar in ((names[0], r_k, r_p, r_d, 1e-5), (names[1], y_k, y_p, y_d, 1e-4)):
+        err, err_d, scale = (float((k - pl).abs().max()), float((k - d).abs().max()),
+                             float(pl.abs().max()))
+        say(f"[{label}] {name}: vs plain max|err| {err:.3e}, vs the dense kernels {err_d:.3e}, "
+            f"scale {scale:.3e} (bar {bar:.0e})")
+        if not max(err, err_d) <= bar * scale:
+            fail(f"{name} disagrees ({err}, {err_d} > {bar} * {scale}) [{label}]")
+    if [sweeps.LAUNCHES.get(n, 0) - c for n, c in zip(names, n0)] != [1, 1]:
+        fail(f"{label}: the fused kernels' counters {names} did not count one launch each")
+
+
+def degree_holds(torch, mt, sweeps, soa, fused, device, gen, clock):
+    """Phase 62 (and 64): every instantiation at the new shapes against its
+    plain version on random input (hold_p3 with the four (viscous, bf16)
+    combos: each material x storage x viscous x block dtype, the full block
+    of every material), untimed; the fused neo-Hookean kernels at
+    (3, 125, 216), (2, 25, 36) and (3, 8, 27) (hold_fused)."""
+    both = [(False, False), (False, True), (True, False), (True, True)]
+
+    def sf_hold(prob, label, ragged=True):
+        # |F - I| up to 0.2: at p = 4 and 0.1 a quarter of the points or
+        # fewer yield
+        hold_p3(torch, mt, sweeps, soa, prob, both, label, gen, amplitude=0.2)
+        if ragged:
+            mats = kernel_materials(mt)
+            hold_p3(torch, mt, sweeps, soa, first_elements(prob, P3_RAGGED),
+                    [(False, False), (True, True)], f"{label} {P3_RAGGED} elements", gen,
+                    mats=[mats[0], mats[2], mats[4]], full=False, amplitude=0.2)
+
+    def dense_hold(prob, label, fused_too=False):
+        # at 3D p = 4 |F - I| up to 0.1 leaves 4% of the points plastic.
+        # The four combos cover what hold_dense_bf16 holds beside
+        # (viscous, float32): each material's own block and the full block
+        # in bfloat16, inviscid and viscous, the matvec on bfloat16 tables
+        amp = 0.4 if table_key(prob) == (3, 125, 216) else 0.2
+        hold_p3(torch, mt, sweeps, soa, prob, both, label, gen, amplitude=amp)
+        if fused_too:
+            hold_fused(torch, sweeps, fused, prob, gen, f"64. {label} fused")
+
+    def cube(mesh, elevate, spans, order=-1):
+        return mt.build_problem(mesh, elevate, 0, jc_material(mt), [(1, 0), (1, 1), (1, 2)],
+                                {1: -3.0}, rho_inf=0.5, device=device, refine_spans=spans,
+                                quadrature_order=order)
+
+    def plane(mesh, elevate, subdivide, order=-1, clamp=2):
+        return mt.build_problem(mesh, elevate, subdivide, hyper_material(mt),
+                                [(clamp, 0), (clamp, 1)], {1: -5.0}, rho_inf=0.5,
+                                device=device, quadrature_order=order)
+
+    for prob, label in ((cube(MESH1, 0, P1_SPANS), f"62. {P1_SPANS}^3 p=1"),
+                        (cube(MESH3, 1, ES_SPANS), f"62. {ES_SPANS}^3 p=4"),
+                        (cube(MESH1, 1, ES_SPANS, 5), f"62. {ES_SPANS}^3 p=2 order 5"),
+                        (cube(MESH1, 1, ES_SPANS, 9), f"62. {ES_SPANS}^3 p=2 order 9")):
+        say(f"[{label}] sf {table_key(prob)}: n_el {prob.n_el}, n_q {prob.n_q}")
+        sf_hold(prob, label, ragged=label.endswith(("p=1", "p=4")))
+        del prob
+        torch.cuda.empty_cache()
+        clock(label)
+    n = 2**STEP2D_SUBDIVIDE
+    cases = [
+        (plane(BALKEN, 0, STEP2D_SUBDIVIDE), f"62. {n}^2 p=1", False),
+        (two_patch3_of(mt, hyper_material(mt), DENSE_CHECK_SPANS, device, elevate=0),
+         f"62. 2x{DENSE_CHECK_SPANS}^3 p=1", True),
+        (two_patch3_of(mt, hyper_material(mt), DENSE4_SPANS, device, elevate=3),
+         f"62. 2x{DENSE4_SPANS}^3 p=4", True),
+        (plane(BALKEN, 3, STEP2D_SUBDIVIDE), f"62. {n}^2 p=4", True),
+        (plane(mixed_degree_mesh(mt), 0, STEP2D_SUBDIVIDE), f"62. {n}^2 degrees [3, 2]", False),
+        (plane(BALKEN, 1, STEP2D_SUBDIVIDE, 5), f"62. {n}^2 p=2 order 5", False),
+        (plane(quarter_annulus_mesh(), 0, STEP2D_SUBDIVIDE, clamp=1),
+         f"62. {n}^2 rational quarter annulus p=2", False),
+    ]
+    for prob, label, fused_too in cases:
+        say(f"[{label}] dense {table_key(prob)}: n_el {prob.n_el}")
+        dense_hold(prob, label, fused_too)
+        clock(label)
+    del cases
+
+
+def degree_phases(torch, mt, sweeps, soa, sh, fused, kbuild, device, gen):
+    """Phases 62-67: the remaining degrees, quadrature orders and element
+    shapes.  62: the build seconds and ptxas of every library but the main
+    path's (check_ptxas: no sf matvec and no J2-family Cauchy or
+    hyperelastic sf residual or assemble spills, at any shape; no bfloat16
+    dense matvec spills), every instantiation at each new shape against plain
+    on random input (degree_holds: sf p = 1 at 48^3 and on a ragged tile of
+    33 elements, p = 4 at 16^3 and on 33 elements, p = 2 at quadrature
+    orders 5 and 9 at 16^3; dense (2, 4, 9), (2, 25, 36), (2, 12, 20),
+    (2, 9, 9) and the rational quarter annulus's (2, 9, 16) at 64^2,
+    (3, 8, 27) at 2 x 8^3, (3, 125, 216) at 2 x 5^3).  63: one step kernel
+    path against plain path of the p = 1 cube at 16^3 and of the p = 2 cube
+    at quadrature order 5.  64: the
+    fused neo-Hookean kernels at (3, 125, 216), (2, 25, 36) and (3, 8, 27)
+    (inside 62).  65: path K (40^3, p = 4, sf).  66: path L (512^2, p = 4,
+    dense).  67: one step each of path K's problem at 3^3 and path L's at
+    64^2, kernel path against plain path.  Returns the paths' rows of the
+    kernels line."""
+    t_start = time.perf_counter()
+
+    def clock(what):
+        say(f"[62-67 clock] {what}: {time.perf_counter() - t_start:.1f} s since phase 62")
+
+    # ---- 62. the builds, ptxas and every instantiation of the new shapes -------------
+    kbuild.prebuild(BUILD_ORDER)
+    clock("62 builds awaited")
+    check_ptxas(kbuild, BUILD_ORDER[1:], "62. ptxas")
+    degree_holds(torch, mt, sweeps, soa, fused, device, gen, clock)
+
+    # ---- 63. one step each of the p = 1 cube and of quadrature order 5 ---------------
+    kw = {k: v for k, v in STEP_KW.items() if k != "dt"}
+    for elevate, order, what in ((0, -1, "p=1"), (1, 5, "p=2 order 5")):
+        prob = mt.build_problem(MESH1, elevate, 0, jc_material(mt, A=SMALL_SIGMA_Y),
+                                [(1, 0), (1, 1), (1, 2)], {1: -3.0}, rho_inf=0.5,
+                                device=device, refine_spans=CHECK_SPANS, quadrature_order=order)
+        small_step(torch, mt, prob, STEP_KW["dt"], kw,
+                   f"63. {CHECK_SPANS}^3 {what} J2 step, A {SMALL_SIGMA_Y}", gen)
+    del prob
+    torch.cuda.empty_cache()
+    clock("63")
+
+    # ---- 65. path K -----------------------------------------------------------------
+    t0 = time.perf_counter()
+    prob = cube3_of(mt, jc_material(mt), K_SPANS, device, elevate=1)
+    torch.cuda.synchronize()
+    label = f"65. path K {K_SPANS}^3 p=4 J2"
+    say(f"[{label}] host build {time.perf_counter() - t0:.2f} s: n_el {prob.n_el}, n_q "
+        f"{prob.n_q}, nd {prob.sf['pp1'] ** 3}, unknowns {prob.n_dof * prob.dim}; sf tables "
+        f"and jinv {nbytes(prob.sf['tables'], prob.sf['jinv']) / 1e9:.3f} GB")
+    rows = drive_p3(torch, mt, sweeps, sh, prob, label, PATH_KL_TIMED, gen)
+    del prob
+    torch.cuda.empty_cache()
+    clock("65")
+
+    # ---- 66. path L -----------------------------------------------------------------
+    name = "CompressibleOgdenNeoHookean"
+    force, dt, _ = GOLDEN_2D[name]
+    t0 = time.perf_counter()
+    prob = balken_build(mt, name, 3, GOLDEN_SUBDIVIDE, device)
+    torch.cuda.synchronize()
+    label = f"66. path L {2**GOLDEN_SUBDIVIDE}^2 p=4 neo-Hookean"
+    say(f"[{label}] host build {time.perf_counter() - t0:.2f} s: n_el {prob.n_el}, n_q "
+        f"{prob.n_q}, nd {prob.dense['dN_t'].shape[0]}, unknowns {prob.n_dof * prob.dim}; "
+        f"dense tables {nbytes(prob.dense, prob.wdet_t) / 1e9:.3f} GB")
+    rows += drive_p3(torch, mt, sweeps, sh, prob, label, PATH_KL_TIMED, gen, dt=dt, kw=STEP2D_KW)
+    del prob
+    _BUILT.clear()
+    torch.cuda.empty_cache()
+    clock("66")
+
+    # ---- 67. one step each, kernel path vs plain path -------------------------------
+    prob = cube3_of(mt, jc_material(mt, A=SMALL_SIGMA_Y), K_HELD, device, elevate=1)
+    small_step(torch, mt, prob, STEP_KW["dt"], kw,
+               f"67. {K_HELD}^3 p=4 J2 step, A {SMALL_SIGMA_Y}", gen)
+    prob = balken_build(mt, name, 3, STEP2D_SUBDIVIDE, device)
+    carry0 = mt.initial_carry(prob)
+    out = {impl: mt.make_step(prob, dt, residual_impl=impl, **STEP2D_KW)(carry0)
+           for impl in ("cuda", "torch")}
+    err = float((out["cuda"]["u"] - out["torch"]["u"]).abs().max())
+    scale = float(out["torch"]["u"].abs().max())
+    nc, nt = out["cuda"]["newton"], out["torch"]["newton"]
+    say(f"[67. {2**STEP2D_SUBDIVIDE}^2 p=4 neo-Hookean step] cuda vs torch: max|du| {err:.3e} "
+        f"max|u| {scale:.3e} ({err / scale:.3e}); newton {nc['iters']}/{nt['iters']} gmres "
+        f"{nc['lin_iters']}/{nt['lin_iters']}; drop {drop_of(out['cuda']):.2e}/"
+        f"{drop_of(out['torch']):.2e}")
+    # the bar of the reference package's pallas-vs-soa parity check
+    if not (nc["finite"] and err <= 1e-4 * scale):
+        fail(f"p = 4 dense one-step parity {err} > 1e-4 * {scale}")
+    del prob, carry0, out
+    _BUILT.clear()
+    torch.cuda.empty_cache()
+    clock("67")
+    return rows
+
+
 def main():
     import torch
 
@@ -4322,15 +4643,18 @@ def main():
     from mimi_tpu_torch.solvers.linear import gmres
 
     # ---- 2. build ----------------------------------------------------------
+    # every shape's sources queued on the build's pool in the order the
+    # phases first launch them (BUILD_ORDER), the main path's first: the
+    # rest compile while the phases run, each phase waiting only for the
+    # shapes it launches (ops/build.py load); their ptxas in phase 62
     t0 = t_main = time.perf_counter()
-    kbuild.load()
+    kbuild.start(BUILD_ORDER)
+    kbuild.prebuild(BUILD_ORDER[:1])
     build_s = time.perf_counter() - t0
-    say(f"kernel build: {build_s:.2f} s (cached={kbuild.BUILD_INFO['cached']}; one nvcc "
-        f"per source started together, then one link)")
-    for line in kbuild.BUILD_INFO["log"].splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
-            say(f"  ptxas: {line.strip()}")
-    check_sf_ptxas(kbuild)
+    say(f"kernel build: {build_s:.2f} s for the main path's library {BUILD_ORDER[0]} (one "
+        f"nvcc per source and shape, {kbuild.JOBS} at a time at nice 10, one link per "
+        f"library); the other {len(BUILD_ORDER) - 1} shapes' sources queued behind it")
+    check_ptxas(kbuild, BUILD_ORDER[:1])
 
     gen = torch.Generator().manual_seed(0)
 
@@ -4466,52 +4790,71 @@ def main():
     del prob, carry, step
     torch.cuda.empty_cache()
 
-    say(f"[clock] phases 1-8 done: {time.perf_counter() - t_main:.1f} s since phase 2")
+    say(f"[clock] phases 1-8 done: {time.perf_counter() - t_main:.1f} s since phase 2; "
+        f"{pending_builds()} nvcc compiles pending")
     # ---- 9-12. the contact press ---------------------------------------------
     rows += contact_phases(torch, mt, sweeps, soa, sh, device, gen)
-    say(f"[clock] phases 9-12 done: {time.perf_counter() - t_main:.1f} s since phase 2")
+    say(f"[clock] phases 9-12 done: {time.perf_counter() - t_main:.1f} s since phase 2; "
+        f"{pending_builds()} nvcc compiles pending")
 
     # ---- 13-18. the dense-table path, the fused kernels on its tables ----------
     rows += dense_phases(torch, mt, sweeps, fused, sh, device, gen)
-    say(f"[clock] phases 13-18 done: {time.perf_counter() - t_main:.1f} s since phase 2")
+    say(f"[clock] phases 13-18 done: {time.perf_counter() - t_main:.1f} s since phase 2; "
+        f"{pending_builds()} nvcc compiles pending")
 
     # ---- 19-22. the hyperelastic single-patch path ------------------------------
     rows += hyper_phases(torch, mt, sweeps, sh, device, gen)
-    say(f"[clock] phases 19-22 done: {time.perf_counter() - t_main:.1f} s since phase 2")
+    say(f"[clock] phases 19-22 done: {time.perf_counter() - t_main:.1f} s since phase 2; "
+        f"{pending_builds()} nvcc compiles pending")
 
     # ---- 23-26. finite-strain J2 plasticity with the full tangent -----------------
     rows += finite_phases(torch, mt, sweeps, soa, sh, device, gen)
-    say(f"[clock] phases 23-26 done: {time.perf_counter() - t_main:.1f} s since phase 2")
+    say(f"[clock] phases 23-26 done: {time.perf_counter() - t_main:.1f} s since phase 2; "
+        f"{pending_builds()} nvcc compiles pending")
 
     # ---- 27-32. the 2D dense-table path, 3D dense J2 --------------------------------
     rows += dense2d_phases(torch, mt, sweeps, soa, sh, device, gen)
-    say(f"[clock] phases 27-32 done: {time.perf_counter() - t_main:.1f} s since phase 2")
+    say(f"[clock] phases 27-32 done: {time.perf_counter() - t_main:.1f} s since phase 2; "
+        f"{pending_builds()} nvcc compiles pending")
 
     # ---- 33-37. J2Simo and J2Log on dense tables with the full tangent ------------------
     rows += dense_finite_phases(torch, mt, sweeps, soa, sh, device, gen)
-    say(f"[clock] phases 33-37 done: {time.perf_counter() - t_main:.1f} s since phase 2")
+    say(f"[clock] phases 33-37 done: {time.perf_counter() - t_main:.1f} s since phase 2; "
+        f"{pending_builds()} nvcc compiles pending")
 
     # ---- 38-42. the viscous neo-Hookean contact presses, frozen tangent -----------------
     rows += press_phases(torch, mt, sweeps, soa, sh, device, gen)
-    say(f"[clock] phases 38-42 done: {time.perf_counter() - t_main:.1f} s since phase 2")
+    say(f"[clock] phases 38-42 done: {time.perf_counter() - t_main:.1f} s since phase 2; "
+        f"{pending_builds()} nvcc compiles pending")
 
     # ---- 43-47. J2Linear and the PowerLaw and Voce laws -----------------------------------
     rows += j2lin_law_phases(torch, mt, sweeps, soa, sh, device, gen)
-    say(f"[clock] phases 43-47 done: {time.perf_counter() - t_main:.1f} s since phase 2")
+    say(f"[clock] phases 43-47 done: {time.perf_counter() - t_main:.1f} s since phase 2; "
+        f"{pending_builds()} nvcc compiles pending")
 
     # ---- 48-53. the finite-strain presses (paths F and G), the full block --------------------
     rows += finite_press_paths(torch, mt, sweeps, soa, sh, device, gen)
-    say(f"[clock] phases 48-53 done: {time.perf_counter() - t_main:.1f} s since phase 2")
+    say(f"[clock] phases 48-53 done: {time.perf_counter() - t_main:.1f} s since phase 2; "
+        f"{pending_builds()} nvcc compiles pending")
 
     # ---- 54-57. the cubic (p = 3) sweeps: paths H and I --------------------------------------
     _BUILT.clear()  # no p = 2 problem is built again; path I needs the card's memory
     torch.cuda.empty_cache()
     rows += p3_phases(torch, mt, sweeps, soa, sh, device, gen)
-    say(f"[clock] phases 54-57 done: {time.perf_counter() - t_main:.1f} s since phase 2")
+    say(f"[clock] phases 54-57 done: {time.perf_counter() - t_main:.1f} s since phase 2; "
+        f"{pending_builds()} nvcc compiles pending")
 
     # ---- 58-61. path J: the main path with the dense bfloat16 matvec ----------------------
     rows += path_j_phases(torch, mt, sweeps, soa, sh, device, gen)
-    say(f"[clock] phases 58-61 done: {time.perf_counter() - t_main:.1f} s since phase 2")
+    say(f"[clock] phases 58-61 done: {time.perf_counter() - t_main:.1f} s since phase 2; "
+        f"{pending_builds()} nvcc compiles pending")
+
+    # ---- 62-67. the remaining degrees, quadrature orders and shapes: paths K, L ----------
+    _BUILT.clear()
+    torch.cuda.empty_cache()
+    rows += degree_phases(torch, mt, sweeps, soa, sh, fused, kbuild, device, gen)
+    say(f"[clock] phases 62-67 done: {time.perf_counter() - t_main:.1f} s since phase 2; "
+        f"{pending_builds()} nvcc compiles pending")
 
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {

@@ -231,3 +231,25 @@ def write_mfem_nurbs_mesh(fname: str, mesh, dof_perm, patch) -> None:
                 " ".join(repr(float(x)) for x in patch.control_points[inv[i]])
                 + "\n"
             )
+
+
+def single_patch_mesh(template, degrees, knot_vectors, control_points, weights):
+    """A one-patch mesh with the topology (elements, boundary, edges,
+    vertices) of the one-patch `template` and the patch given by `degrees`,
+    `knot_vectors`, `control_points` (n, dim) and `weights` (n,) in
+    lexicographic order (axis 0 fastest), put into MFEM dof order: a
+    patch of degrees that differ per axis, or a rational patch, built in
+    code."""
+    import dataclasses
+
+    from .topology import PatchTopology
+
+    kvs = [np.asarray(kv, dtype=np.float64) for kv in knot_vectors]
+    nc = [len(kv) - p - 1 for kv, p in zip(kvs, degrees)]
+    perm = PatchTopology(template).lex_to_mfem(nc)  # perm[lex] = mfem
+    cps = np.empty((len(perm), np.asarray(control_points).shape[1]))
+    w = np.empty(len(perm))
+    cps[perm] = np.asarray(control_points, dtype=np.float64)
+    w[perm] = np.asarray(weights, dtype=np.float64)
+    return dataclasses.replace(template, knot_degrees=list(degrees), knot_vectors=kvs,
+                               weights=w, control_points=cps)

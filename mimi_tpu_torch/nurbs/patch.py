@@ -105,12 +105,17 @@ class NurbsPatch:
         for axis in range(self.para_dim):
             if self.degrees[axis] + t > max_degree:
                 continue
-            T, new_kv = kn.elevation_operator(
-                self.knot_vectors[axis], self.degrees[axis], t
-            )
-            self._apply_axis_operator(
-                axis, T, new_kv, new_degree=self.degrees[axis] + t
-            )
+            self.elevate_axis(axis, t)
+
+    def elevate_axis(self, axis: int, t: int) -> None:
+        """Elevate the degree of one parametric axis by t (degrees that
+        differ per axis)."""
+        T, new_kv = kn.elevation_operator(
+            self.knot_vectors[axis], self.degrees[axis], t
+        )
+        self._apply_axis_operator(
+            axis, T, new_kv, new_degree=self.degrees[axis] + t
+        )
 
     def uniform_refine(self) -> None:
         for axis in range(self.para_dim):

@@ -12,25 +12,29 @@
 // The plain torch versions are in ops/fused_neohookean.py.
 //
 // They take the batch-last dense layout of the other sweeps: dN
-// (27, 3, 64, E), element values (3, 27, E), w det J (64, E).  The TPU
-// kernels' (dim, nd, n_el, n_q) layout, the pre-broadcast of u over the
-// quadrature axis, the Newton-refined hardware reciprocal and the lane
+// (ND, DIM, NQ, E), element values (DIM, ND, E), w det J (NQ, E), at the
+// shape of the build (dense_common.cuh Dense: any dimension, degree and
+// point count, as the reference's (dim, nd, n_el, n_q) kernels take any).
+// The TPU kernels' (dim, nd, n_el, n_q) layout, the pre-broadcast of u over
+// the quadrature axis, the Newton-refined hardware reciprocal and the lane
 // reduction outside the kernel answer Mosaic constraints and are not
-// carried over: a thread loops over its element's 64 points and sums them
-// in registers.
+// carried over.
 //
-// Design: as sweeps_dense.cu (one thread per element, 64 per block, the
-// element's dof values staged in the thread's own shared column, the 81
-// sums in registers, dN read a second time from L1 for the scatter).  The
-// residual forms F and P with the functions mimi_residual_dense uses
-// (grad_q, the NeoHookean device functions of materials.cuh), so the two
-// see the same stress to the bit.
+// Design: as sweeps_dense.cu.  Up to 27 dofs in 3D and 16 in 2D one thread
+// per element, 64 per block, the element's dof values staged in the
+// thread's own shared column, the DIM ND sums in registers, dN read a
+// second time from L1 for the scatter; past that (DenseShape::TILED) the
+// points below on dense_tile_kernel, one thread per (element, point slot),
+// the sums of at most 16 nodes a thread.  The residual
+// forms F and P with the functions mimi_residual_dense uses (grad_q_of, the
+// NeoHookean device functions of materials.cuh), so the two see the same
+// stress to the bit.
 //
 // What bounds them on the H100: bytes.  Both stream dN (2.28 GB at
-// E = 109,744) and w det J once; the tangent apply reads two element
-// fields and no tangent block, 2.38 GB against the 4.40 GB of the stored
-// symmetric matvec, and recomputes F^-1 and the three 3 x 3 products per
-// point (~150 flops) instead.
+// E = 109,744, 3D p = 2) and w det J once; the tangent apply reads two
+// element fields and no tangent block, 2.38 GB against the 4.40 GB of the
+// stored symmetric matvec, and recomputes F^-1 and the three products per
+// point (~150 flops in 3D) instead.
 
 #include <cuda_runtime.h>
 
@@ -39,124 +43,228 @@
 
 namespace {
 
-using Shape = DenseShape<3, 2>;  // p = 2: 27 dofs, 64 points
-constexpr int ND = Shape::ND, NQ = Shape::NQ, NW = Shape::NW;
-using NeoHookean3 = NeoHookean<3>;
+using NH = NeoHookean<Dense::DIM>;
 
-__device__ __forceinline__ void deformation_gradient(const float* __restrict__ dN,
-                                                     float (*su)[BLOCK], long long qe,
-                                                     long long QE, float F[3][3]) {
-  grad_q<3, ND>(dN, su, qe, QE, F);
-  F[0][0] = add(F[0][0], 1.f);
-  F[1][1] = add(F[1][1], 1.f);
-  F[2][2] = add(F[2][2], 1.f);
+template <int DIM>
+__device__ __forceinline__ void deformation_gradient(const float F_grad[DIM][DIM],
+                                                     float F[DIM][DIM]) {
+#pragma unroll
+  for (int c = 0; c < DIM; ++c)
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) F[c][d] = c == d ? add(F_grad[c][d], 1.f) : F_grad[c][d];
 }
 
-__device__ __forceinline__ void zero(float (&acc)[3][ND]) {
+// dP = mu dF + k1 tr(F^-1 dF) F^-T - k2 F^-T dF^T F^-T at F
+template <int DIM>
+__device__ __forceinline__ void tangent_apply(const NeoHookean<DIM>& mat, const float F[DIM][DIM],
+                                              const float dF[DIM][DIM], float dP[DIM][DIM]) {
+  const float J = rn::det(F);
+  float fi[DIM][DIM];
+  rn::inv(F, fi);  // G = F^-T: G[c][d] = fi[d][c]
+  float t = 0.f;   // tr(F^-1 dF) = sum_cd G_cd dF_cd
 #pragma unroll
-  for (int c = 0; c < 3; ++c)
+  for (int c = 0; c < DIM; ++c)
 #pragma unroll
-    for (int n = 0; n < ND; ++n) acc[c][n] = 0.f;
+    for (int d = 0; d < DIM; ++d) t += fi[d][c] * dF[c][d];
+  // A = dF^T G: A[a][d] = sum_b dF[b][a] G[b][d];  M = G A
+  float A[DIM][DIM];
+#pragma unroll
+  for (int a = 0; a < DIM; ++a)
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) {
+      float s = dF[0][a] * fi[d][0];
+#pragma unroll
+      for (int b = 1; b < DIM; ++b) s += dF[b][a] * fi[d][b];
+      A[a][d] = s;
+    }
+  const float coef_t = mat.lam * (2.f * J - 1.f) * J * t;
+  const float coef_m = mat.lam * J * (J - 1.f) - mat.mu;
+#pragma unroll
+  for (int c = 0; c < DIM; ++c)
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) {
+      float M = fi[0][c] * A[0][d];
+#pragma unroll
+      for (int b = 1; b < DIM; ++b) M += fi[b][c] * A[b][d];
+      dP[c][d] = mat.mu * dF[c][d] + coef_t * fi[d][c] - coef_m * M;
+    }
 }
 
-__device__ __forceinline__ void write_out(float* __restrict__ out, const float (&acc)[3][ND],
-                                          long long e, long long E) {
+// ---- one thread per element ------------------------------------------------------
+
+template <class S>
+__device__ __forceinline__ void zero(float (&acc)[S::DIM][S::ND]) {
 #pragma unroll
-  for (int c = 0; c < 3; ++c)
+  for (int c = 0; c < S::DIM; ++c)
 #pragma unroll
-    for (int n = 0; n < ND; ++n) out[(long long)(c * ND + n) * E + e] = acc[c][n];
+    for (int n = 0; n < S::ND; ++n) acc[c][n] = 0.f;
 }
 
+template <class S>
+__device__ __forceinline__ void write_out(float* __restrict__ out,
+                                          const float (&acc)[S::DIM][S::ND], long long e,
+                                          long long E) {
+#pragma unroll
+  for (int c = 0; c < S::DIM; ++c)
+#pragma unroll
+    for (int n = 0; n < S::ND; ++n) out[(long long)(c * S::ND + n) * E + e] = acc[c][n];
+}
+
+template <class S>
 __global__ void __launch_bounds__(BLOCK)
     nh_residual_kernel(const float* __restrict__ u_el, const float* __restrict__ dN,
                        const float* __restrict__ wq, float* __restrict__ out,
-                       NeoHookean3 mat, long long E) {
-  __shared__ float su[NW][BLOCK];
+                       NeoHookean<S::DIM> mat, long long E) {
+  constexpr int DIM = S::DIM, ND = S::ND;
+  MIMI_DYNAMIC_SHARED(float, smem);  // su[NW][BLOCK]
+  float(*su)[BLOCK] = reinterpret_cast<float(*)[BLOCK]>(smem);
   const long long e = (long long)blockIdx.x * BLOCK + threadIdx.x;
   if (e >= E) return;  // threads share nothing: no barrier below
-  stage<NW>(u_el, su, e, E);
-  float acc[3][ND];
-  zero(acc);
-  const long long QE = (long long)NQ * E;
+  stage<S::NW>(u_el, su, e, E);
+  float acc[DIM][ND];
+  zero<S>(acc);
+  const long long QE = (long long)S::NQ * E;
 #pragma unroll 1
-  for (int q = 0; q < NQ; ++q) {
+  for (int q = 0; q < S::NQ; ++q) {
     const long long qe = (long long)q * E + e;
-    float F[3][3], P[3][3];
-    deformation_gradient(dN, su, qe, QE, F);
+    float G[DIM][DIM], F[DIM][DIM], P[DIM][DIM];
+    grad_q<DIM, ND>(dN, su, qe, QE, G);
+    deformation_gradient<DIM>(G, F);
     mat.pk1(F, P);
-    scatter_q<3, ND, false>(acc, dN, nullptr, qe, QE, __ldg(wq + qe), P, nullptr);
+    scatter_q<DIM, ND, false>(acc, dN, nullptr, qe, QE, __ldg(wq + qe), P, nullptr);
   }
-  write_out(out, acc, e, E);
+  write_out<S>(out, acc, e, E);
 }
 
+template <class S>
 __global__ void __launch_bounds__(BLOCK)
     nh_tangent_apply_kernel(const float* __restrict__ u_el, const float* __restrict__ w_el,
                             const float* __restrict__ dN, const float* __restrict__ wq,
-                            float* __restrict__ out, NeoHookean3 mat, long long E) {
-  __shared__ float su[NW][BLOCK];
-  __shared__ float sw[NW][BLOCK];
+                            float* __restrict__ out, NeoHookean<S::DIM> mat, long long E) {
+  constexpr int DIM = S::DIM, ND = S::ND;
+  MIMI_DYNAMIC_SHARED(float, smem);  // su[NW][BLOCK], sw[NW][BLOCK]
+  float(*su)[BLOCK] = reinterpret_cast<float(*)[BLOCK]>(smem);
+  float(*sw)[BLOCK] = su + S::NW;
   const long long e = (long long)blockIdx.x * BLOCK + threadIdx.x;
   if (e >= E) return;
-  stage<NW>(u_el, su, e, E);
-  stage<NW>(w_el, sw, e, E);
-  float acc[3][ND];
-  zero(acc);
-  const long long QE = (long long)NQ * E;
+  stage<S::NW>(u_el, su, e, E);
+  stage<S::NW>(w_el, sw, e, E);
+  float acc[DIM][ND];
+  zero<S>(acc);
+  const long long QE = (long long)S::NQ * E;
 #pragma unroll 1
-  for (int q = 0; q < NQ; ++q) {
+  for (int q = 0; q < S::NQ; ++q) {
     const long long qe = (long long)q * E + e;
-    float F[3][3], dF[3][3], fi[3][3];
-    deformation_gradient(dN, su, qe, QE, F);
-    grad_q<3, ND>(dN, sw, qe, QE, dF);
-    const float J = rn::det3(F);
-    rn::inv3(F, fi);  // G = F^-T: G[c][d] = fi[d][c]
-    float t = 0.f;    // tr(F^-1 dF) = sum_cd G_cd dF_cd
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-#pragma unroll
-      for (int d = 0; d < 3; ++d) t += fi[d][c] * dF[c][d];
-    // A = dF^T G: A[a][d] = sum_b dF[b][a] G[b][d];  M = G A
-    float A[3][3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a)
-#pragma unroll
-      for (int d = 0; d < 3; ++d)
-        A[a][d] = dF[0][a] * fi[d][0] + dF[1][a] * fi[d][1] + dF[2][a] * fi[d][2];
-    const float coef_t = mat.lam * (2.f * J - 1.f) * J * t;
-    const float coef_m = mat.lam * J * (J - 1.f) - mat.mu;
-    float dP[3][3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        const float M = fi[0][c] * A[0][d] + fi[1][c] * A[1][d] + fi[2][c] * A[2][d];
-        dP[c][d] = mat.mu * dF[c][d] + coef_t * fi[d][c] - coef_m * M;
-      }
-    scatter_q<3, ND, false>(acc, dN, nullptr, qe, QE, __ldg(wq + qe), dP, nullptr);
+    float G[DIM][DIM], F[DIM][DIM], dF[DIM][DIM], dP[DIM][DIM];
+    grad_q<DIM, ND>(dN, su, qe, QE, G);
+    deformation_gradient<DIM>(G, F);
+    grad_q<DIM, ND>(dN, sw, qe, QE, dF);
+    tangent_apply<DIM>(mat, F, dF, dP);
+    scatter_q<DIM, ND, false>(acc, dN, nullptr, qe, QE, __ldg(wq + qe), dP, nullptr);
   }
-  write_out(out, acc, e, E);
+  write_out<S>(out, acc, e, E);
+}
+
+// ---- the points of dense_tile_kernel (S::TILED) ----------------------------------
+
+// the residual's point: F from u (s0), P; no mass term
+template <class S>
+struct NhResidualPoint {
+  static constexpr bool MASS = false;
+  static constexpr int DIM = S::DIM;
+  NeoHookean<DIM> mat;
+  const float* dN;
+  __device__ __forceinline__ void operator()(const float (*s0)[DTILE], const float (*)[DTILE],
+                                             int lane, long long, long long, long long qe,
+                                             long long QE, float X[DIM][DIM],
+                                             float m[DIM]) const {
+    float G[DIM][DIM], F[DIM][DIM];
+    grad_q_of<DIM, S::ND>(dN, [=](int k) { return s0[k][lane]; }, qe, QE, G);
+    deformation_gradient<DIM>(G, F);
+    mat.pk1(F, X);
+#pragma unroll
+    for (int c = 0; c < DIM; ++c) m[c] = 0.f;
+  }
+};
+
+// the tangent apply's point: F from u (s0), dF from w (s1), dP; no mass term
+template <class S>
+struct NhTangentPoint {
+  static constexpr bool MASS = false;
+  static constexpr int DIM = S::DIM;
+  NeoHookean<DIM> mat;
+  const float* dN;
+  __device__ __forceinline__ void operator()(const float (*s0)[DTILE],
+                                             const float (*s1)[DTILE], int lane, long long,
+                                             long long, long long qe, long long QE,
+                                             float X[DIM][DIM], float m[DIM]) const {
+    float G[DIM][DIM], F[DIM][DIM], dF[DIM][DIM];
+    grad_q_of<DIM, S::ND>(dN, [=](int k) { return s0[k][lane]; }, qe, QE, G);
+    deformation_gradient<DIM>(G, F);
+    grad_q_of<DIM, S::ND>(dN, [=](int k) { return s1[k][lane]; }, qe, QE, dF);
+    tangent_apply<DIM>(mat, F, dF, X);
+#pragma unroll
+    for (int c = 0; c < DIM; ++c) m[c] = 0.f;
+  }
+};
+
+template <class S>
+int launch_residual(const float* u_el, const float* dN, const float* wq, float* out,
+                    const NeoHookean<S::DIM>& mat, long long E, void* stream) {
+  if constexpr (S::TILED) {
+    const NhResidualPoint<S> point{mat, dN};
+    return launch_dense_tile<S, 1, float>(point, u_el, nullptr, dN, nullptr, wq, out, E,
+                                          stream);
+  } else {
+    constexpr size_t smem = sizeof(float) * S::NW * BLOCK;
+    if (const int err = allow_dynamic_smem<nh_residual_kernel<S>>(smem)) return err;
+    nh_residual_kernel<S><<<grid_for(E), BLOCK, smem, (cudaStream_t)stream>>>(u_el, dN, wq, out,
+                                                                              mat, E);
+    return (int)cudaGetLastError();
+  }
+}
+
+template <class S>
+int launch_tangent_apply(const float* u_el, const float* w_el, const float* dN,
+                         const float* wq, float* out, const NeoHookean<S::DIM>& mat,
+                         long long E, void* stream) {
+  if constexpr (S::TILED) {
+    const NhTangentPoint<S> point{mat, dN};
+    return launch_dense_tile<S, 2, float>(point, u_el, w_el, dN, nullptr, wq, out, E, stream);
+  } else {
+    constexpr size_t smem = 2 * sizeof(float) * S::NW * BLOCK;
+    if (const int err = allow_dynamic_smem<nh_tangent_apply_kernel<S>>(smem)) return err;
+    nh_tangent_apply_kernel<S><<<grid_for(E), BLOCK, smem, (cudaStream_t)stream>>>(
+        u_el, w_el, dN, wq, out, mat, E);
+    return (int)cudaGetLastError();
+  }
 }
 
 }  // namespace
 
-// C entry points.  Each returns the launch's cudaGetLastError().
+// C entry points at the shape of the build ((dim, nd, nq): dimension, dofs
+// and points per element).  Each returns the launch's cudaGetLastError(), or
+// cudaErrorInvalidValue for another shape.
 extern "C" {
 
 int mimi_neohookean_residual(const float* u_el, const float* dN, const float* wq, float* out,
-                             float lam, float mu, long long E, void* stream) {
+                             float lam, float mu, int dim, int nd, int nq, long long E,
+                             void* stream) {
   if (E <= 0) return 0;
-  nh_residual_kernel<<<grid_for(E), BLOCK, 0, (cudaStream_t)stream>>>(
-      u_el, dN, wq, out, NeoHookean3{mu, lam}, E);
-  return (int)cudaGetLastError();
+  return with_dense_shape(dim, nd, nq, [&](auto shape) {
+    using S = decltype(shape);
+    return launch_residual<S>(u_el, dN, wq, out, NH{mu, lam}, E, stream);
+  });
 }
 
 int mimi_neohookean_tangent_apply(const float* u_el, const float* w_el, const float* dN,
-                                  const float* wq, float* out, float lam, float mu,
-                                  long long E, void* stream) {
+                                  const float* wq, float* out, float lam, float mu, int dim,
+                                  int nd, int nq, long long E, void* stream) {
   if (E <= 0) return 0;
-  nh_tangent_apply_kernel<<<grid_for(E), BLOCK, 0, (cudaStream_t)stream>>>(
-      u_el, w_el, dN, wq, out, NeoHookean3{mu, lam}, E);
-  return (int)cudaGetLastError();
+  return with_dense_shape(dim, nd, nq, [&](auto shape) {
+    using S = decltype(shape);
+    return launch_tangent_apply<S>(u_el, w_el, dN, wq, out, NH{mu, lam}, E, stream);
+  });
 }
 
 }  // extern "C"

@@ -7,15 +7,15 @@
 // sf_tile_kernel, with its launcher, for the residual, the assemble and
 // the matvec, all templated on the element's shape SfShape<P1, NG> (P1 =
 // p + 1 nodes and NG Gauss points per axis).  Each source instantiates
-// what it needs at one shape: the three sources at p = 2 (SfShape<3, 4>),
-// their _p3 twins (sweeps_sf_p3.cu and the like, which define MIMI_SF_P1 /
-// MIMI_SF_NG and include them) at p = 3 (SfShape<4, 5>), with the suffix
-// _p3 on their C entry points.
+// what it needs at the one shape its build defines (MIMI_SF_P1,
+// MIMI_SF_NG: ops/build.py compiles the three sources once per shape the
+// step asks for, each shape into a library of its own, as the reference
+// traces one kernel per shape).
 //
 // sf_tile_kernel maps one thread to an (element, point slot): a block
-// takes a tile of TILE = 32 consecutive elements, one per lane, and SLOTS
-// = 4 warps, warp s taking the points q = s (mod SLOTS) of every element
-// in the tile.  The tile's element fields (the residual's u, a and,
+// takes a tile of TILE = 32 consecutive elements, one per lane, and
+// S::SLOTS warps (4, 8 from p = 4 on), warp s taking the points
+// q = s (mod SLOTS) of every element in the tile.  The tile's element fields (the residual's u, a and,
 // viscous, v; the matvec's w: (3, ND) values each) are staged once in
 // shared memory as [3 ND][TILE], so a lane reads its own column without
 // bank conflicts, and every batch-last read and write at qe = q E + e
@@ -28,13 +28,15 @@
 // points, in q order, to the outputs of the nodes n = s + SLOTS j it owns,
 // all three components (the transpose of a scatter): the reduction is
 // deterministic and uses no atomics; a thread holds 21 accumulators at
-// p = 2 (48 at p = 3) instead of 81 (192).  The outputs are written
-// coalesced at the end.  The per-point operations, and the q order of the
-// sums, are those of the one-thread-per-element kernels the template
-// replaced, so the outputs round as theirs did.  Shared memory (dynamic, launch.cuh): 36.2 KB a
+// p = 2 (48 at p = 3, and at p = 4 with 8 slots; 6 at p = 1) instead of 81
+// (192, 375).  The outputs are written coalesced at the end.  The
+// per-point operations, and the q order of the sums, are those of the
+// one-thread-per-element kernels the template replaced, so the outputs
+// round as theirs did.  Shared memory (dynamic, launch.cuh): 36.2 KB a
 // block, 46.5 KB viscous, 25.7 KB for the matvec at p = 2; 67.6 KB, 92.2 KB
-// and 43.0 KB at p = 3 (SfShape::MIN_BLOCKS*).  Design notes and what
-// bounds the kernels: the head of sweeps_sf.cu.
+// and 43.0 KB at p = 3; 135.8 KB, 182.6 KB and 88.9 KB at p = 4
+// (SfShape::blocks).  Design notes and what bounds the kernels: the head
+// of sweeps_sf.cu.
 
 #pragma once
 
@@ -49,45 +51,53 @@
 
 namespace {
 
-// sf_tile_kernel: elements per block (a warp's lanes) and point slots (one
-// warp each)
+// sf_tile_kernel: elements per block (a warp's lanes)
 constexpr int TILE = 32;
-constexpr int SLOTS = 4;
+// shared memory of one SM, and what each resident block reserves of it
+constexpr size_t SM_SHARED = 228 * 1024, BLOCK_RESERVED = 1024;
 
 // The element of one shape: P1 = p + 1 nodes and NG Gauss points per axis.
-// What an sf_tile_kernel thread sums (OWN outputs of OWN_NODES nodes), what
-// one point hands to the reduction per lane (its 1D basis values b[ax][a],
-// d[ax][a] at ST_B, ST_D, its flux Z[c][a] at ST_Z, its mass term mm[c] at
-// ST_M), and the blocks of 128 threads an SM must hold (__launch_bounds__),
-// which cap a thread's registers at 65536 / (MIN_BLOCKS * 128).  The
+// Its point slots (SLOTS warps a block, one slot each: 4, and 8 from p = 4
+// on, where 4 would leave a thread 96 sums), what an sf_tile_kernel thread
+// sums (OWN outputs of OWN_NODES nodes), what one point hands to the
+// reduction per lane (its 1D basis values b[ax][a], d[ax][a] at ST_B, ST_D,
+// its flux Z[c][a] at ST_Z, its mass term mm[c] at ST_M), and the blocks an
+// SM must hold (__launch_bounds__), which cap a thread's registers at
+// 65536 / (blocks * 32 SLOTS): as many tiles of `tile_bytes` as the SM's
+// shared memory holds, at most MAX_BLOCKS (4 at p <= 2, 3 at p = 3: the
+// registers the tile needs; 1 from p = 4 on, 255 registers).  The
 // residual and assemble: at p = 2 4 (128 registers; 4 tiles of 36.2 or
-// 46.5 KB fit the SM's 228 KB), at p = 3 3 inviscid (170 registers, 3 x
-// 67.6 KB) and 2 viscous (255, 2 x 92.2 KB).  The matvec: 4 at p = 2 (128
-// registers, 4 x 25.7 KB), 3 at p = 3 (170, 3 x 43.0 KB).
+// 46.5 KB), at p = 3 3 inviscid (170 registers, 3 x 67.6 KB) and 2 viscous
+// (255, 2 x 92.2 KB), at p = 4 1 (135.8 and 182.6 KB).  The matvec: 4 at
+// p = 2 (25.7 KB), 3 at p = 3 (43.0 KB), 1 at p = 4 (88.9 KB).
 template <int P1_, int NG_>
 struct SfShape {
   static constexpr int P1 = P1_, NG = NG_;
   static constexpr int NQ = NG * NG * NG;
   static constexpr int ND = P1 * P1 * P1;
   static constexpr int NV = 3 * ND;  // values of a vector field on one element
+  static constexpr int SLOTS = P1 >= 5 ? 8 : 4;
   static constexpr int OWN_NODES = (ND + SLOTS - 1) / SLOTS;
   static constexpr int OWN = 3 * OWN_NODES;
   static constexpr int ST_B = 0, ST_D = 3 * P1, ST_Z = 6 * P1, ST_M = ST_Z + 9;
   static constexpr int NSTAGE = ST_M + 3;
-  static constexpr int MIN_BLOCKS = P1 <= 3 ? 4 : 3, MIN_BLOCKS_VISC = P1 <= 3 ? 4 : 2;
-  static constexpr int MIN_BLOCKS_MATVEC = P1 <= 3 ? 4 : 3;
+  static constexpr int MAX_BLOCKS = P1 <= 3 ? 4 : P1 == 4 ? 3 : 1;
+  // shared memory of a tile with nf staged fields (TileShared)
+  static constexpr size_t tile_bytes(int nf) {
+    return sizeof(float) * TILE * ((size_t)nf * NV + (size_t)SLOTS * NSTAGE);
+  }
+  static constexpr int blocks(int nf) {
+    const size_t fit = SM_SHARED / (tile_bytes(nf) + BLOCK_RESERVED);
+    return fit < (size_t)MAX_BLOCKS ? (fit < 1 ? 1 : (int)fit) : MAX_BLOCKS;
+  }
 };
 
 }  // namespace
 
-// The shape this translation unit instantiates: p = 2 unless the source
-// defines MIMI_SF_P1 and MIMI_SF_NG before including this header (the _p3
-// sources), and the name of its C entry points (MIMI_SF_ENTRY: the _p3
-// sources append _p3)
-#ifndef MIMI_SF_P1
-#define MIMI_SF_P1 3
-#define MIMI_SF_NG 4
-#define MIMI_SF_ENTRY(name) name
+// The shape this translation unit instantiates, defined by the build
+// (ops/build.py: -DMIMI_SF_P1=<p + 1> -DMIMI_SF_NG=<Gauss points per axis>)
+#if !defined(MIMI_SF_P1) || !defined(MIMI_SF_NG)
+#error "define MIMI_SF_P1 and MIMI_SF_NG: the sf element's shape (ops/build.py)"
 #endif
 
 struct Tables {
@@ -208,7 +218,7 @@ __device__ __forceinline__ void point_flux(const float ji[3][3], float wq, const
 template <class S, int NF>
 struct TileShared {
   float f[NF][S::NV][TILE];
-  float pt[SLOTS][S::NSTAGE][TILE];
+  float pt[S::SLOTS][S::NSTAGE][TILE];
 };
 
 // the staged fields of a tile, f[field][value][lane]
@@ -255,7 +265,7 @@ __device__ __forceinline__ void stage_flux(const float Z[3][3], const float mm[3
 template <class S, class Mat, class Store, bool TANGENT, bool VISC, typename CT>
 struct SfResidualPoint {
   static constexpr int NF = VISC ? 3 : 2;
-  static constexpr int MIN_BLOCKS = VISC ? S::MIN_BLOCKS_VISC : S::MIN_BLOCKS;
+  static constexpr int MIN_BLOCKS = S::blocks(NF);
   using Block = CT;
   Mat mat;
   float rho, mu_v;
@@ -308,7 +318,7 @@ struct SfResidualPoint {
 template <class S, class Store, bool VISC, typename CT>
 struct SfMatvecPoint {
   static constexpr int NF = 1;
-  static constexpr int MIN_BLOCKS = S::MIN_BLOCKS_MATVEC;
+  static constexpr int MIN_BLOCKS = S::blocks(NF);
   using Block = const CT;
   float rho, fac0, fac1_mu_v;
   __device__ __forceinline__ void operator()(Staged<S> f, int lane, int q, long long e,
@@ -342,41 +352,53 @@ struct SfMatvecPoint {
   }
 };
 
-// acc[3 j + c] += the round's SLOTS points, in slot (= q) order, for the
+// acc[3 j + c] += one point's terms (its staged values p[k][lane]) for the
 // outputs (c, n) of the nodes n = W + SLOTS j this thread owns: dN[n] . Z +
 // N[n] mm, the basis products formed once per node from the staged 1D
-// values.  `left` is the round's points still to add (NQ - q0): at p = 3
-// the last round of the 125 points holds one.
+// values
+template <class S, int W>
+__device__ __forceinline__ void add_point(float (&acc)[S::OWN], const float (*p)[TILE],
+                                          int lane) {
+  constexpr int P1 = S::P1, ST_B = S::ST_B, ST_D = S::ST_D, ST_Z = S::ST_Z, ST_M = S::ST_M;
+  constexpr int SLOTS = S::SLOTS;
+#pragma unroll
+  for (int j = 0; j < S::OWN_NODES; ++j) {
+    const int n = W + SLOTS * j;
+    if (n < S::ND) {
+      const int a0 = n % P1, a1 = (n / P1) % P1, a2 = n / (P1 * P1);
+      const float b0 = p[ST_B + a0][lane], b1 = p[ST_B + P1 + a1][lane],
+                  b2 = p[ST_B + 2 * P1 + a2][lane];
+      const float d0 = p[ST_D + a0][lane], d1 = p[ST_D + P1 + a1][lane],
+                  d2 = p[ST_D + 2 * P1 + a2][lane];
+      const float bb = b1 * b2;
+      const float g0 = d0 * bb;
+      const float g1 = b0 * d1 * b2;
+      const float g2 = b0 * b1 * d2;
+      const float N = b0 * bb;
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        acc[3 * j + c] += g0 * p[ST_Z + c * 3][lane] + g1 * p[ST_Z + c * 3 + 1][lane] +
+                          g2 * p[ST_Z + c * 3 + 2][lane] + N * p[ST_M + c][lane];
+    }
+  }
+}
+
+// the round's SLOTS points, in slot (= q) order (add_point).  `left` is the
+// round's points still to add (NQ - q0): where SLOTS does not divide NQ
+// (p = 3: 125 points) the last round is partial.  With 8 slots (p >= 4) the
+// loop over the points stays rolled: unrolled, each of the 8 owner
+// branches (add_round_of) held 8 x 16 node bodies, and nvcc took 440-575 s
+// a source at p = 4 (CUDA 12 on the H100 machine's 8 cores)
 template <class S, int W>
 __device__ __forceinline__ void add_round(float (&acc)[S::OWN],
                                           float (*pt)[S::NSTAGE][TILE], int lane, int left) {
-  constexpr int P1 = S::P1, ST_B = S::ST_B, ST_D = S::ST_D, ST_Z = S::ST_Z, ST_M = S::ST_M;
-#pragma unroll
+  constexpr int SLOTS = S::SLOTS;
+#pragma unroll(SLOTS <= 4 ? SLOTS : 1)
   for (int s = 0; s < SLOTS; ++s) {
     if constexpr (S::NQ % SLOTS != 0) {
       if (s >= left) break;
     }
-    const float(*p)[TILE] = pt[s];
-#pragma unroll
-    for (int j = 0; j < S::OWN_NODES; ++j) {
-      const int n = W + SLOTS * j;
-      if (n < S::ND) {
-        const int a0 = n % P1, a1 = (n / P1) % P1, a2 = n / (P1 * P1);
-        const float b0 = p[ST_B + a0][lane], b1 = p[ST_B + P1 + a1][lane],
-                    b2 = p[ST_B + 2 * P1 + a2][lane];
-        const float d0 = p[ST_D + a0][lane], d1 = p[ST_D + P1 + a1][lane],
-                    d2 = p[ST_D + 2 * P1 + a2][lane];
-        const float bb = b1 * b2;
-        const float g0 = d0 * bb;
-        const float g1 = b0 * d1 * b2;
-        const float g2 = b0 * b1 * d2;
-        const float N = b0 * bb;
-#pragma unroll
-        for (int c = 0; c < 3; ++c)
-          acc[3 * j + c] += g0 * p[ST_Z + c * 3][lane] + g1 * p[ST_Z + c * 3 + 1][lane] +
-                            g2 * p[ST_Z + c * 3 + 2][lane] + N * p[ST_M + c][lane];
-      }
-    }
+    add_point<S, W>(acc, pt[s], lane);
   }
 }
 
@@ -385,7 +407,7 @@ __device__ __forceinline__ void add_round(float (&acc)[S::OWN],
 template <class S, int W = 0>
 __device__ __forceinline__ void add_round_of(int slot, float (&acc)[S::OWN],
                                              float (*pt)[S::NSTAGE][TILE], int lane, int left) {
-  if constexpr (W + 1 < SLOTS) {
+  if constexpr (W + 1 < S::SLOTS) {
     if (slot != W) {
       add_round_of<S, W + 1>(slot, acc, pt, lane, left);
       return;
@@ -398,12 +420,12 @@ __device__ __forceinline__ void add_round_of(int slot, float (&acc)[S::OWN],
 // points, each point's flux Z, mm from `point` (SfResidualPoint or
 // SfMatvecPoint) on the Pt::NF staged fields f0 (, f1, f2)
 template <class S, class Pt>
-__global__ void __launch_bounds__(TILE * SLOTS, Pt::MIN_BLOCKS)
+__global__ void __launch_bounds__(TILE * S::SLOTS, Pt::MIN_BLOCKS)
     sf_tile_kernel(Pt point, const float* __restrict__ f0, const float* __restrict__ f1,
                    const float* __restrict__ f2, Tables tb, const float* __restrict__ jinv,
                    const float* __restrict__ wq, typename Pt::Block* __restrict__ block,
                    float* __restrict__ out, long long E) {
-  constexpr int NF = Pt::NF, NV = S::NV, ND = S::ND, OWN = S::OWN;
+  constexpr int NF = Pt::NF, NV = S::NV, ND = S::ND, OWN = S::OWN, SLOTS = S::SLOTS;
   using Tile = TileShared<S, NF>;
   MIMI_DYNAMIC_SHARED(Tile, tile);
   Tile& sh = *tile;
@@ -422,7 +444,7 @@ __global__ void __launch_bounds__(TILE * SLOTS, Pt::MIN_BLOCKS)
   for (int k = 0; k < OWN; ++k) acc[k] = 0.f;
 #pragma unroll 1
   for (int q0 = 0; q0 < S::NQ; q0 += SLOTS) {
-    // the last round is partial where SLOTS does not divide NQ (p = 3)
+    // the last round is partial where SLOTS does not divide NQ
     if (live && (S::NQ % SLOTS == 0 || q0 + slot < S::NQ))
       point(sh.f, lane, q0 + slot, e, E, tb, jinv, wq, block, sh.pt[slot]);
     __syncthreads();
@@ -445,9 +467,10 @@ int launch_sf_tile(const Pt& point, const float* f0, const float* f1, const floa
                    const Tables& tb, const float* jinv, const float* wq,
                    typename Pt::Block* block, float* out, long long E, void* stream) {
   constexpr size_t smem = sizeof(TileShared<S, Pt::NF>);
+  static_assert(smem == S::tile_bytes(Pt::NF), "tile_bytes counts TileShared");
   if (const int err = allow_dynamic_smem<sf_tile_kernel<S, Pt>>(smem)) return err;
   const unsigned tiles = (unsigned)((E + TILE - 1) / TILE);
-  sf_tile_kernel<S, Pt><<<tiles, TILE * SLOTS, smem, (cudaStream_t)stream>>>(
+  sf_tile_kernel<S, Pt><<<tiles, TILE * S::SLOTS, smem, (cudaStream_t)stream>>>(
       point, f0, f1, f2, tb, jinv, wq, block, out, E);
   return (int)cudaGetLastError();
 }

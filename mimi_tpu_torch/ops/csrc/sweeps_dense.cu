@@ -17,9 +17,11 @@
 //
 // The kernels (dense_common.cuh) are templated on the material (its first
 // Piola stress and closed-form dP/dF as device functions, materials.cuh),
-// the tangent storage, the dimension DIM and the degree P (ND = (P+1)^DIM
-// dofs, NQ = (P+2)^DIM points).  Instantiated here, for (DIM, P) = (2, 2),
-// (2, 3), (3, 2) and (3, 3): the compressible Ogden neo-Hookean and the
+// the tangent storage and the element's shape (DIM, ND dofs, NQ points;
+// dense_common.cuh DenseShape).  Instantiated here at the shape of the
+// build (ops/build.py compiles this source once per shape the step asks
+// for: any degree, quadrature order, degrees that differ per axis): the
+// compressible Ogden neo-Hookean and the
 // St. Venant-Kirchhoff material with SymStorage<DIM>, plane (a, b), a <= b,
 // of tri_index_map(DIM^2) holding (C_ab + C_ba) / 2 with C_ab = dP_a / dF_b,
 // a = DIM c + d: 45 planes in 3D, 10 in 2D.  p = 3 in 2D is the golden
@@ -75,12 +77,13 @@
 
 namespace {
 
-template <template <int> class H, class Store, int DIM, int P, bool TANGENT, bool VISC>
+template <template <int> class H, class Store, class S, bool TANGENT, bool VISC>
 int launch_hyper(const float* u_el, const float* a_el, const float* v_el, const float* dN,
                  const float* N, const float* wq, float* out, DenseBlock* cout,
                  const HyperelasticParams& p, float mu_v, long long E, void* stream) {
+  constexpr int DIM = S::DIM;
   using Mat = Hyper<H<DIM>>;
-  return launch_dense_residual<Mat, Store, DIM, P, TANGENT, VISC>(
+  return launch_dense_residual<Mat, Store, S, TANGENT, VISC>(
       u_el, a_el, dN, N, wq, out, cout, Mat{H<DIM>{p.mu, p.lam}}, p.rho, E, stream, v_el,
       mu_v);
 }
@@ -88,17 +91,18 @@ int launch_hyper(const float* u_el, const float* a_el, const float* v_el, const 
 template <bool TANGENT, bool VISC>
 int hyper_entry(const float* u_el, const float* a_el, const float* v_el, const float* dN,
                 const float* N, const float* wq, float* out, DenseBlock* cout, int full,
-                const HyperelasticParams& p, float mu_v, int material, int dim, int deg,
+                const HyperelasticParams& p, float mu_v, int material, int dim, int nd, int nq,
                 long long E, void* stream) {
-  return with_dense_shape(dim, deg, [&](auto D, auto G) {
-    constexpr int DIM = decltype(D)::value, P = decltype(G)::value;
+  return with_dense_shape(dim, nd, nq, [&](auto shape) {
+    using S = decltype(shape);
+    constexpr int DIM = S::DIM;
     auto go = [&](auto store) {
       using Store = decltype(store);
       if (material == 0)
-        return launch_hyper<NeoHookean, Store, DIM, P, TANGENT, VISC>(
+        return launch_hyper<NeoHookean, Store, S, TANGENT, VISC>(
             u_el, a_el, v_el, dN, N, wq, out, cout, p, mu_v, E, stream);
       if (material == 1)
-        return launch_hyper<StVK, Store, DIM, P, TANGENT, VISC>(u_el, a_el, v_el, dN, N, wq,
+        return launch_hyper<StVK, Store, S, TANGENT, VISC>(u_el, a_el, v_el, dN, N, wq,
                                                                 out, cout, p, mu_v, E, stream);
       return (int)cudaErrorInvalidValue;
     };
@@ -112,37 +116,37 @@ int hyper_entry(const float* u_el, const float* a_el, const float* v_el, const f
 template <bool TANGENT>
 int hyper_visc_entry(const float* u_el, const float* a_el, const float* v_el, const float* dN,
                      const float* N, const float* wq, float* out, DenseBlock* cout, int full,
-                     const HyperelasticParams& p, float mu_v, int material, int dim, int deg,
+                     const HyperelasticParams& p, float mu_v, int material, int dim, int nd, int nq,
                      long long E, void* stream) {
   if (E <= 0) return 0;
   if (v_el)
     return hyper_entry<TANGENT, true>(u_el, a_el, v_el, dN, N, wq, out, cout, full, p, mu_v,
-                                      material, dim, deg, E, stream);
+                                      material, dim, nd, nq, E, stream);
   return hyper_entry<TANGENT, false>(u_el, a_el, v_el, dN, N, wq, out, cout, full, p, mu_v,
-                                     material, dim, deg, E, stream);
+                                     material, dim, nd, nq, E, stream);
 }
 
 }  // namespace
 
 // C entry points, symmetric storage.  `material`: 0 the neo-Hookean, 1 the
-// St. Venant-Kirchhoff material; (dim, p) one of the instantiated pairs
-// (2, 2), (2, 3), (3, 2), (3, 3); v_el == nullptr (visc == 0 for the matvec)
+// St. Venant-Kirchhoff material; (dim, nd, nq) the shape of the build
+// (dim, dofs and points per element); v_el == nullptr (visc == 0 for the matvec)
 // selects the inviscid instantiation; the assemble's `full` the DIM^4
 // planes of dP/dF (FullStorage<DIM>, the matvec mimi_matvec_dense_full of
 // sweeps_dense_finite.cu) for the symmetric ones.  The block (and the
 // matvec's dN, N) in DenseBlock: float here, __nv_bfloat16 in the _bf16
 // entry points of sweeps_dense_bf16.cu.  Each returns the launch's
-// cudaGetLastError(), or cudaErrorInvalidValue for a material or (dim, p)
-// not instantiated.
+// cudaGetLastError(), or cudaErrorInvalidValue for a material not
+// instantiated or another shape.
 extern "C" {
 
 #ifndef MIMI_DENSE_BF16
 int mimi_residual_dense(const float* u_el, const float* a_el, const float* v_el,
                         const float* dN, const float* N, const float* wq, float* out,
-                        HyperelasticParams p, float mu_v, int material, int dim, int deg,
+                        HyperelasticParams p, float mu_v, int material, int dim, int nd, int nq,
                         long long E, void* stream) {
   return hyper_visc_entry<false>(u_el, a_el, v_el, dN, N, wq, out, nullptr, 0, p, mu_v,
-                                 material, dim, deg, E, stream);
+                                 material, dim, nd, nq, E, stream);
 }
 #endif
 
@@ -150,24 +154,25 @@ int MIMI_DENSE_ENTRY(mimi_assemble_dense)(const float* u_el, const float* a_el,
                                           const float* v_el, const float* dN, const float* N,
                                           const float* wq, float* out, DenseBlock* cout,
                                           int full, HyperelasticParams p, float mu_v,
-                                          int material, int dim, int deg, long long E,
+                                          int material, int dim, int nd, int nq, long long E,
                                           void* stream) {
   return hyper_visc_entry<true>(u_el, a_el, v_el, dN, N, wq, out, cout, full, p, mu_v,
-                                material, dim, deg, E, stream);
+                                material, dim, nd, nq, E, stream);
 }
 
 int MIMI_DENSE_ENTRY(mimi_matvec_dense)(const float* w_el, const DenseBlock* dN,
                                         const DenseBlock* N, const float* wq,
                                         const DenseBlock* cs, float* out, float rho,
-                                        float fac0, int visc, float fac1_mu_v, int dim, int deg,
+                                        float fac0, int visc, float fac1_mu_v, int dim, int nd, int nq,
                                         long long E, void* stream) {
   if (E <= 0) return 0;
-  return with_dense_shape(dim, deg, [&](auto D, auto G) {
-    constexpr int DIM = decltype(D)::value, P = decltype(G)::value;
+  return with_dense_shape(dim, nd, nq, [&](auto shape) {
+    using S = decltype(shape);
+    constexpr int DIM = S::DIM;
     if (visc)
-      return launch_dense_matvec<SymStorage<DIM>, DIM, P, true>(w_el, dN, N, wq, cs, out, rho,
+      return launch_dense_matvec<SymStorage<DIM>, S, true>(w_el, dN, N, wq, cs, out, rho,
                                                                 fac0, E, stream, fac1_mu_v);
-    return launch_dense_matvec<SymStorage<DIM>, DIM, P>(w_el, dN, N, wq, cs, out, rho, fac0,
+    return launch_dense_matvec<SymStorage<DIM>, S>(w_el, dN, N, wq, cs, out, rho, fac0,
                                                         E, stream);
   });
 }

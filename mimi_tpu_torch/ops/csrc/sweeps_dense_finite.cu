@@ -9,7 +9,7 @@
 // each inviscid or viscous (VISC: the residual and the assemble add
 // mu_v grad v to P, the matvec fac1 mu_v grad w, as sweeps_dense.cu says),
 // on the kernel templates of dense_common.cuh (design notes at the head of
-// sweeps_dense.cu), for (DIM, P) = (2, 2), (2, 3), (3, 2) and (3, 3): 2D
+// sweeps_dense.cu), at the shape of the build (any (DIM, ND, NQ)): 2D
 // patches (the golden cantilever at p = 3, the examples at p = 2) and
 // multi-patch or knot-repeated 3D meshes.  `material` 0 is J2Simo, 1 J2Log
 // (ops/sweeps.py FULL_KERNELS).  The plain torch versions are
@@ -58,14 +58,15 @@
 
 namespace {
 
-template <int DIM, int P, bool TANGENT, bool VISC>
+template <class S, bool TANGENT, bool VISC>
 int launch_finite(const float* u_el, const float* a_el, const float* v_el, const float* dN,
                   const float* N, const float* wq, const float* s0, const float* s1,
                   const float* s2, const float* s3, float* out, DenseBlock* cout,
                   const J2Params& p, float mu_v, int material, long long E, void* stream) {
+  constexpr int DIM = S::DIM;
   return with_finite_material<DIM>(material, p, s0, s1, s2, s3, [&](const auto& m) {
     using Mat = std::decay_t<decltype(m)>;
-    return launch_dense_residual<Mat, FullStorage<DIM>, DIM, P, TANGENT, VISC>(
+    return launch_dense_residual<Mat, FullStorage<DIM>, S, TANGENT, VISC>(
         u_el, a_el, dN, N, wq, out, cout, m, p.rho, E, stream, v_el, mu_v);
   });
 }
@@ -74,29 +75,28 @@ template <bool TANGENT>
 int finite_entry(const float* u_el, const float* a_el, const float* v_el, const float* dN,
                  const float* N, const float* wq, const float* s0, const float* s1,
                  const float* s2, const float* s3, float* out, DenseBlock* cout,
-                 const J2Params& p, float mu_v, int material, int dim, int deg, long long E,
+                 const J2Params& p, float mu_v, int material, int dim, int nd, int nq, long long E,
                  void* stream) {
   if (E <= 0) return 0;
-  return with_dense_shape(dim, deg, [&](auto D, auto G) {
-    constexpr int DIM = decltype(D)::value, P = decltype(G)::value;
+  return with_dense_shape(dim, nd, nq, [&](auto shape) {
+    using S = decltype(shape);
     if (v_el)
-      return launch_finite<DIM, P, TANGENT, true>(u_el, a_el, v_el, dN, N, wq, s0, s1, s2, s3,
+      return launch_finite<S, TANGENT, true>(u_el, a_el, v_el, dN, N, wq, s0, s1, s2, s3,
                                                   out, cout, p, mu_v, material, E, stream);
-    return launch_finite<DIM, P, TANGENT, false>(u_el, a_el, v_el, dN, N, wq, s0, s1, s2, s3,
+    return launch_finite<S, TANGENT, false>(u_el, a_el, v_el, dN, N, wq, s0, s1, s2, s3,
                                                  out, cout, p, mu_v, material, E, stream);
   });
 }
 
 }  // namespace
 
-// C entry points, full storage; (dim, p) one of the instantiated pairs
-// (2, 2), (2, 3), (3, 2), (3, 3).  The state leaves s0..s3 in the order
+// C entry points, full storage; (dim, nd, nq) the shape of the build.  The state leaves s0..s3 in the order
 // of ops/sweeps.py FULL_KERNELS (J2Simo be_old, F_old, eqps, temperature;
 // J2Log Fp_inv, eqps, temperature, s3 unused); v_el == nullptr (visc == 0
 // for the matvec) selects the inviscid instantiation; the block (and the
 // matvec's dN, N) in DenseBlock, __nv_bfloat16 in the _bf16 entry points.
 // Each returns the launch's cudaGetLastError(), or cudaErrorInvalidValue
-// for a (dim, p) not instantiated or an unknown material.
+// for another shape or an unknown material.
 extern "C" {
 
 #ifndef MIMI_DENSE_BF16
@@ -104,9 +104,9 @@ int mimi_residual_dense_finite(const float* u_el, const float* a_el, const float
                                const float* dN, const float* N, const float* wq,
                                const float* s0, const float* s1, const float* s2,
                                const float* s3, float* out, J2Params p, float mu_v,
-                               int material, int dim, int deg, long long E, void* stream) {
+                               int material, int dim, int nd, int nq, long long E, void* stream) {
   return finite_entry<false>(u_el, a_el, v_el, dN, N, wq, s0, s1, s2, s3, out, nullptr, p,
-                             mu_v, material, dim, deg, E, stream);
+                             mu_v, material, dim, nd, nq, E, stream);
 }
 #endif
 
@@ -116,24 +116,25 @@ int MIMI_DENSE_ENTRY(mimi_assemble_dense_finite)(const float* u_el, const float*
                                                  const float* s0, const float* s1,
                                                  const float* s2, const float* s3, float* out,
                                                  DenseBlock* cout, J2Params p, float mu_v,
-                                                 int material, int dim, int deg, long long E,
+                                                 int material, int dim, int nd, int nq, long long E,
                                                  void* stream) {
   return finite_entry<true>(u_el, a_el, v_el, dN, N, wq, s0, s1, s2, s3, out, cout, p, mu_v,
-                            material, dim, deg, E, stream);
+                            material, dim, nd, nq, E, stream);
 }
 
 int MIMI_DENSE_ENTRY(mimi_matvec_dense_full)(const float* w_el, const DenseBlock* dN,
                                              const DenseBlock* N, const float* wq,
                                              const DenseBlock* cf, float* out, float rho,
                                              float fac0, int visc, float fac1_mu_v, int dim,
-                                             int deg, long long E, void* stream) {
+                                             int nd, int nq, long long E, void* stream) {
   if (E <= 0) return 0;
-  return with_dense_shape(dim, deg, [&](auto D, auto G) {
-    constexpr int DIM = decltype(D)::value, P = decltype(G)::value;
+  return with_dense_shape(dim, nd, nq, [&](auto shape) {
+    using S = decltype(shape);
+    constexpr int DIM = S::DIM;
     if (visc)
-      return launch_dense_matvec<FullStorage<DIM>, DIM, P, true>(w_el, dN, N, wq, cf, out, rho,
+      return launch_dense_matvec<FullStorage<DIM>, S, true>(w_el, dN, N, wq, cf, out, rho,
                                                                  fac0, E, stream, fac1_mu_v);
-    return launch_dense_matvec<FullStorage<DIM>, DIM, P>(w_el, dN, N, wq, cf, out, rho, fac0,
+    return launch_dense_matvec<FullStorage<DIM>, S>(w_el, dN, N, wq, cf, out, rho, fac0,
                                                          E, stream);
   });
 }

@@ -9,7 +9,7 @@
 //   mimi_matvec_dense_cauchy <- make_matvec_sweep ("cauchy")           y = J w
 // each inviscid or viscous (VISC, as sweeps_dense.cu says),
 // on the kernel templates of dense_common.cuh (design notes at the head of
-// sweeps_dense.cu), for (DIM, P) = (2, 2), (2, 3), (3, 2) and (3, 3).  The
+// sweeps_dense.cu), at the shape of the build (any (DIM, ND, NQ)).  The
 // plain torch versions are residual_dense_plain, assemble_dense_plain and
 // matvec_dense_plain with the J2 or J2Linear material (ops/sweeps.py).
 //
@@ -98,27 +98,28 @@ struct DenseJ2 {
 };
 
 // the residual (TANGENT false) or assemble kernel of J2 (material 0) or
-// J2Linear (material 1) at (dim, deg), inviscid or viscous, with the Cauchy
+// J2Linear (material 1) at (dim, nd, nq), inviscid or viscous, with the Cauchy
 // block or (full) the DIM^4 planes of dP/dF
 template <bool TANGENT>
 int j2_entry(const float* u_el, const float* a_el, const float* v_el, const float* dN,
              const float* N, const float* wq, const float* ps, const float* eqps,
              const float* temp, const float* beta, float* out, DenseBlock* cout, int full,
-             const J2Params& p, float mu_v, int material, int dim, int deg, long long E,
+             const J2Params& p, float mu_v, int material, int dim, int nd, int nq, long long E,
              void* stream) {
   if (E <= 0) return 0;
   if (material != 0 && material != 1) return cudaErrorInvalidValue;
-  return with_dense_shape(dim, deg, [&](auto D, auto G) {
-    constexpr int DIM = decltype(D)::value, P = decltype(G)::value;
+  return with_dense_shape(dim, nd, nq, [&](auto shape) {
+    using S = decltype(shape);
+    constexpr int DIM = S::DIM;
     auto go = [&](auto linear, auto store) {
       constexpr bool LINEAR = decltype(linear)::value;
       using Mat = DenseJ2<DIM, LINEAR>;
       using Store = decltype(store);
       const Mat mat{p, ps, eqps, temp, beta};
       if (v_el)
-        return launch_dense_residual<Mat, Store, DIM, P, TANGENT, true>(
+        return launch_dense_residual<Mat, Store, S, TANGENT, true>(
             u_el, a_el, dN, N, wq, out, cout, mat, p.rho, E, stream, v_el, mu_v);
-      return launch_dense_residual<Mat, Store, DIM, P, TANGENT, false>(
+      return launch_dense_residual<Mat, Store, S, TANGENT, false>(
           u_el, a_el, dN, N, wq, out, cout, mat, p.rho, E, stream, v_el, mu_v);
     };
     auto by_store = [&](auto linear) {
@@ -136,23 +137,23 @@ int j2_entry(const float* u_el, const float* a_el, const float* v_el, const floa
 
 // C entry points, Cauchy-decomposition storage; J2 (material 0; the state
 // pointers ps, eqps, temp) or J2Linear (material 1; ps, eqps, beta); (dim,
-// p) one of the instantiated pairs (2, 2), (2, 3), (3, 2), (3, 3); v_el ==
+// nd, nq) the shape of the build; v_el ==
 // nullptr (visc == 0 for the matvec) selects the inviscid instantiation; the
 // assemble's `full` the DIM^4 planes of dP/dF (FullStorage<DIM>, the matvec
 // mimi_matvec_dense_full of sweeps_dense_finite.cu) for the Cauchy block; the
 // block (and the matvec's dN, N) in DenseBlock, __nv_bfloat16 in the _bf16
 // entry points.  Each returns the launch's cudaGetLastError(), or
-// cudaErrorInvalidValue for a material or a (dim, p) not instantiated.
+// cudaErrorInvalidValue for a material not instantiated or another shape.
 extern "C" {
 
 #ifndef MIMI_DENSE_BF16
 int mimi_residual_dense_j2(const float* u_el, const float* a_el, const float* v_el,
                            const float* dN, const float* N, const float* wq, const float* ps,
                            const float* eqps, const float* temp, const float* beta,
-                           float* out, J2Params p, float mu_v, int material, int dim, int deg,
+                           float* out, J2Params p, float mu_v, int material, int dim, int nd, int nq,
                            long long E, void* stream) {
   return j2_entry<false>(u_el, a_el, v_el, dN, N, wq, ps, eqps, temp, beta, out, nullptr, 0,
-                         p, mu_v, material, dim, deg, E, stream);
+                         p, mu_v, material, dim, nd, nq, E, stream);
 }
 #endif
 
@@ -162,23 +163,24 @@ int MIMI_DENSE_ENTRY(mimi_assemble_dense_j2)(const float* u_el, const float* a_e
                                              const float* eqps, const float* temp,
                                              const float* beta, float* out, DenseBlock* cout,
                                              int full, J2Params p, float mu_v, int material,
-                                             int dim, int deg, long long E, void* stream) {
+                                             int dim, int nd, int nq, long long E, void* stream) {
   return j2_entry<true>(u_el, a_el, v_el, dN, N, wq, ps, eqps, temp, beta, out, cout, full, p,
-                        mu_v, material, dim, deg, E, stream);
+                        mu_v, material, dim, nd, nq, E, stream);
 }
 
 int MIMI_DENSE_ENTRY(mimi_matvec_dense_cauchy)(const float* w_el, const DenseBlock* dN,
                                                const DenseBlock* N, const float* wq,
                                                const DenseBlock* cb, float* out, float rho,
                                                float fac0, int visc, float fac1_mu_v, int dim,
-                                               int deg, long long E, void* stream) {
+                                               int nd, int nq, long long E, void* stream) {
   if (E <= 0) return 0;
-  return with_dense_shape(dim, deg, [&](auto D, auto G) {
-    constexpr int DIM = decltype(D)::value, P = decltype(G)::value;
+  return with_dense_shape(dim, nd, nq, [&](auto shape) {
+    using S = decltype(shape);
+    constexpr int DIM = S::DIM;
     if (visc)
-      return launch_dense_matvec<CauchyStorage<DIM>, DIM, P, true>(
+      return launch_dense_matvec<CauchyStorage<DIM>, S, true>(
           w_el, dN, N, wq, cb, out, rho, fac0, E, stream, fac1_mu_v);
-    return launch_dense_matvec<CauchyStorage<DIM>, DIM, P>(w_el, dN, N, wq, cb, out, rho,
+    return launch_dense_matvec<CauchyStorage<DIM>, S>(w_el, dN, N, wq, cb, out, rho,
                                                            fac0, E, stream);
   });
 }

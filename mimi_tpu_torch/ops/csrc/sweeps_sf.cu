@@ -73,14 +73,21 @@
 // q = q0 + 4 q1 + 16 q2 and n = a0 + 3 a1 + 9 a2, basis products formed
 // per point and, by each owner, per node.
 //
-// p = 3 (sweeps_sf_p3.cu: this file at SfShape<4, 5>, the entry points
-// named *_p3): 64 dofs and 125 points per element, [192][32] per staged
+// Other shapes: ops/build.py compiles this file once per SfShape<P1, NG>
+// the step asks for (MIMI_SF_P1, MIMI_SF_NG), each into a library of its
+// own with the same entry points.  p = 3 (SfShape<4, 5>): 64 dofs and 125
+// points per element, [192][32] per staged
 // field, 16 nodes and 48 accumulators a thread, 32 rounds of 4 points (the
 // last holds one); the residual 3 blocks an SM inviscid (170 registers), 2
 // viscous (255), the matvec 3 (43.0 KB a block); every J2Mat and Hyper
 // instantiation 0 B spilled.  The one-thread-per-element matvec this
 // replaced held 384 values of w and sums a thread and spilled ~11 KB:
-// ~100x its bound.
+// ~100x its bound.  p = 4 (SfShape<5, 6>, path K): 125 dofs and 216
+// points, [375][32] per staged field, 8 point slots (256 threads a block)
+// so that a thread still owns 16 nodes and 48 sums, one block an SM (135.8
+// KB of shared memory, 182.6 KB viscous), 255 registers at most.  p = 1
+// (SfShape<2, 3>): 8 dofs and 27 points, 2 nodes and 6 sums a thread.  A
+// quadrature order other than the default 2p + 3 changes NG alone.
 //
 // What bounds them on the H100: the matvec streams the 37-plane tangent
 // block (9.5 KB per element) plus jinv (2.3 KB) once per GMRES iteration,
@@ -210,8 +217,8 @@ int j2_sf(const float* u_el, const float* a_el, const float* v_el, const Tables&
 
 }  // namespace
 
-// C entry points (named *_p3 in the p = 3 twin of this source:
-// MIMI_SF_ENTRY) of J2 (material 0; the state pointers ps, eqps, temp) and
+// C entry points (at the shape of the build) of J2 (material 0; the state
+// pointers ps, eqps, temp) and
 // J2Linear (material 1; ps, eqps, beta); each returns the launch's
 // cudaGetLastError(), or cudaErrorInvalidValue for another material.
 // v_el == nullptr selects the inviscid variant, c_bf16 the bfloat16
@@ -222,7 +229,7 @@ int j2_sf(const float* u_el, const float* a_el, const float* v_el, const Tables&
 // leaf and the point body.
 extern "C" {
 
-int MIMI_SF_ENTRY(mimi_residual_sf)(const float* u_el, const float* a_el, const float* v_el,
+int mimi_residual_sf(const float* u_el, const float* a_el, const float* v_el,
                      const float* b0, const float* d0, const float* b1,
                      const float* d1, const float* b2, const float* d2,
                      const float* jinv, const float* wq, const float* ps,
@@ -232,7 +239,7 @@ int MIMI_SF_ENTRY(mimi_residual_sf)(const float* u_el, const float* a_el, const 
                       temp, beta, out, nullptr, 0, 0, p, mu_v, material, E, stream);
 }
 
-int MIMI_SF_ENTRY(mimi_assemble_sf)(const float* u_el, const float* a_el, const float* v_el,
+int mimi_assemble_sf(const float* u_el, const float* a_el, const float* v_el,
                      const float* b0, const float* d0, const float* b1,
                      const float* d1, const float* b2, const float* d2,
                      const float* jinv, const float* wq, const float* ps,
@@ -243,7 +250,7 @@ int MIMI_SF_ENTRY(mimi_assemble_sf)(const float* u_el, const float* a_el, const 
                      temp, beta, out, cout, c_bf16, full, p, mu_v, material, E, stream);
 }
 
-int MIMI_SF_ENTRY(mimi_matvec_sf)(const float* w_el, const float* b0, const float* d0,
+int mimi_matvec_sf(const float* w_el, const float* b0, const float* d0,
                    const float* b1, const float* d1, const float* b2,
                    const float* d2, const float* jinv, const float* wq,
                    const void* cb, int c_bf16, float* out, float rho, float fac0,

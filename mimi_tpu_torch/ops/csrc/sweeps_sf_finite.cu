@@ -62,8 +62,8 @@ int launch_finite_material(const float* u_el, const float* a_el, const float* v_
 
 }  // namespace
 
-// C entry points (named *_p3 in the p = 3 twin of this source:
-// MIMI_SF_ENTRY); each returns the launch's cudaGetLastError(), or
+// C entry points (at the shape of the build: MIMI_SF_P1, MIMI_SF_NG); each
+// returns the launch's cudaGetLastError(), or
 // cudaErrorInvalidValue for an unknown material.  The state leaves s0..s3
 // in the order of ops/sweeps.py FULL_KERNELS: J2Simo be_old, F_old, eqps,
 // temperature; J2Log Fp_inv, eqps, temperature (s3 unused).  v_el ==
@@ -71,7 +71,7 @@ int launch_finite_material(const float* u_el, const float* a_el, const float* v_
 // c_bf16 the bfloat16 block.
 extern "C" {
 
-int MIMI_SF_ENTRY(mimi_residual_sf_finite)(const float* u_el, const float* a_el, const float* v_el,
+int mimi_residual_sf_finite(const float* u_el, const float* a_el, const float* v_el,
                             const float* b0, const float* d0, const float* b1,
                             const float* d1, const float* b2, const float* d2,
                             const float* jinv, const float* wq, const float* s0,
@@ -83,7 +83,7 @@ int MIMI_SF_ENTRY(mimi_residual_sf_finite)(const float* u_el, const float* a_el,
                                        nullptr, 0, p, mu_v, material, E, stream);
 }
 
-int MIMI_SF_ENTRY(mimi_assemble_sf_finite)(const float* u_el, const float* a_el, const float* v_el,
+int mimi_assemble_sf_finite(const float* u_el, const float* a_el, const float* v_el,
                             const float* b0, const float* d0, const float* b1,
                             const float* d1, const float* b2, const float* d2,
                             const float* jinv, const float* wq, const float* s0,
@@ -96,7 +96,7 @@ int MIMI_SF_ENTRY(mimi_assemble_sf_finite)(const float* u_el, const float* a_el,
                                       cout, c_bf16, p, mu_v, material, E, stream);
 }
 
-int MIMI_SF_ENTRY(mimi_matvec_sf_full)(const float* w_el, const float* b0, const float* d0,
+int mimi_matvec_sf_full(const float* w_el, const float* b0, const float* d0,
                         const float* b1, const float* d1, const float* b2,
                         const float* d2, const float* jinv, const float* wq,
                         const void* cf, int c_bf16, float* out, float rho, float fac0,

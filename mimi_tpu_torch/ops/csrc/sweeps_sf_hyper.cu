@@ -94,14 +94,14 @@ int hyper_entry(const float* u_el, const float* a_el, const float* v_el, const f
 
 }  // namespace
 
-// C entry points (named *_p3 in the p = 3 twin of this source:
-// MIMI_SF_ENTRY); each returns the launch's cudaGetLastError(), or
+// C entry points (at the shape of the build: MIMI_SF_P1, MIMI_SF_NG); each
+// returns the launch's cudaGetLastError(), or
 // cudaErrorInvalidValue for a material not instantiated.  `full` selects
 // the 81 planes of dP/dF (FullStorage<3>, the matvec mimi_matvec_sf_full of
 // sweeps_sf_finite.cu) for the 45 symmetric ones.
 extern "C" {
 
-int MIMI_SF_ENTRY(mimi_residual_sf_hyper)(const float* u_el, const float* a_el, const float* v_el,
+int mimi_residual_sf_hyper(const float* u_el, const float* a_el, const float* v_el,
                            const float* b0, const float* d0, const float* b1, const float* d1,
                            const float* b2, const float* d2, const float* jinv,
                            const float* wq, float* out, HyperelasticParams p, float mu_v,
@@ -110,7 +110,7 @@ int MIMI_SF_ENTRY(mimi_residual_sf_hyper)(const float* u_el, const float* a_el, 
                             0, 0, p, mu_v, material, E, stream);
 }
 
-int MIMI_SF_ENTRY(mimi_assemble_sf_hyper)(const float* u_el, const float* a_el, const float* v_el,
+int mimi_assemble_sf_hyper(const float* u_el, const float* a_el, const float* v_el,
                            const float* b0, const float* d0, const float* b1, const float* d1,
                            const float* b2, const float* d2, const float* jinv,
                            const float* wq, float* out, void* cout, int c_bf16, int full,
@@ -120,7 +120,7 @@ int MIMI_SF_ENTRY(mimi_assemble_sf_hyper)(const float* u_el, const float* a_el, 
                            c_bf16, full, p, mu_v, material, E, stream);
 }
 
-int MIMI_SF_ENTRY(mimi_matvec_sf_sym)(const float* w_el, const float* b0, const float* d0,
+int mimi_matvec_sf_sym(const float* w_el, const float* b0, const float* d0,
                        const float* b1, const float* d1, const float* b2, const float* d2, const float* jinv,
                        const float* wq, const void* cs, int c_bf16, float* out, float rho,
                        float fac0, int visc, float fac1_mu_v, long long E, void* stream) {

@@ -23,9 +23,11 @@ answer constraints of the TPU compiler and are not carried over.
 
 Each function has a plain torch version (`*_plain`), dtype-generic, and a
 wrapper that runs it for CPU tensors and launches the hand-written CUDA
-kernel (ops/csrc/fused_neohookean.cu, float32, p = 2 with 64 points per
-element) for CUDA tensors, counting those launches in `sweeps.LAUNCHES`
-("neohookean_residual", "neohookean_tangent_apply").
+kernel (ops/csrc/fused_neohookean.cu, float32, at the tables' (dim, nd,
+n_q): 2D or 3D, any degree and point count, of the dense library of that
+shape) for CUDA tensors, counting those launches in `sweeps.LAUNCHES`
+(`sweeps.fused_counters`: "neohookean_residual",
+"neohookean_tangent_apply" at (3, 27, 64), the shape's suffix at another).
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import torch
 
 from ..fem import soa
 from ..materials import neohookean_pk1_soa
-from .sweeps import _check, _launch, _ptr, dense_grad, dense_scatter
+from .sweeps import _check, _launch, _lib, _ptr, dense_grad, dense_scatter, fused_counters
 
 
 def neohookean_residual_plain(u_el, dN_t, wq, lam, mu):
@@ -63,48 +65,49 @@ def neohookean_tangent_apply_plain(u_el, w_el, dN_t, wq, lam, mu):
 
 
 def _check_operands(fields, dN_t, wq):
+    """(device, n_el, (dim, nd, n_q)) of consistent float32 CUDA operands;
+    ValueError otherwise."""
     device = dN_t.device
     if device.type != "cuda":
         raise ValueError(f"CUDA kernel called on a {device} tensor")
-    n_el = dN_t.shape[-1]
+    if dN_t.dim() != 4 or dN_t.shape[1] not in (2, 3):
+        raise ValueError(f"dN_t: (nd, dim, n_q, n_el) in 2D or 3D required, got "
+                         f"{tuple(dN_t.shape)}")
+    nd, dim, n_q, n_el = dN_t.shape
     for name, t in fields:
-        _check(name, t, (3, 27, n_el), device)
-    _check("dN_t", dN_t, (27, 3, 64, n_el), device)
-    _check("wq", wq, (64, n_el), device)
-    return device, n_el
+        _check(name, t, (dim, nd, n_el), device)
+    _check("dN_t", dN_t, (nd, dim, n_q, n_el), device)
+    _check("wq", wq, (n_q, n_el), device)
+    return device, n_el, (dim, nd, n_q)
 
 
 def neohookean_residual(u_el, dN_t, wq, lam, mu):
-    """The fused neo-Hookean element residual (3, 27, n_el): plain torch on
-    CPU tensors, the CUDA kernel `mimi_neohookean_residual` on CUDA
+    """The fused neo-Hookean element residual (dim, nd, n_el): plain torch
+    on CPU tensors, the CUDA kernel `mimi_neohookean_residual` on CUDA
     tensors."""
     if u_el.device.type == "cpu":
         return neohookean_residual_plain(u_el, dN_t, wq, lam, mu)
-    from .build import load
-
-    device, n_el = _check_operands([("u_el", u_el)], dN_t, wq)
-    out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
+    device, n_el, key = _check_operands([("u_el", u_el)], dN_t, wq)
+    out = torch.empty(u_el.shape, dtype=torch.float32, device=device)
     _launch(
-        load().mimi_neohookean_residual, "neohookean_residual",
+        _lib("dense", key).mimi_neohookean_residual, fused_counters(key)[0],
         _ptr(u_el), _ptr(dN_t), _ptr(wq), _ptr(out), ctypes.c_float(lam), ctypes.c_float(mu),
-        ctypes.c_longlong(n_el),
+        *map(ctypes.c_int, key), ctypes.c_longlong(n_el),
     )
     return out
 
 
 def neohookean_tangent_apply(u_el, w_el, dN_t, wq, lam, mu):
-    """The matrix-free neo-Hookean tangent apply (3, 27, n_el): plain torch
-    on CPU tensors, the CUDA kernel `mimi_neohookean_tangent_apply` on CUDA
-    tensors."""
+    """The matrix-free neo-Hookean tangent apply (dim, nd, n_el): plain
+    torch on CPU tensors, the CUDA kernel `mimi_neohookean_tangent_apply` on
+    CUDA tensors."""
     if u_el.device.type == "cpu":
         return neohookean_tangent_apply_plain(u_el, w_el, dN_t, wq, lam, mu)
-    from .build import load
-
-    device, n_el = _check_operands([("u_el", u_el), ("w_el", w_el)], dN_t, wq)
-    out = torch.empty((3, 27, n_el), dtype=torch.float32, device=device)
+    device, n_el, key = _check_operands([("u_el", u_el), ("w_el", w_el)], dN_t, wq)
+    out = torch.empty(u_el.shape, dtype=torch.float32, device=device)
     _launch(
-        load().mimi_neohookean_tangent_apply, "neohookean_tangent_apply",
+        _lib("dense", key).mimi_neohookean_tangent_apply, fused_counters(key)[1],
         _ptr(u_el), _ptr(w_el), _ptr(dN_t), _ptr(wq), _ptr(out), ctypes.c_float(lam),
-        ctypes.c_float(mu), ctypes.c_longlong(n_el),
+        ctypes.c_float(mu), *map(ctypes.c_int, key), ctypes.c_longlong(n_el),
     )
     return out

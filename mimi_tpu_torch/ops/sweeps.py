@@ -10,9 +10,8 @@ Counterpart of mimi_tpu/ops/sweeps.py (`make_residual_sweep`,
     materials, ops/csrc/sweeps_sf_hyper.cu) or c_storage="full" (the 81
     planes of dP/dF: J2Simo and J2Log, kernels in
     ops/csrc/sweeps_sf_finite.cu), each with and without the viscous flux,
-    the tangent block in float32 or bfloat16, compiled for the (p + 1, n_g)
-    pairs of SF_SHAPES (p = 2 and p = 3; the p = 3 entry points, of the
-    *_p3.cu sources, carry the suffix "_p3", `sf_suffix`);
+    the tangent block in float32 or bfloat16, at any (p + 1, n_g): the
+    element's degree and Gauss points per axis;
   - dense tables dN (nd, dim, n_q, n_el) and N (nd, n_q, n_el) in 2D or
     3D, c_storage="sym" (the hyperelastic materials: 45 planes in 3D, 10
     in 2D), "cauchy" (J2 and J2Linear with their state: 37 / 14 planes)
@@ -22,8 +21,11 @@ Counterpart of mimi_tpu/ops/sweeps.py (`make_residual_sweep`,
     `residual_dense`, `assemble_dense`, `matvec_dense`, kernels in
     ops/csrc/sweeps_dense.cu, sweeps_dense_j2.cu and
     sweeps_dense_finite.cu and their bfloat16 twins (*_bf16.cu, entry
-    points with the suffix "_bf16"), compiled for the (dim, p) pairs of
-    DENSE_SHAPES.
+    points with the suffix "_bf16"), at any (dim, nd, n_q): any degree,
+    quadrature order, and degrees that differ per axis.
+The kernels of a shape are compiled from the sources the first time that
+shape is launched, into a library of its own (ops/build.py `load`), as the
+reference traces one kernel per shape.
 The material decides the storage (`tangent_storage`): the residual reads
 it off the material; the assemble writes the material's own block or,
 asked with `storage="full"`, the full one of any material (J2's, J2Linear's
@@ -67,6 +69,7 @@ from torch.func import jvp, vmap
 
 from ..fem import soa
 from ..materials import KERNEL_SOLVE_TRIPS
+from . import build
 
 
 def _flags(visc=False, bf16=False):
@@ -87,10 +90,15 @@ def variant(name, visc=False, bf16=False):
 # "log" J2Log, and "j2-pow", "simo-voce" and the like for a J2-family
 # material with the PowerLaw or Voce law); the dense ones by material tag
 # ("j2" for J2, "j2lin", "simo", "log", the law suffixes as on sf; the
-# untagged names are the neo-Hookean instantiations); both kinds by
-# (dimension, degree) suffix ("@2d_p3", "@3d_p3"; none for 3D p = 2);
-# "visc" and "bf16" tag the viscous and the bfloat16-block instantiations
+# untagged names are the neo-Hookean instantiations); both kinds by the
+# element shape's suffix (_shape_suffix: "@2d_p3", "@3d_p4", "@3d_p2_g3",
+# "@2d_nd12_q20"; none for 3D p = 2); "visc" and "bf16" tag the viscous and
+# the bfloat16-block instantiations.  A shape's names are here from the
+# first load of its library (_lib, register_shape): read a count with
+# LAUNCHES.get(name, 0).
 LAUNCHES = {}
+# the (kind, shape key) pairs whose counters LAUNCHES names
+_NAMED = set()
 # The hyperelastic materials the CUDA kernels instantiate, by class name:
 # (material id of the C entry points, counter tag).  csrc/materials.cuh
 # holds each one's struct, the entry points switch on the id.
@@ -129,31 +137,43 @@ def n_planes(storage, dim=3):
     return d2 * (d2 + 1) // 2 if storage == "sym" else d2 * d2
 
 
-# the (dimension, degree) pairs the dense kernels are compiled for: 2D p = 2
-# (the examples), 2D p = 3 (the golden cantilever), 3D p = 2 and p = 3
-DENSE_SHAPES = ((2, 2), (2, 3), (3, 2), (3, 3))
-# the (p + 1, Gauss points per axis) pairs the sf kernels are compiled for:
-# p = 2 and p = 3 with the default p + 2 points per axis (fem/space.py)
-SF_SHAPES = ((3, 4), (4, 5))
+def _root(n, dim):
+    """The integer r >= 1 with r^dim = n, or None."""
+    r = round(n ** (1.0 / dim))
+    return next((c for c in (r - 1, r, r + 1) if c >= 1 and c**dim == n), None)
 
 
-def sf_suffix(p1, n_g):
-    """Suffix of the sf C entry points compiled for (p + 1, n_g): none at
-    p = 2, "_p3" at p = 3 (the *_p3.cu sources)."""
-    return "" if (p1, n_g) == (3, 4) else f"_p{p1 - 1}"
+def dense_key(dim, p):
+    """The dense tables' shape key (dim, nd, n_q) of degree p with its
+    default (p + 2)^dim points."""
+    return dim, (p + 1) ** dim, (p + 2) ** dim
 
 
 def _shape_suffix(dim, p):
-    """Counter-name suffix of an instantiation's (dim, p): none for 3D
-    p = 2, else "@2d_p3", "@3d_p3" and the like."""
-    return "" if (dim, p) == (3, 2) else f"@{dim}d_p{p}"
+    """Counter-name suffix of an instantiation's element shape.  `p` is the
+    degree (at its default (p + 2)^dim points) or the tables' shape key:
+    (p + 1, n_g) of sf tables, (dim, nd, n_q) of dense ones.  None for 3D
+    p = 2 at 64 points; "@2d_p3", "@3d_p4" at the default points;
+    "@3d_p2_g3" at another Gauss count per axis; "@2d_nd12_q20" for degrees
+    or Gauss counts that differ per axis."""
+    if isinstance(p, tuple):
+        dim, nd, nq = (3, p[0] ** 3, p[1] ** 3) if len(p) == 2 else p
+    else:
+        dim, nd, nq = dense_key(dim, p)
+    p1, g = _root(nd, dim), _root(nq, dim)
+    if p1 is None or g is None:
+        return f"@{dim}d_nd{nd}_q{nq}"
+    if g != p1 + 1:
+        return f"@{dim}d_p{p1 - 1}_g{g}"
+    return "" if (dim, p1) == (3, 3) else f"@{dim}d_p{p1 - 1}"
 
 
 def material_counters(kind, tag, storage="sym", dim=3, p=2, visc=False, bf16=False):
     """(residual, assemble) counter names of a material's instantiations on
     the "sf" or "dense" tables with the "sym", "full" or "cauchy" storage,
     viscous and with a bfloat16 block where asked (the residual writes no
-    block), with the suffix of (dim, p): "assemble_sf[nh,sym,visc,bf16]",
+    block), with the suffix of (dim, p) (p: the degree or the tables' shape
+    key, _shape_suffix): "assemble_sf[nh,sym,visc,bf16]",
     "residual_dense[j2,visc]@2d_p2" and the like.  The neo-Hookean's dense
     names and those of J2 with a Johnson-Cook family law on sf tables are
     untagged ("residual_dense[visc]", "assemble_dense[sym]"; `variant`) in
@@ -186,35 +206,42 @@ _CAUCHY_TAGS = [f"j2{law}" for law in _LAWS] + ["j2lin"]
 _FULL_TAGS = [f"{t}{law}" for _, t, _ in FULL_KERNELS.values() for law in _LAWS]
 _HYPER_TAGS = [t for _, t in HYPER_KERNELS.values()]
 _BOTH = (False, True)
-# every material's instantiations in its own storage and in the full one,
-# viscous or not, with a float32 or a bfloat16 block, sf and dense
-LAUNCHES.update({
-    name: 0
-    for tags, own in ((_HYPER_TAGS, "sym"), (_CAUCHY_TAGS, "cauchy"), (_FULL_TAGS, "full"))
-    for tag in tags
-    for storage in {own, "full"}
-    for visc in _BOTH
-    for bf16 in _BOTH
-    for name in (
-        *[n for p1, _ in SF_SHAPES
-          for n in material_counters("sf", tag, storage, 3, p1 - 1, visc, bf16)],
-        *[n for dim, p in DENSE_SHAPES
-          for n in material_counters("dense", tag, storage, dim, p, visc, bf16)],
-    )
-})
-LAUNCHES.update({
-    name: 0
-    for storage in STORAGES
-    for visc in _BOTH
-    for bf16 in _BOTH
-    for name in (*[matvec_counter("sf", storage, 3, p1 - 1, visc, bf16) for p1, _ in SF_SHAPES],
-                 *[matvec_counter("dense", storage, dim, p, visc, bf16)
-                   for dim, p in DENSE_SHAPES])
-})
-LAUNCHES.update({
-    # ops/fused_neohookean.py
-    "neohookean_residual": 0, "neohookean_tangent_apply": 0,
-})
+
+
+def fused_counters(key):
+    """Counter names of the fused neo-Hookean kernels at the dense shape
+    key (ops/fused_neohookean.py): "neohookean_residual" at (3, 27, 64),
+    "neohookean_residual@2d_p4" and the like at another shape."""
+    sfx = _shape_suffix(key[0], key)
+    return f"neohookean_residual{sfx}", f"neohookean_tangent_apply{sfx}"
+
+
+def shape_counters(kind, key):
+    """Every counter name of the `kind` kernels at the shape `key`: each
+    material's instantiations in its own storage and in the full one,
+    viscous or not, with a float32 or a bfloat16 block, the matvecs of every
+    storage, and on dense tables the fused neo-Hookean kernels."""
+    dim = 3 if kind == "sf" else key[0]
+    names = [
+        name
+        for tags, own in ((_HYPER_TAGS, "sym"), (_CAUCHY_TAGS, "cauchy"), (_FULL_TAGS, "full"))
+        for tag in tags
+        for storage in {own, "full"}
+        for visc in _BOTH
+        for bf16 in _BOTH
+        for name in material_counters(kind, tag, storage, dim, key, visc, bf16)
+    ]
+    names += [matvec_counter(kind, storage, dim, key, visc, bf16)
+              for storage in STORAGES for visc in _BOTH for bf16 in _BOTH]
+    return names + (list(fused_counters(key)) if kind == "dense" else [])
+
+
+def register_shape(kind, key):
+    """Name the shape's instantiations in LAUNCHES (at 0), where they are
+    not named yet."""
+    for name in shape_counters(kind, key):
+        LAUNCHES.setdefault(name, 0)
+
 
 
 def reset_launches():
@@ -236,7 +263,8 @@ def kernel_tag(mat):
 
 def kernel_counters(mat, kind, dim=3, p=2, visc=False, bf16=False, storage=None):
     """(residual, assemble) counter names of the material's kernels on the
-    "sf" or "dense" tables at (dim, p), viscous and with a bfloat16 block
+    "sf" or "dense" tables at (dim, p) (p: the degree or the tables' shape
+    key), viscous and with a bfloat16 block
     where asked, the block in `storage` (default: the material's;
     material_counters)."""
     return material_counters(kind, kernel_tag(mat), storage or tangent_storage(mat), dim, p,
@@ -864,11 +892,9 @@ def _check_device(device):
 
 def _check_common(el_fields, tabs, jinv, wq):
     """Validate the shared sum-factorized operands; returns (device, n_el,
-    p + 1, n_g).  Shapes that do not fit together raise ValueError;
-    consistent shapes of another degree or Gauss count than the kernels are
-    compiled for (SF_SHAPES: p = 2 with 4 Gauss points per axis, 27 dofs and
-    64 points per element; p = 3 with 5, 64 dofs and 125 points) raise
-    NotImplementedError, before the device is asked."""
+    p + 1, n_g), the shape of the kernels to launch (any degree and Gauss
+    count).  Shapes that do not fit together raise ValueError, before the
+    device is asked."""
     el_fields = [(n, t) for n, t in el_fields if t is not None]
     if len(tabs) != 6:
         raise ValueError(f"tabs: 6 one-dimensional tables required, got {len(tabs)}")
@@ -880,12 +906,6 @@ def _check_common(el_fields, tabs, jinv, wq):
         _check_shape(f"tabs[{k}]", t, (n_g, p1, n_el))
     _check_shape("jinv", jinv, (3, 3, n_q, n_el))
     _check_shape("wq", wq, (n_q, n_el))
-    if (p1, n_g) not in SF_SHAPES:
-        raise NotImplementedError(
-            f"sum-factorized tables of degree {p1 - 1} with {n_g} Gauss points per axis: "
-            "the CUDA sf sweeps are compiled for degree 2 with 4 and degree 3 with 5 "
-            "(ROADMAP Queue 2 item 8)"
-        )
     device = el_fields[0][1].device
     _check_device(device)
     for name, t in el_fields:
@@ -921,6 +941,17 @@ def _c_flag(c_dtype):
 
 def _ptr(t):
     return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _lib(kind, key):
+    """The kernel library of `kind` ("sf" or "dense") at the shape `key`,
+    built at its first request (ops/build.py load); its counters are named
+    once, at that first request."""
+    lib = build.load(kind, key)
+    if (kind, key) not in _NAMED:
+        register_shape(kind, key)
+        _NAMED.add((kind, key))
+    return lib
 
 
 def _launch(fn, name, *args):
@@ -999,9 +1030,8 @@ def _sf_sweep(assemble, u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el=No
     block in `storage` and c_dtype) kernel on sum-factorized tables, with the
     viscous flux where v_el is given: `mimi_residual_sf` / `mimi_assemble_sf`
     (J2 with any of the five hardening laws, J2Linear), `..._sf_hyper` (the
-    hyperelastic materials) or `..._sf_finite` (J2Simo, J2Log)."""
-    from .build import load
-
+    hyperelastic materials) or `..._sf_finite` (J2Simo, J2Log), of the
+    library at the tables' (p + 1, n_g)."""
     own, storage = _block_storage(mat, storage)
     bf16 = _c_flag(c_dtype)
     device, n_el, p1, n_g = _check_common(
@@ -1009,14 +1039,13 @@ def _sf_sweep(assemble, u_el, a_el, state, tabs, jinv, wq, mat, dt, rho, v_el=No
     )
     n_q = n_g**3
     stem, prm, mat_id, st = _material_args(mat, state, dt, rho, 3, n_q, n_el, device, "sf")
-    stem += sf_suffix(p1, n_g)
-    names = kernel_counters(mat, "sf", 3, p1 - 1, visc=v_el is not None, bf16=bool(bf16),
+    lib = _lib("sf", (p1, n_g))
+    names = kernel_counters(mat, "sf", 3, (p1, n_g), visc=v_el is not None, bf16=bool(bf16),
                             storage=storage)
     out = torch.empty((3, p1**3, n_el), dtype=torch.float32, device=device)
     head = (_ptr(u_el), _ptr(a_el), _ptr(v_el), *[_ptr(t) for t in tabs], _ptr(jinv),
             _ptr(wq), *st, _ptr(out))
     tail = (prm, ctypes.c_float(mu_v), ctypes.c_int(mat_id), ctypes.c_longlong(n_el))
-    lib = load()
     if not assemble:
         _launch(getattr(lib, f"mimi_residual{stem}"), names[0], *head, *tail)
         return out
@@ -1082,8 +1111,6 @@ def matvec_sf(w_el, tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v=None, storage="cauc
 def _sf_matvec(w_el, tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v=None, storage="cauchy"):
     """The sf matvec kernel of `storage` (_MATVEC_FNS) on a float32 or
     bfloat16 block, with the viscous term when fac1_mu_v is given."""
-    from .build import load
-
     _tangent_apply(storage, Cb)
     visc = fac1_mu_v is not None
     device, n_el, p1, n_g = _check_common([("w_el", w_el)], tabs, jinv, wq)
@@ -1091,8 +1118,8 @@ def _sf_matvec(w_el, tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v=None, storage="cau
     bf16 = _c_flag(Cb.dtype)
     _check("C", Cb, (n_planes(storage), n_g**3, n_el), device, Cb.dtype)
     _launch(
-        getattr(load(), _MATVEC_FNS["sf"][storage] + sf_suffix(p1, n_g)),
-        matvec_counter("sf", storage, 3, p1 - 1, visc, bool(bf16)),
+        getattr(_lib("sf", (p1, n_g)), _MATVEC_FNS["sf"][storage]),
+        matvec_counter("sf", storage, 3, (p1, n_g), visc, bool(bf16)),
         _ptr(w_el), *[_ptr(t) for t in tabs], _ptr(jinv), _ptr(wq), _ptr(Cb),
         ctypes.c_int(bf16), _ptr(out), ctypes.c_float(rho), ctypes.c_float(fac0),
         ctypes.c_int(int(visc)), ctypes.c_float(fac1_mu_v if visc else 0.0),
@@ -1104,27 +1131,20 @@ def _sf_matvec(w_el, tabs, jinv, wq, Cb, rho, fac0, fac1_mu_v=None, storage="cau
 def _check_dense(el_fields, dN_t, N_t, wq, table_dtype=torch.float32):
     """Validate the dense operands, the tables dN_t and N_t in
     `table_dtype` (float32, or bfloat16 for the bfloat16 matvec); returns
-    (device, n_el, dim, p).  Shapes that do not fit together raise
-    ValueError; consistent tables of a (dimension, degree) the kernels are
-    not compiled for (DENSE_SHAPES, each with its (p + 2)^dim Gauss points)
-    raise NotImplementedError, before the device is asked."""
+    (device, n_el, (dim, nd, n_q)), the shape key of the kernels to launch:
+    any dofs and points per element in 2D or 3D (any degree, quadrature
+    order, degrees that differ per axis).  Shapes that do not fit together
+    raise ValueError, before the device is asked."""
     if dN_t.dim() != 4:
         raise ValueError(f"dN_t: (nd, dim, n_q, n_el) required, got {tuple(dN_t.shape)}")
     nd, dim, n_q, n_el = dN_t.shape
-    p1 = round(nd ** (1.0 / dim)) if dim in (2, 3) else 0
-    if p1**dim != nd:
-        raise ValueError(f"dN_t: {nd} dofs per element is no (p + 1)^{dim}")
+    if dim not in (2, 3) or nd < 1 or n_q < 1:
+        raise ValueError(f"dN_t: (nd, dim, n_q, n_el) with dim 2 or 3 and nd, n_q >= 1 "
+                         f"required, got {tuple(dN_t.shape)}")
     for name, t in el_fields:
         _check_shape(name, t, (dim, nd, n_el))
     _check_shape("N_t", N_t, (nd, n_q, n_el))
     _check_shape("wq", wq, (n_q, n_el))
-    p = p1 - 1
-    if (dim, p) not in DENSE_SHAPES or n_q != (p + 2) ** dim:
-        raise NotImplementedError(
-            f"dense tables of degree {p} in {dim}D with {n_q} points per element: the "
-            f"CUDA dense sweeps are compiled for (dim, p) in {DENSE_SHAPES} with "
-            "(p + 2)^dim points (ROADMAP Queue 2 item 8)"
-        )
     device = dN_t.device
     _check_device(device)
     for name, t in el_fields:
@@ -1132,7 +1152,7 @@ def _check_dense(el_fields, dN_t, N_t, wq, table_dtype=torch.float32):
     _check("dN_t", dN_t, (nd, dim, n_q, n_el), device, table_dtype)
     _check("N_t", N_t, (nd, n_q, n_el), device, table_dtype)
     _check("wq", wq, (n_q, n_el), device)
-    return device, n_el, dim, p
+    return device, n_el, (dim, nd, n_q)
 
 
 def _dense_sweep(assemble, u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el=None,
@@ -1146,21 +1166,20 @@ def _dense_sweep(assemble, u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el=
     (`mimi_residual_dense_j2` / `mimi_assemble_dense_j2`: the Cauchy or the
     full block), J2Simo and J2Log with their state
     (`mimi_residual_dense_finite` / `mimi_assemble_dense_finite`: full); a
-    bfloat16 block from the assembles' `_bf16` twins."""
-    from .build import load
-
+    bfloat16 block from the assembles' `_bf16` twins; the library of the
+    tables' (dim, nd, n_q)."""
     own, storage = _block_storage(mat, storage)
     bf16 = _c_flag(c_dtype)
     fields = [("u_el", u_el), ("a_el", a_el)] + ([("v_el", v_el)] if v_el is not None else [])
-    device, n_el, dim, p = _check_dense(fields, dN_t, N_t, wq)
-    n_q = wq.shape[0]
+    device, n_el, key = _check_dense(fields, dN_t, N_t, wq)
+    dim, _, n_q = key
     stem, prm, mat_id, st = _material_args(mat, state, dt, rho, dim, n_q, n_el, device, "dense")
     head = (_ptr(u_el), _ptr(a_el), _ptr(v_el), _ptr(dN_t), _ptr(N_t), _ptr(wq), *st)
-    tail = (prm, ctypes.c_float(mu_v), ctypes.c_int(mat_id), ctypes.c_int(dim), ctypes.c_int(p),
+    tail = (prm, ctypes.c_float(mu_v), ctypes.c_int(mat_id), *map(ctypes.c_int, key),
             ctypes.c_longlong(n_el))
-    names = kernel_counters(mat, "dense", dim, p, v_el is not None, bool(bf16), storage)
+    names = kernel_counters(mat, "dense", dim, key, v_el is not None, bool(bf16), storage)
     out = torch.empty((dim, u_el.shape[1], n_el), dtype=torch.float32, device=device)
-    lib = load()
+    lib = _lib("dense", key)
     if not assemble:
         _launch(getattr(lib, f"mimi_residual{stem}"), names[0], *head, _ptr(out), *tail)
         return out
@@ -1176,8 +1195,7 @@ def residual_dense(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el=None, mu
     kernel `mimi_residual_dense` (the hyperelastic materials),
     `mimi_residual_dense_j2` (J2 with any of the five hardening laws,
     J2Linear) or `mimi_residual_dense_finite` (J2Simo, J2Log), each with the
-    viscous flux when v_el is given, for the (dim, p) pairs of
-    DENSE_SHAPES."""
+    viscous flux when v_el is given, at the tables' (dim, nd, n_q)."""
     if u_el.device.type == "cpu":
         return residual_dense_plain(u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el, mu_v)
     return _dense_sweep(False, u_el, a_el, state, dN_t, N_t, wq, mat, dt, rho, v_el, mu_v)
@@ -1210,8 +1228,6 @@ def _dense_matvec(w_el, dN_t, N_t, wq, Cb, rho, fac0, storage, fac1_mu_v=None):
     ("full"), each with the viscous term when fac1_mu_v is given; a
     bfloat16 block through their `_bf16` twins, which read dN_t and N_t as
     bfloat16 copies too (the reference's dN_mv / N_mv)."""
-    from .build import load
-
     bf16 = _c_flag(Cb.dtype)
     if dN_t.dtype != Cb.dtype or N_t.dtype != Cb.dtype:
         raise ValueError(
@@ -1219,16 +1235,17 @@ def _dense_matvec(w_el, dN_t, N_t, wq, Cb, rho, fac0, storage, fac1_mu_v=None):
             f"bfloat16 block comes with bfloat16 copies of dN and N), got dN_t "
             f"{dN_t.dtype}, N_t {N_t.dtype}"
         )
-    device, n_el, dim, p = _check_dense([("w_el", w_el)], dN_t, N_t, wq, Cb.dtype)
+    device, n_el, key = _check_dense([("w_el", w_el)], dN_t, N_t, wq, Cb.dtype)
+    dim = key[0]
     _check("C", Cb, (n_planes(storage, dim), wq.shape[0], n_el), device, Cb.dtype)
     out = torch.empty((dim, w_el.shape[1], n_el), dtype=torch.float32, device=device)
     visc = fac1_mu_v is not None
     _launch(
-        getattr(load(), _MATVEC_FNS["dense"][storage] + ("_bf16" if bf16 else "")),
-        matvec_counter("dense", storage, dim, p, visc, bool(bf16)),
+        getattr(_lib("dense", key), _MATVEC_FNS["dense"][storage] + ("_bf16" if bf16 else "")),
+        matvec_counter("dense", storage, dim, key, visc, bool(bf16)),
         _ptr(w_el), _ptr(dN_t), _ptr(N_t), _ptr(wq), _ptr(Cb), _ptr(out),
         ctypes.c_float(rho), ctypes.c_float(fac0), ctypes.c_int(int(visc)),
-        ctypes.c_float(fac1_mu_v if visc else 0.0), ctypes.c_int(dim), ctypes.c_int(p),
+        ctypes.c_float(fac1_mu_v if visc else 0.0), *map(ctypes.c_int, key),
         ctypes.c_longlong(n_el),
     )
     return out

@@ -6,12 +6,12 @@ GPU, on the same inputs in one process.
     mkdir -p <dir>; git archive <rev> mimi_tpu_torch/ops/csrc | tar -x -C <dir>
     python3 scripts/ab_dense_sweeps.py --base <dir> [--only REGEX]
 
-The base's sources (<dir>/mimi_tpu_torch/ops/csrc, the ones of
-ops/build.py SOURCES that it has) are built with this checkout's flags
-(ops/build.py flags_of: -fmad=false where NO_FMAD says) into <dir>/_build;
-its float32 dense entry points are bound with this checkout's signatures.
-Every float32 dense instantiation runs at each (dim, p) of
-sweeps.DENSE_SHAPES: the 2D golden cantilever's mesh (balken.mesh) at p = 2
+The base's dense sources (<dir>/mimi_tpu_torch/ops/csrc) are built at
+the dense shapes of chip_smoke.EARLIER_KEYS with this checkout's flags and shape
+defines (ops/build.py build_tree: -fmad=false where NO_FMAD says) into
+<dir>/_build and bound with this checkout's signatures, so its C entry
+points and shape macros must match.  Every float32 dense instantiation
+runs at each of those shapes: the 2D golden cantilever's mesh (balken.mesh) at p = 2
 and p = 3, 2^--subdivide elements per axis; the two-patch cube at p = 2,
 2 x --spans^3, and at p = 3, 2 x 8^3.  Each material's residual, its own
 block's assemble and matvec, and the full block's assemble and matvec of
@@ -27,7 +27,6 @@ regular expression.
 """
 
 import argparse
-import ctypes
 import os
 import re
 import subprocess
@@ -35,35 +34,12 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# the float32 dense entry points held A/B
-ENTRIES = ("residual_dense", "assemble_dense", "matvec_dense", "residual_dense_j2",
-           "assemble_dense_j2", "matvec_dense_cauchy", "residual_dense_finite",
-           "assemble_dense_finite", "matvec_dense_full")
 
 
-def build_base(kb, new_lib, base):
-    """The base's sources compiled into one library, its float32 dense
-    entry points bound with the signatures of this checkout's."""
-    csrc = os.path.join(base, "mimi_tpu_torch", "ops", "csrc")
-    out = os.path.join(base, "_build")
-    os.makedirs(out, exist_ok=True)
-    srcs = [os.path.join(csrc, os.path.basename(s)) for s in kb.SOURCES]
-    srcs = [s for s in srcs if os.path.exists(s)]
-    objs = [os.path.join(out, os.path.basename(s) + ".o") for s in srcs]
-    procs = [subprocess.Popen([kb.nvcc(), *kb.flags_of(s), "-c", "-o", o, s],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for s, o in zip(srcs, objs)]
-    for s, p in zip(srcs, procs):
-        log = p.communicate()[0]
-        if p.returncode:
-            sys.exit(f"nvcc failed on {s}:\n{log[-3000:]}")
-    so = os.path.join(out, "libbase.so")
-    subprocess.run([kb.nvcc(), "-shared", "-o", so, *objs], check=True)
-    lib = ctypes.CDLL(so)
-    for name in ENTRIES:
-        fn, ref = getattr(lib, f"mimi_{name}"), getattr(new_lib, f"mimi_{name}")
-        fn.argtypes, fn.restype = ref.argtypes, ref.restype
-    return lib
+def use(kb, libs):
+    """Make the wrappers launch the kernels of `libs` ({key: library})."""
+    kb._LIBS.clear()
+    kb._LIBS.update(libs)
 
 
 def main():
@@ -88,8 +64,11 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
     t0 = time.perf_counter()
-    libs = {"new": kb.load()}
-    libs["base"] = build_base(kb, libs["new"], os.path.abspath(args.base))
+    keys = [k for k in cs.EARLIER_KEYS if k[0] == "dense"]
+    libs = {"new": kb.prebuild(keys)}
+    base = os.path.abspath(args.base)
+    libs["base"], _ = kb.build_tree(os.path.join(base, "mimi_tpu_torch", "ops", "csrc"),
+                                    os.path.join(base, "_build"), keys)
     print(f"builds {time.perf_counter() - t0:.1f} s", flush=True)
     dev, gen, dt = torch.device("cuda"), torch.Generator().manual_seed(0), 0.05
     counts = {"rows": 0, "equal": 0}
@@ -100,7 +79,7 @@ def main():
                 continue
             outs = {}
             for tag in ("base", "new"):
-                kb._LIB = libs[tag]
+                use(kb, libs[tag])
                 o = fn()
                 outs[tag] = [x.float() for x in (o if isinstance(o, tuple) else (o,))]
             torch.cuda.synchronize()
@@ -114,13 +93,13 @@ def main():
             del outs, pairs
             ts = []
             for tag in ("base", "new", "new", "base"):
-                kb._LIB = libs[tag]
+                use(kb, libs[tag])
                 ts.append(cs.cuda_ms(torch, fn, reps))
             print(f"[{label}] {name}: base {ts[0]:.4f} / {ts[3]:.4f} ms, new {ts[1]:.4f} / "
                   f"{ts[2]:.4f} ms, base / new {(ts[0] + ts[3]) / (ts[1] + ts[2]):.2f}; outputs "
                   f"differ by {diff:.3e} ({rel:.2e} of their max), equal to the bit: {same}",
                   flush=True)
-        kb._LIB = libs["new"]
+        use(kb, libs["new"])
         torch.cuda.empty_cache()
 
     shapes = {

@@ -6,9 +6,10 @@ GPU, on the same inputs in one process.
     mkdir -p <dir>; git archive <rev> mimi_tpu_torch/ops/csrc | tar -x -C <dir>
     python3 scripts/ab_sf_sweeps.py --base <dir> [--only REGEX]
 
-The base's sources (<dir>/mimi_tpu_torch/ops/csrc) are built with the
-flags of ops/build.py into <dir>/_build and bound with its signatures, so
-their C entry points must match this checkout's.  Inputs at 48^3 elements
+The base's sources (<dir>/mimi_tpu_torch/ops/csrc) are built at the sf
+shapes (3, 4) and (4, 5) with the flags and shape defines of ops/build.py
+into <dir>/_build (build_tree) and bound with its signatures, so their C
+entry points and shape macros must match this checkout's.  Inputs at 48^3 elements
 (cube-nurbs.mesh, p = 2): J2 Johnson-Cook near F = I (elastic), J2 on
 random plastic input (chip_smoke.py phase 9's recipe; the viscous residual
 and the viscous assemble with a bfloat16 block, the contact press's
@@ -28,7 +29,6 @@ first and ptxas's registers and spills of this checkout's sf kernels
 """
 
 import argparse
-import ctypes
 import os
 import re
 import subprocess
@@ -38,23 +38,13 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def build_base(kb, base):
-    """The base's sources compiled into one library, bound."""
-    csrc = os.path.join(base, "mimi_tpu_torch", "ops", "csrc")
-    out = os.path.join(base, "_build")
-    os.makedirs(out, exist_ok=True)
-    srcs = [os.path.join(csrc, os.path.basename(s)) for s in kb.SOURCES]
-    objs = [os.path.join(out, os.path.basename(s) + ".o") for s in srcs]
-    procs = [subprocess.Popen([kb.nvcc(), *kb.FLAGS, "-c", "-o", o, s], stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for s, o in zip(srcs, objs)]
-    logs = []
-    for s, p in zip(srcs, procs):
-        logs.append(p.communicate()[0])
-        if p.returncode:
-            sys.exit(f"nvcc failed on {s}:\n{logs[-1][-3000:]}")
-    so = os.path.join(out, "libbase.so")
-    subprocess.run([kb.nvcc(), "-shared", "-o", so, *objs], check=True)
-    return kb.bind(ctypes.CDLL(so)), "".join(logs)
+KEYS = [("sf", (3, 4)), ("sf", (4, 5))]
+
+
+def use(kb, libs):
+    """Make the wrappers launch the kernels of `libs` ({key: library})."""
+    kb._LIBS.clear()
+    kb._LIBS.update(libs)
 
 
 def main():
@@ -78,11 +68,13 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
     t0 = time.perf_counter()
-    libs = {"new": kb.load()}
-    libs["base"], base_log = build_base(kb, os.path.abspath(args.base))
+    libs = {"new": kb.prebuild(KEYS)}
+    base = os.path.abspath(args.base)
+    libs["base"], base_log = kb.build_tree(os.path.join(base, "mimi_tpu_torch", "ops", "csrc"),
+                                           os.path.join(base, "_build"), KEYS)
     print(f"builds {time.perf_counter() - t0:.1f} s", flush=True)
     cs.fail = lambda msg: print(f"[2. ptxas] {msg}", flush=True)
-    cs.check_sf_ptxas(kb)
+    cs.check_ptxas(kb, KEYS)
     for name, v in sorted(cs.ptxas_entries(base_log, kb.nvcc()).items()):
         if "sf_tile_kernel" in name and "SfMatvecPoint" in name:
             print(f"[base ptxas] {name.split('>(')[0]}>: {v.get('registers')} "
@@ -95,7 +87,7 @@ def main():
                 continue
             outs = {}
             for tag in ("base", "new"):
-                kb._LIB = libs[tag]
+                use(kb, libs[tag])
                 o = fn()
                 outs[tag] = [x.float() for x in (o if isinstance(o, tuple) else (o,))]
             torch.cuda.synchronize()
@@ -107,13 +99,13 @@ def main():
             del outs, pairs
             ts = []
             for tag in ("base", "new", "new", "base"):
-                kb._LIB = libs[tag]
+                use(kb, libs[tag])
                 ts.append(cs.cuda_ms(torch, fn, reps))
             print(f"[{label}] {name}: base {ts[0]:.4f} / {ts[3]:.4f} ms, new {ts[1]:.4f} / "
                   f"{ts[2]:.4f} ms, base / new {(ts[0] + ts[3]) / (ts[1] + ts[2]):.2f}; outputs "
                   f"differ by {diff:.3e} ({rel:.2e} of their max), equal to the bit: {same}",
                   flush=True)
-        kb._LIB = libs["new"]
+        use(kb, libs["new"])
         torch.cuda.empty_cache()
 
     def matvecs(label, prob, combos, reps):

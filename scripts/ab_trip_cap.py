@@ -50,7 +50,7 @@ def main():
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
-    kb.load()
+    kb.prebuild(cs.EARLIER_KEYS)
     dev, gen = torch.device("cuda"), torch.Generator().manual_seed(0)
     capped = sweeps._j2_params
 

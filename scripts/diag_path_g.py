@@ -93,7 +93,7 @@ def main():
     warnings.showwarning = lambda msg, *_: print(f"torch warns: {msg}", flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    kbuild.load()
+    kbuild.prebuild(cs.EARLIER_KEYS)
     device = torch.device("cuda")
     step_kw = dict(cs.PRESS_STEP_KW)
     dt = step_kw["dt"]

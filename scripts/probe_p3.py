@@ -42,7 +42,7 @@ def main():
     from mimi_tpu_torch.ops import sweeps
 
     t0 = time.perf_counter()
-    kbuild.load()
+    kbuild.prebuild(cs.EARLIER_KEYS)
     print(f"kernel build {time.perf_counter() - t0:.1f} s", flush=True)
     device, gen, dt = torch.device("cuda"), torch.Generator().manual_seed(0), cs.STEP_KW["dt"]
     kw = {k: v for k, v in cs.STEP_KW.items() if k != "dt"}

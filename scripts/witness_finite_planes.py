@@ -25,7 +25,6 @@ J2Log.  Prints the card's name and power limit first.
 """
 
 import argparse
-import ctypes
 import os
 import subprocess
 import sys
@@ -34,22 +33,11 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def build_lib(kb, tag, extra):
-    """Every kernel source built with ops/build.py's FLAGS + `extra` into
-    ops/_build/<tag>/, linked, bound."""
-    out = os.path.join(kb.BUILD_DIR, tag)
-    os.makedirs(out, exist_ok=True)
-    objs = [os.path.join(out, os.path.basename(s) + ".o") for s in kb.SOURCES]
-    procs = [subprocess.Popen([kb.nvcc(), *kb.FLAGS, *extra, "-c", "-o", o, s],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for s, o in zip(kb.SOURCES, objs)]
-    for s, p in zip(kb.SOURCES, procs):
-        log = p.communicate()[0]
-        if p.returncode:
-            sys.exit(f"nvcc failed on {s}:\n{log[-3000:]}")
-    so = os.path.join(out, f"lib{tag}.so")
-    subprocess.run([kb.nvcc(), "-shared", "-o", so, *objs], check=True)
-    return kb.bind(ctypes.CDLL(so))
+def build_lib(kb, tag, extra, keys):
+    """The kernel sources built at `keys` with ops/build.py's FLAGS +
+    `extra` into ops/_build/<tag>/ (build_tree): {key: library}."""
+    return kb.build_tree(kb.CSRC, os.path.join(kb.BUILD_DIR, tag), keys,
+                         lambda src: kb.FLAGS + extra)[0]
 
 
 def main():
@@ -71,7 +59,9 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
     t0 = time.perf_counter()
-    libs = {"fma": build_lib(kb, "fma", []), "nofma": build_lib(kb, "nofma", ["-fmad=false"])}
+    keys = [("dense", (2, 16, 25)), ("dense", (2, 9, 16)), ("sf", (3, 4))]
+    libs = {"fma": build_lib(kb, "fma", [], keys),
+            "nofma": build_lib(kb, "nofma", ["-fmad=false"], keys)}
     print(f"builds {time.perf_counter() - t0:.1f} s", flush=True)
     dev = torch.device("cuda")
     mesh = {
@@ -109,7 +99,8 @@ def main():
                   f"float64 {cs.group_err(torch, C_p, C64, groups):.3e} of the group max",
                   flush=True)
             for tag, lib in libs.items():
-                kb._LIB = lib
+                kb._LIBS.clear()
+                kb._LIBS.update(lib)
                 _, C_k = kern(*a, **vk)
                 torch.cuda.synchronize()
                 ms = cs.cuda_ms(torch, lambda: kern(*a, **vk), 10)

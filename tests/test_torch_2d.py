@@ -53,6 +53,7 @@ from mimi_tpu_torch.utils.convert import (
     problem_from_numpy,
 )
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one thread)
+from torch_shapes import DENSE_SHAPES
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 BALKEN = os.path.join(DATA, "balken.mesh")
@@ -519,13 +520,14 @@ def test_2d_problem_conversion():
 
 
 def test_2d_launch_counters():
-    for dim, p in tsw.DENSE_SHAPES:
+    for dim, p in DENSE_SHAPES:
         sfx = "" if (dim, p) == (3, 2) else f"@{dim}d_p{p}"
+        named = tsw.shape_counters("dense", tsw.dense_key(dim, p))
         for name in (f"residual_dense[j2]{sfx}", f"assemble_dense[j2,cauchy]{sfx}",
                      f"matvec_dense[cauchy]{sfx}", f"residual_dense{sfx}",
                      f"assemble_dense[sym]{sfx}", f"matvec_dense[sym]{sfx}",
                      f"residual_dense[stvk]{sfx}", f"assemble_dense[stvk,sym]{sfx}"):
-            assert name in tsw.LAUNCHES
+            assert name in named
     assert tsw.material_counters("dense", "j2", "cauchy", 2, 3) == (
         "residual_dense[j2]@2d_p3", "assemble_dense[j2,cauchy]@2d_p3")
     assert tsw.matvec_counter("dense", "sym", 2, 2) == "matvec_dense[sym]@2d_p2"
@@ -541,19 +543,19 @@ def _meta(*shape):
     ids=["2d_p4", "3d_p3", "2d_p3_4pts", "3d_p4"],
 )
 def test_uninstantiated_dense_shape_raises(dim, p, n_q):
-    """Consistent dense tables of a (dim, p) or point count the kernels
-    are not compiled for raise NotImplementedError naming Queue 2 item 8
-    at the wrapper, before any launch (meta tensors: no device is asked):
-    3D p = 3 is compiled with its default 5^3 points only, 3D p = 4 not at
-    all."""
+    """Consistent dense tables of a (dim, p) or point count outside the
+    default shapes no longer raise NotImplementedError: the kernels of a
+    shape are built at its first launch (ops/build.py), so the wrappers
+    take them up to the device check, which raises ValueError on the meta
+    tensors (no device is asked)."""
     nd, E = (p + 1) ** dim, 8
     dN, N, wq = _meta(nd, dim, n_q, E), _meta(nd, n_q, E), _meta(n_q, E)
     w = _meta(dim, nd, E)
     mat = _material(mt, "CompressibleOgdenNeoHookean")
     mat.setup(dim)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 8"):
+    with pytest.raises(ValueError, match="CUDA sweep called on a meta tensor"):
         tsw.residual_dense(w, w, None, dN, N, wq, mat, 0.5, RHO)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 8"):
+    with pytest.raises(ValueError, match="CUDA sweep called on a meta tensor"):
         tsw.matvec_dense(w, dN, N, wq, _meta(tsw.n_planes("sym", dim), n_q, E), RHO, FAC0)
 
 
@@ -572,17 +574,18 @@ def test_inconsistent_dense_shape_is_a_value_error():
 
 @pytest.mark.parametrize("n_g, p1", [(3, 3), (6, 4), (6, 5)], ids=["p2_3pts", "p3", "p4"])
 def test_uninstantiated_sf_shape_raises(n_g, p1):
-    """The sf sweeps' _check_common: consistent tables of another degree or
-    Gauss count (p = 2 and p = 3 are compiled with p + 2 points per axis
-    only, p = 4 not at all) raise NotImplementedError (Queue 2 item 8);
-    inconsistent ones ValueError."""
+    """The sf sweeps' _check_common: consistent tables of any degree or
+    Gauss count (here p = 2 at 3 points per axis, p = 3 at 6, p = 4) pass
+    up to the device check (ValueError on the meta tensors: the kernels of
+    a shape are built at its first launch); inconsistent ones raise
+    ValueError before it."""
     E = 8
     tabs = [_meta(n_g, p1, E) for _ in range(6)]
     jinv, wq = _meta(3, 3, n_g**3, E), _meta(n_g**3, E)
     w = _meta(3, p1**3, E)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 8"):
+    with pytest.raises(ValueError, match="CUDA sweep called on a meta tensor"):
         tsw._check_common([("w_el", w)], tabs, jinv, wq)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="required"):
         tsw._check_common([("w_el", _meta(3, p1**3 + 1, E))], tabs, jinv, wq)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="required"):
         tsw._check_common([("w_el", w)], tabs, _meta(3, 3, n_g**3 + 1, E), wq)

@@ -9,8 +9,12 @@ the stub's mimi_host_launch, which runs the blocks one at a time, each
 with one host thread per thread of the block: __shared__ storage is shared
 by the block's threads and __syncthreads() is a barrier of them, so the
 sf residual kernel, whose threads reduce through shared memory, runs as
-on the card.  Each source must compile; the objects are linked into one
-library with the C entry points of ops/build.py, and the dense
+on the card.  Each source must compile at each shape of HOST_SHAPES (the
+defines of ops/build.py: the default shapes and shapes outside them, sf
+p = 1, p = 4 and p = 2 at 3 Gauss points per axis, dense 2D p = 4, 3D
+p = 1 and p = 4, 2D degrees [3, 2]), so that a template that breaks at a
+new shape fails here first; the objects of one kind and shape are linked
+into one library with the C entry points of ops/build.py, and the dense
 finite-strain kernels (sweeps_dense_finite.cu) run on CPU tensors at 4
 elements (2D, p = 3), the viscous dense kernels (sym and cauchy, 2D and
 3D), the viscous hyperelastic sf kernels with a float32 or bfloat16 block
@@ -25,6 +29,7 @@ family's as the kernels' twin, the radial return at 40 trips:
 materials.kernel_solver_mode).  Skips where no g++ is found.
 """
 
+import concurrent.futures
 import ctypes
 import os
 import re
@@ -41,6 +46,7 @@ from mimi_tpu_torch.materials import kernel_solver_mode
 from mimi_tpu_torch.ops import build as kbuild
 from mimi_tpu_torch.ops import sweeps as tsw
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one thread)
+from torch_shapes import DENSE_SHAPES, SF_SHAPES
 
 CSRC = os.path.join(os.path.dirname(kbuild.__file__), "csrc")
 STUB = os.path.join(CSRC, "host_stub")
@@ -49,6 +55,17 @@ BALKEN = os.path.join(DATA, "balken.mesh")
 MESH = os.path.join(DATA, "cube-nurbs.mesh")
 SOURCES = [os.path.basename(s) for s in kbuild.SOURCES]
 CXX = ["-std=c++20", "-O1", "-fPIC", "-pthread", "-ffp-contract=off", "-w"]
+# the shapes every source of a kind is built at: the earlier paths' shapes and
+# sf (2, 3) (p = 1), (5, 6) (p = 4), (3, 3) (p = 2 at quadrature order 5),
+# dense (2, 25, 36) (2D p = 4), (3, 8, 27) (3D p = 1), (3, 125, 216) (3D
+# p = 4), (2, 12, 20) (2D degrees [3, 2])
+HOST_SHAPES = {
+    "sf": SF_SHAPES + ((2, 3), (5, 6), (3, 3)),
+    "dense": tuple(tsw.dense_key(d, p) for d, p in DENSE_SHAPES)
+    + ((2, 25, 36), (3, 8, 27), (3, 125, 216), (2, 12, 20)),
+}
+HOST_UNITS = [(kind, shape, name) for kind, shapes in HOST_SHAPES.items() for shape in shapes
+              for name in kbuild.KIND_SOURCES[kind]]
 
 
 def _statement_start(text, i):
@@ -99,27 +116,34 @@ def serial_launches(text):
     return text
 
 
-def host_build(dest):
+def _unit_obj(dest, kind, shape, name):
+    return os.path.join(dest, f"{name}.{kind}_{'_'.join(map(str, shape))}.o")
+
+
+def host_build(dest, units=HOST_UNITS, jobs=8):
     """Copy the sources and headers into `dest` with host launches, and
-    compile every source with g++ in parallel.  Returns ({source: (return
-    code, compiler output)}, [object paths])."""
+    compile each (kind, shape, source) of `units` with g++, `jobs` at a
+    time, the shape set by ops/build.py's defines.  Returns {(kind, shape,
+    source): (return code, compiler output)}; the objects are at
+    _unit_obj."""
     for name in os.listdir(CSRC):
         if name.endswith((".cu", ".cuh")):
             with open(os.path.join(CSRC, name)) as f:
                 text = serial_launches(f.read())
             with open(os.path.join(dest, name), "w") as f:
                 f.write(text)
-    objs = [os.path.join(dest, f"{name}.o") for name in SOURCES]
-    procs = [
-        subprocess.Popen(
-            ["g++", *CXX, "-x", "c++", "-I", STUB, "-I", dest, "-c", "-o", obj,
-             os.path.join(dest, name)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+
+    def compile_unit(unit):
+        kind, shape, name = unit
+        r = subprocess.run(
+            ["g++", *CXX, *kbuild.defines(kind, shape), "-x", "c++", "-I", STUB, "-I", dest,
+             "-c", "-o", _unit_obj(dest, *unit), os.path.join(dest, name)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=900,
         )
-        for name, obj in zip(SOURCES, objs)
-    ]
-    out = {name: (p.wait(timeout=600), p.stdout.read()) for name, p in zip(SOURCES, procs)}
-    return out, objs
+        return r.returncode, r.stdout
+
+    with concurrent.futures.ThreadPoolExecutor(jobs) as pool:
+        return dict(zip(units, pool.map(compile_unit, units)))
 
 
 @pytest.fixture(scope="module")
@@ -127,19 +151,31 @@ def built(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("no g++ on this host to build the CUDA sources as C++")
     dest = str(tmp_path_factory.mktemp("csrc_host"))
-    results, objs = host_build(dest)
-    return dest, results, objs
+    return dest, host_build(dest)
 
 
 @pytest.fixture(scope="module")
-def lib(built):
-    dest, results, objs = built
-    failed = [name for name, (rc, _) in results.items() if rc]
-    assert not failed, f"sources that do not compile: {failed}"
-    so = os.path.join(dest, "libmimi_sweeps_host.so")
-    r = subprocess.run(["g++", "-shared", "-o", so, *objs], capture_output=True, text=True)
-    assert r.returncode == 0, r.stderr
-    return kbuild.bind(ctypes.CDLL(so))
+def libs(built):
+    """libs(kind, shape): the host library of one kind and shape (its
+    sources' objects linked), bound with ops/build.py's signatures."""
+    dest, results = built
+    loaded = {}
+
+    def get(kind, shape):
+        key = kbuild.key_of(kind, shape)
+        if key not in loaded:
+            units = [(key[0], key[1], name) for name in kbuild.KIND_SOURCES[key[0]]]
+            failed = [u for u in units if results[u][0]]
+            assert not failed, f"sources that do not compile: {failed}"
+            so = os.path.join(dest, f"libmimi_{key[0]}_{'_'.join(map(str, key[1]))}_host.so")
+            r = subprocess.run(["g++", "-shared", "-o", so,
+                                *[_unit_obj(dest, *u) for u in units]],
+                               capture_output=True, text=True)
+            assert r.returncode == 0, r.stderr
+            loaded[key] = kbuild.bind(ctypes.CDLL(so), key[0])
+        return loaded[key]
+
+    return get
 
 
 def test_serial_launch_rewrite():
@@ -194,11 +230,12 @@ def test_host_launch_runs_a_block_cooperatively(tmp_path):
     assert sums == [float(sum(range(64 * b + 1, 64 * b + 65))) for b in range(3)]
 
 
-@pytest.mark.parametrize("source", SOURCES)
-def test_source_compiles_as_host_cpp(built, source):
-    _, results, _ = built
-    rc, log = results[source]
-    assert rc == 0, f"g++ could not build {source}:\n{log[-4000:]}"
+@pytest.mark.parametrize("kind, shape, source", HOST_UNITS,
+                         ids=[f"{n}@{'_'.join(map(str, s))}" for _, s, n in HOST_UNITS])
+def test_source_compiles_as_host_cpp(built, kind, shape, source):
+    _, results = built
+    rc, log = results[(kind, shape, source)]
+    assert rc == 0, f"g++ could not build {source} at {kind} {shape}:\n{log[-4000:]}"
 
 
 def test_only_the_dense_finite_source_builds_without_fused_multiply_add():
@@ -234,7 +271,7 @@ def _ptr(t):
 
 
 @pytest.mark.parametrize("name", list(tsw.FULL_KERNELS))
-def test_dense_finite_kernels_on_cpu_tensors(lib, name):
+def test_dense_finite_kernels_on_cpu_tensors(libs, name):
     """The three dense finite-strain kernels of the host build on the
     golden cantilever's 2D p = 3 tables at 4 elements (float32), on a
     plastic history, against the plain versions at 1e-5 of scale; the
@@ -256,7 +293,9 @@ def test_dense_finite_kernels_on_cpu_tensors(lib, name):
     st = [_ptr(state[k]) for k in leaves] + [_ptr(None)] * (4 - len(leaves))
     prm = tsw._j2_params(mat, dt, rho, family=tuple(tsw.FULL_KERNELS))
     head = (_ptr(u_el), _ptr(a_el), _ptr(None), _ptr(dN), _ptr(N), _ptr(wq), *st)
-    shape = (ctypes.c_int(2), ctypes.c_int(3), ctypes.c_longlong(E), ctypes.c_void_p(None))
+    shape = (ctypes.c_int(2), ctypes.c_int(nd), ctypes.c_int(nq), ctypes.c_longlong(E),
+             ctypes.c_void_p(None))
+    lib = libs("dense", (2, nd, nq))
     out, out_a = torch.empty(2, nd, E), torch.empty(2, nd, E)
     C = torch.empty(16, nq, E)
     tail = (prm, ctypes.c_float(0.0), mat_id)
@@ -288,7 +327,7 @@ def _hyper(name, viscosity=100.0):
     "case",
     ["nh_2d_p2", "stvk_2d_p3", "nh_3d_p2", "j2_2d_p2", "j2_3d_p2"],
 )
-def test_dense_viscous_kernels_on_cpu_tensors(lib, case):
+def test_dense_viscous_kernels_on_cpu_tensors(libs, case):
     """The viscous dense residual, assemble and matvec of the host build
     (sym and cauchy storages, 2D and 3D) on CPU tensors at a few elements,
     float32, against the plain versions with v_el and fac1 mu_v at 1e-5 of
@@ -319,7 +358,9 @@ def test_dense_viscous_kernels_on_cpu_tensors(lib, case):
         state = {k: v.clone() for k, v in prob.state0.items()}
         state["eqps"] = f32(0.01 * rng.random((nq, E)))
     dt, rho, fac0, mu_v, fac1_mu_v = 0.01, float(mat.density), 1e-6, 100.0, 50.0
-    shape = (ctypes.c_int(dim), ctypes.c_int(deg), ctypes.c_longlong(E), ctypes.c_void_p(None))
+    shape = (ctypes.c_int(dim), ctypes.c_int(nd), ctypes.c_int(nq), ctypes.c_longlong(E),
+             ctypes.c_void_p(None))
+    lib = libs("dense", (dim, nd, nq))
     storage = tsw.tangent_storage(mat)
     head = (_ptr(u_el), _ptr(a_el), _ptr(v_el), _ptr(dN), _ptr(N), _ptr(wq))
     if tag == "j2":
@@ -355,7 +396,7 @@ def test_dense_viscous_kernels_on_cpu_tensors(lib, case):
 
 @pytest.mark.parametrize("name", ["CompressibleOgdenNeoHookean", "StVenantKirchhoff"])
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
-def test_sf_hyper_viscous_kernels_on_cpu_tensors(lib, name, bf16):
+def test_sf_hyper_viscous_kernels_on_cpu_tensors(libs, name, bf16):
     """The viscous hyperelastic sf residual and assemble (the 45 planes in
     float32 or bfloat16) and the viscous sym matvec of the host build on
     the 2^3 cube's tables, float32, against the plain versions: residuals
@@ -367,6 +408,7 @@ def test_sf_hyper_viscous_kernels_on_cpu_tensors(lib, name, bf16):
     prob = mt.build_problem(MESH, 1, 1, mat, [(1, 0), (1, 1), (1, 2)], {}, rho_inf=0.5,
                             device="cpu", dtype=torch.float32)
     tabs, jinv, wq, E = prob.sf["tables"], prob.sf["jinv"], prob.wdet_t, prob.n_el
+    lib = libs("sf", (3, 4))
     rng = np.random.default_rng(5)
     f32 = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
     u_el, a_el, v_el, w_el = (f32(s * rng.standard_normal((3, 27, E)))
@@ -425,15 +467,16 @@ def test_j2_params_mirror_matches_the_c_struct(built):
 
 
 @pytest.fixture
-def host_sweeps(lib, monkeypatch):
+def host_sweeps(libs, monkeypatch):
     """ops/sweeps.py's kernel wrappers on CPU tensors through the host
-    build: the library, no device check, launches on no stream."""
+    build: the library of the tables' kind and shape, no device check,
+    launches on no stream."""
     def launch(fn, name, *args):
         tsw.LAUNCHES[name] += 1
         err = fn(*args, ctypes.c_void_p(None))
         assert err == 0, f"{name} returned {err}"
 
-    monkeypatch.setattr(kbuild, "load", lambda: lib)
+    monkeypatch.setattr(kbuild, "load", libs)
     monkeypatch.setattr(tsw, "_check_device", lambda device: None)
     monkeypatch.setattr(tsw, "_launch", launch)
     tsw.reset_launches()
@@ -545,7 +588,9 @@ def _hold_host_sweeps(sw, prob, f, visc, bf16, matvec=True, storage=None):
         assert float((C.float() - C_p.float()).abs().max()) <= 2.0**-7 * scale
     else:
         assert float((C - C_p).abs().max()) <= 1e-5 * scale
-    p = prob.sf["pp1"] - 1 if kind == "sf" else round(tables[0].shape[0] ** (1.0 / prob.dim)) - 1
+    dN = tables[0]
+    p = ((prob.sf["pp1"], prob.sf["n_g"]) if kind == "sf"
+         else (dN.shape[1], dN.shape[0], dN.shape[2]))  # the tables' shape key
     names = sw.kernel_counters(mat, kind, prob.dim, p, visc, bf16, storage)
     assert sw.LAUNCHES[names[0]] == 1 and sw.LAUNCHES[names[1]] == 1
     if not matvec:
@@ -564,7 +609,7 @@ def _hold_host_sweeps(sw, prob, f, visc, bf16, matvec=True, storage=None):
 
 
 J2LIN_CASES = ([("sf", 3, 2, visc, bf16) for visc in (False, True) for bf16 in (False, True)]
-               + [("dense", d, p, visc, False) for d, p in tsw.DENSE_SHAPES
+               + [("dense", d, p, visc, False) for d, p in DENSE_SHAPES
                   for visc in (False, True)])
 
 
@@ -645,7 +690,7 @@ def _press_law(name, viscosity=100.0):
 
 FINITE_CASES = ([("sf", 3, 2, name, visc, bf16) for name in tsw.FULL_KERNELS
                  for visc, bf16 in ((True, False), (True, True), (False, True))]
-                + [("dense", d, p, name, True, False) for d, p in tsw.DENSE_SHAPES
+                + [("dense", d, p, name, True, False) for d, p in DENSE_SHAPES
                    for name in tsw.FULL_KERNELS])
 
 
@@ -674,7 +719,7 @@ def _hyper_inputs(prob, rng):
 OTHERS = ("J2", "J2Linear", "CompressibleOgdenNeoHookean", "StVenantKirchhoff")
 FULL_OTHER_CASES = ([("sf", 3, 2, name, visc, bf16) for name in OTHERS
                      for visc in (False, True) for bf16 in (False, True)]
-                    + [("dense", d, p, name, visc, False) for d, p in tsw.DENSE_SHAPES
+                    + [("dense", d, p, name, visc, False) for d, p in DENSE_SHAPES
                        for name in OTHERS for visc in (False, True)])
 
 
@@ -840,3 +885,108 @@ def test_dense_bf16_kernels_on_cpu_tensors(host_sweeps, source, name, dim, deg, 
         prob = _host_problem("dense", dim, deg, _hyper(name))
         f = _hyper_inputs(prob, np.random.default_rng(12))
     _hold_host_sweeps(host_sweeps, prob, f, visc, True)
+
+
+def _new_shape_problem(key, mat):
+    """A few elements of the tables of a shape outside the defaults, float32
+    on the CPU: sf (2, 3) p = 1 at 4^3, (5, 6) p = 4 at 2^3, (3, 3) p = 2
+    at quadrature order 5 at 3^3; dense (2, 25, 36) 2D p = 4 at 2^2,
+    (3, 8, 27) 3D p = 1 at 2 x 2^3, (3, 125, 216) 3D p = 4 at 2 x 1^3,
+    (2, 12, 20) 2D degrees [3, 2] at 2^2."""
+    from mimi_tpu_torch.nurbs.mesh_io import read_mfem_nurbs_mesh, single_patch_mesh
+    from mimi_tpu_torch.nurbs.topology import build_patch_from_mesh
+
+    cube3, two = os.path.join(DATA, "cube-nurbs-3.mesh"), os.path.join(DATA, "two-patch-cube.mesh")
+    clamp3, clamp2 = [(1, 0), (1, 1), (1, 2)], [(2, 0), (2, 1)]
+    if key == (2, 12, 20):
+        template = read_mfem_nurbs_mesh(BALKEN)
+        patch = build_patch_from_mesh(template)[0]
+        patch.elevate_axis(0, 2)
+        patch.elevate_axis(1, 1)
+        mixed = single_patch_mesh(template, patch.degrees, patch.knot_vectors,
+                                  patch.control_points, patch.weights)
+    mesh, elevate, subdivide, spans, order, clamp = {
+        (2, 3): (MESH, 0, 0, 4, -1, clamp3), (5, 6): (cube3, 1, 0, 2, -1, clamp3),
+        (3, 3): (MESH, 1, 0, 3, 5, clamp3), (2, 25, 36): (BALKEN, 3, 1, None, -1, clamp2),
+        (3, 8, 27): (two, 0, 0, 2, -1, [(0, 0), (0, 1), (0, 2)]),
+        (3, 125, 216): (two, 3, 0, 1, -1, [(0, 0), (0, 1), (0, 2)]),
+        (2, 12, 20): (None, 0, 1, None, -1, clamp2),
+    }[key]
+    prob = mt.build_problem(mixed if mesh is None else mesh, elevate, subdivide, mat, clamp, {},
+                            rho_inf=0.5, device="cpu", dtype=torch.float32, refine_spans=spans,
+                            quadrature_order=order)
+    got = ((prob.sf["pp1"], prob.sf["n_g"]) if len(key) == 2
+           else (prob.dim, prob.dense["dN_t"].shape[0], prob.n_q))
+    assert got == key
+    return prob
+
+
+NEW_SHAPE_CASES = [(key, name, visc, bf16)
+                   for key in ((2, 3), (5, 6), (3, 3), (2, 25, 36), (3, 8, 27), (3, 125, 216),
+                               (2, 12, 20))
+                   for name, visc, bf16 in (("J2", False, False),
+                                            ("CompressibleOgdenNeoHookean", True, True),
+                                            ("J2Simo", False, False))]
+
+
+@pytest.mark.parametrize(
+    "key, name, visc, bf16", NEW_SHAPE_CASES,
+    ids=[f"{'_'.join(map(str, k))}_{n}{'_visc' if v else ''}{'_bf16' if b else ''}"
+         for k, n, v, b in NEW_SHAPE_CASES])
+def test_new_shape_kernels_on_cpu_tensors(host_sweeps, key, name, visc, bf16):
+    """The kernels of the host build at shapes outside the defaults (each
+    built from the sources at that shape, HOST_SHAPES), through the
+    wrappers' own marshalling, against the plain versions: J2 on a random
+    plastic history (the return at 40 trips), the viscous neo-Hookean with a
+    bfloat16 block (on dense tables the bfloat16 assemble and the matvec on
+    bfloat16 copies of dN and N), J2Simo's full block; the counters carry
+    the shape (`_shape_suffix`)."""
+    if name == "J2":
+        mat = _material("J2")
+        mat.hardening.A = 5.0
+    elif name == "J2Simo":
+        mat = _press_law("J2Simo", viscosity=-1.0)
+    else:
+        mat = _hyper(name)
+    prob = _new_shape_problem(key, mat)
+    rng = np.random.default_rng(14)
+    if mat.has_state:
+        f = _plastic_inputs(prob, rng, 0.002 if len(key) == 2 else 0.004)
+    else:
+        f = _hyper_inputs(prob, rng)
+    _hold_host_sweeps(host_sweeps, prob, f, visc, bf16)
+    kind = "sf" if len(key) == 2 else "dense"
+    assert host_sweeps.kernel_counters(prob.material, kind, prob.dim, key)[0].endswith(
+        host_sweeps._shape_suffix(prob.dim, key))
+
+
+def test_fused_kernels_at_a_new_shape_on_cpu_tensors(libs):
+    """The fused neo-Hookean residual and matrix-free tangent apply of the
+    host build at (3, 125, 216) (3D p = 4: dense_tile_kernel with 8 point
+    slots) on 2 elements against their plain versions at 1e-5 / 1e-4 of
+    scale, and their wrong-shape call refused."""
+    from mimi_tpu_torch.ops import fused_neohookean as fused
+
+    mat = _hyper("CompressibleOgdenNeoHookean", -1.0)
+    prob = _new_shape_problem((3, 125, 216), mat)
+    dN, wq, E = prob.dense["dN_t"], prob.wdet_t, prob.n_el
+    rng = np.random.default_rng(15)
+    u_el, w_el = (torch.tensor(s * rng.standard_normal((3, 125, E)), dtype=torch.float32)
+                  for s in (0.02, 1.0))
+    lib = libs("dense", (3, 125, 216))
+    lam, mu = ctypes.c_float(mat.lambda_), ctypes.c_float(mat.mu)
+    shape = (ctypes.c_int(3), ctypes.c_int(125), ctypes.c_int(216), ctypes.c_longlong(E),
+             ctypes.c_void_p(None))
+    r, y = torch.empty(3, 125, E), torch.empty(3, 125, E)
+    assert lib.mimi_neohookean_residual(_ptr(u_el), _ptr(dN), _ptr(wq), _ptr(r), lam, mu,
+                                        *shape) == 0
+    assert lib.mimi_neohookean_tangent_apply(_ptr(u_el), _ptr(w_el), _ptr(dN), _ptr(wq), _ptr(y),
+                                             lam, mu, *shape) == 0
+    r_p = fused.neohookean_residual_plain(u_el, dN, wq, mat.lambda_, mat.mu)
+    y_p = fused.neohookean_tangent_apply_plain(u_el, w_el, dN, wq, mat.lambda_, mat.mu)
+    assert float((r - r_p).abs().max()) <= 1e-5 * float(r_p.abs().max())
+    assert float((y - y_p).abs().max()) <= 1e-4 * float(y_p.abs().max())
+    wrong = (ctypes.c_int(3), ctypes.c_int(27), ctypes.c_int(64), ctypes.c_longlong(E),
+             ctypes.c_void_p(None))
+    assert lib.mimi_neohookean_residual(_ptr(u_el), _ptr(dN), _ptr(wq), _ptr(r), lam, mu,
+                                        *wrong) != 0

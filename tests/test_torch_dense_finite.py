@@ -40,6 +40,7 @@ from mimi_tpu_torch.utils.convert import (
     problem_from_numpy,
 )
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one thread)
+from torch_shapes import DENSE_SHAPES
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 BALKEN = os.path.join(DATA, "balken.mesh")
@@ -301,12 +302,13 @@ def test_3d_two_patch_j2simo_step_matches_reference_soa():
 
 def test_full_plane_count_and_counters():
     assert (tsw.n_planes("full", 2), tsw.n_planes("full", 3)) == (16, 81)
-    for dim, p in tsw.DENSE_SHAPES:
+    for dim, p in DENSE_SHAPES:
         sfx = "" if (dim, p) == (3, 2) else f"@{dim}d_p{p}"
+        named = tsw.shape_counters("dense", tsw.dense_key(dim, p))
         for tag in ("simo", "log"):
-            assert f"residual_dense[{tag}]{sfx}" in tsw.LAUNCHES
-            assert f"assemble_dense[{tag},full]{sfx}" in tsw.LAUNCHES
-        assert f"matvec_dense[full]{sfx}" in tsw.LAUNCHES
+            assert f"residual_dense[{tag}]{sfx}" in named
+            assert f"assemble_dense[{tag},full]{sfx}" in named
+        assert f"matvec_dense[full]{sfx}" in named
     assert tsw.material_counters("dense", "simo", "full", 2, 3) == (
         "residual_dense[simo]@2d_p3", "assemble_dense[simo,full]@2d_p3")
     assert tsw.material_counters("dense", "log", "full", 2, 2)[1] == "assemble_dense[log,full]@2d_p2"
@@ -374,18 +376,17 @@ def _meta_args(name, dim=2, p=3, n_q=25):
 
 @pytest.mark.parametrize("what", ["viscous", "bf16", "shape"])
 def test_dense_full_unported_raise(what):
-    """What stays unported of dense + full raises NotImplementedError with
-    its ROADMAP item at the wrapper, before any launch: tables of a degree
-    the kernels are not compiled for (item 8).  The viscous sweeps and the
-    bfloat16 block are ported: the wrappers take them up to the device
-    check; a viscous J2Simo step on the golden cantilever's dense tables
+    """Nothing of dense + full stays unported: tables of any degree (here
+    3D p = 4 with 216 points), the viscous sweeps and the bfloat16 block
+    reach the wrappers' device check (ValueError on the meta tensors; the
+    kernels of a shape are built at its first launch); a viscous J2Simo step on the golden cantilever's dense tables
     runs on the CPU, its first Newton residual changed by the viscous
     flux, and so does the bfloat16 block's Newton system."""
     if what == "shape":
         w, st, dN, N, wq, mat = _meta_args("J2Log", dim=3, p=4, n_q=216)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 8"):
+        with pytest.raises(ValueError, match="CUDA sweep called on a meta tensor"):
             tsw.residual_dense(w, w, st, dN, N, wq, mat, DT, RHO)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 8"):
+        with pytest.raises(ValueError, match="CUDA sweep called on a meta tensor"):
             tsw.matvec_dense(w, dN, N, wq, _meta(81, 216, 8), RHO, FAC0, storage="full")
         return
     w, st, dN, N, wq, mat = _meta_args("J2Simo")

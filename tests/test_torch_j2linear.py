@@ -41,6 +41,7 @@ from mimi_tpu_torch.utils.convert import (
     problem_from_numpy,
 )
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one thread)
+from torch_shapes import DENSE_SHAPES
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 MESH = os.path.join(DATA, "cube-nurbs.mesh")
@@ -292,10 +293,10 @@ def test_counters_name_j2linear_instantiations():
     for visc in (False, True):
         for bf16 in (False, True):
             for name in tsw.kernel_counters(mat, "sf", visc=visc, bf16=bf16):
-                assert name in tsw.LAUNCHES, name
-        for dim, p in tsw.DENSE_SHAPES:
+                assert name in tsw.shape_counters("sf", (3, 4)), name
+        for dim, p in DENSE_SHAPES:
             for name in tsw.kernel_counters(mat, "dense", dim, p, visc):
-                assert name in tsw.LAUNCHES, name
+                assert name in tsw.shape_counters("dense", tsw.dense_key(dim, p)), name
     assert tsw.kernel_counters(mat, "sf") == ("residual_sf[j2lin]", "assemble_sf[j2lin,cauchy]")
     assert tsw.kernel_counters(mat, "dense", 2, 3, True) == (
         "residual_dense[j2lin,visc]@2d_p3", "assemble_dense[j2lin,cauchy,visc]@2d_p3")

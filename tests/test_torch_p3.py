@@ -31,6 +31,7 @@ from mimi_tpu.parallel import sharding as jsh
 
 import mimi_tpu_torch as mt
 from mimi_tpu_torch.fem import soa as tsoa
+from mimi_tpu_torch.ops import build as kbuild
 from mimi_tpu_torch.ops import sweeps as tsw
 from mimi_tpu_torch.utils.convert import (
     carry_from_numpy,
@@ -39,6 +40,7 @@ from mimi_tpu_torch.utils.convert import (
     problem_from_numpy,
 )
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one thread)
+from torch_shapes import DENSE_SHAPES, SF_SHAPES
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 CUBE3 = os.path.join(DATA, "cube-nurbs-3.mesh")
@@ -275,17 +277,20 @@ def _meta(*shape):
 
 def test_p3_shapes_pass_the_kernel_checks():
     """Consistent p = 3 tables pass the sf and dense shape checks up to the
-    device check (meta tensors: no device is asked), and the counters name
-    the shape."""
+    device check (meta tensors: no device is asked), the build's macros set
+    the shape, and the counters name it."""
     E = 8
     tabs = [_meta(5, 4, E) for _ in range(6)]
-    assert (4, 5) in tsw.SF_SHAPES and (3, 3) in tsw.DENSE_SHAPES
+    assert (4, 5) in SF_SHAPES and (3, 3) in DENSE_SHAPES
     with pytest.raises(ValueError, match="CUDA sweep called on a meta tensor"):
         tsw._check_common([("w_el", _meta(3, 64, E))], tabs, _meta(3, 3, 125, E), _meta(125, E))
     with pytest.raises(ValueError, match="CUDA sweep called on a meta tensor"):
         tsw._check_dense([("w_el", _meta(3, 64, E))], _meta(64, 3, 125, E), _meta(64, 125, E),
                          _meta(125, E))
-    assert tsw.sf_suffix(4, 5) == "_p3" and tsw.sf_suffix(3, 4) == ""
+    assert kbuild.defines("sf", (4, 5)) == ["-DMIMI_SF_P1=4", "-DMIMI_SF_NG=5"]
+    assert kbuild.defines("dense", tsw.dense_key(3, 3)) == [
+        "-DMIMI_DENSE_DIM=3", "-DMIMI_DENSE_ND=64", "-DMIMI_DENSE_NQ=125"]
+    assert tsw._shape_suffix(3, (4, 5)) == "@3d_p3" and tsw._shape_suffix(3, (3, 4)) == ""
     mat = _material(mt, "J2")
     mat.setup(3)
     assert tsw.kernel_counters(mat, "sf", 3, 3) == ("residual_sf@3d_p3", "assemble_sf@3d_p3")
@@ -295,4 +300,4 @@ def test_p3_shapes_pass_the_kernel_checks():
     for kind in ("sf", "dense"):
         for name in (*tsw.kernel_counters(mat, kind, 3, 3),
                      tsw.matvec_counter(kind, "cauchy", 3, 3)):
-            assert name in tsw.LAUNCHES, name
+            assert name in tsw.shape_counters(kind, (4, 5) if kind == "sf" else (3, 64, 125)), name
