@@ -638,16 +638,18 @@ def ptxas_entries(log, nvcc):
 def check_ptxas(kbuild, keys, label="2. ptxas"):
     """Build seconds of each library of `keys` ((kind, shape) of
     ops/build.py), and registers, shared memory and spills of every
-    instantiation of the sf kernel template (sf_common.cuh sf_tile_kernel:
-    one thread per element and point slot) in them; fails where a matvec
-    (SfMatvecPoint, any storage) or a J2-family Cauchy (J2Mat) or
+    instantiation of the sf kernel templates (sf_common.cuh sf_tile_kernel:
+    one thread per element and point slot; sf_axis_matvec_kernel, the
+    matvec from p = 4 on) in them; fails where a matvec (SfMatvecPoint or
+    sf_axis_matvec_kernel, any storage) or a J2-family Cauchy (J2Mat) or
     hyperelastic (Hyper) residual or assemble spills, with its own or the
     full block, at any shape.  The finite-strain ones (J2SimoMat,
     J2LogMat: 9 dual-number passes per point) and the dense kernels with the
-    full block, tiled (dense_tile_kernel) or at a shape outside the
-    defaults are printed, not held; so is every bfloat16 dense
-    instantiation (the `*_bf16.cu` sources), failing where one of their
-    matvecs spills."""
+    full block, tiled (dense_tile_kernel, dense_matvec_tile_kernel) or at a
+    shape outside the defaults are printed, not held, but a tiled matvec
+    (dense_matvec_tile_kernel) fails where it spills; so is every bfloat16
+    dense instantiation (the `*_bf16.cu` sources), failing where one of
+    their matvecs spills."""
     logs = []
     for key in keys:
         info = kbuild.BUILD_INFO[kbuild.key_of(*key)]
@@ -659,11 +661,12 @@ def check_ptxas(kbuild, keys, label="2. ptxas"):
         say(f"[{label}] the libraries were cached: no ptxas output in this run")
         return
     every = ptxas_entries("".join(logs), kbuild.nvcc())
-    ents = {n: v for n, v in every.items() if "sf_tile_kernel" in n}
+    ents = {n: v for n, v in every.items()
+            if "sf_tile_kernel" in n or "sf_axis_matvec_kernel" in n}
     if any(k[0] == "sf" for k in keys) and (
-            not any("SfMatvecPoint" in n for n in ents)
+            not any("SfMatvecPoint" in n or "sf_axis_matvec_kernel" in n for n in ents)
             or not any("SfResidualPoint" in n for n in ents)):
-        fail("no sf_tile_kernel matvec or residual instantiation in the ptxas output")
+        fail("no sf matvec or sf_tile_kernel residual instantiation in the ptxas output")
     for name, v in sorted(ents.items()):
         spilled = v.get("spill_stores", 0) + v.get("spill_loads", 0)
         # cu++filt writes template arguments as (int)4, (bool)0; the
@@ -672,7 +675,8 @@ def check_ptxas(kbuild, keys, label="2. ptxas"):
         say(f"[{label}] {name}: {v.get('registers')} registers, {v.get('smem')} B smem, "
             f"spill stores {v.get('spill_stores')} B, loads {v.get('spill_loads')} B, stack "
             f"{v.get('stack')} B")
-        if spilled and ("SfMatvecPoint" in name or "J2Mat" in name or "Hyper" in name):
+        if spilled and ("SfMatvecPoint" in name or "sf_axis_matvec_kernel" in name
+                        or "J2Mat" in name or "Hyper" in name):
             fail(f"{name} spills {spilled} B")
     # the other kernels with the full block (the dense residual and matvec),
     # tiled, at a new dense shape or with a bfloat16 dense block: printed,
@@ -681,16 +685,18 @@ def check_ptxas(kbuild, keys, label="2. ptxas"):
     bf16_matvecs = 0
     for full_name, v in sorted(every.items()):
         name = re.sub(r"\((int|bool)\)", "", full_name.split("(const float")[0])
-        tiled = "dense_tile_kernel" in name
+        tiled_matvec = "dense_matvec_tile_kernel" in name
+        tiled = "dense_tile_kernel" in name or tiled_matvec
         new = any(f"DenseShape<{d}, {n}, {q}>" in name for d, n, q in new_dense)
         bf16 = "__nv_bfloat16" in full_name.split(">(")[0] and "dense_" in full_name
+        spilled = v.get("spill_stores", 0) + v.get("spill_loads", 0)
         if ("FullStorage" in name or tiled or new or bf16) and full_name not in ents:
             say(f"[{label}] {name}: {v.get('registers')} registers, {v.get('smem')} B smem, "
                 f"spill stores {v.get('spill_stores')} B, loads {v.get('spill_loads')} B")
-        if bf16 and ("MatvecPoint" in name or "dense_matvec_kernel" in name):
+        if bf16 and (tiled_matvec or "dense_matvec_kernel" in name):
             bf16_matvecs += 1
-            if v.get("spill_stores", 0) + v.get("spill_loads", 0):
-                fail(f"{name} spills")
+        if spilled and (tiled_matvec or (bf16 and "dense_matvec_kernel" in name)):
+            fail(f"{name} spills")
     if any(k[0] == "dense" for k in keys) and not bf16_matvecs:
         fail("no bfloat16 dense matvec instantiation in the ptxas output")
 

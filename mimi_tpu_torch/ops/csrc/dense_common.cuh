@@ -11,7 +11,8 @@
 // (dynamic shared memory, launch.cuh: 40.5 KB a block for the residual at
 // 3D p = 2), so no barrier is needed.  Past 27 dofs in 3D and 16 in 2D
 // (DenseShape::TILED) the launchers take the tiled kernels below instead
-// (one thread per element and point slot).  Each translation unit
+// (one thread per element and point slot; for the matvec, per element and
+// owner of 8 nodes).  Each translation unit
 // instantiates its kernels at the one shape its build defines
 // (MIMI_DENSE_DIM, MIMI_DENSE_ND, MIMI_DENSE_NQ: ops/build.py compiles the
 // dense sources once per shape the step asks for, each shape into a
@@ -280,22 +281,22 @@ __global__ void __launch_bounds__(BLOCK)
 //
 // At (3, 3) a thread of the kernels above would hold 192 output sums: they
 // spill to local memory, and the two staged fields take 96 KB a block (2
-// blocks, 4 warps an SM).  The tiled residual, assemble and matvec instead
-// map one thread to an (element, point slot), as the sf residual kernel
-// does (sf_common.cuh): a block takes a tile of DTILE = 32 consecutive
-// elements, one per lane, in S::SLOTS warps, warp s taking the points
-// q = s (mod SLOTS) of every element.  The tile's element fields are staged
-// once in shared memory as [DIM ND][DTILE]; per point a thread forms F (or
-// grad w) from its lane's column and its point's dN row, with the same
-// operations as grad_q_of above, runs the material (or the tangent apply)
-// and hands the point's flux X[c][d], mass term m[c] and w det J to shared
-// memory; after a barrier each thread adds the round's SLOTS points, in q
-// order, to the outputs of the nodes n = s + SLOTS j it owns (16 nodes, 48
-// sums at 3D p = 3 with 4 slots and at p = 4 with 8), reading those nodes'
-// dN and N at the round's points, with the scatter's operations
-// (scatter_q).  Every table read of a warp is one 128-byte line; dN is read
-// twice, as above.  Shared memory: 55.8 KB a block for the residual, 31.2
-// KB for the matvec at (3, 64, 125); 106.8 KB and 59.9 KB at (3, 125, 216).
+// blocks, 4 warps an SM).  The tiled residual and assemble instead map one
+// thread to an (element, point slot), as the sf residual kernel does
+// (sf_common.cuh): a block takes a tile of DTILE = 32 consecutive elements,
+// one per lane, in S::SLOTS warps, warp s taking the points q = s (mod
+// SLOTS) of every element.  The tile's element fields are staged once in
+// shared memory as [DIM ND][DTILE]; per point a thread forms F from its
+// lane's column and its point's dN row, with the same operations as
+// grad_q_of above, runs the material and hands the point's flux X[c][d],
+// mass term m[c] and w det J to shared memory; after a barrier each thread
+// adds the round's SLOTS points, in q order, to the outputs of the nodes
+// n = s + SLOTS j it owns (16 nodes, 48 sums at 3D p = 3 with 4 slots and
+// at p = 4 with 8), reading those nodes' dN and N at the round's points,
+// with the scatter's operations (scatter_q).  Every table read of a warp is
+// one 128-byte line; dN is read twice, as above.  Shared memory: 55.8 KB a
+// block for the residual at (3, 64, 125), 106.8 KB at (3, 125, 216).  The
+// tiled matvec reads dN and N once (dense_matvec_tile_kernel below).
 
 constexpr int DTILE = 32;
 
@@ -364,38 +365,8 @@ struct ResidualPoint {
   }
 };
 
-// one point of the matvec: field w (s0), the block in CT, the tables in TT
-template <class Store, class S, bool VISC, typename CT, typename TT>
-struct MatvecPoint {
-  static constexpr bool MASS = true;
-  static constexpr int DIM = S::DIM;
-  const CT* cs;
-  const TT* dN;
-  const TT* N;
-  float rho, fac0, fac1_mu_v;
-  __device__ __forceinline__ void operator()(const float (*s0)[DTILE], const float (*)[DTILE],
-                                             int lane, long long, long long, long long qe,
-                                             long long QE, float X[DIM][DIM],
-                                             float m[DIM]) const {
-    constexpr int ND = S::ND;
-    const auto w = [=](int k) { return s0[k][lane]; };
-    float dF[DIM][DIM], v[DIM];
-    grad_q_of<DIM, ND>(dN, w, qe, QE, dF);
-    value_q_of<DIM, ND>(N, w, qe, QE, v);
-    Store::apply(cs, qe, QE, dF, fac0, X);
-    if (VISC) {
-#pragma unroll
-      for (int c = 0; c < DIM; ++c)
-#pragma unroll
-        for (int d = 0; d < DIM; ++d) X[c][d] = add(X[c][d], mul(fac1_mu_v, dF[c][d]));
-    }
-#pragma unroll
-    for (int c = 0; c < DIM; ++c) m[c] = rho * v[c];
-  }
-};
-
 // y[c][n] = sum_q wq (dN[n][d] X[c][d] + N[n] m[c]) with the point's X and
-// m from `point` (ResidualPoint, MatvecPoint or a fused neo-Hookean point)
+// m from `point` (ResidualPoint or a fused neo-Hookean point)
 // on the NF staged fields f0 (and f1); the scatter reads dN, N in TT (the
 // point's own tables; N only where Pt::MASS)
 template <class S, int NF, typename TT, class Pt>
@@ -491,6 +462,235 @@ int launch_dense_tile(const Pt& point, const float* f0, const float* f1, const T
   return (int)cudaGetLastError();
 }
 
+// ---- the tiled matvec: every dN and N entry loaded once ------------------------
+//
+// y = J w on the tiled shapes.  What bounds it on the H100 is bytes: per
+// element and point it reads DIM ND + ND table entries (256 floats at
+// (3, 64, 125)) against the block's 10-81 planes, so dN and N are ~85% of
+// its traffic at path I's 2 x 38^3 (14.0 of 16.7 GB, 5.00 ms at 3.35
+// TB/s).  dense_tile_kernel read each entry twice (the point's gradient,
+// then each node's owner for the scatter: 30.8 GB).  Here the nodes'
+// owners carry the tables.  A block takes DTILE = 32 consecutive elements,
+// one per lane, in MatvecTile::SLOTS owner warps and one flux warp; the
+// owner (slot s, lane) holds the nodes n = s + SLOTS j, at most 8.  For
+// each point q in turn an owner loads dN[n][:][q] and N[n][q] of its nodes
+// into registers (one 128-byte line a warp each, 32 floats at (3, 64, 125)),
+// adds its nodes' share of grad w and w (DIM^2 + DIM partial sums, one
+// component at a time) and hands the partials to shared memory.  After a
+// barrier the flux warp sums the SLOTS partials in slot order, applies the
+// block (Store::apply, its rows asked for in L1 a point ahead: prefetch_l1)
+// with fac1 mu_v grad w, and hands X, m = rho w and w det J to shared
+// memory; after a second barrier each owner adds wq (dN[n] . X[c] + N[n]
+// m[c]) to its nodes' sums from the same registers, points in q order: no
+// atomics, deterministic.  The owners' sums are fused multiply-adds
+// (fmaf) in every source, -fmad=false ones too: without them the
+// finite-strain source's float32 full matvec spilled 8-12 B at 3D.  The two roles
+// run loops of their own with the same barriers, so an owner's registers
+// never hold the block's planes nor the flux warp's the tables; both form
+// their rows' addresses at each point from an opaque QE (launch.cuh), not
+// from a register pair per row kept across the loop.  ptxas (CUDA 12.8):
+// 96 registers in 3D, 82-96 in 2D, 0 B spilled; 2 blocks (18 warps) an SM
+// at (3, 64, 125), 1 (17 warps) at (3, 125, 216), 4 (20 warps) at
+// (2, 25, 36).  The gradient's sum over n is regrouped by slot, so outputs
+// differ from dense_tile_kernel's by float32 rounding (<= 1e-6 of their
+// max).  Shared memory: the staged w [DIM ND][DTILE], the partials
+// [SLOTS][DIM^2 + DIM][DTILE] and one point's flux [DIM^2 + DIM + 1][DTILE]:
+// 38.8 KB at (3, 64, 125) (8 owner warps), 74.2 KB at (3, 125, 216) (16),
+// 10.4 KB at (2, 25, 36) (4).  Tried and dropped (scripts/ab_dense_sweeps.py
+// --part tiled): asking L2 for the next point's rows (8.67 against 7.48 ms
+// at path I), holding two points' rows (11.9 ms: one block an SM), blocks
+// that walk the tiles together (0.93x), 3 points a step in 2D (0.87x);
+// the full storage's rows one at a time (12.02 against 9.50 ms, three at
+// a time: FluxApply).
+// The flux warp's apply of the block to dF, X into st[c DIM + d][lane]
+// (+ fac1 mu_v dF viscous): the storage's own apply, but the full
+// storage's rows DIM at a time (a rolled loop over P's components, fused
+// multiply-adds, each row's sum straight to shared memory): in the
+// finite-strain source, built without FMA, its 81 unrolled products kept
+// too many loads in flight and spilled 8-12 B at 96 registers.
+template <class Store, bool VISC, int DIM, typename CT>
+struct FluxApply {
+  __device__ __forceinline__ static void apply(const CT* __restrict__ cs, long long qe,
+                                               long long QE, const float dF[DIM][DIM],
+                                               float fac0, float fac1_mu_v,
+                                               float (*st)[DTILE], int lane) {
+    float X[DIM][DIM];
+    Store::apply(cs, qe, QE, dF, fac0, X);
+#pragma unroll
+    for (int c = 0; c < DIM; ++c)
+#pragma unroll
+      for (int d = 0; d < DIM; ++d)
+        st[c * DIM + d][lane] = VISC ? add(X[c][d], mul(fac1_mu_v, dF[c][d])) : X[c][d];
+  }
+};
+
+template <bool VISC, int DIM, typename CT>
+struct FluxApply<FullStorage<DIM>, VISC, DIM, CT> {
+  __device__ __forceinline__ static void apply(const CT* __restrict__ cf, long long qe,
+                                               long long QE, const float dF[DIM][DIM],
+                                               float fac0, float fac1_mu_v,
+                                               float (*st)[DTILE], int lane) {
+    constexpr int D2 = DIM * DIM;
+#pragma unroll 1
+    for (int c = 0; c < DIM; ++c) {  // the DIM rows of P's component c
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) {
+        const int a = c * DIM + d;
+        const CT* row = cf + (long long)(a * D2) * QE + qe;
+        float s = load_c(row) * dF[0][0];
+#pragma unroll
+        for (int b = 1; b < D2; ++b) s = fmaf(load_c(row + b * QE), dF[b / DIM][b % DIM], s);
+        float x = fac0 * s;
+        if (VISC) {
+          float dFa = dF[0][d];  // dF[c][d] without a dynamic index
+#pragma unroll
+          for (int k = 1; k < DIM; ++k)
+            if (k == c) dFa = dF[k][d];
+          x = add(x, mul(fac1_mu_v, dFa));
+        }
+        st[a][lane] = x;
+      }
+    }
+  }
+};
+
+template <class S>
+struct MatvecTile {
+  static constexpr int SLOTS = (S::ND + 7) / 8;  // owner warps: at most 8 nodes each
+  static constexpr int OWN = (S::ND + SLOTS - 1) / SLOTS;
+  static constexpr int THREADS = DTILE * (SLOTS + 1);
+  static constexpr int MIN_BLOCKS = THREADS <= 288 ? 2 : 1;
+  static constexpr size_t SMEM =
+      sizeof(float) * DTILE * (S::NW + (SLOTS + 1) * TileStage<S::DIM>::W + 1);
+};
+
+template <class Store, class S, bool VISC, typename CT, typename TT>
+__global__ void __launch_bounds__(MatvecTile<S>::THREADS, MatvecTile<S>::MIN_BLOCKS)
+    dense_matvec_tile_kernel(const float* __restrict__ w_el, const TT* __restrict__ dN,
+                             const TT* __restrict__ N, const float* __restrict__ wq,
+                             const CT* __restrict__ cs, float* __restrict__ out, float rho,
+                             float fac0, float fac1_mu_v, long long E) {
+  using T = TileStage<S::DIM>;
+  constexpr int DIM = S::DIM, ND = S::ND, NW = S::NW, NQ = S::NQ;
+  constexpr int SLOTS = MatvecTile<S>::SLOTS, OWN = MatvecTile<S>::OWN, G = T::W;
+  MIMI_DYNAMIC_SHARED(float, smem);  // sw[NW][DTILE], part[SLOTS][G][DTILE], st[T::N][DTILE]
+  float(*sw)[DTILE] = reinterpret_cast<float(*)[DTILE]>(smem);
+  float(*part)[G][DTILE] = reinterpret_cast<float(*)[G][DTILE]>(smem + NW * DTILE);
+  float(*st)[DTILE] = reinterpret_cast<float(*)[DTILE]>(smem + (NW + SLOTS * G) * DTILE);
+  const int lane = threadIdx.x % DTILE, slot = threadIdx.x / DTILE;
+  const long long e = (long long)blockIdx.x * DTILE + lane;
+  const bool live = e < E;  // the last tile is ragged where E % DTILE != 0
+  for (int r = slot; r < NW; r += SLOTS + 1)
+    sw[r][lane] = live ? __ldg(w_el + (long long)r * E + e) : 0.f;
+  __syncthreads();
+  const long long QE = (long long)NQ * E;
+  if (slot == SLOTS) {  // the flux warp: two barriers a point, as the owners
+    // the point's rows, into L1 ahead of the apply
+    const auto ask = [&](long long qe, long long QEq) {
+      for (int k = 0; k < Store::kPlanes; ++k) prefetch_l1(cs + k * QEq + qe);
+      prefetch_l1(wq + qe);
+    };
+    if (live) ask(e, QE);
+#pragma unroll 1
+    for (int q = 0; q < NQ; ++q) {
+      __syncthreads();
+      if (live) {
+        // the planes' addresses formed here, from an opaque QE, as the owners'
+        const long long qe = (long long)q * E + e, QEq = opaque(QE);
+        float dF[DIM][DIM], v[DIM];
+#pragma unroll
+        for (int k = 0; k < G; ++k) {
+          float s = part[0][k][lane];
+#pragma unroll
+          for (int p = 1; p < SLOTS; ++p) s += part[p][k][lane];
+          if (k < T::M)
+            dF[k / DIM][k % DIM] = s;
+          else
+            v[k - T::M] = s;
+        }
+        FluxApply<Store, VISC, DIM, CT>::apply(cs, qe, QEq, dF, fac0, fac1_mu_v, st, lane);
+#pragma unroll
+        for (int c = 0; c < DIM; ++c) st[T::M + c][lane] = rho * v[c];
+        st[T::W][lane] = __ldg(wq + qe);
+        if (q + 1 < NQ) ask(qe + E, QEq);
+      }
+      __syncthreads();
+    }
+    return;
+  }
+  // the owners
+  float acc[OWN][DIM];
+#pragma unroll
+  for (int j = 0; j < OWN; ++j)
+#pragma unroll
+    for (int c = 0; c < DIM; ++c) acc[j][c] = 0.f;
+#pragma unroll 1
+  for (int q = 0; q < NQ; ++q) {
+    // this thread's nodes' tables at q, loaded once (the row addresses
+    // formed here, from an opaque QE, not kept in registers across points)
+    const long long qe = (long long)q * E + e, QEq = opaque(QE);
+    float d[OWN][DIM], nv[OWN];
+#pragma unroll
+    for (int j = 0; j < OWN; ++j) {
+      const int n = slot + SLOTS * j;
+      const bool own = live && n < ND;
+#pragma unroll
+      for (int f = 0; f < DIM; ++f)
+        d[j][f] = own ? load_c(dN + (long long)(n * DIM + f) * QEq + qe) : 0.f;
+      nv[j] = own ? load_c(N + (long long)n * QEq + qe) : 0.f;
+    }
+    // this thread's share of grad w and w, one component g at a time
+#pragma unroll
+    for (int g = 0; g < DIM; ++g) {
+      float gp[DIM + 1] = {};
+#pragma unroll
+      for (int j = 0; j < OWN; ++j) {
+        const int n = slot + SLOTS * j;
+        if (n < ND) {
+          const float wv = sw[g * ND + n][lane];
+#pragma unroll
+          for (int f = 0; f < DIM; ++f) gp[f] = fmaf(d[j][f], wv, gp[f]);
+          gp[DIM] = fmaf(nv[j], wv, gp[DIM]);
+        }
+      }
+#pragma unroll
+      for (int f = 0; f < DIM; ++f) part[slot][g * DIM + f][lane] = gp[f];
+      part[slot][T::M + g][lane] = gp[DIM];
+    }
+    __syncthreads();  // the flux warp reads the partials
+    __syncthreads();  // and has written the point's flux
+    if (live) {  // the scatter for this thread's nodes, from the same registers
+      const float wqv = st[T::W][lane];
+#pragma unroll
+      for (int j = 0; j < OWN; ++j) {
+        if (slot + SLOTS * j < ND) {
+#pragma unroll
+          for (int c = 0; c < DIM; ++c) {
+            float x = d[j][0] * st[c * DIM][lane];
+#pragma unroll
+            for (int f = 1; f < DIM; ++f) x = fmaf(d[j][f], st[c * DIM + f][lane], x);
+            x = fmaf(nv[j], st[T::M + c][lane], x);
+            acc[j][c] = fmaf(wqv, x, acc[j][c]);
+          }
+        }
+      }
+    }
+    // no third barrier: the next point writes `part` after its reader (the
+    // flux warp) passed the barrier above, and the flux warp writes `st`
+    // after the next point's first barrier, which every owner reaches after
+    // its scatter
+  }
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < OWN; ++j) {
+      const int n = slot + SLOTS * j;
+      if (n < ND)
+#pragma unroll
+        for (int c = 0; c < DIM; ++c) out[(long long)(c * ND + n) * E + e] = acc[j][c];
+    }
+  }
+}
+
 // the block in CT (deduced from cout); the tables in float32
 template <class Mat, class Store, class S, bool TANGENT, bool VISC = false, typename CT>
 int launch_dense_residual(const float* u_el, const float* a_el, const float* dN,
@@ -519,8 +719,14 @@ int launch_dense_matvec(const float* w_el, const TT* dN, const TT* N, const floa
                         const CT* cs, float* out, float rho, float fac0, long long E,
                         void* stream, float fac1_mu_v = 0.f) {
   if constexpr (S::TILED) {
-    const MatvecPoint<Store, S, VISC, CT, TT> point{cs, dN, N, rho, fac0, fac1_mu_v};
-    return launch_dense_tile<S, 1>(point, w_el, nullptr, dN, N, wq, out, E, stream);
+    using M = MatvecTile<S>;
+    if (const int err = allow_dynamic_smem<dense_matvec_tile_kernel<Store, S, VISC, CT, TT>>(M::SMEM))
+      return err;
+    const unsigned tiles = (unsigned)((E + DTILE - 1) / DTILE);
+    dense_matvec_tile_kernel<Store, S, VISC, CT, TT>
+        <<<tiles, M::THREADS, M::SMEM, (cudaStream_t)stream>>>(w_el, dN, N, wq, cs, out, rho,
+                                                               fac0, fac1_mu_v, E);
+    return (int)cudaGetLastError();
   } else {
     constexpr size_t smem = sizeof(float) * S::NW * BLOCK;
     if (const int err = allow_dynamic_smem<dense_matvec_kernel<Store, S, VISC, CT, TT>>(smem))

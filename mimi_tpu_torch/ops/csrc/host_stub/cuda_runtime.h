@@ -44,6 +44,12 @@ inline thread_local mimi_host_index threadIdx{0, 0, 0};
 inline std::barrier<>* mimi_host_block_barrier = nullptr;
 inline void __syncthreads() { mimi_host_block_barrier->arrive_and_wait(); }
 
+// the cache prefetch hint and the opaque value of launch.cuh: nothing to
+// do on the host
+#define MIMI_HOST_STUB
+inline void prefetch_l1(const void*) {}
+inline long long opaque(long long x) { return x; }
+
 // the dynamic shared memory of the launch that runs now
 inline unsigned char* mimi_host_dynamic_shared = nullptr;
 #define MIMI_DYNAMIC_SHARED(T, name) T* name = reinterpret_cast<T*>(mimi_host_dynamic_shared)

@@ -1,8 +1,10 @@
 // Dynamic shared memory of the sweep kernels, for sm_90a: a block's tile
 // past the 48 KB that a static __shared__ allocation may hold (the p = 3
-// sf tile, 67.7 KB and 92.2 KB viscous; the dense (3, 3) columns, 96 KB).
-// The host stand-in (host_stub/cuda_runtime.h) defines MIMI_DYNAMIC_SHARED
-// first, as the launch's buffer shared by the block's threads.
+// sf tile, 67.7 KB and 92.2 KB viscous; the dense (3, 3) columns, 96 KB),
+// and two helpers of the tiled dense matvec (an L1 prefetch hint, an
+// opaque value).  The host stand-in (host_stub/cuda_runtime.h) defines
+// MIMI_DYNAMIC_SHARED first, as the launch's buffer shared by the block's
+// threads, and MIMI_HOST_STUB with stand-ins of the two helpers.
 
 #pragma once
 
@@ -18,6 +20,23 @@
 #endif
 
 namespace {
+
+#ifndef MIMI_HOST_STUB
+// A hint that brings the line holding `p` into L1 ahead of its load: no
+// register is written and nothing waits.  The host stand-in
+// (host_stub/cuda_runtime.h) does nothing.
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
+}
+// x, as a value the compiler cannot see through: what is computed from it
+// inside a loop is computed there (the tiled matvec's row addresses, one
+// multiply-add each, instead of a register pair per row kept across its
+// loop over the points)
+__device__ __forceinline__ long long opaque(long long x) {
+  asm volatile("" : "+l"(x));
+  return x;
+}
+#endif
 
 constexpr size_t STATIC_SMEM = 48 * 1024;
 

@@ -3,10 +3,12 @@
 // with the symmetric storage) and sweeps_sf_finite.cu (J2Simo and J2Log
 // with the full storage), for sm_90a: the 1D basis tables and the
 // interpolation of one element's fields at one point (the J2 return maps
-// are in j2.cuh, the storages in materials.cuh), and one kernel template,
-// sf_tile_kernel, with its launcher, for the residual, the assemble and
-// the matvec, all templated on the element's shape SfShape<P1, NG> (P1 =
-// p + 1 nodes and NG Gauss points per axis).  Each source instantiates
+// are in j2.cuh, the storages in materials.cuh), and two kernel templates
+// with their launchers, both templated on the element's shape
+// SfShape<P1, NG> (P1 = p + 1 nodes and NG Gauss points per axis):
+// sf_tile_kernel for the residual, the assemble and, up to p = 3, the
+// matvec; sf_axis_matvec_kernel for the matvec from p = 4 on (its notes
+// are above it).  Each source instantiates
 // what it needs at the one shape its build defines (MIMI_SF_P1,
 // MIMI_SF_NG: ops/build.py compiles the three sources once per shape the
 // step asks for, each shape into a library of its own, as the reference
@@ -34,8 +36,7 @@
 // one-thread-per-element kernels the template replaced, so the outputs
 // round as theirs did.  Shared memory (dynamic, launch.cuh): 36.2 KB a
 // block, 46.5 KB viscous, 25.7 KB for the matvec at p = 2; 67.6 KB, 92.2 KB
-// and 43.0 KB at p = 3; 135.8 KB, 182.6 KB and 88.9 KB at p = 4
-// (SfShape::blocks).  Design notes and what bounds the kernels: the head
+// and 43.0 KB at p = 3; 135.8 KB and 182.6 KB at p = 4 (SfShape::blocks).  Design notes and what bounds the kernels: the head
 // of sweeps_sf.cu.
 
 #pragma once
@@ -69,7 +70,8 @@ constexpr size_t SM_SHARED = 228 * 1024, BLOCK_RESERVED = 1024;
 // residual and assemble: at p = 2 4 (128 registers; 4 tiles of 36.2 or
 // 46.5 KB), at p = 3 3 inviscid (170 registers, 3 x 67.6 KB) and 2 viscous
 // (255, 2 x 92.2 KB), at p = 4 1 (135.8 and 182.6 KB).  The matvec: 4 at
-// p = 2 (25.7 KB), 3 at p = 3 (43.0 KB), 1 at p = 4 (88.9 KB).
+// p = 2 (25.7 KB), 3 at p = 3 (43.0 KB); from p = 4 on it is
+// sf_axis_matvec_kernel's.
 template <int P1_, int NG_>
 struct SfShape {
   static constexpr int P1 = P1_, NG = NG_;
@@ -485,13 +487,272 @@ int launch_residual(const float* u_el, const float* a_el, const float* v_el,
                            E, stream);
 }
 
+// ---- sf_axis_matvec_kernel: the matvec from p = 4 on, axis by axis ----------------
+//
+// At p = 4 (125 nodes, 216 points) sf_tile_kernel's point forms grad w
+// from all 125 nodes and each owner adds every point to its 16 nodes:
+// 27,000 node-point pairs an element each way, ~35 multiply-adds each with
+// their shared-memory reads, at 218-235 registers (one 256-thread block an
+// SM).  It ran at 15x its bound.  This kernel contracts one axis at a time,
+// as the plain version (ops/sweeps.py sf_param_grad, sf_scatter) and the
+// TPU kernel (mimi_tpu/ops/sweeps.py:941-951) do: ~25k multiply-adds an
+// element each way instead of ~470k.  A block of AXIS_THREADS = 288 threads
+// takes AXIS_TILE = 16 consecutive elements, so that every read of a
+// batch-last row (the block's planes, jinv, w det J, the 1D tables, w; and
+// the output's writes) is 64 contiguous bytes in float32, 32 in bfloat16:
+// whole sectors (at 8 elements the float32 matvec took 1.96 ms at path K,
+// at 16 1.60: scripts/ab_sf_sweeps.py).  Thread t works for element
+// t % 16; the rest of t (GROUPS = 18) walks each phase's items.  The element's values live
+// in shared memory as [row][TE] (AxisShared): its six 1D tables (NG, P1),
+// read once; w, staged in the region of the axis-1 values; per component
+// the axis-2 contractions of w with B2 and D2, [c][2][q2][a1][a0]; the
+// axis-1 contractions tBB, tDB, tBD, [c][3][q2][q1][a0].  Five barriers:
+// (A) items (c, a1, a0) contract axis 2; (B) items (c, q2, a0) axis 1;
+// (C) items (q2, q1), pencils of NG points along axis 0: the pencil holds
+// its 45 axis-1 values, and per point forms the parametric gradient and
+// the value (axis 0), dF with jinv, the block's apply, the flux Z = jinv^T
+// wq X and wq rho w (point_flux), and contracts them back along axis 0 into
+// 45 sums of its own, which it writes over its own axis-1 values; (B')
+// items (c, q2, a0) contract back along axis 1 into the axis-2 region;
+// (A') items (c, a1, a0) along axis 2 and write the output.  The sums are
+// the plain version's contractions in its order of axes, each a fixed
+// order: deterministic, no atomics; the forward terms of the mass and of
+// D0 Z0, which share B1 and B2 on the way back, are summed at axis 0.
+// Shared memory: 2700 floats an element at SfShape<5, 6>, 172.8 KB a
+// block: one block (9 warps) an SM, as its 168 registers allow.
+constexpr int AXIS_THREADS = 288, AXIS_TILE = 16;
+
+// floats an element of sf_axis_matvec_kernel keeps in shared memory, and
+// the row of each value
+template <class S>
+struct AxisShared {
+  static constexpr int P1 = S::P1, NG = S::NG, PP = P1 * P1;
+  static constexpr int TAB = 6 * NG * P1, A = 3 * 2 * NG * PP, B = 3 * 3 * NG * NG * P1;
+  static constexpr int ROWS = TAB + A + B;
+  static_assert(S::NV <= B, "w is staged in the axis-1 region");
+  // table t (B0, D0, B1, D1, B2, D2) at point q, node a
+  __host__ __device__ static constexpr int tab(int t, int q, int a) { return (t * NG + q) * P1 + a; }
+  // axis 2 contracted with B2 (k 0) or D2 (k 1): [c][k][q2][a1 a0]
+  __host__ __device__ static constexpr int a2(int c, int k, int q2, int a10) {
+    return TAB + ((c * 2 + k) * NG + q2) * PP + a10;
+  }
+  // axis 1: [c][k][q2][q1][a0], k 0 tBB, 1 tDB, 2 tBD
+  __host__ __device__ static constexpr int a1(int c, int k, int q2, int q1, int a0) {
+    return TAB + A + (((c * 3 + k) * NG + q2) * NG + q1) * P1 + a0;
+  }
+};
+
+template <class S, class Store, bool VISC, typename CT>
+__global__ void __launch_bounds__(AXIS_THREADS, 1)
+    sf_axis_matvec_kernel(const float* __restrict__ w_el, Tables tb,
+                          const float* __restrict__ jinv, const float* __restrict__ wq,
+                          const CT* __restrict__ cb, float* __restrict__ out, float rho,
+                          float fac0, float fac1_mu_v, long long E) {
+  using L = AxisShared<S>;
+  constexpr int P1 = S::P1, NG = S::NG, ND = S::ND, PP = L::PP;
+  constexpr int TE = AXIS_TILE, GROUPS = AXIS_THREADS / TE;
+  MIMI_DYNAMIC_SHARED(float, smem);  // sh[L::ROWS][AXIS_TILE]
+  float(*sh)[TE] = reinterpret_cast<float(*)[TE]>(smem);
+  const int lane = threadIdx.x % TE, grp = threadIdx.x / TE;
+  const long long e = (long long)blockIdx.x * TE + lane;
+  const bool live = e < E;  // the last tile is ragged where E % TE != 0
+  const long long QE = (long long)S::NQ * E;
+#pragma unroll
+  for (int t = 0; t < 6; ++t)
+    for (int r = grp; r < NG * P1; r += GROUPS)
+      sh[L::tab(t, 0, 0) + r][lane] = live ? __ldg(tb.t[t] + (long long)r * E + e) : 0.f;
+  for (int r = grp; r < S::NV; r += GROUPS)
+    sh[L::a1(0, 0, 0, 0, 0) + r][lane] = live ? __ldg(w_el + (long long)r * E + e) : 0.f;
+  __syncthreads();
+  const auto T = [&](int t, int q, int a) { return sh[L::tab(t, q, a)][lane]; };
+
+  // (A) w[c][a2][a1][a0] -> sum_a2 {B2, D2}[q2][a2] w
+#pragma unroll 1
+  for (int i = grp; i < 3 * PP; i += GROUPS) {
+    const int c = i / PP, a10 = i % PP;
+    float x[P1];
+#pragma unroll
+    for (int a = 0; a < P1; ++a) x[a] = sh[L::a1(0, 0, 0, 0, 0) + c * ND + a * PP + a10][lane];
+#pragma unroll
+    for (int q2 = 0; q2 < NG; ++q2) {
+      float sB = 0.f, sD = 0.f;
+#pragma unroll
+      for (int a = 0; a < P1; ++a) {
+        sB += T(4, q2, a) * x[a];
+        sD += T(5, q2, a) * x[a];
+      }
+      sh[L::a2(c, 0, q2, a10)][lane] = sB;
+      sh[L::a2(c, 1, q2, a10)][lane] = sD;
+    }
+  }
+  __syncthreads();
+
+  // (B) -> tBB = B1 sB, tDB = D1 sB, tBD = B1 sD over a1
+#pragma unroll 1
+  for (int i = grp; i < 3 * NG * P1; i += GROUPS) {
+    const int c = i / (NG * P1), q2 = i / P1 % NG, a0 = i % P1;
+    float xB[P1], xD[P1];
+#pragma unroll
+    for (int a = 0; a < P1; ++a) {
+      xB[a] = sh[L::a2(c, 0, q2, a * P1 + a0)][lane];
+      xD[a] = sh[L::a2(c, 1, q2, a * P1 + a0)][lane];
+    }
+#pragma unroll
+    for (int q1 = 0; q1 < NG; ++q1) {
+      float bb = 0.f, db = 0.f, bd = 0.f;
+#pragma unroll
+      for (int a = 0; a < P1; ++a) {
+        const float b1 = T(2, q1, a), d1 = T(3, q1, a);
+        bb += b1 * xB[a];
+        db += d1 * xB[a];
+        bd += b1 * xD[a];
+      }
+      sh[L::a1(c, 0, q2, q1, a0)][lane] = bb;
+      sh[L::a1(c, 1, q2, q1, a0)][lane] = db;
+      sh[L::a1(c, 2, q2, q1, a0)][lane] = bd;
+    }
+  }
+  __syncthreads();
+
+  // (C) the pencils: axis 0, the points, and back along axis 0
+#pragma unroll 1
+  for (int i = grp; i < NG * NG; i += GROUPS) {
+    const int q2 = i / NG, q1 = i % NG;
+    float fw[3][3][P1], bk[3][3][P1];
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+#pragma unroll
+        for (int a = 0; a < P1; ++a) {
+          fw[c][k][a] = sh[L::a1(c, k, q2, q1, a)][lane];
+          bk[c][k][a] = 0.f;
+        }
+    if (live) {
+#pragma unroll 1
+      for (int q0 = 0; q0 < NG; ++q0) {
+        const int q = q0 + NG * q1 + NG * NG * q2;
+        const long long qe = (long long)q * E + e;
+        float b0[P1], d0[P1];
+#pragma unroll
+        for (int a = 0; a < P1; ++a) {
+          b0[a] = T(0, q0, a);
+          d0[a] = T(1, q0, a);
+        }
+        float ji[3][3];
+        load_jinv<S>(jinv, q, e, E, ji);
+        float dF[3][3], v[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          float g0 = 0.f, g1 = 0.f, g2 = 0.f, vc = 0.f;
+#pragma unroll
+          for (int a = 0; a < P1; ++a) {
+            g0 += d0[a] * fw[c][0][a];
+            g1 += b0[a] * fw[c][1][a];
+            g2 += b0[a] * fw[c][2][a];
+            vc += b0[a] * fw[c][0][a];
+          }
+          v[c] = vc;
+#pragma unroll
+          for (int f = 0; f < 3; ++f) dF[c][f] = g0 * ji[0][f] + g1 * ji[1][f] + g2 * ji[2][f];
+        }
+        float dP[3][3];
+        Store::apply(cb, qe, QE, dF, fac0, dP);
+        if constexpr (VISC) {
+#pragma unroll
+          for (int c = 0; c < 3; ++c)
+#pragma unroll
+            for (int d = 0; d < 3; ++d) dP[c][d] += fac1_mu_v * dF[c][d];
+        }
+        const float m[3] = {rho * v[0], rho * v[1], rho * v[2]};
+        float Z[3][3], mm[3];
+        point_flux(ji, __ldg(wq + qe), dP, m, Z, mm);
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+#pragma unroll
+          for (int a = 0; a < P1; ++a) {
+            bk[c][0][a] += d0[a] * Z[c][0] + b0[a] * mm[c];
+            bk[c][1][a] += b0[a] * Z[c][1];
+            bk[c][2][a] += b0[a] * Z[c][2];
+          }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+#pragma unroll
+        for (int a = 0; a < P1; ++a) sh[L::a1(c, k, q2, q1, a)][lane] = bk[c][k][a];
+  }
+  __syncthreads();
+
+  // (B') back along axis 1: B1 (D0 Z0 + B0 mm) + D1 (B0 Z1), B1 (B0 Z2)
+#pragma unroll 1
+  for (int i = grp; i < 3 * NG * P1; i += GROUPS) {
+    const int c = i / (NG * P1), q2 = i / P1 % NG, a0 = i % P1;
+    float x0[NG], x1[NG], x2[NG];
+#pragma unroll
+    for (int q1 = 0; q1 < NG; ++q1) {
+      x0[q1] = sh[L::a1(c, 0, q2, q1, a0)][lane];
+      x1[q1] = sh[L::a1(c, 1, q2, q1, a0)][lane];
+      x2[q1] = sh[L::a1(c, 2, q2, q1, a0)][lane];
+    }
+#pragma unroll
+    for (int a = 0; a < P1; ++a) {
+      float r0 = 0.f, r1 = 0.f;
+#pragma unroll
+      for (int q1 = 0; q1 < NG; ++q1) {
+        const float b1 = T(2, q1, a);
+        r0 += b1 * x0[q1] + T(3, q1, a) * x1[q1];
+        r1 += b1 * x2[q1];
+      }
+      sh[L::a2(c, 0, q2, a * P1 + a0)][lane] = r0;
+      sh[L::a2(c, 1, q2, a * P1 + a0)][lane] = r1;
+    }
+  }
+  __syncthreads();
+
+  // (A') back along axis 2: y[c][a2][a1][a0] = B2 r0 + D2 r1 over q2
+#pragma unroll 1
+  for (int i = grp; i < 3 * PP; i += GROUPS) {
+    const int c = i / PP, a10 = i % PP;
+    float y0[NG], y1[NG];
+#pragma unroll
+    for (int q2 = 0; q2 < NG; ++q2) {
+      y0[q2] = sh[L::a2(c, 0, q2, a10)][lane];
+      y1[q2] = sh[L::a2(c, 1, q2, a10)][lane];
+    }
+    if (live) {
+#pragma unroll
+      for (int a = 0; a < P1; ++a) {
+        float o = 0.f;
+#pragma unroll
+        for (int q2 = 0; q2 < NG; ++q2) o += T(4, q2, a) * y0[q2] + T(5, q2, a) * y1[q2];
+        out[(long long)(c * ND + a * PP + a10) * E + e] = o;
+      }
+    }
+  }
+}
+
+// the matvec: sf_tile_kernel with SfMatvecPoint up to p = 3,
+// sf_axis_matvec_kernel from p = 4 on
 template <class S, class Store, bool VISC, typename CT>
 int launch_matvec(const float* w_el, const Tables& tb, const float* jinv,
                   const float* wq, const void* cb, float* out, float rho,
                   float fac0, float fac1_mu_v, long long E, void* stream) {
-  const SfMatvecPoint<S, Store, VISC, CT> point{rho, fac0, fac1_mu_v};
-  return launch_sf_tile<S>(point, w_el, nullptr, nullptr, tb, jinv, wq,
-                           static_cast<const CT*>(cb), out, E, stream);
+  if constexpr (S::P1 >= 5) {
+    constexpr size_t smem = sizeof(float) * AXIS_TILE * AxisShared<S>::ROWS;
+    if (const int err = allow_dynamic_smem<sf_axis_matvec_kernel<S, Store, VISC, CT>>(smem))
+      return err;
+    const unsigned tiles = (unsigned)((E + AXIS_TILE - 1) / AXIS_TILE);
+    sf_axis_matvec_kernel<S, Store, VISC, CT><<<tiles, AXIS_THREADS, smem, (cudaStream_t)stream>>>(
+        w_el, tb, jinv, wq, static_cast<const CT*>(cb), out, rho, fac0, fac1_mu_v, E);
+    return (int)cudaGetLastError();
+  } else {
+    const SfMatvecPoint<S, Store, VISC, CT> point{rho, fac0, fac1_mu_v};
+    return launch_sf_tile<S>(point, w_el, nullptr, nullptr, tb, jinv, wq,
+                             static_cast<const CT*>(cb), out, E, stream);
+  }
 }
 
 }  // namespace

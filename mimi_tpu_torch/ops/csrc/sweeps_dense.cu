@@ -49,11 +49,18 @@
 // output sums would spill to local memory and the two staged fields take
 // 96 KB a block (2 blocks, 4 warps an SM): one thread per element ran the
 // residual and the matvec at 50-60x their bound on an H100.  So the (3, 3)
-// kernels are
-// tiled as the sf residual is, one thread per element and point slot, each
-// thread summing the outputs of 16 nodes (dense_common.cuh
-// dense_tile_kernel).  Per point they do a few
-// hundred flops against a few hundred bytes, under one flop per byte.
+// residual and assemble are tiled as the sf residual is, one thread per
+// element and point slot, each thread summing the outputs of 16 nodes
+// (dense_common.cuh dense_tile_kernel).  Per point they do a few hundred
+// flops against a few hundred bytes, under one flop per byte.  That
+// kernel reads each point's dN and N twice (the point's F, then each
+// node's owner); the tiled matvec, which runs ~250 times a step at path I,
+// has a kernel of its own that reads them once (dense_common.cuh
+// dense_matvec_tile_kernel: the owners of 8 nodes hold their rows in
+// registers from the gradient's partial sums to the scatter, a flux warp
+// applies the block): at path I's 2 x 38^3 it took the `sym` matvec from
+// 17.09 to 7.25 ms against a 5.00 ms bound (scripts/ab_dense_sweeps.py
+// --part tiled, PERF.md).
 //
 // Rounding: the deformation gradient and the stress are formed with
 // single-rounding intrinsics (no fused multiply-add), in the order of the

@@ -85,7 +85,18 @@
 // ~100x its bound.  p = 4 (SfShape<5, 6>, path K): 125 dofs and 216
 // points, [375][32] per staged field, 8 point slots (256 threads a block)
 // so that a thread still owns 16 nodes and 48 sums, one block an SM (135.8
-// KB of shared memory, 182.6 KB viscous), 255 registers at most.  p = 1
+// KB of shared memory, 182.6 KB viscous), 255 registers at most, for the
+// residual and the assemble.  From p = 4 on the matvec is
+// sf_axis_matvec_kernel (sf_common.cuh), which contracts one axis at a
+// time as the plain version and the TPU kernel do: at p = 4 ~51k
+// multiply-adds an element against sf_tile_kernel's ~1M (27,000 node-point
+// pairs, ~38 each); 288 threads on 16 elements, 172.8 KB of shared memory,
+// 168 registers, 0 B spilled (ptxas, CUDA 12.8), one block an SM; at path
+// K's 40^3 the Cauchy matvec went from 12.88 to 1.61 ms
+// (scripts/ab_sf_sweeps.py --part p4, PERF.md), against a 0.85 ms bound by
+// bytes: what is left is the pencils' load latency (one block, 9 warps, an
+// SM; each pencil's 6 points in turn) and the four contraction phases,
+// during which the SM reads no device memory.  p = 1
 // (SfShape<2, 3>): 8 dofs and 27 points, 2 nodes and 6 sums a thread.  A
 // quadrature order other than the default 2p + 3 changes NG alone.
 //
@@ -98,9 +109,10 @@
 // from shared memory and, per owner, the O(ND / 4) node terms of the
 // reduction, ~3 x 4 ND fused multiply-adds a point with their
 // shared-memory reads, and a barrier every 4 points; at p = 3 (64 nodes)
-// these, not the block's bytes, set its time (the TPU kernel's staged
-// axis-by-axis contraction, ~10 terms a point instead of 64, is the next
-// design: ROADMAP Queue 2 item 11).  The assemble writes the same 1.05 GB
+// these, not the block's bytes, set its time (at p = 3 the tile does
+// ~300k multiply-adds an element, the axis-by-axis contraction of
+// sf_axis_matvec_kernel ~23k; whether it pays there is an open question,
+// ROADMAP).  The assemble writes the same 1.05 GB
 // tangent and runs the radial return (up to 40 safeguarded
 // Newton-bisection trips with powf/logf on plastic points, the reference
 // kernels' cap): plastic-heavy calls are bound by the trips' dependent

@@ -4,7 +4,7 @@ checkout against another version of the same CUDA sources, on one CUDA
 GPU, on the same inputs in one process.
 
     mkdir -p <dir>; git archive <rev> mimi_tpu_torch/ops/csrc | tar -x -C <dir>
-    python3 scripts/ab_dense_sweeps.py --base <dir> [--only REGEX]
+    python3 scripts/ab_dense_sweeps.py --base <dir> [--part all|earlier|tiled] [--only REGEX]
 
 The base's dense sources (<dir>/mimi_tpu_torch/ops/csrc) are built at
 the dense shapes of chip_smoke.EARLIER_KEYS with this checkout's flags and shape
@@ -18,12 +18,18 @@ block's assemble and matvec, and the full block's assemble and matvec of
 the materials with a stronger own storage, inviscid and viscous: J2
 (Johnson-Cook) and J2Linear on a random plastic history, J2Simo and J2Log
 on the same recipe, the neo-Hookean and St. Venant-Kirchhoff materials
-near F = I (chip_smoke.py's plastic_inputs and random_visc_inputs).  Every
-output of the two versions is compared: the max abs difference, relative
-to the output's max, and whether they are equal to the bit; the times are
-CUDA-event means, taken base, new, new, base.  Prints the card's name and
-power limit first.  `--only` keeps the rows whose name matches the
-regular expression.
+near F = I (chip_smoke.py's plastic_inputs and random_visc_inputs).
+`--part tiled` times the tiled matvec (every storage, inviscid and
+viscous, float32 or bfloat16 block and tables) on random w and random
+planes at the driven sizes instead (`all`: both): path I's tables (3, 64, 125), the
+two-patch cube elevated by 2 at 2 x 38^3; path L's (2, 25, 36), the
+cantilever elevated by 3 at 512^2; and (3, 125, 216), elevated by 3 at
+2 x 16^3, each storage with its bound by bytes; ptxas's registers and
+spills of both versions' tiled matvecs are printed first.  Every output of the two versions is compared: the max
+abs difference, relative to the output's max, and whether they are equal
+to the bit; the times are CUDA-event means, taken base, new, new, base.
+Prints the card's name and power limit first.  `--only` keeps the rows
+whose name matches the regular expression.
 """
 
 import argparse
@@ -34,6 +40,49 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+# the tiled shapes and their driven sizes: path I's (3, 64, 125) at
+# 2 x 38^3, path L's (2, 25, 36) at 512^2, (3, 125, 216) at 2 x 16^3
+TILED_KEYS = [("dense", (3, 64, 125)), ("dense", (2, 25, 36)), ("dense", (3, 125, 216))]
+
+
+def tiled_matvecs(torch, mt, cs, sweeps, ab, dev, gen):
+    """The tiled dense matvec of every storage, inviscid and viscous, with
+    a float32 block and tables or a bfloat16 block and bfloat16 copies of
+    dN and N, on random w and random planes at each shape's driven size."""
+    hyper = cs.hyper_material(mt)
+    makers = {
+        (3, 64, 125): lambda: cs.two_patch3_of(mt, hyper, cs.DENSE_SPANS, dev),
+        (2, 25, 36): lambda: cs.balken_build(mt, "CompressibleOgdenNeoHookean", 3,
+                                             cs.GOLDEN_SUBDIVIDE, dev),
+        (3, 125, 216): lambda: cs.two_patch3_of(mt, hyper, 16, dev, elevate=3),
+    }
+    for key, make in makers.items():
+        prob = make()
+        E, dim, nd = prob.n_el, prob.dim, key[1]
+        w_el = torch.randn(dim, nd, E, generator=gen).to(dev)
+        for bf16 in (False, True):
+            ct = torch.bfloat16 if bf16 else torch.float32
+            dN, N = prob.dense["dN_t"].to(ct), prob.dense["N_t"].to(ct)
+            for storage in ("sym", "cauchy", "full"):
+                C = torch.randn(sweeps.n_planes(storage, dim), prob.n_q, E,
+                                generator=gen).to(dev, ct)
+                calls = {}
+                # inputs read once, the output written once (bytes bound the matvec)
+                ms, _ = cs.bound_of(cs.nbytes(w_el, dN, N, prob.wdet_t, C, w_el), 0)
+                print(f"[tiled {key} {E} elements] {storage}{',bf16' if bf16 else ''}: "
+                      f"bound {ms:.4f} ms by bytes", flush=True)
+                for visc in (False, True):
+                    name = sweeps.matvec_counter("dense", storage, dim, key, visc, bf16)
+                    calls[name] = (lambda C=C, s=storage, fm=(5.0 if visc else None):
+                                   sweeps.matvec_dense(w_el, dN, N, prob.wdet_t, C, 1e2, 1e-3,
+                                                       fm, storage=s))
+                ab(f"tiled {key} {E} elements", calls, 10 if key == (3, 64, 125) else 20)
+                del C, calls
+            del dN, N
+        del prob, w_el
+        torch.cuda.empty_cache()
 
 
 def use(kb, libs):
@@ -49,6 +98,9 @@ def main():
     ap.add_argument("--subdivide", type=int, default=8, help="2D: 2^subdivide spans per axis")
     ap.add_argument("--spans", type=int, default=16, help="3D p = 2: 2 x spans^3 elements")
     ap.add_argument("--only", default="", help="time only the rows whose name matches")
+    ap.add_argument("--part", choices=("all", "earlier", "tiled"), default="all",
+                    help="earlier: the untiled shapes' instantiations and (3, 3) at 2 x 8^3; "
+                    "tiled: the tiled matvecs at the driven sizes")
     args = ap.parse_args()
     import torch
 
@@ -64,12 +116,26 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
     t0 = time.perf_counter()
-    keys = [k for k in cs.EARLIER_KEYS if k[0] == "dense"]
-    libs = {"new": kb.prebuild(keys)}
+    keys = [k for k in cs.EARLIER_KEYS if k[0] == "dense"] if args.part != "tiled" else []
+    if args.part != "earlier":
+        keys += [k for k in TILED_KEYS if k not in keys]
+    kb.JOBS = os.cpu_count() or kb.JOBS  # nothing else runs beside the builds
+    kb.start(keys)
     base = os.path.abspath(args.base)
-    libs["base"], _ = kb.build_tree(os.path.join(base, "mimi_tpu_torch", "ops", "csrc"),
-                                    os.path.join(base, "_build"), keys)
+    libs = {}
+    libs["base"], base_log = kb.build_tree(os.path.join(base, "mimi_tpu_torch", "ops", "csrc"),
+                                           os.path.join(base, "_build"), keys)
+    libs["new"] = kb.prebuild(keys)
     print(f"builds {time.perf_counter() - t0:.1f} s", flush=True)
+    if args.part != "earlier":
+        new_log = "".join(kb.BUILD_INFO[kb.key_of(*k)]["log"] for k in keys)
+        for tag, log in (("base", base_log), ("new", new_log)):
+            for name, v in sorted(cs.ptxas_entries(log, kb.nvcc()).items()):
+                if "dense_matvec_tile_kernel" in name or ("dense_tile_kernel" in name
+                                                          and "MatvecPoint" in name):
+                    print(f"[{tag} ptxas] {name.split('>(')[0]}>: {v.get('registers')} "
+                          f"registers, {v.get('smem')} B smem, spill stores "
+                          f"{v.get('spill_stores')} B, loads {v.get('spill_loads')} B", flush=True)
     dev, gen, dt = torch.device("cuda"), torch.Generator().manual_seed(0), 0.05
     counts = {"rows": 0, "equal": 0}
 
@@ -102,6 +168,10 @@ def main():
         use(kb, libs["new"])
         torch.cuda.empty_cache()
 
+    if args.part != "earlier":
+        tiled_matvecs(torch, mt, cs, sweeps, ab, dev, gen)
+    if args.part == "tiled":
+        return
     shapes = {
         (2, 2): lambda mat: cs.cantilever_of(mt, mat, 1, args.subdivide, dev),
         (2, 3): lambda mat: cs.cantilever_of(mt, mat, 2, args.subdivide, dev),

@@ -4,7 +4,7 @@ checkout against another version of the same CUDA sources, on one CUDA
 GPU, on the same inputs in one process.
 
     mkdir -p <dir>; git archive <rev> mimi_tpu_torch/ops/csrc | tar -x -C <dir>
-    python3 scripts/ab_sf_sweeps.py --base <dir> [--only REGEX]
+    python3 scripts/ab_sf_sweeps.py --base <dir> [--part all|earlier|p4] [--only REGEX]
 
 The base's sources (<dir>/mimi_tpu_torch/ops/csrc) are built at the sf
 shapes (3, 4) and (4, 5) with the flags and shape defines of ops/build.py
@@ -19,9 +19,12 @@ chip_smoke.py's random plastic history; every sf matvec instantiation
 (cauchy, sym and full, inviscid and viscous, float32 and bfloat16 block)
 on random w and random planes at p = 2 (48^3) and at p = 3 (the inviscid
 float32 ones on path H's tables at 48^3, cube-nurbs-3.mesh; the viscous
-and bfloat16 ones at 16^3).  Every output of the two versions is
-compared: the max abs difference, relative to the output's max, and
-whether they are equal to the bit.  The times are CUDA-event means,
+and bfloat16 ones at 16^3); with `--part p4` (or all) every p = 4
+matvec instantiation (SfShape<5, 6>) on random w and random planes at
+path K's tables (cube-nurbs-3.mesh elevated by 1, 40^3), each with its
+bound by bytes.  Every output of
+the two versions is compared: the max abs difference, relative to the
+output's max, and whether they are equal to the bit.  The times are CUDA-event means,
 taken base, new, new, base.  Prints the card's name and power limit
 first and ptxas's registers and spills of this checkout's sf kernels
 (chip_smoke.py phase 2's report; a spill is printed, not raised).
@@ -39,6 +42,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 KEYS = [("sf", (3, 4)), ("sf", (4, 5))]
+P4_KEYS = [("sf", (5, 6))]
+K_SPANS = 40  # path K: 40^3 elements at p = 4
 
 
 def use(kb, libs):
@@ -53,6 +58,8 @@ def main():
                     "mimi_tpu_torch/ops/csrc")
     ap.add_argument("--spans", type=int, default=48)
     ap.add_argument("--only", default="", help="time only the rows whose name matches")
+    ap.add_argument("--part", choices=("all", "earlier", "p4"), default="all",
+                    help="earlier: p = 2 and p = 3; p4: the p = 4 matvecs at path K's size")
     args = ap.parse_args()
     import torch
 
@@ -68,15 +75,19 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
     t0 = time.perf_counter()
-    libs = {"new": kb.prebuild(KEYS)}
+    keys = (KEYS if args.part != "p4" else []) + (P4_KEYS if args.part != "earlier" else [])
+    kb.JOBS = os.cpu_count() or kb.JOBS  # nothing else runs beside the builds
+    kb.start(keys)
     base = os.path.abspath(args.base)
+    libs = {}
     libs["base"], base_log = kb.build_tree(os.path.join(base, "mimi_tpu_torch", "ops", "csrc"),
-                                           os.path.join(base, "_build"), KEYS)
+                                           os.path.join(base, "_build"), keys)
+    libs["new"] = kb.prebuild(keys)
     print(f"builds {time.perf_counter() - t0:.1f} s", flush=True)
     cs.fail = lambda msg: print(f"[2. ptxas] {msg}", flush=True)
-    cs.check_ptxas(kb, KEYS)
+    cs.check_ptxas(kb, keys)
     for name, v in sorted(cs.ptxas_entries(base_log, kb.nvcc()).items()):
-        if "sf_tile_kernel" in name and "SfMatvecPoint" in name:
+        if "SfMatvecPoint" in name or "sf_axis_matvec_kernel" in name:
             print(f"[base ptxas] {name.split('>(')[0]}>: {v.get('registers')} "
                   f"registers, spill stores {v.get('spill_stores')} B", flush=True)
     dev, gen, n = torch.device("cuda"), torch.Generator().manual_seed(0), args.spans
@@ -119,6 +130,9 @@ def main():
             C = torch.randn(sweeps.n_planes(storage), prob.n_q, E, generator=gen).to(dev)
             C = C.to(torch.bfloat16) if bf16 else C
             name = sweeps.matvec_counter("sf", storage, 3, prob.sf["pp1"] - 1, visc, bf16)
+            # inputs read once, the output written once (bytes bound the matvec)
+            ms, _ = cs.bound_of(cs.nbytes(w_el, tabs, jinv, wq, C, w_el), 0)
+            print(f"[{label}] {name}: bound {ms:.4f} ms by bytes", flush=True)
             calls[name] = (lambda C=C, storage=storage, fm=(50.0 if visc else None):
                            sweeps.matvec_sf(w_el, tabs, jinv, wq, C, 1e2, 1e-3, fm, storage))
         ab(label, calls, reps)
@@ -126,6 +140,13 @@ def main():
     combos = [(storage, visc, bf16) for storage in ("cauchy", "sym", "full")
               for visc in (False, True) for bf16 in (False, True)]
 
+    if args.part != "earlier":
+        prob = cs.cube3_of(mt, cs.jc_material(mt), K_SPANS, dev, elevate=1)
+        matvecs(f"p=4 matvec {K_SPANS}^3", prob, combos, 10)
+        del prob
+        torch.cuda.empty_cache()
+    if args.part == "p4":
+        return
     prob = cs.build(mt, n, dev)
     E, h = prob.n_el, 1.0 / n
     rnd = lambda *s: torch.randn(*s, generator=gen).to(dev, prob.dtype)  # noqa: E731

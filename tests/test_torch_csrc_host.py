@@ -817,7 +817,8 @@ def test_p3_kernels_on_cpu_tensors(host_sweeps, kind, name, visc, bf16):
     assert host_sweeps.kernel_counters(prob.material, kind, 3, 3, visc, bf16)[0].endswith("@3d_p3")
 
 
-MATVEC_CASES = [(p, storage, visc, bf16) for p in (2, 3) for storage in ("cauchy", "sym", "full")
+MATVEC_CASES = [(p, storage, visc, bf16) for p in (2, 3, 4)
+                for storage in ("cauchy", "sym", "full")
                 for visc in (False, True) for bf16 in (False, True)]
 
 
@@ -826,19 +827,22 @@ MATVEC_CASES = [(p, storage, visc, bf16) for p in (2, 3) for storage in ("cauchy
     ids=[f"p{p}_{s}{'_visc' if v else ''}{'_bf16' if b else ''}"
          for p, s, v, b in MATVEC_CASES])
 def test_sf_matvec_tiles_on_cpu_tensors(host_sweeps, p, storage, visc, bf16):
-    """The tiled sf matvec of the host build (one thread per element and
-    point slot, the points' fluxes reduced by the nodes' owners through
-    shared memory) with every storage, inviscid and viscous, a float32 or
-    bfloat16 block, against matvec_sf_plain at 1e-5 of scale, on a ragged
-    last tile: 125 = 3 x 32 + 29 elements at p = 2, 45 = 32 + 13 at p = 3.
-    The block's planes are random (the matvec is linear in them)."""
-    mesh, elev, spans, n = (("cube-nurbs.mesh", 1, 5, 125) if p == 2
-                            else ("cube-nurbs-3.mesh", 0, 4, 45))
+    """The sf matvec of the host build with every storage, inviscid and
+    viscous, a float32 or bfloat16 block, against matvec_sf_plain at 1e-5 of
+    scale, on a ragged last tile.  At p = 2 and p = 3 the tiled kernel (one
+    thread per element and point slot, the points' fluxes reduced by the
+    nodes' owners through shared memory; 125 = 3 x 32 + 29 elements at
+    p = 2, 45 = 32 + 13 at p = 3); at p = 4 the kernel that contracts axis
+    by axis (sf_axis_matvec_kernel: tiles of 16 elements; 45 = 2 x 16 + 13
+    elements of cube-nurbs-3.mesh elevated by 1).  The block's planes are
+    random (the matvec is linear in them)."""
+    mesh, elev, spans, n = {2: ("cube-nurbs.mesh", 1, 5, 125), 3: ("cube-nurbs-3.mesh", 0, 4, 45),
+                            4: ("cube-nurbs-3.mesh", 1, 4, 45)}[p]
     prob = mt.build_problem(os.path.join(DATA, mesh), elev, 0, _hyper("StVenantKirchhoff"),
                             [(1, 0), (1, 1), (1, 2)], {}, rho_inf=0.5, device="cpu",
                             dtype=torch.float32, refine_spans=spans)
     prob = _first_elements(prob, n)
-    assert prob.sf["pp1"] == p + 1 and n % 32 != 0
+    assert prob.sf["pp1"] == p + 1 and n % 32 != 0 and n % 16 != 0
     rng = np.random.default_rng(13)
     f32 = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
     w_el = f32(rng.standard_normal((3, (p + 1) ** 3, n)))
@@ -856,6 +860,55 @@ def test_sf_matvec_tiles_on_cpu_tensors(host_sweeps, p, storage, visc, bf16):
         mv0 = host_sweeps.matvec_sf_plain(w_el, *tables, Cb, *off, storage=storage)
         assert float((mv_p - mv0).abs().max()) > 0.1 * float(mv_p.abs().max())
     assert host_sweeps.LAUNCHES[host_sweeps.matvec_counter("sf", storage, 3, p, visc, bf16)] == 1
+
+
+TILED_MATVEC_CASES = ([((3, 64, 125), storage, visc, bf16) for storage in ("sym", "cauchy", "full")
+                       for visc in (False, True) for bf16 in (False, True)]
+                      + [(key, storage, visc, bf16) for key in ((2, 25, 36), (3, 125, 216))
+                         for storage, visc, bf16 in (("sym", False, False), ("full", True, True))])
+
+
+@pytest.mark.parametrize(
+    "key, storage, visc, bf16", TILED_MATVEC_CASES,
+    ids=[f"{'_'.join(map(str, k))}_{s}{'_visc' if v else ''}{'_bf16' if b else ''}"
+         for k, s, v, b in TILED_MATVEC_CASES])
+def test_dense_tiled_matvec_on_cpu_tensors(host_sweeps, key, storage, visc, bf16):
+    """The tiled dense matvec of the host build (dense_matvec_tile_kernel:
+    the nodes' owners load dN and N once a point, the gradient's partials
+    reduced through shared memory) against matvec_dense_plain at 1e-5 of
+    scale, on 40 = 32 + 8 elements (a ragged last tile of the kernel's 32):
+    every storage, inviscid and viscous, float32 or bfloat16 block and
+    tables at (3, 64, 125) (the two-patch cube elevated by 2), the sym
+    float32 and viscous full bfloat16 ones at (2, 25, 36) (the cantilever
+    elevated by 3) and (3, 125, 216) (the cube elevated by 3).  The planes
+    are random; the mass, the block's and the viscous terms each move the
+    output by more than 10% of its max."""
+    if key[0] == 2:
+        prob = mt.build_problem(BALKEN, 3, 3, _hyper("StVenantKirchhoff"), [(2, 0), (2, 1)], {},
+                                rho_inf=0.5, device="cpu", dtype=torch.float32)
+    else:
+        prob = mt.build_problem(os.path.join(DATA, "two-patch-cube.mesh"), {64: 2, 125: 3}[key[1]], 0,
+                                _hyper("StVenantKirchhoff"), [(0, 0), (0, 1), (0, 2)], {},
+                                rho_inf=0.5, device="cpu", dtype=torch.float32, refine_spans=3)
+    prob = _first_elements(prob, 40)
+    assert (prob.dim, *prob.dense["dN_t"].shape[:1], prob.n_q) == key
+    ct = torch.bfloat16 if bf16 else torch.float32
+    dN, N = prob.dense["dN_t"].to(ct), prob.dense["N_t"].to(ct)
+    rng = np.random.default_rng(16)
+    w_el = torch.tensor(rng.standard_normal((key[0], key[1], 40)), dtype=torch.float32)
+    Cb = torch.tensor(rng.standard_normal((host_sweeps.n_planes(storage, key[0]), key[2], 40)),
+                      dtype=torch.float32).to(ct)
+    args = (1e2, 1.0, 1.0 if visc else None)  # rho, fac0, fac1 mu_v
+    mv = host_sweeps._dense_matvec(w_el, dN, N, prob.wdet_t, Cb, args[0], args[1], storage,
+                                   args[2])
+    mv_p = host_sweeps.matvec_dense_plain(w_el, dN, N, prob.wdet_t, Cb, *args, storage=storage)
+    assert float((mv - mv_p).abs().max()) <= 1e-5 * float(mv_p.abs().max())
+    for k in range(3 if visc else 2):
+        off = tuple(None if i == k == 2 else 0.0 if i == k else a for i, a in enumerate(args))
+        mv0 = host_sweeps.matvec_dense_plain(w_el, dN, N, prob.wdet_t, Cb, *off, storage=storage)
+        assert float((mv_p - mv0).abs().max()) > 0.1 * float(mv_p.abs().max())
+    name = host_sweeps.matvec_counter("dense", storage, key[0], key, visc, bf16)
+    assert host_sweeps.LAUNCHES[name] == 1
 
 
 # one bfloat16 instantiation of each bfloat16 dense source: (source, material,
