@@ -472,7 +472,9 @@ int launch_dense_tile(const Pt& point, const float* f0, const float* f1, const T
 // then each node's owner for the scatter: 30.8 GB).  Here the nodes'
 // owners carry the tables.  A block takes DTILE = 32 consecutive elements,
 // one per lane, in MatvecTile::SLOTS owner warps and one flux warp; the
-// owner (slot s, lane) holds the nodes n = s + SLOTS j, at most 8.  For
+// owner (slot s, lane) holds the nodes n = s + SLOTS j, at most 8 up to
+// 128 nodes; past that SLOTS stays 16 (544 threads) and an owner holds
+// more (14 at 3D p = 5, 22 at p = 6), so the block stays within 1024.  For
 // each point q in turn an owner loads dN[n][:][q] and N[n][q] of its nodes
 // into registers (one 128-byte line a warp each, 32 floats at (3, 64, 125)),
 // adds its nodes' share of grad w and w (DIM^2 + DIM partial sums, one
@@ -556,9 +558,12 @@ struct FluxApply<FullStorage<DIM>, VISC, DIM, CT> {
 
 template <class S>
 struct MatvecTile {
-  static constexpr int SLOTS = (S::ND + 7) / 8;  // owner warps: at most 8 nodes each
+  // owner warps: 8 nodes each up to 128 nodes, past that 16 warps (3D
+  // p = 5: 14 nodes each), so that a block stays within 1024 threads
+  static constexpr int SLOTS = (S::ND + 7) / 8 < 16 ? (S::ND + 7) / 8 : 16;
   static constexpr int OWN = (S::ND + SLOTS - 1) / SLOTS;
   static constexpr int THREADS = DTILE * (SLOTS + 1);
+  static_assert(THREADS <= 1024, "a block has at most 1024 threads");
   static constexpr int MIN_BLOCKS = THREADS <= 288 ? 2 : 1;
   static constexpr size_t SMEM =
       sizeof(float) * DTILE * (S::NW + (SLOTS + 1) * TileStage<S::DIM>::W + 1);

@@ -11,7 +11,11 @@
 // it and the next block finds it as the last one left it; the launch's
 // dynamic shared memory (MIMI_DYNAMIC_SHARED, launch.cuh) is one buffer of
 // the launch's `shared` bytes, allocated once and shared in the same way;
-// __syncthreads() is a barrier of the block's threads.  The single-rounding intrinsics are
+// __syncthreads() is a barrier of the block's threads.  The limits of an
+// sm_90 launch hold as on the card: a block of more than 1024 threads, or
+// of more dynamic shared memory than the 227 KB a block may have, does not
+// run and leaves its error for cudaGetLastError, and
+// cudaFuncSetAttribute refuses more than 227 KB.  The single-rounding intrinsics are
 // plain IEEE float operations, exact as long as the compiler contracts no
 // FMA (-ffp-contract=off).
 
@@ -54,10 +58,20 @@ inline long long opaque(long long x) { return x; }
 inline unsigned char* mimi_host_dynamic_shared = nullptr;
 #define MIMI_DYNAMIC_SHARED(T, name) T* name = reinterpret_cast<T*>(mimi_host_dynamic_shared)
 
+typedef struct mimi_host_stream* cudaStream_t;
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9 };
+// the error of the last launch, until cudaGetLastError reads it
+inline cudaError_t mimi_host_last_error = cudaSuccess;
+constexpr size_t MIMI_HOST_BLOCK_THREADS = 1024, MIMI_HOST_BLOCK_SMEM = 227 * 1024;
+
 // run `kernel()` as a grid of `grid` blocks of `block` threads with
 // `shared` bytes of dynamic shared memory
 template <class K>
 inline void mimi_host_launch(unsigned grid, unsigned block, size_t shared, const K& kernel) {
+  if (block == 0 || block > MIMI_HOST_BLOCK_THREADS || shared > MIMI_HOST_BLOCK_SMEM) {
+    mimi_host_last_error = cudaErrorInvalidConfiguration;
+    return;
+  }
   std::vector<std::max_align_t> smem((shared + sizeof(std::max_align_t) - 1) /
                                      sizeof(std::max_align_t));
   mimi_host_dynamic_shared = reinterpret_cast<unsigned char*>(smem.data());
@@ -79,17 +93,19 @@ inline void mimi_host_launch(unsigned grid, unsigned block, size_t shared, const
   mimi_host_dynamic_shared = nullptr;
 }
 
-typedef struct mimi_host_stream* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaGetLastError() {
+  const cudaError_t err = mimi_host_last_error;
+  mimi_host_last_error = cudaSuccess;
+  return err;
+}
 inline cudaError_t cudaGetDevice(int* dev) {
   *dev = 0;
   return cudaSuccess;
 }
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <class T>
-inline cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int) {
-  return cudaSuccess;
+inline cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int bytes) {
+  return bytes < 0 || (size_t)bytes > MIMI_HOST_BLOCK_SMEM ? cudaErrorInvalidValue : cudaSuccess;
 }
 
 template <class T>

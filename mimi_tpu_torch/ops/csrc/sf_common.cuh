@@ -497,7 +497,7 @@ int launch_residual(const float* u_el, const float* a_el, const float* v_el,
 // as the plain version (ops/sweeps.py sf_param_grad, sf_scatter) and the
 // TPU kernel (mimi_tpu/ops/sweeps.py:941-951) do: ~25k multiply-adds an
 // element each way instead of ~470k.  A block of AXIS_THREADS = 288 threads
-// takes AXIS_TILE = 16 consecutive elements, so that every read of a
+// takes TE = 16 consecutive elements (fewer below), so that every read of a
 // batch-last row (the block's planes, jinv, w det J, the 1D tables, w; and
 // the output's writes) is 64 contiguous bytes in float32, 32 in bfloat16:
 // whole sectors (at 8 elements the float32 matvec took 1.96 ms at path K,
@@ -519,8 +519,22 @@ int launch_residual(const float* u_el, const float* a_el, const float* v_el,
 // order: deterministic, no atomics; the forward terms of the mass and of
 // D0 Z0, which share B1 and B2 on the way back, are summed at axis 0.
 // Shared memory: 2700 floats an element at SfShape<5, 6>, 172.8 KB a
-// block: one block (9 warps) an SM, as its 168 registers allow.
-constexpr int AXIS_THREADS = 288, AXIS_TILE = 16;
+// block: one block (9 warps) an SM, as its 168 registers allow.  The tile
+// is 16 elements where that fits in the 227 KB a block may have, else 8
+// (p = 4 at 8 Gauss points per axis, 138.2 KB; p = 5 at its default 7,
+// 141.1 KB), 4, 2 or 1 (AxisShared::TE); thread t then works for element
+// t % TE, and its group t / TE walks the items.
+constexpr int AXIS_THREADS = 288;
+// the dynamic shared memory one block may have on sm_90
+constexpr size_t BLOCK_SMEM_MAX = 227 * 1024;
+
+// elements a block of sf_axis_matvec_kernel takes: the most of 16, 8, 4,
+// 2, 1 whose `rows` floats an element fit in a block's shared memory
+constexpr int axis_tile(int rows) {
+  for (int te = 16; te > 1; te /= 2)
+    if (sizeof(float) * rows * te <= BLOCK_SMEM_MAX) return te;
+  return 1;
+}
 
 // floats an element of sf_axis_matvec_kernel keeps in shared memory, and
 // the row of each value
@@ -530,6 +544,10 @@ struct AxisShared {
   static constexpr int TAB = 6 * NG * P1, A = 3 * 2 * NG * PP, B = 3 * 3 * NG * NG * P1;
   static constexpr int ROWS = TAB + A + B;
   static_assert(S::NV <= B, "w is staged in the axis-1 region");
+  static constexpr int TE = axis_tile(ROWS);  // elements a block
+  static constexpr size_t SMEM = sizeof(float) * ROWS * TE;
+  static_assert(SMEM <= BLOCK_SMEM_MAX && AXIS_THREADS % TE == 0,
+                "one element's rows exceed a block's shared memory");
   // table t (B0, D0, B1, D1, B2, D2) at point q, node a
   __host__ __device__ static constexpr int tab(int t, int q, int a) { return (t * NG + q) * P1 + a; }
   // axis 2 contracted with B2 (k 0) or D2 (k 1): [c][k][q2][a1 a0]
@@ -550,8 +568,8 @@ __global__ void __launch_bounds__(AXIS_THREADS, 1)
                           float fac0, float fac1_mu_v, long long E) {
   using L = AxisShared<S>;
   constexpr int P1 = S::P1, NG = S::NG, ND = S::ND, PP = L::PP;
-  constexpr int TE = AXIS_TILE, GROUPS = AXIS_THREADS / TE;
-  MIMI_DYNAMIC_SHARED(float, smem);  // sh[L::ROWS][AXIS_TILE]
+  constexpr int TE = L::TE, GROUPS = AXIS_THREADS / TE;
+  MIMI_DYNAMIC_SHARED(float, smem);  // sh[L::ROWS][TE]
   float(*sh)[TE] = reinterpret_cast<float(*)[TE]>(smem);
   const int lane = threadIdx.x % TE, grp = threadIdx.x / TE;
   const long long e = (long long)blockIdx.x * TE + lane;
@@ -741,10 +759,11 @@ int launch_matvec(const float* w_el, const Tables& tb, const float* jinv,
                   const float* wq, const void* cb, float* out, float rho,
                   float fac0, float fac1_mu_v, long long E, void* stream) {
   if constexpr (S::P1 >= 5) {
-    constexpr size_t smem = sizeof(float) * AXIS_TILE * AxisShared<S>::ROWS;
+    using L = AxisShared<S>;
+    constexpr size_t smem = L::SMEM;
     if (const int err = allow_dynamic_smem<sf_axis_matvec_kernel<S, Store, VISC, CT>>(smem))
       return err;
-    const unsigned tiles = (unsigned)((E + AXIS_TILE - 1) / AXIS_TILE);
+    const unsigned tiles = (unsigned)((E + L::TE - 1) / L::TE);
     sf_axis_matvec_kernel<S, Store, VISC, CT><<<tiles, AXIS_THREADS, smem, (cudaStream_t)stream>>>(
         w_el, tb, jinv, wq, static_cast<const CT*>(cb), out, rho, fac0, fac1_mu_v, E);
     return (int)cudaGetLastError();

@@ -56,7 +56,7 @@
 // kernel reads each point's dN and N twice (the point's F, then each
 // node's owner); the tiled matvec, which runs ~250 times a step at path I,
 // has a kernel of its own that reads them once (dense_common.cuh
-// dense_matvec_tile_kernel: the owners of 8 nodes hold their rows in
+// dense_matvec_tile_kernel: the owners of 8 nodes (more past 128) hold their rows in
 // registers from the gradient's partial sums to the scatter, a flux warp
 // applies the block): at path I's 2 x 38^3 it took the `sym` matvec from
 // 17.09 to 7.25 ms against a 5.00 ms bound (scripts/ab_dense_sweeps.py

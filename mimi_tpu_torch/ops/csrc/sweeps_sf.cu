@@ -91,7 +91,9 @@
 // time as the plain version and the TPU kernel do: at p = 4 ~51k
 // multiply-adds an element against sf_tile_kernel's ~1M (27,000 node-point
 // pairs, ~38 each); 288 threads on 16 elements, 172.8 KB of shared memory,
-// 168 registers, 0 B spilled (ptxas, CUDA 12.8), one block an SM; at path
+// 168 registers, 0 B spilled (ptxas, CUDA 12.8), one block an SM (on 8
+// elements where 16 would pass the 227 KB a block may have: p = 4 at 8
+// Gauss points per axis, p = 5); at path
 // K's 40^3 the Cauchy matvec went from 12.88 to 1.61 ms
 // (scripts/ab_sf_sweeps.py --part p4, PERF.md), against a 0.85 ms bound by
 // bytes: what is left is the pencils' load latency (one block, 9 warps, an

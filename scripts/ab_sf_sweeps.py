@@ -5,6 +5,7 @@ GPU, on the same inputs in one process.
 
     mkdir -p <dir>; git archive <rev> mimi_tpu_torch/ops/csrc | tar -x -C <dir>
     python3 scripts/ab_sf_sweeps.py --base <dir> [--part all|earlier|p4] [--only REGEX]
+    python3 scripts/ab_sf_sweeps.py --part wide
 
 The base's sources (<dir>/mimi_tpu_torch/ops/csrc) are built at the sf
 shapes (3, 4) and (4, 5) with the flags and shape defines of ops/build.py
@@ -22,7 +23,12 @@ float32 ones on path H's tables at 48^3, cube-nurbs-3.mesh; the viscous
 and bfloat16 ones at 16^3); with `--part p4` (or all) every p = 4
 matvec instantiation (SfShape<5, 6>) on random w and random planes at
 path K's tables (cube-nurbs-3.mesh elevated by 1, 40^3), each with its
-bound by bytes.  Every output of
+bound by bytes.  `--part wide` builds this checkout alone, at the two sf
+shapes whose axis matvec takes tiles of 8 elements (SfShape<5, 8>: p = 4
+at quadrature order 14; SfShape<6, 7>: p = 5), and holds every matvec
+instantiation there against matvec_sf_plain on random w and planes
+(cube-nurbs-3.mesh elevated by 1 and 2, at 9^3 and 7^3: ragged last
+tiles), with its CUDA-event time and bound.  Every output of
 the two versions is compared: the max abs difference, relative to the
 output's max, and whether they are equal to the bit.  The times are CUDA-event means,
 taken base, new, new, base.  Prints the card's name and power limit
@@ -43,6 +49,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 KEYS = [("sf", (3, 4)), ("sf", (4, 5))]
 P4_KEYS = [("sf", (5, 6))]
+WIDE_KEYS = [("sf", (5, 8)), ("sf", (6, 7))]
 K_SPANS = 40  # path K: 40^3 elements at p = 4
 
 
@@ -54,13 +61,16 @@ def use(kb, libs):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--base", required=True, help="directory holding the other version's "
-                    "mimi_tpu_torch/ops/csrc")
+    ap.add_argument("--base", help="directory holding the other version's "
+                    "mimi_tpu_torch/ops/csrc (all but --part wide)")
     ap.add_argument("--spans", type=int, default=48)
     ap.add_argument("--only", default="", help="time only the rows whose name matches")
-    ap.add_argument("--part", choices=("all", "earlier", "p4"), default="all",
-                    help="earlier: p = 2 and p = 3; p4: the p = 4 matvecs at path K's size")
+    ap.add_argument("--part", choices=("all", "earlier", "p4", "wide"), default="all",
+                    help="earlier: p = 2 and p = 3; p4: the p = 4 matvecs at path K's size; "
+                    "wide: the matvecs at (5, 8) and (6, 7) against plain")
     args = ap.parse_args()
+    if args.part != "wide" and not args.base:
+        ap.error("--base is needed but with --part wide")
     import torch
 
     if not torch.cuda.is_available():
@@ -75,8 +85,10 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
     t0 = time.perf_counter()
-    keys = (KEYS if args.part != "p4" else []) + (P4_KEYS if args.part != "earlier" else [])
     kb.JOBS = os.cpu_count() or kb.JOBS  # nothing else runs beside the builds
+    if args.part == "wide":
+        return wide(torch, cs, mt, kb, sweeps, t0)
+    keys = (KEYS if args.part != "p4" else []) + (P4_KEYS if args.part != "earlier" else [])
     kb.start(keys)
     base = os.path.abspath(args.base)
     libs = {}
@@ -204,5 +216,45 @@ def main():
     matvecs("p=3 matvec 16^3", prob, [c for c in combos if c[1] or c[2]], 20)
 
 
+def wide(torch, cs, mt, kb, sweeps, t0):
+    """--part wide: every sf matvec instantiation at WIDE_KEYS against
+    matvec_sf_plain at 1e-5 of the output's max, and its time."""
+    kb.start(WIDE_KEYS)
+    kb.prebuild(WIDE_KEYS)
+    print(f"builds {time.perf_counter() - t0:.1f} s", flush=True)
+    cs.fail = lambda msg: print(f"[2. ptxas] {msg}", flush=True)
+    cs.check_ptxas(kb, WIDE_KEYS)
+    dev, gen, bad = torch.device("cuda"), torch.Generator().manual_seed(0), []
+    for elevate, order, spans in ((1, 14, 9), (2, -1, 7)):
+        prob = mt.build_problem(cs.MESH3, elevate, 0, cs.jc_material(mt),
+                                [(1, 0), (1, 1), (1, 2)], {1: -3.0}, rho_inf=0.5, device=dev,
+                                refine_spans=spans, quadrature_order=order)
+        key = cs.table_key(prob)
+        E, nd = prob.n_el, prob.sf["pp1"] ** 3
+        tabs, jinv, wq = prob.sf["tables"], prob.sf["jinv"], prob.wdet_t
+        w_el = torch.randn(3, nd, E, generator=gen).to(dev)
+        for storage in ("cauchy", "sym", "full"):
+            for visc in (False, True):
+                for bf16 in (False, True):
+                    C = torch.randn(sweeps.n_planes(storage), prob.n_q, E, generator=gen).to(dev)
+                    C = C.to(torch.bfloat16) if bf16 else C
+                    a = (w_el, tabs, jinv, wq, C, 1e2, 1e-3, 50.0 if visc else None, storage)
+                    y_k = sweeps.matvec_sf(*a)
+                    y_p = sweeps.matvec_sf_plain(*a[:-1], storage=storage)
+                    err, scale = float((y_k - y_p).abs().max()), float(y_p.abs().max())
+                    ms = cs.cuda_ms(torch, lambda a=a: sweeps.matvec_sf(*a), 20)
+                    bound, _ = cs.bound_of(cs.nbytes(w_el, tabs, jinv, wq, C, w_el), 0)
+                    name = sweeps.matvec_counter("sf", storage, 3, key, visc, bf16)
+                    ok = err <= 1e-5 * scale
+                    bad += [] if ok else [name]
+                    print(f"[wide {key} {E} elements] {name}: {ms:.4f} ms, bound {bound:.4f} ms "
+                          f"by bytes; vs plain max|err| {err:.3e} of scale {scale:.3e} "
+                          f"({err / scale:.2e}, bar 1e-5): {'ok' if ok else 'FAIL'}", flush=True)
+        del prob, w_el, tabs, jinv, wq
+        torch.cuda.empty_cache()
+    print(f"wide: {'every matvec within its bar' if not bad else f'FAIL {bad}'}", flush=True)
+    return 1 if bad else 0
+
+
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

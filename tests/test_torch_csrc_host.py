@@ -11,9 +11,11 @@ by the block's threads and __syncthreads() is a barrier of them, so the
 sf residual kernel, whose threads reduce through shared memory, runs as
 on the card.  Each source must compile at each shape of HOST_SHAPES (the
 defines of ops/build.py: the default shapes and shapes outside them, sf
-p = 1, p = 4 and p = 2 at 3 Gauss points per axis, dense 2D p = 4, 3D
-p = 1 and p = 4, 2D degrees [3, 2]), so that a template that breaks at a
-new shape fails here first; the objects of one kind and shape are linked
+p = 1, p = 4 at 6 and 8 Gauss points per axis and p = 2 at 3, dense 2D
+p = 4, 3D p = 1, p = 4 and p = 6, 2D degrees [3, 2]), so that a template
+that breaks at a new shape fails here first; a launch past the card's
+limits (1024 threads, 227 KB of shared memory a block) fails here as
+there; the objects of one kind and shape are linked
 into one library with the C entry points of ops/build.py, and the dense
 finite-strain kernels (sweeps_dense_finite.cu) run on CPU tensors at 4
 elements (2D, p = 3), the viscous dense kernels (sym and cauchy, 2D and
@@ -57,12 +59,14 @@ SOURCES = [os.path.basename(s) for s in kbuild.SOURCES]
 CXX = ["-std=c++20", "-O1", "-fPIC", "-pthread", "-ffp-contract=off", "-w"]
 # the shapes every source of a kind is built at: the earlier paths' shapes and
 # sf (2, 3) (p = 1), (5, 6) (p = 4), (3, 3) (p = 2 at quadrature order 5),
+# (5, 8) (p = 4 at quadrature order 14: the axis matvec's tile of 8),
 # dense (2, 25, 36) (2D p = 4), (3, 8, 27) (3D p = 1), (3, 125, 216) (3D
-# p = 4), (2, 12, 20) (2D degrees [3, 2])
+# p = 4), (2, 12, 20) (2D degrees [3, 2]), (3, 343, 512) (3D p = 6: the
+# tiled matvec's owner warps capped at 16)
 HOST_SHAPES = {
-    "sf": SF_SHAPES + ((2, 3), (5, 6), (3, 3)),
+    "sf": SF_SHAPES + ((2, 3), (5, 6), (3, 3), (5, 8)),
     "dense": tuple(tsw.dense_key(d, p) for d, p in DENSE_SHAPES)
-    + ((2, 25, 36), (3, 8, 27), (3, 125, 216), (2, 12, 20)),
+    + ((2, 25, 36), (3, 8, 27), (3, 125, 216), (2, 12, 20), (3, 343, 512)),
 }
 HOST_UNITS = [(kind, shape, name) for kind, shapes in HOST_SHAPES.items() for shape in shapes
               for name in kbuild.KIND_SOURCES[kind]]
@@ -822,6 +826,39 @@ MATVEC_CASES = [(p, storage, visc, bf16) for p in (2, 3, 4)
                 for visc in (False, True) for bf16 in (False, True)]
 
 
+def _hold_sf_matvec(host_sweeps, p, n, storage, visc, bf16, order=-1):
+    """The sf matvec of the host build on the first n elements of the
+    cube at degree p (quadrature order `order`, -1 the default) against
+    matvec_sf_plain at 1e-5 of scale, the block's planes random (the matvec
+    is linear in them); the mass, the block's and the viscous terms each
+    move the output by more than 10% of its max at these factors."""
+    mesh, elev, spans = {2: ("cube-nurbs.mesh", 1, 5), 3: ("cube-nurbs-3.mesh", 0, 4),
+                         4: ("cube-nurbs-3.mesh", 1, 4)}[p]
+    prob = mt.build_problem(os.path.join(DATA, mesh), elev, 0, _hyper("StVenantKirchhoff"),
+                            [(1, 0), (1, 1), (1, 2)], {}, rho_inf=0.5, device="cpu",
+                            dtype=torch.float32, refine_spans=spans, quadrature_order=order)
+    prob = _first_elements(prob, n)
+    assert prob.sf["pp1"] == p + 1
+    rng = np.random.default_rng(13)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
+    w_el = f32(rng.standard_normal((3, (p + 1) ** 3, n)))
+    Cb = f32(rng.standard_normal((host_sweeps.n_planes(storage), prob.n_q, n)))
+    Cb = Cb.to(torch.bfloat16 if bf16 else torch.float32)
+    tables = (prob.sf["tables"], prob.sf["jinv"], prob.wdet_t)
+    args = (1e2, 1.0, 1.0 if visc else None)  # rho, fac0, fac1 mu_v
+    mv = host_sweeps._sf_matvec(w_el, *tables, Cb, *args, storage)
+    mv_p = host_sweeps.matvec_sf_plain(w_el, *tables, Cb, *args, storage=storage)
+    assert float((mv - mv_p).abs().max()) <= 1e-5 * float(mv_p.abs().max())
+    for k in range(3 if visc else 2):
+        off = tuple(None if i == k == 2 else 0.0 if i == k else a for i, a in enumerate(args))
+        mv0 = host_sweeps.matvec_sf_plain(w_el, *tables, Cb, *off, storage=storage)
+        assert float((mv_p - mv0).abs().max()) > 0.1 * float(mv_p.abs().max())
+    key = (p + 1, prob.sf["tables"][0].shape[0])  # (p + 1, Gauss points per axis)
+    name = host_sweeps.matvec_counter("sf", storage, 3, key, visc, bf16)
+    assert host_sweeps.LAUNCHES[name] == 1
+    return prob
+
+
 @pytest.mark.parametrize(
     "p, storage, visc, bf16", MATVEC_CASES,
     ids=[f"p{p}_{s}{'_visc' if v else ''}{'_bf16' if b else ''}"
@@ -836,30 +873,29 @@ def test_sf_matvec_tiles_on_cpu_tensors(host_sweeps, p, storage, visc, bf16):
     by axis (sf_axis_matvec_kernel: tiles of 16 elements; 45 = 2 x 16 + 13
     elements of cube-nurbs-3.mesh elevated by 1).  The block's planes are
     random (the matvec is linear in them)."""
-    mesh, elev, spans, n = {2: ("cube-nurbs.mesh", 1, 5, 125), 3: ("cube-nurbs-3.mesh", 0, 4, 45),
-                            4: ("cube-nurbs-3.mesh", 1, 4, 45)}[p]
-    prob = mt.build_problem(os.path.join(DATA, mesh), elev, 0, _hyper("StVenantKirchhoff"),
-                            [(1, 0), (1, 1), (1, 2)], {}, rho_inf=0.5, device="cpu",
-                            dtype=torch.float32, refine_spans=spans)
-    prob = _first_elements(prob, n)
-    assert prob.sf["pp1"] == p + 1 and n % 32 != 0 and n % 16 != 0
-    rng = np.random.default_rng(13)
-    f32 = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
-    w_el = f32(rng.standard_normal((3, (p + 1) ** 3, n)))
-    Cb = f32(rng.standard_normal((host_sweeps.n_planes(storage), prob.n_q, n)))
-    Cb = Cb.to(torch.bfloat16 if bf16 else torch.float32)
-    tables = (prob.sf["tables"], prob.sf["jinv"], prob.wdet_t)
-    args = (1e2, 1.0, 1.0 if visc else None)  # rho, fac0, fac1 mu_v
-    mv = host_sweeps._sf_matvec(w_el, *tables, Cb, *args, storage)
-    mv_p = host_sweeps.matvec_sf_plain(w_el, *tables, Cb, *args, storage=storage)
-    assert float((mv - mv_p).abs().max()) <= 1e-5 * float(mv_p.abs().max())
-    # the mass, the block's and the viscous terms each move the output by
-    # more than 10% of its max at these factors
-    for k in range(3 if visc else 2):
-        off = tuple(None if i == k == 2 else 0.0 if i == k else a for i, a in enumerate(args))
-        mv0 = host_sweeps.matvec_sf_plain(w_el, *tables, Cb, *off, storage=storage)
-        assert float((mv_p - mv0).abs().max()) > 0.1 * float(mv_p.abs().max())
-    assert host_sweeps.LAUNCHES[host_sweeps.matvec_counter("sf", storage, 3, p, visc, bf16)] == 1
+    n = {2: 125, 3: 45, 4: 45}[p]
+    assert n % 32 != 0 and n % 16 != 0
+    _hold_sf_matvec(host_sweeps, p, n, storage, visc, bf16)
+
+
+# p = 4 at quadrature order 14, 8 Gauss points per axis: 16 elements of the
+# axis matvec take more shared memory than a block may have, so its tile is
+# 8 elements
+AXIS8_CASES = [("cauchy", False, False), ("sym", True, True), ("full", True, False),
+               ("full", False, True)]
+
+
+@pytest.mark.parametrize(
+    "storage, visc, bf16", AXIS8_CASES,
+    ids=[f"{s}{'_visc' if v else ''}{'_bf16' if b else ''}" for s, v, b in AXIS8_CASES])
+def test_sf_axis_matvec_at_8_gauss_points_on_cpu_tensors(host_sweeps, storage, visc, bf16):
+    """The p = 4 sf matvec at 8 Gauss points per axis (SfShape<5, 8>: 512
+    points, tiles of 8 elements, 138.2 KB of shared memory a block, within
+    the 227 KB the host build's launch allows as the card does) against
+    matvec_sf_plain at 1e-5 of scale, on 21 = 2 x 8 + 5 elements: each
+    storage, inviscid and viscous, float32 or bfloat16 block."""
+    prob = _hold_sf_matvec(host_sweeps, 4, 21, storage, visc, bf16, order=14)
+    assert prob.n_q == 8**3 and prob.sf["tables"][0].shape[:2] == (8, 5)
 
 
 TILED_MATVEC_CASES = ([((3, 64, 125), storage, visc, bf16) for storage in ("sym", "cauchy", "full")
