@@ -258,7 +258,7 @@ LOG_STEPS = 1  # 1 since phases 62-67 were added (2 before)
 # finite_phases), read at the drive's last state and PATH_READINGS more: the
 # assemble's bar; on an NVIDIA H100 80GB HBM3 the readings ran 1.5e-5 to 6.5e-5
 PATH_RES_BAR = 1e-4
-PATH_READINGS = 3
+PATH_READINGS = 1  # 1 for the smoke's time (3 before)
 A_PLASTIC = 1.0
 # the 2D dense-table path: the golden cantilever of the reference's
 # trajectories (tests/test_nonlinear_solid.py:22-90), balken.mesh (the unit
@@ -687,10 +687,13 @@ def check_ptxas(kbuild, keys, label="2. ptxas"):
         name = re.sub(r"\((int|bool)\)", "", full_name.split("(const float")[0])
         tiled_matvec = "dense_matvec_tile_kernel" in name
         tiled = "dense_tile_kernel" in name or tiled_matvec
+        finite = "dense_finite_kernel" in name  # J2Simo's and J2Log's point slots
+        if finite:
+            name = re.sub(r"\((int|bool)\)", "", full_name.split(">(")[0] + ">")
         new = any(f"DenseShape<{d}, {n}, {q}>" in name for d, n, q in new_dense)
         bf16 = "__nv_bfloat16" in full_name.split(">(")[0] and "dense_" in full_name
         spilled = v.get("spill_stores", 0) + v.get("spill_loads", 0)
-        if ("FullStorage" in name or tiled or new or bf16) and full_name not in ents:
+        if ("FullStorage" in name or tiled or new or bf16 or finite) and full_name not in ents:
             say(f"[{label}] {name}: {v.get('registers')} registers, {v.get('smem')} B smem, "
                 f"spill stores {v.get('spill_stores')} B, loads {v.get('spill_loads')} B")
         if bf16 and (tiled_matvec or "dense_matvec_kernel" in name):
@@ -708,9 +711,10 @@ def plastic_points(soa, sweeps, prob, u_el, state, dt):
     return int(prob.material._return_map(F, state, dt)[4].sum())
 
 
-# timed calls of a plain version after its warm call: the plain sweeps take
-# 10 ms to 2 s, far above the events' resolution, and their time is a
-# reference for the kernels' rows, not a result
+# timed calls of a plain version, with no warm call of its own (each check
+# ran it on the same inputs just before): the plain sweeps take 10 ms to
+# 2 s, far above the events' resolution, and their time is a reference for
+# the kernels' rows, not a result
 PLAIN_REPS = 1
 
 
@@ -727,8 +731,11 @@ def twin(fn):
     return run
 
 
-def cuda_ms(torch, fn, reps):
-    fn()
+def cuda_ms(torch, fn, reps, warm=True):
+    """ms a call of fn over `reps` calls between CUDA events, after a warm
+    call unless not `warm`."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
@@ -853,8 +860,8 @@ def ragged_tile_phase(torch, mt, sweeps, soa, device, gen):
     bfloat16 block (the contact press's variants) and the matvec on its
     block at RAGGED_SPANS^3 elements, where the residual kernel's last tile
     of 32 elements is partial, on random plastic input (plastic_inputs,
-    share >= 0.25), against their plain versions at hold_viscous's bars,
-    timed beside phase 11's rows."""
+    share >= 0.25), against their plain versions at hold_viscous's bars
+    (untimed: phase 11 times the same kernels at 48^3)."""
     prob = build(mt, RAGGED_SPANS, device)
     E, dt = prob.n_el, STEP_KW["dt"]
     f, share = plastic_inputs(torch, sweeps, soa, prob, prob.material, gen, dt, LAW_AMPLITUDE)
@@ -866,7 +873,8 @@ def ragged_tile_phase(torch, mt, sweeps, soa, device, gen):
     if share < 0.25:
         fail(f"{label}: plastic share {share} < 0.25: the check would not exercise the return "
              "map")
-    hold_viscous(torch, sweeps, prob, prob.material, f, dt, label, combos=((True, True),))
+    hold_viscous(torch, sweeps, prob, prob.material, f, dt, label, combos=((True, True),),
+                 timed=False)
     del prob, f
     torch.cuda.empty_cache()
 
@@ -1077,7 +1085,7 @@ def contact_phases(torch, mt, sweeps, soa, sh, device, gen):
     for name, replaces in VARIANTS:
         kern, plain = calls[name]
         ms = cuda_ms(torch, kern, 20)
-        plain_ms = cuda_ms(torch, plain, PLAIN_REPS)
+        plain_ms = cuda_ms(torch, plain, PLAIN_REPS, warm=False)
         row = kernel_row(name, SOURCE[0], replaces, launches[name], errs[name], ms,
                          plain_ms, byts[name], n_pts * OPS_PER_POINT[name])
         say(f"[11. 48^3 timing] {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms; "
@@ -1263,7 +1271,7 @@ def time_sym(torch, sweeps, prob, u_el, a_el, w_el, Cs, names, launches, errs, l
             continue
         a, kw = (mv_args, {"storage": "sym"}) if i == 2 else (args, {})
         ms = cuda_ms(torch, lambda: fns[i](*a, **kw), 20)
-        plain_ms = cuda_ms(torch, lambda: plain[i](*a, **kw), PLAIN_REPS)
+        plain_ms = cuda_ms(torch, lambda: plain[i](*a, **kw), PLAIN_REPS, warm=False)
         row = kernel_row(name, SOURCE[6 if kind == "sf" else 1], replaces, launches[name],
                          errs[name], ms, plain_ms, byts[i], n_pts * OPS_PER_POINT[name])
         say(f"[{label}] {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms; "
@@ -1280,6 +1288,7 @@ def drive(torch, mt, sweeps, prob, label, timed, kernels):
     launched in each step, the state stayed finite and each timed step's
     Newton residual fell four orders (rel_tol 1e-8 is below float32
     resolution).  Returns (carry, step, s/step, launches)."""
+    deep0, launches0 = sweeps.logm_deep_sweeps(), collections.Counter(sweeps.LAUNCHES)
     t0 = time.perf_counter()
     carry = mt.initial_carry(prob)
     torch.cuda.synchronize()
@@ -1310,6 +1319,7 @@ def drive(torch, mt, sweeps, prob, label, timed, kernels):
     for d in diags:
         say(f"[{label}] newton |r0| {d['norm0']:.4e} -> |r| {d['norm']:.4e} "
             f"(ratio {d['norm'] / d['norm0']:.2e})")
+    log_series_line(sweeps, prob, launches - launches0, deep0, label)
     for name in kernels:  # at least once in each of the 1 + timed steps
         if launches[name] < 1 + timed:
             fail(f"kernel {name} was launched {launches[name]} times in {1 + timed} steps "
@@ -1522,7 +1532,7 @@ def fused_phase(torch, sweeps, fused, sh, prob, step, carry, u_el, w_el, Cs, gen
     for name, replaces in FUSED_KERNELS:
         kern, plain, n_in = calls[name]
         ms = cuda_ms(torch, kern, 20)
-        plain_ms = cuda_ms(torch, plain, PLAIN_REPS)
+        plain_ms = cuda_ms(torch, plain, PLAIN_REPS, warm=False)
         row = kernel_row(name, SOURCE[2], replaces, launches[name], errs[name], ms, plain_ms,
                          n_in + el_out, n_pts * OPS_PER_POINT[name])
         say(f"[{label} timing] {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms; "
@@ -1738,7 +1748,8 @@ def compare_kernels(torch, sweeps, prob, u_el, a_el, w_el, state, dt, label, par
     scale, planes 1e-4 of their group's max (plane_groups).  The kernels
     run once on all elements; the plain residual and assemble run on each
     element range of `parts` ({name: slice}, default all elements), each
-    held on its own scale.  Entries the plain version NaN-poisons must be
+    held on its own scale (J2Log only whole: a plain slice would decide
+    its log series alone, the kernel decides once a launch).  Entries the plain version NaN-poisons must be
     NaN in the kernel's output too (masked_err).  For a material with a
     yield surface, points at it where the kernel takes the other branch
     (YIELD_BAND) are counted and left out of the planes' bar
@@ -1924,7 +1935,7 @@ def time_sf(torch, sweeps, prob, u_el, a_el, w_el, state, C, names, launches, er
             continue
         ms = cuda_ms(torch, fns[i][0], 10)
         torch.cuda.empty_cache()
-        plain_ms = cuda_ms(torch, fns[i][1], PLAIN_REPS)
+        plain_ms = cuda_ms(torch, fns[i][1], PLAIN_REPS, warm=False)
         torch.cuda.empty_cache()
         row = kernel_row(name, SF_SOURCE[storage], replaces, launches[name],
                          errs[name], ms, plain_ms, byts[i], n_pts * ops)
@@ -1934,6 +1945,48 @@ def time_sf(torch, sweeps, prob, u_el, a_el, w_el, state, C, names, launches, er
             f"of 3.35)")
         rows.append(row)
     return rows
+
+
+def deep_sweeps_held(sweeps, n0, want, label):
+    """The J2Log sweeps that took the deep log series since the kernels'
+    count read `n0` (sweeps.logm_deep_sweeps) must be `want`."""
+    deep = sweeps.logm_deep_sweeps() - n0
+    say(f"[{label}] J2Log sweeps that took the deep log series {deep} of 2 (residual, "
+        f"assemble)")
+    if deep != want:
+        fail(f"{label}: {deep} deep sweeps, {want} expected")
+
+
+def hold_log_series(torch, sweeps, prob, u_el, a_el, w_el, state, dt, label, n_out=2):
+    """J2Log's kernels where the first n_out elements of the input leave
+    the fast log series' range (`state` stretched: element 0 the deep
+    series, element 1 past it, NaN-poisoned), beside in-range elements.
+    The kernels decide the series once a sweep, as the plain version (the
+    reference's lax.cond) does for its batch: the mixed batch and the
+    stretched elements on their own are held against the plain version at
+    compare_kernels' bars, each sweep in the deep series (deep_sweeps_held;
+    the in-range input on its own is the caller's check, in the fast
+    series)."""
+    inputs = (u_el, a_el, w_el, state)
+    for part, sl in (("mixed batch", slice(None)),
+                     (f"elements 0-{n_out - 1} alone", slice(0, n_out))):
+        sub = prob if sl == slice(None) else elements_of(prob, sl)
+        args = inputs if sl == slice(None) else _elements(inputs, sl)
+        n0 = sweeps.logm_deep_sweeps()
+        compare_kernels(torch, sweeps, sub, *args, dt, f"{label}, {part}")
+        deep_sweeps_held(sweeps, n0, 2, f"{label}, {part}, {sub.n_el} elements")
+
+
+def log_series_line(sweeps, prob, launches, deep0, label):
+    """For a J2Log drive: how many of its J2Log sweeps (the residual and
+    assemble launches in `launches`) took the deep log series (the kernels'
+    count since `deep0`)."""
+    if prob.material.name() != "J2Log":
+        return
+    n = sum(v for k, v in launches.items()
+            if k.startswith(("residual_", "assemble_")) and "[log" in k)
+    say(f"[{label}] J2Log sweeps {n} (residual and assemble), {sweeps.logm_deep_sweeps() - deep0} "
+        f"of them in the deep log series")
 
 
 def finite_phases(torch, mt, sweeps, soa, sh, device, gen):
@@ -1957,16 +2010,15 @@ def finite_phases(torch, mt, sweeps, soa, sh, device, gen):
         if share < 0.25:
             fail(f"{name}: plastic share {share} < 0.25: the check would not exercise the "
                  "return map")
+        n0 = sweeps.logm_deep_sweeps()
         compare_kernels(torch, sweeps, p, u_el, a_el, w_el, state, STEP_KW["dt"], label)
         if name == "J2Log":
+            deep_sweeps_held(sweeps, n0, 0, label)
             # The same input with element 0 stretched past the fast series'
             # range at all 64 points (Fp^-1 = diag(6, 1, 1): the deep series,
             # not poisoned) and element 1 past the deep range (diag(1e5, 1,
-            # 1): NaN-poisoned).  The plain version, as the reference, takes
-            # the deep series for a whole batch with one point out of range,
-            # the kernel for that point alone: the plain calls run on
-            # elements 0-1 and 2.. apart, so that both sides take the same
-            # series everywhere.
+            # 1): NaN-poisoned): the kernels and the plain version take the
+            # deep series for the whole batch (hold_log_series).
             st = {k: v.clone() for k, v in state.items()}
             diag = lambda x: torch.diag(torch.tensor([x, 1.0, 1.0])).to(device, p.dtype)  # noqa: E731
             st["Fp_inv"][..., 0] = diag(6.0)[:, :, None]
@@ -1976,10 +2028,8 @@ def finite_phases(torch, mt, sweeps, soa, sh, device, gen):
                 STEP_KW["dt"])[4]
             say(f"[23. {CHECK_SPANS}^3 J2Log out of range] plastic points {int(active.sum())} "
                 f"of {active.numel()} (element 1's are NaN)")
-            compare_kernels(torch, sweeps, p, u_el, a_el, w_el, st, STEP_KW["dt"],
-                            f"23. {CHECK_SPANS}^3 J2Log out of range",
-                            parts={"elements 0-1 (deep series, poisoned)": slice(0, 2),
-                                "elements 2.. (fast series)": slice(2, None)})
+            hold_log_series(torch, sweeps, p, u_el, a_el, w_el, st, STEP_KW["dt"],
+                            f"23. {CHECK_SPANS}^3 J2Log out of range")
     del probs, u_el, a_el, w_el, state, st, active, eps
 
     # ---- 24. one plastic step at 16^3: cuda vs torch, both materials -------------
@@ -2223,7 +2273,7 @@ def time_dense(torch, sweeps, prob, u_el, a_el, w_el, state, C, dt, launches, er
         if i == 2 and not matvec:
             continue
         ms = cuda_ms(torch, fns[i][0], 20)
-        plain_ms = cuda_ms(torch, fns[i][1], PLAIN_REPS)
+        plain_ms = cuda_ms(torch, fns[i][1], PLAIN_REPS, warm=False)
         torch.cuda.empty_cache()
         row = kernel_row(name, source, replaces, launches[name], errs[name], ms, plain_ms,
                          byts[i], n_pts * ops)
@@ -2246,6 +2296,7 @@ def drive_dense(torch, mt, sweeps, prob, label, timed, dt, step_kw, names=None):
     finite; returns (carry, step, s/step, launches, [(step input carry,
     step output carry, drop)])."""
     names = names or kernel_names(sweeps, prob)
+    deep0, launches0 = sweeps.logm_deep_sweeps(), collections.Counter(sweeps.LAUNCHES)
     t0 = time.perf_counter()
     carry = mt.initial_carry(prob)
     torch.cuda.synchronize()
@@ -2285,6 +2336,7 @@ def drive_dense(torch, mt, sweeps, prob, label, timed, dt, step_kw, names=None):
         say(f"[{label}] timed step {i}: newton {d['iters']}, gmres {d['lin_iters']} "
             f"({d['lin_iters'] / max(d['iters'], 1):.1f} per solve), |r0| "
             f"{d['norm0']:.4e} -> |r| {d['norm']:.4e} (drop {drop:.2e}){share}")
+    log_series_line(sweeps, prob, launches - launches0, deep0, label)
     for name in names:  # at least once in each of the 1 + timed steps
         if launches[name] < 1 + timed:
             fail(f"kernel {name} was launched {launches[name]} times in {1 + timed} steps "
@@ -2457,25 +2509,8 @@ def dense2d_phases(torch, mt, sweeps, soa, sh, device, gen):
     for name in ("J2", "CompressibleOgdenNeoHookean"):
         prob = balken_build(mt, name, 2, STEP2D_SUBDIVIDE, device)
         label = f"29. {2**STEP2D_SUBDIVIDE}^2 step {name}"
-        p64, carry = step_parity(
-            torch, mt, lambda: balken_build(mt, name, 2, STEP2D_SUBDIVIDE, device, f64), prob,
-            GOLDEN_2D[name][1], STEP2D_KW, label, gen)
-        if name != "J2":
-            continue
-        # the J2 configuration itself in float64 on the plain path, two
-        # steps further (printed, not held): where Newton stalls here it is
-        # the problem and its solver settings, not float32 or the kernels
-        step64 = mt.make_step(p64, GOLDEN_2D[name][1], residual_impl="torch", **STEP2D_KW)
-        for i in (1, 2):
-            carry = step64(carry)
-            d = carry["newton"]
-            eqps = (f", eqps max {float(carry['state']['eqps'].max()):.3e}"
-                    if carry["state"] is not None else "")
-            say(f"[{label}] float64 plain step {i}: drop {drop_of(carry):.2e}, newton "
-                f"{d['iters']}, gmres {d['lin_iters']} ({d['lin_iters'] / max(d['iters'], 1):.1f} "
-                f"per solve, cap {STEP2D_KW['cg_iters']}), max|u| "
-                f"{float(carry['u'].abs().max()):.3e}{eqps}")
-        del p64, carry, step64
+        step_parity(torch, mt, lambda: balken_build(mt, name, 2, STEP2D_SUBDIVIDE, device, f64),
+                    prob, GOLDEN_2D[name][1], STEP2D_KW, label, gen)
     prob = dense_build(mt, DENSE_CHECK_SPANS, device, "J2", A=A_PLASTIC)
     step_parity(torch, mt,
                 lambda: dense_build(mt, DENSE_CHECK_SPANS, device, "J2", A_PLASTIC, f64), prob,
@@ -2553,7 +2588,9 @@ def dense2d_phases(torch, mt, sweeps, soa, sh, device, gen):
                      prob.wdet_t, prob.material, dt, float(prob.material.density))
             cap_share(torch, f"48. {tag} path", lambda: sweeps.residual_dense_plain(*dargs))
             del dargs
-        if elevate == 2 and name != "StVenantKirchhoff":
+        # the neo-Hookean twin's, not J2's (every GMRES solve at its cap,
+        # ~5 s of wall): the smoke's time
+        if elevate == 2 and name == "CompressibleOgdenNeoHookean":
             profile_step(torch, step, carry, s_step, f"31. {tag} profile")
         del prob, carry, step, u_el, a_el, w_el, C
         torch.cuda.empty_cache()
@@ -2668,9 +2705,8 @@ def check_dense_finite(torch, sweeps, soa, prob, gen, dt, label):
     kernels against plain on random plastic input (in the fast log
     series' range), with the points whose yield decision float32 rounding
     decides; for J2Log also the same input with element 0 past the fast
-    series' range (the deep series) and element 1 further (LOG_STRETCH),
-    the plain calls on elements 0-1 and 2.. apart (the plain version
-    escalates per batch, the kernel per point)."""
+    series' range (the deep series) and element 1 further (LOG_STRETCH):
+    the mixed batch and its stretched elements apart (hold_log_series)."""
     u_el, a_el, w_el, state, share = dense_finite_inputs(torch, sweeps, soa, prob, gen, dt)
     n_pl, flips = yield_flips(torch, sweeps, soa, prob, u_el, state, dt)
     say(f"[{label}] plastic share of the points {share:.3f} ({n_pl} of {prob.n_el * prob.n_q}); "
@@ -2684,8 +2720,10 @@ def check_dense_finite(torch, sweeps, soa, prob, gen, dt, label):
         say(f"[{label}] points past the fast log series' range: {deep}")
         if deep:
             fail(f"{label}: the in-range input has {deep} points past the fast series' range")
+    n0 = sweeps.logm_deep_sweeps()
     compare_kernels(torch, sweeps, prob, u_el, a_el, w_el, state, dt, label)
     if name == "J2Log":
+        deep_sweeps_held(sweeps, n0, 0, label)
         st = {k: v.clone() for k, v in state.items()}
         for e, x in enumerate(LOG_STRETCH[prob.dim]):
             diag = torch.ones(prob.dim, dtype=prob.dtype, device=prob.device)
@@ -2696,9 +2734,7 @@ def check_dense_finite(torch, sweeps, soa, prob, gen, dt, label):
             f"{prob.n_el * prob.n_q} (elements 0-1: {2 * prob.n_q} points)")
         if deep < 2 * prob.n_q:
             fail(f"{label}: the stretched elements do not leave the fast series' range")
-        compare_kernels(torch, sweeps, prob, u_el, a_el, w_el, st, dt, f"{label}, out of range",
-                      parts={"elements 0-1 (deep series)": slice(0, 2),
-                             "elements 2.. (fast series)": slice(2, None)})
+        hold_log_series(torch, sweeps, prob, u_el, a_el, w_el, st, dt, f"{label}, out of range")
     del u_el, a_el, w_el, state
     torch.cuda.empty_cache()
 
@@ -2986,7 +3022,7 @@ def hold_viscous(torch, sweeps, prob, mat, f, dt, label, launches=None,
                 f"{bound:.5f} ms by {by} at {prob.n_el} elements")
         for i, err, kcall, pcall, byts in checks if timed else ():
             ms = cuda_ms(torch, kcall, 20)
-            plain_ms = cuda_ms(torch, pcall, PLAIN_REPS)
+            plain_ms = cuda_ms(torch, pcall, PLAIN_REPS, warm=False)
             torch.cuda.empty_cache()
             # the bfloat16 dense assemble and matvec: the *_bf16.cu twins
             src_i = source[i].replace(".cu", "_bf16.cu") if bf16 and kind == "dense" and i \
@@ -3082,6 +3118,7 @@ def drive_press(torch, mt, sweeps, prob, label, step_kw, timed=None, engaged_eac
 
     cs["query"] = counted_query
     push = PRESS_PUSH[prob.dim]
+    deep0, launches0 = sweeps.logm_deep_sweeps(), collections.Counter(sweeps.LAUNCHES)
     t0 = time.perf_counter()
     carry = mt.initial_carry(prob)
     torch.cuda.synchronize()
@@ -3129,6 +3166,7 @@ def drive_press(torch, mt, sweeps, prob, label, step_kw, timed=None, engaged_eac
         f"{engaged}; peak allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB; "
         f"launches { {k: n for k, n in launches.items() if n} }; nvcc compiles pending "
         f"{n_bg} -> {pending_builds()}")
+    log_series_line(sweeps, prob, launches - launches0, deep0, label)
     for name in press_kernel_names(sweeps, prob, step_kw):
         if launches[name] < 1 + timed:
             fail(f"kernel {name} was launched {launches[name]} times in {1 + timed} "
@@ -3302,9 +3340,8 @@ def press_phases(torch, mt, sweeps, soa, sh, device, gen):
                                  f"{label} next system bf16", gen)
         torch.cuda.empty_cache()
 
-        # ---- one profiled step ------------------------------------------------------
-        carry = profile_step(torch, step, carry, s_step, f"{label} profile",
-                             contact_scenes=[sd_next])
+        # no profiled step (a 12-iteration press step and its trace, ~7 s
+        # of wall each): the smoke's time
         del carry, step, prob, cd, g, tables
         torch.cuda.empty_cache()
 
@@ -3745,18 +3782,22 @@ def two_patch3_of(mt, mat, spans, device, dtype=None, elevate=2):
                             rho_inf=0.5, device=device, refine_spans=spans, dtype=dtype)
 
 
-def first_elements(prob, n):
-    """The problem restricted to its first n elements (the sweeps are per
-    element): tables, w det J and the initial state."""
+def elements_of(prob, sl):
+    """The problem restricted to the elements `sl` (a slice; the sweeps are
+    per element): tables, w det J and the initial state."""
     import dataclasses
 
-    sl = slice(0, n)
     sf = None if prob.sf is None else dict(prob.sf, tables=_elements(prob.sf["tables"], sl),
                                            jinv=_elements(prob.sf["jinv"], sl))
     dense = None if prob.dense is None else _elements(prob.dense, sl)
-    return dataclasses.replace(prob, n_el=n, sf=sf, dense=dense,
+    return dataclasses.replace(prob, n_el=len(range(prob.n_el)[sl]), sf=sf, dense=dense,
                                wdet_t=_elements(prob.wdet_t, sl),
                                state0=None if prob.state0 is None else _elements(prob.state0, sl))
+
+
+def first_elements(prob, n):
+    """The problem restricted to its first n elements."""
+    return elements_of(prob, slice(0, n))
 
 
 def kernel_materials(mt, dim=3):
@@ -3833,7 +3874,7 @@ def p3_rows(torch, sweeps, prob, u_el, a_el, w_el, state, C, dt, launches, errs,
         plain_ms = 0.0
         for sl in parts.values():
             a_sl = _elements(a, sl)
-            plain_ms += cuda_ms(torch, lambda: pfn(*a_sl, **kw), PLAIN_REPS)
+            plain_ms += cuda_ms(torch, lambda: pfn(*a_sl, **kw), PLAIN_REPS, warm=False)
             del a_sl
             torch.cuda.empty_cache()
         row = kernel_row(name, source, SYM_REPLACES[kind][i], launches[name], errs[name], ms,
@@ -4097,11 +4138,9 @@ def finite_press_paths(torch, mt, sweeps, soa, sh, device, gen):
             prob64 = build_path(name, torch.float64) if inverted else None
             newton_system_parity(torch, mt, prob, carry, sd_next, step_kw,
                                  f"{label} next system", gen, prob64=prob64)
-            del prob64
-            torch.cuda.empty_cache()
-            profile_step(torch, step, carry, s_step, f"{label} profile",
-                         contact_scenes=[sd_next])
-            del carry, step, prob
+            # no profiled step (11.8 and 6.0 s of wall each, a 12-iteration
+            # press step and its trace): the smoke's time
+            del prob64, carry, step, prob
             torch.cuda.empty_cache()
             clock(f"path {tag} {name}")
 
@@ -4376,11 +4415,11 @@ def path_j_phases(torch, mt, sweeps, soa, sh, device, gen):
 # kernels.  1 warm + PATH_KL_TIMED steps each.
 MESH1 = MESH  # cube-nurbs.mesh is p = 1
 ES_SPANS = 16  # the sf holds of p = 4 and of other Gauss counts: 16^3
-P1_SPANS = 48  # the p = 1 sf holds: 48^3
+P1_SPANS = 16  # the p = 1 sf holds: 16^3, as the other held shapes
 K_SPANS = 40
 K_HELD = 3  # path K's held step: 3^3
 L_HELD = 6  # path L's held step: 64^2
-PATH_KL_TIMED = 2
+PATH_KL_TIMED = 1  # 1 for the smoke's time (2 before)
 DENSE4_SPANS = 5  # the dense (3, 125, 216) holds: 2 x 5^3 = 250 elements, a ragged tile
 # the shapes of phases 62-67, (kind, shape) keys of ops/build.py
 NEW_KEYS = [("sf", (2, 3)), ("sf", (5, 6)), ("sf", (3, 3)), ("sf", (3, 5)),
@@ -4427,6 +4466,18 @@ def quarter_annulus_mesh():
                              np.array(w))
 
 
+def fused_ops(dim, nd):
+    """Operations per point of the fused neo-Hookean (residual, tangent
+    apply) at dim and nd dofs: OPS_PER_POINT's count (3D p = 2: 1250 and
+    1780), its gradients (2 dim^2 nd each: one in the residual, two in the
+    apply) and scatter (2 dim^2 nd) at the shape, the material's operations
+    (3D 278 and 322; 2D MATERIAL_OPS' neo-Hookean stress 60, and 100)."""
+    per = 2 * dim * dim * nd
+    if dim == 3:
+        return 2 * per + 278, 3 * per + 322
+    return 2 * per + 60, 3 * per + 100
+
+
 def hold_fused(torch, sweeps, fused, prob, gen, label):
     """The fused neo-Hookean residual and matrix-free tangent apply on the
     problem's dense tables (a neo-Hookean problem at any shape) on random
@@ -4449,11 +4500,20 @@ def hold_fused(torch, sweeps, fused, prob, gen, label):
     torch.cuda.synchronize()
     y_p = fused.neohookean_tangent_apply_plain(u_el, w_el, dN, wq, lam, mu)
     y_d = sweeps.matvec_dense(w_el, dN, N, wq, Cs, 0.0, 1.0)
-    for name, k, pl, d, bar in ((names[0], r_k, r_p, r_d, 1e-5), (names[1], y_k, y_p, y_d, 1e-4)):
+    # inputs read once, the output written once; the operations of
+    # OPS_PER_POINT's count at the shape (fused_ops)
+    el_out, n_pts = nbytes(u_el), prob.n_el * prob.n_q
+    byts = (nbytes(u_el, dN, wq) + el_out, nbytes(u_el, w_el, dN, wq) + el_out)
+    for i, (name, k, pl, d, bar) in enumerate(((names[0], r_k, r_p, r_d, 1e-5),
+                                               (names[1], y_k, y_p, y_d, 1e-4))):
         err, err_d, scale = (float((k - pl).abs().max()), float((k - d).abs().max()),
                              float(pl.abs().max()))
+        ops = n_pts * fused_ops(prob.dim, dN.shape[0])[i]
+        row = kernel_row(name, SOURCE[2], FUSED_KERNELS[i][1], 0, max(err, err_d), None, None,
+                         byts[i], ops)
         say(f"[{label}] {name}: vs plain max|err| {err:.3e}, vs the dense kernels {err_d:.3e}, "
-            f"scale {scale:.3e} (bar {bar:.0e})")
+            f"scale {scale:.3e} (bar {bar:.0e}); {byts[i] / 1e9:.4f} GB, {ops / 1e9:.4f} "
+            f"GFLOP, bound {row['bound_ms']:.4f} ms by {row['bound_by']}")
         if not max(err, err_d) <= bar * scale:
             fail(f"{name} disagrees ({err}, {err_d} > {bar} * {scale}) [{label}]")
     if [sweeps.LAUNCHES.get(n, 0) - c for n, c in zip(names, n0)] != [1, 1]:
@@ -4742,7 +4802,7 @@ def main():
     for name, replaces in KERNELS:
         kern, plain = calls[name]
         ms = cuda_ms(torch, kern, 20)
-        plain_ms = cuda_ms(torch, plain, PLAIN_REPS)
+        plain_ms = cuda_ms(torch, plain, PLAIN_REPS, warm=False)
         row = kernel_row(name, SOURCE[0], replaces, launches[name], errs[name], ms,
                          plain_ms, byts[name], n_pts * OPS_PER_POINT[name])
         say(f"[48^3 timing] {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms; "

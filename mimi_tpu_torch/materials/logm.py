@@ -70,9 +70,8 @@ def logm_sym_soa(C):
     As in the reference, when any point of the batch leaves the fast
     configuration's range (||X||_F > 0.40) the whole batch is recomputed
     with the deep one (LOGM_DEEP), and points beyond the range in use are
-    NaN-poisoned.  The CUDA kernels decide per point: an in-range point of
-    an escalated batch keeps the fast result there, which differs from the
-    deep one by the series' truncation and rounding."""
+    NaN-poisoned.  The CUDA kernels decide in the same way for all the
+    points of a sweep (ops/csrc/finite.cuh)."""
     out, xn = _logm_core(C, *LOGM_FAST)
     if bool((~(xn <= LOGM_X_MAX)).any()):
         out, xn = _logm_core(C, *LOGM_DEEP)

@@ -12,8 +12,9 @@
 // 3D p = 2), so no barrier is needed.  Past 27 dofs in 3D and 16 in 2D
 // (DenseShape::TILED) the launchers take the tiled kernels below instead
 // (one thread per element and point slot; for the matvec, per element and
-// owner of 8 nodes).  Each translation unit
-// instantiates its kernels at the one shape its build defines
+// owner of 8 nodes).  J2Simo's and J2Log's residual and assemble take
+// sweeps_dense_finite.cu's dense_finite_kernel at every shape.  Each
+// translation unit instantiates its kernels at the one shape its build defines
 // (MIMI_DENSE_DIM, MIMI_DENSE_ND, MIMI_DENSE_NQ: ops/build.py compiles the
 // dense sources once per shape the step asks for, each shape into a
 // library of its own).  The design notes are at the head of

@@ -59,9 +59,89 @@ __device__ __forceinline__ Dual powf(Dual a, float n) {
   return {::powf(a.v, n), n * ::powf(a.v, n - 1.f) * a.d};
 }
 
+// A float whose operations are each rounded on their own: the compiler
+// contracts no product and sum of two of them into a fused multiply-add
+// (the _rn intrinsics), whatever the source's -fmad.  finite.cuh runs
+// J2Log's deep launch on it (RN in the float pass, DualRN in the dual
+// passes), whose five square roots scale rounding by 2^6 (the plain
+// version rounds every torch operation).
+struct RN {
+  float v;
+  __host__ __device__ RN(float value = 0.f) : v(value) {}
+};
+__device__ __forceinline__ RN operator+(RN a, RN b) { return __fadd_rn(a.v, b.v); }
+__device__ __forceinline__ RN operator-(RN a, RN b) { return __fsub_rn(a.v, b.v); }
+__device__ __forceinline__ RN operator-(RN a) { return -a.v; }
+__device__ __forceinline__ RN operator*(RN a, RN b) { return __fmul_rn(a.v, b.v); }
+__device__ __forceinline__ RN operator/(RN a, RN b) { return __fdiv_rn(a.v, b.v); }
+__device__ __forceinline__ RN operator+(RN a, float b) { return a + RN(b); }
+__device__ __forceinline__ RN operator*(RN a, float b) { return a * RN(b); }
+__device__ __forceinline__ RN operator-(RN a, float b) { return a - RN(b); }
+__device__ __forceinline__ RN operator*(float a, RN b) { return RN(a) * b; }
+__device__ __forceinline__ RN operator/(RN a, float b) { return a / RN(b); }
+__device__ __forceinline__ RN operator/(float a, RN b) { return RN(a) / b; }
+__device__ __forceinline__ RN sqrtf(RN a) { return ::sqrtf(a.v); }
+__device__ __forceinline__ RN logf(RN a) { return ::logf(a.v); }
+
+// Dual on RN: the same formulas as Dual's, each operation rounded on its own
+struct DualRN {
+  RN v, d;
+  __host__ __device__ DualRN(float value = 0.f, float deriv = 0.f) : v(value), d(deriv) {}
+  __host__ __device__ DualRN(RN value, RN deriv) : v(value), d(deriv) {}
+  __host__ __device__ explicit DualRN(Dual x) : v(x.v), d(x.d) {}
+};
+__device__ __forceinline__ DualRN operator+(DualRN a, DualRN b) {
+  return {a.v + b.v, a.d + b.d};
+}
+__device__ __forceinline__ DualRN operator+(DualRN a, float b) { return {a.v + b, a.d}; }
+__device__ __forceinline__ DualRN operator+(float a, DualRN b) { return {RN(a) + b.v, b.d}; }
+__device__ __forceinline__ DualRN operator-(DualRN a, DualRN b) {
+  return {a.v - b.v, a.d - b.d};
+}
+__device__ __forceinline__ DualRN operator-(DualRN a, float b) { return {a.v - b, a.d}; }
+__device__ __forceinline__ DualRN operator-(float a, DualRN b) { return {RN(a) - b.v, -b.d}; }
+__device__ __forceinline__ DualRN operator-(DualRN a) { return {-a.v, -a.d}; }
+__device__ __forceinline__ DualRN operator*(DualRN a, DualRN b) {
+  return {a.v * b.v, a.d * b.v + a.v * b.d};
+}
+__device__ __forceinline__ DualRN operator*(DualRN a, float b) {
+  return {a.v * RN(b), a.d * RN(b)};
+}
+__device__ __forceinline__ DualRN operator*(float a, DualRN b) { return {a * b.v, a * b.d}; }
+__device__ __forceinline__ DualRN operator/(DualRN a, DualRN b) {
+  const RN q = a.v / b.v;
+  return {q, (a.d - q * b.d) / b.v};
+}
+__device__ __forceinline__ DualRN operator/(DualRN a, float b) { return {a.v / b, a.d / b}; }
+__device__ __forceinline__ DualRN operator/(float a, DualRN b) {
+  const RN q = a / b.v;
+  return {q, -q * b.d / b.v};
+}
+__device__ __forceinline__ DualRN sqrtf(DualRN a) {
+  const RN s = sqrtf(a.v);
+  return {s, a.d / (2.f * s)};
+}
+__device__ __forceinline__ DualRN logf(DualRN a) { return {logf(a.v), a.d / a.v}; }
+
+// a float or Dual on its single-rounding twin and back
+template <class T>
+struct Rounded {
+  using type = RN;
+};
+template <>
+struct Rounded<Dual> {
+  using type = DualRN;
+};
+__device__ __forceinline__ RN rounded(float x) { return x; }
+__device__ __forceinline__ DualRN rounded(Dual x) { return DualRN(x); }
+__device__ __forceinline__ float unrounded(RN x) { return x.v; }
+__device__ __forceinline__ Dual unrounded(DualRN x) { return {x.v.v, x.d.v}; }
+
 // the value part, for comparisons and branch decisions
 __device__ __forceinline__ float val(float x) { return x; }
 __device__ __forceinline__ float val(const Dual& x) { return x.v; }
+__device__ __forceinline__ float val(RN x) { return x.v; }
+__device__ __forceinline__ float val(const DualRN& x) { return x.v.v; }
 
 // ---- D x D algebra on either scalar (D deduced from the arrays) ---------------
 

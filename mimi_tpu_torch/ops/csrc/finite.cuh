@@ -15,26 +15,28 @@
 // apply one implicit-function-theorem correction
 // delta = d* - r(d*; q, slope) / r'(d*), with q and the slope carrying
 // derivatives and r' a plain float.  Branches (yielding, J2Simo's
-// near-zero deviator, q > 0, the log's range escalation) follow the value.
+// near-zero deviator, q > 0) follow the value; the log's series follows
+// the launch and its poisoning the float pass.
 // One Dual (two floats) per scalar and one pass per seed, rather than all
 // DIM^2 derivatives at once: the J2Log body holds four DIM x DIM matrices
 // through its square-root iterations, 72 floats as Dual in 3D and 360 as a
-// nine-wide dual, and the one-thread-per-element kernels already sit at 255
-// registers with spills (PERF.md).
+// nine-wide dual, against a thread's 128 registers at four blocks an SM
+// (sweeps_dense_finite.cu, sf_common.cuh).
 //
 // In 2D the reference uses true 2 x 2 tensors, and so does this body: the
 // deviator over trace / 2, J2Simo's cube root of the 2 x 2 det(f_bar), the
 // log's trace prescaling by trace / 2.
 //
 // J2Log's Hencky strain: log C_e by trace prescaling, 2 Denman-Beavers
-// square roots of 7 iterations and 8 Gregory terms (materials/logm.py);
-// a point whose series argument has ||X||_F > 0.40 is recomputed with 5
-// roots, 14 iterations and 12 terms, and NaN-poisoned if it is still out
-// of range.  The reference decides this per batch (one lax.cond: every
-// point of a batch with one bad point takes the deep series); the kernel
-// decides per point, so an in-range point of such a batch keeps the fast
-// series here.  The two differ by the deep series' float32 rounding, which
-// its five square roots scale by 2^6 in log C.
+// square roots of 7 iterations and 8 Gregory terms (materials/logm.py).
+// As in the reference (one lax.cond over the batch), one sweep decides for
+// all its points: the C entry points launch the kernel with the fast
+// series, any point whose series argument has ||X||_F > 0.40 sets the
+// device flag logm_escalate, and a second launch with the deep series (5
+// roots, 14 iterations, 12 terms) returns at once where the flag is unset
+// and otherwise recomputes every point of the sweep, NaN-poisoning those
+// still out of range (launch_runs, with_finite_material: no host read, no
+// sync).  The dual passes take the float pass's series and its poisoning.
 
 #pragma once
 
@@ -49,23 +51,34 @@
 
 namespace {
 
-// the radial return at one point, from the float pass
+// the radial return at one point, from the float pass, and whether the
+// float pass poisoned the point's log (J2Log, out of the series' range)
 struct ReturnMap {
-  bool active = false;
+  bool active = false, log_bad = false;
   float dstar = 0.f, fprime = 1.f;
 };
 
-// The plastic increment.  float: the safeguarded solve (j2.cuh
-// radial_return), which records the point's ReturnMap.  Dual: the
-// implicit-function-theorem correction at the recorded root,
+// The log series' decision of a J2Log sweep: set by a point of the fast
+// launch out of the fast series' range; the deep launches that ran
+__device__ unsigned logm_escalate;
+__device__ unsigned long long logm_deep_launches;
+
+// whether the scalar T is a float pass's (float, or RN in J2Log's deep
+// launch) rather than a tangent pass's (Dual, DualRN)
+template <class T>
+constexpr bool kFloatPass = std::is_same<T, float>::value || std::is_same<T, RN>::value;
+
+// The plastic increment.  A float pass: the safeguarded solve (j2.cuh
+// radial_return), which records the point's ReturnMap.  A tangent pass:
+// the implicit-function-theorem correction at the recorded root,
 // d* - r(d*; q, slope) / r'(d*), zero on an elastic point.
 template <class T>
 __device__ __forceinline__ T plastic_increment(const J2Params& p, const T& q, const T& slope,
                                                bool host_slope, float eqps0, float thermo,
                                                ReturnMap& rm) {
-  if constexpr (std::is_same<T, float>::value) {
-    return radial_return(p, q, eqps0, thermo, slope, host_slope, &rm.active, &rm.fprime,
-                         &rm.dstar);
+  if constexpr (kFloatPass<T>) {
+    return T(radial_return(p, val(q), eqps0, thermo, val(slope), host_slope, &rm.active,
+                           &rm.fprime, &rm.dstar));
   } else {
     if (!rm.active) return T(0.f);
     float H, dH, R, dR;
@@ -118,63 +131,56 @@ __device__ void sqrt_db(T A[DIM][DIM], int iters) {
 
 constexpr float kLogmXMax = 0.40f;  // materials/logm.py LOGM_X_MAX
 
-// L = log C for SPD C (materials/logm.py _logm_core): the fast
-// configuration, the deep one where the series argument is out of range,
-// NaN beyond that
+// L = log C for SPD C (materials/logm.py _logm_core) in the fast or the
+// deep configuration; whether the series argument is in range
+// (||X||_F <= kLogmXMax, false for NaN too)
 template <class T, int DIM>
-__device__ void logm_spd(const T C[DIM][DIM], T L[DIM][DIM]) {
-#pragma unroll 1
-  for (int deep = 0; deep < 2; ++deep) {
-    const int levels = deep ? 5 : 2, terms = deep ? 12 : 8, iters = deep ? 14 : 7;
-    const T s = sm::trace(C) / (float)DIM;
-    T A[DIM][DIM];
+__device__ bool logm_spd(const T C[DIM][DIM], T L[DIM][DIM], bool deep) {
+  const int levels = deep ? 5 : 2, terms = deep ? 12 : 8, iters = deep ? 14 : 7;
+  const T s = sm::trace(C) / (float)DIM;
+  T A[DIM][DIM];
 #pragma unroll
-    for (int i = 0; i < DIM; ++i)
+  for (int i = 0; i < DIM; ++i)
 #pragma unroll
-      for (int j = 0; j < DIM; ++j) A[i][j] = C[i][j] / s;
+    for (int j = 0; j < DIM; ++j) A[i][j] = C[i][j] / s;
 #pragma unroll 1
-    for (int l = 0; l < levels; ++l) sqrt_db(A, iters);
-    T Am[DIM][DIM], Ap[DIM][DIM], Api[DIM][DIM], X[DIM][DIM], X2[DIM][DIM];
+  for (int l = 0; l < levels; ++l) sqrt_db(A, iters);
+  T Am[DIM][DIM], Ap[DIM][DIM], Api[DIM][DIM], X[DIM][DIM], X2[DIM][DIM];
+#pragma unroll
+  for (int i = 0; i < DIM; ++i)
+#pragma unroll
+    for (int j = 0; j < DIM; ++j) {
+      Am[i][j] = i == j ? A[i][j] - 1.f : A[i][j];
+      Ap[i][j] = i == j ? A[i][j] + 1.f : A[i][j];
+    }
+  sm::inv(Ap, sm::det(Ap), Api);
+  sm::mat_nn(Am, Api, X);
+  sm::mat_nn(X, X, X2);
+  T term[DIM][DIM], acc[DIM][DIM];
+#pragma unroll
+  for (int i = 0; i < DIM; ++i)
+#pragma unroll
+    for (int j = 0; j < DIM; ++j) term[i][j] = acc[i][j] = X[i][j];
+#pragma unroll 1
+  for (int k = 1; k < terms; ++k) {
+    T t2[DIM][DIM];
+    sm::mat_nn(term, X2, t2);
+    const float den = 2.f * k + 1.f;
 #pragma unroll
     for (int i = 0; i < DIM; ++i)
 #pragma unroll
       for (int j = 0; j < DIM; ++j) {
-        Am[i][j] = i == j ? A[i][j] - 1.f : A[i][j];
-        Ap[i][j] = i == j ? A[i][j] + 1.f : A[i][j];
+        term[i][j] = t2[i][j];
+        acc[i][j] = acc[i][j] + term[i][j] / den;
       }
-    sm::inv(Ap, sm::det(Ap), Api);
-    sm::mat_nn(Am, Api, X);
-    sm::mat_nn(X, X, X2);
-    T term[DIM][DIM], acc[DIM][DIM];
-#pragma unroll
-    for (int i = 0; i < DIM; ++i)
-#pragma unroll
-      for (int j = 0; j < DIM; ++j) term[i][j] = acc[i][j] = X[i][j];
-#pragma unroll 1
-    for (int k = 1; k < terms; ++k) {
-      T t2[DIM][DIM];
-      sm::mat_nn(term, X2, t2);
-      const float den = 2.f * k + 1.f;
-#pragma unroll
-      for (int i = 0; i < DIM; ++i)
-#pragma unroll
-        for (int j = 0; j < DIM; ++j) {
-          term[i][j] = t2[i][j];
-          acc[i][j] = acc[i][j] + term[i][j] / den;
-        }
-    }
-    const float scale = deep ? 64.f : 8.f;  // 2^(levels + 1)
-    const T ls = logf(s);
-#pragma unroll
-    for (int i = 0; i < DIM; ++i)
-#pragma unroll
-      for (int j = 0; j < DIM; ++j) L[i][j] = i == j ? scale * acc[i][j] + ls : scale * acc[i][j];
-    if (val(sm::fro_norm(X)) <= kLogmXMax) return;  // false for NaN too
   }
+  const float scale = deep ? 64.f : 8.f;  // 2^(levels + 1)
+  const T ls = logf(s);
 #pragma unroll
   for (int i = 0; i < DIM; ++i)
 #pragma unroll
-    for (int j = 0; j < DIM; ++j) L[i][j] = L[i][j] * NAN;
+    for (int j = 0; j < DIM; ++j) L[i][j] = i == j ? scale * acc[i][j] + ls : scale * acc[i][j];
+  return val(sm::fro_norm(X)) <= kLogmXMax;
 }
 
 // What the DIM^2 tangent passes of a point need: F and the float pass's
@@ -280,15 +286,41 @@ struct J2SimoMat : FiniteMat<J2SimoMat<DIM>, DIM> {
 
 // J2Log (materials/__init__.py J2Log): state Fp_inv (DIM, DIM, NQ, E),
 // eqps, temperature (NQ, E).  E = log(F_e^T F_e) / 2 with F_e = F Fp_inv;
-// slope 3G; P = J (s + p/J I) F^-T.
+// slope 3G; P = J (s + p/J I) F^-T.  `deep`: the launch's log series (0
+// fast, 1 deep, the header's note); the float pass of a point out of its
+// range poisons the point's log and, in the fast launch, sets
+// logm_escalate; the dual passes poison where their float pass did.  The
+// deep launch runs every pass on single-rounding operations (dual.cuh RN,
+// DualRN), also in the sum-factorized source, which contracts fused
+// multiply-adds elsewhere: with them the deep series' rounding, scaled by
+// 2^6, moved trial states past 1e-4 of the flow stress from the plain
+// version's (PERF.md).
 template <int DIM>
 struct J2LogMat : FiniteMat<J2LogMat<DIM>, DIM> {
   J2Params p;
   const float *fp_inv, *eqps, *temp;
+  int deep = 0;
 
   template <class T>
   __device__ void pk1(const T F[DIM][DIM], long long qe, long long QE, ReturnMap& rm,
                       T P[DIM][DIM]) const {
+    if (!deep) return body(F, qe, QE, rm, P);
+    using R = typename Rounded<T>::type;
+    R Fr[DIM][DIM], Pr[DIM][DIM];
+#pragma unroll
+    for (int i = 0; i < DIM; ++i)
+#pragma unroll
+      for (int j = 0; j < DIM; ++j) Fr[i][j] = rounded(F[i][j]);
+    body(Fr, qe, QE, rm, Pr);
+#pragma unroll
+    for (int i = 0; i < DIM; ++i)
+#pragma unroll
+      for (int j = 0; j < DIM; ++j) P[i][j] = unrounded(Pr[i][j]);
+  }
+
+  template <class T>
+  __device__ void body(const T F[DIM][DIM], long long qe, long long QE, ReturnMap& rm,
+                       T P[DIM][DIM]) const {
     float Fpi[DIM][DIM];
     load_leaf<DIM>(fp_inv, qe, QE, Fpi);
     const float e0 = __ldg(eqps + qe);
@@ -298,7 +330,17 @@ struct J2LogMat : FiniteMat<J2LogMat<DIM>, DIM> {
     {
       T Ce[DIM][DIM];
       sm::mat_tn(Fe, Fe, Ce);
-      logm_spd(Ce, E);
+      const bool in_range = logm_spd(Ce, E, deep != 0);
+      if constexpr (kFloatPass<T>) {
+        rm.log_bad = !in_range;
+        if (!in_range && !deep) atomicOr(&logm_escalate, 1u);
+      }
+      if (rm.log_bad) {
+#pragma unroll
+        for (int i = 0; i < DIM; ++i)
+#pragma unroll
+          for (int j = 0; j < DIM; ++j) E[i][j] = E[i][j] * NAN;
+      }
     }
 #pragma unroll
     for (int i = 0; i < DIM; ++i)
@@ -328,13 +370,38 @@ struct J2LogMat : FiniteMat<J2LogMat<DIM>, DIM> {
   }
 };
 
+// Whether a sweep kernel's launch with J2Log runs: the fast one always, the
+// deep one where a point of the fast one left the series' range; its first
+// thread counts the deep launches that run.  (materials.cuh: every other
+// material's launch runs.)
+template <int DIM>
+__device__ __forceinline__ bool launch_runs(const J2LogMat<DIM>& m) {
+  if (!m.deep) return true;
+  const bool run = *(volatile const unsigned*)&logm_escalate != 0u;
+  if (run && blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&logm_deep_launches, 1ull);
+  return run;
+}
+
+// the deep launches of J2Log's sweeps that ran, since the library was
+// loaded (a device read: it waits for the device)
+inline int logm_deep_count(long long* out) {
+  void* ptr = nullptr;
+  if (const cudaError_t err = cudaGetSymbolAddress(&ptr, logm_deep_launches)) return (int)err;
+  unsigned long long n = 0;
+  const cudaError_t err = cudaMemcpy(&n, ptr, sizeof n, cudaMemcpyDeviceToHost);
+  *out = (long long)n;
+  return (int)err;
+}
+
 // The material `material` (0 J2Simo, 1 J2Log: ops/sweeps.py FULL_KERNELS)
 // with its state leaves s0..s3 in the entry points' order (J2Simo be_old,
 // F_old, eqps, temperature; J2Log Fp_inv, eqps, temperature, s3 unused),
-// passed to fn as the material object; cudaErrorInvalidValue for another id.
+// passed to fn (which launches the sweep) as the material object: J2Log
+// twice on `stream`, its fast launch after logm_escalate is cleared, then
+// its deep launch (launch_runs); cudaErrorInvalidValue for another id.
 template <int DIM, class Fn>
 int with_finite_material(int material, const J2Params& p, const float* s0, const float* s1,
-                         const float* s2, const float* s3, Fn fn) {
+                         const float* s2, const float* s3, void* stream, Fn fn) {
   if (material == 0) {
     J2SimoMat<DIM> m;
     m.p = p;
@@ -350,6 +417,12 @@ int with_finite_material(int material, const J2Params& p, const float* s0, const
     m.fp_inv = s0;
     m.eqps = s1;
     m.temp = s2;
+    void* flag = nullptr;
+    if (const cudaError_t err = cudaGetSymbolAddress(&flag, logm_escalate)) return (int)err;
+    if (const cudaError_t err = cudaMemsetAsync(flag, 0, sizeof(unsigned), (cudaStream_t)stream))
+      return (int)err;
+    if (const int err = fn(m)) return err;
+    m.deep = 1;
     return fn(m);
   }
   return (int)cudaErrorInvalidValue;

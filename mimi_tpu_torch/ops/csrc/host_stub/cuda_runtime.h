@@ -26,6 +26,7 @@
 #include <stddef.h>
 #include <string.h>
 
+#include <atomic>
 #include <barrier>
 #include <cstddef>
 #include <thread>
@@ -111,6 +112,30 @@ inline cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int bytes) {
 template <class T>
 inline T __ldg(const T* p) {
   return *p;
+}
+
+// a __device__ variable is a host variable: its address, a copy from it,
+// a fill of it (on no stream: at once), atomic updates from the block's
+// threads
+template <class T>
+inline cudaError_t cudaGetSymbolAddress(void** ptr, T& symbol) {
+  *ptr = (void*)&symbol;
+  return cudaSuccess;
+}
+enum cudaMemcpyKind { cudaMemcpyDeviceToHost = 2 };
+inline cudaError_t cudaMemcpy(void* dst, const void* src, size_t bytes, cudaMemcpyKind) {
+  memcpy(dst, src, bytes);
+  return cudaSuccess;
+}
+inline cudaError_t cudaMemsetAsync(void* ptr, int value, size_t bytes, cudaStream_t) {
+  memset(ptr, value, bytes);
+  return cudaSuccess;
+}
+inline unsigned atomicOr(unsigned* p, unsigned v) {
+  return std::atomic_ref<unsigned>(*p).fetch_or(v);
+}
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  return std::atomic_ref<unsigned long long>(*p).fetch_add(v);
 }
 
 inline float __fmul_rn(float a, float b) { return a * b; }

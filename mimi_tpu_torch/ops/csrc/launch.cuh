@@ -39,6 +39,8 @@ __device__ __forceinline__ long long opaque(long long x) {
 #endif
 
 constexpr size_t STATIC_SMEM = 48 * 1024;
+// the dynamic shared memory one block may have on sm_90
+constexpr size_t BLOCK_SMEM_MAX = 227 * 1024;
 
 // Allow the kernel K `bytes` of dynamic shared memory on the current
 // device before its first launch there (a launch asking more than 48 KB

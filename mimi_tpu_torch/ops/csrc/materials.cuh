@@ -269,6 +269,14 @@ struct Hyper {
   }
 };
 
+// Whether a sweep kernel's launch with the material runs at all: always,
+// but for J2Log's second launch of a sweep (finite.cuh), which runs only
+// where the first found a point out of the log series' fast range
+template <class Mat>
+__device__ __forceinline__ bool launch_runs(const Mat&) {
+  return true;
+}
+
 // ---- tangent-block element types -------------------------------------------
 
 // float, or bfloat16 rounded to nearest even

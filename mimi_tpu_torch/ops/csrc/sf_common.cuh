@@ -271,6 +271,7 @@ struct SfResidualPoint {
   using Block = CT;
   Mat mat;
   float rho, mu_v;
+  __device__ __forceinline__ bool runs() const { return launch_runs(mat); }
   __device__ __forceinline__ void operator()(Staged<S> f, int lane, int q, long long e,
                                              long long E, const Tables& tb,
                                              const float* __restrict__ jinv,
@@ -323,6 +324,7 @@ struct SfMatvecPoint {
   static constexpr int MIN_BLOCKS = S::blocks(NF);
   using Block = const CT;
   float rho, fac0, fac1_mu_v;
+  __device__ __forceinline__ bool runs() const { return true; }
   __device__ __forceinline__ void operator()(Staged<S> f, int lane, int q, long long e,
                                              long long E, const Tables& tb,
                                              const float* __restrict__ jinv,
@@ -431,6 +433,7 @@ __global__ void __launch_bounds__(TILE * S::SLOTS, Pt::MIN_BLOCKS)
   using Tile = TileShared<S, NF>;
   MIMI_DYNAMIC_SHARED(Tile, tile);
   Tile& sh = *tile;
+  if (!point.runs()) return;  // the whole launch: J2Log's deep one where no point needs it
   const float* const fields[3] = {f0, f1, f2};
   const int lane = threadIdx.x % TILE, slot = threadIdx.x / TILE;
   const long long e = (long long)blockIdx.x * TILE + lane;
@@ -525,8 +528,6 @@ int launch_residual(const float* u_el, const float* a_el, const float* v_el,
 // 141.1 KB), 4, 2 or 1 (AxisShared::TE); thread t then works for element
 // t % TE, and its group t / TE walks the items.
 constexpr int AXIS_THREADS = 288;
-// the dynamic shared memory one block may have on sm_90
-constexpr size_t BLOCK_SMEM_MAX = 227 * 1024;
 
 // elements a block of sf_axis_matvec_kernel takes: the most of 16, 8, 4,
 // 2, 1 whose `rows` floats an element fit in a block's shared memory

@@ -30,7 +30,9 @@
 // inverses and products per pass), so it may turn compute bound; plastic
 // points add the radial return's trips (at most 40) once, in the float
 // pass.  The viscous residual stages v in shared memory beside u and a
-// (46.5 KB a block).
+// (46.5 KB a block).  A J2Log sweep is two launches, the fast log series
+// and, where a point of it left the series' range, the deep one for every
+// point (finite.cuh; the second returns at once otherwise).
 
 #include "finite.cuh"
 #include "sf_common.cuh"
@@ -43,7 +45,7 @@ int launch_finite_material(const float* u_el, const float* a_el, const float* v_
                            const float* s0, const float* s1, const float* s2, const float* s3,
                            float* out, void* cout, int c_bf16, const J2Params& p, float mu_v,
                            int material, long long E, void* stream) {
-  return with_finite_material<3>(material, p, s0, s1, s2, s3, [&](const auto& m) {
+  return with_finite_material<3>(material, p, s0, s1, s2, s3, stream, [&](const auto& m) {
     using Mat = std::decay_t<decltype(m)>;
 #define MIMI_FINITE(VISC, CT)                                                              \
   return launch_residual<Sf, Mat, FullStorage<3>, TANGENT, VISC, CT>(                      \
@@ -95,6 +97,10 @@ int mimi_assemble_sf_finite(const float* u_el, const float* a_el, const float* v
   return launch_finite_material<true>(u_el, a_el, v_el, tb, jinv, wq, s0, s1, s2, s3, out,
                                       cout, c_bf16, p, mu_v, material, E, stream);
 }
+
+// J2Log's sweeps whose deep launch ran (finite.cuh), since the library was
+// loaded, into *launches; waits for the device
+int mimi_logm_deep_sf_finite(long long* launches) { return logm_deep_count(launches); }
 
 int mimi_matvec_sf_full(const float* w_el, const float* b0, const float* d0,
                         const float* b1, const float* d1, const float* b2,

@@ -954,6 +954,26 @@ def _lib(kind, key):
     return lib
 
 
+def logm_deep_sweeps():
+    """J2Log sweeps on the card (residual and assemble, sf and dense) whose
+    deep log-series launch ran, summed over the libraries loaded so far:
+    each such sweep had a point out of the fast series' range and took the
+    deep series at every point (csrc/finite.cuh).  Reads the device's
+    counters, so it waits for the device."""
+    n, total = ctypes.c_longlong(0), 0
+    for (kind, _), lib in build._LIBS.items():
+        names = ["mimi_logm_deep_sf_finite"] if kind == "sf" else [
+            "mimi_logm_deep_dense_finite", "mimi_logm_deep_dense_finite_bf16"]
+        for name in names:
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+            err = fn(ctypes.byref(n))
+            if err != 0:
+                raise RuntimeError(f"{name} failed: CUDA error {err}")
+            total += n.value
+    return total
+
+
 def _launch(fn, name, *args):
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     LAUNCHES[name] += 1

@@ -4,7 +4,7 @@ checkout against another version of the same CUDA sources, on one CUDA
 GPU, on the same inputs in one process.
 
     mkdir -p <dir>; git archive <rev> mimi_tpu_torch/ops/csrc | tar -x -C <dir>
-    python3 scripts/ab_dense_sweeps.py --base <dir> [--part all|earlier|tiled] [--only REGEX]
+    python3 scripts/ab_dense_sweeps.py --base <dir> [--part all|earlier|tiled|finite] [--only REGEX]
 
 The base's dense sources (<dir>/mimi_tpu_torch/ops/csrc) are built at
 the dense shapes of chip_smoke.EARLIER_KEYS with this checkout's flags and shape
@@ -25,7 +25,17 @@ planes at the driven sizes instead (`all`: both): path I's tables (3, 64, 125), 
 two-patch cube elevated by 2 at 2 x 38^3; path L's (2, 25, 36), the
 cantilever elevated by 3 at 512^2; and (3, 125, 216), elevated by 3 at
 2 x 16^3, each storage with its bound by bytes; ptxas's registers and
-spills of both versions' tiled matvecs are printed first.  Every output of the two versions is compared: the max
+spills of both versions' tiled matvecs are printed first.  `--part finite`
+times J2Simo's and J2Log's dense residual and assemble (inviscid and
+viscous, float32 and bfloat16 block) at the finite-strain drives' shapes
+and sizes on random plastic input (chip_smoke.dense_finite_inputs): (3, 27,
+64) at 2 x 38^3 (the 3D dense cells; also on elastic input, |F - I| up to
+1e-3, as the cells' path states are) and (2, 16, 25) at 512^2 (the golden
+cantilevers) with the golden law, (2, 9, 16) at 128^2 (the p = 2 drives)
+with the golden law and at 2 x 512^2 with path G's press law (its size and
+law, random input, not its state), each with its bound, after both
+versions' ptxas lines of the finite kernels (`all` does not include it).
+Every output of the two versions is compared: the max
 abs difference, relative to the output's max, and whether they are equal
 to the bit; the times are CUDA-event means, taken base, new, new, base.
 Prints the card's name and power limit first.  `--only` keeps the rows
@@ -85,6 +95,62 @@ def tiled_matvecs(torch, mt, cs, sweeps, ab, dev, gen):
         torch.cuda.empty_cache()
 
 
+# the dense finite-strain shapes (--part finite)
+FINITE_KEYS = [("dense", (3, 27, 64)), ("dense", (2, 16, 25)), ("dense", (2, 9, 16))]
+
+
+def finite_sweeps(torch, mt, cs, sweeps, soa, ab, dev, gen):
+    """J2Simo's and J2Log's dense residual and assemble, inviscid and
+    viscous, with a float32 or bfloat16 block, at the finite-strain drives'
+    shapes and sizes, on random plastic input, with each call's bound (the
+    kernels line's count: inputs read once, outputs written once, the
+    operations of chip_smoke.dense_ops)."""
+    dt = 0.05
+    cube = lambda name: cs.dense_build(mt, cs.DENSE_SPANS, dev, name)  # noqa: E731
+    cases = [  # (label, problem, |F - I| of the input: 0.2 plastic, 1e-3 elastic)
+        ("2x38^3 golden law", cube, 0.2),
+        ("2x38^3 golden law, elastic", cube, 1e-3),
+        ("512^2 golden law", lambda name: cs.balken_build(mt, name, 2, cs.GOLDEN_SUBDIVIDE, dev),
+         0.2),
+        ("128^2 golden law", lambda name: cs.balken_build(mt, name, 1, cs.P2_SUBDIVIDE, dev), 0.2),
+        ("2x512^2 press law (path G)", lambda name: cs.press_build(
+            mt, 2, cs.PRESS_2D_SUBDIVIDE, dev, mat=cs.press_finite_material(mt, name)), 0.2),
+    ]
+    for size, make, amplitude in cases:
+        for name in sweeps.FULL_KERNELS:
+            prob = make(name)
+            mat, dN, N, wq = prob.material, prob.dense["dN_t"], prob.dense["N_t"], prob.wdet_t
+            key = cs.table_key(prob)
+            u_el, a_el, v_el, state, share = cs.dense_finite_inputs(torch, sweeps, soa, prob,
+                                                                    gen, dt, amplitude)
+            deep = cs.deep_points(torch, sweeps, soa, prob, u_el, state) if name == "J2Log" else 0
+            rho = float(mat.density)
+            a = (u_el, a_el, state, dN, N, wq, mat, dt, rho)
+            ops = cs.dense_ops(sweeps, prob)
+            n_pts, el = prob.n_el * prob.n_q, cs.nbytes(u_el)
+            label = (f"finite {cs.table_key(prob)} {size} {prob.n_el} elements {name}, plastic "
+                     f"share {share:.3f}, points past the fast log range {deep}")
+            calls = {}
+            for visc in (False, True):
+                vk = dict(v_el=v_el, mu_v=100.0) if visc else {}
+                vb = cs.nbytes(v_el) if visc else 0
+                names = sweeps.kernel_counters(mat, "dense", prob.dim, key, visc)
+                calls[names[0]] = lambda vk=vk: sweeps.residual_dense(*a, **vk)
+                ms, by = cs.bound_of(cs.nbytes(*a[:6]) + vb + el, n_pts * ops[0])
+                print(f"[{label}] {names[0]}: bound {ms:.4f} ms by {by}", flush=True)
+                for bf16 in (False, True):
+                    ct = torch.bfloat16 if bf16 else torch.float32
+                    names = sweeps.kernel_counters(mat, "dense", prob.dim, key, visc, bf16)
+                    calls[names[1]] = (lambda vk=vk, ct=ct:
+                                       sweeps.assemble_dense(*a, **vk, c_dtype=ct))
+                    planes = sweeps.n_planes("full", prob.dim) * n_pts * (2 if bf16 else 4)
+                    ms, by = cs.bound_of(cs.nbytes(*a[:6]) + vb + el + planes, n_pts * ops[1])
+                    print(f"[{label}] {names[1]}: bound {ms:.4f} ms by {by}", flush=True)
+            ab(label, calls, 5 if prob.dim == 3 or prob.n_el > 300000 else 10)
+            del u_el, a_el, v_el, state, a, calls, prob
+            torch.cuda.empty_cache()
+
+
 def use(kb, libs):
     """Make the wrappers launch the kernels of `libs` ({key: library})."""
     kb._LIBS.clear()
@@ -98,9 +164,10 @@ def main():
     ap.add_argument("--subdivide", type=int, default=8, help="2D: 2^subdivide spans per axis")
     ap.add_argument("--spans", type=int, default=16, help="3D p = 2: 2 x spans^3 elements")
     ap.add_argument("--only", default="", help="time only the rows whose name matches")
-    ap.add_argument("--part", choices=("all", "earlier", "tiled"), default="all",
+    ap.add_argument("--part", choices=("all", "earlier", "tiled", "finite"), default="all",
                     help="earlier: the untiled shapes' instantiations and (3, 3) at 2 x 8^3; "
-                    "tiled: the tiled matvecs at the driven sizes")
+                    "tiled: the tiled matvecs at the driven sizes; finite: J2Simo's and "
+                    "J2Log's dense residual and assemble at the driven sizes")
     args = ap.parse_args()
     import torch
 
@@ -116,9 +183,12 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
     t0 = time.perf_counter()
-    keys = [k for k in cs.EARLIER_KEYS if k[0] == "dense"] if args.part != "tiled" else []
-    if args.part != "earlier":
-        keys += [k for k in TILED_KEYS if k not in keys]
+    if args.part == "finite":
+        keys = FINITE_KEYS
+    else:
+        keys = [k for k in cs.EARLIER_KEYS if k[0] == "dense"] if args.part != "tiled" else []
+        if args.part != "earlier":
+            keys += [k for k in TILED_KEYS if k not in keys]
     kb.JOBS = os.cpu_count() or kb.JOBS  # nothing else runs beside the builds
     kb.start(keys)
     base = os.path.abspath(args.base)
@@ -129,10 +199,14 @@ def main():
     print(f"builds {time.perf_counter() - t0:.1f} s", flush=True)
     if args.part != "earlier":
         new_log = "".join(kb.BUILD_INFO[kb.key_of(*k)]["log"] for k in keys)
+        if args.part == "finite":  # the finite-strain residual and assemble kernels
+            shown = lambda n: "J2SimoMat" in n or "J2LogMat" in n  # noqa: E731
+        else:
+            shown = lambda n: "dense_matvec_tile_kernel" in n or (  # noqa: E731
+                "dense_tile_kernel" in n and "MatvecPoint" in n)
         for tag, log in (("base", base_log), ("new", new_log)):
             for name, v in sorted(cs.ptxas_entries(log, kb.nvcc()).items()):
-                if "dense_matvec_tile_kernel" in name or ("dense_tile_kernel" in name
-                                                          and "MatvecPoint" in name):
+                if shown(name):
                     print(f"[{tag} ptxas] {name.split('>(')[0]}>: {v.get('registers')} "
                           f"registers, {v.get('smem')} B smem, spill stores "
                           f"{v.get('spill_stores')} B, loads {v.get('spill_loads')} B", flush=True)
@@ -168,6 +242,10 @@ def main():
         use(kb, libs["new"])
         torch.cuda.empty_cache()
 
+    if args.part == "finite":
+        finite_sweeps(torch, mt, cs, sweeps, soa, ab, dev, gen)
+        print(f"{counts['equal']} of {counts['rows']} rows equal to the bit", flush=True)
+        return
     if args.part != "earlier":
         tiled_matvecs(torch, mt, cs, sweeps, ab, dev, gen)
     if args.part == "tiled":

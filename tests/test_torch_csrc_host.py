@@ -26,7 +26,11 @@ full tiles with a ragged tail, the sf matvec of every storage, viscous or
 not, float32 or bfloat16 block, at p = 2 and p = 3 on a ragged last tile,
 J2Simo's and J2Log's viscous and bfloat16
 full-storage kernels and the full block of J2, J2Linear and the
-hyperelastic materials, sf and dense, against their plain versions (the J2
+hyperelastic materials, sf and dense, J2Simo's and J2Log's dense residual
+and assemble (dense_finite_kernel, one thread per element and point slot)
+at the driven shapes on a ragged last tile, and J2Log's sf and dense
+sweeps on a batch with one point past the fast log series' range (one
+series decision a sweep), against their plain versions (the J2
 family's as the kernels' twin, the radial return at 40 trips:
 materials.kernel_solver_mode).  Skips where no g++ is found.
 """
@@ -45,6 +49,7 @@ import torch
 import mimi_tpu_torch as mt
 from mimi_tpu_torch.fem import soa
 from mimi_tpu_torch.materials import kernel_solver_mode
+from mimi_tpu_torch.materials import logm as tlogm
 from mimi_tpu_torch.ops import build as kbuild
 from mimi_tpu_torch.ops import sweeps as tsw
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one thread)
@@ -61,12 +66,13 @@ CXX = ["-std=c++20", "-O1", "-fPIC", "-pthread", "-ffp-contract=off", "-w"]
 # sf (2, 3) (p = 1), (5, 6) (p = 4), (3, 3) (p = 2 at quadrature order 5),
 # (5, 8) (p = 4 at quadrature order 14: the axis matvec's tile of 8),
 # dense (2, 25, 36) (2D p = 4), (3, 8, 27) (3D p = 1), (3, 125, 216) (3D
-# p = 4), (2, 12, 20) (2D degrees [3, 2]), (3, 343, 512) (3D p = 6: the
-# tiled matvec's owner warps capped at 16)
+# p = 4), (2, 12, 20) (2D degrees [3, 2]), (3, 216, 343) (3D p = 5: the
+# finite-strain tile's fields past a block's shared memory), (3, 343, 512)
+# (3D p = 6: the tiled matvec's owner warps capped at 16)
 HOST_SHAPES = {
     "sf": SF_SHAPES + ((2, 3), (5, 6), (3, 3), (5, 8)),
     "dense": tuple(tsw.dense_key(d, p) for d, p in DENSE_SHAPES)
-    + ((2, 25, 36), (3, 8, 27), (3, 125, 216), (2, 12, 20), (3, 343, 512)),
+    + ((2, 25, 36), (3, 8, 27), (3, 125, 216), (2, 12, 20), (3, 216, 343), (3, 343, 512)),
 }
 HOST_UNITS = [(kind, shape, name) for kind, shapes in HOST_SHAPES.items() for shape in shapes
               for name in kbuild.KIND_SOURCES[kind]]
@@ -548,12 +554,12 @@ def _plastic_inputs(prob, rng, amplitude):
     return u_el, a_el, v_el, w_el, state
 
 
-def _hold_host_sweeps(sw, prob, f, visc, bf16, matvec=True, storage=None):
+def _hold_host_sweeps(sw, prob, f, visc, bf16, matvec=True, storage=None, plane_bar=1e-5):
     """The material's residual, assemble (the block in `storage`, default
     the material's own) and (with `matvec`) matvec kernels of the host
     build through the wrappers' own marshalling against the plain versions
     (the J2 family's return at the kernels' 40 trips): residuals and matvec
-    at 1e-5 of scale, float32 planes at 1e-5 of their max, bfloat16 planes
+    at 1e-5 of scale, float32 planes at `plane_bar` of their max, bfloat16 planes
     within one bfloat16 step (2^-7) of the plain float32 planes rounded to
     bfloat16; on dense tables the bfloat16 matvec reads bfloat16 copies of
     dN and N."""
@@ -591,7 +597,7 @@ def _hold_host_sweeps(sw, prob, f, visc, bf16, matvec=True, storage=None):
         assert torch.equal(C, C32.to(torch.bfloat16))
         assert float((C.float() - C_p.float()).abs().max()) <= 2.0**-7 * scale
     else:
-        assert float((C - C_p).abs().max()) <= 1e-5 * scale
+        assert float((C - C_p).abs().max()) <= plane_bar * scale
     dN = tables[0]
     p = ((prob.sf["pp1"], prob.sf["n_g"]) if kind == "sf"
          else (dN.shape[1], dN.shape[0], dN.shape[2]))  # the tables' shape key
@@ -1079,3 +1085,131 @@ def test_fused_kernels_at_a_new_shape_on_cpu_tensors(libs):
              ctypes.c_void_p(None))
     assert lib.mimi_neohookean_residual(_ptr(u_el), _ptr(dN), _ptr(wq), _ptr(r), lam, mu,
                                         *wrong) != 0
+
+
+# the dense shapes that the finite-strain drives run: 3D p = 2, the golden
+# cantilever's 2D p = 3, the 2D p = 2 drives; and 3D p = 5, where the
+# tile's staged fields would pass the 227 KB a block may have (the host
+# stub refuses such a launch, as the card does)
+FINITE_TILE_KEYS = ((3, 27, 64), (2, 16, 25), (2, 9, 16), (3, 216, 343))
+FINITE_TILE_CASES = [(key, name, visc, bf16) for key in FINITE_TILE_KEYS
+                     for name in tsw.FULL_KERNELS for visc in (False, True)
+                     for bf16 in (False, True)]
+
+
+def _finite_tile_problem(key, mat, n=40):
+    """The first n elements of dense tables at `key`: the two-patch cube at
+    p = 2 or p = 5 (2 x 3^3 elements) or the golden cantilever's mesh at
+    p = 3 or p = 2 (8^2 elements); 40 = one tile of 32 and a ragged one of
+    8."""
+    dim, nd, _ = key
+    if dim == 3:
+        elevate = round(nd ** (1 / 3)) - 2
+        prob = mt.build_problem(os.path.join(DATA, "two-patch-cube.mesh"), elevate, 0, mat,
+                                [(0, 0), (0, 1), (0, 2)], {}, rho_inf=0.5, device="cpu",
+                                dtype=torch.float32, refine_spans=3)
+    else:
+        prob = mt.build_problem(BALKEN, round(nd**0.5) - 2, 3, mat, [(2, 0), (2, 1)], {},
+                                rho_inf=0.5, device="cpu", dtype=torch.float32)
+    assert tuple(prob.dense["dN_t"].shape[:3]) == (nd, dim, key[2])
+    return _first_elements(prob, n)
+
+
+@pytest.mark.parametrize(
+    "key, name, visc, bf16", FINITE_TILE_CASES,
+    ids=[f"{n}_{k[0]}_{k[1]}_{k[2]}{'_visc' if v else ''}{'_bf16' if b else ''}"
+         for k, n, v, b in FINITE_TILE_CASES])
+def test_dense_finite_point_slots_on_cpu_tensors(host_sweeps, key, name, visc, bf16):
+    """J2Simo's and J2Log's dense residual and assemble of the host build
+    (dense_finite_kernel: one thread per element and point slot, the
+    tangent's columns dealt over the warps) at the driven shapes and 3D p = 5,
+    inviscid and viscous, with a float32 or bfloat16 block, on 40 elements
+    (a full tile and a ragged one) of a random plastic history of the
+    press's law, against the plain versions: residuals at 1e-5 of scale,
+    float32 planes at 1e-5 of their max (at p = 5 the card's bar, 1e-4:
+    over its 13,720 points J2Simo's body, cbrtf against torch's x ** (1/3),
+    rounds up to 1.2e-5 from the plain version's, and both sit 5e-5 from
+    float64), bfloat16 planes within 2^-7."""
+    prob = _finite_tile_problem(key, _press_law(name))
+    f = _plastic_inputs(prob, np.random.default_rng(16), 0.002 if key[0] == 3 else 0.004)
+    _hold_host_sweeps(host_sweeps, prob, f, visc, bf16, matvec=False,
+                      plane_bar=1e-4 if key == (3, 216, 343) else 1e-5)
+
+
+def _stretch_one_point(state, e=0, q=0):
+    """J2Log's history with Fp^-1 = diag(20, 1(, 1)) at point q of element
+    e: that point's series argument leaves the fast range (||X||_F 0.59 in
+    2D, 0.79 in 3D), not the deep one."""
+    st = {k: v.clone() for k, v in state.items()}
+    dim = st["Fp_inv"].shape[0]
+    st["Fp_inv"][:, :, q, e] = torch.diag(torch.tensor([20.0] + [1.0] * (dim - 1)))
+    return st
+
+
+def _later_elements(x):
+    """x without its element 0 (the last axis of every tensor), through
+    dicts and lists; anything without a shape passes as it is."""
+    if isinstance(x, dict):
+        return {k: _later_elements(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_later_elements(v) for v in x]
+    return x[..., 1:].contiguous() if isinstance(x, torch.Tensor) else x
+
+
+@pytest.mark.parametrize("kind", ["sf", "dense"])
+def test_j2log_sweeps_take_one_log_series(host_sweeps, libs, kind):
+    """J2Log's residual and assemble of the host build, sf (3D p = 2, 8
+    elements) and dense (2D p = 3, 40 elements), on a random plastic
+    history with one point of the batch past the log series' fast range:
+    the kernels take the deep series at every point, as the plain version
+    does for the batch (one decision a sweep, the reference's lax.cond).
+    Every output (that point's too) is held against the plain version at
+    1e-5 of its scale, and at the in-range elements 10 times closer to the
+    plain version's deep series than its fast series is (the plain version
+    on those elements alone, all in range), so that a kernel that decides
+    per point fails.  The device counter of deep sweeps counts both sweeps,
+    and none on the batch without the point."""
+    mat = _press_law("J2Log", viscosity=-1.0)
+    if kind == "sf":
+        prob = _host_problem("sf", 3, 2, mat)
+        lib, getter = libs("sf", (3, 4)), "mimi_logm_deep_sf_finite"
+    else:
+        prob = _finite_tile_problem((2, 16, 25), mat)
+        lib, getter = libs("dense", (2, 16, 25)), "mimi_logm_deep_dense_finite"
+    fn = getattr(lib, getter)
+    fn.argtypes = [ctypes.c_void_p]
+    count = ctypes.c_longlong(0)
+
+    def deep_sweeps():
+        assert fn(ctypes.byref(count)) == 0
+        return count.value
+
+    u_el, a_el, _, _, state = _plastic_inputs(prob, np.random.default_rng(17), 0.004)
+    tables = ((prob.sf["tables"], prob.sf["jinv"]) if kind == "sf"
+              else (prob.dense["dN_t"], prob.dense["N_t"]))
+    sweep = host_sweeps._sf_sweep if kind == "sf" else host_sweeps._dense_sweep
+    plain = ((host_sweeps.residual_sf_plain, host_sweeps.assemble_sf_plain) if kind == "sf"
+             else (host_sweeps.residual_dense_plain, host_sweeps.assemble_dense_plain))
+    dt, rho = 0.05, float(mat.density)
+    n0 = deep_sweeps()
+    in_range = (u_el, a_el, state, *tables, prob.wdet_t, mat, dt, rho)
+    sweep(False, *in_range)
+    sweep(True, *in_range)
+    assert deep_sweeps() == n0
+    args = (u_el, a_el, _stretch_one_point(state), *tables, prob.wdet_t, mat, dt, rho)
+    outs = (sweep(False, *args), *sweep(True, *args))
+    assert deep_sweeps() == n0 + 2
+    later = [_later_elements(a) for a in args]
+    with kernel_solver_mode():
+        refs = (plain[0](*args), *plain[1](*args))
+        fast = (plain[0](*later), *plain[1](*later))
+    for got, ref, alt in zip(outs, refs, fast):
+        assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(ref).all())
+        scale = float(ref.abs().max())
+        assert float((got - ref).abs().max()) <= 1e-5 * scale
+        # at the in-range elements (element 0 holds the stretched point,
+        # NaN in the fast series) the kernel is 10 times closer to the deep
+        # series than the fast series is
+        err = float((got[..., 1:] - ref[..., 1:]).abs().max())
+        gap = float((alt - ref[..., 1:]).abs().max())
+        assert 10.0 * err < gap, (err / scale, gap / scale)

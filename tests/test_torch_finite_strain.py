@@ -5,7 +5,8 @@ on the CPU unless stated:
   - J2Simo and J2Log `pk1_soa` and `accumulate_soa` at 1e-12 on random F
     with elastic and plastic points and with C near I;
   - `logm_sym_soa` and `expm_sym_soa` on the fast, escalated and poisoned
-    branches at 1e-12;
+    branches at 1e-12, and J2Log's P on a batch with one point past the
+    fast log series' range (every point takes the deep series) at 1e-12;
   - the plain sf sweeps with the `full` storage against the reference's
     SoA math at 8 elements, one of them at C near I (both materials,
     1e-10): the residual, the 81 planes of `full_tangent_planes` against
@@ -167,6 +168,45 @@ def test_logm_matches_reference(stretch, expect):
     assert bool((xn[1:] <= tlogm.LOGM_X_MAX).all())
     if expect == "fast":
         assert np.array_equal(fast.numpy(), got)
+
+
+@pytest.mark.parametrize(
+    "stretch, expect",
+    [(1.0, "fast"), (6.0, "escalated"), (1e5, "poisoned")],
+    ids=["fast", "escalated", "poisoned"],
+)
+def test_j2log_stress_on_a_mixed_batch_matches_reference(stretch, expect):
+    """J2Log's P on a batch of 24 points (strains of ~3%, a random plastic
+    history) where point 0's Fp^-1 is diag(stretch, 1, 1): in range (the
+    fast series everywhere), past the fast range (every point of the batch
+    takes the deep series, as the CUDA sweeps do for all the points of a
+    launch) or past the deep range (point 0 is NaN), against the
+    reference's pk1_soa at 1e-12 on the same numpy input.  In the escalated
+    batch the in-range points' P is the deep series', not the fast one's."""
+    rng = np.random.default_rng(19)
+    F = _near_eye(rng, 0.03, (1, 24))
+    state = _history(rng, "J2Log", (1, 24))
+    state["Fp_inv"][:, :, 0, 0] = np.diag([stretch, 1.0, 1.0])
+    ref, port = _both_materials("J2Log")
+    P_ref = np.asarray(ref.pk1_soa(jnp.asarray(F), {k: jnp.asarray(v) for k, v in state.items()},
+                                   DT))
+    ts = {k: torch.tensor(v) for k, v in state.items()}
+    P = port.pk1_soa(torch.tensor(F), ts, DT).numpy()
+    bad = np.isnan(P_ref).any(axis=(0, 1))[0]
+    assert (np.isnan(P).any(axis=(0, 1))[0] == bad).all()
+    assert bad[0] == (expect == "poisoned") and not bad[1:].any()
+    assert _rel(P[..., 0, ~bad], P_ref[..., 0, ~bad]) < 1e-12
+    # the decision's input: point 0's elastic C = (F Fp^-1)^T F Fp^-1 is
+    # out of the fast series' range unless "fast", the others in it
+    Fe = torch.einsum("ikqe,kjqe->ijqe", torch.tensor(F), ts["Fp_inv"])
+    _, xn = tlogm._logm_core(torch.einsum("kiqe,kjqe->ijqe", Fe, Fe), *tlogm.LOGM_FAST)
+    assert bool(xn[0, 0] > tlogm.LOGM_X_MAX) == (expect != "fast")
+    assert bool((xn[0, 1:] <= tlogm.LOGM_X_MAX).all())
+    # points 1.. alone stay in the fast series: the batch's P there is
+    # theirs only where point 0 is in range too
+    later = {k: v[..., 1:] for k, v in ts.items()}
+    P_fast = port.pk1_soa(torch.tensor(F[..., 1:]), later, DT).numpy()
+    assert np.array_equal(P_fast, P[..., 1:]) == (expect == "fast")
 
 
 @pytest.mark.parametrize("size, expect", [(0.5, "fast"), (10.0, "escalated"), (100.0, "poisoned")],
