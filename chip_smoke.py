@@ -6,8 +6,10 @@ library per kind of tables and element shape, one nvcc per source and
 shape on a pool of processes: ops/build.py; the default shapes first,
 then the new shapes of phases 62-67, which compile while phases 3-61
 run), prints each library's build seconds and ptxas's registers,
-shared memory and spills of every instantiation of the sf kernel template
-(phase 2: the main path's library; phase 62: every other),
+shared memory and spills of every instantiation of the sf kernel templates
+(sf_tile_kernel up to p = 3, sf_axis_residual_kernel and
+sf_axis_matvec_kernel from p = 4 on; phase 2: the main path's library;
+phase 62: every other),
 residual, assemble and matvec (failing where a matvec or a J2-family
 Cauchy or hyperelastic residual or assemble spills), holds each
 kernel against its plain torch version, checks one implicit step of the
@@ -114,8 +116,9 @@ through the viscous dense (2, 2) full kernels; 1 warm + 2 timed steps
 each.  Every new instantiation (J2Simo's and J2Log's viscous and bfloat16
 full kernels, sf and at every dense shape; the full block of J2, J2Linear
 and the hyperelastic materials) against its plain version on random input
-at full size, the path kernels at the paths' states, the next Newton
-system, a profiled step, one step held at 16^3 / 2 x 64^2, one body-force
+on the paths' meshes at 16^3 / 2 x 64^2 (and 64^2 p = 3, 2 x 8^3), the
+path kernels at the paths' states, the next Newton system, one step held
+at 16^3 / 2 x 64^2, one body-force
 J2 step with tangent_storage="full" against the Cauchy block's.  Phase 48
 times the J2-family kernels' radial return at its cap of 40 trips against
 the 100 of the "torch" engine (the press's plastic sf sweeps in phase 11,
@@ -639,11 +642,12 @@ def check_ptxas(kbuild, keys, label="2. ptxas"):
     """Build seconds of each library of `keys` ((kind, shape) of
     ops/build.py), and registers, shared memory and spills of every
     instantiation of the sf kernel templates (sf_common.cuh sf_tile_kernel:
-    one thread per element and point slot; sf_axis_matvec_kernel, the
-    matvec from p = 4 on) in them; fails where a matvec (SfMatvecPoint or
-    sf_axis_matvec_kernel, any storage) or a J2-family Cauchy (J2Mat) or
-    hyperelastic (Hyper) residual or assemble spills, with its own or the
-    full block, at any shape.  The finite-strain ones (J2SimoMat,
+    one thread per element and point slot, up to p = 3;
+    sf_axis_residual_kernel and sf_axis_matvec_kernel, the residual and
+    assemble and the matvec from p = 4 on) in them; fails where a matvec
+    (SfMatvecPoint or sf_axis_matvec_kernel, any storage) or a J2-family
+    Cauchy (J2Mat) or hyperelastic (Hyper) residual or assemble spills, with
+    its own or the full block, at any shape.  The finite-strain ones (J2SimoMat,
     J2LogMat: 9 dual-number passes per point) and the dense kernels with the
     full block, tiled (dense_tile_kernel, dense_matvec_tile_kernel) or at a
     shape outside the defaults are printed, not held, but a tiled matvec
@@ -662,11 +666,11 @@ def check_ptxas(kbuild, keys, label="2. ptxas"):
         return
     every = ptxas_entries("".join(logs), kbuild.nvcc())
     ents = {n: v for n, v in every.items()
-            if "sf_tile_kernel" in n or "sf_axis_matvec_kernel" in n}
+            if "sf_tile_kernel" in n or "sf_axis_" in n}
     if any(k[0] == "sf" for k in keys) and (
             not any("SfMatvecPoint" in n or "sf_axis_matvec_kernel" in n for n in ents)
-            or not any("SfResidualPoint" in n for n in ents)):
-        fail("no sf matvec or sf_tile_kernel residual instantiation in the ptxas output")
+            or not any("SfResidualPoint" in n or "sf_axis_residual_kernel" in n for n in ents)):
+        fail("no sf matvec or sf residual instantiation in the ptxas output")
     for name, v in sorted(ents.items()):
         spilled = v.get("spill_stores", 0) + v.get("spill_loads", 0)
         # cu++filt writes template arguments as (int)4, (bool)0; the
@@ -2746,7 +2750,7 @@ def dense_finite_phases(torch, mt, sweeps, soa, sh, device, gen):
     512^2, 2D p = 2 at 128^2, 3D p = 2 at 2 x 8^3), J2Log also past the
     fast log series' range; 34: one plastic step of the kernel path
     against the plain path (64^2 per material: the third step at dt 0.2
-    from two float64 plain steps; 3D J2Simo at 2 x 8^3, A 1); 35: the timed
+    from a float64 plain step; 3D J2Simo at 2 x 8^3, A 1); 35: the timed
     drives (the golden cantilevers at 512^2 and 128^2 p = 2, 1 + 2 steps at
     dt 0.1; 2 x 38^3, 1 + 1), each step short of a 1e-4 Newton drop held
     against the plain path; 36: one profiled step per material at 512^2;
@@ -2765,7 +2769,7 @@ def dense_finite_phases(torch, mt, sweeps, soa, sh, device, gen):
         prob = balken_build(mt, name, 2, STEP2D_SUBDIVIDE, device)
         step_parity(torch, mt, lambda: balken_build(mt, name, 2, STEP2D_SUBDIVIDE, device, f64),
                     prob, PARITY_DT, STEP2D_KW,
-                    f"34. {2**STEP2D_SUBDIVIDE}^2 step 3 {name}, dt {PARITY_DT}", gen, warm=2)
+                    f"34. {2**STEP2D_SUBDIVIDE}^2 step 2 {name}, dt {PARITY_DT}", gen, warm=1)
         del prob
     prob = dense_build(mt, DENSE_CHECK_SPANS, device, "J2Simo", A=A_PLASTIC)
     step_parity(torch, mt,
@@ -3767,6 +3771,17 @@ def hold_full_others(torch, mt, sweeps, soa, prob, combos, dt, label, gen, timed
     return rows
 
 
+# paths H's and K's problems, built in phase 2 while the main path's
+# library compiles; each taken once by its path (early_problem)
+_EARLY = {}
+
+
+def early_problem(key, build_fn):
+    """The problem `key` of _EARLY (built in phase 2), else build_fn()."""
+    prob = _EARLY.pop(key, None)
+    return build_fn() if prob is None else prob
+
+
 def cube3_of(mt, mat, spans, device, force=-3.0, dtype=None, elevate=0):
     """The body-force cube on the reference's p = 3 mesh, elevated by
     `elevate`, at `spans` per axis with the material `mat` (path H's
@@ -3957,7 +3972,7 @@ def p3_phases(torch, mt, sweeps, soa, sh, device, gen):
 
     # ---- 55. path H ---------------------------------------------------------------------
     t0 = time.perf_counter()
-    prob = cube3_of(mt, jc_material(mt), SPANS, device)
+    prob = early_problem("H", lambda: cube3_of(mt, jc_material(mt), SPANS, device))
     torch.cuda.synchronize()
     label = f"55. path H {SPANS}^3 p=3 J2"
     say(f"[{label}] host build {time.perf_counter() - t0:.2f} s: n_el {prob.n_el}, n_q "
@@ -4011,12 +4026,14 @@ def p3_phases(torch, mt, sweeps, soa, sh, device, gen):
 def finite_press_paths(torch, mt, sweeps, soa, sh, device, gen):
     """Phases 48-53: the finite-strain contact presses and the full block
     of every material.  48: how far the trip cap binds (cap_share), here
-    on J2Log's random plastic input at the golden law (at the press's and
-    the golden J2 cantilever's path states in phases 11 and 32).  49: on path F's 48^3 tables, J2Simo's and J2Log's viscous
-    residual and their assemble and matvec viscous with a float32 block,
-    viscous and inviscid with a bfloat16 one, against plain on random
-    plastic input of the press's law; the full block of J2, J2Linear and
-    the hyperelastic materials, every (viscous, bfloat16) pair.  50: path F,
+    on J2Log's random plastic input at the golden law on path F's 48^3
+    tables (at the press's and the golden J2 cantilever's path states in
+    phases 11 and 32).  49: on path F's mesh at 16^3, J2Simo's and J2Log's
+    viscous residual and their assemble and matvec viscous with a float32
+    block, viscous and inviscid with a bfloat16 one, against plain on
+    random plastic input of the press's law; the full block of J2,
+    J2Linear and the hyperelastic materials, every (viscous, bfloat16)
+    pair.  50: path F,
     the reference's cube press (build_contact: the tool from 0.02 above the
     face, pushed 0.01 before each step) with J2Simo and with J2Log (1 warm
     + PRESS_F_TIMED steps, the bfloat16 full block), the path kernels at
@@ -4025,9 +4042,10 @@ def finite_press_paths(torch, mt, sweeps, soa, sh, device, gen):
     the next Newton system at full size kernel path vs plain path, a
     profiled step, one step held at 16^3.  51: path G, the 2D two-patch
     press with J2Simo (dense (2, 2), 2 x 512^2), the same, the step held at
-    2 x 64^2; on its tables J2Log's viscous kernels and the full block of
-    the other materials.  52: the viscous full kernels and the full block
-    of the other materials at (2, 3) on 512^2 p = 3 and (3, 2) on 2 x 8^3.
+    2 x 64^2; on its mesh at 2 x 64^2 J2Log's viscous kernels and the full
+    block of the other materials.  52: the viscous full kernels and the
+    full block of the other materials at (2, 3) on 64^2 p = 3 and (3, 2) on
+    2 x 8^3.
     53: one body-force J2 step at 48^3 with tangent_storage="full" against
     the Cauchy storage's.  Returns the paths' rows of the kernels line."""
     NDS = mt.NearestDistanceToSplines
@@ -4076,11 +4094,17 @@ def finite_press_paths(torch, mt, sweeps, soa, sh, device, gen):
         if base.grid is None:
             scatter_timing(torch, sh, base, gen, f"{n_drive}. path {tag} {size_s}")
 
-        # ---- 49 / 51. the new instantiations on the path's tables, random input -----
-        held_random(base, sweeps.FULL_KERNELS, sf_combos if dim == 3 else ((True, False),),
-                    f"{n_rand}. {size_s}", dt)
-        hold_full_others(torch, mt, sweeps, soa, base, all_sf if dim == 3 else dense_combos, dt,
-                         f"{n_rand}. {size_s}", gen, timed=False)
+        # ---- 49 / 51. the new instantiations on the path's mesh, random input -----------
+        # at the held step's size (16^3, 2 x 64^2): the same kernels as at
+        # the path's size, whose state holds the drive's own instantiation
+        hsize = f"2x{2**held}^2" if dim == 2 else f"{held}^3"
+        small = (build_contact(mt, held, device, "J2Simo") if dim == 3 else
+                 press_build(mt, dim, held, device, mat=press_finite_material(mt, "J2Simo")))
+        held_random(small, sweeps.FULL_KERNELS, sf_combos if dim == 3 else ((True, False),),
+                    f"{n_rand}. {hsize}", dt)
+        hold_full_others(torch, mt, sweeps, soa, small, all_sf if dim == 3 else dense_combos, dt,
+                         f"{n_rand}. {hsize}", gen, timed=False)
+        del small
         if dim == 3:  # 48: J2Log's assemble at the golden law on random plastic input
             mat = jc_material(mt, name="J2Log")
             mat.setup(3)
@@ -4146,7 +4170,6 @@ def finite_press_paths(torch, mt, sweeps, soa, sh, device, gen):
 
             # one step at a small size, kernel path vs plain path
             hprob = press_build(mt, dim, held, device, mat=press_finite_material(mt, name))
-            hsize = f"2x{2**held}^2" if dim == 2 else f"{held}^3"
             hlabel = f"{n_drive}. path {tag} {hsize} {name} step"
             carry0 = mt.initial_carry(hprob)
             sd0 = NDS.translate_scene_data(hprob.contact[0]["scene"], PRESS_PUSH[dim])
@@ -4172,10 +4195,10 @@ def finite_press_paths(torch, mt, sweeps, soa, sh, device, gen):
         torch.cuda.empty_cache()
         clock(f"path {tag}")
 
-    # ---- 52. (2, 3) at 512^2 p = 3 and (3, 2) at 2 x 8^3 -------------------------------------
+    # ---- 52. (2, 3) at 64^2 p = 3 and (3, 2) at 2 x 8^3 ---------------------------------------
     for prob, label in (
-        (cantilever_of(mt, press_finite_material(mt, "J2Simo"), 2, GOLDEN_SUBDIVIDE, device),
-         f"52. {2**GOLDEN_SUBDIVIDE}^2 p=3"),
+        (cantilever_of(mt, press_finite_material(mt, "J2Simo"), 2, STEP2D_SUBDIVIDE, device),
+         f"52. {2**STEP2D_SUBDIVIDE}^2 p=3"),
         (mt.build_problem(TWO_PATCH, 1, 0, press_finite_material(mt, "J2Simo"),
                           [(0, 0), (0, 1), (0, 2)], {1: -5.0}, rho_inf=0.5, device=device,
                           refine_spans=DENSE_CHECK_SPANS), f"52. 2x{DENSE_CHECK_SPANS}^3"),
@@ -4630,7 +4653,7 @@ def degree_phases(torch, mt, sweeps, soa, sh, fused, kbuild, device, gen):
 
     # ---- 65. path K -----------------------------------------------------------------
     t0 = time.perf_counter()
-    prob = cube3_of(mt, jc_material(mt), K_SPANS, device, elevate=1)
+    prob = early_problem("K", lambda: cube3_of(mt, jc_material(mt), K_SPANS, device, elevate=1))
     torch.cuda.synchronize()
     label = f"65. path K {K_SPANS}^3 p=4 J2"
     say(f"[{label}] host build {time.perf_counter() - t0:.2f} s: n_el {prob.n_el}, n_q "
@@ -4712,9 +4735,19 @@ def main():
     # every shape's sources queued on the build's pool in the order the
     # phases first launch them (BUILD_ORDER), the main path's first: the
     # rest compile while the phases run, each phase waiting only for the
-    # shapes it launches (ops/build.py load); their ptxas in phase 62
+    # shapes it launches (ops/build.py load); their ptxas in phase 62.
+    # While the main path's library compiles, the host builds of the main
+    # path's problems (shared_build) and of paths H and K (early_problem)
     t0 = t_main = time.perf_counter()
     kbuild.start(BUILD_ORDER)
+    for spans in (CHECK_SPANS, SPANS):
+        build(mt, spans, device)
+    dense_build(mt, DENSE_SPANS, device)
+    _EARLY["H"] = cube3_of(mt, jc_material(mt), SPANS, device)
+    _EARLY["K"] = cube3_of(mt, jc_material(mt), K_SPANS, device, elevate=1)
+    torch.cuda.synchronize()
+    say(f"host builds while the main path's library compiles: {time.perf_counter() - t0:.2f} s "
+        f"(the 16^3 and 48^3 cubes, the 2 x {DENSE_SPANS}^3 two-patch cube, paths H and K)")
     kbuild.prebuild(BUILD_ORDER[:1])
     build_s = time.perf_counter() - t0
     say(f"kernel build: {build_s:.2f} s for the main path's library {BUILD_ORDER[0]} (one "

@@ -390,7 +390,7 @@ class J2(_J2ThermoBase):
 
     def cauchy_soa(self, F, state, dt):
         p, s, q, delta, active, N_p = self._return_map(F, state, dt)
-        return soa.add_diag(s - 2.0 * self.G * delta * N_p, p)
+        return soa.add_diag(_plastic_correction(self, s, delta, active, N_p), p)
 
     def pk1_soa(self, F, state, dt):
         return _pk1_from_cauchy_soa(self.cauchy_soa(F, state, dt), F)
@@ -403,6 +403,15 @@ class J2(_J2ThermoBase):
         if self.hardening.is_temperature_dependent():
             new["temperature"] = _heat(self, state, q, delta, active)
         return new
+
+
+def _plastic_correction(mat, s, delta, active, N_p):
+    """s - 2 G delta N_p where the point yields, s where it is elastic.
+    There delta is 0, and the term is left out rather than formed: where
+    q^2 is subnormal in float32 the flow direction's derivative 1.5 q' / q^2
+    overflows, and 0 x inf would make the tangent NaN (the reference's XLA
+    flushes subnormals to zero, so its q is 0 there and its tangent finite)."""
+    return torch.where(active, s - 2.0 * mat.G * delta * N_p, s)
 
 
 def _eye_state(shape_prefix, d, dtype, device):
@@ -523,7 +532,7 @@ class J2Log(_J2ThermoBase):
             q, state["eqps"], thermo, dt, 3.0 * self.G
         )
         N_p = (1.5 / torch.where(q > 0.0, q, 1.0)) * s
-        s = s - 2.0 * self.G * delta * N_p
+        s = _plastic_correction(self, s, delta, active, N_p)
         return p, s, q, delta, active, N_p
 
     def pk1_soa(self, F, state, dt):

@@ -296,8 +296,11 @@ __global__ void __launch_bounds__(BLOCK)
 // at p = 4 with 8), reading those nodes' dN and N at the round's points,
 // with the scatter's operations (scatter_q).  Every table read of a warp is
 // one 128-byte line; dN is read twice, as above.  Shared memory: 55.8 KB a
-// block for the residual at (3, 64, 125), 106.8 KB at (3, 125, 216).  The
-// tiled matvec reads dN and N once (dense_matvec_tile_kernel below).
+// block for the residual at (3, 64, 125), 106.8 KB at (3, 125, 216); the
+// second field (the residual's a, the fused tangent apply's w) is staged
+// only where both fit in a block's 227 KB, and read from device memory
+// otherwise (3D p = 6: 145.0 KB instead of 276.7 KB).  The tiled matvec
+// reads dN and N once (dense_matvec_tile_kernel below).
 
 constexpr int DTILE = 32;
 
@@ -305,6 +308,17 @@ constexpr int DTILE = 32;
 template <int DIM>
 struct TileStage {
   static constexpr int M = DIM * DIM, W = DIM * DIM + DIM, N = DIM * DIM + DIM + 1;
+};
+
+// dense_tile_kernel's shared memory with NF fields: the first field staged,
+// the second (NF = 2) where both fit in a block's shared memory
+template <class S, int NF>
+struct DenseTile {
+  static constexpr size_t stage_floats = (size_t)DTILE * S::SLOTS * TileStage<S::DIM>::N;
+  static constexpr int STAGED =
+      sizeof(float) * (stage_floats + (size_t)DTILE * NF * S::NW) <= BLOCK_SMEM_MAX ? NF : 1;
+  static constexpr size_t BYTES = sizeof(float) * (stage_floats + (size_t)DTILE * STAGED * S::NW);
+  static_assert(BYTES <= BLOCK_SMEM_MAX, "one field and the round's points exceed a block");
 };
 
 // v[c] = sum_n N[n](q) w(c ND + n), as value_q
@@ -322,12 +336,13 @@ __device__ __forceinline__ void value_q_of(const TT* __restrict__ N, const W& w,
 }
 
 // The points of dense_tile_kernel: the flux X and mass term m of point q
-// of the lane's element, from the staged fields s0 (and s1); MASS: whether
-// the scatter adds N[n] m[c] (the fused neo-Hookean kernels have no mass
-// term and no N table).
+// of the lane's element, from the staged field s0 and the second field's
+// values f1(k) (staged or read from device memory); MASS: whether the
+// scatter adds N[n] m[c] (the fused neo-Hookean kernels have no mass term
+// and no N table).
 
 // one point of the residual (and, with TANGENT, the assemble, the block in
-// CT): fields u (s0) and a (s1)
+// CT): fields u (s0) and a (f1)
 template <class Mat, class Store, class S, bool TANGENT, bool VISC, typename CT>
 struct ResidualPoint {
   static constexpr bool MASS = true;
@@ -338,8 +353,9 @@ struct ResidualPoint {
   const float* dN;
   const float* N;
   float rho, mu_v;
-  __device__ __forceinline__ void operator()(const float (*s0)[DTILE], const float (*s1)[DTILE],
-                                             int lane, long long e, long long E, long long qe,
+  template <class F1>
+  __device__ __forceinline__ void operator()(const float (*s0)[DTILE], const F1& f1, int lane,
+                                             long long e, long long E, long long qe,
                                              long long QE, float X[DIM][DIM],
                                              float m[DIM]) const {
     constexpr int ND = S::ND;
@@ -360,7 +376,7 @@ struct ResidualPoint {
         for (int d = 0; d < DIM; ++d) X[c][d] = add(X[c][d], mul(mu_v, dV[c][d]));
     }
     float av[DIM];
-    value_q_of<DIM, ND>(N, [=](int k) { return s1[k][lane]; }, qe, QE, av);
+    value_q_of<DIM, ND>(N, f1, qe, QE, av);
 #pragma unroll
     for (int c = 0; c < DIM; ++c) m[c] = rho * av[c];
   }
@@ -368,8 +384,8 @@ struct ResidualPoint {
 
 // y[c][n] = sum_q wq (dN[n][d] X[c][d] + N[n] m[c]) with the point's X and
 // m from `point` (ResidualPoint or a fused neo-Hookean point)
-// on the NF staged fields f0 (and f1); the scatter reads dN, N in TT (the
-// point's own tables; N only where Pt::MASS)
+// on the NF fields f0 (and f1; staged as DenseTile says); the scatter reads
+// dN, N in TT (the point's own tables; N only where Pt::MASS)
 template <class S, int NF, typename TT, class Pt>
 __global__ void __launch_bounds__(DTILE * S::SLOTS)
     dense_tile_kernel(Pt point, const float* __restrict__ f0, const float* __restrict__ f1,
@@ -377,20 +393,27 @@ __global__ void __launch_bounds__(DTILE * S::SLOTS)
                       const float* __restrict__ wq, float* __restrict__ out, long long E) {
   using T = TileStage<S::DIM>;
   constexpr int DIM = S::DIM, ND = S::ND, NW = S::NW, NQ = S::NQ, DSLOTS = S::SLOTS;
-  constexpr int OWN_NODES = (ND + DSLOTS - 1) / DSLOTS;
+  constexpr int OWN_NODES = (ND + DSLOTS - 1) / DSLOTS, SF = DenseTile<S, NF>::STAGED;
   MIMI_DYNAMIC_SHARED(float, smem);  // s0[NW][DTILE] (, s1[NW][DTILE]), st[DSLOTS][T::N][DTILE]
   float(*s0)[DTILE] = reinterpret_cast<float(*)[DTILE]>(smem);
-  float(*s1)[DTILE] = s0 + (NF > 1 ? NW : 0);
-  float(*st)[T::N][DTILE] = reinterpret_cast<float(*)[T::N][DTILE]>(s0 + NF * NW);
+  float(*s1)[DTILE] = s0 + (SF > 1 ? NW : 0);
+  float(*st)[T::N][DTILE] = reinterpret_cast<float(*)[T::N][DTILE]>(s0 + SF * NW);
   const int lane = threadIdx.x % DTILE, slot = threadIdx.x / DTILE;
   const long long e = (long long)blockIdx.x * DTILE + lane;
   const bool live = e < E;  // the last tile is ragged where E % DTILE != 0
   for (int r = slot; r < NW; r += DSLOTS) {
     const long long off = (long long)r * E + e;
     s0[r][lane] = live ? __ldg(f0 + off) : 0.f;
-    if (NF > 1) s1[r][lane] = live ? __ldg(f1 + off) : 0.f;
+    if (SF > 1) s1[r][lane] = live ? __ldg(f1 + off) : 0.f;
   }
   __syncthreads();
+  // value k of the lane's element's second field
+  const auto field1 = [=](int k) {
+    if constexpr (SF > 1)
+      return s1[k][lane];
+    else
+      return __ldg(f1 + (long long)k * E + e);
+  };
   float acc[OWN_NODES][DIM];
 #pragma unroll
   for (int j = 0; j < OWN_NODES; ++j)
@@ -403,7 +426,7 @@ __global__ void __launch_bounds__(DTILE * S::SLOTS)
     if (live && q < NQ) {  // the last round is partial where DSLOTS does not divide NQ
       const long long qe = (long long)q * E + e;
       float X[DIM][DIM], m[DIM];
-      point(s0, s1, lane, e, E, qe, QE, X, m);
+      point(s0, field1, lane, e, E, qe, QE, X, m);
 #pragma unroll
       for (int c = 0; c < DIM; ++c) {
 #pragma unroll
@@ -454,8 +477,7 @@ __global__ void __launch_bounds__(DTILE * S::SLOTS)
 template <class S, int NF, typename TT, class Pt>
 int launch_dense_tile(const Pt& point, const float* f0, const float* f1, const TT* dN,
                       const TT* N, const float* wq, float* out, long long E, void* stream) {
-  constexpr size_t smem =
-      sizeof(float) * DTILE * (NF * S::NW + S::SLOTS * TileStage<S::DIM>::N);
+  constexpr size_t smem = DenseTile<S, NF>::BYTES;
   if (const int err = allow_dynamic_smem<dense_tile_kernel<S, NF, TT, Pt>>(smem)) return err;
   const unsigned tiles = (unsigned)((E + DTILE - 1) / DTILE);
   dense_tile_kernel<S, NF, TT, Pt><<<tiles, DTILE * S::SLOTS, smem, (cudaStream_t)stream>>>(

@@ -350,12 +350,18 @@ struct J2LogMat : FiniteMat<J2LogMat<DIM>, DIM> {
     sm::dev(E, 2.f * p.G, s);
     const T q = sqrtf(1.5f) * sm::fro_norm(s);
     const T delta = plastic_increment(p, q, T(p.g3), true, e0, thermo, rm);
-    const T npf = 1.5f / (val(q) > 0.f ? q : T(1.f));
-    const T g = (2.f * p.G) * delta;
+    // s - 2G delta N_p where the point yields; on an elastic point delta is 0
+    // and the term is left out, as the plain version does: where q^2 is
+    // subnormal the dual part of N_p = 1.5 s / q overflows, and 0 x inf
+    // would turn the tangent NaN
+    if (rm.active) {
+      const T npf = 1.5f / (val(q) > 0.f ? q : T(1.f));
+      const T g = (2.f * p.G) * delta;
 #pragma unroll
-    for (int i = 0; i < DIM; ++i)
+      for (int i = 0; i < DIM; ++i)
 #pragma unroll
-      for (int j = 0; j < DIM; ++j) s[i][j] = s[i][j] - g * (npf * s[i][j]);
+        for (int j = 0; j < DIM; ++j) s[i][j] = s[i][j] - g * (npf * s[i][j]);
+    }
     const T J = sm::det(F);
     const T pj = pr / J;
 #pragma unroll

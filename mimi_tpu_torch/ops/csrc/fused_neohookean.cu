@@ -174,10 +174,10 @@ struct NhResidualPoint {
   static constexpr int DIM = S::DIM;
   NeoHookean<DIM> mat;
   const float* dN;
-  __device__ __forceinline__ void operator()(const float (*s0)[DTILE], const float (*)[DTILE],
-                                             int lane, long long, long long, long long qe,
-                                             long long QE, float X[DIM][DIM],
-                                             float m[DIM]) const {
+  template <class F1>
+  __device__ __forceinline__ void operator()(const float (*s0)[DTILE], const F1&, int lane,
+                                             long long, long long, long long qe, long long QE,
+                                             float X[DIM][DIM], float m[DIM]) const {
     float G[DIM][DIM], F[DIM][DIM];
     grad_q_of<DIM, S::ND>(dN, [=](int k) { return s0[k][lane]; }, qe, QE, G);
     deformation_gradient<DIM>(G, F);
@@ -187,21 +187,21 @@ struct NhResidualPoint {
   }
 };
 
-// the tangent apply's point: F from u (s0), dF from w (s1), dP; no mass term
+// the tangent apply's point: F from u (s0), dF from w (f1), dP; no mass term
 template <class S>
 struct NhTangentPoint {
   static constexpr bool MASS = false;
   static constexpr int DIM = S::DIM;
   NeoHookean<DIM> mat;
   const float* dN;
-  __device__ __forceinline__ void operator()(const float (*s0)[DTILE],
-                                             const float (*s1)[DTILE], int lane, long long,
-                                             long long, long long qe, long long QE,
+  template <class F1>
+  __device__ __forceinline__ void operator()(const float (*s0)[DTILE], const F1& f1, int lane,
+                                             long long, long long, long long qe, long long QE,
                                              float X[DIM][DIM], float m[DIM]) const {
     float G[DIM][DIM], F[DIM][DIM], dF[DIM][DIM];
     grad_q_of<DIM, S::ND>(dN, [=](int k) { return s0[k][lane]; }, qe, QE, G);
     deformation_gradient<DIM>(G, F);
-    grad_q_of<DIM, S::ND>(dN, [=](int k) { return s1[k][lane]; }, qe, QE, dF);
+    grad_q_of<DIM, S::ND>(dN, f1, qe, QE, dF);
     tangent_apply<DIM>(mat, F, dF, X);
 #pragma unroll
     for (int c = 0; c < DIM; ++c) m[c] = 0.f;

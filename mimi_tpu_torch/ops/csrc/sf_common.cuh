@@ -3,12 +3,13 @@
 // with the symmetric storage) and sweeps_sf_finite.cu (J2Simo and J2Log
 // with the full storage), for sm_90a: the 1D basis tables and the
 // interpolation of one element's fields at one point (the J2 return maps
-// are in j2.cuh, the storages in materials.cuh), and two kernel templates
-// with their launchers, both templated on the element's shape
+// are in j2.cuh, the storages in materials.cuh), and three kernel templates
+// with their launchers, all templated on the element's shape
 // SfShape<P1, NG> (P1 = p + 1 nodes and NG Gauss points per axis):
-// sf_tile_kernel for the residual, the assemble and, up to p = 3, the
-// matvec; sf_axis_matvec_kernel for the matvec from p = 4 on (its notes
-// are above it).  Each source instantiates
+// up to p = 3 sf_tile_kernel for the residual, the assemble and the
+// matvec; from p = 4 on sf_axis_residual_kernel (the residual and the
+// assemble) and sf_axis_matvec_kernel (the matvec), which contract one
+// axis at a time (their notes are above them).  Each source instantiates
 // what it needs at the one shape its build defines (MIMI_SF_P1,
 // MIMI_SF_NG: ops/build.py compiles the three sources once per shape the
 // step asks for, each shape into a library of its own, as the reference
@@ -16,28 +17,27 @@
 //
 // sf_tile_kernel maps one thread to an (element, point slot): a block
 // takes a tile of TILE = 32 consecutive elements, one per lane, and
-// S::SLOTS warps (4, 8 from p = 4 on), warp s taking the points
-// q = s (mod SLOTS) of every element in the tile.  The tile's element fields (the residual's u, a and,
+// SLOTS = 4 warps, warp s taking the points q = s (mod 4) of every element
+// in the tile.  The tile's element fields (the residual's u, a and,
 // viscous, v; the matvec's w: (3, ND) values each) are staged once in
 // shared memory as [3 ND][TILE], so a lane reads its own column without
 // bank conflicts, and every batch-last read and write at qe = q E + e
 // (tables, jinv, w det J, state, tangent planes) is one 128-byte line per
-// warp.  The NQ points run in NQ / SLOTS rounds: each warp runs its point
+// warp.  The NQ points run in NQ / 4 rounds: each warp runs its point
 // (SfResidualPoint: F from shared memory with interp_grad, the material,
 // the planes; SfMatvecPoint: grad w and w, the block's apply), and hands
 // its 1D basis values and its flux (Z = jinv w det J X, w det J rho a) to
-// shared memory; after a barrier each thread adds the round's SLOTS
-// points, in q order, to the outputs of the nodes n = s + SLOTS j it owns,
-// all three components (the transpose of a scatter): the reduction is
-// deterministic and uses no atomics; a thread holds 21 accumulators at
-// p = 2 (48 at p = 3, and at p = 4 with 8 slots; 6 at p = 1) instead of 81
-// (192, 375).  The outputs are written coalesced at the end.  The
-// per-point operations, and the q order of the sums, are those of the
-// one-thread-per-element kernels the template replaced, so the outputs
-// round as theirs did.  Shared memory (dynamic, launch.cuh): 36.2 KB a
-// block, 46.5 KB viscous, 25.7 KB for the matvec at p = 2; 67.6 KB, 92.2 KB
-// and 43.0 KB at p = 3; 135.8 KB and 182.6 KB at p = 4 (SfShape::blocks).  Design notes and what bounds the kernels: the head
-// of sweeps_sf.cu.
+// shared memory; after a barrier each thread adds the round's 4 points, in
+// q order, to the outputs of the nodes n = s + 4 j it owns, all three
+// components (the transpose of a scatter): the reduction is deterministic
+// and uses no atomics; a thread holds 21 accumulators at p = 2 (48 at
+// p = 3; 6 at p = 1) instead of 81 (192).  The outputs are written
+// coalesced at the end.  The per-point operations, and the q order of the
+// sums, are those of the one-thread-per-element kernels the template
+// replaced, so the outputs round as theirs did.  Shared memory (dynamic,
+// launch.cuh): 36.2 KB a block, 46.5 KB viscous, 25.7 KB for the matvec at
+// p = 2; 67.6 KB, 92.2 KB and 43.0 KB at p = 3 (SfShape::blocks).  Design
+// notes and what bounds the kernels: the head of sweeps_sf.cu.
 
 #pragma once
 
@@ -58,32 +58,29 @@ constexpr int TILE = 32;
 constexpr size_t SM_SHARED = 228 * 1024, BLOCK_RESERVED = 1024;
 
 // The element of one shape: P1 = p + 1 nodes and NG Gauss points per axis.
-// Its point slots (SLOTS warps a block, one slot each: 4, and 8 from p = 4
-// on, where 4 would leave a thread 96 sums), what an sf_tile_kernel thread
-// sums (OWN outputs of OWN_NODES nodes), what one point hands to the
-// reduction per lane (its 1D basis values b[ax][a], d[ax][a] at ST_B, ST_D,
-// its flux Z[c][a] at ST_Z, its mass term mm[c] at ST_M), and the blocks an
-// SM must hold (__launch_bounds__), which cap a thread's registers at
+// What an sf_tile_kernel thread sums (OWN outputs of OWN_NODES nodes of
+// its slot), what one point hands to the reduction per lane (its 1D basis
+// values b[ax][a], d[ax][a] at ST_B, ST_D, its flux Z[c][a] at ST_Z, its
+// mass term mm[c] at ST_M), and the blocks an SM must hold
+// (__launch_bounds__), which cap a thread's registers at
 // 65536 / (blocks * 32 SLOTS): as many tiles of `tile_bytes` as the SM's
 // shared memory holds, at most MAX_BLOCKS (4 at p <= 2, 3 at p = 3: the
-// registers the tile needs; 1 from p = 4 on, 255 registers).  The
-// residual and assemble: at p = 2 4 (128 registers; 4 tiles of 36.2 or
-// 46.5 KB), at p = 3 3 inviscid (170 registers, 3 x 67.6 KB) and 2 viscous
-// (255, 2 x 92.2 KB), at p = 4 1 (135.8 and 182.6 KB).  The matvec: 4 at
-// p = 2 (25.7 KB), 3 at p = 3 (43.0 KB); from p = 4 on it is
-// sf_axis_matvec_kernel's.
+// registers the tile needs).  The residual and assemble: at p = 2 4 (128
+// registers; 4 tiles of 36.2 or 46.5 KB), at p = 3 3 inviscid (170
+// registers, 3 x 67.6 KB) and 2 viscous (255, 2 x 92.2 KB).  The matvec: 4
+// at p = 2 (25.7 KB), 3 at p = 3 (43.0 KB).
 template <int P1_, int NG_>
 struct SfShape {
   static constexpr int P1 = P1_, NG = NG_;
   static constexpr int NQ = NG * NG * NG;
   static constexpr int ND = P1 * P1 * P1;
   static constexpr int NV = 3 * ND;  // values of a vector field on one element
-  static constexpr int SLOTS = P1 >= 5 ? 8 : 4;
+  static constexpr int SLOTS = 4;
   static constexpr int OWN_NODES = (ND + SLOTS - 1) / SLOTS;
   static constexpr int OWN = 3 * OWN_NODES;
   static constexpr int ST_B = 0, ST_D = 3 * P1, ST_Z = 6 * P1, ST_M = ST_Z + 9;
   static constexpr int NSTAGE = ST_M + 3;
-  static constexpr int MAX_BLOCKS = P1 <= 3 ? 4 : P1 == 4 ? 3 : 1;
+  static constexpr int MAX_BLOCKS = P1 <= 3 ? 4 : 3;
   // shared memory of a tile with nf staged fields (TileShared)
   static constexpr size_t tile_bytes(int nf) {
     return sizeof(float) * TILE * ((size_t)nf * NV + (size_t)SLOTS * NSTAGE);
@@ -389,17 +386,13 @@ __device__ __forceinline__ void add_point(float (&acc)[S::OWN], const float (*p)
 
 // the round's SLOTS points, in slot (= q) order (add_point).  `left` is the
 // round's points still to add (NQ - q0): where SLOTS does not divide NQ
-// (p = 3: 125 points) the last round is partial.  With 8 slots (p >= 4) the
-// loop over the points stays rolled: unrolled, each of the 8 owner
-// branches (add_round_of) held 8 x 16 node bodies, and nvcc took 440-575 s
-// a source at p = 4 (CUDA 12 on the H100 machine's 8 cores)
+// (p = 3: 125 points) the last round is partial
 template <class S, int W>
 __device__ __forceinline__ void add_round(float (&acc)[S::OWN],
                                           float (*pt)[S::NSTAGE][TILE], int lane, int left) {
-  constexpr int SLOTS = S::SLOTS;
-#pragma unroll(SLOTS <= 4 ? SLOTS : 1)
-  for (int s = 0; s < SLOTS; ++s) {
-    if constexpr (S::NQ % SLOTS != 0) {
+#pragma unroll
+  for (int s = 0; s < S::SLOTS; ++s) {
+    if constexpr (S::NQ % S::SLOTS != 0) {
       if (s >= left) break;
     }
     add_point<S, W>(acc, pt[s], lane);
@@ -471,6 +464,7 @@ template <class S, class Pt>
 int launch_sf_tile(const Pt& point, const float* f0, const float* f1, const float* f2,
                    const Tables& tb, const float* jinv, const float* wq,
                    typename Pt::Block* block, float* out, long long E, void* stream) {
+  static_assert(S::P1 <= 4, "from p = 4 on the sf sweeps contract axis by axis");
   constexpr size_t smem = sizeof(TileShared<S, Pt::NF>);
   static_assert(smem == S::tile_bytes(Pt::NF), "tile_bytes counts TileShared");
   if (const int err = allow_dynamic_smem<sf_tile_kernel<S, Pt>>(smem)) return err;
@@ -480,72 +474,75 @@ int launch_sf_tile(const Pt& point, const float* f0, const float* f1, const floa
   return (int)cudaGetLastError();
 }
 
-template <class S, class Mat, class Store, bool TANGENT, bool VISC, typename CT>
-int launch_residual(const float* u_el, const float* a_el, const float* v_el,
-                    const Tables& tb, const float* jinv, const float* wq, float* out,
-                    void* cout, const Mat& mat, float rho, float mu_v, long long E,
-                    void* stream) {
-  const SfResidualPoint<S, Mat, Store, TANGENT, VISC, CT> point{mat, rho, mu_v};
-  return launch_sf_tile<S>(point, u_el, a_el, v_el, tb, jinv, wq, static_cast<CT*>(cout), out,
-                           E, stream);
-}
-
-// ---- sf_axis_matvec_kernel: the matvec from p = 4 on, axis by axis ----------------
+// ---- the axis-by-axis kernels: the residual, assemble and matvec from p = 4 on ------
 //
-// At p = 4 (125 nodes, 216 points) sf_tile_kernel's point forms grad w
-// from all 125 nodes and each owner adds every point to its 16 nodes:
-// 27,000 node-point pairs an element each way, ~35 multiply-adds each with
-// their shared-memory reads, at 218-235 registers (one 256-thread block an
-// SM).  It ran at 15x its bound.  This kernel contracts one axis at a time,
-// as the plain version (ops/sweeps.py sf_param_grad, sf_scatter) and the
-// TPU kernel (mimi_tpu/ops/sweeps.py:941-951) do: ~25k multiply-adds an
-// element each way instead of ~470k.  A block of AXIS_THREADS = 288 threads
-// takes TE = 16 consecutive elements (fewer below), so that every read of a
-// batch-last row (the block's planes, jinv, w det J, the 1D tables, w; and
-// the output's writes) is 64 contiguous bytes in float32, 32 in bfloat16:
-// whole sectors (at 8 elements the float32 matvec took 1.96 ms at path K,
-// at 16 1.60: scripts/ab_sf_sweeps.py).  Thread t works for element
-// t % 16; the rest of t (GROUPS = 18) walks each phase's items.  The element's values live
-// in shared memory as [row][TE] (AxisShared): its six 1D tables (NG, P1),
-// read once; w, staged in the region of the axis-1 values; per component
-// the axis-2 contractions of w with B2 and D2, [c][2][q2][a1][a0]; the
-// axis-1 contractions tBB, tDB, tBD, [c][3][q2][q1][a0].  Five barriers:
-// (A) items (c, a1, a0) contract axis 2; (B) items (c, q2, a0) axis 1;
-// (C) items (q2, q1), pencils of NG points along axis 0: the pencil holds
-// its 45 axis-1 values, and per point forms the parametric gradient and
-// the value (axis 0), dF with jinv, the block's apply, the flux Z = jinv^T
-// wq X and wq rho w (point_flux), and contracts them back along axis 0 into
-// 45 sums of its own, which it writes over its own axis-1 values; (B')
-// items (c, q2, a0) contract back along axis 1 into the axis-2 region;
-// (A') items (c, a1, a0) along axis 2 and write the output.  The sums are
-// the plain version's contractions in its order of axes, each a fixed
-// order: deterministic, no atomics; the forward terms of the mass and of
-// D0 Z0, which share B1 and B2 on the way back, are summed at axis 0.
-// Shared memory: 2700 floats an element at SfShape<5, 6>, 172.8 KB a
-// block: one block (9 warps) an SM, as its 168 registers allow.  The tile
-// is 16 elements where that fits in the 227 KB a block may have, else 8
-// (p = 4 at 8 Gauss points per axis, 138.2 KB; p = 5 at its default 7,
-// 141.1 KB), 4, 2 or 1 (AxisShared::TE); thread t then works for element
-// t % TE, and its group t / TE walks the items.
+// At p = 4 (125 nodes, 216 points) sf_tile_kernel's point forms F (or
+// grad w) from all 125 nodes and each owner adds every point to its 16
+// nodes: 27,000 node-point pairs an element each way, ~35 multiply-adds each
+// with their shared-memory reads (~470k an element), at 218-243 registers
+// (one 256-thread block an SM).  The residual and assemble ran at 34x and
+// 15x their bounds, the matvec at 15x.  These kernels contract one axis at
+// a time, as the plain version (ops/sweeps.py sf_param_grad, sf_value,
+// sf_scatter) and the TPU kernel (mimi_tpu/ops/sweeps.py:185-290,
+// :941-951) do: ~25k multiply-adds an element each way.  A block of
+// AXIS_THREADS = 288 threads takes TE = 16 consecutive elements (fewer
+// where 16 do not fit, below), so that every read of a batch-last row (the
+// tables, jinv, w det J, the state, the fields; the block's planes, written
+// by the assemble, read by the matvec; the output's writes) is 64
+// contiguous bytes in float32, 32 in bfloat16: whole sectors (at 8
+// elements the float32 matvec took 1.96 ms at path K, at 16 1.60:
+// scripts/ab_sf_sweeps.py).  Thread t works for element t % TE; the rest of
+// t (GROUPS = 288 / TE) walks each phase's items.  The element's values
+// live in shared memory as [row][TE] (AxisShared): its six 1D tables (NG,
+// P1), read once; each field staged in the region of its axis-1 values;
+// the axis-2 contractions of one field with B2 (and D2), [c][2][q2][a1][a0],
+// a scratch region the fields take in turn; per gradient field (u, v; the
+// matvec's w) the axis-1 contractions tBB, tDB, tBD, [c][3][q2][q1][a0]; per
+// value field (the residual's a) tBB alone, [c][q2][q1][a0].  The phases,
+// a barrier after each: (A) items (c, a1, a0) contract a field along axis 2;
+// (B) items (c, q2, a0) along axis 1 (u; then v, viscous; then a for values
+// only; the matvec's w); (C) items (q2, q1), pencils of NG points along
+// axis 0: per point the pencil forms the parametric gradient (and value)
+// from its axis-1 values (axis 0), F = I + grad u (dF) with jinv, the
+// point's material and planes (the block's apply), the flux Z = jinv^T wq X
+// and wq rho a (point_flux), and contracts them back along axis 0 into
+// 45 sums of its own, which it writes over its own axis-1 values of u (w);
+// (B') items (c, q2, a0) contract back along axis 1 into the axis-2
+// region; (A') items (c, a1, a0) along axis 2 and write the output.  The
+// sums are the plain version's contractions in its order of axes, each a
+// fixed order: deterministic, no atomics; the forward terms of the mass and
+// of D0 Z0, which share B1 and B2 on the way back, are summed at axis 0.
+// The matvec's pencil holds its 45 axis-1 values in registers across its
+// points; the residual's reads them from shared memory at each point, so
+// that the material runs beside the pencil's 45 sums alone.  One block an
+// SM; 288 threads put three warps on one of the SM's four schedulers, which
+// caps a thread at 168 registers.
 constexpr int AXIS_THREADS = 288;
 
-// elements a block of sf_axis_matvec_kernel takes: the most of 16, 8, 4,
-// 2, 1 whose `rows` floats an element fit in a block's shared memory
+// elements a block of an axis kernel takes: the most of 16, 8, 4, 2, 1
+// whose `rows` floats an element fit in a block's shared memory
 constexpr int axis_tile(int rows) {
   for (int te = 16; te > 1; te /= 2)
     if (sizeof(float) * rows * te <= BLOCK_SMEM_MAX) return te;
   return 1;
 }
 
-// floats an element of sf_axis_matvec_kernel keeps in shared memory, and
-// the row of each value
-template <class S>
+// floats an element of an axis kernel keeps in shared memory, and the row
+// of each value, with NU gradient fields (the residual's u and, viscous, v;
+// the matvec's w) and NA value fields (the residual's a).  Floats an
+// element at SfShape<5, 6>: the matvec 2700 (172.8 KB a block of 16), the
+// residual 3240 (207.4 KB), viscous 4860 (8 elements, 155.5 KB); at
+// SfShape<5, 8> 5280 and at SfShape<6, 7> 5292 (8 elements), viscous 8160
+// and 7938 (4).
+template <class S, int NU = 1, int NA = 0>
 struct AxisShared {
   static constexpr int P1 = S::P1, NG = S::NG, PP = P1 * P1;
-  static constexpr int TAB = 6 * NG * P1, A = 3 * 2 * NG * PP, B = 3 * 3 * NG * NG * P1;
-  static constexpr int ROWS = TAB + A + B;
-  static_assert(S::NV <= B, "w is staged in the axis-1 region");
+  static constexpr int TAB = 6 * NG * P1, A = 3 * 2 * NG * PP;
+  static constexpr int B = 3 * 3 * NG * NG * P1, BV = 3 * NG * NG * P1;
+  static constexpr int ROWS = TAB + A + NU * B + NA * BV;
+  static_assert(S::NV <= BV, "each field is staged in its axis-1 region");
   static constexpr int TE = axis_tile(ROWS);  // elements a block
+  static constexpr int GROUPS = AXIS_THREADS / TE;
   static constexpr size_t SMEM = sizeof(float) * ROWS * TE;
   static_assert(SMEM <= BLOCK_SMEM_MAX && AXIS_THREADS % TE == 0,
                 "one element's rows exceed a block's shared memory");
@@ -555,12 +552,302 @@ struct AxisShared {
   __host__ __device__ static constexpr int a2(int c, int k, int q2, int a10) {
     return TAB + ((c * 2 + k) * NG + q2) * PP + a10;
   }
-  // axis 1: [c][k][q2][q1][a0], k 0 tBB, 1 tDB, 2 tBD
+  // the first row of gradient field f's axis-1 region, and of the value field's
+  __host__ __device__ static constexpr int grad(int f) { return TAB + A + f * B; }
+  __host__ __device__ static constexpr int val() { return TAB + A + NU * B; }
+  // a field's axis-1 values at region `base` with K contractions a component
+  // (a gradient field's 3: k 0 tBB, 1 tDB, 2 tBD; a value field's 1, tBB):
+  // [c][k][q2][q1][a0]
+  template <int K>
+  __host__ __device__ static constexpr int row(int base, int c, int k, int q2, int q1, int a0) {
+    return base + (((c * K + k) * NG + q2) * NG + q1) * P1 + a0;
+  }
+  // gradient field 0's (the matvec's w)
   __host__ __device__ static constexpr int a1(int c, int k, int q2, int q1, int a0) {
-    return TAB + A + (((c * 3 + k) * NG + q2) * NG + q1) * P1 + a0;
+    return row<3>(grad(0), c, k, q2, q1, a0);
   }
 };
 
+// the block's six 1D tables and the NF fields fields[f] into the rows
+// rows[f] (each field's axis-1 region); zeros on a ragged tile's dead lanes
+template <class L, int NF>
+__device__ __forceinline__ void axis_stage(float (*sh)[L::TE], const Tables& tb,
+                                           const float* const (&fields)[NF],
+                                           const int (&rows)[NF], int lane, int grp,
+                                           long long e, long long E, bool live) {
+#pragma unroll
+  for (int t = 0; t < 6; ++t)
+    for (int r = grp; r < L::NG * L::P1; r += L::GROUPS)
+      sh[L::tab(t, 0, 0) + r][lane] = live ? __ldg(tb.t[t] + (long long)r * E + e) : 0.f;
+#pragma unroll
+  for (int f = 0; f < NF; ++f)
+    for (int r = grp; r < 3 * L::P1 * L::PP; r += L::GROUPS)
+      sh[rows[f] + r][lane] = live ? __ldg(fields[f] + (long long)r * E + e) : 0.f;
+}
+
+// (A) the field x[c][a2][a1 a0] staged at row `src` -> sum_a2 B2[q2][a2] x
+// (and, GRAD, sum_a2 D2[q2][a2] x) into the axis-2 region
+template <class L, bool GRAD>
+__device__ __forceinline__ void forward_axis2(float (*sh)[L::TE], int src, int lane, int grp) {
+  constexpr int P1 = L::P1, NG = L::NG, PP = L::PP;
+  const auto T = [&](int t, int q, int a) { return sh[L::tab(t, q, a)][lane]; };
+#pragma unroll 1
+  for (int i = grp; i < 3 * PP; i += L::GROUPS) {
+    const int c = i / PP, a10 = i % PP;
+    float x[P1];
+#pragma unroll
+    for (int a = 0; a < P1; ++a) x[a] = sh[src + c * P1 * PP + a * PP + a10][lane];
+#pragma unroll
+    for (int q2 = 0; q2 < NG; ++q2) {
+      float sB = 0.f, sD = 0.f;
+#pragma unroll
+      for (int a = 0; a < P1; ++a) {
+        sB += T(4, q2, a) * x[a];
+        if (GRAD) sD += T(5, q2, a) * x[a];
+      }
+      sh[L::a2(c, 0, q2, a10)][lane] = sB;
+      if (GRAD) sh[L::a2(c, 1, q2, a10)][lane] = sD;
+    }
+  }
+}
+
+// (B) the axis-2 region -> along axis 1 into the field's axis-1 region at
+// row `dst`: tBB = B1 sB, and (GRAD) tDB = D1 sB, tBD = B1 sD, over a1
+template <class L, bool GRAD>
+__device__ __forceinline__ void forward_axis1(float (*sh)[L::TE], int dst, int lane, int grp) {
+  constexpr int P1 = L::P1, NG = L::NG, K = GRAD ? 3 : 1;
+  const auto T = [&](int t, int q, int a) { return sh[L::tab(t, q, a)][lane]; };
+#pragma unroll 1
+  for (int i = grp; i < 3 * NG * P1; i += L::GROUPS) {
+    const int c = i / (NG * P1), q2 = i / P1 % NG, a0 = i % P1;
+    float xB[P1], xD[P1];
+#pragma unroll
+    for (int a = 0; a < P1; ++a) {
+      xB[a] = sh[L::a2(c, 0, q2, a * P1 + a0)][lane];
+      xD[a] = GRAD ? sh[L::a2(c, 1, q2, a * P1 + a0)][lane] : 0.f;
+    }
+#pragma unroll
+    for (int q1 = 0; q1 < NG; ++q1) {
+      float bb = 0.f, db = 0.f, bd = 0.f;
+#pragma unroll
+      for (int a = 0; a < P1; ++a) {
+        const float b1 = T(2, q1, a), d1 = T(3, q1, a);
+        bb += b1 * xB[a];
+        if (GRAD) {
+          db += d1 * xB[a];
+          bd += b1 * xD[a];
+        }
+      }
+      sh[L::template row<K>(dst, c, 0, q2, q1, a0)][lane] = bb;
+      if (GRAD) {
+        sh[L::template row<K>(dst, c, 1, q2, q1, a0)][lane] = db;
+        sh[L::template row<K>(dst, c, 2, q2, q1, a0)][lane] = bd;
+      }
+    }
+  }
+}
+
+// a pencil's point q0 (axis 0): the physical gradient g[c][f] of a field
+// from its axis-1 values x(c, k, a) (tBB, tDB, tBD) with b0, d0 at q0 and
+// jinv
+template <int P1, class X>
+__device__ __forceinline__ void pencil_grad(const X& x, const float (&b0)[P1],
+                                            const float (&d0)[P1], const float ji[3][3],
+                                            float g[3][3]) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float g0 = 0.f, g1 = 0.f, g2 = 0.f;
+#pragma unroll
+    for (int a = 0; a < P1; ++a) {
+      g0 += d0[a] * x(c, 0, a);
+      g1 += b0[a] * x(c, 1, a);
+      g2 += b0[a] * x(c, 2, a);
+    }
+#pragma unroll
+    for (int f = 0; f < 3; ++f) g[c][f] = g0 * ji[0][f] + g1 * ji[1][f] + g2 * ji[2][f];
+  }
+}
+
+// (B') and (A'): the pencils' sums (in gradient field 0's axis-1 region)
+// back along axis 1 into the axis-2 region, B1 (D0 Z0 + B0 mm) + D1 (B0 Z1)
+// and B1 (B0 Z2), a barrier, then along axis 2 into the output,
+// y[c][a2][a1][a0] = B2 r0 + D2 r1 over q2
+template <class L>
+__device__ __forceinline__ void axis_back(float (*sh)[L::TE], float* __restrict__ out,
+                                          int lane, int grp, long long e, long long E,
+                                          bool live) {
+  constexpr int P1 = L::P1, NG = L::NG, PP = L::PP, ND = P1 * PP, U = L::grad(0);
+  const auto T = [&](int t, int q, int a) { return sh[L::tab(t, q, a)][lane]; };
+#pragma unroll 1
+  for (int i = grp; i < 3 * NG * P1; i += L::GROUPS) {
+    const int c = i / (NG * P1), q2 = i / P1 % NG, a0 = i % P1;
+    float x0[NG], x1[NG], x2[NG];
+#pragma unroll
+    for (int q1 = 0; q1 < NG; ++q1) {
+      x0[q1] = sh[L::template row<3>(U, c, 0, q2, q1, a0)][lane];
+      x1[q1] = sh[L::template row<3>(U, c, 1, q2, q1, a0)][lane];
+      x2[q1] = sh[L::template row<3>(U, c, 2, q2, q1, a0)][lane];
+    }
+#pragma unroll
+    for (int a = 0; a < P1; ++a) {
+      float r0 = 0.f, r1 = 0.f;
+#pragma unroll
+      for (int q1 = 0; q1 < NG; ++q1) {
+        const float b1 = T(2, q1, a);
+        r0 += b1 * x0[q1] + T(3, q1, a) * x1[q1];
+        r1 += b1 * x2[q1];
+      }
+      sh[L::a2(c, 0, q2, a * P1 + a0)][lane] = r0;
+      sh[L::a2(c, 1, q2, a * P1 + a0)][lane] = r1;
+    }
+  }
+  __syncthreads();
+#pragma unroll 1
+  for (int i = grp; i < 3 * PP; i += L::GROUPS) {
+    const int c = i / PP, a10 = i % PP;
+    float y0[NG], y1[NG];
+#pragma unroll
+    for (int q2 = 0; q2 < NG; ++q2) {
+      y0[q2] = sh[L::a2(c, 0, q2, a10)][lane];
+      y1[q2] = sh[L::a2(c, 1, q2, a10)][lane];
+    }
+    if (live) {
+#pragma unroll
+      for (int a = 0; a < P1; ++a) {
+        float o = 0.f;
+#pragma unroll
+        for (int q2 = 0; q2 < NG; ++q2) o += T(4, q2, a) * y0[q2] + T(5, q2, a) * y1[q2];
+        out[(long long)(c * ND + a * PP + a10) * E + e] = o;
+      }
+    }
+  }
+}
+
+// The residual (and, TANGENT, the assemble) from p = 4 on: y[c][n] =
+// sum_q wq (dN[n] . (P(F) + mu_v dV)[c] + N[n] rho a[c]) with F = I +
+// grad u, dV = grad v (VISC), and the material's tangent planes at every
+// point into cout (the block of Store in CT).  J2Log's deep launch returns
+// at once where no point of the fast one left its log series' range
+// (launch_runs).
+template <class S, class Mat, class Store, bool TANGENT, bool VISC, typename CT>
+__global__ void __launch_bounds__(AXIS_THREADS, 1)
+    sf_axis_residual_kernel(Mat mat, float rho, float mu_v, const float* __restrict__ u_el,
+                            const float* __restrict__ a_el, const float* __restrict__ v_el,
+                            Tables tb, const float* __restrict__ jinv,
+                            const float* __restrict__ wq, CT* __restrict__ cout,
+                            float* __restrict__ out, long long E) {
+  using L = AxisShared<S, VISC ? 2 : 1, 1>;
+  constexpr int P1 = S::P1, NG = S::NG, TE = L::TE, U = L::grad(0), V = L::grad(1);
+  constexpr int AV = L::val();
+  MIMI_DYNAMIC_SHARED(float, smem);  // sh[L::ROWS][TE]
+  float(*sh)[TE] = reinterpret_cast<float(*)[TE]>(smem);
+  if (!launch_runs(mat)) return;  // the whole launch: J2Log's deep one where no point needs it
+  const int lane = threadIdx.x % TE, grp = threadIdx.x / TE;
+  const long long e = (long long)blockIdx.x * TE + lane;
+  const bool live = e < E;  // the last tile is ragged where E % TE != 0
+  const long long QE = (long long)S::NQ * E;
+  if constexpr (VISC)
+    axis_stage<L, 3>(sh, tb, {u_el, a_el, v_el}, {U, AV, V}, lane, grp, e, E, live);
+  else
+    axis_stage<L, 2>(sh, tb, {u_el, a_el}, {U, AV}, lane, grp, e, E, live);
+  __syncthreads();
+  forward_axis2<L, true>(sh, U, lane, grp);
+  __syncthreads();
+  forward_axis1<L, true>(sh, U, lane, grp);
+  __syncthreads();
+  if constexpr (VISC) {
+    forward_axis2<L, true>(sh, V, lane, grp);
+    __syncthreads();
+    forward_axis1<L, true>(sh, V, lane, grp);
+    __syncthreads();
+  }
+  forward_axis2<L, false>(sh, AV, lane, grp);
+  __syncthreads();
+  forward_axis1<L, false>(sh, AV, lane, grp);
+  __syncthreads();
+
+  // (C) the pencils: per point F, the material, the flux, back along axis 0
+#pragma unroll 1
+  for (int i = grp; i < NG * NG; i += L::GROUPS) {
+    const int q2 = i / NG, q1 = i % NG;
+    float bk[3][3][P1];
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+#pragma unroll
+        for (int a = 0; a < P1; ++a) bk[c][k][a] = 0.f;
+    if (live) {
+#pragma unroll 1
+      for (int q0 = 0; q0 < NG; ++q0) {
+        const int q = q0 + NG * q1 + NG * NG * q2;
+        const long long qe = (long long)q * E + e;
+        float b0[P1], d0[P1], ji[3][3], F[3][3], dV[3][3], av[3];
+#pragma unroll
+        for (int a = 0; a < P1; ++a) {
+          b0[a] = sh[L::tab(0, q0, a)][lane];
+          d0[a] = sh[L::tab(1, q0, a)][lane];
+        }
+        load_jinv<S>(jinv, q, e, E, ji);
+        pencil_grad<P1>(
+            [&](int c, int k, int a) { return sh[L::template row<3>(U, c, k, q2, q1, a)][lane]; },
+            b0, d0, ji, F);
+        if constexpr (VISC)
+          pencil_grad<P1>(
+              [&](int c, int k, int a) { return sh[L::template row<3>(V, c, k, q2, q1, a)][lane]; },
+              b0, d0, ji, dV);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          float s = 0.f;
+#pragma unroll
+          for (int a = 0; a < P1; ++a) s += b0[a] * sh[L::template row<1>(AV, c, 0, q2, q1, a)][lane];
+          av[c] = s;
+        }
+        F[0][0] += 1.f;
+        F[1][1] += 1.f;
+        F[2][2] += 1.f;
+        float P[3][3];
+        {  // the point's tangent data is dead before the flux is formed
+          typename Mat::Point pt;
+          mat.template eval<TANGENT>(F, qe, QE, P, pt);
+          if constexpr (TANGENT) Store::store(cout, qe, QE, mat, pt);
+        }
+        if constexpr (VISC) {
+#pragma unroll
+          for (int c = 0; c < 3; ++c)
+#pragma unroll
+            for (int d = 0; d < 3; ++d) P[c][d] += mu_v * dV[c][d];
+        }
+        const float m[3] = {rho * av[0], rho * av[1], rho * av[2]};
+        float Z[3][3], mm[3];
+        point_flux(ji, __ldg(wq + qe), P, m, Z, mm);
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+#pragma unroll
+          for (int a = 0; a < P1; ++a) {
+            bk[c][0][a] += d0[a] * Z[c][0] + b0[a] * mm[c];
+            bk[c][1][a] += b0[a] * Z[c][1];
+            bk[c][2][a] += b0[a] * Z[c][2];
+          }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+#pragma unroll
+        for (int a = 0; a < P1; ++a) sh[L::template row<3>(U, c, k, q2, q1, a)][lane] = bk[c][k][a];
+  }
+  __syncthreads();
+  axis_back<L>(sh, out, lane, grp, e, E, live);
+}
+
+// y = J w from p = 4 on: the matvec's pencils hold their 45 axis-1 values
+// of w in registers and apply the block at each point (plus fac1 mu_v grad
+// w, viscous) with the mass term rho w.  Its phases are written out here
+// rather than through the residual's helpers: through them the same
+// operations, equal to the bit, ran 13% slower (1.60 -> 1.82 ms at path
+// K, scripts/ab_sf_sweeps.py --part p4)
 template <class S, class Store, bool VISC, typename CT>
 __global__ void __launch_bounds__(AXIS_THREADS, 1)
     sf_axis_matvec_kernel(const float* __restrict__ w_el, Tables tb,
@@ -753,6 +1040,30 @@ __global__ void __launch_bounds__(AXIS_THREADS, 1)
   }
 }
 
+// the residual and assemble: sf_tile_kernel with SfResidualPoint up to
+// p = 3, sf_axis_residual_kernel from p = 4 on
+template <class S, class Mat, class Store, bool TANGENT, bool VISC, typename CT>
+int launch_residual(const float* u_el, const float* a_el, const float* v_el,
+                    const Tables& tb, const float* jinv, const float* wq, float* out,
+                    void* cout, const Mat& mat, float rho, float mu_v, long long E,
+                    void* stream) {
+  if constexpr (S::P1 >= 5) {
+    using L = AxisShared<S, VISC ? 2 : 1, 1>;
+    if (const int err = allow_dynamic_smem<
+            sf_axis_residual_kernel<S, Mat, Store, TANGENT, VISC, CT>>(L::SMEM))
+      return err;
+    const unsigned tiles = (unsigned)((E + L::TE - 1) / L::TE);
+    sf_axis_residual_kernel<S, Mat, Store, TANGENT, VISC, CT>
+        <<<tiles, AXIS_THREADS, L::SMEM, (cudaStream_t)stream>>>(
+            mat, rho, mu_v, u_el, a_el, v_el, tb, jinv, wq, static_cast<CT*>(cout), out, E);
+    return (int)cudaGetLastError();
+  } else {
+    const SfResidualPoint<S, Mat, Store, TANGENT, VISC, CT> point{mat, rho, mu_v};
+    return launch_sf_tile<S>(point, u_el, a_el, v_el, tb, jinv, wq, static_cast<CT*>(cout),
+                             out, E, stream);
+  }
+}
+
 // the matvec: sf_tile_kernel with SfMatvecPoint up to p = 3,
 // sf_axis_matvec_kernel from p = 4 on
 template <class S, class Store, bool VISC, typename CT>
@@ -761,11 +1072,10 @@ int launch_matvec(const float* w_el, const Tables& tb, const float* jinv,
                   float fac0, float fac1_mu_v, long long E, void* stream) {
   if constexpr (S::P1 >= 5) {
     using L = AxisShared<S>;
-    constexpr size_t smem = L::SMEM;
-    if (const int err = allow_dynamic_smem<sf_axis_matvec_kernel<S, Store, VISC, CT>>(smem))
+    if (const int err = allow_dynamic_smem<sf_axis_matvec_kernel<S, Store, VISC, CT>>(L::SMEM))
       return err;
     const unsigned tiles = (unsigned)((E + L::TE - 1) / L::TE);
-    sf_axis_matvec_kernel<S, Store, VISC, CT><<<tiles, AXIS_THREADS, smem, (cudaStream_t)stream>>>(
+    sf_axis_matvec_kernel<S, Store, VISC, CT><<<tiles, AXIS_THREADS, L::SMEM, (cudaStream_t)stream>>>(
         w_el, tb, jinv, wq, static_cast<const CT*>(cb), out, rho, fac0, fac1_mu_v, E);
     return (int)cudaGetLastError();
   } else {

@@ -1,8 +1,10 @@
 // Sum-factorized quadrature sweeps of the implicit step, for sm_90a.
 //
 // Three kernels, each replacing one Pallas TPU kernel of
-// mimi_tpu/ops/sweeps.py in its sum-factorized branch, all instantiations
-// of one template (sf_common.cuh sf_tile_kernel) with a point functor:
+// mimi_tpu/ops/sweeps.py in its sum-factorized branch, up to p = 3
+// instantiations of one template (sf_common.cuh sf_tile_kernel) with a
+// point functor, from p = 4 on of the axis-by-axis kernels
+// (sf_axis_residual_kernel<.., TANGENT, ..>, sf_axis_matvec_kernel):
 //   SfResidualPoint<.., false, ..>  <- make_residual_sweep (sf_mode)   residual only
 //   SfResidualPoint<.., true, ..>   <- make_assemble_sweep (sf)        residual + tangent planes
 //   SfMatvecPoint                   <- make_matvec_sweep_sf            y = J w
@@ -82,25 +84,19 @@
 // viscous (255), the matvec 3 (43.0 KB a block); every J2Mat and Hyper
 // instantiation 0 B spilled.  The one-thread-per-element matvec this
 // replaced held 384 values of w and sums a thread and spilled ~11 KB:
-// ~100x its bound.  p = 4 (SfShape<5, 6>, path K): 125 dofs and 216
-// points, [375][32] per staged field, 8 point slots (256 threads a block)
-// so that a thread still owns 16 nodes and 48 sums, one block an SM (135.8
-// KB of shared memory, 182.6 KB viscous), 255 registers at most, for the
-// residual and the assemble.  From p = 4 on the matvec is
-// sf_axis_matvec_kernel (sf_common.cuh), which contracts one axis at a
-// time as the plain version and the TPU kernel do: at p = 4 ~51k
-// multiply-adds an element against sf_tile_kernel's ~1M (27,000 node-point
-// pairs, ~38 each); 288 threads on 16 elements, 172.8 KB of shared memory,
-// 168 registers, 0 B spilled (ptxas, CUDA 12.8), one block an SM (on 8
-// elements where 16 would pass the 227 KB a block may have: p = 4 at 8
-// Gauss points per axis, p = 5); at path
-// K's 40^3 the Cauchy matvec went from 12.88 to 1.61 ms
-// (scripts/ab_sf_sweeps.py --part p4, PERF.md), against a 0.85 ms bound by
-// bytes: what is left is the pencils' load latency (one block, 9 warps, an
-// SM; each pencil's 6 points in turn) and the four contraction phases,
-// during which the SM reads no device memory.  p = 1
-// (SfShape<2, 3>): 8 dofs and 27 points, 2 nodes and 6 sums a thread.  A
-// quadrature order other than the default 2p + 3 changes NG alone.
+// ~100x its bound.  From p = 4 on (SfShape<5, 6>, path K: 125 dofs and 216
+// points) the residual, the assemble and the matvec are
+// sf_axis_residual_kernel and sf_axis_matvec_kernel (sf_common.cuh), which
+// contract one axis at a time as the plain version and the TPU kernel do:
+// ~25k multiply-adds an element each way against sf_tile_kernel's ~470k
+// (27,000 node-point pairs); 288 threads on 16 elements (fewer where 16
+// pass the 227 KB a block may have: the viscous residual at p = 4, every
+// shape with 8 Gauss points per axis or p = 5), one block an SM.  At path
+// K's 40^3 the Cauchy matvec went from 12.88 to 1.61 ms, the residual from
+// 15.06 to 1.73 and the assemble from 16.07 to 2.48 on an H100 (PERF.md
+// section 6, scripts/ab_sf_sweeps.py --part p4, chip_smoke.py).  p = 1 (SfShape<2, 3>): 8 dofs and
+// 27 points, 2 nodes and 6 sums a thread.  A quadrature order other than
+// the default 2p + 3 changes NG alone.
 //
 // What bounds them on the H100: the matvec streams the 37-plane tangent
 // block (9.5 KB per element) plus jinv (2.3 KB) once per GMRES iteration,

@@ -20,20 +20,30 @@ chip_smoke.py's random plastic history; every sf matvec instantiation
 (cauchy, sym and full, inviscid and viscous, float32 and bfloat16 block)
 on random w and random planes at p = 2 (48^3) and at p = 3 (the inviscid
 float32 ones on path H's tables at 48^3, cube-nurbs-3.mesh; the viscous
-and bfloat16 ones at 16^3); with `--part p4` (or all) every p = 4
-matvec instantiation (SfShape<5, 6>) on random w and random planes at
-path K's tables (cube-nurbs-3.mesh elevated by 1, 40^3), each with its
-bound by bytes.  `--part wide` builds this checkout alone, at the two sf
-shapes whose axis matvec takes tiles of 8 elements (SfShape<5, 8>: p = 4
-at quadrature order 14; SfShape<6, 7>: p = 5), and holds every matvec
-instantiation there against matvec_sf_plain on random w and planes
+and bfloat16 ones at 16^3) and path H's J2 residual and assemble near
+F = I (48^3, p = 3); with `--part p4` (or all) every p = 4
+instantiation (SfShape<5, 6>) at path K's tables (cube-nurbs-3.mesh
+elevated by 1, 40^3): the residual and assemble of every material x
+storage (its own, and the full block of J2, J2Linear and the hyperelastic
+materials) x viscous x block dtype on random input (the J2 family on a
+random plastic history, chip_smoke.py phase 62's recipe; the
+hyperelastic materials at strains of a few percent), and every matvec on
+random w and random planes, each with its bound.  `--part wide` builds
+this checkout alone, at the two sf shapes whose axis kernels take tiles
+of 8 elements (4 for the viscous residual and assemble) (SfShape<5, 8>:
+p = 4 at quadrature order 14; SfShape<6, 7>: p = 5), and holds every
+matvec instantiation there against matvec_sf_plain on random w and planes
 (cube-nurbs-3.mesh elevated by 1 and 2, at 9^3 and 7^3: ragged last
-tiles), with its CUDA-event time and bound.  Every output of
+tiles), with its CUDA-event time and bound, and every residual and
+assemble instantiation against its plain version at chip_smoke.py's bars
+(its hold_p3, phase 62's: each material, its own block and the full one,
+the four (viscous, bfloat16) pairs, on random plastic input).  Every
+output of
 the two versions is compared: the max abs difference, relative to the
 output's max, and whether they are equal to the bit.  The times are CUDA-event means,
 taken base, new, new, base.  Prints the card's name and power limit
-first and ptxas's registers and spills of this checkout's sf kernels
-(chip_smoke.py phase 2's report; a spill is printed, not raised).
+first and ptxas's registers and spills of the sf kernels of both
+versions (chip_smoke.py phase 2's report; a spill is printed, not raised).
 `--only` keeps the rows whose name matches the regular expression.
 """
 
@@ -66,8 +76,8 @@ def main():
     ap.add_argument("--spans", type=int, default=48)
     ap.add_argument("--only", default="", help="time only the rows whose name matches")
     ap.add_argument("--part", choices=("all", "earlier", "p4", "wide"), default="all",
-                    help="earlier: p = 2 and p = 3; p4: the p = 4 matvecs at path K's size; "
-                    "wide: the matvecs at (5, 8) and (6, 7) against plain")
+                    help="earlier: p = 2 and p = 3; p4: the p = 4 kernels at path K's size; "
+                    "wide: the kernels at (5, 8) and (6, 7) against plain")
     args = ap.parse_args()
     if args.part != "wide" and not args.base:
         ap.error("--base is needed but with --part wide")
@@ -87,7 +97,7 @@ def main():
     t0 = time.perf_counter()
     kb.JOBS = os.cpu_count() or kb.JOBS  # nothing else runs beside the builds
     if args.part == "wide":
-        return wide(torch, cs, mt, kb, sweeps, t0)
+        return wide(torch, cs, mt, kb, sweeps, soa, t0)
     keys = (KEYS if args.part != "p4" else []) + (P4_KEYS if args.part != "earlier" else [])
     kb.start(keys)
     base = os.path.abspath(args.base)
@@ -99,12 +109,17 @@ def main():
     cs.fail = lambda msg: print(f"[2. ptxas] {msg}", flush=True)
     cs.check_ptxas(kb, keys)
     for name, v in sorted(cs.ptxas_entries(base_log, kb.nvcc()).items()):
-        if "SfMatvecPoint" in name or "sf_axis_matvec_kernel" in name:
-            print(f"[base ptxas] {name.split('>(')[0]}>: {v.get('registers')} "
-                  f"registers, spill stores {v.get('spill_stores')} B", flush=True)
+        if "sf_tile_kernel" in name or "sf_axis_" in name:
+            print(f"[base ptxas] {re.sub(r'[(](int|bool)[)]', '', name.split('>(')[0])}>: "
+                  f"{v.get('registers')} registers, spill stores {v.get('spill_stores')} B",
+                  flush=True)
     dev, gen, n = torch.device("cuda"), torch.Generator().manual_seed(0), args.spans
 
-    def ab(label, calls, reps):
+    def ab(label, calls, reps, margin=None):
+        """Each call of `calls` on both versions: outputs compared, times
+        base, new, new, base.  `margin()`: the points' distance from the
+        yield surface (chip_smoke.py yield_margin), for the points whose
+        planes differ by more than 1e-4 of the block's max."""
         for name, fn in calls.items():
             if not re.search(args.only, name):
                 continue
@@ -119,6 +134,15 @@ def main():
             rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
                       for a, b in pairs)
             same = all(torch.equal(a, b) for a, b in pairs)
+            if margin is not None and len(pairs) == 2:
+                C, Cb = pairs[1]
+                off = (C - Cb).abs().amax(0) > 1e-4 * Cb.abs().max()
+                if bool(off.any()):
+                    m = margin()[off]
+                    print(f"[{label}] {name}: {int(off.sum())} points' planes differ by more "
+                          f"than 1e-4 of the block's max; their plain trial state within "
+                          f"{float(m.max()):.2e} of the flow stress ({int((m <= cs.YIELD_BAND).sum())}"
+                          f" within YIELD_BAND {cs.YIELD_BAND:.0e})", flush=True)
             del outs, pairs
             ts = []
             for tag in ("base", "new", "new", "base"):
@@ -152,8 +176,57 @@ def main():
     combos = [(storage, visc, bf16) for storage in ("cauchy", "sym", "full")
               for visc in (False, True) for bf16 in (False, True)]
 
+    def residuals(label, prob, reps):
+        """The residual and assemble of J2 near F = I (path K's state is
+        elastic) and of every material (chip_smoke.py kernel_materials) on
+        random input (the J2 family plastic) on prob's tables: its own
+        block and (J2, J2Linear, the hyperelastic materials) the full one,
+        each (viscous, bfloat16 block); the residual inviscid and
+        viscous."""
+        if not re.search(args.only, "residual_sf assemble_sf"):
+            return
+        dt, tabs, jinv, wq = 0.05, prob.sf["tables"], prob.sf["jinv"], prob.wdet_t
+        cases = [("j2 elastic", cs.kernel_materials(mt)[0])]
+        cases += [(sweeps.kernel_tag(m), m) for m in cs.kernel_materials(mt)]
+        for tag, mat in cases:
+            if tag == "j2 elastic":
+                f, share = cs.plastic_inputs(torch, sweeps, soa, prob, mat, gen, dt, 1e-4)
+            elif mat.has_state:
+                amp = 0.2 * (cs.J2LIN_AMPLITUDE / cs.LAW_AMPLITUDE if tag == "j2lin" else 1.0)
+                f, share = cs.plastic_inputs(torch, sweeps, soa, prob, mat, gen, dt, amp)
+            else:
+                f, share = cs.random_visc_inputs(torch, sweeps, prob, mat, gen, dt), 0.0
+            own = sweeps.tangent_storage(mat)
+            a = (f["u_el"], f["a_el"], f["state"], tabs, jinv, wq, mat, dt, float(mat.density))
+            vk = dict(v_el=f["v_el"], mu_v=cs.VISC_MU)
+            calls = {}
+            for visc in (False, True):
+                k = vk if visc else {}
+                calls[f"residual_sf[{tag}{',visc' if visc else ''}]"] = (
+                    lambda k=k: sweeps.residual_sf(*a, **k))
+            for storage in (own,) if own == "full" or tag == "j2 elastic" else (own, "full"):
+                for visc in (False, True):
+                    for bf16 in (False, True):
+                        k = dict(vk if visc else {}, storage=storage,
+                                 c_dtype=torch.bfloat16 if bf16 else torch.float32)
+                        name = (f"assemble_sf[{tag},{storage}{',visc' if visc else ''}"
+                                f"{',bf16' if bf16 else ''}]")
+                        calls[name] = lambda k=k: sweeps.assemble_sf(*a, **k)
+            # inputs read once, the outputs written once (bound_of); the
+            # operations are the point's (chip_smoke.py sf_ops), not counted here
+            ms, _ = cs.bound_of(cs.nbytes(f["u_el"], f["a_el"], f["state"], tabs, jinv, wq,
+                                          f["u_el"]), 0)
+            print(f"[{label} {tag}] {prob.n_el} elements, plastic share {share:.3f}; the "
+                  f"residual's bound by bytes {ms:.4f} ms", flush=True)
+            margin = ((lambda: cs.yield_margin(torch, sweeps, prob, f["u_el"], f["state"],
+                                               mat=mat)) if mat.has_state else None)
+            ab(f"{label} {tag}", calls, reps, margin)
+            del f, a, vk, calls, margin
+            torch.cuda.empty_cache()
+
     if args.part != "earlier":
         prob = cs.cube3_of(mt, cs.jc_material(mt), K_SPANS, dev, elevate=1)
+        residuals(f"p=4 {K_SPANS}^3", prob, 3)
         matvecs(f"p=4 matvec {K_SPANS}^3", prob, combos, 10)
         del prob
         torch.cuda.empty_cache()
@@ -210,15 +283,24 @@ def main():
     del prob
     mat = cs.jc_material(mt)
     prob = cs.cube3_of(mt, mat, n, dev)
+    tabs, jinv, wq, E = prob.sf["tables"], prob.sf["jinv"], prob.wdet_t, prob.n_el
+    u_el = 1e-3 * h * rnd(3, 64, E)
+    a = (u_el, rnd(3, 64, E), {k: v.clone() for k, v in prob.state0.items()}, tabs, jinv, wq,
+         mat, 0.05, 1.0)
+    ab("J2 p=3 elastic", {"residual_sf@3d_p3": lambda: sweeps.residual_sf(*a),
+                          "assemble_sf@3d_p3": lambda: sweeps.assemble_sf(*a)}, 5)
+    del a, u_el, tabs, jinv, wq
     matvecs("p=3 matvec", prob, [c for c in combos if not (c[1] or c[2])], 5)
     del prob
     prob = cs.cube3_of(mt, mat, 16, dev)
     matvecs("p=3 matvec 16^3", prob, [c for c in combos if c[1] or c[2]], 20)
 
 
-def wide(torch, cs, mt, kb, sweeps, t0):
+def wide(torch, cs, mt, kb, sweeps, soa, t0):
     """--part wide: every sf matvec instantiation at WIDE_KEYS against
-    matvec_sf_plain at 1e-5 of the output's max, and its time."""
+    matvec_sf_plain at 1e-5 of the output's max, and its time; every
+    residual and assemble instantiation against plain (chip_smoke.py
+    hold_p3)."""
     kb.start(WIDE_KEYS)
     kb.prebuild(WIDE_KEYS)
     print(f"builds {time.perf_counter() - t0:.1f} s", flush=True)
@@ -250,9 +332,21 @@ def wide(torch, cs, mt, kb, sweeps, t0):
                     print(f"[wide {key} {E} elements] {name}: {ms:.4f} ms, bound {bound:.4f} ms "
                           f"by bytes; vs plain max|err| {err:.3e} of scale {scale:.3e} "
                           f"({err / scale:.2e}, bar 1e-5): {'ok' if ok else 'FAIL'}", flush=True)
-        del prob, w_el, tabs, jinv, wq
+        del w_el, tabs, jinv, wq
+        # the residual and assemble of every material and storage, each
+        # (viscous, bfloat16) pair, against plain at the smoke's bars
+        failed = []
+        cs.fail = failed.append
+        cs.hold_p3(torch, mt, sweeps, soa, prob, [(False, False), (False, True), (True, False),
+                                                  (True, True)],
+                   f"wide {key} {E} elements", gen, amplitude=0.2)
+        for msg in failed:
+            print(f"[wide {key}] FAIL {msg}", flush=True)
+        bad += failed
+        cs.fail = lambda msg: print(f"[2. ptxas] {msg}", flush=True)
+        del prob
         torch.cuda.empty_cache()
-    print(f"wide: {'every matvec within its bar' if not bad else f'FAIL {bad}'}", flush=True)
+    print(f"wide: {'every kernel within its bar' if not bad else f'FAIL {bad}'}", flush=True)
     return 1 if bad else 0
 
 

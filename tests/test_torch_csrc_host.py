@@ -904,6 +904,77 @@ def test_sf_axis_matvec_at_8_gauss_points_on_cpu_tensors(host_sweeps, storage, v
     assert prob.n_q == 8**3 and prob.sf["tables"][0].shape[:2] == (8, 5)
 
 
+# the sf residual and assemble from p = 4 on (sf_axis_residual_kernel):
+# (shape, material, viscous, bfloat16 block, storage; None the material's)
+AXIS_RESIDUAL_CASES = [((5, 6), "J2", False, False, None),
+                       ((5, 6), "J2Linear", True, False, None),
+                       ((5, 6), "CompressibleOgdenNeoHookean", True, True, None),
+                       ((5, 6), "StVenantKirchhoff", False, False, None),
+                       ((5, 6), "J2Simo", False, False, None),
+                       ((5, 6), "J2Log", False, False, None),
+                       ((5, 6), "J2", False, True, "full"),
+                       ((5, 8), "J2", True, True, None),
+                       ((5, 8), "J2Log", False, False, None)]
+
+
+def _axis_material(name):
+    """J2 (Johnson-Cook, A 5) and J2Linear yielding at strains of a few
+    1e-3, J2Simo and J2Log with the press's law, the hyperelastic
+    materials."""
+    if name == "J2":
+        mat = _material("J2")
+        mat.hardening.A = 5.0
+        return mat
+    if name == "J2Linear":
+        return _j2_family(name)
+    if name in tsw.FULL_KERNELS:
+        return _press_law(name, viscosity=-1.0)
+    return _hyper(name)
+
+
+@pytest.mark.parametrize(
+    "key, name, visc, bf16, storage", AXIS_RESIDUAL_CASES,
+    ids=[f"{k[0]}_{k[1]}_{n}{'_visc' if v else ''}{'_bf16' if b else ''}{'_' + s if s else ''}"
+         for k, n, v, b, s in AXIS_RESIDUAL_CASES])
+def test_sf_axis_residual_on_cpu_tensors(host_sweeps, libs, key, name, visc, bf16, storage):
+    """The sf residual and assemble from p = 4 on (sf_axis_residual_kernel:
+    axis by axis, tiles of 16 elements at SfShape<5, 6>, 8 viscous; of 8
+    at SfShape<5, 8>, p = 4 at 8 Gauss points per axis, 4 viscous) of the
+    host build through the wrappers' own marshalling against the plain
+    versions, on a ragged last tile (45 = 2 x 16 + 13 elements of
+    cube-nurbs-3.mesh elevated by 1; 21 = 2 x 8 + 5 at (5, 8)): J2 and
+    J2Linear on a random plastic history, the hyperelastic materials at
+    strains of a few percent, J2Simo's and J2Log's full block (J2Log with one
+    point past its fast log series' range: both launches run, the deep one
+    for every point), the full block of J2.  Residuals at 1e-5 of scale,
+    float32 planes at 1e-4 of their max (the card's bar: one group for
+    the full block), bfloat16 planes within 2^-7; the matvec on the plain
+    block at 1e-5."""
+    mat = _axis_material(name)
+    n = {(5, 6): 45, (5, 8): 21}[key]
+    prob = mt.build_problem(os.path.join(DATA, "cube-nurbs-3.mesh"), 1, 0, mat,
+                            [(1, 0), (1, 1), (1, 2)], {}, rho_inf=0.5, device="cpu",
+                            dtype=torch.float32, refine_spans=4,
+                            quadrature_order=14 if key == (5, 8) else -1)
+    prob = _first_elements(prob, n)
+    assert (prob.sf["pp1"], prob.sf["n_g"]) == key
+    rng = np.random.default_rng(25)
+    if mat.has_state:
+        f = _plastic_inputs(prob, rng, 0.002)
+    else:
+        f = _hyper_inputs(prob, rng)
+    if name == "J2Log":
+        f = (*f[:4], _stretch_one_point(f[4]))
+        deep = getattr(libs("sf", key), "mimi_logm_deep_sf_finite")
+        deep.argtypes = [ctypes.c_void_p]
+        count = ctypes.c_longlong(0)
+        assert deep(ctypes.byref(count)) == 0
+        n0 = count.value
+    _hold_host_sweeps(host_sweeps, prob, f, visc, bf16, storage=storage, plane_bar=1e-4)
+    if name == "J2Log":  # the residual's and the assemble's deep launches ran
+        assert deep(ctypes.byref(count)) == 0 and count.value == n0 + 2
+
+
 TILED_MATVEC_CASES = ([((3, 64, 125), storage, visc, bf16) for storage in ("sym", "cauchy", "full")
                        for visc in (False, True) for bf16 in (False, True)]
                       + [(key, storage, visc, bf16) for key in ((2, 25, 36), (3, 125, 216))
@@ -987,7 +1058,9 @@ def _new_shape_problem(key, mat):
     on the CPU: sf (2, 3) p = 1 at 4^3, (5, 6) p = 4 at 2^3, (3, 3) p = 2
     at quadrature order 5 at 3^3; dense (2, 25, 36) 2D p = 4 at 2^2,
     (3, 8, 27) 3D p = 1 at 2 x 2^3, (3, 125, 216) 3D p = 4 at 2 x 1^3,
-    (2, 12, 20) 2D degrees [3, 2] at 2^2."""
+    (2, 12, 20) 2D degrees [3, 2] at 2^2, (3, 343, 512) 3D p = 6 at
+    2 x 1^3 (the tiled residual's a read from device memory: u and a
+    staged would pass a block's 227 KB)."""
     from mimi_tpu_torch.nurbs.mesh_io import read_mfem_nurbs_mesh, single_patch_mesh
     from mimi_tpu_torch.nurbs.topology import build_patch_from_mesh
 
@@ -1005,6 +1078,7 @@ def _new_shape_problem(key, mat):
         (3, 3): (MESH, 1, 0, 3, 5, clamp3), (2, 25, 36): (BALKEN, 3, 1, None, -1, clamp2),
         (3, 8, 27): (two, 0, 0, 2, -1, [(0, 0), (0, 1), (0, 2)]),
         (3, 125, 216): (two, 3, 0, 1, -1, [(0, 0), (0, 1), (0, 2)]),
+        (3, 343, 512): (two, 5, 0, 1, -1, [(0, 0), (0, 1), (0, 2)]),
         (2, 12, 20): (None, 0, 1, None, -1, clamp2),
     }[key]
     prob = mt.build_problem(mixed if mesh is None else mesh, elevate, subdivide, mat, clamp, {},
@@ -1018,7 +1092,7 @@ def _new_shape_problem(key, mat):
 
 NEW_SHAPE_CASES = [(key, name, visc, bf16)
                    for key in ((2, 3), (5, 6), (3, 3), (2, 25, 36), (3, 8, 27), (3, 125, 216),
-                               (2, 12, 20))
+                               (2, 12, 20), (3, 343, 512))
                    for name, visc, bf16 in (("J2", False, False),
                                             ("CompressibleOgdenNeoHookean", True, True),
                                             ("J2Simo", False, False))]
@@ -1213,3 +1287,41 @@ def test_j2log_sweeps_take_one_log_series(host_sweeps, libs, kind):
         err = float((got[..., 1:] - ref[..., 1:]).abs().max())
         gap = float((alt - ref[..., 1:]).abs().max())
         assert 10.0 * err < gap, (err / scale, gap / scale)
+
+
+@pytest.mark.parametrize("kind", ["sf", "dense"])
+@pytest.mark.parametrize("name", ["J2Simo", "J2Log"])
+def test_finite_planes_at_a_subnormal_q_on_cpu_tensors(host_sweeps, name, kind):
+    """J2Simo's and J2Log's residual and assemble of the host build, sf (3D
+    p = 2, 8 elements) and dense (3, 27, 64) (8 elements), at u = 0 with the
+    history J2Log's Fp^-1 (J2Simo's F_old) = I + 1e-23 e_01 at the even
+    elements and I plus a seeded draw of the same size at the odd ones:
+    every point elastic, q ~ 1e-20, q^2 subnormal in float32, where the flow
+    direction's derivative 1.5 q' / q^2 overflows.  The planes are finite and
+    equal to the plain version's at 1e-4 of their max, the residual at 1e-5
+    of scale."""
+    mat = _press_law(name, viscosity=-1.0)
+    if kind == "sf":
+        prob = _host_problem("sf", 3, 2, mat)
+        tables, nd = (prob.sf["tables"], prob.sf["jinv"]), 27
+        sweep, plain = host_sweeps._sf_sweep, host_sweeps.assemble_sf_plain
+    else:
+        prob = _finite_tile_problem((3, 27, 64), mat, n=8)
+        tables, nd = (prob.dense["dN_t"], prob.dense["N_t"]), 27
+        sweep, plain = host_sweeps._dense_sweep, host_sweeps.assemble_dense_plain
+    E, nq = prob.n_el, prob.n_q
+    shear = np.zeros((3, 3, nq, E), np.float32)
+    shear[0, 1, :, ::2] = 1e-23
+    shear[:, :, :, 1::2] = 1e-23 * np.random.default_rng(26).standard_normal((3, 3, nq, E // 2))
+    state = {k: v.clone() for k, v in prob.state0.items()}
+    leaf = "Fp_inv" if name == "J2Log" else "F_old"
+    state[leaf] = state[leaf] + torch.tensor(shear)
+    u_el = torch.zeros(3, nd, E)
+    a_el = torch.tensor(np.random.default_rng(27).standard_normal((3, nd, E)), dtype=torch.float32)
+    args = (u_el, a_el, state, *tables, prob.wdet_t, mat, 0.05, float(mat.density))
+    y, C = sweep(True, *args)
+    with kernel_solver_mode():
+        y_p, C_p = plain(*args)
+    assert bool(torch.isfinite(C_p).all()) and bool(torch.isfinite(C).all())
+    assert float((y - y_p).abs().max()) <= 1e-5 * float(y_p.abs().max())
+    assert float((C - C_p).abs().max()) <= 1e-4 * float(C_p.abs().max())

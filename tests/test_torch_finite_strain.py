@@ -7,6 +7,8 @@ on the CPU unless stated:
   - `logm_sym_soa` and `expm_sym_soa` on the fast, escalated and poisoned
     branches at 1e-12, and J2Log's P on a batch with one point past the
     fast log series' range (every point takes the deep series) at 1e-12;
+  - J2, J2Simo and J2Log P and `full` planes in float32 at strains of
+    1e-23 (q^2 subnormal) against the reference at 1e-10: finite;
   - the plain sf sweeps with the `full` storage against the reference's
     SoA math at 8 elements, one of them at C near I (both materials,
     1e-10): the residual, the 81 planes of `full_tangent_planes` against
@@ -222,6 +224,50 @@ def test_expm_matches_reference(size, expect):
     assert (np.isnan(got).any(axis=(0, 1)) == bad).all()
     assert bad[0] == (expect == "poisoned") and not bad[1:].any()
     assert _rel(got[..., ~bad], ref[..., ~bad]) < 1e-12
+
+
+def _subnormal_q_case(name):
+    """float32 F = I + 1e-23 e_01 at points 0-3 and I plus a seeded numpy
+    draw of the same size at points 4-7, on the material's initial state:
+    every point elastic, q ~ 1e-20, q^2 subnormal in float32."""
+    eye = np.repeat(np.eye(3, dtype=np.float32)[:, :, None, None], 8, axis=3)
+    F = eye.copy()
+    F[0, 1, :, :4] = 1e-23
+    draw = 1e-23 * np.random.default_rng(23).standard_normal((3, 3, 1, 4))
+    F[:, :, :, 4:] += draw.astype(np.float32)
+    state = {"eqps": np.zeros((1, 8), np.float32), "temperature": np.full((1, 8), 20.0, np.float32)}
+    if name == "J2Log":
+        state["Fp_inv"] = eye
+    elif name == "J2Simo":
+        state["be_old"], state["F_old"] = eye, eye.copy()
+    else:
+        state["plastic_strain"] = np.zeros((3, 3, 1, 8), np.float32)
+    return F, state
+
+
+@pytest.mark.parametrize("name", ["J2", "J2Simo", "J2Log"])
+def test_tangent_at_a_subnormal_q_matches_reference(name):
+    """P and the 81 `full` planes (ops/sweeps.py full_tangent_planes) in
+    float32 at strains of 1e-23, where q^2 is subnormal: finite and equal to
+    the reference's pk1_soa and its jvp planes (1e-10, the sweeps' bar
+    below).  There the flow direction's derivative 1.5 q' / q^2 overflows
+    float32; the elastic point's zero increment must not multiply it (the
+    reference's XLA flushes subnormals to zero, so its q is 0).  J2Simo's
+    near-zero deviator guard covers it already; J2 and J2Log leave the
+    increment's term out on elastic points."""
+    F, state = _subnormal_q_case(name)
+    ref, port = _both_materials(name)
+    js = {k: jnp.asarray(v) for k, v in state.items()}
+    seeds = jnp.asarray(np.eye(9, dtype=np.float32).reshape(9, 3, 3, 1, 1) * np.ones_like(F))
+    P_ref, cols = jax.vmap(lambda s: jax.jvp(lambda Ft: ref.pk1_soa(Ft, js, DT),
+                                             (jnp.asarray(F),), (s,)))(seeds)
+    C_ref = np.asarray(jnp.stack([cols[b][a // 3, a % 3] for a in range(9) for b in range(9)]))
+    assert P_ref.dtype == jnp.float32 and np.isfinite(C_ref).all()
+    P, C = tsw.full_tangent_planes(port, torch.tensor(F), {k: torch.tensor(v) for k, v in
+                                                           state.items()}, DT)
+    assert P.dtype == torch.float32 and bool(torch.isfinite(C).all())
+    assert _rel(P.numpy(), P_ref[0]) < 1e-10
+    assert _rel(C.numpy(), C_ref) < 1e-10
 
 
 # ---- (b) the sf sweeps with the full storage -------------------------------------
