@@ -597,14 +597,45 @@ def bound_of(n_bytes, n_ops):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def dense_symbol(name):
+    """The CUDA kernel template (file and name) that the launches of a dense
+    residual or assemble counter run, as the launchers choose it at compile
+    time by shape and material: J2Simo and J2Log on point slots at every
+    shape, J2 in 2D and past 27 dofs in 3D (sweeps_dense_j2.cu J2Slots);
+    past 27 dofs in 3D and 16 in 2D (DenseShape::TILED) the others on the
+    owners and the flux warp; below, one thread per element.  None for any
+    other counter."""
+    m = re.fullmatch(r"(residual|assemble)_dense(?:\[([^\]]*)\])?(@.*)?", name)
+    if not m:
+        return None
+    tag = (m.group(2) or "").split(",")[0].split("-")[0]
+    tag = "nh" if tag in ("", "visc", "sym") else tag
+    dim, nd = 3, 27
+    sfx = m.group(3) or ""
+    if sfx:
+        d = re.fullmatch(r"@(\d)d_(?:p(\d+)(?:_g\d+)?|nd(\d+)_q\d+)", sfx)
+        dim = int(d.group(1))
+        nd = int(d.group(3)) if d.group(3) else (int(d.group(2)) + 1) ** dim
+    tiled = nd > (16 if dim == 2 else 27)
+    if tag in ("simo", "log") or (tag == "j2" and (tiled or dim == 2)):
+        kernel = "dense_slot_kernel"
+    else:
+        kernel = "dense_residual_tile_kernel" if tiled else "dense_residual_kernel"
+    return f"mimi_tpu_torch/ops/csrc/dense_common.cuh {kernel}"
+
+
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, n_bytes, n_ops):
-    """One entry of the kernels line, its bound from bound_of."""
+    """One entry of the kernels line, its bound from bound_of; a dense
+    residual or assemble names the kernel template it runs (dense_symbol)."""
     bound, by = bound_of(n_bytes, n_ops)
-    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by,
-            # no single PyTorch call computes a fused quadrature sweep
-            "library_ms": None}
+    row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+           "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound, "bound_by": by,
+           # no single PyTorch call computes a fused quadrature sweep
+           "library_ms": None}
+    if dense_symbol(name):
+        row["symbol"] = dense_symbol(name)
+    return row
 
 
 def ptxas_entries(log, nvcc):
@@ -649,11 +680,15 @@ def check_ptxas(kbuild, keys, label="2. ptxas"):
     Cauchy (J2Mat) or hyperelastic (Hyper) residual or assemble spills, with
     its own or the full block, at any shape.  The finite-strain ones (J2SimoMat,
     J2LogMat: 9 dual-number passes per point) and the dense kernels with the
-    full block, tiled (dense_tile_kernel, dense_matvec_tile_kernel) or at a
-    shape outside the defaults are printed, not held, but a tiled matvec
-    (dense_matvec_tile_kernel) fails where it spills; so is every bfloat16
-    dense instantiation (the `*_bf16.cu` sources), failing where one of
-    their matvecs spills."""
+    full block, tiled (dense_residual_tile_kernel, dense_matvec_tile_kernel,
+    the fused pair's dense_tile_kernel), on point slots (dense_slot_kernel)
+    or at a shape outside the defaults are printed, not held, but a tiled
+    matvec (dense_matvec_tile_kernel) fails where it spills, and so does a
+    driven J2-family (DenseJ2) or hyperelastic (Hyper) instantiation of
+    dense_residual_tile_kernel or dense_slot_kernel (inviscid, its own
+    block, at a shape of DRIVEN_DENSE); so is every bfloat16 dense
+    instantiation (the `*_bf16.cu` sources), failing where one of their
+    matvecs spills."""
     logs = []
     for key in keys:
         info = kbuild.BUILD_INFO[kbuild.key_of(*key)]
@@ -691,21 +726,64 @@ def check_ptxas(kbuild, keys, label="2. ptxas"):
         name = re.sub(r"\((int|bool)\)", "", full_name.split("(const float")[0])
         tiled_matvec = "dense_matvec_tile_kernel" in name
         tiled = "dense_tile_kernel" in name or tiled_matvec
-        finite = "dense_finite_kernel" in name  # J2Simo's and J2Log's point slots
-        if finite:
+        # the residual and assemble on owners and a flux warp (tiled shapes)
+        # or on point slots (J2Simo, J2Log; J2, J2Linear at the untiled ones)
+        residual = "dense_residual_tile_kernel" in name or "dense_slot_kernel" in name
+        if residual:
             name = re.sub(r"\((int|bool)\)", "", full_name.split(">(")[0] + ">")
         new = any(f"DenseShape<{d}, {n}, {q}>" in name for d, n, q in new_dense)
         bf16 = "__nv_bfloat16" in full_name.split(">(")[0] and "dense_" in full_name
         spilled = v.get("spill_stores", 0) + v.get("spill_loads", 0)
-        if ("FullStorage" in name or tiled or new or bf16 or finite) and full_name not in ents:
+        if ("FullStorage" in name or tiled or new or bf16 or residual) and full_name not in ents:
             say(f"[{label}] {name}: {v.get('registers')} registers, {v.get('smem')} B smem, "
                 f"spill stores {v.get('spill_stores')} B, loads {v.get('spill_loads')} B")
         if bf16 and (tiled_matvec or "dense_matvec_kernel" in name):
             bf16_matvecs += 1
-        if spilled and (tiled_matvec or (bf16 and "dense_matvec_kernel" in name)):
+        if spilled and (tiled_matvec or (bf16 and "dense_matvec_kernel" in name)
+                        or (residual and driven_dense(name))):
             fail(f"{name} spills")
     if any(k[0] == "dense" for k in keys) and not bf16_matvecs:
         fail("no bfloat16 dense matvec instantiation in the ptxas output")
+
+
+# the dense shapes of the driven paths: the 3D cells and paths J (3, 27, 64),
+# the golden cantilevers (2, 16, 25), the p = 2 drives (2, 9, 16), path I
+# (3, 64, 125) and path L (2, 25, 36)
+DRIVEN_DENSE = ((3, 27, 64), (2, 16, 25), (2, 9, 16), (3, 64, 125), (2, 25, 36))
+
+
+def template_args(name, template):
+    """The top-level template arguments of `template<...>` in a demangled
+    kernel name, or None where the name has no such template."""
+    i = name.find(template + "<")
+    if i < 0:
+        return None
+    args, cur, depth = [], "", 1
+    for c in name[i + len(template) + 1:]:
+        depth += {"<": 1, ">": -1}.get(c, 0)
+        if depth == 0 or (c == "," and depth == 1):
+            args.append(cur.strip())
+            cur = ""
+            if depth == 0:
+                return args
+            continue
+        cur += c
+    return None
+
+
+def driven_dense(name):
+    """Whether a dense residual kernel's demangled name (template arguments
+    Mat, Store, Shape, TANGENT, VISC, CT, the casts cut) is a driven
+    J2-family or hyperelastic instantiation: inviscid, its own block (not
+    the full one), at a shape of DRIVEN_DENSE."""
+    for template in ("dense_residual_tile_kernel", "dense_slot_kernel"):
+        args = template_args(name, template)
+        if args and len(args) == 6:
+            mat, store, shape, _, visc, _ = args
+            return (("DenseJ2" in mat or "Hyper<" in mat) and "FullStorage" not in store
+                    and visc in ("0", "false")
+                    and any(f"DenseShape<{d}, {n}, {q}>" in shape for d, n, q in DRIVEN_DENSE))
+    return False
 
 
 def plastic_points(soa, sweeps, prob, u_el, state, dt):

@@ -6,14 +6,17 @@
 // residual / assemble and matvec kernel templates with their launchers.
 // The tangent block's element type (CT) and the matvec's tables' (TT) are
 // template parameters, float or __nv_bfloat16, widened on load
-// (materials.cuh load_c; a float load is the __ldg it always was).  One
-// thread per element; each thread owns one column of the shared arrays
-// (dynamic shared memory, launch.cuh: 40.5 KB a block for the residual at
-// 3D p = 2), so no barrier is needed.  Past 27 dofs in 3D and 16 in 2D
-// (DenseShape::TILED) the launchers take the tiled kernels below instead
-// (one thread per element and point slot; for the matvec, per element and
-// owner of 8 nodes).  J2Simo's and J2Log's residual and assemble take
-// sweeps_dense_finite.cu's dense_finite_kernel at every shape.  Each
+// (materials.cuh load_c; a float load is the __ldg it always was).  Up to
+// 27 dofs in 3D and 16 in 2D one thread per element; each thread owns one
+// column of the shared arrays (dynamic shared memory, launch.cuh: 40.5 KB
+// a block for the residual at 3D p = 2), so no barrier is needed.  Past
+// that (DenseShape::TILED) the launchers take the tiled kernels below
+// instead: the residual, assemble and matvec on owners of 8 nodes and a
+// flux warp (dense_residual_tile_kernel, dense_matvec_tile_kernel), the
+// fused neo-Hookean pair on point slots (dense_tile_kernel).  The
+// residual and assemble of J2Simo and J2Log at every shape, and of J2 in
+// 2D and on the tiled shapes, take dense_slot_kernel (one thread per
+// element and point slot; sweeps_dense_j2.cu J2Slots).  Each
 // translation unit instantiates its kernels at the one shape its build defines
 // (MIMI_DENSE_DIM, MIMI_DENSE_ND, MIMI_DENSE_NQ: ops/build.py compiles the
 // dense sources once per shape the step asks for, each shape into a
@@ -282,25 +285,24 @@ __global__ void __launch_bounds__(BLOCK)
 //
 // At (3, 3) a thread of the kernels above would hold 192 output sums: they
 // spill to local memory, and the two staged fields take 96 KB a block (2
-// blocks, 4 warps an SM).  The tiled residual and assemble instead map one
-// thread to an (element, point slot), as the sf residual kernel does
-// (sf_common.cuh): a block takes a tile of DTILE = 32 consecutive elements,
-// one per lane, in S::SLOTS warps, warp s taking the points q = s (mod
-// SLOTS) of every element.  The tile's element fields are staged once in
-// shared memory as [DIM ND][DTILE]; per point a thread forms F from its
-// lane's column and its point's dN row, with the same operations as
-// grad_q_of above, runs the material and hands the point's flux X[c][d],
-// mass term m[c] and w det J to shared memory; after a barrier each thread
-// adds the round's SLOTS points, in q order, to the outputs of the nodes
-// n = s + SLOTS j it owns (16 nodes, 48 sums at 3D p = 3 with 4 slots and
-// at p = 4 with 8), reading those nodes' dN and N at the round's points,
-// with the scatter's operations (scatter_q).  Every table read of a warp is
-// one 128-byte line; dN is read twice, as above.  Shared memory: 55.8 KB a
-// block for the residual at (3, 64, 125), 106.8 KB at (3, 125, 216); the
-// second field (the residual's a, the fused tangent apply's w) is staged
-// only where both fit in a block's 227 KB, and read from device memory
-// otherwise (3D p = 6: 145.0 KB instead of 276.7 KB).  The tiled matvec
-// reads dN and N once (dense_matvec_tile_kernel below).
+// blocks, 4 warps an SM).  The tiled kernels take a tile of DTILE = 32
+// consecutive elements a block, one per lane, so that every table read of
+// a warp is one 128-byte line.  The residual, assemble and matvec split a
+// block into owner warps, each lane of which holds the dN and N rows of
+// its nodes at a point in registers from the point's partial sums to the
+// scatter, and one flux warp that runs the point's material or block
+// (dense_residual_tile_kernel, dense_matvec_tile_kernel below): dN and N
+// cross device memory once.  The fused neo-Hookean pair keeps the point
+// slots of dense_tile_kernel: warp s takes the points q = s (mod SLOTS) of
+// every element, forms the point's F from its lane's staged column and the
+// point's dN row (grad_q_of's operations), runs the point and hands X[c][d],
+// m[c] and w det J to shared memory; after a barrier each thread adds the
+// round's SLOTS points, in q order, to the outputs of the nodes
+// n = s + SLOTS j it owns, reading those nodes' dN rows again (scatter_q's
+// operations, no mass term).  Shared memory of dense_tile_kernel: the
+// staged field(s) [DIM ND][DTILE] and the round's points; the second field
+// (the tangent apply's w) is staged only where both fit in a block's 227 KB
+// and read from device memory otherwise (3D p = 6).
 
 constexpr int DTILE = 32;
 
@@ -311,10 +313,12 @@ struct TileStage {
 };
 
 // dense_tile_kernel's shared memory with NF fields: the first field staged,
-// the second (NF = 2) where both fit in a block's shared memory
+// the second (NF = 2) where both fit in a block's shared memory, and the
+// round's points (PS floats each)
 template <class S, int NF>
 struct DenseTile {
-  static constexpr size_t stage_floats = (size_t)DTILE * S::SLOTS * TileStage<S::DIM>::N;
+  static constexpr int PS = S::DIM * S::DIM + 1;
+  static constexpr size_t stage_floats = (size_t)DTILE * S::SLOTS * PS;
   static constexpr int STAGED =
       sizeof(float) * (stage_floats + (size_t)DTILE * NF * S::NW) <= BLOCK_SMEM_MAX ? NF : 1;
   static constexpr size_t BYTES = sizeof(float) * (stage_floats + (size_t)DTILE * STAGED * S::NW);
@@ -335,69 +339,22 @@ __device__ __forceinline__ void value_q_of(const TT* __restrict__ N, const W& w,
   }
 }
 
-// The points of dense_tile_kernel: the flux X and mass term m of point q
-// of the lane's element, from the staged field s0 and the second field's
-// values f1(k) (staged or read from device memory); MASS: whether the
-// scatter adds N[n] m[c] (the fused neo-Hookean kernels have no mass term
-// and no N table).
-
-// one point of the residual (and, with TANGENT, the assemble, the block in
-// CT): fields u (s0) and a (f1)
-template <class Mat, class Store, class S, bool TANGENT, bool VISC, typename CT>
-struct ResidualPoint {
-  static constexpr bool MASS = true;
-  static constexpr int DIM = S::DIM;
-  Mat mat;
-  CT* cout;
-  const float* v_el;
-  const float* dN;
-  const float* N;
-  float rho, mu_v;
-  template <class F1>
-  __device__ __forceinline__ void operator()(const float (*s0)[DTILE], const F1& f1, int lane,
-                                             long long e, long long E, long long qe,
-                                             long long QE, float X[DIM][DIM],
-                                             float m[DIM]) const {
-    constexpr int ND = S::ND;
-    float F[DIM][DIM];
-    grad_q_of<DIM, ND>(dN, [=](int k) { return s0[k][lane]; }, qe, QE, F);
-#pragma unroll
-    for (int i = 0; i < DIM; ++i) F[i][i] = add(F[i][i], 1.f);
-    typename Mat::Point pt;
-    mat.template eval<TANGENT>(F, qe, QE, X, pt);
-    if (TANGENT) Store::store(cout, qe, QE, mat, pt);
-    if (VISC) {  // P + mu_v dV, in the plain version's order
-      float dV[DIM][DIM];
-      grad_q_of<DIM, ND>(dN, [=](int k) { return __ldg(v_el + (long long)k * E + e); }, qe, QE,
-                         dV);
-#pragma unroll
-      for (int c = 0; c < DIM; ++c)
-#pragma unroll
-        for (int d = 0; d < DIM; ++d) X[c][d] = add(X[c][d], mul(mu_v, dV[c][d]));
-    }
-    float av[DIM];
-    value_q_of<DIM, ND>(N, f1, qe, QE, av);
-#pragma unroll
-    for (int c = 0; c < DIM; ++c) m[c] = rho * av[c];
-  }
-};
-
-// y[c][n] = sum_q wq (dN[n][d] X[c][d] + N[n] m[c]) with the point's X and
-// m from `point` (ResidualPoint or a fused neo-Hookean point)
-// on the NF fields f0 (and f1; staged as DenseTile says); the scatter reads
-// dN, N in TT (the point's own tables; N only where Pt::MASS)
-template <class S, int NF, typename TT, class Pt>
+// y[c][n] = sum_q wq dN[n][d] X[c][d] with the point's flux X from `point`
+// (a fused neo-Hookean point, fused_neohookean.cu: X from the point's F,
+// `s0` the lane's staged column, and the second field's values f1(k)) on
+// the NF fields f0 (and f1; staged as DenseTile says)
+template <class S, int NF, class Pt>
 __global__ void __launch_bounds__(DTILE * S::SLOTS)
     dense_tile_kernel(Pt point, const float* __restrict__ f0, const float* __restrict__ f1,
-                      const TT* __restrict__ dN, const TT* __restrict__ N,
-                      const float* __restrict__ wq, float* __restrict__ out, long long E) {
-  using T = TileStage<S::DIM>;
+                      const float* __restrict__ dN, const float* __restrict__ wq,
+                      float* __restrict__ out, long long E) {
   constexpr int DIM = S::DIM, ND = S::ND, NW = S::NW, NQ = S::NQ, DSLOTS = S::SLOTS;
   constexpr int OWN_NODES = (ND + DSLOTS - 1) / DSLOTS, SF = DenseTile<S, NF>::STAGED;
-  MIMI_DYNAMIC_SHARED(float, smem);  // s0[NW][DTILE] (, s1[NW][DTILE]), st[DSLOTS][T::N][DTILE]
+  constexpr int PS = DenseTile<S, NF>::PS, W = PS - 1;  // a point's X[c][d] and w det J
+  MIMI_DYNAMIC_SHARED(float, smem);  // s0[NW][DTILE] (, s1[NW][DTILE]), st[DSLOTS][PS][DTILE]
   float(*s0)[DTILE] = reinterpret_cast<float(*)[DTILE]>(smem);
   float(*s1)[DTILE] = s0 + (SF > 1 ? NW : 0);
-  float(*st)[T::N][DTILE] = reinterpret_cast<float(*)[T::N][DTILE]>(s0 + SF * NW);
+  float(*st)[PS][DTILE] = reinterpret_cast<float(*)[PS][DTILE]>(s0 + SF * NW);
   const int lane = threadIdx.x % DTILE, slot = threadIdx.x / DTILE;
   const long long e = (long long)blockIdx.x * DTILE + lane;
   const bool live = e < E;  // the last tile is ragged where E % DTILE != 0
@@ -425,15 +382,13 @@ __global__ void __launch_bounds__(DTILE * S::SLOTS)
     const int q = q0 + slot;
     if (live && q < NQ) {  // the last round is partial where DSLOTS does not divide NQ
       const long long qe = (long long)q * E + e;
-      float X[DIM][DIM], m[DIM];
-      point(s0, field1, lane, e, E, qe, QE, X, m);
+      float X[DIM][DIM];
+      point(s0, field1, lane, qe, QE, X);
 #pragma unroll
-      for (int c = 0; c < DIM; ++c) {
+      for (int c = 0; c < DIM; ++c)
 #pragma unroll
         for (int d = 0; d < DIM; ++d) st[slot][c * DIM + d][lane] = X[c][d];
-        st[slot][T::M + c][lane] = m[c];
-      }
-      st[slot][T::W][lane] = __ldg(wq + qe);
+      st[slot][W][lane] = __ldg(wq + qe);
     }
     __syncthreads();
     if (live) {
@@ -444,18 +399,16 @@ __global__ void __launch_bounds__(DTILE * S::SLOTS)
 #pragma unroll
         for (int j = 0; j < OWN_NODES; ++j) {
           const int n = slot + DSLOTS * j;
-          if (n < ND) {  // scatter_q's operations for node n
+          if (n < ND) {  // scatter_q's operations for node n, no mass term
             float d[DIM];
 #pragma unroll
-            for (int f = 0; f < DIM; ++f) d[f] = load_c(dN + (long long)(n * DIM + f) * QE + qe);
-            const float Nn = Pt::MASS ? load_c(N + (long long)n * QE + qe) : 0.f;
+            for (int f = 0; f < DIM; ++f) d[f] = __ldg(dN + (long long)(n * DIM + f) * QE + qe);
 #pragma unroll
             for (int c = 0; c < DIM; ++c) {
               float x = d[0] * p[c * DIM][lane];
 #pragma unroll
               for (int f = 1; f < DIM; ++f) x += d[f] * p[c * DIM + f][lane];
-              if (Pt::MASS) x += Nn * p[T::M + c][lane];
-              acc[j][c] += p[T::W][lane] * x;
+              acc[j][c] += p[W][lane] * x;
             }
           }
         }
@@ -474,14 +427,14 @@ __global__ void __launch_bounds__(DTILE * S::SLOTS)
   }
 }
 
-template <class S, int NF, typename TT, class Pt>
-int launch_dense_tile(const Pt& point, const float* f0, const float* f1, const TT* dN,
-                      const TT* N, const float* wq, float* out, long long E, void* stream) {
+template <class S, int NF, class Pt>
+int launch_dense_tile(const Pt& point, const float* f0, const float* f1, const float* dN,
+                      const float* wq, float* out, long long E, void* stream) {
   constexpr size_t smem = DenseTile<S, NF>::BYTES;
-  if (const int err = allow_dynamic_smem<dense_tile_kernel<S, NF, TT, Pt>>(smem)) return err;
+  if (const int err = allow_dynamic_smem<dense_tile_kernel<S, NF, Pt>>(smem)) return err;
   const unsigned tiles = (unsigned)((E + DTILE - 1) / DTILE);
-  dense_tile_kernel<S, NF, TT, Pt><<<tiles, DTILE * S::SLOTS, smem, (cudaStream_t)stream>>>(
-      point, f0, f1, dN, N, wq, out, E);
+  dense_tile_kernel<S, NF, Pt><<<tiles, DTILE * S::SLOTS, smem, (cudaStream_t)stream>>>(
+      point, f0, f1, dN, wq, out, E);
   return (int)cudaGetLastError();
 }
 
@@ -719,16 +672,528 @@ __global__ void __launch_bounds__(MatvecTile<S>::THREADS, MatvecTile<S>::MIN_BLO
   }
 }
 
-// the block in CT (deduced from cout); the tables in float32
+// ---- the tiled residual and assemble: every dN and N entry loaded once -------------
+//
+// y[c][n] = sum_q wq (dN[n][d] P(F)[c][d] + N[n] rho a_q[c]) (+ mu_v grad v
+// in P, viscous) and, with TANGENT, the point's block of `Store`, on the
+// tiled shapes, for the hyperelastic materials and J2Linear (J2, J2Simo and
+// J2Log take dense_slot_kernel below: a return map's trips on one flux
+// warp a block ran at 0.6x the point slots).  What bounds it on the H100
+// is bytes: per element and point it reads DIM ND + ND table entries (256
+// floats at (3, 64, 125)), 4.29 ms of the residual's and 5.02 of the
+// assemble's bound at path I's 2 x 38^3.  The point-slot kernel it
+// replaces read dN twice from device memory (each point's F, then each
+// node's owner for the scatter, 4 points apart).  This one is the tiled
+// matvec's design (dense_matvec_tile_kernel above): a block takes DTILE =
+// 32 consecutive elements, one per lane, in MatvecTile::SLOTS owner warps
+// and one flux warp.  For each point q in turn an owner (slot s, lane)
+// loads dN[n][:][q] and N[n][q] of its nodes n = s + SLOTS j into
+// registers, copies the dN rows to shared memory and hands its nodes'
+// share of a's value (and of grad v, viscous), fused multiply-adds, to
+// shared memory.  After a barrier every warp, the flux warp too, sums
+// entries of grad u over all the nodes from those rows, in n order without
+// FMA (grad_q_of's operations: entry c on warp c mod (SLOTS + 1)), so
+// that F is the plain version's to the bit: the materials cancel F near
+// F = I (mu (F - F^-T), det F - 1, the trial strain sym(F) - I), where
+// grad u summed by slot moved the residual by 1.5e-4 of its max at path
+// L's state (6.8e-6 with the diagonal alone summed in n order: det F's
+// off-diagonal products), and a warp that summed its entries from device
+// memory waited on a load a few nodes, at 2x the time.  After a second
+// barrier the flux warp forms F, sums the SLOTS partials in slot order,
+// runs the material (`Mat::eval`), stores the point's block
+// (`Store::store`, the assemble) and hands X = P (+ mu_v grad v),
+// m = rho a and w det J to shared memory; after a third barrier each
+// owner adds wq (dN[n] . X[c] + N[n] m[c]) to its nodes' sums from the
+// same registers, points in q order: no atomics, deterministic.  a's value
+// and grad v are regrouped by slot (float32 rounding against the plain
+// version; neither cancels).  The fields u, a (and v) are staged in
+// shared memory as [DIM ND][DTILE] in that order while they fit in a
+// block's 227 KB, the rest read from device memory (ResidualTile::STAGED:
+// none at 3D p = 6).  Shared memory at (3, 64, 125): 79.6 KB a block (2
+// blocks an SM), 113.4 KB viscous (one block an SM); at (2, 25, 36)
+// 21.6 KB; at (3, 343, 512) 140.7 KB, no field staged.
+template <class S, bool VISC>
+struct ResidualTile {
+  using MT = MatvecTile<S>;
+  static constexpr int DIM = S::DIM, D2 = DIM * DIM;
+  // a slot's partials: a's value (DIM) and, viscous, grad v (D2)
+  static constexpr int G = DIM + (VISC ? D2 : 0);
+  // the partials, the point's dN rows [ND DIM][DTILE], grad u [D2][DTILE]
+  // and the point's flux
+  static constexpr size_t REST =
+      (size_t)DTILE * (MT::SLOTS * G + S::NW + D2 + TileStage<DIM>::N);
+  static constexpr int stage_count() {
+    int n = VISC ? 3 : 2;
+    while (n > 0 && sizeof(float) * (REST + (size_t)DTILE * n * S::NW) > BLOCK_SMEM_MAX) --n;
+    return n;
+  }
+  static constexpr int STAGED = stage_count();
+  static constexpr size_t BYTES = sizeof(float) * (REST + (size_t)DTILE * STAGED * S::NW);
+  static_assert(BYTES <= BLOCK_SMEM_MAX, "the point's rows and the partials exceed a block");
+};
+
+template <class Mat, class Store, class S, bool TANGENT, bool VISC, typename CT>
+__global__ void __launch_bounds__(MatvecTile<S>::THREADS, MatvecTile<S>::MIN_BLOCKS)
+    dense_residual_tile_kernel(Mat mat, const float* __restrict__ u_el,
+                               const float* __restrict__ a_el, const float* __restrict__ v_el,
+                               const float* __restrict__ dN, const float* __restrict__ N,
+                               const float* __restrict__ wq, float* __restrict__ out,
+                               CT* __restrict__ cout, float rho, float mu_v, long long E) {
+  using T = TileStage<S::DIM>;
+  using RT = ResidualTile<S, VISC>;
+  constexpr int DIM = S::DIM, ND = S::ND, NW = S::NW, NQ = S::NQ, D2 = RT::D2, G = RT::G;
+  constexpr int SLOTS = MatvecTile<S>::SLOTS, OWN = MatvecTile<S>::OWN, NF = RT::STAGED;
+  // staged[NF][NW][DTILE], part[SLOTS][G][DTILE], rows[NW][DTILE],
+  // gu[D2][DTILE], st[T::N][DTILE]
+  MIMI_DYNAMIC_SHARED(float, smem);
+  float(*staged)[NW][DTILE] = reinterpret_cast<float(*)[NW][DTILE]>(smem);
+  float(*part)[G][DTILE] = reinterpret_cast<float(*)[G][DTILE]>(smem + NF * NW * DTILE);
+  float(*rows)[DTILE] = reinterpret_cast<float(*)[DTILE]>(smem + (NF * NW + SLOTS * G) * DTILE);
+  float(*gu)[DTILE] = rows + NW;
+  float(*st)[DTILE] = gu + D2;
+  const int lane = threadIdx.x % DTILE, slot = threadIdx.x / DTILE;
+  const long long e = (long long)blockIdx.x * DTILE + lane;
+  const bool live = e < E;  // the last tile is ragged where E % DTILE != 0
+  const float* const fields[3] = {u_el, a_el, v_el};
+  for (int r = slot; r < NW; r += SLOTS + 1)
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+      staged[f][r][lane] = live ? __ldg(fields[f] + (long long)r * E + e) : 0.f;
+  __syncthreads();
+  // value k of field f of the lane's element, staged or from device memory
+  const auto field = [=](int f, int k) {
+    return f < NF ? staged[f][k][lane] : live ? __ldg(fields[f] + (long long)k * E + e) : 0.f;
+  };
+  // the entries c = g DIM + f, c = slot (mod SLOTS + 1), of grad u at the
+  // point whose dN rows are in `rows`: sum_n dN[n][f] u[g][n] in n order
+  // without FMA (grad_q_of's operations, so F is the plain version's)
+  const auto gradient = [&]() {
+#pragma unroll 1
+    for (int c = slot; c < D2; c += SLOTS + 1) {
+      const int g = c / DIM, f = c % DIM;
+      float x = 0.f;
+#pragma unroll 8
+      for (int n = 0; n < ND; ++n) x = add(x, mul(rows[n * DIM + f][lane], field(0, g * ND + n)));
+      gu[c][lane] = x;
+    }
+  };
+  const long long QE = (long long)NQ * E;
+  if (slot == SLOTS) {  // the flux warp: three barriers a point, as the owners
+#pragma unroll 1
+    for (int q = 0; q < NQ; ++q) {
+      __syncthreads();  // the owners wrote the point's rows
+      gradient();
+      __syncthreads();  // grad u and the partials are written
+      if (live) {
+        const long long qe = (long long)q * E + e, QEq = opaque(QE);
+        float F[DIM][DIM], av[DIM], dV[DIM][DIM];
+#pragma unroll
+        for (int k = 0; k < D2; ++k) F[k / DIM][k % DIM] = gu[k][lane];
+#pragma unroll
+        for (int i = 0; i < DIM; ++i) F[i][i] = add(F[i][i], 1.f);
+#pragma unroll
+        for (int k = 0; k < G; ++k) {
+          float s = part[0][k][lane];
+#pragma unroll
+          for (int p = 1; p < SLOTS; ++p) s = add(s, part[p][k][lane]);
+          if (k < DIM)
+            av[k] = s;
+          else
+            dV[(k - DIM) / DIM][(k - DIM) % DIM] = s;
+        }
+        float X[DIM][DIM];
+        typename Mat::Point pt;
+        mat.template eval<TANGENT>(F, qe, QEq, X, pt);
+        if (TANGENT) Store::store(cout, qe, QEq, mat, pt);
+#pragma unroll
+        for (int c = 0; c < DIM; ++c) {
+#pragma unroll
+          for (int d = 0; d < DIM; ++d)  // P + mu_v dV, in the plain version's order
+            st[c * DIM + d][lane] = VISC ? add(X[c][d], mul(mu_v, dV[c][d])) : X[c][d];
+          st[T::M + c][lane] = rho * av[c];
+        }
+        st[T::W][lane] = __ldg(wq + qe);
+      }
+      __syncthreads();
+    }
+    return;
+  }
+  // the owners
+  float acc[OWN][DIM];
+#pragma unroll
+  for (int j = 0; j < OWN; ++j)
+#pragma unroll
+    for (int c = 0; c < DIM; ++c) acc[j][c] = 0.f;
+#pragma unroll 1
+  for (int q = 0; q < NQ; ++q) {
+    // this thread's nodes' tables at q, loaded once (the row addresses
+    // formed here, from an opaque QE, as the tiled matvec's), the dN rows
+    // also into shared memory for the gradient
+    const long long qe = (long long)q * E + e, QEq = opaque(QE);
+    float d[OWN][DIM], nv[OWN];
+#pragma unroll
+    for (int j = 0; j < OWN; ++j) {
+      const int n = slot + SLOTS * j;
+      const bool own = live && n < ND;
+#pragma unroll
+      for (int f = 0; f < DIM; ++f)
+        d[j][f] = own ? __ldg(dN + (long long)(n * DIM + f) * QEq + qe) : 0.f;
+      nv[j] = own ? __ldg(N + (long long)n * QEq + qe) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < OWN; ++j)
+      if (slot + SLOTS * j < ND)
+#pragma unroll
+        for (int f = 0; f < DIM; ++f) rows[(slot + SLOTS * j) * DIM + f][lane] = d[j][f];
+    // this thread's share of a (and grad v), one component g at a time
+#pragma unroll
+    for (int g = 0; g < DIM; ++g) {
+      float gv[DIM] = {}, ga = 0.f;
+#pragma unroll
+      for (int j = 0; j < OWN; ++j) {
+        const int n = slot + SLOTS * j;
+        if (n < ND) {
+          ga = fmaf(nv[j], field(1, g * ND + n), ga);
+          if (VISC) {
+            const float vv = field(2, g * ND + n);
+#pragma unroll
+            for (int f = 0; f < DIM; ++f) gv[f] = fmaf(d[j][f], vv, gv[f]);
+          }
+        }
+      }
+      part[slot][g][lane] = ga;
+      if (VISC)
+#pragma unroll
+        for (int f = 0; f < DIM; ++f) part[slot][DIM + g * DIM + f][lane] = gv[f];
+    }
+    __syncthreads();  // the point's rows are in shared memory
+    gradient();
+    __syncthreads();  // the flux warp reads grad u and the partials
+    __syncthreads();  // and has written the point's flux
+    if (live) {  // the scatter for this thread's nodes, from the same registers
+      const float wqv = st[T::W][lane];
+#pragma unroll
+      for (int j = 0; j < OWN; ++j) {
+        if (slot + SLOTS * j < ND) {
+#pragma unroll
+          for (int c = 0; c < DIM; ++c) {
+            float x = d[j][0] * st[c * DIM][lane];
+#pragma unroll
+            for (int f = 1; f < DIM; ++f) x = fmaf(d[j][f], st[c * DIM + f][lane], x);
+            x = fmaf(nv[j], st[T::M + c][lane], x);
+            acc[j][c] = fmaf(wqv, x, acc[j][c]);
+          }
+        }
+      }
+    }
+    // no fourth barrier: the next point writes `rows` and `part` after
+    // their readers passed the barriers above, and the flux warp writes
+    // `st` after the next point's second barrier, which every owner
+    // reaches after its scatter
+  }
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < OWN; ++j) {
+      const int n = slot + SLOTS * j;
+      if (n < ND)
+#pragma unroll
+        for (int c = 0; c < DIM; ++c) out[(long long)(c * ND + n) * E + e] = acc[j][c];
+    }
+  }
+}
+
+// ---- dense_slot_kernel: one thread per (element, point slot) -------------------
+//
+// The residual and the assemble of J2Simo and J2Log at every dense shape,
+// and of J2 in 2D and on the tiled shapes.  One thread per element ran
+// the J2Log body 10 times a point with the element's DIM ND output sums
+// live (81 floats in 3D), at 255 registers with 560-648 B spilled and 8
+// warps an SM, and the golden J2 cantilever's return map (up to 40 trips a
+// point) on 262,144 threads at 512^2.  Here a block takes DTILE = 32
+// consecutive elements, one per lane (every table, state and plane access
+// of a warp is one 128-byte line), in SLOTS warps (4; 8 past 64 dofs).
+// The tile's u and a (and v, viscous) are staged in shared memory as
+// [DIM ND][DTILE].  The NQ points run in rounds of SLOTS: warp s runs the
+// float pass of point q0 + s (F with grad_q_of's operations, mu_v grad v,
+// the material, rho a) and hands the point's flux X, m and w det J to
+// shared memory; a material whose tangent is closed form (J2, J2Linear:
+// the Cauchy block, or its columns for the full one) stores the point's
+// block there, in the float pass; a material whose tangent is
+// forward-mode passes (dealt_tangent: J2Simo, J2Log, finite.cuh) hands its
+// F and return map (FinitePoint) to shared memory instead.  After a
+// barrier each thread adds the round's points, in q order, to the sums of
+// the nodes n = s + SLOTS j it owns, with scatter_q's operations; the sums
+// are in registers for the round's scatter only and in shared memory
+// between rounds, so that none is live across a tangent pass.  The
+// assemble of a dealt material then deals the round's SLOTS x DIM^2
+// (point, column b) items over the block's warps: a thread runs one
+// forward-mode pass at a time from the point's FinitePoint
+// (FiniteMat::column) and stores column b's DIM^2 planes
+// (a DIM^2 + b) QE + qe, one line a warp each.  F, P, the sums' order and
+// the planes are the one-thread kernel's (dense_residual_kernel above), so
+// the outputs equal its outputs to the bit, under each source's own flags
+// (ops/build.py: the finite-strain source without FMA).  Shared memory of
+// J2Log's assemble: 44.3 KB a block at (3, 27, 64), 54.6 KB viscous (v
+// staged and mu_v grad v formed before the material: read from device
+// memory after it, its loads spilled 0.8-1.8 KB at 128 registers), 19.5 KB
+// at (2, 16, 25), 14.8 KB at (2, 9, 16).  Where all of u, a and v would
+// pass the 227 KB a block may have (3D from p = 5: 256-268 KB at
+// (3, 216, 343)), the fields are staged in that order while they fit and
+// the rest read from device memory, one line a warp (SlotTile::staged).
+
+// whether a material's tangent is dealt over the warps as forward-mode
+// (point, column) passes after the round's float passes (kDealtTangent:
+// finite.cuh FiniteMat), rather than stored in the float pass
+template <class Mat, class = void>
+struct dealt_tangent : std::false_type {};
+template <class Mat>
+struct dealt_tangent<Mat, std::void_t<decltype(Mat::kDealtTangent)>>
+    : std::integral_constant<bool, Mat::kDealtTangent> {};
+
+template <class S>
+struct SlotTile {
+  static constexpr int DIM = S::DIM, D2 = DIM * DIM, SLOTS = S::SLOTS;
+  static constexpr int OWN_NODES = (S::ND + SLOTS - 1) / SLOTS;
+  static constexpr int SUMS = DIM * OWN_NODES;  // a thread's output sums
+  static constexpr int PT = D2 + 3;             // a point's F, d*, r'(d*), flags
+  static constexpr int THREADS = DTILE * SLOTS;
+  // floats of a block's shared memory beside the staged fields: the
+  // round's fluxes; the owners' sums; with dealt tangent passes, the
+  // round's points
+  __host__ __device__ static constexpr size_t rest(bool dealt) {
+    return (size_t)DTILE * SLOTS * (TileStage<DIM>::N + SUMS + (dealt ? PT : 0));
+  }
+  // the fields staged in shared memory: u, a (and v, viscous), as many of
+  // them as fit in a block's shared memory
+  __host__ __device__ static constexpr int staged(bool dealt, bool visc) {
+    int n = visc ? 3 : 2;
+    while (n > 0 && sizeof(float) * (rest(dealt) + (size_t)DTILE * n * S::NW) > BLOCK_SMEM_MAX)
+      --n;
+    return n;
+  }
+  __host__ __device__ static constexpr size_t bytes(bool dealt, bool visc) {
+    return sizeof(float) * (rest(dealt) + (size_t)DTILE * staged(dealt, visc) * S::NW);
+  }
+  // blocks an SM (__launch_bounds__): the assemble and the 3D residual
+  // four (16 warps, 128 registers a thread), the 2D residual eight (32
+  // warps, 64 registers: at four J2Simo's ran 0.82-0.96x the one-thread
+  // kernel at 512^2, PERF.md), each at most as many as the SM's 228 KB of
+  // shared memory holds
+  static constexpr int blocks(bool tangent, bool dealt, bool visc) {
+    const int want = tangent || DIM == 3 ? 4 : 8;
+    const size_t fit = 228 * 1024 / (bytes(dealt, visc) + 1024);
+    return fit >= (size_t)want ? want : fit < 1 ? 1 : (int)fit;
+  }
+};
+
+template <class Mat, class Store, class S, bool TANGENT, bool VISC, typename CT>
+__global__ void __launch_bounds__(SlotTile<S>::THREADS,
+                                  SlotTile<S>::blocks(TANGENT,
+                                                      TANGENT && dealt_tangent<Mat>::value, VISC))
+    dense_slot_kernel(Mat mat, const float* __restrict__ u_el, const float* __restrict__ a_el,
+                      const float* __restrict__ v_el, const float* __restrict__ dN,
+                      const float* __restrict__ N, const float* __restrict__ wq,
+                      float* __restrict__ out, CT* __restrict__ cout, float rho, float mu_v,
+                      long long E) {
+  if (!launch_runs(mat)) return;  // J2Log's deep launch where no point needs it
+  using FT = SlotTile<S>;
+  using T = TileStage<S::DIM>;
+  constexpr bool DEALT = TANGENT && dealt_tangent<Mat>::value;
+  constexpr int DIM = S::DIM, ND = S::ND, NW = S::NW, NQ = S::NQ, D2 = FT::D2;
+  constexpr int SLOTS = FT::SLOTS, SUMS = FT::SUMS, PT = FT::PT;
+  constexpr int NF = FT::staged(DEALT, VISC);  // staged fields: u, a (, v)
+  static_assert(FT::bytes(DEALT, VISC) <= BLOCK_SMEM_MAX, "a block's shared memory");
+  // staged[NF][NW][DTILE], st[SLOTS][T::N][DTILE], sums[SLOTS][SUMS][DTILE],
+  // pts[SLOTS][PT][DTILE] (dealt tangent passes only)
+  MIMI_DYNAMIC_SHARED(float, smem);
+  float(*staged)[NW][DTILE] = reinterpret_cast<float(*)[NW][DTILE]>(smem);
+  float(*st)[T::N][DTILE] = reinterpret_cast<float(*)[T::N][DTILE]>(smem + NF * NW * DTILE);
+  float(*sums)[SUMS][DTILE] =
+      reinterpret_cast<float(*)[SUMS][DTILE]>(smem + (NF * NW + SLOTS * T::N) * DTILE);
+  float(*pts)[PT][DTILE] = reinterpret_cast<float(*)[PT][DTILE]>(
+      smem + (NF * NW + SLOTS * (T::N + SUMS)) * DTILE);
+  const int lane = threadIdx.x % DTILE, slot = threadIdx.x / DTILE;
+  const long long e = (long long)blockIdx.x * DTILE + lane;
+  const bool live = e < E;  // the last tile is ragged where E % DTILE != 0
+  const float* const fields[3] = {u_el, a_el, v_el};
+  // entry k of field f (0 u, 1 a, 2 v) of this thread's element, staged
+  // or from device memory
+  auto field = [=](int f, int k) {
+    return f < NF ? staged[f][k][lane] : __ldg(fields[f] + (long long)k * E + e);
+  };
+  for (int r = slot; r < NW; r += SLOTS)
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+      staged[f][r][lane] = live ? __ldg(fields[f] + (long long)r * E + e) : 0.f;
+#pragma unroll
+  for (int k = 0; k < SUMS; ++k) sums[slot][k][lane] = 0.f;
+  __syncthreads();
+  const long long QE = (long long)NQ * E;
+#pragma unroll 1
+  for (int q0 = 0; q0 < NQ; q0 += SLOTS) {
+    const int left = NQ - q0 < SLOTS ? NQ - q0 : SLOTS;  // the round's points
+    if (live && slot < left) {  // the float pass of point q0 + slot
+      const long long qe = (long long)(q0 + slot) * E + e;
+      float F[DIM][DIM], X[DIM][DIM];
+      grad_q_of<DIM, ND>(dN, [=](int k) { return field(0, k); }, qe, QE, F);
+#pragma unroll
+      for (int i = 0; i < DIM; ++i) F[i][i] = add(F[i][i], 1.f);
+      if (VISC) {  // mu_v dV, into the flux slots: added to P below
+        float dV[DIM][DIM];
+        grad_q_of<DIM, ND>(dN, [=](int k) { return field(2, k); }, qe, QE, dV);
+#pragma unroll
+        for (int c = 0; c < DIM; ++c)
+#pragma unroll
+          for (int d = 0; d < DIM; ++d) st[slot][c * DIM + d][lane] = mul(mu_v, dV[c][d]);
+      }
+      {
+        typename Mat::Point pt;
+        mat.template eval<TANGENT>(F, qe, QE, X, pt);
+        if constexpr (DEALT) {
+          float(*p)[DTILE] = pts[slot];
+#pragma unroll
+          for (int k = 0; k < D2; ++k) p[k][lane] = pt.F[k / DIM][k % DIM];
+          p[D2][lane] = pt.rm.dstar;
+          p[D2 + 1][lane] = pt.rm.fprime;
+          p[D2 + 2][lane] = (float)((pt.rm.active ? 1 : 0) + (pt.rm.log_bad ? 2 : 0));
+        } else if constexpr (TANGENT) {
+          Store::store(cout, qe, QE, mat, pt);
+        }
+      }
+      float av[DIM];
+      value_q_of<DIM, ND>(N, [=](int k) { return field(1, k); }, qe, QE, av);
+#pragma unroll
+      for (int c = 0; c < DIM; ++c) {
+#pragma unroll
+        for (int d = 0; d < DIM; ++d)  // P + mu_v dV, in the plain version's order
+          st[slot][c * DIM + d][lane] =
+              VISC ? add(X[c][d], st[slot][c * DIM + d][lane]) : X[c][d];
+        st[slot][T::M + c][lane] = rho * av[c];
+      }
+      st[slot][T::W][lane] = __ldg(wq + qe);
+    }
+    __syncthreads();
+    if (live) {
+      // the round's points, in q order, into this thread's nodes' sums
+      // (scatter_q's operations for node n), held in registers for the
+      // round only: each point's flux is read from shared memory once
+      float acc[FT::OWN_NODES][DIM];
+#pragma unroll
+      for (int j = 0; j < FT::OWN_NODES; ++j)
+#pragma unroll
+        for (int c = 0; c < DIM; ++c)
+          acc[j][c] = slot + SLOTS * j < ND ? sums[slot][j * DIM + c][lane] : 0.f;
+#pragma unroll 1
+      for (int s = 0; s < left; ++s) {
+        const long long qe = (long long)(q0 + s) * E + e;
+        const float(*p)[DTILE] = st[s];
+        float X[DIM][DIM], m[DIM];
+#pragma unroll
+        for (int c = 0; c < DIM; ++c) {
+#pragma unroll
+          for (int d = 0; d < DIM; ++d) X[c][d] = p[c * DIM + d][lane];
+          m[c] = p[T::M + c][lane];
+        }
+        const float wqv = p[T::W][lane];
+#pragma unroll
+        for (int j = 0; j < FT::OWN_NODES; ++j) {
+          const int n = slot + SLOTS * j;
+          if (n < ND) {
+            float d[DIM];
+#pragma unroll
+            for (int f = 0; f < DIM; ++f) d[f] = __ldg(dN + (long long)(n * DIM + f) * QE + qe);
+            const float Nn = __ldg(N + (long long)n * QE + qe);
+#pragma unroll
+            for (int c = 0; c < DIM; ++c) {
+              float x = d[0] * X[c][0];
+#pragma unroll
+              for (int f = 1; f < DIM; ++f) x += d[f] * X[c][f];
+              x += Nn * m[c];
+              acc[j][c] += wqv * x;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < FT::OWN_NODES; ++j)
+        if (slot + SLOTS * j < ND)
+#pragma unroll
+          for (int c = 0; c < DIM; ++c) sums[slot][j * DIM + c][lane] = acc[j][c];
+      if constexpr (DEALT) {  // the round's (point, column) items, dealt over the warps
+#pragma unroll 1
+        for (int i = slot; i < left * D2; i += SLOTS) {
+          const int s = i / D2, b = i % D2;
+          const long long qe = (long long)(q0 + s) * E + e;
+          const float(*p)[DTILE] = pts[s];
+          typename Mat::Point pt;
+#pragma unroll
+          for (int k = 0; k < D2; ++k) pt.F[k / DIM][k % DIM] = p[k][lane];
+          pt.rm.dstar = p[D2][lane];
+          pt.rm.fprime = p[D2 + 1][lane];
+          const int flags = (int)p[D2 + 2][lane];
+          pt.rm.active = flags & 1;
+          pt.rm.log_bad = flags & 2;
+          float col[D2];
+          mat.column(pt, qe, QE, b, col);
+#pragma unroll
+          for (int a = 0; a < D2; ++a) store_c(cout + (long long)(a * D2 + b) * QE + qe, col[a]);
+        }
+      }
+    }
+    __syncthreads();  // the round's points are read before the next overwrites them
+  }
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < FT::OWN_NODES; ++j) {
+      const int n = slot + SLOTS * j;
+      if (n < ND)
+#pragma unroll
+        for (int c = 0; c < DIM; ++c)
+          out[(long long)(c * ND + n) * E + e] = sums[slot][j * DIM + c][lane];
+    }
+  }
+}
+
+// dense_slot_kernel on the material `mat` (the block in CT, deduced from
+// cout; v_el == nullptr inviscid)
+template <class Store, class S, bool TANGENT, bool VISC, class Mat, typename CT>
+int launch_dense_slot(const Mat& mat, const float* u_el, const float* a_el, const float* v_el,
+                      const float* dN, const float* N, const float* wq, float* out, CT* cout,
+                      float rho, float mu_v, long long E, void* stream) {
+  using FT = SlotTile<S>;
+  constexpr size_t smem = FT::bytes(TANGENT && dealt_tangent<Mat>::value, VISC);
+  const unsigned tiles = (unsigned)((E + DTILE - 1) / DTILE);
+  if (const int err =
+          allow_dynamic_smem<dense_slot_kernel<Mat, Store, S, TANGENT, VISC, CT>>(smem))
+    return err;
+  dense_slot_kernel<Mat, Store, S, TANGENT, VISC, CT>
+      <<<tiles, FT::THREADS, smem, (cudaStream_t)stream>>>(mat, u_el, a_el, v_el, dN, N, wq, out,
+                                                           cout, rho, mu_v, E);
+  return (int)cudaGetLastError();
+}
+
+// The residual (and, TANGENT, the assemble) of `mat`, the block in CT
+// (deduced from cout), the tables in float32: dense_residual_tile_kernel
+// on the tiled shapes, else the one thread per element of
+// dense_residual_kernel (the hyperelastic materials, J2Linear and 3D J2:
+// on point slots the hyperelastic ones ran 0.75-0.81x at the golden twin's
+// 512^2 and the 3D cell, sweeps_dense_j2.cu J2Slots says J2's and
+// J2Linear's)
 template <class Mat, class Store, class S, bool TANGENT, bool VISC = false, typename CT>
 int launch_dense_residual(const float* u_el, const float* a_el, const float* dN,
                           const float* N, const float* wq, float* out, CT* cout,
                           const Mat& mat, float rho, long long E, void* stream,
                           const float* v_el = nullptr, float mu_v = 0.f) {
   if constexpr (S::TILED) {
-    const ResidualPoint<Mat, Store, S, TANGENT, VISC, CT> point{
-        mat, cout, v_el, dN, N, rho, mu_v};
-    return launch_dense_tile<S, 2>(point, u_el, a_el, dN, N, wq, out, E, stream);
+    constexpr size_t smem = ResidualTile<S, VISC>::BYTES;
+    if (const int err = allow_dynamic_smem<
+            dense_residual_tile_kernel<Mat, Store, S, TANGENT, VISC, CT>>(smem))
+      return err;
+    const unsigned tiles = (unsigned)((E + DTILE - 1) / DTILE);
+    dense_residual_tile_kernel<Mat, Store, S, TANGENT, VISC, CT>
+        <<<tiles, MatvecTile<S>::THREADS, smem, (cudaStream_t)stream>>>(
+            mat, u_el, a_el, v_el, dN, N, wq, out, cout, rho, mu_v, E);
+    return (int)cudaGetLastError();
   } else {
     constexpr size_t smem = 2 * sizeof(float) * S::NW * BLOCK;
     if (const int err =

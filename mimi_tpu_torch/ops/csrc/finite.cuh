@@ -198,6 +198,9 @@ struct FinitePoint {
 template <class M, int DIM>
 struct FiniteMat {
   static constexpr int D2 = DIM * DIM;
+  // the assemble deals the DIM^2 passes of a round's points over the
+  // kernel's warps (dense_common.cuh dense_slot_kernel)
+  static constexpr bool kDealtTangent = true;
   using Point = FinitePoint<DIM>;
   template <bool TANGENT>
   __device__ __forceinline__ void eval(const float F[DIM][DIM], long long qe, long long QE,

@@ -167,44 +167,38 @@ __global__ void __launch_bounds__(BLOCK)
 
 // ---- the points of dense_tile_kernel (S::TILED) ----------------------------------
 
-// the residual's point: F from u (s0), P; no mass term
+// the residual's point: F from u (s0), P
 template <class S>
 struct NhResidualPoint {
-  static constexpr bool MASS = false;
   static constexpr int DIM = S::DIM;
   NeoHookean<DIM> mat;
   const float* dN;
   template <class F1>
   __device__ __forceinline__ void operator()(const float (*s0)[DTILE], const F1&, int lane,
-                                             long long, long long, long long qe, long long QE,
-                                             float X[DIM][DIM], float m[DIM]) const {
+                                             long long qe, long long QE,
+                                             float X[DIM][DIM]) const {
     float G[DIM][DIM], F[DIM][DIM];
     grad_q_of<DIM, S::ND>(dN, [=](int k) { return s0[k][lane]; }, qe, QE, G);
     deformation_gradient<DIM>(G, F);
     mat.pk1(F, X);
-#pragma unroll
-    for (int c = 0; c < DIM; ++c) m[c] = 0.f;
   }
 };
 
-// the tangent apply's point: F from u (s0), dF from w (f1), dP; no mass term
+// the tangent apply's point: F from u (s0), dF from w (f1), dP
 template <class S>
 struct NhTangentPoint {
-  static constexpr bool MASS = false;
   static constexpr int DIM = S::DIM;
   NeoHookean<DIM> mat;
   const float* dN;
   template <class F1>
   __device__ __forceinline__ void operator()(const float (*s0)[DTILE], const F1& f1, int lane,
-                                             long long, long long, long long qe, long long QE,
-                                             float X[DIM][DIM], float m[DIM]) const {
+                                             long long qe, long long QE,
+                                             float X[DIM][DIM]) const {
     float G[DIM][DIM], F[DIM][DIM], dF[DIM][DIM];
     grad_q_of<DIM, S::ND>(dN, [=](int k) { return s0[k][lane]; }, qe, QE, G);
     deformation_gradient<DIM>(G, F);
     grad_q_of<DIM, S::ND>(dN, f1, qe, QE, dF);
     tangent_apply<DIM>(mat, F, dF, X);
-#pragma unroll
-    for (int c = 0; c < DIM; ++c) m[c] = 0.f;
   }
 };
 
@@ -213,8 +207,7 @@ int launch_residual(const float* u_el, const float* dN, const float* wq, float* 
                     const NeoHookean<S::DIM>& mat, long long E, void* stream) {
   if constexpr (S::TILED) {
     const NhResidualPoint<S> point{mat, dN};
-    return launch_dense_tile<S, 1, float>(point, u_el, nullptr, dN, nullptr, wq, out, E,
-                                          stream);
+    return launch_dense_tile<S, 1>(point, u_el, nullptr, dN, wq, out, E, stream);
   } else {
     constexpr size_t smem = sizeof(float) * S::NW * BLOCK;
     if (const int err = allow_dynamic_smem<nh_residual_kernel<S>>(smem)) return err;
@@ -230,7 +223,7 @@ int launch_tangent_apply(const float* u_el, const float* w_el, const float* dN,
                          long long E, void* stream) {
   if constexpr (S::TILED) {
     const NhTangentPoint<S> point{mat, dN};
-    return launch_dense_tile<S, 2, float>(point, u_el, w_el, dN, nullptr, wq, out, E, stream);
+    return launch_dense_tile<S, 2>(point, u_el, w_el, dN, wq, out, E, stream);
   } else {
     constexpr size_t smem = 2 * sizeof(float) * S::NW * BLOCK;
     if (const int err = allow_dynamic_smem<nh_tangent_apply_kernel<S>>(smem)) return err;

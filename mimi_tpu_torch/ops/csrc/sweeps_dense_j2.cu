@@ -10,8 +10,16 @@
 // each inviscid or viscous (VISC, as sweeps_dense.cu says),
 // on the kernel templates of dense_common.cuh (design notes at the head of
 // sweeps_dense.cu), at the shape of the build (any (DIM, ND, NQ)).  The
-// plain torch versions are residual_dense_plain, assemble_dense_plain and
-// matvec_dense_plain with the J2 or J2Linear material (ops/sweeps.py).
+// residual and the assemble of J2 take dense_slot_kernel in 2D and past 27
+// dofs in 3D (one thread per element and point slot, J2Simo's and J2Log's
+// kernel: at the golden cantilever's 512^2 the return map, up to 40 trips
+// a point, runs on four times the threads of one thread per element; the
+// closed-form block is stored in the float pass), J2Linear's
+// dense_residual_tile_kernel past 27 / 16 dofs (owners of 8 nodes and a
+// flux warp), each the one-thread kernel below that (J2Slots says why).
+// The plain torch versions are residual_dense_plain,
+// assemble_dense_plain and matvec_dense_plain with the J2 or J2Linear
+// material (ops/sweeps.py).
 //
 // The point bodies are j2.cuh's: J2's radial return on the point's state
 // (plastic strain (DIM, DIM, NQ, E), eqps and temperature (NQ, E), read
@@ -30,10 +38,10 @@
 // (up to 40 safeguarded Newton-bisection trips with powf / logf, the
 // reference kernels' cap).
 //
-// Rounding: F is formed without FMA in the plain version's order
-// (dense_common.cuh grad_q), and P = J sigma F^-T from sigma with the
-// single-rounding 2 x 2 / 3 x 3 algebra of materials.cuh, as the plain
-// version's _pk1_from_cauchy_soa.
+// Rounding: on point slots F is formed without FMA in the plain version's
+// order (dense_common.cuh grad_q_of), on the tiled shapes summed by owner
+// slot; P = J sigma F^-T from sigma with the single-rounding 2 x 2 / 3 x 3
+// algebra of materials.cuh, as the plain version's _pk1_from_cauchy_soa.
 //
 // bfloat16 (sweeps_dense_j2_bf16.cu, MIMI_DENSE_BF16):
 // mimi_assemble_dense_j2_bf16 stores the Cauchy (or full) block rounded to
@@ -97,6 +105,22 @@ struct DenseJ2 {
   }
 };
 
+// Whether the residual and assemble of J2 (LINEAR false) or J2Linear at a
+// shape of DIM, tiled or not (DenseShape::TILED), take dense_slot_kernel (one thread per element and point slot)
+// rather than launch_dense_residual's kernels (one thread per element up
+// to 27 dofs in 3D and 16 in 2D, the owners and the flux warp past that).
+// J2's return map (up to 40 trips a point) runs on point slots in 2D and on
+// the tiled shapes: at the golden cantilever's 512^2 2.2x the one-thread
+// kernel, and on one flux warp a block the tiled shapes' plastic points
+// ran at 0.6x the point slots they replaced; in 3D up to 27 dofs the
+// driven states are elastic, where the slots' barriers cost more than the
+// threads gain (path J, the 3D cell: 0.77-0.82x).  J2Linear's return is
+// closed form: one thread per element up to 27 / 16 dofs (0.72-0.83x on
+// point slots at path D's (2, 16, 25)), the owners past that
+// (scripts/ab_dense_sweeps.py --part residual, PERF.md).
+template <int DIM, bool TILED, bool LINEAR>
+struct J2Slots : std::integral_constant<bool, !LINEAR && (TILED || DIM == 2)> {};
+
 // the residual (TANGENT false) or assemble kernel of J2 (material 0) or
 // J2Linear (material 1) at (dim, nd, nq), inviscid or viscous, with the Cauchy
 // block or (full) the DIM^4 planes of dP/dF
@@ -111,16 +135,23 @@ int j2_entry(const float* u_el, const float* a_el, const float* v_el, const floa
   return with_dense_shape(dim, nd, nq, [&](auto shape) {
     using S = decltype(shape);
     constexpr int DIM = S::DIM;
+    constexpr bool TILED = S::TILED;
     auto go = [&](auto linear, auto store) {
       constexpr bool LINEAR = decltype(linear)::value;
       using Mat = DenseJ2<DIM, LINEAR>;
       using Store = decltype(store);
       const Mat mat{p, ps, eqps, temp, beta};
-      if (v_el)
-        return launch_dense_residual<Mat, Store, S, TANGENT, true>(
-            u_el, a_el, dN, N, wq, out, cout, mat, p.rho, E, stream, v_el, mu_v);
-      return launch_dense_residual<Mat, Store, S, TANGENT, false>(
-          u_el, a_el, dN, N, wq, out, cout, mat, p.rho, E, stream, v_el, mu_v);
+      auto launch = [&](auto visc) -> int {
+        constexpr bool VISC = decltype(visc)::value;
+        if constexpr (J2Slots<DIM, TILED, LINEAR>::value)
+          return launch_dense_slot<Store, S, TANGENT, VISC>(mat, u_el, a_el, v_el, dN, N, wq,
+                                                            out, cout, p.rho, mu_v, E, stream);
+        else
+          return launch_dense_residual<Mat, Store, S, TANGENT, VISC>(
+              u_el, a_el, dN, N, wq, out, cout, mat, p.rho, E, stream, v_el, mu_v);
+      };
+      if (v_el) return launch(std::true_type{});
+      return launch(std::false_type{});
     };
     auto by_store = [&](auto linear) {
       if constexpr (TANGENT) {  // the residual writes no block

@@ -64,7 +64,7 @@ def wait(tag):
         print(out[-3000:]); raise SystemExit(f"nvcc {tag} failed")
     say(f"nvcc {tag}: {time.time() - t:.1f} s")
     for n, v in sorted(cs.ptxas_entries(out, NV).items()):
-        if "dense_finite_kernel" in n or "dense_residual_kernel" in n:
+        if any(k in n for k in ("dense_finite_kernel", "dense_slot_kernel", "dense_residual_kernel")):
             say(f"[ptxas {tag}] {n[:200]}: {v.get('registers')} registers, spill stores "
                 f"{v.get('spill_stores', 0)} B, loads {v.get('spill_loads', 0)} B, smem {v.get('smem')}")
     return obj

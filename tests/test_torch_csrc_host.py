@@ -27,12 +27,17 @@ not, float32 or bfloat16 block, at p = 2 and p = 3 on a ragged last tile,
 J2Simo's and J2Log's viscous and bfloat16
 full-storage kernels and the full block of J2, J2Linear and the
 hyperelastic materials, sf and dense, J2Simo's and J2Log's dense residual
-and assemble (dense_finite_kernel, one thread per element and point slot)
+and assemble (dense_slot_kernel, one thread per element and point slot)
 at the driven shapes on a ragged last tile, and J2Log's sf and dense
 sweeps on a batch with one point past the fast log series' range (one
 series decision a sweep), against their plain versions (the J2
 family's as the kernels' twin, the radial return at 40 trips:
-materials.kernel_solver_mode).  Skips where no g++ is found.
+materials.kernel_solver_mode).  The dense residual and assemble on
+point slots (dense_slot_kernel: J2, J2Linear and J2Simo at (2, 16, 25))
+are also held to the one-thread kernel built beside them, bit by bit, and
+the tiled ones on owners and a flux warp (dense_residual_tile_kernel) run
+at path I's and path L's shapes on a ragged last tile.  Skips where no
+g++ is found.
 """
 
 import concurrent.futures
@@ -1172,10 +1177,9 @@ FINITE_TILE_CASES = [(key, name, visc, bf16) for key in FINITE_TILE_KEYS
 
 
 def _finite_tile_problem(key, mat, n=40):
-    """The first n elements of dense tables at `key`: the two-patch cube at
-    p = 2 or p = 5 (2 x 3^3 elements) or the golden cantilever's mesh at
-    p = 3 or p = 2 (8^2 elements); 40 = one tile of 32 and a ragged one of
-    8."""
+    """The first n elements of dense tables at `key`: the two-patch cube
+    (2 x 3^3 elements) or the golden cantilever's mesh (8^2 elements) at
+    the key's degree; 40 = one tile of 32 and a ragged one of 8."""
     dim, nd, _ = key
     if dim == 3:
         elevate = round(nd ** (1 / 3)) - 2
@@ -1195,7 +1199,7 @@ def _finite_tile_problem(key, mat, n=40):
          for k, n, v, b in FINITE_TILE_CASES])
 def test_dense_finite_point_slots_on_cpu_tensors(host_sweeps, key, name, visc, bf16):
     """J2Simo's and J2Log's dense residual and assemble of the host build
-    (dense_finite_kernel: one thread per element and point slot, the
+    (dense_slot_kernel: one thread per element and point slot, the
     tangent's columns dealt over the warps) at the driven shapes and 3D p = 5,
     inviscid and viscous, with a float32 or bfloat16 block, on 40 elements
     (a full tile and a ragged one) of a random plastic history of the
@@ -1325,3 +1329,208 @@ def test_finite_planes_at_a_subnormal_q_on_cpu_tensors(host_sweeps, name, kind):
     assert bool(torch.isfinite(C_p).all()) and bool(torch.isfinite(C).all())
     assert float((y - y_p).abs().max()) <= 1e-5 * float(y_p.abs().max())
     assert float((C - C_p).abs().max()) <= 1e-4 * float(C_p.abs().max())
+
+
+# dense_residual_kernel (one thread per element, the element's output sums
+# in registers) on the material of the included source, built beside that
+# source's point-slot kernels: the design dense_slot_kernel replaced, to
+# hold the point slots to it bit by bit
+ONE_THREAD = r"""
+#include <type_traits>
+#include "@SOURCE@"
+
+extern "C" int one_thread_sweep(const float* u_el, const float* a_el, const float* dN,
+                                const float* N, const float* wq, const float* s0,
+                                const float* s1, const float* s2, const float* s3, float* out,
+                                float* cout, int tangent, int full, J2Params p, int material,
+                                long long E) {
+  constexpr int DIM = Dense::DIM;
+  const auto go = [&](const auto& m, auto store) {
+    using Mat = std::decay_t<decltype(m)>;
+    using Store = decltype(store);
+    if (tangent)
+      return launch_dense_residual<Mat, Store, Dense, true>(u_el, a_el, dN, N, wq, out, cout, m,
+                                                            p.rho, E, nullptr);
+    return launch_dense_residual<Mat, Store, Dense, false>(u_el, a_el, dN, N, wq, out, cout, m,
+                                                           p.rho, E, nullptr);
+  };
+  @MATERIALS@
+}
+"""
+ONE_THREAD_MATERIALS = {
+    "sweeps_dense_j2.cu": """if (material == 0) {
+    const DenseJ2<DIM, false> m{p, s0, s1, s2, s3};
+    return full ? go(m, FullStorage<DIM>{}) : go(m, CauchyStorage<DIM>{});
+  }
+  const DenseJ2<DIM, true> m{p, s0, s1, s2, s3};
+  return full ? go(m, FullStorage<DIM>{}) : go(m, CauchyStorage<DIM>{});""",
+    "sweeps_dense_finite.cu": """J2SimoMat<DIM> m;
+  m.p = p;
+  m.be_old = s0;
+  m.F_old = s1;
+  m.eqps = s2;
+  m.temp = s3;
+  return go(m, FullStorage<DIM>{});""",
+}
+
+
+@pytest.fixture(scope="module")
+def one_thread(built):
+    """one_thread(source): the host build of ONE_THREAD on `source` at the
+    golden cantilever's (2, 16, 25)."""
+    dest, loaded = built[0], {}
+
+    def get(source):
+        if source not in loaded:
+            src = os.path.join(dest, f"one_thread_{source}.cpp")
+            with open(src, "w") as f:
+                f.write(ONE_THREAD.replace("@SOURCE@", source).replace(
+                    "@MATERIALS@", ONE_THREAD_MATERIALS[source]))
+            so = os.path.join(dest, f"one_thread_{source}.so")
+            r = subprocess.run(["g++", *CXX, *kbuild.defines("dense", (2, 16, 25)), "-shared",
+                                "-I", STUB, "-I", dest, "-o", so, src],
+                               capture_output=True, text=True)
+            assert r.returncode == 0, r.stdout + r.stderr
+            lib = ctypes.CDLL(so)
+            lib.one_thread_sweep.argtypes = ([ctypes.c_void_p] * 11
+                                             + [ctypes.c_int, ctypes.c_int, tsw._J2Params,
+                                                ctypes.c_int, ctypes.c_longlong])
+            lib.one_thread_sweep.restype = ctypes.c_int
+            loaded[source] = lib
+        return loaded[source]
+
+    return get
+
+
+def _plastic_share(mat, F, state):
+    """The share of points on the plastic branch of a J2-family material's
+    plain return map at F."""
+    if mat.name() == "J2Linear":
+        return float((mat._common_soa(F, state)[3] > 0).float().mean())
+    ret = mat._return_map(F, state, 0.05) if mat.name() == "J2" else mat._return_map_soa(
+        F, state, 0.05)
+    return float(ret[4].float().mean())
+
+
+SLOT_CASES = [("J2", None, "cauchy"), ("J2", None, "full"), ("J2", "pow", "cauchy"),
+              ("J2", "voce", "cauchy"), ("J2Simo", None, "full")]
+
+
+@pytest.mark.parametrize("name, law, storage", SLOT_CASES,
+                         ids=[f"{n}{'_' + law if law else ''}_{s}" for n, law, s in SLOT_CASES])
+def test_dense_point_slots_equal_the_one_thread_kernel_on_cpu_tensors(host_sweeps, one_thread,
+                                                                     name, law, storage):
+    """dense_slot_kernel's residual and assemble at the golden cantilever's
+    (2, 16, 25), on 40 elements (a full tile of 32 and a ragged one of 8) of
+    a random plastic history: J2 (Johnson-Cook, yield stress 5; PowerLaw;
+    Voce) with its Cauchy block and (Johnson-Cook) the full one, J2Simo (the
+    press's law) with the full one.  Against the plain versions at the
+    smoke's bars, and equal to the bit to the one-thread kernel
+    (dense_residual_kernel) on the same material: F, P, each node's sums in
+    q order and the planes are formed with the same operations, J2's
+    closed-form block stored in the float pass, J2Simo's columns dealt as
+    forward-mode passes over the warps.  So J2Simo's outputs are what the
+    point slots gave it before J2 joined the template, and J2's what one
+    thread per element gave it."""
+    if name == "J2Simo":
+        mat = _press_law(name, viscosity=-1.0)
+    elif law:
+        mat = _j2_family(name, law)
+    else:
+        mat = _material("J2")
+        mat.hardening.A = 5.0
+    prob = _finite_tile_problem((2, 16, 25), mat)
+    f = _plastic_inputs(prob, np.random.default_rng(21), 0.004)
+    u_el, a_el, _, _, state = f
+    dN, N, wq, E = prob.dense["dN_t"], prob.dense["N_t"], prob.wdet_t, prob.n_el
+    assert E == 40
+    share = _plastic_share(mat, soa.add_diag(tsw.dense_grad(u_el, dN), 1.0), state)
+    assert 0.05 < share, share
+    _hold_host_sweeps(host_sweeps, prob, f, False, False, matvec=False, storage=storage)
+    rho = float(mat.density)
+    args = (u_el, a_el, state, dN, N, wq, mat, 0.05, rho)
+    y = host_sweeps._dense_sweep(False, *args)
+    y_a, C = host_sweeps._dense_sweep(True, *args, storage=storage)
+    _, prm, mat_id, st = tsw._material_args(mat, state, 0.05, rho, 2, 25, E, torch.device("cpu"),
+                                            "dense")
+    lib = one_thread("sweeps_dense_finite.cu" if name == "J2Simo" else "sweeps_dense_j2.cu")
+    y1, y1_a, C1 = torch.empty_like(y), torch.empty_like(y_a), torch.empty_like(C)
+    head = (_ptr(u_el), _ptr(a_el), _ptr(dN), _ptr(N), _ptr(wq), *st)
+    full = int(storage == "full")
+    assert lib.one_thread_sweep(*head, _ptr(y1), _ptr(None), 0, full, prm, mat_id, E) == 0
+    assert lib.one_thread_sweep(*head, _ptr(y1_a), _ptr(C1), 1, full, prm, mat_id, E) == 0
+    assert torch.equal(y, y1) and torch.equal(y_a, y1_a) and torch.equal(C, C1)
+
+
+RESIDUAL_TILE_CASES = [(key, name, visc, bf16) for key in ((3, 64, 125), (2, 25, 36))
+                       for name, visc, bf16 in (("CompressibleOgdenNeoHookean", False, False),
+                                                ("CompressibleOgdenNeoHookean", True, True),
+                                                ("J2Linear", False, False),
+                                                ("J2Linear", True, False))]
+
+
+@pytest.mark.parametrize(
+    "key, name, visc, bf16", RESIDUAL_TILE_CASES,
+    ids=[f"{n}_{'_'.join(map(str, k))}{'_visc' if v else ''}{'_bf16' if b else ''}"
+         for k, n, v, b in RESIDUAL_TILE_CASES])
+def test_dense_residual_tile_on_cpu_tensors(host_sweeps, key, name, visc, bf16):
+    """dense_residual_tile_kernel (owner warps holding their nodes' dN and N
+    rows in registers from the gradient's partials to the scatter, a flux
+    warp running the material and storing the block) at path I's
+    (3, 64, 125) and path L's (2, 25, 36), on 40 elements (a full tile of
+    32 and a ragged one of 8): the neo-Hookean's symmetric block at strains
+    of a few percent, inviscid with a float32 block and viscous with a
+    bfloat16 one, and J2Linear's Cauchy block on a random plastic history
+    with a deviatoric back stress, inviscid and viscous, against the plain
+    versions (residuals at 1e-5 of scale, float32 planes at 1e-5 of their
+    max, bfloat16 ones within 2^-7)."""
+    mat = _j2_family(name) if name == "J2Linear" else _hyper(name)
+    prob = _finite_tile_problem(key, mat)
+    rng = np.random.default_rng(22)
+    if mat.has_state:
+        f = _plastic_inputs(prob, rng, 0.001 if key[0] == 2 else 0.0005)
+        share = _plastic_share(mat, soa.add_diag(tsw.dense_grad(f[0], prob.dense["dN_t"]), 1.0),
+                               f[4])
+        assert 0.05 < share < 0.95, share
+    else:
+        f = _hyper_inputs(prob, rng)
+    _hold_host_sweeps(host_sweeps, prob, f, visc, bf16, matvec=False)
+
+
+def test_dense_residual_tile_diagonal_near_identity_on_cpu_tensors(host_sweeps):
+    """dense_residual_tile_kernel's neo-Hookean residual at path L's
+    (2, 25, 36) on the golden cantilever's mesh at 32^2 (1,024 elements),
+    at element displacements of 1e-5 to 1e-2: within 1e-5 of the plain
+    version's max.  F = I + grad u, which P = mu (F - F^-T) + ... cancels
+    near F = I, is summed in n order without FMA as the plain version sums
+    it (every warp sums entries of grad u from the point's dN rows in
+    shared memory); summed by owner slot, a last bit of (grad u)_gg moved
+    F_gg by an ulp of 1, and the residual by 6.5e-5 of its max at 1e-2."""
+    mat = _hyper("CompressibleOgdenNeoHookean")
+    prob = mt.build_problem(BALKEN, 3, 5, mat, [(2, 0), (2, 1)], {}, rho_inf=0.5, device="cpu",
+                            dtype=torch.float32)
+    assert (prob.n_el, *prob.dense["dN_t"].shape[:1], prob.n_q) == (1024, 25, 36)
+    rng = np.random.default_rng(5)
+    for amplitude in (1e-5, 1e-4, 1e-3, 1e-2):
+        u_el, a_el = (torch.tensor(s * rng.standard_normal((2, 25, 1024)), dtype=torch.float32)
+                      for s in (amplitude, 1.0))
+        args = (u_el, a_el, None, prob.dense["dN_t"], prob.dense["N_t"], prob.wdet_t, mat, 0.05,
+                float(mat.density))
+        y, y_p = host_sweeps._dense_sweep(False, *args), host_sweeps.residual_dense_plain(*args)
+        assert float((y - y_p).abs().max()) <= 1e-5 * float(y_p.abs().max()), amplitude
+
+
+@pytest.mark.parametrize("dim, deg", DENSE_SHAPES, ids=[f"{d}d_p{p}" for d, p in DENSE_SHAPES])
+def test_dense_j2_residual_kernels_at_each_default_shape_on_cpu_tensors(host_sweeps, dim, deg):
+    """J2's residual and assemble at each shape of tests/torch_shapes.py
+    (dense_slot_kernel in 2D and at (3, 64, 125), the one-thread kernel at
+    (3, 27, 64)) launch within the host stub's limits (1024 threads and
+    227 KB of shared memory a block, as on the card) on 33 elements (a full
+    tile and one element more) of a random plastic history, and agree with
+    the plain versions at the smoke's bars."""
+    mat = _material("J2")
+    mat.hardening.A = 5.0
+    key = tsw.dense_key(dim, deg)
+    prob = _finite_tile_problem(key, mat, n=33)
+    f = _plastic_inputs(prob, np.random.default_rng(23), 0.004 if dim == 2 else 0.002)
+    _hold_host_sweeps(host_sweeps, prob, f, False, False, matvec=False)
