@@ -601,10 +601,12 @@ def dense_symbol(name):
     """The CUDA kernel template (file and name) that the launches of a dense
     residual or assemble counter run, as the launchers choose it at compile
     time by shape and material: J2Simo and J2Log on point slots at every
-    shape, J2 in 2D and past 27 dofs in 3D (sweeps_dense_j2.cu J2Slots);
-    past 27 dofs in 3D and 16 in 2D (DenseShape::TILED) the others on the
-    owners and the flux warp; below, one thread per element.  None for any
-    other counter."""
+    shape, J2 in 2D and past 27 dofs in 3D; 3D J2 up to 27 dofs, inviscid
+    with a float32 block, one thread per element with its rows copied ahead
+    into shared memory
+    (sweeps_dense_j2.cu j2_kernel); past 27 dofs in 3D and 16 in 2D
+    (DenseShape::TILED) the others on the owners and the flux warp; below,
+    one thread per element.  None for any other counter."""
     m = re.fullmatch(r"(residual|assemble)_dense(?:\[([^\]]*)\])?(@.*)?", name)
     if not m:
         return None
@@ -617,8 +619,11 @@ def dense_symbol(name):
         dim = int(d.group(1))
         nd = int(d.group(3)) if d.group(3) else (int(d.group(2)) + 1) ** dim
     tiled = nd > (16 if dim == 2 else 27)
+    flags = (m.group(2) or "").split(",")
     if tag in ("simo", "log") or (tag == "j2" and (tiled or dim == 2)):
         kernel = "dense_slot_kernel"
+    elif tag == "j2" and "visc" not in flags and "bf16" not in flags:
+        kernel = "dense_ring_kernel"
     else:
         kernel = "dense_residual_tile_kernel" if tiled else "dense_residual_kernel"
     return f"mimi_tpu_torch/ops/csrc/dense_common.cuh {kernel}"
@@ -682,10 +687,14 @@ def check_ptxas(kbuild, keys, label="2. ptxas"):
     J2LogMat: 9 dual-number passes per point) and the dense kernels with the
     full block, tiled (dense_residual_tile_kernel, dense_matvec_tile_kernel,
     the fused pair's dense_tile_kernel), on point slots (dense_slot_kernel)
-    or at a shape outside the defaults are printed, not held, but a tiled
-    matvec (dense_matvec_tile_kernel) fails where it spills, and so does a
+    or at a shape outside the defaults, 3D J2's one thread per element with
+    its rows copied ahead (dense_ring_kernel) and the fused tangent apply on
+    owners (nh_tangent_apply_tile_kernel, 3D) are printed, not held, but
+    a tiled matvec (dense_matvec_tile_kernel) or the fused tangent apply
+    fails where it spills, and so does a
     driven J2-family (DenseJ2) or hyperelastic (Hyper) instantiation of
-    dense_residual_tile_kernel or dense_slot_kernel (inviscid, its own
+    dense_residual_tile_kernel, dense_slot_kernel or dense_ring_kernel
+    (inviscid, its own
     block, at a shape of DRIVEN_DENSE); so is every bfloat16 dense
     instantiation (the `*_bf16.cu` sources), failing where one of their
     matvecs spills."""
@@ -725,10 +734,12 @@ def check_ptxas(kbuild, keys, label="2. ptxas"):
     for full_name, v in sorted(every.items()):
         name = re.sub(r"\((int|bool)\)", "", full_name.split("(const float")[0])
         tiled_matvec = "dense_matvec_tile_kernel" in name
-        tiled = "dense_tile_kernel" in name or tiled_matvec
+        apply = "nh_tangent_apply_tile_kernel" in name
+        tiled = "dense_tile_kernel" in name or tiled_matvec or apply
         # the residual and assemble on owners and a flux warp (tiled shapes)
         # or on point slots (J2Simo, J2Log; J2, J2Linear at the untiled ones)
-        residual = "dense_residual_tile_kernel" in name or "dense_slot_kernel" in name
+        residual = any(k in name for k in ("dense_residual_tile_kernel", "dense_slot_kernel",
+                                           "dense_ring_kernel"))
         if residual:
             name = re.sub(r"\((int|bool)\)", "", full_name.split(">(")[0] + ">")
         new = any(f"DenseShape<{d}, {n}, {q}>" in name for d, n, q in new_dense)
@@ -739,7 +750,7 @@ def check_ptxas(kbuild, keys, label="2. ptxas"):
                 f"spill stores {v.get('spill_stores')} B, loads {v.get('spill_loads')} B")
         if bf16 and (tiled_matvec or "dense_matvec_kernel" in name):
             bf16_matvecs += 1
-        if spilled and (tiled_matvec or (bf16 and "dense_matvec_kernel" in name)
+        if spilled and (tiled_matvec or apply or (bf16 and "dense_matvec_kernel" in name)
                         or (residual and driven_dense(name))):
             fail(f"{name} spills")
     if any(k[0] == "dense" for k in keys) and not bf16_matvecs:
@@ -776,7 +787,7 @@ def driven_dense(name):
     Mat, Store, Shape, TANGENT, VISC, CT, the casts cut) is a driven
     J2-family or hyperelastic instantiation: inviscid, its own block (not
     the full one), at a shape of DRIVEN_DENSE."""
-    for template in ("dense_residual_tile_kernel", "dense_slot_kernel"):
+    for template in ("dense_residual_tile_kernel", "dense_slot_kernel", "dense_ring_kernel"):
         args = template_args(name, template)
         if args and len(args) == 6:
             mat, store, shape, _, visc, _ = args

@@ -13,10 +13,13 @@
 // that (DenseShape::TILED) the launchers take the tiled kernels below
 // instead: the residual, assemble and matvec on owners of 8 nodes and a
 // flux warp (dense_residual_tile_kernel, dense_matvec_tile_kernel), the
-// fused neo-Hookean pair on point slots (dense_tile_kernel).  The
+// fused neo-Hookean residual (and the 2D tangent apply) on point slots
+// (dense_tile_kernel).  The
 // residual and assemble of J2Simo and J2Log at every shape, and of J2 in
 // 2D and on the tiled shapes, take dense_slot_kernel (one thread per
-// element and point slot; sweeps_dense_j2.cu J2Slots).  Each
+// element and point slot), 3D J2's up to 27 dofs, inviscid with a float32
+// block, dense_ring_kernel (one thread per element, its rows copied ahead
+// into shared memory; sweeps_dense_j2.cu j2_kernel).  Each
 // translation unit instantiates its kernels at the one shape its build defines
 // (MIMI_DENSE_DIM, MIMI_DENSE_ND, MIMI_DENSE_NQ: ops/build.py compiles the
 // dense sources once per shape the step asks for, each shape into a
@@ -59,6 +62,8 @@ struct same_type {
 };
 
 constexpr int BLOCK = 64;
+// elements of a dense_ring_kernel block
+constexpr int DTILE_RING = 32;
 
 using rn::add;
 using rn::mul;
@@ -91,14 +96,13 @@ __device__ __forceinline__ void stage(const float* __restrict__ g, float (*s)[BL
 
 // G[g][f] = sum_n dN[n][f](q) w(g ND + n), summed in n order without FMA
 // (as ops/sweeps.py dense_grad), so F agrees with the plain version to the
-// bit; `w(k)` returns value k of the element's field.  The loop over the
-// nodes is unrolled 5 at a time past 27 dofs (the tiled shapes, where the
-// sums are no per-node registers): fully unrolled at 125 it made each
-// (3, 125, 216) source take 62-129 s of nvcc, at 64 each (3, 64, 125) one
-// 25-53 s
-template <int DIM, int ND, typename TT, class W>
-__device__ __forceinline__ void grad_q_of(const TT* __restrict__ dN, const W& w,
-                                          long long qe, long long QE, float G[DIM][DIM]) {
+// bit; `row(k)` returns entry k = n DIM + f of the point's dN rows, `w(k)`
+// value k of the element's field.  The loop over the nodes is unrolled 5
+// at a time past 27 dofs (the tiled shapes, where the sums are no per-node
+// registers): fully unrolled at 125 it made each (3, 125, 216) source take
+// 62-129 s of nvcc, at 64 each (3, 64, 125) one 25-53 s
+template <int DIM, int ND, class R, class W>
+__device__ __forceinline__ void grad_rows(const R& row, const W& w, float G[DIM][DIM]) {
 #pragma unroll
   for (int g = 0; g < DIM; ++g)
 #pragma unroll
@@ -106,7 +110,7 @@ __device__ __forceinline__ void grad_q_of(const TT* __restrict__ dN, const W& w,
   const auto node = [&](int n) {
     float d[DIM];
 #pragma unroll
-    for (int f = 0; f < DIM; ++f) d[f] = load_c(dN + (long long)(n * DIM + f) * QE + qe);
+    for (int f = 0; f < DIM; ++f) d[f] = row(n * DIM + f);
 #pragma unroll
     for (int g = 0; g < DIM; ++g) {
       const float wv = w(g * ND + n);
@@ -123,6 +127,13 @@ __device__ __forceinline__ void grad_q_of(const TT* __restrict__ dN, const W& w,
   }
 }
 
+// grad_rows on the point's rows of the dense table dN (ND, DIM, NQ, E)
+template <int DIM, int ND, typename TT, class W>
+__device__ __forceinline__ void grad_q_of(const TT* __restrict__ dN, const W& w,
+                                          long long qe, long long QE, float G[DIM][DIM]) {
+  grad_rows<DIM, ND>([=](int k) { return load_c(dN + (long long)k * QE + qe); }, w, G);
+}
+
 // the gradient of the field staged in this thread's shared column
 template <int DIM, int ND, typename TT>
 __device__ __forceinline__ void grad_q(const TT* __restrict__ dN, float (*w)[BLOCK],
@@ -130,33 +141,41 @@ __device__ __forceinline__ void grad_q(const TT* __restrict__ dN, float (*w)[BLO
   grad_q_of<DIM, ND>(dN, [w](int k) { return w[k][threadIdx.x]; }, qe, QE, G);
 }
 
-// v[c] = sum_n N[n](q) w[c][n]
-template <int DIM, int ND, typename TT>
-__device__ __forceinline__ void value_q(const TT* __restrict__ N, float (*w)[BLOCK],
-                                        long long qe, long long QE, float v[DIM]) {
+// v[c] = sum_n N[n](q) w(c ND + n), `nrow(n)` the point's N[n]
+template <int DIM, int ND, class R, class W>
+__device__ __forceinline__ void value_rows(const R& nrow, const W& w, float v[DIM]) {
 #pragma unroll
   for (int c = 0; c < DIM; ++c) v[c] = 0.f;
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
-    const float Nn = load_c(N + (long long)n * QE + qe);
+    const float Nn = nrow(n);
 #pragma unroll
-    for (int c = 0; c < DIM; ++c) v[c] += Nn * w[c * ND + n][threadIdx.x];
+    for (int c = 0; c < DIM; ++c) v[c] += Nn * w(c * ND + n);
   }
 }
 
-// acc[c][n] += wq (sum_d dN[n][d] X[c][d] + N[n] m[c]); without MASS the
-// N[n] m[c] term is left out and N, m are not read
-template <int DIM, int ND, bool MASS = true, typename TT>
-__device__ __forceinline__ void scatter_q(float (&acc)[DIM][ND], const TT* __restrict__ dN,
-                                          const typename same_type<TT>::type* __restrict__ N,
-                                          long long qe, long long QE, float wq,
-                                          const float X[DIM][DIM], const float* m) {
+// value_rows on the dense table N (ND, NQ, E) and the field staged in this
+// thread's shared column
+template <int DIM, int ND, typename TT>
+__device__ __forceinline__ void value_q(const TT* __restrict__ N, float (*w)[BLOCK],
+                                        long long qe, long long QE, float v[DIM]) {
+  value_rows<DIM, ND>([=](int n) { return load_c(N + (long long)n * QE + qe); },
+                      [w](int k) { return w[k][threadIdx.x]; }, v);
+}
+
+// acc[c][n] += wq (sum_d dN[n][d] X[c][d] + N[n] m[c]), `row(k)` and
+// `nrow(n)` the point's dN and N entries; without MASS the N[n] m[c] term
+// is left out and N, m are not read
+template <int DIM, int ND, bool MASS, class R, class NR>
+__device__ __forceinline__ void scatter_rows(float (&acc)[DIM][ND], const R& row, const NR& nrow,
+                                             float wq, const float X[DIM][DIM],
+                                             const float* m) {
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
     float d[DIM];
 #pragma unroll
-    for (int f = 0; f < DIM; ++f) d[f] = load_c(dN + (long long)(n * DIM + f) * QE + qe);
-    const float Nn = MASS ? load_c(N + (long long)n * QE + qe) : 0.f;
+    for (int f = 0; f < DIM; ++f) d[f] = row(n * DIM + f);
+    const float Nn = MASS ? nrow(n) : 0.f;
 #pragma unroll
     for (int c = 0; c < DIM; ++c) {
       float x = d[0] * X[c][0];
@@ -166,6 +185,17 @@ __device__ __forceinline__ void scatter_q(float (&acc)[DIM][ND], const TT* __res
       acc[c][n] += wq * x;
     }
   }
+}
+
+// scatter_rows on the dense tables dN, N
+template <int DIM, int ND, bool MASS = true, typename TT>
+__device__ __forceinline__ void scatter_q(float (&acc)[DIM][ND], const TT* __restrict__ dN,
+                                          const typename same_type<TT>::type* __restrict__ N,
+                                          long long qe, long long QE, float wq,
+                                          const float X[DIM][DIM], const float* m) {
+  scatter_rows<DIM, ND, MASS>(
+      acc, [=](int k) { return load_c(dN + (long long)k * QE + qe); },
+      [=](int n) { return MASS ? load_c(N + (long long)n * QE + qe) : 0.f; }, wq, X, m);
 }
 
 inline unsigned grid_for(long long E) { return (unsigned)((E + BLOCK - 1) / BLOCK); }
@@ -235,6 +265,108 @@ __global__ void __launch_bounds__(BLOCK)
     for (int n = 0; n < ND; ++n) out[(long long)(c * ND + n) * E + e] = acc[c][n];
 }
 
+// dense_residual_kernel's operations with the point's dN and N rows of
+// the thread's element brought into shared memory ahead (3D J2 up to 27
+// dofs, inviscid, float32 block: sweeps_dense_j2.cu j2_kernel): a tile of
+// DTILE_RING = 32
+// consecutive elements a block (one warp), one per thread, u and a staged
+// as there; each thread copies its own element's DIM ND + ND rows of point
+// q + 1 (cp.async, 4 bytes each, one 128-byte line a warp, cached in L1)
+// into its own column of a ring of RingTile::STAGES points while it
+// computes point q, and reads point q's rows from its column: no barrier.
+// grad_rows, value_rows and scatter_rows run as in dense_residual_kernel,
+// so the outputs are its outputs to the bit.  What it changes: the rows'
+// loads no longer wait in the point's chain, and without a register pair
+// per row address ptxas keeps a thread at 167-168 registers, 0 B spilled
+// (dense_residual_kernel: 255, 360-384 B); but the tile's 48.4 KB leave 4
+// warps an SM against the one-thread kernel's 8 (PERF.md: 1.01-1.09x at
+// the driven elastic states, 0.64-0.80x on random plastic input; 16-byte
+// copies with a warp barrier, 0.74-0.82x; the N rows left out of the ring
+// for 5 warps an SM, 0.98-1.05x).
+template <class S>
+struct RingTile {
+  static constexpr int STAGES = 2, ROWS = S::NW + S::ND;  // a point's dN and N rows
+  static constexpr size_t BYTES = sizeof(float) * DTILE_RING * (2 * S::NW + STAGES * ROWS);
+};
+
+template <class Mat, class Store, class S, bool TANGENT, bool VISC, typename CT>
+__global__ void __launch_bounds__(DTILE_RING)
+    dense_ring_kernel(const float* __restrict__ u_el, const float* __restrict__ a_el,
+                      const float* __restrict__ v_el, const float* __restrict__ dN,
+                      const float* __restrict__ N, const float* __restrict__ wq,
+                      float* __restrict__ out, CT* __restrict__ cout, Mat mat, float rho,
+                      float mu_v, long long E) {
+  constexpr int DIM = S::DIM, ND = S::ND, NW = S::NW, NQ = S::NQ;
+  constexpr int STAGES = RingTile<S>::STAGES, ROWS = RingTile<S>::ROWS, T = DTILE_RING;
+  MIMI_DYNAMIC_SHARED(float, smem);  // su[NW][T], sa[NW][T], ring[STAGES][ROWS][T]
+  float(*su)[T] = reinterpret_cast<float(*)[T]>(smem);
+  float(*sa)[T] = su + NW;
+  float(*ring)[ROWS][T] = reinterpret_cast<float(*)[ROWS][T]>(smem + 2 * NW * T);
+  const int lane = threadIdx.x;
+  const long long e = (long long)blockIdx.x * T + lane;
+  if (e >= E) return;  // a thread reads only its own column: no barrier below
+#pragma unroll 8
+  for (int k = 0; k < NW; ++k) {
+    su[k][lane] = __ldg(u_el + (long long)k * E + e);
+    sa[k][lane] = __ldg(a_el + (long long)k * E + e);
+  }
+  const long long QE = (long long)NQ * E;
+  // point q's rows of this thread's element into its ring column
+  const auto fetch = [&](int q) {
+    float(*r)[T] = ring[q % STAGES];
+    const long long qe = (long long)q * E + e;
+#pragma unroll 9
+    for (int k = 0; k < NW; ++k) cp_async4(&r[k][lane], dN + (long long)k * QE + qe);
+#pragma unroll 9
+    for (int n = 0; n < ND; ++n) cp_async4(&r[NW + n][lane], N + (long long)n * QE + qe);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int q = 0; q < STAGES - 1; ++q) fetch(q);
+  float acc[DIM][ND];
+#pragma unroll
+  for (int c = 0; c < DIM; ++c)
+#pragma unroll
+    for (int n = 0; n < ND; ++n) acc[c][n] = 0.f;
+#pragma unroll 1
+  for (int q = 0; q < NQ; ++q) {
+    if (q + STAGES - 1 < NQ)
+      fetch(q + STAGES - 1);
+    else
+      cp_async_commit();  // an empty group: the wait below counts groups
+    cp_async_wait<STAGES - 1>();  // point q's rows have landed
+    const float(*r)[T] = ring[q % STAGES];
+    const auto row = [=](int k) { return r[k][lane]; };
+    const auto nrow = [=](int n) { return r[NW + n][lane]; };
+    const long long qe = (long long)q * E + e;
+    float F[DIM][DIM];
+    grad_rows<DIM, ND>(row, [=](int k) { return su[k][lane]; }, F);
+#pragma unroll
+    for (int i = 0; i < DIM; ++i) F[i][i] = add(F[i][i], 1.f);
+    float Pk[DIM][DIM];
+    typename Mat::Point pt;
+    mat.template eval<TANGENT>(F, qe, QE, Pk, pt);
+    if (TANGENT) Store::store(cout, qe, QE, mat, pt);
+    if (VISC) {  // P + mu_v dV, in the plain version's order
+      float dV[DIM][DIM];
+      grad_rows<DIM, ND>(row, [=](int k) { return __ldg(v_el + (long long)k * E + e); }, dV);
+#pragma unroll
+      for (int c = 0; c < DIM; ++c)
+#pragma unroll
+        for (int d = 0; d < DIM; ++d) Pk[c][d] = add(Pk[c][d], mul(mu_v, dV[c][d]));
+    }
+    float av[DIM], m[DIM];
+    value_rows<DIM, ND>(nrow, [=](int k) { return sa[k][lane]; }, av);
+#pragma unroll
+    for (int c = 0; c < DIM; ++c) m[c] = rho * av[c];
+    scatter_rows<DIM, ND, true>(acc, row, nrow, __ldg(wq + qe), Pk, m);
+  }
+#pragma unroll
+  for (int c = 0; c < DIM; ++c)
+#pragma unroll
+    for (int n = 0; n < ND; ++n) out[(long long)(c * ND + n) * E + e] = acc[c][n];
+}
+
 // y = J w: y[c][n] = sum_q wq (dN[n][d] dP[c][d] + N[n] rho w_q[c]),
 // dP = fac0 C : grad w from the tangent block of `Store`, + fac1 mu_v grad w
 // with VISC; the block in CT and the tables dN, N in TT (float, or the
@@ -292,17 +424,19 @@ __global__ void __launch_bounds__(BLOCK)
 // its nodes at a point in registers from the point's partial sums to the
 // scatter, and one flux warp that runs the point's material or block
 // (dense_residual_tile_kernel, dense_matvec_tile_kernel below): dN and N
-// cross device memory once.  The fused neo-Hookean pair keeps the point
-// slots of dense_tile_kernel: warp s takes the points q = s (mod SLOTS) of
-// every element, forms the point's F from its lane's staged column and the
-// point's dN row (grad_q_of's operations), runs the point and hands X[c][d],
-// m[c] and w det J to shared memory; after a barrier each thread adds the
+// cross device memory once; the fused neo-Hookean tangent apply takes the
+// same design in 3D (fused_neohookean.cu).  The fused neo-Hookean residual,
+// and the tangent apply on the tiled 2D shapes, keep the point slots of
+// dense_tile_kernel: warp s takes the points q = s (mod SLOTS) of every
+// element, forms the point's F from its lane's staged column and the
+// point's dN row (grad_q_of's operations), runs the point and hands X[c][d]
+// and w det J to shared memory; after a barrier each thread adds the
 // round's SLOTS points, in q order, to the outputs of the nodes
 // n = s + SLOTS j it owns, reading those nodes' dN rows again (scatter_q's
 // operations, no mass term).  Shared memory of dense_tile_kernel: the
 // staged field(s) [DIM ND][DTILE] and the round's points; the second field
 // (the tangent apply's w) is staged only where both fit in a block's 227 KB
-// and read from device memory otherwise (3D p = 6).
+// and read from device memory otherwise.
 
 constexpr int DTILE = 32;
 
@@ -1172,13 +1306,32 @@ int launch_dense_slot(const Mat& mat, const float* u_el, const float* a_el, cons
   return (int)cudaGetLastError();
 }
 
+// The residual (and, TANGENT, the assemble) of `mat` on dense_ring_kernel
+// (one thread per element, the point's rows copied ahead into shared
+// memory), the block in CT (deduced from cout); v_el == nullptr inviscid
+template <class Mat, class Store, class S, bool TANGENT, bool VISC = false, typename CT>
+int launch_dense_ring(const float* u_el, const float* a_el, const float* dN, const float* N,
+                      const float* wq, float* out, CT* cout, const Mat& mat, float rho,
+                      long long E, void* stream, const float* v_el = nullptr,
+                      float mu_v = 0.f) {
+  constexpr size_t smem = RingTile<S>::BYTES;
+  if (const int err =
+          allow_dynamic_smem<dense_ring_kernel<Mat, Store, S, TANGENT, VISC, CT>>(smem))
+    return err;
+  const unsigned tiles = (unsigned)((E + DTILE_RING - 1) / DTILE_RING);
+  dense_ring_kernel<Mat, Store, S, TANGENT, VISC, CT>
+      <<<tiles, DTILE_RING, smem, (cudaStream_t)stream>>>(u_el, a_el, v_el, dN, N, wq, out,
+                                                          cout, mat, rho, mu_v, E);
+  return (int)cudaGetLastError();
+}
+
 // The residual (and, TANGENT, the assemble) of `mat`, the block in CT
-// (deduced from cout), the tables in float32: dense_residual_tile_kernel
-// on the tiled shapes, else the one thread per element of
-// dense_residual_kernel (the hyperelastic materials, J2Linear and 3D J2:
-// on point slots the hyperelastic ones ran 0.75-0.81x at the golden twin's
-// 512^2 and the 3D cell, sweeps_dense_j2.cu J2Slots says J2's and
-// J2Linear's)
+// (deduced from cout), the tables in float32: the owners and the flux
+// warp on the tiled shapes, else the one thread per element of
+// dense_residual_kernel (the hyperelastic materials, J2Linear and 3D J2's
+// viscous and bfloat16-block instantiations: on point slots the
+// hyperelastic ones ran 0.75-0.81x at the golden twin's 512^2 and the 3D
+// cell, sweeps_dense_j2.cu j2_kernel says J2's and J2Linear's)
 template <class Mat, class Store, class S, bool TANGENT, bool VISC = false, typename CT>
 int launch_dense_residual(const float* u_el, const float* a_el, const float* dN,
                           const float* N, const float* wq, float* out, CT* cout,

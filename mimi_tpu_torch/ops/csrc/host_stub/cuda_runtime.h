@@ -49,11 +49,16 @@ inline thread_local mimi_host_index threadIdx{0, 0, 0};
 inline std::barrier<>* mimi_host_block_barrier = nullptr;
 inline void __syncthreads() { mimi_host_block_barrier->arrive_and_wait(); }
 
-// the cache prefetch hint and the opaque value of launch.cuh: nothing to
-// do on the host
+// the cache prefetch hint, the opaque value and the asynchronous copies of
+// launch.cuh: nothing to do on the host but the copy
 #define MIMI_HOST_STUB
 inline void prefetch_l1(const void*) {}
 inline long long opaque(long long x) { return x; }
+// launch.cuh's asynchronous copy to shared memory: the host copies at once
+inline void cp_async4(float* smem, const float* gmem) { *smem = *gmem; }
+inline void cp_async_commit() {}
+template <int N>
+inline void cp_async_wait() {}
 
 // the dynamic shared memory of the launch that runs now
 inline unsigned char* mimi_host_dynamic_shared = nullptr;

@@ -1,8 +1,8 @@
 // Dynamic shared memory of the sweep kernels, for sm_90a: a block's tile
 // past the 48 KB that a static __shared__ allocation may hold (the p = 3
 // sf tile, 67.7 KB and 92.2 KB viscous; the dense (3, 3) columns, 96 KB),
-// and two helpers of the tiled dense matvec (an L1 prefetch hint, an
-// opaque value).  The host stand-in (host_stub/cuda_runtime.h) defines
+// two helpers of the tiled dense matvec (an L1 prefetch hint, an opaque
+// value) and the asynchronous copies of dense_ring_kernel.  The host stand-in (host_stub/cuda_runtime.h) defines
 // MIMI_DYNAMIC_SHARED first, as the launch's buffer shared by the block's
 // threads, and MIMI_HOST_STUB with stand-ins of the two helpers.
 
@@ -35,6 +35,21 @@ __device__ __forceinline__ void prefetch_l1(const void* p) {
 __device__ __forceinline__ long long opaque(long long x) {
   asm volatile("" : "+l"(x));
   return x;
+}
+// An asynchronous copy of one float from device to shared memory
+// (cp.async, cached in L1), the close of the thread's group of copies
+// issued since the last, and the wait until at most N of its groups are in
+// flight.  The host stand-in copies at once.
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 #endif
 

@@ -14,9 +14,12 @@
 // dofs in 3D (one thread per element and point slot, J2Simo's and J2Log's
 // kernel: at the golden cantilever's 512^2 the return map, up to 40 trips
 // a point, runs on four times the threads of one thread per element; the
-// closed-form block is stored in the float pass), J2Linear's
-// dense_residual_tile_kernel past 27 / 16 dofs (owners of 8 nodes and a
-// flux warp), each the one-thread kernel below that (J2Slots says why).
+// closed-form block is stored in the float pass), dense_ring_kernel in 3D
+// up to 27 dofs, inviscid, with a float32 block (one thread per element,
+// its rows copied ahead into shared memory), J2Linear's
+// dense_residual_tile_kernel past 27 / 16
+// dofs (owners of 8 nodes and a flux warp), each the one-thread kernel
+// below that (j2_kernel says why).
 // The plain torch versions are residual_dense_plain,
 // assemble_dense_plain and matvec_dense_plain with the J2 or J2Linear
 // material (ops/sweeps.py).
@@ -105,21 +108,33 @@ struct DenseJ2 {
   }
 };
 
-// Whether the residual and assemble of J2 (LINEAR false) or J2Linear at a
-// shape of DIM, tiled or not (DenseShape::TILED), take dense_slot_kernel (one thread per element and point slot)
-// rather than launch_dense_residual's kernels (one thread per element up
-// to 27 dofs in 3D and 16 in 2D, the owners and the flux warp past that).
-// J2's return map (up to 40 trips a point) runs on point slots in 2D and on
-// the tiled shapes: at the golden cantilever's 512^2 2.2x the one-thread
-// kernel, and on one flux warp a block the tiled shapes' plastic points
-// ran at 0.6x the point slots they replaced; in 3D up to 27 dofs the
-// driven states are elastic, where the slots' barriers cost more than the
-// threads gain (path J, the 3D cell: 0.77-0.82x).  J2Linear's return is
-// closed form: one thread per element up to 27 / 16 dofs (0.72-0.83x on
-// point slots at path D's (2, 16, 25)), the owners past that
-// (scripts/ab_dense_sweeps.py --part residual, PERF.md).
-template <int DIM, bool TILED, bool LINEAR>
-struct J2Slots : std::integral_constant<bool, !LINEAR && (TILED || DIM == 2)> {};
+// The kernel that runs the residual and assemble of J2 (LINEAR false) or
+// J2Linear at a shape of DIM, tiled or not (DenseShape::TILED), viscous or
+// not.  J2's return map (up to 40 trips a point) runs on point slots
+// (dense_slot_kernel) in 2D and on the tiled shapes: at the golden
+// cantilever's 512^2 2.2x the one-thread kernel, and on one flux warp a
+// block the tiled shapes' plastic points ran at 0.6x the point slots they
+// replaced.  In 3D up to 27 dofs the driven states are elastic and
+// inviscid: there the slots' barriers cost more than their threads gained
+// (path J, the 3D cell: 0.77-0.82x), the owners and the flux warp ran
+// 0.78-1.03x (J2 on one warp in five), and dense_ring_kernel (the
+// one-thread kernel with its rows copied ahead into shared memory, equal
+// to it to the bit) 1.01-1.09x with a float32 block; with path J's
+// bfloat16 block it ran 0.96-1.04x, and its viscous instantiations spill
+// 512 B and ran 0.64-0.72x on random plastic input, so those keep the one
+// thread per element (dense_residual_kernel, through
+// launch_dense_residual).
+// J2Linear's return is closed form: one thread per element up to 27 / 16
+// dofs (0.72-0.83x on point slots at path D's (2, 16, 25)), the owners
+// past that (scripts/ab_dense_sweeps.py --part residual, untiled;
+// PERF.md).
+enum class J2Kernel { RESIDUAL, SLOTS, RING };
+template <int DIM, bool TILED, bool LINEAR, bool VISC, bool F32_BLOCK>
+constexpr J2Kernel j2_kernel() {
+  if (LINEAR) return J2Kernel::RESIDUAL;
+  if (TILED || DIM == 2) return J2Kernel::SLOTS;
+  return VISC || !F32_BLOCK ? J2Kernel::RESIDUAL : J2Kernel::RING;
+}
 
 // the residual (TANGENT false) or assemble kernel of J2 (material 0) or
 // J2Linear (material 1) at (dim, nd, nq), inviscid or viscous, with the Cauchy
@@ -143,9 +158,14 @@ int j2_entry(const float* u_el, const float* a_el, const float* v_el, const floa
       const Mat mat{p, ps, eqps, temp, beta};
       auto launch = [&](auto visc) -> int {
         constexpr bool VISC = decltype(visc)::value;
-        if constexpr (J2Slots<DIM, TILED, LINEAR>::value)
+        constexpr J2Kernel K =
+            j2_kernel<DIM, TILED, LINEAR, VISC, std::is_same<DenseBlock, float>::value>();
+        if constexpr (K == J2Kernel::SLOTS)
           return launch_dense_slot<Store, S, TANGENT, VISC>(mat, u_el, a_el, v_el, dN, N, wq,
                                                             out, cout, p.rho, mu_v, E, stream);
+        else if constexpr (K == J2Kernel::RING)
+          return launch_dense_ring<Mat, Store, S, TANGENT, VISC>(
+              u_el, a_el, dN, N, wq, out, cout, mat, p.rho, E, stream, v_el, mu_v);
         else
           return launch_dense_residual<Mat, Store, S, TANGENT, VISC>(
               u_el, a_el, dN, N, wq, out, cout, mat, p.rho, E, stream, v_el, mu_v);

@@ -5,7 +5,7 @@ GPU, on the same inputs in one process.
 
     mkdir -p <dir>; git archive <rev> mimi_tpu_torch/ops/csrc | tar -x -C <dir>
     python3 scripts/ab_dense_sweeps.py --base <dir> [--new <dir>] \
-        [--part all|earlier|tiled|finite|residual|hyper[,...]] [--only REGEX]
+        [--part all|earlier|tiled|finite|residual|hyper|untiled[,...]] [--only REGEX]
 
 The base's dense sources (<dir>/mimi_tpu_torch/ops/csrc) are built at
 the dense shapes of chip_smoke.EARLIER_KEYS with this checkout's flags and shape
@@ -52,6 +52,14 @@ F = I, for a variant given with --new.  In both, each output is held
 against the plain version too, on the first RESIDUAL_HEAD elements (the
 plain versions of path I's size do not fit the card whole), and both
 versions' ptxas lines of the dense residual kernels are printed.
+`--part untiled` times the fused neo-Hookean tangent apply at every
+shape of FUSED_ROWS (the 3D dense cell's (3, 27, 64) at 2 x 38^3, the
+tiled (3, 64, 125), (3, 125, 216) and (2, 25, 36), the untiled 2D
+(2, 16, 25) and (2, 9, 16)) on random input near F = I, and 3D J2's
+residual and assemble at (3, 27, 64): the residual part's rows of path J
+and the 3D dense J2 cell (their path states, and J2 and J2Linear on random
+plastic input at the cell's size); both versions' ptxas lines of those
+kernels are printed (`all` does not include it).
 Parts join with commas (`residual,finite`: one build of both versions);
 `--paths REGEX` drives only the residual part's paths whose label matches
 (RESIDUAL_PATHS), and builds only their shapes.
@@ -297,6 +305,60 @@ def residual_sweeps(torch, mt, cs, sweeps, soa, sh, ab, dev, gen, paths=""):
         torch.cuda.empty_cache()
 
 
+# the fused neo-Hookean tangent apply's rows (--part untiled): label ->
+# (tables' shape, problem maker); the 3D dense cell's tables at 2 x 38^3
+# (phase 17's), path I's and (3, 125, 216)'s, path L's and the 2D untiled
+# shapes at the golden cantilevers' and the p = 2 drives' sizes
+FUSED_ROWS = {
+    "fused 3D cell 2x38^3": ((3, 27, 64), lambda mt, cs, dev: cs.dense_build(
+        mt, cs.DENSE_SPANS, dev)),
+    "fused path I 2x38^3": ((3, 64, 125), lambda mt, cs, dev: cs.two_patch3_of(
+        mt, cs.hyper_material(mt), cs.DENSE_SPANS, dev)),
+    "fused 2x16^3 p=4": ((3, 125, 216), lambda mt, cs, dev: cs.two_patch3_of(
+        mt, cs.hyper_material(mt), 16, dev, elevate=3)),
+    "fused path L 512^2": ((2, 25, 36), lambda mt, cs, dev: cs.balken_build(
+        mt, "CompressibleOgdenNeoHookean", 3, cs.GOLDEN_SUBDIVIDE, dev)),
+    "fused golden 512^2": ((2, 16, 25), lambda mt, cs, dev: cs.balken_build(
+        mt, "CompressibleOgdenNeoHookean", 2, cs.GOLDEN_SUBDIVIDE, dev)),
+    "fused 128^2 p=2": ((2, 9, 16), lambda mt, cs, dev: cs.balken_build(
+        mt, "CompressibleOgdenNeoHookean", 1, cs.P2_SUBDIVIDE, dev)),
+}
+# the 3D J2 rows of --part untiled: residual_sweeps' paths at (3, 27, 64)
+UNTILED_J2_PATHS = "path J|3D dense J2"
+
+
+def fused_applies(torch, mt, cs, sweeps, ab, dev, gen, paths=""):
+    """The fused neo-Hookean tangent apply at FUSED_ROWS' shapes and sizes
+    on random input near F = I (chip_smoke.random_visc_inputs), with its
+    bound (chip_smoke.hold_fused's count: inputs read once, the output
+    written once, fused_ops' operations) and its plain version on the
+    first RESIDUAL_HEAD elements; only the rows whose label matches
+    `paths`."""
+    from mimi_tpu_torch.ops import fused_neohookean as fused
+
+    for label, (key, make) in FUSED_ROWS.items():
+        if not re.search(paths, label):
+            continue
+        prob = make(mt, cs, dev)
+        assert cs.table_key(prob) == key, (label, cs.table_key(prob))
+        mat, dN, wq = prob.material, prob.dense["dN_t"], prob.wdet_t
+        f = cs.random_visc_inputs(torch, sweeps, prob, mat, gen, cs.STEP_KW["dt"])
+        u_el, w_el = f["u_el"], f["w_el"]
+        n = min(RESIDUAL_HEAD, prob.n_el)
+        lam, mu = mat.lambda_, mat.mu
+        name = sweeps.fused_counters(key)[1]
+        ms, by = cs.bound_of(cs.nbytes(u_el, w_el, dN, wq, u_el),
+                             prob.n_el * prob.n_q * cs.fused_ops(prob.dim, key[1])[1])
+        print(f"[{label}] {name}: bound {ms:.4f} ms by {by}", flush=True)
+        args, ah = (u_el, w_el, dN, wq), head((u_el, w_el, dN, wq), n)
+        calls = {name: (lambda: fused.neohookean_tangent_apply(*args, lam, mu),
+                        lambda: fused.neohookean_tangent_apply_plain(*ah, lam, mu))}
+        ab(f"{label} random ({key}, {prob.n_el} elements)", calls,
+           10 if prob.n_el * prob.n_q > 5e6 else 20, head_n=n)
+        del prob, f, u_el, w_el, args, ah, calls
+        torch.cuda.empty_cache()
+
+
 # the hyperelastic materials' untiled driven shapes (--part hyper)
 HYPER_KEYS = [("dense", (2, 16, 25)), ("dense", (2, 9, 16)), ("dense", (3, 27, 64))]
 
@@ -366,21 +428,23 @@ def main():
     ap.add_argument("--subdivide", type=int, default=8, help="2D: 2^subdivide spans per axis")
     ap.add_argument("--spans", type=int, default=16, help="3D p = 2: 2 x spans^3 elements")
     ap.add_argument("--only", default="", help="time only the rows whose name matches")
-    ap.add_argument("--paths", default="", help="--part residual: drive only the paths whose "
-                    "label matches (RESIDUAL_PATHS)")
+    ap.add_argument("--paths", default="", help="--part residual, untiled: drive only the paths "
+                    "and rows whose label matches (RESIDUAL_PATHS, FUSED_ROWS)")
     ap.add_argument("--part", default="all",
-                    help="all, earlier, tiled, finite, residual or hyper, or several joined by "
-                    "commas; "
+                    help="all, earlier, tiled, finite, residual, hyper or untiled, or several "
+                    "joined by commas; "
                     "earlier: the untiled shapes' instantiations and (3, 3) at 2 x 8^3; "
                     "tiled: the tiled matvecs at the driven sizes; finite: J2Simo's and "
                     "J2Log's dense residual and assemble at the driven sizes; residual: the "
                     "dense residual and assemble at the driven rows and states; hyper: the "
-                    "neo-Hookean residual and assemble at the untiled driven rows")
+                    "neo-Hookean residual and assemble at the untiled driven rows; untiled: the "
+                    "fused tangent apply at every driven shape and 3D J2's residual and "
+                    "assemble at (3, 27, 64)")
     args = ap.parse_args()
     parts = set(args.part.split(","))
     if "all" in parts:
         parts |= {"earlier", "tiled"}
-    if not parts <= {"all", "earlier", "tiled", "finite", "residual", "hyper"}:
+    if not parts <= {"all", "earlier", "tiled", "finite", "residual", "hyper", "untiled"}:
         ap.error(f"unknown part in {args.part!r}")
     import torch
 
@@ -400,7 +464,12 @@ def main():
     keys = []
     residual_keys = [("dense", k) for label, k in RESIDUAL_PATHS.items()
                      if re.search(args.paths, label)]
+    untiled_keys = [("dense", k) for label, (k, _) in FUSED_ROWS.items()
+                    if re.search(args.paths, label)] + [
+        ("dense", k) for label, k in RESIDUAL_PATHS.items()
+        if re.search(UNTILED_J2_PATHS, label) and re.search(args.paths, label)]
     for part, part_keys in (("finite", FINITE_KEYS), ("residual", residual_keys),
+                            ("untiled", untiled_keys),
                             ("hyper", HYPER_KEYS),
                             ("earlier", [k for k in cs.EARLIER_KEYS if k[0] == "dense"]),
                             ("tiled", TILED_KEYS)):
@@ -430,11 +499,15 @@ def main():
         if "tiled" in parts:
             shown.append(lambda n: "dense_matvec_tile_kernel" in n or (
                 "dense_tile_kernel" in n and "MatvecPoint" in n))
-        if parts & {"residual", "hyper"}:  # the dense residual and assemble kernels
+        if parts & {"residual", "hyper", "untiled"}:  # the dense residual and assemble kernels
             shown.append(lambda n: any(k in n for k in (
-                "dense_residual_tile_kernel", "dense_slot_kernel", "dense_finite_kernel")) or (
+                "dense_residual_tile_kernel", "dense_slot_kernel", "dense_finite_kernel",
+                "dense_ring_kernel")) or (
                 "dense_tile_kernel" in n and "ResidualPoint" in n) or (
                 "dense_residual_kernel" in n and "DenseJ2" in n))
+        if "untiled" in parts:  # the fused tangent apply
+            shown.append(lambda n: "nh_tangent_apply_" in n or (
+                "dense_tile_kernel" in n and "NhTangentPoint" in n))
         for tag, log in (("base", base_log), ("new", new_log)):
             for name, v in sorted(cs.ptxas_entries(log, kb.nvcc()).items()):
                 if any(f(name) for f in shown):
@@ -502,6 +575,10 @@ def main():
         residual_sweeps(torch, mt, cs, sweeps, soa, sh, ab, dev, gen, args.paths)
     if "hyper" in parts:
         hyper_sweeps(torch, mt, cs, sweeps, ab, dev, gen)
+    if "untiled" in parts:
+        fused_applies(torch, mt, cs, sweeps, ab, dev, gen, args.paths)
+        residual_sweeps(torch, mt, cs, sweeps, soa, sh, ab, dev, gen,
+                        f"(?=.*(?:{UNTILED_J2_PATHS}))(?=.*(?:{args.paths}))")
     if "tiled" in parts:
         tiled_matvecs(torch, mt, cs, sweeps, ab, dev, gen)
     if "earlier" in parts:

@@ -36,8 +36,12 @@ materials.kernel_solver_mode).  The dense residual and assemble on
 point slots (dense_slot_kernel: J2, J2Linear and J2Simo at (2, 16, 25))
 are also held to the one-thread kernel built beside them, bit by bit, and
 the tiled ones on owners and a flux warp (dense_residual_tile_kernel) run
-at path I's and path L's shapes on a ragged last tile.  Skips where no
-g++ is found.
+at path I's and path L's shapes on a ragged last tile.  The fused
+neo-Hookean tangent apply on owners and a flux warp runs at each shape of
+torch_shapes.FUSED_APPLY_SHAPES against its plain version and the dense
+matvec, and 3D J2's residual and assemble at J2_UNTILED_3D_SHAPES against
+plain and, inviscid (dense_ring_kernel), bit by bit against the one-thread
+kernel.  Skips where no g++ is found.
 """
 
 import concurrent.futures
@@ -58,7 +62,7 @@ from mimi_tpu_torch.materials import logm as tlogm
 from mimi_tpu_torch.ops import build as kbuild
 from mimi_tpu_torch.ops import sweeps as tsw
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one thread)
-from torch_shapes import DENSE_SHAPES, SF_SHAPES
+from torch_shapes import DENSE_SHAPES, FUSED_APPLY_SHAPES, J2_UNTILED_3D_SHAPES, SF_SHAPES
 
 CSRC = os.path.join(os.path.dirname(kbuild.__file__), "csrc")
 STUB = os.path.join(CSRC, "host_stub")
@@ -73,11 +77,14 @@ CXX = ["-std=c++20", "-O1", "-fPIC", "-pthread", "-ffp-contract=off", "-w"]
 # dense (2, 25, 36) (2D p = 4), (3, 8, 27) (3D p = 1), (3, 125, 216) (3D
 # p = 4), (2, 12, 20) (2D degrees [3, 2]), (3, 216, 343) (3D p = 5: the
 # finite-strain tile's fields past a block's shared memory), (3, 343, 512)
-# (3D p = 6: the tiled matvec's owner warps capped at 16)
+# (3D p = 6: the tiled matvec's owner warps capped at 16, the fused
+# tangent apply's w read from device memory), (2, 9, 9) (2D p = 2 at
+# quadrature order 5: a shape of FUSED_APPLY_SHAPES)
 HOST_SHAPES = {
     "sf": SF_SHAPES + ((2, 3), (5, 6), (3, 3), (5, 8)),
     "dense": tuple(tsw.dense_key(d, p) for d, p in DENSE_SHAPES)
-    + ((2, 25, 36), (3, 8, 27), (3, 125, 216), (2, 12, 20), (3, 216, 343), (3, 343, 512)),
+    + ((2, 25, 36), (3, 8, 27), (3, 125, 216), (2, 12, 20), (3, 216, 343), (3, 343, 512),
+       (2, 9, 9)),
 }
 HOST_UNITS = [(kind, shape, name) for kind, shapes in HOST_SHAPES.items() for shape in shapes
               for name in kbuild.KIND_SOURCES[kind]]
@@ -1136,9 +1143,10 @@ def test_new_shape_kernels_on_cpu_tensors(host_sweeps, key, name, visc, bf16):
 
 def test_fused_kernels_at_a_new_shape_on_cpu_tensors(libs):
     """The fused neo-Hookean residual and matrix-free tangent apply of the
-    host build at (3, 125, 216) (3D p = 4: dense_tile_kernel with 8 point
-    slots) on 2 elements against their plain versions at 1e-5 / 1e-4 of
-    scale, and their wrong-shape call refused."""
+    host build at (3, 125, 216) (3D p = 4: the residual on dense_tile_kernel
+    with 8 point slots, the tangent apply on 16 owner warps and a flux warp)
+    on 2 elements against their plain versions at 1e-5 / 1e-4 of scale, and
+    their wrong-shape call refused."""
     from mimi_tpu_torch.ops import fused_neohookean as fused
 
     mat = _hyper("CompressibleOgdenNeoHookean", -1.0)
@@ -1334,7 +1342,8 @@ def test_finite_planes_at_a_subnormal_q_on_cpu_tensors(host_sweeps, name, kind):
 # dense_residual_kernel (one thread per element, the element's output sums
 # in registers) on the material of the included source, built beside that
 # source's point-slot kernels: the design dense_slot_kernel replaced, to
-# hold the point slots to it bit by bit
+# hold the point slots to it bit by bit (and 3D J2's dense_ring_kernel,
+# which replaced it up to 27 dofs, inviscid)
 ONE_THREAD = r"""
 #include <type_traits>
 #include "@SOURCE@"
@@ -1376,18 +1385,19 @@ ONE_THREAD_MATERIALS = {
 
 @pytest.fixture(scope="module")
 def one_thread(built):
-    """one_thread(source): the host build of ONE_THREAD on `source` at the
-    golden cantilever's (2, 16, 25)."""
+    """one_thread(source, key): the host build of ONE_THREAD on `source` at
+    the dense shape `key`, by default the golden cantilever's (2, 16, 25)."""
     dest, loaded = built[0], {}
 
-    def get(source):
-        if source not in loaded:
-            src = os.path.join(dest, f"one_thread_{source}.cpp")
+    def get(source, key=(2, 16, 25)):
+        if (source, key) not in loaded:
+            tag = f"{source}_{'_'.join(map(str, key))}"
+            src = os.path.join(dest, f"one_thread_{tag}.cpp")
             with open(src, "w") as f:
                 f.write(ONE_THREAD.replace("@SOURCE@", source).replace(
                     "@MATERIALS@", ONE_THREAD_MATERIALS[source]))
-            so = os.path.join(dest, f"one_thread_{source}.so")
-            r = subprocess.run(["g++", *CXX, *kbuild.defines("dense", (2, 16, 25)), "-shared",
+            so = os.path.join(dest, f"one_thread_{tag}.so")
+            r = subprocess.run(["g++", *CXX, *kbuild.defines("dense", key), "-shared",
                                 "-I", STUB, "-I", dest, "-o", so, src],
                                capture_output=True, text=True)
             assert r.returncode == 0, r.stdout + r.stderr
@@ -1396,8 +1406,8 @@ def one_thread(built):
                                              + [ctypes.c_int, ctypes.c_int, tsw._J2Params,
                                                 ctypes.c_int, ctypes.c_longlong])
             lib.one_thread_sweep.restype = ctypes.c_int
-            loaded[source] = lib
-        return loaded[source]
+            loaded[(source, key)] = lib
+        return loaded[(source, key)]
 
     return get
 
@@ -1534,3 +1544,97 @@ def test_dense_j2_residual_kernels_at_each_default_shape_on_cpu_tensors(host_swe
     prob = _finite_tile_problem(key, mat, n=33)
     f = _plastic_inputs(prob, np.random.default_rng(23), 0.004 if dim == 2 else 0.002)
     _hold_host_sweeps(host_sweeps, prob, f, False, False, matvec=False)
+
+
+def _fused_problem(key):
+    """The first 40 elements (a full tile of 32 and a ragged one of 8) of
+    neo-Hookean dense tables at `key`: _finite_tile_problem's meshes, and
+    at (2, 9, 9) the golden cantilever's mesh at p = 2 with 3 Gauss points
+    per axis (quadrature order 5) at 8^2."""
+    mat = _hyper("CompressibleOgdenNeoHookean", -1.0)
+    if key != (2, 9, 9):
+        return _finite_tile_problem(key, mat)
+    prob = mt.build_problem(BALKEN, 1, 3, mat, [(2, 0), (2, 1)], {}, rho_inf=0.5, device="cpu",
+                            dtype=torch.float32, quadrature_order=5)
+    assert (prob.dim, prob.dense["dN_t"].shape[0], prob.n_q) == key
+    return _first_elements(prob, 40)
+
+
+@pytest.mark.parametrize("key", FUSED_APPLY_SHAPES, ids=["_".join(map(str, k))
+                                                         for k in FUSED_APPLY_SHAPES])
+def test_fused_tangent_apply_at_each_shape_on_cpu_tensors(host_sweeps, libs, key):
+    """The fused neo-Hookean tangent apply of the host build at each shape
+    of FUSED_APPLY_SHAPES (3D: nh_tangent_apply_tile_kernel, owner warps
+    holding their nodes' dN rows in registers from grad u's and grad w's
+    partial sums to the scatter, a flux warp forming F, dF and dP; 2D: one
+    thread per element at (2, 9, 9), dense_tile_kernel's point slots at
+    (2, 25, 36)) on 40 elements (a full tile and a ragged one) at strains of
+    a few percent: against its plain version and against matvec_dense
+    (rho = 0, fac0 = 1) on the planes assembled at the same u at phase 17's
+    bar, 1e-4 of scale; grad u summed by owner slot keeps the owners within
+    1e-6 of the plain version's max."""
+    from mimi_tpu_torch.ops import fused_neohookean as fused
+
+    prob = _fused_problem(key)
+    mat, E = prob.material, prob.n_el
+    dN, N, wq = prob.dense["dN_t"], prob.dense["N_t"], prob.wdet_t
+    u_el, _, _, w_el, _ = _hyper_inputs(prob, np.random.default_rng(31))
+    y = torch.empty_like(u_el)
+    lib = libs("dense", key)
+    assert lib.mimi_neohookean_tangent_apply(
+        _ptr(u_el), _ptr(w_el), _ptr(dN), _ptr(wq), _ptr(y), ctypes.c_float(mat.lambda_),
+        ctypes.c_float(mat.mu), *map(ctypes.c_int, key), ctypes.c_longlong(E),
+        ctypes.c_void_p(None)) == 0
+    y_p = fused.neohookean_tangent_apply_plain(u_el, w_el, dN, wq, mat.lambda_, mat.mu)
+    _, C = host_sweeps._dense_sweep(True, u_el, torch.zeros_like(u_el), None, dN, N, wq, mat,
+                                    0.05, 1.0)
+    y_d = host_sweeps._dense_matvec(w_el, dN, N, wq, C, 0.0, 1.0, "sym")
+    scale = float(y_p.abs().max())
+    assert float((y - y_p).abs().max()) <= 1e-6 * scale
+    assert float((y - y_d).abs().max()) <= 1e-4 * scale
+
+
+J2_UNTILED_CASES = [(key, visc, bf16) for key in J2_UNTILED_3D_SHAPES for visc in (False, True)
+                    for bf16 in (False, True)]
+
+
+@pytest.mark.parametrize(
+    "key, visc, bf16", J2_UNTILED_CASES,
+    ids=[f"{'_'.join(map(str, k))}{'_visc' if v else ''}{'_bf16' if b else ''}"
+         for k, v, b in J2_UNTILED_CASES])
+def test_dense_j2_3d_untiled_on_the_ring_on_cpu_tensors(host_sweeps, one_thread, key, visc,
+                                                        bf16):
+    """3D J2's residual and assemble at the untiled shapes of
+    J2_UNTILED_3D_SHAPES, inviscid and viscous, with a float32 or bfloat16
+    block, on 40 elements (a full tile of 32 and a ragged one of 8) of a
+    random plastic history (Johnson-Cook, yield stress 5): against the plain
+    versions at the smoke's bars; inviscid equal to the bit to the
+    one-thread kernel (dense_residual_kernel, built beside it), which the
+    residual and the float32 assemble left for dense_ring_kernel (one thread
+    per element, the point's dN and N rows copied ahead into the thread's
+    column of shared memory: the same operations in the same order, the
+    rows read from shared memory instead of device memory).  The viscous
+    ones and the bfloat16 assemble stay on the one-thread kernel."""
+    mat = _material("J2")
+    mat.hardening.A = 5.0
+    prob = _finite_tile_problem(key, mat)
+    f = _plastic_inputs(prob, np.random.default_rng(32), 0.002)
+    u_el, a_el, _, _, state = f
+    dN, N, wq, E = prob.dense["dN_t"], prob.dense["N_t"], prob.wdet_t, prob.n_el
+    share = _plastic_share(mat, soa.add_diag(tsw.dense_grad(u_el, dN), 1.0), state)
+    assert 0.05 < share < 0.95, share
+    _hold_host_sweeps(host_sweeps, prob, f, visc, bf16, matvec=False)
+    if visc:
+        return
+    args = (u_el, a_el, state, dN, N, wq, mat, 0.05, float(mat.density))
+    ct = torch.bfloat16 if bf16 else torch.float32
+    y = host_sweeps._dense_sweep(False, *args)
+    y_a, C = host_sweeps._dense_sweep(True, *args, c_dtype=ct)
+    _, prm, mat_id, st = tsw._material_args(mat, state, 0.05, float(mat.density), 3, key[2], E,
+                                            torch.device("cpu"), "dense")
+    lib = one_thread("sweeps_dense_j2.cu", key)
+    y1, y1_a, C1 = torch.empty_like(y), torch.empty_like(y_a), torch.empty(C.shape)
+    head = (_ptr(u_el), _ptr(a_el), _ptr(dN), _ptr(N), _ptr(wq), *st)
+    assert lib.one_thread_sweep(*head, _ptr(y1), _ptr(None), 0, 0, prm, mat_id, E) == 0
+    assert lib.one_thread_sweep(*head, _ptr(y1_a), _ptr(C1), 1, 0, prm, mat_id, E) == 0
+    assert torch.equal(y, y1) and torch.equal(y_a, y1_a) and torch.equal(C, C1.to(ct))
