@@ -678,13 +678,15 @@ def check_ptxas(kbuild, keys, label="2. ptxas"):
     """Build seconds of each library of `keys` ((kind, shape) of
     ops/build.py), and registers, shared memory and spills of every
     instantiation of the sf kernel templates (sf_common.cuh sf_tile_kernel:
-    one thread per element and point slot, up to p = 3;
-    sf_axis_residual_kernel and sf_axis_matvec_kernel, the residual and
-    assemble and the matvec from p = 4 on) in them; fails where a matvec
-    (SfMatvecPoint or sf_axis_matvec_kernel, any storage) or a J2-family
-    Cauchy (J2Mat) or hyperelastic (Hyper) residual or assemble spills, with
-    its own or the full block, at any shape.  The finite-strain ones (J2SimoMat,
-    J2LogMat: 9 dual-number passes per point) and the dense kernels with the
+    one thread per element and point slot, up to p = 3; sf_dealt_kernel,
+    J2Log's and J2Simo's viscous assemble at p = 2; sf_axis_residual_kernel and
+    sf_axis_matvec_kernel, the residual and assemble and the matvec from
+    p = 4 on) in them; fails where a matvec (SfMatvecPoint or
+    sf_axis_matvec_kernel, any storage) or a J2-family Cauchy (J2Mat) or
+    hyperelastic (Hyper) residual or assemble spills, with its own or the
+    full block, at any shape, or sf_dealt_kernel (9 dual-number columns
+    per point).  J2Simo's and J2Log's residuals, their other assembles and
+    the dense kernels with the
     full block, tiled (dense_residual_tile_kernel, dense_matvec_tile_kernel,
     the fused pair's dense_tile_kernel), on point slots (dense_slot_kernel)
     or at a shape outside the defaults, 3D J2's one thread per element with
@@ -710,7 +712,7 @@ def check_ptxas(kbuild, keys, label="2. ptxas"):
         return
     every = ptxas_entries("".join(logs), kbuild.nvcc())
     ents = {n: v for n, v in every.items()
-            if "sf_tile_kernel" in n or "sf_axis_" in n}
+            if "sf_tile_kernel" in n or "sf_axis_" in n or "sf_dealt_kernel" in n}
     if any(k[0] == "sf" for k in keys) and (
             not any("SfMatvecPoint" in n or "sf_axis_matvec_kernel" in n for n in ents)
             or not any("SfResidualPoint" in n or "sf_axis_residual_kernel" in n for n in ents)):
@@ -724,7 +726,7 @@ def check_ptxas(kbuild, keys, label="2. ptxas"):
             f"spill stores {v.get('spill_stores')} B, loads {v.get('spill_loads')} B, stack "
             f"{v.get('stack')} B")
         if spilled and ("SfMatvecPoint" in name or "sf_axis_matvec_kernel" in name
-                        or "J2Mat" in name or "Hyper" in name):
+                        or "J2Mat" in name or "Hyper" in name or "sf_dealt_kernel" in name):
             fail(f"{name} spills {spilled} B")
     # the other kernels with the full block (the dense residual and matvec),
     # tiled, at a new dense shape or with a bfloat16 dense block: printed,
@@ -3269,6 +3271,20 @@ def drive_press(torch, mt, sweeps, prob, label, step_kw, timed=None, engaged_eac
     return carry, step, s_step, launches, sd
 
 
+def press_state(torch, sh, prob, carry, dt, gen):
+    """The element fields of a press's path state, as its next Newton
+    system's first residual and assemble see them: the predictor's u and v
+    from the carry, a, the carry's state, and a random w (hold_viscous's
+    fields)."""
+    g, _ = sh._gather_scatter(prob)
+    fc = prob.facs
+    xa = carry["u"] + (carry["v"] + fc["fac0"] * dt * carry["a"]) * fc["fac1"] * dt
+    va = carry["v"] + fc["fac2"] * dt * carry["a"]
+    u_el = g(xa)
+    return {"u_el": u_el, "a_el": g(carry["a"]), "v_el": g(va), "state": carry["state"],
+            "w_el": torch.randn(*u_el.shape, generator=gen).to(u_el.device, prob.dtype)}
+
+
 def press_kernel_names(sweeps, prob, step_kw):
     """Counter names (residual, assemble, matvec) of a press's viscous
     kernels, with the block of step_kw's matvec_dtype."""
@@ -4223,13 +4239,7 @@ def finite_press_paths(torch, mt, sweeps, soa, sh, device, gen):
                 f"{float((eqps > 0).float().mean()):.4f}")
             if not float(eqps.max()) > 0.0:
                 fail(f"{label}: no point yielded")
-            g, _ = sh._gather_scatter(prob)
-            fc = prob.facs
-            xa = carry["u"] + (carry["v"] + fc["fac0"] * dt * carry["a"]) * fc["fac1"] * dt
-            va = carry["v"] + fc["fac2"] * dt * carry["a"]
-            f = {"u_el": g(xa), "a_el": g(carry["a"]), "v_el": g(va), "state": carry["state"],
-                 "w_el": torch.randn(*g(xa).shape, generator=gen).to(device, prob.dtype)}
-            del xa, va
+            f = press_state(torch, sh, prob, carry, dt, gen)
             J = torch.linalg.det(soa.add_diag(grad_of(sweeps, prob, f["u_el"]), 1.0)
                                  .permute(2, 3, 0, 1))
             inverted = int((J <= 0).sum())

@@ -1075,21 +1075,12 @@ __global__ void __launch_bounds__(MatvecTile<S>::THREADS, MatvecTile<S>::MIN_BLO
 // (3, 216, 343)), the fields are staged in that order while they fit and
 // the rest read from device memory, one line a warp (SlotTile::staged).
 
-// whether a material's tangent is dealt over the warps as forward-mode
-// (point, column) passes after the round's float passes (kDealtTangent:
-// finite.cuh FiniteMat), rather than stored in the float pass
-template <class Mat, class = void>
-struct dealt_tangent : std::false_type {};
-template <class Mat>
-struct dealt_tangent<Mat, std::void_t<decltype(Mat::kDealtTangent)>>
-    : std::integral_constant<bool, Mat::kDealtTangent> {};
-
 template <class S>
 struct SlotTile {
   static constexpr int DIM = S::DIM, D2 = DIM * DIM, SLOTS = S::SLOTS;
   static constexpr int OWN_NODES = (S::ND + SLOTS - 1) / SLOTS;
   static constexpr int SUMS = DIM * OWN_NODES;  // a thread's output sums
-  static constexpr int PT = D2 + 3;             // a point's F, d*, r'(d*), flags
+  static constexpr int PT = D2 + 3;  // a point's F, d*, r'(d*), flags (FiniteMat::stage_point)
   static constexpr int THREADS = DTILE * SLOTS;
   // floats of a block's shared memory beside the staged fields: the
   // round's fluxes; the owners' sums; with dealt tangent passes, the
@@ -1184,12 +1175,7 @@ __global__ void __launch_bounds__(SlotTile<S>::THREADS,
         typename Mat::Point pt;
         mat.template eval<TANGENT>(F, qe, QE, X, pt);
         if constexpr (DEALT) {
-          float(*p)[DTILE] = pts[slot];
-#pragma unroll
-          for (int k = 0; k < D2; ++k) p[k][lane] = pt.F[k / DIM][k % DIM];
-          p[D2][lane] = pt.rm.dstar;
-          p[D2 + 1][lane] = pt.rm.fprime;
-          p[D2 + 2][lane] = (float)((pt.rm.active ? 1 : 0) + (pt.rm.log_bad ? 2 : 0));
+          Mat::stage_point(pt, pts[slot], lane);
         } else if constexpr (TANGENT) {
           Store::store(cout, qe, QE, mat, pt);
         }
@@ -1258,15 +1244,7 @@ __global__ void __launch_bounds__(SlotTile<S>::THREADS,
         for (int i = slot; i < left * D2; i += SLOTS) {
           const int s = i / D2, b = i % D2;
           const long long qe = (long long)(q0 + s) * E + e;
-          const float(*p)[DTILE] = pts[s];
-          typename Mat::Point pt;
-#pragma unroll
-          for (int k = 0; k < D2; ++k) pt.F[k / DIM][k % DIM] = p[k][lane];
-          pt.rm.dstar = p[D2][lane];
-          pt.rm.fprime = p[D2 + 1][lane];
-          const int flags = (int)p[D2 + 2][lane];
-          pt.rm.active = flags & 1;
-          pt.rm.log_bad = flags & 2;
+          const typename Mat::Point pt = Mat::staged_point(pts[s], lane);
           float col[D2];
           mat.column(pt, qe, QE, b, col);
 #pragma unroll

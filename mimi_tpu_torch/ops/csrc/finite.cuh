@@ -227,6 +227,31 @@ struct FiniteMat {
 #pragma unroll
     for (int a = 0; a < D2; ++a) col[a] = P[a / DIM][a % DIM].d;
   }
+  // a point's F and return map as kPointFloats floats p[k][lane] of shared
+  // memory, and back: the assembles hand them from the float pass to the
+  // tangent passes dealt over the warps (dense_common.cuh
+  // dense_slot_kernel, sf_common.cuh sf_dealt_kernel)
+  static constexpr int kPointFloats = D2 + 3;
+  template <int W>
+  __device__ __forceinline__ static void stage_point(const Point& pt, float (*p)[W], int lane) {
+#pragma unroll
+    for (int k = 0; k < D2; ++k) p[k][lane] = pt.F[k / DIM][k % DIM];
+    p[D2][lane] = pt.rm.dstar;
+    p[D2 + 1][lane] = pt.rm.fprime;
+    p[D2 + 2][lane] = (float)((pt.rm.active ? 1 : 0) + (pt.rm.log_bad ? 2 : 0));
+  }
+  template <int W>
+  __device__ __forceinline__ static Point staged_point(const float (*p)[W], int lane) {
+    Point pt;
+#pragma unroll
+    for (int k = 0; k < D2; ++k) pt.F[k / DIM][k % DIM] = p[k][lane];
+    pt.rm.dstar = p[D2][lane];
+    pt.rm.fprime = p[D2 + 1][lane];
+    const int flags = (int)p[D2 + 2][lane];
+    pt.rm.active = flags & 1;
+    pt.rm.log_bad = flags & 2;
+    return pt;
+  }
 };
 
 // J2Simo (materials/__init__.py J2Simo): state be_old, F_old (DIM, DIM,
@@ -237,6 +262,9 @@ struct FiniteMat {
 // tau = G dev(be) + K (J^2 - 1)/2 I.
 template <int DIM>
 struct J2SimoMat : FiniteMat<J2SimoMat<DIM>, DIM> {
+  // its sum-factorized inviscid assemble keeps its tangent passes in the
+  // point (sf_common.cuh sf_dealt)
+  static constexpr bool kSfDealtInviscid = false;
   J2Params p;
   const float *be_old, *F_old, *eqps, *temp;
 
@@ -300,6 +328,7 @@ struct J2SimoMat : FiniteMat<J2SimoMat<DIM>, DIM> {
 // version's (PERF.md).
 template <int DIM>
 struct J2LogMat : FiniteMat<J2LogMat<DIM>, DIM> {
+  static constexpr bool kSfDealtInviscid = true;  // sf_common.cuh sf_dealt
   J2Params p;
   const float *fp_inv, *eqps, *temp;
   int deep = 0;

@@ -24,6 +24,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 // Lame constants and density of a hyperelastic material (the C entry
 // points' parameter block; mirrored by ops/sweeps.py _HyperParams)
 struct HyperelasticParams {
@@ -268,6 +270,16 @@ struct Hyper {
     for (int a = 0; a < kDim * kDim; ++a) col[a] = pt(a, b);
   }
 };
+
+// whether a material's tangent is dealt over the warps as forward-mode
+// (point, column) passes after the round's float passes (kDealtTangent:
+// finite.cuh FiniteMat; dense_common.cuh dense_slot_kernel, sf_common.cuh
+// sf_dealt_kernel), rather than stored in the float pass
+template <class Mat, class = void>
+struct dealt_tangent : std::false_type {};
+template <class Mat>
+struct dealt_tangent<Mat, std::void_t<decltype(Mat::kDealtTangent)>>
+    : std::integral_constant<bool, Mat::kDealtTangent> {};
 
 // Whether a sweep kernel's launch with the material runs at all: always,
 // but for J2Log's second launch of a sweep (finite.cuh), which runs only

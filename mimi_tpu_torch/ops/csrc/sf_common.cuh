@@ -3,12 +3,14 @@
 // with the symmetric storage) and sweeps_sf_finite.cu (J2Simo and J2Log
 // with the full storage), for sm_90a: the 1D basis tables and the
 // interpolation of one element's fields at one point (the J2 return maps
-// are in j2.cuh, the storages in materials.cuh), and three kernel templates
+// are in j2.cuh, the storages in materials.cuh), and four kernel templates
 // with their launchers, all templated on the element's shape
 // SfShape<P1, NG> (P1 = p + 1 nodes and NG Gauss points per axis):
 // up to p = 3 sf_tile_kernel for the residual, the assemble and the
-// matvec; from p = 4 on sf_axis_residual_kernel (the residual and the
-// assemble) and sf_axis_matvec_kernel (the matvec), which contract one
+// matvec, and at p = 2 sf_dealt_kernel for the assemble of a material
+// whose tangent is forward-mode passes (J2Log, J2Simo viscous; its notes
+// are above it); from p = 4 on sf_axis_residual_kernel (the residual and
+// the assemble) and sf_axis_matvec_kernel (the matvec), which contract one
 // axis at a time (their notes are above them).  Each source instantiates
 // what it needs at the one shape its build defines (MIMI_SF_P1,
 // MIMI_SF_NG: ops/build.py compiles the three sources once per shape the
@@ -85,8 +87,10 @@ struct SfShape {
   static constexpr size_t tile_bytes(int nf) {
     return sizeof(float) * TILE * ((size_t)nf * NV + (size_t)SLOTS * NSTAGE);
   }
-  static constexpr int blocks(int nf) {
-    const size_t fit = SM_SHARED / (tile_bytes(nf) + BLOCK_RESERVED);
+  static constexpr int blocks(int nf) { return blocks_of(tile_bytes(nf)); }
+  // as many blocks of `bytes` as an SM's shared memory holds, at most MAX_BLOCKS
+  static constexpr int blocks_of(size_t bytes) {
+    const size_t fit = SM_SHARED / (bytes + BLOCK_RESERVED);
     return fit < (size_t)MAX_BLOCKS ? (fit < 1 ? 1 : (int)fit) : MAX_BLOCKS;
   }
 };
@@ -261,13 +265,48 @@ __device__ __forceinline__ void stage_flux(const float Z[3][3], const float mm[3
 // a (f[1]) and, viscous, v (f[2]), the basis values into st (so that only
 // jinv, grad v and a stay live across the material), the material and the
 // tangent planes, then the point's flux into st
+//
+// A material whose tangent is forward-mode passes (dealt_tangent: J2Simo,
+// J2Log) runs its assemble at p = 2 on sf_dealt_kernel instead (below),
+// but for J2Simo's inviscid one (kSfDealtInviscid): the point's float pass
+// hands its F and return map to shared memory after its flux (stage_point)
+// and stores no plane; its 9 tangent columns are dealt over the warps
+// (`tangent`).  There a is read from device memory, not staged.  At p = 3
+// the dealt kernel spilled more than this one, and J2Simo's inviscid one
+// spilled at (3, 3) once its round's points were added one at a time
+// (PERF.md).
+template <class S, class Mat, bool TANGENT, bool VISC>
+constexpr bool sf_dealt() {
+  if constexpr (TANGENT && dealt_tangent<Mat>::value)
+    return S::P1 == 3 && (VISC || Mat::kSfDealtInviscid);
+  else
+    return false;
+}
+template <class Mat>
+constexpr int point_floats() {  // a point's F and return map (stage_point)
+  if constexpr (dealt_tangent<Mat>::value)
+    return Mat::kPointFloats;
+  else
+    return 0;
+}
+
 template <class S, class Mat, class Store, bool TANGENT, bool VISC, typename CT>
 struct SfResidualPoint {
-  static constexpr int NF = VISC ? 3 : 2;
-  static constexpr int MIN_BLOCKS = S::blocks(NF);
+  static constexpr bool DEALT = sf_dealt<S, Mat, TANGENT, VISC>();
+  static constexpr bool A_STAGED = !DEALT;  // a staged beside u (and v)
+  static constexpr int NF = 1 + A_STAGED + VISC;
+  // floats a slot hands to the round's reduction: its basis values and
+  // flux, and with dealt tangent passes its F and return map
+  static constexpr int STAGE = S::NSTAGE + (DEALT ? point_floats<Mat>() : 0);
+  // shared memory of sf_dealt_kernel's block: the staged fields, the
+  // slots' STAGE floats and the owners' sums (DealtShared)
+  static constexpr size_t DEALT_BYTES =
+      sizeof(float) * TILE * ((size_t)NF * S::NV + (size_t)S::SLOTS * (STAGE + S::OWN));
+  static constexpr int MIN_BLOCKS = DEALT ? S::blocks_of(DEALT_BYTES) : S::blocks(NF);
   using Block = CT;
   Mat mat;
   float rho, mu_v;
+  const float* a_el = nullptr;  // a in device memory, where not staged
   __device__ __forceinline__ bool runs() const { return launch_runs(mat); }
   __device__ __forceinline__ void operator()(Staged<S> f, int lane, int q, long long e,
                                              long long E, const Tables& tb,
@@ -284,9 +323,13 @@ struct SfResidualPoint {
       float vdum[3];
       interp_grad<false>([&](int c, int n) { return f[0][c * ND + n][lane]; }, s, ji, F, vdum);
       if constexpr (VISC)
-        interp_grad<false>([&](int c, int n) { return f[2][c * ND + n][lane]; }, s, ji, dV,
-                           vdum);
-      interp_value([&](int c, int n) { return f[1][c * ND + n][lane]; }, s, av);
+        interp_grad<false>([&](int c, int n) { return f[A_STAGED ? 2 : 1][c * ND + n][lane]; },
+                           s, ji, dV, vdum);
+      if constexpr (A_STAGED)
+        interp_value([&](int c, int n) { return f[1][c * ND + n][lane]; }, s, av);
+      else
+        interp_value([&](int c, int n) { return __ldg(a_el + (long long)(c * ND + n) * E + e); },
+                     s, av);
       stage_basis(s, lane, st);
     }
     F[0][0] += 1.f;
@@ -297,7 +340,10 @@ struct SfResidualPoint {
     {  // the point's tangent data is dead before the flux is formed
       typename Mat::Point pt;
       mat.template eval<TANGENT>(F, qe, QE, P, pt);
-      if constexpr (TANGENT) Store::store(cout, qe, QE, mat, pt);
+      if constexpr (DEALT)
+        Mat::stage_point(pt, st + S::NSTAGE, lane);
+      else if constexpr (TANGENT)
+        Store::store(cout, qe, QE, mat, pt);
     }
     if constexpr (VISC) {
 #pragma unroll
@@ -309,6 +355,18 @@ struct SfResidualPoint {
     float Z[3][3], mm[3];
     point_flux(ji, __ldg(wq + qe), P, m, Z, mm);
     stage_flux<S>(Z, mm, lane, st);
+  }
+  // column b of point q's tangent (DEALT): one forward-mode pass from the
+  // point's F and return map at p (stage_point), stored as the 9 planes
+  // (a 9 + b) QE + qe, one line a warp each
+  __device__ __forceinline__ void tangent(const float (*p)[TILE], int lane, int q, long long e,
+                                          long long E, int b, CT* __restrict__ cout) const {
+    constexpr int D2 = 9;
+    const long long QE = (long long)S::NQ * E, qe = (long long)q * E + e;
+    float col[D2];
+    mat.column(Mat::staged_point(p, lane), qe, QE, b, col);
+#pragma unroll
+    for (int a = 0; a < D2; ++a) store_c(cout + (a * D2 + b) * QE + qe, col[a]);
   }
 };
 
@@ -387,9 +445,9 @@ __device__ __forceinline__ void add_point(float (&acc)[S::OWN], const float (*p)
 // the round's SLOTS points, in slot (= q) order (add_point).  `left` is the
 // round's points still to add (NQ - q0): where SLOTS does not divide NQ
 // (p = 3: 125 points) the last round is partial
-template <class S, int W>
-__device__ __forceinline__ void add_round(float (&acc)[S::OWN],
-                                          float (*pt)[S::NSTAGE][TILE], int lane, int left) {
+template <class S, int W, int R = S::NSTAGE>
+__device__ __forceinline__ void add_round(float (&acc)[S::OWN], float (*pt)[R][TILE], int lane,
+                                          int left) {
 #pragma unroll
   for (int s = 0; s < S::SLOTS; ++s) {
     if constexpr (S::NQ % S::SLOTS != 0) {
@@ -400,17 +458,17 @@ __device__ __forceinline__ void add_round(float (&acc)[S::OWN],
 }
 
 // add_round<slot>, the slot known at compile time in each branch (the
-// branch is uniform across a warp)
-template <class S, int W = 0>
-__device__ __forceinline__ void add_round_of(int slot, float (&acc)[S::OWN],
-                                             float (*pt)[S::NSTAGE][TILE], int lane, int left) {
+// branch is uniform across a warp); a slot's values are R floats a lane
+template <class S, int W = 0, int R = S::NSTAGE>
+__device__ __forceinline__ void add_round_of(int slot, float (&acc)[S::OWN], float (*pt)[R][TILE],
+                                             int lane, int left) {
   if constexpr (W + 1 < S::SLOTS) {
     if (slot != W) {
-      add_round_of<S, W + 1>(slot, acc, pt, lane, left);
+      add_round_of<S, W + 1, R>(slot, acc, pt, lane, left);
       return;
     }
   }
-  add_round<S, W>(acc, pt, lane, left);
+  add_round<S, W, R>(acc, pt, lane, left);
 }
 
 // y[c][n] = sum_q (dN[n](q) . Z(q) + N[n](q) mm(q)) over the element's
@@ -471,6 +529,103 @@ int launch_sf_tile(const Pt& point, const float* f0, const float* f1, const floa
   const unsigned tiles = (unsigned)((E + TILE - 1) / TILE);
   sf_tile_kernel<S, Pt><<<tiles, TILE * S::SLOTS, smem, (cudaStream_t)stream>>>(
       point, f0, f1, f2, tb, jinv, wq, block, out, E);
+  return (int)cudaGetLastError();
+}
+
+// ---- sf_dealt_kernel: the assemble with forward-mode tangent passes -----------------
+//
+// The assemble of J2Log and J2Simo's viscous one at p = 2 (sf_dealt: at
+// p = 3 it spilled more than sf_tile_kernel).  sf_tile_kernel ran their
+// 9 tangent passes inside the point, after its float pass, with the
+// owners' OWN output sums live in registers through them (21 floats at
+// p = 2, 48 at p = 3; beside jinv, a and grad v): at 128 registers J2Log's
+// spilled 520 B.  Here, as in dense_common.cuh dense_slot_kernel, a block
+// takes the same tile of TILE elements in SLOTS warps and runs the NQ
+// points in rounds of SLOTS: warp s runs the float pass of point q0 + s
+// (SfResidualPoint: F, the material, the flux) and hands its basis
+// values, flux, F and return map to shared memory (STAGE floats a lane);
+// after a barrier each thread adds the round's points, in q order, to the
+// sums of the nodes it owns (add_round: the same operations in the same
+// order as sf_tile_kernel's, so the residual is its residual to the bit),
+// held in registers for the round's additions only and in shared memory
+// between rounds; then the round's points' 9 tangent columns (each a
+// forward-mode pass, SfResidualPoint::tangent) are dealt over the block's
+// warps, no output sum live during them.  The fields u (and v) are staged;
+// a is read from device memory, one line a warp, so that the tile keeps
+// four blocks an SM: shared memory 42.5 KB a block, 53.0 KB viscous.
+template <class S, int NF, int STAGE>
+struct DealtShared {
+  float f[NF][S::NV][TILE];
+  float pt[S::SLOTS][STAGE][TILE];
+  float sums[S::SLOTS][S::OWN][TILE];
+};
+
+template <class S, class Pt>
+__global__ void __launch_bounds__(TILE * S::SLOTS, Pt::MIN_BLOCKS)
+    sf_dealt_kernel(Pt point, const float* __restrict__ f0, const float* __restrict__ f1,
+                    Tables tb, const float* __restrict__ jinv, const float* __restrict__ wq,
+                    typename Pt::Block* __restrict__ block, float* __restrict__ out,
+                    long long E) {
+  constexpr int NF = Pt::NF, NV = S::NV, ND = S::ND, OWN = S::OWN, SLOTS = S::SLOTS;
+  constexpr int STAGE = Pt::STAGE;
+  using Tile = DealtShared<S, NF, STAGE>;
+  MIMI_DYNAMIC_SHARED(Tile, tile);
+  Tile& sh = *tile;
+  if (!point.runs()) return;  // the whole launch: J2Log's deep one where no point needs it
+  const float* const fields[2] = {f0, f1};
+  const int lane = threadIdx.x % TILE, slot = threadIdx.x / TILE;
+  const long long e = (long long)blockIdx.x * TILE + lane;
+  const bool live = e < E;  // the last tile is ragged where E % TILE != 0
+  for (int r = slot; r < NV; r += SLOTS) {
+    const long long off = (long long)r * E + e;
+#pragma unroll
+    for (int k = 0; k < NF; ++k) sh.f[k][r][lane] = live ? __ldg(fields[k] + off) : 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < OWN; ++k) sh.sums[slot][k][lane] = 0.f;
+  __syncthreads();
+#pragma unroll 1
+  for (int q0 = 0; q0 < S::NQ; q0 += SLOTS) {
+    // the round's points: SLOTS, fewer in a partial last round (p = 3)
+    const int left = S::NQ - q0 < SLOTS ? S::NQ - q0 : SLOTS;
+    if (live && slot < left)
+      point(sh.f, lane, q0 + slot, e, E, tb, jinv, wq, block, sh.pt[slot]);
+    __syncthreads();
+    if (live) {
+      float acc[OWN];
+#pragma unroll
+      for (int k = 0; k < OWN; ++k) acc[k] = sh.sums[slot][k][lane];
+      add_round_of<S, 0, STAGE>(slot, acc, sh.pt, lane, S::NQ - q0);
+#pragma unroll
+      for (int k = 0; k < OWN; ++k) sh.sums[slot][k][lane] = acc[k];
+#pragma unroll 1
+      for (int i = slot; i < left * 9; i += SLOTS)
+        point.tangent(sh.pt[i / 9] + S::NSTAGE, lane, q0 + i / 9, e, E, i % 9, block);
+    }
+    __syncthreads();  // the round's points are read before the next overwrites them
+  }
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < S::OWN_NODES; ++j) {
+      const int n = slot + SLOTS * j;
+      if (n < ND)
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          out[(long long)(c * ND + n) * E + e] = sh.sums[slot][3 * j + c][lane];
+    }
+  }
+}
+
+template <class S, class Pt>
+int launch_sf_dealt(const Pt& point, const float* u_el, const float* v_el, const Tables& tb,
+                    const float* jinv, const float* wq, typename Pt::Block* block, float* out,
+                    long long E, void* stream) {
+  constexpr size_t smem = sizeof(DealtShared<S, Pt::NF, Pt::STAGE>);
+  static_assert(smem == Pt::DEALT_BYTES && smem <= BLOCK_SMEM_MAX, "DealtShared's bytes");
+  if (const int err = allow_dynamic_smem<sf_dealt_kernel<S, Pt>>(smem)) return err;
+  const unsigned tiles = (unsigned)((E + TILE - 1) / TILE);
+  sf_dealt_kernel<S, Pt><<<tiles, TILE * S::SLOTS, smem, (cudaStream_t)stream>>>(
+      point, u_el, v_el, tb, jinv, wq, block, out, E);
   return (int)cudaGetLastError();
 }
 
@@ -1058,9 +1213,14 @@ int launch_residual(const float* u_el, const float* a_el, const float* v_el,
             mat, rho, mu_v, u_el, a_el, v_el, tb, jinv, wq, static_cast<CT*>(cout), out, E);
     return (int)cudaGetLastError();
   } else {
-    const SfResidualPoint<S, Mat, Store, TANGENT, VISC, CT> point{mat, rho, mu_v};
-    return launch_sf_tile<S>(point, u_el, a_el, v_el, tb, jinv, wq, static_cast<CT*>(cout),
-                             out, E, stream);
+    using Pt = SfResidualPoint<S, Mat, Store, TANGENT, VISC, CT>;
+    const Pt point{mat, rho, mu_v, a_el};
+    if constexpr (Pt::DEALT)
+      return launch_sf_dealt<S>(point, u_el, v_el, tb, jinv, wq, static_cast<CT*>(cout), out, E,
+                                stream);
+    else
+      return launch_sf_tile<S>(point, u_el, a_el, v_el, tb, jinv, wq, static_cast<CT*>(cout),
+                               out, E, stream);
   }
 }
 

@@ -3,8 +3,8 @@
 //
 // Replaces the `full` branch of three Pallas TPU kernels of
 // mimi_tpu/ops/sweeps.py on the sum-factorized tables:
-//   SfResidualPoint<J2SimoMat<3> | J2LogMat<3>, FullStorage<3>, false, VISC, float>  <- make_residual_sweep (sf_mode)
-//   SfResidualPoint<J2SimoMat<3> | J2LogMat<3>, FullStorage<3>, true, VISC, CT>      <- make_assemble_sweep (sf, full, :620-648)
+//   sf_tile_kernel<SfResidualPoint<J2SimoMat<3> | J2LogMat<3>, FullStorage<3>, false, VISC, float>>  <- make_residual_sweep (sf_mode)
+//   sf_dealt_kernel | sf_tile_kernel<SfResidualPoint<J2SimoMat<3> | J2LogMat<3>, FullStorage<3>, true, VISC, CT>>  <- make_assemble_sweep (sf, full, :620-648)
 //   SfMatvecPoint<FullStorage<3>, VISC, CT>                                           <- make_matvec_sweep_sf (full, :820-836)
 // C entry points mimi_residual_sf_finite, mimi_assemble_sf_finite
 // (`material`: 0 J2Simo, 1 J2Log) and mimi_matvec_sf_full (the matvec of
@@ -26,13 +26,18 @@
 // (20.7 KB per element in float32, 10.4 KB in bfloat16: 2.29 / 1.15 GB at
 // 48^3) plus jinv once per GMRES iteration, bandwidth bound (~0.8 / ~0.45
 // ms at 3.35 TB/s).  The assemble writes the same block and runs the
-// material 10 times per point (float + 9 dual passes; J2Log's ~50 3 x 3
-// inverses and products per pass), so it may turn compute bound; plastic
-// points add the radial return's trips (at most 40) once, in the float
-// pass.  The viscous residual stages v in shared memory beside u and a
-// (46.5 KB a block).  A J2Log sweep is two launches, the fast log series
-// and, where a point of it left the series' range, the deep one for every
-// point (finite.cuh; the second returns at once otherwise).
+// material's float pass and 9 columns of forward-mode passes per point
+// (J2Log's ~50 3 x 3 inverses and products per pass): operations bound;
+// plastic points add the radial return's trips (at most 40) once, in the
+// float pass.  At p = 2 J2Log's assemble and J2Simo's viscous one run on
+// sf_common.cuh sf_dealt_kernel: the points' float passes in rounds of
+// four, the sums of the round added by their owners and kept in shared
+// memory, then the round's 9 tangent columns a point, each a forward-mode
+// pass (finite.cuh), dealt over the block's warps with no output sum live;
+// the others and the residual on sf_tile_kernel.  A J2Log sweep is two
+// launches, the fast log series and, where a point of it left the series'
+// range, the deep one for every point (finite.cuh; the second returns at
+// once otherwise).
 
 #include "finite.cuh"
 #include "sf_common.cuh"
